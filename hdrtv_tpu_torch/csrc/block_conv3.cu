@@ -10,28 +10,32 @@
 // keeps every input element read ~9 times from shared memory rather than
 // from HBM. The TPU kernel's a_sub zero-tap skip and its int8 and pool_out
 // forms are not ported; the dense product gives the same result on the
-// s2d-transformed weights.
+// s2d-transformed weights. The bf16 instance (bf16 x, w, skip, y; fp32 bias)
+// runs the same tile on the tensor cores (conv3x3_mma_kernel: mma.sync bf16,
+// fp32 accumulation), where the card's bf16 rate puts the call's bound at its
+// bytes; what holds it back there is the tile's one-stage operand staging.
 #include "conv3x3.cuh"
+
+namespace {
+
+template <typename T>
+int block_conv3(const void* x, const void* w, const void* b, const void* skip, void* y, int H,
+                int W, int C, int Co, int relu, void* stream) {
+  return static_cast<int>(hdrtv::conv_same<T, T, T>(
+      x, w, static_cast<const float*>(b), skip, nullptr, y, H, W, C, Co,
+      relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE, static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
 
 extern "C" int hdrtv_block_conv3_f32(const void* x, const void* w, const void* b,
                                      const void* skip, void* y, int H, int W, int C, int Co,
                                      int relu, void* stream) {
-  hdrtv::ConvArgs a;
-  a.x = x;
-  a.w = w;
-  a.b = static_cast<const float*>(b);
-  a.skip = skip;
-  a.skip2 = nullptr;
-  a.y = y;
-  a.H = H;
-  a.W = W;
-  a.Ho = H;
-  a.Wo = W;
-  a.cf = C;
-  a.ch0 = 0;
-  a.C = C;
-  a.Co = Co;
-  a.act = relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE;
-  return static_cast<int>(
-      hdrtv::launch_conv3x3<float, 1>(a, static_cast<cudaStream_t>(stream)));
+  return block_conv3<float>(x, w, b, skip, y, H, W, C, Co, relu, stream);
+}
+
+extern "C" int hdrtv_block_conv3_bf16(const void* x, const void* w, const void* b,
+                                      const void* skip, void* y, int H, int W, int C, int Co,
+                                      int relu, void* stream) {
+  return block_conv3<hdrtv::bf16>(x, w, b, skip, y, H, W, C, Co, relu, stream);
 }

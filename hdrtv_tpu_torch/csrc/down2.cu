@@ -11,11 +11,14 @@
 // slice the TPU kernel keeps out of HBM with its BlockSpecs never exists
 // here either. The product is dense: right for any weight, where the TPU
 // kernel relies on w_s2d_s2's structural zeros to skip a third of its taps.
+// The bf16 instance runs the tile on the tensor cores (conv3x3_mma_kernel).
 #include "conv3x3.cuh"
 
-extern "C" int hdrtv_down2_f32(const void* x, const void* w, const void* b, void* y, int H,
-                               int W, int cf, int ch0, int cin, int Co, int act,
-                               void* stream) {
+namespace {
+
+template <typename T>
+int down2(const void* x, const void* w, const void* b, void* y, int H, int W, int cf, int ch0,
+          int cin, int Co, int act, void* stream) {
   hdrtv::ConvArgs a;
   a.x = x;
   a.w = w;
@@ -33,5 +36,19 @@ extern "C" int hdrtv_down2_f32(const void* x, const void* w, const void* b, void
   a.Co = Co;
   a.act = act;
   return static_cast<int>(
-      hdrtv::launch_conv3x3<float, 2>(a, static_cast<cudaStream_t>(stream)));
+      hdrtv::launch_conv3x3<T, T, T, 2>(a, static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+extern "C" int hdrtv_down2_f32(const void* x, const void* w, const void* b, void* y, int H,
+                               int W, int cf, int ch0, int cin, int Co, int act,
+                               void* stream) {
+  return down2<float>(x, w, b, y, H, W, cf, ch0, cin, Co, act, stream);
+}
+
+extern "C" int hdrtv_down2_bf16(const void* x, const void* w, const void* b, void* y, int H,
+                                int W, int cf, int ch0, int cin, int Co, int act,
+                                void* stream) {
+  return down2<hdrtv::bf16>(x, w, b, y, H, W, cf, ch0, cin, Co, act, stream);
 }

@@ -17,9 +17,17 @@
 // a 9-conv halo that would not fit shared memory at 240 columns × 32
 // channels. The residual add and the stage skip ride in the conv epilogue;
 // the running x is updated in place. A 32-channel conv uses a quarter of a
-// 128-wide tile (Co is masked).
+// 128-wide tile (Co is masked). Both element types run the FMA tile: the
+// weights come from the fp32 parameter block.
 //
-// Parameter block (fp32, packed by ops/megakernel.py _trunk3_pack), for each
+// Element types: fea3, cond, the output and the three scratch buffers are T
+// (float or bf16); the parameter block is fp32 for both (for bf16 it holds
+// weights already rounded to bf16, so every product is the TPU kernel's).
+// Rounding points as in _trunk3_kernel: the SFT's hidden activations, t, h,
+// the running x after each resblock, and the stage-skip sum before up_conv1
+// are each stored in T; sums are fp32.
+//
+// Parameter block (fp32, packed by ops/megakernel.py trunk3_pack), for each
 // of the 4 resblocks: sft1, conv1 w (3,3,C,C), conv1 b (C), sft2, conv2 w,
 // conv2 b; then up_conv1 w (3,3,C,Co) and b (Co). An sft is
 //     w0s (CC,CC) b0s (CC) w1s (CC,C) b1s (C) w0h (CC,CC) b0h (CC) w1h (CC,C) b1h (C)
@@ -48,7 +56,7 @@ __global__ void sft_kernel(const T* __restrict__ x, const T* __restrict__ cond,
   constexpr int kBranch = CC * CC + CC + CC * C + C;
   float cv[CC];
 #pragma unroll
-  for (int i = 0; i < CC; ++i) cv[i] = static_cast<float>(cond[static_cast<long long>(p) * CC + i]);
+  for (int i = 0; i < CC; ++i) cv[i] = to_float<T>(cond[static_cast<long long>(p) * CC + i]);
   float hid[2][CC];
 #pragma unroll
   for (int br = 0; br < 2; ++br) {
@@ -59,7 +67,7 @@ __global__ void sft_kernel(const T* __restrict__ x, const T* __restrict__ cond,
       float v = b0[j];
 #pragma unroll
       for (int i = 0; i < CC; ++i) v = fmaf(cv[i], w0[i * CC + j], v);
-      hid[br][j] = v >= 0.f ? v : v * 0.1f;
+      hid[br][j] = round_to<T>(v >= 0.f ? v : v * 0.1f);
     }
   }
   const float* w1s = sp + CC * CC + CC;
@@ -74,7 +82,7 @@ __global__ void sft_kernel(const T* __restrict__ x, const T* __restrict__ cond,
       shift = fmaf(hid[1][j], w1h[j * C + n], shift);
     }
     const long long o = static_cast<long long>(p) * C + n;
-    t[o] = static_cast<T>(static_cast<float>(x[o]) * (scale + 1.f) + shift);
+    t[o] = static_cast<T>(to_float<T>(x[o]) * (scale + 1.f) + shift);
   }
 }
 
@@ -90,23 +98,44 @@ cudaError_t launch_sft(const T* x, const T* cond, const float* prm, T* t, int np
 template <typename T>
 cudaError_t conv(const T* x, const float* w, const T* skip, const T* skip2, T* y, int H, int W,
                  int C, int Co, int act, cudaStream_t stream) {
-  ConvArgs a;
-  a.x = x;
-  a.w = w;
-  a.b = w + 9LL * C * Co;
-  a.skip = skip;
-  a.skip2 = skip2;
-  a.y = y;
-  a.H = H;
-  a.W = W;
-  a.Ho = H;
-  a.Wo = W;
-  a.cf = C;
-  a.ch0 = 0;
-  a.C = C;
-  a.Co = Co;
-  a.act = act;
-  return launch_conv3x3<T, 1>(a, stream);
+  return conv_same<T, float, T>(x, w, w + 9LL * C * Co, skip, skip2, y, H, W, C, Co, act, stream);
+}
+
+// scratch: 3 · H · W · C elements of T (t, h and the running x).
+template <typename T>
+int trunk3(const void* fea3, const void* cond, const void* params, void* y, void* scratch, int H,
+           int W, int C, int CC, int Co, void* stream) {
+  if (C != kC || CC != kCC) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int npix = H * W;
+  const T* f = static_cast<const T*>(fea3);
+  const T* c = static_cast<const T*>(cond);
+  const float* prm = static_cast<const float*>(params);
+  T* t = static_cast<T*>(scratch);
+  T* h = t + static_cast<long long>(npix) * C;
+  T* xr = h + static_cast<long long>(npix) * C;
+  const long long sft_n = sft_floats(CC, C);
+  const long long conv_n = conv_floats(C, C);
+
+  const T* xin = f;
+  cudaError_t err = cudaSuccess;
+  for (int blk = 0; blk < 4 && err == cudaSuccess; ++blk) {
+    const float* sft1 = prm;
+    const float* conv1 = sft1 + sft_n;
+    const float* sft2 = conv1 + conv_n;
+    const float* conv2 = sft2 + sft_n;
+    prm = conv2 + conv_n;
+    err = launch_sft<T>(xin, c, sft1, t, npix, s);
+    if (err == cudaSuccess) err = conv<T>(t, conv1, nullptr, nullptr, h, H, W, C, C, ACT_RELU, s);
+    if (err == cudaSuccess) err = launch_sft<T>(h, c, sft2, t, npix, s);
+    // x = x + conv2(t); the last block also adds the stage skip fea3.
+    if (err == cudaSuccess)
+      err = conv<T>(t, conv2, xin, blk == 3 ? f : nullptr, xr, H, W, C, C, ACT_NONE, s);
+    xin = xr;
+  }
+  if (err == cudaSuccess)
+    err = conv<T>(xr, prm, nullptr, nullptr, static_cast<T*>(y), H, W, C, Co, ACT_RELU, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -120,44 +149,14 @@ extern "C" long long hdrtv_trunk3_param_floats(int C, int CC, int Co) {
          hdrtv::conv_floats(C, Co);
 }
 
-// scratch: 3 · H · W · C floats (t, h and the running x).
 extern "C" int hdrtv_trunk3_f32(const void* fea3, const void* cond, const void* params, void* y,
                                 void* scratch, int H, int W, int C, int CC, int Co,
                                 void* stream) {
-  using hdrtv::ACT_NONE;
-  using hdrtv::ACT_RELU;
-  if (C != hdrtv::kC || CC != hdrtv::kCC) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int npix = H * W;
-  const float* f = static_cast<const float*>(fea3);
-  const float* c = static_cast<const float*>(cond);
-  const float* prm = static_cast<const float*>(params);
-  float* t = static_cast<float*>(scratch);
-  float* h = t + static_cast<long long>(npix) * C;
-  float* xr = h + static_cast<long long>(npix) * C;
-  const long long sft_n = hdrtv::sft_floats(CC, C);
-  const long long conv_n = hdrtv::conv_floats(C, C);
+  return hdrtv::trunk3<float>(fea3, cond, params, y, scratch, H, W, C, CC, Co, stream);
+}
 
-  const float* xin = f;
-  cudaError_t err = cudaSuccess;
-  for (int blk = 0; blk < 4 && err == cudaSuccess; ++blk) {
-    const float* sft1 = prm;
-    const float* conv1 = sft1 + sft_n;
-    const float* sft2 = conv1 + conv_n;
-    const float* conv2 = sft2 + sft_n;
-    prm = conv2 + conv_n;
-    err = hdrtv::launch_sft<float>(xin, c, sft1, t, npix, s);
-    if (err == cudaSuccess)
-      err = hdrtv::conv<float>(t, conv1, nullptr, nullptr, h, H, W, C, C, ACT_RELU, s);
-    if (err == cudaSuccess) err = hdrtv::launch_sft<float>(h, c, sft2, t, npix, s);
-    // x = x + conv2(t); the last block also adds the stage skip fea3.
-    if (err == cudaSuccess)
-      err = hdrtv::conv<float>(t, conv2, xin, blk == 3 ? f : nullptr, xr, H, W, C, C, ACT_NONE,
-                               s);
-    xin = xr;
-  }
-  if (err == cudaSuccess)
-    err = hdrtv::conv<float>(xr, prm, nullptr, nullptr, static_cast<float*>(y), H, W, C, Co,
-                             ACT_RELU, s);
-  return static_cast<int>(err);
+extern "C" int hdrtv_trunk3_bf16(const void* fea3, const void* cond, const void* params, void* y,
+                                 void* scratch, int H, int W, int C, int CC, int Co,
+                                 void* stream) {
+  return hdrtv::trunk3<hdrtv::bf16>(fea3, cond, params, y, scratch, H, W, C, CC, Co, stream);
 }

@@ -21,7 +21,13 @@ Params = dict  # flat: str -> torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class Policy:
-    """Precision policy: params stay fp32; compute happens in ``compute_dtype``.
+    """Precision policy: compute happens in ``compute_dtype``. Parameters are
+    cast once at load (``models/s2d.py params_to_torch``); ``cast`` on a tensor
+    that already has the dtype returns it as it is.
+
+    Under ``BF16`` every torch op rounds its result to bf16, as the JAX
+    package's lax ops do with ``preferred_element_type=bf16``: a convolution
+    or matmul sums in fp32 and rounds, and its bias is then added in bf16.
 
     ``exact_fp32`` is the counterpart of the JAX F32 preset's
     ``Precision.HIGHEST``: torch convolutions and matmuls on the card run in
@@ -38,7 +44,11 @@ class Policy:
 
     def math(self):
         """Context in which this policy's torch ops run."""
-        return fp32_math() if self.exact_fp32 else contextlib.nullcontext()
+        if self.exact_fp32:
+            return fp32_math()
+        if self.compute_dtype == torch.bfloat16:
+            return bf16_math()
+        return contextlib.nullcontext()
 
 
 F32 = Policy(torch.float32, exact_fp32=True)
@@ -71,10 +81,34 @@ def fp32_math():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+@contextlib.contextmanager
+def bf16_math():
+    """Run bf16 matmuls with fp32 sums throughout.
+
+    cuBLAS may otherwise reduce the partial sums of a split matmul in bf16
+    (``allow_bf16_reduced_precision_reduction``, on by default); the bf16
+    policy's contract is an fp32 sum rounded once. Restored after.
+    """
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+
+
 def conv_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
               stride: int = 1, padding=0) -> torch.Tensor:
     """NHWC x (N,H,W,C), HWIO w → NHWC y. ``padding``: an int, or
-    ((top, bottom), (left, right)) as in ``lax.conv_general_dilated``."""
+    ((top, bottom), (left, right)) as in ``lax.conv_general_dilated``.
+
+    The bias is added to the conv's result in the element type, as
+    ``lax.conv + b`` does: in fp32 that is ``F.conv2d``'s own bias; below fp32
+    the conv rounds first and the add is a separate op (``F.conv2d`` would add
+    the bias to the fp32 sum before rounding)."""
+    after = b if b is not None and x.dtype != torch.float32 else None
+    if after is not None:
+        b = None
     if isinstance(padding, int):
         pad = (padding, padding, padding, padding)
     else:
@@ -85,7 +119,8 @@ def conv_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *
         y = F.conv2d(xn, w.permute(3, 2, 0, 1), b, stride=stride, padding=pad[0])
     else:
         y = F.conv2d(F.pad(xn, pad), w.permute(3, 2, 0, 1), b, stride=stride)
-    return y.permute(0, 2, 3, 1).contiguous()
+    y = y.permute(0, 2, 3, 1).contiguous()
+    return y if after is None else y + after
 
 
 def conv2d(p: Params, name: str, x: torch.Tensor, *, stride: int = 1, padding=0,
@@ -102,14 +137,32 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 
 
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
-    return torch.where(x >= 0, x, x * slope)
+    """The slope is rounded to ``x``'s dtype before the multiply, as
+    ``jnp.asarray(slope, x.dtype)`` is (0.1 in bf16 is 0.10009765625)."""
+    if x.dtype != torch.float32:
+        slope = float(torch.tensor(slope, dtype=x.dtype))
+    return F.leaky_relu(x, slope)  # where(x >= 0, x, x·slope) in one pass
 
 
 def avg_pool_3s2p1(x: torch.Tensor) -> torch.Tensor:
     """AvgPool2d(3, stride=2, padding=1, count_include_pad=True) in NHWC
-    (the divisor is always 9)."""
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1, count_include_pad=True)
-    return y.permute(0, 2, 3, 1).contiguous()
+    (the divisor is always 9).
+
+    Below fp32 the nine taps are summed one by one in the element type, in
+    window order, and the sum divided by 9 in it: what ``lax.reduce_window``
+    with an add over bf16 computes (``F.avg_pool2d`` would sum in fp32 and
+    round once, which differs in most elements)."""
+    if x.dtype == torch.float32:
+        y = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1, count_include_pad=True)
+        return y.permute(0, 2, 3, 1).contiguous()
+    n, h, w, c = x.shape
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros((n, ho, wo, c), dtype=x.dtype, device=x.device)
+    for di in range(3):
+        for dj in range(3):
+            acc = acc + xp[:, di : di + 2 * ho - 1 : 2, dj : dj + 2 * wo - 1 : 2]
+    return acc / 9
 
 
 def instance_norm(p: Params, name: str, x: torch.Tensor, *, eps: float = 1e-5,

@@ -1,5 +1,5 @@
 """Space-to-depth execution mode (port of ``hdrtv_tpu/models/s2d.py``: the
-host-side weight transforms and the fp32 frame program).
+host-side weight transforms and the non-mega frame program, fp32 and bf16).
 
 Every activation is stored as (N, H/2, W/2, 4C) blocks in block-major
 channel order, and the weights are rewritten once at load so the block-
@@ -11,10 +11,18 @@ Routing: 3×3 stride-1 and stride-2 convs whose input and output channels
 are multiples of 128 go to the block_conv3 and down2 kernels, and the
 natural /8 stage to trunk3 — the channel conditions of the JAX
 ``_use_fused_kernel``; its TPU tiling gates (widths % 8, row pickers) size
-VMEM and are not part of the contract. Each kernel wrapper runs its plain
-version on CPU tensors. Everything the JAX package leaves to XLA (1×1 convs,
-the 12-channel input conv, conv_last, the 2×2 natural convs, the SFT 1×1s,
-the classifier) is plain torch.
+VMEM and are not part of the contract. Under the bf16 policy, as in the JAX
+package with ``HDRTV_MEGAKERNEL=0``, an SFT and the 3×3 conv after it go to
+the sft_conv3 kernel, a whole SFT resblock to the resblock kernel, and the
+CondNet 1×1 tails to the mix_chain kernel. One tiling gate is kept there:
+a resblock takes the resblock kernel only where the TPU program does (an
+even row divisor ≥ 4 of its height), because the two forms round the first
+conv's result differently and bf16 parity is held rounding point for
+rounding point. Each kernel wrapper runs its plain version on CPU tensors.
+Everything the JAX package leaves to XLA (the other 1×1 convs, the
+12-channel input conv, conv_last, the 2×2 natural convs, the classifier) is
+plain torch. The megakernel program (the L0 section as three kernels) is
+not ported: bf16 is this program.
 """
 
 from __future__ import annotations
@@ -26,7 +34,15 @@ from hdrtv_tpu_torch.models.agcm import classifier_apply
 from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig
 from hdrtv_tpu_torch.models.layers import F32, Params, Policy, conv_nhwc, leaky_relu, relu
 from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
-from hdrtv_tpu_torch.ops.megakernel import fused_down2, fused_trunk3
+from hdrtv_tpu_torch.ops.megakernel import (
+    fused_down2,
+    fused_mix_chain,
+    fused_resblock,
+    fused_sft_conv3_v2,
+    fused_trunk3,
+    pick_rows_even,
+    trunk3_pack,
+)
 from hdrtv_tpu_torch.ops.pack import pack_rgb48
 from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa, downsample_quarter_aa_flat
 
@@ -301,15 +317,61 @@ def s2d_transform_params(params: dict, cfg: ModelConfig | None = None) -> dict:
     return out
 
 
-def params_to_torch(params_np: dict, device, dtype: torch.dtype = torch.float32) -> Params:
-    """Carry the (transformed) numpy parameters to ``device``: floating
-    arrays as contiguous ``dtype`` tensors, anything else with its dtype."""
+_SFT_CONVS = ("SFT_scale_conv0", "SFT_scale_conv1", "SFT_shift_conv0", "SFT_shift_conv1")
+_TRUNK3_PACKED = "LE.__trunk3_packed"
+
+
+def _fits_kernel(w) -> bool:
+    """The channel condition of the conv kernels: C and Co multiples of 128."""
+    return w.shape[2] % 128 == 0 and w.shape[3] % 128 == 0
+
+
+def _fp32_param_names(params_np: dict) -> set[str]:
+    """Parameters that stay fp32 under a narrower policy: the biases that go
+    to a kernel (the kernels take fp32 biases, as the Pallas kernels do) and
+    the norm scales and shifts (``instance_norm`` computes in fp32). A kernel
+    takes a layer's bias where ``_use_fused_kernel`` routes it at batch 1."""
+    def fits(layer):
+        w = params_np.get(f"{layer}.weight")
+        return w is not None and w.ndim == 4 and _fits_kernel(w)
+
+    keep = set()
+    for k, v in params_np.items():
+        if not k.endswith(".weight"):
+            continue
+        layer = k[: -len(".weight")]
+        if v.ndim == 1:  # a norm's scale, and its shift
+            keep |= {k, f"{layer}.bias"}
+        elif v.ndim == 4 and v.shape[:2] == (3, 3) and _fits_kernel(v):
+            keep.add(f"{layer}.bias")
+    sft_pairs = [("LE.SFT_layer1", "LE.HR_conv1"), ("LE.SFT_layer2", "LE.HR_conv2")]
+    for trunk in (1, 2, 4, 5):
+        sft_pairs += [(f"LE.recon_trunk{trunk}.0.sft{i}", f"LE.recon_trunk{trunk}.0.conv{i}") for i in (1, 2)]
+    for sft, conv in sft_pairs:
+        if fits(conv):
+            keep |= {f"{sft}.{cv}.bias" for cv in _SFT_CONVS}
+    if fits("LE.CondNet2.2"):  # the mix_chain tail
+        keep |= {"LE.CondNet2.2.bias", "LE.CondNet2.4.bias"}
+    keep |= {k for k in params_np if k.endswith(".bias")
+             and (k.startswith("LE.recon_trunk3.") or k.startswith("LE.up_conv1."))}
+    return keep
+
+
+def params_to_torch(params_np: dict, device, policy: Policy = F32) -> Params:
+    """Carry the (transformed) numpy parameters to ``device``, cast once to
+    what ``policy`` computes with: floating arrays as contiguous tensors of
+    the compute dtype, except the fp32 set of :func:`_fp32_param_names`;
+    anything else with its dtype. Also packs the trunk3 kernel's parameter
+    block, which depends on the parameters only."""
+    keep = _fp32_param_names(params_np)
     out = {}
     for k, v in params_np.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
         if t.is_floating_point():
-            t = t.to(dtype)
+            t = t.to(torch.float32 if k in keep else policy.compute_dtype)
         out[k] = t.to(device).contiguous()
+    if "LE.recon_trunk3.0.conv1.weight" in out and "LE.up_conv1.0.weight" in out:
+        out[_TRUNK3_PACKED] = trunk3_pack(*_trunk3_params(out))
     return out
 
 
@@ -326,7 +388,7 @@ def _conv(p: Params, name: str, x: torch.Tensor, *, stride=1, padding=0, policy:
 
 def _use_fused_kernel(x: torch.Tensor, w: torch.Tensor) -> bool:
     """Route to a conv kernel: batch 1, C and Co multiples of 128."""
-    return x.shape[0] == 1 and w.shape[2] % 128 == 0 and w.shape[3] % 128 == 0
+    return x.shape[0] == 1 and _fits_kernel(w)
 
 
 def conv_s1(p, name, x, *, policy, relu_fused: bool = False, skip: torch.Tensor | None = None):
@@ -393,17 +455,30 @@ def _sft(p, name, fea, cond, *, policy):
     return fea * (branch("scale") + 1.0) + branch("shift")
 
 
-def _sft4_bd(p, sft_name):
-    """The four SFT 1×1s as dense (C,C') matrices + biases."""
-    return [
-        (p[f"{sft_name}.{cv}.weight"][0, 0], p[f"{sft_name}.{cv}.bias"])
-        for cv in ("SFT_scale_conv0", "SFT_scale_conv1", "SFT_shift_conv0", "SFT_shift_conv1")
-    ]
+def _sft4_bd(p, sft_name, policy):
+    """The four SFT 1×1s as dense (C,C') matrices + fp32 biases."""
+    return [(policy.cast(p[f"{sft_name}.{cv}.weight"][0, 0]), p[f"{sft_name}.{cv}.bias"])
+            for cv in _SFT_CONVS]
+
+
+def _sft_conv_ok(p, conv_name, x, cond, *, policy) -> bool:
+    """The fused SFT kernels serve the bf16 policy only, as in the JAX package."""
+    return (
+        policy.compute_dtype == torch.bfloat16
+        and _use_fused_kernel(x, p[f"{conv_name}.weight"])
+        and cond.shape[-1] % 8 == 0
+    )
 
 
 def _sft_conv(p, sft_name, conv_name, x, cond, *, policy, relu_fused=False, skip=None):
-    """SFT then 3×3 conv. The fused SFT+conv kernel (fused_sft_conv3_v2)
-    serves the bf16 path only: ROADMAP.md Slice 2."""
+    """SFT + 3×3 conv: the sft_conv3 kernel when eligible, SFT then conv
+    otherwise."""
+    if _sft_conv_ok(p, conv_name, x, cond, policy=policy):
+        return fused_sft_conv3_v2(
+            policy.cast(x[0]), policy.cast(cond[0]), _sft4_bd(p, sft_name, policy),
+            policy.cast(p[f"{conv_name}.weight"]), p[f"{conv_name}.bias"],
+            relu=relu_fused, skip=None if skip is None else policy.cast(skip[0]),
+        )[None]
     out = _sft(p, sft_name, x, cond, policy=policy)
     return conv_s1(p, conv_name, out, policy=policy, relu_fused=relu_fused, skip=skip)
 
@@ -418,29 +493,59 @@ def _materialize_up(fea, up_coarse, x_add):
 
 
 def _resblock(p, name, fea, cond, *, policy, up_coarse=None, x_add=None):
-    """ResBlock_with_SFT in the block domain, with the optional up-path skip
-    input added first (fused into one kernel on the bf16 path: Slice 2)."""
+    """ResBlock_with_SFT in the block domain. ``up_coarse``/``x_add``: the
+    optional up-path skip input, added to ``fea`` first — inside the resblock
+    kernel when eligible (with the d2s un-fold for the coarse form),
+    materialised otherwise. The kernel is taken under the JAX predicate,
+    its even-row rule included (see the module docstring)."""
+    if _sft_conv_ok(p, f"{name}.conv1", fea, cond, policy=policy):
+        coarse_ok = up_coarse is None or (
+            fea.shape[1] % 2 == 0
+            and fea.shape[2] % 2 == 0
+            and tuple(up_coarse.shape[1:]) == (fea.shape[1] // 2, fea.shape[2] // 2, 4 * fea.shape[3])
+        )
+        if pick_rows_even(fea.shape[1]) >= 4 and coarse_ok:
+            return fused_resblock(
+                policy.cast(fea[0]), policy.cast(cond[0]),
+                _sft4_bd(p, f"{name}.sft1", policy),
+                policy.cast(p[f"{name}.conv1.weight"]), p[f"{name}.conv1.bias"],
+                _sft4_bd(p, f"{name}.sft2", policy),
+                policy.cast(p[f"{name}.conv2.weight"]), p[f"{name}.conv2.bias"],
+                up_coarse=None if up_coarse is None else policy.cast(up_coarse[0]),
+                x_add=None if x_add is None else policy.cast(x_add[0]),
+            )[None]
     fea = _materialize_up(fea, up_coarse, x_add)
     out = _sft_conv(p, f"{name}.sft1", f"{name}.conv1", fea, cond, policy=policy, relu_fused=True)
     # conv2 + residual add fused into the same pass
     return _sft_conv(p, f"{name}.sft2", f"{name}.conv2", out, cond, policy=policy, skip=fea)
 
 
-def _trunk3_up_fused(p, fea3, cond4, *, policy):
-    """Whole trunk3 stage + up_conv1 through the trunk3 kernel."""
+def _trunk3_params(p, policy: Policy | None = None):
+    """(blocks, w_up, b_up) of the trunk3 stage, as ``fused_trunk3`` takes them."""
+    def cast(w):
+        return w if policy is None else policy.cast(w)
+
+    def sft(name):
+        return [(cast(p[f"{name}.{cv}.weight"][0, 0]), p[f"{name}.{cv}.bias"]) for cv in _SFT_CONVS]
+
     blocks = []
     for i in range(4):
         name = f"LE.recon_trunk3.{i}"
         blocks.append((
-            _sft4_bd(p, f"{name}.sft1"),
-            policy.cast(p[f"{name}.conv1.weight"]), p[f"{name}.conv1.bias"],
-            _sft4_bd(p, f"{name}.sft2"),
-            policy.cast(p[f"{name}.conv2.weight"]), p[f"{name}.conv2.bias"],
+            sft(f"{name}.sft1"), cast(p[f"{name}.conv1.weight"]), p[f"{name}.conv1.bias"],
+            sft(f"{name}.sft2"), cast(p[f"{name}.conv2.weight"]), p[f"{name}.conv2.bias"],
         ))
-    return fused_trunk3(
-        policy.cast(fea3[0]), policy.cast(cond4[0]), blocks,
-        policy.cast(p["LE.up_conv1.0.weight"]), p["LE.up_conv1.0.bias"],
-    )[None]
+    return blocks, cast(p["LE.up_conv1.0.weight"]), p["LE.up_conv1.0.bias"]
+
+
+def _trunk3_up_fused(p, fea3, cond4, *, policy):
+    """Whole trunk3 stage + up_conv1 through the trunk3 kernel, with the
+    parameter block ``params_to_torch`` packed (if it made one for this
+    element type)."""
+    blocks, w_up, b_up = _trunk3_params(p, policy)
+    packed = p.get(_TRUNK3_PACKED) if p["LE.up_conv1.0.weight"].dtype == policy.compute_dtype else None
+    return fused_trunk3(policy.cast(fea3[0]), policy.cast(cond4[0]), blocks, w_up, b_up,
+                        packed=packed)[None]
 
 
 def _tile4(v: torch.Tensor) -> torch.Tensor:
@@ -474,7 +579,13 @@ def _le_cond_downs(p: Params, c: torch.Tensor, *, policy: Policy):
     consolidated LE.__cond_down conv, the three branch inputs are channel
     windows of its (…, 3·nch) output, read in place by the down2 kernel."""
     def mix_chain(x, steps, *, cin=None, ch0=0):
-        """Short 1×1 chains (the fused_mix_chain kernel is bf16: Slice 2)."""
+        """Short 1×1 chains: the mix_chain kernel when eligible (bf16)."""
+        if policy.compute_dtype == torch.bfloat16 and _use_fused_kernel(x, p[f"{steps[0][0]}.weight"]):
+            return fused_mix_chain(
+                policy.cast(x[0]),
+                [(policy.cast(p[f"{n}.weight"][0, 0]), p[f"{n}.bias"], act) for n, act in steps],
+                cin=cin, ch0=ch0,
+            )[None]
         if cin is not None:
             x = x[..., ch0 : ch0 + cin]
         for n, act in steps:
@@ -556,7 +667,8 @@ def ensemble_s2d(
 ) -> torch.Tensor:
     """Full ensemble in s2d mode: natural NHWC in → natural NHWC out.
     ``img``: (N,H,W,3) [0,1] RGB (H,W even); ``cond``: natural ¼-res image.
-    The megakernel path (bf16) is ROADMAP.md Slice 3; HG is Slice 6."""
+    Under ``BF16`` this is the JAX program with ``HDRTV_MEGAKERNEL=0``; the
+    megakernel program is ROADMAP.md Slice 3; HG is Slice 6."""
     if cfg.use_hg:
         raise NotImplementedError("the HG composite is not ported yet (ROADMAP.md Slice 6)")
     xs = s2d(policy.cast(img))

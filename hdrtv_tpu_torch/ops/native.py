@@ -32,7 +32,14 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libhdrtv_kernels.so"
 
 # kernel name -> launches since the last reset_launch_counts()
-launch_counts: dict[str, int] = {"block_conv3": 0, "down2": 0, "trunk3": 0, "pack_rgb48": 0}
+launch_counts: dict[str, int] = {
+    "block_conv3": 0, "down2": 0, "trunk3": 0, "pack_rgb48": 0,
+    "sft_conv3": 0, "resblock": 0, "mix_chain": 0,
+}
+
+# Element types the kernels are instantiated for, and the suffix of their
+# exported names (hdrtv_<kernel>_<suffix>).
+DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def reset_launch_counts() -> None:
@@ -115,14 +122,22 @@ def lib() -> ctypes.CDLL:
     function's argument and result types declared."""
     so = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    sigs = {
-        "hdrtv_pack_rgb48_f32": ([p, p, ll, p], i),
-        "hdrtv_block_conv3_f32": ([p, p, p, p, p, i, i, i, i, i, p], i),
-        "hdrtv_down2_f32": ([p, p, p, p, i, i, i, i, i, i, i, p], i),
-        "hdrtv_trunk3_f32": ([p, p, p, p, p, i, i, i, i, i, p], i),
-        "hdrtv_trunk3_param_floats": ([i, i, i], ll),
-        "hdrtv_error_string": ([i], ctypes.c_char_p),
+    per_dtype = {
+        "hdrtv_pack_rgb48": ([p, p, ll, p], i),
+        "hdrtv_block_conv3": ([p, p, p, p, p, i, i, i, i, i, p], i),
+        "hdrtv_down2": ([p, p, p, p, i, i, i, i, i, i, i, p], i),
+        "hdrtv_trunk3": ([p, p, p, p, p, i, i, i, i, i, p], i),
+        "hdrtv_sft_conv3": ([p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
+        "hdrtv_resblock": ([p, p, p, p, p, p, p, p, p, i, p, p, p, p, i, i, i, i, p], i),
+        "hdrtv_mix_chain": ([p, p, p, p, p, p, p, i, i, i, i, p], i),
     }
+    sigs = {f"{name}_{sfx}": sig for name, sig in per_dtype.items()
+            for sfx in DTYPE_SUFFIX.values()}
+    sigs.update({
+        "hdrtv_trunk3_param_floats": ([i, i, i], ll),
+        "hdrtv_mix_chain_max_steps": ([], i),
+        "hdrtv_error_string": ([i], ctypes.c_char_p),
+    })
     for name, (args, res) in sigs.items():
         fn = getattr(so, name)
         fn.argtypes = args
@@ -134,15 +149,42 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch(kernel: str, fn_name: str, *args) -> None:
-    """Call one exported C function; raise on a non-zero cudaGetLastError()
-    and count the launch under ``kernel``."""
+def launch(kernel: str, dtype: torch.dtype, *args) -> None:
+    """Call the exported C function of ``kernel`` for element type ``dtype``
+    (``hdrtv_<kernel>_f32`` or ``_bf16``); raise on a non-zero
+    cudaGetLastError() and count the launch under ``kernel``."""
     so = lib()
+    fn_name = f"hdrtv_{kernel}_{DTYPE_SUFFIX[dtype]}"
     rc = getattr(so, fn_name)(*args)
     if rc != 0:
         msg = so.hdrtv_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: {fn_name} failed with CUDA error {rc} ({msg})")
     launch_counts[kernel] += 1
+
+
+def pointer_array(tensors) -> ctypes.Array:
+    """Device addresses of ``tensors`` as a host array of ``void*`` (how a
+    kernel takes a list of parameter tensors). Keep it alive across the call."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def element_type(name: str, x: torch.Tensor) -> torch.dtype:
+    """The element type a kernel call runs in: that of its activation ``x``."""
+    if x.dtype not in DTYPE_SUFFIX:
+        raise ValueError(f"{name} must be float32 or bfloat16, got {x.dtype}")
+    return x.dtype
+
+
+def check_params(name: str, dtype: torch.dtype, weights, biases) -> None:
+    """What every kernel takes as parameters, on the CPU as on the card:
+    weights in the call's element type, biases in fp32 (the TPU kernels'
+    contract: a bias rounded to bf16 would be another program)."""
+    for w in weights:
+        if w.dtype != dtype:
+            raise ValueError(f"{name}: weights must be {dtype} like the activations, got {w.dtype}")
+    for b in biases:
+        if b.dtype != torch.float32:
+            raise ValueError(f"{name}: biases must be float32, got {b.dtype}")
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple | None = None) -> None:

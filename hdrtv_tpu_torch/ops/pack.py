@@ -3,7 +3,8 @@
 The network output [0,1] RGB is the BT.2020/PQ signal; delivery is
 ``clamp(0,1)·65535 + 0.5 → uint16``, truncating. On a CUDA tensor this
 launches the kernel of ``csrc/pack.cu``; on a CPU tensor it runs the plain
-version.
+version. A bf16 input is widened to fp32 first, so both element types pack
+exactly.
 """
 
 from __future__ import annotations
@@ -21,11 +22,12 @@ def pack_rgb48_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_rgb48(x: torch.Tensor) -> torch.Tensor:
-    """[0,1] RGB (…, W, 3) float32 → uint16 RGB48 code values, same shape."""
+    """[0,1] RGB (…, W, 3) float32 or bfloat16 → uint16 RGB48 code values,
+    same shape."""
+    dt = native.element_type("pack_rgb48 input", x)
     if native.on_cpu(x):
         return pack_rgb48_ref(x)
-    native.check_cuda("pack_rgb48 input", x, torch.float32)
+    native.check_cuda("pack_rgb48 input", x, dt)
     out = torch.empty(x.shape, dtype=torch.uint16, device=x.device)
-    native.launch("pack_rgb48", "hdrtv_pack_rgb48_f32", x.data_ptr(), out.data_ptr(),
-                  x.numel(), native.stream_of(x))
+    native.launch("pack_rgb48", dt, x.data_ptr(), out.data_ptr(), x.numel(), native.stream_of(x))
     return out

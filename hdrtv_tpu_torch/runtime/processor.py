@@ -2,12 +2,17 @@
 ``hdrtv_tpu/runtime/processor.py`` ``HDRTVNetTPU``).
 
     uint8 BGR frame ──► ¼-res AA-bicubic cond (two matmuls) ──► /255 + BGR→RGB
-        ──► s2d AGCM → LE (block_conv3, down2, trunk3 kernels) ──► u16 RGB48 pack
+        ──► s2d AGCM → LE (block_conv3, down2, trunk3 kernels; in bf16 also
+            sft_conv3, resblock, mix_chain) ──► u16 RGB48 pack
 
-This slice covers the fp32 frame program (ROADMAP.md, slice 1). Everything
-else raises with the ROADMAP item that will port it; nothing falls back to
-a different computation, and nothing runs on the CPU unless the caller asks
-for ``device="cpu"``.
+Two frame programs are ported (ROADMAP.md, slices 1 and 2): fp32, the
+accuracy reference, and bf16, the product's default precision, which runs
+the program the JAX package runs with ``HDRTV_MEGAKERNEL=0``. The megakernel
+program (slice 3) will replace the bf16 program's L0 section; until then
+bf16 is this program, with no switch. Everything else raises with the
+ROADMAP item that will port it; nothing falls back to a different
+computation, and nothing runs on the CPU unless the caller asks for
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 
 from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig
 from hdrtv_tpu_torch.models.import_npz import load_npz, load_npz_meta, npz_arch_dict
-from hdrtv_tpu_torch.models.layers import F32, Policy, policy_for
+from hdrtv_tpu_torch.models.layers import Policy, policy_for
 from hdrtv_tpu_torch.models.s2d import (
     ensemble_s2d_rgb48_flat,
     ensemble_s2d_rgb48_pairs,
@@ -42,8 +47,10 @@ class HDRTVNetTorch:
     """Real-time SDR→HDR10 converter on one CUDA device.
 
     ``model_path``: a converted ``.npz`` checkpoint (with its ``.json``
-    sidecar). ``precision``: the reference token; this slice runs
-    ``fp32``/``float32`` (true fp32: TF32 off for the torch ops).
+    sidecar). ``precision``: the reference token: ``fp32``/``float32`` is
+    true fp32 (TF32 off for the torch ops), every other token (the default
+    ``fp16``, the int8 presets) computes in bf16. The parameters are cast to
+    what the policy computes with once, here.
     ``device``: ``None`` means ``"cuda"`` and raises without a CUDA device;
     ``"cpu"`` runs the kernels' plain versions (the tests' mode).
     """
@@ -63,11 +70,6 @@ class HDRTVNetTorch:
         self.model_path = model_path
         self.precision = precision
         self.policy: Policy = policy_for(precision)
-        if self.policy is not F32:
-            raise _not_ported(
-                f"precision {precision!r} (the bf16 frame program)",
-                "Slice 2 (bf16 non-mega path) and Slice 3 (megakernel path)",
-            )
         if fast_condition_resize is None:
             fast_condition_resize = _env_on("HDRTVNET_FAST_COND_RESIZE", "HDRTVNET_FAST_CONDITION_RESIZE")
         if fast_zero_condition is None:
@@ -106,8 +108,9 @@ class HDRTVNetTorch:
                 "Slice 9 (model variants: Queue 1 item 9)",
             )
         self.cfg = cfg
-        # s2d weight transform once on the host, then one copy to the device.
-        self.params = params_to_torch(s2d_transform_params(params, cfg), self.device)
+        # s2d weight transform once on the host, then one cast and one copy
+        # to the device.
+        self.params = params_to_torch(s2d_transform_params(params, cfg), self.device, self.policy)
 
     # ------------------------------------------------------------------
     # Frame programs

@@ -1,15 +1,18 @@
-"""Where the time of one fp32 frame goes on the card (counterpart of the JAX
+"""Where the time of one frame goes on the card (counterpart of the JAX
 package's tools/profile_frame.py).
 
-    python -m hdrtv_tpu_torch.tools.profile_frame [--height 1080 --width 1920 --frames 3]
+    python -m hdrtv_tpu_torch.tools.profile_frame [--precision fp16|fp32]
+        [--height 1080 --width 1920 --frames 3]
 
 Runs warm device-resident frames through HDRTVNetTorch.process_rgb48_device
 under torch.profiler and prints, per frame: the device time of each kernel
 (grouped: the port's CUDA kernels, cuDNN convolutions, GEMMs, elementwise
 and reduction passes, copies), the top kernels by device time, the wall
 time, and the device busy share (kernel time over wall time; one stream, so
-kernels do not overlap). The last line is the same breakdown as JSON.
-Needs a CUDA device.
+kernels do not overlap). The port's kernels are also split by source kernel
+(conv tile on the FMA units and on the tensor cores, SFT passes, mix chain, pack). The last two lines are the card's
+name and power limit as nvidia-smi gives them, and the same breakdown as
+JSON. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -24,7 +28,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 # (group, substrings of the kernel name), first match wins
 GROUPS = (
-    ("port kernels", ("conv3x3_kernel", "sft_kernel", "pack_rgb48_kernel")),
+    ("port kernels", ("conv3x3_kernel", "conv3x3_mma_kernel", "sft_kernel", "mix_chain_kernel",
+                      "pack_rgb48_kernel")),
     ("cudnn conv", ("cudnn", "conv", "implicit_gemm", "xmma_fprop", "winograd")),
     ("gemm", ("gemm", "cutlass", "sgemm", "matmul")),
     ("elementwise/reduce", ("elementwise", "vectorized", "reduce", "unrolled", "index", "cat")),
@@ -50,6 +55,8 @@ def device_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--precision", default="fp16",
+                    help="the processor's precision token: fp16 (bf16, the default) or fp32")
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--frames", type=int, default=3)
@@ -67,7 +74,8 @@ def main() -> int:
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     h, w, n = args.height, args.width, args.frames
-    proc = HDRTVNetTorch(os.path.join(ROOT, "weights", "hr_fp32.npz"), precision="fp32")
+    proc = HDRTVNetTorch(os.path.join(ROOT, "weights", "hr_fp32.npz"), precision=args.precision)
+    dtype = str(proc.policy.compute_dtype).replace("torch.", "")
     frame = (np.random.RandomState(h).rand(h, w, 3) * 255).astype(np.uint8)
     x = proc.put_frame(frame.reshape(h, w * 3))
     for _ in range(2):
@@ -89,19 +97,33 @@ def main() -> int:
     for e in kernels:
         groups[group_of(e.key)] = groups.get(group_of(e.key), 0.0) + device_us(e) / 1e3 / n
     busy_ms = sum(groups.values())
-    print(f"card: {torch.cuda.get_device_name(0)}; {h}x{w} fp32, {n} frames under torch.profiler")
+    print(f"card: {torch.cuda.get_device_name(0)}; {h}x{w} {dtype}, {n} frames under torch.profiler")
     print(f"wall {wall_ms:.3f} ms/frame; kernel time {busy_ms:.3f} ms/frame; "
           f"device busy {busy_ms / wall_ms:.3f}, idle {1 - busy_ms / wall_ms:.3f}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:20s} {ms:9.3f} ms/frame  {ms / busy_ms:6.1%}")
+    port: dict[str, list] = {}
+    for e in kernels:
+        if group_of(e.key) == "port kernels":
+            key = next(k for k in GROUPS[0][1] if k in e.key.lower())
+            acc = port.setdefault(key, [0.0, 0.0])
+            acc[0] += device_us(e) / 1e3 / n
+            acc[1] += e.count / n
+    for key, (ms, launches) in sorted(port.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {key:20s} {ms:9.3f} ms/frame  {launches:5.1f} launches/frame")
     print("top kernels (ms/frame, launches/frame):")
     top = sorted(kernels, key=lambda e: -device_us(e))[:25]
     for e in top:
         print(f"  {device_us(e) / 1e3 / n:8.3f}  {e.count / n:5.1f}  [{group_of(e.key)}] {e.key[:110]}")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "height": h, "width": w, "frames": n,
+        "device": torch.cuda.get_device_name(0), "precision": args.precision, "dtype": dtype,
+        "height": h, "width": w, "frames": n,
         "wall_ms": wall_ms, "kernel_ms": busy_ms, "busy": busy_ms / wall_ms,
-        "groups_ms": groups,
+        "groups_ms": groups, "port_kernels_ms": {k: v[0] for k, v in port.items()},
         "top": [{"name": e.key[:160], "ms": device_us(e) / 1e3 / n, "launches": e.count / n}
                 for e in top],
     }))

@@ -7,8 +7,12 @@ jax nor hdrtv_tpu, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerance: 1e-4 absolute at these magnitudes (|y| ≲ 10): the kernels and
-cuDNN sum the same fp32 products in different orders.
+Tolerance, fp32: 1e-4 absolute at these magnitudes (|y| ≲ 10): the kernels
+and cuDNN sum the same fp32 products in different orders. bf16: the same
+exact products summed in fp32 in another order and rounded at the same
+places, so a result differs by one bf16 step where a rounding flips:
+|err| ≤ 2^-7·max(1, |y|), doubled for the resblock and trunk3, whose rounded
+intermediates feed further convs. The pack is exact in both types.
 """
 
 import numpy as np
@@ -32,8 +36,31 @@ def dev():
         yield torch.device("cuda")
 
 
-def _t(a, dev):
-    return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _t(a, dev, dtype="f32"):
+    return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev).to(DTYPES[dtype])
+
+
+def _close(y, y_ref, dtype, *, atol=ATOL, steps=1, flips=0.02):
+    """fp32: absolute; bf16: within ``steps`` bf16 steps of the reference,
+    and equal but for a share ``flips`` of the elements (at most 0.9% seen
+    at these shapes)."""
+    torch.cuda.synchronize()
+    assert y.dtype == y_ref.dtype == DTYPES[dtype] and y.shape == y_ref.shape
+    err = (y.float() - y_ref.float()).abs()
+    if dtype == "f32":
+        assert float(err.max()) < atol
+    else:
+        used = float((err / (2.0 ** -7 * y_ref.float().abs().clamp_min(1.0))).max())
+        share = float((err > 0).float().mean())
+        assert used <= steps and share <= flips, (used, share)
+
+
+def _sft4(rng, cc, c, dev, dtype, scale=0.05):
+    return [(_t(rng.randn(ci, co) * scale, dev, dtype), _t(rng.randn(co) * 0.1, dev))
+            for ci, co in ((cc, cc), (cc, c), (cc, cc), (cc, c))]
 
 
 def _max_err(a, b):
@@ -86,29 +113,156 @@ def test_down2_matches_plain(dev, hb, wb, cf, cin, ch0, co, act):
     assert _max_err(y, y_r) < ATOL
 
 
-def test_trunk3_matches_plain(dev):
-    from hdrtv_tpu_torch.ops.megakernel import fused_trunk3, fused_trunk3_ref
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_trunk3_matches_plain(dev, dtype):
+    """In bf16 the weights are scaled so that the 9-conv chain does not
+    amplify (gain < 1 per conv, as a trained trunk): with the fp32 case's
+    weights (gain ≈ 1.7 per conv, ~300× over the chain) one flipped rounding
+    early in the chain grows to tens of steps, which tests the weights and
+    not the kernel."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_trunk3, fused_trunk3_ref, trunk3_pack
 
     rng = np.random.RandomState(18)
     hb, wb, cin, cc, co = 27, 16, 32, 16, 128
-    fea3 = _t(rng.rand(hb, wb, cin) - 0.2, dev)
-    cond4 = _t(rng.rand(hb, wb, cc) - 0.3, dev)
-
-    def pair(ci, co_):
-        return _t(rng.randn(ci, co_) * 0.2, dev), _t(rng.randn(co_) * 0.1, dev)
-
+    ws, wc = (0.2, 0.1) if dtype == "f32" else (0.05, 0.03)
+    fea3 = _t(rng.rand(hb, wb, cin) - 0.2, dev, dtype)
+    cond4 = _t(rng.rand(hb, wb, cc) - 0.3, dev, dtype)
     blocks = []
     for _ in range(4):
-        sft1 = [pair(cc, cc), pair(cc, cin), pair(cc, cc), pair(cc, cin)]
-        sft2 = [pair(cc, cc), pair(cc, cin), pair(cc, cc), pair(cc, cin)]
-        blocks.append((sft1, _t(rng.randn(3, 3, cin, cin) * 0.1, dev), _t(rng.randn(cin) * 0.1, dev),
-                       sft2, _t(rng.randn(3, 3, cin, cin) * 0.1, dev), _t(rng.randn(cin) * 0.1, dev)))
-    w_up = _t(rng.randn(3, 3, cin, co) * 0.1, dev)
+        blocks.append((_sft4(rng, cc, cin, dev, dtype, ws),
+                       _t(rng.randn(3, 3, cin, cin) * wc, dev, dtype), _t(rng.randn(cin) * 0.1, dev),
+                       _sft4(rng, cc, cin, dev, dtype, ws),
+                       _t(rng.randn(3, 3, cin, cin) * wc, dev, dtype), _t(rng.randn(cin) * 0.1, dev)))
+    w_up = _t(rng.randn(3, 3, cin, co) * wc, dev, dtype)
     b_up = _t(rng.randn(co) * 0.1, dev)
     y = fused_trunk3(fea3, cond4, blocks, w_up, b_up)
     y_r = fused_trunk3_ref(fea3, cond4, blocks, w_up, b_up)
     assert y.shape == (hb, wb, co)
-    assert _max_err(y, y_r) < 5e-4
+    _close(y, y_r, dtype, atol=5e-4, steps=2, flips=0.05)
+    packed = trunk3_pack(blocks, w_up, b_up)
+    assert torch.equal(fused_trunk3(fea3, cond4, blocks, w_up, b_up, packed=packed), y)
+
+
+@pytest.mark.parametrize("hb,wb,c,co,relu,skip", [(12, 20, 128, 128, True, False), (9, 14, 128, 512, False, False),
+                                               (9, 14, 128, 128, False, True)])
+def test_block_conv3_bf16_matches_plain(dev, hb, wb, c, co, relu, skip):
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_ref
+
+    rng = np.random.RandomState(hb * wb + co + 1)
+    x = _t(rng.rand(hb, wb, c) - 0.3, dev, "bf16")
+    w = _t(w_s2d_s1(rng.randn(3, 3, c // 4, co // 4).astype(np.float32) * 0.05), dev, "bf16")
+    b = _t(rng.randn(co) * 0.1, dev)
+    sk = _t(rng.rand(hb, wb, co), dev, "bf16") if skip else None
+    _close(fused_block_conv3(x, w, b, relu=relu, skip=sk),
+           fused_block_conv3_ref(x, w, b, relu=relu, skip=sk), "bf16")
+
+
+@pytest.mark.parametrize("hb,wb,cf,cin,ch0,co,act", [
+    (12, 20, 128, None, 0, 128, "relu"),
+    (8, 12, 768, 256, 256, 256, "lrelu"),
+])
+def test_down2_bf16_matches_plain(dev, hb, wb, cf, cin, ch0, co, act):
+    from hdrtv_tpu_torch.ops.megakernel import fused_down2, fused_down2_ref
+
+    rng = np.random.RandomState(hb + wb + cf + ch0 + 1)
+    c = cin or cf
+    x = _t(rng.rand(hb, wb, cf), dev, "bf16")
+    w = _t(w_s2d_s2(rng.randn(3, 3, c // 4, co // 4).astype(np.float32) * 0.05), dev, "bf16")
+    b = _t(rng.randn(co) * 0.1, dev)
+    _close(fused_down2(x, w, b, act=act, cin=cin, ch0=ch0),
+           fused_down2_ref(x[..., ch0 : ch0 + c], w, b, act=act), "bf16")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hb,wb,relu,skip", [(12, 20, True, False), (9, 15, False, True)])
+def test_sft_conv3_matches_plain(dev, dtype, hb, wb, relu, skip):
+    from hdrtv_tpu_torch.ops.megakernel import fused_sft_conv3_v2, fused_sft_conv3_v2_ref
+
+    rng = np.random.RandomState(hb * wb)
+    c, cc = 128, 64
+    x = _t(rng.rand(hb, wb, c) - 0.3, dev, dtype)
+    cond = _t(rng.rand(hb, wb, cc) - 0.3, dev, dtype)
+    sft = _sft4(rng, cc, c, dev, dtype)
+    w = _t(rng.randn(3, 3, c, c) * 0.05, dev, dtype)
+    b = _t(rng.randn(c) * 0.1, dev)
+    sk = _t(rng.rand(hb, wb, c), dev, dtype) if skip else None
+    before = native.launch_counts["sft_conv3"]
+    y = fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, skip=sk)
+    assert native.launch_counts["sft_conv3"] == before + 1
+    _close(y, fused_sft_conv3_v2_ref(x, cond, sft, w, b, relu=relu, skip=sk), dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hb,wb,second", [(12, 20, None), (9, 15, "x_add"), (10, 14, "up_coarse")])
+def test_resblock_matches_plain(dev, dtype, hb, wb, second):
+    from hdrtv_tpu_torch.ops.megakernel import fused_resblock, fused_resblock_ref
+
+    rng = np.random.RandomState(hb * wb + 5)
+    c, cc = 128, 64
+    x = _t(rng.rand(hb, wb, c) - 0.3, dev, dtype)
+    cond = _t(rng.rand(hb, wb, cc) - 0.3, dev, dtype)
+    kw = {}
+    if second == "x_add":
+        kw[second] = _t(rng.rand(hb, wb, c), dev, dtype)
+    elif second == "up_coarse":
+        kw[second] = _t(rng.rand(hb // 2, wb // 2, 4 * c), dev, dtype)
+    args = (_sft4(rng, cc, c, dev, dtype), _t(rng.randn(3, 3, c, c) * 0.05, dev, dtype), _t(rng.randn(c) * 0.1, dev),
+            _sft4(rng, cc, c, dev, dtype), _t(rng.randn(3, 3, c, c) * 0.05, dev, dtype), _t(rng.randn(c) * 0.1, dev))
+    before = native.launch_counts["resblock"]
+    y = fused_resblock(x, cond, *args, **kw)
+    assert native.launch_counts["resblock"] == before + 1
+    _close(y, fused_resblock_ref(x, cond, *args, **kw), dtype, steps=2, flips=0.05)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hb,wb,cf,cin,ch0,widths", [
+    (9, 15, 768, 256, 0, (256, 64)),
+    (6, 10, 384, 128, 256, (128, 64)),
+    (5, 7, 64, None, 0, (32,)),
+    (5, 13, 128, None, 0, (256, 128, 12)),
+])
+def test_mix_chain_matches_plain(dev, dtype, hb, wb, cf, cin, ch0, widths):
+    from hdrtv_tpu_torch.ops.megakernel import fused_mix_chain, fused_mix_chain_ref
+
+    rng = np.random.RandomState(hb * wb + cf)
+    c = cin or cf
+    x = _t(rng.rand(hb, wb, cf) - 0.3, dev, dtype)
+    steps, k = [], c
+    for i, n in enumerate(widths):
+        act = None if i + 1 == len(widths) else ("lrelu", "relu")[i % 2]
+        steps.append((_t(rng.randn(k, n) * 0.05, dev, dtype), _t(rng.randn(n) * 0.1, dev), act))
+        k = n
+    before = native.launch_counts["mix_chain"]
+    y = fused_mix_chain(x, steps, cin=cin, ch0=ch0)
+    assert native.launch_counts["mix_chain"] == before + 1
+    _close(y, fused_mix_chain_ref(x[..., ch0 : ch0 + c], steps), dtype)
+
+
+def test_pack_rgb48_bf16_matches_plain_exactly(dev):
+    from hdrtv_tpu_torch.ops.pack import pack_rgb48, pack_rgb48_ref
+
+    v = np.random.RandomState(4).uniform(-0.5, 1.5, (36, 50, 3)).astype(np.float32)
+    x = _t(v, dev, "bf16")
+    u = pack_rgb48(x)
+    assert u.dtype == torch.uint16 and u.shape == x.shape
+    np.testing.assert_array_equal(u.cpu().numpy(), pack_rgb48_ref(x.cpu()).numpy())
+
+
+def test_bf16_frame_matches_cpu(dev):
+    """The bf16 frame program on the card against the same processor on the
+    CPU (the plain versions), one seeded 64×128 frame: a flipped rounding is
+    256 codes near full scale, and flips spread through the network, so the
+    bound is two steps at the top of the range and a small mean."""
+    import os
+
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    weights = os.path.join(os.path.dirname(__file__), "..", "weights", "hr_fp32.npz")
+    frame = (np.random.RandomState(64).rand(64, 128, 3) * 255).astype(np.uint8)
+    gpu = HDRTVNetTorch(weights).process_rgb48(frame).astype(np.int64)
+    cpu = HDRTVNetTorch(weights, device="cpu").process_rgb48(frame).astype(np.int64)
+    d = np.abs(gpu - cpu)
+    assert d.max() <= 512 and d.mean() <= 24, (int(d.max()), float(d.mean()))
 
 
 def test_pack_rgb48_matches_plain_exactly(dev):

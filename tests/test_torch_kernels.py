@@ -1,8 +1,11 @@
 """hdrtv_tpu_torch kernel modules on the CPU: each wrapper's plain version
 (what it runs for a CPU tensor) against the JAX Pallas kernel in interpret
-mode, on the same numpy inputs, with the JAX tests' tolerances. The CUDA
-kernels themselves are held against these plain versions on the card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+mode, on the same numpy inputs. In fp32 with the JAX tests' tolerances; in
+bf16 within one bf16 step of the result: both sum the same exact products in
+fp32, in another order, and round at the same places, so they differ only
+where a rounding flips (``_assert_bf16_close``). The CUDA kernels themselves
+are held against these plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -16,9 +19,35 @@ from hdrtv_tpu_torch.ops import native
 f32 = np.float32
 
 
-def _both(a):
+def _both(a, dtype="f32"):
+    """One numpy array as a JAX and a torch array; ``bf16`` rounds it once
+    (the same round-to-nearest-even in both), so both sides hold equal values."""
     a = np.ascontiguousarray(a, f32)
-    return jnp.asarray(a), torch.from_numpy(a.copy())
+    j, t = jnp.asarray(a), torch.from_numpy(a.copy())
+    if dtype == "bf16":
+        j, t = j.astype(jnp.bfloat16), t.to(torch.bfloat16)
+    return j, t
+
+
+def _assert_bf16_close(got: torch.Tensor, want, *, steps: int = 1, flips: float = 0.005):
+    """bf16 results within ``steps`` bf16 steps of each other (a step is
+    2^-8 relative to the larger power of two, so ``2^-7·max(1, |y|)`` bounds
+    it), and equal but for a small share of flipped roundings (the single-conv
+    kernels show at most 2e-3 of their elements flipped on these inputs)."""
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    g = got.float().numpy()
+    w = np.asarray(want.astype(jnp.float32))
+    assert g.shape == w.shape
+    err = np.abs(g - w)
+    assert (err <= steps * 2.0 ** -7 * np.maximum(1.0, np.abs(w))).all(), float(err.max())
+    assert float((err > 0).mean()) <= flips, float((err > 0).mean())
+
+
+def _sft4(rng, cc, c, dtype="f32", scale=0.05):
+    """Four SFT (w, b) pairs for both sides; weights in ``dtype``, biases fp32."""
+    pairs = [(_both(rng.randn(ci, co) * scale, dtype), _both(rng.randn(co) * 0.1))
+             for ci, co in ((cc, cc), (cc, c), (cc, cc), (cc, c))]
+    return [(w[0], b[0]) for w, b in pairs], [(w[1], b[1]) for w, b in pairs]
 
 
 @pytest.mark.parametrize("c,co,relu,skip,transformed", [
@@ -123,10 +152,183 @@ def test_trunk3_plain_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(want, f32), atol=5e-4)
 
 
+DTYPES = ["f32", "bf16"]
+
+
+def _check(got, want, dtype, atol, **bf16):
+    if dtype == "bf16":
+        _assert_bf16_close(got, want, **bf16)
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, f32), atol=atol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("relu,skip", [(True, False), (False, True)], ids=["relu", "skip"])
+def test_sft_conv3_plain_matches_pallas(dtype, relu, skip):
+    from hdrtv_tpu.ops.megakernel import fused_sft_conv3_v2 as jax_fn
+    from hdrtv_tpu_torch.ops.megakernel import fused_sft_conv3_v2
+
+    rng = np.random.RandomState(7 + relu)
+    hb, wb, c, cc = 24, 32, 128, 64
+    xj, xt = _both(rng.rand(hb, wb, c), dtype)
+    cj, ct = _both(rng.rand(hb, wb, cc), dtype)
+    sj, st = _both(rng.rand(hb, wb, c), dtype) if skip else (None, None)
+    sftj, sftt = _sft4(rng, cc, c, dtype)
+    wj, wt = _both(rng.randn(3, 3, c, c) * 0.05, dtype)
+    bj, bt = _both(rng.randn(c) * 0.1)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_fn(xj, cj, sftj, wj, bj, relu=relu, skip=sj)
+    got = fused_sft_conv3_v2(xt, ct, sftt, wt, bt, relu=relu, skip=st)
+    _check(got, want, dtype, 3e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("second", [None, "up_coarse", "x_add"])
+def test_resblock_plain_matches_pallas(dtype, second):
+    """fp32: 5e-5 plain, 3e-5 with a second input, as tests/test_megakernel.py.
+    bf16: t2 and the output are both rounded, so a flip in t2 can move the
+    output by a second step (one step and 1.5% flipped seen here)."""
+    from hdrtv_tpu.ops.megakernel import fused_resblock as jax_fn
+    from hdrtv_tpu_torch.ops.megakernel import fused_resblock
+
+    rng = np.random.RandomState(16)
+    hb, wb, c, cc = (24, 32, 128, 64) if second is None else (16, 16, 128, 64)
+    xj, xt = _both(rng.rand(hb, wb, c), dtype)
+    cj, ct = _both(rng.rand(hb, wb, cc), dtype)
+    kj, kt = {}, {}
+    if second == "up_coarse":
+        kj[second], kt[second] = _both(rng.rand(hb // 2, wb // 2, 4 * c), dtype)
+    elif second == "x_add":
+        kj[second], kt[second] = _both(rng.rand(hb, wb, c), dtype)
+    s1j, s1t = _sft4(rng, cc, c, dtype)
+    s2j, s2t = _sft4(rng, cc, c, dtype)
+    w1j, w1t = _both(rng.randn(3, 3, c, c) * 0.05, dtype)
+    b1j, b1t = _both(rng.randn(c) * 0.1)
+    w2j, w2t = _both(rng.randn(3, 3, c, c) * 0.05, dtype)
+    b2j, b2t = _both(rng.randn(c) * 0.1)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_fn(xj, cj, s1j, w1j, b1j, s2j, w2j, b2j, **kj)
+    got = fused_resblock(xt, ct, s1t, w1t, b1t, s2t, w2t, b2t, **kt)
+    _check(got, want, dtype, 5e-5 if second is None else 3e-5, steps=2, flips=0.05)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kb", [0, 1, 2])
+def test_mix_chain_window_plain_matches_pallas(dtype, kb):
+    from hdrtv_tpu.ops.megakernel import fused_mix_chain as jax_fn
+    from hdrtv_tpu_torch.ops.megakernel import fused_mix_chain
+
+    rng = np.random.RandomState(3)
+    hb, wb, nch = 16, 32, 128
+    xj, xt = _both(rng.rand(hb, wb, 3 * nch), dtype)
+    stepsj, stepst = [], []
+    for ci, co, act in ((nch, nch, "lrelu"), (nch, 64, None)):
+        (wj, wt), (bj, bt) = _both(rng.randn(ci, co) * 0.05, dtype), _both(rng.randn(co) * 0.1)
+        stepsj.append((wj, bj, act))
+        stepst.append((wt, bt, act))
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_fn(xj, stepsj, cin=nch, ch0=kb * nch)
+    got = fused_mix_chain(xt, stepst, cin=nch, ch0=kb * nch)
+    assert got.shape == (hb, wb, 64)
+    _check(got, want, dtype, 1e-5)
+
+
+def test_mix_chain_rejects_misaligned_window():
+    from hdrtv_tpu_torch.ops.megakernel import fused_mix_chain
+
+    steps = [(torch.zeros(128, 64), torch.zeros(64), None)]
+    with pytest.raises(ValueError):
+        fused_mix_chain(torch.zeros(16, 32, 384), steps, cin=128, ch0=64)
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["relu", "skip"])
+def test_block_conv3_bf16_plain_matches_pallas(skip):
+    from hdrtv_tpu.ops.conv_kernels import fused_block_conv3 as jax_conv
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
+
+    rng = np.random.RandomState(31 + skip)
+    hb, wb, c, co = 16, 16, 128, 128
+    xj, xt = _both(rng.rand(hb, wb, c), "bf16")
+    wj, wt = _both(w_s2d_s1(rng.randn(3, 3, c // 4, co // 4).astype(f32) * 0.05), "bf16")
+    bj, bt = _both(rng.randn(co) * 0.1)
+    sj, st = _both(rng.rand(hb, wb, co), "bf16") if skip else (None, None)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_conv(xj, wj, bj, relu=not skip, skip=sj, a_sub=1)
+    _assert_bf16_close(fused_block_conv3(xt, wt, bt, relu=not skip, skip=st), want)
+
+
+@pytest.mark.parametrize("cin,ch0", [(None, 0), (256, 512)], ids=["whole", "window"])
+def test_down2_bf16_plain_matches_pallas(cin, ch0):
+    from hdrtv_tpu.ops.megakernel import fused_down2 as jax_down2
+    from hdrtv_tpu_torch.ops.megakernel import fused_down2
+
+    rng = np.random.RandomState(41 + ch0)
+    hb, wb, c, co = 16, 16, 256, 256
+    xj, xt = _both(rng.rand(hb, wb, 3 * c if cin else c), "bf16")
+    wj, wt = _both(w_s2d_s2(rng.randn(3, 3, c // 4, co // 4).astype(f32) * 0.05), "bf16")
+    bj, bt = _both(rng.randn(co) * 0.1)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_down2(xj, wj, bj, act="lrelu", cin=cin, ch0=ch0)
+    _assert_bf16_close(fused_down2(xt, wt, bt, act="lrelu", cin=cin, ch0=ch0), want)
+
+
+def test_trunk3_bf16_plain_matches_pallas():
+    """Nine convs whose intermediates are each stored in bf16, as the Pallas
+    kernel stores them: with the rounding points matched, the chain still
+    ends within one step (7e-5 of the elements differ on this seed)."""
+    from hdrtv_tpu.ops.megakernel import fused_trunk3 as jax_trunk3
+    from hdrtv_tpu_torch.ops.megakernel import fused_trunk3
+
+    rng = np.random.RandomState(18)
+    hb, wb, cin, cc4, co = 27, 16, 32, 16, 128
+    fj, ft = _both(rng.rand(hb, wb, cin) - 0.2, "bf16")
+    cj, ct = _both(rng.rand(hb, wb, cc4) - 0.3, "bf16")
+    jblocks, tblocks = [], []
+    for _ in range(4):
+        s1j, s1t = _sft4(rng, cc4, cin, "bf16", scale=0.2)
+        s2j, s2t = _sft4(rng, cc4, cin, "bf16", scale=0.2)
+        w1j, w1t = _both(rng.randn(3, 3, cin, cin) * 0.1, "bf16")
+        b1j, b1t = _both(rng.randn(cin) * 0.1)
+        w2j, w2t = _both(rng.randn(3, 3, cin, cin) * 0.1, "bf16")
+        b2j, b2t = _both(rng.randn(cin) * 0.1)
+        jblocks.append((s1j, w1j, b1j, s2j, w2j, b2j))
+        tblocks.append((s1t, w1t, b1t, s2t, w2t, b2t))
+    wuj, wut = _both(rng.randn(3, 3, cin, co) * 0.1, "bf16")
+    buj, but = _both(rng.randn(co) * 0.1)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_trunk3(fj, cj, jblocks, wuj, buj)
+    got = fused_trunk3(ft, ct, tblocks, wut, but)
+    _assert_bf16_close(got, want)
+
+
+def test_pack_bf16_plain_matches_reference_exactly():
+    from hdrtv_tpu.ops.pack import pack_rgb48_ref as jax_pack
+    from hdrtv_tpu_torch.ops.pack import pack_rgb48
+
+    v = np.random.RandomState(6).uniform(-0.5, 1.5, (24, 40, 3)).astype(f32)
+    vj, vt = _both(v, "bf16")
+    got = pack_rgb48(vt)
+    assert got.dtype == torch.uint16
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_pack(vj)))
+
+
+def test_kernels_refuse_a_rounded_bias():
+    """The kernels take fp32 biases: one rounded to bf16 is refused on the
+    CPU as on the card, and so is a weight of another type than the input."""
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
+
+    x = torch.zeros(4, 4, 128, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 128, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="biases"):
+        fused_block_conv3(x, w, torch.zeros(128, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="weights"):
+        fused_block_conv3(x, w.float(), torch.zeros(128))
+
+
 def test_trunk3_pack_layout_matches_kernel_count():
     """The parameter block packs 4·(2 sft + 2 conv) + up_conv1 floats, the
     count csrc/trunk3.cu computes for C=32, CC=16."""
-    from hdrtv_tpu_torch.ops.megakernel import _trunk3_pack
+    from hdrtv_tpu_torch.ops.megakernel import trunk3_pack
 
     c, cc, co = 32, 16, 128
     z = torch.zeros
@@ -134,7 +336,7 @@ def test_trunk3_pack_layout_matches_kernel_count():
     blocks = [(sft, z(3, 3, c, c), z(c), sft, z(3, 3, c, c), z(c))] * 4
     sft_n = 2 * (cc * cc + cc + cc * c + c)
     conv_n = 9 * c * c + c
-    assert _trunk3_pack(blocks, z(3, 3, c, co), z(co)).numel() == 4 * (2 * sft_n + 2 * conv_n) + 9 * c * co + co
+    assert trunk3_pack(blocks, z(3, 3, c, co), z(co)).numel() == 4 * (2 * sft_n + 2 * conv_n) + 9 * c * co + co
 
 
 def test_pack_plain_matches_reference_exactly():

@@ -1,8 +1,12 @@
-"""The fp32 frame program of hdrtv_tpu_torch on the CPU against hdrtv_tpu:
-the condition image, the classifier, the s2d ensemble (also against the
-torch-reference golden), and HDRTVNetTorch.process_rgb48 against
-HDRTVNetTPU.process_rgb48 on the same frames. Plus the gates: what this
-slice does not cover raises, and importing the port imports no JAX."""
+"""The frame programs of hdrtv_tpu_torch on the CPU against hdrtv_tpu.
+
+fp32: the condition image, the classifier, the s2d ensemble (also against
+the torch-reference golden), and HDRTVNetTorch.process_rgb48 against
+HDRTVNetTPU.process_rgb48 on the same frames. bf16: the whole slice against
+the JAX program with its Pallas kernels in interpret mode (the program a TPU
+runs with HDRTV_MEGAKERNEL=0), and against the JAX lax program. Plus the
+gates: what the port does not cover raises, and importing the port imports
+no JAX."""
 
 import os
 import subprocess
@@ -115,8 +119,99 @@ def test_default_device_needs_cuda(monkeypatch):
         HDRTVNetTorch(WEIGHTS, precision="fp32")
 
 
+def test_bf16_slice_matches_jax_kernel_path(monkeypatch):
+    """The default-precision (bf16) program on a 120×256 frame, the smallest
+    size that routes like 1080p, against ``ensemble_s2d_rgb48_flat`` with
+    every Pallas kernel of the non-mega path executed in interpret mode.
+
+    Tolerance: the JAX package's own all-lax bf16 program differs from that
+    kernel path by max 256 and mean 22.1 codes on this frame (one bf16 step
+    near 1.0 is 256 codes). The port, whose plain versions round where the
+    kernel bodies round, shows max 256 and mean 6.6; the bounds are twice
+    that: the remaining differences are fp32 sums taken in another order
+    flipping a rounding, which then spreads through the later layers."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from hdrtv_tpu.models.import_torch import load_npz
+    from hdrtv_tpu.models.layers import BF16
+    from hdrtv_tpu.models.s2d import ensemble_s2d_rgb48_flat, s2d_transform_params
+    from hdrtv_tpu_torch.models import s2d as port_s2d
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    h, w = 120, 256
+    frame = (np.random.RandomState(120).rand(h, w, 3) * 255).astype(np.uint8)
+
+    calls = {}
+    for name in ("fused_sft_conv3_v2", "fused_resblock", "fused_mix_chain", "fused_down2",
+                 "fused_block_conv3", "fused_trunk3"):
+        def counted(*a, _fn=getattr(port_s2d, name), _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(port_s2d, name, counted)
+    proc = HDRTVNetTorch(WEIGHTS, device="cpu")
+    assert proc.policy.compute_dtype == torch.bfloat16
+    got = proc.process_rgb48(frame).astype(np.int64)
+    assert calls == {"fused_sft_conv3_v2": 6, "fused_resblock": 2, "fused_mix_chain": 1,
+                     "fused_down2": 5, "fused_block_conv3": 2, "fused_trunk3": 1}
+
+    sp = {k: jnp.asarray(v) for k, v in s2d_transform_params(load_npz(WEIGHTS)).items()}
+    monkeypatch.setenv("HDRTV_MEGAKERNEL", "0")
+    monkeypatch.setenv("HDRTV_FORCE_FUSED_TRACE", "1")
+    monkeypatch.setenv("HDRTV_MEGAKERNEL_INTERPRET", "1")
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(ensemble_s2d_rgb48_flat(
+            sp, jnp.asarray(frame.reshape(h, 3 * w)), None, policy=BF16, bgr=True))
+    d = np.abs(got - want.reshape(h, w, 3).astype(np.int64))
+    assert d.max() <= 512 and d.mean() <= 13.2, (int(d.max()), float(d.mean()))
+
+
+def test_bf16_slice_matches_jax_lax_program():
+    """bf16 against ``HDRTVNetTPU(precision="fp16")``, which off the TPU runs
+    the all-lax program: within 3e-2 of full scale, the bound the JAX tests
+    put between two bf16 programs that round at different places."""
+    from hdrtv_tpu.runtime.processor import HDRTVNetTPU
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    frame = (np.random.RandomState(64).rand(64, 96, 3) * 255).astype(np.uint8)
+    want = HDRTVNetTPU(WEIGHTS, precision="fp16", persistent_cache=False).process_rgb48(frame)
+    got = HDRTVNetTorch(WEIGHTS, precision="fp16", device="cpu").process_rgb48(frame)
+    assert got.shape == (64, 96, 3) and got.dtype == np.uint16
+    assert np.abs(got.astype(np.int64) - want.astype(np.int64)).max() <= 3e-2 * 65535
+
+
+def test_params_are_cast_once_at_load():
+    """Under bf16 the processor holds weights in bf16 and, in fp32, exactly
+    the biases the kernels take and the norm parameters; a frame then casts
+    no parameter again (``Policy.cast`` returns a tensor of the right dtype
+    as it is, and the kernels refuse a bias that is not fp32)."""
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    p = HDRTVNetTorch(WEIGHTS, device="cpu").params
+    assert p["LE.HR_conv1.weight"].dtype == torch.bfloat16
+    assert p["LE.HR_conv1.bias"].dtype == torch.float32  # block conv kernel
+    assert p["LE.SFT_layer1.SFT_scale_conv0.bias"].dtype == torch.float32  # sft_conv3 kernel
+    assert p["LE.CondNet2.4.bias"].dtype == torch.float32  # mix_chain kernel
+    assert p["LE.recon_trunk3.0.sft1.SFT_shift_conv1.bias"].dtype == torch.float32  # trunk3 kernel
+    assert p["LE.conv_last.bias"].dtype == torch.bfloat16  # torch conv (Co = 12)
+    assert p["LE.CondNet3.4.bias"].dtype == torch.bfloat16  # torch 1×1 (Co = 64)
+    assert p["AGCM.classifier.model.3.weight"].dtype == torch.float32  # instance norm
+    assert p["LE.__trunk3_packed"].dtype == torch.float32
+    fp32 = HDRTVNetTorch(WEIGHTS, precision="fp32", device="cpu").params
+    assert all(v.dtype == torch.float32 for v in fp32.values() if v.is_floating_point())
+
+
+def test_default_precision_constructs_on_cpu():
+    from hdrtv_tpu_torch.models.layers import BF16
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    proc = HDRTVNetTorch(WEIGHTS, device="cpu")
+    assert proc.precision == "fp16" and proc.policy is BF16
+    out = proc.process_rgb48(np.zeros((16, 24, 3), np.uint8))
+    assert out.shape == (16, 24, 3) and out.dtype == np.uint16
+
+
 @pytest.mark.parametrize("kwargs", [
-    {"precision": "fp16"},
+    {"precision": "fp16", "mesh": object()},
     {"precision": "fp32", "use_hg": True},
     {"precision": "fp32", "proc_resolution": (64, 32)},
     {"precision": "fp32", "fast_condition_resize": True},
