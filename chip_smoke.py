@@ -10,33 +10,45 @@ lines; any failed check raises and the script exits non-zero with no result:
 1. card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    build of every kernel from hdrtv_tpu_torch/csrc (time, registers, spills);
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   every 1080p main-path shape of the fp32 and of the bf16 frame program,
-   TF32 off; the three kernels only the bf16 program runs are also held in
-   fp32 at the same shapes. Tolerances. fp32: 1e-4 absolute (5e-4 for
+   every 1080p main-path shape of the fp32 and of the two bf16 frame
+   programs, TF32 off; the kernels only the bf16 programs run are also held
+   in fp32 at the same shapes. Tolerances. fp32: 1e-4 absolute (5e-4 for
    trunk3's 9-conv chain): the same fp32 products summed in another order.
    bf16: the same exact products summed in fp32 in another order and rounded
    at the same places, so a result moves by one bf16 step where a rounding
-   flips: |err| ≤ 2^-7·max(1, |y|) for block_conv3, down2, sft_conv3 and
-   mix_chain; two steps for resblock and trunk3, whose rounded intermediates
-   feed further convs (twice the one step measured). The pack is exact in
-   both types. Kernel, plain and library times (CUDA events) and the least
+   flips: |err| ≤ 2^-7·max(1, |y|) for block_conv3, down2, sft_conv3,
+   mix_chain and cond_chain; two steps for resblock, trunk3 and agcm_head,
+   whose rounded intermediates feed further convs (twice the one step
+   measured). The pack is exact in both types. The tail is compared in its
+   packed coarse form, in u16 codes: fp32 ≤ 1 code (the sum order at the +0.5
+   boundary). bf16: equal bit for bit except where a bf16 rounding of t or h
+   flipped (another sum order): conv_last's fp32 sum is packed unrounded, so
+   each of the outputs that read a flipped h moves by |w_last|·step·65535
+   codes, step being one bf16 step of h. The bound is computed from the
+   run's inputs, max|w_last| · (bf16 step at max|h|) · 65535, doubled for two
+   flips under one 3×3 window, and at most TAIL_BF16_SHARE of the values may
+   differ at all (twice the share seen).
+   Kernel, plain and library times (CUDA events) and the least
    time the card could take: bytes over 3.35 TB/s, or FLOPs of the non-zero
    weights over the H100 SXM's rate for the element type (67 TFLOP/s fp32
    outside the tensor cores, 989 TFLOP/s bf16), whichever is larger;
 3. end to end: HDRTVNetTorch.process_rgb48 on the card against the same
-   processor on the CPU, one seeded 360×640 frame: fp32 ≤ 4 u16 codes; bf16
-   (a flipped rounding is 256 codes near full scale and spreads through the
-   later layers) max ≤ 1536 codes and mean ≤ 34, twice what was measured;
-4. 1080p, fp32 then bf16: one frame through process_rgb48_device with the
-   launch counts set to 0 before it and read after (fp32 exactly block_conv3
-   12, down2 5, trunk3 1, pack_rgb48 1; bf16 exactly sft_conv3 6, resblock 2,
-   mix_chain 1, down2 5, block_conv3 2, trunk3 1, pack_rgb48 1), then
-   device-resident frames with one sync (3 in fp32, 10 in bf16): ms/frame,
-   fps, peak memory, output range.
+   processor on the CPU, one seeded 360×640 frame, for each of the three
+   frame programs: fp32 ≤ 4 u16 codes; bf16 without the megakernels
+   (HDRTV_MEGAKERNEL=0) and bf16 with them, the default (a flipped rounding
+   is 256 codes near full scale and spreads through the later layers), max
+   ≤ 1536 codes and mean ≤ 34, twice what was measured;
+4. 1080p, the three programs in turn: one frame through
+   process_rgb48_device (u8 pair planes from put_frame) with the launch
+   counts set to 0 before it and read after, asserted exactly
+   (EXPECTED_LAUNCHES: the megakernel program launches agcm_head, cond_chain
+   and tail once each and pack_rgb48 not at all), then device-resident frames
+   with one sync (3 in fp32, 3 in bf16 without the megakernels, 10 in the
+   default program): ms/frame, fps, peak memory, output range.
 
 The line before the last is the per-kernel JSON summary, one entry per
-kernel and element type on a main path; the last line is
-{"ok": true, "device": {...}}.
+kernel and element type, with the path whose launches it reports and its
+launches on every path; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -52,13 +64,21 @@ WEIGHTS = os.path.join(ROOT, "weights", "hr_fp32.npz")
 HBM_BPS = 3.35e12  # H100 SXM device memory rate
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}  # H100 SXM: fp32 FMA units, bf16 tensor cores
 ATOL = 1e-4
-EXPECTED_LAUNCHES = {
-    "f32": {"block_conv3": 12, "down2": 5, "trunk3": 1, "pack_rgb48": 1,
-            "sft_conv3": 0, "resblock": 0, "mix_chain": 0},
-    "bf16": {"block_conv3": 2, "down2": 5, "trunk3": 1, "pack_rgb48": 1,
-             "sft_conv3": 6, "resblock": 2, "mix_chain": 1},
+TAIL_BF16_SHARE = 0.016  # see the docstring, phase 2
+# The three frame programs (paths): the processor's precision token, the
+# element type, HDRTV_MEGAKERNEL, frames timed at 1080p, and the launches of
+# one 1080p frame.
+PATHS = {
+    "fp32": {"precision": "fp32", "dtype": "f32", "mega": "1", "frames": 3, "launches": {
+        "block_conv3": 12, "down2": 5, "trunk3": 1, "pack_rgb48": 1, "sft_conv3": 0, "resblock": 0,
+        "mix_chain": 0, "agcm_head": 0, "cond_chain": 0, "tail": 0}},
+    "bf16_nomega": {"precision": "fp16", "dtype": "bf16", "mega": "0", "frames": 3, "launches": {
+        "block_conv3": 2, "down2": 5, "trunk3": 1, "pack_rgb48": 1, "sft_conv3": 6, "resblock": 2,
+        "mix_chain": 1, "agcm_head": 0, "cond_chain": 0, "tail": 0}},
+    "bf16_mega": {"precision": "fp16", "dtype": "bf16", "mega": "1", "frames": 10, "launches": {
+        "block_conv3": 2, "down2": 5, "trunk3": 1, "pack_rgb48": 0, "sft_conv3": 5, "resblock": 2,
+        "mix_chain": 1, "agcm_head": 1, "cond_chain": 1, "tail": 1}},
 }
-PRECISION = {"f32": "fp32", "bf16": "fp16"}  # the processor's token for each element type
 KERNEL_INFO = {
     "block_conv3": ("hdrtv_tpu_torch/csrc/block_conv3.cu", "hdrtv_tpu/ops/conv_kernels.py:271"),
     "down2": ("hdrtv_tpu_torch/csrc/down2.cu", "hdrtv_tpu/ops/megakernel.py:706"),
@@ -67,6 +87,9 @@ KERNEL_INFO = {
     "sft_conv3": ("hdrtv_tpu_torch/csrc/sft_conv3.cu", "hdrtv_tpu/ops/megakernel.py:866"),
     "resblock": ("hdrtv_tpu_torch/csrc/resblock.cu", "hdrtv_tpu/ops/megakernel.py:1012"),
     "mix_chain": ("hdrtv_tpu_torch/csrc/mix_chain.cu", "hdrtv_tpu/ops/megakernel.py:1259"),
+    "agcm_head": ("hdrtv_tpu_torch/csrc/agcm_head.cu", "hdrtv_tpu/ops/megakernel.py:209"),
+    "cond_chain": ("hdrtv_tpu_torch/csrc/cond_chain.cu", "hdrtv_tpu/ops/megakernel.py:352"),
+    "tail": ("hdrtv_tpu_torch/csrc/tail.cu", "hdrtv_tpu/ops/megakernel.py:489"),
 }
 
 
@@ -135,16 +158,18 @@ def phase_card(torch, native) -> str:
 
 def phase_kernels(torch, np) -> dict:
     """Every kernel at the 1080p main-path shapes, in fp32 and in bf16;
-    returns per (kernel, element type) per-frame totals (each case weighted
-    by its launches per frame of that element type's frame program)."""
+    returns per (kernel, element type, path) per-frame totals: each case
+    weighted by its launches per frame of that path. A kernel no fp32 path
+    runs is measured in fp32 all the same, weighted like the bf16 paths."""
     import torch.nn.functional as F
 
     from hdrtv_tpu_torch.models.s2d import w_ps_permute, w_s2d_1x1, w_s2d_s1, w_s2d_s1_ps, w_s2d_s2
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_ref
     from hdrtv_tpu_torch.ops.megakernel import (
+        agcm_head_pack, fused_agcm_head, fused_agcm_head_ref, fused_cond_chain, fused_cond_chain_ref,
         fused_down2, fused_down2_ref, fused_mix_chain, fused_mix_chain_ref, fused_resblock,
-        fused_resblock_ref, fused_sft_conv3_v2, fused_sft_conv3_v2_ref, fused_trunk3,
-        fused_trunk3_ref,
+        fused_resblock_ref, fused_sft_conv3_v2, fused_sft_conv3_v2_ref, fused_tail, fused_tail_ref,
+        fused_trunk3, fused_trunk3_ref,
     )
     from hdrtv_tpu_torch.ops.pack import pack_rgb48, pack_rgb48_ref
 
@@ -153,20 +178,30 @@ def phase_kernels(torch, np) -> dict:
     tdt = {"f32": torch.float32, "bf16": torch.bfloat16}
     totals: dict = {}
 
-    def record(kernel, dtype, case, n, y, y_ref, tol, ms, plain_ms, lib_ms, nbytes, flops):
-        """``tol``: absolute for fp32 (and the pack); bf16 steps for bf16."""
+    def runs(dtype, per_path):
+        """Launches per frame of a case on the paths that count for ``dtype``;
+        ``per_path``: its launches on (fp32, bf16_nomega, bf16_mega)."""
+        n = dict(zip(PATHS, per_path, strict=True))
+        if dtype == "f32" and n["fp32"]:
+            return {"fp32": n["fp32"]}
+        return {p: k for p, k in n.items() if k and PATHS[p]["dtype"] == "bf16"}
+
+    def record(kernel, dtype, case, per_path, y, y_ref, tol, ms, plain_ms, lib_ms, nbytes, flops,
+               unit="abs"):
+        """``unit``: what ``tol`` bounds. "abs": the absolute error (fp32,
+        and u16 codes); "steps": bf16 steps of the result."""
         torch.cuda.synchronize()
         e = (y.float() - y_ref.float()).abs()
         err = float(e.max())
-        if dtype == "bf16" and kernel != "pack_rgb48":
+        if unit == "steps":
             steps = float((e / (2.0 ** -7 * y_ref.float().abs().clamp_min(1.0))).max())
             ok, what = steps <= tol, f"{steps:.3f} bf16 steps > {tol}"
         else:
             steps, ok, what = None, err <= tol, f"max abs error {err} > {tol}"
         b_ms, b_by = bound(nbytes, flops, dtype)
         log(json.dumps({
-            "kernel": kernel, "dtype": dtype, "case": case, "per_frame": n, "max_abs_err": err,
-            "bf16_steps": None if steps is None else round(steps, 3),
+            "kernel": kernel, "dtype": dtype, "case": case, "per_frame": runs(dtype, per_path),
+            "max_abs_err": err, "bf16_steps": None if steps is None else round(steps, 3),
             "differ": float((e > 0).float().mean()), "tol": tol,
             "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
             "library_ms": None if lib_ms is None else round(lib_ms, 4),
@@ -175,23 +210,25 @@ def phase_kernels(torch, np) -> dict:
         }))
         if not ok:
             raise AssertionError(f"{kernel} {dtype} {case}: {what}")
-        tot = totals.setdefault((kernel, dtype), {
-            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-            "bytes": 0.0, "flops": 0.0, "lib_all": True})
-        tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        tot["ms"] += n * ms
-        tot["plain_ms"] += n * plain_ms
-        tot["bound_ms"] += n * b_ms
-        tot["bytes"] += n * nbytes
-        tot["flops"] += n * flops
-        if lib_ms is None:
-            tot["lib_all"] = False
-        else:
-            tot["library_ms"] += n * lib_ms
+        for path, n in runs(dtype, per_path).items():
+            tot = totals.setdefault((kernel, dtype, path), {
+                "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                "bytes": 0.0, "flops": 0.0, "lib_all": True})
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["ms"] += n * ms
+            tot["plain_ms"] += n * plain_ms
+            tot["bound_ms"] += n * b_ms
+            tot["bytes"] += n * nbytes
+            tot["flops"] += n * flops
+            if lib_ms is None:
+                tot["lib_all"] = False
+            else:
+                tot["library_ms"] += n * lib_ms
 
     for dtype in ("f32", "bf16"):
         dt = tdt[dtype]
         size = 4 if dtype == "f32" else 2
+        unit = "abs" if dtype == "f32" else "steps"
         rng = np.random.RandomState(1234)
 
         def t(a, _dt=dt):
@@ -203,28 +240,33 @@ def phase_kernels(torch, np) -> dict:
         def nbytes_of(*tensors):
             return sum(x.numel() * x.element_size() for x in tensors if x is not None)
 
+        def nnz(*ws):
+            return sum(int((w != 0).sum()) for w in ws)
+
+        def p11(ci, co, scale=0.05):
+            """A 1×1 conv as the model has it: s2d block-diagonal (4ci, 4co)."""
+            return t(w_s2d_1x1(rng.randn(1, 1, ci, co).astype(np.float32) * scale)[0, 0])
+
         def sft4(cc_nat, c_nat):
             """The four SFT 1×1s as the model has them: s2d block-diagonal."""
-            return [(t(w_s2d_1x1(rng.randn(1, 1, ci, co).astype(np.float32) * 0.05)[0, 0]),
-                     f32(np.tile(rng.randn(co) * 0.1, 4)))
+            return [(p11(ci, co), f32(np.tile(rng.randn(co) * 0.1, 4)))
                     for ci, co in ((cc_nat, cc_nat), (cc_nat, c_nat), (cc_nat, cc_nat), (cc_nat, c_nat))]
 
         def sft_flops(npix, sft):
-            return 2 * npix * sum(int((w != 0).sum()) for w, _ in sft)
+            return 2 * npix * nnz(*[w for w, _ in sft])
 
         # block_conv3: (name, hb, wb, natural ci, natural co, PS-folded, relu, skip,
-        #               launches per fp32 frame, per bf16 frame)
-        for name, hb, wb, ci, co, ps, relu, skip, n32, n16 in (
-            ("L0 HR_conv1/2", 540, 960, 32, 32, False, True, False, 2, 0),
-            ("L1 trunk1/5 conv1", 270, 480, 32, 32, False, True, False, 2, 0),
-            ("L1 trunk1/5 conv2", 270, 480, 32, 32, False, False, True, 2, 0),
-            ("L2 trunk2/4 conv1", 135, 240, 32, 32, False, True, False, 2, 0),
-            ("L2 trunk2/4 conv2", 135, 240, 32, 32, False, False, True, 2, 0),
-            ("L1 up_conv3", 270, 480, 32, 128, True, True, False, 1, 1),
-            ("L2 up_conv2", 135, 240, 32, 128, True, True, False, 1, 1),
+        #               launches per frame on (fp32, bf16_nomega, bf16_mega))
+        for name, hb, wb, ci, co, ps, relu, skip, per_path in (
+            ("L0 HR_conv1/2", 540, 960, 32, 32, False, True, False, (2, 0, 0)),
+            ("L1 trunk1/5 conv1", 270, 480, 32, 32, False, True, False, (2, 0, 0)),
+            ("L1 trunk1/5 conv2", 270, 480, 32, 32, False, False, True, (2, 0, 0)),
+            ("L2 trunk2/4 conv1", 135, 240, 32, 32, False, True, False, (2, 0, 0)),
+            ("L2 trunk2/4 conv2", 135, 240, 32, 32, False, False, True, (2, 0, 0)),
+            ("L1 up_conv3", 270, 480, 32, 128, True, True, False, (1, 1, 1)),
+            ("L2 up_conv2", 135, 240, 32, 128, True, True, False, (1, 1, 1)),
         ):
-            n = n32 if dtype == "f32" else n16
-            if not n:
+            if not runs(dtype, per_path):
                 continue
             w_nat = rng.randn(3, 3, ci, co).astype(np.float32) * 0.05
             w = t(w_s2d_s1_ps(w_nat) if ps else w_s2d_s1(w_nat))
@@ -240,17 +282,18 @@ def phase_kernels(torch, np) -> dict:
             w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             b_lib = b.to(dt)
             lib = time_ms(lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1), torch)
-            record("block_conv3", dtype, name, n, y, y_r, ATOL if dtype == "f32" else 1, ms, plain,
-                   lib, nbytes_of(x, w, b, y, sk), 2 * conv_macs(w, hb, wb, 1))
+            record("block_conv3", dtype, name, per_path, y, y_r, ATOL if dtype == "f32" else 1, ms, plain,
+                   lib, nbytes_of(x, w, b, y, sk), 2 * conv_macs(w, hb, wb, 1), unit)
             del x, y, y_r, sk
 
-        # down2: (name, hb, wb, cf, cin, ch0, natural co per branch, branches, act, per frame)
-        for name, hb, wb, cf, cin, ch0, co_nat, nbr, act, n in (
-            ("LE.__cond_down (a_sub=3)", 540, 960, 256, None, 0, 64, 3, "lrelu", 1),
-            ("CondNet3.2 window ch0=256", 270, 480, 768, 256, 256, 64, 1, "lrelu", 1),
-            ("CondNet4.2 window ch0=512", 270, 480, 768, 256, 512, 64, 1, "lrelu", 1),
-            ("down_conv1", 540, 960, 128, None, 0, 32, 1, "relu", 1),
-            ("down_conv2", 270, 480, 128, None, 0, 32, 1, "relu", 1),
+        # down2: (name, hb, wb, cf, cin, ch0, natural co per branch, branches, act); once per
+        # frame on every path
+        for name, hb, wb, cf, cin, ch0, co_nat, nbr, act in (
+            ("LE.__cond_down (a_sub=3)", 540, 960, 256, None, 0, 64, 3, "lrelu"),
+            ("CondNet3.2 window ch0=256", 270, 480, 768, 256, 256, 64, 1, "lrelu"),
+            ("CondNet4.2 window ch0=512", 270, 480, 768, 256, 512, 64, 1, "lrelu"),
+            ("down_conv1", 540, 960, 128, None, 0, 32, 1, "relu"),
+            ("down_conv2", 270, 480, 128, None, 0, 32, 1, "relu"),
         ):
             c = cin or cf
             w = t(np.concatenate([
@@ -268,15 +311,16 @@ def phase_kernels(torch, np) -> dict:
             w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             b_lib = b.to(dt)
             lib = time_ms(lambda: F.conv2d(x_pad, w_oihw, b_lib, stride=2), torch)
-            record("down2", dtype, name, n, y, y_r, ATOL if dtype == "f32" else 1, ms, plain, lib,
-                   size * hb * wb * c + nbytes_of(w, b, y), 2 * conv_macs(w, hb // 2, wb // 2, 2))
+            record("down2", dtype, name, (1, 1, 1), y, y_r, ATOL if dtype == "f32" else 1, ms, plain, lib,
+                   size * hb * wb * c + nbytes_of(w, b, y), 2 * conv_macs(w, hb // 2, wb // 2, 2), unit)
             del x, y, y_r, xw, x_pad
 
-        # sft_conv3: x (hb,wb,128), cond (hb,wb,64); on the bf16 frame program only
-        for name, hb, wb, relu, skip, n in (
-            ("L0 SFT_layer1/2 + HR_conv1/2", 540, 960, True, False, 2),
-            ("L2 trunk2/4 sft1 + conv1", 135, 240, True, False, 2),
-            ("L2 trunk2/4 sft2 + conv2 + skip", 135, 240, False, True, 2),
+        # sft_conv3: x (hb,wb,128), cond (hb,wb,64); on the bf16 frame programs only (the
+        # megakernel program has SFT_layer2 + HR_conv2 in its tail)
+        for name, hb, wb, relu, skip, per_path in (
+            ("L0 SFT_layer1/2 + HR_conv1/2", 540, 960, True, False, (0, 2, 1)),
+            ("L2 trunk2/4 sft1 + conv1", 135, 240, True, False, (0, 2, 2)),
+            ("L2 trunk2/4 sft2 + conv2 + skip", 135, 240, False, True, (0, 2, 2)),
         ):
             w = t(w_s2d_s1(rng.randn(3, 3, 32, 32).astype(np.float32) * 0.05))
             x = t(rng.rand(hb, wb, 128) - 0.3)
@@ -289,14 +333,14 @@ def phase_kernels(torch, np) -> dict:
             ms = time_ms(lambda: fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, skip=sk), torch)
             plain = time_ms(lambda: fused_sft_conv3_v2_ref(x, cond, sft, w, b, relu=relu, skip=sk), torch)
             params = [p for pair in sft for p in pair]
-            record("sft_conv3", dtype, name, n, y, y_r, ATOL if dtype == "f32" else 1, ms, plain,
+            record("sft_conv3", dtype, name, per_path, y, y_r, ATOL if dtype == "f32" else 1, ms, plain,
                    None, nbytes_of(x, cond, w, b, y, sk, *params),
-                   2 * conv_macs(w, hb, wb, 1) + sft_flops(hb * wb, sft) + 3 * hb * wb * 128)
+                   2 * conv_macs(w, hb, wb, 1) + sft_flops(hb * wb, sft) + 3 * hb * wb * 128, unit)
             del x, cond, y, y_r, sk
 
         # resblock at L1: x (270,480,128), cond (270,480,64)
         hb, wb = 270, 480
-        for name, coarse, n in (("L1 trunk1", False, 1), ("L1 trunk5 + up_coarse", True, 1)):
+        for name, coarse in (("L1 trunk1", False), ("L1 trunk5 + up_coarse", True)):
             x = t(rng.rand(hb, wb, 128) - 0.3)
             cond = t(rng.rand(hb, wb, 64) - 0.3)
             up = t(rng.rand(hb // 2, wb // 2, 512) - 0.3) if coarse else None
@@ -310,27 +354,111 @@ def phase_kernels(torch, np) -> dict:
             ms = time_ms(lambda: fused_resblock(*args, up_coarse=up), torch)
             plain = time_ms(lambda: fused_resblock_ref(*args, up_coarse=up), torch)
             params = [p for pair in (*sft1, *sft2) for p in pair]
-            record("resblock", dtype, name, n, y, y_r, ATOL if dtype == "f32" else 2, ms, plain, None,
+            record("resblock", dtype, name, (0, 1, 1), y, y_r, ATOL if dtype == "f32" else 2, ms, plain, None,
                    nbytes_of(x, cond, up, w1, b1, w2, b2, y, *params),
                    2 * (conv_macs(w1, hb, wb, 1) + conv_macs(w2, hb, wb, 1))
-                   + sft_flops(hb * wb, sft1) + sft_flops(hb * wb, sft2) + 8 * hb * wb * 128)
+                   + sft_flops(hb * wb, sft1) + sft_flops(hb * wb, sft2) + 8 * hb * wb * 128, unit)
             del x, cond, up, y, y_r, args
 
         # mix_chain: the CondNet2 tail, window [0, 256) of (270,480,768): 256 → 256 lrelu → 64
         x = t(rng.rand(hb, wb, 768) - 0.3)
-        steps = [(t(w_s2d_1x1(rng.randn(1, 1, 64, 64).astype(np.float32) * 0.05)[0, 0]),
-                  f32(rng.randn(256) * 0.1), "lrelu"),
-                 (t(w_s2d_1x1(rng.randn(1, 1, 64, 16).astype(np.float32) * 0.05)[0, 0]),
-                  f32(rng.randn(64) * 0.1), None)]
+        steps = [(p11(64, 64), f32(rng.randn(256) * 0.1), "lrelu"), (p11(64, 16), f32(rng.randn(64) * 0.1), None)]
         y = fused_mix_chain(x, steps, cin=256, ch0=0)
         y_r = fused_mix_chain_ref(x[..., :256], steps)
         ms = time_ms(lambda: fused_mix_chain(x, steps, cin=256, ch0=0), torch)
         plain = time_ms(lambda: fused_mix_chain_ref(x[..., :256], steps), torch)
-        record("mix_chain", dtype, "L1 CondNet2.2/.4 window ch0=0", 1, y, y_r,
+        record("mix_chain", dtype, "L1 CondNet2.2/.4 window ch0=0", (0, 1, 1), y, y_r,
                ATOL if dtype == "f32" else 1, ms, plain, None,
                size * hb * wb * 256 + nbytes_of(y, *[p for w, b, _ in steps for p in (w, b)]),
-               2 * hb * wb * sum(int((w != 0).sum()) for w, _, _ in steps))
+               2 * hb * wb * nnz(*[w for w, _, _ in steps]), unit)
         del x, y, y_r
+
+        # The three L0 megakernels at (540, 960): only the bf16 megakernel program runs them.
+        hb, wb = 540, 960
+        npix = hb * wb
+
+        # agcm_head: u8 pair planes in, scale 1/255; AGCM 3 → 64 → 64 → 3 and the input conv
+        # 3 → 32 ‖ 64 in their s2d forms; the three outputs compared as one vector
+        xs = torch.as_tensor((rng.rand(hb, 2, wb, 6) * 255).astype(np.uint8), device=dev)
+        mods = f32(np.tile(rng.randn(6, 64) * 0.1, (1, 4)))
+        mods[4:, 12:] = 0.0
+        w_in = t(np.concatenate([w_s2d_s1(rng.randn(3, 3, 3, co).astype(np.float32) * 0.1) for co in (32, 64)], axis=-1))
+        hargs = (mods, p11(3, 64, 0.2), f32(rng.randn(256) * 0.1), p11(64, 64), f32(rng.randn(256) * 0.1),
+                 p11(64, 3, 0.1), f32(rng.randn(12) * 0.1), w_in, f32(rng.randn(384) * 0.1))
+        packed = agcm_head_pack(hargs[1], hargs[5], w_in)
+
+        def head():
+            return fused_agcm_head(xs, *hargs, n_first=128, scale=1.0 / 255.0, packed=packed)
+
+        def head_plain():
+            return fused_agcm_head_ref(xs, *hargs, n_first=128, scale=1.0 / 255.0)
+
+        def joined(outs):
+            return torch.cat([o.reshape(-1) for o in outs])
+
+        y, y_r = head(), head_plain()
+        if [tuple(o.shape) for o in y] != [(hb, wb, 128), (hb, wb, 256), (hb, wb, 12)]:
+            raise AssertionError(f"agcm_head output shapes {[tuple(o.shape) for o in y]}")
+        ms, plain = time_ms(head, torch), time_ms(head_plain, torch)
+        record("agcm_head", dtype, "L0 u8 pair planes -> fea, c0, agcm", (0, 0, 1), joined(y), joined(y_r),
+               ATOL if dtype == "f32" else 2, ms, plain, None, nbytes_of(xs, *hargs, *y),
+               2 * npix * nnz(hargs[1], hargs[3], hargs[5]) + 2 * conv_macs(w_in, hb, wb, 1)
+               + 3 * npix * (256 + 256 + 12), unit)
+        del xs, y, y_r
+
+        # cond_chain: c0 (540,960,256) → 256 ×4 (lrelu) → 64; c and cond1 compared as one vector
+        c0 = t(rng.rand(hb, wb, 256) - 0.3)
+        weights = [(p11(64, n), f32(rng.randn(4 * n) * 0.1)) for n in (64, 64, 64, 64, 16)]
+        y, y_r = fused_cond_chain(c0, weights), fused_cond_chain_ref(c0, weights)
+        if [tuple(o.shape) for o in y] != [(hb, wb, 256), (hb, wb, 64)]:
+            raise AssertionError(f"cond_chain output shapes {[tuple(o.shape) for o in y]}")
+        ms = time_ms(lambda: fused_cond_chain(c0, weights), torch)
+        plain = time_ms(lambda: fused_cond_chain_ref(c0, weights), torch)
+        record("cond_chain", dtype, "L0 c0 -> c, cond1", (0, 0, 1), joined(y), joined(y_r),
+               ATOL if dtype == "f32" else 1, ms, plain, None,
+               nbytes_of(c0, *y, *[p for pair in weights for p in pair]),
+               2 * npix * nnz(*[w for w, _ in weights]), unit)
+        del c0, y, y_r
+
+        # tail, packed coarse form: s = fea0 (540,960,128) + d2s(up_coarse (270,480,512)),
+        # cond1 (…,64), skip (…,12) → (540,2,960,6) u16, compared in codes
+        s_ = t(rng.rand(hb, wb, 128) - 0.3)
+        up = t(rng.rand(hb // 2, wb // 2, 512) - 0.3)
+        cond = t(rng.rand(hb, wb, 64) - 0.3)
+        skip = t(rng.rand(hb, wb, 12) * 1.1 - 0.05)
+        sft = sft4(16, 32)
+        w_hr = t(w_s2d_s1(rng.randn(3, 3, 32, 32).astype(np.float32) * 0.05))
+        w_last = t(w_s2d_s1(rng.randn(3, 3, 32, 3).astype(np.float32) * 0.03))
+        targs = (s_, cond, skip, sft, w_hr, f32(rng.randn(128) * 0.1), w_last, f32(rng.randn(12) * 0.02))
+        y = fused_tail(*targs, pack=True, up_coarse=up)
+        y_r = fused_tail_ref(*targs, pack=True, up_coarse=up)
+        codes = y_r.to(torch.int32)
+        inside = float(((codes > 0) & (codes < 65535)).float().mean())
+        if tuple(y.shape) != (hb, 2, wb, 6) or y.dtype != torch.uint16 or inside < 0.5:
+            raise AssertionError(f"tail output {tuple(y.shape)} {y.dtype}, {inside:.2f} of the codes unclipped")
+        ms = time_ms(lambda: fused_tail(*targs, pack=True, up_coarse=up), torch)
+        plain = time_ms(lambda: fused_tail_ref(*targs, pack=True, up_coarse=up), torch)
+        params = [p for pair in sft for p in pair] + list(targs[4:])
+        tol = 1
+        if dtype == "bf16":
+            # h as the tail computes it: relu(HR_conv2(sft(round(s + d2s(up)))))
+            s_sum = (s_.float() + up.reshape(hb // 2, wb // 2, 2, 2, 128).permute(0, 2, 1, 3, 4)
+                     .reshape(hb, wb, 128).float()).to(dt)
+            h_max = float(fused_sft_conv3_v2_ref(s_sum, cond, sft, w_hr, targs[5], relu=True).float().abs().max())
+            step = 2.0 ** (int(np.floor(np.log2(h_max))) - 7)
+            tol = int(2 * float(w_last.float().abs().max()) * step * 65535) + 1
+            share = float((y.to(torch.int32) != codes).float().mean())
+            log(f"tail bf16: max|h| {h_max:.3f} (bf16 step {step}), max|w_last| "
+                f"{float(w_last.float().abs().max()):.4f}: bound {tol} codes; {share:.2e} of the codes differ")
+            if share > TAIL_BF16_SHARE:
+                raise AssertionError(f"tail bf16: {share:.3e} of the codes differ > {TAIL_BF16_SHARE}")
+            del s_sum
+        record("tail", dtype, "L0 fea0 + up_coarse -> packed u16", (0, 0, 1), y.to(torch.int32), codes,
+               tol, ms, plain, None,
+               nbytes_of(s_, up, cond, skip, y, *params),
+               2 * (conv_macs(w_hr, hb, wb, 1) + conv_macs(w_last, hb, wb, 1)) + sft_flops(npix, sft)
+               + 4 * npix * 128 + 5 * npix * 12)
+        del s_, up, cond, skip, y, y_r, codes, targs
 
         # trunk3 at the /8 level: fea3 (135,240,32), cond4 (135,240,16) → 128. In bf16 the
         # weights are scaled to a chain that does not amplify (gain < 1 per conv, as a
@@ -360,8 +488,8 @@ def phase_kernels(torch, np) -> dict:
         flops += 8 * hb * wb * 2 * 2 * (cc * cc + cc * cin)  # the SFT 1×1 pairs
         params = [p for blk in blocks for s in (blk[0], blk[3]) for pr in s for p in pr]
         params += [blk[i] for blk in blocks for i in (1, 2, 4, 5)] + [w_up, b_up]
-        record("trunk3", dtype, "trunk3 + up_conv1 (135x240)", 1, y, y_r, 5e-4 if dtype == "f32" else 2,
-               ms, plain, None, nbytes_of(fea3, cond4, y, *params), flops)
+        record("trunk3", dtype, "trunk3 + up_conv1 (135x240)", (1, 1, 1), y, y_r, 5e-4 if dtype == "f32" else 2,
+               ms, plain, None, nbytes_of(fea3, cond4, y, *params), flops, unit)
 
         # pack: the (1080,1920,3) frame, values beyond [0,1] included
         v = (torch.rand(1080, 1920, 3, device=dev, generator=torch.Generator(dev).manual_seed(5)) * 1.4 - 0.2).to(dt)
@@ -371,7 +499,7 @@ def phase_kernels(torch, np) -> dict:
             raise AssertionError(f"pack output {host.dtype} {host.shape}")
         ms = time_ms(lambda: pack_rgb48(v), torch)
         plain = time_ms(lambda: pack_rgb48_ref(v), torch)
-        record("pack_rgb48", dtype, f"(1080,1920,3) {dtype} -> u16", 1, u.to(torch.int32),
+        record("pack_rgb48", dtype, f"(1080,1920,3) {dtype} -> u16", (1, 1, 0), u.to(torch.int32),
                pack_rgb48_ref(v).to(torch.int32), 0.0, ms, plain, None,
                v.numel() * (size + 2), v.numel() * 4)
         del v, u
@@ -382,13 +510,15 @@ def phase_end_to_end(torch, np) -> None:
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     frame = (np.random.RandomState(360).rand(360, 640, 3) * 255).astype(np.uint8)
-    for dtype, max_codes, mean_codes in (("f32", 4, None), ("bf16", 1536, 34.0)):
-        prec = PRECISION[dtype]
-        log(f"phase 3: end to end, card against CPU (360x640 {dtype})")
+    bounds = {"fp32": (4, None), "bf16_nomega": (1536, 34.0), "bf16_mega": (1536, 34.0)}
+    for path, spec in PATHS.items():
+        max_codes, mean_codes = bounds[path]
+        os.environ["HDRTV_MEGAKERNEL"] = spec["mega"]
+        log(f"phase 3: end to end, card against CPU (360x640 {path})")
         t0 = time.perf_counter()
-        gpu = HDRTVNetTorch(WEIGHTS, precision=prec).process_rgb48(frame)
+        gpu = HDRTVNetTorch(WEIGHTS, precision=spec["precision"]).process_rgb48(frame)
         t1 = time.perf_counter()
-        cpu = HDRTVNetTorch(WEIGHTS, precision=prec, device="cpu").process_rgb48(frame)
+        cpu = HDRTVNetTorch(WEIGHTS, precision=spec["precision"], device="cpu").process_rgb48(frame)
         t2 = time.perf_counter()
         d = np.abs(gpu.astype(np.int64) - cpu.astype(np.int64))
         log(f"card {gpu.shape} {gpu.dtype} range [{gpu.min()}, {gpu.max()}] ({t1 - t0:.2f} s incl. load); "
@@ -397,16 +527,18 @@ def phase_end_to_end(torch, np) -> None:
         if gpu.shape != (360, 640, 3) or gpu.dtype != np.uint16:
             raise AssertionError("wrong output shape or dtype")
         if d.max() > max_codes or (mean_codes is not None and d.mean() > mean_codes):
-            raise AssertionError(f"{dtype}: card and CPU differ by max {int(d.max())} > {max_codes} codes "
+            raise AssertionError(f"{path}: card and CPU differ by max {int(d.max())} > {max_codes} codes "
                                  f"or mean {float(d.mean()):.3f} > {mean_codes}")
 
 
-def phase_1080p(torch, np, native, dtype: str, n: int) -> dict:
+def phase_1080p(torch, np, native, path: str) -> dict:
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
-    log(f"phase 4: 1080p {dtype} frames on the card")
-    expected = EXPECTED_LAUNCHES[dtype]
-    proc = HDRTVNetTorch(WEIGHTS, precision=PRECISION[dtype])
+    spec = PATHS[path]
+    expected, n = spec["launches"], spec["frames"]
+    os.environ["HDRTV_MEGAKERNEL"] = spec["mega"]
+    log(f"phase 4: 1080p {path} frames on the card (HDRTV_MEGAKERNEL={spec['mega']})")
+    proc = HDRTVNetTorch(WEIGHTS, precision=spec["precision"])
     h, w = 1080, 1920
     frame = (np.random.RandomState(1080).rand(h, w, 3) * 255).astype(np.uint8)
     x = proc.put_frame(frame.reshape(h, w * 3))
@@ -436,7 +568,7 @@ def phase_1080p(torch, np, native, dtype: str, n: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     if any(native.launch_counts[k] != n * v for k, v in expected.items()):
         raise AssertionError(f"launch counts over {n} frames: {native.launch_counts}")
-    log(f"1080p {dtype}: {ms:.2f} ms/frame, {1e3 / ms:.2f} fps over {n} device-resident frames "
+    log(f"1080p {path}: {ms:.2f} ms/frame, {1e3 / ms:.2f} fps over {n} device-resident frames "
         f"(one sync); peak allocated {peak / 2**30:.2f} GiB; output range [{lo}, {hi}]")
     del proc, x, out
     torch.cuda.empty_cache()
@@ -459,28 +591,32 @@ def main() -> int:
     with fp32_math():
         totals = phase_kernels(torch, np)
         phase_end_to_end(torch, np)
-        counts = {"f32": phase_1080p(torch, np, native, "f32", 3),
-                  "bf16": phase_1080p(torch, np, native, "bf16", 10)}
+        counts = {path: phase_1080p(torch, np, native, path) for path in PATHS}
 
-    def entry(name, dtype):
-        tot = totals[(name, dtype)]
+    def entry(name, dtype, path):
+        tot = totals[(name, dtype, path)]
         _, b_by = bound(tot["bytes"], tot["flops"], dtype)
         return {"max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
                 "bound_ms": tot["bound_ms"], "bound_by": b_by,
                 "library_ms": tot["library_ms"] if tot["lib_all"] else None}
 
-    # One entry per kernel and element type that a main path runs; the fp32
-    # instances of the kernels only the bf16 program runs ride along under
-    # "off_path" (compared and timed at the same shapes, launched by no path).
+    # One entry per kernel and element type that a path runs: fp32 reports the
+    # fp32 path, bf16 the megakernel path (the default), or the path without
+    # the megakernels for a kernel only that one launches. Times are per
+    # frame of the reported path. The fp32 instances of the kernels no fp32
+    # path runs ride along under "off_path" (compared and timed at the same
+    # shapes, launched by no path).
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        for dtype in ("f32", "bf16"):
-            if not counts[dtype][name]:
+        for dtype, path in (("f32", "fp32"),
+                            ("bf16", "bf16_mega" if counts["bf16_mega"][name] else "bf16_nomega")):
+            if not counts[path][name]:
                 continue
             k = {"name": f"{name}_{dtype}", "dtype": dtype, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": counts[dtype][name], **entry(name, dtype)}
-            if not counts["f32"][name]:
-                k["off_path"] = {"dtype": "f32", **entry(name, "f32")}
+                 "replaces": replaces, "path": path, "launches": counts[path][name],
+                 "launches_by_path": {p: counts[p][name] for p in PATHS}, **entry(name, dtype, path)}
+            if not counts["fp32"][name]:
+                k["off_path"] = {"dtype": "f32", **entry(name, "f32", path)}
             kernels.append(k)
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 // Per-pixel (1×1) matrix products, and the SFT pass built on them: the core
-// shared by mix_chain.cu, sft_conv3.cu and resblock.cu.
+// shared by chain.cuh (mix_chain.cu, cond_chain.cu), agcm_head.cu,
+// sft_conv3.cu, resblock.cu and tail.cu.
 //
 // A block of 256 threads owns a tile of 64 pixels. Its input rows sit in
 // shared memory as [pixel][channel] in the element type T (float or bf16),
@@ -205,7 +206,7 @@ __device__ __forceinline__ float2 bias_act2(const float (&acc)[2], const float* 
 //   scale = lrelu(cond · w0s + b0s) · w1s + b1s   (cond: CC channels → CC → C)
 //   shift = lrelu(cond · w0h + b0h) · w1h + b1h
 // and, optionally, x replaced by round_T(x + add) first, with that sum
-// written out (it is the residual of the resblock). `add` is either a tensor
+// written out where the caller wants it (it is the residual of the resblock). `add` is either a tensor
 // of x's shape or the coarse (H/2, W/2, 4C) tensor whose block d2s has x's
 // shape: fine[2i+a, 2j+b, k] = coarse[i, j, (2a+b)·C + k], un-folded on read.
 // Rounding points as in the TPU kernels (_sft_mix, _sft_conv_kernel): the
@@ -217,7 +218,7 @@ struct SftArgs {
   const void* x;     // (npix, C) TX
   const void* cond;  // (npix, CC) T
   const void* add;   // nullptr, (npix, C) T, or (H/2, W/2, 4C) T when coarse
-  void* xsum;        // (npix, C) T, written when add != nullptr
+  void* xsum;        // (npix, C) T or nullptr: the sum, written when add != nullptr
   void* t;           // (npix, C) T
   const void* w[4];  // scale0 (CC,CC), scale1 (CC,C), shift0 (CC,CC), shift1 (CC,C), T
   const float* b[4];
@@ -277,7 +278,7 @@ __global__ void __launch_bounds__(kPwThreads) sft_kernel(SftArgs a) {
         }
         const float2 u = load2<T>(add + src);
         xv = make_float2(round_to<T>(xv.x + u.x), round_to<T>(xv.y + u.y));
-        store2<T>(xsum + off, xv);
+        if (xsum) store2<T>(xsum + off, xv);
       }
       store2<T>(t + off, make_float2(xv.x * (sc.x + 1.f) + sh.x, xv.y * (sc.y + 1.f) + sh.y));
     }

@@ -1,5 +1,6 @@
 """Space-to-depth execution mode (port of ``hdrtv_tpu/models/s2d.py``: the
-host-side weight transforms and the non-mega frame program, fp32 and bf16).
+host-side weight transforms and the frame programs: fp32, bf16 without the
+megakernels, and the bf16 megakernel program, the default).
 
 Every activation is stored as (N, H/2, W/2, 4C) blocks in block-major
 channel order, and the weights are rewritten once at load so the block-
@@ -21,8 +22,14 @@ conv's result differently and bf16 parity is held rounding point for
 rounding point. Each kernel wrapper runs its plain version on CPU tensors.
 Everything the JAX package leaves to XLA (the other 1×1 convs, the
 12-channel input conv, conv_last, the 2×2 natural convs, the classifier) is
-plain torch. The megakernel program (the L0 section as three kernels) is
-not ported: bf16 is this program.
+plain torch.
+
+The megakernel program (``_ensemble_mega``) is what bf16 runs where
+``_mega_ok`` holds, as in the JAX package: the L0 section of the program
+above becomes three kernels, agcm_head (AGCM + the LE input conv), cond_chain
+(the five L0 1×1s) and tail (SFT_layer2 + HR_conv2 + conv_last + long skip +
+u16 pack), and u8 row-pair planes are consumed and produced directly.
+``HDRTV_MEGAKERNEL=0`` in the environment gives the program above back.
 """
 
 from __future__ import annotations
@@ -35,16 +42,26 @@ from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig
 from hdrtv_tpu_torch.models.layers import F32, Params, Policy, conv_nhwc, leaky_relu, relu
 from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
 from hdrtv_tpu_torch.ops.megakernel import (
+    agcm_head_pack,
+    fused_agcm_head,
+    fused_cond_chain,
     fused_down2,
     fused_mix_chain,
     fused_resblock,
     fused_sft_conv3_v2,
+    fused_tail,
     fused_trunk3,
+    pick_rows,
     pick_rows_even,
     trunk3_pack,
 )
 from hdrtv_tpu_torch.ops.pack import pack_rgb48
-from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa, downsample_quarter_aa_flat
+from hdrtv_tpu_torch.ops.resize import (
+    downsample_quarter_aa,
+    downsample_quarter_aa_flat,
+    downsample_quarter_aa_pairs,
+)
+from hdrtv_tpu_torch.utils.env import env_bool
 
 # ---------------------------------------------------------------------------
 # Data movement: s2d / d2s (block-major channels)
@@ -319,6 +336,15 @@ def s2d_transform_params(params: dict, cfg: ModelConfig | None = None) -> dict:
 
 _SFT_CONVS = ("SFT_scale_conv0", "SFT_scale_conv1", "SFT_shift_conv0", "SFT_shift_conv1")
 _TRUNK3_PACKED = "LE.__trunk3_packed"
+# What the megakernel program needs in the parameters, the 1×1 layers whose
+# biases its kernels take, and what params_to_torch prepares for the head
+# kernel: AGCM.conv_first's (12, C) matrix with its rows permuted for a BGR
+# frame, and agcm_head_pack's padded matrices (aw1 for RGB and for BGR).
+_MEGA_KEYS = ("LE.__in_fused.weight", "AGCM.conv_first.weight", "LE.conv_last.weight")
+_MEGA_BIASES = ("AGCM.conv_first", "AGCM.HRconv", "AGCM.conv_last", "LE.__in_fused", "LE.cond_first.2",
+                "LE.cond_first.4", "LE.CondNet1.0", "LE.CondNet1.2", "LE.CondNet1.4", "LE.conv_last")
+_HEAD_AW1_BGR = "AGCM.__conv_first_bgr"
+_HEAD_PACKED = ("AGCM.__head_aw1", "AGCM.__head_aw1_bgr", "AGCM.__head_aw3", "LE.__head_wcat")
 
 
 def _fits_kernel(w) -> bool:
@@ -352,6 +378,8 @@ def _fp32_param_names(params_np: dict) -> set[str]:
             keep |= {f"{sft}.{cv}.bias" for cv in _SFT_CONVS}
     if fits("LE.CondNet2.2"):  # the mix_chain tail
         keep |= {"LE.CondNet2.2.bias", "LE.CondNet2.4.bias"}
+    if all(k in params_np for k in _MEGA_KEYS):  # agcm_head, cond_chain, tail
+        keep |= {f"{layer}.bias" for layer in _MEGA_BIASES}
     keep |= {k for k in params_np if k.endswith(".bias")
              and (k.startswith("LE.recon_trunk3.") or k.startswith("LE.up_conv1."))}
     return keep
@@ -361,8 +389,9 @@ def params_to_torch(params_np: dict, device, policy: Policy = F32) -> Params:
     """Carry the (transformed) numpy parameters to ``device``, cast once to
     what ``policy`` computes with: floating arrays as contiguous tensors of
     the compute dtype, except the fp32 set of :func:`_fp32_param_names`;
-    anything else with its dtype. Also packs the trunk3 kernel's parameter
-    block, which depends on the parameters only."""
+    anything else with its dtype. Also prepares what depends on the
+    parameters only: the trunk3 kernel's parameter block, and the head
+    kernel's padded and BGR-permuted matrices."""
     keep = _fp32_param_names(params_np)
     out = {}
     for k, v in params_np.items():
@@ -372,6 +401,17 @@ def params_to_torch(params_np: dict, device, policy: Policy = F32) -> Params:
         out[k] = t.to(device).contiguous()
     if "LE.recon_trunk3.0.conv1.weight" in out and "LE.up_conv1.0.weight" in out:
         out[_TRUNK3_PACKED] = trunk3_pack(*_trunk3_params(out))
+    if all(k in out for k in _MEGA_KEYS):
+        aw1 = out["AGCM.conv_first.weight"][0, 0]
+        # Only AGCM.conv_first reads the source frame: a BGR frame permutes
+        # its rows within each pixel's three, and nothing else.
+        perm = torch.tensor([(k // 3) * 3 + 2 - (k % 3) for k in range(aw1.shape[0])], device=aw1.device)
+        aw1_bgr = aw1[perm].contiguous()
+        aw3, w_in = out["AGCM.conv_last.weight"][0, 0], out["LE.__in_fused.weight"]
+        aw1p, aw3p, wcat = agcm_head_pack(aw1, aw3, w_in)
+        aw1p_bgr = agcm_head_pack(aw1_bgr, aw3, w_in)[0]
+        out[_HEAD_AW1_BGR] = aw1_bgr
+        out.update(zip(_HEAD_PACKED, (aw1p, aw1p_bgr, aw3p, wcat), strict=True))
     return out
 
 
@@ -661,20 +701,119 @@ def le_s2d(p: Params, xs: torch.Tensor, conds: torch.Tensor, *, policy: Policy) 
     return conv_s1(p, "LE.conv_last", out, policy=policy, skip=mask_out)
 
 
+def _mega_ok(p: Params, xs_shape, policy: Policy) -> bool:
+    """Whether a frame takes the megakernel program: the JAX predicate's
+    rules (``HDRTV_MEGAKERNEL`` unset or on, bf16, batch 1, 12 s2d channels,
+    its row and width rules, the three keys), so that both packages route a
+    size the same way. Read at call time."""
+    if not env_bool("HDRTV_MEGAKERNEL", True):
+        return False
+    if policy.compute_dtype != torch.bfloat16:
+        return False
+    if len(xs_shape) != 4 or xs_shape[0] != 1 or xs_shape[3] != 12:
+        return False
+    _, hb, wb, _ = xs_shape
+    if wb % 8 != 0 or hb < 8 or pick_rows(hb) > 32 or not pick_rows_even(hb):
+        return False
+    return all(k in p for k in _MEGA_KEYS)
+
+
+def _agcm_mods(p: Params, cond_nat: torch.Tensor, *, policy: Policy) -> torch.Tensor:
+    """AGCM global modulation vectors, tiled for block-major s2d lanes:
+    (6, 4·nf) fp32 rows = (scale, shift) × (first, HR, last), computed in the
+    policy's type; the conv_last rows occupy the first 12 lanes."""
+    fea = classifier_apply(p, "AGCM.classifier.", "color_condition", cond_nat, policy=policy)
+
+    def lin(name):
+        w = policy.cast(p[f"{name}.weight"])
+        return (torch.matmul(policy.cast(fea), w) + policy.cast(p[f"{name}.bias"]))[0]
+
+    rows = [lin(f"AGCM.cond_{kind}_{tag}").repeat(4).float()
+            for tag in ("first", "HR", "last") for kind in ("scale", "shift")]
+    width = max(v.shape[0] for v in rows)
+    return torch.stack([torch.nn.functional.pad(v, (0, width - v.shape[0])) for v in rows])
+
+
+def _ensemble_mega(
+    p: Params, xs: torch.Tensor, cond_nat: torch.Tensor, *, policy: Policy, pack: bool,
+    scale: float = 1.0, bgr: bool = False,
+) -> torch.Tensor:
+    """The megakernel frame program. ``xs``: the unbatched s2d L0 frame,
+    (Hb, Wb, 12) float or u8, or (Hb, 2, Wb, 6) u8 row-pair planes (u8 with
+    ``scale``) → (Hb, 2, Wb, 6) u16 (``pack``: a reshape of the RGB48 frame)
+    or (Hb, Wb, 12) in the compute dtype. ``bgr`` reads the frame's bytes as
+    BGR by permuting AGCM.conv_first's rows; the frame is never flipped.
+    ``p`` comes from :func:`params_to_torch` with this policy."""
+    def w11(name):
+        return policy.cast(p[f"{name}.weight"][0, 0]), p[f"{name}.bias"]
+
+    if xs.dtype != torch.uint8:
+        xs = policy.cast(xs)
+    mods = _agcm_mods(p, cond_nat, policy=policy)
+    aw1 = p[_HEAD_AW1_BGR] if bgr else p["AGCM.conv_first.weight"][0, 0]
+    aw1p, aw1p_bgr, aw3p, wcat = (p[k] for k in _HEAD_PACKED)
+    fea_pre, c0, agcm = fused_agcm_head(
+        xs, mods, aw1, p["AGCM.conv_first.bias"], *w11("AGCM.HRconv"), *w11("AGCM.conv_last"),
+        policy.cast(p["LE.__in_fused.weight"]), p["LE.__in_fused.bias"],
+        n_first=p["LE.conv_first.bias"].shape[-1], scale=scale,
+        packed=(aw1p_bgr if bgr else aw1p, aw3p, wcat),
+    )
+    c_feat, cond1 = fused_cond_chain(c0, [
+        w11("LE.cond_first.2"), w11("LE.cond_first.4"),
+        w11("LE.CondNet1.0"), w11("LE.CondNet1.2"), w11("LE.CondNet1.4"),
+    ])
+    fea0 = _sft_conv(p, "LE.SFT_layer1", "LE.HR_conv1", fea_pre[None], cond1[None],
+                     policy=policy, relu_fused=True)
+    cond2, cond3, cond4 = _le_cond_downs(p, c_feat[None], policy=policy)
+    out = _le_mid(p, fea0, cond2, cond3, cond4, policy=policy)
+
+    # up_conv3's output stays coarse where its shape allows: the tail un-folds
+    # the d2s and adds the fea0 skip on read.
+    upc = conv_s1(p, "LE.up_conv3.0", out, policy=policy, relu_fused=True)
+    hb0, wb0, c0f = fea0.shape[1:]
+    if hb0 % 2 == 0 and wb0 % 2 == 0 and tuple(upc.shape[1:]) == (hb0 // 2, wb0 // 2, 4 * c0f):
+        s, up_coarse = fea0[0], upc[0]
+    else:
+        s, up_coarse = (d2s_blocks(upc) + fea0)[0], None
+    return fused_tail(
+        s, cond1, agcm, _sft4_bd(p, "LE.SFT_layer2", policy),
+        policy.cast(p["LE.HR_conv2.weight"]), p["LE.HR_conv2.bias"],
+        policy.cast(p["LE.conv_last.weight"]), p["LE.conv_last.bias"],
+        pack=pack, up_coarse=up_coarse,
+    )
+
+
 def ensemble_s2d(
     p: Params, img: torch.Tensor, cond: torch.Tensor, cfg: ModelConfig = ModelConfig(), *,
-    policy: Policy = F32,
+    policy: Policy = F32, mega: bool = True,
 ) -> torch.Tensor:
     """Full ensemble in s2d mode: natural NHWC in → natural NHWC out.
     ``img``: (N,H,W,3) [0,1] RGB (H,W even); ``cond``: natural ¼-res image.
-    Under ``BF16`` this is the JAX program with ``HDRTV_MEGAKERNEL=0``; the
-    megakernel program is ROADMAP.md Slice 3; HG is Slice 6."""
+    Takes the megakernel program where :func:`_mega_ok` holds, unless
+    ``mega=False``. HG is ROADMAP.md Slice 6."""
     if cfg.use_hg:
         raise NotImplementedError("the HG composite is not ported yet (ROADMAP.md Slice 6)")
     xs = s2d(policy.cast(img))
-    agcm_out = agcm_s2d(p, xs, cond, policy=policy)
-    out = le_s2d(p, agcm_out, agcm_out, policy=policy)
+    if mega and _mega_ok(p, xs.shape, policy):
+        out = _ensemble_mega(p, xs[0], cond, policy=policy, pack=False)[None]
+    else:
+        agcm_out = agcm_s2d(p, xs, cond, policy=policy)
+        out = le_s2d(p, agcm_out, agcm_out, policy=policy)
     return d2s(out)
+
+
+def ensemble_s2d_rgb48(
+    p: Params, frame_u8: torch.Tensor, cond: torch.Tensor, cfg: ModelConfig = ModelConfig(), *,
+    policy: Policy = F32, mega: bool = True,
+) -> torch.Tensor:
+    """uint8 RGB frame (H,W,3) → uint16 RGB48 code values (H,W,3); ``cond``
+    is the natural ¼-res condition image. On the megakernel program the pack
+    happens inside the tail kernel."""
+    h, w, _ = frame_u8.shape
+    if mega and h % 2 == 0 and w % 2 == 0 and _mega_ok(p, (1, h // 2, w // 2, 12), policy):
+        return ensemble_s2d_rgb48_flat(p, frame_u8.reshape(h, w * 3), cond, cfg, policy=policy).reshape(h, w, 3)
+    x = frame_u8[None].float() * (1.0 / 255.0)
+    return pack_rgb48(ensemble_s2d(p, x, cond, cfg, policy=policy, mega=mega)[0])
 
 
 def _cond_quarter_flat(frame2d_u8: torch.Tensor, *, bgr: bool) -> torch.Tensor:
@@ -700,11 +839,18 @@ def ensemble_s2d_rgb48_flat(
 ) -> torch.Tensor:
     """Flat byte-row contract: (H, 3W) uint8 rows in → (H, 3W) uint16 out.
     ``cond`` defaults to the ¼-res antialiased condition image of the same
-    frame; ``bgr`` reads the bytes as BGR."""
+    frame; ``bgr`` reads the bytes as BGR. The megakernel program reads the
+    rows as (Hb, 2, Wb, 6) pair planes, a reshape."""
+    if cfg.use_hg:
+        raise NotImplementedError("the HG composite is not ported yet (ROADMAP.md Slice 6)")
     h, w3 = frame2d_u8.shape
     w = w3 // 3
     if cond is None:
         cond = _cond_quarter_flat(frame2d_u8, bgr=bgr)
+    if h % 2 == 0 and w % 2 == 0 and _mega_ok(p, (1, h // 2, w // 2, 12), policy):
+        xr = frame2d_u8.reshape(h // 2, 2, w // 2, 6)
+        packed = _ensemble_mega(p, xr, cond, policy=policy, pack=True, scale=1.0 / 255.0, bgr=bgr)
+        return packed.reshape(h, w3)
     frame = frame2d_u8.reshape(h, w, 3)
     if bgr:
         frame = frame.flip(-1)
@@ -723,9 +869,14 @@ def ensemble_s2d_rgb48_pairs(
     bgr: bool = False,
 ) -> torch.Tensor:
     """Row-pair-plane contract: (Hb, 2, Wb, 6) u8 in → (Hb, 2, Wb, 6) u16 out,
-    the same bytes as the (H, 3W) flat contract. This slice runs the flat
-    program on the free reshape (the JAX non-mega branch); the megakernel
-    path that consumes pair planes directly is ROADMAP.md Slice 3."""
+    the same bytes as the (H, 3W) flat contract. The megakernel program
+    consumes and produces pair planes directly, the condition image included
+    (``downsample_quarter_aa_pairs``); anything it does not take runs the flat
+    program on the reshape."""
     hb, _, wb, _ = xr_u8.shape
+    if not cfg.use_hg and hb % 2 == 0 and wb % 2 == 0 and _mega_ok(p, (1, hb, wb, 12), policy):
+        if cond is None:
+            cond = downsample_quarter_aa_pairs(xr_u8, bgr=bgr)
+        return _ensemble_mega(p, xr_u8, cond, policy=policy, pack=True, scale=1.0 / 255.0, bgr=bgr)
     flat = ensemble_s2d_rgb48_flat(p, xr_u8.reshape(2 * hb, 6 * wb), cond, cfg, policy=policy, bgr=bgr)
     return flat.reshape(hb, 2, wb, 6)

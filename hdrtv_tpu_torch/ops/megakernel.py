@@ -1,6 +1,8 @@
 """Fused s2d-domain kernels (port of the ``hdrtv_tpu/ops/megakernel.py``
-kernels on the non-mega frame programs: ``fused_down2``, ``fused_trunk3``,
-``fused_sft_conv3_v2``, ``fused_resblock`` and ``fused_mix_chain``).
+kernels on the frame programs: the L0 megakernels ``fused_agcm_head``,
+``fused_cond_chain`` and ``fused_tail``, and ``fused_down2``,
+``fused_trunk3``, ``fused_sft_conv3_v2``, ``fused_resblock`` and
+``fused_mix_chain``).
 
 Each function takes the JAX kernel's arguments and layouts. On CUDA tensors
 it launches the kernel of ``csrc/``; on CPU tensors it runs the plain
@@ -43,6 +45,17 @@ def _conv_same(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     return conv_nhwc(t[None], w.float(), None, padding=1)[0] + b
 
 
+def pick_rows(hb: int, limit: int = 12, minimum: int = 3) -> int:
+    """Largest divisor of ``hb`` in [minimum, limit], else ``hb``: the JAX
+    package's rows-per-grid-step picker. Kept, like :func:`pick_rows_even`,
+    only so that ``models/s2d.py`` routes a frame size as the TPU program
+    does."""
+    for cand in range(min(limit, hb), minimum - 1, -1):
+        if hb % cand == 0:
+            return cand
+    return hb
+
+
 def pick_rows_even(hb: int, limit: int = 12) -> int:
     """Largest even divisor of ``hb`` ≤ limit (0 if none): the JAX package's
     tile-row picker for its two-row-halo kernels. The CUDA kernels take any
@@ -59,6 +72,276 @@ def _window(name: str, cf: int, cin: int | None, ch0: int) -> int:
     if ch0 % c or ch0 + c > cf:
         raise ValueError(f"{name}: channel window [{ch0}, {ch0 + c}) must be window-aligned inside {cf}")
     return c
+
+
+# ---------------------------------------------------------------------------
+# AGCM + LE input conv
+# ---------------------------------------------------------------------------
+
+_CIN = 12  # s2d channels of an RGB frame: what the head kernel is built for
+
+
+def _s2d_of_pairs(xs: torch.Tensor) -> torch.Tensor:
+    """(Hb, 2, Wb, 6) row-pair planes → (Hb, Wb, 12): the s2d channels are
+    the two row parities side by side, channel 6a + m = xs[i, a, j, m]."""
+    return torch.cat([xs[:, 0], xs[:, 1]], dim=-1) if xs.ndim == 4 else xs
+
+
+def fused_agcm_head_ref(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in, *, n_first, scale=1.0):
+    """Plain version, the body of the Pallas ``_agcm_head_kernel``: the frame
+    is widened to fp32, scaled, then rounded to the element type (that of the
+    weights) before the first product; each modulation ``v·(s+1)+sh`` is fp32
+    with the fp32 ``mods``; a, b and the AGCM result are each rounded to the
+    element type; the AGCM result is zero outside the image (the 'same'
+    padding of the input conv, applied after the modulation); the conv sums in
+    fp32, adds the fp32 bias, and the ReLU / leaky ReLU (slope 0.1 in fp32)
+    halves are rounded once on store."""
+    dt = aw1.dtype
+    x = _s2d_of_pairs(xs)
+    hb, wb, cin = x.shape
+    v = x.reshape(-1, cin).float() * scale
+
+    def mod(v, row, width):
+        return v * (mods[row, :width] + 1.0) + mods[row + 1, :width]
+
+    def dot(v, w):
+        return torch.matmul(_rounded(v, dt), w.float())
+
+    a = torch.clamp_min(mod(dot(v, aw1) + ab1, 0, aw1.shape[1]), 0.0)
+    b = torch.clamp_min(mod(dot(a, aw2) + ab2, 2, aw2.shape[1]), 0.0)
+    agcm = mod(dot(b, aw3) + ab3, 4, cin).to(dt).reshape(hb, wb, cin)
+    acc = _conv_same(agcm.float(), w_in, b_in)
+    fea = torch.clamp_min(acc[..., :n_first], 0.0).to(dt)
+    c0 = _apply_act(acc[..., n_first:], "lrelu").to(dt)
+    return fea, c0, agcm
+
+
+def agcm_head_pack(aw1: torch.Tensor, aw3: torch.Tensor, w_in: torch.Tensor) -> tuple:
+    """What csrc/agcm_head.cu reads in place of ``aw1``, ``aw3`` and ``w_in``:
+    ``aw1`` with its 12 rows padded to 16, ``aw3`` with its 12 columns padded
+    to 16, and ``w_in`` as one (9·12 → 112, Co) matrix, taps in (dI, dJ)
+    row-major order then channel; the padding is zero. It depends on the
+    parameters only: build it once at load and pass it as ``packed``."""
+    cin, co = w_in.shape[2], w_in.shape[3]
+    aw1p = aw1.new_zeros((16, aw1.shape[1]))
+    aw1p[:cin] = aw1
+    aw3p = aw3.new_zeros((aw3.shape[0], 16))
+    aw3p[:, :cin] = aw3
+    wcat = w_in.new_zeros((112, co))
+    wcat[: 9 * cin] = w_in.reshape(9 * cin, co)
+    return aw1p, aw3p, wcat
+
+
+def fused_agcm_head(
+    xs: torch.Tensor, mods: torch.Tensor,
+    aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in,
+    *, n_first: int, scale: float = 1.0, packed: tuple | None = None,
+):
+    """s2d frame → (fea0, c0, agcm_out): AGCM (three modulated 1×1 convs) and
+    the fused LE input conv (conv_first‖cond_first.0, 3×3 'same') with its
+    relu / lrelu halves split at ``n_first``.
+
+    ``xs``: (Hb, 2, Wb, 6) row-pair planes or (Hb, Wb, 12), uint8 (pass
+    ``scale=1/255``) or the element type. ``mods``: (6, ≥ 4·nf) fp32, the
+    AGCM scale/shift vectors (first, HR, last) tiled over the 4 s2d
+    sub-positions; the conv_last rows use the first 12 lanes. ``aw1`` (12, C1),
+    ``aw2`` (C1, C2), ``aw3`` (C2, 12), ``w_in`` (3, 3, 12, Cf + Cc) in the
+    element type (which is also the outputs'); biases fp32. ``packed``:
+    :func:`agcm_head_pack` of the same parameters, when the caller keeps one
+    (only the CUDA kernel reads it)."""
+    if xs.ndim == 4:
+        hb, two, wb, half = xs.shape
+        if (two, 2 * half) != (2, _CIN):
+            raise ValueError(f"agcm_head: pair planes are (Hb, 2, Wb, 6), got {tuple(xs.shape)}")
+    else:
+        hb, wb, cin = xs.shape
+        if cin != _CIN:
+            raise ValueError(f"agcm_head takes {_CIN} s2d channels, got {cin}")
+    c1, c2, co = aw1.shape[1], aw2.shape[1], w_in.shape[-1]
+    dt = native.element_type("agcm_head aw1", aw1)
+    if xs.dtype not in (torch.uint8, dt):
+        raise ValueError(f"agcm_head: the frame must be uint8 or {dt} like the weights, got {xs.dtype}")
+    native.check_params("agcm_head", dt, [aw1, aw2, aw3, w_in], [mods, ab1, ab2, ab3, b_in])
+    shapes = {"aw1": (aw1, (_CIN, c1)), "ab1": (ab1, (c1,)), "aw2": (aw2, (c1, c2)), "ab2": (ab2, (c2,)),
+              "aw3": (aw3, (c2, _CIN)), "ab3": (ab3, (_CIN,)), "w_in": (w_in, (3, 3, _CIN, co)),
+              "b_in": (b_in, (co,))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"agcm_head {name} must have shape {shape}, got {tuple(t.shape)}")
+    if mods.ndim != 2 or mods.shape[0] != 6 or mods.shape[1] < max(c1, c2, _CIN):
+        raise ValueError(f"agcm_head mods must be (6, >= {max(c1, c2, _CIN)}), got {tuple(mods.shape)}")
+    if not 0 < n_first < co:
+        raise ValueError(f"agcm_head: n_first {n_first} must split the {co} conv outputs")
+    if native.on_cpu(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in):
+        return fused_agcm_head_ref(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in,
+                                   n_first=n_first, scale=scale)
+    if c1 % 16 or c2 % 16 or co % 8 or n_first % 8:
+        raise ValueError(f"agcm_head needs C1 % 16, C2 % 16, Co % 8 and n_first % 8 == 0, got {c1}, {c2}, {co}, {n_first}")
+    aw1p, aw3p, wcat = packed if packed is not None else agcm_head_pack(aw1, aw3, w_in)
+    native.check_cuda("agcm_head xs", xs, xs.dtype)
+    native.check_cuda("agcm_head mods", mods, torch.float32)
+    for name, t, shape in (("aw1 (packed)", aw1p, (16, c1)), ("aw2", aw2, (c1, c2)),
+                           ("aw3 (packed)", aw3p, (c2, 16)), ("w_in (packed)", wcat, (112, co))):
+        native.check_cuda(f"agcm_head {name}", t, dt, shape)
+    for name, t in (("ab1", ab1), ("ab2", ab2), ("ab3", ab3), ("b_in", b_in)):
+        native.check_cuda(f"agcm_head {name}", t, torch.float32)
+    kind = 0 if xs.dtype == dt else (2 if xs.ndim == 4 else 1)
+    fea = torch.empty((hb, wb, n_first), dtype=dt, device=xs.device)
+    c0 = torch.empty((hb, wb, co - n_first), dtype=dt, device=xs.device)
+    agcm = torch.empty((hb, wb, _CIN), dtype=dt, device=xs.device)
+    native.launch(
+        "agcm_head", dt,
+        xs.data_ptr(), kind, float(scale), mods.data_ptr(), mods.shape[1],
+        aw1p.data_ptr(), ab1.data_ptr(), aw2.data_ptr(), ab2.data_ptr(), aw3p.data_ptr(), ab3.data_ptr(),
+        wcat.data_ptr(), b_in.data_ptr(), fea.data_ptr(), c0.data_ptr(), agcm.data_ptr(),
+        hb, wb, c1, c2, co, n_first, native.stream_of(xs),
+    )
+    return fea, c0, agcm
+
+
+# ---------------------------------------------------------------------------
+# Condition 1×1 chain
+# ---------------------------------------------------------------------------
+
+
+def fused_cond_chain_ref(c0, weights):
+    """Plain version, the body of the Pallas ``_cond_chain_kernel``: the
+    running value stays fp32 from step to step and is rounded to the weight's
+    type at each product; sums, the fp32 bias and the leaky ReLU (all steps
+    but the last) are fp32; ``c`` is the value after the second step and
+    ``cond1`` the last, each rounded once on store."""
+    v = c0.float()
+    c = None
+    for idx, (w, b) in enumerate(weights):
+        v = torch.matmul(_rounded(v, w.dtype), w.float()) + b
+        if idx != 4:
+            v = _apply_act(v, "lrelu")
+        if idx == 1:
+            c = v.to(c0.dtype)
+    return c, v.to(c0.dtype)
+
+
+def fused_cond_chain(c0: torch.Tensor, weights) -> tuple[torch.Tensor, torch.Tensor]:
+    """c0 (Hb, Wb, C) → (c, cond1): lrelu(cond_first.2), lrelu(cond_first.4)
+    → ``c``, then lrelu(CondNet1.0), lrelu(CondNet1.2), CondNet1.4 →
+    ``cond1``, in one pass. ``weights``: five (w (C, C'), b (C',)) pairs. The
+    JAX kernel's int8 ``qargs`` form is not ported."""
+    hb, wb, k = c0.shape
+    dt = native.element_type("cond_chain c0", c0)
+    if len(weights) != 5:
+        raise ValueError(f"cond_chain takes five (w, b) pairs, got {len(weights)}")
+    ws, bs = [w for w, _ in weights], [b for _, b in weights]
+    native.check_params("cond_chain", dt, ws, bs)
+    for w, b in weights:
+        if w.ndim != 2 or w.shape[0] != k or tuple(b.shape) != (w.shape[1],):
+            raise ValueError(f"cond_chain: step weight {tuple(w.shape)} / bias {tuple(b.shape)} after width {k}")
+        k = w.shape[1]
+    if native.on_cpu(c0, *ws, *bs):
+        return fused_cond_chain_ref(c0, weights)
+    if any(w.shape[0] % 16 or w.shape[1] % 8 for w in ws):
+        raise ValueError("cond_chain needs every step's input % 16 and output % 8 == 0")
+    native.check_cuda("cond_chain c0", c0, dt)
+    for w, b in weights:
+        native.check_cuda("cond_chain w", w, dt)
+        native.check_cuda("cond_chain b", b, torch.float32)
+    ints = ctypes.c_int * 5
+    c = torch.empty((hb, wb, ws[1].shape[1]), dtype=dt, device=c0.device)
+    cond1 = torch.empty((hb, wb, k), dtype=dt, device=c0.device)
+    native.launch(
+        "cond_chain", dt,
+        c0.data_ptr(), c.data_ptr(), cond1.data_ptr(), native.pointer_array(ws), native.pointer_array(bs),
+        ints(*[w.shape[0] for w in ws]), ints(*[w.shape[1] for w in ws]), hb * wb, native.stream_of(c0),
+    )
+    return c, cond1
+
+
+# ---------------------------------------------------------------------------
+# Output slice: SFT2 + HR_conv2 + conv_last + skip (+ RGB48 pack)
+# ---------------------------------------------------------------------------
+
+
+def fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last, *, pack=True, up_coarse=None):
+    """Plain version, the body of the Pallas ``_tail_kernel``: with
+    ``up_coarse`` the SFT input is s + d2s(up_coarse) summed in fp32 and
+    stored in the element type; the SFT's hidden activations are stored in
+    it, scale, shift and t are fp32; t and h = relu(HR_conv2(t)) are each
+    stored in the element type and are zero outside the image (both convs
+    pad with zeros); conv_last sums in fp32, adds the fp32 bias and the skip;
+    the pack rounds its multiply and its add separately and truncates."""
+    dt = s.dtype
+    sf = s.float()
+    if up_coarse is not None:
+        sf = _rounded(sf + _d2s_fine(up_coarse).float(), dt)
+    t = _sft(sf, cond1.to(dt).float(), sft_small, dt)
+    h = _rounded(torch.clamp_min(_conv_same(t, w_hr, b_hr), 0.0), dt)
+    y = _conv_same(h, w_last, b_last) + skip.float()
+    if not pack:
+        return y.to(dt)
+    u = (y.clamp(0.0, 1.0) * 65535.0 + 0.5).to(torch.int32).to(torch.uint16)
+    half = u.shape[-1] // 2
+    return torch.stack([u[..., :half], u[..., half:]], dim=1)
+
+
+def fused_tail(
+    s: torch.Tensor, cond1: torch.Tensor, skip: torch.Tensor,
+    sft_small, w_hr, b_hr, w_last, b_last,
+    *, pack: bool = True, up_coarse: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The LE output slice over s2d tensors:
+
+        t   = SFT_layer2(s, cond1)          x·(scale+1)+shift
+        h   = relu(HR_conv2(t))             3×3 'same'
+        y   = conv_last(h) + skip           3×3 'same' + long skip
+        out = pack ? u16(clip(y)·65535+.5) : y
+
+    ``s`` (Hb, Wb, C), ``cond1`` (Hb, Wb, CC), ``skip`` (Hb, Wb, 12). With
+    ``pack`` the result is (Hb, 2, Wb, 6) uint16, whose flat layout is the
+    natural (2Hb, 2Wb, 3) RGB48 frame; otherwise (Hb, Wb, 12) in the element
+    type. With ``up_coarse`` (Hb/2, Wb/2, 4C), the un-folded up_conv3 output,
+    ``s`` is the fine skip alone and the SFT input is s + d2s(up_coarse),
+    un-folded on read. ``sft_small``: four (w (in, out), b) pairs as for
+    :func:`fused_sft_conv3_v2`. The JAX kernel's int8 ``qargs_hr`` form is not
+    ported."""
+    hb, wb, c = s.shape
+    cc = cond1.shape[-1]
+    cl = w_last.shape[-1]
+    if up_coarse is not None and (hb % 2 or wb % 2 or tuple(up_coarse.shape) != (hb // 2, wb // 2, 4 * c)):
+        raise ValueError(f"up_coarse {tuple(up_coarse.shape)} != {(hb // 2, wb // 2, 4 * c)}")
+    if tuple(skip.shape) != (hb, wb, cl) or tuple(cond1.shape) != (hb, wb, cc):
+        raise ValueError(f"tail: skip {tuple(skip.shape)} / cond1 {tuple(cond1.shape)} for s {tuple(s.shape)}, {cl} outputs")
+    dt = native.element_type("tail s", s)
+    native.check_params("tail", dt, [w_hr, w_last], [b_hr, b_last])
+    tensors = [s, cond1, skip, w_hr, b_hr, w_last, b_last] + ([] if up_coarse is None else [up_coarse])
+    cpu = native.on_cpu(*tensors, *[t for pair in sft_small for t in pair])
+    flat = _check_sft("tail", sft_small, dt, c, cc, not cpu)
+    if cpu:
+        return fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last,
+                              pack=pack, up_coarse=up_coarse)
+    if c % 32 or cc % 16 or cl % 4 or cl > 16:
+        raise ValueError(f"tail needs C % 32, CC % 16, and 4 | Cl <= 16, got {c}, {cc}, {cl}")
+    native.check_cuda("tail s", s, dt)
+    native.check_cuda("tail cond1", cond1, dt)
+    native.check_cuda("tail skip", skip, dt)
+    native.check_cuda("tail w_hr", w_hr, dt, (3, 3, c, c))
+    native.check_cuda("tail b_hr", b_hr, torch.float32, (c,))
+    native.check_cuda("tail w_last", w_last, dt, (3, 3, c, cl))
+    native.check_cuda("tail b_last", b_last, torch.float32, (cl,))
+    if up_coarse is not None:
+        native.check_cuda("tail up_coarse", up_coarse, dt)
+    t = torch.empty((hb, wb, c), dtype=dt, device=s.device)
+    h = torch.empty((hb, wb, c), dtype=dt, device=s.device)
+    if pack:
+        out = torch.empty((hb, 2, wb, cl // 2), dtype=torch.uint16, device=s.device)
+    else:
+        out = torch.empty((hb, wb, cl), dtype=dt, device=s.device)
+    native.launch(
+        "tail", dt,
+        s.data_ptr(), None if up_coarse is None else up_coarse.data_ptr(), cond1.data_ptr(),
+        skip.data_ptr(), native.pointer_array(flat), w_hr.data_ptr(), b_hr.data_ptr(),
+        w_last.data_ptr(), b_last.data_ptr(), out.data_ptr(), t.data_ptr(), h.data_ptr(),
+        hb, wb, c, cc, cl, int(pack), native.stream_of(s),
+    )
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ LIB_NAME = "libhdrtv_kernels.so"
 launch_counts: dict[str, int] = {
     "block_conv3": 0, "down2": 0, "trunk3": 0, "pack_rgb48": 0,
     "sft_conv3": 0, "resblock": 0, "mix_chain": 0,
+    "agcm_head": 0, "cond_chain": 0, "tail": 0,
 }
 
 # Element types the kernels are instantiated for, and the suffix of their
@@ -121,7 +122,7 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with every exported
     function's argument and result types declared."""
     so = ctypes.CDLL(str(build()))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     per_dtype = {
         "hdrtv_pack_rgb48": ([p, p, ll, p], i),
         "hdrtv_block_conv3": ([p, p, p, p, p, i, i, i, i, i, p], i),
@@ -130,6 +131,9 @@ def lib() -> ctypes.CDLL:
         "hdrtv_sft_conv3": ([p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
         "hdrtv_resblock": ([p, p, p, p, p, p, p, p, p, i, p, p, p, p, i, i, i, i, p], i),
         "hdrtv_mix_chain": ([p, p, p, p, p, p, p, i, i, i, i, p], i),
+        "hdrtv_agcm_head": ([p, i, f, p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
+        "hdrtv_cond_chain": ([p, p, p, p, p, p, p, i, p], i),
+        "hdrtv_tail": ([p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
     }
     sigs = {f"{name}_{sfx}": sig for name, sig in per_dtype.items()
             for sfx in DTYPE_SUFFIX.values()}

@@ -2,8 +2,10 @@
 AGCM condition-image part of ``hdrtv_tpu/ops/resize.py``).
 
 The per-axis weight matrices are computed on the host in float64 with the
-torch/PIL antialias semantics and applied as two fp32 matmuls. These are
-plain ``torch.matmul`` calls, as the JAX package leaves them to XLA.
+torch/PIL antialias semantics and applied as two fp32 matmuls, on an NHWC
+image, on flat (H, 3W) byte rows or on (Hb, 2, Wb, 6) row-pair planes. These
+are plain ``torch.matmul``/``tensordot`` calls, as the JAX package leaves
+them to XLA.
 """
 
 from __future__ import annotations
@@ -97,6 +99,14 @@ def _flat_matrices(h: int, w: int, bgr: bool, device: str) -> tuple[torch.Tensor
     return wh, k
 
 
+@functools.lru_cache(maxsize=8)
+def _pairs_matrices(hb: int, wb: int, bgr: bool, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The matrices of :func:`_flat_matrices` viewed over row-pair planes:
+    (H/4, Hb·2) and (Wb·6, 3·W/4), the same values in the same order."""
+    wh, k = _flat_matrices(2 * hb, 2 * wb, bgr, device)
+    return wh.reshape(hb // 2, hb, 2), k.reshape(wb, 6, 3 * (wb // 2))
+
+
 def downsample_quarter_aa_flat(frame2d: torch.Tensor, *, bgr: bool = False) -> torch.Tensor:
     """(H, 3W) uint8 byte rows → (1, H/4, W/4, 3) f32 [0,1]: the AGCM
     condition image computed on the flat layout, with the BGR flip folded
@@ -108,3 +118,18 @@ def downsample_quarter_aa_flat(frame2d: torch.Tensor, *, bgr: bool = False) -> t
     y = torch.matmul(wh, x)
     y = torch.matmul(y, k)
     return y.reshape(1, h // 4, w // 4, 3)
+
+
+def downsample_quarter_aa_pairs(xr: torch.Tensor, *, bgr: bool = False) -> torch.Tensor:
+    """(Hb, 2, Wb, 6) uint8 row-pair planes → (1, H/4, W/4, 3) f32 [0,1].
+
+    ``xr[i, a, j, m]`` is row ``2i+a``, byte column ``6j+m`` of the flat
+    frame, so the matrices of :func:`downsample_quarter_aa_flat` apply as
+    they are, reshaped: first the H matrix over (Hb, 2), then the kron-expanded
+    W matrix over (Wb, 6), in that order, in fp32."""
+    hb, _, wb, _ = xr.shape
+    wh, k = _pairs_matrices(hb, wb, bgr, str(xr.device))
+    x = xr.float() * (1.0 / 255.0)
+    y = torch.tensordot(wh, x, dims=([1, 2], [0, 1]))  # (H/4, Wb, 6)
+    y = torch.tensordot(y, k, dims=([1, 2], [0, 1]))  # (H/4, 3·W/4)
+    return y.reshape(1, hb // 2, wb // 2, 3)

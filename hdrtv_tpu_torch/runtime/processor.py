@@ -1,23 +1,26 @@
 """HDRTVNetTorch — the inference runtime of the port (counterpart of
 ``hdrtv_tpu/runtime/processor.py`` ``HDRTVNetTPU``).
 
-    uint8 BGR frame ──► ¼-res AA-bicubic cond (two matmuls) ──► /255 + BGR→RGB
-        ──► s2d AGCM → LE (block_conv3, down2, trunk3 kernels; in bf16 also
-            sft_conv3, resblock, mix_chain) ──► u16 RGB48 pack
+    uint8 BGR frame as (Hb, 2, Wb, 6) row-pair planes
+        ──► ¼-res AA-bicubic cond (two matmuls) → classifier → modulation vectors
+        ──► agcm_head (AGCM + LE input conv; /255 and BGR→RGB folded in)
+        ──► cond_chain → sft_conv3, down2, mix_chain, resblock, trunk3, block_conv3
+        ──► tail (SFT + HR_conv2 + conv_last + long skip + u16 RGB48 pack)
 
-Two frame programs are ported (ROADMAP.md, slices 1 and 2): fp32, the
-accuracy reference, and bf16, the product's default precision, which runs
-the program the JAX package runs with ``HDRTV_MEGAKERNEL=0``. The megakernel
-program (slice 3) will replace the bf16 program's L0 section; until then
-bf16 is this program, with no switch. Everything else raises with the
-ROADMAP item that will port it; nothing falls back to a different
+Three frame programs are ported (ROADMAP.md, slices 1 to 3). bf16, the
+product's default precision, runs the megakernel program above, as
+``HDRTVNetTPU`` does, wherever ``models/s2d.py _mega_ok`` holds (1080p, and
+any frame whose half height has an even divisor up to 12). With
+``HDRTV_MEGAKERNEL=0`` in the environment, read at each call, bf16 runs the
+program without the three L0 megakernels (torch glue at L0, pack_rgb48 at
+the end), as the JAX package does with the same setting. fp32 is the accuracy
+reference: the same program without the SFT kernels. Everything else raises
+with the ROADMAP item that will port it; nothing falls back to a different
 computation, and nothing runs on the CPU unless the caller asks for
 ``device="cpu"``.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
@@ -31,6 +34,7 @@ from hdrtv_tpu_torch.models.s2d import (
     params_to_torch,
     s2d_transform_params,
 )
+from hdrtv_tpu_torch.utils.env import env_bool
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -38,9 +42,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _env_on(*names: str) -> bool:
-    """Any of the variables set truthy (the JAX package's env_bool tokens)."""
-    return any(os.environ.get(n, "").strip().lower() in ("1", "true", "yes", "on", "y", "t")
-               for n in names)
+    """Any of the variables set truthy."""
+    return any(env_bool(n) for n in names)
 
 
 class HDRTVNetTorch:

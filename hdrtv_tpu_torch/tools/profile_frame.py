@@ -1,16 +1,19 @@
 """Where the time of one frame goes on the card (counterpart of the JAX
 package's tools/profile_frame.py).
 
-    python -m hdrtv_tpu_torch.tools.profile_frame [--precision fp16|fp32]
-        [--height 1080 --width 1920 --frames 3]
+    [HDRTV_MEGAKERNEL=0] python -m hdrtv_tpu_torch.tools.profile_frame
+        [--precision fp16|fp32] [--height 1080 --width 1920 --frames 3]
 
 Runs warm device-resident frames through HDRTVNetTorch.process_rgb48_device
+(bf16 takes the megakernel program unless HDRTV_MEGAKERNEL=0 is set)
 under torch.profiler and prints, per frame: the device time of each kernel
 (grouped: the port's CUDA kernels, cuDNN convolutions, GEMMs, elementwise
 and reduction passes, copies), the top kernels by device time, the wall
 time, and the device busy share (kernel time over wall time; one stream, so
-kernels do not overlap). The port's kernels are also split by source kernel
-(conv tile on the FMA units and on the tensor cores, SFT passes, mix chain, pack). The last two lines are the card's
+kernels do not overlap), and the number of kernel launches. The port's
+kernels are also split by source kernel (conv tile on the FMA units and on
+the tensor cores, SFT passes, 1×1 chains, the head's two kernels, conv_last,
+pack). The last two lines are the card's
 name and power limit as nvidia-smi gives them, and the same breakdown as
 JSON. Needs a CUDA device.
 """
@@ -28,8 +31,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 # (group, substrings of the kernel name), first match wins
 GROUPS = (
-    ("port kernels", ("conv3x3_kernel", "conv3x3_mma_kernel", "sft_kernel", "mix_chain_kernel",
-                      "pack_rgb48_kernel")),
+    ("port kernels", ("conv3x3_kernel", "conv3x3_mma_kernel", "sft_kernel", "chain_kernel",
+                      "pack_rgb48_kernel", "agcm_kernel", "in_conv_kernel", "conv_last_kernel")),
     ("cudnn conv", ("cudnn", "conv", "implicit_gemm", "xmma_fprop", "winograd")),
     ("gemm", ("gemm", "cutlass", "sgemm", "matmul")),
     ("elementwise/reduce", ("elementwise", "vectorized", "reduce", "unrolled", "index", "cat")),
@@ -71,6 +74,7 @@ def main() -> int:
         print("profile_frame: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from hdrtv_tpu_torch.ops import native
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     h, w, n = args.height, args.width, args.frames
@@ -97,9 +101,13 @@ def main() -> int:
     for e in kernels:
         groups[group_of(e.key)] = groups.get(group_of(e.key), 0.0) + device_us(e) / 1e3 / n
     busy_ms = sum(groups.values())
-    print(f"card: {torch.cuda.get_device_name(0)}; {h}x{w} {dtype}, {n} frames under torch.profiler")
+    launches = sum(e.count for e in kernels) / n
+    mega = native.launch_counts["tail"] > 0
+    print(f"card: {torch.cuda.get_device_name(0)}; {h}x{w} {dtype}, {n} frames under torch.profiler; "
+          f"megakernel program: {mega}")
     print(f"wall {wall_ms:.3f} ms/frame; kernel time {busy_ms:.3f} ms/frame; "
-          f"device busy {busy_ms / wall_ms:.3f}, idle {1 - busy_ms / wall_ms:.3f}")
+          f"device busy {busy_ms / wall_ms:.3f}, idle {1 - busy_ms / wall_ms:.3f}; "
+          f"{launches:.1f} kernel launches/frame")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:20s} {ms:9.3f} ms/frame  {ms / busy_ms:6.1%}")
     port: dict[str, list] = {}
@@ -109,8 +117,8 @@ def main() -> int:
             acc = port.setdefault(key, [0.0, 0.0])
             acc[0] += device_us(e) / 1e3 / n
             acc[1] += e.count / n
-    for key, (ms, launches) in sorted(port.items(), key=lambda kv: -kv[1][0]):
-        print(f"    {key:20s} {ms:9.3f} ms/frame  {launches:5.1f} launches/frame")
+    for key, (ms, count) in sorted(port.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {key:20s} {ms:9.3f} ms/frame  {count:5.1f} launches/frame")
     print("top kernels (ms/frame, launches/frame):")
     top = sorted(kernels, key=lambda e: -device_us(e))[:25]
     for e in top:
@@ -121,7 +129,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0])
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "precision": args.precision, "dtype": dtype,
-        "height": h, "width": w, "frames": n,
+        "height": h, "width": w, "frames": n, "megakernel": mega, "launches": launches,
         "wall_ms": wall_ms, "kernel_ms": busy_ms, "busy": busy_ms / wall_ms,
         "groups_ms": groups, "port_kernels_ms": {k: v[0] for k, v in port.items()},
         "top": [{"name": e.key[:160], "ms": device_us(e) / 1e3 / n, "launches": e.count / n}

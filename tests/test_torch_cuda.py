@@ -12,7 +12,10 @@ and cuDNN sum the same fp32 products in different orders. bf16: the same
 exact products summed in fp32 in another order and rounded at the same
 places, so a result differs by one bf16 step where a rounding flips:
 |err| ≤ 2^-7·max(1, |y|), doubled for the resblock and trunk3, whose rounded
-intermediates feed further convs. The pack is exact in both types.
+intermediates feed further convs, and for the tail (its rounded t and h feed
+HR_conv2 and conv_last). The pack is exact in both types; the packed tail is
+within one u16 code in fp32, and in bf16 within the codes two bf16 steps of h
+can move conv_last's sum.
 """
 
 import numpy as np
@@ -238,6 +241,120 @@ def test_mix_chain_matches_plain(dev, dtype, hb, wb, cf, cin, ch0, widths):
     _close(y, fused_mix_chain_ref(x[..., ch0 : ch0 + c], steps), dtype)
 
 
+def _head_args(rng, dev, dtype, c1=256, c2=256, co=384):
+    return (_t(rng.randn(6, max(c1, c2)) * 0.1, dev),
+            _t(rng.randn(12, c1) * 0.2, dev, dtype), _t(rng.randn(c1) * 0.1, dev),
+            _t(rng.randn(c1, c2) * 0.05, dev, dtype), _t(rng.randn(c2) * 0.1, dev),
+            _t(rng.randn(c2, 12) * 0.1, dev, dtype), _t(rng.randn(12) * 0.1, dev),
+            _t(rng.randn(3, 3, 12, co) * 0.1, dev, dtype), _t(rng.randn(co) * 0.1, dev))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hb,wb,frame", [(12, 20, "pairs"), (9, 15, "u8"), (5, 7, "float"), (8, 16, "pairs")])
+def test_agcm_head_matches_plain(dev, dtype, hb, wb, frame):
+    """Frame edges in every tile direction (the 64-pixel tiles are ragged at
+    9×15 and 5×7), u8 pair planes and u8 s2d with scale 1/255, and the frame
+    in the element type with scale 1. Two steps on c0 and fea: a flipped
+    rounding of the AGCM result moves the conv's sum."""
+    from hdrtv_tpu_torch.ops.megakernel import agcm_head_pack, fused_agcm_head, fused_agcm_head_ref
+
+    rng = np.random.RandomState(hb * wb + 3)
+    args = _head_args(rng, dev, dtype)
+    if frame == "float":
+        xs, scale = _t(rng.rand(hb, wb, 12), dev, dtype), 1.0
+    else:
+        shape = (hb, 2, wb, 6) if frame == "pairs" else (hb, wb, 12)
+        xs, scale = torch.as_tensor((rng.rand(*shape) * 255).astype(np.uint8), device=dev), 1.0 / 255.0
+    before = native.launch_counts["agcm_head"]
+    got = fused_agcm_head(xs, *args, n_first=128, scale=scale)
+    assert native.launch_counts["agcm_head"] == before + 1
+    want = fused_agcm_head_ref(xs, *args, n_first=128, scale=scale)
+    for y, y_r, shape in zip(got, want, ((hb, wb, 128), (hb, wb, 256), (hb, wb, 12)), strict=True):
+        assert y.shape == shape
+        _close(y, y_r, dtype, steps=2, flips=0.05)
+    packed = agcm_head_pack(args[1], args[5], args[7])
+    again = fused_agcm_head(xs, *args, n_first=128, scale=scale, packed=packed)
+    assert all(torch.equal(a, b) for a, b in zip(again, got, strict=True))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hb,wb", [(12, 20), (9, 15), (1, 64)])
+def test_cond_chain_matches_plain(dev, dtype, hb, wb):
+    from hdrtv_tpu_torch.ops.megakernel import fused_cond_chain, fused_cond_chain_ref
+
+    rng = np.random.RandomState(hb * wb + 11)
+    c0 = _t(rng.rand(hb, wb, 256) - 0.3, dev, dtype)
+    weights = [(_t(rng.randn(256, n) * 0.05, dev, dtype), _t(rng.randn(n) * 0.1, dev))
+               for n in (256, 256, 256, 256, 64)]
+    before = native.launch_counts["cond_chain"]
+    c, cond1 = fused_cond_chain(c0, weights)
+    assert native.launch_counts["cond_chain"] == before + 1
+    c_r, cond1_r = fused_cond_chain_ref(c0, weights)
+    assert c.shape == (hb, wb, 256) and cond1.shape == (hb, wb, 64)
+    _close(c, c_r, dtype, steps=2, flips=0.05)
+    _close(cond1, cond1_r, dtype, steps=2, flips=0.05)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hb,wb,coarse,pack", [
+    (12, 20, True, True), (9, 15, False, True), (10, 14, True, False), (5, 7, False, False), (8, 16, True, True),
+])
+def test_tail_matches_plain(dev, dtype, hb, wb, coarse, pack):
+    """Tile edges of the SFT pass (64 pixels), the conv tile (128 pixels) and
+    conv_last's 8 × 16 blocks; both forms of s; packed and not. Packed: ≤ 1
+    code in fp32 (the sum order at the +0.5 boundary); in bf16 h differs by a
+    bf16 step on a few elements (|h| < 4: a step is at most 2^-6), each moving
+    conv_last's sum by at most |w| · 2^-6, so ≤ 64 codes bounds it with room
+    (|w| ≲ 0.04 here) and the mean stays below 1 code."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_tail, fused_tail_ref
+
+    rng = np.random.RandomState(hb * wb + 17)
+    c, cc = 128, 64
+    s = _t(rng.rand(hb, wb, c) - 0.3, dev, dtype)
+    up = _t(rng.rand(hb // 2, wb // 2, 4 * c) - 0.3, dev, dtype) if coarse else None
+    cond1 = _t(rng.rand(hb, wb, cc) - 0.3, dev, dtype)
+    skip = _t(rng.rand(hb, wb, 12), dev, dtype)
+    args = (_sft4(rng, cc, c, dev, dtype), _t(rng.randn(3, 3, c, c) * 0.02, dev, dtype), _t(rng.randn(c) * 0.1, dev),
+            _t(rng.randn(3, 3, c, 12) * 0.01, dev, dtype), _t(rng.randn(12) * 0.1, dev))
+    before = native.launch_counts["tail"]
+    y = fused_tail(s, cond1, skip, *args, pack=pack, up_coarse=up)
+    assert native.launch_counts["tail"] == before + 1
+    y_r = fused_tail_ref(s, cond1, skip, *args, pack=pack, up_coarse=up)
+    if not pack:
+        assert y.shape == (hb, wb, 12)
+        _close(y, y_r, dtype, steps=2, flips=0.05)
+        return
+    torch.cuda.synchronize()
+    assert y.shape == (hb, 2, wb, 6) and y.dtype == torch.uint16
+    d = (y.to(torch.int32) - y_r.to(torch.int32)).abs()
+    assert int(y_r.to(torch.int32).max()) > int(y_r.to(torch.int32).min())
+    if dtype == "f32":
+        assert int(d.max()) <= 1, int(d.max())
+    else:
+        assert int(d.max()) <= 64 and float(d.float().mean()) < 1.0, (int(d.max()), float(d.float().mean()))
+
+
+def test_mega_frame_matches_cpu(dev, monkeypatch):
+    """The bf16 megakernel frame program on the card against the same
+    processor on the CPU (the plain versions), one seeded 64×128 frame, and
+    that it really is the megakernel program: the three kernels launch once
+    each and pack_rgb48 not at all. Bounds as for the non-mega frame."""
+    import os
+
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    monkeypatch.delenv("HDRTV_MEGAKERNEL", raising=False)
+    weights = os.path.join(os.path.dirname(__file__), "..", "weights", "hr_fp32.npz")
+    frame = (np.random.RandomState(64).rand(64, 128, 3) * 255).astype(np.uint8)
+    native.reset_launch_counts()
+    gpu = HDRTVNetTorch(weights).process_rgb48(frame).astype(np.int64)
+    counts = dict(native.launch_counts)
+    assert (counts["agcm_head"], counts["cond_chain"], counts["tail"], counts["pack_rgb48"]) == (1, 1, 1, 0), counts
+    cpu = HDRTVNetTorch(weights, device="cpu").process_rgb48(frame).astype(np.int64)
+    d = np.abs(gpu - cpu)
+    assert d.max() <= 512 and d.mean() <= 24, (int(d.max()), float(d.mean()))
+
+
 def test_pack_rgb48_bf16_matches_plain_exactly(dev):
     from hdrtv_tpu_torch.ops.pack import pack_rgb48, pack_rgb48_ref
 
@@ -248,15 +365,17 @@ def test_pack_rgb48_bf16_matches_plain_exactly(dev):
     np.testing.assert_array_equal(u.cpu().numpy(), pack_rgb48_ref(x.cpu()).numpy())
 
 
-def test_bf16_frame_matches_cpu(dev):
-    """The bf16 frame program on the card against the same processor on the
-    CPU (the plain versions), one seeded 64×128 frame: a flipped rounding is
-    256 codes near full scale, and flips spread through the network, so the
-    bound is two steps at the top of the range and a small mean."""
+def test_bf16_frame_matches_cpu(dev, monkeypatch):
+    """The bf16 frame program without the megakernels (HDRTV_MEGAKERNEL=0) on
+    the card against the same processor on the CPU (the plain versions), one
+    seeded 64×128 frame: a flipped rounding is 256 codes near full scale, and
+    flips spread through the network, so the bound is two steps at the top of
+    the range and a small mean."""
     import os
 
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
+    monkeypatch.setenv("HDRTV_MEGAKERNEL", "0")
     weights = os.path.join(os.path.dirname(__file__), "..", "weights", "hr_fp32.npz")
     frame = (np.random.RandomState(64).rand(64, 128, 3) * 255).astype(np.uint8)
     gpu = HDRTVNetTorch(weights).process_rgb48(frame).astype(np.int64)

@@ -301,6 +301,183 @@ def test_trunk3_bf16_plain_matches_pallas():
     _assert_bf16_close(got, want)
 
 
+def _head_args(rng, dtype):
+    """mods and the eight parameters of the head for both sides (the JAX
+    test's scales; the 256-wide hidden product scaled to contract)."""
+    specs = [((6, 256), 0.1, "f32"), ((12, 256), 0.2, dtype), ((256,), 0.1, "f32"),
+             ((256, 256), 0.05, dtype), ((256,), 0.1, "f32"), ((256, 12), 0.1, dtype),
+             ((12,), 0.1, "f32"), ((3, 3, 12, 384), 0.1, dtype), ((384,), 0.1, "f32")]
+    both = [_both(rng.randn(*shape) * scale, dt) for shape, scale, dt in specs]
+    return [b[0] for b in both], [b[1] for b in both]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("frame", ["pairs_u8", "float"])
+def test_agcm_head_plain_matches_pallas(dtype, frame):
+    """Hb = 16 runs the Pallas kernel in two row tiles of 8, so the image's
+    top and bottom edges, the tile seam and both column edges are all in the
+    comparison. fp32: 2e-5, the JAX test's bound. bf16: one bf16 step on all
+    three outputs; fea and c0 also move where a rounding of the AGCM result
+    flipped, so more of their elements differ."""
+    from hdrtv_tpu.ops.megakernel import fused_agcm_head as jax_fn
+    from hdrtv_tpu_torch.ops.megakernel import fused_agcm_head
+
+    rng = np.random.RandomState(21)
+    hb, wb = 16, 16
+    aj, at = _head_args(rng, dtype)
+    if frame == "pairs_u8":
+        x = (rng.rand(hb, 2, wb, 6) * 255).astype(np.uint8)
+        xj, xt, scale = jnp.asarray(x), torch.from_numpy(x.copy()), 1.0 / 255.0
+    else:
+        (xj, xt), scale = _both(rng.rand(hb, wb, 12), dtype), 1.0
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_fn(xj, *aj, n_first=128, scale=scale,
+                      out_dtype=jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    got = fused_agcm_head(xt, *at, n_first=128, scale=scale)
+    for g, w_, shape in zip(got, want, ((hb, wb, 128), (hb, wb, 256), (hb, wb, 12)), strict=True):
+        assert g.shape == shape
+        _check(g, w_, dtype, 2e-5, flips=0.02)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cond_chain_plain_matches_pallas(dtype):
+    """fp32: 2e-5, the JAX test's bound. bf16: the running value is rounded
+    at each of the five products in both, so one bf16 step; the JAX
+    ``fused_cond_chain_ref`` never rounds between steps and is not the
+    contract."""
+    from hdrtv_tpu.ops.megakernel import fused_cond_chain as jax_fn
+    from hdrtv_tpu_torch.ops.megakernel import fused_cond_chain
+
+    rng = np.random.RandomState(22)
+    hb, wb = 16, 16
+    cj, ct = _both(rng.rand(hb, wb, 256), dtype)
+    wj, wt = [], []
+    for n in (256, 256, 256, 256, 64):
+        (a, b), (c, d) = _both(rng.randn(256, n) * 0.04, dtype), _both(rng.randn(n) * 0.1)
+        wj.append((a, c))
+        wt.append((b, d))
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_fn(cj, wj)
+    got = fused_cond_chain(ct, wt)
+    assert got[0].shape == (hb, wb, 256) and got[1].shape == (hb, wb, 64)
+    for g, w_ in zip(got, want, strict=True):
+        _check(g, w_, dtype, 2e-5, flips=0.02)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("coarse", [False, True], ids=["s", "up_coarse"])
+@pytest.mark.parametrize("pack", [False, True], ids=["y", "packed"])
+def test_tail_plain_matches_pallas(dtype, coarse, pack):
+    """Hb = 16: two Pallas row tiles of 8 with their 2-row halos. fp32: 3e-5
+    unpacked, ≤ 1 u16 code packed. bf16 unpacked: two bf16 steps, the rounded
+    t and h feed further convs. bf16 packed: conv_last's fp32 sum goes to u16
+    unrounded, so a flipped bf16 step of h (2^-9 to 2^-7 for |h| < 2) shows
+    as |w_last| · step · 65535 codes, a few at these weights (|w| ≲ 0.04):
+    max 2 and mean 0.014 codes seen, the bounds are twice that."""
+    from hdrtv_tpu.ops.megakernel import fused_tail as jax_fn
+    from hdrtv_tpu_torch.ops.megakernel import fused_tail
+
+    rng = np.random.RandomState(23 + coarse)
+    hb, wb, c, cc = 16, 16, 128, 64
+    sj, st = _both(rng.rand(hb, wb, c), dtype)
+    cj, ct = _both(rng.rand(hb, wb, cc), dtype)
+    kj, kt = _both(rng.rand(hb, wb, 12), dtype)
+    uj, ut = _both(rng.rand(hb // 2, wb // 2, 4 * c), dtype) if coarse else (None, None)
+    sftj, sftt = _sft4(rng, cc, c, dtype)
+    whj, wht = _both(rng.randn(3, 3, c, c) * 0.02, dtype)
+    bhj, bht = _both(rng.randn(c) * 0.1)
+    wlj, wlt = _both(rng.randn(3, 3, c, 12) * 0.01, dtype)
+    blj, blt = _both(rng.randn(12) * 0.1)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_fn(sj, cj, kj, sftj, whj, bhj, wlj, blj, pack=pack, up_coarse=uj)
+    got = fused_tail(st, ct, kt, sftt, wht, bht, wlt, blt, pack=pack, up_coarse=ut)
+    if not pack:
+        assert got.shape == (hb, wb, 12)
+        _check(got, want, dtype, 3e-5, steps=2, flips=0.05)
+        return
+    assert got.shape == (hb, 2, wb, 6) and got.dtype == torch.uint16
+    w_ = np.asarray(want).astype(np.int64)
+    d = np.abs(got.numpy().astype(np.int64) - w_)
+    assert w_.max() > w_.min()
+    if dtype == "f32":
+        assert d.max() <= 1, int(d.max())
+    else:
+        assert d.max() <= 4 and d.mean() <= 0.03, (int(d.max()), float(d.mean()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_agcm_mods_matches_jax(dtype):
+    """The six modulation rows, computed in the policy's type and widened:
+    fp32 to 1e-5 (the classifier's bound); bf16 within one bf16 step, on at
+    most a tenth of the values (4% seen): the classifier's instance norms sum
+    their fp32 statistics in another order, which flips a few roundings."""
+    import os
+
+    from hdrtv_tpu.models import layers as jax_layers
+    from hdrtv_tpu.models.import_torch import load_npz
+    from hdrtv_tpu.models.s2d import _agcm_mods as jax_mods, s2d_transform_params
+    from hdrtv_tpu_torch.models import layers
+    from hdrtv_tpu_torch.models.s2d import _agcm_mods, params_to_torch
+
+    weights = os.path.join(os.path.dirname(__file__), "..", "weights", "hr_fp32.npz")
+    sp = s2d_transform_params(load_npz(weights))
+    jpol, tpol = (jax_layers.BF16, layers.BF16) if dtype == "bf16" else (jax_layers.F32, layers.F32)
+    cond = np.random.RandomState(9).rand(1, 30, 64, 3).astype(f32)
+    want = np.asarray(jax_mods({k: jnp.asarray(v) for k, v in sp.items()}, jnp.asarray(cond), policy=jpol))
+    got = _agcm_mods(params_to_torch(sp, "cpu", tpol), torch.from_numpy(cond), policy=tpol)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (6, 256)
+    assert not got[4:, 12:].any()
+    if dtype == "bf16":
+        err = np.abs(got.numpy() - want)
+        assert (err <= 2.0 ** -7 * np.maximum(1.0, np.abs(want))).all(), float(err.max())
+        assert (err > 0).mean() <= 0.1, float((err > 0).mean())
+    else:
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("bgr", [False, True])
+def test_quarter_aa_pairs_matches_jax_and_flat(bgr):
+    """The pair-plane condition image against the JAX function (2e-6, the
+    flat form's bound) and against the port's flat form on the same bytes:
+    the same matrices contracted in the same order, so equal to the last
+    bits (1e-6)."""
+    from hdrtv_tpu.ops.resize import downsample_quarter_aa_pairs as jax_pairs
+    from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa_flat, downsample_quarter_aa_pairs
+
+    frame = (np.random.RandomState(4).rand(48, 80, 3) * 255).astype(np.uint8)
+    xr = frame.reshape(24, 2, 40, 6)
+    got = downsample_quarter_aa_pairs(torch.from_numpy(xr.copy()), bgr=bgr).numpy()
+    assert got.shape == (1, 12, 20, 3)
+    np.testing.assert_allclose(got, np.asarray(jax_pairs(jnp.asarray(xr), bgr=bgr)), atol=2e-6, rtol=0)
+    flat = downsample_quarter_aa_flat(torch.from_numpy(frame.reshape(48, 240).copy()), bgr=bgr).numpy()
+    np.testing.assert_allclose(got, flat, atol=1e-6, rtol=0)
+
+
+def test_megakernel_wrappers_reject_bad_inputs():
+    from hdrtv_tpu_torch.ops.megakernel import fused_agcm_head, fused_cond_chain, fused_tail
+
+    _, at = _head_args(np.random.RandomState(0), "f32")
+    with pytest.raises(ValueError, match="pair planes"):
+        fused_agcm_head(torch.zeros(8, 2, 16, 3, dtype=torch.uint8), *at, n_first=128)
+    with pytest.raises(ValueError, match="uint8 or"):
+        fused_agcm_head(torch.zeros(8, 16, 12, dtype=torch.bfloat16), *at, n_first=128)
+    with pytest.raises(ValueError, match="five"):
+        fused_cond_chain(torch.zeros(8, 16, 64), [(torch.zeros(64, 64), torch.zeros(64))] * 4)
+    z = torch.zeros
+    sft = [(z(64, 64), z(64)), (z(64, 128), z(128)), (z(64, 64), z(64)), (z(64, 128), z(128))]
+    with pytest.raises(ValueError, match="up_coarse"):
+        fused_tail(z(8, 16, 128), z(8, 16, 64), z(8, 16, 12), sft, z(3, 3, 128, 128), z(128),
+                   z(3, 3, 128, 12), z(12), up_coarse=z(4, 8, 256))
+
+
+@pytest.mark.parametrize("hb,want", [(540, 12), (60, 12), (32, 8), (14, 7), (26, 26), (7, 7), (2, 2)])
+def test_pick_rows_matches_jax(hb, want):
+    from hdrtv_tpu.ops.megakernel import pick_rows as jax_pick
+    from hdrtv_tpu_torch.ops.megakernel import pick_rows
+
+    assert pick_rows(hb) == jax_pick(hb) == want
+
+
 def test_pack_bf16_plain_matches_reference_exactly():
     from hdrtv_tpu.ops.pack import pack_rgb48_ref as jax_pack
     from hdrtv_tpu_torch.ops.pack import pack_rgb48

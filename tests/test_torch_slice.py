@@ -2,11 +2,13 @@
 
 fp32: the condition image, the classifier, the s2d ensemble (also against
 the torch-reference golden), and HDRTVNetTorch.process_rgb48 against
-HDRTVNetTPU.process_rgb48 on the same frames. bf16: the whole slice against
-the JAX program with its Pallas kernels in interpret mode (the program a TPU
-runs with HDRTV_MEGAKERNEL=0), and against the JAX lax program. Plus the
-gates: what the port does not cover raises, and importing the port imports
-no JAX."""
+HDRTVNetTPU.process_rgb48 on the same frames, and the megakernel program's
+structure in fp32 against the JAX ``_ensemble_mega``. bf16: the default
+(megakernel) program against the JAX program a TPU runs by default, with its
+Pallas kernels in interpret mode; the program without the megakernels
+(HDRTV_MEGAKERNEL=0) against its JAX counterpart and against the JAX lax
+program. Plus the gates: ``_mega_ok`` routes as the JAX predicate does, what
+the port does not cover raises, and importing the port imports no JAX."""
 
 import os
 import subprocess
@@ -120,9 +122,10 @@ def test_default_device_needs_cuda(monkeypatch):
 
 
 def test_bf16_slice_matches_jax_kernel_path(monkeypatch):
-    """The default-precision (bf16) program on a 120×256 frame, the smallest
-    size that routes like 1080p, against ``ensemble_s2d_rgb48_flat`` with
-    every Pallas kernel of the non-mega path executed in interpret mode.
+    """The bf16 program without the megakernels (HDRTV_MEGAKERNEL=0) on a
+    120×256 frame, the smallest size that routes like 1080p, against
+    ``ensemble_s2d_rgb48_flat`` with every Pallas kernel of the non-mega path
+    executed in interpret mode.
 
     Tolerance: the JAX package's own all-lax bf16 program differs from that
     kernel path by max 256 and mean 22.1 codes on this frame (one bf16 step
@@ -148,6 +151,7 @@ def test_bf16_slice_matches_jax_kernel_path(monkeypatch):
             calls[_name] = calls.get(_name, 0) + 1
             return _fn(*a, **k)
         monkeypatch.setattr(port_s2d, name, counted)
+    monkeypatch.setenv("HDRTV_MEGAKERNEL", "0")
     proc = HDRTVNetTorch(WEIGHTS, device="cpu")
     assert proc.policy.compute_dtype == torch.bfloat16
     got = proc.process_rgb48(frame).astype(np.int64)
@@ -155,7 +159,6 @@ def test_bf16_slice_matches_jax_kernel_path(monkeypatch):
                      "fused_down2": 5, "fused_block_conv3": 2, "fused_trunk3": 1}
 
     sp = {k: jnp.asarray(v) for k, v in s2d_transform_params(load_npz(WEIGHTS)).items()}
-    monkeypatch.setenv("HDRTV_MEGAKERNEL", "0")
     monkeypatch.setenv("HDRTV_FORCE_FUSED_TRACE", "1")
     monkeypatch.setenv("HDRTV_MEGAKERNEL_INTERPRET", "1")
     with pltpu.force_tpu_interpret_mode():
@@ -165,18 +168,196 @@ def test_bf16_slice_matches_jax_kernel_path(monkeypatch):
     assert d.max() <= 512 and d.mean() <= 13.2, (int(d.max()), float(d.mean()))
 
 
-def test_bf16_slice_matches_jax_lax_program():
-    """bf16 against ``HDRTVNetTPU(precision="fp16")``, which off the TPU runs
-    the all-lax program: within 3e-2 of full scale, the bound the JAX tests
-    put between two bf16 programs that round at different places."""
+def test_bf16_slice_matches_jax_lax_program(monkeypatch):
+    """bf16 without the megakernels against ``HDRTVNetTPU(precision="fp16")``,
+    which off the TPU runs the all-lax program: within 3e-2 of full scale, the
+    bound the JAX tests put between two bf16 programs that round at different
+    places."""
     from hdrtv_tpu.runtime.processor import HDRTVNetTPU
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
+    monkeypatch.setenv("HDRTV_MEGAKERNEL", "0")
     frame = (np.random.RandomState(64).rand(64, 96, 3) * 255).astype(np.uint8)
     want = HDRTVNetTPU(WEIGHTS, precision="fp16", persistent_cache=False).process_rgb48(frame)
     got = HDRTVNetTorch(WEIGHTS, precision="fp16", device="cpu").process_rgb48(frame)
     assert got.shape == (64, 96, 3) and got.dtype == np.uint16
     assert np.abs(got.astype(np.int64) - want.astype(np.int64)).max() <= 3e-2 * 65535
+
+
+def _jax_params():
+    from hdrtv_tpu.models.import_torch import load_npz
+    from hdrtv_tpu.models.s2d import s2d_transform_params
+
+    return {k: jnp.asarray(v) for k, v in s2d_transform_params(load_npz(WEIGHTS)).items()}
+
+
+def test_ensemble_mega_fp32_matches_jax(params, monkeypatch):
+    """The megakernel program's structure, in fp32 where rounding does not
+    blur it: the port's ``_ensemble_mega`` with ``F32`` against the JAX
+    ``_ensemble_mega`` (its three megakernels in interpret mode, which admits
+    fp32) on 64×96 u8 pair planes read as BGR, packed: ≤ 4 u16 codes, the
+    fp32 frame bound."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from hdrtv_tpu.models.layers import F32 as JAX_F32
+    from hdrtv_tpu.models.s2d import _ensemble_mega as jax_mega
+    from hdrtv_tpu.ops.resize import downsample_quarter_aa_pairs as jax_cond
+    from hdrtv_tpu_torch.models.layers import F32
+    from hdrtv_tpu_torch.models.s2d import _ensemble_mega
+    from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa_pairs
+
+    pj, pt = params
+    h, w = 64, 96
+    xr = (np.random.RandomState(96).rand(h // 2, 2, w // 2, 6) * 255).astype(np.uint8)
+    monkeypatch.setenv("HDRTV_MEGAKERNEL_INTERPRET", "1")
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_mega(pj, jnp.asarray(xr), jax_cond(jnp.asarray(xr), bgr=True),
+                                   policy=JAX_F32, pack=True, scale=1.0 / 255.0, bgr=True))
+    xt = torch.from_numpy(xr.copy())
+    with torch.inference_mode():
+        got = _ensemble_mega(pt, xt, downsample_quarter_aa_pairs(xt, bgr=True),
+                             policy=F32, pack=True, scale=1.0 / 255.0, bgr=True)
+    assert got.shape == (h // 2, 2, w // 2, 6) and got.dtype == torch.uint16
+    d = np.abs(got.numpy().astype(np.int64) - want.astype(np.int64))
+    assert want.max() > want.min() and d.max() <= CODES, int(d.max())
+    # unpacked, from a float s2d frame: the same values before the pack
+    xs = torch.cat([xt[:, 0], xt[:, 1]], dim=-1).float() * (1.0 / 255.0)
+    with torch.inference_mode():
+        y = _ensemble_mega(pt, xs, downsample_quarter_aa_pairs(xt, bgr=True), policy=F32, pack=False, bgr=True)
+    assert y.shape == (h // 2, w // 2, 12) and y.dtype == torch.float32
+    u = (y.clamp(0, 1) * 65535.0 + 0.5).to(torch.int32).numpy()
+    u = np.stack([u[..., :6], u[..., 6:]], axis=1)
+    assert np.abs(u - got.numpy().astype(np.int64)).max() <= 1
+
+
+def test_bf16_mega_slice_matches_jax_mega_program(monkeypatch):
+    """The default program: ``HDRTVNetTorch(device="cpu").process_rgb48`` on a
+    120×256 BGR frame against the JAX ``ensemble_s2d_rgb48_pairs`` with
+    ``BF16``, ``bgr=True`` and every Pallas kernel (the three megakernels and
+    the others) in interpret mode: the program a TPU runs by default.
+
+    Seen: max 96, mean 6.53 codes (94% of the values differ: the tail packs an
+    fp32 sum, so an upstream bf16 flip shows as a few codes everywhere). The
+    bounds are twice that. For scale: the JAX package's own all-lax bf16
+    program differs from this kernel program by max 743 / mean 112.6 codes on
+    this frame, and so does the program without the megakernels (743 / 111.4),
+    which rounds the AGCM modulation in bf16 where the head kernel keeps it in
+    fp32: the two programs differ by design."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from hdrtv_tpu.models.layers import BF16
+    from hdrtv_tpu.models.s2d import ensemble_s2d_rgb48_pairs
+    from hdrtv_tpu_torch.models import s2d as port_s2d
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    h, w = 120, 256
+    frame = (np.random.RandomState(120).rand(h, w, 3) * 255).astype(np.uint8)
+    calls = {}
+    for name in ("fused_agcm_head", "fused_cond_chain", "fused_tail", "fused_sft_conv3_v2", "fused_resblock",
+                 "fused_mix_chain", "fused_down2", "fused_block_conv3", "fused_trunk3", "pack_rgb48"):
+        def counted(*a, _fn=getattr(port_s2d, name), _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(port_s2d, name, counted)
+    monkeypatch.delenv("HDRTV_MEGAKERNEL", raising=False)
+    got = HDRTVNetTorch(WEIGHTS, device="cpu").process_rgb48(frame).astype(np.int64)
+    assert calls == {"fused_agcm_head": 1, "fused_cond_chain": 1, "fused_tail": 1, "fused_sft_conv3_v2": 5,
+                     "fused_resblock": 2, "fused_mix_chain": 1, "fused_down2": 5, "fused_block_conv3": 2,
+                     "fused_trunk3": 1}
+
+    monkeypatch.setenv("HDRTV_FORCE_FUSED_TRACE", "1")
+    monkeypatch.setenv("HDRTV_MEGAKERNEL_INTERPRET", "1")
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(ensemble_s2d_rgb48_pairs(
+            _jax_params(), jnp.asarray(frame.reshape(h // 2, 2, w // 2, 6)), None, policy=BF16, bgr=True))
+    d = np.abs(got - want.reshape(h, w, 3).astype(np.int64))
+    assert d.max() <= 192 and d.mean() <= 13.1, (int(d.max()), float(d.mean()))
+
+
+@pytest.mark.parametrize("mega", ["1", "0"], ids=["mega", "HDRTV_MEGAKERNEL=0"])
+def test_bf16_entries_give_the_same_bytes(monkeypatch, mega):
+    """Pair planes, flat rows and (H, W, 3) are three views of one frame: the
+    three entries return the same bytes, in either bf16 program."""
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    monkeypatch.setenv("HDRTV_MEGAKERNEL", mega)
+    h, w = 64, 96
+    frame = (np.random.RandomState(7).rand(h, w, 3) * 255).astype(np.uint8)
+    proc = HDRTVNetTorch(WEIGHTS, device="cpu")
+    got = proc.process_rgb48(frame)
+    flat = frame.reshape(h, 3 * w)
+    pairs = proc.process_rgb48_device(proc.put_frame(flat))
+    assert pairs.shape == (h // 2, 2, w // 2, 6) and pairs.dtype == torch.uint16
+    rows = proc.process_rgb48_device(torch.from_numpy(flat.copy()))
+    hwc = proc.process_rgb48_device(torch.from_numpy(frame.copy()))
+    assert rows.shape == (h, 3 * w) and hwc.shape == (h, w, 3)
+    for other in (pairs, rows, hwc):
+        assert np.array_equal(other.numpy().reshape(h, w, 3), got)
+
+
+def test_bf16_rgb_entries_take_the_mega_program(monkeypatch):
+    """``ensemble_s2d_rgb48`` ((H, W, 3) RGB u8 and a given condition image)
+    returns the flat entry's bytes, and ``ensemble_s2d`` (a float image, no
+    pack) the same frame before the pack: its bf16 result, packed, is within
+    one bf16 step (256 codes at the top of the range) of the tail's own pack
+    of the unrounded sum. Each goes through the tail wrapper once (packing or
+    not); ``mega=False`` does not."""
+    from hdrtv_tpu_torch.models import s2d as port_s2d
+    from hdrtv_tpu_torch.models.layers import BF16
+    from hdrtv_tpu_torch.ops.pack import pack_rgb48
+    from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    monkeypatch.delenv("HDRTV_MEGAKERNEL", raising=False)
+    calls = []
+    monkeypatch.setattr(port_s2d, "fused_tail",
+                        lambda *a, _fn=port_s2d.fused_tail, **k: (calls.append(k["pack"]), _fn(*a, **k))[1])
+    h, w = 64, 96
+    frame = torch.from_numpy((np.random.RandomState(8).rand(h, w, 3) * 255).astype(np.uint8))
+    p = HDRTVNetTorch(WEIGHTS, device="cpu").params
+    img = frame[None].float() * (1.0 / 255.0)
+    cond = downsample_quarter_aa(img)
+    with torch.inference_mode():
+        packed = port_s2d.ensemble_s2d_rgb48(p, frame, cond, policy=BF16)
+        flat = port_s2d.ensemble_s2d_rgb48_flat(p, frame.reshape(h, 3 * w), cond, policy=BF16)
+        y = port_s2d.ensemble_s2d(p, img, cond, policy=BF16)
+        assert calls == [True, True, False]
+        lax = port_s2d.ensemble_s2d(p, img, cond, policy=BF16, mega=False)
+        assert calls == [True, True, False]
+    assert packed.shape == (h, w, 3) and packed.dtype == torch.uint16
+    assert torch.equal(packed.reshape(h, 3 * w), flat)
+    assert y.shape == lax.shape == (1, h, w, 3) and y.dtype == torch.bfloat16
+    d = (pack_rgb48(y[0]).to(torch.int32) - packed.to(torch.int32)).abs()
+    assert int(d.max()) <= 256
+
+
+def test_mega_ok_routes_like_jax(params, monkeypatch):
+    """Both packages send a frame size down the same program: the port's
+    ``_mega_ok`` equals the JAX predicate (asked with its interpret switch on,
+    which lifts its backend gate and nothing else for bf16) over sizes on
+    either side of each shape rule, and HDRTV_MEGAKERNEL=0 turns both off."""
+    from hdrtv_tpu.models.layers import BF16 as JAX_BF16
+    from hdrtv_tpu.models.s2d import _mega_ok as jax_ok
+    from hdrtv_tpu_torch.models.layers import BF16, F32
+    from hdrtv_tpu_torch.models.s2d import _mega_ok
+
+    pj, pt = params
+    monkeypatch.setenv("HDRTV_MEGAKERNEL_INTERPRET", "1")
+    monkeypatch.delenv("HDRTV_MEGAKERNEL", raising=False)
+    sizes = [(1080, 1920), (720, 1280), (2160, 3840), (360, 640), (120, 256), (64, 96), (128, 192),
+             (16, 24), (12, 32), (16, 32), (14, 32), (68, 64), (74, 64), (106, 64), (64, 40), (64, 72)]
+    routed = {}
+    for h, w in sizes:
+        shape = (1, h // 2, w // 2, 12)
+        routed[(h, w)] = _mega_ok(pt, shape, BF16)
+        assert routed[(h, w)] == jax_ok(pj, shape, JAX_BF16), (h, w)
+    assert routed[(1080, 1920)] and routed[(120, 256)] and routed[(64, 96)] and routed[(360, 640)]
+    assert not routed[(16, 24)] and not routed[(12, 32)] and not routed[(14, 32)] and not routed[(74, 64)]
+    assert not _mega_ok(pt, (2, 60, 128, 12), BF16) and not _mega_ok(pt, (1, 60, 128, 16), BF16)
+    assert not _mega_ok(pt, (1, 60, 128, 12), F32)
+    assert not _mega_ok({k: v for k, v in pt.items() if k != "LE.__in_fused.weight"}, (1, 60, 128, 12), BF16)
+    monkeypatch.setenv("HDRTV_MEGAKERNEL", "0")
+    assert not _mega_ok(pt, (1, 60, 128, 12), BF16) and not jax_ok(pj, (1, 60, 128, 12), JAX_BF16)
 
 
 def test_params_are_cast_once_at_load():
@@ -192,7 +373,12 @@ def test_params_are_cast_once_at_load():
     assert p["LE.SFT_layer1.SFT_scale_conv0.bias"].dtype == torch.float32  # sft_conv3 kernel
     assert p["LE.CondNet2.4.bias"].dtype == torch.float32  # mix_chain kernel
     assert p["LE.recon_trunk3.0.sft1.SFT_shift_conv1.bias"].dtype == torch.float32  # trunk3 kernel
-    assert p["LE.conv_last.bias"].dtype == torch.bfloat16  # torch conv (Co = 12)
+    assert p["LE.conv_last.bias"].dtype == torch.float32  # tail kernel
+    assert p["LE.CondNet1.4.bias"].dtype == torch.float32  # cond_chain kernel
+    assert p["AGCM.HRconv.bias"].dtype == torch.float32  # agcm_head kernel
+    assert p["AGCM.cond_scale_first.bias"].dtype == torch.bfloat16  # torch linear (the modulation vectors)
+    assert p["AGCM.__head_aw1_bgr"].dtype == torch.bfloat16 and p["AGCM.__head_aw1_bgr"].shape == (16, 256)
+    assert p["LE.__head_wcat"].shape == (112, 384)
     assert p["LE.CondNet3.4.bias"].dtype == torch.bfloat16  # torch 1×1 (Co = 64)
     assert p["AGCM.classifier.model.3.weight"].dtype == torch.float32  # instance norm
     assert p["LE.__trunk3_packed"].dtype == torch.float32
