@@ -11,8 +11,8 @@ lines; any failed check raises and the script exits non-zero with no result:
    build of every kernel from hdrtv_tpu_torch/csrc (time, registers, spills);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    every 1080p main-path shape of the fp32 and of the two bf16 frame
-   programs, TF32 off; the kernels only the bf16 programs run are also held
-   in fp32 at the same shapes. Tolerances. fp32: 1e-4 absolute (5e-4 for
+   programs and of the HG composite, TF32 off; the kernels only the bf16
+   programs run are also held in fp32 at the same shapes. Tolerances. fp32: 1e-4 absolute (5e-4 for
    trunk3's 9-conv chain): the same fp32 products summed in another order.
    bf16: the same exact products summed in fp32 in another order and rounded
    at the same places, so a result moves by one bf16 step where a rounding
@@ -27,7 +27,13 @@ lines; any failed check raises and the script exits non-zero with no result:
    codes, step being one bf16 step of h. The bound is computed from the
    run's inputs, max|w_last| · (bf16 step at max|h|) · 65535, doubled for two
    flips under one 3×3 window, and at most TAIL_BF16_SHARE of the values may
-   differ at all (twice the share seen).
+   differ at all (twice the share seen). hg_tail, at the 1080p shape of the
+   HG composite (544 × 960 blocks, 256 + 256 channels), in codes: fp32 ≤ 1;
+   bf16 equal except where the rounding of u10 flipped, each such output
+   moving by at most max|wlast| · (bf16 step at max|u10|) · 65535 codes,
+   doubled, on at most HG_TAIL_BF16_SHARE of the values. colorimetric at
+   (1080, 1920, 3): ≤ 2 codes (powf against torch.pow under the PQ exponent
+   78.84), equal at 0 and 1.
    Kernel, plain and library times (CUDA events) and the least
    time the card could take: bytes over 3.35 TB/s, or FLOPs of the non-zero
    weights over the H100 SXM's rate for the element type (67 TFLOP/s fp32
@@ -37,14 +43,28 @@ lines; any failed check raises and the script exits non-zero with no result:
    frame programs: fp32 ≤ 4 u16 codes; bf16 without the megakernels
    (HDRTV_MEGAKERNEL=0) and bf16 with them, the default (a flipped rounding
    is 256 codes near full scale and spreads through the later layers), max
-   ≤ 1536 codes and mean ≤ 34, twice what was measured;
-4. 1080p, the three programs in turn: one frame through
+   ≤ 1536 codes and mean ≤ 34, twice what was measured. Then one HG frame
+   (HG_E2E_SIZE, which reflect-pads both ways and keeps the CPU run short;
+   the synthetic hg_nf = 64 generator of tools/synth_hg.py on the real base
+   model) in fp32 and bf16. The highlight mask is a threshold on the base
+   output (max RGB > 0.775), so pixels whose base max-RGB lies within a
+   margin of it (2e-4 in fp32, 0.02 in bf16) may flip between card and CPU
+   and are counted apart (at most HG_NEAR_SHARE of the frame); the rest:
+   fp32 ≤ 4 codes, bf16 within HG_BF16_CODES (max, mean);
+4. 1080p, the five programs in turn (the three above, then the HG composite
+   in bf16 and in fp32, frames as flat rows, hg_tail once per frame and
+   pack_rgb48 not at all; its output must differ from the base model's on a
+   share of the pixels and stay unclipped on most of them): one frame through
    process_rgb48_device (u8 pair planes from put_frame) with the launch
    counts set to 0 before it and read after, asserted exactly
    (EXPECTED_LAUNCHES: the megakernel program launches agcm_head, cond_chain
    and tail once each and pack_rgb48 not at all), then device-resident frames
    with one sync (3 in fp32, 3 in bf16 without the megakernels, 10 in the
-   default program): ms/frame, fps, peak memory, output range.
+   default program, 5 and 2 with HG): ms/frame, fps, peak memory, output
+   range;
+5. colorimetric_pq_pack on the 1080p frame (u8 → [0, 1]) in fp32 and bf16:
+   the one place the port launches it outside the kernel comparison (no
+   frame program reaches it, nor in the JAX package); shape, dtype and range.
 
 The line before the last is the per-kernel JSON summary, one entry per
 kernel and element type, with the path whose launches it reports and its
@@ -65,20 +85,35 @@ HBM_BPS = 3.35e12  # H100 SXM device memory rate
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}  # H100 SXM: fp32 FMA units, bf16 tensor cores
 ATOL = 1e-4
 TAIL_BF16_SHARE = 0.016  # see the docstring, phase 2
-# The three frame programs (paths): the processor's precision token, the
-# element type, HDRTV_MEGAKERNEL, frames timed at 1080p, and the launches of
-# one 1080p frame.
+HG_TAIL_BF16_SHARE = 0.01
+HG_E2E_SIZE = (184, 336)  # s2d grid 92 × 168: pads 4 rows and 8 columns; takes the megakernel program
+HG_NEAR_SHARE = 0.25
+HG_CHANGED_CODES = 300  # more than a bf16 step of the base output (256 codes below 1.0)
+HG_BF16_CODES = (1536, 60.0)
+# The five frame programs (paths): the processor's precision token, the
+# element type, HDRTV_MEGAKERNEL, whether the checkpoint is the HG composite,
+# frames timed at 1080p, and the launches of one 1080p frame (kernels not
+# named launch 0 times). With HG the base program hands its s2d output over
+# unpacked and hg_tail packs, so pack_rgb48 launches on no HG path.
+_FP32 = {"block_conv3": 12, "down2": 5, "trunk3": 1}
+_BF16_MEGA = {"block_conv3": 2, "down2": 5, "trunk3": 1, "sft_conv3": 5, "resblock": 2, "mix_chain": 1,
+              "agcm_head": 1, "cond_chain": 1, "tail": 1}
 PATHS = {
-    "fp32": {"precision": "fp32", "dtype": "f32", "mega": "1", "frames": 3, "launches": {
-        "block_conv3": 12, "down2": 5, "trunk3": 1, "pack_rgb48": 1, "sft_conv3": 0, "resblock": 0,
-        "mix_chain": 0, "agcm_head": 0, "cond_chain": 0, "tail": 0}},
-    "bf16_nomega": {"precision": "fp16", "dtype": "bf16", "mega": "0", "frames": 3, "launches": {
-        "block_conv3": 2, "down2": 5, "trunk3": 1, "pack_rgb48": 1, "sft_conv3": 6, "resblock": 2,
-        "mix_chain": 1, "agcm_head": 0, "cond_chain": 0, "tail": 0}},
-    "bf16_mega": {"precision": "fp16", "dtype": "bf16", "mega": "1", "frames": 10, "launches": {
-        "block_conv3": 2, "down2": 5, "trunk3": 1, "pack_rgb48": 0, "sft_conv3": 5, "resblock": 2,
-        "mix_chain": 1, "agcm_head": 1, "cond_chain": 1, "tail": 1}},
+    "fp32": {"precision": "fp32", "dtype": "f32", "mega": "1", "hg": False, "frames": 3,
+             "launches": {**_FP32, "pack_rgb48": 1}},
+    "bf16_nomega": {"precision": "fp16", "dtype": "bf16", "mega": "0", "hg": False, "frames": 3, "launches": {
+        "block_conv3": 2, "down2": 5, "trunk3": 1, "pack_rgb48": 1, "sft_conv3": 6, "resblock": 2, "mix_chain": 1}},
+    "bf16_mega": {"precision": "fp16", "dtype": "bf16", "mega": "1", "hg": False, "frames": 10,
+                  "launches": dict(_BF16_MEGA)},
+    "hg_bf16": {"precision": "fp16", "dtype": "bf16", "mega": "1", "hg": True, "frames": 5,
+                "launches": {**_BF16_MEGA, "hg_tail": 1}},
+    "hg_fp32": {"precision": "fp32", "dtype": "f32", "mega": "1", "hg": True, "frames": 2,
+                "launches": {**_FP32, "hg_tail": 1}},
 }
+# The colorimetric pack is on no frame program: phase 5 drives it, once per
+# element type, and its entries report that drive.
+COLOR_PATHS = {"color_f32": "f32", "color_bf16": "bf16"}
+PATH_DTYPE = {**{p: spec["dtype"] for p, spec in PATHS.items()}, **COLOR_PATHS}
 KERNEL_INFO = {
     "block_conv3": ("hdrtv_tpu_torch/csrc/block_conv3.cu", "hdrtv_tpu/ops/conv_kernels.py:271"),
     "down2": ("hdrtv_tpu_torch/csrc/down2.cu", "hdrtv_tpu/ops/megakernel.py:706"),
@@ -90,7 +125,23 @@ KERNEL_INFO = {
     "agcm_head": ("hdrtv_tpu_torch/csrc/agcm_head.cu", "hdrtv_tpu/ops/megakernel.py:209"),
     "cond_chain": ("hdrtv_tpu_torch/csrc/cond_chain.cu", "hdrtv_tpu/ops/megakernel.py:352"),
     "tail": ("hdrtv_tpu_torch/csrc/tail.cu", "hdrtv_tpu/ops/megakernel.py:489"),
+    "hg_tail": ("hdrtv_tpu_torch/csrc/hg_tail.cu", "hdrtv_tpu/ops/megakernel.py:1435"),
+    "colorimetric": ("hdrtv_tpu_torch/csrc/colorimetric.cu", "hdrtv_tpu/ops/pack.py:146"),
 }
+
+
+def expected_launches(path: str) -> dict:
+    return {k: PATHS[path]["launches"].get(k, 0) for k in KERNEL_INFO}
+
+
+def smooth_frame(np, h: int, w: int, seed: int):
+    """A u8 frame whose highlights the base model lifts over the HG mask's
+    threshold on about a third of the pixels: 8 × 8 blocks of one grey level,
+    a third of them clipped to white, under mild noise (uniform noise alone
+    stays below the threshold almost everywhere)."""
+    rng = np.random.RandomState(seed)
+    blocks = np.kron(rng.rand(-(-h // 8), -(-w // 8), 1), np.ones((8, 8, 3)))[:h, :w] * 420
+    return np.clip(blocks + rng.randn(h, w, 3) * 10, 0, 255).astype(np.uint8)
 
 
 def log(msg: str) -> None:
@@ -163,15 +214,16 @@ def phase_kernels(torch, np) -> dict:
     runs is measured in fp32 all the same, weighted like the bf16 paths."""
     import torch.nn.functional as F
 
-    from hdrtv_tpu_torch.models.s2d import w_ps_permute, w_s2d_1x1, w_s2d_s1, w_s2d_s1_ps, w_s2d_s2
+    from hdrtv_tpu_torch.models.hg_s2d import _permute_cat_rows
+    from hdrtv_tpu_torch.models.s2d import b_s2d, w_ps_permute, w_s2d_1x1, w_s2d_s1, w_s2d_s1_ps, w_s2d_s2
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_ref
     from hdrtv_tpu_torch.ops.megakernel import (
         agcm_head_pack, fused_agcm_head, fused_agcm_head_ref, fused_cond_chain, fused_cond_chain_ref,
         fused_down2, fused_down2_ref, fused_mix_chain, fused_mix_chain_ref, fused_resblock,
-        fused_resblock_ref, fused_sft_conv3_v2, fused_sft_conv3_v2_ref, fused_tail, fused_tail_ref,
-        fused_trunk3, fused_trunk3_ref,
+        fused_hg_tail, fused_hg_tail_ref, fused_resblock_ref, fused_sft_conv3_v2, fused_sft_conv3_v2_ref,
+        fused_tail, fused_tail_ref, fused_trunk3, fused_trunk3_ref,
     )
-    from hdrtv_tpu_torch.ops.pack import pack_rgb48, pack_rgb48_ref
+    from hdrtv_tpu_torch.ops.pack import colorimetric_pq_pack, colorimetric_pq_pack_ref, pack_rgb48, pack_rgb48_ref
 
     log("phase 2: kernels against their plain versions (1080p main-path shapes, TF32 off)")
     dev = torch.device("cuda")
@@ -179,12 +231,17 @@ def phase_kernels(torch, np) -> dict:
     totals: dict = {}
 
     def runs(dtype, per_path):
-        """Launches per frame of a case on the paths that count for ``dtype``;
-        ``per_path``: its launches on (fp32, bf16_nomega, bf16_mega)."""
-        n = dict(zip(PATHS, per_path, strict=True))
-        if dtype == "f32" and n["fp32"]:
-            return {"fp32": n["fp32"]}
-        return {p: k for p, k in n.items() if k and PATHS[p]["dtype"] == "bf16"}
+        """Launches per frame of a case on the paths that count for ``dtype``:
+        those of that element type, or for an fp32 instance that no fp32 path
+        launches, the bf16 ones. ``per_path``: a dict path → launches, or the
+        case's launches on (fp32, bf16_nomega, bf16_mega), which the two HG
+        paths repeat: their base programs are the megakernel and the fp32
+        program."""
+        if not isinstance(per_path, dict):
+            f, n, m = per_path
+            per_path = {"fp32": f, "bf16_nomega": n, "bf16_mega": m, "hg_bf16": m, "hg_fp32": f}
+        own = {p: k for p, k in per_path.items() if k and PATH_DTYPE[p] == dtype}
+        return own or {p: k for p, k in per_path.items() if k and PATH_DTYPE[p] == "bf16"}
 
     def record(kernel, dtype, case, per_path, y, y_ref, tol, ms, plain_ms, lib_ms, nbytes, flops,
                unit="abs"):
@@ -499,19 +556,72 @@ def phase_kernels(torch, np) -> dict:
             raise AssertionError(f"pack output {host.dtype} {host.shape}")
         ms = time_ms(lambda: pack_rgb48(v), torch)
         plain = time_ms(lambda: pack_rgb48_ref(v), torch)
-        record("pack_rgb48", dtype, f"(1080,1920,3) {dtype} -> u16", (1, 1, 0), u.to(torch.int32),
-               pack_rgb48_ref(v).to(torch.int32), 0.0, ms, plain, None,
+        record("pack_rgb48", dtype, f"(1080,1920,3) {dtype} -> u16", {"fp32": 1, "bf16_nomega": 1},
+               u.to(torch.int32), pack_rgb48_ref(v).to(torch.int32), 0.0, ms, plain, None,
                v.numel() * (size + 2), v.numel() * 4)
-        del v, u
+
+        # colorimetric: the same frame through gamma, gamut, PQ and the pack; on no frame path
+        u = colorimetric_pq_pack(v)
+        u_r = colorimetric_pq_pack_ref(v)
+        if tuple(u.shape) != (1080, 1920, 3) or u.dtype != torch.uint16:
+            raise AssertionError(f"colorimetric output {tuple(u.shape)} {u.dtype}")
+        ends = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], device=dev, dtype=dt)
+        if not torch.equal(colorimetric_pq_pack(ends), colorimetric_pq_pack_ref(ends)):
+            raise AssertionError("colorimetric: kernel and plain version differ at 0 or 1")
+        ms = time_ms(lambda: colorimetric_pq_pack(v), torch)
+        plain = time_ms(lambda: colorimetric_pq_pack_ref(v), torch)
+        # per pixel: 3 gamma powers, a 3×3 matrix, 3 × (2 powers, a divide, ~8 more): ~60 operations
+        record("colorimetric", dtype, f"(1080,1920,3) {dtype} -> PQ u16", {f"color_{dtype}": 1},
+               u.to(torch.int32), u_r.to(torch.int32), 2, ms, plain, None,
+               v.numel() * (size + 2), v.numel() * 20)
+        del v, u, u_r
+
+        # hg_tail at the 1080p HG shape: Hb 540 reflect-padded to 544, Wb 960, hg_nf = 64, so up5
+        # and c1 are (544, 960, 256); relu'd inputs, concat-permuted block-diagonal weights
+        hb, wb, cn = 544, 960, 64
+        gen = torch.Generator(dev).manual_seed(77)
+        up5 = torch.randn(hb, wb, 4 * cn, device=dev, generator=gen).clamp_min_(0).to(dt)
+        c1 = torch.randn(hb, wb, 4 * cn, device=dev, generator=gen).clamp_min_(0).to(dt)
+        img = t(rng.rand(hb, wb, 12) * 1.1 - 0.05)
+        mask4 = t(rng.rand(hb, wb, 4) > 0.6)
+        w10 = t(_permute_cat_rows(w_s2d_1x1(rng.randn(1, 1, 2 * cn, 3).astype(np.float32) * 0.06), (cn, cn))[0, 0])
+        wlast = t(_permute_cat_rows(w_s2d_1x1(rng.randn(1, 1, 6, 3).astype(np.float32) * 0.3), (3, 3))[0, 0])
+        hargs = (up5, c1, img, mask4, w10, f32(b_s2d(rng.randn(3) * 0.1)), wlast, f32(b_s2d(rng.randn(3) * 0.05)))
+        y = fused_hg_tail(*hargs)
+        y_r = fused_hg_tail_ref(*hargs)
+        codes = y_r.to(torch.int32)
+        inside = float(((codes > 0) & (codes < 65535)).float().mean())
+        if tuple(y.shape) != (hb, 2, wb, 6) or y.dtype != torch.uint16 or inside < 0.5:
+            raise AssertionError(f"hg_tail output {tuple(y.shape)} {y.dtype}, {inside:.2f} of the codes unclipped")
+        tol = 1
+        if dtype == "bf16":
+            u10_max = float((up5.float() @ w10[: 4 * cn].float() + c1.float() @ w10[4 * cn :].float()
+                             + hargs[5]).abs().max())
+            step = 2.0 ** (int(np.floor(np.log2(u10_max))) - 7)
+            tol = int(2 * float(wlast[:12].float().abs().max()) * step * 65535) + 1
+            share = float((y.to(torch.int32) != codes).float().mean())
+            log(f"hg_tail bf16: max|u10| {u10_max:.3f} (bf16 step {step}), max|wlast| "
+                f"{float(wlast[:12].float().abs().max()):.4f}: bound {tol} codes; {share:.2e} of the codes differ")
+            if share > HG_TAIL_BF16_SHARE:
+                raise AssertionError(f"hg_tail bf16: {share:.3e} of the codes differ > {HG_TAIL_BF16_SHARE}")
+        ms = time_ms(lambda: fused_hg_tail(*hargs), torch)
+        plain = time_ms(lambda: fused_hg_tail_ref(*hargs), torch)
+        npix = hb * wb
+        record("hg_tail", dtype, "(544,960,256) x2 + base + mask -> packed u16", {"hg_bf16": 1, "hg_fp32": 1},
+               y.to(torch.int32), codes, tol, ms, plain, None, nbytes_of(*hargs, y),
+               2 * npix * (nnz(w10) + nnz(wlast)) + 6 * npix * 12)
+        del up5, c1, img, mask4, y, y_r, codes, hargs
     return totals
 
 
-def phase_end_to_end(torch, np) -> None:
+def phase_end_to_end(torch, np, hg_weights: str) -> None:
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     frame = (np.random.RandomState(360).rand(360, 640, 3) * 255).astype(np.uint8)
     bounds = {"fp32": (4, None), "bf16_nomega": (1536, 34.0), "bf16_mega": (1536, 34.0)}
     for path, spec in PATHS.items():
+        if spec["hg"]:
+            continue
         max_codes, mean_codes = bounds[path]
         os.environ["HDRTV_MEGAKERNEL"] = spec["mega"]
         log(f"phase 3: end to end, card against CPU (360x640 {path})")
@@ -530,18 +640,57 @@ def phase_end_to_end(torch, np) -> None:
             raise AssertionError(f"{path}: card and CPU differ by max {int(d.max())} > {max_codes} codes "
                                  f"or mean {float(d.mean()):.3f} > {mean_codes}")
 
+    # One HG frame, card against CPU, with the pixels at the mask's threshold counted apart.
+    h, w = HG_E2E_SIZE
+    frame = smooth_frame(np, h, w, 184)
+    for path, spec in PATHS.items():
+        if not spec["hg"]:
+            continue
+        os.environ["HDRTV_MEGAKERNEL"] = spec["mega"]
+        log(f"phase 3: end to end with HG, card against CPU ({h}x{w} {path}, hg_nf 64)")
+        t0 = time.perf_counter()
+        gpu = HDRTVNetTorch(hg_weights, precision=spec["precision"]).process_rgb48(frame)
+        t1 = time.perf_counter()
+        cpu = HDRTVNetTorch(hg_weights, precision=spec["precision"], device="cpu").process_rgb48(frame)
+        t2 = time.perf_counter()
+        base = HDRTVNetTorch(WEIGHTS, precision=spec["precision"], device="cpu").process_rgb48(frame)
+        m = base.astype(np.float32).max(axis=-1) / 65535.0
+        near = np.abs(m - 0.775) <= (2e-4 if spec["dtype"] == "f32" else 0.02)
+        d = np.abs(gpu.astype(np.int64) - cpu.astype(np.int64)).max(axis=-1)
+        away = d[~near]
+        changed = float((np.abs(gpu.astype(np.int64) - base.astype(np.int64)) > HG_CHANGED_CODES).any(axis=-1).mean())
+        log(f"card {gpu.shape} {gpu.dtype} range [{gpu.min()}, {gpu.max()}] ({t1 - t0:.2f} s incl. load); "
+            f"cpu {t2 - t1:.2f} s; masked {float((m > 0.775).mean()):.3f} of the pixels, {float(near.mean()):.4f} "
+            f"near the threshold (max |card - cpu| there {int(d[near].max()) if near.any() else 0}); away from it "
+            f"max {int(away.max())} codes, mean {float(away.mean()):.3f}; the HG changed {changed:.3f} of the pixels")
+        if gpu.shape != (h, w, 3) or gpu.dtype != np.uint16:
+            raise AssertionError("wrong output shape or dtype")
+        if near.mean() > HG_NEAR_SHARE or changed < 0.05:
+            raise AssertionError(f"{path}: {float(near.mean()):.3f} of the pixels near the threshold, "
+                                 f"HG changed {changed:.3f}")
+        max_codes, mean_codes = (4, None) if spec["dtype"] == "f32" else HG_BF16_CODES
+        if away.max() > max_codes or (mean_codes is not None and away.mean() > mean_codes):
+            raise AssertionError(f"{path}: card and CPU differ away from the threshold by max {int(away.max())} > "
+                                 f"{max_codes} codes or mean {float(away.mean()):.3f} > {mean_codes}")
 
-def phase_1080p(torch, np, native, path: str) -> dict:
+
+def phase_1080p(torch, np, native, path: str, hg_weights: str) -> dict:
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     spec = PATHS[path]
-    expected, n = spec["launches"], spec["frames"]
+    expected, n = expected_launches(path), spec["frames"]
     os.environ["HDRTV_MEGAKERNEL"] = spec["mega"]
-    log(f"phase 4: 1080p {path} frames on the card (HDRTV_MEGAKERNEL={spec['mega']})")
-    proc = HDRTVNetTorch(WEIGHTS, precision=spec["precision"])
+    log(f"phase 4: 1080p {path} frames on the card (HDRTV_MEGAKERNEL={spec['mega']}"
+        + (", HG composite, hg_nf 64)" if spec["hg"] else ")"))
+    proc = HDRTVNetTorch(hg_weights if spec["hg"] else WEIGHTS, precision=spec["precision"])
     h, w = 1080, 1920
-    frame = (np.random.RandomState(1080).rand(h, w, 3) * 255).astype(np.uint8)
+    if spec["hg"]:
+        frame = smooth_frame(np, h, w, 1080)
+    else:
+        frame = (np.random.RandomState(1080).rand(h, w, 3) * 255).astype(np.uint8)
     x = proc.put_frame(frame.reshape(h, w * 3))
+    if proc.cfg.use_hg != spec["hg"] or (x.ndim == 2) != spec["hg"]:
+        raise AssertionError(f"{path}: use_hg {proc.cfg.use_hg}, frame shipped as {tuple(x.shape)}")
     proc.process_rgb48_device(x)  # warm
     torch.cuda.synchronize()
 
@@ -554,8 +703,25 @@ def phase_1080p(torch, np, native, path: str) -> dict:
         raise AssertionError(f"launch counts {counts} != {expected}")
     o = out.to(torch.int32)
     lo, hi = int(o.min()), int(o.max())
-    if out.shape != (h // 2, 2, w // 2, 6) or out.dtype != torch.uint16 or lo == hi:
+    shape = (h, 3 * w) if spec["hg"] else (h // 2, 2, w // 2, 6)
+    if out.shape != shape or out.dtype != torch.uint16 or lo == hi:
         raise AssertionError(f"1080p output {tuple(out.shape)} {out.dtype} range [{lo}, {hi}]")
+    if spec["hg"]:
+        # What the generator did: against the base model's own output for the same frame, it
+        # must have changed a share of the pixels (the masked ones) by more than
+        # HG_CHANGED_CODES (in bf16 the HG program sees the base output rounded to bf16, which
+        # alone moves every value a little) and left most of them inside the code range: a
+        # residual that is neither absent nor clipped everywhere.
+        base_proc = HDRTVNetTorch(WEIGHTS, precision=spec["precision"])
+        base = base_proc.process_rgb48_device(base_proc.put_frame(frame.reshape(h, w * 3))).reshape(h, w, 3)
+        hg = o.reshape(h, w, 3)
+        changed = ((hg - base.to(torch.int32)).abs() > HG_CHANGED_CODES).any(dim=-1)
+        share = float(changed.float().mean())
+        inside = float(((hg[changed] > 0) & (hg[changed] < 65535)).float().mean()) if share else 0.0
+        log(f"HG changed {share:.3f} of the pixels; {inside:.3f} of their values lie inside (0, 65535)")
+        if not 0.02 < share < 0.98 or inside < 0.5:
+            raise AssertionError(f"{path}: the HG changed {share:.3f} of the pixels, {inside:.3f} unclipped")
+        del base_proc, base, hg, changed
 
     native.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -575,6 +741,31 @@ def phase_1080p(torch, np, native, path: str) -> dict:
     return counts
 
 
+def phase_color(torch, np, native) -> dict:
+    """colorimetric_pq_pack on the 1080p frame, once per element type with the
+    counts set to 0 before and read after; returns the counts by drive."""
+    from hdrtv_tpu_torch.ops.pack import colorimetric_pq_pack
+
+    log("phase 5: colorimetric_pq_pack on the 1080p frame (u8 -> [0, 1] -> BT.2020 PQ u16)")
+    frame = torch.as_tensor(smooth_frame(np, 1080, 1920, 5), device="cuda")
+    counts = {}
+    for path, dtype in COLOR_PATHS.items():
+        x = (frame.float() * (1.0 / 255.0)).to(torch.float32 if dtype == "f32" else torch.bfloat16)
+        native.reset_launch_counts()
+        out = colorimetric_pq_pack(x)
+        torch.cuda.synchronize()
+        counts[path] = dict(native.launch_counts)
+        o = out.to(torch.int32)
+        lo, hi = int(o.min()), int(o.max())
+        log(f"{path}: {tuple(out.shape)} {out.dtype} range [{lo}, {hi}]; launches {counts[path]['colorimetric']}")
+        # SDR white at 1000 nits is PQ code 0.7518 · 65535; nothing may exceed it
+        if out.shape != (1080, 1920, 3) or out.dtype != torch.uint16 or lo != 0 or not 45000 < hi <= 49300:
+            raise AssertionError(f"colorimetric on the frame: {tuple(out.shape)} {out.dtype} range [{lo}, {hi}]")
+        if counts[path] != {k: int(k == "colorimetric") for k in KERNEL_INFO}:
+            raise AssertionError(f"{path}: launch counts {counts[path]}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -583,15 +774,27 @@ def main() -> int:
         return 2
     import numpy as np
 
+    import shutil
+    import tempfile
+
     sys.path.insert(0, ROOT)
     from hdrtv_tpu_torch.models.layers import fp32_math
     from hdrtv_tpu_torch.ops import native
+    from hdrtv_tpu_torch.tools.synth_hg import write_synth_hg
 
     smi = phase_card(torch, native)
-    with fp32_math():
-        totals = phase_kernels(torch, np)
-        phase_end_to_end(torch, np)
-        counts = {path: phase_1080p(torch, np, native, path) for path in PATHS}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # The repository ships no HG weights: the HG paths run the real base model under a
+        # synthetic generator at the reference width, made from a seed.
+        hg_weights = write_synth_hg(os.path.join(tmp, "synth_hg64.npz"), nf=64, seed=0)
+        with fp32_math():
+            totals = phase_kernels(torch, np)
+            phase_end_to_end(torch, np, hg_weights)
+            counts = {path: phase_1080p(torch, np, native, path, hg_weights) for path in PATHS}
+            counts.update(phase_color(torch, np, native))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     def entry(name, dtype, path):
         tot = totals[(name, dtype, path)]
@@ -600,24 +803,28 @@ def main() -> int:
                 "bound_ms": tot["bound_ms"], "bound_by": b_by,
                 "library_ms": tot["library_ms"] if tot["lib_all"] else None}
 
-    # One entry per kernel and element type that a path runs: fp32 reports the
-    # fp32 path, bf16 the megakernel path (the default), or the path without
-    # the megakernels for a kernel only that one launches. Times are per
-    # frame of the reported path. The fp32 instances of the kernels no fp32
-    # path runs ride along under "off_path" (compared and timed at the same
-    # shapes, launched by no path).
+    # One entry per kernel and element type that a path runs, reporting the
+    # first path of that element type that launches it: fp32 the fp32 path,
+    # bf16 the megakernel path (the default) or the path without the
+    # megakernels; hg_tail the HG paths; colorimetric its own drive. Times are
+    # per frame of the reported path. The fp32 instances of the kernels no
+    # fp32 path runs ride along under "off_path" (compared and timed at the
+    # same shapes, launched by no path).
+    prefer = {"f32": ("fp32", "hg_fp32", "color_f32"), "bf16": ("bf16_mega", "bf16_nomega", "hg_bf16", "color_bf16")}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        for dtype, path in (("f32", "fp32"),
-                            ("bf16", "bf16_mega" if counts["bf16_mega"][name] else "bf16_nomega")):
-            if not counts[path][name]:
+        for dtype, paths in prefer.items():
+            path = next((p for p in paths if counts[p][name]), None)
+            if path is None:
                 continue
             k = {"name": f"{name}_{dtype}", "dtype": dtype, "route": "cuda", "source": source,
                  "replaces": replaces, "path": path, "launches": counts[path][name],
-                 "launches_by_path": {p: counts[p][name] for p in PATHS}, **entry(name, dtype, path)}
-            if not counts["fp32"][name]:
+                 "launches_by_path": {p: counts[p][name] for p in counts}, **entry(name, dtype, path)}
+            if dtype == "bf16" and not any(counts[p][name] for p in prefer["f32"]):
                 k["off_path"] = {"dtype": "f32", **entry(name, "f32", path)}
             kernels.append(k)
+    if len(kernels) != 18:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 18: {[k['name'] for k in kernels]}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

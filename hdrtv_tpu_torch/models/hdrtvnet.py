@@ -1,10 +1,13 @@
 """Architecture selection (port of ``hdrtv_tpu/models/hdrtvnet.py``
-``ModelConfig``; the model forwards live in ``models/s2d.py``)."""
+``ModelConfig`` and ``make_mask``; the model forwards live in
+``models/s2d.py`` and ``models/hg_s2d.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
 import os
+
+import torch
 
 from hdrtv_tpu_torch.models.agcm import normalize_classifier_name
 
@@ -50,3 +53,20 @@ class ModelConfig:
         if "classifier" in kwargs:
             kwargs["classifier"] = normalize_classifier_name(kwargs["classifier"])
         return cls(**kwargs)
+
+
+def mask_of_max(m: torch.Tensor, r: float, thresh: float) -> torch.Tensor:
+    """The binarised normalised highlight level of a max-over-RGB tensor. The
+    scalars are rounded to the tensor's dtype first, as JAX's weakly typed
+    Python floats are (0.1 in bf16 is 0.10009765625)."""
+    def q(v):
+        return float(torch.tensor(v, dtype=m.dtype))
+
+    level = ((m - q(r)) / q(1.0 - r)).clamp(0.0, 1.0)
+    return (level > q(thresh)).to(m.dtype)
+
+
+def make_mask(img: torch.Tensor, r: float = 0.75, thresh: float = 0.1) -> torch.Tensor:
+    """Highlight mask of the HG composite: the normalised max over RGB,
+    binarised. (N, H, W, 3) → (N, H, W, 1) in ``img``'s dtype."""
+    return mask_of_max(img.amax(dim=-1, keepdim=True), r, thresh)

@@ -1,5 +1,6 @@
 """Functional NHWC float layers over flat parameter dicts (port of
-``hdrtv_tpu/models/layers.py``, float layers only).
+``hdrtv_tpu/models/layers.py``, float layers only; the pooling, pixel
+shuffle, nearest upsample and reflect pad serve the HG generator).
 
 Parameters are a flat ``dict[str, torch.Tensor]`` keyed by the reference
 checkpoint's state-dict names; activations are NHWC and conv weights HWIO,
@@ -181,3 +182,44 @@ def instance_norm(p: Params, name: str, x: torch.Tensor, *, eps: float = 1e-5,
 def global_avg_pool(x: torch.Tensor, *, keepdims: bool = True) -> torch.Tensor:
     """AdaptiveAvgPool2d(1)."""
     return x.mean(dim=(1, 2), keepdim=keepdims)
+
+
+def max_pool2(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(2) in NHWC (the HG encoder's downsampling); exact in any
+    dtype. An odd trailing row or column is dropped, as a 'VALID' window does."""
+    n, h, w, c = x.shape
+    x = x[:, : h // 2 * 2, : w // 2 * 2]
+    return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """torch.nn.PixelShuffle(r) in NHWC: input channel c_out·r² + i·r + j goes
+    to the pixel at intra-block offset (i, j). This channel order is what
+    ``models/s2d.py w_ps_permute`` undoes."""
+    n, h, w, c = x.shape
+    c_out = c // (r * r)
+    x = x.reshape(n, h, w, c_out, r, r)
+    x = x.permute(0, 1, 4, 2, 5, 3)  # N, H, i, W, j, C
+    return x.reshape(n, h * r, w * r, c_out)
+
+
+def upsample_nearest(x: torch.Tensor, r: int) -> torch.Tensor:
+    """nn.Upsample(scale_factor=r, mode='nearest') in NHWC."""
+    n, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(n, h, r, w, r, c)
+    return x.reshape(n, h * r, w * r, c)
+
+
+def pad_reflect(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
+    """F.pad(..., mode='reflect') on the bottom and right edges of an NHWC
+    tensor (the HG's /32 padding); by index, so exact in any dtype."""
+    if pad_h == 0 and pad_w == 0:
+        return x
+    _, h, w, _ = x.shape
+    if pad_h > h - 1 or pad_w > w - 1:
+        raise ValueError(f"cannot reflect-pad {h}x{w} by ({pad_h},{pad_w})")
+    if pad_h:
+        x = torch.cat([x, x[:, h - 1 - pad_h : h - 1].flip(1)], dim=1)
+    if pad_w:
+        x = torch.cat([x, x[:, :, w - 1 - pad_w : w - 1].flip(2)], dim=2)
+    return x

@@ -1,6 +1,7 @@
 """Space-to-depth execution mode (port of ``hdrtv_tpu/models/s2d.py``: the
 host-side weight transforms and the frame programs: fp32, bf16 without the
-megakernels, and the bf16 megakernel program, the default).
+megakernels, and the bf16 megakernel program, the default; each with or
+without the HG composite of ``models/hg_s2d.py`` after the base model).
 
 Every activation is stored as (N, H/2, W/2, 4C) blocks in block-major
 channel order, and the weights are rewritten once at load so the block-
@@ -39,6 +40,7 @@ import torch
 
 from hdrtv_tpu_torch.models.agcm import classifier_apply
 from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig
+from hdrtv_tpu_torch.models.hg_s2d import hg_composite_s2d, hg_s2d_transform
 from hdrtv_tpu_torch.models.layers import F32, Params, Policy, conv_nhwc, leaky_relu, relu
 from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
 from hdrtv_tpu_torch.ops.megakernel import (
@@ -264,12 +266,17 @@ def _agcm_layer_roles(prefix: str = "AGCM.") -> dict[str, str]:
 
 
 def s2d_transform_params(params: dict, cfg: ModelConfig | None = None) -> dict:
-    """Host-side weight rewrite for s2d execution (fp32 numpy). HG
-    (``base.``-prefixed) checkpoints are not ported: ROADMAP.md Slice 6."""
+    """Host-side weight rewrite for s2d execution (fp32 numpy). Composite (HG)
+    checkpoints arrive with ``base.``-prefixed ensemble keys plus ``hg.*``:
+    the base transforms with the standard roles (prefix stripped, the s2d
+    forward uses unprefixed names), the HG level-1 layers through
+    ``models/hg_s2d.py hg_s2d_transform``."""
     if any(k.startswith("base.") for k in params):
-        raise NotImplementedError(
-            "HG composite checkpoints are not ported yet (ROADMAP.md Slice 6: HG composite)"
-        )
+        base = {k[len("base."):]: v for k, v in params.items() if k.startswith("base.")}
+        rest = {k: v for k, v in params.items() if not k.startswith("base.")}
+        out = s2d_transform_params(base, cfg)
+        out.update(hg_s2d_transform(rest))
+        return out
     roles = {**_le_layer_roles(), **_agcm_layer_roles()}
     out: dict[str, np.ndarray] = {}
     handled: set[str] = set()
@@ -345,6 +352,8 @@ _MEGA_BIASES = ("AGCM.conv_first", "AGCM.HRconv", "AGCM.conv_last", "LE.__in_fus
                 "LE.cond_first.4", "LE.CondNet1.0", "LE.CondNet1.2", "LE.CondNet1.4", "LE.conv_last")
 _HEAD_AW1_BGR = "AGCM.__conv_first_bgr"
 _HEAD_PACKED = ("AGCM.__head_aw1", "AGCM.__head_aw1_bgr", "AGCM.__head_aw3", "LE.__head_wcat")
+_HG_KEY = "hg.conv1.0.weight"  # a checkpoint carries the s2d HG iff it has this
+_HG_TAIL_BIASES = ("hg.conv10.bias", "hg.conv_last.bias")
 
 
 def _fits_kernel(w) -> bool:
@@ -356,7 +365,9 @@ def _fp32_param_names(params_np: dict) -> set[str]:
     """Parameters that stay fp32 under a narrower policy: the biases that go
     to a kernel (the kernels take fp32 biases, as the Pallas kernels do) and
     the norm scales and shifts (``instance_norm`` computes in fp32). A kernel
-    takes a layer's bias where ``_use_fused_kernel`` routes it at batch 1."""
+    takes a layer's bias where ``_use_fused_kernel`` routes it at batch 1. Of
+    the HG, whose convs are plain torch ops, only the two biases the hg_tail
+    kernel reads stay fp32 (the torch-op tail rounds them as it adds them)."""
     def fits(layer):
         w = params_np.get(f"{layer}.weight")
         return w is not None and w.ndim == 4 and _fits_kernel(w)
@@ -366,6 +377,8 @@ def _fp32_param_names(params_np: dict) -> set[str]:
         if not k.endswith(".weight"):
             continue
         layer = k[: -len(".weight")]
+        if k.startswith("hg."):
+            continue
         if v.ndim == 1:  # a norm's scale, and its shift
             keep |= {k, f"{layer}.bias"}
         elif v.ndim == 4 and v.shape[:2] == (3, 3) and _fits_kernel(v):
@@ -382,6 +395,7 @@ def _fp32_param_names(params_np: dict) -> set[str]:
         keep |= {f"{layer}.bias" for layer in _MEGA_BIASES}
     keep |= {k for k in params_np if k.endswith(".bias")
              and (k.startswith("LE.recon_trunk3.") or k.startswith("LE.up_conv1."))}
+    keep |= {k for k in _HG_TAIL_BIASES if k in params_np}
     return keep
 
 
@@ -790,15 +804,16 @@ def ensemble_s2d(
     """Full ensemble in s2d mode: natural NHWC in → natural NHWC out.
     ``img``: (N,H,W,3) [0,1] RGB (H,W even); ``cond``: natural ¼-res image.
     Takes the megakernel program where :func:`_mega_ok` holds, unless
-    ``mega=False``. HG is ROADMAP.md Slice 6."""
-    if cfg.use_hg:
-        raise NotImplementedError("the HG composite is not ported yet (ROADMAP.md Slice 6)")
+    ``mega=False``; with ``cfg.use_hg`` and HG weights, the HG composite
+    follows the base model."""
     xs = s2d(policy.cast(img))
     if mega and _mega_ok(p, xs.shape, policy):
         out = _ensemble_mega(p, xs[0], cond, policy=policy, pack=False)[None]
     else:
         agcm_out = agcm_s2d(p, xs, cond, policy=policy)
         out = le_s2d(p, agcm_out, agcm_out, policy=policy)
+    if cfg.use_hg and _HG_KEY in p:
+        out = hg_composite_s2d(p, out, cfg, policy=policy)
     return d2s(out)
 
 
@@ -840,15 +855,20 @@ def ensemble_s2d_rgb48_flat(
     """Flat byte-row contract: (H, 3W) uint8 rows in → (H, 3W) uint16 out.
     ``cond`` defaults to the ¼-res antialiased condition image of the same
     frame; ``bgr`` reads the bytes as BGR. The megakernel program reads the
-    rows as (Hb, 2, Wb, 6) pair planes, a reshape."""
-    if cfg.use_hg:
-        raise NotImplementedError("the HG composite is not ported yet (ROADMAP.md Slice 6)")
+    rows as (Hb, 2, Wb, 6) pair planes, a reshape. With HG, the megakernel
+    program hands its unpacked s2d output to the HG composite, which packs
+    (``HDRTV_HG_TAIL=1`` selects the hg_tail kernel there; the two-stage
+    entry of the runtime, :func:`ensemble_s2d_base_flat` then
+    ``hg_composite_s2d(..., tail_on=True)``, selects it by default)."""
     h, w3 = frame2d_u8.shape
     w = w3 // 3
     if cond is None:
         cond = _cond_quarter_flat(frame2d_u8, bgr=bgr)
     if h % 2 == 0 and w % 2 == 0 and _mega_ok(p, (1, h // 2, w // 2, 12), policy):
         xr = frame2d_u8.reshape(h // 2, 2, w // 2, 6)
+        if cfg.use_hg and _HG_KEY in p:
+            base = _ensemble_mega(p, xr, cond, policy=policy, pack=False, scale=1.0 / 255.0, bgr=bgr)
+            return hg_composite_s2d(p, base[None], cfg, policy=policy, pack=True)
         packed = _ensemble_mega(p, xr, cond, policy=policy, pack=True, scale=1.0 / 255.0, bgr=bgr)
         return packed.reshape(h, w3)
     frame = frame2d_u8.reshape(h, w, 3)
@@ -871,12 +891,52 @@ def ensemble_s2d_rgb48_pairs(
     """Row-pair-plane contract: (Hb, 2, Wb, 6) u8 in → (Hb, 2, Wb, 6) u16 out,
     the same bytes as the (H, 3W) flat contract. The megakernel program
     consumes and produces pair planes directly, the condition image included
-    (``downsample_quarter_aa_pairs``); anything it does not take runs the flat
-    program on the reshape."""
+    (``downsample_quarter_aa_pairs``); anything it does not take (HG among
+    it) runs the flat program on the reshape."""
     hb, _, wb, _ = xr_u8.shape
-    if not cfg.use_hg and hb % 2 == 0 and wb % 2 == 0 and _mega_ok(p, (1, hb, wb, 12), policy):
+    use_hg = cfg.use_hg and _HG_KEY in p
+    if not use_hg and hb % 2 == 0 and wb % 2 == 0 and _mega_ok(p, (1, hb, wb, 12), policy):
         if cond is None:
             cond = downsample_quarter_aa_pairs(xr_u8, bgr=bgr)
         return _ensemble_mega(p, xr_u8, cond, policy=policy, pack=True, scale=1.0 / 255.0, bgr=bgr)
     flat = ensemble_s2d_rgb48_flat(p, xr_u8.reshape(2 * hb, 6 * wb), cond, cfg, policy=policy, bgr=bgr)
     return flat.reshape(hb, 2, wb, 6)
+
+
+def ensemble_s2d_base_flat(
+    p: Params,
+    frame2d_u8: torch.Tensor,
+    cond: torch.Tensor | None = None,
+    *,
+    policy: Policy = F32,
+    bgr: bool = False,
+) -> torch.Tensor:
+    """Stage 1 of the two-stage HG program: (H, 3W) uint8 rows → the base
+    model's s2d output (1, Hb, Wb, 12) in the compute dtype, the same
+    computation as the base part of :func:`ensemble_s2d_rgb48_flat` (the
+    megakernel program where eligible, ``agcm_s2d`` + ``le_s2d`` otherwise).
+    ``models/hg_s2d.py hg_composite_s2d`` is stage 2."""
+    h, w3 = frame2d_u8.shape
+    w = w3 // 3
+    if cond is None:
+        cond = _cond_quarter_flat(frame2d_u8, bgr=bgr)
+    if h % 2 == 0 and w % 2 == 0 and _mega_ok(p, (1, h // 2, w // 2, 12), policy):
+        xr = frame2d_u8.reshape(h // 2, 2, w // 2, 6)
+        return _ensemble_mega(p, xr, cond, policy=policy, pack=False, scale=1.0 / 255.0, bgr=bgr)[None]
+    frame = frame2d_u8.reshape(h, w, 3)
+    if bgr:
+        frame = frame.flip(-1)
+    xs = s2d(policy.cast(frame[None].float() * (1.0 / 255.0)))
+    agcm_out = agcm_s2d(p, xs, cond, policy=policy)
+    return le_s2d(p, agcm_out, agcm_out, policy=policy)
+
+
+def _pack_rgb48_s2d_flat(out: torch.Tensor) -> torch.Tensor:
+    """s2d model output (Hb,Wb,12) in [0,1] → flat RGB48 byte rows (2Hb, 6Wb)
+    u16, in torch ops: the pack of the HG composite's torch-op tail. The s2d
+    channels of a block are its two row parities side by side, so the rows
+    are the (Hb, 2, Wb, 6) stack of the two halves."""
+    hb, wb, _ = out.shape
+    v = out.float().clamp(0.0, 1.0) * 65535.0 + 0.5
+    u = v.to(torch.int32).to(torch.uint16)
+    return torch.stack([u[..., :6], u[..., 6:]], dim=1).reshape(2 * hb, 6 * wb)

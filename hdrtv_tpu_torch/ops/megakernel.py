@@ -1,8 +1,8 @@
 """Fused s2d-domain kernels (port of the ``hdrtv_tpu/ops/megakernel.py``
 kernels on the frame programs: the L0 megakernels ``fused_agcm_head``,
-``fused_cond_chain`` and ``fused_tail``, and ``fused_down2``,
-``fused_trunk3``, ``fused_sft_conv3_v2``, ``fused_resblock`` and
-``fused_mix_chain``).
+``fused_cond_chain`` and ``fused_tail``, the HG composite's
+``fused_hg_tail``, and ``fused_down2``, ``fused_trunk3``,
+``fused_sft_conv3_v2``, ``fused_resblock`` and ``fused_mix_chain``).
 
 Each function takes the JAX kernel's arguments and layouts. On CUDA tensors
 it launches the kernel of ``csrc/``; on CPU tensors it runs the plain
@@ -340,6 +340,79 @@ def fused_tail(
         skip.data_ptr(), native.pointer_array(flat), w_hr.data_ptr(), b_hr.data_ptr(),
         w_last.data_ptr(), b_last.data_ptr(), out.data_ptr(), t.data_ptr(), h.data_ptr(),
         hb, wb, c, cc, cl, int(pack), native.stream_of(s),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# HG composite tail: concat-free 1×1 mixes + mask composite + RGB48 pack
+# ---------------------------------------------------------------------------
+
+
+def fused_hg_tail_ref(up5, c1, img_s2d, mask4, w10, b10, wlast, blast):
+    """Plain version, the body of the Pallas ``_hg_tail_kernel`` (which, unlike
+    the JAX ``fused_hg_tail_ref``, rounds ``u10``): both products of conv10
+    sum in fp32 from operands in the element type and the fp32 bias is added;
+    ``u10`` is rounded to the element type (``img`` already has it) before
+    the two products of conv_last, which sum in fp32 again; the bias, the
+    composite ``mask·out + img`` with the mask of a sub-position on its RGB
+    triplet, the clip and the pack are fp32; the pack rounds its multiply and
+    its add separately and truncates."""
+    dt = up5.dtype
+    cu = up5.shape[-1]
+    u10 = torch.matmul(up5.float(), w10[:cu].float()) + torch.matmul(c1.float(), w10[cu:].float()) + b10
+    img = img_s2d.float()
+    out = torch.matmul(_rounded(u10, dt), wlast[:12].float()) + torch.matmul(img, wlast[12:].float()) + blast
+    comp = mask4.float().repeat_interleave(3, dim=-1) * out + img
+    u = (comp.clamp(0.0, 1.0) * 65535.0 + 0.5).to(torch.int32).to(torch.uint16)
+    return torch.stack([u[..., :6], u[..., 6:]], dim=1)
+
+
+def fused_hg_tail(
+    up5: torch.Tensor, c1: torch.Tensor, img_s2d: torch.Tensor, mask4: torch.Tensor,
+    w10: torch.Tensor, b10: torch.Tensor, wlast: torch.Tensor, blast: torch.Tensor,
+) -> torch.Tensor:
+    """The HG composite's output slice over s2d tensors, in one pass:
+
+        u10  = conv10([up5 ‖ c1])            1×1, concat-permuted weights
+        out  = conv_last([u10 ‖ img])        1×1
+        comp = mask·out + img
+        pack = u16(clip(comp, 0, 1)·65535 + 0.5)
+
+    ``up5`` (Hb, Wb, Cu) and ``c1`` (Hb, Wb, Cc): the s2d outputs of Up_conv5
+    and conv1; ``img_s2d`` (Hb, Wb, 12): the padded base output; ``mask4``
+    (Hb, Wb, 4): one mask value per sub-position, all in the element type.
+    ``w10`` (Cu + Cc, 12) and ``wlast`` (24, 12): the concat-permuted
+    block-diagonal 1×1 weights of ``hg_s2d_transform`` in the element type
+    (the kernel reads the row blocks of ``up5`` and ``c1``, of ``u10`` and
+    ``img``, in place); biases fp32. Returns (Hb, 2, Wb, 6) uint16, whose flat
+    layout is the natural (2Hb, 2Wb, 3) RGB48 frame."""
+    hb, wb, cu = up5.shape
+    cc = c1.shape[-1]
+    dt = native.element_type("hg_tail up5", up5)
+    shapes = {"c1": (c1, (hb, wb, cc)), "img_s2d": (img_s2d, (hb, wb, _CIN)), "mask4": (mask4, (hb, wb, 4)),
+              "w10": (w10, (cu + cc, _CIN)), "b10": (b10, (_CIN,)), "wlast": (wlast, (2 * _CIN, _CIN)),
+              "blast": (blast, (_CIN,))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"hg_tail {name} must have shape {shape}, got {tuple(t.shape)}")
+    for name in ("c1", "img_s2d", "mask4"):
+        if shapes[name][0].dtype != dt:
+            raise ValueError(f"hg_tail {name} must be {dt} like up5, got {shapes[name][0].dtype}")
+    native.check_params("hg_tail", dt, [w10, wlast], [b10, blast])
+    if native.on_cpu(up5, c1, img_s2d, mask4, w10, b10, wlast, blast):
+        return fused_hg_tail_ref(up5, c1, img_s2d, mask4, w10, b10, wlast, blast)
+    if cu % 4 or cc % 4:
+        raise ValueError(f"hg_tail needs Cu % 4 and Cc % 4 == 0, got {cu}, {cc}")
+    for name, (t, _) in shapes.items():
+        native.check_cuda(f"hg_tail {name}", t, torch.float32 if name in ("b10", "blast") else dt)
+    native.check_cuda("hg_tail up5", up5, dt)
+    out = torch.empty((hb, 2, wb, _CIN // 2), dtype=torch.uint16, device=up5.device)
+    native.launch(
+        "hg_tail", dt,
+        up5.data_ptr(), c1.data_ptr(), img_s2d.data_ptr(), mask4.data_ptr(),
+        w10.data_ptr(), b10.data_ptr(), wlast.data_ptr(), blast.data_ptr(), out.data_ptr(),
+        hb, wb, cu, cc, native.stream_of(up5),
     )
     return out
 

@@ -36,6 +36,7 @@ launch_counts: dict[str, int] = {
     "block_conv3": 0, "down2": 0, "trunk3": 0, "pack_rgb48": 0,
     "sft_conv3": 0, "resblock": 0, "mix_chain": 0,
     "agcm_head": 0, "cond_chain": 0, "tail": 0,
+    "hg_tail": 0, "colorimetric": 0,
 }
 
 # Element types the kernels are instantiated for, and the suffix of their
@@ -134,6 +135,8 @@ def lib() -> ctypes.CDLL:
         "hdrtv_agcm_head": ([p, i, f, p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
         "hdrtv_cond_chain": ([p, p, p, p, p, p, p, i, p], i),
         "hdrtv_tail": ([p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
+        "hdrtv_hg_tail": ([p, p, p, p, p, p, p, p, p, i, i, i, i, p], i),
+        "hdrtv_colorimetric": ([p, p, ll, *([f] * 16), p], i),
     }
     sigs = {f"{name}_{sfx}": sig for name, sig in per_dtype.items()
             for sfx in DTYPE_SUFFIX.values()}

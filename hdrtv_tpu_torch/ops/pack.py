@@ -1,10 +1,16 @@
-"""RGB48 delivery pack (port of ``hdrtv_tpu/ops/pack.py`` ``pack_rgb48``).
+"""The per-pixel output slices (port of ``hdrtv_tpu/ops/pack.py``).
 
-The network output [0,1] RGB is the BT.2020/PQ signal; delivery is
-``clamp(0,1)·65535 + 0.5 → uint16``, truncating. On a CUDA tensor this
-launches the kernel of ``csrc/pack.cu``; on a CPU tensor it runs the plain
-version. A bf16 input is widened to fp32 first, so both element types pack
-exactly.
+``pack_rgb48``: the network output [0,1] RGB is the BT.2020/PQ signal;
+delivery is ``clamp(0,1)·65535 + 0.5 → uint16``, truncating.
+
+``colorimetric_pq_pack``: the explicit colour-managed slice, SDR
+linearisation (gamma 2.4), BT.709 → BT.2020 gamut map, scale to display
+nits, ST 2084 PQ encode, u16 pack, in one pass. No frame program reaches it
+(nor in the JAX package): it serves the metric path and as an output option.
+
+On a CUDA tensor each launches its kernel (``csrc/pack.cu``,
+``csrc/colorimetric.cu``); on a CPU tensor it runs the plain version. A bf16
+input is widened to fp32 first.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from hdrtv_tpu_torch.ops import native
+from hdrtv_tpu_torch.ops.color import BT709_TO_BT2020, PQ_C1, PQ_C2, PQ_C3, PQ_M1, PQ_M2
 
 
 def pack_rgb48_ref(x: torch.Tensor) -> torch.Tensor:
@@ -30,4 +37,39 @@ def pack_rgb48(x: torch.Tensor) -> torch.Tensor:
     native.check_cuda("pack_rgb48 input", x, dt)
     out = torch.empty(x.shape, dtype=torch.uint16, device=x.device)
     native.launch("pack_rgb48", dt, x.data_ptr(), out.data_ptr(), x.numel(), native.stream_of(x))
+    return out
+
+
+def _pq_oetf_f32(y: torch.Tensor) -> torch.Tensor:
+    y = y.clamp(0.0, 1.0)
+    y_m1 = torch.pow(y, PQ_M1)
+    return torch.pow((PQ_C1 + PQ_C2 * y_m1) / torch.clamp_min(1.0 + PQ_C3 * y_m1, 1e-12), PQ_M2)
+
+
+def colorimetric_pq_pack_ref(x: torch.Tensor, *, peak_nits: float = 1000.0, gamma: float = 2.4) -> torch.Tensor:
+    """Plain version, the JAX ``colorimetric_pq_pack_ref`` in torch ops, fp32."""
+    lin = torch.pow(x.float().clamp(0.0, 1.0), gamma)
+    m = torch.from_numpy(BT709_TO_BT2020).to(lin.device)
+    lin2020 = torch.einsum("...c,rc->...r", lin, m)
+    pq = _pq_oetf_f32(lin2020 * (peak_nits / 10000.0))
+    return (pq * 65535.0 + 0.5).to(torch.int32).to(torch.uint16)
+
+
+def colorimetric_pq_pack(x: torch.Tensor, *, peak_nits: float = 1000.0, gamma: float = 2.4) -> torch.Tensor:
+    """SDR [0,1] RGB (…, W, 3) float32 or bfloat16 → BT.2020/PQ uint16 code
+    values, same shape. The kernel's ``powf`` and the plain version's
+    ``torch.pow`` differ in the last bits, so the two agree within a code or
+    two (exactly at 0 and 1)."""
+    dt = native.element_type("colorimetric_pq_pack input", x)
+    if x.shape[-1] != 3:
+        raise ValueError(f"colorimetric_pq_pack takes RGB triplets (…, 3), got {tuple(x.shape)}")
+    if native.on_cpu(x):
+        return colorimetric_pq_pack_ref(x, peak_nits=peak_nits, gamma=gamma)
+    native.check_cuda("colorimetric_pq_pack input", x, dt)
+    out = torch.empty(x.shape, dtype=torch.uint16, device=x.device)
+    native.launch(
+        "colorimetric", dt, x.data_ptr(), out.data_ptr(), x.numel() // 3,
+        *[float(v) for v in BT709_TO_BT2020.reshape(-1)], PQ_M1, PQ_M2, PQ_C1, PQ_C2, PQ_C3,
+        float(peak_nits) / 10000.0, float(gamma), native.stream_of(x),
+    )
     return out

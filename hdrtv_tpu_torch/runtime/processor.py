@@ -7,17 +7,33 @@
         ──► cond_chain → sft_conv3, down2, mix_chain, resblock, trunk3, block_conv3
         ──► tail (SFT + HR_conv2 + conv_last + long skip + u16 RGB48 pack)
 
-Three frame programs are ported (ROADMAP.md, slices 1 to 3). bf16, the
-product's default precision, runs the megakernel program above, as
-``HDRTVNetTPU`` does, wherever ``models/s2d.py _mega_ok`` holds (1080p, and
+Three frame programs of the base model are ported (ROADMAP.md, slices 1 to
+3). bf16, the product's default precision, runs the megakernel program above,
+as ``HDRTVNetTPU`` does, wherever ``models/s2d.py _mega_ok`` holds (1080p, and
 any frame whose half height has an even divisor up to 12). With
 ``HDRTV_MEGAKERNEL=0`` in the environment, read at each call, bf16 runs the
 program without the three L0 megakernels (torch glue at L0, pack_rgb48 at
 the end), as the JAX package does with the same setting. fp32 is the accuracy
-reference: the same program without the SFT kernels. Everything else raises
-with the ROADMAP item that will port it; nothing falls back to a different
-computation, and nothing runs on the CPU unless the caller asks for
-``device="cpu"``.
+reference: the same program without the SFT kernels.
+
+With a composite checkpoint (``base.*`` + ``hg.*`` keys, ``use_hg`` in its
+sidecar or as an argument) each of them becomes the HG composite program
+(slice 4), in the two stages the JAX runtime splits it into:
+
+    uint8 BGR frame as (H, 3W) byte rows
+        ──► the base program above to its s2d output (1, Hb, Wb, 12), unpacked
+            (models/s2d.py ensemble_s2d_base_flat)
+        ──► highlight mask → /16-grid reflect pad → the HG generator
+            (conv1 in s2d, a torch-conv UNet below, Up_conv5 back in s2d)
+        ──► hg_tail (conv10 + conv_last + mask composite + u16 RGB48 pack), crop
+            (models/hg_s2d.py hg_composite_s2d, pack=True, tail_on=True)
+
+``HDRTV_HG_TAIL=0`` in the environment, read at each call, replaces the
+hg_tail kernel by the torch-op tail, as in the JAX package.
+
+Everything else raises with the ROADMAP item that will port it; nothing falls
+back to a different computation, and nothing runs on the CPU unless the
+caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -26,9 +42,11 @@ import numpy as np
 import torch
 
 from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig
+from hdrtv_tpu_torch.models.hg_s2d import hg_composite_s2d
 from hdrtv_tpu_torch.models.import_npz import load_npz, load_npz_meta, npz_arch_dict
 from hdrtv_tpu_torch.models.layers import Policy, policy_for
 from hdrtv_tpu_torch.models.s2d import (
+    ensemble_s2d_base_flat,
     ensemble_s2d_rgb48_flat,
     ensemble_s2d_rgb48_pairs,
     params_to_torch,
@@ -78,11 +96,11 @@ class HDRTVNetTorch:
         if fast_zero_condition is None:
             fast_zero_condition = _env_on("HDRTVNET_ZERO_COND", "HDRTVNET_FAST_ZERO_CONDITION")
         if fast_condition_resize or fast_zero_condition:
-            raise _not_ported("the fast-condition shortcuts", "Slice 9 (host, runtime and tooling modules)")
+            raise _not_ported("the fast-condition shortcuts", "Slice 8 (host, runtime and tooling modules)")
         if proc_resolution is not None:
-            raise _not_ported("proc_resolution (device letterbox)", "Slice 9 (host, runtime and tooling modules)")
+            raise _not_ported("proc_resolution (device letterbox)", "Slice 8 (host, runtime and tooling modules)")
         if mesh is not None:
-            raise _not_ported("mesh inference", "Slice 9 (parallel: Queue 1 item 13)")
+            raise _not_ported("mesh inference", "Slice 8 (parallel: Queue 1 item 13)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -95,20 +113,25 @@ class HDRTVNetTorch:
             raise ValueError(f"device must be cuda or cpu, got {self.device}")
 
         if not model_path.endswith(".npz"):
-            raise _not_ported("loading .pt checkpoints", "Slice 9 (host, runtime and tooling modules)")
+            raise _not_ported("loading .pt checkpoints", "Slice 8 (host, runtime and tooling modules)")
         params = load_npz(model_path)
         arch = npz_arch_dict(load_npz_meta(model_path))
         if use_hg is None:
             use_hg = bool(arch.get("use_hg", False))
         cfg = ModelConfig.from_arch_dict(arch, use_hg=bool(use_hg))
-        if cfg.use_hg:
-            raise _not_ported("the HG composite", "Slice 6 (HG composite)")
+        if cfg.use_hg and cfg.hg_arch != "pixelshuffle":
+            raise _not_ported(f"the {cfg.hg_arch} HG generator", "Slice 8 (model variants: Queue 1 item 9)")
+        if cfg.use_hg and "hg.conv1.0.weight" not in params:
+            raise _not_ported(
+                "use_hg on a checkpoint without hg.* weights (the natural-layout HG composite)",
+                "Slice 5 (natural-layout fallback)",
+            )
         if any(k.endswith(".weight_int8") for k in params):
-            raise _not_ported("int8 checkpoints", "Slice 5 (native int8)")
+            raise _not_ported("int8 checkpoints", "Slice 6 (native int8)")
         if cfg.classifier != "color_condition" or cfg.le_arch != "sft" or cfg.post_correction:
             raise _not_ported(
                 f"architecture {cfg.classifier}/{cfg.le_arch}/{cfg.post_correction or '-'}",
-                "Slice 9 (model variants: Queue 1 item 9)",
+                "Slice 8 (model variants: Queue 1 item 9)",
             )
         self.cfg = cfg
         # s2d weight transform once on the host, then one cast and one copy
@@ -123,17 +146,26 @@ class HDRTVNetTorch:
         if h % 8 or w % 8:
             raise _not_ported(
                 f"frames whose sides are not multiples of 8 (got {h}x{w}; the natural-layout "
-                "fallback)", "Slice 4 (natural-layout fallback)",
+                "fallback)", "Slice 5 (natural-layout fallback)",
             )
 
     def _run(self, fn, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode(), self.policy.math():
             return fn(self.params, x, None, self.cfg, policy=self.policy, bgr=True)
 
+    def _run_hg_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        """The two-stage HG program on (H, 3W) byte rows: the base model to
+        its s2d output, then the HG composite, which packs (its tail kernel
+        chosen by default)."""
+        with torch.inference_mode(), self.policy.math():
+            base = ensemble_s2d_base_flat(self.params, flat, policy=self.policy, bgr=True)
+            return hg_composite_s2d(self.params, base, self.cfg, policy=self.policy, pack=True, tail_on=True)
+
     def wants_pairs(self, h: int, w: int) -> bool:
         """True when frames at (h, w) ship as (Hb, 2, Wb, 6) u8 pair planes
-        (the same bytes as (H, 3W) rows; a free host view)."""
-        return h % 8 == 0 and w % 8 == 0
+        (the same bytes as (H, 3W) rows; a free host view). Not with HG: its
+        program takes flat rows."""
+        return not self.cfg.use_hg and h % 8 == 0 and w % 8 == 0
 
     def put_frame(self, flat_np: np.ndarray) -> torch.Tensor:
         """Host (H, 3W) u8 byte rows → the device tensor the dispatcher
@@ -156,13 +188,16 @@ class HDRTVNetTorch:
             if (two, six) != (2, 6):
                 raise ValueError(f"pair planes are (Hb, 2, Wb, 6), got {tuple(x.shape)}")
             self._check_size(2 * hb, 2 * wb)
+            if self.cfg.use_hg:
+                return self._run_hg_flat(x.contiguous().reshape(2 * hb, 6 * wb)).reshape(hb, 2, wb, 6)
             return self._run(ensemble_s2d_rgb48_pairs, x.contiguous())
+        flat_fn = self._run_hg_flat if self.cfg.use_hg else (lambda t: self._run(ensemble_s2d_rgb48_flat, t))
         if x.ndim == 2:
             self._check_size(x.shape[0], x.shape[1] // 3)
-            return self._run(ensemble_s2d_rgb48_flat, x.contiguous())
+            return flat_fn(x.contiguous())
         h, w, _ = x.shape
         self._check_size(h, w)
-        return self._run(ensemble_s2d_rgb48_flat, x.reshape(h, w * 3).contiguous()).reshape(h, w, 3)
+        return flat_fn(x.reshape(h, w * 3).contiguous()).reshape(h, w, 3)
 
     def process_rgb48(self, frame_bgr: np.ndarray) -> np.ndarray:
         """Full BGR u8 frame (H, W, 3) → uint16 RGB48 PQ code values (H, W, 3)."""

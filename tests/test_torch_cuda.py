@@ -15,7 +15,8 @@ places, so a result differs by one bf16 step where a rounding flips:
 intermediates feed further convs, and for the tail (its rounded t and h feed
 HR_conv2 and conv_last). The pack is exact in both types; the packed tail is
 within one u16 code in fp32, and in bf16 within the codes two bf16 steps of h
-can move conv_last's sum.
+can move conv_last's sum. The HG tail and the colorimetric pack are compared
+in u16 codes as their tests say.
 """
 
 import numpy as np
@@ -353,6 +354,103 @@ def test_mega_frame_matches_cpu(dev, monkeypatch):
     cpu = HDRTVNetTorch(weights, device="cpu").process_rgb48(frame).astype(np.int64)
     d = np.abs(gpu - cpu)
     assert d.max() <= 512 and d.mean() <= 24, (int(d.max()), float(d.mean()))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hb,wb,cu,cc", [
+    (8, 16, 64, 64), (5, 8, 256, 256), (7, 24, 32, 96), (6, 8, 16, 16), (3, 40, 20, 12),
+])
+def test_hg_tail_matches_plain(dev, dtype, hb, wb, cu, cc):
+    """Whole and ragged 16-pixel tiles; in bf16 widths the tensor-core form
+    takes (Cu, Cc multiples of 32) and widths it leaves to the FMA form. In
+    u16 codes: fp32 ≤ 1 (the sum order at the +0.5 boundary); bf16 equal
+    except where the rounding of u10 flipped, which moves an output by at most
+    |wlast| · step(u10) · 65535 codes (|u10| < 4, a step ≤ 2^-6; |wlast| < 1.5
+    here), on at most 2% of the values."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_hg_tail, fused_hg_tail_ref
+
+    rng = np.random.RandomState(hb * wb + cu)
+    up5 = _t(np.maximum(rng.randn(hb, wb, cu), 0), dev, dtype)
+    c1 = _t(np.maximum(rng.randn(hb, wb, cc), 0), dev, dtype)
+    img = _t(rng.rand(hb, wb, 12) * 1.1 - 0.05, dev, dtype)
+    mask = _t(rng.rand(hb, wb, 4) > 0.4, dev, dtype)
+    w10 = _t(rng.randn(cu + cc, 12) * (0.3 / np.sqrt(cu + cc)), dev, dtype)
+    wlast = _t(rng.randn(24, 12) * 0.3, dev, dtype)
+    b10, blast = _t(rng.randn(12) * 0.1, dev), _t(rng.randn(12) * 0.05, dev)
+    before = native.launch_counts["hg_tail"]
+    y = fused_hg_tail(up5, c1, img, mask, w10, b10, wlast, blast)
+    assert native.launch_counts["hg_tail"] == before + 1
+    y_r = fused_hg_tail_ref(up5, c1, img, mask, w10, b10, wlast, blast)
+    torch.cuda.synchronize()
+    assert y.shape == (hb, 2, wb, 6) and y.dtype == torch.uint16
+    codes = y_r.to(torch.int32)
+    d = (y.to(torch.int32) - codes).abs()
+    assert int(codes.max()) == 65535 and int(codes.min()) == 0
+    if dtype == "f32":
+        assert int(d.max()) <= 1, int(d.max())
+    else:
+        tol = int(2 * float(wlast.float().abs().max()) * 2.0 ** -6 * 65535) + 1
+        assert int(d.max()) <= tol and float((d > 1).float().mean()) <= 0.02, (int(d.max()), tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(36, 50, 3), (2, 7, 129, 3)])
+def test_colorimetric_matches_plain(dev, dtype, shape):
+    """The kernel's powf against torch.pow on the card: ≤ 2 u16 codes, equal
+    at 0 and 1; another peak and gamma are arguments, not constants."""
+    from hdrtv_tpu_torch.ops.pack import colorimetric_pq_pack, colorimetric_pq_pack_ref
+
+    v = np.random.RandomState(len(shape)).uniform(-0.1, 1.1, shape).astype(np.float32)
+    v.reshape(-1, 3)[:2] = [[0, 0, 0], [1, 1, 1]]
+    x = _t(v, dev, dtype)
+    for kwargs in ({}, {"peak_nits": 600.0, "gamma": 2.2}):
+        before = native.launch_counts["colorimetric"]
+        u = colorimetric_pq_pack(x, **kwargs)
+        assert native.launch_counts["colorimetric"] == before + 1
+        u_r = colorimetric_pq_pack_ref(x, **kwargs)
+        torch.cuda.synchronize()
+        assert u.shape == x.shape and u.dtype == torch.uint16
+        d = (u.to(torch.int32) - u_r.to(torch.int32)).abs()
+        assert int(d.max()) <= 2, int(d.max())
+        assert torch.equal(u.reshape(-1, 3)[:2], u_r.reshape(-1, 3)[:2])
+        assert int(u_r.to(torch.int32).max()) > 40000 and int(u.reshape(-1)[0]) == 0
+
+
+@pytest.mark.parametrize("precision,h,w", [("fp32", 64, 96), ("fp16", 56, 80), ("fp16", 64, 128)])
+def test_hg_frame_matches_cpu(dev, monkeypatch, tmp_path, precision, h, w):
+    """One HG frame (a synthetic nf = 16 generator on the real base model) on
+    the card against the same processor on the CPU, and that it is the
+    two-stage HG program: hg_tail launches once and pack_rgb48 not at all.
+    Pixels whose base max-RGB lies near the mask's threshold (0.775) may flip
+    between the two and are counted apart; the rest is bounded in fp32 as the
+    no-HG frames are (4 codes) and in bf16 by twice what was seen (max 455,
+    mean 27.8 codes at 56×80: the generator's bf16 convs spread the base
+    model's flipped roundings): max 1024, mean 56."""
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+    from hdrtv_tpu_torch.tools.synth_hg import BASE_WEIGHTS, write_synth_hg
+
+    monkeypatch.delenv("HDRTV_MEGAKERNEL", raising=False)
+    monkeypatch.delenv("HDRTV_HG_TAIL", raising=False)
+    path = write_synth_hg(str(tmp_path / "hg16.npz"), nf=16, seed=1)
+    rng = np.random.RandomState(h)
+    blocks = np.kron(rng.rand(h // 8, w // 8, 1), np.ones((8, 8, 3))) * 420
+    frame = np.clip(blocks + rng.randn(h, w, 3) * 10, 0, 255).astype(np.uint8)
+    native.reset_launch_counts()
+    gpu = HDRTVNetTorch(path, precision=precision).process_rgb48(frame).astype(np.int64)
+    counts = dict(native.launch_counts)
+    assert (counts["hg_tail"], counts["pack_rgb48"], counts["colorimetric"]) == (1, 0, 0), counts
+    cpu = HDRTVNetTorch(path, precision=precision, device="cpu").process_rgb48(frame).astype(np.int64)
+    base = HDRTVNetTorch(BASE_WEIGHTS, precision=precision, device="cpu").process_rgb48(frame)
+    m = base.astype(np.float32).max(axis=-1) / 65535.0
+    margin = 2e-4 if precision == "fp32" else 0.02
+    near = np.abs(m - 0.775) <= margin
+    d = np.abs(gpu - cpu).max(axis=-1)
+    assert 0.1 < (m > 0.775).mean() < 0.9 and near.mean() <= 0.15
+    assert (gpu != base).any(axis=-1).mean() > 0.05  # the generator changed the highlights
+    if precision == "fp32":
+        assert d[~near].max() <= 4, int(d[~near].max())
+    else:
+        assert d[~near].max() <= 1024 and d[~near].mean() <= 56, (int(d[~near].max()), float(d[~near].mean()))
 
 
 def test_pack_rgb48_bf16_matches_plain_exactly(dev):

@@ -411,7 +411,7 @@ def test_uncovered_options_raise(kwargs):
 
 def test_frame_not_divisible_by_8_raises(processors):
     _, proc = processors
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Slice 4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Slice 5"):
         proc.process_rgb48(np.zeros((99, 131, 3), np.uint8))
 
 
