@@ -34,10 +34,23 @@ lines; any failed check raises and the script exits non-zero with no result:
    doubled, on at most HG_TAIL_BF16_SHARE of the values. colorimetric at
    (1080, 1920, 3): ≤ 2 codes (powf against torch.pow under the PQ exponent
    78.84), equal at 0 and 1.
+   The native-int8 (W8A8) bodies at the 1080p shapes of the three int8
+   programs (block_conv3_w8a8 in fp32 and bf16, the other three in bf16 with
+   an fp32 instance off the path), each also once with an asymmetric
+   calibration (x_zero != 0, so the pad code is not 0). block_conv3_w8a8
+   quantizes the same input as its plain version and sums exact int32
+   products: equal bit for bit, or within one ulp of the epilogue (fp32) or
+   one step (bf16). In the others t's scale and shift are fp32 sums taken in
+   another order, so t may differ in its last bit and flip a code: each
+   output within the flips' worth (127·yscale each; 2 flips for sft_conv3, 8
+   for resblock, whose flipped t1 codes move h1 and t2 around them) plus a
+   bf16 step, the packed tail_w8a8 within 2·|w_last|·(one flip + one bf16
+   step of h)·65535 codes, and at most INT8_SHARE of the outputs differing.
    Kernel, plain and library times (CUDA events) and the least
    time the card could take: bytes over 3.35 TB/s, or FLOPs of the non-zero
    weights over the H100 SXM's rate for the element type (67 TFLOP/s fp32
-   outside the tensor cores, 989 TFLOP/s bf16), whichever is larger;
+   outside the tensor cores, 989 TFLOP/s bf16; the int8 bodies' operations
+   at the 1979 TOPS int8 rate), whichever is larger;
 3. end to end: HDRTVNetTorch.process_rgb48 on the card against the same
    processor on the CPU, one seeded 360×640 frame, for each of the three
    frame programs: fp32 ≤ 4 u16 codes; bf16 without the megakernels
@@ -50,18 +63,29 @@ lines; any failed check raises and the script exits non-zero with no result:
    output (max RGB > 0.775), so pixels whose base max-RGB lies within a
    margin of it (2e-4 in fp32, 0.02 in bf16) may flip between card and CPU
    and are counted apart (at most HG_NEAR_SHARE of the frame); the rest:
-   fp32 ≤ 4 codes, bf16 within HG_BF16_CODES (max, mean);
-4. 1080p, the five programs in turn (the three above, then the HG composite
+   fp32 ≤ 4 codes, bf16 within HG_BF16_CODES (max, mean). Then the three
+   native-int8 programs on the W8A8 checkpoint (tests/fixtures/hr_w8a8.npz)
+   at 360×640, card against CPU within INT8_E2E_CODES (max, mean) and at a
+   PSNR of at least INT8_E2E_PSNR: a code that flips on one side moves every
+   int8 layer after it, so the two drift apart by a share of the quantization
+   noise; the floor must lie above the PSNR of the CPU's int8 frame against
+   its float program on the same pre-dequantized weights (measured in the
+   run), so that a program that skipped quantization fails it;
+4. 1080p, the eight programs in turn (the three above, then the HG composite
    in bf16 and in fp32, frames as flat rows, hg_tail once per frame and
    pack_rgb48 not at all; its output must differ from the base model's on a
-   share of the pixels and stay unclipped on most of them): one frame through
+   share of the pixels and stay unclipped on most of them; then the three
+   int8 programs, on the smooth frame, whose output must differ from the
+   float program's on the same pre-dequantized weights by a PSNR at most
+   INT8_PSNR_MARGIN under what tests/test_torch_int8.py measures on the
+   CPU): one frame through
    process_rgb48_device (u8 pair planes from put_frame) with the launch
    counts set to 0 before it and read after, asserted exactly
    (EXPECTED_LAUNCHES: the megakernel program launches agcm_head, cond_chain
    and tail once each and pack_rgb48 not at all), then device-resident frames
    with one sync (3 in fp32, 3 in bf16 without the megakernels, 10 in the
-   default program, 5 and 2 with HG): ms/frame, fps, peak memory, output
-   range;
+   default program, 5 and 2 with HG; 10, 3 and 2 in int8): ms/frame, fps,
+   peak memory, output range;
 5. colorimetric_pq_pack on the 1080p frame (u8 → [0, 1]) in fp32 and bf16:
    the one place the port launches it outside the kernel comparison (no
    frame program reaches it, nor in the JAX package); shape, dtype and range.
@@ -74,6 +98,7 @@ launches on every path; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -81,8 +106,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "weights", "hr_fp32.npz")
+INT8_WEIGHTS = os.path.join(ROOT, "tests", "fixtures", "hr_w8a8.npz")  # W8A8 PTQ of WEIGHTS (test_torch_int8.py)
 HBM_BPS = 3.35e12  # H100 SXM device memory rate
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}  # H100 SXM: fp32 FMA units, bf16 tensor cores
+# H100 SXM: fp32 FMA units, bf16 tensor cores, int8 tensor cores (dense)
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 ATOL = 1e-4
 TAIL_BF16_SHARE = 0.016  # see the docstring, phase 2
 HG_TAIL_BF16_SHARE = 0.01
@@ -90,14 +117,39 @@ HG_E2E_SIZE = (184, 336)  # s2d grid 92 × 168: pads 4 rows and 8 columns; takes
 HG_NEAR_SHARE = 0.25
 HG_CHANGED_CODES = 300  # more than a bf16 step of the base output (256 codes below 1.0)
 HG_BF16_CODES = (1536, 60.0)
-# The five frame programs (paths): the processor's precision token, the
-# element type, HDRTV_MEGAKERNEL, whether the checkpoint is the HG composite,
-# frames timed at 1080p, and the launches of one 1080p frame (kernels not
+# int8 against the float program on the pre-dequantized weights, PSNR in dB of the
+# smooth frame, as tests/test_torch_int8.py measures it on the CPU (120×256); the
+# 1080p frame on the card may sit at most INT8_PSNR_MARGIN under it.
+INT8_PSNR_CPU = {"int8_bf16_mega": 33.85, "int8_bf16_nomega": 33.51, "int8_fp32": 33.65}
+INT8_PSNR_MARGIN = 3.0
+# Share of an int8 body's outputs that may differ from its plain version on the card
+# (codes flipped by last-bit differences of t; see phase 2 in the docstring): twice the
+# largest share seen over its 1080p cases in both types (sft_conv3 2.02e-6, resblock
+# 2.36e-5, tail 1.97e-3 of the codes; NVIDIA H100 80GB HBM3, 700 W).
+INT8_SHARE = {"sft_conv3": 4.1e-6, "resblock": 4.8e-5, "tail": 4.0e-3}
+# Card against CPU at 360×640 for the three int8 programs, u16 codes (max, mean): twice
+# what was seen (7320 / 507.4, 7424 / 497.9, 6169 / 83.6 on the same card). One flipped code
+# moves every int8 layer after it, so the int8 programs drift apart far more than the float
+# ones (tests/test_torch_int8.py _cascade_note).
+INT8_E2E_CODES = {"int8_bf16_mega": (14640, 1015.0), "int8_bf16_nomega": (14848, 996.0),
+                  "int8_fp32": (12338, 167.2)}
+# The same comparison as a PSNR floor in dB, 3 dB under what was seen (twice the mean
+# squared difference; 39.40, 39.46 and 47.58 dB on the same card). The CPU's int8 frame
+# against its float program sits at 32.75-32.77 dB on this frame: the floor lies above that.
+INT8_E2E_PSNR = {"int8_bf16_mega": 36.4, "int8_bf16_nomega": 36.4, "int8_fp32": 44.5}
+# The eight frame programs (paths): the processor's precision token, the
+# element type, HDRTV_MEGAKERNEL, whether the checkpoint is the HG composite
+# (or, "int8", the W8A8 one), frames timed at 1080p, and the launches of one
+# 1080p frame (kernels not
 # named launch 0 times). With HG the base program hands its s2d output over
 # unpacked and hg_tail packs, so pack_rgb48 launches on no HG path.
 _FP32 = {"block_conv3": 12, "down2": 5, "trunk3": 1}
 _BF16_MEGA = {"block_conv3": 2, "down2": 5, "trunk3": 1, "sft_conv3": 5, "resblock": 2, "mix_chain": 1,
               "agcm_head": 1, "cond_chain": 1, "tail": 1}
+# The native-int8 programs (the W8A8 checkpoint, INT8_WEIGHTS): the same programs with
+# the quantized layers' convs in the kernels' int8 forms and none in their float forms.
+_INT8_MEGA = {"block_conv3_w8a8": 2, "sft_conv3_w8a8": 5, "resblock_w8a8": 2, "tail_w8a8": 1, "agcm_head": 1,
+              "cond_chain": 1, "mix_chain": 1, "down2": 5, "trunk3": 1}
 PATHS = {
     "fp32": {"precision": "fp32", "dtype": "f32", "mega": "1", "hg": False, "frames": 3,
              "launches": {**_FP32, "pack_rgb48": 1}},
@@ -109,6 +161,14 @@ PATHS = {
                 "launches": {**_BF16_MEGA, "hg_tail": 1}},
     "hg_fp32": {"precision": "fp32", "dtype": "f32", "mega": "1", "hg": True, "frames": 2,
                 "launches": {**_FP32, "hg_tail": 1}},
+    "int8_bf16_mega": {"precision": "fp16", "dtype": "bf16", "mega": "1", "hg": False, "int8": True,
+                       "frames": 10, "launches": dict(_INT8_MEGA)},
+    "int8_bf16_nomega": {"precision": "fp16", "dtype": "bf16", "mega": "0", "hg": False, "int8": True,
+                         "frames": 3, "launches": {"sft_conv3_w8a8": 6, "resblock_w8a8": 2,
+                                                   "block_conv3_w8a8": 2, "mix_chain": 1, "down2": 5,
+                                                   "trunk3": 1, "pack_rgb48": 1}},
+    "int8_fp32": {"precision": "fp32", "dtype": "f32", "mega": "1", "hg": False, "int8": True, "frames": 2,
+                  "launches": {"block_conv3_w8a8": 12, "down2": 5, "trunk3": 1, "pack_rgb48": 1}},
 }
 # The colorimetric pack is on no frame program: phase 5 drives it, once per
 # element type, and its entries report that drive.
@@ -127,6 +187,10 @@ KERNEL_INFO = {
     "tail": ("hdrtv_tpu_torch/csrc/tail.cu", "hdrtv_tpu/ops/megakernel.py:489"),
     "hg_tail": ("hdrtv_tpu_torch/csrc/hg_tail.cu", "hdrtv_tpu/ops/megakernel.py:1435"),
     "colorimetric": ("hdrtv_tpu_torch/csrc/colorimetric.cu", "hdrtv_tpu/ops/pack.py:146"),
+    "block_conv3_w8a8": ("hdrtv_tpu_torch/csrc/block_conv3.cu", "hdrtv_tpu/ops/conv_kernels.py:271"),
+    "sft_conv3_w8a8": ("hdrtv_tpu_torch/csrc/sft_conv3.cu", "hdrtv_tpu/ops/megakernel.py:866"),
+    "resblock_w8a8": ("hdrtv_tpu_torch/csrc/resblock.cu", "hdrtv_tpu/ops/megakernel.py:1012"),
+    "tail_w8a8": ("hdrtv_tpu_torch/csrc/tail.cu", "hdrtv_tpu/ops/megakernel.py:489"),
 }
 
 
@@ -142,6 +206,11 @@ def smooth_frame(np, h: int, w: int, seed: int):
     rng = np.random.RandomState(seed)
     blocks = np.kron(rng.rand(-(-h // 8), -(-w // 8), 1), np.ones((8, 8, 3)))[:h, :w] * 420
     return np.clip(blocks + rng.randn(h, w, 3) * 10, 0, 255).astype(np.uint8)
+
+
+def psnr(mse: float) -> float:
+    """PSNR in dB of a mean squared difference of values in [0, 1]."""
+    return 10 * math.log10(1.0 / max(mse, 1e-20))
 
 
 def log(msg: str) -> None:
@@ -181,8 +250,10 @@ def conv_macs(w, h_out: int, w_out: int, stride: int) -> int:
     return total
 
 
-def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_b, t_o = nbytes / HBM_BPS, flops / PEAK_FLOPS[dtype]
+def bound(nbytes: float, flops: float, rate: str) -> tuple[float, str]:
+    """Least time in ms for the bytes at HBM_BPS and the operations at the
+    peak rate ``rate`` ("f32", "bf16" or "int8"), and which of the two."""
+    t_b, t_o = nbytes / HBM_BPS, flops / PEAK_FLOPS[rate]
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -224,6 +295,10 @@ def phase_kernels(torch, np) -> dict:
         fused_tail, fused_tail_ref, fused_trunk3, fused_trunk3_ref,
     )
     from hdrtv_tpu_torch.ops.pack import colorimetric_pq_pack, colorimetric_pq_pack_ref, pack_rgb48, pack_rgb48_ref
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3_q_ref
+    from hdrtv_tpu_torch.ops.megakernel import _sft_conv_t, _sft_t
+    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
+    from hdrtv_tpu_torch.quant.int8 import quantize_weight
 
     log("phase 2: kernels against their plain versions (1080p main-path shapes, TF32 off)")
     dev = torch.device("cuda")
@@ -244,25 +319,38 @@ def phase_kernels(torch, np) -> dict:
         return own or {p: k for p, k in per_path.items() if k and PATH_DTYPE[p] == "bf16"}
 
     def record(kernel, dtype, case, per_path, y, y_ref, tol, ms, plain_ms, lib_ms, nbytes, flops,
-               unit="abs"):
+               unit="abs", share=None, rate=None):
         """``unit``: what ``tol`` bounds. "abs": the absolute error (fp32,
-        and u16 codes); "steps": bf16 steps of the result."""
+        and u16 codes); "steps": bf16 steps of the result; "flips": the
+        absolute error of an int8 body, ``tol`` being what its flipped codes
+        can move an output by, plus in bf16 one step of its rounding.
+        ``share``: at most this share of the values may differ at all.
+        ``rate``: the peak rate of the bound's operations (default: the
+        element type's)."""
         torch.cuda.synchronize()
         e = (y.float() - y_ref.float()).abs()
         err = float(e.max())
+        steps = None
         if unit == "steps":
             steps = float((e / (2.0 ** -7 * y_ref.float().abs().clamp_min(1.0))).max())
             ok, what = steps <= tol, f"{steps:.3f} bf16 steps > {tol}"
+        elif unit == "flips":
+            slack = tol + (2.0 ** -7 * y_ref.float().abs().clamp_min(1.0) if dtype == "bf16" else 0.0)
+            ok, what = bool((e <= slack).all()), f"max abs error {err} beyond {tol} (+ a bf16 step)"
         else:
-            steps, ok, what = None, err <= tol, f"max abs error {err} > {tol}"
-        b_ms, b_by = bound(nbytes, flops, dtype)
+            ok, what = err <= tol, f"max abs error {err} > {tol}"
+        differ = float((e > 0).float().mean())
+        if ok and share is not None and differ > share:
+            ok, what = False, f"{differ:.3e} of the values differ > {share}"
+        rate = rate or dtype
+        b_ms, b_by = bound(nbytes, flops, rate)
         log(json.dumps({
             "kernel": kernel, "dtype": dtype, "case": case, "per_frame": runs(dtype, per_path),
             "max_abs_err": err, "bf16_steps": None if steps is None else round(steps, 3),
-            "differ": float((e > 0).float().mean()), "tol": tol,
+            "differ": differ, "tol": tol, "share": share,
             "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
             "library_ms": None if lib_ms is None else round(lib_ms, 4),
-            "bound_ms": round(b_ms, 4), "bound_by": b_by, "gflop": round(flops / 1e9, 3),
+            "bound_ms": round(b_ms, 4), "bound_by": b_by, "rate": rate, "gflop": round(flops / 1e9, 3),
             "mbytes": round(nbytes / 1e6, 3),
         }))
         if not ok:
@@ -270,7 +358,7 @@ def phase_kernels(torch, np) -> dict:
         for path, n in runs(dtype, per_path).items():
             tot = totals.setdefault((kernel, dtype, path), {
                 "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                "bytes": 0.0, "flops": 0.0, "lib_all": True})
+                "bytes": 0.0, "flops": 0.0, "lib_all": True, "rate": rate})
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             tot["ms"] += n * ms
             tot["plain_ms"] += n * plain_ms
@@ -611,6 +699,154 @@ def phase_kernels(torch, np) -> dict:
                y.to(torch.int32), codes, tol, ms, plain, None, nbytes_of(*hargs, y),
                2 * npix * (nnz(w10) + nnz(wlast)) + 6 * npix * 12)
         del up5, c1, img, mask4, y, y_r, codes, hargs
+
+        # ---- The native-int8 (W8A8) bodies, at the 1080p shapes of the int8 programs, each
+        # also once with an asymmetric calibration (x_zero != 0: the pad code is not 0).
+        # Weights quantized per output channel as the checkpoint's; activation scales
+        # calibrated by abs-max (or min/max) on what each conv quantizes.
+        def qlayer(ci, co, t_lo, t_hi, asym, ps=False):
+            wq, ws = quantize_weight(rng.randn(3, 3, ci, co).astype(np.float32) * 0.05)
+            if ps:
+                tq, tsc = w_s2d_s1_ps(wq), np.tile(w_ps_permute(ws.reshape(1, 1, 1, -1))[0, 0, 0], 4)
+            else:
+                tq, tsc = w_s2d_s1(wq), b_s2d(ws)
+            sc, z = ((t_hi - t_lo) / 255.0, t_lo) if asym else (max(abs(t_lo), abs(t_hi)) / 127.0, None)
+            b = (rng.randn(tq.shape[-1]) * 0.1).astype(np.float32)
+            return t(tq.astype(np.float32) * tsc), f32(b), pack_qargs(tq, tsc, sc, z, b, dev)
+
+        def flip_tol(qa, flips):
+            """What ``flips`` flipped codes under one output can move it by."""
+            return flips * 127.0 * float(qa.yscale.max())
+
+        def qbytes(*qas):
+            return sum(q.w.numel() + 8 * q.co for q in qas)
+
+        def t_range(x, cond, sft):
+            tt = _sft_t(x.float(), cond.float(), sft, dt)
+            return float(tt.min()), float(tt.max())
+
+        # block_conv3_w8a8: (name, hb, wb, natural ci, co, PS-folded, relu, skip, asym,
+        #                    launches per frame on the three int8 paths)
+        for name, hb, wb, ci, co, ps, relu, skip, asym, per_path in (
+            ("L0 HR_conv1/2", 540, 960, 32, 32, False, True, False, False, {"int8_fp32": 2}),
+            ("L1 trunk1/5 conv1", 270, 480, 32, 32, False, True, False, False, {"int8_fp32": 2}),
+            ("L1 trunk1/5 conv2 + skip", 270, 480, 32, 32, False, False, True, False, {"int8_fp32": 2}),
+            ("L2 trunk2/4 conv1", 135, 240, 32, 32, False, True, False, False, {"int8_fp32": 2}),
+            ("L2 trunk2/4 conv2 + skip", 135, 240, 32, 32, False, False, True, False, {"int8_fp32": 2}),
+            ("L1 up_conv3", 270, 480, 32, 128, True, True, False, False,
+             {"int8_fp32": 1, "int8_bf16_nomega": 1, "int8_bf16_mega": 1}),
+            ("L2 up_conv2", 135, 240, 32, 128, True, True, False, False,
+             {"int8_fp32": 1, "int8_bf16_nomega": 1, "int8_bf16_mega": 1}),
+            ("L1 up_conv3, asymmetric", 270, 480, 32, 128, True, True, False, True, {}),
+        ):
+            if not asym and not runs(dtype, per_path):
+                continue
+            x = t(rng.rand(hb, wb, 4 * ci) * 1.2 - 0.1)
+            w, b, qa = qlayer(ci, co, -0.1, 1.1, asym, ps)
+            w = w.to(dt)
+            sk = t(rng.rand(hb, wb, 4 * co)) if skip else None
+            y = fused_block_conv3(x, w, b, relu=relu, skip=sk, qargs=qa)
+            y_r = fused_block_conv3_q_ref(x, qa, relu=relu, skip=sk)
+            ms = time_ms(lambda: fused_block_conv3(x, w, b, relu=relu, skip=sk, qargs=qa), torch)
+            plain = time_ms(lambda: fused_block_conv3_q_ref(x, qa, relu=relu, skip=sk), torch)
+            # the same codes and exact sums: bit for bit, or one ulp of the epilogue
+            tol = float(np.spacing(np.float32(max(1.0, float(y_r.float().abs().max()))))) if dtype == "f32" else 1
+            record("block_conv3_w8a8", dtype, name, per_path, y, y_r, tol, ms, plain, None,
+                   nbytes_of(x, y, sk) + qbytes(qa), 2 * conv_macs(w, hb, wb, 1),
+                   "abs" if dtype == "f32" else "steps", rate="int8")
+            del x, y, y_r, sk
+
+        # sft_conv3_w8a8: x (hb,wb,128), cond (hb,wb,64); the bf16 int8 programs only
+        for name, hb, wb, relu, skip, asym, per_path in (
+            ("L0 SFT_layer1/2 + HR_conv1/2", 540, 960, True, False, False,
+             {"int8_bf16_nomega": 2, "int8_bf16_mega": 1}),
+            ("L2 trunk2/4 sft1 + conv1", 135, 240, True, False, False, {"int8_bf16_nomega": 2, "int8_bf16_mega": 2}),
+            ("L2 trunk2/4 sft2 + conv2 + skip", 135, 240, False, True, False,
+             {"int8_bf16_nomega": 2, "int8_bf16_mega": 2}),
+            ("L2 trunk2/4 sft1 + conv1, asymmetric", 135, 240, True, False, True, {}),
+        ):
+            x = t(rng.rand(hb, wb, 128) - 0.3)
+            cond = t(rng.rand(hb, wb, 64) - 0.3)
+            sft = sft4(16, 32)
+            w, b, qa = qlayer(32, 32, *t_range(x, cond, sft), asym)
+            w = w.to(dt)
+            sk = t(rng.rand(hb, wb, 128)) if skip else None
+            y = fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, skip=sk, qargs=qa)
+            y_r = fused_sft_conv3_v2_ref(x, cond, sft, w, b, relu=relu, skip=sk, qargs=qa)
+            ms = time_ms(lambda: fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, skip=sk, qargs=qa), torch)
+            plain = time_ms(lambda: fused_sft_conv3_v2_ref(x, cond, sft, w, b, relu=relu, skip=sk, qargs=qa),
+                            torch)
+            params = [p for pair in sft for p in pair]
+            record("sft_conv3_w8a8", dtype, name, per_path, y, y_r, flip_tol(qa, 2), ms, plain, None,
+                   nbytes_of(x, cond, y, sk, *params) + qbytes(qa),
+                   2 * conv_macs(w, hb, wb, 1) + sft_flops(hb * wb, sft) + 3 * hb * wb * 128,
+                   "flips", share=INT8_SHARE["sft_conv3"], rate="int8")
+            del x, cond, y, y_r, sk
+
+        # resblock_w8a8 at L1: x (270,480,128), cond (270,480,64)
+        hb, wb = 270, 480
+        for name, coarse, asym, per_path in (
+            ("L1 trunk1", False, False, {"int8_bf16_nomega": 1, "int8_bf16_mega": 1}),
+            ("L1 trunk5 + up_coarse", True, False, {"int8_bf16_nomega": 1, "int8_bf16_mega": 1}),
+            ("L1 trunk1, asymmetric", False, True, {}),
+        ):
+            x = t(rng.rand(hb, wb, 128) - 0.3)
+            cond = t(rng.rand(hb, wb, 64) - 0.3)
+            up = t(rng.rand(hb // 2, wb // 2, 512) - 0.3) if coarse else None
+            sft1, sft2 = sft4(16, 32), sft4(16, 32)
+            lo, hi = t_range(x if up is None else x + 0.7, cond, sft1)
+            w1, b1, q1 = qlayer(32, 32, lo, hi, asym)
+            w2, b2, q2 = qlayer(32, 32, -0.5, 2.0, asym)
+            args = (x, cond, sft1, w1.to(dt), b1, sft2, w2.to(dt), b2)
+            kw = {"up_coarse": up, "qargs1": q1, "qargs2": q2}
+            y = fused_resblock(*args, **kw)
+            y_r = fused_resblock_ref(*args, **kw)
+            ms = time_ms(lambda: fused_resblock(*args, **kw), torch)
+            plain = time_ms(lambda: fused_resblock_ref(*args, **kw), torch)
+            params = [p for pair in (*sft1, *sft2) for p in pair]
+            record("resblock_w8a8", dtype, name, per_path, y, y_r, flip_tol(q2, 8), ms, plain, None,
+                   nbytes_of(x, cond, up, y, *params) + qbytes(q1, q2),
+                   2 * (conv_macs(args[3], hb, wb, 1) + conv_macs(args[6], hb, wb, 1))
+                   + sft_flops(hb * wb, sft1) + sft_flops(hb * wb, sft2) + 8 * hb * wb * 128,
+                   "flips", share=INT8_SHARE["resblock"], rate="int8")
+            del x, cond, up, y, y_r, args
+
+        # tail_w8a8, packed coarse form at (540, 960), compared in u16 codes
+        hb, wb = 540, 960
+        npix = hb * wb
+        for name, asym, per_path in (("L0 fea0 + up_coarse -> packed u16", False, {"int8_bf16_mega": 1}),
+                                     ("L0 packed, asymmetric", True, {})):
+            s_ = t(rng.rand(hb, wb, 128) - 0.3)
+            up = t(rng.rand(hb // 2, wb // 2, 512) - 0.3)
+            cond = t(rng.rand(hb, wb, 64) - 0.3)
+            skip = t(rng.rand(hb, wb, 12) * 1.1 - 0.05)
+            sft = sft4(16, 32)
+            w_hr, b_hr, qa = qlayer(32, 32, *t_range(s_ + 0.4, cond, sft), asym)
+            w_last = t(w_s2d_s1(rng.randn(3, 3, 32, 3).astype(np.float32) * 0.03))
+            targs = (s_, cond, skip, sft, w_hr.to(dt), b_hr, w_last, f32(rng.randn(12) * 0.02))
+            y = fused_tail(*targs, pack=True, up_coarse=up, qargs_hr=qa)
+            y_r = fused_tail_ref(*targs, pack=True, up_coarse=up, qargs_hr=qa)
+            codes = y_r.to(torch.int32)
+            inside = float(((codes > 0) & (codes < 65535)).float().mean())
+            if tuple(y.shape) != (hb, 2, wb, 6) or y.dtype != torch.uint16 or inside < 0.5:
+                raise AssertionError(f"tail_w8a8 output {tuple(y.shape)} {y.dtype}, {inside:.2f} unclipped")
+            ms = time_ms(lambda: fused_tail(*targs, pack=True, up_coarse=up, qargs_hr=qa), torch)
+            plain = time_ms(lambda: fused_tail_ref(*targs, pack=True, up_coarse=up, qargs_hr=qa), torch)
+            # a flipped code of t moves h by one flip's worth, and in bf16 its rounding by a step;
+            # conv_last carries each moved h into the codes by |w_last|·Δh·65535, doubled for
+            # two under one window
+            sf = (s_.float() + up.reshape(hb // 2, wb // 2, 2, 2, 128).permute(0, 2, 1, 3, 4)
+                  .reshape(hb, wb, 128).float()).to(dt).float()
+            h_max = float(_sft_conv_t(sf, cond.float(), sft, targs[4], b_hr, qa, dt).clamp_min(0).max())
+            step = 2.0 ** (int(np.floor(np.log2(h_max))) - 7) if dtype == "bf16" else 0.0
+            tol = int(2 * float(w_last.float().abs().max()) * (flip_tol(qa, 1) + step) * 65535) + 1
+            del sf
+            params = [p for pair in sft for p in pair] + [w_last, targs[7]]
+            record("tail_w8a8", dtype, name, per_path, y.to(torch.int32), codes, tol, ms, plain, None,
+                   nbytes_of(s_, up, cond, skip, y, *params) + qbytes(qa),
+                   2 * (conv_macs(targs[4], hb, wb, 1) + conv_macs(w_last, hb, wb, 1)) + sft_flops(npix, sft)
+                   + 4 * npix * 128 + 5 * npix * 12, share=INT8_SHARE["tail"], rate="int8")
+            del s_, up, cond, skip, y, y_r, codes, targs
     return totals
 
 
@@ -618,17 +854,18 @@ def phase_end_to_end(torch, np, hg_weights: str) -> None:
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     frame = (np.random.RandomState(360).rand(360, 640, 3) * 255).astype(np.uint8)
-    bounds = {"fp32": (4, None), "bf16_nomega": (1536, 34.0), "bf16_mega": (1536, 34.0)}
+    bounds = {"fp32": (4, None), "bf16_nomega": (1536, 34.0), "bf16_mega": (1536, 34.0), **INT8_E2E_CODES}
     for path, spec in PATHS.items():
         if spec["hg"]:
             continue
         max_codes, mean_codes = bounds[path]
+        weights = INT8_WEIGHTS if spec.get("int8") else WEIGHTS
         os.environ["HDRTV_MEGAKERNEL"] = spec["mega"]
         log(f"phase 3: end to end, card against CPU (360x640 {path})")
         t0 = time.perf_counter()
-        gpu = HDRTVNetTorch(WEIGHTS, precision=spec["precision"]).process_rgb48(frame)
+        gpu = HDRTVNetTorch(weights, precision=spec["precision"]).process_rgb48(frame)
         t1 = time.perf_counter()
-        cpu = HDRTVNetTorch(WEIGHTS, precision=spec["precision"], device="cpu").process_rgb48(frame)
+        cpu = HDRTVNetTorch(weights, precision=spec["precision"], device="cpu").process_rgb48(frame)
         t2 = time.perf_counter()
         d = np.abs(gpu.astype(np.int64) - cpu.astype(np.int64))
         log(f"card {gpu.shape} {gpu.dtype} range [{gpu.min()}, {gpu.max()}] ({t1 - t0:.2f} s incl. load); "
@@ -639,6 +876,21 @@ def phase_end_to_end(torch, np, hg_weights: str) -> None:
         if d.max() > max_codes or (mean_codes is not None and d.mean() > mean_codes):
             raise AssertionError(f"{path}: card and CPU differ by max {int(d.max())} > {max_codes} codes "
                                  f"or mean {float(d.mean()):.3f} > {mean_codes}")
+        if spec.get("int8"):
+            # The int8 frame against the CPU, and the CPU's own int8 frame against its float
+            # program on the same pre-dequantized weights: the floor must separate the two.
+            os.environ["HDRTVNET_NATIVE_INT8"] = "0"
+            try:
+                flt = HDRTVNetTorch(weights, precision=spec["precision"], device="cpu").process_rgb48(frame)
+            finally:
+                del os.environ["HDRTVNET_NATIVE_INT8"]
+            p_card = psnr(float(np.mean((d / 65535.0) ** 2)))
+            p_float = psnr(float(np.mean(((cpu.astype(np.int64) - flt) / 65535.0) ** 2)))
+            log(f"{path}: PSNR card against CPU {p_card:.2f} dB (floor {INT8_E2E_PSNR[path]}); "
+                f"CPU int8 against CPU float {p_float:.2f} dB")
+            if p_card < INT8_E2E_PSNR[path] or INT8_E2E_PSNR[path] <= p_float:
+                raise AssertionError(f"{path}: PSNR card against CPU {p_card:.2f} dB, int8 against float "
+                                     f"{p_float:.2f} dB, floor {INT8_E2E_PSNR[path]}")
 
     # One HG frame, card against CPU, with the pixels at the mask's threshold counted apart.
     h, w = HG_E2E_SIZE
@@ -682,15 +934,18 @@ def phase_1080p(torch, np, native, path: str, hg_weights: str) -> dict:
     os.environ["HDRTV_MEGAKERNEL"] = spec["mega"]
     log(f"phase 4: 1080p {path} frames on the card (HDRTV_MEGAKERNEL={spec['mega']}"
         + (", HG composite, hg_nf 64)" if spec["hg"] else ")"))
-    proc = HDRTVNetTorch(hg_weights if spec["hg"] else WEIGHTS, precision=spec["precision"])
+    int8 = spec.get("int8", False)
+    weights = hg_weights if spec["hg"] else (INT8_WEIGHTS if int8 else WEIGHTS)
+    proc = HDRTVNetTorch(weights, precision=spec["precision"])
     h, w = 1080, 1920
-    if spec["hg"]:
+    if spec["hg"] or int8:
         frame = smooth_frame(np, h, w, 1080)
     else:
         frame = (np.random.RandomState(1080).rand(h, w, 3) * 255).astype(np.uint8)
     x = proc.put_frame(frame.reshape(h, w * 3))
-    if proc.cfg.use_hg != spec["hg"] or (x.ndim == 2) != spec["hg"]:
-        raise AssertionError(f"{path}: use_hg {proc.cfg.use_hg}, frame shipped as {tuple(x.shape)}")
+    if proc.cfg.use_hg != spec["hg"] or (x.ndim == 2) != spec["hg"] or proc.native_int8 != int8:
+        raise AssertionError(f"{path}: use_hg {proc.cfg.use_hg}, native_int8 {proc.native_int8}, "
+                             f"frame shipped as {tuple(x.shape)}")
     proc.process_rgb48_device(x)  # warm
     torch.cuda.synchronize()
 
@@ -722,6 +977,25 @@ def phase_1080p(torch, np, native, path: str, hg_weights: str) -> dict:
         if not 0.02 < share < 0.98 or inside < 0.5:
             raise AssertionError(f"{path}: the HG changed {share:.3f} of the pixels, {inside:.3f} unclipped")
         del base_proc, base, hg, changed
+    p_float = None
+    if int8:
+        # The int8 frame against the float program on the same pre-dequantized weights: it
+        # must differ (the activations were quantized) by no more than the CPU's PSNR allows.
+        os.environ["HDRTVNET_NATIVE_INT8"] = "0"
+        try:
+            fproc = HDRTVNetTorch(weights, precision=spec["precision"])
+        finally:
+            del os.environ["HDRTVNET_NATIVE_INT8"]
+        if fproc.native_int8:
+            raise AssertionError(f"{path}: HDRTVNET_NATIVE_INT8=0 left the int8 forms on")
+        fl = fproc.process_rgb48_device(fproc.put_frame(frame.reshape(h, w * 3))).to(torch.int32)
+        p_float = psnr(float(((o - fl).double() / 65535.0).pow(2).mean()))
+        differ = float((o != fl).float().mean())
+        log(f"{path}: int8 against float (pre-dequantized) on the smooth frame: PSNR {p_float:.2f} dB "
+            f"(CPU at 120x256: {INT8_PSNR_CPU[path]}), {differ:.3f} of the values differ")
+        if differ == 0.0 or p_float < INT8_PSNR_CPU[path] - INT8_PSNR_MARGIN:
+            raise AssertionError(f"{path}: int8 vs float PSNR {p_float:.2f} dB, {differ} of the values differ")
+        del fproc, fl
 
     native.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -735,7 +1009,8 @@ def phase_1080p(torch, np, native, path: str, hg_weights: str) -> dict:
     if any(native.launch_counts[k] != n * v for k, v in expected.items()):
         raise AssertionError(f"launch counts over {n} frames: {native.launch_counts}")
     log(f"1080p {path}: {ms:.2f} ms/frame, {1e3 / ms:.2f} fps over {n} device-resident frames "
-        f"(one sync); peak allocated {peak / 2**30:.2f} GiB; output range [{lo}, {hi}]")
+        f"(one sync); peak allocated {peak / 2**30:.2f} GiB; output range [{lo}, {hi}]"
+        + ("" if p_float is None else f"; PSNR against float {p_float:.2f} dB"))
     del proc, x, out
     torch.cuda.empty_cache()
     return counts
@@ -778,9 +1053,14 @@ def main() -> int:
     import tempfile
 
     sys.path.insert(0, ROOT)
-    from hdrtv_tpu_torch.models.layers import fp32_math
-    from hdrtv_tpu_torch.ops import native
-    from hdrtv_tpu_torch.tools.synth_hg import write_synth_hg
+    try:
+        from hdrtv_tpu_torch.models.layers import fp32_math
+        from hdrtv_tpu_torch.ops import native
+        from hdrtv_tpu_torch.tools.synth_hg import write_synth_hg
+    except ImportError as e:
+        print(f"chip_smoke: the port is not next to this script ({e}); run it from the root of a checkout "
+              "of the repository", file=sys.stderr)
+        return 3
 
     smi = phase_card(torch, native)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -798,7 +1078,7 @@ def main() -> int:
 
     def entry(name, dtype, path):
         tot = totals[(name, dtype, path)]
-        _, b_by = bound(tot["bytes"], tot["flops"], dtype)
+        _, b_by = bound(tot["bytes"], tot["flops"], tot["rate"])
         return {"max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
                 "bound_ms": tot["bound_ms"], "bound_by": b_by,
                 "library_ms": tot["library_ms"] if tot["lib_all"] else None}
@@ -810,7 +1090,8 @@ def main() -> int:
     # per frame of the reported path. The fp32 instances of the kernels no
     # fp32 path runs ride along under "off_path" (compared and timed at the
     # same shapes, launched by no path).
-    prefer = {"f32": ("fp32", "hg_fp32", "color_f32"), "bf16": ("bf16_mega", "bf16_nomega", "hg_bf16", "color_bf16")}
+    prefer = {"f32": ("fp32", "hg_fp32", "int8_fp32", "color_f32"),
+              "bf16": ("bf16_mega", "bf16_nomega", "hg_bf16", "int8_bf16_mega", "int8_bf16_nomega", "color_bf16")}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for dtype, paths in prefer.items():
@@ -823,8 +1104,8 @@ def main() -> int:
             if dtype == "bf16" and not any(counts[p][name] for p in prefer["f32"]):
                 k["off_path"] = {"dtype": "f32", **entry(name, "f32", path)}
             kernels.append(k)
-    if len(kernels) != 18:
-        raise AssertionError(f"{len(kernels)} kernel entries, expected 18: {[k['name'] for k in kernels]}")
+    if len(kernels) != 23:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 23: {[k['name'] for k in kernels]}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

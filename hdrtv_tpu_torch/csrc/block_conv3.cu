@@ -14,28 +14,49 @@
 // runs the same tile on the tensor cores (conv3x3_mma_kernel: mma.sync bf16,
 // fp32 accumulation), where the card's bf16 rate puts the call's bound at its
 // bytes; what holds it back there is the tile's one-stage operand staging.
-#include "conv3x3.cuh"
+//
+// The native-int8 (W8A8) body of the same Pallas kernel (`quant`,
+// conv_kernels.py:180-227; the wrapper counts it as block_conv3_w8a8), when
+// the call passes the layer's QuantParams: x quantized per tensor, the conv as
+// int8 × int8 → int32 dots, rescaled per output channel, then bias, skip and
+// ReLU. Bound on this card: bytes (a 1080p call needs at most 38 GOP of
+// non-zero int8 products, 0.02 ms at the 1979 TOPS int8 rate, less than its
+// activations take at 3.35 TB/s). Design, first version: two launches from one host
+// call, a quantize pass that writes x's codes once (1 byte a value) into
+// scratch the wrapper allocates, then the int8 tile of conv3x3_s8.cuh, which
+// fills out-of-image taps with the layer's pad code. Quantizing on load
+// inside the tile, which saves the codes' round trip, is later work.
+#include "conv3x3_s8.cuh"
 
 namespace {
 
 template <typename T>
-int block_conv3(const void* x, const void* w, const void* b, const void* skip, void* y, int H,
-                int W, int C, int Co, int relu, void* stream) {
-  return static_cast<int>(hdrtv::conv_same<T, T, T>(
-      x, w, static_cast<const float*>(b), skip, nullptr, y, H, W, C, Co,
-      relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE, static_cast<cudaStream_t>(stream)));
+int block_conv3(const void* x, const void* w, const void* b, const hdrtv::QuantParams* q,
+                const void* skip, void* y, void* codes, int H, int W, int C, int Co, int relu,
+                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (q) err = hdrtv::quantize<T>(x, codes, static_cast<long long>(H) * W * C, *q, s);
+  if (err == cudaSuccess)
+    err = hdrtv::conv3x3_or_s8<T, T>(q ? codes : x, w, b, q, skip, y, H, W, C, Co,
+                                     relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-extern "C" int hdrtv_block_conv3_f32(const void* x, const void* w, const void* b,
-                                     const void* skip, void* y, int H, int W, int C, int Co,
-                                     int relu, void* stream) {
-  return block_conv3<float>(x, w, b, skip, y, H, W, C, Co, relu, stream);
+// q: null for the float form, else the layer's int8 parameters (w and b
+// unused; codes: H·W·C bytes of scratch, unused without q).
+extern "C" int hdrtv_block_conv3_f32(const void* x, const void* w, const void* b, const void* q,
+                                     const void* skip, void* y, void* codes, int H, int W, int C,
+                                     int Co, int relu, void* stream) {
+  return block_conv3<float>(x, w, b, hdrtv::quant_params(q), skip, y, codes, H, W, C, Co, relu,
+                            stream);
 }
 
-extern "C" int hdrtv_block_conv3_bf16(const void* x, const void* w, const void* b,
-                                      const void* skip, void* y, int H, int W, int C, int Co,
-                                      int relu, void* stream) {
-  return block_conv3<hdrtv::bf16>(x, w, b, skip, y, H, W, C, Co, relu, stream);
+extern "C" int hdrtv_block_conv3_bf16(const void* x, const void* w, const void* b, const void* q,
+                                      const void* skip, void* y, void* codes, int H, int W, int C,
+                                      int Co, int relu, void* stream) {
+  return block_conv3<hdrtv::bf16>(x, w, b, hdrtv::quant_params(q), skip, y, codes, H, W, C, Co,
+                                  relu, stream);
 }

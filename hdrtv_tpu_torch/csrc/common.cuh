@@ -26,6 +26,29 @@ __device__ __forceinline__ float apply_act(float v, int act) {
   return v;
 }
 
+// The int8 code of an fp32 activation t for a layer quantized per tensor
+// (conv3x3_s8.cuh): symmetric clamp(round(t / s), −128, 127), asymmetric
+// clamp(round((t − z) / s), 0, 255) − 128; IEEE division, round half to even.
+__device__ __forceinline__ int quantize_code(float t, float s, float z, int asym) {
+  const float r = rintf(__fdiv_rn(__fsub_rn(t, z), s));
+  if (asym) return static_cast<int>(fminf(fmaxf(r, 0.f), 255.f)) - 128;
+  return static_cast<int>(fminf(fmaxf(r, -128.f), 127.f));
+}
+
+// What the wrappers pass for an int8 layer (a ctypes Structure of the same
+// layout in ops/native.py), by host pointer: null runs a kernel's float form.
+struct QuantParams {
+  const int8_t* w;       // (Co, 9·C): row n holds the taps (dI, dJ) row-major, then the channel
+  const float* yscale;   // (Co) x_scale · w_scale
+  const float* bias;     // (Co) bias + zero-point term
+  float s, z;            // x_scale; x_zero (0 when symmetric)
+  int asym;              // 1: asymmetric (codes u − 128), 0: symmetric
+  int pad;               // the code of an out-of-image tap
+};
+
+// The C interface passes a layer's QuantParams as an untyped host pointer.
+inline const QuantParams* quant_params(const void* p) { return static_cast<const QuantParams*>(p); }
+
 // Four consecutive elements of T, widened to fp32. The pointer must be
 // aligned to four elements.
 template <typename T>

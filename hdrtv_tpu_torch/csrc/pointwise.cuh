@@ -212,6 +212,11 @@ __device__ __forceinline__ float2 bias_act2(const float (&acc)[2], const float* 
 // Rounding points as in the TPU kernels (_sft_mix, _sft_conv_kernel): the
 // hidden activations are stored in T; scale, shift and the combination are
 // fp32; t is stored in T. x may be fp32 whatever T is (the resblock's h1).
+//
+// Int8-output mode (q set; the W8A8 forms of the kernels, conv3x3_s8.cuh):
+// t is computed in fp32 with the explicit _rn intrinsics, x·(scale+1) then
+// + shift, never rounded to T, and quantized to the next conv's int8 codes
+// (quantize_code) in place of the store: one byte a value instead of T's.
 // ---------------------------------------------------------------------------
 
 struct SftArgs {
@@ -219,10 +224,13 @@ struct SftArgs {
   const void* cond;  // (npix, CC) T
   const void* add;   // nullptr, (npix, C) T, or (H/2, W/2, 4C) T when coarse
   void* xsum;        // (npix, C) T or nullptr: the sum, written when add != nullptr
-  void* t;           // (npix, C) T
+  void* t;           // (npix, C) T; unused in int8-output mode
   const void* w[4];  // scale0 (CC,CC), scale1 (CC,C), shift0 (CC,CC), shift1 (CC,C), T
   const float* b[4];
   int npix, W, C, CC, coarse;
+  int8_t* q = nullptr;  // (npix, C) codes: int8-output mode
+  float qs = 1.f, qz = 0.f;
+  int qasym = 0;
 };
 
 template <typename T, typename TX, bool MMA>
@@ -280,6 +288,14 @@ __global__ void __launch_bounds__(kPwThreads) sft_kernel(SftArgs a) {
         xv = make_float2(round_to<T>(xv.x + u.x), round_to<T>(xv.y + u.y));
         if (xsum) store2<T>(xsum + off, xv);
       }
+      if (a.q) {
+        const float t0 = __fadd_rn(__fmul_rn(xv.x, __fadd_rn(sc.x, 1.f)), sh.x);
+        const float t1 = __fadd_rn(__fmul_rn(xv.y, __fadd_rn(sc.y, 1.f)), sh.y);
+        *reinterpret_cast<char2*>(a.q + off) =
+            make_char2(static_cast<signed char>(quantize_code(t0, a.qs, a.qz, a.qasym)),
+                       static_cast<signed char>(quantize_code(t1, a.qs, a.qz, a.qasym)));
+        continue;
+      }
       store2<T>(t + off, make_float2(xv.x * (sc.x + 1.f) + sh.x, xv.y * (sc.y + 1.f) + sh.y));
     }
   }
@@ -320,6 +336,18 @@ inline void set_sft_params(SftArgs& a, const void* const* p) {
   for (int i = 0; i < 4; ++i) {
     a.w[i] = p[2 * i];
     a.b[i] = static_cast<const float*>(p[2 * i + 1]);
+  }
+}
+
+// Where an SFT pass puts t: stored in T at out, or, for the int8 layer q
+// (non-null), as that layer's codes at out (the int8-output mode).
+inline void set_sft_out(SftArgs& a, void* out, const QuantParams* q) {
+  a.t = q ? nullptr : out;
+  a.q = q ? static_cast<int8_t*>(out) : nullptr;
+  if (q) {
+    a.qs = q->s;
+    a.qz = q->z;
+    a.qasym = q->asym;
   }
 }
 

@@ -20,16 +20,27 @@
 // the separate add pass do not exist. One launch with a two-pixel halo is
 // later work. The kernel takes any Hb; the TPU kernel's even-row rule is its
 // tiling.
-#include "conv3x3.cuh"
+//
+// The native-int8 body (`quant`, megakernel.py:988-1004; the wrapper counts
+// it as resblock_w8a8), when the call passes both convs' QuantParams: the
+// same four launches with both convs on the int8 tile of conv3x3_s8.cuh and
+// both SFT passes in their int8-output mode, so t1 and t2 travel as codes
+// (1 byte a value) and are never rounded to the element type:
+//   1. SFT1 (summed input written once as before) → codes of t1;
+//   2. int8 conv1 + folded bias + ReLU → h1 in fp32;
+//   3. SFT2 on the fp32 h1 → codes of t2;
+//   4. int8 conv2 + folded bias + the summed input → out.
+// Out-of-image taps read each conv's pad code. Bound on this card: bytes.
+#include "conv3x3_s8.cuh"
 #include "pointwise.cuh"
 
 namespace {
 
 template <typename T>
 int resblock(const void* x, const void* cond, const void* const* sft1, const void* w1,
-             const void* b1, const void* const* sft2, const void* w2, const void* b2,
-             const void* add, int coarse, void* y, void* t, void* h1, void* xsum, int H, int W,
-             int C, int CC, void* stream) {
+             const void* b1, const hdrtv::QuantParams* q1, const void* const* sft2, const void* w2,
+             const void* b2, const hdrtv::QuantParams* q2, const void* add, int coarse, void* y,
+             void* t, void* h1, void* xsum, int H, int W, int C, int CC, void* stream) {
   using hdrtv::ACT_NONE;
   using hdrtv::ACT_RELU;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -38,51 +49,53 @@ int resblock(const void* x, const void* cond, const void* const* sft1, const voi
   a.cond = cond;
   a.add = add;
   a.xsum = xsum;
-  a.t = t;
+  hdrtv::set_sft_out(a, t, q1);
   hdrtv::set_sft_params(a, sft1);
   a.npix = H * W;
   a.W = W;
   a.C = C;
   a.CC = CC;
   a.coarse = coarse;
-  if (add && !xsum) return static_cast<int>(cudaErrorInvalidValue);
+  if ((add && !xsum) || !q1 != !q2) return static_cast<int>(cudaErrorInvalidValue);
   const void* xin = add ? xsum : x;
 
   cudaError_t err = hdrtv::launch_sft<T, T>(a, s);
   if (err == cudaSuccess)
-    err = hdrtv::conv_same<T, T, float>(t, w1, static_cast<const float*>(b1), nullptr, nullptr,
-                                        h1, H, W, C, C, ACT_RELU, s);
+    err = hdrtv::conv3x3_or_s8<T, float>(t, w1, b1, q1, nullptr, h1, H, W, C, C, ACT_RELU, s);
   a.x = h1;
   a.add = nullptr;
   a.xsum = nullptr;
   a.coarse = 0;
+  hdrtv::set_sft_out(a, t, q2);
   hdrtv::set_sft_params(a, sft2);
   if (err == cudaSuccess) err = hdrtv::launch_sft<T, float>(a, s);
   if (err == cudaSuccess)
-    err = hdrtv::conv_same<T, T, T>(t, w2, static_cast<const float*>(b2), xin, nullptr, y, H, W,
-                                    C, C, ACT_NONE, s);
+    err = hdrtv::conv3x3_or_s8<T, T>(t, w2, b2, q2, xin, y, H, W, C, C, ACT_NONE, s);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
 // sft1, sft2: eight pointers each, (w, b) of scale0, scale1, shift0, shift1.
-// add: nullptr, x_add (coarse = 0) or up_coarse (coarse = 1). Scratch: t
-// Hb·Wb·C elements, h1 Hb·Wb·C floats, xsum Hb·Wb·C elements when add is set.
+// q1, q2: both null for the float form, else the two convs' int8 parameters
+// (w1, b1, w2, b2 unused). add: nullptr, x_add (coarse = 0) or up_coarse
+// (coarse = 1). Scratch: t Hb·Wb·C elements (bytes, codes, with q1 and q2), h1
+// Hb·Wb·C floats, xsum Hb·Wb·C elements when add is set.
 extern "C" int hdrtv_resblock_f32(const void* x, const void* cond, const void* const* sft1,
-                                  const void* w1, const void* b1, const void* const* sft2,
-                                  const void* w2, const void* b2, const void* add, int coarse,
-                                  void* y, void* t, void* h1, void* xsum, int H, int W, int C,
-                                  int CC, void* stream) {
-  return resblock<float>(x, cond, sft1, w1, b1, sft2, w2, b2, add, coarse, y, t, h1, xsum, H, W,
-                         C, CC, stream);
+                                  const void* w1, const void* b1, const void* q1,
+                                  const void* const* sft2, const void* w2, const void* b2,
+                                  const void* q2, const void* add, int coarse, void* y, void* t,
+                                  void* h1, void* xsum, int H, int W, int C, int CC, void* stream) {
+  return resblock<float>(x, cond, sft1, w1, b1, hdrtv::quant_params(q1), sft2, w2, b2,
+                         hdrtv::quant_params(q2), add, coarse, y, t, h1, xsum, H, W, C, CC, stream);
 }
 
 extern "C" int hdrtv_resblock_bf16(const void* x, const void* cond, const void* const* sft1,
-                                   const void* w1, const void* b1, const void* const* sft2,
-                                   const void* w2, const void* b2, const void* add, int coarse,
-                                   void* y, void* t, void* h1, void* xsum, int H, int W, int C,
-                                   int CC, void* stream) {
-  return resblock<hdrtv::bf16>(x, cond, sft1, w1, b1, sft2, w2, b2, add, coarse, y, t, h1, xsum,
-                               H, W, C, CC, stream);
+                                   const void* w1, const void* b1, const void* q1,
+                                   const void* const* sft2, const void* w2, const void* b2,
+                                   const void* q2, const void* add, int coarse, void* y, void* t,
+                                   void* h1, void* xsum, int H, int W, int C, int CC, void* stream) {
+  return resblock<hdrtv::bf16>(x, cond, sft1, w1, b1, hdrtv::quant_params(q1), sft2, w2, b2,
+                               hdrtv::quant_params(q2), add, coarse, y, t, h1, xsum, H, W, C, CC,
+                               stream);
 }

@@ -34,7 +34,15 @@
 // with no further barrier: bf16 on the tensor cores (mma.sync.m16n8k16, the
 // A fragments read from the halo at the tap's offset with ldmatrix), fp32 on
 // the FMA units (a lane owns one pixel and 8 channels).
-#include "conv3x3.cuh"
+//
+// The native-int8 body (`quant`, megakernel.py:468-469, `qargs_hr`; the
+// wrapper counts it as tail_w8a8), when the call passes HR_conv2's
+// QuantParams: step 1 runs the SFT pass in its int8-output mode (t in fp32,
+// quantized, never rounded to the element type), step 2 HR_conv2 on the int8
+// tile of conv3x3_s8.cuh (folded bias, ReLU, h stored in the element type,
+// as in the float body), step 3 conv_last_kernel as above. Bound on this
+// card: bytes.
+#include "conv3x3_s8.cuh"
 #include "pointwise.cuh"
 
 namespace hdrtv {
@@ -178,16 +186,16 @@ cudaError_t launch_conv_last(const LastArgs& a, cudaStream_t stream) {
 
 template <typename T>
 int tail(const void* s, const void* up, const void* cond1, const void* skip,
-         const void* const* sft, const void* w_hr, const void* b_hr, const void* w_last,
-         const void* b_last, void* out, void* t, void* h, int H, int W, int C, int CC, int Cl,
-         int pack, void* stream) {
+         const void* const* sft, const void* w_hr, const void* b_hr, const QuantParams* q_hr,
+         const void* w_last, const void* b_last, void* out, void* t, void* h, int H, int W, int C,
+         int CC, int Cl, int pack, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   SftArgs f;
   f.x = s;
   f.cond = cond1;
   f.add = up;
   f.xsum = nullptr;
-  f.t = t;
+  set_sft_out(f, t, q_hr);
   set_sft_params(f, sft);
   f.npix = H * W;
   f.W = W;
@@ -207,8 +215,7 @@ int tail(const void* s, const void* up, const void* cond1, const void* skip,
   l.pack = pack;
   cudaError_t err = launch_sft<T, T>(f, st);
   if (err == cudaSuccess)
-    err = conv_same<T, T, T>(t, w_hr, static_cast<const float*>(b_hr), nullptr, nullptr, h, H, W,
-                             C, C, ACT_RELU, st);
+    err = conv3x3_or_s8<T, T>(t, w_hr, b_hr, q_hr, nullptr, h, H, W, C, C, ACT_RELU, st);
   if (err == cudaSuccess) err = launch_conv_last<T>(l, st);
   return static_cast<int>(err);
 }
@@ -217,19 +224,23 @@ int tail(const void* s, const void* up, const void* cond1, const void* skip,
 }  // namespace hdrtv
 
 // up: nullptr, or up_coarse (H/2, W/2, 4C). sft: eight pointers, (w, b) of
-// scale0, scale1, shift0, shift1. Scratch: t and h, H·W·C elements each.
+// scale0, scale1, shift0, shift1. q_hr: null for the float form, else
+// HR_conv2's int8 parameters (w_hr and b_hr unused). Scratch: t H·W·C elements
+// (bytes, codes, with q_hr) and h H·W·C elements.
 extern "C" int hdrtv_tail_f32(const void* s, const void* up, const void* cond1, const void* skip,
                               const void* const* sft, const void* w_hr, const void* b_hr,
-                              const void* w_last, const void* b_last, void* out, void* t, void* h,
-                              int H, int W, int C, int CC, int Cl, int pack, void* stream) {
-  return hdrtv::tail<float>(s, up, cond1, skip, sft, w_hr, b_hr, w_last, b_last, out, t, h, H, W,
-                            C, CC, Cl, pack, stream);
+                              const void* q_hr, const void* w_last, const void* b_last, void* out,
+                              void* t, void* h, int H, int W, int C, int CC, int Cl, int pack,
+                              void* stream) {
+  return hdrtv::tail<float>(s, up, cond1, skip, sft, w_hr, b_hr, hdrtv::quant_params(q_hr), w_last,
+                            b_last, out, t, h, H, W, C, CC, Cl, pack, stream);
 }
 
 extern "C" int hdrtv_tail_bf16(const void* s, const void* up, const void* cond1, const void* skip,
                                const void* const* sft, const void* w_hr, const void* b_hr,
-                               const void* w_last, const void* b_last, void* out, void* t, void* h,
-                               int H, int W, int C, int CC, int Cl, int pack, void* stream) {
-  return hdrtv::tail<hdrtv::bf16>(s, up, cond1, skip, sft, w_hr, b_hr, w_last, b_last, out, t, h,
-                                  H, W, C, CC, Cl, pack, stream);
+                               const void* q_hr, const void* w_last, const void* b_last, void* out,
+                               void* t, void* h, int H, int W, int C, int CC, int Cl, int pack,
+                               void* stream) {
+  return hdrtv::tail<hdrtv::bf16>(s, up, cond1, skip, sft, w_hr, b_hr, hdrtv::quant_params(q_hr),
+                                  w_last, b_last, out, t, h, H, W, C, CC, Cl, pack, stream);
 }

@@ -17,7 +17,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-Params = dict  # flat: str -> torch.Tensor
+Params = dict  # flat: str -> torch.Tensor (and "{layer}.__qargs" -> ops/w8a8.py QArgs)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,6 +31,16 @@ above becomes three kernels, agcm_head (AGCM + the LE input conv), cond_chain
 (the five L0 1×1s) and tail (SFT_layer2 + HR_conv2 + conv_last + long skip +
 u16 pack), and u8 row-pair planes are consumed and produced directly.
 ``HDRTV_MEGAKERNEL=0`` in the environment gives the program above back.
+
+Native int8 (W8A8): :func:`attach_native_int8` adds s2d-transformed int8
+weights and scales to the (pre-dequantized) float parameters for the layers
+the JAX package quantizes, :func:`params_to_torch` prepares each such layer
+once (``ops/w8a8.py QArgs``), and the conv kernels take it as ``qargs``
+where the JAX code passes ``_qargs_for``: ``conv_s1`` (block_conv3),
+``_sft_conv`` (sft_conv3), ``_resblock`` (both convs or neither) and the
+mega program's tail (HR_conv2). The stride-2 convs stay float, as in the
+JAX package unless ``HDRTV_INT8_DOWN2=1``, whose int8 down2 body is not
+ported (that setting raises).
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ from hdrtv_tpu_torch.ops.resize import (
     downsample_quarter_aa_flat,
     downsample_quarter_aa_pairs,
 )
+from hdrtv_tpu_torch.ops.w8a8 import QArgs, pack_qargs
 from hdrtv_tpu_torch.utils.env import env_bool
 
 # ---------------------------------------------------------------------------
@@ -341,6 +352,61 @@ def s2d_transform_params(params: dict, cfg: ModelConfig | None = None) -> dict:
     return out
 
 
+def attach_native_int8(sp: dict, raw: dict) -> dict:
+    """Attach s2d-transformed int8 weights and scales for the quantized
+    layers (the JAX ``attach_native_int8``). ``sp`` is the float
+    (pre-dequantized) s2d parameter dict; ``raw`` the original checkpoint
+    with ``.weight_int8`` / ``.w_scale`` / ``.x_scale`` (/ ``.x_zero``). The
+    s2d weight transforms only insert zeros and permute, so they are exact on
+    the int8 codes; per-output-channel scales tile like biases. Only layers
+    of the roles the kernels quantize (stride-1, stride-2, PixelShuffle-folded
+    3×3s and the 1×1s) whose s2d channels are multiples of 128 attach;
+    everything else keeps its pre-dequantized float weight. The three CondNet
+    down convs also attach as the consolidated ``LE.__cond_down`` when their
+    calibration style is uniform (all symmetric or all asymmetric); otherwise
+    its float weight goes and the program takes the split form."""
+    if any(k.startswith("base.") for k in raw):
+        raw = {k[len("base."):] if k.startswith("base.") else k: v for k, v in raw.items()}
+    out = dict(sp)
+    for layer, role in _le_layer_roles().items():
+        qk = f"{layer}.weight_int8"
+        if qk not in raw or f"{layer}.x_scale" not in raw:
+            continue
+        if role not in (_S1, _S2, _PSL, _P11):
+            continue
+        wq = np.asarray(raw[qk])
+        wsc = np.asarray(raw.get(f"{layer}.w_scale", raw.get(f"{layer}.scale")), np.float32)
+        if role == _S1:
+            tq, tsc = w_s2d_s1(wq), b_s2d(wsc)
+        elif role == _PSL:
+            tq = w_s2d_s1_ps(wq)
+            tsc = np.tile(w_ps_permute(wsc.reshape(1, 1, 1, -1))[0, 0, 0], 4)
+        elif role == _P11:
+            tq, tsc = w_s2d_1x1(wq), b_s2d(wsc)
+        else:
+            tq, tsc = w_s2d_s2(wq), b_s2d(wsc)
+        if tq.shape[2] % 128 or tq.shape[3] % 128:
+            continue
+        out[f"{layer}.qweight"] = tq
+        out[f"{layer}.qw_scale"] = tsc
+        out[f"{layer}.qx_scale"] = np.float32(raw[f"{layer}.x_scale"])
+        if f"{layer}.x_zero" in raw:
+            out[f"{layer}.qx_zero"] = np.float32(raw[f"{layer}.x_zero"])
+    branches = [f"LE.CondNet{i}.0" for i in (2, 3, 4)]
+    if all(f"{b}.qweight" in out for b in branches) and "LE.__cond_down.weight" in out:
+        zeros = [f"{b}.qx_zero" in out for b in branches]
+        if all(zeros) or not any(zeros):
+            out["LE.__cond_down.qweight"] = np.concatenate([out[f"{b}.qweight"] for b in branches], axis=-1)
+            out["LE.__cond_down.qw_scale"] = np.concatenate([out[f"{b}.qw_scale"] for b in branches])
+            out["LE.__cond_down.qx_scales"] = np.asarray([out[f"{b}.qx_scale"] for b in branches], np.float32)
+            if all(zeros):
+                out["LE.__cond_down.qx_zeros"] = np.asarray([out[f"{b}.qx_zero"] for b in branches], np.float32)
+        else:
+            out.pop("LE.__cond_down.weight", None)
+            out.pop("LE.__cond_down.bias", None)
+    return out
+
+
 _SFT_CONVS = ("SFT_scale_conv0", "SFT_scale_conv1", "SFT_shift_conv0", "SFT_shift_conv1")
 _TRUNK3_PACKED = "LE.__trunk3_packed"
 # What the megakernel program needs in the parameters, the 1×1 layers whose
@@ -399,20 +465,35 @@ def _fp32_param_names(params_np: dict) -> set[str]:
     return keep
 
 
+_QSCALES = (".qw_scale", ".qx_scale", ".qx_zero", ".qx_scales", ".qx_zeros")
+_QARGS = ".__qargs"  # the prepared ops/w8a8.py QArgs of a native-int8 layer
+
+
 def params_to_torch(params_np: dict, device, policy: Policy = F32) -> Params:
     """Carry the (transformed) numpy parameters to ``device``, cast once to
     what ``policy`` computes with: floating arrays as contiguous tensors of
-    the compute dtype, except the fp32 set of :func:`_fp32_param_names`;
-    anything else with its dtype. Also prepares what depends on the
-    parameters only: the trunk3 kernel's parameter block, and the head
-    kernel's padded and BGR-permuted matrices."""
+    the compute dtype, except the fp32 set of :func:`_fp32_param_names` and
+    the native-int8 scales; anything else (the int8 ``.qweight`` codes among
+    it) with its dtype. Also prepares what depends on the parameters only:
+    the trunk3 kernel's parameter block, the head kernel's padded and
+    BGR-permuted matrices, and for each native-int8 stride-1 3×3 layer its
+    ``QArgs`` under ``{layer}.__qargs`` (what ``_qargs_for`` returns). The
+    int8 1×1s and stride-2 convs, which only the int8 bodies of cond_chain
+    and down2 read (not ported), stay as their raw keys."""
     keep = _fp32_param_names(params_np)
     out = {}
     for k, v in params_np.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
         if t.is_floating_point():
-            t = t.to(torch.float32 if k in keep else policy.compute_dtype)
+            t = t.to(torch.float32 if k in keep or k.endswith(_QSCALES) else policy.compute_dtype)
         out[k] = t.to(device).contiguous()
+    stride1 = {layer for layer, role in _le_layer_roles().items() if role in (_S1, _PSL)}
+    for k in params_np:
+        layer = k[: -len(".qweight")]
+        if k.endswith(".qweight") and layer in stride1 and f"{layer}.qx_scale" in params_np:
+            out[layer + _QARGS] = pack_qargs(
+                params_np[k], params_np[f"{layer}.qw_scale"], params_np[f"{layer}.qx_scale"],
+                params_np.get(f"{layer}.qx_zero"), params_np[f"{layer}.bias"], device)
     if "LE.recon_trunk3.0.conv1.weight" in out and "LE.up_conv1.0.weight" in out:
         out[_TRUNK3_PACKED] = trunk3_pack(*_trunk3_params(out))
     if all(k in out for k in _MEGA_KEYS):
@@ -445,14 +526,26 @@ def _use_fused_kernel(x: torch.Tensor, w: torch.Tensor) -> bool:
     return x.shape[0] == 1 and _fits_kernel(w)
 
 
+def _qargs_for(p: Params, layer: str, x: torch.Tensor) -> QArgs | None:
+    """The native-int8 parameters of ``layer`` (prepared at load) when the
+    JAX program quantizes it for this input, else None. The JAX package
+    quantizes a layer inside its conv kernels only, and takes those where its
+    ``_use_fused_kernel`` holds, whose width rule (Wb % 8 == 0) the port's
+    kernels do not need: at a level whose width breaks it, both packages run
+    the layer in float on the pre-dequantized weight."""
+    qa = p.get(layer + _QARGS)
+    return qa if qa is not None and x.shape[2] % 8 == 0 else None
+
+
 def conv_s1(p, name, x, *, policy, relu_fused: bool = False, skip: torch.Tensor | None = None):
     """Stride-1 3×3 in block domain: 3×3 'same' over plain s2d; the
-    block_conv3 kernel with bias/ReLU/skip fused when the channels fit."""
+    block_conv3 kernel with bias/ReLU/skip fused when the channels fit, in
+    its int8 form on a native-int8 layer."""
     w = p[f"{name}.weight"]
     if _use_fused_kernel(x, w):
         return fused_block_conv3(
             policy.cast(x[0]), policy.cast(w), p[f"{name}.bias"], relu=relu_fused,
-            skip=None if skip is None else policy.cast(skip[0]),
+            skip=None if skip is None else policy.cast(skip[0]), qargs=_qargs_for(p, name, x),
         )[None]
     y = _conv(p, name, x, padding=1, policy=policy)
     if skip is not None:
@@ -472,6 +565,10 @@ def conv_s2(p, name, x, *, policy, relu_fused: bool = False, act: str | None = N
         act = "relu"
     w = p[f"{name}.weight"]
     hb, wb = x.shape[1], x.shape[2]
+    if env_bool("HDRTV_INT8_DOWN2", False) and f"{name}.qweight" in p:
+        raise NotImplementedError(
+            f"HDRTV_INT8_DOWN2=1: the int8 body of fused_down2 ({name}) is not ported to "
+            "hdrtv_tpu_torch yet: ROADMAP.md Slice 6 (native int8, what remains)")
     if _use_fused_kernel(x, w) and hb % 2 == 0 and wb % 2 == 0:
         return fused_down2(
             policy.cast(x[0]), policy.cast(w), p[f"{name}.bias"], act=act, cin=cin, ch0=ch0,
@@ -532,6 +629,7 @@ def _sft_conv(p, sft_name, conv_name, x, cond, *, policy, relu_fused=False, skip
             policy.cast(x[0]), policy.cast(cond[0]), _sft4_bd(p, sft_name, policy),
             policy.cast(p[f"{conv_name}.weight"]), p[f"{conv_name}.bias"],
             relu=relu_fused, skip=None if skip is None else policy.cast(skip[0]),
+            qargs=_qargs_for(p, conv_name, x),
         )[None]
     out = _sft(p, sft_name, x, cond, policy=policy)
     return conv_s1(p, conv_name, out, policy=policy, relu_fused=relu_fused, skip=skip)
@@ -559,6 +657,9 @@ def _resblock(p, name, fea, cond, *, policy, up_coarse=None, x_add=None):
             and tuple(up_coarse.shape[1:]) == (fea.shape[1] // 2, fea.shape[2] // 2, 4 * fea.shape[3])
         )
         if pick_rows_even(fea.shape[1]) >= 4 and coarse_ok:
+            q1 = _qargs_for(p, f"{name}.conv1", fea)
+            q2 = _qargs_for(p, f"{name}.conv2", fea)
+            both = q1 is not None and q2 is not None
             return fused_resblock(
                 policy.cast(fea[0]), policy.cast(cond[0]),
                 _sft4_bd(p, f"{name}.sft1", policy),
@@ -567,6 +668,7 @@ def _resblock(p, name, fea, cond, *, policy, up_coarse=None, x_add=None):
                 policy.cast(p[f"{name}.conv2.weight"]), p[f"{name}.conv2.bias"],
                 up_coarse=None if up_coarse is None else policy.cast(up_coarse[0]),
                 x_add=None if x_add is None else policy.cast(x_add[0]),
+                qargs1=q1 if both else None, qargs2=q2 if both else None,
             )[None]
     fea = _materialize_up(fea, up_coarse, x_add)
     out = _sft_conv(p, f"{name}.sft1", f"{name}.conv1", fea, cond, policy=policy, relu_fused=True)
@@ -793,7 +895,7 @@ def _ensemble_mega(
         s, cond1, agcm, _sft4_bd(p, "LE.SFT_layer2", policy),
         policy.cast(p["LE.HR_conv2.weight"]), p["LE.HR_conv2.bias"],
         policy.cast(p["LE.conv_last.weight"]), p["LE.conv_last.bias"],
-        pack=pack, up_coarse=up_coarse,
+        pack=pack, up_coarse=up_coarse, qargs_hr=_qargs_for(p, "LE.HR_conv2", s[None]),
     )
 
 

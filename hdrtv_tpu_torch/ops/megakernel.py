@@ -13,6 +13,14 @@ In bfloat16 the rounding points are the contract: each plain version rounds
 exactly where the Pallas *kernel body* casts to the compute dtype (which is
 not always where the JAX ``*_ref`` beside it does), and the CUDA kernels
 round at the same places. Sums are fp32 everywhere.
+
+``fused_sft_conv3_v2``, ``fused_resblock`` and ``fused_tail`` also take the
+native-int8 (W8A8) forms of their 3×3 convs (``qargs``, ``ops/w8a8.py``
+``QArgs``), as the Pallas kernels' ``quant`` bodies do: the SFT output t is
+quantized from fp32, never rounded to the element type first, and the conv
+is an exact int32 tap sum rescaled per output channel. The int8 bodies of
+``fused_cond_chain`` and ``fused_down2`` are not ported (ROADMAP.md slice 6:
+no frame program runs them by default).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 
 from hdrtv_tpu_torch.models.layers import conv_nhwc, leaky_relu
 from hdrtv_tpu_torch.ops import native
+from hdrtv_tpu_torch.ops.w8a8 import QArgs, _taps_conv_q, check_qargs
 
 _ACTS = {None: 0, "relu": 1, "lrelu": 2}
 
@@ -260,20 +269,23 @@ def fused_cond_chain(c0: torch.Tensor, weights) -> tuple[torch.Tensor, torch.Ten
 # ---------------------------------------------------------------------------
 
 
-def fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last, *, pack=True, up_coarse=None):
+def fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last, *, pack=True, up_coarse=None,
+                   qargs_hr=None):
     """Plain version, the body of the Pallas ``_tail_kernel``: with
     ``up_coarse`` the SFT input is s + d2s(up_coarse) summed in fp32 and
     stored in the element type; the SFT's hidden activations are stored in
     it, scale, shift and t are fp32; t and h = relu(HR_conv2(t)) are each
     stored in the element type and are zero outside the image (both convs
     pad with zeros); conv_last sums in fp32, adds the fp32 bias and the skip;
-    the pack rounds its multiply and its add separately and truncates."""
+    the pack rounds its multiply and its add separately and truncates. With
+    ``qargs_hr`` (the int8 body) t stays fp32 and is quantized for HR_conv2;
+    h is rounded to the element type as in the float body."""
     dt = s.dtype
     sf = s.float()
     if up_coarse is not None:
         sf = _rounded(sf + _d2s_fine(up_coarse).float(), dt)
-    t = _sft(sf, cond1.to(dt).float(), sft_small, dt)
-    h = _rounded(torch.clamp_min(_conv_same(t, w_hr, b_hr), 0.0), dt)
+    hacc = _sft_conv_t(sf, cond1.to(dt).float(), sft_small, w_hr, b_hr, qargs_hr, dt)
+    h = _rounded(torch.clamp_min(hacc, 0.0), dt)
     y = _conv_same(h, w_last, b_last) + skip.float()
     if not pack:
         return y.to(dt)
@@ -285,7 +297,7 @@ def fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last, *, pac
 def fused_tail(
     s: torch.Tensor, cond1: torch.Tensor, skip: torch.Tensor,
     sft_small, w_hr, b_hr, w_last, b_last,
-    *, pack: bool = True, up_coarse: torch.Tensor | None = None,
+    *, pack: bool = True, up_coarse: torch.Tensor | None = None, qargs_hr: QArgs | None = None,
 ) -> torch.Tensor:
     """The LE output slice over s2d tensors:
 
@@ -300,8 +312,8 @@ def fused_tail(
     type. With ``up_coarse`` (Hb/2, Wb/2, 4C), the un-folded up_conv3 output,
     ``s`` is the fine skip alone and the SFT input is s + d2s(up_coarse),
     un-folded on read. ``sft_small``: four (w (in, out), b) pairs as for
-    :func:`fused_sft_conv3_v2`. The JAX kernel's int8 ``qargs_hr`` form is not
-    ported."""
+    :func:`fused_sft_conv3_v2`. ``qargs_hr``: HR_conv2's int8 parameters (the
+    int8 body, ``tail_w8a8``; they stand in for ``w_hr`` and ``b_hr``)."""
     hb, wb, c = s.shape
     cc = cond1.shape[-1]
     cl = w_last.shape[-1]
@@ -314,11 +326,13 @@ def fused_tail(
     tensors = [s, cond1, skip, w_hr, b_hr, w_last, b_last] + ([] if up_coarse is None else [up_coarse])
     cpu = native.on_cpu(*tensors, *[t for pair in sft_small for t in pair])
     flat = _check_sft("tail", sft_small, dt, c, cc, not cpu)
+    if qargs_hr is not None:
+        check_qargs("tail", qargs_hr, c, c, not cpu)
     if cpu:
         return fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last,
-                              pack=pack, up_coarse=up_coarse)
-    if c % 32 or cc % 16 or cl % 4 or cl > 16:
-        raise ValueError(f"tail needs C % 32, CC % 16, and 4 | Cl <= 16, got {c}, {cc}, {cl}")
+                              pack=pack, up_coarse=up_coarse, qargs_hr=qargs_hr)
+    if c % 32 or cc % 16 or cl % 4 or cl > 16 or (qargs_hr is not None and c % 64):
+        raise ValueError(f"tail needs C % 32, CC % 16, and 4 | Cl <= 16 (int8: C % 64), got {c}, {cc}, {cl}")
     native.check_cuda("tail s", s, dt)
     native.check_cuda("tail cond1", cond1, dt)
     native.check_cuda("tail skip", skip, dt)
@@ -328,7 +342,7 @@ def fused_tail(
     native.check_cuda("tail b_last", b_last, torch.float32, (cl,))
     if up_coarse is not None:
         native.check_cuda("tail up_coarse", up_coarse, dt)
-    t = torch.empty((hb, wb, c), dtype=dt, device=s.device)
+    t = torch.empty((hb, wb, c), dtype=dt if qargs_hr is None else torch.int8, device=s.device)  # t or its codes
     h = torch.empty((hb, wb, c), dtype=dt, device=s.device)
     if pack:
         out = torch.empty((hb, 2, wb, cl // 2), dtype=torch.uint16, device=s.device)
@@ -338,8 +352,9 @@ def fused_tail(
         "tail", dt,
         s.data_ptr(), None if up_coarse is None else up_coarse.data_ptr(), cond1.data_ptr(),
         skip.data_ptr(), native.pointer_array(flat), w_hr.data_ptr(), b_hr.data_ptr(),
-        w_last.data_ptr(), b_last.data_ptr(), out.data_ptr(), t.data_ptr(), h.data_ptr(),
-        hb, wb, c, cc, cl, int(pack), native.stream_of(s),
+        native.quant_params(qargs_hr), w_last.data_ptr(), b_last.data_ptr(), out.data_ptr(), t.data_ptr(),
+        h.data_ptr(), hb, wb, c, cc, cl, int(pack), native.stream_of(s),
+        counter=None if qargs_hr is None else "tail_w8a8",
     )
     return out
 
@@ -479,11 +494,27 @@ def _sft_mix(cond: torch.Tensor, p0, p1, dtype: torch.dtype) -> torch.Tensor:
     return torch.matmul(_rounded(h, dtype), p1[0].float()) + p1[1]
 
 
-def _sft(x: torch.Tensor, cond: torch.Tensor, sft4, dtype: torch.dtype) -> torch.Tensor:
-    """t = x·(scale+1)+shift in fp32 (``x``, ``cond`` fp32), stored in ``dtype``."""
+def _sft_t(x: torch.Tensor, cond: torch.Tensor, sft4, dtype: torch.dtype) -> torch.Tensor:
+    """t = x·(scale+1)+shift in fp32 (``x``, ``cond`` fp32), not rounded:
+    what an int8 body quantizes."""
     scale = _sft_mix(cond, sft4[0], sft4[1], dtype)
     shift = _sft_mix(cond, sft4[2], sft4[3], dtype)
-    return _rounded(x * (scale + 1.0) + shift, dtype)
+    return x * (scale + 1.0) + shift
+
+
+def _sft(x: torch.Tensor, cond: torch.Tensor, sft4, dtype: torch.dtype) -> torch.Tensor:
+    """t = x·(scale+1)+shift in fp32 (``x``, ``cond`` fp32), stored in ``dtype``."""
+    return _rounded(_sft_t(x, cond, sft4, dtype), dtype)
+
+
+def _sft_conv_t(x: torch.Tensor, cond: torch.Tensor, sft4, w, b, qa: QArgs | None,
+                dtype: torch.dtype) -> torch.Tensor:
+    """An SFT and the 3×3 conv after it, fp32 with the bias: the float
+    body's conv of t stored in ``dtype``, or the int8 body's of t quantized
+    from fp32."""
+    if qa is None:
+        return _conv_same(_sft(x, cond, sft4, dtype), w, b)
+    return _taps_conv_q(_sft_t(x, cond, sft4, dtype), qa)
 
 
 def _d2s_fine(cu: torch.Tensor) -> torch.Tensor:
@@ -494,14 +525,14 @@ def _d2s_fine(cu: torch.Tensor) -> torch.Tensor:
     return cu.reshape(hc, wc, 2, 2, c).permute(0, 2, 1, 3, 4).reshape(2 * hc, 2 * wc, c)
 
 
-def fused_sft_conv3_v2_ref(x, cond, sft4, w, b, *, relu=False, skip=None):
+def fused_sft_conv3_v2_ref(x, cond, sft4, w, b, *, relu=False, skip=None, qargs=None):
     """Plain version, the body of the Pallas ``_sft_conv_kernel``: cond in the
     element type; hidden activations stored in it; scale, shift and t in
     fp32; t stored in the element type, zero outside the image (the conv's
-    'same' padding); fp32 conv sum + fp32 bias + skip, ReLU, one rounding."""
+    'same' padding); fp32 conv sum + fp32 bias + skip, ReLU, one rounding.
+    With ``qargs`` (the int8 body) t stays fp32 and is quantized instead."""
     dt = x.dtype
-    t = _sft(x.float(), cond.to(dt).float(), sft4, dt)
-    y = _conv_same(t, w, b)
+    y = _sft_conv_t(x.float(), cond.to(dt).float(), sft4, w, b, qargs, dt)
     if skip is not None:
         y = y + skip.float()
     if relu:
@@ -527,14 +558,14 @@ def _check_sft(name: str, sft4, dt: torch.dtype, c: int, cc: int, cuda: bool) ->
 
 def fused_sft_conv3_v2(
     x: torch.Tensor, cond: torch.Tensor, sft4, w: torch.Tensor, b: torch.Tensor,
-    *, relu: bool = False, skip: torch.Tensor | None = None,
+    *, relu: bool = False, skip: torch.Tensor | None = None, qargs: QArgs | None = None,
 ) -> torch.Tensor:
     """y = conv3x3(sft(x, cond)) (+skip)(relu) over s2d tensors: x (Hb,Wb,C),
     cond (Hb,Wb,CC) → (Hb,Wb,Co).
 
     ``sft4``: four (w (in, out), b) pairs, scale0, scale1, shift0, shift1 (the
-    s2d block-diagonal dense 1×1s). The JAX kernel's int8 ``qargs`` form is
-    not ported.
+    s2d block-diagonal dense 1×1s). ``qargs``: the conv's int8 parameters
+    (the int8 body, ``sft_conv3_w8a8``; they stand in for ``w`` and ``b``).
     """
     hb, wb, c = x.shape
     cc = cond.shape[-1]
@@ -544,34 +575,39 @@ def fused_sft_conv3_v2(
     tensors = [x, cond, w, b] + ([] if skip is None else [skip])
     cpu = native.on_cpu(*tensors, *[t for pair in sft4 for t in pair])
     flat = _check_sft("sft_conv3", sft4, dt, c, cc, not cpu)
+    if qargs is not None:
+        check_qargs("sft_conv3", qargs, c, co, not cpu)
     if cpu:
-        return fused_sft_conv3_v2_ref(x, cond, sft4, w, b, relu=relu, skip=skip)
-    if c % 16 or cc % 16 or co % 4:
-        raise ValueError(f"sft_conv3 needs C % 16, CC % 16 and Co % 4 == 0, got {c}, {cc}, {co}")
+        return fused_sft_conv3_v2_ref(x, cond, sft4, w, b, relu=relu, skip=skip, qargs=qargs)
+    if c % 16 or cc % 16 or co % 4 or (qargs is not None and (c % 64 or co % 8)):
+        raise ValueError(f"sft_conv3 needs C % 16, CC % 16 and Co % 4 == 0 (int8: C % 64 and Co % 8), "
+                         f"got {c}, {cc}, {co}")
     native.check_cuda("sft_conv3 x", x, dt)
     native.check_cuda("sft_conv3 cond", cond, dt, (hb, wb, cc))
     native.check_cuda("sft_conv3 w", w, dt, (3, 3, c, co))
     native.check_cuda("sft_conv3 b", b, torch.float32, (co,))
     if skip is not None:
         native.check_cuda("sft_conv3 skip", skip, dt, (hb, wb, co))
-    sft_ptrs = native.pointer_array(flat)
-    t = torch.empty((hb, wb, c), dtype=dt, device=x.device)
     out = torch.empty((hb, wb, co), dtype=dt, device=x.device)
+    t = torch.empty((hb, wb, c), dtype=dt if qargs is None else torch.int8, device=x.device)  # t or its codes
     native.launch(
         "sft_conv3", dt,
-        x.data_ptr(), cond.data_ptr(), sft_ptrs, w.data_ptr(), b.data_ptr(),
-        None if skip is None else skip.data_ptr(), out.data_ptr(), t.data_ptr(),
+        x.data_ptr(), cond.data_ptr(), native.pointer_array(flat), w.data_ptr(), b.data_ptr(),
+        native.quant_params(qargs), None if skip is None else skip.data_ptr(), out.data_ptr(), t.data_ptr(),
         hb, wb, c, cc, co, int(relu), native.stream_of(x),
+        counter=None if qargs is None else "sft_conv3_w8a8",
     )
     return out
 
 
-def fused_resblock_ref(x, cond, sft1, w1, b1, sft2, w2, b2, *, up_coarse=None, x_add=None):
+def fused_resblock_ref(x, cond, sft1, w1, b1, sft2, w2, b2, *, up_coarse=None, x_add=None,
+                       qargs1=None, qargs2=None):
     """Plain version, the body of the Pallas ``_resblock_kernel``: with a
     second input the block input is x + d2s(up_coarse) (or x + x_add) summed
     in fp32 and stored in the element type, and that stored sum is the
     residual; h1 = relu(conv1 + b1) stays fp32 into SFT2; t1 and t2 are
-    stored in the element type; out = conv2 + b2 + input in fp32, one
+    stored in the element type (quantized from fp32 in the int8 body, with
+    ``qargs1`` and ``qargs2``); out = conv2 + b2 + input in fp32, one
     rounding."""
     dt = x.dtype
     xin = x.float()
@@ -580,13 +616,14 @@ def fused_resblock_ref(x, cond, sft1, w1, b1, sft2, w2, b2, *, up_coarse=None, x
     elif x_add is not None:
         xin = _rounded(xin + x_add.float(), dt)
     cf = cond.to(dt).float()
-    h1 = torch.clamp_min(_conv_same(_sft(xin, cf, sft1, dt), w1, b1), 0.0)
-    return (_conv_same(_sft(h1, cf, sft2, dt), w2, b2) + xin).to(dt)
+    h1 = torch.clamp_min(_sft_conv_t(xin, cf, sft1, w1, b1, qargs1, dt), 0.0)
+    return (_sft_conv_t(h1, cf, sft2, w2, b2, qargs2, dt) + xin).to(dt)
 
 
 def fused_resblock(
     x: torch.Tensor, cond: torch.Tensor, sft1, w1, b1, sft2, w2, b2,
     *, up_coarse: torch.Tensor | None = None, x_add: torch.Tensor | None = None,
+    qargs1: QArgs | None = None, qargs2: QArgs | None = None,
 ) -> torch.Tensor:
     """ResBlock_with_SFT in one call:
 
@@ -594,8 +631,9 @@ def fused_resblock(
 
     over x (Hb,Wb,C), cond (Hb,Wb,CC). ``up_coarse`` (Hb/2, Wb/2, 4C): xin =
     x + d2s(up_coarse), un-folded on read (trunk5's up path); ``x_add``
-    (Hb,Wb,C): xin = x + x_add (trunk4's). Otherwise xin = x. The JAX
-    kernel's int8 ``qargs`` forms are not ported.
+    (Hb,Wb,C): xin = x + x_add (trunk4's). Otherwise xin = x. ``qargs1`` and
+    ``qargs2``: the two convs' int8 parameters, both or neither (the int8
+    body, ``resblock_w8a8``).
     """
     hb, wb, c = x.shape
     cc = cond.shape[-1]
@@ -610,10 +648,17 @@ def fused_resblock(
     cpu = native.on_cpu(*tensors, *[t for pair in (*sft1, *sft2) for t in pair])
     flat1 = _check_sft("resblock sft1", sft1, dt, c, cc, not cpu)
     flat2 = _check_sft("resblock sft2", sft2, dt, c, cc, not cpu)
+    if (qargs1 is None) != (qargs2 is None):
+        raise ValueError("resblock: qargs1 and qargs2 come both or neither")
+    quant = qargs1 is not None
+    if quant:
+        check_qargs("resblock conv1", qargs1, c, c, not cpu)
+        check_qargs("resblock conv2", qargs2, c, c, not cpu)
     if cpu:
-        return fused_resblock_ref(x, cond, sft1, w1, b1, sft2, w2, b2, up_coarse=up_coarse, x_add=x_add)
-    if c % 16 or cc % 16:
-        raise ValueError(f"resblock needs C % 16 and CC % 16 == 0, got {c}, {cc}")
+        return fused_resblock_ref(x, cond, sft1, w1, b1, sft2, w2, b2, up_coarse=up_coarse, x_add=x_add,
+                                  qargs1=qargs1, qargs2=qargs2)
+    if c % 16 or cc % 16 or (quant and c % 64):
+        raise ValueError(f"resblock needs C % 16 and CC % 16 == 0 (int8: C % 64), got {c}, {cc}")
     native.check_cuda("resblock x", x, dt)
     native.check_cuda("resblock cond", cond, dt, (hb, wb, cc))
     for name, w, b in (("1", w1, b1), ("2", w2, b2)):
@@ -623,19 +668,18 @@ def fused_resblock(
         native.check_cuda("resblock x_add", x_add, dt, (hb, wb, c))
     if up_coarse is not None:
         native.check_cuda("resblock up_coarse", up_coarse, dt)
-    p1, p2 = native.pointer_array(flat1), native.pointer_array(flat2)
-    t = torch.empty((hb, wb, c), dtype=dt, device=x.device)
+    t = torch.empty((hb, wb, c), dtype=torch.int8 if quant else dt, device=x.device)  # t or its codes
     h1 = torch.empty((hb, wb, c), dtype=torch.float32, device=x.device)
     xsum = None if second is None else torch.empty((hb, wb, c), dtype=dt, device=x.device)
     out = torch.empty((hb, wb, c), dtype=dt, device=x.device)
     native.launch(
         "resblock", dt,
-        x.data_ptr(), cond.data_ptr(), p1, w1.data_ptr(), b1.data_ptr(),
-        p2, w2.data_ptr(), b2.data_ptr(),
-        None if second is None else second.data_ptr(), int(up_coarse is not None),
-        out.data_ptr(), t.data_ptr(), h1.data_ptr(),
-        None if xsum is None else xsum.data_ptr(),
+        x.data_ptr(), cond.data_ptr(), native.pointer_array(flat1), w1.data_ptr(), b1.data_ptr(),
+        native.quant_params(qargs1), native.pointer_array(flat2), w2.data_ptr(), b2.data_ptr(),
+        native.quant_params(qargs2), None if second is None else second.data_ptr(), int(up_coarse is not None),
+        out.data_ptr(), t.data_ptr(), h1.data_ptr(), None if xsum is None else xsum.data_ptr(),
         hb, wb, c, cc, native.stream_of(x),
+        counter="resblock_w8a8" if quant else None,
     )
     return out
 

@@ -37,6 +37,7 @@ launch_counts: dict[str, int] = {
     "sft_conv3": 0, "resblock": 0, "mix_chain": 0,
     "agcm_head": 0, "cond_chain": 0, "tail": 0,
     "hg_tail": 0, "colorimetric": 0,
+    "block_conv3_w8a8": 0, "sft_conv3_w8a8": 0, "resblock_w8a8": 0, "tail_w8a8": 0,
 }
 
 # Element types the kernels are instantiated for, and the suffix of their
@@ -124,17 +125,18 @@ def lib() -> ctypes.CDLL:
     function's argument and result types declared."""
     so = ctypes.CDLL(str(build()))
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    q = ctypes.POINTER(QuantParams)
     per_dtype = {
         "hdrtv_pack_rgb48": ([p, p, ll, p], i),
-        "hdrtv_block_conv3": ([p, p, p, p, p, i, i, i, i, i, p], i),
+        "hdrtv_block_conv3": ([p, p, p, q, p, p, p, i, i, i, i, i, p], i),
         "hdrtv_down2": ([p, p, p, p, i, i, i, i, i, i, i, p], i),
         "hdrtv_trunk3": ([p, p, p, p, p, i, i, i, i, i, p], i),
-        "hdrtv_sft_conv3": ([p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
-        "hdrtv_resblock": ([p, p, p, p, p, p, p, p, p, i, p, p, p, p, i, i, i, i, p], i),
+        "hdrtv_sft_conv3": ([p, p, p, p, p, q, p, p, p, i, i, i, i, i, i, p], i),
+        "hdrtv_resblock": ([p, p, p, p, p, q, p, p, p, q, p, i, p, p, p, p, i, i, i, i, p], i),
         "hdrtv_mix_chain": ([p, p, p, p, p, p, p, i, i, i, i, p], i),
         "hdrtv_agcm_head": ([p, i, f, p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
         "hdrtv_cond_chain": ([p, p, p, p, p, p, p, i, p], i),
-        "hdrtv_tail": ([p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
+        "hdrtv_tail": ([p, p, p, p, p, p, p, q, p, p, p, p, p, i, i, i, i, i, i, p], i),
         "hdrtv_hg_tail": ([p, p, p, p, p, p, p, p, p, i, i, i, i, p], i),
         "hdrtv_colorimetric": ([p, p, ll, *([f] * 16), p], i),
     }
@@ -152,21 +154,42 @@ def lib() -> ctypes.CDLL:
     return so
 
 
+class QuantParams(ctypes.Structure):
+    """An int8 layer as the W8A8 kernels take it (``struct QuantParams`` of
+    ``csrc/conv3x3_s8.cuh``): device addresses of the (Co, 9·C) int8 weight,
+    the fp32 yscale and folded bias; x_scale, x_zero (0 when symmetric), the
+    asymmetric flag and the pad code."""
+
+    _fields_ = [("w", ctypes.c_void_p), ("yscale", ctypes.c_void_p), ("bias", ctypes.c_void_p),
+                ("s", ctypes.c_float), ("z", ctypes.c_float), ("asym", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+def quant_params(qa):
+    """What a kernel with an int8 form takes for an ``ops/w8a8.py`` ``QArgs``
+    on the card: a reference to its :class:`QuantParams` (the kernel's host
+    side reads it during the call), or None (the float form) for None."""
+    if qa is None:
+        return None
+    return ctypes.byref(QuantParams(qa.w.data_ptr(), qa.yscale.data_ptr(), qa.bias.data_ptr(), qa.scale,
+                                    0.0 if qa.zero is None else qa.zero, int(qa.zero is not None), qa.pad))
+
+
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch(kernel: str, dtype: torch.dtype, *args) -> None:
+def launch(kernel: str, dtype: torch.dtype, *args, counter: str | None = None) -> None:
     """Call the exported C function of ``kernel`` for element type ``dtype``
     (``hdrtv_<kernel>_f32`` or ``_bf16``); raise on a non-zero
-    cudaGetLastError() and count the launch under ``kernel``."""
+    cudaGetLastError() and count the launch under ``counter`` (by default
+    ``kernel``; a kernel's int8 form counts under ``<kernel>_w8a8``)."""
     so = lib()
     fn_name = f"hdrtv_{kernel}_{DTYPE_SUFFIX[dtype]}"
     rc = getattr(so, fn_name)(*args)
     if rc != 0:
         msg = so.hdrtv_error_string(rc).decode()
-        raise RuntimeError(f"{kernel}: {fn_name} failed with CUDA error {rc} ({msg})")
-    launch_counts[kernel] += 1
+        raise RuntimeError(f"{counter or kernel}: {fn_name} failed with CUDA error {rc} ({msg})")
+    launch_counts[counter or kernel] += 1
 
 
 def pointer_array(tensors) -> ctypes.Array:

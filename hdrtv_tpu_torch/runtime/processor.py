@@ -31,6 +31,18 @@ sidecar or as an argument) each of them becomes the HG composite program
 ``HDRTV_HG_TAIL=0`` in the environment, read at each call, replaces the
 hg_tail kernel by the torch-op tail, as in the JAX package.
 
+An int8 checkpoint (``.weight_int8`` keys; slice 6) takes the JAX runtime's
+route: its weights are pre-dequantized to float at load
+(``HDRTVNET_PREDEQUANTIZE``, on by default), s2d-transformed, and, for a
+W8A8 checkpoint, the int8 codes and scales of the layers the kernels
+quantize are attached (``models/s2d.py attach_native_int8``;
+``HDRTVNET_NATIVE_INT8``, on by default, read at load). Each of the three
+base programs above then runs those layers' convs in the kernels' int8 forms
+(block_conv3, sft_conv3, resblock and tail): activations quantized per
+tensor, int8 × int8 → int32 products. A weight-only (W8) checkpoint, or
+``HDRTVNET_NATIVE_INT8=0``, runs the float program on the pre-dequantized
+weights.
+
 Everything else raises with the ROADMAP item that will port it; nothing falls
 back to a different computation, and nothing runs on the CPU unless the
 caller asks for ``device="cpu"``.
@@ -46,12 +58,14 @@ from hdrtv_tpu_torch.models.hg_s2d import hg_composite_s2d
 from hdrtv_tpu_torch.models.import_npz import load_npz, load_npz_meta, npz_arch_dict
 from hdrtv_tpu_torch.models.layers import Policy, policy_for
 from hdrtv_tpu_torch.models.s2d import (
+    attach_native_int8,
     ensemble_s2d_base_flat,
     ensemble_s2d_rgb48_flat,
     ensemble_s2d_rgb48_pairs,
     params_to_torch,
     s2d_transform_params,
 )
+from hdrtv_tpu_torch.quant.int8 import predequantize_params
 from hdrtv_tpu_torch.utils.env import env_bool
 
 
@@ -74,6 +88,10 @@ class HDRTVNetTorch:
     what the policy computes with once, here.
     ``device``: ``None`` means ``"cuda"`` and raises without a CUDA device;
     ``"cpu"`` runs the kernels' plain versions (the tests' mode).
+    ``predequantize``: for an int8 checkpoint, expand the int8 weights to
+    float at load (``None`` reads ``HDRTVNET_PREDEQUANTIZE``, default on; off,
+    the eager W8A8 path, is not ported). ``predequantized`` and
+    ``native_int8`` say what the load did.
     """
 
     def __init__(
@@ -86,6 +104,7 @@ class HDRTVNetTorch:
         fast_condition_resize: bool | None = None,
         fast_zero_condition: bool | None = None,
         proc_resolution: tuple[int, int] | None = None,
+        predequantize: bool | None = None,
         mesh=None,
     ):
         self.model_path = model_path
@@ -126,17 +145,35 @@ class HDRTVNetTorch:
                 "use_hg on a checkpoint without hg.* weights (the natural-layout HG composite)",
                 "Slice 5 (natural-layout fallback)",
             )
-        if any(k.endswith(".weight_int8") for k in params):
-            raise _not_ported("int8 checkpoints", "Slice 6 (native int8)")
+        has_int8 = any(k.endswith(".weight_int8") for k in params)
+        if predequantize is None:
+            predequantize = env_bool("HDRTVNET_PREDEQUANTIZE", True)
+        if has_int8 and not predequantize:
+            raise _not_ported("the eager W8A8 path of int8 checkpoints (predequantize off)",
+                              "Slice 5 (natural-layout fallback)")
+        if has_int8 and (cfg.use_hg or any(k.startswith(("base.", "hg.")) for k in params)):
+            raise _not_ported("int8 composite (HG) checkpoints", "Slice 6 (native int8, what remains)")
         if cfg.classifier != "color_condition" or cfg.le_arch != "sft" or cfg.post_correction:
             raise _not_ported(
                 f"architecture {cfg.classifier}/{cfg.le_arch}/{cfg.post_correction or '-'}",
                 "Slice 8 (model variants: Queue 1 item 9)",
             )
         self.cfg = cfg
+        # An int8 checkpoint: float weights once at load (the JAX runtime's
+        # pre-dequantize mode), then, for W8A8 layers, the s2d-transformed
+        # int8 codes beside them for the kernels' int8 forms.
+        self.predequantized = has_int8
+        raw_int8 = params if has_int8 else None
+        if has_int8:
+            params = predequantize_params(params)
         # s2d weight transform once on the host, then one cast and one copy
         # to the device.
-        self.params = params_to_torch(s2d_transform_params(params, cfg), self.device, self.policy)
+        sp = s2d_transform_params(params, cfg)
+        self.native_int8 = False
+        if has_int8 and env_bool("HDRTVNET_NATIVE_INT8", True):
+            sp = attach_native_int8(sp, raw_int8)
+            self.native_int8 = any(k.endswith(".qweight") for k in sp)
+        self.params = params_to_torch(sp, self.device, self.policy)
 
     # ------------------------------------------------------------------
     # Frame programs

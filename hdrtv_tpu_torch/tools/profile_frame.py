@@ -2,20 +2,21 @@
 package's tools/profile_frame.py).
 
     [HDRTV_MEGAKERNEL=0] python -m hdrtv_tpu_torch.tools.profile_frame
-        [--precision fp16|fp32] [--hg] [--height 1080 --width 1920 --frames 3]
+        [--precision fp16|fp32] [--hg | --int8] [--height 1080 --width 1920 --frames 3]
 
 Runs warm device-resident frames through HDRTVNetTorch.process_rgb48_device
 (bf16 takes the megakernel program unless HDRTV_MEGAKERNEL=0 is set; --hg
 runs the HG composite program on a synthetic hg_nf = 64 generator over the
-real base model, tools/synth_hg.py, written to a temporary directory)
-under torch.profiler and prints, per frame: the device time of each kernel
+real base model, tools/synth_hg.py, written to a temporary directory;
+--int8 the native-int8 programs on the W8A8 checkpoint
+tests/fixtures/hr_w8a8.npz) under torch.profiler and prints, per frame: the device time of each kernel
 (grouped: the port's CUDA kernels, cuDNN convolutions, GEMMs, elementwise
 and reduction passes, copies), the top kernels by device time, the wall
 time, and the device busy share (kernel time over wall time; one stream, so
 kernels do not overlap), and the number of kernel launches. The port's
 kernels are also split by source kernel (conv tile on the FMA units and on
 the tensor cores, SFT passes, 1×1 chains, the head's two kernels, conv_last,
-pack, the HG tail). The last two lines are the card's
+pack, the HG tail, the int8 conv tile and quantize pass). The last two lines are the card's
 name and power limit as nvidia-smi gives them, and the same breakdown as
 JSON. Needs a CUDA device.
 """
@@ -35,7 +36,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 GROUPS = (
     ("port kernels", ("conv3x3_kernel", "conv3x3_mma_kernel", "sft_kernel", "chain_kernel",
                       "pack_rgb48_kernel", "agcm_kernel", "in_conv_kernel", "conv_last_kernel",
-                      "hg_tail_mma_kernel", "hg_tail_fma_kernel", "colorimetric_kernel")),
+                      "hg_tail_mma_kernel", "hg_tail_fma_kernel", "colorimetric_kernel",
+                      "conv3x3_s8_kernel", "quantize_kernel")),
     ("cudnn conv", ("cudnn", "conv", "implicit_gemm", "xmma_fprop", "winograd")),
     ("gemm", ("gemm", "cutlass", "sgemm", "matmul")),
     ("elementwise/reduce", ("elementwise", "vectorized", "reduce", "unrolled", "index", "cat")),
@@ -65,6 +67,8 @@ def main() -> int:
                     help="the processor's precision token: fp16 (bf16, the default) or fp32")
     ap.add_argument("--hg", action="store_true",
                     help="the HG composite program (synthetic hg_nf = 64 generator on the real base model)")
+    ap.add_argument("--int8", action="store_true",
+                    help="the native-int8 programs on the W8A8 checkpoint tests/fixtures/hr_w8a8.npz")
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--frames", type=int, default=3)
@@ -87,6 +91,8 @@ def main() -> int:
 
     h, w, n = args.height, args.width, args.frames
     weights = os.path.join(ROOT, "weights", "hr_fp32.npz")
+    if args.int8:
+        weights = os.path.join(ROOT, "tests", "fixtures", "hr_w8a8.npz")
     if args.hg:
         from hdrtv_tpu_torch.tools.synth_hg import write_synth_hg
 
@@ -120,9 +126,9 @@ def main() -> int:
         groups[group_of(e.key)] = groups.get(group_of(e.key), 0.0) + device_us(e) / 1e3 / n
     busy_ms = sum(groups.values())
     launches = sum(e.count for e in kernels) / n
-    mega = native.launch_counts["tail"] > 0
+    mega = native.launch_counts["tail"] + native.launch_counts["tail_w8a8"] > 0
     print(f"card: {torch.cuda.get_device_name(0)}; {h}x{w} {dtype}, {n} frames under torch.profiler; "
-          f"megakernel program: {mega}; HG composite: {proc.cfg.use_hg}")
+          f"megakernel program: {mega}; HG composite: {proc.cfg.use_hg}; native int8: {proc.native_int8}")
     print(f"wall {wall_ms:.3f} ms/frame; kernel time {busy_ms:.3f} ms/frame; "
           f"device busy {busy_ms / wall_ms:.3f}, idle {1 - busy_ms / wall_ms:.3f}; "
           f"{launches:.1f} kernel launches/frame")
@@ -151,7 +157,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0])
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "precision": args.precision, "dtype": dtype,
-        "height": h, "width": w, "frames": n, "megakernel": mega, "hg": proc.cfg.use_hg, "launches": launches,
+        "height": h, "width": w, "frames": n, "megakernel": mega, "hg": proc.cfg.use_hg,
+        "int8": proc.native_int8, "launches": launches,
         "wall_ms": wall_ms, "kernel_ms": busy_ms, "busy": busy_ms / wall_ms,
         "groups_ms": groups, "port_kernels_ms": {k: v[0] for k, v in port.items()},
         "top": [{"name": e.key[:160], "ms": device_us(e) / 1e3 / n, "launches": e.count / n}

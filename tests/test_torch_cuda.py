@@ -508,3 +508,165 @@ def test_wrappers_reject_bad_cuda_inputs(dev):
         fused_block_conv3(x, w, b)
     with pytest.raises(ValueError):
         fused_block_conv3(x.float().cpu(), w, b)
+
+
+# ---------------------------------------------------------------------------
+# Native int8 (W8A8) bodies: block_conv3_w8a8, sft_conv3_w8a8, resblock_w8a8,
+# tail_w8a8 against their plain versions, symmetric and asymmetric.
+# ---------------------------------------------------------------------------
+
+
+def _qlayer(rng, dev, c, co, t_range, asym, ps=False):
+    """A native-int8 s2d conv layer on the card: natural weights quantized per
+    output channel and s2d-transformed; the activation scale (and zero, when
+    ``asym``) calibrated on ``t_range``. Returns (float weight, bias, QArgs)."""
+    from hdrtv_tpu_torch.models.s2d import b_s2d, w_ps_permute, w_s2d_s1_ps
+    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
+    from hdrtv_tpu_torch.quant.int8 import quantize_weight
+
+    wq, ws = quantize_weight(rng.randn(3, 3, c // 4, co // 4).astype(np.float32) * 0.05)
+    if ps:
+        tq, tsc = w_s2d_s1_ps(wq), np.tile(w_ps_permute(ws.reshape(1, 1, 1, -1))[0, 0, 0], 4)
+    else:
+        tq, tsc = w_s2d_s1(wq), b_s2d(ws)
+    lo, hi = t_range
+    s, z = ((hi - lo) / 255.0, lo) if asym else (max(abs(lo), abs(hi)) / 127.0, None)
+    b = (rng.randn(co) * 0.1).astype(np.float32)
+    return _t(tq.astype(np.float32) * tsc, dev), _t(b, dev), pack_qargs(tq, tsc, s, z, b, dev)
+
+
+def _q_close(y, y_ref, qa, dtype, *, share, flips=2):
+    """Equal but where a code of t flipped (t's scale and shift are sums
+    taken in another order than the plain version's, so t can differ in its
+    last bit): each output within ``flips`` flipped codes' worth (127·yscale
+    each) plus, in bf16, one step of its rounding; at most ``share`` of the
+    outputs differ at all (sft_conv3 f32 at 9×15 showed 1.7%: at these
+    shapes a flip is a large share)."""
+    torch.cuda.synchronize()
+    assert y.dtype == y_ref.dtype and y.shape == y_ref.shape
+    err = (y.float() - y_ref.float()).abs()
+    bound = flips * 127.0 * float(qa.yscale.max())
+    if dtype == "bf16":
+        bound = bound + 2.0 ** -7 * y_ref.float().abs().clamp_min(1.0)
+    assert bool((err <= bound).all()), float(err.max())
+    assert float((err > 0).float().mean()) <= share, float((err > 0).float().mean())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+@pytest.mark.parametrize("hb,wb,co,relu,skip", [(12, 20, 128, True, False), (9, 14, 512, True, False),
+                                               (9, 15, 128, False, True)])
+def test_block_conv3_w8a8_matches_plain(dev, dtype, asym, hb, wb, co, relu, skip):
+    """The same codes (IEEE division, round half to even) and the exact int32
+    sum, rescaled and biased with separately rounded operations on both
+    sides: bit for bit, ragged tiles and masked output rows included."""
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_q_ref
+
+    rng = np.random.RandomState(hb * wb + co + asym)
+    c = 128
+    x = _t(rng.rand(hb, wb, c) * 1.2 - 0.1, dev, dtype)
+    w, b, qa = _qlayer(rng, dev, c, co, (-0.1, 1.0), asym, ps=co == 512)
+    sk = _t(rng.rand(hb, wb, co), dev, dtype) if skip else None
+    before = native.launch_counts["block_conv3_w8a8"], native.launch_counts["block_conv3"]
+    y = fused_block_conv3(x, w.to(x.dtype), b, relu=relu, skip=sk, qargs=qa)
+    assert (native.launch_counts["block_conv3_w8a8"], native.launch_counts["block_conv3"]) == (before[0] + 1, before[1])
+    y_r = fused_block_conv3_q_ref(x, qa, relu=relu, skip=sk)
+    torch.cuda.synchronize()
+    assert y.shape == (hb, wb, co) and torch.equal(y, y_r), _max_err(y, y_r)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+@pytest.mark.parametrize("hb,wb,relu,skip", [(12, 20, True, False), (9, 15, False, True)])
+def test_sft_conv3_w8a8_matches_plain(dev, dtype, asym, hb, wb, relu, skip):
+    from hdrtv_tpu_torch.ops.megakernel import fused_sft_conv3_v2, fused_sft_conv3_v2_ref
+
+    rng = np.random.RandomState(hb * wb + 2 * asym)
+    c, cc = 128, 64
+    x = _t(rng.rand(hb, wb, c) - 0.2, dev, dtype)
+    cond = _t(rng.rand(hb, wb, cc), dev, dtype)
+    sft = _sft4(rng, cc, c, dev, dtype)
+    w, b, qa = _qlayer(rng, dev, c, c, (-0.6, 1.5), asym)
+    sk = _t(rng.rand(hb, wb, c), dev, dtype) if skip else None
+    before = native.launch_counts["sft_conv3_w8a8"]
+    y = fused_sft_conv3_v2(x, cond, sft, w.to(x.dtype), b, relu=relu, skip=sk, qargs=qa)
+    assert native.launch_counts["sft_conv3_w8a8"] == before + 1
+    _q_close(y, fused_sft_conv3_v2_ref(x, cond, sft, w.to(x.dtype), b, relu=relu, skip=sk, qargs=qa), qa, dtype,
+             share=0.04)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+@pytest.mark.parametrize("hb,wb,second", [(12, 20, None), (9, 15, "x_add"), (10, 14, "up_coarse")])
+def test_resblock_w8a8_matches_plain(dev, dtype, asym, hb, wb, second):
+    """A flipped code of t1 moves h1 and so t2's codes around it: up to 8
+    flipped codes' worth and 10% of the outputs."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_resblock, fused_resblock_ref
+
+    rng = np.random.RandomState(hb * wb + 7 + asym)
+    c, cc = 128, 64
+    x = _t(rng.rand(hb, wb, c) - 0.2, dev, dtype)
+    cond = _t(rng.rand(hb, wb, cc), dev, dtype)
+    kw = {}
+    if second == "x_add":
+        kw[second] = _t(rng.rand(hb, wb, c) * 0.5, dev, dtype)
+    elif second == "up_coarse":
+        kw[second] = _t(rng.rand(hb // 2, wb // 2, 4 * c) * 0.5, dev, dtype)
+    sft1, sft2 = _sft4(rng, cc, c, dev, dtype), _sft4(rng, cc, c, dev, dtype)
+    w1, b1, q1 = _qlayer(rng, dev, c, c, (-0.6, 2.0), asym)
+    w2, b2, q2 = _qlayer(rng, dev, c, c, (-0.2, 1.0), asym)
+    args = (sft1, w1.to(x.dtype), b1, sft2, w2.to(x.dtype), b2)
+    before = native.launch_counts["resblock_w8a8"]
+    y = fused_resblock(x, cond, *args, qargs1=q1, qargs2=q2, **kw)
+    assert native.launch_counts["resblock_w8a8"] == before + 1
+    _q_close(y, fused_resblock_ref(x, cond, *args, qargs1=q1, qargs2=q2, **kw), q2, dtype, share=0.1, flips=8)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+@pytest.mark.parametrize("hb,wb,coarse", [(12, 20, True), (9, 15, False), (8, 16, True)])
+def test_tail_w8a8_matches_plain(dev, dtype, asym, hb, wb, coarse):
+    """Packed: a flipped code of t moves h, and h's rounding, over a few
+    outputs; conv_last (|w| ≲ 0.01) carries that into at most 16 codes, on
+    at most 10% of them."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_tail, fused_tail_ref
+
+    rng = np.random.RandomState(hb * wb + 19 + asym)
+    c, cc = 128, 64
+    s = _t(rng.rand(hb, wb, c) * 0.6, dev, dtype)
+    up = _t(rng.rand(hb // 2, wb // 2, 4 * c) * 0.6, dev, dtype) if coarse else None
+    cond1 = _t(rng.rand(hb, wb, cc), dev, dtype)
+    skip = _t(rng.rand(hb, wb, 12), dev, dtype)
+    w_hr, b_hr, qa = _qlayer(rng, dev, c, c, (-0.6, 2.0), asym)
+    args = (_sft4(rng, cc, c, dev, dtype), w_hr.to(s.dtype), b_hr,
+            _t(rng.randn(3, 3, c, 12) * 0.01, dev, dtype), _t(rng.randn(12) * 0.1, dev))
+    before = native.launch_counts["tail_w8a8"], native.launch_counts["tail"]
+    y = fused_tail(s, cond1, skip, *args, pack=True, up_coarse=up, qargs_hr=qa)
+    assert (native.launch_counts["tail_w8a8"], native.launch_counts["tail"]) == (before[0] + 1, before[1])
+    y_r = fused_tail_ref(s, cond1, skip, *args, pack=True, up_coarse=up, qargs_hr=qa)
+    torch.cuda.synchronize()
+    assert y.shape == (hb, 2, wb, 6) and y.dtype == torch.uint16
+    d = (y.to(torch.int32) - y_r.to(torch.int32)).abs()
+    assert int(d.max()) <= 16 and float((d > 0).float().mean()) <= 0.1, (int(d.max()), float((d > 0).float().mean()))
+
+
+def test_int8_frame_matches_cpu(dev, monkeypatch):
+    """The W8A8 checkpoint's default program on the card against the CPU
+    (one seeded 64×128 frame): a code that flips on one side moves the
+    cascade of int8 layers after it, so the bound is that of int8 against
+    int8 on the CPU (tests/test_torch_int8.py), and the frames must differ
+    from the float program's."""
+    import os
+
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    monkeypatch.delenv("HDRTV_MEGAKERNEL", raising=False)
+    path = os.path.join(os.path.dirname(__file__), "fixtures", "hr_w8a8.npz")
+    frame = (np.random.RandomState(64).rand(64, 128, 3) * 255).astype(np.uint8)
+    native.reset_launch_counts()
+    gpu = HDRTVNetTorch(path).process_rgb48(frame)
+    assert native.launch_counts["tail_w8a8"] == 1 and native.launch_counts["tail"] == 0
+    cpu = HDRTVNetTorch(path, device="cpu").process_rgb48(frame)
+    d = np.abs(gpu.astype(np.int64) - cpu.astype(np.int64))
+    mse = float(np.mean((d / 65535.0) ** 2))
+    assert 10 * np.log10(1.0 / max(mse, 1e-20)) >= 36.9, float(d.mean())
