@@ -46,6 +46,18 @@ lines; any failed check raises and the script exits non-zero with no result:
    for resblock, whose flipped t1 codes move h1 and t2 around them) plus a
    bf16 step, the packed tail_w8a8 within 2·|w_last|·(one flip + one bf16
    step of h)·65535 codes, and at most INT8_SHARE of the outputs differing.
+   The forms ported with the rest of the int8 slice: down2_w8a8 (down2's int8
+   body) at the consolidated CondNet down conv (540 × 960 × 256 → 768, three
+   branches) and at CondNet3.2/4.2's channel window, symmetric and with zero
+   points, in fp32 and bf16 (the same codes and exact sums as its plain
+   version: one ulp of the epilogue or one bf16 step); block_conv3's pool_out
+   form at L1 up_conv3's shape (270 × 480 × 128 → 512, pooled to 135 × 240),
+   float (as block_conv3) and int8 (one ulp or one step), its library time
+   F.conv2d + F.relu + F.max_pool2d; cond_chain_w8a8 (steps 0 and 4 int8
+   symmetric, step 2 with a zero point) at 540 × 960 × 256, where a float
+   step's sum order can flip a code of the next int8 step: each output within
+   4 flipped codes' worth of the last int8 step, at most COND_CHAIN_INT8_SHARE
+   of them differing.
    Kernel, plain and library times (CUDA events) and the least
    time the card could take: bytes over 3.35 TB/s, or FLOPs of the non-zero
    weights over the H100 SXM's rate for the element type (67 TFLOP/s fp32
@@ -70,25 +82,36 @@ lines; any failed check raises and the script exits non-zero with no result:
    int8 layer after it, so the two drift apart by a share of the quantization
    noise; the floor must lie above the PSNR of the CPU's int8 frame against
    its float program on the same pre-dequantized weights (measured in the
-   run), so that a program that skipped quantization fails it;
-4. 1080p, the eight programs in turn (the three above, then the HG composite
+   run), so that a program that skipped quantization fails it. The same for
+   the int8 megakernel program with HDRTV_INT8_DOWN2=1 (INT8_DOWN2_E2E_CODES,
+   INT8_DOWN2_E2E_PSNR), and for the int8 composite (the W8A8 base under the
+   same synthetic generator) at HG_E2E_SIZE, away from the mask's threshold,
+   to INT8_HG_E2E_PSNR;
+4. 1080p, the ten programs in turn (the three above, then the HG composite
    in bf16 and in fp32, frames as flat rows, hg_tail once per frame and
    pack_rgb48 not at all; its output must differ from the base model's on a
    share of the pixels and stay unclipped on most of them; then the three
    int8 programs, on the smooth frame, whose output must differ from the
    float program's on the same pre-dequantized weights by a PSNR at most
    INT8_PSNR_MARGIN under what tests/test_torch_int8.py measures on the
-   CPU): one frame through
+   CPU; then the int8 megakernel program with HDRTV_INT8_DOWN2=1, which
+   launches down2_w8a8 three times and down2 twice, and the int8 composite,
+   whose base hands tail_w8a8's unpacked output to the generator and hg_tail):
+   one frame through
    process_rgb48_device (u8 pair planes from put_frame) with the launch
    counts set to 0 before it and read after, asserted exactly
    (EXPECTED_LAUNCHES: the megakernel program launches agcm_head, cond_chain
    and tail once each and pack_rgb48 not at all), then device-resident frames
    with one sync (3 in fp32, 3 in bf16 without the megakernels, 10 in the
-   default program, 5 and 2 with HG; 10, 3 and 2 in int8): ms/frame, fps,
-   peak memory, output range;
+   default program, 5 and 2 with HG; 10, 3 and 2 in int8; 5 with the int8
+   down2, 2 with the int8 composite): ms/frame, fps, peak memory, output range;
 5. colorimetric_pq_pack on the 1080p frame (u8 → [0, 1]) in fp32 and bf16:
    the one place the port launches it outside the kernel comparison (no
-   frame program reaches it, nor in the JAX package); shape, dtype and range.
+   frame program reaches it, nor in the JAX package); shape, dtype and range;
+6. the same for cond_chain's int8 steps and block_conv3's pool_out form
+   (float and int8), which no frame program runs either: one call each per
+   element type at their 1080p shapes, launch counts asserted, outputs of
+   the right shape and finite.
 
 The line before the last is the per-kernel JSON summary, one entry per
 kernel and element type, with the path whose launches it reports and its
@@ -137,6 +160,18 @@ INT8_E2E_CODES = {"int8_bf16_mega": (14640, 1015.0), "int8_bf16_nomega": (14848,
 # squared difference; 39.40, 39.46 and 47.58 dB on the same card). The CPU's int8 frame
 # against its float program sits at 32.75-32.77 dB on this frame: the floor lies above that.
 INT8_E2E_PSNR = {"int8_bf16_mega": 36.4, "int8_bf16_nomega": 36.4, "int8_fp32": 44.5}
+# The two paths added with the int8 down2 body and int8 composites, card against CPU:
+# HDRTV_INT8_DOWN2=1 on the megakernel program at 360×640 (max, mean codes: twice the 7732
+# / 464.7 seen; PSNR floor 3 dB under the 39.90 dB seen), and the int8 HG composite at
+# HG_E2E_SIZE away from the mask's threshold (PSNR floor 3 dB under the 57.55 dB seen;
+# the CPU's int8 composite against its float one: 33.48 dB). NVIDIA H100 80GB HBM3, 700 W.
+INT8_DOWN2_E2E_CODES = (15464, 929.4)
+INT8_DOWN2_E2E_PSNR = 36.9
+INT8_HG_E2E_PSNR = 54.5
+# Share of the int8 cond_chain's outputs that may differ from its plain version (a float
+# step's sum order moves the running value by its last bit, which can flip a code of the
+# next int8 step): twice the 6.8e-5 seen in bf16 (0 in fp32) at 540 × 960.
+COND_CHAIN_INT8_SHARE = 1.4e-4
 # The eight frame programs (paths): the processor's precision token, the
 # element type, HDRTV_MEGAKERNEL, whether the checkpoint is the HG composite
 # (or, "int8", the W8A8 one), frames timed at 1080p, and the launches of one
@@ -169,11 +204,25 @@ PATHS = {
                                                    "trunk3": 1, "pack_rgb48": 1}},
     "int8_fp32": {"precision": "fp32", "dtype": "f32", "mega": "1", "hg": False, "int8": True, "frames": 2,
                   "launches": {"block_conv3_w8a8": 12, "down2": 5, "trunk3": 1, "pack_rgb48": 1}},
+    # HDRTV_INT8_DOWN2=1: the consolidated CondNet down conv and CondNet3.2/4.2 in down2's
+    # int8 body; down_conv1/2 (Co = 128, under the JAX rule's 2·128 per a_sub) stay float.
+    "int8_down2_bf16_mega": {"precision": "fp16", "dtype": "bf16", "mega": "1", "hg": False, "int8": True,
+                             "down2": "1", "frames": 5,
+                             "launches": {**_INT8_MEGA, "down2": 2, "down2_w8a8": 3}},
+    # The int8 composite: the W8A8 base (megakernel program, its tail int8 and unpacked)
+    # under the synthetic hg_nf = 64 generator in float, hg_tail packing.
+    "int8_hg_bf16": {"precision": "fp16", "dtype": "bf16", "mega": "1", "hg": True, "int8": True, "frames": 2,
+                     "launches": {**_INT8_MEGA, "hg_tail": 1}},
 }
 # The colorimetric pack is on no frame program: phase 5 drives it, once per
 # element type, and its entries report that drive.
 COLOR_PATHS = {"color_f32": "f32", "color_bf16": "bf16"}
-PATH_DTYPE = {**{p: spec["dtype"] for p, spec in PATHS.items()}, **COLOR_PATHS}
+# Neither are the int8 steps of cond_chain nor the pool_out form of block_conv3 (no
+# program of the JAX package passes them either): phase 6 drives each once per element
+# type at its 1080p shape, and their entries report that drive.
+FORM_PATHS = {"forms_f32": "f32", "forms_bf16": "bf16"}
+FORM_LAUNCHES = {"cond_chain_w8a8": 1, "block_conv3_pool": 1, "block_conv3_pool_w8a8": 1}
+PATH_DTYPE = {**{p: spec["dtype"] for p, spec in PATHS.items()}, **COLOR_PATHS, **FORM_PATHS}
 KERNEL_INFO = {
     "block_conv3": ("hdrtv_tpu_torch/csrc/block_conv3.cu", "hdrtv_tpu/ops/conv_kernels.py:271"),
     "down2": ("hdrtv_tpu_torch/csrc/down2.cu", "hdrtv_tpu/ops/megakernel.py:706"),
@@ -191,11 +240,29 @@ KERNEL_INFO = {
     "sft_conv3_w8a8": ("hdrtv_tpu_torch/csrc/sft_conv3.cu", "hdrtv_tpu/ops/megakernel.py:866"),
     "resblock_w8a8": ("hdrtv_tpu_torch/csrc/resblock.cu", "hdrtv_tpu/ops/megakernel.py:1012"),
     "tail_w8a8": ("hdrtv_tpu_torch/csrc/tail.cu", "hdrtv_tpu/ops/megakernel.py:489"),
+    "down2_w8a8": ("hdrtv_tpu_torch/csrc/down2.cu", "hdrtv_tpu/ops/megakernel.py:706"),
+    "cond_chain_w8a8": ("hdrtv_tpu_torch/csrc/cond_chain.cu", "hdrtv_tpu/ops/megakernel.py:352"),
+    "block_conv3_pool": ("hdrtv_tpu_torch/csrc/block_conv3.cu", "hdrtv_tpu/ops/conv_kernels.py:271"),
+    "block_conv3_pool_w8a8": ("hdrtv_tpu_torch/csrc/block_conv3.cu", "hdrtv_tpu/ops/conv_kernels.py:271"),
 }
 
 
 def expected_launches(path: str) -> dict:
     return {k: PATHS[path]["launches"].get(k, 0) for k in KERNEL_INFO}
+
+
+def set_path_env(spec: dict) -> None:
+    """The switches a path runs under, read by the port at each call."""
+    os.environ["HDRTV_MEGAKERNEL"] = spec["mega"]
+    os.environ["HDRTV_INT8_DOWN2"] = spec.get("down2", "0")
+
+
+def path_weights(spec: dict, hg_weights: dict) -> str:
+    """The checkpoint a path runs: the base model, its W8A8 PTQ, or the
+    synthetic composite over either."""
+    if spec["hg"]:
+        return hg_weights["int8" if spec.get("int8") else "float"]
+    return INT8_WEIGHTS if spec.get("int8") else WEIGHTS
 
 
 def smooth_frame(np, h: int, w: int, seed: int):
@@ -297,7 +364,8 @@ def phase_kernels(torch, np) -> dict:
     from hdrtv_tpu_torch.ops.pack import colorimetric_pq_pack, colorimetric_pq_pack_ref, pack_rgb48, pack_rgb48_ref
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3_q_ref
     from hdrtv_tpu_torch.ops.megakernel import _sft_conv_t, _sft_t
-    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
+    from hdrtv_tpu_torch.ops.megakernel import fused_down2_q_ref
+    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs, pack_qargs_branches
     from hdrtv_tpu_torch.quant.int8 import quantize_weight
 
     log("phase 2: kernels against their plain versions (1080p main-path shapes, TF32 off)")
@@ -847,20 +915,133 @@ def phase_kernels(torch, np) -> dict:
                    2 * (conv_macs(targs[4], hb, wb, 1) + conv_macs(w_last, hb, wb, 1)) + sft_flops(npix, sft)
                    + 4 * npix * 128 + 5 * npix * 12, share=INT8_SHARE["tail"], rate="int8")
             del s_, up, cond, skip, y, y_r, codes, targs
+
+        # down2_w8a8: the int8 body of down2 at the 1080p shapes of the HDRTV_INT8_DOWN2=1
+        # path: (name, hb, wb, cf, cin, ch0, natural co per branch, branches, asym, per path).
+        # Both sides quantize the same window with the same arithmetic and sum exact int32
+        # products: bit for bit, or one ulp of the epilogue (fp32), one step (bf16).
+        for name, hb, wb, cf, cin, ch0, co_nat, nbr, asym, per_path in (
+            ("LE.__cond_down (3 branches)", 540, 960, 256, None, 0, 64, 3, False, {"int8_down2_bf16_mega": 1}),
+            ("CondNet3.2/4.2 window ch0=256", 270, 480, 768, 256, 256, 64, 1, False, {"int8_down2_bf16_mega": 2}),
+            ("LE.__cond_down (3 branches), asymmetric", 540, 960, 256, None, 0, 64, 3, True, {}),
+            ("CondNet3.2 window, asymmetric", 270, 480, 768, 256, 256, 64, 1, True, {}),
+        ):
+            c = cin or cf
+            x = t(rng.rand(hb, wb, cf) * 1.3 - 0.2)
+            xw = x[..., ch0 : ch0 + c].float()
+            lo, hi = float(xw.min()), float(xw.max())
+            tqs, tscs, cal = [], [], []
+            for bi in range(nbr):
+                wq, ws = quantize_weight(rng.randn(3, 3, c // 4, co_nat).astype(np.float32) * 0.05)
+                tqs.append(w_s2d_s2(wq))
+                tscs.append(b_s2d(ws))
+                lo_b, hi_b = lo - 0.05 * bi, hi + 0.1 * bi
+                cal.append(((hi_b - lo_b) / 255.0, lo_b) if asym else (max(abs(lo_b), abs(hi_b)) / 127.0, None))
+            tq, tsc = np.concatenate(tqs, axis=-1), np.concatenate(tscs)
+            cout = tq.shape[-1]
+            bnp = (rng.randn(cout) * 0.1).astype(np.float32)
+            if nbr > 1:
+                qa = pack_qargs_branches(tq, tsc, [sc for sc, _ in cal], [z for _, z in cal] if asym else None,
+                                         bnp, dev)
+            else:
+                qa = pack_qargs(tq, tsc, cal[0][0], cal[0][1], bnp, dev)
+            w, b = t(tq.astype(np.float32) * tsc), f32(bnp)
+            kw = {"act": "lrelu", "cin": cin, "ch0": ch0, "qargs": qa, "a_sub": 3 if nbr > 1 else 1}
+            y = fused_down2(x, w, b, **kw)
+            y_r = fused_down2_q_ref(x[..., ch0 : ch0 + c], qa, act="lrelu")
+            ms = time_ms(lambda: fused_down2(x, w, b, **kw), torch)
+            plain = time_ms(lambda: fused_down2_q_ref(x[..., ch0 : ch0 + c], qa, act="lrelu"), torch)
+            tol = float(np.spacing(np.float32(max(1.0, float(y_r.float().abs().max()))))) if dtype == "f32" else 1
+            qas = qa if isinstance(qa, tuple) else (qa,)
+            record("down2_w8a8", dtype, name, per_path, y, y_r, tol, ms, plain, None,
+                   size * hb * wb * c + nbytes_of(y) + qbytes(*qas), 2 * conv_macs(w, hb // 2, wb // 2, 2),
+                   "abs" if dtype == "f32" else "steps", rate="int8")
+            del x, xw, y, y_r, w
+
+        # block_conv3 pool_out at the L1 up_conv3 shape (270, 480, 128) -> 512 (PS-folded): the
+        # 2x2 max pool in the epilogue, (135, 240, 512) out; float (as block_conv3) and int8
+        # (the same codes and sums as the plain version: one ulp or one step). up_conv2's L2
+        # level has 135 rows at 1080p, which pool_out does not take.
+        hb, wb = 270, 480
+        w_nat = rng.randn(3, 3, 32, 128).astype(np.float32) * 0.05
+        w = t(w_s2d_s1_ps(w_nat))
+        x = t(rng.rand(hb, wb, 128) * 1.2 - 0.1)
+        b = f32(rng.randn(512) * 0.1)
+        y = fused_block_conv3(x, w, b, relu=True, pool_out=True)
+        y_r = fused_block_conv3_ref(x, w, b, relu=True, pool_out=True)
+        if tuple(y.shape) != (hb // 2, wb // 2, 512):
+            raise AssertionError(f"block_conv3 pool_out output {tuple(y.shape)}")
+        ms = time_ms(lambda: fused_block_conv3(x, w, b, relu=True, pool_out=True), torch)
+        plain = time_ms(lambda: fused_block_conv3_ref(x, w, b, relu=True, pool_out=True), torch)
+        x_nchw = x[None].permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b_lib = b.to(dt)
+        lib = time_ms(lambda: F.max_pool2d(F.relu(F.conv2d(x_nchw, w_oihw, b_lib, padding=1)), 2), torch)
+        record("block_conv3_pool", dtype, "L1 up_conv3 shape + 2x2 max pool", {f"forms_{dtype}": 1}, y, y_r,
+               ATOL if dtype == "f32" else 1, ms, plain, lib, nbytes_of(x, w, b, y), 2 * conv_macs(w, hb, wb, 1),
+               unit)
+        wq, ws = quantize_weight(w_nat)
+        tq, tsc = w_s2d_s1_ps(wq), np.tile(w_ps_permute(ws.reshape(1, 1, 1, -1))[0, 0, 0], 4)
+        qa = pack_qargs(tq, tsc, 1.1 / 127.0, None, (rng.randn(512) * 0.1).astype(np.float32), dev)
+        wq_f = t(tq.astype(np.float32) * tsc)
+        y = fused_block_conv3(x, wq_f, b, relu=True, qargs=qa, pool_out=True)
+        y_r = fused_block_conv3_q_ref(x, qa, relu=True, pool_out=True)
+        ms = time_ms(lambda: fused_block_conv3(x, wq_f, b, relu=True, qargs=qa, pool_out=True), torch)
+        plain = time_ms(lambda: fused_block_conv3_q_ref(x, qa, relu=True, pool_out=True), torch)
+        tol = float(np.spacing(np.float32(max(1.0, float(y_r.float().abs().max()))))) if dtype == "f32" else 1
+        record("block_conv3_pool_w8a8", dtype, "L1 up_conv3 shape + 2x2 max pool, int8", {f"forms_{dtype}": 1},
+               y, y_r, tol, ms, plain, None, nbytes_of(x, y) + qbytes(qa), 2 * conv_macs(wq_f, hb, wb, 1),
+               "abs" if dtype == "f32" else "steps", rate="int8")
+        del x, y, y_r, w, wq_f, x_nchw, w_oihw
+
+        # cond_chain_w8a8: c0 (540, 960, 256) -> 256 x4 -> 64, steps 0 and 4 int8 symmetric,
+        # step 2 int8 with a zero point, each calibrated on the float chain's value there.
+        hb, wb = 540, 960
+        c0 = t(rng.rand(hb, wb, 256) - 0.3)
+        nat = [quantize_weight(rng.randn(1, 1, 64, n).astype(np.float32) * 0.15) for n in (64, 64, 64, 64, 16)]
+        tqs = [w_s2d_1x1(q) for q, _ in nat]
+        tscs = [b_s2d(sc) for _, sc in nat]
+        bnps = [(rng.randn(q.shape[-1]) * 0.1).astype(np.float32) for q in tqs]
+        weights = [(t(q[0, 0].astype(np.float32) * sc), f32(bb)) for q, sc, bb in zip(tqs, tscs, bnps)]
+        v, ranges = c0.float(), []
+        for i, (w_, b_) in enumerate(weights):
+            ranges.append((float(v.min()), float(v.max())))
+            v = v @ w_.float() + b_
+            v = torch.where(v >= 0, v, v * 0.1) if i != 4 else v
+        del v
+        qargs = []
+        for i, flag in enumerate((1, 0, 2, 0, 1)):
+            lo, hi = ranges[i]
+            sc, z = ((hi - lo) / 255.0, lo) if flag == 2 else (max(abs(lo), abs(hi)) / 127.0, None)
+            qargs.append(pack_qargs(tqs[i], tscs[i], sc, z, bnps[i], dev) if flag else None)
+        y = fused_cond_chain(c0, weights, qargs=qargs)
+        y_r = fused_cond_chain_ref(c0, weights, qargs)
+        ms = time_ms(lambda: fused_cond_chain(c0, weights, qargs=qargs), torch)
+        plain = time_ms(lambda: fused_cond_chain_ref(c0, weights, qargs), torch)
+        npix = hb * wb
+        flops = 2 * npix * nnz(*[w_ for w_, _ in weights])
+        record("cond_chain_w8a8", dtype, "L0 c0 -> c, cond1, steps 0/2/4 int8", {f"forms_{dtype}": 1},
+               joined(y), joined(y_r), flip_tol(qargs[4], 4), ms, plain, None,
+               nbytes_of(c0, *y) + sum(nbytes_of(w_, b_) for (w_, b_), q in zip(weights, qargs) if q is None)
+               + qbytes(*[q for q in qargs if q is not None]), flops, "flips", share=COND_CHAIN_INT8_SHARE,
+               rate="int8")
+        del c0, y, y_r, weights
     return totals
 
 
-def phase_end_to_end(torch, np, hg_weights: str) -> None:
+def phase_end_to_end(torch, np, hg_weights: dict) -> None:
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     frame = (np.random.RandomState(360).rand(360, 640, 3) * 255).astype(np.uint8)
-    bounds = {"fp32": (4, None), "bf16_nomega": (1536, 34.0), "bf16_mega": (1536, 34.0), **INT8_E2E_CODES}
+    bounds = {"fp32": (4, None), "bf16_nomega": (1536, 34.0), "bf16_mega": (1536, 34.0), **INT8_E2E_CODES,
+              "int8_down2_bf16_mega": INT8_DOWN2_E2E_CODES}
+    floors = {**INT8_E2E_PSNR, "int8_down2_bf16_mega": INT8_DOWN2_E2E_PSNR}
     for path, spec in PATHS.items():
         if spec["hg"]:
             continue
         max_codes, mean_codes = bounds[path]
-        weights = INT8_WEIGHTS if spec.get("int8") else WEIGHTS
-        os.environ["HDRTV_MEGAKERNEL"] = spec["mega"]
+        weights = path_weights(spec, hg_weights)
+        set_path_env(spec)
         log(f"phase 3: end to end, card against CPU (360x640 {path})")
         t0 = time.perf_counter()
         gpu = HDRTVNetTorch(weights, precision=spec["precision"]).process_rgb48(frame)
@@ -886,11 +1067,11 @@ def phase_end_to_end(torch, np, hg_weights: str) -> None:
                 del os.environ["HDRTVNET_NATIVE_INT8"]
             p_card = psnr(float(np.mean((d / 65535.0) ** 2)))
             p_float = psnr(float(np.mean(((cpu.astype(np.int64) - flt) / 65535.0) ** 2)))
-            log(f"{path}: PSNR card against CPU {p_card:.2f} dB (floor {INT8_E2E_PSNR[path]}); "
+            log(f"{path}: PSNR card against CPU {p_card:.2f} dB (floor {floors[path]}); "
                 f"CPU int8 against CPU float {p_float:.2f} dB")
-            if p_card < INT8_E2E_PSNR[path] or INT8_E2E_PSNR[path] <= p_float:
+            if p_card < floors[path] or floors[path] <= p_float:
                 raise AssertionError(f"{path}: PSNR card against CPU {p_card:.2f} dB, int8 against float "
-                                     f"{p_float:.2f} dB, floor {INT8_E2E_PSNR[path]}")
+                                     f"{p_float:.2f} dB, floor {floors[path]}")
 
     # One HG frame, card against CPU, with the pixels at the mask's threshold counted apart.
     h, w = HG_E2E_SIZE
@@ -898,14 +1079,16 @@ def phase_end_to_end(torch, np, hg_weights: str) -> None:
     for path, spec in PATHS.items():
         if not spec["hg"]:
             continue
-        os.environ["HDRTV_MEGAKERNEL"] = spec["mega"]
+        set_path_env(spec)
+        weights = path_weights(spec, hg_weights)
         log(f"phase 3: end to end with HG, card against CPU ({h}x{w} {path}, hg_nf 64)")
         t0 = time.perf_counter()
-        gpu = HDRTVNetTorch(hg_weights, precision=spec["precision"]).process_rgb48(frame)
+        gpu = HDRTVNetTorch(weights, precision=spec["precision"]).process_rgb48(frame)
         t1 = time.perf_counter()
-        cpu = HDRTVNetTorch(hg_weights, precision=spec["precision"], device="cpu").process_rgb48(frame)
+        cpu = HDRTVNetTorch(weights, precision=spec["precision"], device="cpu").process_rgb48(frame)
         t2 = time.perf_counter()
-        base = HDRTVNetTorch(WEIGHTS, precision=spec["precision"], device="cpu").process_rgb48(frame)
+        base_weights = INT8_WEIGHTS if spec.get("int8") else WEIGHTS
+        base = HDRTVNetTorch(base_weights, precision=spec["precision"], device="cpu").process_rgb48(frame)
         m = base.astype(np.float32).max(axis=-1) / 65535.0
         near = np.abs(m - 0.775) <= (2e-4 if spec["dtype"] == "f32" else 0.02)
         d = np.abs(gpu.astype(np.int64) - cpu.astype(np.int64)).max(axis=-1)
@@ -920,22 +1103,39 @@ def phase_end_to_end(torch, np, hg_weights: str) -> None:
         if near.mean() > HG_NEAR_SHARE or changed < 0.05:
             raise AssertionError(f"{path}: {float(near.mean()):.3f} of the pixels near the threshold, "
                                  f"HG changed {changed:.3f}")
+        if spec.get("int8"):
+            # int8: a PSNR floor away from the threshold (one flipped code moves every int8
+            # layer after it), above the CPU's int8 composite against its float one
+            diff = (gpu.astype(np.int64) - cpu.astype(np.int64))[~near]
+            p_card = psnr(float(np.mean((diff / 65535.0) ** 2)))
+            os.environ["HDRTVNET_NATIVE_INT8"] = "0"
+            try:
+                flt = HDRTVNetTorch(weights, precision=spec["precision"], device="cpu").process_rgb48(frame)
+            finally:
+                del os.environ["HDRTVNET_NATIVE_INT8"]
+            p_float = psnr(float(np.mean(((cpu.astype(np.int64) - flt)[~near] / 65535.0) ** 2)))
+            log(f"{path}: PSNR card against CPU away from the threshold {p_card:.2f} dB (floor "
+                f"{INT8_HG_E2E_PSNR}); CPU int8 against CPU float {p_float:.2f} dB")
+            if p_card < INT8_HG_E2E_PSNR or INT8_HG_E2E_PSNR <= p_float:
+                raise AssertionError(f"{path}: PSNR card against CPU {p_card:.2f} dB, int8 against float "
+                                     f"{p_float:.2f} dB, floor {INT8_HG_E2E_PSNR}")
+            continue
         max_codes, mean_codes = (4, None) if spec["dtype"] == "f32" else HG_BF16_CODES
         if away.max() > max_codes or (mean_codes is not None and away.mean() > mean_codes):
             raise AssertionError(f"{path}: card and CPU differ away from the threshold by max {int(away.max())} > "
                                  f"{max_codes} codes or mean {float(away.mean()):.3f} > {mean_codes}")
 
 
-def phase_1080p(torch, np, native, path: str, hg_weights: str) -> dict:
+def phase_1080p(torch, np, native, path: str, hg_weights: dict) -> dict:
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     spec = PATHS[path]
     expected, n = expected_launches(path), spec["frames"]
-    os.environ["HDRTV_MEGAKERNEL"] = spec["mega"]
-    log(f"phase 4: 1080p {path} frames on the card (HDRTV_MEGAKERNEL={spec['mega']}"
-        + (", HG composite, hg_nf 64)" if spec["hg"] else ")"))
+    set_path_env(spec)
+    log(f"phase 4: 1080p {path} frames on the card (HDRTV_MEGAKERNEL={spec['mega']}, "
+        f"HDRTV_INT8_DOWN2={spec.get('down2', '0')}" + (", HG composite, hg_nf 64)" if spec["hg"] else ")"))
     int8 = spec.get("int8", False)
-    weights = hg_weights if spec["hg"] else (INT8_WEIGHTS if int8 else WEIGHTS)
+    weights = path_weights(spec, hg_weights)
     proc = HDRTVNetTorch(weights, precision=spec["precision"])
     h, w = 1080, 1920
     if spec["hg"] or int8:
@@ -967,7 +1167,7 @@ def phase_1080p(torch, np, native, path: str, hg_weights: str) -> dict:
         # HG_CHANGED_CODES (in bf16 the HG program sees the base output rounded to bf16, which
         # alone moves every value a little) and left most of them inside the code range: a
         # residual that is neither absent nor clipped everywhere.
-        base_proc = HDRTVNetTorch(WEIGHTS, precision=spec["precision"])
+        base_proc = HDRTVNetTorch(INT8_WEIGHTS if int8 else WEIGHTS, precision=spec["precision"])
         base = base_proc.process_rgb48_device(base_proc.put_frame(frame.reshape(h, w * 3))).reshape(h, w, 3)
         hg = o.reshape(h, w, 3)
         changed = ((hg - base.to(torch.int32)).abs() > HG_CHANGED_CODES).any(dim=-1)
@@ -978,7 +1178,7 @@ def phase_1080p(torch, np, native, path: str, hg_weights: str) -> dict:
             raise AssertionError(f"{path}: the HG changed {share:.3f} of the pixels, {inside:.3f} unclipped")
         del base_proc, base, hg, changed
     p_float = None
-    if int8:
+    if int8 and path in INT8_PSNR_CPU:
         # The int8 frame against the float program on the same pre-dequantized weights: it
         # must differ (the activations were quantized) by no more than the CPU's PSNR allows.
         os.environ["HDRTVNET_NATIVE_INT8"] = "0"
@@ -1041,6 +1241,59 @@ def phase_color(torch, np, native) -> dict:
     return counts
 
 
+def phase_forms(torch, np, native) -> dict:
+    """The kernel forms no frame program runs, once per element type at a
+    1080p main-path shape with the counts set to 0 before and read after:
+    cond_chain's int8 steps (c0 (540, 960, 256), steps 0/2/4 int8), and
+    block_conv3's pool_out form, float and int8 (L1 up_conv3's (270, 480, 128)
+    -> 512); returns the counts by drive."""
+    from hdrtv_tpu_torch.models.s2d import b_s2d, w_ps_permute, w_s2d_1x1, w_s2d_s1_ps
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
+    from hdrtv_tpu_torch.ops.megakernel import fused_cond_chain
+    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
+    from hdrtv_tpu_torch.quant.int8 import quantize_weight
+
+    log("phase 6: cond_chain's int8 steps and block_conv3's pool_out, which no frame program runs")
+    rng = np.random.RandomState(6)
+    dev = torch.device("cuda")
+    counts = {}
+    for path, dtype in FORM_PATHS.items():
+        dt = torch.float32 if dtype == "f32" else torch.bfloat16
+        c0 = torch.as_tensor(rng.rand(540, 960, 256).astype(np.float32) - 0.3, device=dev).to(dt)
+        steps, qargs = [], []
+        for i, n in enumerate((64, 64, 64, 64, 16)):
+            wq, ws = quantize_weight(rng.randn(1, 1, 64, n).astype(np.float32) * 0.15)
+            tq, tsc = w_s2d_1x1(wq), b_s2d(ws)
+            bnp = (rng.randn(4 * n) * 0.1).astype(np.float32)
+            steps.append((torch.as_tensor(tq[0, 0].astype(np.float32) * tsc, device=dev).to(dt),
+                          torch.as_tensor(bnp, device=dev)))
+            qargs.append(pack_qargs(tq, tsc, 2.0 / 127.0, -0.3 if i == 2 else None, bnp, dev) if i % 2 == 0 else None)
+        x = torch.as_tensor(rng.rand(270, 480, 128).astype(np.float32), device=dev).to(dt)
+        wq, ws = quantize_weight(rng.randn(3, 3, 32, 128).astype(np.float32) * 0.05)
+        tq, tsc = w_s2d_s1_ps(wq), np.tile(w_ps_permute(ws.reshape(1, 1, 1, -1))[0, 0, 0], 4)
+        bnp = (rng.randn(512) * 0.1).astype(np.float32)
+        w = torch.as_tensor(tq.astype(np.float32) * tsc, device=dev).to(dt)
+        b = torch.as_tensor(bnp, device=dev)
+        qa = pack_qargs(tq, tsc, 1.1 / 127.0, None, bnp, dev)
+        torch.cuda.synchronize()
+        native.reset_launch_counts()
+        c, cond1 = fused_cond_chain(c0, steps, qargs=qargs)
+        pooled = fused_block_conv3(x, w, b, relu=True, pool_out=True)
+        pooled_q = fused_block_conv3(x, w, b, relu=True, qargs=qa, pool_out=True)
+        torch.cuda.synchronize()
+        counts[path] = dict(native.launch_counts)
+        shapes = [tuple(o.shape) for o in (c, cond1, pooled, pooled_q)]
+        finite = all(bool(torch.isfinite(o.float()).all()) for o in (c, cond1, pooled, pooled_q))
+        log(f"{path}: outputs {shapes}, finite {finite}; launches "
+            f"{ {k: v for k, v in counts[path].items() if v} }")
+        if shapes != [(540, 960, 256), (540, 960, 64), (135, 240, 512), (135, 240, 512)] or not finite:
+            raise AssertionError(f"{path}: outputs {shapes}, finite {finite}")
+        if counts[path] != {k: FORM_LAUNCHES.get(k, 0) for k in KERNEL_INFO}:
+            raise AssertionError(f"{path}: launch counts {counts[path]}")
+        del c0, c, cond1, x, pooled, pooled_q
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1067,12 +1320,17 @@ def main() -> int:
     try:
         # The repository ships no HG weights: the HG paths run the real base model under a
         # synthetic generator at the reference width, made from a seed.
-        hg_weights = write_synth_hg(os.path.join(tmp, "synth_hg64.npz"), nf=64, seed=0)
+        # The int8 composite puts the same generator over the W8A8 base (its sidecar's arch).
+        hg_weights = {
+            "float": write_synth_hg(os.path.join(tmp, "synth_hg64.npz"), nf=64, seed=0),
+            "int8": write_synth_hg(os.path.join(tmp, "synth_hg64_int8.npz"), nf=64, seed=0, base_path=INT8_WEIGHTS),
+        }
         with fp32_math():
             totals = phase_kernels(torch, np)
             phase_end_to_end(torch, np, hg_weights)
             counts = {path: phase_1080p(torch, np, native, path, hg_weights) for path in PATHS}
             counts.update(phase_color(torch, np, native))
+            counts.update(phase_forms(torch, np, native))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1090,8 +1348,9 @@ def main() -> int:
     # per frame of the reported path. The fp32 instances of the kernels no
     # fp32 path runs ride along under "off_path" (compared and timed at the
     # same shapes, launched by no path).
-    prefer = {"f32": ("fp32", "hg_fp32", "int8_fp32", "color_f32"),
-              "bf16": ("bf16_mega", "bf16_nomega", "hg_bf16", "int8_bf16_mega", "int8_bf16_nomega", "color_bf16")}
+    prefer = {"f32": ("fp32", "hg_fp32", "int8_fp32", "color_f32", "forms_f32"),
+              "bf16": ("bf16_mega", "bf16_nomega", "hg_bf16", "int8_bf16_mega", "int8_bf16_nomega",
+                       "int8_down2_bf16_mega", "int8_hg_bf16", "color_bf16", "forms_bf16")}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for dtype, paths in prefer.items():
@@ -1104,8 +1363,8 @@ def main() -> int:
             if dtype == "bf16" and not any(counts[p][name] for p in prefer["f32"]):
                 k["off_path"] = {"dtype": "f32", **entry(name, "f32", path)}
             kernels.append(k)
-    if len(kernels) != 23:
-        raise AssertionError(f"{len(kernels)} kernel entries, expected 23: {[k['name'] for k in kernels]}")
+    if len(kernels) != 30:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 30: {[k['name'] for k in kernels]}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

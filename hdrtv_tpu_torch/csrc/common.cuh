@@ -148,6 +148,19 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The int8 MMA (the W8A8 kernels): s8 × s8 products summed exactly in int32.
+// Operands in the same fragment layout as m16n8k16's, 32 bytes of K deep:
+// A and B both loaded with ldmatrix (non-transposed), B stored N-major with
+// K contiguous.
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Two consecutive elements of T, widened to fp32 (the pointer aligned to two
 // elements), and back.
 template <typename T>

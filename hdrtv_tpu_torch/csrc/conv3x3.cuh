@@ -31,6 +31,19 @@
 // stores it in the compute dtype there; a no-op for float). Co is masked, so
 // narrower outputs (trunk3's 32 channels) run on the same tiles.
 //
+// With `pool` (stride 1; Ho and Wo even) the tile also takes the 2×2 max
+// pool of fused_block_conv3's pool_out form (conv_kernels.py:259-266) in its
+// epilogue, after the activation: the output is (Ho/2, Wo/2, Co) and the
+// full-resolution result never reaches device memory. A 2×2 window would
+// span two tiles of row-major pixels, so in this mode the tile's M index
+// runs over pooled pixels first: m = 4·p + s, pooled pixel p (row-major over
+// the (Ho/2, Wo/2) grid) and sub-position s = 2a + b, conv pixel
+// (2·(p / (Wo/2)) + a, 2·(p % (Wo/2)) + b). The four conv pixels of a pooled
+// one are then four consecutive rows of the tile: in the FMA tile rows of
+// one thread, in the MMA tiles rows that four lanes of one warp hold
+// (lane/4 = 4j..4j+3), reduced with two shuffles. The residual is read at
+// conv resolution; zero fill and masking work on conv pixels as before.
+//
 // Requirements (the wrappers check them): C % 16 == 0, Co % 4 == 0,
 // cf % 4 == 0, ch0 % 4 == 0, and 16-byte aligned tensors.
 #pragma once
@@ -50,7 +63,44 @@ struct ConvArgs {
   int H, W, Ho, Wo;
   int cf, ch0, C, Co;
   int act;
+  int pool = 0;       // 1: 2×2 max pool after the activation, y (Ho/2, Wo/2, Co)
 };
+
+// The conv output pixel of the tile's row m: row-major, or with pool the
+// pooled-pixel-major order described above.
+__device__ __forceinline__ void out_pixel(long long m, int Wo, int pool, int& ho, int& wo) {
+  if (pool) {
+    const long long p = m >> 2;
+    const int s = static_cast<int>(m & 3);
+    const int wp = Wo >> 1;
+    ho = 2 * static_cast<int>(p / wp) + (s >> 1);
+    wo = 2 * static_cast<int>(p % wp) + (s & 1);
+  } else {
+    ho = static_cast<int>(m / Wo);
+    wo = static_cast<int>(m % Wo);
+  }
+}
+
+// Where a result pair of the MMA tiles' fragment layout goes: with pool, the
+// max over the four lanes that hold one pooled pixel's four conv pixels
+// (lane/4 = 4j..4j+3, i.e. lanes l ^ 4, l ^ 8), stored by the first of
+// them. Every lane of the warp must call it (ok false for a masked pair, whose
+// v is then 0: the four lanes of a pooled pixel agree on ok, since M is a
+// multiple of 4 and they hold the same columns).
+template <typename TY>
+__device__ __forceinline__ void store_result2(TY* y, float2 v, long long m, int n, int Co, bool ok,
+                                              int pool) {
+  if (pool) {
+#pragma unroll
+    for (int o = 4; o <= 8; o <<= 1) {
+      v.x = fmaxf(v.x, __shfl_xor_sync(0xffffffffu, v.x, o));
+      v.y = fmaxf(v.y, __shfl_xor_sync(0xffffffffu, v.y, o));
+    }
+    if (ok && (threadIdx.x & 12) == 0) store2<TY>(y + (m >> 2) * Co + n, v);
+  } else if (ok) {
+    store2<TY>(y + m * Co + n, v);
+  }
+}
 
 constexpr int kBM = 128, kBN = 128, kBK = 16, kThreads = 256, kTM = 8, kTN = 8;
 
@@ -78,8 +128,7 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs a) {
     const int idx = tid + r * kThreads;
     const long long m = m0 + (idx >> 2);
     a_ok[r] = m < M;
-    a_ho[r] = a_ok[r] ? static_cast<int>(m / a.Wo) : 0;
-    a_wo[r] = a_ok[r] ? static_cast<int>(m % a.Wo) : 0;
+    out_pixel(a_ok[r] ? m : 0, a.Wo, a.pool, a_ho[r], a_wo[r]);
   }
 
   const int kc = a.C / kBK;  // channel chunks per tap
@@ -160,14 +209,19 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs a) {
 
   // Epilogue: ((acc + b) + skip) + skip2, then the activation. skip may be
   // the output buffer itself: each element is read before it is written, by
-  // the same thread.
+  // the same thread. With pool, rows 4j..4j+3 of a thread (one pooled pixel)
+  // are reduced in registers and stored once.
   const TY* skip = static_cast<const TY*>(a.skip);
   const TY* skip2 = static_cast<const TY*>(a.skip2);
   TY* y = static_cast<TY*>(a.y);
+  float4 pmax[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const long long m = m0 + ty * kTM + i;
     if (m >= M) continue;
+    int ho, wo;
+    out_pixel(m, a.Wo, a.pool, ho, wo);
+    const long long pix = static_cast<long long>(ho) * a.Wo + wo;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int n = n0 + tx * kTN + h * 4;
@@ -175,14 +229,21 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs a) {
       const float4 bias = *reinterpret_cast<const float4*>(a.b + n);
       float4 v = make_float4(acc[i][h * 4 + 0] + bias.x, acc[i][h * 4 + 1] + bias.y,
                              acc[i][h * 4 + 2] + bias.z, acc[i][h * 4 + 3] + bias.w);
-      const long long off = m * a.Co + n;
+      const long long off = pix * a.Co + n;
       if (skip) v = add4(v, load4<TY>(skip + off));
       if (skip2) v = add4(round4<TY>(v), load4<TY>(skip2 + off));
       v.x = apply_act(v.x, a.act);
       v.y = apply_act(v.y, a.act);
       v.z = apply_act(v.z, a.act);
       v.w = apply_act(v.w, a.act);
-      store4<TY>(y + off, v);
+      if (!a.pool) {
+        store4<TY>(y + off, v);
+        continue;
+      }
+      pmax[h] = (i % 4) ? make_float4(fmaxf(pmax[h].x, v.x), fmaxf(pmax[h].y, v.y), fmaxf(pmax[h].z, v.z),
+                                      fmaxf(pmax[h].w, v.w))
+                        : v;
+      if (i % 4 == 3) store4<TY>(y + (m >> 2) * a.Co + n, pmax[h]);
     }
   }
 }
@@ -236,8 +297,7 @@ __global__ void __launch_bounds__(kThreads) conv3x3_mma_kernel(ConvArgs a) {
     const int idx = tid + r * kThreads;
     const long long m = m0 + (idx >> 2);
     a_ok[r] = m < M;
-    a_ho[r] = a_ok[r] ? static_cast<int>(m / a.Wo) : 0;
-    a_wo[r] = a_ok[r] ? static_cast<int>(m % a.Wo) : 0;
+    out_pixel(a_ok[r] ? m : 0, a.Wo, a.pool, a_ho[r], a_wo[r]);
   }
 
   const int kc = a.C / kMmaBK;  // channel chunks per tap
@@ -326,23 +386,29 @@ __global__ void __launch_bounds__(kThreads) conv3x3_mma_kernel(ConvArgs a) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const long long m = m0 + wm * 64 + mt * 16 + h * 8 + lane / 4;
-      if (m >= M) continue;
+      int ho, wo;
+      out_pixel(m < M ? m : 0, a.Wo, a.pool, ho, wo);
+      const long long pix = static_cast<long long>(ho) * a.Wo + wo;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int n = n0 + wn * 32 + nt * 8 + (lane % 4) * 2;
-        if (n >= a.Co) continue;
-        const float2 bias = *reinterpret_cast<const float2*>(a.b + n);
-        float2 v = make_float2(acc[mt][nt][2 * h] + bias.x, acc[mt][nt][2 * h + 1] + bias.y);
-        const long long off = m * a.Co + n;
-        if (skip) {
-          const float2 s = load2<TY>(skip + off);
-          v = make_float2(v.x + s.x, v.y + s.y);
+        const bool ok = m < M && n < a.Co;
+        float2 v = make_float2(0.f, 0.f);
+        if (ok) {
+          const float2 bias = *reinterpret_cast<const float2*>(a.b + n);
+          v = make_float2(acc[mt][nt][2 * h] + bias.x, acc[mt][nt][2 * h + 1] + bias.y);
+          const long long off = pix * a.Co + n;
+          if (skip) {
+            const float2 s = load2<TY>(skip + off);
+            v = make_float2(v.x + s.x, v.y + s.y);
+          }
+          if (skip2) {
+            const float2 s = load2<TY>(skip2 + off);
+            v = make_float2(round_to<TY>(v.x) + s.x, round_to<TY>(v.y) + s.y);
+          }
+          v = make_float2(apply_act(v.x, a.act), apply_act(v.y, a.act));
         }
-        if (skip2) {
-          const float2 s = load2<TY>(skip2 + off);
-          v = make_float2(round_to<TY>(v.x) + s.x, round_to<TY>(v.y) + s.y);
-        }
-        store2<TY>(y + off, make_float2(apply_act(v.x, a.act), apply_act(v.y, a.act)));
+        store_result2<TY>(y, v, m, n, a.Co, ok, a.pool);
       }
     }
   }
@@ -364,11 +430,12 @@ cudaError_t launch_conv3x3(const ConvArgs& a, cudaStream_t stream) {
 }
 
 // Stride-1 'same' conv over a dense (H, W, C) tensor: the form every fused
-// sequence here (sft_conv3, resblock, trunk3) launches.
+// sequence here (sft_conv3, resblock, trunk3) launches; block_conv3 also
+// with pool.
 template <typename TX, typename TW, typename TY>
 cudaError_t conv_same(const void* x, const void* w, const float* b, const void* skip,
                       const void* skip2, void* y, int H, int W, int C, int Co, int act,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, int pool = 0) {
   ConvArgs a;
   a.x = x;
   a.w = w;
@@ -385,6 +452,7 @@ cudaError_t conv_same(const void* x, const void* w, const float* b, const void* 
   a.C = C;
   a.Co = Co;
   a.act = act;
+  a.pool = pool;
   return launch_conv3x3<TX, TW, TY, 1>(a, stream);
 }
 

@@ -31,6 +31,11 @@
 // version wherever the codes agree: y = (float(acc) · yscale) + bias, then
 // + skip, then the activation, one store in TY.
 //
+// The same tile also runs the stride-2, (1,0)-padded s2d down conv of
+// fused_down2's int8 body (down2.cu; stride as in conv3x3.cuh), with one
+// quantization of the shared input per branch (below), and takes the 2×2
+// max pool of block_conv3's pool_out form (conv3x3.cuh, `pool`).
+//
 // Requirements (the wrappers check them): C % 64 == 0, Co % 8 == 0, 16-byte
 // aligned tensors.
 #pragma once
@@ -42,13 +47,17 @@
 namespace hdrtv {
 namespace {
 
-// The plain quantization pass: (n) T → (n) int8 codes, four at a time.
+// The plain quantization pass: the channel window [ch0, ch0 + cin) of each of
+// npix pixels of cf channels, T → int8 codes (npix, cin), four at a time.
 template <typename T>
-__global__ void quantize_kernel(const T* __restrict__ x, char4* __restrict__ q, long long n4, float s,
-                                float z, int asym) {
+__global__ void quantize_kernel(const T* __restrict__ x, char4* __restrict__ q, long long npix, int cf,
+                                int ch0, int cin, float s, float z, int asym) {
+  const int quads = cin / 4;
+  const long long n4 = npix * quads;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n4;
        i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const float4 v = load4<T>(x + 4 * i);
+    const long long pix = i / quads;
+    const float4 v = load4<T>(x + pix * cf + ch0 + 4 * (i - pix * quads));
     q[i] = make_char4(static_cast<signed char>(quantize_code(v.x, s, z, asym)),
                       static_cast<signed char>(quantize_code(v.y, s, z, asym)),
                       static_cast<signed char>(quantize_code(v.z, s, z, asym)),
@@ -57,50 +66,66 @@ __global__ void quantize_kernel(const T* __restrict__ x, char4* __restrict__ q, 
 }
 
 template <typename T>
-cudaError_t quantize(const void* x, void* q, long long n, const QuantParams& p, cudaStream_t stream) {
-  if (n % 4) return cudaErrorInvalidValue;
-  const long long n4 = n / 4;
+cudaError_t quantize_window(const void* x, void* q, long long npix, int cf, int ch0, int cin,
+                            const QuantParams& p, cudaStream_t stream) {
+  if (cin % 4 || cf % 4 || ch0 % 4 || ch0 + cin > cf) return cudaErrorInvalidValue;
+  const long long n4 = npix * (cin / 4);
   const unsigned blocks = static_cast<unsigned>(std::min<long long>((n4 + 255) / 256, 132LL * 16));
-  quantize_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const T*>(x), static_cast<char4*>(q), n4,
-                                                   p.s, p.z, p.asym);
+  quantize_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const T*>(x), static_cast<char4*>(q), npix, cf,
+                                                   ch0, cin, p.s, p.z, p.asym);
   return cudaGetLastError();
 }
 
-__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                             unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// All n values of x (n % 4 == 0).
+template <typename T>
+cudaError_t quantize(const void* x, void* q, long long n, const QuantParams& p, cudaStream_t stream) {
+  if (n % 4) return cudaErrorInvalidValue;
+  return quantize_window<T>(x, q, n / 4, 4, 0, 4, p, stream);
 }
 
+// Branches: the consolidated CondNet down conv (fused_down2 with a_sub = 3
+// and per-branch x_scales) quantizes its one input once per branch, with
+// that branch's scale, zero point and pad code, and output channels
+// [bi·m, bi·m + m) read branch bi's codes and its QuantParams (its weight
+// rows, yscale and bias). m is a multiple of the tile's 128 channels, so a
+// block never straddles two branches. One branch is the plain layer.
+constexpr int kMaxBranches = 4;
+
 struct ConvS8Args {
-  const int8_t* q;   // (H, W, C) codes
-  QuantParams p;
-  const void* skip;  // (H, W, Co) TY or nullptr
-  void* y;           // (H, W, Co) TY
-  int H, W, C, Co, act;
+  const int8_t* q;               // (nb, H, W, C) codes: one plane per branch
+  long long qstride;             // H·W·C: from one branch's plane to the next
+  QuantParams p[kMaxBranches];   // branch bi's layer (w, yscale, bias for its m channels)
+  int nb, m;                     // branches; output channels per branch (nb·m = Co)
+  const void* skip;              // (Ho, Wo, Co) TY or nullptr
+  void* y;                       // (Ho, Wo, Co) TY, or (Ho/2, Wo/2, Co) with pool
+  int H, W, Ho, Wo, C, Co, act, pool;
 };
 
 constexpr int kS8BK = 64;             // channels (bytes) of a K chunk
 constexpr int kS8Pitch = kS8BK + 16;  // 80-byte shared rows
 
-template <typename TY>
+// Stride S: output pixel (ho, wo) and tap (dI, dJ) read input pixel
+// (S·ho + dI − 1, S·wo + dJ − 1), as in conv3x3.cuh: 'same' for S = 1, the
+// (1,0) padding of the s2d stride-2 convs for S = 2.
+template <typename TY, int S>
 __global__ void __launch_bounds__(kThreads) conv3x3_s8_kernel(ConvS8Args a) {
   __shared__ __align__(16) int8_t As[kBM][kS8Pitch];
   __shared__ __align__(16) int8_t Bs[kBN][kS8Pitch];
 
-  const int8_t* __restrict__ q = a.q;
-  const int8_t* __restrict__ w = a.p.w;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int wm = (tid / 32) / 4;  // warp row: pixels [wm·64, wm·64 + 64)
   const int wn = (tid / 32) % 4;  // warp column: channels [wn·32, wn·32 + 32)
-  const long long M = static_cast<long long>(a.H) * a.W;
+  const long long M = static_cast<long long>(a.Ho) * a.Wo;
   const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
   const int n0 = blockIdx.y * kBN;
   const long long K = 9LL * a.C;
+  // This block's branch, its codes and its layer; nl0: its first channel there.
+  const int bi = n0 / a.m;
+  const int nl0 = n0 - bi * a.m;
+  const QuantParams& p = a.p[bi];
+  const int8_t* __restrict__ q = a.q + bi * a.qstride;
+  const int8_t* __restrict__ w = p.w;
 
   // Each thread stages two 16-byte pieces of the A tile (pixel idx/4, bytes
   // (idx%4)·16) and two of the B tile (output channel idx/4, the same bytes).
@@ -110,10 +135,9 @@ __global__ void __launch_bounds__(kThreads) conv3x3_s8_kernel(ConvS8Args a) {
   for (int r = 0; r < 2; ++r) {
     const long long m = m0 + ((tid + r * kThreads) >> 2);
     a_ok[r] = m < M;
-    a_ho[r] = a_ok[r] ? static_cast<int>(m / a.W) : 0;
-    a_wo[r] = a_ok[r] ? static_cast<int>(m % a.W) : 0;
+    out_pixel(a_ok[r] ? m : 0, a.Wo, a.pool, a_ho[r], a_wo[r]);
   }
-  const unsigned padw = (static_cast<unsigned>(a.p.pad) & 0xffu) * 0x01010101u;
+  const unsigned padw = (static_cast<unsigned>(p.pad) & 0xffu) * 0x01010101u;
 
   const int kc = a.C / kS8BK;  // channel chunks per tap
   const int KT = 9 * kc;
@@ -128,13 +152,13 @@ __global__ void __launch_bounds__(kThreads) conv3x3_s8_kernel(ConvS8Args a) {
       const int idx = tid + r * kThreads;
       const int off = (idx & 3) * 16;
       uint4 v = make_uint4(padw, padw, padw, padw);
-      const int hi = a_ho[r] + dI - 1;
-      const int wi = a_wo[r] + dJ - 1;
+      const int hi = S * a_ho[r] + dI - 1;
+      const int wi = S * a_wo[r] + dJ - 1;
       if (a_ok[r] && hi >= 0 && hi < a.H && wi >= 0 && wi < a.W)
         v = *reinterpret_cast<const uint4*>(q + (static_cast<long long>(hi) * a.W + wi) * a.C + c0 + off);
       ra[r] = v;
-      const int n = n0 + (idx >> 2);
-      rb[r] = n < a.Co ? *reinterpret_cast<const uint4*>(w + n * K + tap * a.C + c0 + off)
+      const int nl = nl0 + (idx >> 2);
+      rb[r] = nl < a.m ? *reinterpret_cast<const uint4*>(w + nl * K + tap * a.C + c0 + off)
                        : make_uint4(0u, 0u, 0u, 0u);
     }
   };
@@ -197,46 +221,65 @@ __global__ void __launch_bounds__(kThreads) conv3x3_s8_kernel(ConvS8Args a) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const long long m = m0 + wm * 64 + mt * 16 + h * 8 + lane / 4;
-      if (m >= M) continue;
+      int ho, wo;
+      out_pixel(m < M ? m : 0, a.Wo, a.pool, ho, wo);
+      const long long pix = static_cast<long long>(ho) * a.Wo + wo;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int n = n0 + wn * 32 + nt * 8 + (lane % 4) * 2;
-        if (n >= a.Co) continue;
-        const float2 ys = *reinterpret_cast<const float2*>(a.p.yscale + n);
-        const float2 bias = *reinterpret_cast<const float2*>(a.p.bias + n);
-        float2 v = make_float2(__fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * h]), ys.x), bias.x),
-                               __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * h + 1]), ys.y), bias.y));
-        const long long off = m * a.Co + n;
-        if (skip) {
-          const float2 s = load2<TY>(skip + off);
-          v = make_float2(__fadd_rn(v.x, s.x), __fadd_rn(v.y, s.y));
+        const int nl = n - bi * a.m;
+        const bool ok = m < M && n < a.Co;
+        float2 v = make_float2(0.f, 0.f);
+        if (ok) {
+          const float2 ys = *reinterpret_cast<const float2*>(p.yscale + nl);
+          const float2 bias = *reinterpret_cast<const float2*>(p.bias + nl);
+          v = make_float2(__fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * h]), ys.x), bias.x),
+                          __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * h + 1]), ys.y), bias.y));
+          if (skip) {
+            const float2 s = load2<TY>(skip + pix * a.Co + n);
+            v = make_float2(__fadd_rn(v.x, s.x), __fadd_rn(v.y, s.y));
+          }
+          v = make_float2(apply_act(v.x, a.act), apply_act(v.y, a.act));
         }
-        store2<TY>(y + off, make_float2(apply_act(v.x, a.act), apply_act(v.y, a.act)));
+        store_result2<TY>(y, v, m, n, a.Co, ok, a.pool);
       }
     }
   }
 }
 
-// The int8 conv of codes q (H, W, C) with the layer p: y = act(conv + bias
-// (+ skip)), stored in TY.
+template <typename TY, int S>
+cudaError_t launch_conv_s8(const ConvS8Args& a, cudaStream_t stream) {
+  if (a.C % kS8BK || a.Co % 8 || a.nb < 1 || a.nb > kMaxBranches || a.nb * a.m != a.Co ||
+      (a.nb > 1 && a.m % kBN))
+    return cudaErrorInvalidValue;
+  const long long M = static_cast<long long>(a.Ho) * a.Wo;
+  const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM), static_cast<unsigned>((a.Co + kBN - 1) / kBN));
+  conv3x3_s8_kernel<TY, S><<<grid, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The int8 'same' conv of codes q (H, W, C) with the layer p: y = act(conv +
+// bias (+ skip)), stored in TY; with pool, its 2×2 max pool (H/2, W/2, Co).
 template <typename TY>
 cudaError_t conv_s8(const void* q, const QuantParams& p, const void* skip, void* y, int H, int W,
-                    int C, int Co, int act, cudaStream_t stream) {
-  if (C % kS8BK || Co % 8) return cudaErrorInvalidValue;
+                    int C, int Co, int act, cudaStream_t stream, int pool = 0) {
   ConvS8Args a;
   a.q = static_cast<const int8_t*>(q);
-  a.p = p;
+  a.qstride = 0;
+  a.p[0] = p;
+  a.nb = 1;
+  a.m = Co;
   a.skip = skip;
   a.y = y;
   a.H = H;
   a.W = W;
+  a.Ho = H;
+  a.Wo = W;
   a.C = C;
   a.Co = Co;
   a.act = act;
-  const long long M = static_cast<long long>(H) * W;
-  const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM), static_cast<unsigned>((Co + kBN - 1) / kBN));
-  conv3x3_s8_kernel<TY><<<grid, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
+  a.pool = pool;
+  return launch_conv_s8<TY, 1>(a, stream);
 }
 
 // The 3×3 conv of a kernel's float or int8 form: without q, the float tile
@@ -244,10 +287,10 @@ cudaError_t conv_s8(const void* q, const QuantParams& p, const void* skip, void*
 template <typename T, typename TY>
 cudaError_t conv3x3_or_s8(const void* in, const void* w, const void* b, const QuantParams* q,
                           const void* skip, void* y, int H, int W, int C, int Co, int act,
-                          cudaStream_t stream) {
-  if (q) return conv_s8<TY>(in, *q, skip, y, H, W, C, Co, act, stream);
+                          cudaStream_t stream, int pool = 0) {
+  if (q) return conv_s8<TY>(in, *q, skip, y, H, W, C, Co, act, stream, pool);
   return conv_same<T, T, TY>(in, w, static_cast<const float*>(b), skip, nullptr, y, H, W, C, Co, act,
-                             stream);
+                             stream, pool);
 }
 
 }  // namespace

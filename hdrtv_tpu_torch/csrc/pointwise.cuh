@@ -181,6 +181,77 @@ __device__ __forceinline__ void tile_gemm(const T* As, int lda, int K, const T* 
   }
 }
 
+// The int8 form of the product (the W8A8 steps of cond_chain.cu): A holds
+// int8 codes, [pixel][k] with a pitch of ldq bytes (a multiple of 16); Wq is
+// the (N, K) int8 weight, K contiguous per output column. acc[p] = the exact
+// int32 sum Σ_k A[row(p)][k] · Wq[n0 + col(p) + {0, 1}][k], in the MMA form's
+// pair layout (Own<true>) whatever the chain's element type; columns ≥ N
+// read as 0. The eight warps form the MMA form's 2 × 4 grid and multiply with
+// mma.sync.m16n8k32 (s8 × s8 → s32, operands by ldmatrix); the weight
+// streams through a 128-column × 32-byte stage (48-byte pitch: conflict-free
+// ldmatrix rows), the next chunk fetched into registers meanwhile. K % 32 ==
+// 0. The same barrier contract as tile_gemm.
+__device__ __forceinline__ void tile_gemm_s8(const int8_t* As, int ldq, int K, const int8_t* __restrict__ Wq,
+                                             int N, int n0, void* stage_mem, int (&acc)[kPwPairs][2]) {
+  constexpr int kBK8 = 32, kPitch8 = kBK8 + 16;
+  int8_t(*Bs)[kPitch8] = reinterpret_cast<int8_t(*)[kPitch8]>(stage_mem);
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int wm = tid / 128;
+  const int wn = (tid / 32) % 4;
+  // One 16-byte piece of the 128 × 32-byte stage per thread: column tid/2.
+  const int bn = n0 + tid / 2;
+  const int bk = (tid % 2) * 16;
+  uint4 rb;
+  auto fetch = [&](int kt) {
+    rb = bn < N ? *reinterpret_cast<const uint4*>(Wq + static_cast<long long>(bn) * K + kt * kBK8 + bk)
+                : make_uint4(0u, 0u, 0u, 0u);
+  };
+  auto stage = [&]() { *reinterpret_cast<uint4*>(&Bs[tid / 2][bk]) = rb; };
+
+  int d[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[mt][nt][e] = 0;
+  const int KT = K / kBK8;
+  fetch(0);
+  stage();
+  __syncthreads();
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt + 1 < KT) fetch(kt + 1);
+    unsigned af[2][4], bf[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      ldmatrix_x4(af[mt], As + (wm * 32 + mt * 16 + lane % 16) * ldq + kt * kBK8 + (lane / 16) * 16);
+#pragma unroll
+    for (int np = 0; np < 2; ++np)
+      ldmatrix_x4(bf[np], &Bs[wn * 32 + np * 16 + (lane / 16) * 8 + lane % 8][((lane / 8) % 2) * 16]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        mma_s8_16832(d[mt][nt], af[mt], bf[nt / 2][(nt % 2) * 2], bf[nt / 2][(nt % 2) * 2 + 1]);
+    __syncthreads();
+    if (kt + 1 < KT) {
+      stage();
+      __syncthreads();
+    }
+  }
+  // The MMA's four results are the pairs of rows lane/4 and lane/4 + 8.
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      acc[mt * 8 + nt][0] = d[mt][nt][0];
+      acc[mt * 8 + nt][1] = d[mt][nt][1];
+      acc[mt * 8 + 4 + nt][0] = d[mt][nt][2];
+      acc[mt * 8 + 4 + nt][1] = d[mt][nt][3];
+    }
+}
+
 // Copy rows [m0, m0 + 64) of a (npix, cf) tensor, channels [ch0, ch0 + K),
 // into a shared tile; rows past npix are zero.
 template <typename T>
@@ -193,6 +264,27 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, int npix, 
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (m0 + m < npix) v = load4<T>(src + (m0 + m) * cf + ch0 + c4);
     store4<T>(dst + m * lda + c4, v);
+  }
+}
+
+// The same rows as int8 codes of a layer quantized per tensor (s, z, asym:
+// quantize_code), into a shared tile of pitch ldq bytes; rows past npix are 0.
+template <typename T>
+__device__ __forceinline__ void stage_codes(const T* __restrict__ src, int npix, int cf, int ch0, int K,
+                                            long long m0, int8_t* dst, int ldq, float s, float z, int asym) {
+  const int quads = K / 4;
+  for (int idx = threadIdx.x; idx < kPwBM * quads; idx += kPwThreads) {
+    const int m = idx / quads;
+    const int c4 = (idx - m * quads) * 4;
+    char4 q = make_char4(0, 0, 0, 0);
+    if (m0 + m < npix) {
+      const float4 v = load4<T>(src + (m0 + m) * cf + ch0 + c4);
+      q = make_char4(static_cast<signed char>(quantize_code(v.x, s, z, asym)),
+                     static_cast<signed char>(quantize_code(v.y, s, z, asym)),
+                     static_cast<signed char>(quantize_code(v.z, s, z, asym)),
+                     static_cast<signed char>(quantize_code(v.w, s, z, asym)));
+    }
+    *reinterpret_cast<char4*>(dst + m * ldq + c4) = q;
   }
 }
 

@@ -39,8 +39,11 @@ once (``ops/w8a8.py QArgs``), and the conv kernels take it as ``qargs``
 where the JAX code passes ``_qargs_for``: ``conv_s1`` (block_conv3),
 ``_sft_conv`` (sft_conv3), ``_resblock`` (both convs or neither) and the
 mega program's tail (HR_conv2). The stride-2 convs stay float, as in the
-JAX package unless ``HDRTV_INT8_DOWN2=1``, whose int8 down2 body is not
-ported (that setting raises).
+JAX package, unless ``HDRTV_INT8_DOWN2=1`` (read at each call): then
+``conv_s2`` passes the layer's int8 parameters to down2 (the consolidated
+CondNet down conv one per branch) under the JAX routing rule
+(:func:`_down2_qargs`), and a layer that rule leaves out runs its float
+down2 on the pre-dequantized weight, as the JAX package's lax conv does.
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ from hdrtv_tpu_torch.ops.resize import (
     downsample_quarter_aa_flat,
     downsample_quarter_aa_pairs,
 )
-from hdrtv_tpu_torch.ops.w8a8 import QArgs, pack_qargs
+from hdrtv_tpu_torch.ops.w8a8 import QArgs, pack_qargs, pack_qargs_branches
 from hdrtv_tpu_torch.utils.env import env_bool
 
 # ---------------------------------------------------------------------------
@@ -476,10 +479,12 @@ def params_to_torch(params_np: dict, device, policy: Policy = F32) -> Params:
     the native-int8 scales; anything else (the int8 ``.qweight`` codes among
     it) with its dtype. Also prepares what depends on the parameters only:
     the trunk3 kernel's parameter block, the head kernel's padded and
-    BGR-permuted matrices, and for each native-int8 stride-1 3×3 layer its
-    ``QArgs`` under ``{layer}.__qargs`` (what ``_qargs_for`` returns). The
-    int8 1×1s and stride-2 convs, which only the int8 bodies of cond_chain
-    and down2 read (not ported), stay as their raw keys."""
+    BGR-permuted matrices, and for each native-int8 3×3 layer its ``QArgs``
+    under ``{layer}.__qargs`` (what ``_qargs_for`` and :func:`_down2_qargs`
+    return; for the consolidated CondNet down conv, with its per-branch
+    ``qx_scales``, a tuple of one per branch). The int8 1×1s, which no frame
+    program quantizes (cond_chain's int8 steps take ``QArgs`` from the
+    caller), stay as their raw keys."""
     keep = _fp32_param_names(params_np)
     out = {}
     for k, v in params_np.items():
@@ -487,13 +492,20 @@ def params_to_torch(params_np: dict, device, policy: Policy = F32) -> Params:
         if t.is_floating_point():
             t = t.to(torch.float32 if k in keep or k.endswith(_QSCALES) else policy.compute_dtype)
         out[k] = t.to(device).contiguous()
-    stride1 = {layer for layer, role in _le_layer_roles().items() if role in (_S1, _PSL)}
+    conv3 = {layer for layer, role in _le_layer_roles().items() if role in (_S1, _PSL, _S2)} | {"LE.__cond_down"}
     for k in params_np:
         layer = k[: -len(".qweight")]
-        if k.endswith(".qweight") and layer in stride1 and f"{layer}.qx_scale" in params_np:
+        if not (k.endswith(".qweight") and layer in conv3):
+            continue
+        args = (params_np[k], params_np[f"{layer}.qw_scale"])
+        if f"{layer}.qx_scales" in params_np:
+            out[layer + _QARGS] = pack_qargs_branches(
+                *args, params_np[f"{layer}.qx_scales"], params_np.get(f"{layer}.qx_zeros"),
+                params_np[f"{layer}.bias"], device)
+        elif f"{layer}.qx_scale" in params_np:
             out[layer + _QARGS] = pack_qargs(
-                params_np[k], params_np[f"{layer}.qw_scale"], params_np[f"{layer}.qx_scale"],
-                params_np.get(f"{layer}.qx_zero"), params_np[f"{layer}.bias"], device)
+                *args, params_np[f"{layer}.qx_scale"], params_np.get(f"{layer}.qx_zero"),
+                params_np[f"{layer}.bias"], device)
     if "LE.recon_trunk3.0.conv1.weight" in out and "LE.up_conv1.0.weight" in out:
         out[_TRUNK3_PACKED] = trunk3_pack(*_trunk3_params(out))
     if all(k in out for k in _MEGA_KEYS):
@@ -537,6 +549,26 @@ def _qargs_for(p: Params, layer: str, x: torch.Tensor) -> QArgs | None:
     return qa if qa is not None and x.shape[2] % 8 == 0 else None
 
 
+def _down2_qargs(p: Params, layer: str, x: torch.Tensor, a_sub: int):
+    """The int8 parameters ``conv_s2`` passes to down2 for ``layer`` (one
+    ``QArgs``, or a tuple of one per branch), or None, by the JAX
+    ``conv_s2``'s rule: only with ``HDRTV_INT8_DOWN2=1`` (read at each call),
+    only where the JAX package takes its fused down2 kernel (the Wb % 8 of
+    ``_use_fused_kernel``, (Wb/2) % 8 and ``pick_rows(Hb/2, limit=8) <= 16``;
+    elsewhere it runs a lax conv on the pre-dequantized float weight), and
+    only where each of the a_sub output halves holds at least 128 channels
+    (at nf = 32 that leaves LE.down_conv1/2, Co = 128, in float)."""
+    qa = p.get(layer + _QARGS)
+    if qa is None or not env_bool("HDRTV_INT8_DOWN2", False):
+        return None
+    hb, wb = x.shape[1], x.shape[2]
+    if wb % 8 or (wb // 2) % 8 or pick_rows(hb // 2, limit=8) > 16:
+        return None
+    if p[f"{layer}.weight"].shape[-1] // (2 * a_sub) < 128:
+        return None
+    return qa
+
+
 def conv_s1(p, name, x, *, policy, relu_fused: bool = False, skip: torch.Tensor | None = None):
     """Stride-1 3×3 in block domain: 3×3 'same' over plain s2d; the
     block_conv3 kernel with bias/ReLU/skip fused when the channels fit, in
@@ -555,23 +587,22 @@ def conv_s1(p, name, x, *, policy, relu_fused: bool = False, skip: torch.Tensor 
     return y
 
 
-def conv_s2(p, name, x, *, policy, relu_fused: bool = False, act: str | None = None,
+def conv_s2(p, name, x, *, policy, relu_fused: bool = False, act: str | None = None, a_sub: int = 1,
             cin: int | None = None, ch0: int = 0):
     """Stride-2 3×3, s2d output: 3×3 stride-2, (1,0) pad over plain s2d; the
-    down2 kernel with the activation fused. ``cin``/``ch0``: consume the
-    ``[ch0:ch0+cin]`` channel window of a wider ``x`` (the kernel reads it in
-    place; the torch path slices)."""
+    down2 kernel with the activation fused, in its int8 form where
+    :func:`_down2_qargs` gives the layer's parameters. ``a_sub``: the
+    consolidated sub-blocks along Co (3 for LE.__cond_down). ``cin``/``ch0``:
+    consume the ``[ch0:ch0+cin]`` channel window of a wider ``x`` (the kernel
+    reads it in place; the torch path slices)."""
     if relu_fused:
         act = "relu"
     w = p[f"{name}.weight"]
     hb, wb = x.shape[1], x.shape[2]
-    if env_bool("HDRTV_INT8_DOWN2", False) and f"{name}.qweight" in p:
-        raise NotImplementedError(
-            f"HDRTV_INT8_DOWN2=1: the int8 body of fused_down2 ({name}) is not ported to "
-            "hdrtv_tpu_torch yet: ROADMAP.md Slice 6 (native int8, what remains)")
     if _use_fused_kernel(x, w) and hb % 2 == 0 and wb % 2 == 0:
         return fused_down2(
             policy.cast(x[0]), policy.cast(w), p[f"{name}.bias"], act=act, cin=cin, ch0=ch0,
+            qargs=_down2_qargs(p, name, x, a_sub), a_sub=a_sub,
         )[None]
     if cin is not None:
         x = x[..., ch0 : ch0 + cin]
@@ -751,7 +782,7 @@ def _le_cond_downs(p: Params, c: torch.Tensor, *, policy: Policy):
         return x
 
     if "LE.__cond_down.weight" in p:
-        cd = conv_s2(p, "LE.__cond_down", c, policy=policy, act="lrelu")
+        cd = conv_s2(p, "LE.__cond_down", c, policy=policy, act="lrelu", a_sub=3)
         nch = cd.shape[-1] // 3
         cond2 = mix_chain(
             cd, [("LE.CondNet2.2", "lrelu"), ("LE.CondNet2.4", None)], cin=nch, ch0=0

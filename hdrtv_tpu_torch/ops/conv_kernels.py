@@ -9,10 +9,12 @@ Activations, weights and skip are float32 or bfloat16 (one type per call),
 the bias float32; the sum is fp32 either way and rounds once, on store.
 With ``qargs`` (an ``ops/w8a8.py`` ``QArgs``) it is the native-int8 (W8A8)
 body: x quantized per tensor, int8 × int8 → int32 tap sums rescaled per
-output channel (``csrc/block_conv3.cu`` ``block_conv3_w8a8``). The JAX
-kernel's ``a_sub`` zero-tap skip and ``pool_out`` forms are not ported
-(ROADMAP.md): the dense product equals the ``a_sub`` form on s2d-transformed
-weights, in int8 exactly.
+output channel (``csrc/block_conv3.cu`` ``block_conv3_w8a8``). With
+``pool_out`` the 2×2 max pool of the result (after the ReLU) is taken in the
+kernel's epilogue, in any of the three forms, and the output is
+(Hb/2, Wb/2, Co) (``block_conv3_pool``). The JAX kernel's ``a_sub`` zero-tap
+skip is not ported: the dense product equals it on s2d-transformed weights,
+in int8 exactly.
 """
 
 from __future__ import annotations
@@ -24,27 +26,33 @@ from hdrtv_tpu_torch.ops import native
 from hdrtv_tpu_torch.ops.w8a8 import QArgs, _taps_conv_q, check_qargs
 
 
-def fused_block_conv3_ref(x, w, b, *, relu=False, skip=None):
-    """Plain version: conv + b, then + skip, then relu, in fp32; one
-    rounding to ``x.dtype`` at the end."""
-    y = conv_nhwc(x[None].float(), w.float(), b.float(), padding=1)[0]
+def _epilogue(y, dtype, relu, skip, pool_out):
+    """+ skip, relu, the 2×2 max pool, in fp32; one rounding to ``dtype``
+    (rounding is monotonic: the max of the rounded values is the rounded
+    max, as the Pallas body pools before its cast)."""
     if skip is not None:
         y = y + skip.float()
     if relu:
         y = torch.clamp_min(y, 0.0)
-    return y.to(x.dtype)
+    if pool_out:
+        h, w, co = y.shape
+        y = y.reshape(h // 2, 2, w // 2, 2, co).amax(dim=(1, 3))
+    return y.to(dtype)
 
 
-def fused_block_conv3_q_ref(x, qa: QArgs, *, relu=False, skip=None):
+def fused_block_conv3_ref(x, w, b, *, relu=False, skip=None, pool_out=False):
+    """Plain version: conv + b, then + skip, then relu, then the 2×2 max
+    pool with ``pool_out``, in fp32; one rounding to ``x.dtype`` at the end."""
+    y = conv_nhwc(x[None].float(), w.float(), b.float(), padding=1)[0]
+    return _epilogue(y, x.dtype, relu, skip, pool_out)
+
+
+def fused_block_conv3_q_ref(x, qa: QArgs, *, relu=False, skip=None, pool_out=False):
     """Plain version of the int8 body (conv_kernels.py:180-227): x widened
     to fp32 and quantized (out-of-image taps carry the pad code), the exact
-    int32 sum scaled, + the folded bias, + skip, relu, one rounding."""
-    y = _taps_conv_q(x.float(), qa)
-    if skip is not None:
-        y = y + skip.float()
-    if relu:
-        y = torch.clamp_min(y, 0.0)
-    return y.to(x.dtype)
+    int32 sum scaled, + the folded bias, + skip, relu, the pool, one
+    rounding."""
+    return _epilogue(_taps_conv_q(x.float(), qa), x.dtype, relu, skip, pool_out)
 
 
 def fused_block_conv3(
@@ -55,24 +63,29 @@ def fused_block_conv3(
     relu: bool = False,
     skip: torch.Tensor | None = None,
     qargs: QArgs | None = None,
+    pool_out: bool = False,
 ) -> torch.Tensor:
     """3×3 'same' conv over (Hb, Wb, C) with fused bias/ReLU/skip; ``w`` is
     (3, 3, C, Co). The kernel takes C a multiple of 16 and Co of 4 (the s2d
     callers route C, Co multiples of 128 here). ``qargs``: the layer's int8
     parameters, prepared at load from this ``w`` and ``b``; the int8 body
-    reads them in place of ``w`` and ``b`` (C % 64, Co % 8 on the card)."""
+    reads them in place of ``w`` and ``b`` (C % 64, Co % 8 on the card).
+    ``pool_out``: the 2×2 max pool of the result, (Hb/2, Wb/2, Co); Hb and Wb
+    must be even, as in the JAX kernel."""
     hb, wb, c = x.shape
     co = w.shape[-1]
     dt = native.element_type("block_conv3 x", x)
     native.check_params("block_conv3", dt, [w], [b])
+    if pool_out and (hb % 2 or wb % 2):
+        raise ValueError(f"pool_out needs even input dims, got {hb}x{wb}")
     tensors = (x, w, b) if skip is None else (x, w, b, skip)
     cpu = native.on_cpu(*tensors)
     if qargs is not None:
         check_qargs("block_conv3", qargs, c, co, not cpu)
     if cpu:
         if qargs is not None:
-            return fused_block_conv3_q_ref(x, qargs, relu=relu, skip=skip)
-        return fused_block_conv3_ref(x, w, b, relu=relu, skip=skip)
+            return fused_block_conv3_q_ref(x, qargs, relu=relu, skip=skip, pool_out=pool_out)
+        return fused_block_conv3_ref(x, w, b, relu=relu, skip=skip, pool_out=pool_out)
     if c % 16 or co % 4 or (qargs is not None and (c % 64 or co % 8)):
         raise ValueError(f"block_conv3 needs C % 16 == 0 and Co % 4 == 0 (int8: C % 64 and Co % 8), "
                          f"got C={c} Co={co}")
@@ -81,15 +94,16 @@ def fused_block_conv3(
     native.check_cuda("block_conv3 b", b, torch.float32, (co,))
     if skip is not None:
         native.check_cuda("block_conv3 skip", skip, dt, (hb, wb, co))
-    out = torch.empty((hb, wb, co), dtype=dt, device=x.device)
+    out = torch.empty((hb // 2, wb // 2, co) if pool_out else (hb, wb, co), dtype=dt, device=x.device)
     # the int8 form's scratch: x's codes
     codes = None if qargs is None else torch.empty((hb, wb, c), dtype=torch.int8, device=x.device)
+    counter = "block_conv3" + ("_pool" if pool_out else "") + ("" if qargs is None else "_w8a8")
     native.launch(
         "block_conv3", dt,
         x.data_ptr(), w.data_ptr(), b.data_ptr(), native.quant_params(qargs),
         None if skip is None else skip.data_ptr(), out.data_ptr(),
         None if codes is None else codes.data_ptr(),
-        hb, wb, c, co, int(relu), native.stream_of(x),
-        counter=None if qargs is None else "block_conv3_w8a8",
+        hb, wb, c, co, int(relu), int(pool_out), native.stream_of(x),
+        counter=counter,
     )
     return out

@@ -18,9 +18,12 @@ round at the same places. Sums are fp32 everywhere.
 native-int8 (W8A8) forms of their 3×3 convs (``qargs``, ``ops/w8a8.py``
 ``QArgs``), as the Pallas kernels' ``quant`` bodies do: the SFT output t is
 quantized from fp32, never rounded to the element type first, and the conv
-is an exact int32 tap sum rescaled per output channel. The int8 bodies of
-``fused_cond_chain`` and ``fused_down2`` are not ported (ROADMAP.md slice 6:
-no frame program runs them by default).
+is an exact int32 tap sum rescaled per output channel. ``fused_down2``
+takes its int8 body too (``qargs``, one ``QArgs`` per branch of the
+consolidated CondNet down conv; the frame programs pass it under
+``HDRTV_INT8_DOWN2=1`` only, as the JAX package does), and
+``fused_cond_chain`` its int8 steps (``qargs``, a list of five ``QArgs`` or
+None in the 1×1 form; no frame program passes them, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 
 from hdrtv_tpu_torch.models.layers import conv_nhwc, leaky_relu
 from hdrtv_tpu_torch.ops import native
-from hdrtv_tpu_torch.ops.w8a8 import QArgs, _taps_conv_q, check_qargs
+from hdrtv_tpu_torch.ops.w8a8 import QArgs, _dense_q, _taps_conv_q, check_qargs
 
 _ACTS = {None: 0, "relu": 1, "lrelu": 2}
 
@@ -213,16 +216,18 @@ def fused_agcm_head(
 # ---------------------------------------------------------------------------
 
 
-def fused_cond_chain_ref(c0, weights):
+def fused_cond_chain_ref(c0, weights, qargs=None):
     """Plain version, the body of the Pallas ``_cond_chain_kernel``: the
     running value stays fp32 from step to step and is rounded to the weight's
     type at each product; sums, the fp32 bias and the leaky ReLU (all steps
     but the last) are fp32; ``c`` is the value after the second step and
-    ``cond1`` the last, each rounded once on store."""
+    ``cond1`` the last, each rounded once on store. An int8 step (``qargs``
+    entry not None) quantizes the fp32 running value itself, sums the codes'
+    products exactly and rescales: yscale, then the folded bias."""
     v = c0.float()
     c = None
-    for idx, (w, b) in enumerate(weights):
-        v = torch.matmul(_rounded(v, w.dtype), w.float()) + b
+    for idx, ((w, b), qa) in enumerate(zip(weights, qargs or [None] * len(weights))):
+        v = _dense_q(v, qa) if qa is not None else torch.matmul(_rounded(v, w.dtype), w.float()) + b
         if idx != 4:
             v = _apply_act(v, "lrelu")
         if idx == 1:
@@ -230,25 +235,39 @@ def fused_cond_chain_ref(c0, weights):
     return c, v.to(c0.dtype)
 
 
-def fused_cond_chain(c0: torch.Tensor, weights) -> tuple[torch.Tensor, torch.Tensor]:
+def fused_cond_chain(c0: torch.Tensor, weights, *, qargs=None) -> tuple[torch.Tensor, torch.Tensor]:
     """c0 (Hb, Wb, C) → (c, cond1): lrelu(cond_first.2), lrelu(cond_first.4)
     → ``c``, then lrelu(CondNet1.0), lrelu(CondNet1.2), CondNet1.4 →
-    ``cond1``, in one pass. ``weights``: five (w (C, C'), b (C',)) pairs. The
-    JAX kernel's int8 ``qargs`` form is not ported."""
+    ``cond1``, in one pass. ``weights``: five (w (C, C'), b (C',)) pairs.
+    ``qargs``: None, or five entries, each None (a float step) or the step's
+    1×1 int8 parameters (``ops/w8a8.py`` ``QArgs`` with ``taps`` 1, prepared
+    from that step's w and b; on the card its input width % 32 and output
+    width % 8): the JAX kernel's ``qflags`` steps. A launch with any int8 step
+    counts as ``cond_chain_w8a8``."""
     hb, wb, k = c0.shape
     dt = native.element_type("cond_chain c0", c0)
     if len(weights) != 5:
         raise ValueError(f"cond_chain takes five (w, b) pairs, got {len(weights)}")
+    qargs = list(qargs) if qargs is not None else [None] * 5
+    if len(qargs) != 5:
+        raise ValueError(f"cond_chain takes five qargs entries, got {len(qargs)}")
     ws, bs = [w for w, _ in weights], [b for _, b in weights]
     native.check_params("cond_chain", dt, ws, bs)
-    for w, b in weights:
+    cpu = native.on_cpu(c0, *ws, *bs)
+    for (w, b), qa in zip(weights, qargs):
         if w.ndim != 2 or w.shape[0] != k or tuple(b.shape) != (w.shape[1],):
             raise ValueError(f"cond_chain: step weight {tuple(w.shape)} / bias {tuple(b.shape)} after width {k}")
+        if qa is not None:
+            if qa.taps != 1:
+                raise ValueError(f"cond_chain: int8 steps take 1×1 qargs, got {qa.taps} taps")
+            check_qargs("cond_chain", qa, k, w.shape[1], not cpu)
         k = w.shape[1]
-    if native.on_cpu(c0, *ws, *bs):
-        return fused_cond_chain_ref(c0, weights)
+    if cpu:
+        return fused_cond_chain_ref(c0, weights, qargs)
     if any(w.shape[0] % 16 or w.shape[1] % 8 for w in ws):
         raise ValueError("cond_chain needs every step's input % 16 and output % 8 == 0")
+    if any(qa is not None and w.shape[0] % 32 for w, qa in zip(ws, qargs)):
+        raise ValueError("cond_chain needs an int8 step's input % 32 == 0")
     native.check_cuda("cond_chain c0", c0, dt)
     for w, b in weights:
         native.check_cuda("cond_chain w", w, dt)
@@ -256,10 +275,13 @@ def fused_cond_chain(c0: torch.Tensor, weights) -> tuple[torch.Tensor, torch.Ten
     ints = ctypes.c_int * 5
     c = torch.empty((hb, wb, ws[1].shape[1]), dtype=dt, device=c0.device)
     cond1 = torch.empty((hb, wb, k), dtype=dt, device=c0.device)
+    quant = any(qa is not None for qa in qargs)
+    qptrs, _structs = native.quant_params_pointers(qargs) if quant else (None, None)
     native.launch(
         "cond_chain", dt,
         c0.data_ptr(), c.data_ptr(), cond1.data_ptr(), native.pointer_array(ws), native.pointer_array(bs),
-        ints(*[w.shape[0] for w in ws]), ints(*[w.shape[1] for w in ws]), hb * wb, native.stream_of(c0),
+        ints(*[w.shape[0] for w in ws]), ints(*[w.shape[1] for w in ws]), qptrs, hb * wb, native.stream_of(c0),
+        counter="cond_chain_w8a8" if quant else None,
     )
     return c, cond1
 
@@ -444,9 +466,22 @@ def fused_down2_ref(x, w, b, *, act=None):
     return _apply_act(y, act).to(x.dtype)
 
 
+def fused_down2_q_ref(x, qargs, *, act=None):
+    """Plain version of the int8 body (megakernel.py:608-705): for each
+    branch (``qargs``: one ``QArgs`` or a sequence, one per branch, in output
+    channel order) x widened to fp32 and quantized with the branch's scale
+    and zero (global row −1 and column −1 carry its pad code), the exact
+    int32 stride-2 tap sum, · yscale, + the folded bias; the branches side by
+    side, the activation, one rounding to ``x.dtype``."""
+    branches = [qargs] if isinstance(qargs, QArgs) else list(qargs)
+    xf = x.float()
+    y = torch.cat([_taps_conv_q(xf, qa, stride=2) for qa in branches], dim=-1)
+    return _apply_act(y, act).to(x.dtype)
+
+
 def fused_down2(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, act: str | None = None,
-    cin: int | None = None, ch0: int = 0,
+    cin: int | None = None, ch0: int = 0, qargs=None, a_sub: int = 1,
 ) -> torch.Tensor:
     """Stride-2 3×3 block conv, (1,0) pad: (Hb,Wb,C) → (Hb/2,Wb/2,Co).
 
@@ -454,7 +489,12 @@ def fused_down2(
     dense, so any weight gives the conv's result). ``act``: None | 'relu' |
     'lrelu'. ``cin``/``ch0``: read the ``[ch0:ch0+cin]`` channel window of a
     wider ``x`` in place (``ch0`` a multiple of ``cin``, as in the JAX
-    contract); the plain version slices.
+    contract); the plain version slices. ``qargs``: the int8 body, one
+    ``QArgs`` (per-tensor calibration) or one per branch of a consolidated
+    conv (``a_sub`` of them, each for its Co/a_sub output channels, a
+    multiple of 128 on the card), prepared at load from this ``w`` and
+    ``b``; on the card the window takes C % 64. ``a_sub``: the consolidated
+    sub-blocks, which the dense kernel needs only to check the branches.
     """
     hb, wb, cf = x.shape
     c = _window("down2", cf, cin, ch0)
@@ -463,20 +503,41 @@ def fused_down2(
     co = w.shape[-1]
     dt = native.element_type("down2 x", x)
     native.check_params("down2", dt, [w], [b])
-    if native.on_cpu(x, w, b):
+    cpu = native.on_cpu(x, w, b)
+    branches = None if qargs is None else ([qargs] if isinstance(qargs, QArgs) else list(qargs))
+    if branches is not None:
+        nb = len(branches)
+        if (nb != 1 and nb != a_sub) or co % nb:
+            raise ValueError(f"down2: {nb} qargs branches for a_sub={a_sub}, Co={co}")
+        for qa in branches:
+            check_qargs("down2", qa, c, co // nb, not cpu)
+    if cpu:
+        if branches is not None:
+            return fused_down2_q_ref(x[..., ch0 : ch0 + c], branches, act=act)
         return fused_down2_ref(x[..., ch0 : ch0 + c], w, b, act=act)
     if hb % 2 or wb % 2:
         raise ValueError(f"down2 needs even block dims, got {hb}x{wb}")
     if c % 16 or co % 4 or cf % 4:
         raise ValueError(f"down2 needs cin % 16, Co % 4 and C % 4 == 0, got {c}, {co}, {cf}")
+    if branches is not None and (c % 64 or co % 8 or len(branches) > 4 or
+                                 (len(branches) > 1 and (co // len(branches)) % 128)):
+        raise ValueError(f"down2 int8 needs cin % 64, Co % 8 and branches of 128-multiples (at most 4), "
+                         f"got {c}, {co}, {len(branches)} branches")
     native.check_cuda("down2 x", x, dt)
     native.check_cuda("down2 w", w, dt, (3, 3, c, co))
     native.check_cuda("down2 b", b, torch.float32, (co,))
     out = torch.empty((hb // 2, wb // 2, co), dtype=dt, device=x.device)
+    qp, codes = None, None
+    if branches is not None:
+        qp = native.quant_params_array(branches)
+        # the int8 form's scratch: the window's codes, one plane per branch
+        codes = torch.empty((len(branches), hb, wb, c), dtype=torch.int8, device=x.device)
     native.launch(
         "down2", dt,
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), qp, 0 if branches is None else len(branches),
+        out.data_ptr(), None if codes is None else codes.data_ptr(),
         hb, wb, cf, ch0, c, co, _ACTS[act], native.stream_of(x),
+        counter=None if branches is None else "down2_w8a8",
     )
     return out
 

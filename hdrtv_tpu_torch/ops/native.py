@@ -38,6 +38,7 @@ launch_counts: dict[str, int] = {
     "agcm_head": 0, "cond_chain": 0, "tail": 0,
     "hg_tail": 0, "colorimetric": 0,
     "block_conv3_w8a8": 0, "sft_conv3_w8a8": 0, "resblock_w8a8": 0, "tail_w8a8": 0,
+    "down2_w8a8": 0, "cond_chain_w8a8": 0, "block_conv3_pool": 0, "block_conv3_pool_w8a8": 0,
 }
 
 # Element types the kernels are instantiated for, and the suffix of their
@@ -128,14 +129,14 @@ def lib() -> ctypes.CDLL:
     q = ctypes.POINTER(QuantParams)
     per_dtype = {
         "hdrtv_pack_rgb48": ([p, p, ll, p], i),
-        "hdrtv_block_conv3": ([p, p, p, q, p, p, p, i, i, i, i, i, p], i),
-        "hdrtv_down2": ([p, p, p, p, i, i, i, i, i, i, i, p], i),
+        "hdrtv_block_conv3": ([p, p, p, q, p, p, p, i, i, i, i, i, i, p], i),
+        "hdrtv_down2": ([p, p, p, q, i, p, p, i, i, i, i, i, i, i, p], i),
         "hdrtv_trunk3": ([p, p, p, p, p, i, i, i, i, i, p], i),
         "hdrtv_sft_conv3": ([p, p, p, p, p, q, p, p, p, i, i, i, i, i, i, p], i),
         "hdrtv_resblock": ([p, p, p, p, p, q, p, p, p, q, p, i, p, p, p, p, i, i, i, i, p], i),
         "hdrtv_mix_chain": ([p, p, p, p, p, p, p, i, i, i, i, p], i),
         "hdrtv_agcm_head": ([p, i, f, p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
-        "hdrtv_cond_chain": ([p, p, p, p, p, p, p, i, p], i),
+        "hdrtv_cond_chain": ([p, p, p, p, p, p, p, p, i, p], i),
         "hdrtv_tail": ([p, p, p, p, p, p, p, q, p, p, p, p, p, i, i, i, i, i, i, p], i),
         "hdrtv_hg_tail": ([p, p, p, p, p, p, p, p, p, i, i, i, i, p], i),
         "hdrtv_colorimetric": ([p, p, ll, *([f] * 16), p], i),
@@ -164,14 +165,34 @@ class QuantParams(ctypes.Structure):
                 ("s", ctypes.c_float), ("z", ctypes.c_float), ("asym", ctypes.c_int), ("pad", ctypes.c_int)]
 
 
+def _quant_struct(qa) -> QuantParams:
+    return QuantParams(qa.w.data_ptr(), qa.yscale.data_ptr(), qa.bias.data_ptr(), qa.scale,
+                       0.0 if qa.zero is None else qa.zero, int(qa.zero is not None), qa.pad)
+
+
 def quant_params(qa):
     """What a kernel with an int8 form takes for an ``ops/w8a8.py`` ``QArgs``
     on the card: a reference to its :class:`QuantParams` (the kernel's host
     side reads it during the call), or None (the float form) for None."""
     if qa is None:
         return None
-    return ctypes.byref(QuantParams(qa.w.data_ptr(), qa.yscale.data_ptr(), qa.bias.data_ptr(), qa.scale,
-                                    0.0 if qa.zero is None else qa.zero, int(qa.zero is not None), qa.pad))
+    return ctypes.byref(_quant_struct(qa))
+
+
+def quant_params_array(qas) -> ctypes.Array:
+    """Consecutive :class:`QuantParams` of several ``QArgs`` (the branches of
+    a multi-branch layer), as a kernel taking ``const QuantParams*`` and a
+    count reads them. Keep it alive across the call."""
+    return (QuantParams * len(qas))(*[_quant_struct(qa) for qa in qas])
+
+
+def quant_params_pointers(qas) -> tuple:
+    """A host array of ``QuantParams*``, one per ``QArgs`` or None (null: a
+    float step), and the structures it points to; keep both alive across
+    the call and pass the array."""
+    structs = [None if qa is None else _quant_struct(qa) for qa in qas]
+    ptrs = (ctypes.c_void_p * len(qas))(*[None if st is None else ctypes.addressof(st) for st in structs])
+    return ptrs, structs
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -39,9 +39,13 @@ quantize are attached (``models/s2d.py attach_native_int8``;
 ``HDRTVNET_NATIVE_INT8``, on by default, read at load). Each of the three
 base programs above then runs those layers' convs in the kernels' int8 forms
 (block_conv3, sft_conv3, resblock and tail): activations quantized per
-tensor, int8 × int8 → int32 products. A weight-only (W8) checkpoint, or
-``HDRTVNET_NATIVE_INT8=0``, runs the float program on the pre-dequantized
-weights.
+tensor, int8 × int8 → int32 products. ``HDRTV_INT8_DOWN2=1``, read at each
+call, also runs the stride-2 convs the JAX package quantizes then (the
+consolidated CondNet down conv and CondNet3.2/4.2 at nf = 32) in down2's int8
+form. A composite (HG) int8 checkpoint runs the HG composite after the int8
+base program, its HG in float on the pre-dequantized weights, as in the JAX
+package. A weight-only (W8) checkpoint, or ``HDRTVNET_NATIVE_INT8=0``, runs
+the float program on the pre-dequantized weights.
 
 Everything else raises with the ROADMAP item that will port it; nothing falls
 back to a different computation, and nothing runs on the CPU unless the
@@ -91,7 +95,10 @@ class HDRTVNetTorch:
     ``predequantize``: for an int8 checkpoint, expand the int8 weights to
     float at load (``None`` reads ``HDRTVNET_PREDEQUANTIZE``, default on; off,
     the eager W8A8 path, is not ported). ``predequantized`` and
-    ``native_int8`` say what the load did.
+    ``native_int8`` say what the load did. ``turbo``: the space-to-depth
+    programs (``None`` reads ``HDRTVNET_TPU_TURBO``, default on); off, the
+    JAX runtime runs the natural-layout model on every frame, which is not
+    ported and raises here.
     """
 
     def __init__(
@@ -105,6 +112,7 @@ class HDRTVNetTorch:
         fast_zero_condition: bool | None = None,
         proc_resolution: tuple[int, int] | None = None,
         predequantize: bool | None = None,
+        turbo: bool | None = None,
         mesh=None,
     ):
         self.model_path = model_path
@@ -120,6 +128,11 @@ class HDRTVNetTorch:
             raise _not_ported("proc_resolution (device letterbox)", "Slice 8 (host, runtime and tooling modules)")
         if mesh is not None:
             raise _not_ported("mesh inference", "Slice 8 (parallel: Queue 1 item 13)")
+        if turbo is None:
+            turbo = env_bool("HDRTVNET_TPU_TURBO", True)
+        if not turbo:
+            raise _not_ported("turbo off (the natural-layout model on every frame, HDRTVNET_TPU_TURBO=0)",
+                              "Slice 5 (natural-layout fallback)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -140,34 +153,33 @@ class HDRTVNetTorch:
         cfg = ModelConfig.from_arch_dict(arch, use_hg=bool(use_hg))
         if cfg.use_hg and cfg.hg_arch != "pixelshuffle":
             raise _not_ported(f"the {cfg.hg_arch} HG generator", "Slice 8 (model variants: Queue 1 item 9)")
-        if cfg.use_hg and "hg.conv1.0.weight" not in params:
-            raise _not_ported(
-                "use_hg on a checkpoint without hg.* weights (the natural-layout HG composite)",
-                "Slice 5 (natural-layout fallback)",
-            )
         has_int8 = any(k.endswith(".weight_int8") for k in params)
         if predequantize is None:
             predequantize = env_bool("HDRTVNET_PREDEQUANTIZE", True)
         if has_int8 and not predequantize:
             raise _not_ported("the eager W8A8 path of int8 checkpoints (predequantize off)",
                               "Slice 5 (natural-layout fallback)")
-        if has_int8 and (cfg.use_hg or any(k.startswith(("base.", "hg.")) for k in params)):
-            raise _not_ported("int8 composite (HG) checkpoints", "Slice 6 (native int8, what remains)")
+        # An int8 checkpoint: float weights once at load (the JAX runtime's
+        # pre-dequantize mode), the hg.* layers of a composite among them,
+        # before hg_s2d_transform folds their BatchNorms.
+        self.predequantized = has_int8
+        raw_int8 = params if has_int8 else None
+        if has_int8:
+            params = predequantize_params(params)
+        if cfg.use_hg and "hg.conv1.0.weight" not in params:
+            raise _not_ported(
+                "use_hg on a checkpoint without hg.* weights (the natural-layout HG composite)",
+                "Slice 5 (natural-layout fallback)",
+            )
         if cfg.classifier != "color_condition" or cfg.le_arch != "sft" or cfg.post_correction:
             raise _not_ported(
                 f"architecture {cfg.classifier}/{cfg.le_arch}/{cfg.post_correction or '-'}",
                 "Slice 8 (model variants: Queue 1 item 9)",
             )
         self.cfg = cfg
-        # An int8 checkpoint: float weights once at load (the JAX runtime's
-        # pre-dequantize mode), then, for W8A8 layers, the s2d-transformed
-        # int8 codes beside them for the kernels' int8 forms.
-        self.predequantized = has_int8
-        raw_int8 = params if has_int8 else None
-        if has_int8:
-            params = predequantize_params(params)
-        # s2d weight transform once on the host, then one cast and one copy
-        # to the device.
+        # s2d weight transform once on the host, then, for W8A8 layers, the
+        # s2d-transformed int8 codes beside the float weights for the
+        # kernels' int8 forms, then one cast and one copy to the device.
         sp = s2d_transform_params(params, cfg)
         self.native_int8 = False
         if has_int8 and env_bool("HDRTVNET_NATIVE_INT8", True):
@@ -201,7 +213,11 @@ class HDRTVNetTorch:
     def wants_pairs(self, h: int, w: int) -> bool:
         """True when frames at (h, w) ship as (Hb, 2, Wb, 6) u8 pair planes
         (the same bytes as (H, 3W) rows; a free host view). Not with HG: its
-        program takes flat rows."""
+        program takes flat rows; nor with ``HDRTV_PAIRS_BOUNDARY=0`` (read at
+        each call), as in the JAX runtime: flat rows then, and the flat
+        program."""
+        if not env_bool("HDRTV_PAIRS_BOUNDARY", True):
+            return False
         return not self.cfg.use_hg and h % 8 == 0 and w % 8 == 0
 
     def put_frame(self, flat_np: np.ndarray) -> torch.Tensor:

@@ -670,3 +670,115 @@ def test_int8_frame_matches_cpu(dev, monkeypatch):
     d = np.abs(gpu.astype(np.int64) - cpu.astype(np.int64))
     mse = float(np.mean((d / 65535.0) ** 2))
     assert 10 * np.log10(1.0 / max(mse, 1e-20)) >= 36.9, float(d.mean())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+@pytest.mark.parametrize("hb,wb,cf,cin,ch0,branches", [
+    (12, 20, 128, None, 0, 1),
+    (10, 18, 768, 256, 512, 1),
+    (14, 12, 256, None, 0, 3),
+])
+def test_down2_w8a8_matches_plain(dev, dtype, asym, hb, wb, cf, cin, ch0, branches):
+    """down2's int8 body: the window quantized per branch with the same
+    arithmetic and the exact int32 stride-2 sum, rescaled and biased by
+    separately rounded operations on both sides: bit for bit, ragged pixel
+    tiles, the channel window and three branches (each with its own scale,
+    zero and pad code) included."""
+    from hdrtv_tpu_torch.models.s2d import b_s2d
+    from hdrtv_tpu_torch.ops.megakernel import fused_down2, fused_down2_q_ref
+    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs, pack_qargs_branches
+    from hdrtv_tpu_torch.quant.int8 import quantize_weight
+
+    rng = np.random.RandomState(hb * wb + cf + asym)
+    c = cin or cf
+    x = _t(rng.rand(hb, wb, cf) * 1.3 - 0.2, dev, dtype)
+    nat = [quantize_weight(rng.randn(3, 3, c // 4, 64).astype(np.float32) * 0.05) for _ in range(branches)]
+    tq = np.concatenate([w_s2d_s2(q) for q, _ in nat], axis=-1)
+    tsc = np.concatenate([b_s2d(s) for _, s in nat])
+    co = tq.shape[-1]
+    bnp = (rng.randn(co) * 0.1).astype(np.float32)
+    scales = [1.3 / 255.0 + 0.001 * i if asym else 1.1 / 127.0 + 0.001 * i for i in range(branches)]
+    zeros = [-0.2 - 0.05 * i for i in range(branches)] if asym else None
+    if branches > 1:
+        qa = pack_qargs_branches(tq, tsc, scales, zeros, bnp, dev)
+    else:
+        qa = pack_qargs(tq, tsc, scales[0], None if zeros is None else zeros[0], bnp, dev)
+    w, b = _t(tq.astype(np.float32) * tsc, dev, dtype), _t(bnp, dev)
+    before = native.launch_counts["down2_w8a8"], native.launch_counts["down2"]
+    y = fused_down2(x, w, b, act="lrelu", cin=cin, ch0=ch0, qargs=qa, a_sub=branches)
+    assert (native.launch_counts["down2_w8a8"], native.launch_counts["down2"]) == (before[0] + 1, before[1])
+    y_r = fused_down2_q_ref(x[..., ch0 : ch0 + c], qa, act="lrelu")
+    torch.cuda.synchronize()
+    assert y.shape == (hb // 2, wb // 2, co) and torch.equal(y, y_r), _max_err(y, y_r)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("flags", [(1, 0, 2, 0, 1), (0, 2, 2, 1, 0)], ids=["10201", "02210"])
+def test_cond_chain_w8a8_matches_plain(dev, dtype, flags):
+    """cond_chain's int8 steps (1: symmetric, 2: zero point) among float
+    ones, on a ragged pixel count. A float step's sum order moves the running
+    value by its last bit, which can flip a code of the int8 step after it:
+    each output within 4 flipped codes' worth of the last int8 step (plus a
+    bf16 step), at most 5% of them differing by more than that last-bit
+    difference (fp32: 1e-5·max(1, |y|); bf16: at all). With a float last
+    step, 78% of the fp32 outputs were seen a few ulps apart."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_cond_chain, fused_cond_chain_ref
+    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
+    from hdrtv_tpu_torch.quant.int8 import quantize_weight
+
+    rng = np.random.RandomState(sum(flags) + 3 * flags[0])
+    hb, wb = 9, 15
+    c0 = _t(rng.rand(hb, wb, 128) - 0.3, dev, dtype)
+    weights, qargs = [], []
+    for i, (k, n) in enumerate(((128, 128), (128, 128), (128, 128), (128, 128), (128, 32))):
+        wq, ws = quantize_weight(rng.randn(1, 1, k, n).astype(np.float32) * 0.1)
+        bnp = (rng.randn(n) * 0.1).astype(np.float32)
+        weights.append((_t(wq[0, 0].astype(np.float32) * ws, dev, dtype), _t(bnp, dev)))
+        qargs.append(pack_qargs(wq, ws, 2.0 / 127.0 if flags[i] == 1 else 3.0 / 255.0,
+                                -1.0 if flags[i] == 2 else None, bnp, dev) if flags[i] else None)
+    before = native.launch_counts["cond_chain_w8a8"], native.launch_counts["cond_chain"]
+    y = fused_cond_chain(c0, weights, qargs=qargs)
+    assert (native.launch_counts["cond_chain_w8a8"], native.launch_counts["cond_chain"]) == (before[0] + 1, before[1])
+    y_r = fused_cond_chain_ref(c0, weights, qargs)
+    last = max(i for i, q in enumerate(qargs) if q is not None)
+    torch.cuda.synchronize()
+    for a, r in zip(y, y_r):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        err = (a.float() - r.float()).abs()
+        scale = r.float().abs().clamp_min(1.0)
+        bound = 4 * 127.0 * float(qargs[last].yscale.max()) + (2.0 ** -7 * scale if dtype == "bf16" else 0.0)
+        assert bool((err <= bound).all()), float(err.max())
+        moved = err > (1e-5 * scale if dtype == "f32" else 0.0)
+        assert float(moved.float().mean()) <= 0.05, float(moved.float().mean())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("hb,wb,co,skip", [(12, 20, 128, False), (10, 14, 512, True), (8, 32, 128, False)])
+def test_block_conv3_pool_matches_plain(dev, dtype, int8, hb, wb, co, skip):
+    """pool_out: the tiles walk pooled pixels (four conv pixels of one pooled
+    pixel in one thread or four lanes) and reduce them in the epilogue.
+    Float: as block_conv3 (fp32 absolute, bf16 one step); int8: bit for bit.
+    Ragged tiles, masked output channels and the residual included."""
+    from hdrtv_tpu_torch.ops.conv_kernels import (
+        fused_block_conv3, fused_block_conv3_q_ref, fused_block_conv3_ref,
+    )
+
+    rng = np.random.RandomState(hb * wb + co + int8)
+    c = 128
+    x = _t(rng.rand(hb, wb, c) * 1.2 - 0.1, dev, dtype)
+    w, b, qa = _qlayer(rng, dev, c, co, (-0.1, 1.1), False, ps=co == 512)
+    sk = _t(rng.rand(hb, wb, co) - 0.5, dev, dtype) if skip else None
+    qa = qa if int8 else None
+    counter = "block_conv3_pool_w8a8" if int8 else "block_conv3_pool"
+    before = native.launch_counts[counter], native.launch_counts["block_conv3"]
+    y = fused_block_conv3(x, w.to(x.dtype), b, relu=True, skip=sk, qargs=qa, pool_out=True)
+    assert (native.launch_counts[counter], native.launch_counts["block_conv3"]) == (before[0] + 1, before[1])
+    assert y.shape == (hb // 2, wb // 2, co)
+    if int8:
+        y_r = fused_block_conv3_q_ref(x, qa, relu=True, skip=sk, pool_out=True)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y_r), _max_err(y, y_r)
+    else:
+        _close(y, fused_block_conv3_ref(x, w.to(x.dtype), b, relu=True, skip=sk, pool_out=True), dtype)

@@ -646,8 +646,9 @@ def test_float_program_on_predequantized_weights(monkeypatch, tmp_path, ckpt, ki
 
 def test_int8_params_are_prepared_once(ckpt):
     """int8 codes stay int8 and the scales fp32 under bf16; each quantized
-    3×3 conv has its QArgs (Python scale and pad, fp32 yscale and bias); the
-    1×1s and the consolidated down conv keep their raw int8 keys only."""
+    3×3 conv has its QArgs (Python scale and pad, fp32 yscale and bias), the
+    consolidated down conv one per branch (what down2 takes under
+    HDRTV_INT8_DOWN2=1); the 1×1s keep their raw int8 keys only."""
     from hdrtv_tpu_torch.ops.w8a8 import QArgs
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
@@ -660,12 +661,18 @@ def test_int8_params_are_prepared_once(ckpt):
     assert qa.yscale.dtype == qa.bias.dtype == torch.float32
     assert qa.scale == float(ckpt["LE.HR_conv2.x_scale"])
     quantized = sorted(k[: -len(".__qargs")] for k in p if k.endswith(".__qargs"))
-    assert len(quantized) == 12 and "LE.up_conv3.0" in quantized
+    stride2 = ["LE.CondNet2.0", "LE.CondNet3.0", "LE.CondNet3.2", "LE.CondNet4.0", "LE.CondNet4.2",
+               "LE.__cond_down", "LE.down_conv1", "LE.down_conv2"]
+    assert len(quantized) == 12 + len(stride2) and "LE.up_conv3.0" in quantized
+    assert set(stride2) <= set(quantized)
     assert "LE.CondNet1.0.qweight" in p and "LE.CondNet1.0.__qargs" not in p
-    assert "LE.__cond_down.qx_scales" in p and "LE.__cond_down.__qargs" not in p
+    branches = p["LE.__cond_down.__qargs"]
+    assert "LE.__cond_down.qx_scales" in p and len(branches) == 3
+    assert [qa.scale for qa in branches] == [float(ckpt[f"LE.CondNet{i}.0.x_scale"]) for i in (2, 3, 4)]
+    assert all(qa.co == 256 and qa.c == 256 and qa.taps == 9 for qa in branches)
 
 
-@pytest.mark.parametrize("case", ["predequantize_arg", "predequantize_env", "composite", "down2", "odd_size"])
+@pytest.mark.parametrize("case", ["predequantize_arg", "predequantize_env", "odd_size"])
 def test_uncovered_int8_options_raise(monkeypatch, tmp_path, ckpt, case):
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
@@ -676,15 +683,6 @@ def test_uncovered_int8_options_raise(monkeypatch, tmp_path, ckpt, case):
         monkeypatch.setenv("HDRTVNET_PREDEQUANTIZE", "0")
         with pytest.raises(NotImplementedError, match="ROADMAP.md Slice 5"):
             HDRTVNetTorch(FIXTURE, device="cpu")
-    elif case == "composite":
-        path = _write_checkpoint(str(tmp_path / "comp.npz"), {f"base.{k}": v for k, v in ckpt.items()})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Slice 6"):
-            HDRTVNetTorch(path, device="cpu")
-    elif case == "down2":
-        monkeypatch.setenv("HDRTV_INT8_DOWN2", "1")
-        proc = HDRTVNetTorch(FIXTURE, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Slice 6"):
-            proc.process_rgb48(np.zeros((64, 96, 3), np.uint8))
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP.md Slice 5"):
             HDRTVNetTorch(FIXTURE, device="cpu").process_rgb48(np.zeros((60, 100, 3), np.uint8))
