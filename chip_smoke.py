@@ -58,6 +58,14 @@ lines; any failed check raises and the script exits non-zero with no result:
    step's sum order can flip a code of the next int8 step: each output within
    4 flipped codes' worth of the last int8 step, at most COND_CHAIN_INT8_SHARE
    of them differing.
+   The two layout probes (bf16 only, as the Pallas probes): d2s_add at the
+   probe's shape (coarse 32 × 64 × 512) and at the 1080p shape where the tail
+   un-folds up_coarse (coarse 270 × 480 × 512, fine 540 × 960 × 128), bit for
+   bit (one rounding); rowmajor_head raw ((1080, 5760) u8 rows) and pre
+   ((540, 2, 960, 6) planes, the same bytes) to Co = 256, each within one
+   bf16 step of the plain version (the same exact products summed in fp32 in
+   another order), and raw equal to pre bit for bit; beside the plain time,
+   the torch-op sequence of the port's probe tools (torch_seq_ms).
    Kernel, plain and library times (CUDA events) and the least
    time the card could take: bytes over 3.35 TB/s, or FLOPs of the non-zero
    weights over the H100 SXM's rate for the element type (67 TFLOP/s fp32
@@ -86,7 +94,16 @@ lines; any failed check raises and the script exits non-zero with no result:
    the int8 megakernel program with HDRTV_INT8_DOWN2=1 (INT8_DOWN2_E2E_CODES,
    INT8_DOWN2_E2E_PSNR), and for the int8 composite (the W8A8 base under the
    same synthetic generator) at HG_E2E_SIZE, away from the mask's threshold,
-   to INT8_HG_E2E_PSNR;
+   to INT8_HG_E2E_PSNR. Then the natural-layout program (model_apply on the
+   untransformed weights, then pack_rgb48), card against CPU: the 540p
+   preset frame (540 × 960, 540 % 8 = 4) in fp32, ≤ 4 codes, and in bf16
+   within NAT_BF16_CODES (max, mean); turbo off at 360 × 640 in bf16 within
+   TURBO_OFF_CODES; the eager W8A8 program (predequantize off) at
+   EAGER_E2E_SIZE to the PSNR floor EAGER_E2E_PSNR, which lies above the
+   CPU's int8 frame against its float program on the same frame; the natural
+   HG composite at HG_NAT_SIZE (sides not multiples of 8; the /32 reflect
+   pad) in fp32 and bf16, the pixels near the mask's threshold counted apart
+   as above;
 4. 1080p, the ten programs in turn (the three above, then the HG composite
    in bf16 and in fp32, frames as flat rows, hg_tail once per frame and
    pack_rgb48 not at all; its output must differ from the base model's on a
@@ -104,14 +121,20 @@ lines; any failed check raises and the script exits non-zero with no result:
    and tail once each and pack_rgb48 not at all), then device-resident frames
    with one sync (3 in fp32, 3 in bf16 without the megakernels, 10 in the
    default program, 5 and 2 with HG; 10, 3 and 2 in int8; 5 with the int8
-   down2, 2 with the int8 composite): ms/frame, fps, peak memory, output range;
+   down2, 2 with the int8 composite): ms/frame, fps, peak memory, output range.
+   Then the natural program at 540p (NAT_PATHS: bf16, fp32, eager W8A8 in
+   bf16), frames as flat rows: pack_rgb48 once a frame and no other kernel,
+   asserted exactly; 10, 3 and 3 frames timed;
 5. colorimetric_pq_pack on the 1080p frame (u8 → [0, 1]) in fp32 and bf16:
    the one place the port launches it outside the kernel comparison (no
    frame program reaches it, nor in the JAX package); shape, dtype and range;
 6. the same for cond_chain's int8 steps and block_conv3's pool_out form
    (float and int8), which no frame program runs either: one call each per
    element type at their 1080p shapes, launch counts asserted, outputs of
-   the right shape and finite.
+   the right shape and finite;
+7. the same for the two layout probes' kernels (d2s_add, rowmajor_head raw
+   and pre), which no frame program runs either: one call each at its 1080p
+   shape, launch counts asserted, output of the right shape and finite.
 
 The line before the last is the per-kernel JSON summary, one entry per
 kernel and element type, with the path whose launches it reports and its
@@ -222,7 +245,35 @@ COLOR_PATHS = {"color_f32": "f32", "color_bf16": "bf16"}
 # type at its 1080p shape, and their entries report that drive.
 FORM_PATHS = {"forms_f32": "f32", "forms_bf16": "bf16"}
 FORM_LAUNCHES = {"cond_chain_w8a8": 1, "block_conv3_pool": 1, "block_conv3_pool_w8a8": 1}
-PATH_DTYPE = {**{p: spec["dtype"] for p, spec in PATHS.items()}, **COLOR_PATHS, **FORM_PATHS}
+# Nor are the two layout probes (the JAX package's tools/proto_d2s_kernel.py and
+# tools/proto_rowmajor_head.py, bf16 only): phase 7 drives each kernel once at its 1080p
+# shape, and their entries report that drive.
+PROBE_PATH = "probes_bf16"
+PROBE_SHAPES = {"d2s_probe": (32, 64, 128), "d2s_1080p": (270, 480, 128), "head": (1080, 1920, 256)}
+PATH_DTYPE = {**{p: spec["dtype"] for p, spec in PATHS.items()}, **COLOR_PATHS, **FORM_PATHS, PROBE_PATH: "bf16"}
+# The natural-layout program (models/hdrtvnet.py model_apply, torch ops, then pack_rgb48):
+# the product's 540p preset (960 × 540; 540 % 8 = 4, so HDRTVNetTPU runs it on every
+# frame), in its default precision (bf16), fp32, and the eager W8A8 program of the int8
+# checkpoint kept int8 (predequantize off). Launches of one frame: pack_rgb48 only.
+NAT_SIZE = (540, 960)
+NAT_PATHS = {
+    "nat540_bf16": {"precision": "fp16", "weights": "float", "kw": {}, "frames": 10},
+    "nat540_fp32": {"precision": "fp32", "weights": "float", "kw": {}, "frames": 3},
+    "nat540_w8a8_bf16": {"precision": "fp16", "weights": "int8", "kw": {"predequantize": False}, "frames": 3},
+}
+# Phase 3's natural cases, card against CPU. bf16 at 540 × 960 and turbo off at 360 × 640,
+# u16 codes (max, mean): twice what was seen on the card (768 / 28.69 and 768 / 28.26;
+# per-op bf16 roundings of cuDNN's and the CPU's sums, 18% of the values differ). The
+# eager W8A8 program at EAGER_E2E_SIZE, PSNR floor in dB 3 dB under the 53.62 seen,
+# above the CPU's int8 frame against its float program on the same frame (26.25 dB), so
+# a program that skipped the fake-quant fails. The natural HG composite at HG_NAT_SIZE
+# (sides not multiples of 8), away from the mask's threshold: fp32 ≤ 4 codes (1 seen),
+# bf16 within HG_BF16_CODES (512 / 24.47 seen). NVIDIA H100 80GB HBM3, 700 W.
+NAT_BF16_CODES = (1536, 57.4)
+TURBO_OFF_CODES = (1536, 56.6)
+EAGER_E2E_SIZE = (180, 324)
+EAGER_E2E_PSNR = 50.6
+HG_NAT_SIZE = (180, 324)
 KERNEL_INFO = {
     "block_conv3": ("hdrtv_tpu_torch/csrc/block_conv3.cu", "hdrtv_tpu/ops/conv_kernels.py:271"),
     "down2": ("hdrtv_tpu_torch/csrc/down2.cu", "hdrtv_tpu/ops/megakernel.py:706"),
@@ -244,7 +295,18 @@ KERNEL_INFO = {
     "cond_chain_w8a8": ("hdrtv_tpu_torch/csrc/cond_chain.cu", "hdrtv_tpu/ops/megakernel.py:352"),
     "block_conv3_pool": ("hdrtv_tpu_torch/csrc/block_conv3.cu", "hdrtv_tpu/ops/conv_kernels.py:271"),
     "block_conv3_pool_w8a8": ("hdrtv_tpu_torch/csrc/block_conv3.cu", "hdrtv_tpu/ops/conv_kernels.py:271"),
+    "d2s_add": ("hdrtv_tpu_torch/csrc/d2s_add.cu", "tools/proto_d2s_kernel.py:34"),
+    "rowmajor_head_raw": ("hdrtv_tpu_torch/csrc/rowmajor_head.cu", "tools/proto_rowmajor_head.py:35"),
+    "rowmajor_head_pre": ("hdrtv_tpu_torch/csrc/rowmajor_head.cu", "tools/proto_rowmajor_head.py:45"),
 }
+# The launch counter a KERNEL_INFO entry reads, where it is not its own name: the head
+# probe's two forms share one kernel body and one counter.
+COUNTER = {"rowmajor_head_raw": "rowmajor_head", "rowmajor_head_pre": "rowmajor_head"}
+
+
+def read_counts(native) -> dict:
+    """The launch counts by KERNEL_INFO entry."""
+    return {k: native.launch_counts[COUNTER.get(k, k)] for k in KERNEL_INFO}
 
 
 def expected_launches(path: str) -> dict:
@@ -1026,6 +1088,58 @@ def phase_kernels(torch, np) -> dict:
                + qbytes(*[q for q in qargs if q is not None]), flops, "flips", share=COND_CHAIN_INT8_SHARE,
                rate="int8")
         del c0, y, y_r, weights
+
+    # The two layout probes, bf16 only (as the Pallas probes). d2s_add at the probe's own
+    # shape (logged, not counted) and at the 1080p shape where the tail un-folds up_coarse
+    # (the drive of phase 7): one rounding, so bit for bit. rowmajor_head raw and pre at
+    # 1080p: within one bf16 step of the plain version (another fp32 sum order of the same
+    # exact products), and raw equal to pre bit for bit (one body, the same bytes). Beside
+    # the plain version, the torch-op sequence of the port's probe tools (the probes' XLA
+    # form: permute copy + bf16 add; regroup + cast + bf16 matmul); no single PyTorch call
+    # computes either, so library_ms is null.
+    from hdrtv_tpu_torch.ops.probe_kernels import (
+        d2s_add, d2s_add_ref, rowmajor_head_pre, rowmajor_head_raw, rowmajor_head_raw_ref,
+    )
+    from hdrtv_tpu_torch.tools import proto_d2s_kernel, proto_rowmajor_head
+
+    rng = np.random.RandomState(77)
+    bf = torch.bfloat16
+    for case, per_path in (("d2s_probe", {}), ("d2s_1080p", {PROBE_PATH: 1})):
+        hbc, wbc, c = PROBE_SHAPES[case]
+        coarse = torch.as_tensor(rng.randn(hbc, wbc, 4 * c).astype(np.float32), device=dev).to(bf)
+        fine = torch.as_tensor(rng.randn(2 * hbc, 2 * wbc, c).astype(np.float32), device=dev).to(bf)
+        y, y_r = d2s_add(coarse, fine), d2s_add_ref(coarse, fine)
+        torch.cuda.synchronize()
+        if not torch.equal(y, y_r):
+            raise AssertionError(f"d2s_add {case}: differs from its plain version")
+        ms = time_ms(lambda: d2s_add(coarse, fine), torch)
+        plain = time_ms(lambda: d2s_add_ref(coarse, fine), torch)
+        seq = time_ms(lambda: proto_d2s_kernel.torch_sequence(coarse, fine), torch)
+        log(f"d2s_add {case}: torch permute copy + add {seq:.4f} ms")
+        record("d2s_add", "bf16", f"{case} coarse {tuple(coarse.shape)}", per_path, y, y_r, 0.0, ms, plain, None,
+               2 * (coarse.numel() + fine.numel() + y.numel()), 0.0)
+        if per_path:
+            totals[("d2s_add", "bf16", PROBE_PATH)]["torch_seq_ms"] = seq
+        del coarse, fine, y, y_r
+    h, w, co = PROBE_SHAPES["head"]
+    frame = torch.as_tensor(rng.randint(0, 256, (h, 3 * w), dtype=np.uint8), device=dev)
+    pairs = frame.view(h // 2, 2, w // 2, 6)
+    wm = torch.as_tensor(rng.randn(12, co).astype(np.float32) * 0.1, device=dev).to(bf)
+    y_r = rowmajor_head_raw_ref(frame, wm)
+    seq = time_ms(lambda: proto_rowmajor_head.torch_sequence(frame, wm), torch)
+    plain = time_ms(lambda: rowmajor_head_raw_ref(frame, wm), torch)
+    log(f"rowmajor_head 1080p: torch regroup + cast + bf16 matmul {seq:.4f} ms")
+    outs = {}
+    for form, fn, x in (("raw", rowmajor_head_raw, frame), ("pre", rowmajor_head_pre, pairs)):
+        outs[form] = fn(x, wm)
+        ms = time_ms(lambda: fn(x, wm), torch)
+        record(f"rowmajor_head_{form}", "bf16", f"1080p {tuple(x.shape)} u8 -> {co}", {PROBE_PATH: 1},
+               outs[form], y_r, 1, ms, plain, None, x.numel() + 2 * wm.numel() + 2 * outs[form].numel(),
+               2.0 * 12 * co * (h // 2) * (w // 2), "steps")
+        totals[(f"rowmajor_head_{form}", "bf16", PROBE_PATH)]["torch_seq_ms"] = seq
+    if not torch.equal(outs["raw"], outs["pre"]):
+        raise AssertionError("rowmajor_head: raw and pre differ")
+    del frame, pairs, outs, y_r
     return totals
 
 
@@ -1126,6 +1240,136 @@ def phase_end_to_end(torch, np, hg_weights: dict) -> None:
                                  f"{max_codes} codes or mean {float(away.mean()):.3f} > {mean_codes}")
 
 
+def phase_natural_end_to_end(torch, np, hg_weights: dict) -> None:
+    """The natural-layout program, card against CPU: the 540p preset in fp32
+    and bf16, turbo off at 360 × 640, the eager W8A8 program, the natural HG
+    composite."""
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    set_path_env({"mega": "1"})
+
+    def both(weights, precision, frame, label, **kw):
+        h, w, _ = frame.shape
+        t0 = time.perf_counter()
+        gproc = HDRTVNetTorch(weights, precision=precision, **kw)
+        gpu = gproc.process_rgb48(frame)
+        t1 = time.perf_counter()
+        cproc = HDRTVNetTorch(weights, precision=precision, device="cpu", **kw)
+        cpu = cproc.process_rgb48(frame)
+        t2 = time.perf_counter()
+        if not (gproc.natural(h, w) and cproc.natural(h, w)) or gpu.shape != (h, w, 3) or gpu.dtype != np.uint16:
+            raise AssertionError(f"{label}: not the natural program, or output {gpu.shape} {gpu.dtype}")
+        d = np.abs(gpu.astype(np.int64) - cpu.astype(np.int64))
+        log(f"{label}: card range [{gpu.min()}, {gpu.max()}] ({t1 - t0:.2f} s incl. load); cpu {t2 - t1:.2f} s; "
+            f"max |card - cpu| = {int(d.max())} codes, mean {float(d.mean()):.3f}, "
+            f"{float((d > 0).mean()):.2e} of values differ")
+        return gpu, cpu, d
+
+    h, w = NAT_SIZE
+    frame = (np.random.RandomState(540).rand(h, w, 3) * 255).astype(np.uint8)
+    for precision, (max_codes, mean_codes) in (("fp32", (4, None)), ("fp16", NAT_BF16_CODES)):
+        log(f"phase 3: natural program, card against CPU ({h}x{w}, the 540p preset, {precision})")
+        _, _, d = both(WEIGHTS, precision, frame, f"natural {h}x{w} {precision}")
+        if d.max() > max_codes or (mean_codes is not None and d.mean() > mean_codes):
+            raise AssertionError(f"natural {precision}: max {int(d.max())} > {max_codes} or mean "
+                                 f"{float(d.mean()):.3f} > {mean_codes}")
+
+    log("phase 3: turbo off, card against CPU (360x640 bf16: the natural program at an s2d size)")
+    frame = (np.random.RandomState(360).rand(360, 640, 3) * 255).astype(np.uint8)
+    _, _, d = both(WEIGHTS, "fp16", frame, "turbo off 360x640 bf16", turbo=False)
+    if d.max() > TURBO_OFF_CODES[0] or d.mean() > TURBO_OFF_CODES[1]:
+        raise AssertionError(f"turbo off: max {int(d.max())} or mean {float(d.mean()):.3f} beyond {TURBO_OFF_CODES}")
+
+    h, w = EAGER_E2E_SIZE
+    log(f"phase 3: eager W8A8 (predequantize off), card against CPU ({h}x{w} bf16)")
+    frame = smooth_frame(np, h, w, 181)
+    gpu, cpu, _ = both(INT8_WEIGHTS, "fp16", frame, f"eager W8A8 {h}x{w} bf16", predequantize=False)
+    flt = HDRTVNetTorch(INT8_WEIGHTS, precision="fp16", device="cpu").process_rgb48(frame)
+    p_card = psnr(float(np.mean(((gpu.astype(np.int64) - cpu) / 65535.0) ** 2)))
+    p_float = psnr(float(np.mean(((cpu.astype(np.int64) - flt) / 65535.0) ** 2)))
+    log(f"eager W8A8: PSNR card against CPU {p_card:.2f} dB (floor {EAGER_E2E_PSNR}); CPU int8 against CPU "
+        f"float (pre-dequantized) {p_float:.2f} dB")
+    if p_card < EAGER_E2E_PSNR or EAGER_E2E_PSNR <= p_float:
+        raise AssertionError(f"eager W8A8: PSNR card against CPU {p_card:.2f}, int8 against float {p_float:.2f}")
+
+    h, w = HG_NAT_SIZE
+    frame = smooth_frame(np, h, w, 182)
+    for precision in ("fp32", "fp16"):
+        log(f"phase 3: natural HG composite, card against CPU ({h}x{w} {precision}, hg_nf 64)")
+        gpu, cpu, _ = both(hg_weights["float"], precision, frame, f"natural HG {h}x{w} {precision}")
+        base = HDRTVNetTorch(WEIGHTS, precision=precision, device="cpu").process_rgb48(frame)
+        m = base.astype(np.float32).max(axis=-1) / 65535.0
+        near = np.abs(m - 0.775) <= (2e-4 if precision == "fp32" else 0.02)
+        away = np.abs(gpu.astype(np.int64) - cpu.astype(np.int64)).max(axis=-1)[~near]
+        changed = float((np.abs(gpu.astype(np.int64) - base) > HG_CHANGED_CODES).any(axis=-1).mean())
+        log(f"natural HG {precision}: {float(near.mean()):.4f} of the pixels near the threshold; away from it max "
+            f"{int(away.max())} codes, mean {float(away.mean()):.3f}; the HG changed {changed:.3f} of the pixels")
+        max_codes, mean_codes = (4, None) if precision == "fp32" else HG_BF16_CODES
+        if near.mean() > HG_NEAR_SHARE or changed < 0.05 or away.max() > max_codes or (
+                mean_codes is not None and away.mean() > mean_codes):
+            raise AssertionError(f"natural HG {precision}: near {float(near.mean()):.3f}, changed {changed:.3f}, "
+                                 f"away max {int(away.max())} mean {float(away.mean()):.3f}")
+
+
+def phase_natural_540p(torch, np, native, path: str) -> dict:
+    """The natural-layout program at the 540p preset on the card: one frame
+    with the launch counts set to 0 before and read after (pack_rgb48 once,
+    nothing else), then device-resident frames with one sync."""
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    spec = NAT_PATHS[path]
+    set_path_env({"mega": "1"})
+    h, w = NAT_SIZE
+    log(f"phase 4: 540p natural program {path} frames on the card")
+    weights = INT8_WEIGHTS if spec["weights"] == "int8" else WEIGHTS
+    proc = HDRTVNetTorch(weights, precision=spec["precision"], **spec["kw"])
+    frame = smooth_frame(np, h, w, 540)
+    x = proc.put_frame(frame.reshape(h, w * 3))
+    if not proc.natural(h, w) or x.shape != (h, 3 * w):
+        raise AssertionError(f"{path}: natural {proc.natural(h, w)}, frame shipped as {tuple(x.shape)}")
+    proc.process_rgb48_device(x)  # warm
+    torch.cuda.synchronize()
+    expected = {k: int(k == "pack_rgb48") for k in KERNEL_INFO}
+    native.reset_launch_counts()
+    out = proc.process_rgb48_device(x)
+    torch.cuda.synchronize()
+    counts = read_counts(native)
+    log(f"launches for one frame: { {k: v for k, v in counts.items() if v} }")
+    if counts != expected:
+        raise AssertionError(f"{path}: launch counts {counts} != {expected}")
+    o = out.to(torch.int32)
+    lo, hi = int(o.min()), int(o.max())
+    if out.shape != (h, 3 * w) or out.dtype != torch.uint16 or lo == hi:
+        raise AssertionError(f"{path}: output {tuple(out.shape)} {out.dtype} range [{lo}, {hi}]")
+    extra = ""
+    if spec["weights"] == "int8":
+        # the eager int8 frame against the float program on the same (pre-dequantized) weights
+        fl = HDRTVNetTorch(weights, precision=spec["precision"])
+        flo = fl.process_rgb48_device(fl.put_frame(frame.reshape(h, w * 3))).to(torch.int32)
+        p_float = psnr(float(((o - flo).double() / 65535.0).pow(2).mean()))
+        if bool((o == flo).all()):
+            raise AssertionError(f"{path}: the int8 frame equals the float one")
+        extra = f"; PSNR against float {p_float:.2f} dB"
+        del fl, flo
+    n = spec["frames"]
+    native.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = proc.process_rgb48_device(x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    peak = torch.cuda.max_memory_allocated()
+    if read_counts(native) != {k: n * v for k, v in expected.items()}:
+        raise AssertionError(f"{path}: launch counts over {n} frames: {native.launch_counts}")
+    log(f"540p {path}: {ms:.2f} ms/frame, {1e3 / ms:.2f} fps over {n} device-resident frames (one sync); "
+        f"peak allocated {peak / 2**30:.2f} GiB; output range [{lo}, {hi}]{extra}")
+    del proc, x, out
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_1080p(torch, np, native, path: str, hg_weights: dict) -> dict:
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
@@ -1152,7 +1396,7 @@ def phase_1080p(torch, np, native, path: str, hg_weights: dict) -> dict:
     native.reset_launch_counts()
     out = proc.process_rgb48_device(x)
     torch.cuda.synchronize()
-    counts = dict(native.launch_counts)
+    counts = read_counts(native)
     log(f"launches for one frame: {counts}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
@@ -1206,7 +1450,7 @@ def phase_1080p(torch, np, native, path: str, hg_weights: dict) -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n
     peak = torch.cuda.max_memory_allocated()
-    if any(native.launch_counts[k] != n * v for k, v in expected.items()):
+    if read_counts(native) != {k: n * v for k, v in expected.items()}:
         raise AssertionError(f"launch counts over {n} frames: {native.launch_counts}")
     log(f"1080p {path}: {ms:.2f} ms/frame, {1e3 / ms:.2f} fps over {n} device-resident frames "
         f"(one sync); peak allocated {peak / 2**30:.2f} GiB; output range [{lo}, {hi}]"
@@ -1229,7 +1473,7 @@ def phase_color(torch, np, native) -> dict:
         native.reset_launch_counts()
         out = colorimetric_pq_pack(x)
         torch.cuda.synchronize()
-        counts[path] = dict(native.launch_counts)
+        counts[path] = read_counts(native)
         o = out.to(torch.int32)
         lo, hi = int(o.min()), int(o.max())
         log(f"{path}: {tuple(out.shape)} {out.dtype} range [{lo}, {hi}]; launches {counts[path]['colorimetric']}")
@@ -1281,7 +1525,7 @@ def phase_forms(torch, np, native) -> dict:
         pooled = fused_block_conv3(x, w, b, relu=True, pool_out=True)
         pooled_q = fused_block_conv3(x, w, b, relu=True, qargs=qa, pool_out=True)
         torch.cuda.synchronize()
-        counts[path] = dict(native.launch_counts)
+        counts[path] = read_counts(native)
         shapes = [tuple(o.shape) for o in (c, cond1, pooled, pooled_q)]
         finite = all(bool(torch.isfinite(o.float()).all()) for o in (c, cond1, pooled, pooled_q))
         log(f"{path}: outputs {shapes}, finite {finite}; launches "
@@ -1291,6 +1535,40 @@ def phase_forms(torch, np, native) -> dict:
         if counts[path] != {k: FORM_LAUNCHES.get(k, 0) for k in KERNEL_INFO}:
             raise AssertionError(f"{path}: launch counts {counts[path]}")
         del c0, c, cond1, x, pooled, pooled_q
+    return counts
+
+
+def phase_probes(torch, np, native) -> dict:
+    """The two layout probes' kernels at their 1080p shapes, each call with
+    the counts set to 0 before and read after; returns the probe path's
+    counts (each entry from its own call)."""
+    from hdrtv_tpu_torch.ops.probe_kernels import d2s_add, rowmajor_head_pre, rowmajor_head_raw
+
+    log("phase 7: the two layout probes' kernels, which no frame program runs")
+    rng = np.random.RandomState(7)
+    dev = torch.device("cuda")
+    hbc, wbc, c = PROBE_SHAPES["d2s_1080p"]
+    h, w, co = PROBE_SHAPES["head"]
+    coarse = torch.as_tensor(rng.randn(hbc, wbc, 4 * c).astype(np.float32), device=dev).to(torch.bfloat16)
+    fine = torch.as_tensor(rng.randn(2 * hbc, 2 * wbc, c).astype(np.float32), device=dev).to(torch.bfloat16)
+    frame = torch.as_tensor(rng.randint(0, 256, (h, 3 * w), dtype=np.uint8), device=dev)
+    wm = torch.as_tensor(rng.randn(12, co).astype(np.float32) * 0.1, device=dev).to(torch.bfloat16)
+    drives = (("d2s_add", "d2s_add", lambda: d2s_add(coarse, fine), (2 * hbc, 2 * wbc, c)),
+              ("rowmajor_head_raw", "rowmajor_head", lambda: rowmajor_head_raw(frame, wm), (h // 2, w // 2, co)),
+              ("rowmajor_head_pre", "rowmajor_head",
+               lambda: rowmajor_head_pre(frame.view(h // 2, 2, w // 2, 6), wm), (h // 2, w // 2, co)))
+    counts = {k: 0 for k in KERNEL_INFO}
+    for name, counter, fn, shape in drives:
+        torch.cuda.synchronize()
+        native.reset_launch_counts()
+        y = fn()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in native.launch_counts.items() if v}
+        finite = bool(torch.isfinite(y.float()).all())
+        log(f"{name}: output {tuple(y.shape)} {y.dtype}, finite {finite}; launches {launched}")
+        if launched != {counter: 1} or tuple(y.shape) != shape or not finite:
+            raise AssertionError(f"{name}: launches {launched}, output {tuple(y.shape)}, finite {finite}")
+        counts[name] = read_counts(native)[name]
     return counts
 
 
@@ -1328,18 +1606,24 @@ def main() -> int:
         with fp32_math():
             totals = phase_kernels(torch, np)
             phase_end_to_end(torch, np, hg_weights)
+            phase_natural_end_to_end(torch, np, hg_weights)
             counts = {path: phase_1080p(torch, np, native, path, hg_weights) for path in PATHS}
+            counts.update({path: phase_natural_540p(torch, np, native, path) for path in NAT_PATHS})
             counts.update(phase_color(torch, np, native))
             counts.update(phase_forms(torch, np, native))
+            counts[PROBE_PATH] = phase_probes(torch, np, native)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     def entry(name, dtype, path):
         tot = totals[(name, dtype, path)]
         _, b_by = bound(tot["bytes"], tot["flops"], tot["rate"])
-        return {"max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-                "bound_ms": tot["bound_ms"], "bound_by": b_by,
-                "library_ms": tot["library_ms"] if tot["lib_all"] else None}
+        e = {"max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+             "bound_ms": tot["bound_ms"], "bound_by": b_by,
+             "library_ms": tot["library_ms"] if tot["lib_all"] else None}
+        if "torch_seq_ms" in tot:  # the probes: the torch-op sequence of the same function
+            e["torch_seq_ms"] = tot["torch_seq_ms"]
+        return e
 
     # One entry per kernel and element type that a path runs, reporting the
     # first path of that element type that launches it: fp32 the fp32 path,
@@ -1350,7 +1634,7 @@ def main() -> int:
     # same shapes, launched by no path).
     prefer = {"f32": ("fp32", "hg_fp32", "int8_fp32", "color_f32", "forms_f32"),
               "bf16": ("bf16_mega", "bf16_nomega", "hg_bf16", "int8_bf16_mega", "int8_bf16_nomega",
-                       "int8_down2_bf16_mega", "int8_hg_bf16", "color_bf16", "forms_bf16")}
+                       "int8_down2_bf16_mega", "int8_hg_bf16", "color_bf16", "forms_bf16", PROBE_PATH)}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         for dtype, paths in prefer.items():
@@ -1360,11 +1644,12 @@ def main() -> int:
             k = {"name": f"{name}_{dtype}", "dtype": dtype, "route": "cuda", "source": source,
                  "replaces": replaces, "path": path, "launches": counts[path][name],
                  "launches_by_path": {p: counts[p][name] for p in counts}, **entry(name, dtype, path)}
-            if dtype == "bf16" and not any(counts[p][name] for p in prefer["f32"]):
+            if (dtype == "bf16" and not any(counts[p][name] for p in prefer["f32"])
+                    and (name, "f32", path) in totals):
                 k["off_path"] = {"dtype": "f32", **entry(name, "f32", path)}
             kernels.append(k)
-    if len(kernels) != 30:
-        raise AssertionError(f"{len(kernels)} kernel entries, expected 30: {[k['name'] for k in kernels]}")
+    if len(kernels) != 33:
+        raise AssertionError(f"{len(kernels)} kernel entries, expected 33: {[k['name'] for k in kernels]}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

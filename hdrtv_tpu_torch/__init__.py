@@ -8,7 +8,7 @@ order. The Pallas kernels of the path this package covers are rewritten by
 hand as CUDA C++ for ``sm_90a`` under ``csrc/``; everything the JAX package
 leaves to XLA stays plain torch.
 
-Covered: ROADMAP.md slices 1 to 4 and 6 (``runtime/processor.py`` says which
+Covered: ROADMAP.md slices 1 to 7 (``runtime/processor.py`` says which
 programs; the rest raises ``NotImplementedError`` naming its slice).
 Importing this package imports neither ``jax`` nor ``hdrtv_tpu``.
 """

@@ -1,9 +1,11 @@
-"""AGCM classifier (port of ``hdrtv_tpu/models/agcm.py``: the classifier
-name normalisation and ``classifier_apply`` for the Color_Condition family).
+"""AGCM (port of ``hdrtv_tpu/models/agcm.py``: the classifier name
+normalisation, ``classifier_apply`` for the Color_Condition family, and the
+natural-layout ``agcm_apply`` of the classifier-modulated modes).
 
 The classifier runs on the ¼-resolution condition image and yields the
 global colour vector that modulates the AGCM 1×1 convs (``models/s2d.py
-agcm_s2d``). It is small plain torch: the JAX package leaves it to XLA.
+agcm_s2d`` in the s2d programs, :func:`agcm_apply` in the natural one). It
+is small plain torch: the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from hdrtv_tpu_torch.models.layers import (
     global_avg_pool,
     instance_norm,
     leaky_relu,
+    linear,
+    relu,
 )
 
 
@@ -76,6 +80,24 @@ def normalize_classifier_name(classifier: str | None) -> str:
     return aliases.get(name, name)
 
 
+def agcm_mode(classifier: str) -> str:
+    """The forward a classifier name selects (the JAX ``agcm_mode``): plain,
+    affine, spatial_mix, spatial_affine, lite, lowrank, or dynamic (the
+    Color_Condition family)."""
+    name = normalize_classifier_name(classifier)
+    if name == "agcm_plain":
+        return "plain"
+    if name == "agcm_affine":
+        return "affine"
+    if re.fullmatch(r"agcm_spatial(?:mixglobalcnn|mixgcnn|mixglobal|mixg|mix)?h[0-9]+wide[0-9]+x[0-9]+", name):
+        return "spatial_mix" if name.startswith("agcm_spatialmix") else "spatial_affine"
+    if re.fullmatch(r"agcm_lite[0-9]+", name):
+        return "lite"
+    if re.fullmatch(r"agcm_lowrank[0-9]+", name):
+        return "lowrank"
+    return "dynamic"
+
+
 # Sequential-index layouts: list of (conv_idx, instancenorm_idx|None) blocks,
 # plus the trailing 1x1 conv index (nn.Sequential numbering of color_block).
 _CLASSIFIER_LAYOUTS = {
@@ -106,3 +128,37 @@ def classifier_apply(
             x = instance_norm(p, f"{prefix}model.{in_idx}", x, policy=policy)
     x = conv2d(p, f"{prefix}model.{final_conv}", x, policy=policy)
     return global_avg_pool(x, keepdims=False)  # (N, cond_c)
+
+
+def _modulate(out: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """``out * scale + shift + out`` with (N, C) vectors, three ops rounded
+    in the element type as written (not the agcm_head kernel's folded form)."""
+    n, c = scale.shape
+    return out * scale.reshape(n, 1, 1, c) + shift.reshape(n, 1, 1, c) + out
+
+
+def agcm_apply(p: Params, content: torch.Tensor, cond: torch.Tensor, *, prefix: str = "AGCM.",
+               classifier: str = "color_condition", policy: Policy = F32) -> torch.Tensor:
+    """ConditionNet.forward in the natural layout: the colour-mapped frame
+    (NHWC). ``content`` is the full-resolution [0, 1] RGB frame, ``cond`` the
+    ¼-resolution condition image: the classifier's vector modulates the
+    three 1×1 convs (conv_first, HRconv, conv_last) by per-layer scale and
+    shift. Only the classifier-modulated modes (dynamic, lite) are ported."""
+    mode = agcm_mode(classifier)
+    if mode not in ("dynamic", "lite"):
+        raise NotImplementedError(
+            f"the {mode} AGCM is not ported to hdrtv_tpu_torch yet: ROADMAP.md "
+            "Slice 8 (model variants: Queue 1 item 9)"
+        )
+    content = policy.cast(content)
+    fea = classifier_apply(p, f"{prefix}classifier.", "color_condition", cond, policy=policy)
+
+    def lin(name):
+        return linear(p, f"{prefix}{name}", fea, policy=policy)
+
+    out = conv2d(p, f"{prefix}conv_first", content, policy=policy)
+    out = relu(_modulate(out, lin("cond_scale_first"), lin("cond_shift_first")))
+    out = conv2d(p, f"{prefix}HRconv", out, policy=policy)
+    out = relu(_modulate(out, lin("cond_scale_HR"), lin("cond_shift_HR")))
+    out = conv2d(p, f"{prefix}conv_last", out, policy=policy)
+    return _modulate(out, lin("cond_scale_last"), lin("cond_shift_last"))

@@ -1,15 +1,24 @@
-"""Architecture selection (port of ``hdrtv_tpu/models/hdrtvnet.py``
-``ModelConfig`` and ``make_mask``; the model forwards live in
-``models/s2d.py`` and ``models/hg_s2d.py``)."""
+"""HDRTVNet++ top level (port of ``hdrtv_tpu/models/hdrtvnet.py``):
+``ModelConfig``, the highlight mask, and the natural-layout forwards
+``ensemble_agcm_le`` (AGCM → LE), ``hg_composite`` (base ensemble → mask →
+/32 reflect pad → HG generator → crop) and ``model_apply``, the program the
+runtime runs on frames the s2d programs do not take. The s2d forwards live in
+``models/s2d.py`` and ``models/hg_s2d.py``. The post-correction heads are
+not ported (ROADMAP.md Queue 1 item 9).
+"""
 
 from __future__ import annotations
 
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
-from hdrtv_tpu_torch.models.agcm import normalize_classifier_name
+from hdrtv_tpu_torch.models.agcm import agcm_apply, normalize_classifier_name
+from hdrtv_tpu_torch.models.hg import hg_apply
+from hdrtv_tpu_torch.models.layers import F32, Params, Policy, pad_reflect
+from hdrtv_tpu_torch.models.le_unet import le_apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,3 +79,64 @@ def make_mask(img: torch.Tensor, r: float = 0.75, thresh: float = 0.1) -> torch.
     """Highlight mask of the HG composite: the normalised max over RGB,
     binarised. (N, H, W, 3) → (N, H, W, 1) in ``img``'s dtype."""
     return mask_of_max(img.amax(dim=-1, keepdim=True), r, thresh)
+
+
+def ensemble_agcm_le(p: Params, img: torch.Tensor, cond: torch.Tensor, cfg: ModelConfig = ModelConfig(), *,
+                     prefix: str = "", policy: Policy = F32) -> torch.Tensor:
+    """Ensemble_AGCM_LE.forward: AGCM colour-maps the frame, LE refines it
+    with itself as the condition. (N, H, W, 3) [0, 1] RGB and its ¼-res
+    condition image → (N, H, W, 3) in the compute dtype."""
+    if cfg.post_correction:
+        raise NotImplementedError(
+            "the post-correction heads are not ported to hdrtv_tpu_torch yet: ROADMAP.md "
+            "Slice 8 (model variants: Queue 1 item 9)"
+        )
+    cond_out = agcm_apply(p, img, cond, prefix=f"{prefix}AGCM.", classifier=cfg.classifier, policy=policy)
+    return le_apply(p, cond_out, cond_out, prefix=f"{prefix}LE.", le_arch=cfg.le_arch, act_type=cfg.act_type,
+                    weighting_network=cfg.weighting_network, policy=policy)
+
+
+def hg_composite(p: Params, img: torch.Tensor, cond: torch.Tensor, cfg: ModelConfig = ModelConfig(use_hg=True), *,
+                 policy: Policy = F32) -> torch.Tensor:
+    """HG_Composite.forward in the natural layout: the base ensemble
+    (``base.*``), its highlight mask, both reflect-padded at the bottom and
+    right to multiples of 32, the HG generator (``hg.*``, BatchNorms as the
+    checkpoint has them), cropped back."""
+    base_out = ensemble_agcm_le(p, img, cond, cfg, prefix="base.", policy=policy)
+    mask = make_mask(base_out, r=cfg.mask_r)
+    h, w = base_out.shape[1], base_out.shape[2]
+    pad_h, pad_w = (32 - h % 32) % 32, (32 - w % 32) % 32
+    hg_out = hg_apply(p, pad_reflect(base_out, pad_h, pad_w), pad_reflect(mask, pad_h, pad_w), prefix="hg.",
+                      hg_arch=cfg.hg_arch, policy=policy)
+    return hg_out[:, :h, :w] if pad_h or pad_w else hg_out
+
+
+def model_apply(p: Params, img: torch.Tensor, cond: torch.Tensor, cfg: ModelConfig, *,
+                policy: Policy = F32) -> torch.Tensor:
+    """The natural-layout model: the HG composite with ``cfg.use_hg``, else
+    the ensemble."""
+    if cfg.use_hg:
+        return hg_composite(p, img, cond, cfg, policy=policy)
+    return ensemble_agcm_le(p, img, cond, cfg, policy=policy)
+
+
+def natural_params_to_torch(params_np: dict, device, policy: Policy = F32) -> Params:
+    """Carry untransformed numpy parameters to ``device`` for the natural
+    program. The conv and dense weights and biases are cast once to the
+    compute dtype (the JAX layers cast them at each use, to the same
+    values); what those layers read in fp32 stays fp32 (the norms' scales,
+    shifts and running statistics, the int8 scales and zero points, the
+    ``x_on`` gates), and the int8 codes stay int8."""
+    def is_layer(name):
+        w = params_np.get(f"{name}.weight")
+        return f"{name}.weight_int8" in params_np or (w is not None and np.ndim(w) in (2, 4))
+
+    out = {}
+    for k, v in params_np.items():
+        t = torch.from_numpy(np.array(v))
+        layer, _, leaf = k.rpartition(".")
+        if t.is_floating_point():
+            cast = leaf in ("weight", "bias") and is_layer(layer)
+            t = t.to(policy.compute_dtype if cast else torch.float32)
+        out[k] = t.to(device).contiguous()
+    return out

@@ -1,6 +1,8 @@
-"""Functional NHWC float layers over flat parameter dicts (port of
-``hdrtv_tpu/models/layers.py``, float layers only; the pooling, pixel
-shuffle, nearest upsample and reflect pad serve the HG generator).
+"""Functional NHWC layers over flat parameter dicts (port of
+``hdrtv_tpu/models/layers.py``: the conv and dense layers with their int8
+(eager W8 / W8A8) branches, the activations, norms and poolings, pixel
+shuffle, nearest and bilinear resizes, and the reflect, replicate and crop
+alignments of the natural-layout program and the HG generator).
 
 Parameters are a flat ``dict[str, torch.Tensor]`` keyed by the reference
 checkpoint's state-dict names; activations are NHWC and conv weights HWIO,
@@ -23,7 +25,8 @@ Params = dict  # flat: str -> torch.Tensor (and "{layer}.__qargs" -> ops/w8a8.py
 @dataclasses.dataclass(frozen=True)
 class Policy:
     """Precision policy: compute happens in ``compute_dtype``. Parameters are
-    cast once at load (``models/s2d.py params_to_torch``); ``cast`` on a tensor
+    cast once at load (``models/s2d.py params_to_torch``,
+    ``models/hdrtvnet.py natural_params_to_torch``); ``cast`` on a tensor
     that already has the dtype returns it as it is.
 
     Under ``BF16`` every torch op rounds its result to bf16, as the JAX
@@ -124,13 +127,73 @@ def conv_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *
     return y if after is None else y + after
 
 
+def _dequant_weight(p: Params, name: str, policy: Policy) -> torch.Tensor:
+    """Per-output-channel int8 weight (HWIO or (in, out)) in the compute
+    dtype: ``w_q`` and its scale (``w_scale``, or ``scale`` for a W8 layer)
+    each cast to it, their product rounded in it."""
+    w_q = p[f"{name}.weight_int8"]
+    scale = p.get(f"{name}.w_scale")
+    if scale is None:
+        scale = p[f"{name}.scale"]
+    return w_q.to(policy.compute_dtype) * scale.to(policy.compute_dtype)
+
+
+def _maybe_fake_quant_act(p: Params, name: str, x: torch.Tensor, policy: Policy) -> torch.Tensor:
+    """Static activation fake-quant of a W8A8 layer, in fp32 (the scales may
+    lie below bf16's normal range): symmetric ``clip(round(x / s), −128, 127)
+    · s``, asymmetric ``clip(round((x − z) / s), 0, 255) · s + z``; IEEE
+    division, round half to even; the result cast to the compute dtype.
+    Without ``{name}.x_scale`` (a W8 layer) ``x`` is returned as it is."""
+    x_scale = p.get(f"{name}.x_scale")
+    if x_scale is None:
+        return x
+    x_f = x.float()
+    s = x_scale.float()
+    x_zero = p.get(f"{name}.x_zero")
+    if x_zero is not None:
+        z = x_zero.float()
+        q = torch.round((x_f - z) / s).clamp(0.0, 255.0)
+        return (q * s + z).to(policy.compute_dtype)
+    q = torch.round(x_f / s).clamp(-128.0, 127.0)
+    return (q * s).to(policy.compute_dtype)
+
+
+def _maybe_gated_quant(p: Params, name: str, x: torch.Tensor, policy: Policy) -> torch.Tensor:
+    """The fake-quant switched by the value of ``{name}.x_on`` (a 0/1
+    scalar), where the layer has one; else ``x`` as it is."""
+    x_on = p.get(f"{name}.x_on")
+    if x_on is None:
+        return x
+    return torch.where(x_on > 0, _maybe_fake_quant_act(p, name, x, policy), x)
+
+
+def _layer_input(p: Params, name: str, x: torch.Tensor, policy: Policy) -> tuple[torch.Tensor, torch.Tensor]:
+    """A conv or dense layer's weight and input in the compute dtype: the
+    dequantized int8 weight and the fake-quantized input of an int8 layer,
+    else the float weight and the input through the ``x_on`` gate."""
+    if f"{name}.weight_int8" in p:
+        return _dequant_weight(p, name, policy), policy.cast(_maybe_fake_quant_act(p, name, x, policy))
+    return policy.cast(p[f"{name}.weight"]), _maybe_gated_quant(p, name, policy.cast(x), policy)
+
+
 def conv2d(p: Params, name: str, x: torch.Tensor, *, stride: int = 1, padding=0,
            policy: Policy = F32) -> torch.Tensor:
-    """2D convolution reading ``{name}.weight`` (HWIO) / ``{name}.bias``."""
-    w = policy.cast(p[f"{name}.weight"])
+    """2D convolution reading ``{name}.weight`` (HWIO) / ``{name}.bias``, or
+    the int8 triplet ``{name}.weight_int8`` / ``w_scale`` (``scale``) /
+    ``x_scale`` (+ ``x_zero``) of an eager W8 / W8A8 layer."""
+    w, x = _layer_input(p, name, x, policy)
     b = p.get(f"{name}.bias")
-    return conv_nhwc(policy.cast(x), w, None if b is None else policy.cast(b),
-                     stride=stride, padding=padding)
+    return conv_nhwc(x, w, None if b is None else policy.cast(b), stride=stride, padding=padding)
+
+
+def linear(p: Params, name: str, x: torch.Tensor, *, policy: Policy = F32) -> torch.Tensor:
+    """Dense layer, weights stored (in, out); the int8 branches as
+    :func:`conv2d`. The product sums in fp32 and rounds to the compute dtype,
+    then the bias is added in it."""
+    w, x = _layer_input(p, name, x, policy)
+    y = torch.matmul(x, w)
+    b = p.get(f"{name}.bias")
+    return y if b is None else y + policy.cast(b)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -164,6 +227,19 @@ def avg_pool_3s2p1(x: torch.Tensor) -> torch.Tensor:
         for dj in range(3):
             acc = acc + xp[:, di : di + 2 * ho - 1 : 2, dj : dj + 2 * wo - 1 : 2]
     return acc / 9
+
+
+def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """AvgPool2d(k, stride=k) in NHWC ('VALID': a ragged edge is dropped).
+    The k² taps are summed one by one in the element type, in window order,
+    and the sum divided by k² in it, as ``lax.reduce_window`` does."""
+    n, h, w, c = x.shape
+    ho, wo = h // k, w // k
+    acc = torch.zeros((n, ho, wo, c), dtype=x.dtype, device=x.device)
+    for di in range(k):
+        for dj in range(k):
+            acc = acc + x[:, di : di + k * ho : k, dj : dj + k * wo : k]
+    return acc / (k * k)
 
 
 def instance_norm(p: Params, name: str, x: torch.Tensor, *, eps: float = 1e-5,
@@ -223,3 +299,36 @@ def pad_reflect(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
     if pad_w:
         x = torch.cat([x, x[:, :, w - 1 - pad_w : w - 1].flip(2)], dim=2)
     return x
+
+
+def _edge_index(n: int, before: int, after: int, device) -> torch.Tensor:
+    return torch.arange(-before, n + after, device=device).clamp(0, n - 1)
+
+
+def align_to(x: torch.Tensor, ref_h: int, ref_w: int) -> torch.Tensor:
+    """Center-crop, then replicate-pad (the edge value), the spatial sides of
+    an NHWC tensor to (ref_h, ref_w); by index, so exact in any dtype."""
+    _, xh, xw, _ = x.shape
+    if xh > ref_h:
+        top = (xh - ref_h) // 2
+        x = x[:, top : top + ref_h]
+    if xw > ref_w:
+        left = (xw - ref_w) // 2
+        x = x[:, :, left : left + ref_w]
+    _, xh, xw, _ = x.shape
+    ph, pw = ref_h - xh, ref_w - xw
+    if ph > 0:
+        x = x.index_select(1, _edge_index(xh, ph // 2, ph - ph // 2, x.device))
+    if pw > 0:
+        x = x.index_select(2, _edge_index(xw, pw // 2, pw - pw // 2, x.device))
+    return x
+
+
+def bilinear_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """F.interpolate(mode='bilinear', align_corners=False) of an NHWC
+    tensor to (h, w), half-pixel centres, computed in fp32 and cast back.
+    No antialiasing: the program only upsamples, where ``jax.image.resize``
+    does not antialias either."""
+    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(h, w), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)

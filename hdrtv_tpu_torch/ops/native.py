@@ -39,6 +39,7 @@ launch_counts: dict[str, int] = {
     "hg_tail": 0, "colorimetric": 0,
     "block_conv3_w8a8": 0, "sft_conv3_w8a8": 0, "resblock_w8a8": 0, "tail_w8a8": 0,
     "down2_w8a8": 0, "cond_chain_w8a8": 0, "block_conv3_pool": 0, "block_conv3_pool_w8a8": 0,
+    "d2s_add": 0, "rowmajor_head": 0,
 }
 
 # Element types the kernels are instantiated for, and the suffix of their
@@ -144,6 +145,10 @@ def lib() -> ctypes.CDLL:
     sigs = {f"{name}_{sfx}": sig for name, sig in per_dtype.items()
             for sfx in DTYPE_SUFFIX.values()}
     sigs.update({
+        # the probes' kernels exist in bf16 only, as the Pallas probes do
+        "hdrtv_d2s_add_bf16": ([p, p, p, i, i, i, p], i),
+        "hdrtv_rowmajor_head_raw_bf16": ([p, p, p, i, i, i, p], i),
+        "hdrtv_rowmajor_head_pre_bf16": ([p, p, p, i, i, i, p], i),
         "hdrtv_trunk3_param_floats": ([i, i, i], ll),
         "hdrtv_mix_chain_max_steps": ([], i),
         "hdrtv_error_string": ([i], ctypes.c_char_p),

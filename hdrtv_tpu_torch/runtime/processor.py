@@ -47,6 +47,21 @@ base program, its HG in float on the pre-dequantized weights, as in the JAX
 package. A weight-only (W8) checkpoint, or ``HDRTVNET_NATIVE_INT8=0``, runs
 the float program on the pre-dequantized weights.
 
+The natural-layout program (slice 5) takes every frame the s2d programs do
+not, by the JAX runtime's rule: frames whose sides are not both multiples of
+8 (the 540p preset, 960 × 540, among them), and every frame when ``turbo``
+is off (``turbo=False`` or ``HDRTVNET_TPU_TURBO=0``, and always for an int8
+checkpoint kept int8 by ``predequantize=False``):
+
+    uint8 BGR frame as (H, 3W) byte rows
+        ──► BGR→RGB · f32(1/255) → ¼-res AA-bicubic cond
+        ──► models/hdrtvnet.py model_apply on the untransformed parameters
+            (AGCM → LE SFT-UNet, and with HG the /32-padded generator), torch ops
+        ──► pack_rgb48 (the kernel)
+
+With ``predequantize=False`` the int8 layers stay int8 and run eagerly:
+weights dequantized at each use, activations fake-quantized (W8A8).
+
 Everything else raises with the ROADMAP item that will port it; nothing falls
 back to a different computation, and nothing runs on the CPU unless the
 caller asks for ``device="cpu"``.
@@ -57,7 +72,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig
+from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig, model_apply, natural_params_to_torch
 from hdrtv_tpu_torch.models.hg_s2d import hg_composite_s2d
 from hdrtv_tpu_torch.models.import_npz import load_npz, load_npz_meta, npz_arch_dict
 from hdrtv_tpu_torch.models.layers import Policy, policy_for
@@ -69,6 +84,8 @@ from hdrtv_tpu_torch.models.s2d import (
     params_to_torch,
     s2d_transform_params,
 )
+from hdrtv_tpu_torch.ops.pack import pack_rgb48
+from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa
 from hdrtv_tpu_torch.quant.int8 import predequantize_params
 from hdrtv_tpu_torch.utils.env import env_bool
 
@@ -93,12 +110,13 @@ class HDRTVNetTorch:
     ``device``: ``None`` means ``"cuda"`` and raises without a CUDA device;
     ``"cpu"`` runs the kernels' plain versions (the tests' mode).
     ``predequantize``: for an int8 checkpoint, expand the int8 weights to
-    float at load (``None`` reads ``HDRTVNET_PREDEQUANTIZE``, default on; off,
-    the eager W8A8 path, is not ported). ``predequantized`` and
-    ``native_int8`` say what the load did. ``turbo``: the space-to-depth
-    programs (``None`` reads ``HDRTVNET_TPU_TURBO``, default on); off, the
-    JAX runtime runs the natural-layout model on every frame, which is not
-    ported and raises here.
+    float at load (``None`` reads ``HDRTVNET_PREDEQUANTIZE``, default on;
+    off keeps them int8 and runs the eager W8A8 natural program on every
+    frame). ``predequantized`` and ``native_int8`` say what the load did.
+    ``turbo``: the space-to-depth programs (``None`` reads
+    ``HDRTVNET_TPU_TURBO``, default on); off, the natural-layout program
+    runs every frame. ``turbo`` after the load says which holds, by the JAX
+    runtime's rule.
     """
 
     def __init__(
@@ -128,11 +146,6 @@ class HDRTVNetTorch:
             raise _not_ported("proc_resolution (device letterbox)", "Slice 8 (host, runtime and tooling modules)")
         if mesh is not None:
             raise _not_ported("mesh inference", "Slice 8 (parallel: Queue 1 item 13)")
-        if turbo is None:
-            turbo = env_bool("HDRTVNET_TPU_TURBO", True)
-        if not turbo:
-            raise _not_ported("turbo off (the natural-layout model on every frame, HDRTVNET_TPU_TURBO=0)",
-                              "Slice 5 (natural-layout fallback)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -153,50 +166,70 @@ class HDRTVNetTorch:
         cfg = ModelConfig.from_arch_dict(arch, use_hg=bool(use_hg))
         if cfg.use_hg and cfg.hg_arch != "pixelshuffle":
             raise _not_ported(f"the {cfg.hg_arch} HG generator", "Slice 8 (model variants: Queue 1 item 9)")
-        has_int8 = any(k.endswith(".weight_int8") for k in params)
-        if predequantize is None:
-            predequantize = env_bool("HDRTVNET_PREDEQUANTIZE", True)
-        if has_int8 and not predequantize:
-            raise _not_ported("the eager W8A8 path of int8 checkpoints (predequantize off)",
-                              "Slice 5 (natural-layout fallback)")
-        # An int8 checkpoint: float weights once at load (the JAX runtime's
-        # pre-dequantize mode), the hg.* layers of a composite among them,
-        # before hg_s2d_transform folds their BatchNorms.
-        self.predequantized = has_int8
-        raw_int8 = params if has_int8 else None
-        if has_int8:
-            params = predequantize_params(params)
-        if cfg.use_hg and "hg.conv1.0.weight" not in params:
-            raise _not_ported(
-                "use_hg on a checkpoint without hg.* weights (the natural-layout HG composite)",
-                "Slice 5 (natural-layout fallback)",
-            )
         if cfg.classifier != "color_condition" or cfg.le_arch != "sft" or cfg.post_correction:
             raise _not_ported(
                 f"architecture {cfg.classifier}/{cfg.le_arch}/{cfg.post_correction or '-'}",
                 "Slice 8 (model variants: Queue 1 item 9)",
             )
+        if cfg.use_hg:
+            missing = [f"{pre}*" for pre in ("base.", "hg.") if not any(k.startswith(pre) for k in params)]
+            if missing:
+                raise ValueError(f"use_hg needs a composite checkpoint (base.* and hg.* keys); {model_path} "
+                                 f"has no {' and no '.join(missing)} keys")
+        # An int8 checkpoint: float weights once at load (the JAX runtime's
+        # pre-dequantize mode), the hg.* layers of a composite among them,
+        # before hg_s2d_transform folds their BatchNorms; or, with
+        # predequantize off, int8 kept for the eager W8A8 natural program.
+        has_int8 = any(k.endswith(".weight_int8") for k in params)
+        if predequantize is None:
+            predequantize = env_bool("HDRTVNET_PREDEQUANTIZE", True)
+        self.predequantized = bool(predequantize and has_int8)
+        raw_int8 = params if has_int8 else None
+        if self.predequantized:
+            params = predequantize_params(params)
+            has_int8 = False
+        if turbo is None:
+            turbo = env_bool("HDRTVNET_TPU_TURBO", True)
+        # The JAX runtime's rule (its turbo): the s2d programs need the
+        # s2d-able pixel-shuffle HG and float (or pre-dequantized) weights;
+        # the architecture checks above already hold.
+        self.turbo = bool(turbo and (not cfg.use_hg or "hg.conv1.0.weight" in params) and not has_int8)
         self.cfg = cfg
-        # s2d weight transform once on the host, then, for W8A8 layers, the
-        # s2d-transformed int8 codes beside the float weights for the
-        # kernels' int8 forms, then one cast and one copy to the device.
-        sp = s2d_transform_params(params, cfg)
+        # The natural-layout parameters, untransformed: the program of every
+        # frame without turbo, and of the frames whose sides are not
+        # multiples of 8 with it.
+        self._nat_params = natural_params_to_torch(params, self.device, self.policy)
         self.native_int8 = False
-        if has_int8 and env_bool("HDRTVNET_NATIVE_INT8", True):
-            sp = attach_native_int8(sp, raw_int8)
-            self.native_int8 = any(k.endswith(".qweight") for k in sp)
-        self.params = params_to_torch(sp, self.device, self.policy)
+        self.params = self._nat_params
+        if self.turbo:
+            # s2d weight transform once on the host, then, for W8A8 layers,
+            # the s2d-transformed int8 codes beside the float weights for the
+            # kernels' int8 forms, then one cast and one copy to the device.
+            sp = s2d_transform_params(params, cfg)
+            if self.predequantized and env_bool("HDRTVNET_NATIVE_INT8", True):
+                sp = attach_native_int8(sp, raw_int8)
+                self.native_int8 = any(k.endswith(".qweight") for k in sp)
+            self.params = params_to_torch(sp, self.device, self.policy)
 
     # ------------------------------------------------------------------
     # Frame programs
     # ------------------------------------------------------------------
 
-    def _check_size(self, h: int, w: int) -> None:
-        if h % 8 or w % 8:
-            raise _not_ported(
-                f"frames whose sides are not multiples of 8 (got {h}x{w}; the natural-layout "
-                "fallback)", "Slice 5 (natural-layout fallback)",
-            )
+    def natural(self, h: int, w: int) -> bool:
+        """True when frames at (h, w) run the natural-layout program: every
+        frame without turbo, else those whose sides are not both multiples
+        of 8 (each UNet level must keep a whole s2d block grid: 540p's /4
+        level is 135 rows)."""
+        return not self.turbo or h % 8 != 0 or w % 8 != 0
+
+    def _run_natural(self, flat: torch.Tensor) -> torch.Tensor:
+        """The natural-layout program on (H, 3W) BGR byte rows → (H, 3W) u16:
+        [0, 1] RGB, its ¼-res condition image, ``model_apply``, the pack."""
+        h, w3 = flat.shape
+        with torch.inference_mode(), self.policy.math():
+            x = flat.reshape(h, w3 // 3, 3).flip(-1)[None].float() * (1.0 / 255.0)
+            out = model_apply(self._nat_params, x, downsample_quarter_aa(x), self.cfg, policy=self.policy)
+            return pack_rgb48(out[0].contiguous()).reshape(h, w3)
 
     def _run(self, fn, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode(), self.policy.math():
@@ -215,10 +248,10 @@ class HDRTVNetTorch:
         (the same bytes as (H, 3W) rows; a free host view). Not with HG: its
         program takes flat rows; nor with ``HDRTV_PAIRS_BOUNDARY=0`` (read at
         each call), as in the JAX runtime: flat rows then, and the flat
-        program."""
+        program; nor for the natural-layout program."""
         if not env_bool("HDRTV_PAIRS_BOUNDARY", True):
             return False
-        return not self.cfg.use_hg and h % 8 == 0 and w % 8 == 0
+        return not self.cfg.use_hg and not self.natural(h, w)
 
     def put_frame(self, flat_np: np.ndarray) -> torch.Tensor:
         """Host (H, 3W) u8 byte rows → the device tensor the dispatcher
@@ -240,22 +273,30 @@ class HDRTVNetTorch:
             hb, two, wb, six = x.shape
             if (two, six) != (2, 6):
                 raise ValueError(f"pair planes are (Hb, 2, Wb, 6), got {tuple(x.shape)}")
-            self._check_size(2 * hb, 2 * wb)
-            if self.cfg.use_hg:
-                return self._run_hg_flat(x.contiguous().reshape(2 * hb, 6 * wb)).reshape(hb, 2, wb, 6)
+            if hb % 4 or wb % 4:
+                raise ValueError(f"pair planes need sides that are multiples of 8, got {2 * hb}x{2 * wb}: "
+                                 "send (H, 3W) rows (wants_pairs is False at this size)")
+            if self.cfg.use_hg or self.natural(2 * hb, 2 * wb):
+                return self._run_flat(x.contiguous().reshape(2 * hb, 6 * wb)).reshape(hb, 2, wb, 6)
             return self._run(ensemble_s2d_rgb48_pairs, x.contiguous())
-        flat_fn = self._run_hg_flat if self.cfg.use_hg else (lambda t: self._run(ensemble_s2d_rgb48_flat, t))
         if x.ndim == 2:
-            self._check_size(x.shape[0], x.shape[1] // 3)
-            return flat_fn(x.contiguous())
+            return self._run_flat(x.contiguous())
         h, w, _ = x.shape
-        self._check_size(h, w)
-        return flat_fn(x.reshape(h, w * 3).contiguous()).reshape(h, w, 3)
+        return self._run_flat(x.reshape(h, w * 3).contiguous()).reshape(h, w, 3)
+
+    def _run_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        """(H, 3W) rows to the program that takes them: the natural-layout
+        one, the two-stage HG one, or the flat s2d one."""
+        h, w3 = flat.shape
+        if self.natural(h, w3 // 3):
+            return self._run_natural(flat)
+        if self.cfg.use_hg:
+            return self._run_hg_flat(flat)
+        return self._run(ensemble_s2d_rgb48_flat, flat)
 
     def process_rgb48(self, frame_bgr: np.ndarray) -> np.ndarray:
         """Full BGR u8 frame (H, W, 3) → uint16 RGB48 PQ code values (H, W, 3)."""
         h, w, _ = frame_bgr.shape
-        self._check_size(h, w)
         flat = np.ascontiguousarray(frame_bgr).reshape(h, w * 3)
         out = self.process_rgb48_device(self.put_frame(flat))
         return out.cpu().numpy().reshape(h, w, 3)

@@ -9,7 +9,9 @@ Runs warm device-resident frames through HDRTVNetTorch.process_rgb48_device
 runs the HG composite program on a synthetic hg_nf = 64 generator over the
 real base model, tools/synth_hg.py, written to a temporary directory;
 --int8 the native-int8 programs on the W8A8 checkpoint
-tests/fixtures/hr_w8a8.npz) under torch.profiler and prints, per frame: the device time of each kernel
+tests/fixtures/hr_w8a8.npz; a size whose sides are not multiples of 8, such
+as --height 540 --width 960, the natural-layout program) under
+torch.profiler and prints, per frame: the device time of each kernel
 (grouped: the port's CUDA kernels, cuDNN convolutions, GEMMs, elementwise
 and reduction passes, copies), the top kernels by device time, the wall
 time, and the device busy share (kernel time over wall time; one stream, so
@@ -128,7 +130,8 @@ def main() -> int:
     launches = sum(e.count for e in kernels) / n
     mega = native.launch_counts["tail"] + native.launch_counts["tail_w8a8"] > 0
     print(f"card: {torch.cuda.get_device_name(0)}; {h}x{w} {dtype}, {n} frames under torch.profiler; "
-          f"megakernel program: {mega}; HG composite: {proc.cfg.use_hg}; native int8: {proc.native_int8}")
+          f"megakernel program: {mega}; HG composite: {proc.cfg.use_hg}; native int8: {proc.native_int8}; "
+          f"natural layout: {proc.natural(h, w)}")
     print(f"wall {wall_ms:.3f} ms/frame; kernel time {busy_ms:.3f} ms/frame; "
           f"device busy {busy_ms / wall_ms:.3f}, idle {1 - busy_ms / wall_ms:.3f}; "
           f"{launches:.1f} kernel launches/frame")
@@ -158,7 +161,7 @@ def main() -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "precision": args.precision, "dtype": dtype,
         "height": h, "width": w, "frames": n, "megakernel": mega, "hg": proc.cfg.use_hg,
-        "int8": proc.native_int8, "launches": launches,
+        "int8": proc.native_int8, "natural": proc.natural(h, w), "launches": launches,
         "wall_ms": wall_ms, "kernel_ms": busy_ms, "busy": busy_ms / wall_ms,
         "groups_ms": groups, "port_kernels_ms": {k: v[0] for k, v in port.items()},
         "top": [{"name": e.key[:160], "ms": device_us(e) / 1e3 / n, "launches": e.count / n}

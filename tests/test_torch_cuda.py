@@ -782,3 +782,38 @@ def test_block_conv3_pool_matches_plain(dev, dtype, int8, hb, wb, co, skip):
         assert torch.equal(y, y_r), _max_err(y, y_r)
     else:
         _close(y, fused_block_conv3_ref(x, w.to(x.dtype), b, relu=True, skip=sk, pool_out=True), dtype)
+
+
+@pytest.mark.parametrize("hbc,wbc,c", [(4, 8, 128), (7, 5, 8), (33, 17, 64)])
+def test_d2s_add_matches_plain(dev, hbc, wbc, c):
+    """The probe's d2s + add: one rounding, so equal bit for bit; any hbc,
+    wbc, and C a multiple of 8 (the grid-stride tail included)."""
+    from hdrtv_tpu_torch.ops.probe_kernels import d2s_add, d2s_add_ref
+
+    rng = np.random.RandomState(hbc * wbc + c)
+    coarse = _t(rng.randn(hbc, wbc, 4 * c) * 3, dev, "bf16")
+    fine = _t(rng.randn(2 * hbc, 2 * wbc, c), dev, "bf16")
+    before = native.launch_counts["d2s_add"]
+    y = d2s_add(coarse, fine)
+    assert native.launch_counts["d2s_add"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(y, d2s_add_ref(coarse, fine))
+
+
+@pytest.mark.parametrize("h,w,co", [(16, 32, 256), (10, 6, 16), (34, 18, 2048)])
+def test_rowmajor_head_matches_plain(dev, h, w, co):
+    """The head probe: raw rows and pair planes give the same bits, and
+    both are within one bf16 step of the plain version (another fp32 sum
+    order of the same exact products)."""
+    from hdrtv_tpu_torch.ops.probe_kernels import rowmajor_head_pre, rowmajor_head_raw, rowmajor_head_raw_ref
+
+    rng = np.random.RandomState(h * w + co)
+    x = torch.as_tensor(rng.randint(0, 256, (h, 3 * w), dtype=np.uint8), device=dev)
+    wm = _t(rng.randn(12, co) * 0.1, dev, "bf16")
+    before = native.launch_counts["rowmajor_head"]
+    raw = rowmajor_head_raw(x, wm)
+    pre = rowmajor_head_pre(x.view(h // 2, 2, w // 2, 6), wm)
+    assert native.launch_counts["rowmajor_head"] == before + 2
+    torch.cuda.synchronize()
+    assert raw.shape == (h // 2, w // 2, co) and torch.equal(raw, pre)
+    _close(raw, rowmajor_head_raw_ref(x, wm), "bf16", flips=0.05)

@@ -707,31 +707,42 @@ def test_process_rgb48_hg_bf16_matches_jax_kernel_program(composite_path, monkey
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"use_hg": True}, "natural-layout"),
+    ({"use_hg": True}, r"no base\.\* and no hg\.\* keys"),
     ({}, None),
 ])
 def test_hg_on_a_checkpoint_without_hg_weights(kwargs, match):
-    """``use_hg=True`` on the base checkpoint raises (the JAX package takes
-    its natural path there); without it the base checkpoint runs as before."""
+    """``use_hg=True`` on the base checkpoint raises a ValueError naming the
+    missing ``base.*`` and ``hg.*`` keys (the JAX package fails at the first
+    frame, with a KeyError); without it the base checkpoint runs as before."""
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     if match is None:
         assert not HDRTVNetTorch(WEIGHTS, precision="fp32", device="cpu", **kwargs).cfg.use_hg
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         HDRTVNetTorch(WEIGHTS, precision="fp32", device="cpu", **kwargs)
 
 
 def test_hg_uncovered_cases_raise(composite_path, tmp_path):
-    """Still raising, each with its ROADMAP item: a ``direct`` generator, and
-    an HG frame whose sides are not multiples of 8; a frame too small to
-    reflect-pad raises the generator's own ``ValueError``."""
+    """A ``direct`` generator still raises, with its ROADMAP item; a frame
+    too small to reflect-pad raises the generator's own ``ValueError``. An
+    HG frame whose sides are not multiples of 8 (99×131) now runs the
+    natural HG composite, as in JAX: within 4 codes of ``HDRTVNetTPU`` away
+    from the mask's threshold, with at most 0.5% of the pixels near it."""
+    from hdrtv_tpu.runtime.processor import HDRTVNetTPU
     from hdrtv_tpu_torch.models.import_npz import load_npz, save_npz
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     proc = HDRTVNetTorch(composite_path, precision="fp32", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Slice 5"):
-        proc.process_rgb48(np.zeros((99, 131, 3), np.uint8))
+    frame = _highlight_frame(99, 131, 99)
+    assert proc.natural(99, 131) and not proc.wants_pairs(99, 131)
+    got = proc.process_rgb48(frame).astype(np.int64)
+    want = HDRTVNetTPU(composite_path, precision="fp32", persistent_cache=False).process_rgb48(frame)
+    m = _base_max_rgb(frame)
+    near = np.abs(m - THRESHOLD) <= 2e-4
+    d = np.abs(got - want.astype(np.int64)).max(axis=-1)
+    assert near.mean() <= 0.005 and d[~near].max() <= CODES, (float(near.mean()), int(d[~near].max()))
+    assert 0.2 < (m > THRESHOLD).mean() < 0.5  # the mask is set on a share of the frame
     with pytest.raises(ValueError, match="too small"):
         proc.process_rgb48(np.zeros((16, 64, 3), np.uint8))
     direct = str(tmp_path / "direct.npz")

@@ -672,20 +672,43 @@ def test_int8_params_are_prepared_once(ckpt):
     assert all(qa.co == 256 and qa.c == 256 and qa.taps == 9 for qa in branches)
 
 
+# The eager W8A8 program (predequantize off) in fp32 against JAX's, PSNR floor in dB: 3 dB
+# under the 123.14 dB seen on the 24×40 smooth frame (fp32: a code flips rarely, and moves
+# its output by one u16 code). The int8 frame against the float program sits near 23 dB.
+EAGER_FP32_PSNR = 120.1
+
+
 @pytest.mark.parametrize("case", ["predequantize_arg", "predequantize_env", "odd_size"])
 def test_uncovered_int8_options_raise(monkeypatch, tmp_path, ckpt, case):
+    """What raised until the natural-layout program was ported now runs as
+    in JAX: ``predequantize=False`` (or ``HDRTVNET_PREDEQUANTIZE=0``) keeps
+    the int8 layers and runs the eager W8A8 natural program on every frame
+    (turbo off), in fp32 within a PSNR floor of JAX's; a frame whose sides
+    are not multiples of 8 runs the natural program on the pre-dequantized
+    weights, within the fp32 bound."""
+    from hdrtv_tpu.runtime.processor import HDRTVNetTPU
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
+    kw = {}
     if case == "predequantize_arg":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Slice 5"):
-            HDRTVNetTorch(FIXTURE, device="cpu", predequantize=False)
+        kw["predequantize"] = False
     elif case == "predequantize_env":
         monkeypatch.setenv("HDRTVNET_PREDEQUANTIZE", "0")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Slice 5"):
-            HDRTVNetTorch(FIXTURE, device="cpu")
+    h, w = (60, 100) if case == "odd_size" else (24, 40)
+    frame = smooth_frame(h, w, 67)
+    proc = HDRTVNetTorch(FIXTURE, precision="fp32", device="cpu", **kw)
+    jproc = HDRTVNetTPU(FIXTURE, precision="fp32", persistent_cache=False, **kw)
+    assert (proc.turbo, proc.predequantized) == (jproc.turbo, jproc.predequantized) == (case == "odd_size",) * 2
+    assert proc.natural(h, w) and proc.native_int8 == jproc.native_int8 == (case == "odd_size")
+    got = proc.process_rgb48(frame).astype(np.int64)
+    want = jproc.process_rgb48(frame).astype(np.int64)
+    if case == "odd_size":
+        assert np.abs(got - want).max() <= 4
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Slice 5"):
-            HDRTVNetTorch(FIXTURE, device="cpu").process_rgb48(np.zeros((60, 100, 3), np.uint8))
+        assert "LE.HR_conv2.weight_int8" in proc.params and "LE.HR_conv2.x_scale" in proc.params
+        p = _psnr(got, want)
+        print(f"{case}: eager W8A8 fp32 {h}x{w} against JAX {p:.2f} dB")
+        assert p >= EAGER_FP32_PSNR, p
 
 
 if __name__ == "__main__":

@@ -487,19 +487,24 @@ def test_int8_composite_matches_jax(monkeypatch, int8_composite, precision):
 def test_turbo_off_raises_like_jax_leaves_s2d(monkeypatch, how):
     """``HDRTVNET_TPU_TURBO=0`` (or ``turbo=False``): the JAX runtime leaves
     the s2d programs (``turbo`` False: ``model_apply``, the natural layout,
-    on every frame), which the port has not ported: it raises naming
-    ROADMAP.md Slice 5 at construction and runs nothing."""
+    on every frame), and so does the port: a 32×48 frame, whose sides the
+    s2d programs take, runs the natural program, in fp32 within 4 codes of
+    JAX's, with pair planes off."""
     from hdrtv_tpu.runtime.processor import HDRTVNetTPU
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
-    kw = {}
+    kw = {"precision": "fp32"}
     if how == "env":
         monkeypatch.setenv("HDRTVNET_TPU_TURBO", "0")
     else:
         kw["turbo"] = False
-    assert not HDRTVNetTPU(WEIGHTS, persistent_cache=False, **kw).turbo
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Slice 5"):
-        HDRTVNetTorch(WEIGHTS, device="cpu", **kw)
+    jproc = HDRTVNetTPU(WEIGHTS, persistent_cache=False, **kw)
+    proc = HDRTVNetTorch(WEIGHTS, device="cpu", **kw)
+    assert not jproc.turbo and not proc.turbo and proc.natural(32, 48)
+    assert not proc.wants_pairs(32, 48) and not jproc.wants_pairs(32, 48)
+    frame = smooth_frame(32, 48, 33)
+    got = proc.process_rgb48(frame).astype(np.int64)
+    assert np.abs(got - jproc.process_rgb48(frame).astype(np.int64)).max() <= 4
     monkeypatch.setenv("HDRTVNET_TPU_TURBO", "1")
     assert HDRTVNetTorch(WEIGHTS, device="cpu", turbo=True).wants_pairs(64, 96)
 

@@ -403,16 +403,30 @@ def test_default_precision_constructs_on_cpu():
     {"precision": "fp32", "fast_condition_resize": True},
 ])
 def test_uncovered_options_raise(kwargs):
+    """What the port does not run raises at construction, naming its ROADMAP
+    item; ``use_hg`` on a checkpoint without ``base.*`` and ``hg.*`` keys
+    raises a ValueError naming them (the JAX package fails at the first
+    frame, with a KeyError)."""
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
+    if kwargs.get("use_hg"):
+        with pytest.raises(ValueError, match=r"no base\.\* and no hg\.\* keys"):
+            HDRTVNetTorch(WEIGHTS, device="cpu", **kwargs)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         HDRTVNetTorch(WEIGHTS, device="cpu", **kwargs)
 
 
 def test_frame_not_divisible_by_8_raises(processors):
-    _, proc = processors
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Slice 5"):
-        proc.process_rgb48(np.zeros((99, 131, 3), np.uint8))
+    """A frame whose sides are not multiples of 8 no longer raises: it runs
+    the natural-layout program, as in the JAX runtime, within the fp32
+    bound of ``test_process_rgb48_matches_jax``."""
+    jax_proc, proc = processors
+    frame = (np.random.RandomState(99).rand(99, 131, 3) * 255).astype(np.uint8)
+    assert proc.natural(99, 131) and not proc.wants_pairs(99, 131)
+    got = proc.process_rgb48(frame).astype(np.int64)
+    want = jax_proc.process_rgb48(frame).astype(np.int64)
+    assert got.shape == (99, 131, 3) and np.abs(got - want).max() <= CODES
 
 
 def test_import_leaves_jax_out():
