@@ -12,7 +12,12 @@ lines; any failed check raises and the script exits non-zero with no result:
 2. kernels: each kernel against its plain PyTorch version on the card, at
    every 1080p main-path shape of the fp32 and of the two bf16 frame
    programs and of the HG composite, TF32 off; the kernels only the bf16
-   programs run are also held in fp32 at the same shapes. Tolerances. fp32: 1e-4 absolute (5e-4 for
+   programs run are also held in fp32 at the same shapes. block_conv3 and down2 run with the
+   a_sub their callers pass (conv_s1: 1; conv_s2: 3 for the consolidated CondNet down conv, 1
+   elsewhere), with which their bf16 float forms skip the s2d weights' structural zeros on the
+   Hopper tile (csrc/conv3x3_sm90.cuh), and once more each in bf16 with a_sub = 0 (the dense
+   product, on the same tile) at up_conv3's and __cond_down's shape, cases no path launches;
+   every case line gives TFLOP/s on the non-zero FLOPs. Tolerances. fp32: 1e-4 absolute (5e-4 for
    trunk3's 9-conv chain): the same fp32 products summed in another order.
    bf16: the same exact products summed in fp32 in another order and rounded
    at the same places, so a result moves by one bf16 step where a rounding
@@ -481,6 +486,7 @@ def phase_kernels(torch, np) -> dict:
             "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
             "library_ms": None if lib_ms is None else round(lib_ms, 4),
             "bound_ms": round(b_ms, 4), "bound_by": b_by, "rate": rate, "gflop": round(flops / 1e9, 3),
+            "tflops": round(flops / ms / 1e9, 1),
             "mbytes": round(nbytes / 1e6, 3),
         }))
         if not ok:
@@ -549,22 +555,25 @@ def phase_kernels(torch, np) -> dict:
             x = t(rng.rand(hb, wb, c))
             b = f32(rng.randn(cout) * 0.1)
             sk = t(rng.rand(hb, wb, cout)) if skip else None
-            y = fused_block_conv3(x, w, b, relu=relu, skip=sk)
-            y_r = fused_block_conv3_ref(x, w, b, relu=relu, skip=sk)
-            ms = time_ms(lambda: fused_block_conv3(x, w, b, relu=relu, skip=sk), torch)
-            plain = time_ms(lambda: fused_block_conv3_ref(x, w, b, relu=relu, skip=sk), torch)
-            x_nchw = x[None].permute(0, 3, 1, 2)
-            w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            b_lib = b.to(dt)
-            lib = time_ms(lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1), torch)
-            record("block_conv3", dtype, name, per_path, y, y_r, ATOL if dtype == "f32" else 1, ms, plain,
-                   lib, nbytes_of(x, w, b, y, sk), 2 * conv_macs(w, hb, wb, 1), unit)
+            # a_sub as conv_s1 passes it (the weight is s2d-structured); once more dense
+            for a_sub in (1, 0) if dtype == "bf16" and name == "L1 up_conv3" else (1,):
+                y = fused_block_conv3(x, w, b, relu=relu, skip=sk, a_sub=a_sub)
+                y_r = fused_block_conv3_ref(x, w, b, relu=relu, skip=sk)
+                ms = time_ms(lambda: fused_block_conv3(x, w, b, relu=relu, skip=sk, a_sub=a_sub), torch)
+                plain = time_ms(lambda: fused_block_conv3_ref(x, w, b, relu=relu, skip=sk), torch)
+                x_nchw = x[None].permute(0, 3, 1, 2)
+                w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                b_lib = b.to(dt)
+                lib = time_ms(lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1), torch)
+                record("block_conv3", dtype, f"{name} a_sub={a_sub}", per_path if a_sub else (0, 0, 0), y, y_r,
+                       ATOL if dtype == "f32" else 1, ms, plain, lib, nbytes_of(x, w, b, y, sk),
+                       2 * conv_macs(w, hb, wb, 1), unit)
             del x, y, y_r, sk
 
-        # down2: (name, hb, wb, cf, cin, ch0, natural co per branch, branches, act); once per
-        # frame on every path
+        # down2: (name, hb, wb, cf, cin, ch0, natural co per branch, branches = a_sub, act); once
+        # per frame on every path
         for name, hb, wb, cf, cin, ch0, co_nat, nbr, act in (
-            ("LE.__cond_down (a_sub=3)", 540, 960, 256, None, 0, 64, 3, "lrelu"),
+            ("LE.__cond_down", 540, 960, 256, None, 0, 64, 3, "lrelu"),
             ("CondNet3.2 window ch0=256", 270, 480, 768, 256, 256, 64, 1, "lrelu"),
             ("CondNet4.2 window ch0=512", 270, 480, 768, 256, 512, 64, 1, "lrelu"),
             ("down_conv1", 540, 960, 128, None, 0, 32, 1, "relu"),
@@ -577,17 +586,20 @@ def phase_kernels(torch, np) -> dict:
             cout = w.shape[-1]
             x = t(rng.rand(hb, wb, cf))
             b = f32(rng.randn(cout) * 0.1)
-            y = fused_down2(x, w, b, act=act, cin=cin, ch0=ch0)
             xw = x[..., ch0 : ch0 + c]
             y_r = fused_down2_ref(xw, w, b, act=act)
-            ms = time_ms(lambda: fused_down2(x, w, b, act=act, cin=cin, ch0=ch0), torch)
             plain = time_ms(lambda: fused_down2_ref(x[..., ch0 : ch0 + c], w, b, act=act), torch)
             x_pad = F.pad(xw[None].permute(0, 3, 1, 2), (1, 0, 1, 0))
             w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             b_lib = b.to(dt)
             lib = time_ms(lambda: F.conv2d(x_pad, w_oihw, b_lib, stride=2), torch)
-            record("down2", dtype, name, (1, 1, 1), y, y_r, ATOL if dtype == "f32" else 1, ms, plain, lib,
-                   size * hb * wb * c + nbytes_of(w, b, y), 2 * conv_macs(w, hb // 2, wb // 2, 2), unit)
+            # a_sub as conv_s2 passes it; once more dense
+            for a_sub in (nbr, 0) if dtype == "bf16" and name == "LE.__cond_down" else (nbr,):
+                y = fused_down2(x, w, b, act=act, cin=cin, ch0=ch0, a_sub=a_sub)
+                ms = time_ms(lambda: fused_down2(x, w, b, act=act, cin=cin, ch0=ch0, a_sub=a_sub), torch)
+                record("down2", dtype, f"{name} a_sub={a_sub}", (1, 1, 1) if a_sub else (0, 0, 0), y, y_r,
+                       ATOL if dtype == "f32" else 1, ms, plain, lib, size * hb * wb * c + nbytes_of(w, b, y),
+                       2 * conv_macs(w, hb // 2, wb // 2, 2), unit)
             del x, y, y_r, xw, x_pad
 
         # sft_conv3: x (hb,wb,128), cond (hb,wb,64); on the bf16 frame programs only (the

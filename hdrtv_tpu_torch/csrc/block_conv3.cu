@@ -2,17 +2,24 @@
 // (hdrtv_tpu/ops/conv_kernels.py:271): a 3×3 'same' conv over an s2d block
 // tensor (Hb, Wb, C) → (Hb, Wb, Co) with the epilogue relu(conv + b + skip).
 //
-// Bound on this card: operations. At 1080p a call is 38–153 GFLOP (dense)
-// over at most 0.5 GB of activations; in fp32 without tensor cores the
-// H100's FMA rate (67 TFLOP/s) is the limit, ~14× above the memory roof.
-// Design: the implicit-GEMM tile of conv3x3.cuh (128 pixels × 128 channels
-// per block, fp32 accumulation in registers, 16 KB shared memory), which
-// keeps every input element read ~9 times from shared memory rather than
-// from HBM. The TPU kernel's a_sub zero-tap skip is not ported; the dense
-// product gives the same result on the s2d-transformed weights. The bf16 instance (bf16 x, w, skip, y; fp32 bias)
-// runs the same tile on the tensor cores (conv3x3_mma_kernel: mma.sync bf16,
-// fp32 accumulation), where the card's bf16 rate puts the call's bound at its
-// bytes; what holds it back there is the tile's one-stage operand staging.
+// The bf16 float form (bf16 x, w, skip, y; fp32 bias), the one the bf16
+// frame programs launch (up_conv2/3), runs the Hopper tile of
+// conv3x3_sm90.cuh: wgmma fed by TMA through a ring of stages, persistent
+// blocks, and a K walk over a chunk table. With a_sub ≥ 1 (conv_s1 passes it:
+// every weight there is a w_s2d_s1 transform or its PS fold) the table lists
+// only each output sub-position's 9 non-zero (tap, input sub-position) slots,
+// a quarter of the dense product, which the Pallas kernel computes in part
+// (its a_sub skips a third of the row taps); a_sub = 0 is the dense product.
+// Bound on this card: bytes (a 1080p call moves 166 MB against 38 GFLOP of
+// non-zero products: 0.050 ms against 0.039 at the bf16 rate); what holds
+// the tile back is its epilogue's stores (tools/sm90_phases.py). Times:
+// PERF.md §6.
+//
+// The fp32 instance runs the implicit-GEMM tile of conv3x3.cuh (128 pixels ×
+// 128 channels per block, fp32 accumulation in registers, 16 KB shared
+// memory), dense: bound by operations (38–153 GFLOP dense a call at 1080p,
+// the H100's 67 TFLOP/s fp32 FMA rate), as is the bf16 pool_out form's
+// tensor-core tile (conv3x3_mma_kernel), both later work (ROADMAP "Left").
 //
 // The native-int8 (W8A8) body of the same Pallas kernel (`quant`,
 // conv_kernels.py:180-227; the wrapper counts it as block_conv3_w8a8), when
@@ -35,15 +42,25 @@
 // one thread's registers (FMA) or in four lanes of one warp (MMA), and the
 // max is a register or shuffle reduction. H and W must be even.
 #include "conv3x3_s8.cuh"
+#include "conv3x3_sm90.cuh"
 
 namespace {
 
 template <typename T>
 int block_conv3(const void* x, const void* w, const void* b, const hdrtv::QuantParams* q,
                 const void* skip, void* y, void* codes, int H, int W, int C, int Co, int relu,
-                int pool, void* stream) {
+                int pool, int a_sub, const int* table, int per_list, void* stream) {
   if (pool && (H % 2 || W % 2)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (table) {
+    if constexpr (std::is_same<T, hdrtv::bf16>::value) {
+      if (!q && !pool)
+        return static_cast<int>(hdrtv::conv3x3_sm90<1>(x, w, static_cast<const float*>(b), skip, y, H, W, C,
+                                                       0, C, Co, relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE,
+                                                       a_sub, table, per_list, s));
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSuccess;
   if (q) err = hdrtv::quantize<T>(x, codes, static_cast<long long>(H) * W * C, *q, s);
   if (err == cudaSuccess)
@@ -56,17 +73,21 @@ int block_conv3(const void* x, const void* w, const void* b, const hdrtv::QuantP
 
 // q: null for the float form, else the layer's int8 parameters (w and b
 // unused; codes: H·W·C bytes of scratch, unused without q). pool: 1 for the
-// pool_out form, y (H/2, W/2, Co).
+// pool_out form, y (H/2, W/2, Co). table: null, or (the bf16 float form
+// without pool only) the chunk lists of conv3x3_sm90.cuh for a_sub, per_list
+// entries each, which send the call to the Hopper tile.
 extern "C" int hdrtv_block_conv3_f32(const void* x, const void* w, const void* b, const void* q,
                                      const void* skip, void* y, void* codes, int H, int W, int C,
-                                     int Co, int relu, int pool, void* stream) {
+                                     int Co, int relu, int pool, int a_sub, const int* table,
+                                     int per_list, void* stream) {
   return block_conv3<float>(x, w, b, hdrtv::quant_params(q), skip, y, codes, H, W, C, Co, relu,
-                            pool, stream);
+                            pool, a_sub, table, per_list, stream);
 }
 
 extern "C" int hdrtv_block_conv3_bf16(const void* x, const void* w, const void* b, const void* q,
                                       const void* skip, void* y, void* codes, int H, int W, int C,
-                                      int Co, int relu, int pool, void* stream) {
+                                      int Co, int relu, int pool, int a_sub, const int* table,
+                                      int per_list, void* stream) {
   return block_conv3<hdrtv::bf16>(x, w, b, hdrtv::quant_params(q), skip, y, codes, H, W, C, Co,
-                                  relu, pool, stream);
+                                  relu, pool, a_sub, table, per_list, stream);
 }

@@ -4,14 +4,24 @@
 // (none, relu or lrelu 0.1), reading the channel window [ch0, ch0 + cin) of
 // a wider input in place.
 //
-// Bound on this card: operations. At 1080p the consolidated CondNet down
-// conv is 459 GFLOP dense over 0.5 GB in and 0.4 GB out; fp32 FMA throughput
-// is the limit. Design: the implicit-GEMM tile of conv3x3.cuh with stride 2;
-// the window is an offset and a row pitch in the A-tile address, so the
-// slice the TPU kernel keeps out of HBM with its BlockSpecs never exists
-// here either. The product is dense: right for any weight, where the TPU
-// kernel relies on w_s2d_s2's structural zeros to skip a third of its taps.
-// The bf16 instance runs the tile on the tensor cores (conv3x3_mma_kernel).
+// The bf16 float form, the one every bf16 frame program launches five times
+// (the consolidated CondNet down conv, CondNet3.2/4.2 on its output's
+// windows, down_conv1/2), runs the Hopper tile of conv3x3_sm90.cuh with
+// stride 2: its TMA boxes read every second input pixel, fill the (1,0)
+// pad's row and column −1 with zeros and take the window at their channel
+// coordinate, so the slice never exists in device memory. a_sub (conv_s2
+// passes 3 for the consolidated conv, 1 elsewhere) declares the weight
+// w_s2d_s2-structured, as the Pallas kernel requires, and the tile walks
+// each output sub-position's 9 non-zero (tap, input sub-position) slots
+// only; a_sub = 0 is the dense product, right for any weight. Bound on this
+// card: bytes at every 1080p shape (the consolidated conv: 115 GFLOP of
+// non-zero products, 0.116 ms at the bf16 rate, against 0.27 GB in and
+// 0.20 GB out, 0.139 ms); its epilogue's stores hold it back
+// (tools/sm90_phases.py).
+// Times: PERF.md §6.
+//
+// The fp32 instance runs the dense implicit-GEMM tile of conv3x3.cuh with
+// stride 2 (bound by operations on the fp32 FMA units; later work).
 //
 // The native-int8 (W8A8) body of the same Pallas kernel (`quant`,
 // megakernel.py:608-705; the wrapper counts it as down2_w8a8), when the call
@@ -30,13 +40,23 @@
 // 0.27 GB in and 0.2 GB out in bf16); the codes' round trip through device
 // memory, 1 byte a value per branch, is this first version's cost.
 #include "conv3x3_s8.cuh"
+#include "conv3x3_sm90.cuh"
 
 namespace {
 
 template <typename T>
 int down2(const void* x, const void* w, const void* b, const hdrtv::QuantParams* q, int nb, void* y,
-          void* codes, int H, int W, int cf, int ch0, int cin, int Co, int act, void* stream) {
+          void* codes, int H, int W, int cf, int ch0, int cin, int Co, int act, int a_sub, const int* table,
+          int per_list, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (table) {
+    if constexpr (std::is_same<T, hdrtv::bf16>::value) {
+      if (!q)
+        return static_cast<int>(hdrtv::conv3x3_sm90<2>(x, w, static_cast<const float*>(b), nullptr, y, H, W,
+                                                       cf, ch0, cin, Co, act, a_sub, table, per_list, s));
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (q) {
     if (nb < 1 || nb > hdrtv::kMaxBranches || Co % nb) return static_cast<int>(cudaErrorInvalidValue);
     hdrtv::ConvS8Args a;
@@ -85,16 +105,19 @@ int down2(const void* x, const void* w, const void* b, const hdrtv::QuantParams*
 
 // q: null for the float form, else an array of nb QuantParams, branch bi's
 // layer for output channels [bi·Co/nb, (bi+1)·Co/nb) (w and b unused;
-// codes: nb·H·W·cin bytes of scratch, unused without q).
+// codes: nb·H·W·cin bytes of scratch, unused without q). table: null, or
+// (the bf16 float form only) the chunk lists of conv3x3_sm90.cuh for a_sub,
+// per_list entries each, which send the call to the Hopper tile.
 extern "C" int hdrtv_down2_f32(const void* x, const void* w, const void* b, const void* q, int nb,
                                void* y, void* codes, int H, int W, int cf, int ch0, int cin, int Co,
-                               int act, void* stream) {
-  return down2<float>(x, w, b, hdrtv::quant_params(q), nb, y, codes, H, W, cf, ch0, cin, Co, act, stream);
+                               int act, int a_sub, const int* table, int per_list, void* stream) {
+  return down2<float>(x, w, b, hdrtv::quant_params(q), nb, y, codes, H, W, cf, ch0, cin, Co, act, a_sub,
+                      table, per_list, stream);
 }
 
 extern "C" int hdrtv_down2_bf16(const void* x, const void* w, const void* b, const void* q, int nb,
                                 void* y, void* codes, int H, int W, int cf, int ch0, int cin, int Co,
-                                int act, void* stream) {
+                                int act, int a_sub, const int* table, int per_list, void* stream) {
   return down2<hdrtv::bf16>(x, w, b, hdrtv::quant_params(q), nb, y, codes, H, W, cf, ch0, cin, Co, act,
-                            stream);
+                            a_sub, table, per_list, stream);
 }

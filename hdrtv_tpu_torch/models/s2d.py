@@ -117,6 +117,41 @@ def _blk(ci: int, i: int) -> slice:
     return slice(i * ci, (i + 1) * ci)
 
 
+def _s2d_taps(stride: int):
+    """The populated slots of the s2d form of a 3×3 conv at ``stride``, the
+    index rule both transforms and :func:`s2d_slots` read: block tap
+    (δI, δJ), input sub-position si = 2·a_in + b_in and output sub-position
+    so = 2·a_out + b_out map to the natural offset di = 2δI + a_in −
+    stride·a_out (dj likewise), populated where |di|, |dj| ≤ 1. Yields
+    (δI, δJ, si, so, di, dj) in (δI, δJ, si) order."""
+    for dI in (-1, 0, 1):
+        for dJ in (-1, 0, 1):
+            for ai in range(2):
+                for bi in range(2):
+                    for ao in range(2):
+                        for bo in range(2):
+                            di = 2 * dI + ai - stride * ao
+                            dj = 2 * dJ + bi - stride * bo
+                            if -1 <= di <= 1 and -1 <= dj <= 1:
+                                yield dI, dJ, ai * 2 + bi, ao * 2 + bo, di, dj
+
+
+def s2d_slots(stride: int) -> tuple[tuple[tuple[int, int], ...], ...]:
+    """The non-zero (tap, input sub-position) slots of a :func:`w_s2d_s1`
+    (also :func:`w_s2d_s1_ps`, whose PS fold permutes channels only inside a
+    sub-position block) or :func:`w_s2d_s2` weight, one tuple per output
+    sub-position so = 2·a_out + b_out: the 9 (tap = 3·(δI + 1) + δJ + 1, si)
+    of :func:`_s2d_taps`, in (tap, si) order. Every other slot is an exact
+    zero. The conv kernels walk K over these slots (``ops/conv_kernels.py
+    conv_chunks``)."""
+    if stride not in (1, 2):
+        raise ValueError(f"s2d slots exist for stride 1 or 2, got {stride}")
+    slots: list[list[tuple[int, int]]] = [[] for _ in range(4)]
+    for dI, dJ, si, so, _, _ in _s2d_taps(stride):
+        slots[so].append((3 * (dI + 1) + dJ + 1, si))
+    return tuple(tuple(s) for s in slots)
+
+
 def w_s2d_s1(w: np.ndarray) -> np.ndarray:
     """(3,3,Ci,Co) stride-1 'same' → (3,3,4Ci,4Co) 'same' over plain s2d.
     Block tap δ with input sub-position a maps to natural offset
@@ -124,16 +159,8 @@ def w_s2d_s1(w: np.ndarray) -> np.ndarray:
     kh, kw, ci, co = w.shape
     assert (kh, kw) == (3, 3)
     out = np.zeros((3, 3, 4 * ci, 4 * co), w.dtype)
-    for dI in (-1, 0, 1):
-        for dJ in (-1, 0, 1):
-            for ai in range(2):
-                for bi in range(2):
-                    for ao in range(2):
-                        for bo in range(2):
-                            di = 2 * dI + ai - ao
-                            dj = 2 * dJ + bi - bo
-                            if -1 <= di <= 1 and -1 <= dj <= 1:
-                                out[dI + 1, dJ + 1, _blk(ci, ai * 2 + bi), _blk(co, ao * 2 + bo)] = w[di + 1, dj + 1]
+    for dI, dJ, si, so, di, dj in _s2d_taps(1):
+        out[dI + 1, dJ + 1, _blk(ci, si), _blk(co, so)] = w[di + 1, dj + 1]
     return out
 
 
@@ -143,16 +170,8 @@ def w_s2d_s2(w: np.ndarray) -> np.ndarray:
     di = 2δ + a_in − 2·a_out."""
     kh, kw, ci, co = w.shape
     out = np.zeros((3, 3, 4 * ci, 4 * co), w.dtype)
-    for dI in (-1, 0, 1):
-        for dJ in (-1, 0, 1):
-            for ai in range(2):
-                for bi in range(2):
-                    for ao in range(2):
-                        for bo in range(2):
-                            di = 2 * dI + ai - 2 * ao
-                            dj = 2 * dJ + bi - 2 * bo
-                            if -1 <= di <= 1 and -1 <= dj <= 1:
-                                out[dI + 1, dJ + 1, _blk(ci, ai * 2 + bi), _blk(co, ao * 2 + bo)] = w[di + 1, dj + 1]
+    for dI, dJ, si, so, di, dj in _s2d_taps(2):
+        out[dI + 1, dJ + 1, _blk(ci, si), _blk(co, so)] = w[di + 1, dj + 1]
     return out
 
 
@@ -572,12 +591,18 @@ def _down2_qargs(p: Params, layer: str, x: torch.Tensor, a_sub: int):
 def conv_s1(p, name, x, *, policy, relu_fused: bool = False, skip: torch.Tensor | None = None):
     """Stride-1 3×3 in block domain: 3×3 'same' over plain s2d; the
     block_conv3 kernel with bias/ReLU/skip fused when the channels fit, in
-    its int8 form on a native-int8 layer."""
+    its int8 form on a native-int8 layer. Every weight here is a w_s2d_s1
+    transform or its PS fold, so the call declares it (``a_sub``, the JAX
+    values) and the kernel skips its structural zeros. LE.__in_fused's 2
+    reads two equal blocks, which its blocks (conv_first, cond_first.0) are
+    not at nf = 32; its C = 12 never fits the kernels, as in JAX, whose gate
+    turns such an ``a_sub`` off."""
     w = p[f"{name}.weight"]
     if _use_fused_kernel(x, w):
         return fused_block_conv3(
             policy.cast(x[0]), policy.cast(w), p[f"{name}.bias"], relu=relu_fused,
             skip=None if skip is None else policy.cast(skip[0]), qargs=_qargs_for(p, name, x),
+            a_sub=2 if name.endswith("__in_fused") else 1,
         )[None]
     y = _conv(p, name, x, padding=1, policy=policy)
     if skip is not None:

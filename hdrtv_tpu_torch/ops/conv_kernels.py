@@ -12,18 +12,79 @@ body: x quantized per tensor, int8 × int8 → int32 tap sums rescaled per
 output channel (``csrc/block_conv3.cu`` ``block_conv3_w8a8``). With
 ``pool_out`` the 2×2 max pool of the result (after the ReLU) is taken in the
 kernel's epilogue, in any of the three forms, and the output is
-(Hb/2, Wb/2, Co) (``block_conv3_pool``). The JAX kernel's ``a_sub`` zero-tap
-skip is not ported: the dense product equals it on s2d-transformed weights,
-in int8 exactly.
+(Hb/2, Wb/2, Co) (``block_conv3_pool``).
+
+``a_sub`` has the JAX kernel's meaning: ≥ 1 declares the weight
+s2d-structured (``models/s2d.py w_s2d_s1``, its PS fold, or ``a_sub`` such
+blocks side by side along Co), and the bf16 float form then multiplies only
+the 9 non-zero (tap, input sub-position) slots of each output sub-position
+(``models/s2d.py s2d_slots``) on the Hopper tile of
+``csrc/conv3x3_sm90.cuh``: exact, since the skipped products are exact
+zeros. 0 is the dense product, right for any weight. The fp32, int8 and
+``pool_out`` forms stay dense (the same result on such weights), and so do
+the plain versions, which hold the skip to account. :func:`conv_chunks` is
+the K walk the tile takes, shared with ``ops/megakernel.py fused_down2``.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from hdrtv_tpu_torch.models.layers import conv_nhwc
 from hdrtv_tpu_torch.ops import native
 from hdrtv_tpu_torch.ops.w8a8 import QArgs, _taps_conv_q, check_qargs
+
+
+CHUNK = 32  # input channels of one K chunk of csrc/conv3x3_sm90.cuh (kBK)
+TABLE_MAX = 288  # chunk entries one launch of it takes (kMaxChunks)
+
+
+def check_a_sub(name: str, a_sub: int, c: int, co: int) -> None:
+    """``a_sub`` shapes that divide, on the CPU as on the card: C into four
+    input sub-positions, Co into ``a_sub`` blocks of four output ones."""
+    if a_sub < 0 or (a_sub and (c % 4 or co % (4 * a_sub))):
+        raise ValueError(f"{name}: a_sub={a_sub} needs C % 4 == 0 and Co % (4·a_sub) == 0, got C={c}, Co={co}")
+
+
+def conv_chunks(stride: int, a_sub: int, c: int) -> list[list[tuple[int, int]]]:
+    """The K walk of the Hopper tile over a window of ``c`` input channels,
+    in its order: chunks (tap, c0), each the CHUNK channels [c0, c0 + CHUNK)
+    of the window at that tap (tap = 3·dI + dJ). ``a_sub`` = 0: one list,
+    every tap and chunk (the dense product). ``a_sub`` ≥ 1: four lists, one
+    per output sub-position, over its 9 slots of ``s2d_slots(stride)``."""
+    if not a_sub:
+        return [[(tap, c0) for tap in range(9) for c0 in range(0, c, CHUNK)]]
+    from hdrtv_tpu_torch.models.s2d import s2d_slots  # models/s2d.py imports this module
+
+    ci = c // 4
+    return [[(tap, si * ci + c0) for tap, si in slots for c0 in range(0, ci, CHUNK)]
+            for slots in s2d_slots(stride)]
+
+
+@functools.lru_cache(maxsize=64)
+def sm90_table(name: str, stride: int, a_sub: int, c: int, co: int, cf: int, ch0: int = 0):
+    """What a bf16 float call hands the Hopper tile: its chunk table (a
+    ctypes int array, entry tap | c0 << 4, the lists back to back) and the
+    length of one list. The tile takes slots of a multiple of CHUNK channels,
+    N tiles of 32 inside one output sub-position (Co, or Co/(4·a_sub), a
+    multiple of 32), 16-byte aligned pixels and window (pitch ``cf`` and
+    ``ch0`` multiples of 8) and at most TABLE_MAX entries (9·C/CHUNK). A
+    shape it refuses raises for ``a_sub`` ≥ 1 and gives (None, 0) for the
+    dense product, which the mma.sync tile of csrc/conv3x3.cuh then runs.
+    Cached: a frame asks for the same few tables at every call."""
+    kc, n = (c // 4, co // (4 * a_sub)) if a_sub else (c, co)
+    if kc % CHUNK or n % 32 or cf % 8 or ch0 % 8 or 9 * c // CHUNK > TABLE_MAX:
+        if a_sub:
+            raise ValueError(f"{name}: the Hopper tile takes a_sub={a_sub} with C/4 a multiple of {CHUNK}, "
+                             f"C ≤ {TABLE_MAX // 9 * CHUNK}, Co/(4·a_sub) a multiple of 32 and the pixel "
+                             f"pitch and window start multiples of 8, got C={c}, Co={co}, pitch {cf}, ch0={ch0}")
+        return None, 0
+    chunks = conv_chunks(stride, a_sub, c)
+    entries = [tap | c0 << 4 for group in chunks for tap, c0 in group]
+    return (ctypes.c_int * len(entries))(*entries), len(chunks[0])
 
 
 def _epilogue(y, dtype, relu, skip, pool_out):
@@ -64,6 +125,7 @@ def fused_block_conv3(
     skip: torch.Tensor | None = None,
     qargs: QArgs | None = None,
     pool_out: bool = False,
+    a_sub: int = 0,
 ) -> torch.Tensor:
     """3×3 'same' conv over (Hb, Wb, C) with fused bias/ReLU/skip; ``w`` is
     (3, 3, C, Co). The kernel takes C a multiple of 16 and Co of 4 (the s2d
@@ -71,11 +133,15 @@ def fused_block_conv3(
     parameters, prepared at load from this ``w`` and ``b``; the int8 body
     reads them in place of ``w`` and ``b`` (C % 64, Co % 8 on the card).
     ``pool_out``: the 2×2 max pool of the result, (Hb/2, Wb/2, Co); Hb and Wb
-    must be even, as in the JAX kernel."""
+    must be even, as in the JAX kernel. ``a_sub``: 0 or the number of
+    s2d-structured blocks along Co (1; 2 for the consolidated input conv):
+    the bf16 float form then skips the weight's structural zeros (see the
+    module docstring)."""
     hb, wb, c = x.shape
     co = w.shape[-1]
     dt = native.element_type("block_conv3 x", x)
     native.check_params("block_conv3", dt, [w], [b])
+    check_a_sub("block_conv3", a_sub, c, co)
     if pool_out and (hb % 2 or wb % 2):
         raise ValueError(f"pool_out needs even input dims, got {hb}x{wb}")
     tensors = (x, w, b) if skip is None else (x, w, b, skip)
@@ -89,6 +155,9 @@ def fused_block_conv3(
     if c % 16 or co % 4 or (qargs is not None and (c % 64 or co % 8)):
         raise ValueError(f"block_conv3 needs C % 16 == 0 and Co % 4 == 0 (int8: C % 64 and Co % 8), "
                          f"got C={c} Co={co}")
+    table, per_group = None, 0
+    if dt == torch.bfloat16 and qargs is None and not pool_out:
+        table, per_group = sm90_table("block_conv3", 1, a_sub, c, co, c)
     native.check_cuda("block_conv3 x", x, dt)
     native.check_cuda("block_conv3 w", w, dt, (3, 3, c, co))
     native.check_cuda("block_conv3 b", b, torch.float32, (co,))
@@ -103,7 +172,7 @@ def fused_block_conv3(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), native.quant_params(qargs),
         None if skip is None else skip.data_ptr(), out.data_ptr(),
         None if codes is None else codes.data_ptr(),
-        hb, wb, c, co, int(relu), int(pool_out), native.stream_of(x),
+        hb, wb, c, co, int(relu), int(pool_out), a_sub, table, per_group, native.stream_of(x),
         counter=counter,
     )
     return out

@@ -34,6 +34,7 @@ import torch
 
 from hdrtv_tpu_torch.models.layers import conv_nhwc, leaky_relu
 from hdrtv_tpu_torch.ops import native
+from hdrtv_tpu_torch.ops.conv_kernels import check_a_sub, sm90_table
 from hdrtv_tpu_torch.ops.w8a8 import QArgs, _dense_q, _taps_conv_q, check_qargs
 
 _ACTS = {None: 0, "relu": 1, "lrelu": 2}
@@ -485,8 +486,10 @@ def fused_down2(
 ) -> torch.Tensor:
     """Stride-2 3×3 block conv, (1,0) pad: (Hb,Wb,C) → (Hb/2,Wb/2,Co).
 
-    ``w``: (3,3,C,Co), the s2d-transformed stride-2 weight (the kernel is
-    dense, so any weight gives the conv's result). ``act``: None | 'relu' |
+    ``w``: (3,3,C,Co), the s2d-transformed stride-2 weight: ``a_sub``
+    (≥ 1) blocks of ``w_s2d_s2`` side by side along Co, whose structural
+    zeros the bf16 float form skips (``ops/conv_kernels.py``); ``a_sub`` = 0
+    runs the dense product, right for any weight. ``act``: None | 'relu' |
     'lrelu'. ``cin``/``ch0``: read the ``[ch0:ch0+cin]`` channel window of a
     wider ``x`` in place (``ch0`` a multiple of ``cin``, as in the JAX
     contract); the plain version slices. ``qargs``: the int8 body, one
@@ -494,7 +497,7 @@ def fused_down2(
     conv (``a_sub`` of them, each for its Co/a_sub output channels, a
     multiple of 128 on the card), prepared at load from this ``w`` and
     ``b``; on the card the window takes C % 64. ``a_sub``: the consolidated
-    sub-blocks, which the dense kernel needs only to check the branches.
+    sub-blocks (3 for the CondNet down convs), also the int8 branches' count.
     """
     hb, wb, cf = x.shape
     c = _window("down2", cf, cin, ch0)
@@ -503,6 +506,7 @@ def fused_down2(
     co = w.shape[-1]
     dt = native.element_type("down2 x", x)
     native.check_params("down2", dt, [w], [b])
+    check_a_sub("down2", a_sub, c, co)
     cpu = native.on_cpu(x, w, b)
     branches = None if qargs is None else ([qargs] if isinstance(qargs, QArgs) else list(qargs))
     if branches is not None:
@@ -523,6 +527,9 @@ def fused_down2(
                                  (len(branches) > 1 and (co // len(branches)) % 128)):
         raise ValueError(f"down2 int8 needs cin % 64, Co % 8 and branches of 128-multiples (at most 4), "
                          f"got {c}, {co}, {len(branches)} branches")
+    table, per_group = None, 0
+    if dt == torch.bfloat16 and branches is None:
+        table, per_group = sm90_table("down2", 2, a_sub, c, co, cf, ch0)
     native.check_cuda("down2 x", x, dt)
     native.check_cuda("down2 w", w, dt, (3, 3, c, co))
     native.check_cuda("down2 b", b, torch.float32, (co,))
@@ -536,7 +543,7 @@ def fused_down2(
         "down2", dt,
         x.data_ptr(), w.data_ptr(), b.data_ptr(), qp, 0 if branches is None else len(branches),
         out.data_ptr(), None if codes is None else codes.data_ptr(),
-        hb, wb, cf, ch0, c, co, _ACTS[act], native.stream_of(x),
+        hb, wb, cf, ch0, c, co, _ACTS[act], a_sub, table, per_group, native.stream_of(x),
         counter=None if branches is None else "down2_w8a8",
     )
     return out

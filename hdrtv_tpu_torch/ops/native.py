@@ -130,8 +130,8 @@ def lib() -> ctypes.CDLL:
     q = ctypes.POINTER(QuantParams)
     per_dtype = {
         "hdrtv_pack_rgb48": ([p, p, ll, p], i),
-        "hdrtv_block_conv3": ([p, p, p, q, p, p, p, i, i, i, i, i, i, p], i),
-        "hdrtv_down2": ([p, p, p, q, i, p, p, i, i, i, i, i, i, i, p], i),
+        "hdrtv_block_conv3": ([p, p, p, q, p, p, p, i, i, i, i, i, i, i, p, i, p], i),
+        "hdrtv_down2": ([p, p, p, q, i, p, p, i, i, i, i, i, i, i, i, p, i, p], i),
         "hdrtv_trunk3": ([p, p, p, p, p, i, i, i, i, i, p], i),
         "hdrtv_sft_conv3": ([p, p, p, p, p, q, p, p, p, i, i, i, i, i, i, p], i),
         "hdrtv_resblock": ([p, p, p, p, p, q, p, p, p, q, p, i, p, p, p, p, i, i, i, i, p], i),

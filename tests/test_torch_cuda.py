@@ -147,34 +147,73 @@ def test_trunk3_matches_plain(dev, dtype):
     assert torch.equal(fused_trunk3(fea3, cond4, blocks, w_up, b_up, packed=packed), y)
 
 
-@pytest.mark.parametrize("hb,wb,c,co,relu,skip", [(12, 20, 128, 128, True, False), (9, 14, 128, 512, False, False),
-                                               (9, 14, 128, 128, False, True)])
-def test_block_conv3_bf16_matches_plain(dev, hb, wb, c, co, relu, skip):
+def _s2d_weight(rng, tf, c, co, a_sub):
+    """``a_sub`` s2d blocks (``tf`` of natural (c/4, co/(4·a_sub)) weights)
+    side by side along Co; for a_sub = 0 a dense weight with no zeros, which
+    only the dense product computes right."""
+    if not a_sub:
+        return rng.randn(3, 3, c, co).astype(np.float32) * 0.05 / 3
+    return np.concatenate([tf(rng.randn(3, 3, c // 4, co // (4 * a_sub)).astype(np.float32) * 0.05)
+                           for _ in range(a_sub)], axis=-1)
+
+
+# The bf16 float form runs on the Hopper tile (csrc/conv3x3_sm90.cuh): dense
+# (a_sub 0, here on s2d and on dense weights), and skipping the s2d zeros
+# (a_sub 1, 2) with output sub-positions of 32, 64 and 128 channels (N tiles
+# of 32, 64, 128), 64-channel slots, and pixel counts off the 128/256 tile.
+@pytest.mark.parametrize("hb,wb,c,co,relu,skip,a_sub,weight", [
+    (12, 20, 128, 128, True, False, 0, "s2d"), (9, 14, 128, 512, False, False, 0, "s2d"),
+    (9, 14, 128, 128, False, True, 0, "s2d"), (7, 9, 128, 384, True, False, 0, "dense"),
+    (12, 20, 128, 128, True, False, 1, "s2d"), (13, 21, 256, 256, False, True, 1, "s2d"),
+    (9, 14, 128, 512, True, False, 1, "s2d"), (10, 12, 128, 512, False, False, 2, "s2d"),
+])
+def test_block_conv3_bf16_matches_plain(dev, hb, wb, c, co, relu, skip, a_sub, weight):
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_ref
 
     rng = np.random.RandomState(hb * wb + co + 1)
     x = _t(rng.rand(hb, wb, c) - 0.3, dev, "bf16")
-    w = _t(w_s2d_s1(rng.randn(3, 3, c // 4, co // 4).astype(np.float32) * 0.05), dev, "bf16")
+    w = _t(_s2d_weight(rng, w_s2d_s1, c, co, a_sub) if weight == "dense" or a_sub else
+           w_s2d_s1(rng.randn(3, 3, c // 4, co // 4).astype(np.float32) * 0.05), dev, "bf16")
     b = _t(rng.randn(co) * 0.1, dev)
     sk = _t(rng.rand(hb, wb, co), dev, "bf16") if skip else None
-    _close(fused_block_conv3(x, w, b, relu=relu, skip=sk),
-           fused_block_conv3_ref(x, w, b, relu=relu, skip=sk), "bf16")
+    before = native.launch_counts["block_conv3"]
+    y = fused_block_conv3(x, w, b, relu=relu, skip=sk, a_sub=a_sub)
+    assert native.launch_counts["block_conv3"] == before + 1
+    _close(y, fused_block_conv3_ref(x, w, b, relu=relu, skip=sk), "bf16")
 
 
-@pytest.mark.parametrize("hb,wb,cf,cin,ch0,co,act", [
-    (12, 20, 128, None, 0, 128, "relu"),
-    (8, 12, 768, 256, 256, 256, "lrelu"),
+@pytest.mark.parametrize("hb,wb,cf,cin,ch0,co,act,a_sub,weight", [
+    (12, 20, 128, None, 0, 128, "relu", 1, "s2d"), (8, 12, 768, 256, 256, 256, "lrelu", 1, "s2d"),
+    (10, 14, 256, None, 0, 768, "lrelu", 3, "s2d"), (14, 26, 128, None, 0, 512, None, 1, "s2d"),
+    (12, 20, 256, None, 0, 384, "relu", 0, "dense"), (6, 10, 768, 256, 512, 256, None, 0, "s2d"),
 ])
-def test_down2_bf16_matches_plain(dev, hb, wb, cf, cin, ch0, co, act):
+def test_down2_bf16_matches_plain(dev, hb, wb, cf, cin, ch0, co, act, a_sub, weight):
     from hdrtv_tpu_torch.ops.megakernel import fused_down2, fused_down2_ref
 
     rng = np.random.RandomState(hb + wb + cf + ch0 + 1)
     c = cin or cf
     x = _t(rng.rand(hb, wb, cf), dev, "bf16")
-    w = _t(w_s2d_s2(rng.randn(3, 3, c // 4, co // 4).astype(np.float32) * 0.05), dev, "bf16")
+    w = _t(_s2d_weight(rng, w_s2d_s2, c, co, a_sub) if weight == "dense" or a_sub else
+           w_s2d_s2(rng.randn(3, 3, c // 4, co // 4).astype(np.float32) * 0.05), dev, "bf16")
     b = _t(rng.randn(co) * 0.1, dev)
-    _close(fused_down2(x, w, b, act=act, cin=cin, ch0=ch0),
+    _close(fused_down2(x, w, b, act=act, cin=cin, ch0=ch0, a_sub=a_sub),
            fused_down2_ref(x[..., ch0 : ch0 + c], w, b, act=act), "bf16")
+
+
+def test_sm90_refusals_raise(dev):
+    """With a_sub ≥ 1 a shape the Hopper tile refuses raises on the card;
+    nothing falls back to the dense tile."""
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
+    from hdrtv_tpu_torch.ops.megakernel import fused_down2
+
+    bf = torch.bfloat16
+    x = torch.zeros(4, 4, 64, device=dev, dtype=bf)  # 16-channel slots
+    with pytest.raises(ValueError, match="Hopper tile"):
+        fused_block_conv3(x, torch.zeros(3, 3, 64, 128, device=dev, dtype=bf), torch.zeros(128, device=dev),
+                          a_sub=1)
+    x = torch.zeros(4, 4, 128, device=dev, dtype=bf)  # 16-channel output sub-positions
+    with pytest.raises(ValueError, match="Hopper tile"):
+        fused_down2(x, torch.zeros(3, 3, 128, 64, device=dev, dtype=bf), torch.zeros(64, device=dev), a_sub=1)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

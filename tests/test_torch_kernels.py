@@ -50,12 +50,13 @@ def _sft4(rng, cc, c, dtype="f32", scale=0.05):
     return [(w[0], b[0]) for w, b in pairs], [(w[1], b[1]) for w, b in pairs]
 
 
-@pytest.mark.parametrize("c,co,relu,skip,transformed", [
-    (128, 128, True, False, False),
-    (128, 128, False, True, False),
-    (128, 512, True, False, True),
-], ids=["relu", "skip", "co512-a_sub"])
-def test_block_conv3_plain_matches_pallas(c, co, relu, skip, transformed):
+@pytest.mark.parametrize("c,co,relu,skip,transformed,port_a_sub", [
+    (128, 128, True, False, False, 0),
+    (128, 128, False, True, False, 0),
+    (128, 512, True, False, True, 0),
+    (128, 512, False, True, True, 1),
+], ids=["relu", "skip", "co512-a_sub", "co512-a_sub-port"])
+def test_block_conv3_plain_matches_pallas(c, co, relu, skip, transformed, port_a_sub):
     from hdrtv_tpu.ops.conv_kernels import fused_block_conv3 as jax_conv
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
 
@@ -71,7 +72,7 @@ def test_block_conv3_plain_matches_pallas(c, co, relu, skip, transformed):
     sj, st = _both(rng.rand(hb, wb, co)) if skip else (None, None)
     with pltpu.force_tpu_interpret_mode():
         want = jax_conv(xj, wj, bj, relu=relu, skip=sj, a_sub=1 if transformed else 0)
-    got = fused_block_conv3(xt, wt, bt, relu=relu, skip=st)
+    got = fused_block_conv3(xt, wt, bt, relu=relu, skip=st, a_sub=port_a_sub)
     np.testing.assert_allclose(got.numpy(), np.asarray(want, f32), atol=3e-5)
 
 
