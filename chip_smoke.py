@@ -14,11 +14,15 @@ lines; any failed check raises and the script exits non-zero with no result:
    programs and of the HG composite, TF32 off; the kernels only the bf16
    programs run are also held in fp32 at the same shapes. block_conv3 and down2 run with the
    a_sub their callers pass (conv_s1: 1; conv_s2: 3 for the consolidated CondNet down conv, 1
-   elsewhere), with which their bf16 float forms skip the s2d weights' structural zeros on the
-   Hopper tile (csrc/conv3x3_sm90.cuh), and once more each in bf16 with a_sub = 0 (the dense
-   product, on the same tile) at up_conv3's and __cond_down's shape, cases no path launches;
-   every case line gives TFLOP/s on the non-zero FLOPs. Tolerances. fp32: 1e-4 absolute (5e-4 for
-   trunk3's 9-conv chain): the same fp32 products summed in another order.
+   elsewhere), with which their float forms skip the s2d weights' structural zeros: bf16 on the
+   Hopper tile (csrc/conv3x3_sm90.cuh), fp32 on its 3×TF32 sibling (csrc/conv3x3_tf32x3.cuh),
+   whose bound is taken at a third of the TF32 rate ("tf32x3"), with the FMA-rate bound beside
+   it (bound_fma_ms), and its error and the plain version's against the same conv in float64
+   (vs_fp64: mean and mean |error|; information, not a check); and once more each with a_sub = 0 (the dense product: bf16 on the same
+   tile, fp32 on the FMA tile of csrc/conv3x3.cuh) at up_conv3's and __cond_down's shape, cases
+   no path launches; every case line gives TFLOP/s on the non-zero FLOPs. Tolerances. fp32:
+   1e-4 absolute (5e-4 for trunk3's 9-conv chain): the same fp32 products summed in another
+   order (on the 3×TF32 tile each product's operands kept to 2^-22 by the split).
    bf16: the same exact products summed in fp32 in another order and rounded
    at the same places, so a result moves by one bf16 step where a rounding
    flips: |err| ≤ 2^-7·max(1, |y|) for block_conv3, down2, sft_conv3,
@@ -159,8 +163,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "weights", "hr_fp32.npz")
 INT8_WEIGHTS = os.path.join(ROOT, "tests", "fixtures", "hr_w8a8.npz")  # W8A8 PTQ of WEIGHTS (test_torch_int8.py)
 HBM_BPS = 3.35e12  # H100 SXM device memory rate
-# H100 SXM: fp32 FMA units, bf16 tensor cores, int8 tensor cores (dense)
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# H100 SXM: fp32 FMA units, bf16 tensor cores, int8 tensor cores (dense); and the fp32
+# products of the 3×TF32 tile (csrc/conv3x3_tf32x3.cuh): each one three TF32 products
+# on the tensor cores (big·big + small·big + big·small), a third of the dense TF32 rate.
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12, "tf32x3": 494.7e12 / 3}
 ATOL = 1e-4
 TAIL_BF16_SHARE = 0.016  # see the docstring, phase 2
 HG_TAIL_BF16_SHARE = 0.01
@@ -386,7 +392,7 @@ def conv_macs(w, h_out: int, w_out: int, stride: int) -> int:
 
 def bound(nbytes: float, flops: float, rate: str) -> tuple[float, str]:
     """Least time in ms for the bytes at HBM_BPS and the operations at the
-    peak rate ``rate`` ("f32", "bf16" or "int8"), and which of the two."""
+    peak rate ``rate`` (a key of PEAK_FLOPS), and which of the two."""
     t_b, t_o = nbytes / HBM_BPS, flops / PEAK_FLOPS[rate]
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
@@ -454,14 +460,14 @@ def phase_kernels(torch, np) -> dict:
         return own or {p: k for p, k in per_path.items() if k and PATH_DTYPE[p] == "bf16"}
 
     def record(kernel, dtype, case, per_path, y, y_ref, tol, ms, plain_ms, lib_ms, nbytes, flops,
-               unit="abs", share=None, rate=None):
+               unit="abs", share=None, rate=None, extra=None):
         """``unit``: what ``tol`` bounds. "abs": the absolute error (fp32,
         and u16 codes); "steps": bf16 steps of the result; "flips": the
         absolute error of an int8 body, ``tol`` being what its flipped codes
         can move an output by, plus in bf16 one step of its rounding.
         ``share``: at most this share of the values may differ at all.
         ``rate``: the peak rate of the bound's operations (default: the
-        element type's)."""
+        element type's). ``extra``: more fields for the case's line."""
         torch.cuda.synchronize()
         e = (y.float() - y_ref.float()).abs()
         err = float(e.max())
@@ -479,6 +485,8 @@ def phase_kernels(torch, np) -> dict:
             ok, what = False, f"{differ:.3e} of the values differ > {share}"
         rate = rate or dtype
         b_ms, b_by = bound(nbytes, flops, rate)
+        # the 3×TF32 tile's fp32 products: the FMA units' bound beside the tensor cores'
+        fma_ms = bound(nbytes, flops, "f32")[0] if rate == "tf32x3" else None
         log(json.dumps({
             "kernel": kernel, "dtype": dtype, "case": case, "per_frame": runs(dtype, per_path),
             "max_abs_err": err, "bf16_steps": None if steps is None else round(steps, 3),
@@ -486,8 +494,9 @@ def phase_kernels(torch, np) -> dict:
             "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
             "library_ms": None if lib_ms is None else round(lib_ms, 4),
             "bound_ms": round(b_ms, 4), "bound_by": b_by, "rate": rate, "gflop": round(flops / 1e9, 3),
+            **({} if fma_ms is None else {"bound_fma_ms": round(fma_ms, 4)}),
             "tflops": round(flops / ms / 1e9, 1),
-            "mbytes": round(nbytes / 1e6, 3),
+            "mbytes": round(nbytes / 1e6, 3), **(extra or {}),
         }))
         if not ok:
             raise AssertionError(f"{kernel} {dtype} {case}: {what}")
@@ -499,6 +508,8 @@ def phase_kernels(torch, np) -> dict:
             tot["ms"] += n * ms
             tot["plain_ms"] += n * plain_ms
             tot["bound_ms"] += n * b_ms
+            if fma_ms is not None:
+                tot["bound_fma_ms"] = tot.get("bound_fma_ms", 0.0) + n * fma_ms
             tot["bytes"] += n * nbytes
             tot["flops"] += n * flops
             if lib_ms is None:
@@ -536,6 +547,19 @@ def phase_kernels(torch, np) -> dict:
         def sft_flops(npix, sft):
             return 2 * npix * nnz(*[w for w, _ in sft])
 
+        def vs_fp64(y, y_r, y64):
+            """The fp32 3×TF32 tile's and the plain version's error against the
+            same conv in float64: mean (a drift of the sums toward zero shows
+            here) and mean |error|. Information, not a check."""
+            out = {}
+            for who, v in (("kernel", y), ("plain", y_r)):
+                e = v.double() - y64
+                out[who] = {"mean": float(e.mean()), "mean_abs": float(e.abs().mean())}
+            return {"vs_fp64": out}
+
+        def act64(y, act):
+            return F.relu(y) if act == "relu" else F.leaky_relu(y, 0.1) if act == "lrelu" else y
+
         # block_conv3: (name, hb, wb, natural ci, natural co, PS-folded, relu, skip,
         #               launches per frame on (fp32, bf16_nomega, bf16_mega))
         for name, hb, wb, ci, co, ps, relu, skip, per_path in (
@@ -556,7 +580,7 @@ def phase_kernels(torch, np) -> dict:
             b = f32(rng.randn(cout) * 0.1)
             sk = t(rng.rand(hb, wb, cout)) if skip else None
             # a_sub as conv_s1 passes it (the weight is s2d-structured); once more dense
-            for a_sub in (1, 0) if dtype == "bf16" and name == "L1 up_conv3" else (1,):
+            for a_sub in (1, 0) if name == "L1 up_conv3" else (1,):
                 y = fused_block_conv3(x, w, b, relu=relu, skip=sk, a_sub=a_sub)
                 y_r = fused_block_conv3_ref(x, w, b, relu=relu, skip=sk)
                 ms = time_ms(lambda: fused_block_conv3(x, w, b, relu=relu, skip=sk, a_sub=a_sub), torch)
@@ -565,9 +589,16 @@ def phase_kernels(torch, np) -> dict:
                 w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                 b_lib = b.to(dt)
                 lib = time_ms(lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1), torch)
+                extra = None
+                if dtype == "f32" and a_sub:
+                    y64 = F.conv2d(x_nchw.double(), w_oihw.double(), b.double(), padding=1)[0].permute(1, 2, 0)
+                    y64 = act64(y64 if sk is None else y64 + sk.double(), "relu" if relu else None)
+                    extra = vs_fp64(y, y_r, y64)
+                    del y64
                 record("block_conv3", dtype, f"{name} a_sub={a_sub}", per_path if a_sub else (0, 0, 0), y, y_r,
                        ATOL if dtype == "f32" else 1, ms, plain, lib, nbytes_of(x, w, b, y, sk),
-                       2 * conv_macs(w, hb, wb, 1), unit)
+                       2 * conv_macs(w, hb, wb, 1), unit, rate="tf32x3" if dtype == "f32" and a_sub else None,
+                       extra=extra)
             del x, y, y_r, sk
 
         # down2: (name, hb, wb, cf, cin, ch0, natural co per branch, branches = a_sub, act); once
@@ -594,12 +625,18 @@ def phase_kernels(torch, np) -> dict:
             b_lib = b.to(dt)
             lib = time_ms(lambda: F.conv2d(x_pad, w_oihw, b_lib, stride=2), torch)
             # a_sub as conv_s2 passes it; once more dense
-            for a_sub in (nbr, 0) if dtype == "bf16" and name == "LE.__cond_down" else (nbr,):
+            for a_sub in (nbr, 0) if name == "LE.__cond_down" else (nbr,):
                 y = fused_down2(x, w, b, act=act, cin=cin, ch0=ch0, a_sub=a_sub)
                 ms = time_ms(lambda: fused_down2(x, w, b, act=act, cin=cin, ch0=ch0, a_sub=a_sub), torch)
+                extra = None
+                if dtype == "f32" and a_sub:
+                    y64 = F.conv2d(x_pad.double(), w_oihw.double(), b.double(), stride=2)[0].permute(1, 2, 0)
+                    extra = vs_fp64(y, y_r, act64(y64, act))
+                    del y64
                 record("down2", dtype, f"{name} a_sub={a_sub}", (1, 1, 1) if a_sub else (0, 0, 0), y, y_r,
                        ATOL if dtype == "f32" else 1, ms, plain, lib, size * hb * wb * c + nbytes_of(w, b, y),
-                       2 * conv_macs(w, hb // 2, wb // 2, 2), unit)
+                       2 * conv_macs(w, hb // 2, wb // 2, 2), unit,
+                       rate="tf32x3" if dtype == "f32" and a_sub else None, extra=extra)
             del x, y, y_r, xw, x_pad
 
         # sft_conv3: x (hb,wb,128), cond (hb,wb,64); on the bf16 frame programs only (the
@@ -1633,6 +1670,8 @@ def main() -> int:
         e = {"max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
              "bound_ms": tot["bound_ms"], "bound_by": b_by,
              "library_ms": tot["library_ms"] if tot["lib_all"] else None}
+        if "bound_fma_ms" in tot:  # the 3×TF32 tile: the FMA units' bound beside it
+            e["bound_fma_ms"] = tot["bound_fma_ms"]
         if "torch_seq_ms" in tot:  # the probes: the torch-op sequence of the same function
             e["torch_seq_ms"] = tot["torch_seq_ms"]
         return e

@@ -15,11 +15,15 @@
 // the tile back is its epilogue's stores (tools/sm90_phases.py). Times:
 // PERF.md §6.
 //
-// The fp32 instance runs the implicit-GEMM tile of conv3x3.cuh (128 pixels ×
-// 128 channels per block, fp32 accumulation in registers, 16 KB shared
-// memory), dense: bound by operations (38–153 GFLOP dense a call at 1080p,
-// the H100's 67 TFLOP/s fp32 FMA rate), as is the bf16 pool_out form's
-// tensor-core tile (conv3x3_mma_kernel), both later work (ROADMAP "Left").
+// The fp32 float form with a_sub ≥ 1 (the fp32 programs' twelve calls) runs
+// the 3×TF32 sibling of that tile (conv3x3_tf32x3.cuh): the same table and
+// TMA boxes in fp32, products split into big·big + small·big + big·small on
+// the tensor cores. Bound on this card: operations (171 GFLOP of non-zero
+// products a 1080p frame, ×3 at the 494.7 TFLOP/s TF32 rate, 1.04 ms). The
+// dense fp32 product (a_sub = 0) and the pool_out form run the
+// implicit-GEMM tile of conv3x3.cuh (128 pixels × 128 channels per block,
+// fp32 FMA), the bf16 pool_out form the tensor-core tile
+// conv3x3_mma_kernel (ROADMAP "Left").
 //
 // The native-int8 (W8A8) body of the same Pallas kernel (`quant`,
 // conv_kernels.py:180-227; the wrapper counts it as block_conv3_w8a8), when
@@ -42,7 +46,7 @@
 // one thread's registers (FMA) or in four lanes of one warp (MMA), and the
 // max is a register or shuffle reduction. H and W must be even.
 #include "conv3x3_s8.cuh"
-#include "conv3x3_sm90.cuh"
+#include "conv3x3_tf32x3.cuh"
 
 namespace {
 
@@ -53,13 +57,14 @@ int block_conv3(const void* x, const void* w, const void* b, const hdrtv::QuantP
   if (pool && (H % 2 || W % 2)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (table) {
-    if constexpr (std::is_same<T, hdrtv::bf16>::value) {
-      if (!q && !pool)
-        return static_cast<int>(hdrtv::conv3x3_sm90<1>(x, w, static_cast<const float*>(b), skip, y, H, W, C,
-                                                       0, C, Co, relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE,
-                                                       a_sub, table, per_list, s));
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (q || pool) return static_cast<int>(cudaErrorInvalidValue);
+    const int act = relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE;
+    if constexpr (std::is_same<T, hdrtv::bf16>::value)
+      return static_cast<int>(hdrtv::conv3x3_sm90<1>(x, w, static_cast<const float*>(b), skip, y, H, W, C, 0, C,
+                                                     Co, act, a_sub, table, per_list, s));
+    else
+      return static_cast<int>(hdrtv::conv3x3_tf32x3<1>(x, w, static_cast<const float*>(b), skip, y, H, W, C, 0,
+                                                       C, Co, act, a_sub, table, per_list, s));
   }
   cudaError_t err = cudaSuccess;
   if (q) err = hdrtv::quantize<T>(x, codes, static_cast<long long>(H) * W * C, *q, s);
@@ -73,9 +78,10 @@ int block_conv3(const void* x, const void* w, const void* b, const hdrtv::QuantP
 
 // q: null for the float form, else the layer's int8 parameters (w and b
 // unused; codes: H·W·C bytes of scratch, unused without q). pool: 1 for the
-// pool_out form, y (H/2, W/2, Co). table: null, or (the bf16 float form
-// without pool only) the chunk lists of conv3x3_sm90.cuh for a_sub, per_list
-// entries each, which send the call to the Hopper tile.
+// pool_out form, y (H/2, W/2, Co). table: null, or (the float form without
+// pool only) the chunk lists of conv3x3_sm90.cuh for a_sub, per_list entries
+// each, which send the call to the Hopper tile (bf16) or its 3×TF32 sibling
+// (fp32).
 extern "C" int hdrtv_block_conv3_f32(const void* x, const void* w, const void* b, const void* q,
                                      const void* skip, void* y, void* codes, int H, int W, int C,
                                      int Co, int relu, int pool, int a_sub, const int* table,

@@ -1,10 +1,11 @@
 // Direct 3×3 convolution over NHWC as an implicit GEMM, on the fp32 FMA units
 // (conv3x3_kernel, any element types) or on the tensor cores
 // (conv3x3_mma_kernel below, bf16 inputs and weights): the core shared by
-// block_conv3.cu (stride 1, 'same'; its fp32 and pool_out forms), down2.cu
-// (stride 2, pad (1,0); its fp32 form) and the per-conv steps of
-// sft_conv3.cu, resblock.cu and trunk3.cu. The bf16 float forms of
-// block_conv3 and down2 run conv3x3_sm90.cuh's tile.
+// block_conv3.cu (stride 1, 'same'; its dense fp32 and pool_out forms),
+// down2.cu (stride 2, pad (1,0); its dense fp32 form) and the per-conv steps
+// of sft_conv3.cu, resblock.cu and trunk3.cu. The float forms of block_conv3
+// and down2 with a_sub ≥ 1 run conv3x3_sm90.cuh's tile (bf16) and its 3×TF32
+// sibling conv3x3_tf32x3.cuh (fp32).
 //
 // Element types: the input is TX, the weight TW, the output and the residuals
 // TY, each float or bf16. In the FMA tile every product is taken on operands

@@ -2,7 +2,9 @@
 // wgmma, fed by TMA through a ring of stages, whose K walk is a table of
 // chunks. It runs the bf16 float forms of block_conv3 (stride 1, 'same') and
 // down2 (stride 2, pad (1,0), a channel window of a wider input read in
-// place); the other forms and kernels keep conv3x3.cuh's tiles.
+// place); their fp32 float forms run its 3×TF32 sibling (conv3x3_tf32x3.cuh),
+// which shares the table, the arguments and the TMA map built here; the
+// other forms and kernels keep conv3x3.cuh's tiles.
 //
 // Why a table. Every weight these two kernels get on the frame programs is an
 // s2d transform (models/s2d.py w_s2d_s1, its PS fold, w_s2d_s2, or a_sub of
@@ -60,14 +62,15 @@
 //
 // Requirements (ops/conv_kernels.py sm90_table checks them; the launcher
 // returns an error otherwise): a slot of a multiple of 32 channels (C/4 with
-// a_sub, C dense), BN | co_nat, cf and ch0 multiples of 8, 16-byte aligned
-// tensors, 9·C/32 ≤ kSm90MaxChunks.
+// a_sub, C dense), BN | co_nat, cf and ch0 whole 16-byte groups (multiples
+// of 8 bf16 values), 16-byte aligned tensors, 9·C/32 ≤ kSm90MaxChunks.
 #pragma once
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "conv3x3.cuh"
 
@@ -80,12 +83,15 @@ constexpr int kSm90Threads = 256;      // two warpgroups
 constexpr int kSm90Smem = 113 * 1024;  // dynamic shared memory of a block: two blocks per SM
 constexpr int kSm90TW = 64;            // output pixels of a tile row: one m64 wgmma tile
 
+// The launch's arguments, T the element type (bf16 here, float for the
+// 3×TF32 tile).
+template <typename T>
 struct Sm90Args {
-  CUtensorMap tmap;   // x as (H, W, cf), box (32 channels, 64·S columns, BH·S rows), stride S, 64B swizzle
-  const bf16* w;      // (3, 3, C, Co)
+  CUtensorMap tmap;   // x as (H, W, cf), box (32 channels, 64·S columns, BH·S rows), stride S, swizzled
+  const T* w;         // (3, 3, C, Co)
   const float* b;     // (Co)
-  const bf16* skip;   // (Ho, Wo, Co) or nullptr
-  bf16* y;            // (Ho, Wo, Co)
+  const T* skip;      // (Ho, Wo, Co) or nullptr
+  T* y;               // (Ho, Wo, Co)
   int Ho, Wo;
   int ch0, C, Co;
   int act;
@@ -241,7 +247,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 template <int BN, int S, bool RES>
-__global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_sm90_kernel(const __grid_constant__ Sm90Args a) {
+__global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_sm90_kernel(const __grid_constant__ Sm90Args<bf16> a) {
   using Cfg = Sm90Cfg<BN, RES>;
   constexpr int MT = Cfg::MT, BH = Cfg::BH, NS = Cfg::NS, D = NS - 2;
   extern __shared__ unsigned char smem_raw[];
@@ -470,61 +476,77 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
+// x's TMA map for a tile of BH output rows: (cf, W, H) innermost first; the
+// box reads 32 channels of 64 output columns × BH output rows of one tap,
+// every S-th input pixel, and writes them with the swizzle whose span is one
+// 32-channel row (64 bytes of bf16, 128 of fp32), as the tile's descriptors
+// read it.
+template <typename T>
+cudaError_t encode_a_map(CUtensorMap* map, const void* x, int H, int W, int cf, int S, int BH) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cf), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cf) * sizeof(T), static_cast<cuuint64_t>(W) * cf * sizeof(T)};
+  const cuuint32_t box[3] = {kSm90BK, static_cast<cuuint32_t>(kSm90TW * S), static_cast<cuuint32_t>(BH * S)};
+  const cuuint32_t estr[3] = {1, static_cast<cuuint32_t>(S), static_cast<cuuint32_t>(S)};
+  if (encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             f32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// How many blocks of `kernel` the card holds at once (block size 256,
+// `smem` bytes of dynamic shared memory, which it also allows the kernel).
+template <typename K>
+cudaError_t resident_blocks(K kernel, int smem, int* resident) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSm90Threads, smem);
+  if (err == cudaSuccess) *resident = std::max(per_sm, 1) * sms;
+  return err;
+}
+
+// Persistent blocks: as many as the card holds, a whole number per N tile.
+inline int sm90_grid(int Ho, int Wo, int Co, int BN, int BH, int resident) {
+  const int groups = Co / BN;
+  const int tiles = ((Ho + BH - 1) / BH) * ((Wo + kSm90TW - 1) / kSm90TW);
+  return groups * std::max(1, std::min(tiles, resident / groups));
+}
+
 template <int BN, int S, bool RES>
-cudaError_t launch_sm90(Sm90Args& a, const void* x, int H, int W, int cf, cudaStream_t stream) {
+cudaError_t launch_sm90(Sm90Args<bf16>& a, const void* x, int H, int W, int cf, cudaStream_t stream) {
   using Cfg = Sm90Cfg<BN, RES>;
   auto kernel = conv3x3_sm90_kernel<BN, S, RES>;
-  // Once per instantiation: the shared-memory ceiling, and how many blocks
-  // the card holds at once.
-  static int resident = 0;
+  static int resident = 0;  // once per instantiation
   if (!resident) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSm90Smem);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSm90Threads, kSm90Smem);
+    const cudaError_t err = resident_blocks(kernel, kSm90Smem, &resident);
     if (err != cudaSuccess) return err;
-    resident = std::max(per_sm, 1) * sms;
   }
   const int smem = Cfg::smem(a.per_list);
   if (smem > kSm90Smem) return cudaErrorInvalidValue;
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (!encode) return cudaErrorNotSupported;
-  // x as (cf, W, H) innermost first; the box reads 32 channels of 64 output
-  // columns × BH output rows of one tap, every S-th input pixel.
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cf), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cf) * 2, static_cast<cuuint64_t>(W) * cf * 2};
-  const cuuint32_t box[3] = {kSm90BK, kSm90TW * S, Cfg::BH * S};
-  const cuuint32_t estr[3] = {1, S, S};
-  if (encode(&a.tmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  // As many blocks as the card holds, a whole number per N tile.
-  const int groups = a.Co / BN;
-  const int tiles = ((a.Ho + Cfg::BH - 1) / Cfg::BH) * ((a.Wo + kSm90TW - 1) / kSm90TW);
-  const int per_group = std::max(1, std::min(tiles, resident / groups));
-  kernel<<<groups * per_group, kSm90Threads, smem, stream>>>(a);
+  const cudaError_t err = encode_a_map<bf16>(&a.tmap, x, H, W, cf, S, Cfg::BH);
+  if (err != cudaSuccess) return err;
+  kernel<<<sm90_grid(a.Ho, a.Wo, a.Co, BN, Cfg::BH, resident), kSm90Threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The bf16 float conv of block_conv3 (S = 1: Ho = H) or down2 (S = 2: Ho =
-// H/2) on the Hopper tile. a_sub: 0 (dense, one list of 9·C/32 chunks) or
-// the s2d blocks along Co (four lists, one per output sub-position);
-// table: the lists back to back, per_list entries each.
-// `args`: where to build the launch's arguments (tools/sm90_phases.cu
-// passes its own, with the timers' array set); by default on the stack.
-template <int S>
-cudaError_t conv3x3_sm90(const void* x, const void* w, const float* b, const void* skip, void* y, int H,
-                         int W, int cf, int ch0, int C, int Co, int act, int a_sub, const int* table,
-                         int per_list, cudaStream_t stream, Sm90Args* args = nullptr) {
-  Sm90Args own;
-  Sm90Args& a = args ? *args : own;
-  a.w = static_cast<const bf16*>(w);
+// The arguments both Hopper tiles take, checked (cudaErrorInvalidValue for
+// a shape they do not take): S the stride (Ho = H/S), a_sub 0 (dense, one
+// list of 9·C/32 chunks) or the s2d blocks along Co (four lists, one per
+// output sub-position), table the lists back to back, per_list entries each;
+// the pixel pitch cf and the window start ch0 whole 16-byte groups.
+template <typename T>
+cudaError_t sm90_setup(Sm90Args<T>& a, const void* w, const float* b, const void* skip, void* y, int H, int W,
+                       int S, int cf, int ch0, int C, int Co, int act, int a_sub, const int* table, int per_list) {
+  a.w = static_cast<const T*>(w);
   a.b = b;
-  a.skip = static_cast<const bf16*>(skip);
-  a.y = static_cast<bf16*>(y);
+  a.skip = static_cast<const T*>(skip);
+  a.y = static_cast<T*>(y);
   a.Ho = H / S;
   a.Wo = W / S;
   a.ch0 = ch0;
@@ -536,11 +558,27 @@ cudaError_t conv3x3_sm90(const void* x, const void* w, const float* b, const voi
   a.co_blk = a_sub ? Co / a_sub : Co;
   a.co_nat = a_sub ? a.co_blk / 4 : Co;
   const int slot = a_sub ? C / 4 : C;
+  constexpr int group = 16 / sizeof(T);
   if (a_sub < 0 || !table || per_list < 1 || a.lists * per_list > kSm90MaxChunks ||
       a.lists * per_list != 9 * C / kSm90BK || slot % kSm90BK || (a_sub && Co % (4 * a_sub)) ||
-      a.co_nat % 32 || cf % 8 || ch0 % 8 || ch0 + C > cf || H % S || W % S)
+      a.co_nat % 32 || cf % group || ch0 % group || ch0 + C > cf || H % S || W % S)
     return cudaErrorInvalidValue;
   for (int i = 0; i < a.lists * per_list; ++i) a.chunk[i] = table[i];
+  return cudaSuccess;
+}
+
+// The bf16 float conv of block_conv3 (S = 1: Ho = H) or down2 (S = 2: Ho =
+// H/2) on the Hopper tile (arguments: sm90_setup).
+// `args`: where to build the launch's arguments (tools/sm90_phases.cu
+// passes its own, with the timers' array set); by default on the stack.
+template <int S>
+cudaError_t conv3x3_sm90(const void* x, const void* w, const float* b, const void* skip, void* y, int H,
+                         int W, int cf, int ch0, int C, int Co, int act, int a_sub, const int* table,
+                         int per_list, cudaStream_t stream, Sm90Args<bf16>* args = nullptr) {
+  Sm90Args<bf16> own;
+  Sm90Args<bf16>& a = args ? *args : own;
+  const cudaError_t err = sm90_setup(a, w, b, skip, y, H, W, S, cf, ch0, C, Co, act, a_sub, table, per_list);
+  if (err != cudaSuccess) return err;
   const int bn = a.co_nat % 128 == 0 ? 128 : a.co_nat % 64 == 0 ? 64 : 32;
   // The weight chunks stay resident where they fit beside the ring.
   const bool res = (bn == 128 ? Sm90Cfg<128, true>::smem(per_list)

@@ -20,8 +20,13 @@
 // (tools/sm90_phases.py).
 // Times: PERF.md §6.
 //
-// The fp32 instance runs the dense implicit-GEMM tile of conv3x3.cuh with
-// stride 2 (bound by operations on the fp32 FMA units; later work).
+// The fp32 float form with a_sub ≥ 1 (the fp32 programs' five calls) runs
+// the 3×TF32 sibling of that tile (conv3x3_tf32x3.cuh): the same table and
+// TMA boxes in fp32, products split into big·big + small·big + big·small on
+// the tensor cores. Bound on this card: operations (146 GFLOP of non-zero
+// products a 1080p frame, ×3 at the 494.7 TFLOP/s TF32 rate, 0.89 ms). The
+// dense fp32 product (a_sub = 0) runs the implicit-GEMM FMA tile of
+// conv3x3.cuh with stride 2.
 //
 // The native-int8 (W8A8) body of the same Pallas kernel (`quant`,
 // megakernel.py:608-705; the wrapper counts it as down2_w8a8), when the call
@@ -40,7 +45,7 @@
 // 0.27 GB in and 0.2 GB out in bf16); the codes' round trip through device
 // memory, 1 byte a value per branch, is this first version's cost.
 #include "conv3x3_s8.cuh"
-#include "conv3x3_sm90.cuh"
+#include "conv3x3_tf32x3.cuh"
 
 namespace {
 
@@ -50,12 +55,13 @@ int down2(const void* x, const void* w, const void* b, const hdrtv::QuantParams*
           int per_list, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (table) {
-    if constexpr (std::is_same<T, hdrtv::bf16>::value) {
-      if (!q)
-        return static_cast<int>(hdrtv::conv3x3_sm90<2>(x, w, static_cast<const float*>(b), nullptr, y, H, W,
-                                                       cf, ch0, cin, Co, act, a_sub, table, per_list, s));
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (q) return static_cast<int>(cudaErrorInvalidValue);
+    if constexpr (std::is_same<T, hdrtv::bf16>::value)
+      return static_cast<int>(hdrtv::conv3x3_sm90<2>(x, w, static_cast<const float*>(b), nullptr, y, H, W, cf,
+                                                     ch0, cin, Co, act, a_sub, table, per_list, s));
+    else
+      return static_cast<int>(hdrtv::conv3x3_tf32x3<2>(x, w, static_cast<const float*>(b), nullptr, y, H, W, cf,
+                                                       ch0, cin, Co, act, a_sub, table, per_list, s));
   }
   if (q) {
     if (nb < 1 || nb > hdrtv::kMaxBranches || Co % nb) return static_cast<int>(cudaErrorInvalidValue);
@@ -106,8 +112,9 @@ int down2(const void* x, const void* w, const void* b, const hdrtv::QuantParams*
 // q: null for the float form, else an array of nb QuantParams, branch bi's
 // layer for output channels [bi·Co/nb, (bi+1)·Co/nb) (w and b unused;
 // codes: nb·H·W·cin bytes of scratch, unused without q). table: null, or
-// (the bf16 float form only) the chunk lists of conv3x3_sm90.cuh for a_sub,
-// per_list entries each, which send the call to the Hopper tile.
+// (the float form only) the chunk lists of conv3x3_sm90.cuh for a_sub,
+// per_list entries each, which send the call to the Hopper tile (bf16) or
+// its 3×TF32 sibling (fp32).
 extern "C" int hdrtv_down2_f32(const void* x, const void* w, const void* b, const void* q, int nb,
                                void* y, void* codes, int H, int W, int cf, int ch0, int cin, int Co,
                                int act, int a_sub, const int* table, int per_list, void* stream) {

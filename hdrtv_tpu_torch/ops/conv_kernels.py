@@ -16,14 +16,17 @@ kernel's epilogue, in any of the three forms, and the output is
 
 ``a_sub`` has the JAX kernel's meaning: ≥ 1 declares the weight
 s2d-structured (``models/s2d.py w_s2d_s1``, its PS fold, or ``a_sub`` such
-blocks side by side along Co), and the bf16 float form then multiplies only
-the 9 non-zero (tap, input sub-position) slots of each output sub-position
-(``models/s2d.py s2d_slots``) on the Hopper tile of
-``csrc/conv3x3_sm90.cuh``: exact, since the skipped products are exact
-zeros. 0 is the dense product, right for any weight. The fp32, int8 and
+blocks side by side along Co), and the float form then multiplies only the 9
+non-zero (tap, input sub-position) slots of each output sub-position
+(``models/s2d.py s2d_slots``): bf16 on the Hopper tile of
+``csrc/conv3x3_sm90.cuh``, fp32 on its 3×TF32 sibling
+``csrc/conv3x3_tf32x3.cuh`` (each product split into three TF32 products on
+the tensor cores, fp32-accurate). Exact, since the skipped products are
+exact zeros. 0 is the dense product, right for any weight: bf16 on the same
+Hopper tile, fp32 on the FMA tile of ``csrc/conv3x3.cuh``. The int8 and
 ``pool_out`` forms stay dense (the same result on such weights), and so do
 the plain versions, which hold the skip to account. :func:`conv_chunks` is
-the K walk the tile takes, shared with ``ops/megakernel.py fused_down2``.
+the K walk the tiles take, shared with ``ops/megakernel.py fused_down2``.
 """
 
 from __future__ import annotations
@@ -38,8 +41,11 @@ from hdrtv_tpu_torch.ops import native
 from hdrtv_tpu_torch.ops.w8a8 import QArgs, _taps_conv_q, check_qargs
 
 
-CHUNK = 32  # input channels of one K chunk of csrc/conv3x3_sm90.cuh (kBK)
-TABLE_MAX = 288  # chunk entries one launch of it takes (kMaxChunks)
+CHUNK = 32  # input channels of one K chunk of csrc/conv3x3_sm90.cuh (kSm90BK)
+TABLE_MAX = 288  # chunk entries one launch of it takes (kSm90MaxChunks)
+# Chunks of one list whose split fp32 weights stay resident in the 3×TF32
+# tile's shared memory (csrc/conv3x3_tf32x3.cuh kTf32MaxList): C ≤ 256 with a_sub.
+TF32X3_LIST_MAX = 18
 
 
 def check_a_sub(name: str, a_sub: int, c: int, co: int) -> None:
@@ -65,25 +71,37 @@ def conv_chunks(stride: int, a_sub: int, c: int) -> list[list[tuple[int, int]]]:
 
 
 @functools.lru_cache(maxsize=64)
-def sm90_table(name: str, stride: int, a_sub: int, c: int, co: int, cf: int, ch0: int = 0):
-    """What a bf16 float call hands the Hopper tile: its chunk table (a
-    ctypes int array, entry tap | c0 << 4, the lists back to back) and the
-    length of one list. The tile takes slots of a multiple of CHUNK channels,
-    N tiles of 32 inside one output sub-position (Co, or Co/(4·a_sub), a
-    multiple of 32), 16-byte aligned pixels and window (pitch ``cf`` and
-    ``ch0`` multiples of 8) and at most TABLE_MAX entries (9·C/CHUNK). A
-    shape it refuses raises for ``a_sub`` ≥ 1 and gives (None, 0) for the
-    dense product, which the mma.sync tile of csrc/conv3x3.cuh then runs.
+def sm90_table(name: str, stride: int, a_sub: int, c: int, co: int, cf: int, ch0: int = 0,
+               dtype: torch.dtype = torch.bfloat16):
+    """What a float call in ``dtype`` hands the Hopper tile (bf16) or its
+    3×TF32 sibling (fp32): the chunk table (a ctypes int array, entry tap |
+    c0 << 4, the lists back to back) and the length of one list. The tiles
+    take slots of a multiple of CHUNK channels, N tiles of 32 inside one
+    output sub-position (Co, or Co/(4·a_sub), a multiple of 32), 16-byte
+    aligned pixels and window (pitch ``cf`` and ``ch0`` whole 16-byte groups:
+    multiples of 8 in bf16, 4 in fp32) and at most TABLE_MAX entries
+    (9·C/CHUNK); the fp32 tile at most TF32X3_LIST_MAX of them a list. A
+    shape a tile refuses raises for ``a_sub`` ≥ 1. The dense product gets
+    (None, 0) where the bf16 tile refuses it, which the mma.sync tile of
+    csrc/conv3x3.cuh then runs, and always in fp32 (the FMA tile there).
     Cached: a frame asks for the same few tables at every call."""
+    f32 = dtype == torch.float32
+    if f32 and not a_sub:
+        return None, 0
     kc, n = (c // 4, co // (4 * a_sub)) if a_sub else (c, co)
-    if kc % CHUNK or n % 32 or cf % 8 or ch0 % 8 or 9 * c // CHUNK > TABLE_MAX:
+    group = 4 if f32 else 8
+    per_list = 9 * kc // CHUNK
+    if (kc % CHUNK or n % 32 or cf % group or ch0 % group or 9 * c // CHUNK > TABLE_MAX
+            or (f32 and per_list > TF32X3_LIST_MAX)):
         if a_sub:
-            raise ValueError(f"{name}: the Hopper tile takes a_sub={a_sub} with C/4 a multiple of {CHUNK}, "
-                             f"C ≤ {TABLE_MAX // 9 * CHUNK}, Co/(4·a_sub) a multiple of 32 and the pixel "
-                             f"pitch and window start multiples of 8, got C={c}, Co={co}, pitch {cf}, ch0={ch0}")
+            tile = "3×TF32 Hopper tile" if f32 else "Hopper tile"
+            most = TF32X3_LIST_MAX * CHUNK * 4 // 9 if f32 else TABLE_MAX // 9 * CHUNK
+            raise ValueError(f"{name}: the {tile} takes a_sub={a_sub} with C/4 a multiple of {CHUNK}, "
+                             f"C ≤ {most}, Co/(4·a_sub) a multiple of 32 and the pixel pitch and window "
+                             f"start multiples of {group}, got C={c}, Co={co}, pitch {cf}, ch0={ch0}")
         return None, 0
     chunks = conv_chunks(stride, a_sub, c)
-    entries = [tap | c0 << 4 for group in chunks for tap, c0 in group]
+    entries = [tap | c0 << 4 for group_ in chunks for tap, c0 in group_]
     return (ctypes.c_int * len(entries))(*entries), len(chunks[0])
 
 
@@ -135,8 +153,8 @@ def fused_block_conv3(
     ``pool_out``: the 2×2 max pool of the result, (Hb/2, Wb/2, Co); Hb and Wb
     must be even, as in the JAX kernel. ``a_sub``: 0 or the number of
     s2d-structured blocks along Co (1; 2 for the consolidated input conv):
-    the bf16 float form then skips the weight's structural zeros (see the
-    module docstring)."""
+    the float form then skips the weight's structural zeros (see the module
+    docstring)."""
     hb, wb, c = x.shape
     co = w.shape[-1]
     dt = native.element_type("block_conv3 x", x)
@@ -156,8 +174,8 @@ def fused_block_conv3(
         raise ValueError(f"block_conv3 needs C % 16 == 0 and Co % 4 == 0 (int8: C % 64 and Co % 8), "
                          f"got C={c} Co={co}")
     table, per_group = None, 0
-    if dt == torch.bfloat16 and qargs is None and not pool_out:
-        table, per_group = sm90_table("block_conv3", 1, a_sub, c, co, c)
+    if qargs is None and not pool_out:
+        table, per_group = sm90_table("block_conv3", 1, a_sub, c, co, c, dtype=dt)
     native.check_cuda("block_conv3 x", x, dt)
     native.check_cuda("block_conv3 w", w, dt, (3, 3, c, co))
     native.check_cuda("block_conv3 b", b, torch.float32, (co,))

@@ -488,7 +488,7 @@ def fused_down2(
 
     ``w``: (3,3,C,Co), the s2d-transformed stride-2 weight: ``a_sub``
     (≥ 1) blocks of ``w_s2d_s2`` side by side along Co, whose structural
-    zeros the bf16 float form skips (``ops/conv_kernels.py``); ``a_sub`` = 0
+    zeros the float form skips (``ops/conv_kernels.py``); ``a_sub`` = 0
     runs the dense product, right for any weight. ``act``: None | 'relu' |
     'lrelu'. ``cin``/``ch0``: read the ``[ch0:ch0+cin]`` channel window of a
     wider ``x`` in place (``ch0`` a multiple of ``cin``, as in the JAX
@@ -528,8 +528,8 @@ def fused_down2(
         raise ValueError(f"down2 int8 needs cin % 64, Co % 8 and branches of 128-multiples (at most 4), "
                          f"got {c}, {co}, {len(branches)} branches")
     table, per_group = None, 0
-    if dt == torch.bfloat16 and branches is None:
-        table, per_group = sm90_table("down2", 2, a_sub, c, co, cf, ch0)
+    if branches is None:
+        table, per_group = sm90_table("down2", 2, a_sub, c, co, cf, ch0, dtype=dt)
     native.check_cuda("down2 x", x, dt)
     native.check_cuda("down2 w", w, dt, (3, 3, c, co))
     native.check_cuda("down2 b", b, torch.float32, (co,))

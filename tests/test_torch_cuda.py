@@ -200,20 +200,74 @@ def test_down2_bf16_matches_plain(dev, hb, wb, cf, cin, ch0, co, act, a_sub, wei
            fused_down2_ref(x[..., ch0 : ch0 + c], w, b, act=act), "bf16")
 
 
+# The fp32 float form with a_sub ≥ 1 runs the 3×TF32 tile (csrc/conv3x3_tf32x3.cuh):
+# the bf16 cases' columns (co_nat 32, 64, 128: N tiles of 32 and 64; 32- and 64-channel
+# slots; a_sub 1, 2; skip; ragged pixel counts), and pixel counts with more tiles than
+# the card holds blocks, so that each block walks several and the ring wraps. a_sub = 0
+# stays on the FMA tile of csrc/conv3x3.cuh: a dense weight, which only the dense
+# product computes right. 1e-4, the fp32 contract: three TF32 products keep the
+# operands to 2^-22.
+@pytest.mark.parametrize("hb,wb,c,co,relu,skip,a_sub,weight", [
+    (12, 20, 128, 128, True, False, 1, "s2d"), (13, 21, 256, 256, False, True, 1, "s2d"),
+    (9, 14, 128, 512, True, False, 1, "s2d"), (10, 12, 128, 512, False, False, 2, "s2d"),
+    (5, 7, 128, 128, False, True, 1, "s2d"), (150, 200, 128, 128, True, True, 1, "s2d"),
+    (12, 20, 128, 128, True, False, 0, "dense"),
+])
+def test_block_conv3_tf32x3_matches_plain(dev, hb, wb, c, co, relu, skip, a_sub, weight):
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_ref, sm90_table
+
+    rng = np.random.RandomState(hb * wb + co + 2)
+    x = _t(rng.rand(hb, wb, c) - 0.3, dev)
+    w = _t(_s2d_weight(rng, w_s2d_s1, c, co, a_sub), dev)
+    b = _t(rng.randn(co) * 0.1, dev)
+    sk = _t(rng.rand(hb, wb, co), dev) if skip else None
+    assert (sm90_table("block_conv3", 1, a_sub, c, co, c, dtype=torch.float32)[0] is None) == (a_sub == 0)
+    before = native.launch_counts["block_conv3"]
+    y = fused_block_conv3(x, w, b, relu=relu, skip=sk, a_sub=a_sub)
+    assert native.launch_counts["block_conv3"] == before + 1
+    _close(y, fused_block_conv3_ref(x, w, b, relu=relu, skip=sk), "f32")
+
+
+@pytest.mark.parametrize("hb,wb,cf,cin,ch0,co,act,a_sub,weight", [
+    (12, 20, 128, None, 0, 128, "relu", 1, "s2d"), (8, 12, 768, 256, 256, 256, "lrelu", 1, "s2d"),
+    (10, 14, 256, None, 0, 768, "lrelu", 3, "s2d"), (14, 26, 128, None, 0, 512, None, 1, "s2d"),
+    (6, 10, 768, 256, 512, 256, None, 1, "s2d"), (180, 260, 256, None, 0, 768, "lrelu", 3, "s2d"),
+    (12, 20, 256, None, 0, 384, "relu", 0, "dense"),
+])
+def test_down2_tf32x3_matches_plain(dev, hb, wb, cf, cin, ch0, co, act, a_sub, weight):
+    from hdrtv_tpu_torch.ops.conv_kernels import sm90_table
+    from hdrtv_tpu_torch.ops.megakernel import fused_down2, fused_down2_ref
+
+    rng = np.random.RandomState(hb + wb + cf + ch0 + 2)
+    c = cin or cf
+    x = _t(rng.rand(hb, wb, cf), dev)
+    w = _t(_s2d_weight(rng, w_s2d_s2, c, co, a_sub), dev)
+    b = _t(rng.randn(co) * 0.1, dev)
+    assert (sm90_table("down2", 2, a_sub, c, co, cf, ch0, dtype=torch.float32)[0] is None) == (a_sub == 0)
+    before = native.launch_counts["down2"]
+    y = fused_down2(x, w, b, act=act, cin=cin, ch0=ch0, a_sub=a_sub)
+    assert native.launch_counts["down2"] == before + 1
+    _close(y, fused_down2_ref(x[..., ch0 : ch0 + c], w, b, act=act), "f32")
+
+
 def test_sm90_refusals_raise(dev):
-    """With a_sub ≥ 1 a shape the Hopper tile refuses raises on the card;
-    nothing falls back to the dense tile."""
+    """With a_sub ≥ 1 a shape the Hopper tile (bf16) or its 3×TF32 sibling
+    (fp32) refuses raises on the card; nothing falls back to the dense tile."""
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
     from hdrtv_tpu_torch.ops.megakernel import fused_down2
 
-    bf = torch.bfloat16
-    x = torch.zeros(4, 4, 64, device=dev, dtype=bf)  # 16-channel slots
-    with pytest.raises(ValueError, match="Hopper tile"):
-        fused_block_conv3(x, torch.zeros(3, 3, 64, 128, device=dev, dtype=bf), torch.zeros(128, device=dev),
-                          a_sub=1)
-    x = torch.zeros(4, 4, 128, device=dev, dtype=bf)  # 16-channel output sub-positions
-    with pytest.raises(ValueError, match="Hopper tile"):
-        fused_down2(x, torch.zeros(3, 3, 128, 64, device=dev, dtype=bf), torch.zeros(64, device=dev), a_sub=1)
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.zeros(4, 4, 64, device=dev, dtype=dt)  # 16-channel slots
+        with pytest.raises(ValueError, match="Hopper tile"):
+            fused_block_conv3(x, torch.zeros(3, 3, 64, 128, device=dev, dtype=dt), torch.zeros(128, device=dev),
+                              a_sub=1)
+        x = torch.zeros(4, 4, 128, device=dev, dtype=dt)  # 16-channel output sub-positions
+        with pytest.raises(ValueError, match="Hopper tile"):
+            fused_down2(x, torch.zeros(3, 3, 128, 64, device=dev, dtype=dt), torch.zeros(64, device=dev), a_sub=1)
+    # fp32: 36 chunks a list, whose split weights do not fit in shared memory
+    x = torch.zeros(4, 4, 512, device=dev)
+    with pytest.raises(ValueError, match="3×TF32 Hopper tile"):
+        fused_block_conv3(x, torch.zeros(3, 3, 512, 512, device=dev), torch.zeros(512, device=dev), a_sub=1)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
