@@ -36,7 +36,15 @@ lines; any failed check raises and the script exits non-zero with no result:
    codes, step being one bf16 step of h. The bound is computed from the
    run's inputs, max|w_last| · (bf16 step at max|h|) · 65535, doubled for two
    flips under one 3×3 window, and at most TAIL_BF16_SHARE of the values may
-   differ at all (twice the share seen). hg_tail, at the 1080p shape of the
+   differ at all (twice the share seen). cond_chain and the tail run in the
+   s2d form the megakernel program calls (s2d=True, weights from the s2d
+   transforms: in bf16 the Hopper row tile of csrc/chain_sm90.cuh for
+   cond_chain and the tail's SFT pass, and the Hopper conv tile over the slot
+   table for the tail's HR_conv2) against the plain version's s2d form, and in
+   bf16 once more in the dense form (s2d=False), a case no path launches,
+   with the same tolerances; a "tail_split" line gives each bf16 form's three
+   launches (SFT pass, HR_conv2, conv_last) timed apart under torch.profiler.
+   hg_tail, at the 1080p shape of the
    HG composite (544 × 960 blocks, 256 + 256 channels), in codes: fp32 ≤ 1;
    bf16 equal except where the rounding of u10 flipped, each such output
    moving by at most max|wlast| · (bf16 step at max|u10|) · 65535 codes,
@@ -374,6 +382,31 @@ def time_ms(fn, torch) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def tail_split(fn, torch, reps: int = 20) -> dict:
+    """Device ms per call of each of the tail's three launches (the SFT pass,
+    HR_conv2, conv_last), from torch.profiler over ``reps`` calls of fn()
+    after a warm one: the kernels' device time summed by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {"sft_ms": 0.0, "hr_conv2_ms": 0.0, "conv_last_ms": 0.0, "other_ms": 0.0}
+    for e in prof.key_averages():
+        us = next((float(v) for v in (getattr(e, a, None) for a in ("self_device_time_total", "self_cuda_time_total"))
+                   if v), 0.0)
+        name = e.key.lower()
+        part = ("conv_last_ms" if "conv_last" in name else "sft_ms" if "sft" in name
+                else "hr_conv2_ms" if "conv3x3" in name else "other_ms")
+        split[part] += us / 1e3 / reps
+    if split["sft_ms"] <= 0 or split["hr_conv2_ms"] <= 0 or split["conv_last_ms"] <= 0:
+        raise AssertionError(f"the profiler saw no device time for one of the tail's launches: {split}")
+    return {k: round(v, 4) for k, v in split.items()}
 
 
 def conv_macs(w, h_out: int, w_out: int, stride: int) -> int:
@@ -730,18 +763,23 @@ def phase_kernels(torch, np) -> dict:
                + 3 * npix * (256 + 256 + 12), unit)
         del xs, y, y_r
 
-        # cond_chain: c0 (540,960,256) → 256 ×4 (lrelu) → 64; c and cond1 compared as one vector
+        # cond_chain: c0 (540,960,256) → 256 ×4 (lrelu) → 64; c and cond1 compared as one vector.
+        # The program's s2d form (s2d=True: w_s2d_1x1 weights, b_s2d biases, the first quarter
+        # of each drawn bias tiled; bf16: the Hopper row tile of csrc/chain_sm90.cuh), then in
+        # bf16 the dense form once (s2d=False, the drawn biases as they are; no path launches it)
         c0 = t(rng.rand(hb, wb, 256) - 0.3)
-        weights = [(p11(64, n), f32(rng.randn(4 * n) * 0.1)) for n in (64, 64, 64, 64, 16)]
-        y, y_r = fused_cond_chain(c0, weights), fused_cond_chain_ref(c0, weights)
-        if [tuple(o.shape) for o in y] != [(hb, wb, 256), (hb, wb, 64)]:
-            raise AssertionError(f"cond_chain output shapes {[tuple(o.shape) for o in y]}")
-        ms = time_ms(lambda: fused_cond_chain(c0, weights), torch)
-        plain = time_ms(lambda: fused_cond_chain_ref(c0, weights), torch)
-        record("cond_chain", dtype, "L0 c0 -> c, cond1", (0, 0, 1), joined(y), joined(y_r),
-               ATOL if dtype == "f32" else 1, ms, plain, None,
-               nbytes_of(c0, *y, *[p for pair in weights for p in pair]),
-               2 * npix * nnz(*[w for w, _ in weights]), unit)
+        dense = [(p11(64, n), f32(rng.randn(4 * n) * 0.1)) for n in (64, 64, 64, 64, 16)]
+        for s2d in (True, False) if dtype == "bf16" else (True,):
+            weights = [(w, b[: b.shape[0] // 4].repeat(4)) for w, b in dense] if s2d else dense
+            y, y_r = fused_cond_chain(c0, weights, s2d=s2d), fused_cond_chain_ref(c0, weights, s2d=s2d)
+            if [tuple(o.shape) for o in y] != [(hb, wb, 256), (hb, wb, 64)]:
+                raise AssertionError(f"cond_chain output shapes {[tuple(o.shape) for o in y]}")
+            ms = time_ms(lambda: fused_cond_chain(c0, weights, s2d=s2d), torch)
+            plain = time_ms(lambda: fused_cond_chain_ref(c0, weights, s2d=s2d), torch)
+            record("cond_chain", dtype, f"L0 c0 -> c, cond1 s2d={s2d}", (0, 0, 1) if s2d else (0, 0, 0),
+                   joined(y), joined(y_r), ATOL if dtype == "f32" else 1, ms, plain, None,
+                   nbytes_of(c0, *y, *[p for pair in weights for p in pair]),
+                   2 * npix * nnz(*[w for w, _ in weights]), unit)
         del c0, y, y_r
 
         # tail, packed coarse form: s = fea0 (540,960,128) + d2s(up_coarse (270,480,512)),
@@ -754,34 +792,42 @@ def phase_kernels(torch, np) -> dict:
         w_hr = t(w_s2d_s1(rng.randn(3, 3, 32, 32).astype(np.float32) * 0.05))
         w_last = t(w_s2d_s1(rng.randn(3, 3, 32, 3).astype(np.float32) * 0.03))
         targs = (s_, cond, skip, sft, w_hr, f32(rng.randn(128) * 0.1), w_last, f32(rng.randn(12) * 0.02))
-        y = fused_tail(*targs, pack=True, up_coarse=up)
-        y_r = fused_tail_ref(*targs, pack=True, up_coarse=up)
-        codes = y_r.to(torch.int32)
-        inside = float(((codes > 0) & (codes < 65535)).float().mean())
-        if tuple(y.shape) != (hb, 2, wb, 6) or y.dtype != torch.uint16 or inside < 0.5:
-            raise AssertionError(f"tail output {tuple(y.shape)} {y.dtype}, {inside:.2f} of the codes unclipped")
-        ms = time_ms(lambda: fused_tail(*targs, pack=True, up_coarse=up), torch)
-        plain = time_ms(lambda: fused_tail_ref(*targs, pack=True, up_coarse=up), torch)
         params = [p for pair in sft for p in pair] + list(targs[4:])
-        tol = 1
+        h_max = None
         if dtype == "bf16":
             # h as the tail computes it: relu(HR_conv2(sft(round(s + d2s(up)))))
             s_sum = (s_.float() + up.reshape(hb // 2, wb // 2, 2, 2, 128).permute(0, 2, 1, 3, 4)
                      .reshape(hb, wb, 128).float()).to(dt)
             h_max = float(fused_sft_conv3_v2_ref(s_sum, cond, sft, w_hr, targs[5], relu=True).float().abs().max())
-            step = 2.0 ** (int(np.floor(np.log2(h_max))) - 7)
-            tol = int(2 * float(w_last.float().abs().max()) * step * 65535) + 1
-            share = float((y.to(torch.int32) != codes).float().mean())
-            log(f"tail bf16: max|h| {h_max:.3f} (bf16 step {step}), max|w_last| "
-                f"{float(w_last.float().abs().max()):.4f}: bound {tol} codes; {share:.2e} of the codes differ")
-            if share > TAIL_BF16_SHARE:
-                raise AssertionError(f"tail bf16: {share:.3e} of the codes differ > {TAIL_BF16_SHARE}")
             del s_sum
-        record("tail", dtype, "L0 fea0 + up_coarse -> packed u16", (0, 0, 1), y.to(torch.int32), codes,
-               tol, ms, plain, None,
-               nbytes_of(s_, up, cond, skip, y, *params),
-               2 * (conv_macs(w_hr, hb, wb, 1) + conv_macs(w_last, hb, wb, 1)) + sft_flops(npix, sft)
-               + 4 * npix * 128 + 5 * npix * 12)
+        # the program's s2d form (bf16: the SFT on the row tile, HR_conv2 on the Hopper conv tile
+        # over the slot table), then in bf16 the dense form once (no path launches it)
+        for s2d in (True, False) if dtype == "bf16" else (True,):
+            y = fused_tail(*targs, pack=True, up_coarse=up, s2d=s2d)
+            y_r = fused_tail_ref(*targs, pack=True, up_coarse=up, s2d=s2d)
+            codes = y_r.to(torch.int32)
+            inside = float(((codes > 0) & (codes < 65535)).float().mean())
+            if tuple(y.shape) != (hb, 2, wb, 6) or y.dtype != torch.uint16 or inside < 0.5:
+                raise AssertionError(f"tail output {tuple(y.shape)} {y.dtype}, {inside:.2f} of the codes unclipped")
+            ms = time_ms(lambda: fused_tail(*targs, pack=True, up_coarse=up, s2d=s2d), torch)
+            plain = time_ms(lambda: fused_tail_ref(*targs, pack=True, up_coarse=up, s2d=s2d), torch)
+            tol = 1
+            if dtype == "bf16":
+                step = 2.0 ** (int(np.floor(np.log2(h_max))) - 7)
+                tol = int(2 * float(w_last.float().abs().max()) * step * 65535) + 1
+                share = float((y.to(torch.int32) != codes).float().mean())
+                log(f"tail bf16 s2d={s2d}: max|h| {h_max:.3f} (bf16 step {step}), max|w_last| "
+                    f"{float(w_last.float().abs().max()):.4f}: bound {tol} codes; {share:.2e} of the codes differ")
+                if share > TAIL_BF16_SHARE:
+                    raise AssertionError(f"tail bf16 s2d={s2d}: {share:.3e} of the codes differ > {TAIL_BF16_SHARE}")
+                log(json.dumps({"tail_split": {"dtype": dtype, "s2d": s2d,
+                                               **tail_split(lambda: fused_tail(*targs, pack=True, up_coarse=up,
+                                                                               s2d=s2d), torch)}}))
+            record("tail", dtype, f"L0 fea0 + up_coarse -> packed u16 s2d={s2d}", (0, 0, 1) if s2d else (0, 0, 0),
+                   y.to(torch.int32), codes, tol, ms, plain, None,
+                   nbytes_of(s_, up, cond, skip, y, *params),
+                   2 * (conv_macs(w_hr, hb, wb, 1) + conv_macs(w_last, hb, wb, 1)) + sft_flops(npix, sft)
+                   + 4 * npix * 128 + 5 * npix * 12)
         del s_, up, cond, skip, y, y_r, codes, targs
 
         # trunk3 at the /8 level: fea3 (135,240,32), cond4 (135,240,16) → 128. In bf16 the

@@ -1,0 +1,558 @@
+// 1×1 chains over the rows of an s2d tensor, written for Hopper (sm_90a):
+// bf16 × bf16 → fp32 on wgmma with A in registers, the block-diagonal s2d
+// weights reduced to their one diagonal block and kept in shared memory.
+// It runs the bf16 float forms of cond_chain (cond_chain_sm90) and of the
+// tail's SFT pass (sft_sm90) when the caller declares the weights s2d
+// (ops/megakernel.py, s2d=True); the dense forms stay on chain.cuh and
+// pointwise.cuh.
+//
+// Why rows. A 1×1 weight of the s2d program is w_s2d_1x1(w) (models/s2d.py):
+// (4·K, 4·N), block-diagonal with four equal K × N blocks, one per
+// sub-position, and its bias b_s2d(b) is b four times. The s2d channels of a
+// pixel are sub-position-major (channel (2a + b)·K + k), so an (npix, 4·K)
+// tensor is, byte for byte, the (4·npix, K) matrix of natural pixels, and the
+// 1×1 conv is that matrix times the one K × N block: a quarter of the dense
+// product's operations, and a weight a sixteenth of the dense one's bytes,
+// small enough to stay in shared memory for the whole launch. The block is
+// read at the top left of the s2d weight (row pitch 4·N); a weight without
+// the declared structure gives another result, which the plain versions
+// reproduce (they multiply that block too).
+//
+// The block: two warpgroups (256 threads), two blocks per SM, persistent.
+// The weights (and biases) go to shared memory once per block, in wgmma's
+// MN-major layout without swizzle (conv3x3_sm90.cuh's B: 16-byte rows of 8
+// columns of one k, (k/8)·N + col + k%8, read transposed). Each warpgroup
+// walks its own tiles of 64 rows (one m64 wgmma tile): tile
+// 2·block + warpgroup, + 2·gridDim, ... It keeps a ring of NS stages of its
+// own in shared memory, filled by 16-byte cp.async of whole rows (a tile of
+// input rows is contiguous bytes; rows past the end are zero-filled), with
+// NS − 1 tiles in flight while it computes one; its 128 threads meet on a
+// named barrier of their own, so the two warpgroups never wait for each
+// other.
+//
+// A tile: each warp loads its 16 rows' A fragments with ldmatrix (the staged
+// rows have a 16-byte pad: conflict-free), then the steps run in registers:
+// wgmma.m64nNk16 with A from registers, one per 16 of K, fp32 accumulators;
+// the epilogue adds the fp32 bias, applies the activation, and rounds once to
+// bf16, packing the pairs straight into the next step's A fragments (the
+// accumulator layout of m64nN, row lane/4 (+ 8) and columns 8j + 2·(lane%4),
+// is the register-A layout of m64nNk16 over k = 16·(j/2) ..: the pair of
+// columns 8j + 2q is A register 2·(j%2) + h of chunk j/2). No intermediate
+// leaves the registers. Rounding points as in the Pallas kernels: each
+// product's input rounded to bf16 (the stored middle output is that rounded
+// value), sums, biases and activations fp32.
+//
+// Stores. An output is written as bf16 pairs into the tile's stage (whose
+// input this warp's rows no longer need; the output rows of a warp are its
+// input rows, so no other warp is still reading them), then, after the
+// warpgroup meets, copied out in 16-byte pieces: consecutive threads write
+// consecutive 16 bytes of consecutive rows, rows past the end skipped. The
+// next tiles' loads run meanwhile.
+//
+// Bound on this card: bytes. cond_chain at 1080p reads c0 (265 MB) and
+// writes c (265 MB) and cond1 (66 MB): 0.178 ms at 3.35 TB/s, against
+// 72 GFLOP of block products, 0.073 ms at the bf16 rate. The tail's SFT pass
+// reads s, up and cond1 and writes t: 465 MB, 0.139 ms, 13 GFLOP.
+#pragma once
+
+#include "conv3x3_sm90.cuh"
+
+namespace hdrtv {
+namespace {
+
+constexpr int kRowThreads = kSm90Threads;  // two warpgroups
+constexpr int kRowBM = 64;        // rows of a tile: one m64 wgmma tile
+
+// wgmma.m64nNk16, bf16 × bf16 + fp32, A from registers (the four registers
+// of m16n8k16's A fragment, for this warp's 16 rows), B MN-major from shared
+// memory (imm-trans-b = 1); accumulate 0 starts the sum from zero.
+template <int N>
+struct WgmmaRA;
+
+template <>
+struct WgmmaRA<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], const unsigned (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaRA<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const unsigned (&a)[4], uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaRA<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const unsigned (&a)[4], uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+// Keeps A fragments live (their registers unchanged) until the wgmmas that
+// read them have been waited for.
+template <int C>
+__device__ __forceinline__ void fence_frags(unsigned (&a)[C][4]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[c][i])::"memory");
+}
+
+// The descriptor of k chunk kk (16 rows of K) of a K × N operand staged by stage_b at `addr`.
+__device__ __forceinline__ uint64_t desc_rows_b(unsigned addr, int N, int kk) {
+  return desc_b(addr + kk * N * 32, N * 16, 128);
+}
+
+// 16 bytes from global memory into shared memory, or 16 zero bytes where !ok
+// (the source is then not read).
+__device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(ok ? 16 : 0) : "memory");
+}
+
+// The 128 threads of warpgroup wg meet (named barrier wg + 1; 0 is __syncthreads').
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&r);
+}
+
+// Rows k < K, columns [0, n) of src (row pitch ld elements) into columns
+// [n0, n0 + n) of a K × N operand in wgmma's MN-major layout without
+// swizzle: 16-byte row (k/8)·N + col + k%8 holds columns col .. col + 7 of
+// row k. Every thread of the block takes part.
+__device__ __forceinline__ void stage_b(unsigned char* dst, int N, int n0, const bf16* src, int ld, int K, int n) {
+  const int groups = n / 8;
+  for (int idx = threadIdx.x; idx < K * groups; idx += blockDim.x) {
+    const int k = idx / groups, g = idx - k * groups;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + static_cast<long long>(k) * ld + g * 8);
+    *reinterpret_cast<uint4*>(dst + ((k >> 3) * N + n0 + g * 8 + (k & 7)) * 16) = v;
+  }
+}
+
+// Copy `bytes_per_row` of each of a tile's 64 staged rows (pitch `pitch`)
+// to rows r0 .. of dst (row pitch bytes_per_row), rows ≥ rows skipped; the
+// 128 threads of a warpgroup (index t) take consecutive 16-byte pieces.
+__device__ __forceinline__ void store_rows(void* dst, const unsigned char* st, int pitch, int bytes_per_row,
+                                           long long r0, long long rows, int t) {
+  const int pieces = bytes_per_row / 16;
+  for (int idx = t; idx < kRowBM * pieces; idx += 128) {
+    const int r = idx / pieces, c = idx - r * pieces;
+    if (r0 + r < rows)
+      *reinterpret_cast<uint4*>(static_cast<unsigned char*>(dst) + (r0 + r) * bytes_per_row + c * 16) =
+          *reinterpret_cast<const uint4*>(st + r * pitch + c * 16);
+  }
+}
+
+// The tiles of warpgroup wg of this block: first, first + stride, ... (n of them).
+struct RowTiles {
+  long long first, stride;
+  int n;
+  __device__ RowTiles(long long rows, int wg) {
+    const long long tiles = (rows + kRowBM - 1) / kRowBM;
+    first = blockIdx.x * 2LL + wg;
+    stride = gridDim.x * 2LL;
+    n = first < tiles ? static_cast<int>((tiles - 1 - first) / stride + 1) : 0;
+  }
+  __device__ long long row0(int i) const { return (first + i * stride) * kRowBM; }
+};
+
+// ---------------------------------------------------------------------------
+// cond_chain: x (rows, K) → K → K (lrelu; written as mid) → K → K (lrelu
+// each) → NL, written as y. At 1080p K = 64, NL = 16, rows = 4·540·960.
+// ---------------------------------------------------------------------------
+
+struct CondChainSm90Args {
+  const bf16* x;   // (rows, K): c0
+  bf16* mid;       // (rows, K): c, after step 1
+  bf16* y;         // (rows, NL): cond1
+  const bf16* w[5];  // the s2d weights; the K × N block at the top left, row pitch ld
+  const float* b[5];
+  int ld[5];
+  long long rows;
+};
+
+template <int K, int NL>
+struct CondChainSm90Cfg {
+  static constexpr int NS = 3;                            // ring stages per warpgroup
+  static constexpr int W_BYTES = (4 * K * K + K * NL) * 2;
+  static constexpr int BIAS_BYTES = (4 * K + NL) * 4;
+  static constexpr int PITCH = (K + 8) * 2;               // a staged row of x or mid: 16 bytes of pad
+  static constexpr int YPITCH = (NL + 8) * 2;             // a staged row of y
+  static constexpr int STAGE = kRowBM * (PITCH + YPITCH);
+  static constexpr int SMEM = W_BYTES + BIAS_BYTES + 2 * NS * STAGE;
+  static_assert(K % 16 == 0 && NL % 16 == 0 && K <= 64 && NL <= 64, "widths of the register tile");
+  static_assert(W_BYTES % 16 == 0 && BIAS_BYTES % 16 == 0 && STAGE % 16 == 0, "16-byte alignment");
+};
+
+template <int K, int NL>
+__global__ void __launch_bounds__(kRowThreads, 2) cond_chain_sm90_kernel(const __grid_constant__ CondChainSm90Args a) {
+  using Cfg = CondChainSm90Cfg<K, NL>;
+  constexpr int NS = Cfg::NS, KC = K / 16;
+  extern __shared__ __align__(16) unsigned char row_smem[];
+  unsigned char* const smem = row_smem;
+  float* const bias = reinterpret_cast<float*>(smem + Cfg::W_BYTES);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31, q = lane & 3;
+  unsigned char* const ring = smem + Cfg::W_BYTES + Cfg::BIAS_BYTES + wg * NS * Cfg::STAGE;
+
+  for (int s = 0; s < 5; ++s) {
+    const int n = s < 4 ? K : NL;
+    stage_b(smem + s * K * K * 2, n, 0, a.w[s], a.ld[s], K, n);
+    for (int i = tid; i < n; i += kRowThreads) bias[s * K + i] = a.b[s][i];
+  }
+  // the weights, written by the generic proxy, are read by wgmma's async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const RowTiles tiles(a.rows, wg);
+  auto load = [&](int i) {
+    const long long r0 = tiles.row0(i);
+    unsigned char* const st = ring + (i % NS) * Cfg::STAGE;
+    constexpr int PIECES = K / 8;
+#pragma unroll
+    for (int idx = t; idx < kRowBM * PIECES; idx += 128) {
+      const int r = idx / PIECES, c = idx % PIECES;
+      const bool ok = r0 + r < a.rows;
+      cp_async16_or_zero(st + r * Cfg::PITCH + c * 16, a.x + (ok ? (r0 + r) * K + c * 8 : 0), ok);
+    }
+  };
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < tiles.n) load(i);
+    cp_async_commit();
+  }
+
+  const unsigned wbase = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int rl = warp * 16 + (lane >> 2);  // this thread's rows in the tile: rl, rl + 8
+  for (int i = 0; i < tiles.n; ++i) {
+    // tile i's rows arrived (this thread's copies, then everyone's); everyone
+    // is done with tile i − 1's stage, which tile i + NS − 1 refills
+    cp_async_wait<NS - 2>();
+    warpgroup_sync(wg);
+    if (i + NS - 1 < tiles.n) load(i + NS - 1);
+    cp_async_commit();
+
+    unsigned char* const st = ring + (i % NS) * Cfg::STAGE;
+    unsigned char* const yst = st + kRowBM * Cfg::PITCH;
+    unsigned af[KC][4];
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk)
+      ldmatrix_x4(af[kk], st + (warp * 16 + (lane & 15)) * Cfg::PITCH + kk * 32 + (lane >> 4) * 16);
+
+    float d[K / 2];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) WgmmaRA<K>::mma(d, af[kk], desc_rows_b(wbase + s * K * K * 2, K, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d);
+      fence_frags(af);
+      const float* const bs = bias + s * K;
+#pragma unroll
+      for (int j = 0; j < K / 8; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * q);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned u = pack_bf16(apply_act(d[4 * j + 2 * h] + bb.x, ACT_LRELU),
+                                       apply_act(d[4 * j + 2 * h + 1] + bb.y, ACT_LRELU));
+          af[j / 2][2 * (j % 2) + h] = u;
+          if (s == 1) *reinterpret_cast<unsigned*>(st + (rl + 8 * h) * Cfg::PITCH + (8 * j + 2 * q) * 2) = u;
+        }
+      }
+    }
+    float e[NL / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) WgmmaRA<NL>::mma(e, af[kk], desc_rows_b(wbase + 4 * K * K * 2, NL, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(e);
+    fence_frags(af);
+#pragma unroll
+    for (int j = 0; j < NL / 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias + 4 * K + 8 * j + 2 * q);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<unsigned*>(yst + (rl + 8 * h) * Cfg::YPITCH + (8 * j + 2 * q) * 2) =
+            pack_bf16(e[4 * j + 2 * h] + bb.x, e[4 * j + 2 * h + 1] + bb.y);
+    }
+    warpgroup_sync(wg);
+    const long long r0 = tiles.row0(i);
+    store_rows(a.mid, st, Cfg::PITCH, K * 2, r0, a.rows, t);
+    store_rows(a.y, yst, Cfg::YPITCH, NL * 2, r0, a.rows, t);
+  }
+  cp_async_wait<0>();
+}
+
+// Persistent blocks: as many as the card holds (`resident`, from
+// conv3x3_sm90.cuh's resident_blocks: both tiles run 256 threads), capped at
+// one per two tiles.
+inline unsigned row_blocks(long long rows, int resident) {
+  const long long tiles = (rows + kRowBM - 1) / kRowBM;
+  return static_cast<unsigned>(std::max(1LL, std::min(static_cast<long long>(resident), (tiles + 1) / 2)));
+}
+
+// cond_chain's bf16 float form over s2d weights (arguments as cond_chain.cu
+// takes them: s2d widths k, n per step, npix s2d pixels). The chain the
+// frame programs run, natural widths 64 → 64 ×4 → 16, is the one it takes;
+// anything else is refused.
+inline cudaError_t cond_chain_sm90(const void* c0, void* c, void* cond1, const void* const* w, const void* const* b,
+                                   const int* k, const int* n, int npix, cudaStream_t stream) {
+  constexpr int K = 64, NL = 16;
+  using Cfg = CondChainSm90Cfg<K, NL>;
+  for (int s = 0; s < 5; ++s)
+    if (k[s] != 4 * K || n[s] != 4 * (s < 4 ? K : NL)) return cudaErrorInvalidValue;
+  CondChainSm90Args a;
+  a.x = static_cast<const bf16*>(c0);
+  a.mid = static_cast<bf16*>(c);
+  a.y = static_cast<bf16*>(cond1);
+  for (int s = 0; s < 5; ++s) {
+    a.w[s] = static_cast<const bf16*>(w[s]);
+    a.b[s] = static_cast<const float*>(b[s]);
+    a.ld[s] = n[s];
+  }
+  a.rows = 4LL * npix;
+  auto kernel = cond_chain_sm90_kernel<K, NL>;
+  static int resident = 0;
+  if (!resident) {
+    const cudaError_t err = resident_blocks(kernel, Cfg::SMEM, &resident);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<row_blocks(a.rows, resident), kRowThreads, Cfg::SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The tail's SFT pass: per row, with cond (CC) and x = s (+ the un-folded
+// up_coarse, the sum rounded to bf16) (C),
+//   hidden = lrelu([cond·W0s + b0s | cond·W0h + b0h])   (2·CC, rounded to bf16)
+//   t      = x · (hidden_s·W1s + b1s + 1) + hidden_h·W1h + b1h
+// t rounded once and written. At 1080p CC = 16, C = 32, rows = 4·540·960.
+// The scale and shift branches' first products run as one m64n32k16 over
+// the two weights side by side; the hidden's two halves are the A fragments
+// of the two second products.
+// ---------------------------------------------------------------------------
+
+struct SftSm90Args {
+  const bf16* cond;  // (rows, CC)
+  const bf16* s;     // (rows, C)
+  const bf16* up;    // nullptr, or the coarse (H/2, W/2, 16·C) tensor whose block d2s has s's shape
+  bf16* t;           // (rows, C)
+  const bf16* w[4];  // scale0, scale1, shift0, shift1 (s2d weights; the block at the top left, row pitch ld)
+  const float* b[4];
+  int ld[4];
+  long long rows;
+  int W;  // s2d pixels per image row (the un-fold of up)
+};
+
+template <int CC, int C>
+struct SftSm90Cfg {
+  static constexpr int NS = 4;
+  static constexpr int W0_BYTES = CC * 2 * CC * 2;  // [W0s | W0h], CC × 2·CC
+  static constexpr int W1_BYTES = CC * C * 2;       // W1s, W1h: CC × C each
+  static constexpr int W_BYTES = W0_BYTES + 2 * W1_BYTES;
+  static constexpr int BIAS_BYTES = (2 * CC + 2 * C) * 4;
+  static constexpr int CPITCH = (CC + 8) * 2;
+  static constexpr int XPITCH = (C + 8) * 2;
+  static constexpr int STAGE = kRowBM * (CPITCH + 2 * XPITCH);  // cond, s (then t), up
+  static constexpr int SMEM = W_BYTES + BIAS_BYTES + 2 * NS * STAGE;
+  static_assert(CC == 16 && C % 16 == 0 && C <= 64, "widths of the register tile");
+  static_assert(W_BYTES % 16 == 0 && BIAS_BYTES % 16 == 0 && STAGE % 16 == 0, "16-byte alignment");
+};
+
+template <int CC, int C>
+__global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_constant__ SftSm90Args a) {
+  using Cfg = SftSm90Cfg<CC, C>;
+  constexpr int NS = Cfg::NS;
+  extern __shared__ __align__(16) unsigned char row_smem[];
+  unsigned char* const smem = row_smem;
+  float* const b0 = reinterpret_cast<float*>(smem + Cfg::W_BYTES);  // [b0s | b0h]
+  float* const b1s = b0 + 2 * CC;
+  float* const b1h = b1s + C;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31, q = lane & 3;
+  unsigned char* const ring = smem + Cfg::W_BYTES + Cfg::BIAS_BYTES + wg * NS * Cfg::STAGE;
+
+  stage_b(smem, 2 * CC, 0, a.w[0], a.ld[0], CC, CC);
+  stage_b(smem, 2 * CC, CC, a.w[2], a.ld[2], CC, CC);
+  stage_b(smem + Cfg::W0_BYTES, C, 0, a.w[1], a.ld[1], CC, C);
+  stage_b(smem + Cfg::W0_BYTES + Cfg::W1_BYTES, C, 0, a.w[3], a.ld[3], CC, C);
+  for (int i = tid; i < CC; i += kRowThreads) {
+    b0[i] = a.b[0][i];
+    b0[CC + i] = a.b[2][i];
+  }
+  for (int i = tid; i < C; i += kRowThreads) {
+    b1s[i] = a.b[1][i];
+    b1h[i] = a.b[3][i];
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const RowTiles tiles(a.rows, wg);
+  const long long half_w = a.W >> 1;
+  auto load = [&](int i) {
+    const long long r0 = tiles.row0(i);
+    unsigned char* const st = ring + (i % NS) * Cfg::STAGE;
+    unsigned char* const xs = st + kRowBM * Cfg::CPITCH;
+    unsigned char* const us = xs + kRowBM * Cfg::XPITCH;
+    constexpr int CP = CC / 8, XP = C / 8;
+    for (int idx = t; idx < kRowBM * CP; idx += 128) {
+      const int r = idx / CP, c = idx % CP;
+      const bool ok = r0 + r < a.rows;
+      cp_async16_or_zero(st + r * Cfg::CPITCH + c * 16, a.cond + (ok ? (r0 + r) * CC + c * 8 : 0), ok);
+    }
+    for (int idx = t; idx < kRowBM * XP; idx += 128) {
+      const int r = idx / XP, c = idx % XP;
+      const long long row = r0 + r;
+      const bool ok = row < a.rows;
+      cp_async16_or_zero(xs + r * Cfg::XPITCH + c * 16, a.s + (ok ? row * C + c * 8 : 0), ok);
+      if (a.up) {
+        // fine pixel p = (i, j) of sub-position sub: coarse pixel (i/2, j/2),
+        // channel block (2·(i%2) + j%2)·4C + sub·C
+        long long src = 0;
+        if (ok) {
+          const long long p = row >> 2;
+          const int sub = static_cast<int>(row & 3);
+          const long long pi = p / a.W, pj = p - pi * a.W;
+          src = ((pi >> 1) * half_w + (pj >> 1)) * (16LL * C) + ((pi & 1) * 2 + (pj & 1)) * (4 * C) + sub * C + c * 8;
+        }
+        cp_async16_or_zero(us + r * Cfg::XPITCH + c * 16, a.up + src, ok);
+      }
+    }
+  };
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < tiles.n) load(i);
+    cp_async_commit();
+  }
+
+  const unsigned w0 = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const unsigned w1s = w0 + Cfg::W0_BYTES, w1h = w1s + Cfg::W1_BYTES;
+  const int rl = warp * 16 + (lane >> 2);
+  for (int i = 0; i < tiles.n; ++i) {
+    cp_async_wait<NS - 2>();
+    warpgroup_sync(wg);
+    if (i + NS - 1 < tiles.n) load(i + NS - 1);
+    cp_async_commit();
+
+    unsigned char* const st = ring + (i % NS) * Cfg::STAGE;
+    unsigned char* const xs = st + kRowBM * Cfg::CPITCH;
+    const unsigned char* const us = xs + kRowBM * Cfg::XPITCH;
+    unsigned ac[1][4];
+    ldmatrix_x4(ac[0], st + (warp * 16 + (lane & 15)) * Cfg::CPITCH + (lane >> 4) * 16);
+
+    float d0[CC];  // m64n(2·CC): the two hidden branches side by side
+    wgmma_fence();
+    WgmmaRA<2 * CC>::mma(d0, ac[0], desc_rows_b(w0, 2 * CC, 0), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d0);
+    fence_frags(ac);
+    unsigned ah[2][4];  // chunk 0: the scale branch's hidden, 1: the shift branch's
+#pragma unroll
+    for (int j = 0; j < 2 * CC / 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(b0 + 8 * j + 2 * q);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        ah[j / 2][2 * (j % 2) + h] = pack_bf16(apply_act(d0[4 * j + 2 * h] + bb.x, ACT_LRELU),
+                                               apply_act(d0[4 * j + 2 * h + 1] + bb.y, ACT_LRELU));
+    }
+    float sc[C / 2], sh[C / 2];
+    wgmma_fence();
+    WgmmaRA<C>::mma(sc, ah[0], desc_rows_b(w1s, C, 0), 0);
+    WgmmaRA<C>::mma(sh, ah[1], desc_rows_b(w1h, C, 0), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(sh);
+    fence_frags(ah);
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+      const int n = 8 * j + 2 * q;
+      const float2 bs = *reinterpret_cast<const float2*>(b1s + n);
+      const float2 bh = *reinterpret_cast<const float2*>(b1h + n);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bf16* const px = reinterpret_cast<bf16*>(xs + (rl + 8 * h) * Cfg::XPITCH) + n;
+        float2 xv = load2<bf16>(px);
+        if (a.up) {
+          const float2 u = load2<bf16>(reinterpret_cast<const bf16*>(us + (rl + 8 * h) * Cfg::XPITCH) + n);
+          xv = make_float2(round_to<bf16>(xv.x + u.x), round_to<bf16>(xv.y + u.y));
+        }
+        const float s0 = sc[4 * j + 2 * h] + bs.x, s1 = sc[4 * j + 2 * h + 1] + bs.y;
+        const float h0 = sh[4 * j + 2 * h] + bh.x, h1 = sh[4 * j + 2 * h + 1] + bh.y;
+        store2<bf16>(px, make_float2(xv.x * (s0 + 1.f) + h0, xv.y * (s1 + 1.f) + h1));
+      }
+    }
+    warpgroup_sync(wg);
+    store_rows(a.t, xs, Cfg::XPITCH, C * 2, tiles.row0(i), a.rows, t);
+  }
+  cp_async_wait<0>();
+}
+
+// The tail's SFT pass over s2d weights (s, up, cond1, t as tail.cu takes
+// them: H × W s2d pixels of C and CC channels; sft: the eight pointers
+// w, b of scale0, scale1, shift0, shift1). The widths the frame programs
+// run, natural CC = 16 and C = 32, are the ones it takes; anything else is
+// refused.
+inline cudaError_t sft_sm90(const void* s, const void* up, const void* cond1, void* t, const void* const* sft,
+                            int H, int W, int C, int CC, cudaStream_t stream) {
+  constexpr int NCC = 16, NC = 32;
+  using Cfg = SftSm90Cfg<NCC, NC>;
+  if (C != 4 * NC || CC != 4 * NCC || (up && (H % 2 || W % 2))) return cudaErrorInvalidValue;
+  SftSm90Args a;
+  a.cond = static_cast<const bf16*>(cond1);
+  a.s = static_cast<const bf16*>(s);
+  a.up = static_cast<const bf16*>(up);
+  a.t = static_cast<bf16*>(t);
+  const int ld[4] = {CC, C, CC, C};  // scale0 (CC, CC), scale1 (CC, C), shift0, shift1
+  for (int i = 0; i < 4; ++i) {
+    a.w[i] = static_cast<const bf16*>(sft[2 * i]);
+    a.b[i] = static_cast<const float*>(sft[2 * i + 1]);
+    a.ld[i] = ld[i];
+  }
+  a.rows = 4LL * H * W;
+  a.W = W;
+  auto kernel = sft_sm90_kernel<NCC, NC>;
+  static int resident = 0;
+  if (!resident) {
+    const cudaError_t err = resident_blocks(kernel, Cfg::SMEM, &resident);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<row_blocks(a.rows, resident), kRowThreads, Cfg::SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace hdrtv

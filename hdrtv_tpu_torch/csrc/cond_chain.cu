@@ -14,6 +14,14 @@
 // each product (the stored c is that rounded value), sums, biases and the
 // leaky ReLU (slope 0.1) are fp32.
 //
+// The s2d form (the wrapper's s2d=True: every weight w_s2d_1x1(w), every
+// bias b_s2d(b), as the frame programs' are), in bf16 with no int8 step:
+// chain_sm90.cuh's Hopper row tile, which multiplies the (4·npix, 64) rows
+// of c0 by each weight's one diagonal block on wgmma, the blocks resident in
+// shared memory, the steps chained in registers (PERF.md §6). Its fp32 and
+// int8 instances keep the dense chain below, the same function on such
+// weights.
+//
 // The int8 (W8A8) steps of the same Pallas kernel (`qargs`, `qflags`
 // :294-381; the wrapper counts a launch with any as cond_chain_w8a8): a
 // flagged step quantizes the fp32 running value per tensor (symmetric or
@@ -24,12 +32,21 @@
 // No frame program of the JAX package passes qargs here; bound on this card
 // as the float form (bytes: the chain's input and two outputs).
 #include "chain.cuh"
+#include "chain_sm90.cuh"
 
 namespace {
 
 template <typename T>
 int cond_chain(const void* c0, void* c, void* cond1, const void* const* w, const void* const* b,
-               const int* k, const int* n, const void* const* q, int npix, void* stream) {
+               const int* k, const int* n, const void* const* q, int npix, int s2d, void* stream) {
+  if (s2d) {
+    if constexpr (std::is_same<T, hdrtv::bf16>::value) {
+      if (!q)
+        return static_cast<int>(hdrtv::cond_chain_sm90(c0, c, cond1, w, b, k, n, npix,
+                                                       static_cast<cudaStream_t>(stream)));
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   using hdrtv::ACT_LRELU;
   const int act[5] = {ACT_LRELU, ACT_LRELU, ACT_LRELU, ACT_LRELU, hdrtv::ACT_NONE};
   return hdrtv::chain<T>(c0, cond1, c, 1, w, b, k, n, act, 5, npix, k[0], 0, stream,
@@ -40,15 +57,16 @@ int cond_chain(const void* c0, void* c, void* cond1, const void* const* w, const
 
 // w, b: five pointers each; k, n: the five steps' input and output widths;
 // q: null (every step float) or five pointers to QuantParams, null for a
-// float step (the int8 step's w and b then unused).
+// float step (the int8 step's w and b then unused). s2d: 1 for the s2d
+// form (bf16, q null; the row tile of chain_sm90.cuh), else 0.
 extern "C" int hdrtv_cond_chain_f32(const void* c0, void* c, void* cond1, const void* const* w,
                                     const void* const* b, const int* k, const int* n,
-                                    const void* const* q, int npix, void* stream) {
-  return cond_chain<float>(c0, c, cond1, w, b, k, n, q, npix, stream);
+                                    const void* const* q, int npix, int s2d, void* stream) {
+  return cond_chain<float>(c0, c, cond1, w, b, k, n, q, npix, s2d, stream);
 }
 
 extern "C" int hdrtv_cond_chain_bf16(const void* c0, void* c, void* cond1, const void* const* w,
                                      const void* const* b, const int* k, const int* n,
-                                     const void* const* q, int npix, void* stream) {
-  return cond_chain<hdrtv::bf16>(c0, c, cond1, w, b, k, n, q, npix, stream);
+                                     const void* const* q, int npix, int s2d, void* stream) {
+  return cond_chain<hdrtv::bf16>(c0, c, cond1, w, b, k, n, q, npix, s2d, stream);
 }

@@ -35,6 +35,21 @@
 // A fragments read from the halo at the tap's offset with ldmatrix), fp32 on
 // the FMA units (a lane owns one pixel and 8 channels).
 //
+// The s2d form (the wrapper's s2d=True: the SFT weights w_s2d_1x1, their
+// biases b_s2d, w_hr w_s2d_s1, as the frame programs' are), in bf16 with the
+// float HR_conv2: the same three launches, two of them on Hopper tiles.
+//   1. the SFT pass on chain_sm90.cuh's row tile (sft_sm90): the (4·npix, 16)
+//      rows of cond1 and (4·npix, 32) rows of s (up_coarse un-folded on read)
+//      against the weights' diagonal blocks, resident in shared memory, on
+//      wgmma; t written once;
+//   2. HR_conv2 on conv3x3_sm90.cuh's tile, walking the stride-1 s2d slot
+//      table the wrapper passes (ops/conv_kernels.py sm90_table): a quarter
+//      of the dense product; TMA's zero fill reads t as zero outside the
+//      image, the epilogue adds the bias, applies the ReLU and stores only
+//      inside it;
+//   3. conv_last_kernel, as above.
+// Rounding points as in the float body. Times: PERF.md §5-§6.
+//
 // The native-int8 body (`quant`, megakernel.py:468-469, `qargs_hr`; the
 // wrapper counts it as tail_w8a8), when the call passes HR_conv2's
 // QuantParams: step 1 runs the SFT pass in its int8-output mode (t in fp32,
@@ -42,6 +57,7 @@
 // tile of conv3x3_s8.cuh (folded bias, ReLU, h stored in the element type,
 // as in the float body), step 3 conv_last_kernel as above. Bound on this
 // card: bytes.
+#include "chain_sm90.cuh"
 #include "conv3x3_s8.cuh"
 #include "pointwise.cuh"
 
@@ -188,20 +204,36 @@ template <typename T>
 int tail(const void* s, const void* up, const void* cond1, const void* skip,
          const void* const* sft, const void* w_hr, const void* b_hr, const QuantParams* q_hr,
          const void* w_last, const void* b_last, void* out, void* t, void* h, int H, int W, int C,
-         int CC, int Cl, int pack, void* stream) {
+         int CC, int Cl, int pack, int s2d, const int* table, int per_list, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  SftArgs f;
-  f.x = s;
-  f.cond = cond1;
-  f.add = up;
-  f.xsum = nullptr;
-  set_sft_out(f, t, q_hr);
-  set_sft_params(f, sft);
-  f.npix = H * W;
-  f.W = W;
-  f.C = C;
-  f.CC = CC;
-  f.coarse = up != nullptr;
+  cudaError_t err = cudaSuccess;
+  if (s2d) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (q_hr || !table) return static_cast<int>(cudaErrorInvalidValue);
+      err = sft_sm90(s, up, cond1, t, sft, H, W, C, CC, st);
+      if (err == cudaSuccess)
+        err = conv3x3_sm90<1>(t, w_hr, static_cast<const float*>(b_hr), nullptr, h, H, W, C, 0, C, C, ACT_RELU, 1,
+                              table, per_list, st);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    SftArgs f;
+    f.x = s;
+    f.cond = cond1;
+    f.add = up;
+    f.xsum = nullptr;
+    set_sft_out(f, t, q_hr);
+    set_sft_params(f, sft);
+    f.npix = H * W;
+    f.W = W;
+    f.C = C;
+    f.CC = CC;
+    f.coarse = up != nullptr;
+    err = launch_sft<T, T>(f, st);
+    if (err == cudaSuccess)
+      err = conv3x3_or_s8<T, T>(t, w_hr, b_hr, q_hr, nullptr, h, H, W, C, C, ACT_RELU, st);
+  }
   LastArgs l;
   l.h = h;
   l.w = w_last;
@@ -213,9 +245,6 @@ int tail(const void* s, const void* up, const void* cond1, const void* skip,
   l.C = C;
   l.Cl = Cl;
   l.pack = pack;
-  cudaError_t err = launch_sft<T, T>(f, st);
-  if (err == cudaSuccess)
-    err = conv3x3_or_s8<T, T>(t, w_hr, b_hr, q_hr, nullptr, h, H, W, C, C, ACT_RELU, st);
   if (err == cudaSuccess) err = launch_conv_last<T>(l, st);
   return static_cast<int>(err);
 }
@@ -226,21 +255,23 @@ int tail(const void* s, const void* up, const void* cond1, const void* skip,
 // up: nullptr, or up_coarse (H/2, W/2, 4C). sft: eight pointers, (w, b) of
 // scale0, scale1, shift0, shift1. q_hr: null for the float form, else
 // HR_conv2's int8 parameters (w_hr and b_hr unused). Scratch: t H·W·C elements
-// (bytes, codes, with q_hr) and h H·W·C elements.
+// (bytes, codes, with q_hr) and h H·W·C elements. s2d: 1 for the s2d form
+// (bf16, q_hr null), whose HR_conv2 walks `table` (per_list entries per
+// output sub-position; null otherwise), else 0.
 extern "C" int hdrtv_tail_f32(const void* s, const void* up, const void* cond1, const void* skip,
                               const void* const* sft, const void* w_hr, const void* b_hr,
                               const void* q_hr, const void* w_last, const void* b_last, void* out,
                               void* t, void* h, int H, int W, int C, int CC, int Cl, int pack,
-                              void* stream) {
+                              int s2d, const int* table, int per_list, void* stream) {
   return hdrtv::tail<float>(s, up, cond1, skip, sft, w_hr, b_hr, hdrtv::quant_params(q_hr), w_last,
-                            b_last, out, t, h, H, W, C, CC, Cl, pack, stream);
+                            b_last, out, t, h, H, W, C, CC, Cl, pack, s2d, table, per_list, stream);
 }
 
 extern "C" int hdrtv_tail_bf16(const void* s, const void* up, const void* cond1, const void* skip,
                                const void* const* sft, const void* w_hr, const void* b_hr,
                                const void* q_hr, const void* w_last, const void* b_last, void* out,
                                void* t, void* h, int H, int W, int C, int CC, int Cl, int pack,
-                               void* stream) {
+                               int s2d, const int* table, int per_list, void* stream) {
   return hdrtv::tail<hdrtv::bf16>(s, up, cond1, skip, sft, w_hr, b_hr, hdrtv::quant_params(q_hr),
-                                  w_last, b_last, out, t, h, H, W, C, CC, Cl, pack, stream);
+                                  w_last, b_last, out, t, h, H, W, C, CC, Cl, pack, s2d, table, per_list, stream);
 }

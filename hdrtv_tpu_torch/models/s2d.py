@@ -930,10 +930,12 @@ def _ensemble_mega(
         n_first=p["LE.conv_first.bias"].shape[-1], scale=scale,
         packed=(aw1p_bgr if bgr else aw1p, aw3p, wcat),
     )
+    # Every 1×1 weight here is a w_s2d_1x1 transform and HR_conv2's a
+    # w_s2d_s1 one (s2d_transform_params): both kernels skip their zeros.
     c_feat, cond1 = fused_cond_chain(c0, [
         w11("LE.cond_first.2"), w11("LE.cond_first.4"),
         w11("LE.CondNet1.0"), w11("LE.CondNet1.2"), w11("LE.CondNet1.4"),
-    ])
+    ], s2d=True)
     fea0 = _sft_conv(p, "LE.SFT_layer1", "LE.HR_conv1", fea_pre[None], cond1[None],
                      policy=policy, relu_fused=True)
     cond2, cond3, cond4 = _le_cond_downs(p, c_feat[None], policy=policy)
@@ -951,7 +953,7 @@ def _ensemble_mega(
         s, cond1, agcm, _sft4_bd(p, "LE.SFT_layer2", policy),
         policy.cast(p["LE.HR_conv2.weight"]), p["LE.HR_conv2.bias"],
         policy.cast(p["LE.conv_last.weight"]), p["LE.conv_last.bias"],
-        pack=pack, up_coarse=up_coarse, qargs_hr=_qargs_for(p, "LE.HR_conv2", s[None]),
+        pack=pack, up_coarse=up_coarse, qargs_hr=_qargs_for(p, "LE.HR_conv2", s[None]), s2d=True,
     )
 
 

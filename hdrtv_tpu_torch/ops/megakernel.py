@@ -217,18 +217,46 @@ def fused_agcm_head(
 # ---------------------------------------------------------------------------
 
 
-def fused_cond_chain_ref(c0, weights, qargs=None):
+def _rows_1x1(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 ``v`` (..., 4K) times a ``w_s2d_1x1`` weight (4K, 4N) plus a
+    ``b_s2d`` bias, as the s2d forms take it: the (·, K) rows of natural
+    pixels (the sub-position-major channels of an s2d pixel are four such
+    rows) times the weight's first diagonal block, + the bias's first
+    quarter. Equal to the dense product on weights of that structure, another
+    result on any other."""
+    k, n = w.shape[0] // 4, w.shape[1] // 4
+    rows = torch.matmul(v.reshape(-1, k), w[:k, :n].float()) + b[:n]
+    return rows.reshape(*v.shape[:-1], 4 * n)
+
+
+def _check_s2d_1x1(name: str, weights) -> None:
+    """What ``s2d=True`` takes, on the CPU as on the card: 1×1 weights and
+    biases whose widths are four sub-position blocks."""
+    for w, b in weights:
+        if w.shape[0] % 4 or w.shape[1] % 4 or b.shape[0] % 4:
+            raise ValueError(f"{name}: s2d=True needs 1×1 widths divisible by 4, got {tuple(w.shape)} / "
+                             f"{tuple(b.shape)}")
+
+
+def fused_cond_chain_ref(c0, weights, qargs=None, *, s2d=False):
     """Plain version, the body of the Pallas ``_cond_chain_kernel``: the
     running value stays fp32 from step to step and is rounded to the weight's
     type at each product; sums, the fp32 bias and the leaky ReLU (all steps
     but the last) are fp32; ``c`` is the value after the second step and
     ``cond1`` the last, each rounded once on store. An int8 step (``qargs``
     entry not None) quantizes the fp32 running value itself, sums the codes'
-    products exactly and rescales: yscale, then the folded bias."""
+    products exactly and rescales: yscale, then the folded bias. ``s2d``:
+    each float step multiplies the weight's first diagonal block only
+    (:func:`_rows_1x1`), as the kernel's s2d form does."""
     v = c0.float()
     c = None
     for idx, ((w, b), qa) in enumerate(zip(weights, qargs or [None] * len(weights))):
-        v = _dense_q(v, qa) if qa is not None else torch.matmul(_rounded(v, w.dtype), w.float()) + b
+        if qa is not None:
+            v = _dense_q(v, qa)
+        elif s2d:
+            v = _rows_1x1(_rounded(v, w.dtype), w, b)
+        else:
+            v = torch.matmul(_rounded(v, w.dtype), w.float()) + b
         if idx != 4:
             v = _apply_act(v, "lrelu")
         if idx == 1:
@@ -236,7 +264,15 @@ def fused_cond_chain_ref(c0, weights, qargs=None):
     return c, v.to(c0.dtype)
 
 
-def fused_cond_chain(c0: torch.Tensor, weights, *, qargs=None) -> tuple[torch.Tensor, torch.Tensor]:
+# The natural widths the Hopper row tile of csrc/chain_sm90.cuh is built for:
+# cond_chain 64 → 64 ×4 → 16, the tail's SFT cond 16 and features 32.
+COND_CHAIN_S2D_WIDTHS = (64, 64, 64, 64, 64, 16)
+TAIL_S2D_WIDTHS = (16, 32)
+
+
+def fused_cond_chain(
+    c0: torch.Tensor, weights, *, qargs=None, s2d: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
     """c0 (Hb, Wb, C) → (c, cond1): lrelu(cond_first.2), lrelu(cond_first.4)
     → ``c``, then lrelu(CondNet1.0), lrelu(CondNet1.2), CondNet1.4 →
     ``cond1``, in one pass. ``weights``: five (w (C, C'), b (C',)) pairs.
@@ -244,7 +280,18 @@ def fused_cond_chain(c0: torch.Tensor, weights, *, qargs=None) -> tuple[torch.Te
     1×1 int8 parameters (``ops/w8a8.py`` ``QArgs`` with ``taps`` 1, prepared
     from that step's w and b; on the card its input width % 32 and output
     width % 8): the JAX kernel's ``qflags`` steps. A launch with any int8 step
-    counts as ``cond_chain_w8a8``."""
+    counts as ``cond_chain_w8a8``.
+
+    ``s2d`` declares every weight ``w_s2d_1x1(w)`` and every bias
+    ``b_s2d(b)`` (``models/s2d.py``; the frame programs pass True, their
+    weights come from those transforms): a float step then multiplies the
+    (4·Hb·Wb, K) rows of natural pixels by the weight's first diagonal block
+    only, a quarter of the dense product. bf16 on the card without int8
+    steps: the Hopper row tile of ``csrc/chain_sm90.cuh`` (natural widths
+    64 → 64 ×4 → 16; others raise); fp32 and int8 steps keep the dense
+    kernel, the same function on such weights. The plain version honours it
+    too, so a weight without that structure gives another result than the
+    JAX kernel's. False: the dense product, right for any weight."""
     hb, wb, k = c0.shape
     dt = native.element_type("cond_chain c0", c0)
     if len(weights) != 5:
@@ -263,8 +310,10 @@ def fused_cond_chain(c0: torch.Tensor, weights, *, qargs=None) -> tuple[torch.Te
                 raise ValueError(f"cond_chain: int8 steps take 1×1 qargs, got {qa.taps} taps")
             check_qargs("cond_chain", qa, k, w.shape[1], not cpu)
         k = w.shape[1]
+    if s2d:
+        _check_s2d_1x1("cond_chain", weights)
     if cpu:
-        return fused_cond_chain_ref(c0, weights, qargs)
+        return fused_cond_chain_ref(c0, weights, qargs, s2d=s2d)
     if any(w.shape[0] % 16 or w.shape[1] % 8 for w in ws):
         raise ValueError("cond_chain needs every step's input % 16 and output % 8 == 0")
     if any(qa is not None and w.shape[0] % 32 for w, qa in zip(ws, qargs)):
@@ -273,16 +322,20 @@ def fused_cond_chain(c0: torch.Tensor, weights, *, qargs=None) -> tuple[torch.Te
     for w, b in weights:
         native.check_cuda("cond_chain w", w, dt)
         native.check_cuda("cond_chain b", b, torch.float32)
+    quant = any(qa is not None for qa in qargs)
+    row_tile = s2d and dt == torch.bfloat16 and not quant  # the Hopper row tile
+    if row_tile and tuple([ws[0].shape[0] // 4] + [w.shape[1] // 4 for w in ws]) != COND_CHAIN_S2D_WIDTHS:
+        raise ValueError(f"cond_chain: the s2d row tile takes natural widths {COND_CHAIN_S2D_WIDTHS}, got "
+                         f"{[ws[0].shape[0] // 4] + [w.shape[1] // 4 for w in ws]}")
     ints = ctypes.c_int * 5
     c = torch.empty((hb, wb, ws[1].shape[1]), dtype=dt, device=c0.device)
     cond1 = torch.empty((hb, wb, k), dtype=dt, device=c0.device)
-    quant = any(qa is not None for qa in qargs)
     qptrs, _structs = native.quant_params_pointers(qargs) if quant else (None, None)
     native.launch(
         "cond_chain", dt,
         c0.data_ptr(), c.data_ptr(), cond1.data_ptr(), native.pointer_array(ws), native.pointer_array(bs),
-        ints(*[w.shape[0] for w in ws]), ints(*[w.shape[1] for w in ws]), qptrs, hb * wb, native.stream_of(c0),
-        counter="cond_chain_w8a8" if quant else None,
+        ints(*[w.shape[0] for w in ws]), ints(*[w.shape[1] for w in ws]), qptrs, hb * wb, int(row_tile),
+        native.stream_of(c0), counter="cond_chain_w8a8" if quant else None,
     )
     return c, cond1
 
@@ -292,8 +345,34 @@ def fused_cond_chain(c0: torch.Tensor, weights, *, qargs=None) -> tuple[torch.Te
 # ---------------------------------------------------------------------------
 
 
+def _sft_t_rows(x: torch.Tensor, cond: torch.Tensor, sft4, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_sft_t` over ``w_s2d_1x1`` SFT weights and ``b_s2d`` biases as
+    the s2d forms take them: the rows of natural pixels of ``x`` and ``cond``
+    (fp32, (..., 4C) and (..., 4CC)) against each weight's first diagonal
+    block and each bias's first quarter."""
+    c, cc = x.shape[-1] // 4, cond.shape[-1] // 4
+    blocks = [(w[: w.shape[0] // 4, : w.shape[1] // 4], b[: b.shape[0] // 4]) for w, b in sft4]
+    return _sft_t(x.reshape(-1, c), cond.reshape(-1, cc), blocks, dtype).reshape(x.shape)
+
+
+def _s2d_slots_only(w: torch.Tensor) -> torch.Tensor:
+    """A ``w_s2d_s1`` weight (3, 3, 4C, 4Co) with every (tap, input
+    sub-position) slot that ``models/s2d.py s2d_slots(1)`` leaves out of an
+    output sub-position set to zero: what the Hopper conv tile multiplies
+    when it walks the slot table."""
+    from hdrtv_tpu_torch.models.s2d import s2d_slots  # models/s2d.py imports this module
+
+    ci, co = w.shape[2] // 4, w.shape[3] // 4
+    mask = torch.zeros(9, 4, 4, dtype=torch.bool)
+    for so, slots in enumerate(s2d_slots(1)):
+        for tap, si in slots:
+            mask[tap, si, so] = True
+    full = mask.repeat_interleave(ci, dim=1).repeat_interleave(co, dim=2).reshape(3, 3, 4 * ci, 4 * co)
+    return torch.where(full.to(w.device), w, torch.zeros((), dtype=w.dtype, device=w.device))
+
+
 def fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last, *, pack=True, up_coarse=None,
-                   qargs_hr=None):
+                   qargs_hr=None, s2d=False):
     """Plain version, the body of the Pallas ``_tail_kernel``: with
     ``up_coarse`` the SFT input is s + d2s(up_coarse) summed in fp32 and
     stored in the element type; the SFT's hidden activations are stored in
@@ -302,12 +381,22 @@ def fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last, *, pac
     pad with zeros); conv_last sums in fp32, adds the fp32 bias and the skip;
     the pack rounds its multiply and its add separately and truncates. With
     ``qargs_hr`` (the int8 body) t stays fp32 and is quantized for HR_conv2;
-    h is rounded to the element type as in the float body."""
+    h is rounded to the element type as in the float body. ``s2d``: the SFT
+    multiplies its weights' first diagonal blocks only
+    (:func:`_sft_t_rows`), and the float HR_conv2 only the populated s2d
+    slots of ``w_hr`` (:func:`_s2d_slots_only`), as the kernel's s2d form
+    does."""
     dt = s.dtype
     sf = s.float()
     if up_coarse is not None:
         sf = _rounded(sf + _d2s_fine(up_coarse).float(), dt)
-    hacc = _sft_conv_t(sf, cond1.to(dt).float(), sft_small, w_hr, b_hr, qargs_hr, dt)
+    cond = cond1.to(dt).float()
+    if not s2d:
+        hacc = _sft_conv_t(sf, cond, sft_small, w_hr, b_hr, qargs_hr, dt)
+    elif qargs_hr is None:
+        hacc = _conv_same(_rounded(_sft_t_rows(sf, cond, sft_small, dt), dt), _s2d_slots_only(w_hr), b_hr)
+    else:
+        hacc = _taps_conv_q(_sft_t_rows(sf, cond, sft_small, dt), qargs_hr)
     h = _rounded(torch.clamp_min(hacc, 0.0), dt)
     y = _conv_same(h, w_last, b_last) + skip.float()
     if not pack:
@@ -321,6 +410,7 @@ def fused_tail(
     s: torch.Tensor, cond1: torch.Tensor, skip: torch.Tensor,
     sft_small, w_hr, b_hr, w_last, b_last,
     *, pack: bool = True, up_coarse: torch.Tensor | None = None, qargs_hr: QArgs | None = None,
+    s2d: bool = False,
 ) -> torch.Tensor:
     """The LE output slice over s2d tensors:
 
@@ -336,7 +426,18 @@ def fused_tail(
     ``s`` is the fine skip alone and the SFT input is s + d2s(up_coarse),
     un-folded on read. ``sft_small``: four (w (in, out), b) pairs as for
     :func:`fused_sft_conv3_v2`. ``qargs_hr``: HR_conv2's int8 parameters (the
-    int8 body, ``tail_w8a8``; they stand in for ``w_hr`` and ``b_hr``)."""
+    int8 body, ``tail_w8a8``; they stand in for ``w_hr`` and ``b_hr``).
+
+    ``s2d`` declares the SFT weights ``w_s2d_1x1(w)``, their biases
+    ``b_s2d(b)`` and ``w_hr`` ``w_s2d_s1(w)`` (``models/s2d.py``; the frame
+    programs pass True): the SFT then multiplies the rows of natural pixels
+    by each weight's first diagonal block and HR_conv2 only the populated
+    s2d slots. bf16 on the card with a float HR_conv2: the SFT on the Hopper
+    row tile of ``csrc/chain_sm90.cuh`` (natural widths CC 16, C 32; others
+    raise) and HR_conv2 on ``csrc/conv3x3_sm90.cuh``'s tile over the slot
+    table (``ops/conv_kernels.py sm90_table``); fp32 and the int8 body keep
+    the dense kernels, the same function on such weights. The plain version
+    honours it too. False: dense, right for any weight."""
     hb, wb, c = s.shape
     cc = cond1.shape[-1]
     cl = w_last.shape[-1]
@@ -351,9 +452,12 @@ def fused_tail(
     flat = _check_sft("tail", sft_small, dt, c, cc, not cpu)
     if qargs_hr is not None:
         check_qargs("tail", qargs_hr, c, c, not cpu)
+    if s2d:
+        _check_s2d_1x1("tail", sft_small)
+        check_a_sub("tail", 1, c, c)
     if cpu:
         return fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last,
-                              pack=pack, up_coarse=up_coarse, qargs_hr=qargs_hr)
+                              pack=pack, up_coarse=up_coarse, qargs_hr=qargs_hr, s2d=s2d)
     if c % 32 or cc % 16 or cl % 4 or cl > 16 or (qargs_hr is not None and c % 64):
         raise ValueError(f"tail needs C % 32, CC % 16, and 4 | Cl <= 16 (int8: C % 64), got {c}, {cc}, {cl}")
     native.check_cuda("tail s", s, dt)
@@ -365,6 +469,13 @@ def fused_tail(
     native.check_cuda("tail b_last", b_last, torch.float32, (cl,))
     if up_coarse is not None:
         native.check_cuda("tail up_coarse", up_coarse, dt)
+    hopper = s2d and dt == torch.bfloat16 and qargs_hr is None  # the row tile and the Hopper conv tile
+    table, per_list = None, 0
+    if hopper:
+        if (cc // 4, c // 4) != TAIL_S2D_WIDTHS:
+            raise ValueError(f"tail: the s2d row tile takes natural widths (CC, C) = {TAIL_S2D_WIDTHS}, "
+                             f"got {(cc // 4, c // 4)}")
+        table, per_list = sm90_table("tail", 1, 1, c, c, c)
     t = torch.empty((hb, wb, c), dtype=dt if qargs_hr is None else torch.int8, device=s.device)  # t or its codes
     h = torch.empty((hb, wb, c), dtype=dt, device=s.device)
     if pack:
@@ -376,7 +487,7 @@ def fused_tail(
         s.data_ptr(), None if up_coarse is None else up_coarse.data_ptr(), cond1.data_ptr(),
         skip.data_ptr(), native.pointer_array(flat), w_hr.data_ptr(), b_hr.data_ptr(),
         native.quant_params(qargs_hr), w_last.data_ptr(), b_last.data_ptr(), out.data_ptr(), t.data_ptr(),
-        h.data_ptr(), hb, wb, c, cc, cl, int(pack), native.stream_of(s),
+        h.data_ptr(), hb, wb, c, cc, cl, int(pack), int(hopper), table, per_list, native.stream_of(s),
         counter=None if qargs_hr is None else "tail_w8a8",
     )
     return out

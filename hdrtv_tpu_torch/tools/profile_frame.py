@@ -18,7 +18,7 @@ time, and the device busy share (kernel time over wall time; one stream, so
 kernels do not overlap), and the number of kernel launches. The port's
 kernels are also split by source kernel (conv tile on the FMA units and on
 the tensor cores, the Hopper tiles of down2 and block_conv3 in bf16 and in
-fp32 on 3×TF32, SFT passes, 1×1 chains, the head's two kernels, conv_last,
+fp32 on 3×TF32, SFT passes, 1×1 chains (and their Hopper row tiles), the head's two kernels, conv_last,
 pack, the HG tail, the int8 conv tile and quantize pass). The last two lines are the card's
 name and power limit as nvidia-smi gives them, and the same breakdown as
 JSON. Needs a CUDA device.
@@ -38,7 +38,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 # (group, substrings of the kernel name), first match wins
 GROUPS = (
     ("port kernels", ("conv3x3_kernel", "conv3x3_mma_kernel", "conv3x3_sm90_kernel", "conv3x3_tf32x3_kernel",
-                      "sft_kernel", "chain_kernel",
+                      "sft_kernel", "chain_kernel", "sft_sm90_kernel", "chain_sm90_kernel",
                       "pack_rgb48_kernel", "agcm_kernel", "in_conv_kernel", "conv_last_kernel",
                       "hg_tail_mma_kernel", "hg_tail_fma_kernel", "colorimetric_kernel",
                       "conv3x3_s8_kernel", "quantize_kernel")),

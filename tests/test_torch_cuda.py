@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from hdrtv_tpu_torch.models.layers import fp32_math
-from hdrtv_tpu_torch.models.s2d import w_s2d_s1, w_s2d_s2
+from hdrtv_tpu_torch.models.s2d import b_s2d, w_s2d_1x1, w_s2d_s1, w_s2d_s2
 from hdrtv_tpu_torch.ops import native
 
 pytestmark = pytest.mark.cuda
@@ -426,6 +426,87 @@ def test_tail_matches_plain(dev, dtype, hb, wb, coarse, pack):
         assert int(d.max()) <= 1, int(d.max())
     else:
         assert int(d.max()) <= 64 and float(d.float().mean()) < 1.0, (int(d.max()), float(d.float().mean()))
+
+
+def _p11(rng, ci, co, dev, scale=0.1):
+    """A 1×1 conv as the s2d program has it: w_s2d_1x1 weight (bf16), b_s2d bias."""
+    w = w_s2d_1x1(rng.randn(1, 1, ci, co).astype(np.float32) * scale)[0, 0]
+    return _t(w, dev, "bf16"), _t(b_s2d(rng.randn(co).astype(np.float32) * 0.1), dev)
+
+
+@pytest.mark.parametrize("hb,wb", [(12, 20), (9, 15), (1, 7), (3, 5), (72, 128)])
+def test_cond_chain_s2d_matches_plain(dev, hb, wb):
+    """The Hopper row tile (csrc/chain_sm90.cuh) of cond_chain's s2d form in
+    bf16, natural widths 64 → 64 ×4 → 16: 4·Hb·Wb rows, a whole number of
+    64-row tiles (12 × 20), ragged ones (9 × 15, 3 × 5), less than one tile
+    (1 × 7), and several tiles per warpgroup (72 × 128). Against the plain
+    version's s2d form, two bf16 steps as the dense chain (a flipped rounding
+    of one step moves the next)."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_cond_chain, fused_cond_chain_ref
+
+    rng = np.random.RandomState(hb * wb + 13)
+    c0 = _t(rng.rand(hb, wb, 256) - 0.3, dev, "bf16")
+    weights = [_p11(rng, 64, n, dev) for n in (64, 64, 64, 64, 16)]
+    before = native.launch_counts["cond_chain"]
+    c, cond1 = fused_cond_chain(c0, weights, s2d=True)
+    assert native.launch_counts["cond_chain"] == before + 1
+    c_r, cond1_r = fused_cond_chain_ref(c0, weights, s2d=True)
+    assert c.shape == (hb, wb, 256) and cond1.shape == (hb, wb, 64)
+    _close(c, c_r, "bf16", steps=2, flips=0.05)
+    _close(cond1, cond1_r, "bf16", steps=2, flips=0.05)
+
+
+@pytest.mark.parametrize("hb,wb,coarse,pack", [
+    (12, 20, True, True), (9, 15, False, True), (10, 14, True, False), (5, 7, False, False), (64, 96, True, True),
+])
+def test_tail_s2d_matches_plain(dev, hb, wb, coarse, pack):
+    """The tail's s2d form in bf16: the SFT pass on the row tile, HR_conv2 on
+    the Hopper conv tile over the s2d slot table, conv_last as before; tile
+    edges of all three, both forms of s, packed and not. Against the plain
+    version's s2d form, with test_tail_matches_plain's bounds."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_tail, fused_tail_ref
+
+    rng = np.random.RandomState(hb * wb + 19)
+    s = _t(rng.rand(hb, wb, 128) - 0.3, dev, "bf16")
+    up = _t(rng.rand(hb // 2, wb // 2, 512) - 0.3, dev, "bf16") if coarse else None
+    cond1 = _t(rng.rand(hb, wb, 64) - 0.3, dev, "bf16")
+    skip = _t(rng.rand(hb, wb, 12), dev, "bf16")
+    sft = [_p11(rng, ci, co, dev, 0.2) for ci, co in ((16, 16), (16, 32), (16, 16), (16, 32))]
+    args = (sft, _t(w_s2d_s1(rng.randn(3, 3, 32, 32).astype(np.float32) * 0.04), dev, "bf16"),
+            _t(b_s2d(rng.randn(32).astype(np.float32) * 0.1), dev),
+            _t(w_s2d_s1(rng.randn(3, 3, 32, 3).astype(np.float32) * 0.02), dev, "bf16"),
+            _t(b_s2d(rng.randn(3).astype(np.float32) * 0.1), dev))
+    before = native.launch_counts["tail"]
+    y = fused_tail(s, cond1, skip, *args, pack=pack, up_coarse=up, s2d=True)
+    assert native.launch_counts["tail"] == before + 1
+    y_r = fused_tail_ref(s, cond1, skip, *args, pack=pack, up_coarse=up, s2d=True)
+    if not pack:
+        assert y.shape == (hb, wb, 12)
+        _close(y, y_r, "bf16", steps=2, flips=0.05)
+        return
+    torch.cuda.synchronize()
+    assert y.shape == (hb, 2, wb, 6) and y.dtype == torch.uint16
+    d = (y.to(torch.int32) - y_r.to(torch.int32)).abs()
+    assert int(y_r.to(torch.int32).max()) > int(y_r.to(torch.int32).min())
+    assert int(d.max()) <= 64 and float(d.float().mean()) < 1.0, (int(d.max()), float(d.float().mean()))
+
+
+def test_s2d_row_tile_refuses_other_widths(dev):
+    """s2d=True in bf16 with natural widths the row tile is not built for
+    raises on the card; nothing falls back to the dense kernels."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_cond_chain, fused_tail
+
+    rng = np.random.RandomState(5)
+    c0 = _t(rng.rand(4, 4, 128), dev, "bf16")
+    with pytest.raises(ValueError, match="row tile"):
+        fused_cond_chain(c0, [_p11(rng, 32, n, dev) for n in (32, 32, 32, 32, 16)], s2d=True)
+    sft = [_p11(rng, ci, co, dev) for ci, co in ((16, 16), (16, 64), (16, 16), (16, 64))]
+    z = torch.zeros
+    with pytest.raises(ValueError, match="row tile"):
+        fused_tail(_t(rng.rand(4, 4, 256), dev, "bf16"), _t(rng.rand(4, 4, 64), dev, "bf16"),
+                   _t(rng.rand(4, 4, 12), dev, "bf16"), sft, z(3, 3, 256, 256, device=dev, dtype=torch.bfloat16),
+                   z(256, device=dev), z(3, 3, 256, 12, device=dev, dtype=torch.bfloat16), z(12, device=dev),
+                   s2d=True)
 
 
 def test_mega_frame_matches_cpu(dev, monkeypatch):
