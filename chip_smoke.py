@@ -44,6 +44,12 @@ lines; any failed check raises and the script exits non-zero with no result:
    bf16 once more in the dense form (s2d=False), a case no path launches,
    with the same tolerances; a "tail_split" line gives each bf16 form's three
    launches (SFT pass, HR_conv2, conv_last) timed apart under torch.profiler.
+   sft_conv3 and resblock likewise run in the s2d form both bf16 programs
+   call (s2d=True: in bf16 the SFT passes on the row tile, resblock's SFT2
+   reading the fp32 h1, the convs on the Hopper conv tile over the slot
+   table, resblock's conv1 storing h1 in fp32) and in bf16 once more in the
+   dense form, with the same tolerances; "sft_conv3_split" and
+   "resblock_split" lines give each bf16 case's SFT and conv launches apart.
    hg_tail, at the 1080p shape of the
    HG composite (544 × 960 blocks, 256 + 256 channels), in codes: fp32 ≤ 1;
    bf16 equal except where the rounding of u10 flipped, each such output
@@ -384,10 +390,14 @@ def time_ms(fn, torch) -> float:
     return start.elapsed_time(end) / reps
 
 
-def tail_split(fn, torch, reps: int = 20) -> dict:
-    """Device ms per call of each of the tail's three launches (the SFT pass,
-    HR_conv2, conv_last), from torch.profiler over ``reps`` calls of fn()
-    after a warm one: the kernels' device time summed by name."""
+def launch_split(fn, torch, parts, reps: int = 20) -> dict:
+    """Device ms per call of each launch kind of one kernel call, from
+    torch.profiler over ``reps`` calls of fn() after a warm one: the kernels'
+    device time summed by name. ``parts``: (key, substring of the kernel
+    name), first match wins; the rest goes to other_ms. Every part must
+    show device time. "kernels" has each kernel's ms by its name with its
+    template arguments (which tell, say, resblock's two SFT passes and two
+    convs apart)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -396,17 +406,26 @@ def tail_split(fn, torch, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split = {"sft_ms": 0.0, "hr_conv2_ms": 0.0, "conv_last_ms": 0.0, "other_ms": 0.0}
+    split = {key: 0.0 for key, _ in parts}
+    split["other_ms"] = 0.0
+    kernels = {}
     for e in prof.key_averages():
         us = next((float(v) for v in (getattr(e, a, None) for a in ("self_device_time_total", "self_cuda_time_total"))
                    if v), 0.0)
         name = e.key.lower()
-        part = ("conv_last_ms" if "conv_last" in name else "sft_ms" if "sft" in name
-                else "hr_conv2_ms" if "conv3x3" in name else "other_ms")
+        part = next((key for key, sub in parts if sub in name), "other_ms")
         split[part] += us / 1e3 / reps
-    if split["sft_ms"] <= 0 or split["hr_conv2_ms"] <= 0 or split["conv_last_ms"] <= 0:
-        raise AssertionError(f"the profiler saw no device time for one of the tail's launches: {split}")
-    return {k: round(v, 4) for k, v in split.items()}
+        if us:
+            kernels[e.key.split("(anonymous namespace)::", 1)[-1].split("(")[0]] = round(us / 1e3 / reps, 4)
+    if any(split[key] <= 0 for key, _ in parts):
+        raise AssertionError(f"the profiler saw no device time for one of the launches: {split}")
+    return {**{k: round(v, 4) for k, v in split.items()}, "kernels": kernels}
+
+
+# The launches of the tail (its SFT pass, HR_conv2, conv_last) and of sft_conv3 and
+# resblock (SFT passes, 3×3 convs), by kernel name.
+TAIL_PARTS = (("conv_last_ms", "conv_last"), ("sft_ms", "sft"), ("hr_conv2_ms", "conv3x3"))
+SFT_CONV_PARTS = (("sft_ms", "sft"), ("conv_ms", "conv3x3"))
 
 
 def conv_macs(w, h_out: int, w_out: int, stride: int) -> int:
@@ -673,7 +692,9 @@ def phase_kernels(torch, np) -> dict:
             del x, y, y_r, xw, x_pad
 
         # sft_conv3: x (hb,wb,128), cond (hb,wb,64); on the bf16 frame programs only (the
-        # megakernel program has SFT_layer2 + HR_conv2 in its tail)
+        # megakernel program has SFT_layer2 + HR_conv2 in its tail). The programs' s2d form
+        # (bf16: the SFT on the row tile, the conv on the Hopper conv tile over the slot
+        # table), then in bf16 the dense form once (no path launches it)
         for name, hb, wb, relu, skip, per_path in (
             ("L0 SFT_layer1/2 + HR_conv1/2", 540, 960, True, False, (0, 2, 1)),
             ("L2 trunk2/4 sft1 + conv1", 135, 240, True, False, (0, 2, 2)),
@@ -685,14 +706,22 @@ def phase_kernels(torch, np) -> dict:
             sft = sft4(16, 32)
             b = f32(rng.randn(128) * 0.1)
             sk = t(rng.rand(hb, wb, 128)) if skip else None
-            y = fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, skip=sk)
-            y_r = fused_sft_conv3_v2_ref(x, cond, sft, w, b, relu=relu, skip=sk)
-            ms = time_ms(lambda: fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, skip=sk), torch)
-            plain = time_ms(lambda: fused_sft_conv3_v2_ref(x, cond, sft, w, b, relu=relu, skip=sk), torch)
             params = [p for pair in sft for p in pair]
-            record("sft_conv3", dtype, name, per_path, y, y_r, ATOL if dtype == "f32" else 1, ms, plain,
-                   None, nbytes_of(x, cond, w, b, y, sk, *params),
-                   2 * conv_macs(w, hb, wb, 1) + sft_flops(hb * wb, sft) + 3 * hb * wb * 128, unit)
+            for s2d in (True, False) if dtype == "bf16" else (True,):
+                def call(s2d=s2d):
+                    return fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, skip=sk, s2d=s2d)
+
+                def call_plain(s2d=s2d):
+                    return fused_sft_conv3_v2_ref(x, cond, sft, w, b, relu=relu, skip=sk, s2d=s2d)
+
+                y, y_r = call(), call_plain()
+                ms, plain = time_ms(call, torch), time_ms(call_plain, torch)
+                if dtype == "bf16":
+                    log(json.dumps({"sft_conv3_split": {"case": name, "s2d": s2d,
+                                                        **launch_split(call, torch, SFT_CONV_PARTS)}}))
+                record("sft_conv3", dtype, f"{name} s2d={s2d}", per_path if s2d else (0, 0, 0), y, y_r,
+                       ATOL if dtype == "f32" else 1, ms, plain, None, nbytes_of(x, cond, w, b, y, sk, *params),
+                       2 * conv_macs(w, hb, wb, 1) + sft_flops(hb * wb, sft) + 3 * hb * wb * 128, unit)
             del x, cond, y, y_r, sk
 
         # resblock at L1: x (270,480,128), cond (270,480,64)
@@ -706,15 +735,26 @@ def phase_kernels(torch, np) -> dict:
             w2 = t(w_s2d_s1(rng.randn(3, 3, 32, 32).astype(np.float32) * 0.05))
             b1, b2 = f32(rng.randn(128) * 0.1), f32(rng.randn(128) * 0.1)
             args = (x, cond, sft1, w1, b1, sft2, w2, b2)
-            y = fused_resblock(*args, up_coarse=up)
-            y_r = fused_resblock_ref(*args, up_coarse=up)
-            ms = time_ms(lambda: fused_resblock(*args, up_coarse=up), torch)
-            plain = time_ms(lambda: fused_resblock_ref(*args, up_coarse=up), torch)
             params = [p for pair in (*sft1, *sft2) for p in pair]
-            record("resblock", dtype, name, (0, 1, 1), y, y_r, ATOL if dtype == "f32" else 2, ms, plain, None,
-                   nbytes_of(x, cond, up, w1, b1, w2, b2, y, *params),
-                   2 * (conv_macs(w1, hb, wb, 1) + conv_macs(w2, hb, wb, 1))
-                   + sft_flops(hb * wb, sft1) + sft_flops(hb * wb, sft2) + 8 * hb * wb * 128, unit)
+            # the programs' s2d form (bf16: both SFT passes on the row tile, both convs on the
+            # Hopper conv tile, conv1 storing h1 in fp32), then in bf16 the dense form once
+            for s2d in (True, False) if dtype == "bf16" else (True,):
+                def call(s2d=s2d):
+                    return fused_resblock(*args, up_coarse=up, s2d=s2d)
+
+                def call_plain(s2d=s2d):
+                    return fused_resblock_ref(*args, up_coarse=up, s2d=s2d)
+
+                y, y_r = call(), call_plain()
+                ms, plain = time_ms(call, torch), time_ms(call_plain, torch)
+                if dtype == "bf16":
+                    log(json.dumps({"resblock_split": {"case": name, "s2d": s2d,
+                                                       **launch_split(call, torch, SFT_CONV_PARTS)}}))
+                record("resblock", dtype, f"{name} s2d={s2d}", (0, 1, 1) if s2d else (0, 0, 0), y, y_r,
+                       ATOL if dtype == "f32" else 2, ms, plain, None,
+                       nbytes_of(x, cond, up, w1, b1, w2, b2, y, *params),
+                       2 * (conv_macs(w1, hb, wb, 1) + conv_macs(w2, hb, wb, 1))
+                       + sft_flops(hb * wb, sft1) + sft_flops(hb * wb, sft2) + 8 * hb * wb * 128, unit)
             del x, cond, up, y, y_r, args
 
         # mix_chain: the CondNet2 tail, window [0, 256) of (270,480,768): 256 → 256 lrelu → 64
@@ -821,8 +861,8 @@ def phase_kernels(torch, np) -> dict:
                 if share > TAIL_BF16_SHARE:
                     raise AssertionError(f"tail bf16 s2d={s2d}: {share:.3e} of the codes differ > {TAIL_BF16_SHARE}")
                 log(json.dumps({"tail_split": {"dtype": dtype, "s2d": s2d,
-                                               **tail_split(lambda: fused_tail(*targs, pack=True, up_coarse=up,
-                                                                               s2d=s2d), torch)}}))
+                                               **launch_split(lambda: fused_tail(*targs, pack=True, up_coarse=up,
+                                                                                 s2d=s2d), torch, TAIL_PARTS)}}))
             record("tail", dtype, f"L0 fea0 + up_coarse -> packed u16 s2d={s2d}", (0, 0, 1) if s2d else (0, 0, 0),
                    y.to(torch.int32), codes, tol, ms, plain, None,
                    nbytes_of(s_, up, cond, skip, y, *params),

@@ -1,10 +1,10 @@
 // 1×1 chains over the rows of an s2d tensor, written for Hopper (sm_90a):
 // bf16 × bf16 → fp32 on wgmma with A in registers, the block-diagonal s2d
 // weights reduced to their one diagonal block and kept in shared memory.
-// It runs the bf16 float forms of cond_chain (cond_chain_sm90) and of the
-// tail's SFT pass (sft_sm90) when the caller declares the weights s2d
-// (ops/megakernel.py, s2d=True); the dense forms stay on chain.cuh and
-// pointwise.cuh.
+// It runs the bf16 float forms of cond_chain (cond_chain_sm90) and the SFT
+// passes (sft_sm90) of the tail, sft_conv3 and resblock when the caller
+// declares the weights s2d (ops/megakernel.py, s2d=True); the dense forms
+// stay on chain.cuh and pointwise.cuh.
 //
 // Why rows. A 1×1 weight of the s2d program is w_s2d_1x1(w) (models/s2d.py):
 // (4·K, 4·N), block-diagonal with four equal K × N blocks, one per
@@ -52,7 +52,8 @@
 // Bound on this card: bytes. cond_chain at 1080p reads c0 (265 MB) and
 // writes c (265 MB) and cond1 (66 MB): 0.178 ms at 3.35 TB/s, against
 // 72 GFLOP of block products, 0.073 ms at the bf16 rate. The tail's SFT pass
-// reads s, up and cond1 and writes t: 465 MB, 0.139 ms, 13 GFLOP.
+// reads s, up and cond1 and writes t: 465 MB, 0.139 ms, 13 GFLOP; resblock's
+// SFT2 at L1 reads h1 (fp32) and cond and writes t: 116 MB, 0.035 ms.
 #pragma once
 
 #include "conv3x3_sm90.cuh"
@@ -356,47 +357,62 @@ inline cudaError_t cond_chain_sm90(const void* c0, void* c, void* cond1, const v
 }
 
 // ---------------------------------------------------------------------------
-// The tail's SFT pass: per row, with cond (CC) and x = s (+ the un-folded
-// up_coarse, the sum rounded to bf16) (C),
+// The SFT pass of the s2d forms of the tail, sft_conv3 and resblock: per row,
+// with cond (CC) and x (C),
 //   hidden = lrelu([cond·W0s + b0s | cond·W0h + b0h])   (2·CC, rounded to bf16)
 //   t      = x · (hidden_s·W1s + b1s + 1) + hidden_h·W1h + b1h
-// t rounded once and written. At 1080p CC = 16, C = 32, rows = 4·540·960.
-// The scale and shift branches' first products run as one m64n32k16 over
-// the two weights side by side; the hidden's two halves are the A fragments
-// of the two second products.
+// t rounded once and written. x is bf16 (s, or resblock's input), or fp32
+// (XT = float: resblock's h1, which enters the epilogue only). A bf16 x may
+// have a second input `add` (the fine x_add, rows contiguous, or the coarse
+// up tensor, un-folded on read): x becomes the sum rounded to bf16, which
+// is also written to xsum when that is set (resblock's residual). At 1080p
+// CC = 16, C = 32, rows = 4·540·960 (tail, L0 sft_conv3), 4·270·480
+// (resblock) or 4·135·240 (L2 sft_conv3). The scale and shift branches'
+// first products run as one m64n32k16 over the two weights side by side;
+// the hidden's two halves are the A fragments of the two second products.
 // ---------------------------------------------------------------------------
 
 struct SftSm90Args {
   const bf16* cond;  // (rows, CC)
-  const bf16* s;     // (rows, C)
-  const bf16* up;    // nullptr, or the coarse (H/2, W/2, 16·C) tensor whose block d2s has s's shape
+  const void* x;     // (rows, C) of XT
+  const bf16* add;   // nullptr, the fine (rows, C) x_add, or (coarse) the (H/2, W/2, 16·C) tensor whose block d2s has x's shape
+  bf16* xsum;        // nullptr, or (rows, C): x + add, rounded
   bf16* t;           // (rows, C)
   const bf16* w[4];  // scale0, scale1, shift0, shift1 (s2d weights; the block at the top left, row pitch ld)
   const float* b[4];
   int ld[4];
   long long rows;
-  int W;  // s2d pixels per image row (the un-fold of up)
+  int W;       // s2d pixels per image row (the un-fold of a coarse add)
+  int coarse;  // add is the coarse tensor
 };
 
-template <int CC, int C>
+// A stage holds a tile's rows of cond, x and a bf16 side area: the second
+// input, overwritten by the rounded sum (bf16 x), or t (fp32 x; bf16 x
+// writes t over x). Two blocks a SM: four stages a warpgroup with bf16 x,
+// three with fp32 x (its rows are twice the bytes).
+template <int CC, int C, typename XT>
 struct SftSm90Cfg {
-  static constexpr int NS = 4;
+  static constexpr bool F32X = std::is_same<XT, float>::value;
+  static constexpr int NS = F32X ? 3 : 4;
   static constexpr int W0_BYTES = CC * 2 * CC * 2;  // [W0s | W0h], CC × 2·CC
   static constexpr int W1_BYTES = CC * C * 2;       // W1s, W1h: CC × C each
   static constexpr int W_BYTES = W0_BYTES + 2 * W1_BYTES;
   static constexpr int BIAS_BYTES = (2 * CC + 2 * C) * 4;
   static constexpr int CPITCH = (CC + 8) * 2;
-  static constexpr int XPITCH = (C + 8) * 2;
-  static constexpr int STAGE = kRowBM * (CPITCH + 2 * XPITCH);  // cond, s (then t), up
+  static constexpr int XPITCH = (C + 8) * static_cast<int>(sizeof(XT));  // pads: conflict-free pair reads
+  static constexpr int APITCH = (C + 8) * 2;
+  static constexpr int STAGE = kRowBM * (CPITCH + XPITCH + APITCH);
   static constexpr int SMEM = W_BYTES + BIAS_BYTES + 2 * NS * STAGE;
   static_assert(CC == 16 && C % 16 == 0 && C <= 64, "widths of the register tile");
   static_assert(W_BYTES % 16 == 0 && BIAS_BYTES % 16 == 0 && STAGE % 16 == 0, "16-byte alignment");
+  static_assert(2 * (SMEM + 1024) <= 228 * 1024, "two blocks per SM");
 };
 
-template <int CC, int C>
+template <int CC, int C, typename XT>
 __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_constant__ SftSm90Args a) {
-  using Cfg = SftSm90Cfg<CC, C>;
+  using Cfg = SftSm90Cfg<CC, C, XT>;
   constexpr int NS = Cfg::NS;
+  constexpr bool F32X = Cfg::F32X;
   extern __shared__ __align__(16) unsigned char row_smem[];
   unsigned char* const smem = row_smem;
   float* const b0 = reinterpret_cast<float*>(smem + Cfg::W_BYTES);  // [b0s | b0h]
@@ -422,12 +438,13 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
 
   const RowTiles tiles(a.rows, wg);
   const long long half_w = a.W >> 1;
+  const unsigned char* const xg = static_cast<const unsigned char*>(a.x);
   auto load = [&](int i) {
     const long long r0 = tiles.row0(i);
     unsigned char* const st = ring + (i % NS) * Cfg::STAGE;
     unsigned char* const xs = st + kRowBM * Cfg::CPITCH;
-    unsigned char* const us = xs + kRowBM * Cfg::XPITCH;
-    constexpr int CP = CC / 8, XP = C / 8;
+    unsigned char* const as = xs + kRowBM * Cfg::XPITCH;
+    constexpr int CP = CC / 8, XP = C * static_cast<int>(sizeof(XT)) / 16, AP = C / 8;
     for (int idx = t; idx < kRowBM * CP; idx += 128) {
       const int r = idx / CP, c = idx % CP;
       const bool ok = r0 + r < a.rows;
@@ -435,22 +452,27 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
     }
     for (int idx = t; idx < kRowBM * XP; idx += 128) {
       const int r = idx / XP, c = idx % XP;
-      const long long row = r0 + r;
-      const bool ok = row < a.rows;
-      cp_async16_or_zero(xs + r * Cfg::XPITCH + c * 16, a.s + (ok ? row * C + c * 8 : 0), ok);
-      if (a.up) {
-        // fine pixel p = (i, j) of sub-position sub: coarse pixel (i/2, j/2),
-        // channel block (2·(i%2) + j%2)·4C + sub·C
+      const bool ok = r0 + r < a.rows;
+      cp_async16_or_zero(xs + r * Cfg::XPITCH + c * 16, xg + (ok ? (r0 + r) * C * sizeof(XT) + c * 16 : 0), ok);
+    }
+    if (a.add)
+      for (int idx = t; idx < kRowBM * AP; idx += 128) {
+        const int r = idx / AP, c = idx % AP;
+        const long long row = r0 + r;
+        const bool ok = row < a.rows;
         long long src = 0;
-        if (ok) {
+        if (ok && a.coarse) {
+          // fine pixel p = (i, j) of sub-position sub: coarse pixel (i/2, j/2),
+          // channel block (2·(i%2) + j%2)·4C + sub·C
           const long long p = row >> 2;
           const int sub = static_cast<int>(row & 3);
           const long long pi = p / a.W, pj = p - pi * a.W;
           src = ((pi >> 1) * half_w + (pj >> 1)) * (16LL * C) + ((pi & 1) * 2 + (pj & 1)) * (4 * C) + sub * C + c * 8;
+        } else if (ok) {
+          src = row * C + c * 8;
         }
-        cp_async16_or_zero(us + r * Cfg::XPITCH + c * 16, a.up + src, ok);
+        cp_async16_or_zero(as + r * Cfg::APITCH + c * 16, a.add + src, ok);
       }
-    }
   };
   for (int i = 0; i < NS - 1; ++i) {
     if (i < tiles.n) load(i);
@@ -468,7 +490,7 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
 
     unsigned char* const st = ring + (i % NS) * Cfg::STAGE;
     unsigned char* const xs = st + kRowBM * Cfg::CPITCH;
-    const unsigned char* const us = xs + kRowBM * Cfg::XPITCH;
+    unsigned char* const as = xs + kRowBM * Cfg::XPITCH;
     unsigned ac[1][4];
     ldmatrix_x4(ac[0], st + (warp * 16 + (lane & 15)) * Cfg::CPITCH + (lane >> 4) * 16);
 
@@ -504,37 +526,57 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
       const float2 bh = *reinterpret_cast<const float2*>(b1h + n);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        bf16* const px = reinterpret_cast<bf16*>(xs + (rl + 8 * h) * Cfg::XPITCH) + n;
-        float2 xv = load2<bf16>(px);
-        if (a.up) {
-          const float2 u = load2<bf16>(reinterpret_cast<const bf16*>(us + (rl + 8 * h) * Cfg::XPITCH) + n);
-          xv = make_float2(round_to<bf16>(xv.x + u.x), round_to<bf16>(xv.y + u.y));
+        const int r = rl + 8 * h;
+        bf16* const pa = reinterpret_cast<bf16*>(as + r * Cfg::APITCH) + n;  // add, then the sum; or t
+        bf16* pt = pa;
+        float2 xv;
+        if constexpr (F32X) {
+          xv = *reinterpret_cast<const float2*>(xs + r * Cfg::XPITCH + n * 4);
+        } else {
+          pt = reinterpret_cast<bf16*>(xs + r * Cfg::XPITCH) + n;
+          xv = load2<bf16>(pt);
+          if (a.add) {
+            const float2 u = load2<bf16>(pa);
+            xv = make_float2(round_to<bf16>(xv.x + u.x), round_to<bf16>(xv.y + u.y));
+            store2<bf16>(pa, xv);  // exact: already on the bf16 grid
+          }
         }
         const float s0 = sc[4 * j + 2 * h] + bs.x, s1 = sc[4 * j + 2 * h + 1] + bs.y;
         const float h0 = sh[4 * j + 2 * h] + bh.x, h1 = sh[4 * j + 2 * h + 1] + bh.y;
-        store2<bf16>(px, make_float2(xv.x * (s0 + 1.f) + h0, xv.y * (s1 + 1.f) + h1));
+        store2<bf16>(pt, make_float2(xv.x * (s0 + 1.f) + h0, xv.y * (s1 + 1.f) + h1));
       }
     }
     warpgroup_sync(wg);
-    store_rows(a.t, xs, Cfg::XPITCH, C * 2, tiles.row0(i), a.rows, t);
+    const long long r0 = tiles.row0(i);
+    if constexpr (F32X) {
+      store_rows(a.t, as, Cfg::APITCH, C * 2, r0, a.rows, t);
+    } else {
+      store_rows(a.t, xs, Cfg::XPITCH, C * 2, r0, a.rows, t);
+      if (a.xsum) store_rows(a.xsum, as, Cfg::APITCH, C * 2, r0, a.rows, t);
+    }
   }
   cp_async_wait<0>();
 }
 
-// The tail's SFT pass over s2d weights (s, up, cond1, t as tail.cu takes
-// them: H × W s2d pixels of C and CC channels; sft: the eight pointers
-// w, b of scale0, scale1, shift0, shift1). The widths the frame programs
-// run, natural CC = 16 and C = 32, are the ones it takes; anything else is
-// refused.
-inline cudaError_t sft_sm90(const void* s, const void* up, const void* cond1, void* t, const void* const* sft,
-                            int H, int W, int C, int CC, cudaStream_t stream) {
+// The SFT pass over s2d weights: H × W s2d pixels of C and CC channels, x
+// of XT (bf16 or float), add (bf16 x only) nullptr, fine (coarse = 0) or
+// coarse (coarse = 1, H and W even), xsum (with add only) nullptr or the
+// rounded sum's destination; sft: the eight pointers w, b of scale0,
+// scale1, shift0, shift1. The widths the frame programs run, natural CC =
+// 16 and C = 32, are the ones it takes; anything else is refused.
+template <typename XT>
+inline cudaError_t sft_sm90(const void* x, const void* add, int coarse, void* xsum, const void* cond1, void* t,
+                            const void* const* sft, int H, int W, int C, int CC, cudaStream_t stream) {
   constexpr int NCC = 16, NC = 32;
-  using Cfg = SftSm90Cfg<NCC, NC>;
-  if (C != 4 * NC || CC != 4 * NCC || (up && (H % 2 || W % 2))) return cudaErrorInvalidValue;
+  using Cfg = SftSm90Cfg<NCC, NC, XT>;
+  if (C != 4 * NC || CC != 4 * NCC || (add && coarse && (H % 2 || W % 2)) || (add && Cfg::F32X) ||
+      (xsum && !add))
+    return cudaErrorInvalidValue;
   SftSm90Args a;
   a.cond = static_cast<const bf16*>(cond1);
-  a.s = static_cast<const bf16*>(s);
-  a.up = static_cast<const bf16*>(up);
+  a.x = x;
+  a.add = static_cast<const bf16*>(add);
+  a.xsum = static_cast<bf16*>(xsum);
   a.t = static_cast<bf16*>(t);
   const int ld[4] = {CC, C, CC, C};  // scale0 (CC, CC), scale1 (CC, C), shift0, shift1
   for (int i = 0; i < 4; ++i) {
@@ -544,8 +586,9 @@ inline cudaError_t sft_sm90(const void* s, const void* up, const void* cond1, vo
   }
   a.rows = 4LL * H * W;
   a.W = W;
-  auto kernel = sft_sm90_kernel<NCC, NC>;
-  static int resident = 0;
+  a.coarse = coarse;
+  auto kernel = sft_sm90_kernel<NCC, NC, XT>;
+  static int resident = 0;  // once per instantiation
   if (!resident) {
     const cudaError_t err = resident_blocks(kernel, Cfg::SMEM, &resident);
     if (err != cudaSuccess) return err;

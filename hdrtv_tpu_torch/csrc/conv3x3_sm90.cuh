@@ -2,11 +2,12 @@
 // wgmma, fed by TMA through a ring of stages, whose K walk is a table of
 // chunks. It runs the bf16 float forms of block_conv3 (stride 1, 'same') and
 // down2 (stride 2, pad (1,0), a channel window of a wider input read in
-// place); their fp32 float forms run its 3×TF32 sibling (conv3x3_tf32x3.cuh),
-// which shares the table, the arguments and the TMA map built here; the
-// other forms and kernels keep conv3x3.cuh's tiles.
+// place), and the 3×3 convs of the s2d forms of sft_conv3, resblock and the
+// tail (stride 1); block_conv3's and down2's fp32 float forms run its 3×TF32
+// sibling (conv3x3_tf32x3.cuh), which shares the table, the arguments and the
+// TMA map built here; the other forms and kernels keep conv3x3.cuh's tiles.
 //
-// Why a table. Every weight these two kernels get on the frame programs is an
+// Why a table. Every weight these kernels get on the frame programs is an
 // s2d transform (models/s2d.py w_s2d_s1, its PS fold, w_s2d_s2, or a_sub of
 // them side by side along Co), and such a weight is 3/4 exact zeros: output
 // sub-position so reads 9 of the 36 (tap, input sub-position) slots
@@ -51,7 +52,17 @@
 // four lanes of a quad swap their pairs so that each stores one 8-channel
 // group's 16 bytes (a warp writes 64 contiguous bytes of each of 8 pixels);
 // pixels past the image's edge are not stored. The next tile's first chunks
-// are in flight meanwhile.
+// are in flight meanwhile. Two more forms, each a template instance of its
+// own (EPI; a run-time branch raised the BN = 128 instance from 118 to 128
+// registers and block_conv3's bf16 time a frame in chip_smoke.py from 0.213
+// to 0.243 ms), built for BN = 32 with resident weights at stride 1, the
+// convs of sft_conv3 and resblock: kEpiF32 (resblock's conv1, whose h1
+// stays fp32) rounds nothing: the quad swaps the two halves of its fp32
+// pairs the same way and each lane stores one group's 32 bytes as two
+// 16-byte pieces (a warp writes 128 contiguous bytes of each of 8 pixels);
+// kEpiBf16Skip (a call with a skip) swaps the fp32 sums first, so that each
+// lane reads its group's 8 skip values as one 16-byte piece instead of four
+// 4-byte pairs, then adds, activates, rounds and stores as kEpiBf16.
 //
 // What bounds it (in-kernel clock64() timers, PERF.md §5): at up_conv3's
 // shape the epilogue takes half a block's time, the products and their
@@ -91,7 +102,7 @@ struct Sm90Args {
   const T* w;         // (3, 3, C, Co)
   const float* b;     // (Co)
   const T* skip;      // (Ho, Wo, Co) or nullptr
-  T* y;               // (Ho, Wo, Co)
+  T* y;               // (Ho, Wo, Co); float in the bf16 tile's F32OUT instance
   int Ho, Wo;
   int ch0, C, Co;
   int act;
@@ -239,6 +250,25 @@ struct Wgmma<128> {
   }
 };
 
+// The four lanes of a quad hold u[i] of 8-channel group 4·jg + i each; after
+// the swap (a 4 × 4 transpose in three shuffles) lane q holds, in w[s],
+// lane s's u[q]: the four pairs of group 4·jg + q. The kEpiF32 and
+// kEpiBf16Skip epilogues swap with it; kEpiBf16 keeps its loop inline, as
+// written before the other forms existed (a factored version raised the
+// BN = 128 instance from 118 to 127 registers).
+__device__ __forceinline__ void quad_swap(const unsigned (&u)[4], unsigned (&w)[4], int lane) {
+  const int q = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int send = (q - r) & 3, from = (q + r) & 3;
+    const unsigned val = send == 0 ? u[0] : send == 1 ? u[1] : send == 2 ? u[2] : u[3];
+    const unsigned got = __shfl_sync(0xffffffffu, val, (lane & ~3) | from);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (from == i) w[i] = got;
+  }
+}
+
 // Keeps the compiler from touching accumulators across an asynchronous wgmma.
 template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
@@ -246,7 +276,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-template <int BN, int S, bool RES>
+// The epilogue's forms (see the header).
+enum Sm90Epi { kEpiBf16 = 0, kEpiBf16Skip = 1, kEpiF32 = 2 };
+
+template <int BN, int S, bool RES, int EPI>
 __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_sm90_kernel(const __grid_constant__ Sm90Args<bf16> a) {
   using Cfg = Sm90Cfg<BN, RES>;
   constexpr int MT = Cfg::MT, BH = Cfg::BH, NS = Cfg::NS, D = NS - 2;
@@ -390,10 +423,9 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_sm90_kernel(const __g
       // A thread holds, of each m64 tile (tile row wg·MT + mt), columns
       // 16·warp + lane/4 (+ 8) and of each 8-channel group the pair
       // (lane % 4)·2. The four lanes of a quad hold a pixel's 8 channels of
-      // a group between them: over four groups they swap their rounded
-      // pairs (a 4 × 4 transpose in three shuffles) so that each lane stores
-      // one group's 16 bytes and a warp writes 64 contiguous bytes of each
-      // of 8 pixels.
+      // a group between them: over four groups they swap their pairs
+      // (quad_swap) so that each lane stores one group: 16 bytes of
+      // rounded bf16, or 32 of fp32 (kEpiF32).
       const int q = lane & 3;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -404,32 +436,76 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_sm90_kernel(const __g
           const long long row = (static_cast<long long>(ho) * a.Wo + wo) * a.Co + n0;
 #pragma unroll
           for (int jg = 0; jg < BN / 32; ++jg) {
-            unsigned u[4];
+            if constexpr (EPI != kEpiBf16) {
+              unsigned lo[4], hi[4];
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              const int j = 4 * jg + jj;
-              const int n = j * 8 + q * 2;
-              const float2 bias = *reinterpret_cast<const float2*>(bias_s + n);
-              float2 v = make_float2(acc[mt][4 * j + 2 * h] + bias.x, acc[mt][4 * j + 2 * h + 1] + bias.y);
-              if (a.skip && ok) {
-                const float2 sk = load2<bf16>(a.skip + row + n);
-                v = make_float2(v.x + sk.x, v.y + sk.y);
+              for (int jj = 0; jj < 4; ++jj) {
+                const int j = 4 * jg + jj;
+                const int n = j * 8 + q * 2;
+                const float2 bias = *reinterpret_cast<const float2*>(bias_s + n);
+                float2 v = make_float2(acc[mt][4 * j + 2 * h] + bias.x, acc[mt][4 * j + 2 * h + 1] + bias.y);
+                if constexpr (EPI == kEpiF32) {
+                  if (a.skip && ok) {
+                    const float2 sk = load2<bf16>(a.skip + row + n);
+                    v = make_float2(v.x + sk.x, v.y + sk.y);
+                  }
+                  v = make_float2(apply_act(v.x, a.act), apply_act(v.y, a.act));
+                }
+                lo[jj] = __float_as_uint(v.x);
+                hi[jj] = __float_as_uint(v.y);
               }
-              const __nv_bfloat162 r = __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
-              u[jj] = *reinterpret_cast<const unsigned*>(&r);
-            }
-            // Lane q ends with group 4·jg + q: w[s] = lane s's u[q].
-            unsigned w[4] = {0u, 0u, 0u, 0u};
+              // Lane q ends with group g = 4·jg + q: channels 8·g + 2s (wl[s]) and 8·g + 2s + 1 (wh[s]).
+              unsigned wl[4], wh[4];
+              quad_swap(lo, wl, lane);
+              quad_swap(hi, wh, lane);
+              const long long at = row + (4 * jg + q) * 8;
+              if (ok) {
+                if constexpr (EPI == kEpiF32) {
+                  uint4* const dst = reinterpret_cast<uint4*>(reinterpret_cast<float*>(a.y) + at);
+                  dst[0] = make_uint4(wl[0], wh[0], wl[1], wh[1]);
+                  dst[1] = make_uint4(wl[2], wh[2], wl[3], wh[3]);
+                } else {
+                  const uint4 sk = *reinterpret_cast<const uint4*>(a.skip + at);
+                  const unsigned skw[4] = {sk.x, sk.y, sk.z, sk.w};
+                  unsigned o[4];
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const int send = (q - r) & 3, from = (q + r) & 3;
-              const unsigned val = send == 0 ? u[0] : send == 1 ? u[1] : send == 2 ? u[2] : u[3];
-              const unsigned got = __shfl_sync(0xffffffffu, val, (lane & ~3) | from);
+                  for (int e = 0; e < 4; ++e) {
+                    const float2 sv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&skw[e]));
+                    const __nv_bfloat162 r = __floats2bfloat162_rn(apply_act(__uint_as_float(wl[e]) + sv.x, a.act),
+                                                                   apply_act(__uint_as_float(wh[e]) + sv.y, a.act));
+                    o[e] = *reinterpret_cast<const unsigned*>(&r);
+                  }
+                  *reinterpret_cast<uint4*>(a.y + at) = make_uint4(o[0], o[1], o[2], o[3]);
+                }
+              }
+            } else {
+              unsigned u[4];
 #pragma unroll
-              for (int i = 0; i < 4; ++i)
-                if (from == i) w[i] = got;
+              for (int jj = 0; jj < 4; ++jj) {
+                const int j = 4 * jg + jj;
+                const int n = j * 8 + q * 2;
+                const float2 bias = *reinterpret_cast<const float2*>(bias_s + n);
+                float2 v = make_float2(acc[mt][4 * j + 2 * h] + bias.x, acc[mt][4 * j + 2 * h + 1] + bias.y);
+                if (a.skip && ok) {
+                  const float2 sk = load2<bf16>(a.skip + row + n);
+                  v = make_float2(v.x + sk.x, v.y + sk.y);
+                }
+                const __nv_bfloat162 r = __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
+                u[jj] = *reinterpret_cast<const unsigned*>(&r);
+              }
+              // Lane q ends with group 4·jg + q: w[s] = lane s's u[q].
+              unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                const int send = (q - r) & 3, from = (q + r) & 3;
+                const unsigned val = send == 0 ? u[0] : send == 1 ? u[1] : send == 2 ? u[2] : u[3];
+                const unsigned got = __shfl_sync(0xffffffffu, val, (lane & ~3) | from);
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  if (from == i) w[i] = got;
+              }
+              if (ok) *reinterpret_cast<uint4*>(a.y + row + (4 * jg + q) * 8) = make_uint4(w[0], w[1], w[2], w[3]);
             }
-            if (ok) *reinterpret_cast<uint4*>(a.y + row + (4 * jg + q) * 8) = make_uint4(w[0], w[1], w[2], w[3]);
           }
         }
       }
@@ -518,10 +594,10 @@ inline int sm90_grid(int Ho, int Wo, int Co, int BN, int BH, int resident) {
   return groups * std::max(1, std::min(tiles, resident / groups));
 }
 
-template <int BN, int S, bool RES>
+template <int BN, int S, bool RES, int EPI = kEpiBf16>
 cudaError_t launch_sm90(Sm90Args<bf16>& a, const void* x, int H, int W, int cf, cudaStream_t stream) {
   using Cfg = Sm90Cfg<BN, RES>;
-  auto kernel = conv3x3_sm90_kernel<BN, S, RES>;
+  auto kernel = conv3x3_sm90_kernel<BN, S, RES, EPI>;
   static int resident = 0;  // once per instantiation
   if (!resident) {
     const cudaError_t err = resident_blocks(kernel, kSm90Smem, &resident);
@@ -567,14 +643,17 @@ cudaError_t sm90_setup(Sm90Args<T>& a, const void* w, const float* b, const void
   return cudaSuccess;
 }
 
-// The bf16 float conv of block_conv3 (S = 1: Ho = H) or down2 (S = 2: Ho =
-// H/2) on the Hopper tile (arguments: sm90_setup).
-// `args`: where to build the launch's arguments (tools/sm90_phases.cu
-// passes its own, with the timers' array set); by default on the stack.
+// The bf16 float conv of block_conv3, sft_conv3, resblock and the tail (S =
+// 1: Ho = H) or down2 (S = 2: Ho = H/2) on the Hopper tile (arguments:
+// sm90_setup). `args`: where to build the launch's arguments
+// (tools/sm90_phases.cu passes its own, with the timers' array set); by
+// default on the stack. `f32_out`: y is float, stored unrounded (kEpiF32:
+// stride 1, 32-channel N tiles, resident weights; others refuse). A skip
+// takes kEpiBf16Skip where that is built (the same shapes), else kEpiBf16.
 template <int S>
 cudaError_t conv3x3_sm90(const void* x, const void* w, const float* b, const void* skip, void* y, int H,
                          int W, int cf, int ch0, int C, int Co, int act, int a_sub, const int* table,
-                         int per_list, cudaStream_t stream, Sm90Args<bf16>* args = nullptr) {
+                         int per_list, cudaStream_t stream, Sm90Args<bf16>* args = nullptr, bool f32_out = false) {
   Sm90Args<bf16> own;
   Sm90Args<bf16>& a = args ? *args : own;
   const cudaError_t err = sm90_setup(a, w, b, skip, y, H, W, S, cf, ch0, C, Co, act, a_sub, table, per_list);
@@ -584,6 +663,11 @@ cudaError_t conv3x3_sm90(const void* x, const void* w, const float* b, const voi
   const bool res = (bn == 128 ? Sm90Cfg<128, true>::smem(per_list)
                     : bn == 64 ? Sm90Cfg<64, true>::smem(per_list)
                                : Sm90Cfg<32, true>::smem(per_list)) <= kSm90Smem;
+  if constexpr (S == 1) {
+    if (bn == 32 && res && f32_out) return launch_sm90<32, 1, true, kEpiF32>(a, x, H, W, cf, stream);
+    if (bn == 32 && res && skip) return launch_sm90<32, 1, true, kEpiBf16Skip>(a, x, H, W, cf, stream);
+  }
+  if (f32_out) return cudaErrorInvalidValue;
   if (bn == 128)
     return res ? launch_sm90<128, S, true>(a, x, H, W, cf, stream) : launch_sm90<128, S, false>(a, x, H, W, cf, stream);
   if (bn == 64)

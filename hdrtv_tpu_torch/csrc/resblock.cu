@@ -31,6 +31,26 @@
 //   3. SFT2 on the fp32 h1 → codes of t2;
 //   4. int8 conv2 + folded bias + the summed input → out.
 // Out-of-image taps read each conv's pad code. Bound on this card: bytes.
+//
+// The s2d form (the wrapper's s2d=True: every SFT weight w_s2d_1x1, its bias
+// b_s2d, w1 and w2 w_s2d_s1, as the frame programs' are), in bf16 with float
+// convs: the same four launches, all on Hopper tiles:
+//   1. SFT1 on chain_sm90.cuh's row tile (sft_sm90): x, with x_add's rows or
+//      up_coarse un-folded on read, the sum rounded once, written to xsum
+//      from the tile's stage and fed to the SFT → t;
+//   2. conv1 on conv3x3_sm90.cuh's tile over the stride-1 slot table
+//      (ops/conv_kernels.py sm90_table; a quarter of the dense product),
+//      bias and ReLU in its fp32-output epilogue → h1, unrounded, stored
+//      inside the image;
+//   3. SFT2 on the row tile with the fp32 h1 as x (it enters only the
+//      epilogue x·(scale+1)+shift; three stages a warpgroup, so two blocks
+//      still fit an SM) → t;
+//   4. conv2 on the Hopper tile, bias + the residual (x or xsum, read in
+//      16-byte pieces by its skip epilogue) → out.
+// TMA's zero fill reads t as zero outside the image in both convs. Rounding
+// points as in the float body. Bound on this card: bytes (0.10 GB per L1
+// call, 0.030 ms). Times: PERF.md §5-§6.
+#include "chain_sm90.cuh"
 #include "conv3x3_s8.cuh"
 #include "pointwise.cuh"
 
@@ -40,10 +60,30 @@ template <typename T>
 int resblock(const void* x, const void* cond, const void* const* sft1, const void* w1,
              const void* b1, const hdrtv::QuantParams* q1, const void* const* sft2, const void* w2,
              const void* b2, const hdrtv::QuantParams* q2, const void* add, int coarse, void* y,
-             void* t, void* h1, void* xsum, int H, int W, int C, int CC, void* stream) {
+             void* t, void* h1, void* xsum, int H, int W, int C, int CC, int s2d, const int* table,
+             int per_list, void* stream) {
   using hdrtv::ACT_NONE;
   using hdrtv::ACT_RELU;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (s2d) {
+    if constexpr (std::is_same<T, hdrtv::bf16>::value) {
+      if (q1 || q2 || !table || (add && !xsum)) return static_cast<int>(cudaErrorInvalidValue);
+      const float* const bias1 = static_cast<const float*>(b1);
+      const float* const bias2 = static_cast<const float*>(b2);
+      cudaError_t err = hdrtv::sft_sm90<hdrtv::bf16>(x, add, coarse, add ? xsum : nullptr, cond, t, sft1, H, W, C,
+                                                     CC, s);
+      if (err == cudaSuccess)
+        err = hdrtv::conv3x3_sm90<1>(t, w1, bias1, nullptr, h1, H, W, C, 0, C, C, ACT_RELU, 1, table, per_list, s,
+                                     nullptr, true);
+      if (err == cudaSuccess) err = hdrtv::sft_sm90<float>(h1, nullptr, 0, nullptr, cond, t, sft2, H, W, C, CC, s);
+      if (err == cudaSuccess)
+        err = hdrtv::conv3x3_sm90<1>(t, w2, bias2, add ? xsum : x, y, H, W, C, 0, C, C, ACT_NONE, 1, table,
+                                     per_list, s);
+      return static_cast<int>(err);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   hdrtv::SftArgs a;
   a.x = x;
   a.cond = cond;
@@ -80,22 +120,27 @@ int resblock(const void* x, const void* cond, const void* const* sft1, const voi
 // q1, q2: both null for the float form, else the two convs' int8 parameters
 // (w1, b1, w2, b2 unused). add: nullptr, x_add (coarse = 0) or up_coarse
 // (coarse = 1). Scratch: t Hb·Wb·C elements (bytes, codes, with q1 and q2), h1
-// Hb·Wb·C floats, xsum Hb·Wb·C elements when add is set.
+// Hb·Wb·C floats, xsum Hb·Wb·C elements when add is set. s2d: 1 for the s2d
+// form (bf16, q1 and q2 null), whose convs walk `table` (per_list entries per
+// output sub-position; null otherwise), else 0.
 extern "C" int hdrtv_resblock_f32(const void* x, const void* cond, const void* const* sft1,
                                   const void* w1, const void* b1, const void* q1,
                                   const void* const* sft2, const void* w2, const void* b2,
                                   const void* q2, const void* add, int coarse, void* y, void* t,
-                                  void* h1, void* xsum, int H, int W, int C, int CC, void* stream) {
+                                  void* h1, void* xsum, int H, int W, int C, int CC, int s2d,
+                                  const int* table, int per_list, void* stream) {
   return resblock<float>(x, cond, sft1, w1, b1, hdrtv::quant_params(q1), sft2, w2, b2,
-                         hdrtv::quant_params(q2), add, coarse, y, t, h1, xsum, H, W, C, CC, stream);
+                         hdrtv::quant_params(q2), add, coarse, y, t, h1, xsum, H, W, C, CC, s2d, table,
+                         per_list, stream);
 }
 
 extern "C" int hdrtv_resblock_bf16(const void* x, const void* cond, const void* const* sft1,
                                    const void* w1, const void* b1, const void* q1,
                                    const void* const* sft2, const void* w2, const void* b2,
                                    const void* q2, const void* add, int coarse, void* y, void* t,
-                                   void* h1, void* xsum, int H, int W, int C, int CC, void* stream) {
+                                   void* h1, void* xsum, int H, int W, int C, int CC, int s2d,
+                                   const int* table, int per_list, void* stream) {
   return resblock<hdrtv::bf16>(x, cond, sft1, w1, b1, hdrtv::quant_params(q1), sft2, w2, b2,
-                               hdrtv::quant_params(q2), add, coarse, y, t, h1, xsum, H, W, C, CC,
-                               stream);
+                               hdrtv::quant_params(q2), add, coarse, y, t, h1, xsum, H, W, C, CC, s2d,
+                               table, per_list, stream);
 }

@@ -24,6 +24,22 @@
 // conv3x3_s8.cuh adds the folded bias, skip and ReLU. Bound on this card:
 // bytes (0.33 GB per L0 call in bf16; 38 GOP of non-zero int8 conv products
 // and 25 GFLOP of bf16 SFT products are a few µs at the tensor-core rates).
+//
+// The s2d form (the wrapper's s2d=True: the SFT weights w_s2d_1x1, their
+// biases b_s2d, w w_s2d_s1, as the frame programs' are), in bf16 with the
+// float conv: the same two launches, both on Hopper tiles, as the tail's
+// first two (tail.cu):
+//   1. the SFT pass on chain_sm90.cuh's row tile (sft_sm90): the (4·npix, 16)
+//      rows of cond and (4·npix, 32) rows of x against the weights' diagonal
+//      blocks, resident in shared memory, on wgmma; t written once;
+//   2. the conv on conv3x3_sm90.cuh's tile over the stride-1 slot table the
+//      wrapper passes (ops/conv_kernels.py sm90_table): a quarter of the
+//      dense product; TMA's zero fill reads t as zero outside the image; the
+//      epilogue adds the bias and the skip, applies the ReLU, rounds once and
+//      stores only inside the image.
+// Rounding points as in the float body. Bound on this card: bytes (0.33 GB
+// per L0 call, 0.099 ms). Times: PERF.md §5-§6.
+#include "chain_sm90.cuh"
 #include "conv3x3_s8.cuh"
 #include "pointwise.cuh"
 
@@ -32,8 +48,22 @@ namespace {
 template <typename T>
 int sft_conv3(const void* x, const void* cond, const void* const* sft, const void* w,
               const void* b, const hdrtv::QuantParams* q, const void* skip, void* y, void* t,
-              int H, int W, int C, int CC, int Co, int relu, void* stream) {
+              int H, int W, int C, int CC, int Co, int relu, int s2d, const int* table, int per_list,
+              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int act = relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE;
+  if (s2d) {
+    if constexpr (std::is_same<T, hdrtv::bf16>::value) {
+      if (q || !table) return static_cast<int>(cudaErrorInvalidValue);
+      cudaError_t err = hdrtv::sft_sm90<hdrtv::bf16>(x, nullptr, 0, nullptr, cond, t, sft, H, W, C, CC, s);
+      if (err == cudaSuccess)
+        err = hdrtv::conv3x3_sm90<1>(t, w, static_cast<const float*>(b), skip, y, H, W, C, 0, C, Co, act, 1,
+                                     table, per_list, s);
+      return static_cast<int>(err);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   hdrtv::SftArgs a;
   a.x = x;
   a.cond = cond;
@@ -48,8 +78,7 @@ int sft_conv3(const void* x, const void* cond, const void* const* sft, const voi
   a.coarse = 0;
   cudaError_t err = hdrtv::launch_sft<T, T>(a, s);
   if (err == cudaSuccess)
-    err = hdrtv::conv3x3_or_s8<T, T>(t, w, b, q, skip, y, H, W, C, Co,
-                                     relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE, s);
+    err = hdrtv::conv3x3_or_s8<T, T>(t, w, b, q, skip, y, H, W, C, Co, act, s);
   return static_cast<int>(err);
 }
 
@@ -57,19 +86,21 @@ int sft_conv3(const void* x, const void* cond, const void* const* sft, const voi
 
 // sft: eight pointers, (w, b) of scale0, scale1, shift0, shift1. q: null for
 // the float form, else the conv's int8 parameters (w and b unused). t:
-// scratch of Hb·Wb·C elements, or of Hb·Wb·C bytes (codes) with q.
+// scratch of Hb·Wb·C elements, or of Hb·Wb·C bytes (codes) with q. s2d: 1
+// for the s2d form (bf16, q null), whose conv walks `table` (per_list
+// entries per output sub-position; null otherwise), else 0.
 extern "C" int hdrtv_sft_conv3_f32(const void* x, const void* cond, const void* const* sft,
                                    const void* w, const void* b, const void* q, const void* skip,
                                    void* y, void* t, int H, int W, int C, int CC, int Co, int relu,
-                                   void* stream) {
+                                   int s2d, const int* table, int per_list, void* stream) {
   return sft_conv3<float>(x, cond, sft, w, b, hdrtv::quant_params(q), skip, y, t, H, W, C, CC, Co,
-                          relu, stream);
+                          relu, s2d, table, per_list, stream);
 }
 
 extern "C" int hdrtv_sft_conv3_bf16(const void* x, const void* cond, const void* const* sft,
                                     const void* w, const void* b, const void* q, const void* skip,
                                     void* y, void* t, int H, int W, int C, int CC, int Co, int relu,
-                                    void* stream) {
+                                    int s2d, const int* table, int per_list, void* stream) {
   return sft_conv3<hdrtv::bf16>(x, cond, sft, w, b, hdrtv::quant_params(q), skip, y, t, H, W, C, CC,
-                                Co, relu, stream);
+                                Co, relu, s2d, table, per_list, stream);
 }

@@ -210,7 +210,7 @@ int tail(const void* s, const void* up, const void* cond1, const void* skip,
   if (s2d) {
     if constexpr (std::is_same<T, bf16>::value) {
       if (q_hr || !table) return static_cast<int>(cudaErrorInvalidValue);
-      err = sft_sm90(s, up, cond1, t, sft, H, W, C, CC, st);
+      err = sft_sm90<bf16>(s, up, 1, nullptr, cond1, t, sft, H, W, C, CC, st);
       if (err == cudaSuccess)
         err = conv3x3_sm90<1>(t, w_hr, static_cast<const float*>(b_hr), nullptr, h, H, W, C, 0, C, C, ACT_RELU, 1,
                               table, per_list, st);

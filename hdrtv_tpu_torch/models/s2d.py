@@ -679,13 +679,16 @@ def _sft_conv_ok(p, conv_name, x, cond, *, policy) -> bool:
 
 def _sft_conv(p, sft_name, conv_name, x, cond, *, policy, relu_fused=False, skip=None):
     """SFT + 3×3 conv: the sft_conv3 kernel when eligible, SFT then conv
-    otherwise."""
+    otherwise. Every caller's weights come from :func:`s2d_transform_params`
+    (the SFT 1×1s ``w_s2d_1x1``, their biases ``b_s2d``, the conv
+    ``w_s2d_s1``): the kernel is told so (``s2d=True``) and skips their
+    zeros."""
     if _sft_conv_ok(p, conv_name, x, cond, policy=policy):
         return fused_sft_conv3_v2(
             policy.cast(x[0]), policy.cast(cond[0]), _sft4_bd(p, sft_name, policy),
             policy.cast(p[f"{conv_name}.weight"]), p[f"{conv_name}.bias"],
             relu=relu_fused, skip=None if skip is None else policy.cast(skip[0]),
-            qargs=_qargs_for(p, conv_name, x),
+            qargs=_qargs_for(p, conv_name, x), s2d=True,
         )[None]
     out = _sft(p, sft_name, x, cond, policy=policy)
     return conv_s1(p, conv_name, out, policy=policy, relu_fused=relu_fused, skip=skip)
@@ -705,7 +708,8 @@ def _resblock(p, name, fea, cond, *, policy, up_coarse=None, x_add=None):
     optional up-path skip input, added to ``fea`` first — inside the resblock
     kernel when eligible (with the d2s un-fold for the coarse form),
     materialised otherwise. The kernel is taken under the JAX predicate,
-    its even-row rule included (see the module docstring)."""
+    its even-row rule included (see the module docstring), and told that
+    the weights are s2d transforms (``s2d=True``, as in :func:`_sft_conv`)."""
     if _sft_conv_ok(p, f"{name}.conv1", fea, cond, policy=policy):
         coarse_ok = up_coarse is None or (
             fea.shape[1] % 2 == 0
@@ -724,7 +728,7 @@ def _resblock(p, name, fea, cond, *, policy, up_coarse=None, x_add=None):
                 policy.cast(p[f"{name}.conv2.weight"]), p[f"{name}.conv2.bias"],
                 up_coarse=None if up_coarse is None else policy.cast(up_coarse[0]),
                 x_add=None if x_add is None else policy.cast(x_add[0]),
-                qargs1=q1 if both else None, qargs2=q2 if both else None,
+                qargs1=q1 if both else None, qargs2=q2 if both else None, s2d=True,
             )[None]
     fea = _materialize_up(fea, up_coarse, x_add)
     out = _sft_conv(p, f"{name}.sft1", f"{name}.conv1", fea, cond, policy=policy, relu_fused=True)
@@ -930,8 +934,9 @@ def _ensemble_mega(
         n_first=p["LE.conv_first.bias"].shape[-1], scale=scale,
         packed=(aw1p_bgr if bgr else aw1p, aw3p, wcat),
     )
-    # Every 1×1 weight here is a w_s2d_1x1 transform and HR_conv2's a
-    # w_s2d_s1 one (s2d_transform_params): both kernels skip their zeros.
+    # Every 1×1 weight here is a w_s2d_1x1 transform and every 3×3 one a
+    # w_s2d_s1 one (s2d_transform_params): cond_chain, the tail, and
+    # sft_conv3 and resblock (through _sft_conv and _resblock) skip their zeros.
     c_feat, cond1 = fused_cond_chain(c0, [
         w11("LE.cond_first.2"), w11("LE.cond_first.4"),
         w11("LE.CondNet1.0"), w11("LE.CondNet1.2"), w11("LE.CondNet1.4"),

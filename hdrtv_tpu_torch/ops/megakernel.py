@@ -24,6 +24,13 @@ consolidated CondNet down conv; the frame programs pass it under
 ``HDRTV_INT8_DOWN2=1`` only, as the JAX package does), and
 ``fused_cond_chain`` its int8 steps (``qargs``, a list of five ``QArgs`` or
 None in the 1×1 form; no frame program passes them, as in the JAX package).
+
+``fused_cond_chain``, ``fused_tail``, ``fused_sft_conv3_v2`` and
+``fused_resblock`` take ``s2d``: the caller's declaration that the weights
+are the s2d transforms the frame programs hand them, whose zeros the bf16
+float forms then skip on the Hopper tiles (``csrc/chain_sm90.cuh``,
+``csrc/conv3x3_sm90.cuh``). The plain versions honour it, so a weight
+without that structure gives another result than the JAX kernel's.
 """
 
 from __future__ import annotations
@@ -265,9 +272,24 @@ def fused_cond_chain_ref(c0, weights, qargs=None, *, s2d=False):
 
 
 # The natural widths the Hopper row tile of csrc/chain_sm90.cuh is built for:
-# cond_chain 64 → 64 ×4 → 16, the tail's SFT cond 16 and features 32.
+# cond_chain 64 → 64 ×4 → 16; the SFT passes of the tail, sft_conv3 and
+# resblock cond 16 and features 32.
 COND_CHAIN_S2D_WIDTHS = (64, 64, 64, 64, 64, 16)
-TAIL_S2D_WIDTHS = (16, 32)
+SFT_S2D_WIDTHS = (16, 32)
+
+
+def _sft_hopper(name: str, s2d: bool, dt: torch.dtype, quant: bool, cc: int, c: int, co: int) -> tuple:
+    """What a card call of the tail, sft_conv3 or resblock hands its kernel
+    for the Hopper tiles: (1, the stride-1 slot table of its 3×3 conv
+    (``sm90_table``), its list length) for the s2d form in bf16 with float
+    convs, else (0, None, 0), the dense kernels. The row tile takes the
+    natural widths SFT_S2D_WIDTHS (CC, C) only; others raise."""
+    if not s2d or dt != torch.bfloat16 or quant:
+        return 0, None, 0
+    if (cc // 4, c // 4) != SFT_S2D_WIDTHS:
+        raise ValueError(f"{name}: the s2d row tile takes natural widths (CC, C) = {SFT_S2D_WIDTHS}, "
+                         f"got {(cc // 4, c // 4)}")
+    return (1, *sm90_table(name, 1, 1, c, co, c))
 
 
 def fused_cond_chain(
@@ -390,13 +412,7 @@ def fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last, *, pac
     sf = s.float()
     if up_coarse is not None:
         sf = _rounded(sf + _d2s_fine(up_coarse).float(), dt)
-    cond = cond1.to(dt).float()
-    if not s2d:
-        hacc = _sft_conv_t(sf, cond, sft_small, w_hr, b_hr, qargs_hr, dt)
-    elif qargs_hr is None:
-        hacc = _conv_same(_rounded(_sft_t_rows(sf, cond, sft_small, dt), dt), _s2d_slots_only(w_hr), b_hr)
-    else:
-        hacc = _taps_conv_q(_sft_t_rows(sf, cond, sft_small, dt), qargs_hr)
+    hacc = _sft_conv_t(sf, cond1.to(dt).float(), sft_small, w_hr, b_hr, qargs_hr, dt, s2d)
     h = _rounded(torch.clamp_min(hacc, 0.0), dt)
     y = _conv_same(h, w_last, b_last) + skip.float()
     if not pack:
@@ -469,13 +485,7 @@ def fused_tail(
     native.check_cuda("tail b_last", b_last, torch.float32, (cl,))
     if up_coarse is not None:
         native.check_cuda("tail up_coarse", up_coarse, dt)
-    hopper = s2d and dt == torch.bfloat16 and qargs_hr is None  # the row tile and the Hopper conv tile
-    table, per_list = None, 0
-    if hopper:
-        if (cc // 4, c // 4) != TAIL_S2D_WIDTHS:
-            raise ValueError(f"tail: the s2d row tile takes natural widths (CC, C) = {TAIL_S2D_WIDTHS}, "
-                             f"got {(cc // 4, c // 4)}")
-        table, per_list = sm90_table("tail", 1, 1, c, c, c)
+    hopper, table, per_list = _sft_hopper("tail", s2d, dt, qargs_hr is not None, cc, c, c)
     t = torch.empty((hb, wb, c), dtype=dt if qargs_hr is None else torch.int8, device=s.device)  # t or its codes
     h = torch.empty((hb, wb, c), dtype=dt, device=s.device)
     if pack:
@@ -487,7 +497,7 @@ def fused_tail(
         s.data_ptr(), None if up_coarse is None else up_coarse.data_ptr(), cond1.data_ptr(),
         skip.data_ptr(), native.pointer_array(flat), w_hr.data_ptr(), b_hr.data_ptr(),
         native.quant_params(qargs_hr), w_last.data_ptr(), b_last.data_ptr(), out.data_ptr(), t.data_ptr(),
-        h.data_ptr(), hb, wb, c, cc, cl, int(pack), int(hopper), table, per_list, native.stream_of(s),
+        h.data_ptr(), hb, wb, c, cc, cl, int(pack), hopper, table, per_list, native.stream_of(s),
         counter=None if qargs_hr is None else "tail_w8a8",
     )
     return out
@@ -687,13 +697,17 @@ def _sft(x: torch.Tensor, cond: torch.Tensor, sft4, dtype: torch.dtype) -> torch
 
 
 def _sft_conv_t(x: torch.Tensor, cond: torch.Tensor, sft4, w, b, qa: QArgs | None,
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, s2d: bool = False) -> torch.Tensor:
     """An SFT and the 3×3 conv after it, fp32 with the bias: the float
     body's conv of t stored in ``dtype``, or the int8 body's of t quantized
-    from fp32."""
+    from fp32. ``s2d``: the SFT over its weights' first diagonal blocks
+    (:func:`_sft_t_rows`) and the float conv over ``w``'s populated slots
+    (:func:`_s2d_slots_only`), as the kernels' s2d forms compute; the int8
+    conv stays dense."""
+    t = (_sft_t_rows if s2d else _sft_t)(x, cond, sft4, dtype)
     if qa is None:
-        return _conv_same(_sft(x, cond, sft4, dtype), w, b)
-    return _taps_conv_q(_sft_t(x, cond, sft4, dtype), qa)
+        return _conv_same(_rounded(t, dtype), _s2d_slots_only(w) if s2d else w, b)
+    return _taps_conv_q(t, qa)
 
 
 def _d2s_fine(cu: torch.Tensor) -> torch.Tensor:
@@ -704,14 +718,17 @@ def _d2s_fine(cu: torch.Tensor) -> torch.Tensor:
     return cu.reshape(hc, wc, 2, 2, c).permute(0, 2, 1, 3, 4).reshape(2 * hc, 2 * wc, c)
 
 
-def fused_sft_conv3_v2_ref(x, cond, sft4, w, b, *, relu=False, skip=None, qargs=None):
+def fused_sft_conv3_v2_ref(x, cond, sft4, w, b, *, relu=False, skip=None, qargs=None, s2d=False):
     """Plain version, the body of the Pallas ``_sft_conv_kernel``: cond in the
     element type; hidden activations stored in it; scale, shift and t in
     fp32; t stored in the element type, zero outside the image (the conv's
     'same' padding); fp32 conv sum + fp32 bias + skip, ReLU, one rounding.
-    With ``qargs`` (the int8 body) t stays fp32 and is quantized instead."""
+    With ``qargs`` (the int8 body) t stays fp32 and is quantized instead.
+    ``s2d``: the SFT multiplies its weights' first diagonal blocks only and
+    the float conv only the populated s2d slots of ``w`` (:func:`_sft_conv_t`),
+    as the kernel's s2d form does."""
     dt = x.dtype
-    y = _sft_conv_t(x.float(), cond.to(dt).float(), sft4, w, b, qargs, dt)
+    y = _sft_conv_t(x.float(), cond.to(dt).float(), sft4, w, b, qargs, dt, s2d)
     if skip is not None:
         y = y + skip.float()
     if relu:
@@ -738,6 +755,7 @@ def _check_sft(name: str, sft4, dt: torch.dtype, c: int, cc: int, cuda: bool) ->
 def fused_sft_conv3_v2(
     x: torch.Tensor, cond: torch.Tensor, sft4, w: torch.Tensor, b: torch.Tensor,
     *, relu: bool = False, skip: torch.Tensor | None = None, qargs: QArgs | None = None,
+    s2d: bool = False,
 ) -> torch.Tensor:
     """y = conv3x3(sft(x, cond)) (+skip)(relu) over s2d tensors: x (Hb,Wb,C),
     cond (Hb,Wb,CC) → (Hb,Wb,Co).
@@ -745,6 +763,17 @@ def fused_sft_conv3_v2(
     ``sft4``: four (w (in, out), b) pairs, scale0, scale1, shift0, shift1 (the
     s2d block-diagonal dense 1×1s). ``qargs``: the conv's int8 parameters
     (the int8 body, ``sft_conv3_w8a8``; they stand in for ``w`` and ``b``).
+
+    ``s2d`` declares the SFT weights ``w_s2d_1x1(w)``, their biases
+    ``b_s2d(b)`` and ``w`` ``w_s2d_s1(w)`` (``models/s2d.py``; the frame
+    programs pass True): the SFT then multiplies the rows of natural pixels
+    by each weight's first diagonal block and the float conv only the
+    populated s2d slots. bf16 on the card with a float conv: the SFT on the
+    Hopper row tile of ``csrc/chain_sm90.cuh`` (natural widths CC 16, C 32;
+    others raise) and the conv on ``csrc/conv3x3_sm90.cuh``'s tile over the
+    slot table; fp32 and the int8 body keep the dense kernels, the same
+    function on such weights. The plain version honours it too. False:
+    dense, right for any weight.
     """
     hb, wb, c = x.shape
     cc = cond.shape[-1]
@@ -756,8 +785,11 @@ def fused_sft_conv3_v2(
     flat = _check_sft("sft_conv3", sft4, dt, c, cc, not cpu)
     if qargs is not None:
         check_qargs("sft_conv3", qargs, c, co, not cpu)
+    if s2d:
+        _check_s2d_1x1("sft_conv3", sft4)
+        check_a_sub("sft_conv3", 1, c, co)
     if cpu:
-        return fused_sft_conv3_v2_ref(x, cond, sft4, w, b, relu=relu, skip=skip, qargs=qargs)
+        return fused_sft_conv3_v2_ref(x, cond, sft4, w, b, relu=relu, skip=skip, qargs=qargs, s2d=s2d)
     if c % 16 or cc % 16 or co % 4 or (qargs is not None and (c % 64 or co % 8)):
         raise ValueError(f"sft_conv3 needs C % 16, CC % 16 and Co % 4 == 0 (int8: C % 64 and Co % 8), "
                          f"got {c}, {cc}, {co}")
@@ -767,27 +799,29 @@ def fused_sft_conv3_v2(
     native.check_cuda("sft_conv3 b", b, torch.float32, (co,))
     if skip is not None:
         native.check_cuda("sft_conv3 skip", skip, dt, (hb, wb, co))
+    hopper, table, per_list = _sft_hopper("sft_conv3", s2d, dt, qargs is not None, cc, c, co)
     out = torch.empty((hb, wb, co), dtype=dt, device=x.device)
     t = torch.empty((hb, wb, c), dtype=dt if qargs is None else torch.int8, device=x.device)  # t or its codes
     native.launch(
         "sft_conv3", dt,
         x.data_ptr(), cond.data_ptr(), native.pointer_array(flat), w.data_ptr(), b.data_ptr(),
         native.quant_params(qargs), None if skip is None else skip.data_ptr(), out.data_ptr(), t.data_ptr(),
-        hb, wb, c, cc, co, int(relu), native.stream_of(x),
+        hb, wb, c, cc, co, int(relu), hopper, table, per_list, native.stream_of(x),
         counter=None if qargs is None else "sft_conv3_w8a8",
     )
     return out
 
 
 def fused_resblock_ref(x, cond, sft1, w1, b1, sft2, w2, b2, *, up_coarse=None, x_add=None,
-                       qargs1=None, qargs2=None):
+                       qargs1=None, qargs2=None, s2d=False):
     """Plain version, the body of the Pallas ``_resblock_kernel``: with a
     second input the block input is x + d2s(up_coarse) (or x + x_add) summed
     in fp32 and stored in the element type, and that stored sum is the
     residual; h1 = relu(conv1 + b1) stays fp32 into SFT2; t1 and t2 are
     stored in the element type (quantized from fp32 in the int8 body, with
     ``qargs1`` and ``qargs2``); out = conv2 + b2 + input in fp32, one
-    rounding."""
+    rounding. ``s2d``: both SFTs over their weights' first diagonal blocks,
+    the float convs over the populated s2d slots (:func:`_sft_conv_t`)."""
     dt = x.dtype
     xin = x.float()
     if up_coarse is not None:
@@ -795,14 +829,14 @@ def fused_resblock_ref(x, cond, sft1, w1, b1, sft2, w2, b2, *, up_coarse=None, x
     elif x_add is not None:
         xin = _rounded(xin + x_add.float(), dt)
     cf = cond.to(dt).float()
-    h1 = torch.clamp_min(_sft_conv_t(xin, cf, sft1, w1, b1, qargs1, dt), 0.0)
-    return (_sft_conv_t(h1, cf, sft2, w2, b2, qargs2, dt) + xin).to(dt)
+    h1 = torch.clamp_min(_sft_conv_t(xin, cf, sft1, w1, b1, qargs1, dt, s2d), 0.0)
+    return (_sft_conv_t(h1, cf, sft2, w2, b2, qargs2, dt, s2d) + xin).to(dt)
 
 
 def fused_resblock(
     x: torch.Tensor, cond: torch.Tensor, sft1, w1, b1, sft2, w2, b2,
     *, up_coarse: torch.Tensor | None = None, x_add: torch.Tensor | None = None,
-    qargs1: QArgs | None = None, qargs2: QArgs | None = None,
+    qargs1: QArgs | None = None, qargs2: QArgs | None = None, s2d: bool = False,
 ) -> torch.Tensor:
     """ResBlock_with_SFT in one call:
 
@@ -813,6 +847,14 @@ def fused_resblock(
     (Hb,Wb,C): xin = x + x_add (trunk4's). Otherwise xin = x. ``qargs1`` and
     ``qargs2``: the two convs' int8 parameters, both or neither (the int8
     body, ``resblock_w8a8``).
+
+    ``s2d`` declares every SFT weight ``w_s2d_1x1(w)``, its bias
+    ``b_s2d(b)`` and ``w1``, ``w2`` ``w_s2d_s1(w)`` (the frame programs pass
+    True), as for :func:`fused_sft_conv3_v2`. bf16 on the card with float
+    convs: both SFT passes on the Hopper row tile (SFT2 reading the fp32 h1;
+    natural widths CC 16, C 32, others raise), both convs on the Hopper conv
+    tile over the slot table (conv1 storing h1 in fp32); fp32 and the int8
+    body keep the dense kernels. The plain version honours it too.
     """
     hb, wb, c = x.shape
     cc = cond.shape[-1]
@@ -833,9 +875,12 @@ def fused_resblock(
     if quant:
         check_qargs("resblock conv1", qargs1, c, c, not cpu)
         check_qargs("resblock conv2", qargs2, c, c, not cpu)
+    if s2d:
+        _check_s2d_1x1("resblock", [*sft1, *sft2])
+        check_a_sub("resblock", 1, c, c)
     if cpu:
         return fused_resblock_ref(x, cond, sft1, w1, b1, sft2, w2, b2, up_coarse=up_coarse, x_add=x_add,
-                                  qargs1=qargs1, qargs2=qargs2)
+                                  qargs1=qargs1, qargs2=qargs2, s2d=s2d)
     if c % 16 or cc % 16 or (quant and c % 64):
         raise ValueError(f"resblock needs C % 16 and CC % 16 == 0 (int8: C % 64), got {c}, {cc}")
     native.check_cuda("resblock x", x, dt)
@@ -847,6 +892,7 @@ def fused_resblock(
         native.check_cuda("resblock x_add", x_add, dt, (hb, wb, c))
     if up_coarse is not None:
         native.check_cuda("resblock up_coarse", up_coarse, dt)
+    hopper, table, per_list = _sft_hopper("resblock", s2d, dt, quant, cc, c, c)
     t = torch.empty((hb, wb, c), dtype=torch.int8 if quant else dt, device=x.device)  # t or its codes
     h1 = torch.empty((hb, wb, c), dtype=torch.float32, device=x.device)
     xsum = None if second is None else torch.empty((hb, wb, c), dtype=dt, device=x.device)
@@ -857,7 +903,7 @@ def fused_resblock(
         native.quant_params(qargs1), native.pointer_array(flat2), w2.data_ptr(), b2.data_ptr(),
         native.quant_params(qargs2), None if second is None else second.data_ptr(), int(up_coarse is not None),
         out.data_ptr(), t.data_ptr(), h1.data_ptr(), None if xsum is None else xsum.data_ptr(),
-        hb, wb, c, cc, native.stream_of(x),
+        hb, wb, c, cc, hopper, table, per_list, native.stream_of(x),
         counter="resblock_w8a8" if quant else None,
     )
     return out

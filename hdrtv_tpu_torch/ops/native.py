@@ -133,8 +133,8 @@ def lib() -> ctypes.CDLL:
         "hdrtv_block_conv3": ([p, p, p, q, p, p, p, i, i, i, i, i, i, i, p, i, p], i),
         "hdrtv_down2": ([p, p, p, q, i, p, p, i, i, i, i, i, i, i, i, p, i, p], i),
         "hdrtv_trunk3": ([p, p, p, p, p, i, i, i, i, i, p], i),
-        "hdrtv_sft_conv3": ([p, p, p, p, p, q, p, p, p, i, i, i, i, i, i, p], i),
-        "hdrtv_resblock": ([p, p, p, p, p, q, p, p, p, q, p, i, p, p, p, p, i, i, i, i, p], i),
+        "hdrtv_sft_conv3": ([p, p, p, p, p, q, p, p, p, i, i, i, i, i, i, i, p, i, p], i),
+        "hdrtv_resblock": ([p, p, p, p, p, q, p, p, p, q, p, i, p, p, p, p, i, i, i, i, i, p, i, p], i),
         "hdrtv_mix_chain": ([p, p, p, p, p, p, p, i, i, i, i, p], i),
         "hdrtv_agcm_head": ([p, i, f, p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
         "hdrtv_cond_chain": ([p, p, p, p, p, p, p, p, i, i, p], i),

@@ -17,8 +17,10 @@ and reduction passes, copies), the top kernels by device time, the wall
 time, and the device busy share (kernel time over wall time; one stream, so
 kernels do not overlap), and the number of kernel launches. The port's
 kernels are also split by source kernel (conv tile on the FMA units and on
-the tensor cores, the Hopper tiles of down2 and block_conv3 in bf16 and in
-fp32 on 3×TF32, SFT passes, 1×1 chains (and their Hopper row tiles), the head's two kernels, conv_last,
+the tensor cores, the Hopper conv tile of down2, block_conv3 and the s2d
+forms of the tail, sft_conv3 and resblock in bf16 (all its epilogue
+instances) and in fp32 on 3×TF32, SFT passes, 1×1 chains (and their Hopper
+row tiles, the SFT one with bf16 or fp32 x), the head's two kernels, conv_last,
 pack, the HG tail, the int8 conv tile and quantize pass). The last two lines are the card's
 name and power limit as nvidia-smi gives them, and the same breakdown as
 JSON. Needs a CUDA device.

@@ -1,8 +1,9 @@
 // The Hopper conv tiles (csrc/conv3x3_sm90.cuh, bf16, and its 3×TF32 sibling
 // csrc/conv3x3_tf32x3.cuh, fp32) built with their phase timers
 // (HDRTV_SM90_PHASES), for tools/sm90_phases.py; not part of the kernel
-// library. Same arguments as conv3x3_sm90, plus f32 (which tile) and the
-// (2·blocks, 8) u64 array the kernel fills.
+// library. Same arguments as conv3x3_sm90, plus f32 (which tile), out_f32
+// (the bf16 tile's fp32-output epilogue, y float) and the (2·blocks, 8) u64
+// array the kernel fills.
 #define HDRTV_SM90_PHASES
 #include "../csrc/conv3x3_tf32x3.cuh"
 
@@ -10,26 +11,28 @@ namespace {
 
 template <typename T, int S>
 cudaError_t run(const void* x, const void* w, const void* b, void* y, int H, int W, int cf, int ch0, int C, int Co,
-                int a_sub, const int* table, int per_list, void* phases, cudaStream_t s) {
+                int a_sub, const int* table, int per_list, int out_f32, void* phases, cudaStream_t s) {
   hdrtv::Sm90Args<T> a;
   a.phases = static_cast<unsigned long long*>(phases);
   const float* bias = static_cast<const float*>(b);
   if constexpr (std::is_same<T, float>::value)
     return hdrtv::conv3x3_tf32x3<S>(x, w, bias, nullptr, y, H, W, cf, ch0, C, Co, 0, a_sub, table, per_list, s, &a);
   else
-    return hdrtv::conv3x3_sm90<S>(x, w, bias, nullptr, y, H, W, cf, ch0, C, Co, 0, a_sub, table, per_list, s, &a);
+    return hdrtv::conv3x3_sm90<S>(x, w, bias, nullptr, y, H, W, cf, ch0, C, Co, 0, a_sub, table, per_list, s, &a,
+                                  out_f32);
 }
 
 }  // namespace
 
 extern "C" int hdrtv_sm90_phases(const void* x, const void* w, const void* b, void* y, int H, int W, int cf,
                                  int ch0, int C, int Co, int S, int a_sub, const int* table, int per_list,
-                                 int f32, void* phases, void* stream) {
+                                 int f32, int out_f32, void* phases, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int o = out_f32;
   const cudaError_t err =
-      f32 ? (S == 1 ? run<float, 1>(x, w, b, y, H, W, cf, ch0, C, Co, a_sub, table, per_list, phases, s)
-                    : run<float, 2>(x, w, b, y, H, W, cf, ch0, C, Co, a_sub, table, per_list, phases, s))
-          : (S == 1 ? run<hdrtv::bf16, 1>(x, w, b, y, H, W, cf, ch0, C, Co, a_sub, table, per_list, phases, s)
-                    : run<hdrtv::bf16, 2>(x, w, b, y, H, W, cf, ch0, C, Co, a_sub, table, per_list, phases, s));
+      f32 ? (S == 1 ? run<float, 1>(x, w, b, y, H, W, cf, ch0, C, Co, a_sub, table, per_list, 0, phases, s)
+                    : run<float, 2>(x, w, b, y, H, W, cf, ch0, C, Co, a_sub, table, per_list, 0, phases, s))
+          : (S == 1 ? run<hdrtv::bf16, 1>(x, w, b, y, H, W, cf, ch0, C, Co, a_sub, table, per_list, o, phases, s)
+                    : run<hdrtv::bf16, 2>(x, w, b, y, H, W, cf, ch0, C, Co, a_sub, table, per_list, o, phases, s));
   return static_cast<int>(err);
 }

@@ -7,7 +7,9 @@ and the fp32 3×TF32 tile of ``csrc/conv3x3_tf32x3.cuh``, with their
 ``HDRTV_SM90_PHASES`` clock64() timers) with nvcc into ``build/``, runs them
 at the 1080p shapes of the frame programs' block_conv3 and down2 calls
 (seeded random s2d weights, the ``a_sub`` the program passes; bf16 at the
-bf16 programs' shapes, fp32 at the fp32 programs'), and prints, per shape,
+bf16 programs' shapes, fp32 at the fp32 programs'), and in bf16 at
+resblock's L1 shape, its conv2 (bf16 out) and its conv1 (h1 stored by the
+fp32-output epilogue), and prints, per shape,
 the mean cycles a warpgroup spends in each phase of its step loop and their
 share of its total. The bf16 tile:
 
@@ -60,6 +62,10 @@ SHAPES = [
     ("down_conv1", 2, 540, 960, 128, 128, 1), ("down_conv2", 2, 270, 480, 128, 128, 1),
 ]
 SHAPES_F32 = SHAPES + [("HR_conv1", 1, 540, 960, 128, 128, 1)]
+# resblock at L1 (bf16 only): conv2, and conv1 with h1 stored in fp32 (the last field)
+SHAPES_BF16 = [(*shape, False) for shape in SHAPES] + [
+    ("resblock conv2", 1, 270, 480, 128, 128, 1, False), ("resblock conv1 h1 fp32", 1, 270, 480, 128, 128, 1, True),
+]
 
 
 def build() -> ctypes.CDLL:
@@ -71,7 +77,7 @@ def build() -> ctypes.CDLL:
                        check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hdrtv_sm90_phases.argtypes = [p, p, p, p] + [i] * 8 + [p, i, i, p, p]
+    lib.hdrtv_sm90_phases.argtypes = [p, p, p, p] + [i] * 8 + [p, i, i, i, p, p]
     lib.hdrtv_sm90_phases.restype = i
     return lib
 
@@ -83,25 +89,25 @@ def main() -> None:
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
 
-    for dtype, shapes in (("bf16", SHAPES), ("f32", SHAPES_F32)):
+    for dtype, shapes in (("bf16", SHAPES_BF16), ("f32", [(*shape, False) for shape in SHAPES_F32])):
         tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
 
         def t(a, _dt=tdt):
             return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev).to(_dt)
 
-        for name, s, hb, wb, c, co, a_sub in shapes:
+        for name, s, hb, wb, c, co, a_sub, out_f32 in shapes:
             tf = w_s2d_s1_ps if s == 1 else w_s2d_s2
             w = t(np.concatenate([tf(rng.randn(3, 3, c // 4, co // (4 * a_sub)).astype(np.float32) * 0.05)
                                   for _ in range(a_sub)], axis=-1))
             x = t(rng.rand(hb, wb, c))
             b = torch.zeros(co, device=dev)
-            y = torch.empty(hb // s, wb // s, co, device=dev, dtype=tdt)
+            y = torch.empty(hb // s, wb // s, co, device=dev, dtype=torch.float32 if out_f32 else tdt)
             phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
             table, per_list = sm90_table(name, s, a_sub, c, co, c, dtype=tdt)
             stream = torch.cuda.current_stream().cuda_stream
             for _ in range(3):  # warm: the last run's sums are read
                 rc = lib.hdrtv_sm90_phases(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), hb, wb, c, 0,
-                                           c, co, s, a_sub, table, per_list, int(dtype == "f32"),
+                                           c, co, s, a_sub, table, per_list, int(dtype == "f32"), int(out_f32),
                                            phases.data_ptr(), stream)
                 if rc:
                     raise RuntimeError(f"{name} {dtype}: CUDA error {rc}")

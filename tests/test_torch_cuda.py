@@ -509,6 +509,111 @@ def test_s2d_row_tile_refuses_other_widths(dev):
                    s2d=True)
 
 
+def _sft_s2d(rng, dev, scale=0.2):
+    """The four SFT 1×1s at the programs' natural widths (CC 16, C 32), s2d."""
+    return [_p11(rng, ci, co, dev, scale) for ci, co in ((16, 16), (16, 32), (16, 16), (16, 32))]
+
+
+def _conv_s2d(rng, dev, scale=0.05):
+    """A 3×3 trunk conv (32 → 32 natural) as the s2d program has it: w_s2d_s1 (bf16), b_s2d."""
+    return (_t(w_s2d_s1(rng.randn(3, 3, 32, 32).astype(np.float32) * scale), dev, "bf16"),
+            _t(b_s2d(rng.randn(32).astype(np.float32) * 0.1), dev))
+
+
+@pytest.mark.parametrize("hb,wb,relu,skip", [
+    (12, 20, True, False), (9, 15, False, True), (1, 7, True, False), (5, 7, False, True), (135, 240, True, False),
+    (135, 240, False, True),
+])
+def test_sft_conv3_s2d_matches_plain(dev, hb, wb, relu, skip):
+    """sft_conv3's s2d form in bf16: the SFT pass on the row tile, the conv on
+    the Hopper conv tile over the s2d slot table, its epilogue adding bias and
+    skip; whole, ragged and partial 64-row tiles, the L2 shape (135 odd rows,
+    240 columns: not a multiple of the conv tile's 64). Against the plain
+    version's s2d form, one bf16 step as the dense form."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_sft_conv3_v2, fused_sft_conv3_v2_ref
+
+    rng = np.random.RandomState(hb * wb + 23)
+    x = _t(rng.rand(hb, wb, 128) - 0.3, dev, "bf16")
+    cond = _t(rng.rand(hb, wb, 64) - 0.3, dev, "bf16")
+    sk = _t(rng.rand(hb, wb, 128), dev, "bf16") if skip else None
+    args = (x, cond, _sft_s2d(rng, dev), *_conv_s2d(rng, dev))
+    before = native.launch_counts["sft_conv3"]
+    y = fused_sft_conv3_v2(*args, relu=relu, skip=sk, s2d=True)
+    assert native.launch_counts["sft_conv3"] == before + 1
+    assert y.shape == (hb, wb, 128)
+    _close(y, fused_sft_conv3_v2_ref(*args, relu=relu, skip=sk, s2d=True), "bf16")
+
+
+def _resblock_s2d_inputs(rng, hb, wb, second, dev):
+    x = _t(rng.rand(hb, wb, 128) - 0.3, dev, "bf16")
+    cond = _t(rng.rand(hb, wb, 64) - 0.3, dev, "bf16")
+    kw = {}
+    if second == "x_add":
+        kw[second] = _t(rng.rand(hb, wb, 128) - 0.3, dev, "bf16")
+    elif second == "up_coarse":
+        kw[second] = _t(rng.rand(hb // 2, wb // 2, 512) - 0.3, dev, "bf16")
+    return x, cond, kw
+
+
+@pytest.mark.parametrize("hb,wb,second", [
+    (12, 20, None), (9, 15, "x_add"), (10, 14, "up_coarse"), (5, 7, None), (3, 5, "x_add"), (2, 6, "up_coarse"),
+    (64, 96, "up_coarse"), (135, 240, "x_add"),
+])
+def test_resblock_s2d_matches_plain(dev, hb, wb, second):
+    """resblock's s2d form in bf16: SFT1 (with x_add or up_coarse summed on
+    read and the sum written as the residual) and SFT2 (reading the fp32 h1)
+    on the row tile, conv1 through the Hopper tile's fp32-output epilogue,
+    conv2 with the residual; whole, ragged and partial tiles, odd shapes.
+    Against the plain version's s2d form, two bf16 steps as the dense form."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_resblock, fused_resblock_ref
+
+    rng = np.random.RandomState(hb * wb + 29)
+    x, cond, kw = _resblock_s2d_inputs(rng, hb, wb, second, dev)
+    args = (x, cond, _sft_s2d(rng, dev), *_conv_s2d(rng, dev), _sft_s2d(rng, dev), *_conv_s2d(rng, dev))
+    before = native.launch_counts["resblock"]
+    y = fused_resblock(*args, **kw, s2d=True)
+    assert native.launch_counts["resblock"] == before + 1
+    assert y.shape == (hb, wb, 128)
+    _close(y, fused_resblock_ref(*args, **kw, s2d=True), "bf16", steps=2, flips=0.05)
+
+
+@pytest.mark.parametrize("hb,wb,second", [(9, 15, "x_add"), (10, 14, "up_coarse"), (135, 240, "x_add")])
+def test_resblock_s2d_residual_is_bit_exact(dev, hb, wb, second):
+    """The rounded sum SFT1 writes (xsum) is the residual: with conv2's
+    weight and bias zero the output is xsum itself, which must equal
+    round(x + add) bit for bit, as in the plain version."""
+    from hdrtv_tpu_torch.ops.megakernel import _d2s_fine, fused_resblock, fused_resblock_ref
+
+    rng = np.random.RandomState(hb * wb + 31)
+    x, cond, kw = _resblock_s2d_inputs(rng, hb, wb, second, dev)
+    w0 = torch.zeros(3, 3, 128, 128, device=dev, dtype=torch.bfloat16)
+    args = (x, cond, _sft_s2d(rng, dev), *_conv_s2d(rng, dev), _sft_s2d(rng, dev), w0,
+            torch.zeros(128, device=dev))
+    y = fused_resblock(*args, **kw, s2d=True)
+    add = kw["x_add"] if second == "x_add" else _d2s_fine(kw["up_coarse"])
+    torch.cuda.synchronize()
+    assert torch.equal(y, (x.float() + add.float()).to(torch.bfloat16))
+    assert torch.equal(y, fused_resblock_ref(*args, **kw, s2d=True))
+
+
+def test_s2d_sft_forms_refuse_other_widths(dev):
+    """sft_conv3 and resblock with s2d=True in bf16 at natural widths the row
+    tile is not built for raise on the card; nothing falls back to the dense
+    kernels."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_resblock, fused_sft_conv3_v2
+
+    rng = np.random.RandomState(7)
+    x = _t(rng.rand(4, 4, 256), dev, "bf16")
+    cond = _t(rng.rand(4, 4, 64), dev, "bf16")
+    sft = [_p11(rng, ci, co, dev) for ci, co in ((16, 16), (16, 64), (16, 16), (16, 64))]
+    w = _t(w_s2d_s1(rng.randn(3, 3, 64, 64).astype(np.float32) * 0.05), dev, "bf16")
+    b = torch.zeros(256, device=dev)
+    with pytest.raises(ValueError, match="row tile"):
+        fused_sft_conv3_v2(x, cond, sft, w, b, s2d=True)
+    with pytest.raises(ValueError, match="row tile"):
+        fused_resblock(x, cond, sft, w, b, sft, w, b, s2d=True)
+
+
 def test_mega_frame_matches_cpu(dev, monkeypatch):
     """The bf16 megakernel frame program on the card against the same
     processor on the CPU (the plain versions), one seeded 64×128 frame, and
