@@ -50,6 +50,13 @@ lines; any failed check raises and the script exits non-zero with no result:
    table, resblock's conv1 storing h1 in fp32) and in bf16 once more in the
    dense form, with the same tolerances; "sft_conv3_split" and
    "resblock_split" lines give each bf16 case's SFT and conv launches apart.
+   agcm_head likewise runs in the s2d form the megakernel program calls
+   (s2d=True: in bf16 the AGCM pass on the row tile, the input conv on its
+   wgmma tile over the s2d slots) and in bf16 once more dense, an
+   "agcm_head_split" line giving each form's two launches; trunk3's bf16
+   instance runs on the Hopper tiles (its SFT passes on the row tile, its
+   convs on the conv tile with the dense table), a "trunk3_split" line
+   giving its SFT and conv launches.
    hg_tail, at the 1080p shape of the
    HG composite (544 × 960 blocks, 256 + 256 channels), in codes: fp32 ≤ 1;
    bf16 equal except where the rounding of u10 flipped, each such output
@@ -426,6 +433,8 @@ def launch_split(fn, torch, parts, reps: int = 20) -> dict:
 # resblock (SFT passes, 3×3 convs), by kernel name.
 TAIL_PARTS = (("conv_last_ms", "conv_last"), ("sft_ms", "sft"), ("hr_conv2_ms", "conv3x3"))
 SFT_CONV_PARTS = (("sft_ms", "sft"), ("conv_ms", "conv3x3"))
+# agcm_head's two launches (the AGCM pass, the input conv), dense or s2d.
+HEAD_PARTS = (("agcm_ms", "agcm"), ("in_conv_ms", "in_conv"))
 
 
 def conv_macs(w, h_out: int, w_out: int, stride: int) -> int:
@@ -481,10 +490,11 @@ def phase_kernels(torch, np) -> dict:
     from hdrtv_tpu_torch.models.s2d import b_s2d, w_ps_permute, w_s2d_1x1, w_s2d_s1, w_s2d_s1_ps, w_s2d_s2
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_ref
     from hdrtv_tpu_torch.ops.megakernel import (
-        agcm_head_pack, fused_agcm_head, fused_agcm_head_ref, fused_cond_chain, fused_cond_chain_ref,
+        agcm_head_pack, agcm_head_pack_s2d, fused_agcm_head, fused_agcm_head_ref, fused_cond_chain,
+        fused_cond_chain_ref,
         fused_down2, fused_down2_ref, fused_mix_chain, fused_mix_chain_ref, fused_resblock,
         fused_hg_tail, fused_hg_tail_ref, fused_resblock_ref, fused_sft_conv3_v2, fused_sft_conv3_v2_ref,
-        fused_tail, fused_tail_ref, fused_trunk3, fused_trunk3_ref,
+        fused_tail, fused_tail_ref, fused_trunk3, fused_trunk3_ref, trunk3_pack, trunk3_pack_bf16,
     )
     from hdrtv_tpu_torch.ops.pack import colorimetric_pq_pack, colorimetric_pq_pack_ref, pack_rgb48, pack_rgb48_ref
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3_q_ref
@@ -782,25 +792,35 @@ def phase_kernels(torch, np) -> dict:
         w_in = t(np.concatenate([w_s2d_s1(rng.randn(3, 3, 3, co).astype(np.float32) * 0.1) for co in (32, 64)], axis=-1))
         hargs = (mods, p11(3, 64, 0.2), f32(rng.randn(256) * 0.1), p11(64, 64), f32(rng.randn(256) * 0.1),
                  p11(64, 3, 0.1), f32(rng.randn(12) * 0.1), w_in, f32(rng.randn(384) * 0.1))
+        # the biases as the s2d transforms have them (b_s2d: the first quarter tiled, w_in's per part)
+        hargs = (*hargs[:2], hargs[2][:64].repeat(4), hargs[3], hargs[4][:64].repeat(4), hargs[5],
+                 hargs[6][:3].repeat(4), w_in, torch.cat([hargs[8][:32].repeat(4), hargs[8][128:192].repeat(4)]))
         packed = agcm_head_pack(hargs[1], hargs[5], w_in)
-
-        def head():
-            return fused_agcm_head(xs, *hargs, n_first=128, scale=1.0 / 255.0, packed=packed)
-
-        def head_plain():
-            return fused_agcm_head_ref(xs, *hargs, n_first=128, scale=1.0 / 255.0)
+        packed_s2d = agcm_head_pack_s2d(*hargs[1:6:2], w_in, hargs[8], n_first=128)
 
         def joined(outs):
             return torch.cat([o.reshape(-1) for o in outs])
 
-        y, y_r = head(), head_plain()
-        if [tuple(o.shape) for o in y] != [(hb, wb, 128), (hb, wb, 256), (hb, wb, 12)]:
-            raise AssertionError(f"agcm_head output shapes {[tuple(o.shape) for o in y]}")
-        ms, plain = time_ms(head, torch), time_ms(head_plain, torch)
-        record("agcm_head", dtype, "L0 u8 pair planes -> fea, c0, agcm", (0, 0, 1), joined(y), joined(y_r),
-               ATOL if dtype == "f32" else 2, ms, plain, None, nbytes_of(xs, *hargs, *y),
-               2 * npix * nnz(hargs[1], hargs[3], hargs[5]) + 2 * conv_macs(w_in, hb, wb, 1)
-               + 3 * npix * (256 + 256 + 12), unit)
+        # the program's s2d form (bf16: the AGCM pass on the row tile, the input conv on its wgmma
+        # tile over the slots), then in bf16 the dense form once (no path launches it)
+        for s2d in (True, False) if dtype == "bf16" else (True,):
+            def head(s2d=s2d):
+                return fused_agcm_head(xs, *hargs, n_first=128, scale=1.0 / 255.0, packed=packed,
+                                       packed_s2d=packed_s2d, s2d=s2d)
+
+            def head_plain(s2d=s2d):
+                return fused_agcm_head_ref(xs, *hargs, n_first=128, scale=1.0 / 255.0, s2d=s2d)
+
+            y, y_r = head(), head_plain()
+            if [tuple(o.shape) for o in y] != [(hb, wb, 128), (hb, wb, 256), (hb, wb, 12)]:
+                raise AssertionError(f"agcm_head output shapes {[tuple(o.shape) for o in y]}")
+            ms, plain = time_ms(head, torch), time_ms(head_plain, torch)
+            if dtype == "bf16":
+                log(json.dumps({"agcm_head_split": {"s2d": s2d, **launch_split(head, torch, HEAD_PARTS)}}))
+            record("agcm_head", dtype, f"L0 u8 pair planes -> fea, c0, agcm s2d={s2d}", (0, 0, 1) if s2d else (0, 0, 0),
+                   joined(y), joined(y_r), ATOL if dtype == "f32" else 2, ms, plain, None, nbytes_of(xs, *hargs, *y),
+                   2 * npix * nnz(hargs[1], hargs[3], hargs[5]) + 2 * conv_macs(w_in, hb, wb, 1)
+                   + 3 * npix * (256 + 256 + 12), unit)
         del xs, y, y_r
 
         # cond_chain: c0 (540,960,256) → 256 ×4 (lrelu) → 64; c and cond1 compared as one vector.
@@ -889,10 +909,18 @@ def phase_kernels(torch, np) -> dict:
                            sft2, t(rng.randn(3, 3, cin, cin) * wc), f32(rng.randn(cin) * 0.1)))
         w_up = t(w_ps_permute(rng.randn(3, 3, cin, co).astype(np.float32) * wc))
         b_up = f32(rng.randn(co) * 0.1)
-        y = fused_trunk3(fea3, cond4, blocks, w_up, b_up)
+        # the parameter pack the frame programs build once at load (models/s2d.py params_to_torch)
+        tpack = (trunk3_pack if dtype == "f32" else trunk3_pack_bf16)(blocks, w_up, b_up)
+
+        def trunk():
+            return fused_trunk3(fea3, cond4, blocks, w_up, b_up, packed=tpack)
+
+        y = trunk()
         y_r = fused_trunk3_ref(fea3, cond4, blocks, w_up, b_up)
-        ms = time_ms(lambda: fused_trunk3(fea3, cond4, blocks, w_up, b_up), torch)
+        ms = time_ms(trunk, torch)
         plain = time_ms(lambda: fused_trunk3_ref(fea3, cond4, blocks, w_up, b_up), torch)
+        if dtype == "bf16":
+            log(json.dumps({"trunk3_split": launch_split(trunk, torch, SFT_CONV_PARTS)}))
         flops = 2 * sum(conv_macs(blk[i], hb, wb, 1) for blk in blocks for i in (1, 4))
         flops += 2 * conv_macs(w_up, hb, wb, 1)
         flops += 8 * hb * wb * 2 * 2 * (cc * cc + cc * cin)  # the SFT 1×1 pairs

@@ -32,6 +32,33 @@
 //
 // The host pads once (ops/megakernel.py agcm_head_pack): aw1 (12 → 16, C1),
 // aw3 (C2, 12 → 16), w_in as (108 → 112, Co).
+//
+// The s2d form (the wrapper's s2d=True, bf16: the AGCM 1×1s w_s2d_1x1, their
+// biases b_s2d, w_in = w_s2d_s1(conv_first) ‖ w_s2d_s1(cond_first.0), as the
+// frame programs' are; hdrtv_agcm_head_s2d_bf16), two launches on Hopper
+// tiles:
+//   1. the AGCM pass on chain_sm90.cuh's row tile (agcm_sm90): the frame's
+//      (4·npix, 3) natural rows through the three 1×1s' diagonal blocks on
+//      wgmma, the modulation at each row's own sub-position; writes agcm;
+//   2. in_conv_sm90_kernel, the input conv, store-bound: a block (one
+//      warpgroup, two per SM, persistent) takes 64 consecutive s2d pixels
+//      of one row, stages their agcm halo (3 rows × 66 columns × 12
+//      channels, zero outside the image: the 'same' pad after the
+//      modulation) by cp.async, the next tile's while this one computes,
+//      and per output sub-position so runs one m64 pass: A is the 64
+//      pixels × so's 9 slots of models/s2d.py s2d_slots(1) × 3 channels (27
+//      of K = 32), gathered from the stage into registers; B is so's own
+//      (32, 96) weight, 32 fea and 64 c0 columns (agcm_head_pack_s2d),
+//      resident; two wgmma.m64n96k16. A quarter of the dense product's
+//      operations, none of the 3/4 zeros of the s2d weight. The epilogue
+//      adds the fp32 bias, applies ReLU (fea) or leaky ReLU 0.1 (c0),
+//      rounds once and stages the tile's whole (64, 128 ‖ 256) output in
+//      six 128-byte-swizzled boxes of 64 pixels × 64 channels (fea two, c0
+//      four); one thread writes them out by TMA stores through 3-D maps of
+//      fea and c0, (C, W, H), which clip a box at the row's end.
+// Bound on this card: bytes, the 398 MB of fea and c0 at 1080p (0.12 ms);
+// 12.7 GFLOP of slot products (0.013 ms).
+#include "chain_sm90.cuh"
 #include "pointwise.cuh"
 
 namespace hdrtv {
@@ -243,8 +270,254 @@ int agcm_head(const void* x, int kind, float scale, const void* mods, int mw, co
   return static_cast<int>(launch_head<T, false>(g, c, st));
 }
 
+// ---------------------------------------------------------------------------
+// The s2d form's input conv (see the header).
+// ---------------------------------------------------------------------------
+
+struct InConvSm90Args {
+  CUtensorMap fea_map, c0_map;  // fea (128, W, H) and c0 (256, W, H), box (64, 64, 1), 128-byte swizzle
+  const bf16* agcm;  // (H, W, 12)
+  const bf16* w;     // (4, 32, 96): so's rows 3·k + c (slot k of so, channel c; 27 of 32), fea ‖ c0 columns
+  const float* b;    // (4, 96)
+  bf16* fea;         // (H, W, 4·32)
+  bf16* c0;          // (H, W, 4·64)
+  int H, W;
+  int slot[36];      // so's 9 slots (s2d_slots(1), its order) at [9·so, 9·so + 9): tap | si << 4
+};
+
+// The staged output goes out by TMA: six boxes of 64 channels × 64 pixels
+// (fea two, c0 four), the stage in the boxes' 128-byte swizzle, clipped at
+// the row's end by the maps.
+struct InConvSm90Cfg {
+  static constexpr int CF = 32, CC = 64, N = CF + CC;  // one sub-position's fea and c0 columns
+  static constexpr int K = 32;                         // 9 slots × 3 channels, padded
+  static constexpr int TW = 64;                        // pixels of a tile: one m64 tile
+  static constexpr int HC = TW + 2;                    // halo columns
+  static constexpr int PIX = 12 * 2;                   // bytes of an agcm pixel
+  static constexpr int HALO = 3 * HC * PIX;
+  static constexpr int W_BYTES = 4 * K * N * 2;
+  static constexpr int BIAS_BYTES = 4 * N * 4;
+  static constexpr int OFF_BYTES = 4 * K * 2;
+  static constexpr int BOX = TW * 128;            // a TMA box: 64 pixels × 64 channels
+  static constexpr int STAGE = 6 * BOX;
+  static constexpr int SMEM = 1024 + STAGE + W_BYTES + BIAS_BYTES + OFF_BYTES + 2 * HALO;
+  static_assert(STAGE % 16 == 0 && (W_BYTES + BIAS_BYTES + OFF_BYTES) % 16 == 0, "16-byte alignment");
+  static_assert(2 * (SMEM + 1024) <= 228 * 1024, "two blocks per SM");
+};
+
+// 8 bytes from global memory into shared memory, or 8 zero bytes where !ok.
+__device__ __forceinline__ void cp_async8_or_zero(void* smem, const void* gmem, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem), "r"(ok ? 8 : 0) : "memory");
+}
+
+// Byte offset of bf16 channel ch (of 64·boxes) of pixel px in the stage: box
+// ch / 64, its 128-byte row px, the row's 16-byte chunks swizzled by px % 8
+// (conflict-free pair stores: the 8 pixels of a quad row hit 8 chunks).
+__device__ __forceinline__ int tma_stage_at(int px, int ch) {
+  const int byte = (ch & 63) * 2;
+  return (ch >> 6) * (64 * 128) + px * 128 + (((byte >> 4) ^ (px & 7)) << 4) + (byte & 15);
+}
+
+__global__ void __launch_bounds__(128, 2) in_conv_sm90_kernel(const __grid_constant__ InConvSm90Args a) {
+  using Cfg = InConvSm90Cfg;
+  constexpr int K = Cfg::K, N = Cfg::N, TW = Cfg::TW, HC = Cfg::HC;
+  extern __shared__ __align__(16) unsigned char conv_smem[];
+  // the stage's swizzle repeats every 1024 bytes: align it to 1024
+  const unsigned raw = static_cast<unsigned>(__cvta_generic_to_shared(conv_smem));
+  unsigned char* const stage = conv_smem + (((raw + 1023u) & ~1023u) - raw);
+  unsigned char* const smem = stage + Cfg::STAGE;
+  float* const bias = reinterpret_cast<float*>(smem + Cfg::W_BYTES);
+  short* const offs = reinterpret_cast<short*>(smem + Cfg::W_BYTES + Cfg::BIAS_BYTES);
+  unsigned char* const halo = smem + Cfg::W_BYTES + Cfg::BIAS_BYTES + Cfg::OFF_BYTES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, q = lane & 3, g = lane >> 2;
+
+  for (int so = 0; so < 4; ++so) stage_b(smem + so * K * N * 2, N, 0, a.w + so * K * N, N, K, N);
+  for (int i = tid; i < 4 * N; i += blockDim.x) bias[i] = a.b[i];
+  // Column k of so's A is the stage element offs[so·K + k] + 12·px for pixel
+  // px: slot k / 3 at tap (dI, dJ) (halo row dI, column px + dJ), input
+  // sub-position si, channel k % 3; −1 for the padding.
+  for (int i = tid; i < 4 * K; i += blockDim.x) {
+    const int so = i / K, k = i % K;
+    short o = -1;
+    if (k < 27) {
+      const int e = a.slot[so * 9 + k / 3], tap = e & 15, si = e >> 4;
+      o = static_cast<short>((tap / 3) * HC * 12 + (tap % 3) * 12 + si * 3 + k % 3);
+    }
+    offs[i] = o;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int tw = (a.W + TW - 1) / TW;
+  const int tiles = a.H * tw;
+  // tile t: row t / tw, pixels 64·(t % tw) ..; its halo rows i − 1 .. i + 1,
+  // columns j0 − 1 .. j0 + 64, each pixel three 8-byte pieces
+  auto load_halo = [&](int tile, int buf) {
+    const int i = tile / tw, j0 = (tile % tw) * TW;
+    unsigned char* const hs = halo + buf * Cfg::HALO;
+    for (int idx = tid; idx < 3 * HC * 3; idx += blockDim.x) {
+      const int r = idx / (HC * 3), rem = idx - r * (HC * 3), col = rem / 3, piece = rem - col * 3;
+      const int gi = i + r - 1, gj = j0 + col - 1;
+      const bool ok = gi >= 0 && gi < a.H && gj >= 0 && gj < a.W;
+      const bf16* const src = a.agcm + (ok ? (static_cast<long long>(gi) * a.W + gj) * 12 + piece * 4 : 0);
+      cp_async8_or_zero(hs + (r * HC + col) * Cfg::PIX + piece * 8, src, ok);
+    }
+  };
+
+  const unsigned wbase = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (blockIdx.x < tiles) load_halo(blockIdx.x, 0);
+  cp_async_commit();
+  int k = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k) {
+    // this tile's halo arrived (everyone's copies); everyone is done with
+    // the last tile's halo, which the next tile's copy refills
+    if (tile + gridDim.x < tiles) load_halo(tile + gridDim.x, (k + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const unsigned short* const hs = reinterpret_cast<const unsigned short*>(halo + (k & 1) * Cfg::HALO);
+#pragma unroll 1
+    for (int so = 0; so < 4; ++so) {
+      // A fragments of warp rows 16·warp + g (+ 8), columns 16·kc + 2q (+ 8), pairs packed
+      unsigned af[2][4];
+      const short* const of = offs + so * K;
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int px = warp * 16 + g + 8 * (r & 1);
+          const int kk = 16 * kc + 2 * q + 8 * (r >> 1);
+          const int o0 = of[kk], o1 = of[kk + 1];
+          const unsigned lo = o0 < 0 ? 0u : hs[o0 + px * 12];
+          const unsigned hi = o1 < 0 ? 0u : hs[o1 + px * 12];
+          af[kc][r] = lo | hi << 16;
+        }
+      float d[N / 2];
+      const unsigned wb = wbase + so * K * N * 2;
+      wgmma_fence();
+      WgmmaRA<N>::mma(d, af[0], desc_rows_b(wb, N, 0), 0);
+      WgmmaRA<N>::mma(d, af[1], desc_rows_b(wb, N, 1), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d);
+      fence_frags(af);
+      if (so == 0) {
+        // the last tile's store has read the stage (it ran under this tile's first products)
+        if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        __syncthreads();
+      }
+      const float* const bs = bias + so * N;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int n = 8 * j + 2 * q;
+        const float2 bb = *reinterpret_cast<const float2*>(bs + n);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = warp * 16 + g + 8 * h;
+          const float v0 = d[4 * j + 2 * h] + bb.x, v1 = d[4 * j + 2 * h + 1] + bb.y;
+          const bool f = j < Cfg::CF / 8;
+          const unsigned u = f ? pack_bf16(apply_act(v0, ACT_RELU), apply_act(v1, ACT_RELU))
+                               : pack_bf16(apply_act(v0, ACT_LRELU), apply_act(v1, ACT_LRELU));
+          *reinterpret_cast<unsigned*>(stage + (f ? tma_stage_at(px, so * Cfg::CF + n)
+                                                  : 2 * Cfg::BOX + tma_stage_at(px, so * Cfg::CC + n - Cfg::CF))) = u;
+        }
+      }
+    }
+    // the stage, written by the generic proxy, is read by TMA's async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0) {
+      const int i = tile / tw, j0 = (tile % tw) * TW;
+      const unsigned st = static_cast<unsigned>(__cvta_generic_to_shared(stage));
+#pragma unroll
+      for (int b = 0; b < 6; ++b) {
+        const CUtensorMap* const map = b < 2 ? &a.fea_map : &a.c0_map;
+        asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n"
+                     ::"l"(reinterpret_cast<uint64_t>(map)), "r"((b < 2 ? b : b - 2) * 64), "r"(j0), "r"(i),
+                     "r"(st + b * Cfg::BOX)
+                     : "memory");
+      }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+  cp_async_wait<0>();
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// An output's TMA map: (C, W, H) bf16, box (64 channels, 64 pixels, 1 row),
+// the 128-byte swizzle the stage is written in; out-of-image boxes clipped.
+cudaError_t encode_out_map(CUtensorMap* map, void* y, int H, int W, int C) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(C) * 2, static_cast<cuuint64_t>(W) * C * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, y, dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+      CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// agcm_head's s2d form in bf16 (see the header); the natural widths the
+// frame programs run, AGCM 3 → 64 → 64 → 3 and the input conv 3 → 32 ‖ 64,
+// are the ones it takes (the wrapper checks them).
+cudaError_t agcm_head_s2d(const AgcmSm90Args& g, InConvSm90Args& c, cudaStream_t stream) {
+  using Cfg = InConvSm90Cfg;
+  cudaError_t err = agcm_sm90(g, stream);
+  static int resident = 0;
+  if (err == cudaSuccess && !resident) err = resident_blocks(in_conv_sm90_kernel, Cfg::SMEM, &resident, 128);
+  if (err == cudaSuccess) err = encode_out_map(&c.fea_map, c.fea, c.H, c.W, 4 * Cfg::CF);
+  if (err == cudaSuccess) err = encode_out_map(&c.c0_map, c.c0, c.H, c.W, 4 * Cfg::CC);
+  if (err != cudaSuccess) return err;
+  const int tiles = c.H * ((c.W + Cfg::TW - 1) / Cfg::TW);
+  in_conv_sm90_kernel<<<std::max(1, std::min(tiles, resident)), 128, Cfg::SMEM, stream>>>(c);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace hdrtv
+
+// The s2d form in bf16. kind as below; w1, w2, w3: the AGCM blocks, padded
+// (16, 64), (64, 64), (64, 16); b1, b2, b3 the s2d biases; w_in (4, 32, 96)
+// and b_in (4, 96) the input conv gathered per output sub-position; slots:
+// 36 entries tap | si << 4, so's 9 at [9·so, 9·so + 9); mods (6, mw ≥ 256).
+extern "C" int hdrtv_agcm_head_s2d_bf16(const void* x, int kind, float scale, const void* mods, int mw,
+                                        const void* w1, const void* b1, const void* w2, const void* b2,
+                                        const void* w3, const void* b3, const void* w_in, const void* b_in,
+                                        const int* slots, void* fea, void* c0, void* agcm, int H, int W,
+                                        void* stream) {
+  using namespace hdrtv;
+  if (kind < kAgcmFrameBf16 || kind > kAgcmFramePairs || mw < 256 || !slots || H < 1 || W < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  AgcmSm90Args g;
+  g.x = x;
+  g.kind = kind;
+  g.scale = scale;
+  g.mods = static_cast<const float*>(mods);
+  g.mw = mw;
+  g.w[0] = static_cast<const bf16*>(w1);
+  g.w[1] = static_cast<const bf16*>(w2);
+  g.w[2] = static_cast<const bf16*>(w3);
+  g.b[0] = static_cast<const float*>(b1);
+  g.b[1] = static_cast<const float*>(b2);
+  g.b[2] = static_cast<const float*>(b3);
+  g.y = static_cast<bf16*>(agcm);
+  g.rows = 4LL * H * W;
+  g.W = W;
+  InConvSm90Args c;
+  c.agcm = static_cast<const bf16*>(agcm);
+  c.w = static_cast<const bf16*>(w_in);
+  c.b = static_cast<const float*>(b_in);
+  c.fea = static_cast<bf16*>(fea);
+  c.c0 = static_cast<bf16*>(c0);
+  c.H = H;
+  c.W = W;
+  for (int i = 0; i < 36; ++i) c.slot[i] = slots[i];
+  return static_cast<int>(agcm_head_s2d(g, c, static_cast<cudaStream_t>(stream)));
+}
 
 // kind: 0 the frame in the element type (Hb, Wb, 12), 1 u8 (Hb, Wb, 12),
 // 2 u8 row-pair planes (Hb, 2, Wb, 6). aw1, aw3 and wcat are the padded forms.

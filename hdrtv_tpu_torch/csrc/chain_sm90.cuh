@@ -118,6 +118,28 @@ struct WgmmaRA<64> {
   }
 };
 
+template <>
+struct WgmmaRA<96> {
+  static __device__ __forceinline__ void mma(float (&d)[48], const unsigned (&a)[4], uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
 // Keeps A fragments live (their registers unchanged) until the wgmmas that
 // read them have been waited for.
 template <int C>
@@ -543,7 +565,8 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
         }
         const float s0 = sc[4 * j + 2 * h] + bs.x, s1 = sc[4 * j + 2 * h + 1] + bs.y;
         const float h0 = sh[4 * j + 2 * h] + bh.x, h1 = sh[4 * j + 2 * h + 1] + bh.y;
-        store2<bf16>(pt, make_float2(xv.x * (s0 + 1.f) + h0, xv.y * (s1 + 1.f) + h1));
+        // multiply and add rounded apart, as the Pallas body (no contraction into an fma)
+        store2<bf16>(pt, make_float2(__fadd_rn(__fmul_rn(xv.x, s0 + 1.f), h0), __fadd_rn(__fmul_rn(xv.y, s1 + 1.f), h1)));
       }
     }
     warpgroup_sync(wg);
@@ -558,6 +581,34 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
   cp_async_wait<0>();
 }
 
+// Launches the SFT pass on a.rows rows of natural CC = 16 and C = 32
+// channels (the widths every SFT of the checkpoint has), weights read at
+// their block's pitch a.ld.
+template <typename XT>
+inline cudaError_t launch_sft_sm90(const SftSm90Args& a, cudaStream_t stream) {
+  using Cfg = SftSm90Cfg<16, 32, XT>;
+  auto kernel = sft_sm90_kernel<16, 32, XT>;
+  static int resident = 0;  // once per instantiation
+  if (!resident) {
+    const cudaError_t err = resident_blocks(kernel, Cfg::SMEM, &resident);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<row_blocks(a.rows, resident), kRowThreads, Cfg::SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// sft: the eight pointers w, b of scale0, scale1, shift0, shift1, whose
+// blocks (CC, CC), (CC, C), (CC, CC), (CC, C) lie at the top left of
+// weights of row pitch ld = cc, c, cc, c.
+inline void set_sft_sm90_params(SftSm90Args& a, const void* const* sft, int cc, int c) {
+  const int ld[4] = {cc, c, cc, c};
+  for (int i = 0; i < 4; ++i) {
+    a.w[i] = static_cast<const bf16*>(sft[2 * i]);
+    a.b[i] = static_cast<const float*>(sft[2 * i + 1]);
+    a.ld[i] = ld[i];
+  }
+}
+
 // The SFT pass over s2d weights: H × W s2d pixels of C and CC channels, x
 // of XT (bf16 or float), add (bf16 x only) nullptr, fine (coarse = 0) or
 // coarse (coarse = 1, H and W even), xsum (with add only) nullptr or the
@@ -567,9 +618,7 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
 template <typename XT>
 inline cudaError_t sft_sm90(const void* x, const void* add, int coarse, void* xsum, const void* cond1, void* t,
                             const void* const* sft, int H, int W, int C, int CC, cudaStream_t stream) {
-  constexpr int NCC = 16, NC = 32;
-  using Cfg = SftSm90Cfg<NCC, NC, XT>;
-  if (C != 4 * NC || CC != 4 * NCC || (add && coarse && (H % 2 || W % 2)) || (add && Cfg::F32X) ||
+  if (C != 4 * 32 || CC != 4 * 16 || (add && coarse && (H % 2 || W % 2)) || (add && SftSm90Cfg<16, 32, XT>::F32X) ||
       (xsum && !add))
     return cudaErrorInvalidValue;
   SftSm90Args a;
@@ -578,22 +627,272 @@ inline cudaError_t sft_sm90(const void* x, const void* add, int coarse, void* xs
   a.add = static_cast<const bf16*>(add);
   a.xsum = static_cast<bf16*>(xsum);
   a.t = static_cast<bf16*>(t);
-  const int ld[4] = {CC, C, CC, C};  // scale0 (CC, CC), scale1 (CC, C), shift0, shift1
-  for (int i = 0; i < 4; ++i) {
-    a.w[i] = static_cast<const bf16*>(sft[2 * i]);
-    a.b[i] = static_cast<const float*>(sft[2 * i + 1]);
-    a.ld[i] = ld[i];
-  }
+  set_sft_sm90_params(a, sft, CC, C);
   a.rows = 4LL * H * W;
   a.W = W;
   a.coarse = coarse;
-  auto kernel = sft_sm90_kernel<NCC, NC, XT>;
-  static int resident = 0;  // once per instantiation
+  return launch_sft_sm90<XT>(a, stream);
+}
+
+// The SFT pass over natural tensors (trunk3's): npix rows of x (bf16, C)
+// and cond (CC), natural weights; C = 32 and CC = 16 only.
+inline cudaError_t sft_sm90_natural(const void* x, const void* cond, void* t, const void* const* sft, long long npix,
+                                    int C, int CC, cudaStream_t stream) {
+  if (C != 32 || CC != 16) return cudaErrorInvalidValue;
+  SftSm90Args a;
+  a.cond = static_cast<const bf16*>(cond);
+  a.x = x;
+  a.add = nullptr;
+  a.xsum = nullptr;
+  a.t = static_cast<bf16*>(t);
+  set_sft_sm90_params(a, sft, CC, C);
+  a.rows = npix;
+  a.W = 0;
+  a.coarse = 0;
+  return launch_sft_sm90<bf16>(a, stream);
+}
+
+// ---------------------------------------------------------------------------
+// agcm_head's AGCM pass, its s2d form (agcm_head.cu, s2d=True): the frame's
+// (npix, 12) s2d pixels are the (4·npix, 3) rows of natural pixels (channel
+// so·3 + c of a pixel is channel c of its sub-position so's row), and each
+// 1×1 w_s2d_1x1(w) is those rows times w's block:
+//   a = relu(mod0(x·W1 + b1)), b = relu(mod1(a·W2 + b2)), y = mod2(b·W3 + b3)
+// with mod_k(v) = v·(s_k + 1) + h_k, multiply and add rounded apart, s_k and
+// h_k the fp32 modulation rows of mods at the row's own sub-position (lanes
+// so·64 + n of rows 0-3; so·3 + n of rows 4-5): mods need no structure. x is
+// the frame widened to fp32, scaled (__fmul_rn) and rounded to bf16; a and b
+// are rounded once into the next step's A fragments, y once on store.
+// Widths 3 → 64 → 64 → 3: the blocks come padded from the wrapper's pack,
+// W1 to K = 16 rows and W3 to N = 16 columns, with zeros.
+//
+// A natural row is 3 values, and pair planes hold a pixel's parity as 6
+// bytes: the rows cannot be 16-byte cp.async copies. Each thread loads its
+// own values of step 0's A fragment (rows rl, rl + 8; channels 2q, 2q + 1
+// of K = 16, of which only 0 .. 2 exist) straight into registers, the next
+// tile's while this tile's steps run. Per tile three wgmma steps
+// (m64n64k16 ×1, ×4; m64n16k16 ×4); a warp stages its 16 rows' 3 values
+// (96 contiguous bytes) and writes them as 4-byte words. Both warpgroups
+// walk their tiles apart, as the row tiles above.
+//
+// Bound on this card: bytes (at 1080p 6.2 MB in as u8 pair planes, 12.4 MB
+// out: 0.0056 ms), against 25 GFLOP of padded products (0.025 ms).
+// ---------------------------------------------------------------------------
+
+enum AgcmFrameKind : int { kAgcmFrameBf16 = 0, kAgcmFrameU8 = 1, kAgcmFramePairs = 2 };
+
+struct AgcmSm90Args {
+  const void* x;      // the frame: bf16 (npix, 12), u8 (npix, 12) or u8 pair planes (Hb, 2, Wb, 6)
+  int kind;           // AgcmFrameKind
+  float scale;
+  const float* mods;  // (6, mw) fp32
+  int mw;
+  const bf16* w[3];   // the blocks, row-major, padded: (16, 64), (64, 64), (64, 16)
+  const float* b[3];  // s2d biases: their first 64, 64 and 3 values are the blocks'
+  bf16* y;            // (rows, 3): the AGCM result, (npix, 12) s2d
+  long long rows;     // 4·npix
+  int W;              // s2d pixels of an image row (pair planes)
+#ifdef HDRTV_SM90_PHASES
+  unsigned long long* phases = nullptr;  // tools/sm90_phases.py: 8 clock64() sums per warpgroup
+#endif
+};
+
+struct AgcmSm90Cfg {
+  static constexpr int K0 = 16, N = 64, NL = 16;
+  static constexpr int W1 = K0 * N * 2, W2 = N * N * 2, W3 = N * NL * 2;
+  static constexpr int W_BYTES = W1 + W2 + W3;
+  static constexpr int MP = N + 8;                        // floats of a sub-position's lanes: conflict-free pairs
+  static constexpr int MOD_FLOATS = 4 * 4 * MP + 2 * NL;  // rows 0-3 by sub-position; rows 4-5 (12 lanes of 16)
+  static constexpr int BIAS_FLOATS = 2 * N + NL;
+  static constexpr int YST = 16 * 3 * 2;                  // a warp's staged rows of y
+  static constexpr int SMEM = W_BYTES + (MOD_FLOATS + BIAS_FLOATS) * 4 + 8 * YST;
+  static_assert(W_BYTES % 16 == 0 && (MOD_FLOATS + BIAS_FLOATS) % 4 == 0, "16-byte alignment");
+};
+
+// Where natural row r (sub-position so = r % 4) starts in the frame, in
+// elements: rows are 3 consecutive values of (npix, 12) frames; in pair
+// planes sub-position so = 2·(row parity) + column parity of s2d pixel (i,
+// j) is x[i, row parity, j, 3·(column parity) ..]. 32-bit arithmetic (the
+// wrapper keeps 12·npix < 2^31); the row i = p / W from the fp32
+// reciprocal of W, corrected by one step either way (p < 2^24).
+__device__ __forceinline__ unsigned agcm_row_start(const AgcmSm90Args& a, unsigned r, int so, float inv_w) {
+  if (a.kind != kAgcmFramePairs) return r * 3;
+  const unsigned p = r >> 2, w = static_cast<unsigned>(a.W);
+  unsigned i = __float2uint_rz(__uint2float_rn(p) * inv_w);
+  if (i * w > p) --i;
+  if ((i + 1) * w <= p) ++i;
+  return ((2 * i + (so >> 1)) * w + p - i * w) * 6 + (so & 1) * 3;
+}
+
+// Element e of the frame, widened to fp32.
+__device__ __forceinline__ float agcm_frame_value(const AgcmSm90Args& a, unsigned e) {
+  if (a.kind == kAgcmFrameBf16) return __bfloat162float(static_cast<const bf16*>(a.x)[e]);
+  return static_cast<float>(static_cast<const uint8_t*>(a.x)[e]);
+}
+
+__global__ void __launch_bounds__(kRowThreads, 2) agcm_sm90_kernel(const __grid_constant__ AgcmSm90Args a) {
+  using Cfg = AgcmSm90Cfg;
+  constexpr int N = Cfg::N, NL = Cfg::NL, MP = Cfg::MP;
+  extern __shared__ __align__(16) unsigned char row_smem[];
+  unsigned char* const smem = row_smem;
+  float* const mod = reinterpret_cast<float*>(smem + Cfg::W_BYTES);  // [row 0-3][so][MP], rows 0, 2 as s + 1
+  float* const modl = mod + 4 * 4 * MP;                              // [row 4-5][so·3 + n], row 4 as s + 1
+  float* const bias = modl + 2 * NL;                                 // b1 | b2 | b3 (3 of 16)
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31, q = lane & 3;
+  unsigned char* const yst = smem + Cfg::W_BYTES + (Cfg::MOD_FLOATS + Cfg::BIAS_FLOATS) * 4 + (tid >> 5) * Cfg::YST;
+
+  stage_b(smem, N, 0, a.w[0], N, Cfg::K0, N);
+  stage_b(smem + Cfg::W1, N, 0, a.w[1], N, N, N);
+  stage_b(smem + Cfg::W1 + Cfg::W2, NL, 0, a.w[2], NL, N, NL);
+  // the scale rows staged as s + 1 (the same fp32 value the modulation forms)
+  for (int i = tid; i < 4 * 4 * N; i += kRowThreads) {
+    const int row = i / (4 * N), l = i % (4 * N);  // l = so·64 + n
+    const float m = a.mods[static_cast<long long>(row) * a.mw + l];
+    mod[row * 4 * MP + (l / N) * MP + l % N] = row % 2 ? m : m + 1.f;
+  }
+  for (int i = tid; i < 2 * NL; i += kRowThreads)
+    modl[i] = i % NL < 12 ? a.mods[static_cast<long long>(4 + i / NL) * a.mw + i % NL] + (i < NL ? 1.f : 0.f) : 0.f;
+  for (int i = tid; i < Cfg::BIAS_FLOATS; i += kRowThreads)
+    bias[i] = i < 2 * N ? a.b[i / N][i % N] : (i - 2 * N < 3 ? a.b[2][i - 2 * N] : 0.f);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const RowTiles tiles(a.rows, wg);
+  const int rl = warp * 16 + (lane >> 2);  // this thread's rows in the tile: rl, rl + 8
+  const int so = (lane >> 2) & 3;          // their sub-position (tiles start at multiples of 64)
+  // this thread's values of step 0's A: rows rl + 8h, channels 2q + e (q
+  // 0: channels 0, 1; q 1: channel 2; q 2, 3: none)
+  const float inv_w = 1.f / static_cast<float>(a.W);
+  auto fetch = [&](int i, float (&v)[4]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long r = tiles.row0(i) + rl + 8 * h;
+      v[2 * h] = v[2 * h + 1] = 0.f;
+      if (q < 2 && r < a.rows) {
+        const unsigned e = agcm_row_start(a, static_cast<unsigned>(r), so, inv_w) + 2 * q;
+        v[2 * h] = agcm_frame_value(a, e);
+        if (q == 0) v[2 * h + 1] = agcm_frame_value(a, e + 1);
+      }
+    }
+  };
+  // a hidden step's epilogue: bias, the modulation of mods rows `row` (s + 1)
+  // and row + 1 (shift), ReLU, rounded into the next step's A fragments
+  auto hidden = [&](float (&d)[N / 2], const float* bs, int row, unsigned (&af)[N / 16][4]) {
+    const float* const sc = mod + row * 4 * MP + so * MP;
+    const float* const sh = sc + 4 * MP;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int n = 8 * j + 2 * q;
+      const float2 bb = *reinterpret_cast<const float2*>(bs + n);
+      const float2 s = *reinterpret_cast<const float2*>(sc + n);
+      const float2 hh = *reinterpret_cast<const float2*>(sh + n);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        af[j / 2][2 * (j % 2) + h] = pack_bf16(fmaxf(__fadd_rn(__fmul_rn(d[4 * j + 2 * h] + bb.x, s.x), hh.x), 0.f),
+                                               fmaxf(__fadd_rn(__fmul_rn(d[4 * j + 2 * h + 1] + bb.y, s.y), hh.y), 0.f));
+    }
+  };
+  // the last step's constants of this thread's columns 2q + c (< 3)
+  float lb[2], ls[2], lh[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int n = 2 * q + c < 3 ? 2 * q + c : 0;
+    lb[c] = bias[2 * N + n];
+    ls[c] = modl[so * 3 + n];
+    lh[c] = modl[NL + so * 3 + n];
+  }
+
+  const unsigned w1 = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const unsigned w2 = w1 + Cfg::W1, w3 = w2 + Cfg::W2;
+#ifdef HDRTV_SM90_PHASES
+  // Cycles per phase of a tile (fetch, the three steps' products and the two
+  // hidden epilogues, the output), summed by each warpgroup's first thread.
+  unsigned long long t_start = clock64(), t_phase[8] = {0, 0, 0, 0, 0, 0, 0, 0}, t_mark = 0;
+#define PHASE(i) (t_phase[i] += clock64() - t_mark, t_mark = clock64());
+#else
+#define PHASE(i)
+#endif
+  float nxt[4];
+  if (tiles.n > 0) fetch(0, nxt);
+  for (int i = 0; i < tiles.n; ++i) {
+#ifdef HDRTV_SM90_PHASES
+    t_mark = clock64();
+#endif
+    unsigned ax[1][4];
+    ax[0][0] = pack_bf16(__fmul_rn(nxt[0], a.scale), __fmul_rn(nxt[1], a.scale));
+    ax[0][1] = pack_bf16(__fmul_rn(nxt[2], a.scale), __fmul_rn(nxt[3], a.scale));
+    ax[0][2] = 0u;
+    ax[0][3] = 0u;
+    if (i + 1 < tiles.n) fetch(i + 1, nxt);
+    PHASE(1)
+
+    float d[N / 2];
+    unsigned af[N / 16][4];
+    wgmma_fence();
+    WgmmaRA<N>::mma(d, ax[0], desc_rows_b(w1, N, 0), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+    fence_frags(ax);
+    PHASE(2)
+    hidden(d, bias, 0, af);
+    PHASE(3)
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) WgmmaRA<N>::mma(d, af[kk], desc_rows_b(w2, N, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+    fence_frags(af);
+    PHASE(4)
+    hidden(d, bias + N, 2, af);
+    PHASE(5)
+
+    float e[NL / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) WgmmaRA<NL>::mma(e, af[kk], desc_rows_b(w3, NL, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(e);
+    fence_frags(af);
+    PHASE(6)
+    // columns 2q, 2q + 1 of the first 8 (e[2h], e[2h + 1]); 0 .. 2 exist
+    bf16* const ys = reinterpret_cast<bf16*>(yst);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = 2 * q + c;
+        if (n < 3)
+          ys[((lane >> 2) + 8 * h) * 3 + n] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(e[2 * h + c] + lb[c], ls[c]), lh[c]));
+      }
+    __syncwarp();
+    // the warp's 16 rows are 48 consecutive values: 24 words (rows come in
+    // fours, so a word never straddles the end)
+    const long long r0 = tiles.row0(i) + warp * 16;
+    if (lane < 24 && r0 * 3 + 2 * lane < a.rows * 3)
+      reinterpret_cast<unsigned*>(a.y + r0 * 3)[lane] = reinterpret_cast<const unsigned*>(yst)[lane];
+    __syncwarp();
+    PHASE(7)
+  }
+#ifdef HDRTV_SM90_PHASES
+  t_phase[0] = clock64() - t_start;
+  if (a.phases && t == 0)
+    for (int k = 0; k < 8; ++k) a.phases[(blockIdx.x * 2 + wg) * 8 + k] = t_phase[k];
+#endif
+#undef PHASE
+}
+
+// The AGCM pass of agcm_head's s2d form (arguments: AgcmSm90Args).
+inline cudaError_t agcm_sm90(const AgcmSm90Args& a, cudaStream_t stream) {
+  static int resident = 0;
   if (!resident) {
-    const cudaError_t err = resident_blocks(kernel, Cfg::SMEM, &resident);
+    const cudaError_t err = resident_blocks(agcm_sm90_kernel, AgcmSm90Cfg::SMEM, &resident);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<row_blocks(a.rows, resident), kRowThreads, Cfg::SMEM, stream>>>(a);
+  agcm_sm90_kernel<<<row_blocks(a.rows, resident), kRowThreads, AgcmSm90Cfg::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 

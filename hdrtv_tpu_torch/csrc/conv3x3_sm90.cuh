@@ -47,6 +47,20 @@
 // step k − 2's products before meeting), the warpgroups issue step k's
 // wgmmas and wait for their step k − 1. The copy runs under the products.
 //
+// Sums. BN = 128 and 64 sum a tile's whole K in the tensor cores' fp32
+// accumulator. BN = 32 (the instances of chained stages: trunk3's convs,
+// sft_conv3's and resblock's) sums each chunk from zero in the tensor cores
+// (scale-d = 0 on its first wgmma) and adds the chunk sums into registers
+// in fp32, rounding to nearest; the warpgroups wait for step k − 1 before
+// issuing step k, its products having run under step k's waits. The
+// tensor cores' sum truncates at each of its 2·KT steps: one sum over the
+// whole K put a bf16 rounding apart from a float64-summed conv's about
+// twice as often as cuDNN's fp32 conv, and down trunk3's 9-conv chain the
+// flips reached 7.4% of a small frame's outputs where the plain version
+// had 0.01% (tools/trunk3_flips.py, PERF.md). Chunk sums flip as often as
+// cuDNN's, for 2–8% more device time in these instances at 1080p
+// (tools/profile_frame.py).
+//
 // Epilogue, after a tile's last chunk: all its products done, ((acc + b) +
 // skip), the activation (none, relu, lrelu 0.1), one rounding to bf16; the
 // four lanes of a quad swap their pairs so that each stores one 8-channel
@@ -62,7 +76,10 @@
 // 16-byte pieces (a warp writes 128 contiguous bytes of each of 8 pixels);
 // kEpiBf16Skip (a call with a skip) swaps the fp32 sums first, so that each
 // lane reads its group's 8 skip values as one 16-byte piece instead of four
-// 4-byte pairs, then adds, activates, rounds and stores as kEpiBf16.
+// 4-byte pairs, then adds, activates, rounds and stores as kEpiBf16;
+// kEpiBf16Skip2 (trunk3's last conv2: x + conv2(t), then the stage skip)
+// rounds that sum, adds a second skip read the same way, activates and
+// rounds again: two roundings, as the TPU kernel stores x before adding fea3.
 //
 // What bounds it (in-kernel clock64() timers, PERF.md §5): at up_conv3's
 // shape the epilogue takes half a block's time, the products and their
@@ -102,6 +119,7 @@ struct Sm90Args {
   const T* w;         // (3, 3, C, Co)
   const float* b;     // (Co)
   const T* skip;      // (Ho, Wo, Co) or nullptr
+  const T* skip2;     // (Ho, Wo, Co): the kEpiBf16Skip2 instance's second skip, else nullptr
   T* y;               // (Ho, Wo, Co); float in the bf16 tile's F32OUT instance
   int Ho, Wo;
   int ch0, C, Co;
@@ -195,7 +213,7 @@ struct Wgmma;
 
 template <>
 struct Wgmma<32> {
-  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da, uint64_t db) {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %18, 0;\n"
@@ -204,13 +222,13 @@ struct Wgmma<32> {
         "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db) {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %34, 0;\n"
@@ -222,13 +240,13 @@ struct Wgmma<64> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db) {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %66, 0;\n"
@@ -246,7 +264,7 @@ struct Wgmma<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
@@ -277,7 +295,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 // The epilogue's forms (see the header).
-enum Sm90Epi { kEpiBf16 = 0, kEpiBf16Skip = 1, kEpiF32 = 2 };
+enum Sm90Epi { kEpiBf16 = 0, kEpiBf16Skip = 1, kEpiF32 = 2, kEpiBf16Skip2 = 3 };
 
 template <int BN, int S, bool RES, int EPI>
 __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_sm90_kernel(const __grid_constant__ Sm90Args<bf16> a) {
@@ -370,6 +388,22 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_sm90_kernel(const __g
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+  // BN = 32: each chunk summed from zero in part, added into acc in fp32
+  // (see the header's "Sums").
+  constexpr bool CS = BN == 32;
+  float part[MT][BN / 2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) part[mt][i] = 0.f;
+  auto add_part = [&]() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      fence_regs(part[mt]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mt][i] += part[mt][i];
+    }
+  };
 
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   // Step g is chunk kt of the block's tile number `tile`, in ring stage
@@ -400,22 +434,31 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_sm90_kernel(const __g
     if (tid == 0 && g + D < steps) load_a(fill);
     const unsigned As = base + stage * Cfg::A_BYTES;
     const unsigned Bs = static_cast<unsigned>(__cvta_generic_to_shared(Bsm)) + (RES ? kt : stage) * Cfg::B_CHUNK;
+    if constexpr (CS) {
+      // the previous chunk's sum (its products ran under this step's waits)
+      if (kt > 0) {
+        wgmma_wait<0>();
+        add_part();
+      }
+    }
     wgmma_fence();
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       const uint64_t db = desc_b(Bs + s * BN * 32, BN * 16, 128);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
-        Wgmma<BN>::mma(acc[mt], desc_a_sw64(As + (wg * MT + mt) * kSm90TW * 64 + s * 32), db);
+        Wgmma<BN>::mma(CS ? part[mt] : acc[mt], desc_a_sw64(As + (wg * MT + mt) * kSm90TW * 64 + s * 32), db,
+                       CS && s == 0 ? 0 : 1);
     }
     wgmma_commit();
     if (kt + 1 < KT) {
-      wgmma_wait<1>();
+      if constexpr (!CS) wgmma_wait<1>();
       PHASE(4)
     } else {
       // The tile's last chunk: finish its products, store, start the next
       // tile from zero. The next tile's first loads are in flight meanwhile.
       wgmma_wait<0>();
+      if constexpr (CS) add_part();
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
       const int t = t0 + tile * tstride;
@@ -467,12 +510,20 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_sm90_kernel(const __g
                 } else {
                   const uint4 sk = *reinterpret_cast<const uint4*>(a.skip + at);
                   const unsigned skw[4] = {sk.x, sk.y, sk.z, sk.w};
+                  uint4 sk2 = make_uint4(0u, 0u, 0u, 0u);
+                  if constexpr (EPI == kEpiBf16Skip2) sk2 = *reinterpret_cast<const uint4*>(a.skip2 + at);
+                  const unsigned sk2w[4] = {sk2.x, sk2.y, sk2.z, sk2.w};
                   unsigned o[4];
 #pragma unroll
                   for (int e = 0; e < 4; ++e) {
                     const float2 sv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&skw[e]));
-                    const __nv_bfloat162 r = __floats2bfloat162_rn(apply_act(__uint_as_float(wl[e]) + sv.x, a.act),
-                                                                   apply_act(__uint_as_float(wh[e]) + sv.y, a.act));
+                    float2 v = make_float2(__uint_as_float(wl[e]) + sv.x, __uint_as_float(wh[e]) + sv.y);
+                    if constexpr (EPI == kEpiBf16Skip2) {
+                      const float2 s1 = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+                      const float2 s2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sk2w[e]));
+                      v = make_float2(s1.x + s2.x, s1.y + s2.y);
+                    }
+                    const __nv_bfloat162 r = __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
                     o[e] = *reinterpret_cast<const unsigned*>(&r);
                   }
                   *reinterpret_cast<uint4*>(a.y + at) = make_uint4(o[0], o[1], o[2], o[3]);
@@ -574,15 +625,15 @@ cudaError_t encode_a_map(CUtensorMap* map, const void* x, int H, int W, int cf, 
   return cudaSuccess;
 }
 
-// How many blocks of `kernel` the card holds at once (block size 256,
+// How many blocks of `kernel` the card holds at once (block size `threads`,
 // `smem` bytes of dynamic shared memory, which it also allows the kernel).
 template <typename K>
-cudaError_t resident_blocks(K kernel, int smem, int* resident) {
+cudaError_t resident_blocks(K kernel, int smem, int* resident, int threads = kSm90Threads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSm90Threads, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err == cudaSuccess) *resident = std::max(per_sm, 1) * sms;
   return err;
 }
@@ -622,6 +673,7 @@ cudaError_t sm90_setup(Sm90Args<T>& a, const void* w, const float* b, const void
   a.w = static_cast<const T*>(w);
   a.b = b;
   a.skip = static_cast<const T*>(skip);
+  a.skip2 = nullptr;
   a.y = static_cast<T*>(y);
   a.Ho = H / S;
   a.Wo = W / S;
@@ -650,24 +702,29 @@ cudaError_t sm90_setup(Sm90Args<T>& a, const void* w, const float* b, const void
 // default on the stack. `f32_out`: y is float, stored unrounded (kEpiF32:
 // stride 1, 32-channel N tiles, resident weights; others refuse). A skip
 // takes kEpiBf16Skip where that is built (the same shapes), else kEpiBf16.
+// `skip2` (with a skip): kEpiBf16Skip2, the sum with the skip rounded, the
+// second skip added and rounded again (the same shapes; others refuse).
 template <int S>
 cudaError_t conv3x3_sm90(const void* x, const void* w, const float* b, const void* skip, void* y, int H,
                          int W, int cf, int ch0, int C, int Co, int act, int a_sub, const int* table,
-                         int per_list, cudaStream_t stream, Sm90Args<bf16>* args = nullptr, bool f32_out = false) {
+                         int per_list, cudaStream_t stream, Sm90Args<bf16>* args = nullptr, bool f32_out = false,
+                         const void* skip2 = nullptr) {
   Sm90Args<bf16> own;
   Sm90Args<bf16>& a = args ? *args : own;
   const cudaError_t err = sm90_setup(a, w, b, skip, y, H, W, S, cf, ch0, C, Co, act, a_sub, table, per_list);
   if (err != cudaSuccess) return err;
+  a.skip2 = static_cast<const bf16*>(skip2);
   const int bn = a.co_nat % 128 == 0 ? 128 : a.co_nat % 64 == 0 ? 64 : 32;
   // The weight chunks stay resident where they fit beside the ring.
   const bool res = (bn == 128 ? Sm90Cfg<128, true>::smem(per_list)
                     : bn == 64 ? Sm90Cfg<64, true>::smem(per_list)
                                : Sm90Cfg<32, true>::smem(per_list)) <= kSm90Smem;
   if constexpr (S == 1) {
-    if (bn == 32 && res && f32_out) return launch_sm90<32, 1, true, kEpiF32>(a, x, H, W, cf, stream);
-    if (bn == 32 && res && skip) return launch_sm90<32, 1, true, kEpiBf16Skip>(a, x, H, W, cf, stream);
+    if (bn == 32 && res && f32_out && !skip2) return launch_sm90<32, 1, true, kEpiF32>(a, x, H, W, cf, stream);
+    if (bn == 32 && res && skip && skip2) return launch_sm90<32, 1, true, kEpiBf16Skip2>(a, x, H, W, cf, stream);
+    if (bn == 32 && res && skip && !skip2) return launch_sm90<32, 1, true, kEpiBf16Skip>(a, x, H, W, cf, stream);
   }
-  if (f32_out) return cudaErrorInvalidValue;
+  if (f32_out || skip2) return cudaErrorInvalidValue;
   if (bn == 128)
     return res ? launch_sm90<128, S, true>(a, x, H, W, cf, stream) : launch_sm90<128, S, false>(a, x, H, W, cf, stream);
   if (bn == 64)

@@ -10,19 +10,31 @@
 // out-of-image taps read zero, as the TPU kernel's row mask makes them.
 //
 // Bound on this card: operations, but the stage is small: at 1080p
-// (135×240) it is ~7 GFLOP and every intermediate is 4.1 MB, so the whole
-// chain lives in the 50 MB L2. Design: one host call launches a fixed
-// sequence of 17 kernels (8 SFT passes, 9 convs on the implicit-GEMM tile
-// of conv3x3.cuh) through three scratch buffers, instead of one launch with
-// a 9-conv halo that would not fit shared memory at 240 columns × 32
-// channels. The residual add and the stage skip ride in the conv epilogue;
-// the running x is updated in place. A 32-channel conv uses a quarter of a
-// 128-wide tile (Co is masked). Both element types run the FMA tile: the
-// weights come from the fp32 parameter block.
+// (135×240) it is ~7 GFLOP and every intermediate is 2.1 MB in bf16, so the
+// whole chain lives in the 50 MB L2. Design: one host call launches a fixed
+// sequence of 17 kernels (8 SFT passes, 9 convs) through three scratch
+// buffers, instead of one launch with a 9-conv halo that would not fit
+// shared memory at 240 columns × 32 channels. The residual add and the stage
+// skip ride in the conv epilogue; the running x is updated in place.
 //
-// Element types: fea3, cond, the output and the three scratch buffers are T
-// (float or bf16); the parameter block is fp32 for both (for bf16 it holds
-// weights already rounded to bf16, so every product is the TPU kernel's).
+// fp32: the SFT passes one thread per pixel, the convs on the FMA tile of
+// conv3x3.cuh (a 32-channel conv uses a quarter of a 128-wide tile, Co
+// masked), weights from the fp32 parameter block.
+//
+// bf16: the same 17 stages on the Hopper tiles, weights from the bf16 pack:
+//   - the 8 SFT passes on chain_sm90.cuh's row tile (sft_sm90_natural): the
+//     H·W natural rows of x (the running x, or h) and cond against the
+//     natural 1×1 weights, resident, on wgmma; t written once;
+//   - the 9 convs on conv3x3_sm90.cuh's tile, dense (a_sub = 0: C = 32 is
+//     one 9-chunk list, the table the wrapper passes), weights resident, TMA
+//     zero-filling t outside the image (135 rows are not a multiple of the
+//     tile's 4: the masked stores hold the edge): conv1 BN = 32 with ReLU;
+//     conv2 BN = 32 through the skip epilogue (x + conv2(t)), the fourth one
+//     through the two-skip epilogue (x + conv2(t) rounded, then + fea3 and
+//     rounded again, as _trunk3_kernel stores x before the stage skip);
+//     up_conv1 BN = 128 with ReLU.
+// What holds it then: 17 launches of a few µs each.
+//
 // Rounding points as in _trunk3_kernel: the SFT's hidden activations, t, h,
 // the running x after each resblock, and the stage-skip sum before up_conv1
 // are each stored in T; sums are fp32.
@@ -31,8 +43,10 @@
 // of the 4 resblocks: sft1, conv1 w (3,3,C,C), conv1 b (C), sft2, conv2 w,
 // conv2 b; then up_conv1 w (3,3,C,Co) and b (Co). An sft is
 //     w0s (CC,CC) b0s (CC) w1s (CC,C) b1s (C) w0h (CC,CC) b0h (CC) w1h (CC,C) b1h (C)
-// (the scale branch, then the shift branch; 1×1 weights as (in, out)).
-#include "conv3x3.cuh"
+// (the scale branch, then the shift branch; 1×1 weights as (in, out)). The
+// bf16 pack (trunk3_pack_bf16) is the same order split in two: the weights
+// in bf16, the biases in fp32.
+#include "chain_sm90.cuh"
 
 namespace hdrtv {
 namespace {
@@ -105,6 +119,7 @@ cudaError_t conv(const T* x, const float* w, const T* skip, const T* skip2, T* y
 template <typename T>
 int trunk3(const void* fea3, const void* cond, const void* params, void* y, void* scratch, int H,
            int W, int C, int CC, int Co, void* stream) {
+  static_assert(std::is_same<T, float>::value, "bf16 runs trunk3_sm90");
   if (C != kC || CC != kCC) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int npix = H * W;
@@ -138,6 +153,57 @@ int trunk3(const void* fea3, const void* cond, const void* params, void* y, void
   return static_cast<int>(err);
 }
 
+// The bf16 form on the Hopper tiles: weights (bf16) and biases (fp32) in
+// trunk3_pack's order; table: the dense 9-chunk list (per_list 9) of a
+// 32-channel conv; scratch as above.
+int trunk3_sm90(const void* fea3, const void* cond, const void* weights, const void* biases, void* y,
+                void* scratch, int H, int W, int C, int CC, int Co, const int* table, int per_list,
+                void* stream) {
+  if (C != kC || CC != kCC || !table || !biases) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long npix = static_cast<long long>(H) * W;
+  const bf16* f = static_cast<const bf16*>(fea3);
+  const bf16* wp = static_cast<const bf16*>(weights);
+  const float* bp = static_cast<const float*>(biases);
+  bf16* t = static_cast<bf16*>(scratch);
+  bf16* h = t + npix * C;
+  bf16* xr = h + npix * C;
+  // the next SFT's eight pointers, w and b of scale0, scale1, shift0, shift1
+  auto sft = [&](const void* (&p)[8]) {
+    const int wn[4] = {CC * CC, CC * C, CC * CC, CC * C}, bn[4] = {CC, C, CC, C};
+    for (int i = 0; i < 4; ++i) {
+      p[2 * i] = wp;
+      p[2 * i + 1] = bp;
+      wp += wn[i];
+      bp += bn[i];
+    }
+  };
+  auto conv = [&](const bf16* x, const void* skip, const void* skip2, bf16* out, int co, int act) {
+    const bf16* w = wp;
+    const float* b = bp;
+    wp += 9LL * C * co;
+    bp += co;
+    return conv3x3_sm90<1>(x, w, b, skip, out, H, W, C, 0, C, co, act, 0, table, per_list, s, nullptr, false, skip2);
+  };
+
+  const bf16* xin = f;
+  cudaError_t err = cudaSuccess;
+  for (int blk = 0; blk < 4 && err == cudaSuccess; ++blk) {
+    const void* p1[8];
+    const void* p2[8];
+    sft(p1);
+    err = sft_sm90_natural(xin, cond, t, p1, npix, C, CC, s);
+    if (err == cudaSuccess) err = conv(t, nullptr, nullptr, h, C, ACT_RELU);
+    sft(p2);
+    if (err == cudaSuccess) err = sft_sm90_natural(h, cond, t, p2, npix, C, CC, s);
+    // x = x + conv2(t); the last block also adds the stage skip fea3, rounding twice
+    if (err == cudaSuccess) err = conv(t, xin, blk == 3 ? f : nullptr, xr, C, ACT_NONE);
+    xin = xr;
+  }
+  if (err == cudaSuccess) err = conv(xr, nullptr, nullptr, static_cast<bf16*>(y), Co, ACT_RELU);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 }  // namespace hdrtv
 
@@ -149,14 +215,17 @@ extern "C" long long hdrtv_trunk3_param_floats(int C, int CC, int Co) {
          hdrtv::conv_floats(C, Co);
 }
 
-extern "C" int hdrtv_trunk3_f32(const void* fea3, const void* cond, const void* params, void* y,
-                                void* scratch, int H, int W, int C, int CC, int Co,
-                                void* stream) {
+// params: fp32, the parameter block (biases, table and per_list unused);
+// bf16, the pack's weights, with its biases and the conv tile's table.
+extern "C" int hdrtv_trunk3_f32(const void* fea3, const void* cond, const void* params, const void* biases,
+                                void* y, void* scratch, int H, int W, int C, int CC, int Co,
+                                const int* table, int per_list, void* stream) {
   return hdrtv::trunk3<float>(fea3, cond, params, y, scratch, H, W, C, CC, Co, stream);
 }
 
-extern "C" int hdrtv_trunk3_bf16(const void* fea3, const void* cond, const void* params, void* y,
-                                 void* scratch, int H, int W, int C, int CC, int Co,
-                                 void* stream) {
-  return hdrtv::trunk3<hdrtv::bf16>(fea3, cond, params, y, scratch, H, W, C, CC, Co, stream);
+extern "C" int hdrtv_trunk3_bf16(const void* fea3, const void* cond, const void* params, const void* biases,
+                                 void* y, void* scratch, int H, int W, int C, int CC, int Co,
+                                 const int* table, int per_list, void* stream) {
+  return hdrtv::trunk3_sm90(fea3, cond, params, biases, y, scratch, H, W, C, CC, Co, table, per_list,
+                            stream);
 }

@@ -58,6 +58,7 @@ from hdrtv_tpu_torch.models.layers import F32, Params, Policy, conv_nhwc, leaky_
 from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
 from hdrtv_tpu_torch.ops.megakernel import (
     agcm_head_pack,
+    agcm_head_pack_s2d,
     fused_agcm_head,
     fused_cond_chain,
     fused_down2,
@@ -69,6 +70,7 @@ from hdrtv_tpu_torch.ops.megakernel import (
     pick_rows,
     pick_rows_even,
     trunk3_pack,
+    trunk3_pack_bf16,
 )
 from hdrtv_tpu_torch.ops.pack import pack_rgb48
 from hdrtv_tpu_torch.ops.resize import (
@@ -431,15 +433,20 @@ def attach_native_int8(sp: dict, raw: dict) -> dict:
 
 _SFT_CONVS = ("SFT_scale_conv0", "SFT_scale_conv1", "SFT_shift_conv0", "SFT_shift_conv1")
 _TRUNK3_PACKED = "LE.__trunk3_packed"
+_TRUNK3_PACKED_BF16 = ("LE.__trunk3_packed_bf16_w", "LE.__trunk3_packed_bf16_b")
 # What the megakernel program needs in the parameters, the 1×1 layers whose
 # biases its kernels take, and what params_to_torch prepares for the head
 # kernel: AGCM.conv_first's (12, C) matrix with its rows permuted for a BGR
-# frame, and agcm_head_pack's padded matrices (aw1 for RGB and for BGR).
+# frame, and agcm_head_pack's padded matrices (aw1 for RGB and for BGR;
+# fp32 weights) or _HEAD_PACKED_S2D (bf16 weights).
 _MEGA_KEYS = ("LE.__in_fused.weight", "AGCM.conv_first.weight", "LE.conv_last.weight")
 _MEGA_BIASES = ("AGCM.conv_first", "AGCM.HRconv", "AGCM.conv_last", "LE.__in_fused", "LE.cond_first.2",
                 "LE.cond_first.4", "LE.CondNet1.0", "LE.CondNet1.2", "LE.CondNet1.4", "LE.conv_last")
 _HEAD_AW1_BGR = "AGCM.__conv_first_bgr"
 _HEAD_PACKED = ("AGCM.__head_aw1", "AGCM.__head_aw1_bgr", "AGCM.__head_aw3", "LE.__head_wcat")
+# agcm_head_pack_s2d's blocks and gathered input conv (aw1's block for RGB and for BGR)
+_HEAD_PACKED_S2D = ("AGCM.__head_s2d_w1", "AGCM.__head_s2d_w1_bgr", "AGCM.__head_s2d_w2", "AGCM.__head_s2d_w3",
+                    "LE.__head_s2d_win", "LE.__head_s2d_bin")
 _HG_KEY = "hg.conv1.0.weight"  # a checkpoint carries the s2d HG iff it has this
 _HG_TAIL_BIASES = ("hg.conv10.bias", "hg.conv_last.bias")
 
@@ -497,8 +504,10 @@ def params_to_torch(params_np: dict, device, policy: Policy = F32) -> Params:
     the compute dtype, except the fp32 set of :func:`_fp32_param_names` and
     the native-int8 scales; anything else (the int8 ``.qweight`` codes among
     it) with its dtype. Also prepares what depends on the parameters only:
-    the trunk3 kernel's parameter block, the head kernel's padded and
-    BGR-permuted matrices, and for each native-int8 3×3 layer its ``QArgs``
+    the BGR-permuted AGCM.conv_first, the pack of the weights' element type
+    for trunk3 (bf16 :func:`trunk3_pack_bf16`, fp32 :func:`trunk3_pack`)
+    and for the head (bf16 the s2d form's blocks, fp32 the dense kernels'
+    padded matrices), and for each native-int8 3×3 layer its ``QArgs``
     under ``{layer}.__qargs`` (what ``_qargs_for`` and :func:`_down2_qargs`
     return; for the consolidated CondNet down conv, with its per-branch
     ``qx_scales``, a tuple of one per branch). The int8 1×1s, which no frame
@@ -525,19 +534,33 @@ def params_to_torch(params_np: dict, device, policy: Policy = F32) -> Params:
             out[layer + _QARGS] = pack_qargs(
                 *args, params_np[f"{layer}.qx_scale"], params_np.get(f"{layer}.qx_zero"),
                 params_np[f"{layer}.bias"], device)
+    # Each kernel's pack is built for the element type that reads it: trunk3's
+    # bf16 instance reads trunk3_pack_bf16, its fp32 one trunk3_pack; the
+    # head's bf16 s2d kernels agcm_head_pack_s2d, its fp32 dense kernels
+    # agcm_head_pack (the frame programs pass s2d=True to both).
     if "LE.recon_trunk3.0.conv1.weight" in out and "LE.up_conv1.0.weight" in out:
-        out[_TRUNK3_PACKED] = trunk3_pack(*_trunk3_params(out))
+        if out["LE.up_conv1.0.weight"].dtype == torch.bfloat16:
+            out.update(zip(_TRUNK3_PACKED_BF16, trunk3_pack_bf16(*_trunk3_params(out)), strict=True))
+        else:
+            out[_TRUNK3_PACKED] = trunk3_pack(*_trunk3_params(out))
     if all(k in out for k in _MEGA_KEYS):
         aw1 = out["AGCM.conv_first.weight"][0, 0]
         # Only AGCM.conv_first reads the source frame: a BGR frame permutes
         # its rows within each pixel's three, and nothing else.
         perm = torch.tensor([(k // 3) * 3 + 2 - (k % 3) for k in range(aw1.shape[0])], device=aw1.device)
         aw1_bgr = aw1[perm].contiguous()
-        aw3, w_in = out["AGCM.conv_last.weight"][0, 0], out["LE.__in_fused.weight"]
-        aw1p, aw3p, wcat = agcm_head_pack(aw1, aw3, w_in)
-        aw1p_bgr = agcm_head_pack(aw1_bgr, aw3, w_in)[0]
         out[_HEAD_AW1_BGR] = aw1_bgr
-        out.update(zip(_HEAD_PACKED, (aw1p, aw1p_bgr, aw3p, wcat), strict=True))
+        aw3, w_in = out["AGCM.conv_last.weight"][0, 0], out["LE.__in_fused.weight"]
+        if aw1.dtype == torch.bfloat16:
+            aw2, b_in = out["AGCM.HRconv.weight"][0, 0], out["LE.__in_fused.bias"]
+            n_first = out["LE.conv_first.bias"].shape[-1]
+            w1, w2, w3, win, bin_ = agcm_head_pack_s2d(aw1, aw2, aw3, w_in, b_in, n_first=n_first)
+            w1_bgr = agcm_head_pack_s2d(aw1_bgr, aw2, aw3, w_in, b_in, n_first=n_first)[0]
+            out.update(zip(_HEAD_PACKED_S2D, (w1, w1_bgr, w2, w3, win, bin_), strict=True))
+        else:
+            aw1p, aw3p, wcat = agcm_head_pack(aw1, aw3, w_in)
+            aw1p_bgr = agcm_head_pack(aw1_bgr, aw3, w_in)[0]
+            out.update(zip(_HEAD_PACKED, (aw1p, aw1p_bgr, aw3p, wcat), strict=True))
     return out
 
 
@@ -759,7 +782,10 @@ def _trunk3_up_fused(p, fea3, cond4, *, policy):
     parameter block ``params_to_torch`` packed (if it made one for this
     element type)."""
     blocks, w_up, b_up = _trunk3_params(p, policy)
-    packed = p.get(_TRUNK3_PACKED) if p["LE.up_conv1.0.weight"].dtype == policy.compute_dtype else None
+    dt = p["LE.up_conv1.0.weight"].dtype
+    packed = None
+    if dt == policy.compute_dtype:
+        packed = p.get(_TRUNK3_PACKED) if dt == torch.float32 else tuple(p[k] for k in _TRUNK3_PACKED_BF16)
     return fused_trunk3(policy.cast(fea3[0]), policy.cast(cond4[0]), blocks, w_up, b_up,
                         packed=packed)[None]
 
@@ -927,16 +953,20 @@ def _ensemble_mega(
         xs = policy.cast(xs)
     mods = _agcm_mods(p, cond_nat, policy=policy)
     aw1 = p[_HEAD_AW1_BGR] if bgr else p["AGCM.conv_first.weight"][0, 0]
-    aw1p, aw1p_bgr, aw3p, wcat = (p[k] for k in _HEAD_PACKED)
+    # the packs params_to_torch built for the weights' element type (the other form's are None)
+    aw1p, aw1p_bgr, aw3p, wcat = (p.get(k) for k in _HEAD_PACKED)
+    w1, w1_bgr, *head_s2d = (p.get(k) for k in _HEAD_PACKED_S2D)
+    # Every 1×1 weight here is a w_s2d_1x1 transform and every 3×3 one a
+    # w_s2d_s1 one (s2d_transform_params; LE.__in_fused two of them side by
+    # side): agcm_head, cond_chain, the tail, and sft_conv3 and resblock
+    # (through _sft_conv and _resblock) skip their zeros.
     fea_pre, c0, agcm = fused_agcm_head(
         xs, mods, aw1, p["AGCM.conv_first.bias"], *w11("AGCM.HRconv"), *w11("AGCM.conv_last"),
         policy.cast(p["LE.__in_fused.weight"]), p["LE.__in_fused.bias"],
         n_first=p["LE.conv_first.bias"].shape[-1], scale=scale,
-        packed=(aw1p_bgr if bgr else aw1p, aw3p, wcat),
+        packed=None if aw1p is None else (aw1p_bgr if bgr else aw1p, aw3p, wcat),
+        packed_s2d=None if w1 is None else (w1_bgr if bgr else w1, *head_s2d), s2d=True,
     )
-    # Every 1×1 weight here is a w_s2d_1x1 transform and every 3×3 one a
-    # w_s2d_s1 one (s2d_transform_params): cond_chain, the tail, and
-    # sft_conv3 and resblock (through _sft_conv and _resblock) skip their zeros.
     c_feat, cond1 = fused_cond_chain(c0, [
         w11("LE.cond_first.2"), w11("LE.cond_first.4"),
         w11("LE.CondNet1.0"), w11("LE.CondNet1.2"), w11("LE.CondNet1.4"),

@@ -25,17 +25,21 @@ consolidated CondNet down conv; the frame programs pass it under
 ``fused_cond_chain`` its int8 steps (``qargs``, a list of five ``QArgs`` or
 None in the 1×1 form; no frame program passes them, as in the JAX package).
 
-``fused_cond_chain``, ``fused_tail``, ``fused_sft_conv3_v2`` and
-``fused_resblock`` take ``s2d``: the caller's declaration that the weights
-are the s2d transforms the frame programs hand them, whose zeros the bf16
-float forms then skip on the Hopper tiles (``csrc/chain_sm90.cuh``,
-``csrc/conv3x3_sm90.cuh``). The plain versions honour it, so a weight
+``fused_agcm_head``, ``fused_cond_chain``, ``fused_tail``,
+``fused_sft_conv3_v2`` and ``fused_resblock`` take ``s2d``: the caller's
+declaration that the weights are the s2d transforms the frame programs hand
+them, whose zeros the bf16 float forms then skip on the Hopper tiles
+(``csrc/chain_sm90.cuh``, ``csrc/conv3x3_sm90.cuh``, and the head's input
+conv in ``csrc/agcm_head.cu``). The plain versions honour it, so a weight
 without that structure gives another result than the JAX kernel's.
+``fused_trunk3`` runs natural tensors; its bf16 instance runs the Hopper
+tiles on any weights.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -107,7 +111,7 @@ def _s2d_of_pairs(xs: torch.Tensor) -> torch.Tensor:
     return torch.cat([xs[:, 0], xs[:, 1]], dim=-1) if xs.ndim == 4 else xs
 
 
-def fused_agcm_head_ref(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in, *, n_first, scale=1.0):
+def fused_agcm_head_ref(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in, *, n_first, scale=1.0, s2d=False):
     """Plain version, the body of the Pallas ``_agcm_head_kernel``: the frame
     is widened to fp32, scaled, then rounded to the element type (that of the
     weights) before the first product; each modulation ``v·(s+1)+sh`` is fp32
@@ -115,7 +119,11 @@ def fused_agcm_head_ref(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in, *, n
     element type; the AGCM result is zero outside the image (the 'same'
     padding of the input conv, applied after the modulation); the conv sums in
     fp32, adds the fp32 bias, and the ReLU / leaky ReLU (slope 0.1 in fp32)
-    halves are rounded once on store."""
+    halves are rounded once on store. ``s2d``: the 1×1s multiply their
+    weights' first diagonal blocks only (:func:`_rows_1x1`; ``mods`` are taken
+    per sub-position as given) and the conv only the populated s2d slots of
+    each of ``w_in``'s two parts, split at ``n_first`` (:func:`_s2d_slots_only`),
+    as the kernel's s2d form does."""
     dt = aw1.dtype
     x = _s2d_of_pairs(xs)
     hb, wb, cin = x.shape
@@ -124,12 +132,16 @@ def fused_agcm_head_ref(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in, *, n
     def mod(v, row, width):
         return v * (mods[row, :width] + 1.0) + mods[row + 1, :width]
 
-    def dot(v, w):
-        return torch.matmul(_rounded(v, dt), w.float())
+    def lin(v, w, b):
+        if s2d:
+            return _rows_1x1(_rounded(v, dt), w, b)
+        return torch.matmul(_rounded(v, dt), w.float()) + b
 
-    a = torch.clamp_min(mod(dot(v, aw1) + ab1, 0, aw1.shape[1]), 0.0)
-    b = torch.clamp_min(mod(dot(a, aw2) + ab2, 2, aw2.shape[1]), 0.0)
-    agcm = mod(dot(b, aw3) + ab3, 4, cin).to(dt).reshape(hb, wb, cin)
+    a = torch.clamp_min(mod(lin(v, aw1, ab1), 0, aw1.shape[1]), 0.0)
+    b = torch.clamp_min(mod(lin(a, aw2, ab2), 2, aw2.shape[1]), 0.0)
+    agcm = mod(lin(b, aw3, ab3), 4, cin).to(dt).reshape(hb, wb, cin)
+    if s2d:
+        w_in = torch.cat([_s2d_slots_only(w_in[..., :n_first]), _s2d_slots_only(w_in[..., n_first:])], dim=-1)
     acc = _conv_same(agcm.float(), w_in, b_in)
     fea = torch.clamp_min(acc[..., :n_first], 0.0).to(dt)
     c0 = _apply_act(acc[..., n_first:], "lrelu").to(dt)
@@ -152,10 +164,64 @@ def agcm_head_pack(aw1: torch.Tensor, aw3: torch.Tensor, w_in: torch.Tensor) -> 
     return aw1p, aw3p, wcat
 
 
+# The natural widths the s2d head of csrc/agcm_head.cu is built for: AGCM
+# 3 → 64 → 64 → 3 and the input conv 3 → 32 ‖ 64 (fea ‖ c0).
+AGCM_S2D_WIDTHS = (3, 64, 64, 32, 64)
+
+
+def _head_slots():
+    """The 36 slot entries the s2d head's input conv reads: output
+    sub-position so's 9 (tap, si) of ``models/s2d.py s2d_slots(1)`` at
+    [9·so, 9·so + 9), each tap | si << 4."""
+    from hdrtv_tpu_torch.models.s2d import s2d_slots  # models/s2d.py imports this module
+
+    return [tap | si << 4 for slots in s2d_slots(1) for tap, si in slots]
+
+
+@functools.lru_cache(maxsize=1)
+def _head_slots_table() -> ctypes.Array:
+    """:func:`_head_slots` as the kernel takes it (a ctypes int array)."""
+    slots = _head_slots()
+    return (ctypes.c_int * len(slots))(*slots)
+
+
+def agcm_head_pack_s2d(aw1, aw2, aw3, w_in, b_in, *, n_first: int) -> tuple:
+    """What the s2d form of csrc/agcm_head.cu reads in place of the weights
+    (``s2d=True`` in bf16): the three AGCM 1×1s' first diagonal blocks,
+    ``aw1``'s (C/4, C1/4) padded with zero rows to 16, ``aw2``'s, and
+    ``aw3``'s (C2/4, 3) padded with zero columns to 16; then the input conv
+    gathered per output sub-position so, (4, 32, Cf/4 + Cc/4): row 3·k + c is
+    channel c of so's k-th slot (tap, si) of ``s2d_slots(1)`` (rows 27 .. 31
+    zero), columns so's fea block then its c0 block, and its bias likewise
+    (4, Cf/4 + Cc/4), fp32. Pass the BGR-permuted ``aw1`` for a BGR frame.
+    It depends on the parameters only: build it once at load and pass it as
+    ``packed_s2d``."""
+    cin, co = w_in.shape[2] // 4, w_in.shape[3]
+    c1, c2 = aw1.shape[1] // 4, aw2.shape[1] // 4
+    w1 = aw1.new_zeros((16, c1))
+    w1[:cin] = aw1[:cin, :c1]
+    w3 = aw3.new_zeros((c2, 16))
+    w3[:, :cin] = aw3[:c2, :cin]
+    nf, nc = n_first // 4, (co - n_first) // 4
+    slots = _head_slots()
+    win = w_in.new_zeros((4, 32, nf + nc))
+    bin_ = b_in.new_zeros((4, nf + nc))
+    for so in range(4):
+        for k, e in enumerate(slots[9 * so: 9 * so + 9]):
+            tap, si = e & 15, e >> 4
+            rows = w_in[tap // 3, tap % 3, si * cin:(si + 1) * cin]
+            win[so, 3 * k: 3 * k + cin, :nf] = rows[:, so * nf:(so + 1) * nf]
+            win[so, 3 * k: 3 * k + cin, nf:] = rows[:, n_first + so * nc: n_first + (so + 1) * nc]
+        bin_[so, :nf] = b_in[so * nf:(so + 1) * nf]
+        bin_[so, nf:] = b_in[n_first + so * nc: n_first + (so + 1) * nc]
+    return w1.contiguous(), aw2[:c1, :c2].contiguous(), w3.contiguous(), win.contiguous(), bin_.contiguous()
+
+
 def fused_agcm_head(
     xs: torch.Tensor, mods: torch.Tensor,
     aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in,
-    *, n_first: int, scale: float = 1.0, packed: tuple | None = None,
+    *, n_first: int, scale: float = 1.0, packed: tuple | None = None, packed_s2d: tuple | None = None,
+    s2d: bool = False,
 ):
     """s2d frame → (fea0, c0, agcm_out): AGCM (three modulated 1×1 convs) and
     the fused LE input conv (conv_first‖cond_first.0, 3×3 'same') with its
@@ -167,8 +233,23 @@ def fused_agcm_head(
     sub-positions; the conv_last rows use the first 12 lanes. ``aw1`` (12, C1),
     ``aw2`` (C1, C2), ``aw3`` (C2, 12), ``w_in`` (3, 3, 12, Cf + Cc) in the
     element type (which is also the outputs'); biases fp32. ``packed``:
-    :func:`agcm_head_pack` of the same parameters, when the caller keeps one
-    (only the CUDA kernel reads it)."""
+    :func:`agcm_head_pack` of the same parameters, ``packed_s2d``
+    :func:`agcm_head_pack_s2d`, when the caller keeps them (only the CUDA
+    kernels read them, each its own form).
+
+    ``s2d`` declares the three 1×1 weights ``w_s2d_1x1(w)``, their biases
+    ``b_s2d(b)`` and ``w_in`` ``w_s2d_s1(conv_first) ‖
+    w_s2d_s1(cond_first.0)``, split at ``n_first`` (``models/s2d.py``; the
+    frame programs pass True): the 1×1s then multiply the (4·Hb·Wb, 3) rows
+    of natural pixels by each weight's first diagonal block, modulated at
+    each row's own sub-position, and the conv only the populated s2d slots
+    of each part. bf16 on the card: the AGCM pass on the Hopper row tile of
+    ``csrc/chain_sm90.cuh`` and the input conv on a wgmma tile over the
+    slots (``csrc/agcm_head.cu``), natural widths ``AGCM_S2D_WIDTHS`` only
+    (others raise); fp32 keeps the dense kernels, the same function on such
+    weights. The plain version honours it too, so a weight without that
+    structure gives another result than the JAX kernel's. False: dense,
+    right for any weight."""
     if xs.ndim == 4:
         hb, two, wb, half = xs.shape
         if (two, 2 * half) != (2, _CIN):
@@ -192,23 +273,52 @@ def fused_agcm_head(
         raise ValueError(f"agcm_head mods must be (6, >= {max(c1, c2, _CIN)}), got {tuple(mods.shape)}")
     if not 0 < n_first < co:
         raise ValueError(f"agcm_head: n_first {n_first} must split the {co} conv outputs")
+    if s2d:
+        _check_s2d_1x1("agcm_head", [(aw1, ab1), (aw2, ab2), (aw3, ab3)])
+        check_a_sub("agcm_head conv_first", 1, _CIN, n_first)
+        check_a_sub("agcm_head cond_first.0", 1, _CIN, co - n_first)
     if native.on_cpu(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in):
         return fused_agcm_head_ref(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in,
-                                   n_first=n_first, scale=scale)
+                                   n_first=n_first, scale=scale, s2d=s2d)
+    native.check_cuda("agcm_head xs", xs, xs.dtype)
+    native.check_cuda("agcm_head mods", mods, torch.float32)
+    kind = 0 if xs.dtype == dt else (2 if xs.ndim == 4 else 1)
+    fea = torch.empty((hb, wb, n_first), dtype=dt, device=xs.device)
+    c0 = torch.empty((hb, wb, co - n_first), dtype=dt, device=xs.device)
+    agcm = torch.empty((hb, wb, _CIN), dtype=dt, device=xs.device)
+    if s2d and dt == torch.bfloat16:
+        widths = (_CIN // 4, c1 // 4, c2 // 4, n_first // 4, (co - n_first) // 4)
+        if widths != AGCM_S2D_WIDTHS:
+            raise ValueError(f"agcm_head: the s2d head takes natural widths (C, C1, C2, Cf, Cc) = "
+                             f"{AGCM_S2D_WIDTHS}, got {widths}")
+        if 12 * hb * wb >= 2 ** 31:
+            raise ValueError(f"agcm_head: the s2d head indexes the frame in 32 bits, got {hb} × {wb} pixels")
+        pk = packed_s2d if packed_s2d is not None else agcm_head_pack_s2d(aw1, aw2, aw3, w_in, b_in,
+                                                                          n_first=n_first)
+        nat = AGCM_S2D_WIDTHS
+        for name, t, shape, tdt in (("aw1 (s2d pack)", pk[0], (16, nat[1]), dt), ("aw2 (s2d pack)", pk[1], nat[1:3], dt),
+                                    ("aw3 (s2d pack)", pk[2], (nat[2], 16), dt),
+                                    ("w_in (s2d pack)", pk[3], (4, 32, nat[3] + nat[4]), dt),
+                                    ("b_in (s2d pack)", pk[4], (4, nat[3] + nat[4]), torch.float32),
+                                    ("ab1", ab1, (c1,), torch.float32), ("ab2", ab2, (c2,), torch.float32),
+                                    ("ab3", ab3, (_CIN,), torch.float32)):
+            native.check_cuda(f"agcm_head {name}", t, tdt, shape)
+        native.launch(
+            "agcm_head_s2d", dt,
+            xs.data_ptr(), kind, float(scale), mods.data_ptr(), mods.shape[1],
+            pk[0].data_ptr(), ab1.data_ptr(), pk[1].data_ptr(), ab2.data_ptr(), pk[2].data_ptr(), ab3.data_ptr(),
+            pk[3].data_ptr(), pk[4].data_ptr(), _head_slots_table(), fea.data_ptr(), c0.data_ptr(), agcm.data_ptr(),
+            hb, wb, native.stream_of(xs), counter="agcm_head",
+        )
+        return fea, c0, agcm
     if c1 % 16 or c2 % 16 or co % 8 or n_first % 8:
         raise ValueError(f"agcm_head needs C1 % 16, C2 % 16, Co % 8 and n_first % 8 == 0, got {c1}, {c2}, {co}, {n_first}")
     aw1p, aw3p, wcat = packed if packed is not None else agcm_head_pack(aw1, aw3, w_in)
-    native.check_cuda("agcm_head xs", xs, xs.dtype)
-    native.check_cuda("agcm_head mods", mods, torch.float32)
     for name, t, shape in (("aw1 (packed)", aw1p, (16, c1)), ("aw2", aw2, (c1, c2)),
                            ("aw3 (packed)", aw3p, (c2, 16)), ("w_in (packed)", wcat, (112, co))):
         native.check_cuda(f"agcm_head {name}", t, dt, shape)
     for name, t in (("ab1", ab1), ("ab2", ab2), ("ab3", ab3), ("b_in", b_in)):
         native.check_cuda(f"agcm_head {name}", t, torch.float32)
-    kind = 0 if xs.dtype == dt else (2 if xs.ndim == 4 else 1)
-    fea = torch.empty((hb, wb, n_first), dtype=dt, device=xs.device)
-    c0 = torch.empty((hb, wb, co - n_first), dtype=dt, device=xs.device)
-    agcm = torch.empty((hb, wb, _CIN), dtype=dt, device=xs.device)
     native.launch(
         "agcm_head", dt,
         xs.data_ptr(), kind, float(scale), mods.data_ptr(), mods.shape[1],
@@ -945,9 +1055,26 @@ def trunk3_pack(blocks, w_up, b_up) -> torch.Tensor:
     return torch.cat([p.float() for p in parts])
 
 
+def trunk3_pack_bf16(blocks, w_up, b_up) -> tuple[torch.Tensor, torch.Tensor]:
+    """What the bf16 instance of csrc/trunk3.cu reads (the Hopper tiles):
+    :func:`trunk3_pack`'s order split in two, the weights in bf16 (1×1s as
+    (in, out), 3×3s HWIO as the conv tile reads them) and the biases in fp32.
+    It depends on the parameters only: build it once at load and pass it as
+    ``packed``."""
+    ws, bs = [], []
+    for sft1, w1, b1, sft2, w2, b2 in blocks:
+        for group in (sft1, [(w1, b1)], sft2, [(w2, b2)]):
+            for w, b in group:
+                ws.append(w.reshape(-1))
+                bs.append(b.reshape(-1))
+    ws.append(w_up.reshape(-1))
+    bs.append(b_up.reshape(-1))
+    return torch.cat([w.to(torch.bfloat16) for w in ws]), torch.cat([b.float() for b in bs])
+
+
 def fused_trunk3(
     fea3: torch.Tensor, cond4: torch.Tensor, blocks, w_up: torch.Tensor, b_up: torch.Tensor,
-    *, packed: torch.Tensor | None = None,
+    *, packed=None,
 ) -> torch.Tensor:
     """The L3 natural stage in one call: 4 ResBlock_with_SFT, the trailing
     ``out + fea3`` skip and relu(up_conv1(out)), (H, W, 32) + cond (H, W, 16)
@@ -956,8 +1083,12 @@ def fused_trunk3(
     ``blocks``: 4 tuples (sft1, w1, b1, sft2, w2, b2), each sft a list of 4
     (w (in, out), b) pairs: scale_conv0, scale_conv1, shift_conv0,
     shift_conv1. ``w1``/``w2`` (3,3,C,C), ``w_up`` (3,3,C,Co) HWIO.
-    ``packed``: :func:`trunk3_pack` of the same parameters, when the caller
-    keeps one (only the CUDA kernel reads it).
+    ``packed``: the pack of the same parameters for the call's element type,
+    :func:`trunk3_pack` (fp32) or :func:`trunk3_pack_bf16`, when the caller
+    keeps one (only the CUDA kernel reads it). On the card fp32 runs the FMA
+    tiles; bf16 the Hopper tiles (the SFT passes on ``csrc/chain_sm90.cuh``'s
+    row tile over natural rows, the convs on ``csrc/conv3x3_sm90.cuh``'s tile
+    with the dense 9-chunk table), C = 32 and CC = 16 only.
     """
     hb, wb, c = fea3.shape
     cc = cond4.shape[-1]
@@ -974,19 +1105,29 @@ def fused_trunk3(
         return fused_trunk3_ref(fea3, cond4, blocks, w_up, b_up)
     native.check_cuda("trunk3 fea3", fea3, dt)
     native.check_cuda("trunk3 cond4", cond4, dt, (hb, wb, cc))
-    params = packed if packed is not None else trunk3_pack(blocks, w_up, b_up)
     want = native.lib().hdrtv_trunk3_param_floats(c, cc, co)
     if want == 0 or co % 4:
         raise ValueError(f"trunk3 is built for C=32, CC=16, Co % 4 == 0; got C={c} CC={cc} Co={co}")
-    if params.numel() != want:
-        raise ValueError(f"trunk3 parameter block has {params.numel()} floats, expected {want}")
-    native.check_cuda("trunk3 params", params, torch.float32)
+    table, per_list, biases = None, 0, None
+    if dt == torch.float32:
+        params = packed if packed is not None else trunk3_pack(blocks, w_up, b_up)
+        if params.numel() != want:
+            raise ValueError(f"trunk3 parameter block has {params.numel()} floats, expected {want}")
+        native.check_cuda("trunk3 params", params, torch.float32)
+    else:
+        if co % 32:
+            raise ValueError(f"trunk3's Hopper conv tile needs Co % 32 == 0, got {co}")
+        params, biases = packed if packed is not None else trunk3_pack_bf16(blocks, w_up, b_up)
+        n_w = 4 * (2 * 2 * (cc * cc + cc * c) + 2 * 9 * c * c) + 9 * c * co
+        native.check_cuda("trunk3 weights (bf16 pack)", params, dt, (n_w,))
+        native.check_cuda("trunk3 biases (bf16 pack)", biases, torch.float32, (want - n_w,))
+        table, per_list = sm90_table("trunk3", 1, 0, c, c, c)
     scratch = torch.empty(3 * hb * wb * c, dtype=dt, device=fea3.device)
     out = torch.empty((hb, wb, co), dtype=dt, device=fea3.device)
     native.launch(
         "trunk3", dt,
-        fea3.data_ptr(), cond4.data_ptr(), params.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), hb, wb, c, cc, co, native.stream_of(fea3),
+        fea3.data_ptr(), cond4.data_ptr(), params.data_ptr(), None if biases is None else biases.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), hb, wb, c, cc, co, table, per_list, native.stream_of(fea3),
     )
     return out
 

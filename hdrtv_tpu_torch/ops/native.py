@@ -132,7 +132,7 @@ def lib() -> ctypes.CDLL:
         "hdrtv_pack_rgb48": ([p, p, ll, p], i),
         "hdrtv_block_conv3": ([p, p, p, q, p, p, p, i, i, i, i, i, i, i, p, i, p], i),
         "hdrtv_down2": ([p, p, p, q, i, p, p, i, i, i, i, i, i, i, i, p, i, p], i),
-        "hdrtv_trunk3": ([p, p, p, p, p, i, i, i, i, i, p], i),
+        "hdrtv_trunk3": ([p, p, p, p, p, p, i, i, i, i, i, p, i, p], i),
         "hdrtv_sft_conv3": ([p, p, p, p, p, q, p, p, p, i, i, i, i, i, i, i, p, i, p], i),
         "hdrtv_resblock": ([p, p, p, p, p, q, p, p, p, q, p, i, p, p, p, p, i, i, i, i, i, p, i, p], i),
         "hdrtv_mix_chain": ([p, p, p, p, p, p, p, i, i, i, i, p], i),
@@ -149,6 +149,8 @@ def lib() -> ctypes.CDLL:
         "hdrtv_d2s_add_bf16": ([p, p, p, i, i, i, p], i),
         "hdrtv_rowmajor_head_raw_bf16": ([p, p, p, i, i, i, p], i),
         "hdrtv_rowmajor_head_pre_bf16": ([p, p, p, i, i, i, p], i),
+        # agcm_head's s2d form exists in bf16 only (the fp32 instance keeps the dense kernels)
+        "hdrtv_agcm_head_s2d_bf16": ([p, i, f, p, i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, p], i),
         "hdrtv_trunk3_param_floats": ([i, i, i], ll),
         "hdrtv_mix_chain_max_steps": ([], i),
         "hdrtv_error_string": ([i], ctypes.c_char_p),

@@ -20,7 +20,8 @@ kernels are also split by source kernel (conv tile on the FMA units and on
 the tensor cores, the Hopper conv tile of down2, block_conv3 and the s2d
 forms of the tail, sft_conv3 and resblock in bf16 (all its epilogue
 instances) and in fp32 on 3×TF32, SFT passes, 1×1 chains (and their Hopper
-row tiles, the SFT one with bf16 or fp32 x), the head's two kernels, conv_last,
+row tiles, the SFT one with bf16 or fp32 x), the head's two kernels (and its
+s2d form's two: the AGCM row tile and the input conv's wgmma tile), conv_last,
 pack, the HG tail, the int8 conv tile and quantize pass). The last two lines are the card's
 name and power limit as nvidia-smi gives them, and the same breakdown as
 JSON. Needs a CUDA device.
@@ -41,7 +42,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 GROUPS = (
     ("port kernels", ("conv3x3_kernel", "conv3x3_mma_kernel", "conv3x3_sm90_kernel", "conv3x3_tf32x3_kernel",
                       "sft_kernel", "chain_kernel", "sft_sm90_kernel", "chain_sm90_kernel",
-                      "pack_rgb48_kernel", "agcm_kernel", "in_conv_kernel", "conv_last_kernel",
+                      "pack_rgb48_kernel", "agcm_kernel", "in_conv_kernel", "agcm_sm90_kernel",
+                      "in_conv_sm90_kernel", "conv_last_kernel",
                       "hg_tail_mma_kernel", "hg_tail_fma_kernel", "colorimetric_kernel",
                       "conv3x3_s8_kernel", "quantize_kernel")),
     ("cudnn conv", ("cudnn", "conv", "implicit_gemm", "xmma_fprop", "winograd")),

@@ -1,7 +1,8 @@
 // The Hopper conv tiles (csrc/conv3x3_sm90.cuh, bf16, and its 3×TF32 sibling
 // csrc/conv3x3_tf32x3.cuh, fp32) built with their phase timers
 // (HDRTV_SM90_PHASES), for tools/sm90_phases.py; not part of the kernel
-// library. Same arguments as conv3x3_sm90, plus f32 (which tile), out_f32
+// library (tools/sm90_agcm_phases.cu, linked beside it, has the AGCM row
+// tile). Same arguments as conv3x3_sm90, plus f32 (which tile), out_f32
 // (the bf16 tile's fp32-output epilogue, y float) and the (2·blocks, 8) u64
 // array the kernel fills.
 #define HDRTV_SM90_PHASES

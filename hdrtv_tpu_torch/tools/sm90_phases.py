@@ -4,12 +4,14 @@
 
 Builds ``tools/sm90_phases.cu`` (the bf16 tile of ``csrc/conv3x3_sm90.cuh``
 and the fp32 3×TF32 tile of ``csrc/conv3x3_tf32x3.cuh``, with their
-``HDRTV_SM90_PHASES`` clock64() timers) with nvcc into ``build/``, runs them
+``HDRTV_SM90_PHASES`` clock64() timers) and ``tools/sm90_agcm_phases.cu``
+(the AGCM row tile of ``csrc/chain_sm90.cuh``, likewise) with nvcc into ``build/``, runs them
 at the 1080p shapes of the frame programs' block_conv3 and down2 calls
 (seeded random s2d weights, the ``a_sub`` the program passes; bf16 at the
 bf16 programs' shapes, fp32 at the fp32 programs'), and in bf16 at
 resblock's L1 shape, its conv2 (bf16 out) and its conv1 (h1 stored by the
-fp32-output epilogue), and prints, per shape,
+fp32-output epilogue), and at trunk3's 32 → 32 conv (135 × 240, natural,
+dense: a_sub = 0, one 9-chunk list), and prints, per shape,
 the mean cycles a warpgroup spends in each phase of its step loop and their
 share of its total. The bf16 tile:
 
@@ -31,6 +33,14 @@ mbarrier), ``meet`` (the __syncthreads and thread 0's refill),
 them), ``epilogue`` (bias, skip, activation, stores) and ``B load``
 (reading and splitting the block's resident weights, once).
 
+Then agcm_head's AGCM row tile (``csrc/chain_sm90.cuh agcm_sm90``) at the
+1080p frame as u8 pair planes, the mean cycles of a warpgroup's tiles in:
+``fetch`` (packing this tile's frame values, issuing the next tile's
+loads), ``step 0`` / ``step 1`` / ``step 2`` (issuing and waiting for the
+three 1×1s' products), ``hidden 0`` / ``hidden 1`` (bias, modulation, ReLU
+and rounding into the next step's fragments) and ``out`` (the last step's
+epilogue and the stores).
+
 The timers cost time themselves; compare shares, not totals, with the
 kernel library's times. Needs a CUDA device; the last line is the card's
 name and power limit as nvidia-smi gives them.
@@ -50,6 +60,7 @@ from hdrtv_tpu_torch.ops import native
 from hdrtv_tpu_torch.ops.conv_kernels import sm90_table
 
 SRC = Path(__file__).resolve().parent / "sm90_phases.cu"
+SRC_AGCM = Path(__file__).resolve().parent / "sm90_agcm_phases.cu"
 PHASES = {"bf16": ["total", "wait B", "wait A", "meet", "products", "epilogue", "B stream"],
           "f32": ["total", "split A", "wait A", "meet", "products", "epilogue", "B load"]}
 # (name, stride, Hb, Wb, C, Co, a_sub): up_conv3/2 (PS-folded, block_conv3), the
@@ -62,9 +73,11 @@ SHAPES = [
     ("down_conv1", 2, 540, 960, 128, 128, 1), ("down_conv2", 2, 270, 480, 128, 128, 1),
 ]
 SHAPES_F32 = SHAPES + [("HR_conv1", 1, 540, 960, 128, 128, 1)]
-# resblock at L1 (bf16 only): conv2, and conv1 with h1 stored in fp32 (the last field)
+# resblock at L1 (bf16 only): conv2, and conv1 with h1 stored in fp32 (the last field); trunk3's
+# natural 32 → 32 conv at /8, dense (a_sub 0)
 SHAPES_BF16 = [(*shape, False) for shape in SHAPES] + [
     ("resblock conv2", 1, 270, 480, 128, 128, 1, False), ("resblock conv1 h1 fp32", 1, 270, 480, 128, 128, 1, True),
+    ("trunk3 conv", 1, 135, 240, 32, 32, 0, False),
 ]
 
 
@@ -73,13 +86,53 @@ def build() -> ctypes.CDLL:
     so = out / "libsm90_phases.so"
     if not so.exists():
         out.mkdir(parents=True, exist_ok=True)
-        subprocess.run([native._nvcc(), *native.ARCH_FLAGS, *native.NVCC_FLAGS, "-shared", "-o", str(so), str(SRC)],
-                       check=True, capture_output=True, text=True)
+        res = subprocess.run([native._nvcc(), *native.ARCH_FLAGS, *native.NVCC_FLAGS, "-shared", "-o", str(so), str(SRC),
+                              str(SRC_AGCM)], capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc failed on {SRC.name} or {SRC_AGCM.name}:\n{res.stdout}{res.stderr}")
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hdrtv_sm90_phases.argtypes = [p, p, p, p] + [i] * 8 + [p, i, i, i, p, p]
     lib.hdrtv_sm90_phases.restype = i
+    lib.hdrtv_sm90_agcm_phases.argtypes = [p, i, ctypes.c_float, p, i] + [p] * 7 + [i, i, p, p]
+    lib.hdrtv_sm90_agcm_phases.restype = i
     return lib
+
+
+AGCM_PHASES = ["total", "fetch", "step 0", "hidden 0", "step 1", "hidden 1", "step 2", "out"]
+
+
+def agcm_phases(lib, dev, rng) -> None:
+    """agcm_head's AGCM row tile at the 1080p frame (540 × 960 s2d pixels as
+    u8 pair planes), seeded s2d weights through agcm_head_pack_s2d."""
+    from hdrtv_tpu_torch.models.s2d import w_s2d_1x1, w_s2d_s1
+    from hdrtv_tpu_torch.ops.megakernel import agcm_head_pack_s2d
+
+    def t(a, dt=torch.bfloat16):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev).to(dt)
+
+    hb, wb = 540, 960
+    aw = [t(w_s2d_1x1(rng.randn(1, 1, ci, co).astype(np.float32) * 0.1)[0, 0]) for ci, co in ((3, 64), (64, 64), (64, 3))]
+    w_in = t(np.concatenate([w_s2d_s1(rng.randn(3, 3, 3, co).astype(np.float32) * 0.1) for co in (32, 64)], axis=-1))
+    w1, w2, w3, _, _ = agcm_head_pack_s2d(*aw, w_in, t(rng.randn(384) * 0.1, torch.float32), n_first=128)
+    b = [t(np.tile(rng.randn(n) * 0.1, 4), torch.float32) for n in (64, 64, 3)]
+    mods = t(rng.randn(6, 256) * 0.1, torch.float32)
+    xs = torch.as_tensor((rng.rand(hb, 2, wb, 6) * 255).astype(np.uint8), device=dev)
+    y = torch.empty(hb, wb, 12, device=dev, dtype=torch.bfloat16)
+    phases = torch.zeros(8 * 132 * 2 * 8, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(3):  # warm: the last run's sums are read
+        rc = lib.hdrtv_sm90_agcm_phases(xs.data_ptr(), 2, 1.0 / 255.0, mods.data_ptr(), 256, w1.data_ptr(),
+                                        b[0].data_ptr(), w2.data_ptr(), b[1].data_ptr(), w3.data_ptr(), b[2].data_ptr(),
+                                        y.data_ptr(), hb, wb, phases.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"agcm_sm90: CUDA error {rc}")
+    torch.cuda.synchronize()
+    d = phases.view(-1, 8).cpu().numpy()
+    d = d[d[:, 0] > 0]
+    mean = d.mean(axis=0)
+    shares = {k: f"{mean[i]:.0f} ({mean[i] / mean[0]:.0%})" for i, k in enumerate(AGCM_PHASES)}
+    print(f"agcm_sm90 (1080p, u8 pair planes): {len(d)} warpgroups; cycles {shares}", flush=True)
 
 
 def main() -> None:
@@ -98,7 +151,7 @@ def main() -> None:
         for name, s, hb, wb, c, co, a_sub, out_f32 in shapes:
             tf = w_s2d_s1_ps if s == 1 else w_s2d_s2
             w = t(np.concatenate([tf(rng.randn(3, 3, c // 4, co // (4 * a_sub)).astype(np.float32) * 0.05)
-                                  for _ in range(a_sub)], axis=-1))
+                                  for _ in range(a_sub)], axis=-1) if a_sub else rng.randn(3, 3, c, co) * 0.05)
             x = t(rng.rand(hb, wb, c))
             b = torch.zeros(co, device=dev)
             y = torch.empty(hb // s, wb // s, co, device=dev, dtype=torch.float32 if out_f32 else tdt)
@@ -117,6 +170,7 @@ def main() -> None:
             mean = d.mean(axis=0)
             shares = {k: f"{mean[i]:.0f} ({mean[i] / mean[0]:.0%})" for i, k in enumerate(PHASES[dtype])}
             print(f"{name} {dtype}: {len(d)} warpgroups, {mean[7]:.0f} steps each; cycles {shares}", flush=True)
+    agcm_phases(lib, dev, rng)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
 

@@ -124,7 +124,7 @@ def test_trunk3_matches_plain(dev, dtype):
     weights (gain ≈ 1.7 per conv, ~300× over the chain) one flipped rounding
     early in the chain grows to tens of steps, which tests the weights and
     not the kernel."""
-    from hdrtv_tpu_torch.ops.megakernel import fused_trunk3, fused_trunk3_ref, trunk3_pack
+    from hdrtv_tpu_torch.ops.megakernel import fused_trunk3, fused_trunk3_ref, trunk3_pack, trunk3_pack_bf16
 
     rng = np.random.RandomState(18)
     hb, wb, cin, cc, co = 27, 16, 32, 16, 128
@@ -143,8 +143,107 @@ def test_trunk3_matches_plain(dev, dtype):
     y_r = fused_trunk3_ref(fea3, cond4, blocks, w_up, b_up)
     assert y.shape == (hb, wb, co)
     _close(y, y_r, dtype, atol=5e-4, steps=2, flips=0.05)
-    packed = trunk3_pack(blocks, w_up, b_up)
+    packed = (trunk3_pack if dtype == "f32" else trunk3_pack_bf16)(blocks, w_up, b_up)
     assert torch.equal(fused_trunk3(fea3, cond4, blocks, w_up, b_up, packed=packed), y)
+
+
+def _trunk3_bf16_args(rng, hb, wb, dev, conv2_zero=False):
+    """trunk3's inputs at its natural widths (C 32, CC 16, Co 128) in bf16,
+    contractive weights (see test_trunk3_matches_plain)."""
+    cin, cc, co = 32, 16, 128
+    fea3 = _t(rng.rand(hb, wb, cin) - 0.2, dev, "bf16")
+    cond4 = _t(rng.rand(hb, wb, cc) - 0.3, dev, "bf16")
+    blocks = []
+    for _ in range(4):
+        w2 = np.zeros((3, 3, cin, cin)) if conv2_zero else rng.randn(3, 3, cin, cin) * 0.03
+        blocks.append((_sft4(rng, cc, cin, dev, "bf16", 0.05),
+                       _t(rng.randn(3, 3, cin, cin) * 0.03, dev, "bf16"), _t(rng.randn(cin) * 0.1, dev),
+                       _sft4(rng, cc, cin, dev, "bf16", 0.05),
+                       _t(w2, dev, "bf16"), _t(rng.rand(cin) * 0.5 if conv2_zero else rng.randn(cin) * 0.1, dev)))
+    return fea3, cond4, blocks, _t(rng.randn(3, 3, cin, co) * 0.03, dev, "bf16"), _t(rng.randn(co) * 0.1, dev)
+
+
+# The share bound per shape, from hdrtv_tpu_torch/tools/trunk3_flips.py
+# (--draws tiles --seeds test) on an H100 at each case's seed: the FMA
+# instance this one replaced and this one put 2.7% and 1.4% of the values
+# apart at 135 × 240, 5.8% and 5.8% at 5 × 7 (there the plain version's own
+# distance from a float64-summed witness, from which this kernel is 0), 0
+# and 0 at 1 × 3. A tile whose sums truncate reads 13.9% at 5 × 7.
+@pytest.mark.parametrize("hb,wb,flips", [(135, 240, 0.05), (5, 7, 0.08), (1, 3, 0.02)])
+def test_trunk3_bf16_on_hopper_tiles_matches_plain(dev, hb, wb, flips):
+    """trunk3's bf16 instance on the Hopper tiles (SFT passes on the row
+    tile over natural rows, convs on the conv tile with the dense table):
+    the 1080p shape (135 odd rows, 240 columns: not multiples of the conv
+    tile's 4 × 64), a ragged one and a tiny one, one launch counted (27 × 16
+    is test_trunk3_matches_plain's). Every value within one bf16 step of
+    the plain version (a rounding that flips moves a value by one step; the
+    chain's gain < 1 keeps a flip from growing), and the share of values
+    that differ at all within its bound: on a small frame one flip early in
+    the 9-conv chain reaches every output, so the bound is set per shape
+    from readings of the seed."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_trunk3, fused_trunk3_ref
+
+    args = _trunk3_bf16_args(np.random.RandomState(hb * wb + 37), hb, wb, dev)
+    before = native.launch_counts["trunk3"]
+    y = fused_trunk3(*args)
+    assert native.launch_counts["trunk3"] == before + 1
+    assert y.shape == (hb, wb, 128)
+    _close(y, fused_trunk3_ref(*args), "bf16", steps=1, flips=flips)
+
+
+def test_conv_tile_chunk_sums_round_to_nearest(dev):
+    """The conv tile's 32-wide instances (the convs of trunk3, sft_conv3 and
+    resblock, whose rounded outputs feed further convs) add each chunk's
+    tensor-core sum in fp32 registers: their bf16 outputs round apart from
+    those of a float64-summed conv about as often as cuDNN's fp32 conv does
+    (one tensor-core sum over the whole K, which truncates at each step, did
+    so 1.4–2.2 times as often: hdrtv_tpu_torch/tools/trunk3_flips.py --conv
+    on an H100, 104–158 values of 1036800 against cuDNN's 56–83 at this
+    shape; chunk sums 64–70), and never by more than one step."""
+    import torch.nn.functional as F
+
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_ref
+
+    rng = np.random.RandomState(7)
+    hb, wb, c = 135, 240, 32
+    x = _t(np.maximum(rng.rand(hb, wb, c) - 0.2, 0.0), dev, "bf16")
+    w = _t(rng.randn(3, 3, c, c) * 0.03, dev, "bf16")
+    b = _t(rng.randn(c) * 0.1, dev)
+    y64 = F.conv2d(x.double().permute(2, 0, 1)[None], w.double().permute(3, 2, 0, 1), padding=1)[0]
+    exact = (y64.permute(1, 2, 0) + b.double()).to(torch.bfloat16)
+    y = fused_block_conv3(x, w, b, a_sub=0)
+    plain = fused_block_conv3_ref(x, w, b)
+    _close(y, exact, "bf16", steps=1, flips=1e-3)
+    apart, apart_plain = int((y != exact).sum()), int((plain != exact).sum())
+    assert apart <= 1.5 * apart_plain + 8, (apart, apart_plain)
+
+
+@pytest.mark.parametrize("hb,wb", [(27, 16), (135, 240)])
+def test_trunk3_bf16_stage_skip_rounds_twice(dev, hb, wb):
+    """The fourth conv2 rounds x + conv2(t), then adds fea3 and rounds again
+    (the TPU kernel stores x before the stage skip). With every conv2's
+    weights zero the running x is round(x + b2) four times, and up_conv1 an
+    identity on its first 32 channels (centre tap, bias 0, inputs ≥ 0) shows
+    out = round(round(x + b2) + fea3) itself: bit for bit, and against one
+    rounding of the three-way sum, which differs somewhere."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_trunk3, fused_trunk3_ref
+
+    fea3, cond4, blocks, _, _ = _trunk3_bf16_args(np.random.RandomState(hb + wb), hb, wb, dev, conv2_zero=True)
+    fea3 = (fea3.float().abs() * 4).to(torch.bfloat16)
+    w_up = torch.zeros(3, 3, 32, 128, device=dev)
+    w_up[1, 1, torch.arange(32), torch.arange(32)] = 1.0
+    w_up, b_up = w_up.to(torch.bfloat16), torch.zeros(128, device=dev)
+    y = fused_trunk3(fea3, cond4, blocks, w_up, b_up)
+    x = fea3.float()
+    for blk in blocks[:3]:
+        x = (x + blk[5]).to(torch.bfloat16).float()
+    x3 = x + blocks[3][5]
+    want = (x3.to(torch.bfloat16).float() + fea3.float()).to(torch.bfloat16)
+    once = (x3 + fea3.float()).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(y[..., :32], want)
+    assert not torch.equal(once, want)
+    assert torch.equal(y, fused_trunk3_ref(fea3, cond4, blocks, w_up, b_up))
 
 
 def _s2d_weight(rng, tf, c, co, a_sub):
@@ -369,6 +468,76 @@ def test_agcm_head_matches_plain(dev, dtype, hb, wb, frame):
     packed = agcm_head_pack(args[1], args[5], args[7])
     again = fused_agcm_head(xs, *args, n_first=128, scale=scale, packed=packed)
     assert all(torch.equal(a, b) for a, b in zip(again, got, strict=True))
+
+
+def _head_s2d_args(rng, dev, c_nat=(3, 64, 64), co_nat=(32, 64)):
+    """mods and the head's parameters in their s2d forms (bf16 weights),
+    natural AGCM widths c_nat and input-conv widths co_nat; mods drawn
+    whole (the s2d form reads each row's sub-position's lanes)."""
+    f = np.float32
+    c, c1, c2 = c_nat
+    w_in = np.concatenate([w_s2d_s1(rng.randn(3, 3, c, co).astype(f) * 0.1) for co in co_nat], axis=-1)
+    return (_t(rng.randn(6, 4 * max(c1, c2)) * 0.1, dev),
+            _t(w_s2d_1x1(rng.randn(1, 1, c, c1).astype(f) * 0.2)[0, 0], dev, "bf16"),
+            _t(b_s2d(rng.randn(c1).astype(f) * 0.1), dev),
+            _t(w_s2d_1x1(rng.randn(1, 1, c1, c2).astype(f) * 0.1)[0, 0], dev, "bf16"),
+            _t(b_s2d(rng.randn(c2).astype(f) * 0.1), dev),
+            _t(w_s2d_1x1(rng.randn(1, 1, c2, c).astype(f) * 0.1)[0, 0], dev, "bf16"),
+            _t(b_s2d(rng.randn(c).astype(f) * 0.1), dev),
+            _t(w_in, dev, "bf16"),
+            _t(np.concatenate([b_s2d(rng.randn(co).astype(f) * 0.1) for co in co_nat]), dev))
+
+
+@pytest.mark.parametrize("frame", ["pairs", "u8", "float", "pairs_bgr"])
+@pytest.mark.parametrize("hb,wb", [(12, 20), (9, 15), (5, 7), (1, 64), (8, 16)])
+def test_agcm_head_s2d_matches_plain(dev, hb, wb, frame):
+    """agcm_head's s2d form in bf16: the AGCM pass on the row tile, the
+    input conv on its wgmma tile over the slots; ragged 64-pixel tiles (a
+    row shorter than a tile, 20 = 64 − 44 ...), u8 pair planes, u8 s2d and
+    the frame in bf16, and BGR (aw1 with its rows permuted, as the program
+    passes it, with its own pack). Against the plain version's s2d form, two
+    steps on c0 and fea as the dense form; the pack passed or built gives the
+    same bytes."""
+    from hdrtv_tpu_torch.ops.megakernel import agcm_head_pack_s2d, fused_agcm_head, fused_agcm_head_ref
+
+    rng = np.random.RandomState(hb * wb + 41)
+    args = list(_head_s2d_args(rng, dev))
+    if frame == "pairs_bgr":
+        perm = torch.tensor([(k // 3) * 3 + 2 - (k % 3) for k in range(12)], device=dev)
+        args[1] = args[1][perm].contiguous()
+    if frame == "float":
+        xs, scale = _t(rng.rand(hb, wb, 12), dev, "bf16"), 1.0
+    else:
+        shape = (hb, wb, 12) if frame == "u8" else (hb, 2, wb, 6)
+        xs, scale = torch.as_tensor((rng.rand(*shape) * 255).astype(np.uint8), device=dev), 1.0 / 255.0
+    before = native.launch_counts["agcm_head"]
+    got = fused_agcm_head(xs, *args, n_first=128, scale=scale, s2d=True)
+    assert native.launch_counts["agcm_head"] == before + 1
+    want = fused_agcm_head_ref(xs, *args, n_first=128, scale=scale, s2d=True)
+    for y, y_r, shape in zip(got, want, ((hb, wb, 128), (hb, wb, 256), (hb, wb, 12)), strict=True):
+        assert y.shape == shape
+        _close(y, y_r, "bf16", steps=2, flips=0.05)
+    packed_s2d = agcm_head_pack_s2d(args[1], args[3], args[5], args[7], args[8], n_first=128)
+    again = fused_agcm_head(xs, *args, n_first=128, scale=scale, s2d=True, packed_s2d=packed_s2d)
+    assert all(torch.equal(a, b) for a, b in zip(again, got, strict=True))
+
+
+def test_new_hopper_instances_refuse_other_widths(dev):
+    """agcm_head's s2d form in bf16 at natural widths it is not built for
+    (AGCM 3 → 32 → 64 → 3, or the input conv 3 → 64 ‖ 32), and trunk3's bf16
+    instance at an output width its conv tile does not take, raise on the
+    card; nothing falls back to the dense or FMA kernels."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_agcm_head, fused_trunk3
+
+    rng = np.random.RandomState(43)
+    xs = torch.as_tensor((rng.rand(4, 2, 8, 6) * 255).astype(np.uint8), device=dev)
+    for c_nat, co_nat, n_first in (((3, 32, 64), (32, 64), 128), ((3, 64, 64), (64, 32), 256)):
+        args = _head_s2d_args(rng, dev, c_nat, co_nat)
+        with pytest.raises(ValueError, match="s2d head"):
+            fused_agcm_head(xs, *args, n_first=n_first, scale=1.0 / 255.0, s2d=True)
+    fea3, cond4, blocks, _, _ = _trunk3_bf16_args(rng, 6, 8, dev)
+    with pytest.raises(ValueError, match="Hopper conv tile"):
+        fused_trunk3(fea3, cond4, blocks, _t(rng.randn(3, 3, 32, 16) * 0.03, dev, "bf16"), torch.zeros(16, device=dev))
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -377,13 +377,21 @@ def test_params_are_cast_once_at_load():
     assert p["LE.CondNet1.4.bias"].dtype == torch.float32  # cond_chain kernel
     assert p["AGCM.HRconv.bias"].dtype == torch.float32  # agcm_head kernel
     assert p["AGCM.cond_scale_first.bias"].dtype == torch.bfloat16  # torch linear (the modulation vectors)
-    assert p["AGCM.__head_aw1_bgr"].dtype == torch.bfloat16 and p["AGCM.__head_aw1_bgr"].shape == (16, 256)
-    assert p["LE.__head_wcat"].shape == (112, 384)
+    # the head's bf16 s2d kernels read agcm_head_pack_s2d's blocks (aw1's for BGR too), not the dense pack
+    assert p["AGCM.__head_s2d_w1_bgr"].dtype == torch.bfloat16 and p["AGCM.__head_s2d_w1_bgr"].shape == (16, 64)
+    assert p["LE.__head_s2d_win"].dtype == torch.bfloat16 and p["LE.__head_s2d_win"].shape == (4, 32, 96)
+    assert p["LE.__head_s2d_bin"].dtype == torch.float32
     assert p["LE.CondNet3.4.bias"].dtype == torch.bfloat16  # torch 1×1 (Co = 64)
     assert p["AGCM.classifier.model.3.weight"].dtype == torch.float32  # instance norm
-    assert p["LE.__trunk3_packed"].dtype == torch.float32
+    # trunk3's bf16 instance reads its bf16 pack: weights bf16, biases fp32
+    assert p["LE.__trunk3_packed_bf16_w"].dtype == torch.bfloat16
+    assert p["LE.__trunk3_packed_bf16_b"].dtype == torch.float32
+    assert "LE.__trunk3_packed" not in p and "LE.__head_wcat" not in p
     fp32 = HDRTVNetTorch(WEIGHTS, precision="fp32", device="cpu").params
     assert all(v.dtype == torch.float32 for v in fp32.values() if v.is_floating_point())
+    # the fp32 instances read the fp32 block and the dense head's padded matrices
+    assert fp32["LE.__trunk3_packed"].dtype == torch.float32 and fp32["LE.__head_wcat"].shape == (112, 384)
+    assert fp32["AGCM.__head_aw1_bgr"].shape == (16, 256) and "LE.__head_s2d_win" not in fp32
 
 
 def test_default_precision_constructs_on_cpu():
