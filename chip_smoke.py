@@ -76,6 +76,12 @@ lines; any failed check raises and the script exits non-zero with no result:
    for resblock, whose flipped t1 codes move h1 and t2 around them) plus a
    bf16 step, the packed tail_w8a8 within 2·|w_last|·(one flip + one bf16
    step of h)·65535 codes, and at most INT8_SHARE of the outputs differing.
+   sft_conv3_w8a8 and tail_w8a8 run in the s2d form the int8 programs call
+   (s2d=True: in bf16 the SFT pass on the row tile in its int8-output mode,
+   the conv on the wgmma s8 tile of csrc/conv3x3_s8_sm90.cuh over the slot
+   table), symmetric and asymmetric, and in bf16 once more in the dense
+   form, with the same tolerances; "sft_conv3_w8a8_split" and
+   "tail_w8a8_split" lines give each bf16 case's launches apart.
    The forms ported with the rest of the int8 slice: down2_w8a8 (down2's int8
    body) at the consolidated CondNet down conv (540 × 960 × 256 → 768, three
    branches) and at CondNet3.2/4.2's channel window, symmetric and with zero
@@ -1049,7 +1055,10 @@ def phase_kernels(torch, np) -> dict:
                    "abs" if dtype == "f32" else "steps", rate="int8")
             del x, y, y_r, sk
 
-        # sft_conv3_w8a8: x (hb,wb,128), cond (hb,wb,64); the bf16 int8 programs only
+        # sft_conv3_w8a8: x (hb,wb,128), cond (hb,wb,64); the bf16 int8 programs only. The
+        # programs' s2d form (bf16: the SFT on the row tile in its int8-output mode, the conv
+        # on the wgmma s8 tile over the slot table), then in bf16 the dense form once (no
+        # path launches it)
         for name, hb, wb, relu, skip, asym, per_path in (
             ("L0 SFT_layer1/2 + HR_conv1/2", 540, 960, True, False, False,
              {"int8_bf16_nomega": 2, "int8_bf16_mega": 1}),
@@ -1064,16 +1073,24 @@ def phase_kernels(torch, np) -> dict:
             w, b, qa = qlayer(32, 32, *t_range(x, cond, sft), asym)
             w = w.to(dt)
             sk = t(rng.rand(hb, wb, 128)) if skip else None
-            y = fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, skip=sk, qargs=qa)
-            y_r = fused_sft_conv3_v2_ref(x, cond, sft, w, b, relu=relu, skip=sk, qargs=qa)
-            ms = time_ms(lambda: fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, skip=sk, qargs=qa), torch)
-            plain = time_ms(lambda: fused_sft_conv3_v2_ref(x, cond, sft, w, b, relu=relu, skip=sk, qargs=qa),
-                            torch)
             params = [p for pair in sft for p in pair]
-            record("sft_conv3_w8a8", dtype, name, per_path, y, y_r, flip_tol(qa, 2), ms, plain, None,
-                   nbytes_of(x, cond, y, sk, *params) + qbytes(qa),
-                   2 * conv_macs(w, hb, wb, 1) + sft_flops(hb * wb, sft) + 3 * hb * wb * 128,
-                   "flips", share=INT8_SHARE["sft_conv3"], rate="int8")
+            dense_once = dtype == "bf16" and name.startswith("L0")
+            for s2d in (True, False) if dense_once else (True,):
+                def call(s2d=s2d):
+                    return fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, skip=sk, qargs=qa, s2d=s2d)
+
+                def call_plain(s2d=s2d):
+                    return fused_sft_conv3_v2_ref(x, cond, sft, w, b, relu=relu, skip=sk, qargs=qa, s2d=s2d)
+
+                y, y_r = call(), call_plain()
+                ms, plain = time_ms(call, torch), time_ms(call_plain, torch)
+                if dtype == "bf16":
+                    log(json.dumps({"sft_conv3_w8a8_split": {"case": name, "s2d": s2d,
+                                                             **launch_split(call, torch, SFT_CONV_PARTS)}}))
+                record("sft_conv3_w8a8", dtype, f"{name} s2d={s2d}", per_path if s2d else {}, y, y_r,
+                       flip_tol(qa, 2), ms, plain, None, nbytes_of(x, cond, y, sk, *params) + qbytes(qa),
+                       2 * conv_macs(w, hb, wb, 1) + sft_flops(hb * wb, sft) + 3 * hb * wb * 128,
+                       "flips", share=INT8_SHARE["sft_conv3"], rate="int8")
             del x, cond, y, y_r, sk
 
         # resblock_w8a8 at L1: x (270,480,128), cond (270,480,64)
@@ -1104,7 +1121,9 @@ def phase_kernels(torch, np) -> dict:
                    "flips", share=INT8_SHARE["resblock"], rate="int8")
             del x, cond, up, y, y_r, args
 
-        # tail_w8a8, packed coarse form at (540, 960), compared in u16 codes
+        # tail_w8a8, packed coarse form at (540, 960), compared in u16 codes. The program's s2d
+        # form (bf16: the SFT on the row tile in its int8-output mode, HR_conv2 on the wgmma s8
+        # tile over the slot table), then in bf16 the dense form once (no path launches it)
         hb, wb = 540, 960
         npix = hb * wb
         for name, asym, per_path in (("L0 fea0 + up_coarse -> packed u16", False, {"int8_bf16_mega": 1}),
@@ -1117,14 +1136,6 @@ def phase_kernels(torch, np) -> dict:
             w_hr, b_hr, qa = qlayer(32, 32, *t_range(s_ + 0.4, cond, sft), asym)
             w_last = t(w_s2d_s1(rng.randn(3, 3, 32, 3).astype(np.float32) * 0.03))
             targs = (s_, cond, skip, sft, w_hr.to(dt), b_hr, w_last, f32(rng.randn(12) * 0.02))
-            y = fused_tail(*targs, pack=True, up_coarse=up, qargs_hr=qa)
-            y_r = fused_tail_ref(*targs, pack=True, up_coarse=up, qargs_hr=qa)
-            codes = y_r.to(torch.int32)
-            inside = float(((codes > 0) & (codes < 65535)).float().mean())
-            if tuple(y.shape) != (hb, 2, wb, 6) or y.dtype != torch.uint16 or inside < 0.5:
-                raise AssertionError(f"tail_w8a8 output {tuple(y.shape)} {y.dtype}, {inside:.2f} unclipped")
-            ms = time_ms(lambda: fused_tail(*targs, pack=True, up_coarse=up, qargs_hr=qa), torch)
-            plain = time_ms(lambda: fused_tail_ref(*targs, pack=True, up_coarse=up, qargs_hr=qa), torch)
             # a flipped code of t moves h by one flip's worth, and in bf16 its rounding by a step;
             # conv_last carries each moved h into the codes by |w_last|·Δh·65535, doubled for
             # two under one window
@@ -1135,10 +1146,26 @@ def phase_kernels(torch, np) -> dict:
             tol = int(2 * float(w_last.float().abs().max()) * (flip_tol(qa, 1) + step) * 65535) + 1
             del sf
             params = [p for pair in sft for p in pair] + [w_last, targs[7]]
-            record("tail_w8a8", dtype, name, per_path, y.to(torch.int32), codes, tol, ms, plain, None,
-                   nbytes_of(s_, up, cond, skip, y, *params) + qbytes(qa),
-                   2 * (conv_macs(targs[4], hb, wb, 1) + conv_macs(w_last, hb, wb, 1)) + sft_flops(npix, sft)
-                   + 4 * npix * 128 + 5 * npix * 12, share=INT8_SHARE["tail"], rate="int8")
+            for s2d in (True, False) if dtype == "bf16" and not asym else (True,):
+                def call(s2d=s2d):
+                    return fused_tail(*targs, pack=True, up_coarse=up, qargs_hr=qa, s2d=s2d)
+
+                def call_plain(s2d=s2d):
+                    return fused_tail_ref(*targs, pack=True, up_coarse=up, qargs_hr=qa, s2d=s2d)
+
+                y, y_r = call(), call_plain()
+                codes = y_r.to(torch.int32)
+                inside = float(((codes > 0) & (codes < 65535)).float().mean())
+                if tuple(y.shape) != (hb, 2, wb, 6) or y.dtype != torch.uint16 or inside < 0.5:
+                    raise AssertionError(f"tail_w8a8 output {tuple(y.shape)} {y.dtype}, {inside:.2f} unclipped")
+                ms, plain = time_ms(call, torch), time_ms(call_plain, torch)
+                if dtype == "bf16":
+                    log(json.dumps({"tail_w8a8_split": {"case": name, "s2d": s2d,
+                                                        **launch_split(call, torch, TAIL_PARTS)}}))
+                record("tail_w8a8", dtype, f"{name} s2d={s2d}", per_path if s2d else {}, y.to(torch.int32), codes,
+                       tol, ms, plain, None, nbytes_of(s_, up, cond, skip, y, *params) + qbytes(qa),
+                       2 * (conv_macs(targs[4], hb, wb, 1) + conv_macs(w_last, hb, wb, 1)) + sft_flops(npix, sft)
+                       + 4 * npix * 128 + 5 * npix * 12, share=INT8_SHARE["tail"], rate="int8")
             del s_, up, cond, skip, y, y_r, codes, targs
 
         # down2_w8a8: the int8 body of down2 at the 1080p shapes of the HDRTV_INT8_DOWN2=1

@@ -2,7 +2,8 @@
 // bf16 × bf16 → fp32 on wgmma with A in registers, the block-diagonal s2d
 // weights reduced to their one diagonal block and kept in shared memory.
 // It runs the bf16 float forms of cond_chain (cond_chain_sm90) and the SFT
-// passes (sft_sm90) of the tail, sft_conv3 and resblock when the caller
+// passes (sft_sm90) of the tail, sft_conv3 and resblock, and in its
+// int8-output mode those of tail_w8a8 and sft_conv3_w8a8, when the caller
 // declares the weights s2d (ops/megakernel.py, s2d=True); the dense forms
 // stay on chain.cuh and pointwise.cuh.
 //
@@ -406,12 +407,28 @@ struct SftSm90Args {
   long long rows;
   int W;       // s2d pixels per image row (the un-fold of a coarse add)
   int coarse;  // add is the coarse tensor
+  int8_t* q = nullptr;  // the int8-output mode: (rows, C) codes of t, written in place of t
+  float qs = 1.f, qz = 0.f;
+  int qasym = 0;
+#ifdef HDRTV_SM90_PHASES
+  unsigned long long* phases = nullptr;  // tools/sm90_phases.py: 8 clock64() sums per warpgroup
+#endif
 };
 
 // A stage holds a tile's rows of cond, x and a bf16 side area: the second
 // input, overwritten by the rounded sum (bf16 x), or t (fp32 x; bf16 x
 // writes t over x). Two blocks a SM: four stages a warpgroup with bf16 x,
 // three with fp32 x (its rows are twice the bytes).
+//
+// The int8-output mode (Q8, bf16 x; the s2d forms of tail_w8a8 and
+// sft_conv3_w8a8): t = x·(scale + 1) then + shift in fp32 with the _rn
+// intrinsics, as pointwise.cuh's int8-output mode forms it, never rounded
+// to bf16, quantized by quantize_code (IEEE division, round half to even)
+// and written as 1-byte codes: the (rows, C) code rows are, byte for byte,
+// the (npix, 4·C) s2d codes the int8 conv reads. A warp's codes go over its
+// own x rows in the stage once all its lanes have read them (__syncwarp),
+// then out in 16-byte pieces as t does. The sum with a second input is not
+// stored (no xsum).
 template <int CC, int C, typename XT>
 struct SftSm90Cfg {
   static constexpr bool F32X = std::is_same<XT, float>::value;
@@ -430,11 +447,12 @@ struct SftSm90Cfg {
   static_assert(2 * (SMEM + 1024) <= 228 * 1024, "two blocks per SM");
 };
 
-template <int CC, int C, typename XT>
+template <int CC, int C, typename XT, bool Q8>
 __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_constant__ SftSm90Args a) {
   using Cfg = SftSm90Cfg<CC, C, XT>;
   constexpr int NS = Cfg::NS;
   constexpr bool F32X = Cfg::F32X;
+  static_assert(!(Q8 && F32X), "the int8-output mode takes bf16 x");
   extern __shared__ __align__(16) unsigned char row_smem[];
   unsigned char* const smem = row_smem;
   float* const b0 = reinterpret_cast<float*>(smem + Cfg::W_BYTES);  // [b0s | b0h]
@@ -504,7 +522,19 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
   const unsigned w0 = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const unsigned w1s = w0 + Cfg::W0_BYTES, w1h = w1s + Cfg::W1_BYTES;
   const int rl = warp * 16 + (lane >> 2);
+#ifdef HDRTV_SM90_PHASES
+  // Cycles per phase of a tile (the wait for its rows, the products with
+  // their hidden epilogue, t, its quantization, the output), summed by each
+  // warpgroup's first thread.
+  unsigned long long t_start = clock64(), t_phase[8] = {0, 0, 0, 0, 0, 0, 0, 0}, t_mark = 0;
+#define PHASE(i) (t_phase[i] += clock64() - t_mark, t_mark = clock64());
+#else
+#define PHASE(i)
+#endif
   for (int i = 0; i < tiles.n; ++i) {
+#ifdef HDRTV_SM90_PHASES
+    t_mark = clock64();
+#endif
     cp_async_wait<NS - 2>();
     warpgroup_sync(wg);
     if (i + NS - 1 < tiles.n) load(i + NS - 1);
@@ -513,6 +543,7 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
     unsigned char* const st = ring + (i % NS) * Cfg::STAGE;
     unsigned char* const xs = st + kRowBM * Cfg::CPITCH;
     unsigned char* const as = xs + kRowBM * Cfg::XPITCH;
+    PHASE(1)
     unsigned ac[1][4];
     ldmatrix_x4(ac[0], st + (warp * 16 + (lane & 15)) * Cfg::CPITCH + (lane >> 4) * 16);
 
@@ -541,6 +572,8 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
     fence_regs(sc);
     fence_regs(sh);
     fence_frags(ah);
+    PHASE(2)
+    float tv[Q8 ? C / 8 : 1][2][2];  // Q8: t of this thread's pairs, fp32
 #pragma unroll
     for (int j = 0; j < C / 8; ++j) {
       const int n = 8 * j + 2 * q;
@@ -560,34 +593,68 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
           if (a.add) {
             const float2 u = load2<bf16>(pa);
             xv = make_float2(round_to<bf16>(xv.x + u.x), round_to<bf16>(xv.y + u.y));
-            store2<bf16>(pa, xv);  // exact: already on the bf16 grid
+            if constexpr (!Q8) store2<bf16>(pa, xv);  // exact: already on the bf16 grid
           }
         }
         const float s0 = sc[4 * j + 2 * h] + bs.x, s1 = sc[4 * j + 2 * h + 1] + bs.y;
         const float h0 = sh[4 * j + 2 * h] + bh.x, h1 = sh[4 * j + 2 * h + 1] + bh.y;
         // multiply and add rounded apart, as the Pallas body (no contraction into an fma)
-        store2<bf16>(pt, make_float2(__fadd_rn(__fmul_rn(xv.x, s0 + 1.f), h0), __fadd_rn(__fmul_rn(xv.y, s1 + 1.f), h1)));
+        const float t0 = __fadd_rn(__fmul_rn(xv.x, s0 + 1.f), h0), t1 = __fadd_rn(__fmul_rn(xv.y, s1 + 1.f), h1);
+        if constexpr (Q8) {
+          tv[j][h][0] = t0;
+          tv[j][h][1] = t1;
+        } else {
+          store2<bf16>(pt, make_float2(t0, t1));
+        }
       }
+    }
+    PHASE(3)
+    if constexpr (Q8) {
+      unsigned short codes[C / 8][2];
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          codes[j][h] = static_cast<unsigned short>(
+              (quantize_code(tv[j][h][0], a.qs, a.qz, a.qasym) & 0xff) |
+              (quantize_code(tv[j][h][1], a.qs, a.qz, a.qasym) & 0xff) << 8);
+      PHASE(4)
+      __syncwarp();  // every lane of the warp has read its x rows
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<unsigned short*>(xs + (rl + 8 * h) * Cfg::XPITCH + 8 * j + 2 * q) = codes[j][h];
     }
     warpgroup_sync(wg);
     const long long r0 = tiles.row0(i);
     if constexpr (F32X) {
       store_rows(a.t, as, Cfg::APITCH, C * 2, r0, a.rows, t);
+    } else if constexpr (Q8) {
+      store_rows(a.q, xs, Cfg::XPITCH, C, r0, a.rows, t);
     } else {
       store_rows(a.t, xs, Cfg::XPITCH, C * 2, r0, a.rows, t);
       if (a.xsum) store_rows(a.xsum, as, Cfg::APITCH, C * 2, r0, a.rows, t);
     }
+    PHASE(5)
   }
   cp_async_wait<0>();
+#ifdef HDRTV_SM90_PHASES
+  t_phase[0] = clock64() - t_start;
+  t_phase[7] = tiles.n;
+  if (a.phases && t == 0)
+    for (int k = 0; k < 8; ++k) a.phases[(blockIdx.x * 2 + wg) * 8 + k] = t_phase[k];
+#endif
+#undef PHASE
 }
 
 // Launches the SFT pass on a.rows rows of natural CC = 16 and C = 32
 // channels (the widths every SFT of the checkpoint has), weights read at
-// their block's pitch a.ld.
-template <typename XT>
+// their block's pitch a.ld; Q8: the int8-output mode (a.q set).
+template <typename XT, bool Q8 = false>
 inline cudaError_t launch_sft_sm90(const SftSm90Args& a, cudaStream_t stream) {
   using Cfg = SftSm90Cfg<16, 32, XT>;
-  auto kernel = sft_sm90_kernel<16, 32, XT>;
+  auto kernel = sft_sm90_kernel<16, 32, XT, Q8>;
   static int resident = 0;  // once per instantiation
   if (!resident) {
     const cudaError_t err = resident_blocks(kernel, Cfg::SMEM, &resident);
@@ -613,13 +680,16 @@ inline void set_sft_sm90_params(SftSm90Args& a, const void* const* sft, int cc, 
 // of XT (bf16 or float), add (bf16 x only) nullptr, fine (coarse = 0) or
 // coarse (coarse = 1, H and W even), xsum (with add only) nullptr or the
 // rounded sum's destination; sft: the eight pointers w, b of scale0,
-// scale1, shift0, shift1. The widths the frame programs run, natural CC =
-// 16 and C = 32, are the ones it takes; anything else is refused.
+// scale1, shift0, shift1. q (bf16 x, no xsum): the int8-output mode, t
+// written as the codes of the layer q. The widths the frame programs run,
+// natural CC = 16 and C = 32, are the ones it takes; anything else is
+// refused. `phases` (tools/sm90_phases.cu): the timers' array, else null.
 template <typename XT>
 inline cudaError_t sft_sm90(const void* x, const void* add, int coarse, void* xsum, const void* cond1, void* t,
-                            const void* const* sft, int H, int W, int C, int CC, cudaStream_t stream) {
+                            const void* const* sft, int H, int W, int C, int CC, cudaStream_t stream,
+                            const QuantParams* q = nullptr, unsigned long long* phases = nullptr) {
   if (C != 4 * 32 || CC != 4 * 16 || (add && coarse && (H % 2 || W % 2)) || (add && SftSm90Cfg<16, 32, XT>::F32X) ||
-      (xsum && !add))
+      (xsum && !add) || (q && (xsum || SftSm90Cfg<16, 32, XT>::F32X)))
     return cudaErrorInvalidValue;
   SftSm90Args a;
   a.cond = static_cast<const bf16*>(cond1);
@@ -631,6 +701,19 @@ inline cudaError_t sft_sm90(const void* x, const void* add, int coarse, void* xs
   a.rows = 4LL * H * W;
   a.W = W;
   a.coarse = coarse;
+#ifdef HDRTV_SM90_PHASES
+  a.phases = phases;
+#else
+  (void)phases;
+#endif
+  if (q) {
+    a.t = nullptr;
+    a.q = static_cast<int8_t*>(t);
+    a.qs = q->s;
+    a.qz = q->z;
+    a.qasym = q->asym;
+    if constexpr (!SftSm90Cfg<16, 32, XT>::F32X) return launch_sft_sm90<XT, true>(a, stream);
+  }
   return launch_sft_sm90<XT>(a, stream);
 }
 

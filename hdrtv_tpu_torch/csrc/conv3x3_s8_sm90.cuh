@@ -1,0 +1,537 @@
+// The native-int8 (W8A8) 3×3 'same' convolution written for Hopper (sm_90a):
+// s8 × s8 → s32 on wgmma, fed by TMA through a ring of stages, walking the
+// stride-1 s2d slot table. It runs the int8 conv of the s2d forms of
+// sft_conv3_w8a8 and tail_w8a8 (the Pallas bodies behind `quant` in
+// hdrtv_tpu/ops/megakernel.py: fused_sft_conv3_v2 :852-855, fused_tail
+// :468-469, both on _taps_conv_q :1358) when the caller declares the weight
+// s2d (ops/megakernel.py, s2d=True); the dense int8 forms stay on the
+// mma.sync tile of conv3x3_s8.cuh.
+//
+// What it computes, per output pixel and channel n (ops/w8a8.py):
+//   y = act(float(Σ code · w_int8) · yscale[n] + bias[n] (+ skip))
+// with the int32 sum exact, the rescale and the bias add rounded apart
+// (__fmul_rn, __fadd_rn: no contraction into an FMA), then the skip added
+// (__fadd_rn), the activation, one rounding to bf16. Where the codes agree
+// the result equals the plain version bit for bit: an s32 sum has no order.
+//
+// Why a table. The weight w_s2d_s1(w) is 3/4 exact zeros: output
+// sub-position so reads 9 of the 36 (tap, input sub-position) slots
+// (models/s2d.py s2d_slots). A K chunk is the 32 channels (32 bytes of
+// codes) of one slot at one tap, one wgmma k32 step; the table the wrapper
+// passes (ops/conv_kernels.py sm90_table, entry tap | c0 << 4) lists each
+// output sub-position's chunks, so a block whose 32 output channels lie in
+// one sub-position multiplies 9 chunks (K = 288) instead of the dense 36
+// (K = 1152). The skipped products are exact zeros where the int8 weight
+// has the structure the caller declares (tests/test_torch_s2d_int8.py holds
+// the checkpoint to it), so the int32 sum is the dense one.
+//
+// The block: two warpgroups (256 threads), two blocks per SM, persistent. Its
+// N tile is 32 output channels, all in one output sub-position so; its
+// pixel tile 2 rows × 64 columns of output pixels, warpgroup g owning tile
+// row g (one m64 tile), s32 accumulators in registers (16 a thread). Block b
+// keeps N tile b % groups (its plan, chunk list, biases and yscales copied
+// to shared memory) and walks the pixel tiles b / groups, + gridDim /
+// groups, ...
+//
+// Steps. What bounds the loads is their count of requests, not bytes: one
+// 32-channel box per chunk would be 9 rows of 32 bytes per pixel, which L2
+// serves at ≈ 0.4 requests a cycle per SM, no faster than the bf16 tile's 9
+// rows of 64 bytes (PERF.md §6). So the launcher groups each list's chunks
+// by tap (s8_sm90_plan): so's 9 slots are 4 taps,
+// a center one with all 4 input sub-positions (one 128-byte box row), an
+// edge one with 2 adjacent ones (64 bytes), an edge one with 2 apart (the
+// whole 128) and a corner one (32): 4 boxes, 4 requests a pixel, one step
+// each. A step waits for its box, multiplies its 1–4 chunks (k32 slices of
+// the box row, each by its resident weight chunk) and moves on.
+//
+// Operands. 8-bit wgmma takes both operands K-major from shared memory. A:
+// the step's TMA box, (32, 64 or 128 channels, 64 columns, 2 rows) of the
+// codes at the tap's offset, written with the swizzle of its row's span
+// (32, 64 or 128 bytes); a slice's descriptor starts 32 bytes further along
+// the row for each chunk before it. B: the block's 9 chunks of weight rows,
+// (32 output channels × 32 bytes) each, K-contiguous as QArgs stores them
+// ((Co, 9·C): no transpose), copied once by cp.async into the 32-byte
+// swizzle and kept resident.
+//
+// The pad code. TMA fills out-of-image pixels with code 0, the pad code of a
+// symmetric layer only. For an asymmetric layer (pad ≠ 0) each thread, after
+// the stage's bytes arrive and before the block meets, rewrites its half of
+// a box row (one pixel) with the pad code where that pixel lies outside the
+// image; only tiles touching the image's edge look. A row is one swizzle
+// span, so a row filled with one byte value is the same swizzled or not. The
+// generic-proxy writes are made visible to wgmma with fence.proxy.async
+// before the meeting.
+//
+// The ring: NS stages of A, one mbarrier each. At step k every thread waits
+// for stage k's bytes, fills the pad rows, and all meet; thread 0 then
+// refills the stage step k − 2 used with step k + NS − 2's box (everyone
+// finished step k − 2's products before meeting), the warpgroups issue step
+// k's wgmmas and wait for their step k − 1. A tile's first wgmma starts
+// from zero (scale-d 0): nothing but the wgmmas writes the accumulators in
+// the loop, else ptxas waits for each step's products before the next.
+//
+// Epilogue, after a tile's last step: all its products done, each thread
+// takes its pairs (acc·yscale, then + bias, + skip read as 4-byte pairs,
+// the activation, one rounding) and writes them into the stage, in the
+// 64-byte swizzle of the output's TMA map (s8_stage_out); thread 0 stores
+// the tile's two rows by TMA after the next step's meeting, clipped at the
+// image's edges, and waits for their reads before that stage is refilled.
+// (16-byte stores after a quad shuffle, as the bf16 tile's epilogue does,
+// took half of this tile's cycles.)
+//
+// Bound on this card: bytes. HR_conv2 at 1080p reads 66 MB of codes and
+// writes 133 MB of h (0.059 ms at 3.35 TB/s), against 38 GOP of non-zero
+// int8 products (0.019 ms at 1979 TOPS). Where the time goes:
+// tools/sm90_phases.py, PERF.md §5.
+//
+// Requirements (the launcher returns cudaErrorInvalidValue otherwise): C =
+// 128, natural 32 channels (a wider C's weight chunks would not stay
+// resident beside the ring), Co/4 a multiple of 32, the table's four lists
+// of 9 chunks, 16-byte aligned tensors.
+#pragma once
+
+#include "conv3x3_s8.cuh"
+#include "conv3x3_sm90.cuh"
+
+namespace hdrtv {
+namespace {
+
+constexpr int kS8Sm90BK = 32;         // bytes (channels) of one K chunk: one wgmma k32 step
+constexpr int kS8Sm90BN = 32;         // output channels of a block's N tile
+constexpr int kS8Sm90BH = 2;          // tile rows: one m64 row per warpgroup
+constexpr int kS8Sm90StageBytes = kS8Sm90BH * kSm90TW * 128;  // the widest box: 128-byte rows
+constexpr int kS8Sm90BChunk = kS8Sm90BN * kS8Sm90BK;          // 1 KB of weight codes a chunk
+constexpr int kS8Sm90NS = 6;          // ring stages
+constexpr int kS8Sm90MaxChunks = 9;   // chunks (and steps) of one list: C = 128
+
+// A step loads one box of one tap, kind k: channels [c0, c0 + 32·2^k) (32,
+// 64 or 128 bytes a pixel, in the swizzle of that span), and multiplies its
+// n ≤ 4 slices: plan word 0 = tap | k << 4 | c0 << 8 | n << 20; word 1 holds
+// slice s at bits 8s: its 32-byte piece of the box row (2 bits) | its chunk
+// of the list << 2.
+struct S8Sm90Args {
+  CUtensorMap amap[3];  // the codes as (H, W, C) u8, box (32·2^k, 64, 2) for kind k
+  CUtensorMap ymap;     // y as (H, W, Co) bf16, box (32, 64, 1), 64-byte swizzle: the stores
+  const int8_t* w;      // (Co, 9·C): QArgs.w
+  const float* yscale;  // (Co)
+  const float* bias;    // (Co): the folded bias
+  const bf16* skip;     // (H, W, Co) or nullptr
+  bf16* y;              // (H, W, Co)
+  int H, W, C, Co, act, pad;
+  int per_list;         // chunks in each of the four lists
+  int co_nat;           // output channels of one sub-position, Co / 4
+  int steps[4];         // steps of each list
+#ifdef HDRTV_SM90_PHASES
+  unsigned long long* phases = nullptr;  // tools/sm90_phases.py: 8 clock64() sums per warpgroup
+#endif
+  int chunk[4 * kS8Sm90MaxChunks];     // list so at [so·per_list, (so+1)·per_list): tap | c0 << 4
+  int plan[4 * 2 * kS8Sm90MaxChunks];  // list so's steps at so·2·kS8Sm90MaxChunks, two words each
+};
+
+// shared memory: [1024-byte alignment][A ring][B: the block's chunks][NS barriers]
+// [yscale, bias of its 32 channels][its plan][its chunk list]
+inline int s8_sm90_smem(int per_list) {
+  return 1024 + kS8Sm90NS * kS8Sm90StageBytes + per_list * kS8Sm90BChunk + 8 * kS8Sm90NS + 8 * kS8Sm90BN +
+         8 * kS8Sm90MaxChunks + 4 * per_list;
+}
+
+// Thread 0's TMA load of one box into `dst`, completing on `bar` with `bytes`.
+__device__ __forceinline__ void tma_load_box(const CUtensorMap* map, unsigned dst, unsigned bar, int c, int w, int h,
+                                             int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h)
+      : "memory");
+}
+
+// A K-major operand whose rows are 32·2^kind bytes in the swizzle of that
+// span (32, 64 or 128 bytes): 8-row groups 8 rows apart (the leading offset
+// unused, 1). A k32 slice starts 32 bytes further along the row. Fields in
+// 16-byte units.
+__device__ __forceinline__ uint64_t desc_kmajor(unsigned addr, int kind) {
+  const int row = 32 << kind;
+  return static_cast<uint64_t>((addr >> 4) & 0x3fff) | (1ull << 16) | (static_cast<uint64_t>(row / 2) << 32) |
+         (static_cast<uint64_t>(3 - kind) << 62);
+}
+
+// wgmma.m64n32k32, s8 × s8 + s32, both operands K-major from shared memory;
+// accumulate 0 starts the sum from zero.
+__device__ __forceinline__ void wgmma_s8_n32(int (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int R>
+__device__ __forceinline__ void fence_iregs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Where warpgroup wg stages its output row (64 pixels × 64 bytes) in the
+// stage of a tile's last step, whose box has rows of `row` bytes: over its
+// own box rows when they are 128 bytes (only its wgmmas read them), else
+// past the box.
+__device__ __forceinline__ int s8_stage_out(int row, int wg) {
+  return row == 128 ? wg * kSm90TW * 128 : kS8Sm90BH * kSm90TW * 64 + wg * kSm90TW * 64;
+}
+
+template <bool SKIP>
+__global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_s8_sm90_kernel(const __grid_constant__ S8Sm90Args a) {
+  constexpr int BH = kS8Sm90BH, BN = kS8Sm90BN, NS = kS8Sm90NS, D = NS - 2;
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned base = (static_cast<unsigned>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - static_cast<unsigned>(__cvta_generic_to_shared(smem_raw)));
+  unsigned char* const Bsm = smem + NS * kS8Sm90StageBytes;
+  const unsigned bars = base + NS * kS8Sm90StageBytes + a.per_list * kS8Sm90BChunk;
+  float* const ys_s = reinterpret_cast<float*>(smem + (bars - base) + 8 * NS);
+  float* const bias_s = ys_s + BN;
+  int* const plan = reinterpret_cast<int*>(bias_s + BN);
+  int* const chunks = plan + 2 * kS8Sm90MaxChunks;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int groups = a.Co / BN;
+  const int n0 = (blockIdx.x % groups) * BN;
+  const int so = n0 / a.co_nat;  // the block's output sub-position, its list
+  const int t0 = blockIdx.x / groups, tstride = gridDim.x / groups;
+  const int tw = (a.W + kSm90TW - 1) / kSm90TW;
+  const int tiles = ((a.H + BH - 1) / BH) * tw;
+  const int KS = a.steps[so];
+  const int steps = t0 < tiles ? ((tiles - 1 - t0) / tstride + 1) * KS : 0;
+  for (int i = tid; i < a.per_list; i += kSm90Threads) chunks[i] = a.chunk[so * a.per_list + i];
+  for (int i = tid; i < 2 * KS; i += kSm90Threads) plan[i] = a.plan[so * 2 * kS8Sm90MaxChunks + i];
+  for (int i = tid; i < BN; i += kSm90Threads) {
+    ys_s[i] = a.yscale[n0 + i];
+    bias_s[i] = a.bias[n0 + i];
+  }
+  __syncthreads();
+
+  // B: chunk k's 32 weight rows of 32 bytes, row n's 16-byte half hk at
+  // n·32 + (hk ^ bit 2 of n)·16 (the 32-byte swizzle).
+  const long long K = 9LL * a.C;
+  for (int idx = tid; idx < a.per_list * BN * 2; idx += kSm90Threads) {
+    const int k = idx / (2 * BN), n = (idx >> 1) % BN, hk = idx & 1;
+    const int e = chunks[k];
+    const int tap = e & 15, c0 = e >> 4;
+    cp_async16(Bsm + k * kS8Sm90BChunk + n * 32 + ((hk ^ (n >> 2)) & 1) * 16,
+               a.w + (n0 + n) * K + tap * a.C + c0 + hk * 16);
+  }
+  cp_async_commit();
+
+  // A of the next step (thread 0 keeps its step pk, tile pt and the tile's
+  // first input pixel): one TMA box of the step's tap and channels.
+  int pk = 0, pt = t0, pw = (t0 % tw) * kSm90TW - 1, ph = (t0 / tw) * BH - 1;
+  auto load_a = [&](int stage) {
+    const int e = plan[2 * pk];
+    const int tap = e & 15, kind = (e >> 4) & 3, dI = tap / 3;
+    tma_load_box(&a.amap[kind], base + stage * kS8Sm90StageBytes, bars + 8 * stage, (e >> 8) & 0xfff,
+                 pw + tap - 3 * dI, ph + dI, BH * kSm90TW * (32 << kind));
+    if (++pk == KS) {
+      pk = 0;
+      pt += tstride;
+      pw = (pt % tw) * kSm90TW - 1;
+      ph = (pt / tw) * BH - 1;
+    }
+  };
+
+#ifdef HDRTV_SM90_PHASES
+  unsigned long long t_start = clock64(), t_phase[8] = {0, 0, 0, 0, 0, 0, 0, 0}, t_mark = 0;
+#define PHASE(i) (t_phase[i] += clock64() - t_mark, t_mark = clock64());
+#else
+#define PHASE(i)
+#endif
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int g = 0; g < D && g < steps; ++g) load_a(g);
+
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+
+  const int warp = (tid >> 5) & 3, lane = tid & 31, q = lane & 3;
+  // this thread's yscale and bias pairs: channels 8j + 2q, + 1
+  float2 ysr[4], bsr[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    ysr[j] = *reinterpret_cast<const float2*>(ys_s + j * 8 + q * 2);
+    bsr[j] = *reinterpret_cast<const float2*>(bias_s + j * 8 + q * 2);
+  }
+  const unsigned padw = static_cast<unsigned>(a.pad & 0xff) * 0x01010101u;
+  const uint4 padv = make_uint4(padw, padw, padw, padw);
+  const int my_half = tid & 1;  // this thread's half of box row tid / 2 (pad filling)
+  const int out_row = 32 << ((plan[2 * (KS - 1)] >> 4) & 3);  // the box row bytes of a tile's last step
+  int ks = 0, tile = 0, stage = 0, phase = 0, fill = D % NS;
+  // the staged output of a tile not yet stored (its stage, -1 for none) and
+  // its first pixel; thread 0's stage of a store that may still read it
+  int out_stage = -1, out_h0 = 0, out_w0 = 0, stored_stage = -1;
+  // Thread 0's TMA stores of the staged tile: one box (32 channels, 64
+  // pixels, 1 row) per tile row, clipped at the image's edges.
+  auto store_out = [&]() {
+    const unsigned st = base + out_stage * kS8Sm90StageBytes;
+#pragma unroll
+    for (int r = 0; r < BH; ++r)
+      asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n"
+                   ::"l"(reinterpret_cast<uint64_t>(&a.ymap)), "r"(n0), "r"(out_w0), "r"(out_h0 + r),
+                   "r"(st + s8_stage_out(out_row, r))
+                   : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  };
+  for (int g = 0; g < steps; ++g) {
+#ifdef HDRTV_SM90_PHASES
+    t_mark = clock64();
+#endif
+    if (g == 0) {
+      cp_async_wait<0>();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    const int e0 = plan[2 * ks], e1 = plan[2 * ks + 1];
+    const int kind = (e0 >> 4) & 3, row = 32 << kind;
+    PHASE(1)
+    mbar_wait(bars + 8 * stage, phase);
+    PHASE(2)
+    const int t = t0 + tile * tstride;
+    const int h0 = (t / tw) * BH, w0 = (t % tw) * kSm90TW;
+    if (a.pad && (h0 == 0 || h0 + BH >= a.H || w0 == 0 || w0 + kSm90TW >= a.W)) {
+      // the pad code into this thread's half of box row r = tid / 2 where its pixel is out of the image
+      const int r = tid >> 1, tap = e0 & 15;
+      const int hi = h0 - 1 + tap / 3 + r / kSm90TW, wi = w0 - 1 + tap % 3 + r % kSm90TW;
+      if (hi < 0 || hi >= a.H || wi < 0 || wi >= a.W) {
+        uint4* const dst = reinterpret_cast<uint4*>(smem + stage * kS8Sm90StageBytes + r * row + my_half * (row / 2));
+        for (int i = 0; i < row / 32; ++i) dst[i] = padv;
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+    }
+    __syncthreads();
+    PHASE(3)
+    if (tid == 0) {
+      if (out_stage >= 0) {
+        store_out();
+        stored_stage = out_stage;
+      }
+      if (g + D < steps) {
+        // the stage to refill may hold a stored tile: wait until its store has read it
+        if (fill == stored_stage) {
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          stored_stage = -1;
+        }
+        load_a(fill);
+      }
+    }
+    out_stage = -1;
+    // warpgroup wg multiplies box row wg (its m64 tile) by each slice's chunk
+    const unsigned As = base + stage * kS8Sm90StageBytes + wg * kSm90TW * row;
+    const unsigned Bs = static_cast<unsigned>(__cvta_generic_to_shared(Bsm));
+    const int n = (e0 >> 20) & 7;
+    // A tile's first product starts its sums from zero: nothing but the
+    // wgmmas writes acc inside the loop, or ptxas waits for every step's
+    // products before the next (it would have to move the registers).
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      if (s < n) {
+        const int sl = (e1 >> (8 * s)) & 0xff;
+        wgmma_s8_n32(acc, desc_kmajor(As + (sl & 3) * kS8Sm90BK, kind),
+                     desc_kmajor(Bs + (sl >> 2) * kS8Sm90BChunk, 0), s > 0 || ks > 0);
+      }
+    wgmma_commit();
+    if (ks + 1 < KS) {
+      wgmma_wait<1>();
+      PHASE(4)
+    } else {
+      // The tile's last step: finish its products, store, start the next
+      // tile from zero. The next tile's first loads are in flight meanwhile.
+      wgmma_wait<0>();
+      fence_iregs(acc);
+      PHASE(4)
+      // A thread holds columns p = 16·warp + lane/4 (+ 8) of its warpgroup's
+      // row and of each 8-channel group j the pair (lane % 4)·2. It writes
+      // them, rounded, into this stage (s8_stage_out) in the 64-byte swizzle
+      // of the TMA store: 16-byte piece j of pixel p at j ^ (p/2 % 4), so
+      // that the eight pixels of a store instruction fall in distinct banks.
+      unsigned char* const st = smem + stage * kS8Sm90StageBytes + s8_stage_out(row, wg);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = warp * 16 + h * 8 + (lane >> 2);
+        const int ho = h0 + wg, wo = w0 + p;
+        const bool ok = ho < a.H && wo < a.W;
+        const long long at = (static_cast<long long>(ho) * a.W + wo) * a.Co + n0 + q * 2;
+        unsigned char* const px = st + p * 64 + q * 4;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float2 v = make_float2(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), ysr[j].x), bsr[j].x),
+                                 __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), ysr[j].y), bsr[j].y));
+          if constexpr (SKIP) {
+            if (ok) {
+              const float2 sv = load2<bf16>(a.skip + at + j * 8);
+              v = make_float2(__fadd_rn(v.x, sv.x), __fadd_rn(v.y, sv.y));
+            }
+          }
+          *reinterpret_cast<__nv_bfloat162*>(px + ((j ^ ((p >> 1) & 3)) << 4)) =
+              __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
+        }
+      }
+      // the staged rows, written by the generic proxy, are read by TMA's
+      // async proxy: thread 0 stores them after the next step's meeting
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      out_stage = stage;
+      out_h0 = h0;
+      out_w0 = w0;
+      PHASE(5)
+    }
+    if (++ks == KS) ks = 0, ++tile;
+    if (++stage == NS) stage = 0, phase ^= 1;
+    if (++fill == NS) fill = 0;
+    PHASE(6)
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if (out_stage >= 0) store_out();
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+  cp_async_wait<0>();
+#ifdef HDRTV_SM90_PHASES
+  t_phase[0] = clock64() - t_start;
+  t_phase[7] = steps;
+  if (a.phases && (tid & 127) == 0)
+    for (int i = 0; i < 8; ++i) a.phases[(blockIdx.x * 2 + wg) * 8 + i] = t_phase[i];
+#endif
+#undef PHASE
+}
+
+// The codes' TMA map for boxes of kind k: (C, W, H) bytes innermost first, a
+// box of 32·2^k channels × 64 columns × 2 rows, written with the swizzle of
+// its row's span (32, 64 or 128 bytes) that the tile's descriptors read;
+// out-of-image pixels read as code 0.
+inline cudaError_t encode_codes_map(CUtensorMap* map, const void* q, int H, int W, int C, int kind) {
+  static const CUtensorMapSwizzle swizzle[3] = {CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_SWIZZLE_64B,
+                                                CU_TENSOR_MAP_SWIZZLE_128B};
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W) * C};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(32 << kind), static_cast<cuuint32_t>(kSm90TW),
+                             static_cast<cuuint32_t>(kS8Sm90BH)};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(q), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle[kind], CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// y's TMA map for the stores: (Co, W, H) bf16, a box of 32 channels × 64
+// pixels × 1 row in the 64-byte swizzle the tile stages it in; boxes are
+// clipped at the image's edges.
+inline cudaError_t encode_s8_out_map(CUtensorMap* map, void* y, int H, int W, int Co) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Co), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Co) * 2, static_cast<cuuint64_t>(W) * Co * 2};
+  const cuuint32_t box[3] = {kS8Sm90BN, static_cast<cuuint32_t>(kSm90TW), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, y, dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+      CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// The steps of one list of the slot table (per_list entries tap | c0 << 4,
+// C = 128): its chunks grouped by tap, each group one box of the narrowest
+// kind whose aligned span holds it. Returns the number of steps.
+inline int s8_sm90_plan(const int* list, int per_list, int* plan) {
+  int tap_of[kS8Sm90MaxChunks], lo[kS8Sm90MaxChunks], hi[kS8Sm90MaxChunks];
+  int members[kS8Sm90MaxChunks][4], count[kS8Sm90MaxChunks];
+  int nsteps = 0;
+  for (int i = 0; i < per_list; ++i) {
+    const int tap = list[i] & 15, c0 = list[i] >> 4;
+    int s = 0;
+    while (s < nsteps && tap_of[s] != tap) ++s;
+    if (s == nsteps) {
+      tap_of[s] = tap;
+      lo[s] = c0;
+      hi[s] = c0 + kS8Sm90BK;
+      count[s] = 0;
+      ++nsteps;
+    }
+    if (count[s] == 4 || c0 % kS8Sm90BK || c0 >= 128) return 0;
+    members[s][count[s]++] = i;
+    lo[s] = std::min(lo[s], c0);
+    hi[s] = std::max(hi[s], c0 + kS8Sm90BK);
+  }
+  for (int s = 0; s < nsteps; ++s) {
+    int k = 0;
+    while (lo[s] / (32 << k) != (hi[s] - 1) / (32 << k)) ++k;
+    const int c0 = lo[s] / (32 << k) * (32 << k);
+    int w1 = 0;
+    for (int m = 0; m < count[s]; ++m) {
+      const int i = members[s][m];
+      w1 |= (((list[i] >> 4) - c0) / kS8Sm90BK | i << 2) << (8 * m);
+    }
+    plan[2 * s] = tap_of[s] | k << 4 | c0 << 8 | count[s] << 20;
+    plan[2 * s + 1] = w1;
+  }
+  return nsteps;
+}
+
+// The int8 'same' conv of codes q (H, W, C) with the layer p, s2d form: y =
+// act(conv + bias (+ skip)) in bf16, walking `table` (four lists, one per
+// output sub-position, per_list entries each). `args`: where to build the
+// launch's arguments (tools/sm90_phases.cu passes its own, with the timers'
+// array set); by default on the stack.
+inline cudaError_t conv3x3_s8_sm90(const void* q, const QuantParams& p, const void* skip, void* y, int H, int W,
+                                   int C, int Co, int act, const int* table, int per_list, cudaStream_t stream,
+                                   S8Sm90Args* args = nullptr) {
+  S8Sm90Args own;
+  S8Sm90Args& a = args ? *args : own;
+  if (!table || C != 128 || Co % (4 * kS8Sm90BN) || per_list != kS8Sm90MaxChunks || H < 1 || W < 1)
+    return cudaErrorInvalidValue;
+  a.w = p.w;
+  a.yscale = p.yscale;
+  a.bias = p.bias;
+  a.skip = static_cast<const bf16*>(skip);
+  a.y = static_cast<bf16*>(y);
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.Co = Co;
+  a.act = act;
+  a.pad = p.pad;
+  a.per_list = per_list;
+  a.co_nat = Co / 4;
+  for (int so = 0; so < 4; ++so) {
+    for (int i = 0; i < per_list; ++i) a.chunk[so * per_list + i] = table[so * per_list + i];
+    a.steps[so] = s8_sm90_plan(table + so * per_list, per_list, a.plan + so * 2 * kS8Sm90MaxChunks);
+    if (!a.steps[so]) return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSuccess;
+  for (int k = 0; k < 3 && err == cudaSuccess; ++k) err = encode_codes_map(&a.amap[k], q, H, W, C, k);
+  if (err == cudaSuccess) err = encode_s8_out_map(&a.ymap, y, H, W, Co);
+  if (err != cudaSuccess) return err;
+  const int smem = s8_sm90_smem(per_list);
+  auto kernel = skip ? conv3x3_s8_sm90_kernel<true> : conv3x3_s8_sm90_kernel<false>;
+  static int resident[2] = {0, 0};  // once per instantiation
+  int& res = resident[skip ? 1 : 0];
+  if (!res) {
+    err = resident_blocks(kernel, kSm90Smem, &res);
+    if (err != cudaSuccess) return err;
+  }
+  if (smem > kSm90Smem) return cudaErrorInvalidValue;
+  kernel<<<sm90_grid(H, W, Co, kS8Sm90BN, kS8Sm90BH, res), kSm90Threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace hdrtv

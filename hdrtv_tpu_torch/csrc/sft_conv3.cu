@@ -39,8 +39,21 @@
 //      stores only inside the image.
 // Rounding points as in the float body. Bound on this card: bytes (0.33 GB
 // per L0 call, 0.099 ms). Times: PERF.md §5-§6.
+//
+// The int8 body's s2d form in bf16 (s2d=True with the conv's QuantParams):
+// the same two launches on the Hopper tiles in their int8 forms, as the
+// tail's (tail.cu):
+//   1. the SFT pass on the row tile in its int8-output mode: t in fp32,
+//      quantized (IEEE division), written as 1-byte codes;
+//   2. the conv on conv3x3_s8_sm90.cuh's wgmma s8 tile over the slot table:
+//      the exact int32 sum over the 9 populated slots of each output
+//      sub-position, out-of-image taps reading the layer's pad code, then
+//      yscale, the folded bias, the skip (each rounded apart), the ReLU and
+//      one rounding, stored inside the image.
+// Bound on this card: bytes, as the float form's.
 #include "chain_sm90.cuh"
 #include "conv3x3_s8.cuh"
+#include "conv3x3_s8_sm90.cuh"
 #include "pointwise.cuh"
 
 namespace {
@@ -54,9 +67,11 @@ int sft_conv3(const void* x, const void* cond, const void* const* sft, const voi
   const int act = relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE;
   if (s2d) {
     if constexpr (std::is_same<T, hdrtv::bf16>::value) {
-      if (q || !table) return static_cast<int>(cudaErrorInvalidValue);
-      cudaError_t err = hdrtv::sft_sm90<hdrtv::bf16>(x, nullptr, 0, nullptr, cond, t, sft, H, W, C, CC, s);
-      if (err == cudaSuccess)
+      if (!table) return static_cast<int>(cudaErrorInvalidValue);
+      cudaError_t err = hdrtv::sft_sm90<hdrtv::bf16>(x, nullptr, 0, nullptr, cond, t, sft, H, W, C, CC, s, q);
+      if (err == cudaSuccess && q)
+        err = hdrtv::conv3x3_s8_sm90(t, *q, skip, y, H, W, C, Co, act, table, per_list, s);
+      else if (err == cudaSuccess)
         err = hdrtv::conv3x3_sm90<1>(t, w, static_cast<const float*>(b), skip, y, H, W, C, 0, C, Co, act, 1,
                                      table, per_list, s);
       return static_cast<int>(err);
@@ -87,8 +102,8 @@ int sft_conv3(const void* x, const void* cond, const void* const* sft, const voi
 // sft: eight pointers, (w, b) of scale0, scale1, shift0, shift1. q: null for
 // the float form, else the conv's int8 parameters (w and b unused). t:
 // scratch of Hb·Wb·C elements, or of Hb·Wb·C bytes (codes) with q. s2d: 1
-// for the s2d form (bf16, q null), whose conv walks `table` (per_list
-// entries per output sub-position; null otherwise), else 0.
+// for the s2d form (bf16, float or int8), whose conv walks `table`
+// (per_list entries per output sub-position; null otherwise), else 0.
 extern "C" int hdrtv_sft_conv3_f32(const void* x, const void* cond, const void* const* sft,
                                    const void* w, const void* b, const void* q, const void* skip,
                                    void* y, void* t, int H, int W, int C, int CC, int Co, int relu,

@@ -56,9 +56,19 @@
 // quantized, never rounded to the element type), step 2 HR_conv2 on the int8
 // tile of conv3x3_s8.cuh (folded bias, ReLU, h stored in the element type,
 // as in the float body), step 3 conv_last_kernel as above. Bound on this
-// card: bytes.
+// card: bytes. Its s2d form in bf16 (s2d=True, as the megakernel program
+// calls it) runs the Hopper tiles instead:
+//   1. the SFT pass on chain_sm90.cuh's row tile in its int8-output mode
+//      (up_coarse un-folded on read; t quantized from fp32, 1-byte codes);
+//   2. HR_conv2 on conv3x3_s8_sm90.cuh's wgmma s8 tile over the slot table:
+//      9 of the 36 (tap, sub-position) slots per output sub-position, the
+//      exact int32 sum, out-of-image taps reading the layer's pad code,
+//      folded bias and ReLU rounded apart, h stored in bf16 inside the image;
+//   3. conv_last_kernel, as above.
+// Bound on this card: bytes (0.1065 ms a 1080p call). Times: PERF.md §5-§6.
 #include "chain_sm90.cuh"
 #include "conv3x3_s8.cuh"
+#include "conv3x3_s8_sm90.cuh"
 #include "pointwise.cuh"
 
 namespace hdrtv {
@@ -209,9 +219,11 @@ int tail(const void* s, const void* up, const void* cond1, const void* skip,
   cudaError_t err = cudaSuccess;
   if (s2d) {
     if constexpr (std::is_same<T, bf16>::value) {
-      if (q_hr || !table) return static_cast<int>(cudaErrorInvalidValue);
-      err = sft_sm90<bf16>(s, up, 1, nullptr, cond1, t, sft, H, W, C, CC, st);
-      if (err == cudaSuccess)
+      if (!table) return static_cast<int>(cudaErrorInvalidValue);
+      err = sft_sm90<bf16>(s, up, 1, nullptr, cond1, t, sft, H, W, C, CC, st, q_hr);
+      if (err == cudaSuccess && q_hr)
+        err = conv3x3_s8_sm90(t, *q_hr, nullptr, h, H, W, C, C, ACT_RELU, table, per_list, st);
+      else if (err == cudaSuccess)
         err = conv3x3_sm90<1>(t, w_hr, static_cast<const float*>(b_hr), nullptr, h, H, W, C, 0, C, C, ACT_RELU, 1,
                               table, per_list, st);
     } else {
@@ -256,7 +268,7 @@ int tail(const void* s, const void* up, const void* cond1, const void* skip,
 // scale0, scale1, shift0, shift1. q_hr: null for the float form, else
 // HR_conv2's int8 parameters (w_hr and b_hr unused). Scratch: t H·W·C elements
 // (bytes, codes, with q_hr) and h H·W·C elements. s2d: 1 for the s2d form
-// (bf16, q_hr null), whose HR_conv2 walks `table` (per_list entries per
+// (bf16, float or int8), whose HR_conv2 walks `table` (per_list entries per
 // output sub-position; null otherwise), else 0.
 extern "C" int hdrtv_tail_f32(const void* s, const void* up, const void* cond1, const void* skip,
                               const void* const* sft, const void* w_hr, const void* b_hr,

@@ -32,6 +32,9 @@ them, whose zeros the bf16 float forms then skip on the Hopper tiles
 (``csrc/chain_sm90.cuh``, ``csrc/conv3x3_sm90.cuh``, and the head's input
 conv in ``csrc/agcm_head.cu``). The plain versions honour it, so a weight
 without that structure gives another result than the JAX kernel's.
+The int8 bodies of ``fused_tail`` and ``fused_sft_conv3_v2`` take it
+too: in bf16 their SFT passes run the row tile's int8-output mode and their
+convs the wgmma s8 tile of ``csrc/conv3x3_s8_sm90.cuh``.
 ``fused_trunk3`` runs natural tensors; its bf16 instance runs the Hopper
 tiles on any weights.
 """
@@ -388,13 +391,15 @@ COND_CHAIN_S2D_WIDTHS = (64, 64, 64, 64, 64, 16)
 SFT_S2D_WIDTHS = (16, 32)
 
 
-def _sft_hopper(name: str, s2d: bool, dt: torch.dtype, quant: bool, cc: int, c: int, co: int) -> tuple:
+def _sft_hopper(name: str, s2d: bool, dt: torch.dtype, cc: int, c: int, co: int) -> tuple:
     """What a card call of the tail, sft_conv3 or resblock hands its kernel
     for the Hopper tiles: (1, the stride-1 slot table of its 3×3 conv
-    (``sm90_table``), its list length) for the s2d form in bf16 with float
-    convs, else (0, None, 0), the dense kernels. The row tile takes the
-    natural widths SFT_S2D_WIDTHS (CC, C) only; others raise."""
-    if not s2d or dt != torch.bfloat16 or quant:
+    (``sm90_table``), its list length) for the s2d form in bf16, float or
+    int8 (the int8 conv on the wgmma s8 tile of csrc/conv3x3_s8_sm90.cuh,
+    which walks the same table: a chunk is 32 channels in either type), else
+    (0, None, 0), the dense kernels. The row tile takes the natural widths
+    SFT_S2D_WIDTHS (CC, C) only; others raise."""
+    if not s2d or dt != torch.bfloat16:
         return 0, None, 0
     if (cc // 4, c // 4) != SFT_S2D_WIDTHS:
         raise ValueError(f"{name}: the s2d row tile takes natural widths (CC, C) = {SFT_S2D_WIDTHS}, "
@@ -558,12 +563,15 @@ def fused_tail(
     ``b_s2d(b)`` and ``w_hr`` ``w_s2d_s1(w)`` (``models/s2d.py``; the frame
     programs pass True): the SFT then multiplies the rows of natural pixels
     by each weight's first diagonal block and HR_conv2 only the populated
-    s2d slots. bf16 on the card with a float HR_conv2: the SFT on the Hopper
-    row tile of ``csrc/chain_sm90.cuh`` (natural widths CC 16, C 32; others
-    raise) and HR_conv2 on ``csrc/conv3x3_sm90.cuh``'s tile over the slot
-    table (``ops/conv_kernels.py sm90_table``); fp32 and the int8 body keep
-    the dense kernels, the same function on such weights. The plain version
-    honours it too. False: dense, right for any weight."""
+    s2d slots. bf16 on the card: the SFT on the Hopper row tile of
+    ``csrc/chain_sm90.cuh`` (natural widths CC 16, C 32; others raise) and
+    HR_conv2 over the slot table (``ops/conv_kernels.py sm90_table``) on
+    ``csrc/conv3x3_sm90.cuh``'s tile, or with ``qargs_hr`` the SFT in its
+    int8-output mode and HR_conv2 on the wgmma s8 tile of
+    ``csrc/conv3x3_s8_sm90.cuh``; fp32 keeps the dense kernels, the same
+    function on such weights. The plain version honours it too (the int8
+    conv's sum over the populated slots alone equals its dense sum on such
+    weights). False: dense, right for any weight."""
     hb, wb, c = s.shape
     cc = cond1.shape[-1]
     cl = w_last.shape[-1]
@@ -595,7 +603,7 @@ def fused_tail(
     native.check_cuda("tail b_last", b_last, torch.float32, (cl,))
     if up_coarse is not None:
         native.check_cuda("tail up_coarse", up_coarse, dt)
-    hopper, table, per_list = _sft_hopper("tail", s2d, dt, qargs_hr is not None, cc, c, c)
+    hopper, table, per_list = _sft_hopper("tail", s2d, dt, cc, c, c)
     t = torch.empty((hb, wb, c), dtype=dt if qargs_hr is None else torch.int8, device=s.device)  # t or its codes
     h = torch.empty((hb, wb, c), dtype=dt, device=s.device)
     if pack:
@@ -813,7 +821,9 @@ def _sft_conv_t(x: torch.Tensor, cond: torch.Tensor, sft4, w, b, qa: QArgs | Non
     from fp32. ``s2d``: the SFT over its weights' first diagonal blocks
     (:func:`_sft_t_rows`) and the float conv over ``w``'s populated slots
     (:func:`_s2d_slots_only`), as the kernels' s2d forms compute; the int8
-    conv stays dense."""
+    conv stays dense: its exact int32 sum over the populated slots alone,
+    the s2d int8 tile's, is the dense sum wherever the int8 weight is zero
+    outside them (``w_s2d_s1`` of a quantized weight)."""
     t = (_sft_t_rows if s2d else _sft_t)(x, cond, sft4, dtype)
     if qa is None:
         return _conv_same(_rounded(t, dtype), _s2d_slots_only(w) if s2d else w, b)
@@ -878,12 +888,13 @@ def fused_sft_conv3_v2(
     ``b_s2d(b)`` and ``w`` ``w_s2d_s1(w)`` (``models/s2d.py``; the frame
     programs pass True): the SFT then multiplies the rows of natural pixels
     by each weight's first diagonal block and the float conv only the
-    populated s2d slots. bf16 on the card with a float conv: the SFT on the
-    Hopper row tile of ``csrc/chain_sm90.cuh`` (natural widths CC 16, C 32;
-    others raise) and the conv on ``csrc/conv3x3_sm90.cuh``'s tile over the
-    slot table; fp32 and the int8 body keep the dense kernels, the same
-    function on such weights. The plain version honours it too. False:
-    dense, right for any weight.
+    populated s2d slots. bf16 on the card: the SFT on the Hopper row tile of
+    ``csrc/chain_sm90.cuh`` (natural widths CC 16, C 32; others raise) and
+    the conv over the slot table on ``csrc/conv3x3_sm90.cuh``'s tile, or
+    with ``qargs`` the SFT in its int8-output mode and the conv on the wgmma
+    s8 tile of ``csrc/conv3x3_s8_sm90.cuh``; fp32 keeps the dense kernels,
+    the same function on such weights. The plain version honours it too.
+    False: dense, right for any weight.
     """
     hb, wb, c = x.shape
     cc = cond.shape[-1]
@@ -909,7 +920,7 @@ def fused_sft_conv3_v2(
     native.check_cuda("sft_conv3 b", b, torch.float32, (co,))
     if skip is not None:
         native.check_cuda("sft_conv3 skip", skip, dt, (hb, wb, co))
-    hopper, table, per_list = _sft_hopper("sft_conv3", s2d, dt, qargs is not None, cc, c, co)
+    hopper, table, per_list = _sft_hopper("sft_conv3", s2d, dt, cc, c, co)
     out = torch.empty((hb, wb, co), dtype=dt, device=x.device)
     t = torch.empty((hb, wb, c), dtype=dt if qargs is None else torch.int8, device=x.device)  # t or its codes
     native.launch(
@@ -1002,7 +1013,8 @@ def fused_resblock(
         native.check_cuda("resblock x_add", x_add, dt, (hb, wb, c))
     if up_coarse is not None:
         native.check_cuda("resblock up_coarse", up_coarse, dt)
-    hopper, table, per_list = _sft_hopper("resblock", s2d, dt, quant, cc, c, c)
+    # the int8 body keeps the dense kernels (csrc/conv3x3_s8.cuh) in either form
+    hopper, table, per_list = _sft_hopper("resblock", s2d and not quant, dt, cc, c, c)
     t = torch.empty((hb, wb, c), dtype=torch.int8 if quant else dt, device=x.device)  # t or its codes
     h1 = torch.empty((hb, wb, c), dtype=torch.float32, device=x.device)
     xsum = None if second is None else torch.empty((hb, wb, c), dtype=dt, device=x.device)

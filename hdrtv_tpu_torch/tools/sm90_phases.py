@@ -41,6 +41,20 @@ three 1×1s' products), ``hidden 0`` / ``hidden 1`` (bias, modulation, ReLU
 and rounding into the next step's fragments) and ``out`` (the last step's
 epilogue and the stores).
 
+Then the int8 s2d forms' tiles (``tools/sm90_s8_phases.cu``) at the tail's
+1080p shape (540 × 960 s2d pixels, 128 → 128, symmetric and with a zero
+point): the wgmma s8 conv tile of ``csrc/conv3x3_s8_sm90.cuh`` (HR_conv2),
+its phases named as the bf16 tile's (``meet`` includes filling the pad
+rows of edge tiles, ``products`` thread 0's TMA stores and refill,
+``epilogue`` the outputs' rescale and staging; a step is one tap's box),
+and the SFT row tile (``csrc/chain_sm90.cuh
+sft_sm90``, up_coarse un-folded on read) in its int8-output mode and, to
+compare, its bf16 form: ``wait`` (for the tile's rows), ``products`` (the
+three 1×1 products and the hidden epilogue), ``t`` (x·(scale + 1) + shift;
+in bf16 also its rounded store to the stage), ``quantize`` (the IEEE
+division and rounding of every value), ``out`` (the codes into the stage,
+the meeting and the 16-byte stores).
+
 The timers cost time themselves; compare shares, not totals, with the
 kernel library's times. Needs a CUDA device; the last line is the card's
 name and power limit as nvidia-smi gives them.
@@ -61,6 +75,7 @@ from hdrtv_tpu_torch.ops.conv_kernels import sm90_table
 
 SRC = Path(__file__).resolve().parent / "sm90_phases.cu"
 SRC_AGCM = Path(__file__).resolve().parent / "sm90_agcm_phases.cu"
+SRC_S8 = Path(__file__).resolve().parent / "sm90_s8_phases.cu"
 PHASES = {"bf16": ["total", "wait B", "wait A", "meet", "products", "epilogue", "B stream"],
           "f32": ["total", "split A", "wait A", "meet", "products", "epilogue", "B load"]}
 # (name, stride, Hb, Wb, C, Co, a_sub): up_conv3/2 (PS-folded, block_conv3), the
@@ -87,16 +102,87 @@ def build() -> ctypes.CDLL:
     if not so.exists():
         out.mkdir(parents=True, exist_ok=True)
         res = subprocess.run([native._nvcc(), *native.ARCH_FLAGS, *native.NVCC_FLAGS, "-shared", "-o", str(so), str(SRC),
-                              str(SRC_AGCM)], capture_output=True, text=True)
+                              str(SRC_AGCM), str(SRC_S8)], capture_output=True, text=True)
         if res.returncode:
-            raise RuntimeError(f"nvcc failed on {SRC.name} or {SRC_AGCM.name}:\n{res.stdout}{res.stderr}")
+            raise RuntimeError(f"nvcc failed on {SRC.name}, {SRC_AGCM.name} or {SRC_S8.name}:\n{res.stdout}{res.stderr}")
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hdrtv_sm90_phases.argtypes = [p, p, p, p] + [i] * 8 + [p, i, i, i, p, p]
     lib.hdrtv_sm90_phases.restype = i
     lib.hdrtv_sm90_agcm_phases.argtypes = [p, i, ctypes.c_float, p, i] + [p] * 7 + [i, i, p, p]
     lib.hdrtv_sm90_agcm_phases.restype = i
+    f = ctypes.c_float
+    lib.hdrtv_sm90_s8_phases.argtypes = [p, p, p, p, f, f, i, p] + [i] * 5 + [p, i, p, p]
+    lib.hdrtv_sm90_s8_phases.restype = i
+    lib.hdrtv_sm90_sft_phases.argtypes = [p, p, p, p, p, i, i, i, i, p, f, f, i, p, p]
+    lib.hdrtv_sm90_sft_phases.restype = i
     return lib
+
+
+def _report(name: str, phases: torch.Tensor, names: list, steps: bool = True) -> None:
+    """Mean cycles of the warpgroups that ran, per phase, and their shares."""
+    torch.cuda.synchronize()
+    d = phases.view(-1, 8).cpu().numpy()
+    d = d[d[:, 0] > 0]
+    mean = d.mean(axis=0)
+    shares = {k: f"{mean[i]:.0f} ({mean[i] / mean[0]:.0%})" for i, k in enumerate(names)}
+    what = f"{mean[7]:.0f} steps each" if steps else f"{mean[7]:.0f} tiles each"
+    print(f"{name}: {len(d)} warpgroups, {what}; cycles {shares}", flush=True)
+
+
+SFT_PHASES = ["total", "wait", "products", "t", "quantize", "out"]
+
+
+def s8_phases(lib, dev, rng) -> None:
+    """The int8 s2d forms' tiles at the tail's 1080p shape (540 × 960 s2d
+    pixels, natural CC 16 and C 32): HR_conv2 on the wgmma s8 tile and the
+    SFT pass on the row tile, int8-output and bf16, seeded s2d weights, one
+    layer calibrated symmetric and one with a zero point."""
+    from hdrtv_tpu_torch.models.s2d import b_s2d, w_s2d_1x1, w_s2d_s1
+    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
+    from hdrtv_tpu_torch.quant.int8 import quantize_weight
+
+    hb, wb, c, cc = 540, 960, 128, 64
+    stream = torch.cuda.current_stream().cuda_stream
+    table, per_list = sm90_table("tail", 1, 1, c, c, c)
+    codes = torch.as_tensor(rng.randint(-128, 128, size=(hb, wb, c)).astype(np.int8), device=dev)
+    y = torch.empty(hb, wb, c, device=dev, dtype=torch.bfloat16)
+    wq, ws = quantize_weight(rng.randn(3, 3, c // 4, c // 4).astype(np.float32) * 0.05)
+    b = (rng.randn(c) * 0.1).astype(np.float32)
+    layers = {"sym": pack_qargs(w_s2d_s1(wq), b_s2d(ws), 0.01, None, b, dev),
+              "asym": pack_qargs(w_s2d_s1(wq), b_s2d(ws), 0.01, -0.3, b, dev)}
+    for cal, qa in layers.items():
+        phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
+        for _ in range(3):  # warm: the last run's sums are read
+            rc = lib.hdrtv_sm90_s8_phases(codes.data_ptr(), qa.w.data_ptr(), qa.yscale.data_ptr(), qa.bias.data_ptr(),
+                                          qa.scale, qa.zero or 0.0, qa.pad, y.data_ptr(), hb, wb, c, c, 1, table,
+                                          per_list, phases.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"conv3x3_s8_sm90 {cal}: CUDA error {rc}")
+        _report(f"HR_conv2 int8 s2d ({cal}, pad {qa.pad})", phases, PHASES["bf16"])
+
+    def t(a, dt=torch.bfloat16):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev).to(dt)
+
+    sft = []
+    for ci, co in ((16, 16), (16, 32), (16, 16), (16, 32)):
+        sft += [t(w_s2d_1x1(rng.randn(1, 1, ci, co).astype(np.float32) * 0.05)[0, 0]),
+                t(np.tile(rng.randn(co) * 0.1, 4), torch.float32)]
+    ptrs = native.pointer_array(sft)
+    x = t(rng.rand(hb, wb, c) - 0.3)
+    up = t(rng.rand(hb // 2, wb // 2, 4 * c) - 0.3)
+    cond = t(rng.rand(hb, wb, cc) - 0.3)
+    out = torch.empty(hb, wb, c, device=dev, dtype=torch.bfloat16)
+    for form, qa in (("int8-output, sym", layers["sym"]), ("int8-output, asym", layers["asym"]), ("bf16 t", None)):
+        phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
+        for _ in range(3):
+            rc = lib.hdrtv_sm90_sft_phases(x.data_ptr(), up.data_ptr(), cond.data_ptr(), out.data_ptr(), ptrs, hb, wb,
+                                           c, cc, None if qa is None else qa.w.data_ptr(),
+                                           1.0 if qa is None else qa.scale, (qa.zero or 0.0) if qa else 0.0,
+                                           int(qa is not None and qa.zero is not None), phases.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"sft_sm90 {form}: CUDA error {rc}")
+        _report(f"tail SFT pass s2d ({form})", phases, SFT_PHASES, steps=False)
 
 
 AGCM_PHASES = ["total", "fetch", "step 0", "hidden 0", "step 1", "hidden 1", "step 2", "out"]
@@ -171,6 +257,7 @@ def main() -> None:
             shares = {k: f"{mean[i]:.0f} ({mean[i] / mean[0]:.0%})" for i, k in enumerate(PHASES[dtype])}
             print(f"{name} {dtype}: {len(d)} warpgroups, {mean[7]:.0f} steps each; cycles {shares}", flush=True)
     agcm_phases(lib, dev, rng)
+    s8_phases(lib, dev, rng)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
 

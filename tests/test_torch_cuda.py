@@ -1098,6 +1098,93 @@ def test_tail_w8a8_matches_plain(dev, dtype, asym, hb, wb, coarse):
     assert int(d.max()) <= 16 and float((d > 0).float().mean()) <= 0.1, (int(d.max()), float((d > 0).float().mean()))
 
 
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+@pytest.mark.parametrize("hb,wb,coarse", [(12, 20, True), (9, 15, False), (2, 6, True), (3, 5, False), (64, 96, True)])
+def test_tail_w8a8_s2d_matches_plain(dev, asym, hb, wb, coarse):
+    """tail_w8a8's s2d form in bf16: the SFT pass on the row tile in its
+    int8-output mode, HR_conv2 on the wgmma s8 tile over the slot table,
+    conv_last as before; images narrower and shorter than one conv tile
+    (64 columns, 4 rows) and a ragged one. Against the plain version's s2d
+    form, with test_tail_w8a8_matches_plain's bounds."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_tail, fused_tail_ref
+
+    rng = np.random.RandomState(hb * wb + 41 + asym)
+    s = _t(rng.rand(hb, wb, 128) * 0.6, dev, "bf16")
+    up = _t(rng.rand(hb // 2, wb // 2, 512) * 0.6, dev, "bf16") if coarse else None
+    cond1 = _t(rng.rand(hb, wb, 64), dev, "bf16")
+    skip = _t(rng.rand(hb, wb, 12), dev, "bf16")
+    w_hr, b_hr, qa = _qlayer(rng, dev, 128, 128, (-0.6, 2.0), asym)
+    args = (_sft_s2d(rng, dev, 0.05), w_hr.to(torch.bfloat16), b_hr,
+            _t(w_s2d_s1(rng.randn(3, 3, 32, 3).astype(np.float32) * 0.02), dev, "bf16"),
+            _t(b_s2d(rng.randn(3).astype(np.float32) * 0.1), dev))
+    before = native.launch_counts["tail_w8a8"], native.launch_counts["tail"]
+    y = fused_tail(s, cond1, skip, *args, pack=True, up_coarse=up, qargs_hr=qa, s2d=True)
+    assert (native.launch_counts["tail_w8a8"], native.launch_counts["tail"]) == (before[0] + 1, before[1])
+    y_r = fused_tail_ref(s, cond1, skip, *args, pack=True, up_coarse=up, qargs_hr=qa, s2d=True)
+    torch.cuda.synchronize()
+    assert y.shape == (hb, 2, wb, 6) and y.dtype == torch.uint16
+    d = (y.to(torch.int32) - y_r.to(torch.int32)).abs()
+    assert int(d.max()) <= 16 and float((d > 0).float().mean()) <= 0.1, (int(d.max()), float((d > 0).float().mean()))
+
+
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+@pytest.mark.parametrize("hb,wb,relu,skip", [
+    (12, 20, True, False), (9, 15, False, True), (1, 7, True, False), (5, 70, False, True), (135, 240, True, False),
+    (135, 240, False, True),
+])
+def test_sft_conv3_w8a8_s2d_matches_plain(dev, asym, hb, wb, relu, skip):
+    """sft_conv3_w8a8's s2d form in bf16: the SFT pass on the row tile in its
+    int8-output mode, the conv on the wgmma s8 tile over the slot table, its
+    epilogue adding yscale, the folded bias and the skip rounded apart;
+    images narrower than one conv tile, one a column past it, the L2 shape.
+    Against the plain version's s2d form, with
+    test_sft_conv3_w8a8_matches_plain's bounds."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_sft_conv3_v2, fused_sft_conv3_v2_ref
+
+    rng = np.random.RandomState(hb * wb + 43 + asym)
+    x = _t(rng.rand(hb, wb, 128) - 0.2, dev, "bf16")
+    cond = _t(rng.rand(hb, wb, 64), dev, "bf16")
+    w, b, qa = _qlayer(rng, dev, 128, 128, (-0.6, 1.5), asym)
+    sk = _t(rng.rand(hb, wb, 128), dev, "bf16") if skip else None
+    args = (x, cond, _sft_s2d(rng, dev, 0.05), w.to(torch.bfloat16), b)
+    before = native.launch_counts["sft_conv3_w8a8"], native.launch_counts["sft_conv3"]
+    y = fused_sft_conv3_v2(*args, relu=relu, skip=sk, qargs=qa, s2d=True)
+    assert (native.launch_counts["sft_conv3_w8a8"], native.launch_counts["sft_conv3"]) == (before[0] + 1, before[1])
+    assert y.shape == (hb, wb, 128)
+    _q_close(y, fused_sft_conv3_v2_ref(*args, relu=relu, skip=sk, qargs=qa, s2d=True), qa, "bf16", share=0.04)
+
+
+@pytest.mark.parametrize("hb,wb,relu,skip", [(6, 10, False, False), (9, 70, True, True), (4, 64, False, True)])
+def test_s8_tile_reads_the_pad_code_at_the_border(dev, hb, wb, relu, skip):
+    """An asymmetric layer (pad code ≠ 0) behind an SFT whose weights and
+    biases are zero, so t = x exactly and both sides quantize the same
+    values: the wgmma s8 tile equals the plain version bit for bit, border
+    pixels included, and differs there from the same conv with code 0 in
+    the out-of-image taps (what TMA's zero fill alone would give)."""
+    import dataclasses
+
+    from hdrtv_tpu_torch.ops.megakernel import fused_sft_conv3_v2, fused_sft_conv3_v2_ref
+
+    rng = np.random.RandomState(hb * wb + 47)
+    x = _t(rng.rand(hb, wb, 128) * 1.2 - 0.3, dev, "bf16")
+    cond = _t(rng.rand(hb, wb, 64), dev, "bf16")
+    w, b, qa = _qlayer(rng, dev, 128, 128, (-0.3, 0.9), True)
+    assert qa.pad != 0
+    sk = _t(rng.rand(hb, wb, 128), dev, "bf16") if skip else None
+    zero_sft = [(torch.zeros(ci, co, device=dev, dtype=torch.bfloat16), torch.zeros(co, device=dev))
+                for ci, co in ((64, 64), (64, 128), (64, 64), (64, 128))]
+    args = (x, cond, zero_sft, w.to(torch.bfloat16), b)
+    y = fused_sft_conv3_v2(*args, relu=relu, skip=sk, qargs=qa, s2d=True)
+    y_r = fused_sft_conv3_v2_ref(*args, relu=relu, skip=sk, qargs=qa, s2d=True)
+    y_0 = fused_sft_conv3_v2_ref(*args, relu=relu, skip=sk, qargs=dataclasses.replace(qa, pad=0), s2d=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_r), _max_err(y, y_r)
+    border = torch.ones(hb, wb, dtype=torch.bool, device=dev)
+    border[1:-1, 1:-1] = False
+    assert bool((y_0 != y_r).any(dim=-1)[border].float().mean() > 0.5)
+    assert torch.equal(y_0[~border], y_r[~border])
+
+
 def test_int8_frame_matches_cpu(dev, monkeypatch):
     """The W8A8 checkpoint's default program on the card against the CPU
     (one seeded 64×128 frame): a code that flips on one side moves the
@@ -1118,6 +1205,40 @@ def test_int8_frame_matches_cpu(dev, monkeypatch):
     d = np.abs(gpu.astype(np.int64) - cpu.astype(np.int64))
     mse = float(np.mean((d / 65535.0) ** 2))
     assert 10 * np.log10(1.0 / max(mse, 1e-20)) >= 36.9, float(d.mean())
+
+
+def test_int8_frame_runs_the_s8_hopper_tile(dev, monkeypatch):
+    """One frame of the W8A8 checkpoint's default program under
+    torch.profiler: every sft_conv3_w8a8 and tail_w8a8 launch runs its conv
+    on the wgmma s8 tile (csrc/conv3x3_s8_sm90.cuh) and none on the mma.sync
+    tile of csrc/conv3x3_s8.cuh, which only block_conv3_w8a8 and
+    resblock_w8a8's two convs launch."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    monkeypatch.delenv("HDRTV_MEGAKERNEL", raising=False)
+    monkeypatch.delenv("HDRTV_INT8_DOWN2", raising=False)
+    proc = HDRTVNetTorch(os.path.join(os.path.dirname(__file__), "fixtures", "hr_w8a8.npz"))
+    frame = (np.random.RandomState(65).rand(64, 128, 3) * 255).astype(np.uint8)
+    proc.process_rgb48(frame)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        proc.process_rgb48(frame)
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()}
+
+    def launched(sub):
+        return sum(n for k, n in counts.items() if sub in k)
+
+    lc = native.launch_counts
+    s2d_calls = lc["sft_conv3_w8a8"] + lc["tail_w8a8"]
+    assert lc["tail_w8a8"] == 1 and s2d_calls >= 2
+    assert launched("conv3x3_s8_sm90_kernel") == s2d_calls, counts
+    assert launched("conv3x3_s8_kernel") == lc["block_conv3_w8a8"] + 2 * lc["resblock_w8a8"], counts
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
