@@ -76,12 +76,17 @@ lines; any failed check raises and the script exits non-zero with no result:
    for resblock, whose flipped t1 codes move h1 and t2 around them) plus a
    bf16 step, the packed tail_w8a8 within 2·|w_last|·(one flip + one bf16
    step of h)·65535 codes, and at most INT8_SHARE of the outputs differing.
-   sft_conv3_w8a8 and tail_w8a8 run in the s2d form the int8 programs call
-   (s2d=True: in bf16 the SFT pass on the row tile in its int8-output mode,
-   the conv on the wgmma s8 tile of csrc/conv3x3_s8_sm90.cuh over the slot
-   table), symmetric and asymmetric, and in bf16 once more in the dense
-   form, with the same tolerances; "sft_conv3_w8a8_split" and
-   "tail_w8a8_split" lines give each bf16 case's launches apart.
+   sft_conv3_w8a8, tail_w8a8 and resblock_w8a8 run in the s2d form the int8
+   programs call (s2d=True: in bf16 the SFT passes on the row tile in its
+   int8-output mode, resblock's SFT1 writing the rounded sum and its SFT2
+   reading the fp32 h1, the convs on the wgmma s8 tile of
+   csrc/conv3x3_s8_sm90.cuh over the slot table, resblock's conv1 storing h1
+   in fp32), and block_conv3_w8a8 with the programs' a_sub = 1 (in bf16 the
+   quantize pass, then the s8 tile; up_conv2's odd 135 rows included),
+   symmetric and asymmetric, and in bf16 once more in the dense form, with
+   the same tolerances; "sft_conv3_w8a8_split", "tail_w8a8_split",
+   "resblock_w8a8_split" and "block_conv3_w8a8_split" lines give each bf16
+   case's launches apart.
    The forms ported with the rest of the int8 slice: down2_w8a8 (down2's int8
    body) at the consolidated CondNet down conv (540 × 960 × 256 → 768, three
    branches) and at CondNet3.2/4.2's channel window, symmetric and with zero
@@ -439,6 +444,8 @@ def launch_split(fn, torch, parts, reps: int = 20) -> dict:
 # resblock (SFT passes, 3×3 convs), by kernel name.
 TAIL_PARTS = (("conv_last_ms", "conv_last"), ("sft_ms", "sft"), ("hr_conv2_ms", "conv3x3"))
 SFT_CONV_PARTS = (("sft_ms", "sft"), ("conv_ms", "conv3x3"))
+# block_conv3_w8a8's two launches: the quantize pass, the int8 conv.
+QCONV_PARTS = (("quantize_ms", "quantize"), ("conv_ms", "conv3x3"))
 # agcm_head's two launches (the AGCM pass, the input conv), dense or s2d.
 HEAD_PARTS = (("agcm_ms", "agcm"), ("in_conv_ms", "in_conv"))
 
@@ -480,7 +487,7 @@ def phase_card(torch, native) -> str:
     build_log = lib_path.parent / "build.log"
     if build_log.exists():
         for line in build_log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 log("  ptxas: " + line.strip())
     return smi
 
@@ -1044,15 +1051,24 @@ def phase_kernels(torch, np) -> dict:
             w, b, qa = qlayer(ci, co, -0.1, 1.1, asym, ps)
             w = w.to(dt)
             sk = t(rng.rand(hb, wb, 4 * co)) if skip else None
-            y = fused_block_conv3(x, w, b, relu=relu, skip=sk, qargs=qa)
             y_r = fused_block_conv3_q_ref(x, qa, relu=relu, skip=sk)
-            ms = time_ms(lambda: fused_block_conv3(x, w, b, relu=relu, skip=sk, qargs=qa), torch)
             plain = time_ms(lambda: fused_block_conv3_q_ref(x, qa, relu=relu, skip=sk), torch)
             # the same codes and exact sums: bit for bit, or one ulp of the epilogue
             tol = float(np.spacing(np.float32(max(1.0, float(y_r.float().abs().max()))))) if dtype == "f32" else 1
-            record("block_conv3_w8a8", dtype, name, per_path, y, y_r, tol, ms, plain, None,
-                   nbytes_of(x, y, sk) + qbytes(qa), 2 * conv_macs(w, hb, wb, 1),
-                   "abs" if dtype == "f32" else "steps", rate="int8")
+            # the programs' route, a_sub = 1 (bf16: the quantize pass, then the wgmma s8 tile over
+            # the slot table; fp32 keeps the dense tile), then in bf16 the dense form once
+            for a_sub in (1, 0) if dtype == "bf16" and not asym else (1,):
+                def call(a_sub=a_sub):
+                    return fused_block_conv3(x, w, b, relu=relu, skip=sk, qargs=qa, a_sub=a_sub)
+
+                y = call()
+                ms = time_ms(call, torch)
+                if dtype == "bf16":
+                    log(json.dumps({"block_conv3_w8a8_split": {"case": name, "a_sub": a_sub,
+                                                               **launch_split(call, torch, QCONV_PARTS)}}))
+                record("block_conv3_w8a8", dtype, f"{name} a_sub={a_sub}", per_path if a_sub else {}, y, y_r, tol,
+                       ms, plain, None, nbytes_of(x, y, sk) + qbytes(qa), 2 * conv_macs(w, hb, wb, 1),
+                       "abs" if dtype == "f32" else "steps", rate="int8")
             del x, y, y_r, sk
 
         # sft_conv3_w8a8: x (hb,wb,128), cond (hb,wb,64); the bf16 int8 programs only. The
@@ -1109,16 +1125,27 @@ def phase_kernels(torch, np) -> dict:
             w2, b2, q2 = qlayer(32, 32, -0.5, 2.0, asym)
             args = (x, cond, sft1, w1.to(dt), b1, sft2, w2.to(dt), b2)
             kw = {"up_coarse": up, "qargs1": q1, "qargs2": q2}
-            y = fused_resblock(*args, **kw)
-            y_r = fused_resblock_ref(*args, **kw)
-            ms = time_ms(lambda: fused_resblock(*args, **kw), torch)
-            plain = time_ms(lambda: fused_resblock_ref(*args, **kw), torch)
             params = [p for pair in (*sft1, *sft2) for p in pair]
-            record("resblock_w8a8", dtype, name, per_path, y, y_r, flip_tol(q2, 8), ms, plain, None,
-                   nbytes_of(x, cond, up, y, *params) + qbytes(q1, q2),
-                   2 * (conv_macs(args[3], hb, wb, 1) + conv_macs(args[6], hb, wb, 1))
-                   + sft_flops(hb * wb, sft1) + sft_flops(hb * wb, sft2) + 8 * hb * wb * 128,
-                   "flips", share=INT8_SHARE["resblock"], rate="int8")
+            # the programs' s2d form (bf16: both SFT passes on the row tile in its int8-output
+            # mode, SFT1 writing the rounded sum, SFT2 reading the fp32 h1; both convs on the wgmma
+            # s8 tile, conv1 storing h1 in fp32), then in bf16 the dense form once
+            for s2d in (True, False) if dtype == "bf16" and not asym else (True,):
+                def call(s2d=s2d):
+                    return fused_resblock(*args, **kw, s2d=s2d)
+
+                def call_plain(s2d=s2d):
+                    return fused_resblock_ref(*args, **kw, s2d=s2d)
+
+                y, y_r = call(), call_plain()
+                ms, plain = time_ms(call, torch), time_ms(call_plain, torch)
+                if dtype == "bf16":
+                    log(json.dumps({"resblock_w8a8_split": {"case": name, "s2d": s2d,
+                                                            **launch_split(call, torch, SFT_CONV_PARTS)}}))
+                record("resblock_w8a8", dtype, f"{name} s2d={s2d}", per_path if s2d else {}, y, y_r,
+                       flip_tol(q2, 8), ms, plain, None, nbytes_of(x, cond, up, y, *params) + qbytes(q1, q2),
+                       2 * (conv_macs(args[3], hb, wb, 1) + conv_macs(args[6], hb, wb, 1))
+                       + sft_flops(hb * wb, sft1) + sft_flops(hb * wb, sft2) + 8 * hb * wb * 128,
+                       "flips", share=INT8_SHARE["resblock"], rate="int8")
             del x, cond, up, y, y_r, args
 
         # tail_w8a8, packed coarse form at (540, 960), compared in u16 codes. The program's s2d

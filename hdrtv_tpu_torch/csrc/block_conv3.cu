@@ -31,11 +31,18 @@
 // int8 × int8 → int32 dots, rescaled per output channel, then bias, skip and
 // ReLU. Bound on this card: bytes (a 1080p call needs at most 38 GOP of
 // non-zero int8 products, 0.02 ms at the 1979 TOPS int8 rate, less than its
-// activations take at 3.35 TB/s). Design, first version: two launches from one host
-// call, a quantize pass that writes x's codes once (1 byte a value) into
-// scratch the wrapper allocates, then the int8 tile of conv3x3_s8.cuh, which
-// fills out-of-image taps with the layer's pad code. Quantizing on load
-// inside the tile, which saves the codes' round trip, is later work.
+// activations take at 3.35 TB/s). Two launches from one host call: a
+// quantize pass that writes x's codes once (1 byte a value) into scratch the
+// wrapper allocates, then the conv. Dense (a_sub = 0, and fp32): the
+// mma.sync int8 tile of conv3x3_s8.cuh, which fills out-of-image taps with
+// the layer's pad code. bf16 with a_sub = 1 (conv_s1 passes it; the int8
+// programs' up_conv2.0 at L2 and up_conv3.0 at L1, s2d C = 128 → Co = 512,
+// PS-folded): the wgmma s8 tile of conv3x3_s8_sm90.cuh over the slot table
+// the wrapper passes, 4 N tiles of 32 per output sub-position, the pad code
+// written over out-of-image box rows, bias, skip and ReLU in its epilogue,
+// stored by TMA inside the image (up_conv2's odd 135 rows included).
+// Quantizing on load inside the tile, which saves the codes' round trip, is
+// later work.
 //
 // The pool_out form (conv_kernels.py:259-266, :342-346; counted as
 // block_conv3_pool): the 2×2 max pool of the result, after the ReLU, taken
@@ -46,6 +53,7 @@
 // one thread's registers (FMA) or in four lanes of one warp (MMA), and the
 // max is a register or shuffle reduction. H and W must be even.
 #include "conv3x3_s8.cuh"
+#include "conv3x3_s8_sm90.cuh"
 #include "conv3x3_tf32x3.cuh"
 
 namespace {
@@ -57,8 +65,17 @@ int block_conv3(const void* x, const void* w, const void* b, const hdrtv::QuantP
   if (pool && (H % 2 || W % 2)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (table) {
-    if (q || pool) return static_cast<int>(cudaErrorInvalidValue);
+    if (pool) return static_cast<int>(cudaErrorInvalidValue);
     const int act = relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE;
+    if (q) {
+      if constexpr (std::is_same<T, hdrtv::bf16>::value) {
+        cudaError_t err = hdrtv::quantize<T>(x, codes, static_cast<long long>(H) * W * C, *q, s);
+        if (err == cudaSuccess) err = hdrtv::conv3x3_s8_sm90(codes, *q, skip, y, H, W, C, Co, act, table, per_list, s);
+        return static_cast<int>(err);
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+    }
     if constexpr (std::is_same<T, hdrtv::bf16>::value)
       return static_cast<int>(hdrtv::conv3x3_sm90<1>(x, w, static_cast<const float*>(b), skip, y, H, W, C, 0, C,
                                                      Co, act, a_sub, table, per_list, s));
@@ -78,10 +95,10 @@ int block_conv3(const void* x, const void* w, const void* b, const hdrtv::QuantP
 
 // q: null for the float form, else the layer's int8 parameters (w and b
 // unused; codes: H·W·C bytes of scratch, unused without q). pool: 1 for the
-// pool_out form, y (H/2, W/2, Co). table: null, or (the float form without
-// pool only) the chunk lists of conv3x3_sm90.cuh for a_sub, per_list entries
-// each, which send the call to the Hopper tile (bf16) or its 3×TF32 sibling
-// (fp32).
+// pool_out form, y (H/2, W/2, Co). table: null, or (without pool only) the
+// chunk lists of conv3x3_sm90.cuh for a_sub, per_list entries each, which
+// send the call to the Hopper tile (bf16) or its 3×TF32 sibling (fp32), or
+// with q (bf16, a_sub = 1) to the wgmma s8 tile.
 extern "C" int hdrtv_block_conv3_f32(const void* x, const void* w, const void* b, const void* q,
                                      const void* skip, void* y, void* codes, int H, int W, int C,
                                      int Co, int relu, int pool, int a_sub, const int* table,

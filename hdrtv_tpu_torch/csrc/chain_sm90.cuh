@@ -3,9 +3,9 @@
 // weights reduced to their one diagonal block and kept in shared memory.
 // It runs the bf16 float forms of cond_chain (cond_chain_sm90) and the SFT
 // passes (sft_sm90) of the tail, sft_conv3 and resblock, and in its
-// int8-output mode those of tail_w8a8 and sft_conv3_w8a8, when the caller
-// declares the weights s2d (ops/megakernel.py, s2d=True); the dense forms
-// stay on chain.cuh and pointwise.cuh.
+// int8-output mode those of tail_w8a8, sft_conv3_w8a8 and resblock_w8a8,
+// when the caller declares the weights s2d (ops/megakernel.py, s2d=True);
+// the dense forms stay on chain.cuh and pointwise.cuh.
 //
 // Why rows. A 1×1 weight of the s2d program is w_s2d_1x1(w) (models/s2d.py):
 // (4·K, 4·N), block-diagonal with four equal K × N blocks, one per
@@ -420,15 +420,18 @@ struct SftSm90Args {
 // writes t over x). Two blocks a SM: four stages a warpgroup with bf16 x,
 // three with fp32 x (its rows are twice the bytes).
 //
-// The int8-output mode (Q8, bf16 x; the s2d forms of tail_w8a8 and
-// sft_conv3_w8a8): t = x·(scale + 1) then + shift in fp32 with the _rn
+// The int8-output mode (Q8; the s2d forms of tail_w8a8, sft_conv3_w8a8 and
+// resblock_w8a8): t = x·(scale + 1) then + shift in fp32 with the _rn
 // intrinsics, as pointwise.cuh's int8-output mode forms it, never rounded
 // to bf16, quantized by quantize_code (IEEE division, round half to even)
 // and written as 1-byte codes: the (rows, C) code rows are, byte for byte,
-// the (npix, 4·C) s2d codes the int8 conv reads. A warp's codes go over its
-// own x rows in the stage once all its lanes have read them (__syncwarp),
-// then out in 16-byte pieces as t does. The sum with a second input is not
-// stored (no xsum).
+// the (npix, 4·C) s2d codes the int8 conv reads. x is bf16 (with a second
+// input: resblock_w8a8's SFT1, whose rounded sum goes to xsum as in the
+// float form: it lies in the side area, which the codes never touch) or
+// fp32 (resblock_w8a8's SFT2 on h1, which enters t only). A warp's codes go
+// over its own x rows in the stage once all its lanes have read them
+// (__syncwarp: 32 bytes of a 80- or 160-byte row), then out in 16-byte
+// pieces as t does.
 template <int CC, int C, typename XT>
 struct SftSm90Cfg {
   static constexpr bool F32X = std::is_same<XT, float>::value;
@@ -452,7 +455,6 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
   using Cfg = SftSm90Cfg<CC, C, XT>;
   constexpr int NS = Cfg::NS;
   constexpr bool F32X = Cfg::F32X;
-  static_assert(!(Q8 && F32X), "the int8-output mode takes bf16 x");
   extern __shared__ __align__(16) unsigned char row_smem[];
   unsigned char* const smem = row_smem;
   float* const b0 = reinterpret_cast<float*>(smem + Cfg::W_BYTES);  // [b0s | b0h]
@@ -593,7 +595,7 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
           if (a.add) {
             const float2 u = load2<bf16>(pa);
             xv = make_float2(round_to<bf16>(xv.x + u.x), round_to<bf16>(xv.y + u.y));
-            if constexpr (!Q8) store2<bf16>(pa, xv);  // exact: already on the bf16 grid
+            store2<bf16>(pa, xv);  // exact: already on the bf16 grid
           }
         }
         const float s0 = sc[4 * j + 2 * h] + bs.x, s1 = sc[4 * j + 2 * h + 1] + bs.y;
@@ -628,10 +630,11 @@ __global__ void __launch_bounds__(kRowThreads, 2) sft_sm90_kernel(const __grid_c
     }
     warpgroup_sync(wg);
     const long long r0 = tiles.row0(i);
-    if constexpr (F32X) {
-      store_rows(a.t, as, Cfg::APITCH, C * 2, r0, a.rows, t);
-    } else if constexpr (Q8) {
+    if constexpr (Q8) {
       store_rows(a.q, xs, Cfg::XPITCH, C, r0, a.rows, t);
+      if (a.xsum) store_rows(a.xsum, as, Cfg::APITCH, C * 2, r0, a.rows, t);
+    } else if constexpr (F32X) {
+      store_rows(a.t, as, Cfg::APITCH, C * 2, r0, a.rows, t);
     } else {
       store_rows(a.t, xs, Cfg::XPITCH, C * 2, r0, a.rows, t);
       if (a.xsum) store_rows(a.xsum, as, Cfg::APITCH, C * 2, r0, a.rows, t);
@@ -680,16 +683,16 @@ inline void set_sft_sm90_params(SftSm90Args& a, const void* const* sft, int cc, 
 // of XT (bf16 or float), add (bf16 x only) nullptr, fine (coarse = 0) or
 // coarse (coarse = 1, H and W even), xsum (with add only) nullptr or the
 // rounded sum's destination; sft: the eight pointers w, b of scale0,
-// scale1, shift0, shift1. q (bf16 x, no xsum): the int8-output mode, t
-// written as the codes of the layer q. The widths the frame programs run,
-// natural CC = 16 and C = 32, are the ones it takes; anything else is
-// refused. `phases` (tools/sm90_phases.cu): the timers' array, else null.
+// scale1, shift0, shift1. q: the int8-output mode, t written as the codes
+// of the layer q (bf16 x with or without add and xsum, or fp32 x). The
+// widths the frame programs run, natural CC = 16 and C = 32, are the ones
+// it takes; anything else is refused. `phases` (tools/sm90_phases.cu): the timers' array, else null.
 template <typename XT>
 inline cudaError_t sft_sm90(const void* x, const void* add, int coarse, void* xsum, const void* cond1, void* t,
                             const void* const* sft, int H, int W, int C, int CC, cudaStream_t stream,
                             const QuantParams* q = nullptr, unsigned long long* phases = nullptr) {
   if (C != 4 * 32 || CC != 4 * 16 || (add && coarse && (H % 2 || W % 2)) || (add && SftSm90Cfg<16, 32, XT>::F32X) ||
-      (xsum && !add) || (q && (xsum || SftSm90Cfg<16, 32, XT>::F32X)))
+      (xsum && !add))
     return cudaErrorInvalidValue;
   SftSm90Args a;
   a.cond = static_cast<const bf16*>(cond1);
@@ -712,7 +715,7 @@ inline cudaError_t sft_sm90(const void* x, const void* add, int coarse, void* xs
     a.qs = q->s;
     a.qz = q->z;
     a.qasym = q->asym;
-    if constexpr (!SftSm90Cfg<16, 32, XT>::F32X) return launch_sft_sm90<XT, true>(a, stream);
+    return launch_sft_sm90<XT, true>(a, stream);
   }
   return launch_sft_sm90<XT>(a, stream);
 }

@@ -1,18 +1,23 @@
 // The native-int8 (W8A8) 3×3 'same' convolution written for Hopper (sm_90a):
 // s8 × s8 → s32 on wgmma, fed by TMA through a ring of stages, walking the
-// stride-1 s2d slot table. It runs the int8 conv of the s2d forms of
-// sft_conv3_w8a8 and tail_w8a8 (the Pallas bodies behind `quant` in
-// hdrtv_tpu/ops/megakernel.py: fused_sft_conv3_v2 :852-855, fused_tail
-// :468-469, both on _taps_conv_q :1358) when the caller declares the weight
-// s2d (ops/megakernel.py, s2d=True); the dense int8 forms stay on the
-// mma.sync tile of conv3x3_s8.cuh.
+// stride-1 s2d slot table. It runs the int8 convs of the s2d forms of
+// sft_conv3_w8a8, tail_w8a8 and resblock_w8a8 (the Pallas bodies behind
+// `quant` in hdrtv_tpu/ops/megakernel.py: fused_sft_conv3_v2 :852-855,
+// fused_tail :468-469, fused_resblock :988-1004, all on _taps_conv_q :1358)
+// when the caller declares the weights s2d (ops/megakernel.py, s2d=True),
+// and block_conv3_w8a8's when it declares a_sub = 1 (hdrtv_tpu/ops/
+// conv_kernels.py :180-227; ops/conv_kernels.py); the dense int8 forms stay
+// on the mma.sync tile of conv3x3_s8.cuh.
 //
 // What it computes, per output pixel and channel n (ops/w8a8.py):
 //   y = act(float(Σ code · w_int8) · yscale[n] + bias[n] (+ skip))
 // with the int32 sum exact, the rescale and the bias add rounded apart
 // (__fmul_rn, __fadd_rn: no contraction into an FMA), then the skip added
-// (__fadd_rn), the activation, one rounding to bf16. Where the codes agree
-// the result equals the plain version bit for bit: an s32 sum has no order.
+// (__fadd_rn), the activation, one rounding to bf16; or, in the fp32-output
+// form (resblock_w8a8's conv1, whose h1 the Pallas body carries into SFT2
+// in fp32), no skip and no rounding: y stored as fp32. Where the codes
+// agree the result equals the plain version bit for bit: an s32 sum has no
+// order.
 //
 // Why a table. The weight w_s2d_s1(w) is 3/4 exact zeros: output
 // sub-position so reads 9 of the 36 (tap, input sub-position) slots
@@ -77,17 +82,29 @@
 // the tile's two rows by TMA after the next step's meeting, clipped at the
 // image's edges, and waits for their reads before that stage is refilled.
 // (16-byte stores after a quad shuffle, as the bf16 tile's epilogue does,
-// took half of this tile's cycles.)
+// took half of this tile's cycles.) The fp32-output form stages 8-byte
+// pairs in the 128-byte swizzle of an fp32 map (boxes of 32 channels, 128
+// bytes a pixel): its two rows, 2 × 64 × 128 bytes, fill the whole stage.
+// So a list's last step is a 128-byte box (s8_sm90_plan moves one there;
+// every stride-1 list has one, its center tap's four sub-positions), and
+// warpgroup wg stages its outputs over its own box row, wg · 64 · 128
+// bytes in, which only its own wgmmas read: over a narrower box it would
+// write the other warpgroup's A rows while those products may still run.
 //
 // Bound on this card: bytes. HR_conv2 at 1080p reads 66 MB of codes and
 // writes 133 MB of h (0.059 ms at 3.35 TB/s), against 38 GOP of non-zero
-// int8 products (0.019 ms at 1979 TOPS). Where the time goes:
-// tools/sm90_phases.py, PERF.md §5.
+// int8 products (0.019 ms at 1979 TOPS); resblock_w8a8's conv1 at L1 reads
+// 17 MB and writes 66 MB of fp32 h1; block_conv3_w8a8's up_conv3 reads 17
+// MB and writes 133 MB. Where the time goes: tools/sm90_phases.py, PERF.md
+// §5.
 //
 // Requirements (the launcher returns cudaErrorInvalidValue otherwise): C =
 // 128, natural 32 channels (a wider C's weight chunks would not stay
-// resident beside the ring), Co/4 a multiple of 32, the table's four lists
-// of 9 chunks, 16-byte aligned tensors.
+// resident beside the ring), Co/4 a multiple of 32 (128 → 128 and the
+// PS-folded 128 → 512), the table's four lists of 9 chunks, 16-byte aligned
+// tensors, no skip with fp32 output. Any H and W: TMA clips the boxes at
+// the image's edges, and an odd H (up_conv2's 135 rows) leaves the last
+// tile's second row out of the image, read as pad and not stored.
 #pragma once
 
 #include "conv3x3_s8.cuh"
@@ -111,12 +128,12 @@ constexpr int kS8Sm90MaxChunks = 9;   // chunks (and steps) of one list: C = 128
 // of the list << 2.
 struct S8Sm90Args {
   CUtensorMap amap[3];  // the codes as (H, W, C) u8, box (32·2^k, 64, 2) for kind k
-  CUtensorMap ymap;     // y as (H, W, Co) bf16, box (32, 64, 1), 64-byte swizzle: the stores
+  CUtensorMap ymap;     // y as (H, W, Co), box (32, 64, 1): bf16 in the 64-byte swizzle, fp32 in the 128-byte
+                        // one; the stores
   const int8_t* w;      // (Co, 9·C): QArgs.w
   const float* yscale;  // (Co)
   const float* bias;    // (Co): the folded bias
   const bf16* skip;     // (H, W, Co) or nullptr
-  bf16* y;              // (H, W, Co)
   int H, W, C, Co, act, pad;
   int per_list;         // chunks in each of the four lists
   int co_nat;           // output channels of one sub-position, Co / 4
@@ -175,16 +192,14 @@ __device__ __forceinline__ void fence_iregs(int (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// Where warpgroup wg stages its output row (64 pixels × 64 bytes) in the
-// stage of a tile's last step, whose box has rows of `row` bytes: over its
-// own box rows when they are 128 bytes (only its wgmmas read them), else
-// past the box.
-__device__ __forceinline__ int s8_stage_out(int row, int wg) {
-  return row == 128 ? wg * kSm90TW * 128 : kS8Sm90BH * kSm90TW * 64 + wg * kSm90TW * 64;
-}
+// Where warpgroup wg stages its output row (64 pixels × 64 bytes in bf16,
+// 128 in fp32) in the stage of a tile's last step: over its own row of that
+// step's 128-byte box (s8_sm90_plan), which only its wgmmas read.
+__device__ __forceinline__ int s8_stage_out(int wg) { return wg * kSm90TW * 128; }
 
-template <bool SKIP>
+template <bool SKIP, bool F32OUT>
 __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_s8_sm90_kernel(const __grid_constant__ S8Sm90Args a) {
+  static_assert(!(SKIP && F32OUT), "the fp32-output form has no skip");
   constexpr int BH = kS8Sm90BH, BN = kS8Sm90BN, NS = kS8Sm90NS, D = NS - 2;
   extern __shared__ unsigned char smem_raw[];
   const unsigned base = (static_cast<unsigned>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
@@ -271,7 +286,6 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_s8_sm90_kernel(const 
   const unsigned padw = static_cast<unsigned>(a.pad & 0xff) * 0x01010101u;
   const uint4 padv = make_uint4(padw, padw, padw, padw);
   const int my_half = tid & 1;  // this thread's half of box row tid / 2 (pad filling)
-  const int out_row = 32 << ((plan[2 * (KS - 1)] >> 4) & 3);  // the box row bytes of a tile's last step
   int ks = 0, tile = 0, stage = 0, phase = 0, fill = D % NS;
   // the staged output of a tile not yet stored (its stage, -1 for none) and
   // its first pixel; thread 0's stage of a store that may still read it
@@ -284,7 +298,7 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_s8_sm90_kernel(const 
     for (int r = 0; r < BH; ++r)
       asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n"
                    ::"l"(reinterpret_cast<uint64_t>(&a.ymap)), "r"(n0), "r"(out_w0), "r"(out_h0 + r),
-                   "r"(st + s8_stage_out(out_row, r))
+                   "r"(st + s8_stage_out(r))
                    : "memory");
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   };
@@ -359,15 +373,16 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_s8_sm90_kernel(const 
       // row and of each 8-channel group j the pair (lane % 4)·2. It writes
       // them, rounded, into this stage (s8_stage_out) in the 64-byte swizzle
       // of the TMA store: 16-byte piece j of pixel p at j ^ (p/2 % 4), so
-      // that the eight pixels of a store instruction fall in distinct banks.
-      unsigned char* const st = smem + stage * kS8Sm90StageBytes + s8_stage_out(row, wg);
+      // that the eight pixels of a store instruction fall in distinct banks;
+      // in fp32, unrounded, in the 128-byte swizzle: piece 2j + q/2 of pixel
+      // p at (2j + q/2) ^ (p % 8), the pair at byte 8·(q % 2) of it.
+      unsigned char* const st = smem + stage * kS8Sm90StageBytes + s8_stage_out(wg);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int p = warp * 16 + h * 8 + (lane >> 2);
         const int ho = h0 + wg, wo = w0 + p;
         const bool ok = ho < a.H && wo < a.W;
         const long long at = (static_cast<long long>(ho) * a.W + wo) * a.Co + n0 + q * 2;
-        unsigned char* const px = st + p * 64 + q * 4;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float2 v = make_float2(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), ysr[j].x), bsr[j].x),
@@ -378,8 +393,13 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_s8_sm90_kernel(const 
               v = make_float2(__fadd_rn(v.x, sv.x), __fadd_rn(v.y, sv.y));
             }
           }
-          *reinterpret_cast<__nv_bfloat162*>(px + ((j ^ ((p >> 1) & 3)) << 4)) =
-              __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
+          if constexpr (F32OUT) {
+            *reinterpret_cast<float2*>(st + p * 128 + (((2 * j + (q >> 1)) ^ (p & 7)) << 4) + (q & 1) * 8) =
+                make_float2(apply_act(v.x, a.act), apply_act(v.y, a.act));
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(st + p * 64 + q * 4 + ((j ^ ((p >> 1) & 3)) << 4)) =
+                __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
+          }
         }
       }
       // the staged rows, written by the generic proxy, are read by TMA's
@@ -431,26 +451,30 @@ inline cudaError_t encode_codes_map(CUtensorMap* map, const void* q, int H, int 
   return cudaSuccess;
 }
 
-// y's TMA map for the stores: (Co, W, H) bf16, a box of 32 channels × 64
-// pixels × 1 row in the 64-byte swizzle the tile stages it in; boxes are
-// clipped at the image's edges.
-inline cudaError_t encode_s8_out_map(CUtensorMap* map, void* y, int H, int W, int Co) {
+// y's TMA map for the stores: (Co, W, H) bf16 (fp32 with f32), a box of 32
+// channels × 64 pixels × 1 row in the swizzle the tile stages it in (64
+// bytes; 128 in fp32, a box row's span); boxes are clipped at the image's
+// edges.
+inline cudaError_t encode_s8_out_map(CUtensorMap* map, void* y, int H, int W, int Co, bool f32 = false) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t es = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Co), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Co) * 2, static_cast<cuuint64_t>(W) * Co * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Co) * es, static_cast<cuuint64_t>(W) * Co * es};
   const cuuint32_t box[3] = {kS8Sm90BN, static_cast<cuuint32_t>(kSm90TW), 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, y, dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
-      CUDA_SUCCESS)
+  if (encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, y, dims, strides, box,
+             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, f32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
 // The steps of one list of the slot table (per_list entries tap | c0 << 4,
 // C = 128): its chunks grouped by tap, each group one box of the narrowest
-// kind whose aligned span holds it. Returns the number of steps.
+// kind whose aligned span holds it, the last 128-byte step moved to the end
+// (the tile stages its outputs there). Returns the number of steps, 0 for a
+// list it cannot walk.
 inline int s8_sm90_plan(const int* list, int per_list, int* plan) {
   int tap_of[kS8Sm90MaxChunks], lo[kS8Sm90MaxChunks], hi[kS8Sm90MaxChunks];
   int members[kS8Sm90MaxChunks][4], count[kS8Sm90MaxChunks];
@@ -483,26 +507,35 @@ inline int s8_sm90_plan(const int* list, int per_list, int* plan) {
     plan[2 * s] = tap_of[s] | k << 4 | c0 << 8 | count[s] << 20;
     plan[2 * s + 1] = w1;
   }
+  int s = nsteps - 1;
+  while (s >= 0 && ((plan[2 * s] >> 4) & 3) != 2) --s;
+  if (s < 0) return 0;
+  for (int w = 0; w < 2; ++w) {
+    const int v = plan[2 * s + w];
+    for (int i = s; i + 1 < nsteps; ++i) plan[2 * i + w] = plan[2 * (i + 1) + w];
+    plan[2 * (nsteps - 1) + w] = v;
+  }
   return nsteps;
 }
 
 // The int8 'same' conv of codes q (H, W, C) with the layer p, s2d form: y =
-// act(conv + bias (+ skip)) in bf16, walking `table` (four lists, one per
-// output sub-position, per_list entries each). `args`: where to build the
-// launch's arguments (tools/sm90_phases.cu passes its own, with the timers'
-// array set); by default on the stack.
+// act(conv + bias (+ skip)) in bf16, or with f32_out act(conv + bias) in
+// fp32 (no skip), walking `table` (four lists, one per output sub-position,
+// per_list entries each). `args`: where to build the launch's arguments
+// (tools/sm90_s8_phases.cu passes its own, with the timers' array set); by
+// default on the stack.
 inline cudaError_t conv3x3_s8_sm90(const void* q, const QuantParams& p, const void* skip, void* y, int H, int W,
                                    int C, int Co, int act, const int* table, int per_list, cudaStream_t stream,
-                                   S8Sm90Args* args = nullptr) {
+                                   S8Sm90Args* args = nullptr, bool f32_out = false) {
   S8Sm90Args own;
   S8Sm90Args& a = args ? *args : own;
-  if (!table || C != 128 || Co % (4 * kS8Sm90BN) || per_list != kS8Sm90MaxChunks || H < 1 || W < 1)
+  if (!table || C != 128 || Co % (4 * kS8Sm90BN) || per_list != kS8Sm90MaxChunks || H < 1 || W < 1 ||
+      (f32_out && skip))
     return cudaErrorInvalidValue;
   a.w = p.w;
   a.yscale = p.yscale;
   a.bias = p.bias;
   a.skip = static_cast<const bf16*>(skip);
-  a.y = static_cast<bf16*>(y);
   a.H = H;
   a.W = W;
   a.C = C;
@@ -518,12 +551,13 @@ inline cudaError_t conv3x3_s8_sm90(const void* q, const QuantParams& p, const vo
   }
   cudaError_t err = cudaSuccess;
   for (int k = 0; k < 3 && err == cudaSuccess; ++k) err = encode_codes_map(&a.amap[k], q, H, W, C, k);
-  if (err == cudaSuccess) err = encode_s8_out_map(&a.ymap, y, H, W, Co);
+  if (err == cudaSuccess) err = encode_s8_out_map(&a.ymap, y, H, W, Co, f32_out);
   if (err != cudaSuccess) return err;
   const int smem = s8_sm90_smem(per_list);
-  auto kernel = skip ? conv3x3_s8_sm90_kernel<true> : conv3x3_s8_sm90_kernel<false>;
-  static int resident[2] = {0, 0};  // once per instantiation
-  int& res = resident[skip ? 1 : 0];
+  auto kernel = f32_out ? conv3x3_s8_sm90_kernel<false, true>
+                        : (skip ? conv3x3_s8_sm90_kernel<true, false> : conv3x3_s8_sm90_kernel<false, false>);
+  static int resident[3] = {0, 0, 0};  // once per instantiation
+  int& res = resident[f32_out ? 2 : (skip ? 1 : 0)];
   if (!res) {
     err = resident_blocks(kernel, kSm90Smem, &res);
     if (err != cudaSuccess) return err;

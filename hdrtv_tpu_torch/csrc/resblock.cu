@@ -22,10 +22,11 @@
 // tiling.
 //
 // The native-int8 body (`quant`, megakernel.py:988-1004; the wrapper counts
-// it as resblock_w8a8), when the call passes both convs' QuantParams: the
-// same four launches with both convs on the int8 tile of conv3x3_s8.cuh and
-// both SFT passes in their int8-output mode, so t1 and t2 travel as codes
-// (1 byte a value) and are never rounded to the element type:
+// it as resblock_w8a8), when the call passes both convs' QuantParams, dense
+// (s2d = 0, and fp32): the same four launches with both convs on the
+// mma.sync int8 tile of conv3x3_s8.cuh and both SFT passes of pointwise.cuh
+// in their int8-output mode, so t1 and t2 travel as codes (1 byte a value)
+// and are never rounded to the element type:
 //   1. SFT1 (summed input written once as before) → codes of t1;
 //   2. int8 conv1 + folded bias + ReLU → h1 in fp32;
 //   3. SFT2 on the fp32 h1 → codes of t2;
@@ -50,8 +51,26 @@
 // TMA's zero fill reads t as zero outside the image in both convs. Rounding
 // points as in the float body. Bound on this card: bytes (0.10 GB per L1
 // call, 0.030 ms). Times: PERF.md §5-§6.
+//
+// The int8 body's s2d form in bf16 (s2d=True with both QuantParams): the
+// same four launches on the Hopper tiles in their int8 forms, as
+// sft_conv3_w8a8's and tail_w8a8's:
+//   1. SFT1 on the row tile in its int8-output mode: x, with x_add's rows or
+//      up_coarse un-folded on read, the sum rounded once to bf16 and written
+//      to xsum, t1 formed in fp32 from it and written as conv1's codes;
+//   2. conv1 on conv3x3_s8_sm90.cuh's wgmma s8 tile over the slot table,
+//      its fp32-output epilogue (acc·yscale, + folded bias, ReLU) storing h1
+//      unrounded inside the image;
+//   3. SFT2 on the row tile in its int8-output mode with the fp32 h1 as x
+//      → conv2's codes;
+//   4. conv2 on the s8 tile, + the residual (x or xsum) in its skip
+//      epilogue, one rounding → out.
+// Out-of-image taps of both convs read each layer's pad code (written over
+// the box rows TMA zero-fills). Scratch as the dense form's. Bound on this
+// card: bytes (0.10 GB per L1 call, 0.060 ms with the codes and h1).
 #include "chain_sm90.cuh"
 #include "conv3x3_s8.cuh"
+#include "conv3x3_s8_sm90.cuh"
 #include "pointwise.cuh"
 
 namespace {
@@ -67,7 +86,18 @@ int resblock(const void* x, const void* cond, const void* const* sft1, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (s2d) {
     if constexpr (std::is_same<T, hdrtv::bf16>::value) {
-      if (q1 || q2 || !table || (add && !xsum)) return static_cast<int>(cudaErrorInvalidValue);
+      if (!q1 != !q2 || !table || (add && !xsum)) return static_cast<int>(cudaErrorInvalidValue);
+      if (q1) {
+        cudaError_t err = hdrtv::sft_sm90<hdrtv::bf16>(x, add, coarse, add ? xsum : nullptr, cond, t, sft1, H, W, C,
+                                                       CC, s, q1);
+        if (err == cudaSuccess)
+          err = hdrtv::conv3x3_s8_sm90(t, *q1, nullptr, h1, H, W, C, C, ACT_RELU, table, per_list, s, nullptr, true);
+        if (err == cudaSuccess)
+          err = hdrtv::sft_sm90<float>(h1, nullptr, 0, nullptr, cond, t, sft2, H, W, C, CC, s, q2);
+        if (err == cudaSuccess)
+          err = hdrtv::conv3x3_s8_sm90(t, *q2, add ? xsum : x, y, H, W, C, C, ACT_NONE, table, per_list, s);
+        return static_cast<int>(err);
+      }
       const float* const bias1 = static_cast<const float*>(b1);
       const float* const bias2 = static_cast<const float*>(b2);
       cudaError_t err = hdrtv::sft_sm90<hdrtv::bf16>(x, add, coarse, add ? xsum : nullptr, cond, t, sft1, H, W, C,
@@ -121,7 +151,7 @@ int resblock(const void* x, const void* cond, const void* const* sft1, const voi
 // (w1, b1, w2, b2 unused). add: nullptr, x_add (coarse = 0) or up_coarse
 // (coarse = 1). Scratch: t Hb·Wb·C elements (bytes, codes, with q1 and q2), h1
 // Hb·Wb·C floats, xsum Hb·Wb·C elements when add is set. s2d: 1 for the s2d
-// form (bf16, q1 and q2 null), whose convs walk `table` (per_list entries per
+// form (bf16, float or int8), whose convs walk `table` (per_list entries per
 // output sub-position; null otherwise), else 0.
 extern "C" int hdrtv_resblock_f32(const void* x, const void* cond, const void* const* sft1,
                                   const void* w1, const void* b1, const void* q1,

@@ -23,7 +23,11 @@ non-zero (tap, input sub-position) slots of each output sub-position
 ``csrc/conv3x3_tf32x3.cuh`` (each product split into three TF32 products on
 the tensor cores, fp32-accurate). Exact, since the skipped products are
 exact zeros. 0 is the dense product, right for any weight: bf16 on the same
-Hopper tile, fp32 on the FMA tile of ``csrc/conv3x3.cuh``. The int8 and
+Hopper tile, fp32 on the FMA tile of ``csrc/conv3x3.cuh``. The int8 form in
+bf16 with ``a_sub`` = 1 (the int8 programs' up_conv2.0 and up_conv3.0, C =
+128 → Co = 512) quantizes x once and runs the wgmma s8 tile of
+``csrc/conv3x3_s8_sm90.cuh`` over the same slot table
+(:func:`s8_sm90_table`; other widths raise); fp32, ``a_sub`` = 0 and the
 ``pool_out`` forms stay dense (the same result on such weights), and so do
 the plain versions, which hold the skip to account. :func:`conv_chunks` is
 the K walk the tiles take, shared with ``ops/megakernel.py fused_down2``.
@@ -105,6 +109,21 @@ def sm90_table(name: str, stride: int, a_sub: int, c: int, co: int, cf: int, ch0
     return (ctypes.c_int * len(entries))(*entries), len(chunks[0])
 
 
+S8_SM90_C = 128  # the input channels the wgmma s8 tile takes (csrc/conv3x3_s8_sm90.cuh)
+
+
+def s8_sm90_table(name: str, a_sub: int, c: int, co: int):
+    """What a bf16 int8 call with ``a_sub`` ≥ 1 hands the wgmma s8 tile of
+    csrc/conv3x3_s8_sm90.cuh: the stride-1 slot table (``sm90_table``, a
+    chunk is 32 channels in either type) and its list length. The tile
+    takes ``a_sub`` = 1 with C = 128 and Co a multiple of 128 (N tiles of 32
+    inside each output sub-position); anything else raises."""
+    if a_sub != 1 or c != S8_SM90_C or co % (4 * CHUNK):
+        raise ValueError(f"{name}: the wgmma s8 tile takes a_sub=1 with C = {S8_SM90_C} and Co a multiple of "
+                         f"{4 * CHUNK}, got a_sub={a_sub}, C={c}, Co={co}")
+    return sm90_table(name, 1, 1, c, co, c)
+
+
 def _epilogue(y, dtype, relu, skip, pool_out):
     """+ skip, relu, the 2×2 max pool, in fp32; one rounding to ``dtype``
     (rounding is monotonic: the max of the rounded values is the rounded
@@ -149,7 +168,8 @@ def fused_block_conv3(
     (3, 3, C, Co). The kernel takes C a multiple of 16 and Co of 4 (the s2d
     callers route C, Co multiples of 128 here). ``qargs``: the layer's int8
     parameters, prepared at load from this ``w`` and ``b``; the int8 body
-    reads them in place of ``w`` and ``b`` (C % 64, Co % 8 on the card).
+    reads them in place of ``w`` and ``b`` (C % 64, Co % 8 on the card; in
+    bf16 with ``a_sub`` ≥ 1 the wgmma s8 tile's C = 128, Co % 128).
     ``pool_out``: the 2×2 max pool of the result, (Hb/2, Wb/2, Co); Hb and Wb
     must be even, as in the JAX kernel. ``a_sub``: 0 or the number of
     s2d-structured blocks along Co (1; 2 for the consolidated input conv):
@@ -176,6 +196,8 @@ def fused_block_conv3(
     table, per_group = None, 0
     if qargs is None and not pool_out:
         table, per_group = sm90_table("block_conv3", 1, a_sub, c, co, c, dtype=dt)
+    elif not pool_out and a_sub and dt == torch.bfloat16:
+        table, per_group = s8_sm90_table("block_conv3", a_sub, c, co)
     native.check_cuda("block_conv3 x", x, dt)
     native.check_cuda("block_conv3 w", w, dt, (3, 3, c, co))
     native.check_cuda("block_conv3 b", b, torch.float32, (co,))

@@ -32,9 +32,10 @@ them, whose zeros the bf16 float forms then skip on the Hopper tiles
 (``csrc/chain_sm90.cuh``, ``csrc/conv3x3_sm90.cuh``, and the head's input
 conv in ``csrc/agcm_head.cu``). The plain versions honour it, so a weight
 without that structure gives another result than the JAX kernel's.
-The int8 bodies of ``fused_tail`` and ``fused_sft_conv3_v2`` take it
-too: in bf16 their SFT passes run the row tile's int8-output mode and their
-convs the wgmma s8 tile of ``csrc/conv3x3_s8_sm90.cuh``.
+The int8 bodies of ``fused_tail``, ``fused_sft_conv3_v2`` and
+``fused_resblock`` take it too: in bf16 their SFT passes run the row tile's
+int8-output mode and their convs the wgmma s8 tile of
+``csrc/conv3x3_s8_sm90.cuh``.
 ``fused_trunk3`` runs natural tensors; its bf16 instance runs the Hopper
 tiles on any weights.
 """
@@ -971,11 +972,15 @@ def fused_resblock(
 
     ``s2d`` declares every SFT weight ``w_s2d_1x1(w)``, its bias
     ``b_s2d(b)`` and ``w1``, ``w2`` ``w_s2d_s1(w)`` (the frame programs pass
-    True), as for :func:`fused_sft_conv3_v2`. bf16 on the card with float
-    convs: both SFT passes on the Hopper row tile (SFT2 reading the fp32 h1;
-    natural widths CC 16, C 32, others raise), both convs on the Hopper conv
-    tile over the slot table (conv1 storing h1 in fp32); fp32 and the int8
-    body keep the dense kernels. The plain version honours it too.
+    True), as for :func:`fused_sft_conv3_v2`. bf16 on the card: both SFT
+    passes on the Hopper row tile (SFT2 reading the fp32 h1; natural widths
+    CC 16, C 32, others raise), both convs over the slot table, conv1
+    storing h1 in fp32; with float convs on the Hopper conv tile, with
+    ``qargs1``/``qargs2`` both SFT passes in the row tile's int8-output mode
+    (SFT1 also writing the rounded sum with a second input) and both convs
+    on the wgmma s8 tile of ``csrc/conv3x3_s8_sm90.cuh``. fp32 keeps the
+    dense kernels, the same function on such weights. The plain version
+    honours it too.
     """
     hb, wb, c = x.shape
     cc = cond.shape[-1]
@@ -1013,8 +1018,7 @@ def fused_resblock(
         native.check_cuda("resblock x_add", x_add, dt, (hb, wb, c))
     if up_coarse is not None:
         native.check_cuda("resblock up_coarse", up_coarse, dt)
-    # the int8 body keeps the dense kernels (csrc/conv3x3_s8.cuh) in either form
-    hopper, table, per_list = _sft_hopper("resblock", s2d and not quant, dt, cc, c, c)
+    hopper, table, per_list = _sft_hopper("resblock", s2d, dt, cc, c, c)
     t = torch.empty((hb, wb, c), dtype=torch.int8 if quant else dt, device=x.device)  # t or its codes
     h1 = torch.empty((hb, wb, c), dtype=torch.float32, device=x.device)
     xsum = None if second is None else torch.empty((hb, wb, c), dtype=dt, device=x.device)

@@ -2,12 +2,18 @@
 
     python hdrtv_tpu_torch/tools/int8_s2d_split.py [--root DIR]
 
-Runs ``fused_tail`` (packed, with up_coarse) and ``fused_sft_conv3_v2``
-(L0: 540 × 960 with ReLU; L2: 135 × 240 with a skip) in bf16 with
-``qargs`` and ``s2d=True``, symmetric and with a zero point, on seeded s2d
-weights, under torch.profiler (20 calls after a warm one), and prints one
-JSON line: per case, the device ms of each kernel by its name with its
-template arguments (the SFT pass, the int8 conv, conv_last). ``--root``
+Runs ``fused_tail`` (packed, with up_coarse), ``fused_sft_conv3_v2`` (L0:
+540 × 960 with ReLU; L2: 135 × 240 with a skip), ``fused_resblock`` (L1:
+270 × 480, trunk1 and trunk5 with up_coarse) in bf16 with ``qargs`` and
+``s2d=True``, and ``fused_block_conv3`` (L1 up_conv3 at 270 × 480, L2
+up_conv2 at 135 × 240, PS-folded 128 → 512 with ReLU) with ``qargs`` and
+``a_sub=1``, as the int8 programs call them, symmetric and with a zero
+point, on seeded s2d weights, under torch.profiler (20 calls after a warm
+one), and prints one JSON line: per case, the device ms of each kernel by
+its name with its template arguments (the SFT passes, the quantize pass,
+the int8 convs, conv_last). A tree that routes a form to the dense kernels
+(the parent of the tree that redesigned it) shows their launches under the
+same case. ``--root``
 imports ``hdrtv_tpu_torch`` from another unpacked tree (say the parent
 commit's, from ``git archive``; run this file by path, not with ``-m``,
 which imports the package first), which builds its kernels into its own
@@ -38,8 +44,9 @@ def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from hdrtv_tpu_torch.models.s2d import b_s2d, w_s2d_1x1, w_s2d_s1
-    from hdrtv_tpu_torch.ops.megakernel import fused_sft_conv3_v2, fused_tail
+    from hdrtv_tpu_torch.models.s2d import b_s2d, w_ps_permute, w_s2d_1x1, w_s2d_s1, w_s2d_s1_ps
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
+    from hdrtv_tpu_torch.ops.megakernel import fused_resblock, fused_sft_conv3_v2, fused_tail
     from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
     from hdrtv_tpu_torch.quant.int8 import quantize_weight
 
@@ -56,11 +63,15 @@ def main() -> None:
                  t(np.tile(rng.randn(co) * 0.1, 4), torch.float32))
                 for ci, co in ((16, 16), (16, 32), (16, 16), (16, 32))]
 
-    def layer(asym):
-        wq, ws = quantize_weight(rng.randn(3, 3, 32, 32).astype(np.float32) * 0.05)
-        b = (rng.randn(128) * 0.1).astype(np.float32)
-        qa = pack_qargs(w_s2d_s1(wq), b_s2d(ws), 0.012, -0.4 if asym else None, b, dev)
-        return t(w_s2d_s1(wq).astype(np.float32) * b_s2d(ws)), t(b, torch.float32), qa
+    def layer(asym, co=32):
+        wq, ws = quantize_weight(rng.randn(3, 3, 32, co).astype(np.float32) * 0.05)
+        if co == 32:
+            tq, tsc = w_s2d_s1(wq), b_s2d(ws)
+        else:  # PS-folded, as up_conv2.0 / up_conv3.0
+            tq, tsc = w_s2d_s1_ps(wq), np.tile(w_ps_permute(ws.reshape(1, 1, 1, -1))[0, 0, 0], 4)
+        b = (rng.randn(4 * co) * 0.1).astype(np.float32)
+        qa = pack_qargs(tq, tsc, 0.012, -0.4 if asym else None, b, dev)
+        return t(tq.astype(np.float32) * tsc), t(b, torch.float32), qa
 
     def split(fn, reps=20):
         fn()
@@ -91,6 +102,20 @@ def main() -> None:
             sft = sft4()
             res[f"sft_conv3 {name} asym={asym}"] = split(
                 lambda: fused_sft_conv3_v2(x, c, sft, w, b, relu=not with_skip, skip=sk, qargs=qa, s2d=True))
+        h, w_ = 270, 480
+        x, c = t(rng.rand(h, w_, 128) - 0.3), t(rng.rand(h, w_, 64) - 0.3)
+        sft1, sft2 = sft4(), sft4()
+        w1, b1, q1 = layer(asym)
+        w2, b2, q2 = layer(asym)
+        for name, up in (("trunk1", None), ("trunk5 up_coarse", t(rng.rand(h // 2, w_ // 2, 512) - 0.3))):
+            res[f"resblock L1 {name} asym={asym}"] = split(
+                lambda: fused_resblock(x, c, sft1, w1, b1, sft2, w2, b2, up_coarse=up, qargs1=q1, qargs2=q2,
+                                       s2d=True))
+        wp, bp, qp = layer(asym, 128)
+        for name, h, w_ in (("L1 up_conv3", 270, 480), ("L2 up_conv2", 135, 240)):
+            x = t(rng.rand(h, w_, 128) * 1.2 - 0.1)
+            res[f"block_conv3 {name} asym={asym}"] = split(
+                lambda: fused_block_conv3(x, wp, bp, relu=True, qargs=qp, a_sub=1))
     print(json.dumps({"root": args.root or ".", **res}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())

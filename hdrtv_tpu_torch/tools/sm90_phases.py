@@ -53,7 +53,15 @@ compare, its bf16 form: ``wait`` (for the tile's rows), ``products`` (the
 three 1×1 products and the hidden epilogue), ``t`` (x·(scale + 1) + shift;
 in bf16 also its rounded store to the stage), ``quantize`` (the IEEE
 division and rounding of every value), ``out`` (the codes into the stage,
-the meeting and the 16-byte stores).
+the meeting and the 16-byte stores). Then resblock_w8a8's s2d forms at its
+L1 shape (270 × 480): conv1 on the s8 tile with its fp32-output epilogue
+(h1 unrounded, staged in the 128-byte swizzle and stored by TMA) beside
+conv2's bf16 output, and SFT2 in the int8-output mode on the fp32 h1
+beside the same pass on bf16 x.
+
+After its build it prints the build's ptxas notes that name a wgmma
+serialization or an injected wait (the ``C75`` codes, C7517 among them),
+each with the function it names, or says there are none.
 
 The timers cost time themselves; compare shares, not totals, with the
 kernel library's times. Needs a CUDA device; the last line is the card's
@@ -105,6 +113,10 @@ def build() -> ctypes.CDLL:
                               str(SRC_AGCM), str(SRC_S8)], capture_output=True, text=True)
         if res.returncode:
             raise RuntimeError(f"nvcc failed on {SRC.name}, {SRC_AGCM.name} or {SRC_S8.name}:\n{res.stdout}{res.stderr}")
+        (out / "build.log").write_text(res.stdout + res.stderr)
+    notes = [ln.strip() for ln in (out / "build.log").read_text().splitlines() if "C75" in ln] \
+        if (out / "build.log").exists() else ["(no build log: built by an earlier version of this tool)"]
+    print("ptxas C75 notes: " + ("; ".join(notes) if notes else "none"), flush=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hdrtv_sm90_phases.argtypes = [p, p, p, p] + [i] * 8 + [p, i, i, i, p, p]
@@ -112,9 +124,9 @@ def build() -> ctypes.CDLL:
     lib.hdrtv_sm90_agcm_phases.argtypes = [p, i, ctypes.c_float, p, i] + [p] * 7 + [i, i, p, p]
     lib.hdrtv_sm90_agcm_phases.restype = i
     f = ctypes.c_float
-    lib.hdrtv_sm90_s8_phases.argtypes = [p, p, p, p, f, f, i, p] + [i] * 5 + [p, i, p, p]
+    lib.hdrtv_sm90_s8_phases.argtypes = [p, p, p, p, f, f, i, p] + [i] * 5 + [p, i, i, p, p]
     lib.hdrtv_sm90_s8_phases.restype = i
-    lib.hdrtv_sm90_sft_phases.argtypes = [p, p, p, p, p, i, i, i, i, p, f, f, i, p, p]
+    lib.hdrtv_sm90_sft_phases.argtypes = [p, p, p, p, p, i, i, i, i, p, f, f, i, i, p, p]
     lib.hdrtv_sm90_sft_phases.restype = i
     return lib
 
@@ -137,7 +149,9 @@ def s8_phases(lib, dev, rng) -> None:
     """The int8 s2d forms' tiles at the tail's 1080p shape (540 × 960 s2d
     pixels, natural CC 16 and C 32): HR_conv2 on the wgmma s8 tile and the
     SFT pass on the row tile, int8-output and bf16, seeded s2d weights, one
-    layer calibrated symmetric and one with a zero point."""
+    layer calibrated symmetric and one with a zero point; then
+    resblock_w8a8's L1 shape (270 × 480): its convs (fp32 and bf16 output)
+    and SFT2 (fp32 x, int8-output) beside the bf16-x pass."""
     from hdrtv_tpu_torch.models.s2d import b_s2d, w_s2d_1x1, w_s2d_s1
     from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
     from hdrtv_tpu_torch.quant.int8 import quantize_weight
@@ -145,21 +159,26 @@ def s8_phases(lib, dev, rng) -> None:
     hb, wb, c, cc = 540, 960, 128, 64
     stream = torch.cuda.current_stream().cuda_stream
     table, per_list = sm90_table("tail", 1, 1, c, c, c)
-    codes = torch.as_tensor(rng.randint(-128, 128, size=(hb, wb, c)).astype(np.int8), device=dev)
-    y = torch.empty(hb, wb, c, device=dev, dtype=torch.bfloat16)
     wq, ws = quantize_weight(rng.randn(3, 3, c // 4, c // 4).astype(np.float32) * 0.05)
     b = (rng.randn(c) * 0.1).astype(np.float32)
     layers = {"sym": pack_qargs(w_s2d_s1(wq), b_s2d(ws), 0.01, None, b, dev),
               "asym": pack_qargs(w_s2d_s1(wq), b_s2d(ws), 0.01, -0.3, b, dev)}
-    for cal, qa in layers.items():
-        phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
-        for _ in range(3):  # warm: the last run's sums are read
-            rc = lib.hdrtv_sm90_s8_phases(codes.data_ptr(), qa.w.data_ptr(), qa.yscale.data_ptr(), qa.bias.data_ptr(),
-                                          qa.scale, qa.zero or 0.0, qa.pad, y.data_ptr(), hb, wb, c, c, 1, table,
-                                          per_list, phases.data_ptr(), stream)
-            if rc:
-                raise RuntimeError(f"conv3x3_s8_sm90 {cal}: CUDA error {rc}")
-        _report(f"HR_conv2 int8 s2d ({cal}, pad {qa.pad})", phases, PHASES["bf16"])
+
+    def conv(name, h, w, out_dt, act):
+        codes = torch.as_tensor(rng.randint(-128, 128, size=(h, w, c)).astype(np.int8), device=dev)
+        y = torch.empty(h, w, c, device=dev, dtype=out_dt)
+        for cal, qa in layers.items():
+            phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
+            for _ in range(3):  # warm: the last run's sums are read
+                rc = lib.hdrtv_sm90_s8_phases(codes.data_ptr(), qa.w.data_ptr(), qa.yscale.data_ptr(),
+                                              qa.bias.data_ptr(), qa.scale, qa.zero or 0.0, qa.pad, y.data_ptr(), h, w,
+                                              c, c, act, table, per_list, int(out_dt == torch.float32),
+                                              phases.data_ptr(), stream)
+                if rc:
+                    raise RuntimeError(f"conv3x3_s8_sm90 {name} {cal}: CUDA error {rc}")
+            _report(f"{name} int8 s2d ({cal}, pad {qa.pad})", phases, PHASES["bf16"])
+
+    conv("HR_conv2", hb, wb, torch.bfloat16, 1)
 
     def t(a, dt=torch.bfloat16):
         return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev).to(dt)
@@ -169,20 +188,31 @@ def s8_phases(lib, dev, rng) -> None:
         sft += [t(w_s2d_1x1(rng.randn(1, 1, ci, co).astype(np.float32) * 0.05)[0, 0]),
                 t(np.tile(rng.randn(co) * 0.1, 4), torch.float32)]
     ptrs = native.pointer_array(sft)
-    x = t(rng.rand(hb, wb, c) - 0.3)
-    up = t(rng.rand(hb // 2, wb // 2, 4 * c) - 0.3)
-    cond = t(rng.rand(hb, wb, cc) - 0.3)
-    out = torch.empty(hb, wb, c, device=dev, dtype=torch.bfloat16)
-    for form, qa in (("int8-output, sym", layers["sym"]), ("int8-output, asym", layers["asym"]), ("bf16 t", None)):
-        phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
-        for _ in range(3):
-            rc = lib.hdrtv_sm90_sft_phases(x.data_ptr(), up.data_ptr(), cond.data_ptr(), out.data_ptr(), ptrs, hb, wb,
-                                           c, cc, None if qa is None else qa.w.data_ptr(),
-                                           1.0 if qa is None else qa.scale, (qa.zero or 0.0) if qa else 0.0,
-                                           int(qa is not None and qa.zero is not None), phases.data_ptr(), stream)
-            if rc:
-                raise RuntimeError(f"sft_sm90 {form}: CUDA error {rc}")
-        _report(f"tail SFT pass s2d ({form})", phases, SFT_PHASES, steps=False)
+
+    def sft_pass(name, h, w, x_dt, forms):
+        x = t(rng.rand(h, w, c) - 0.3, x_dt)
+        up = t(rng.rand(h // 2, w // 2, 4 * c) - 0.3) if x_dt == torch.bfloat16 else None
+        cond = t(rng.rand(h, w, cc) - 0.3)
+        out = torch.empty(h, w, c, device=dev, dtype=torch.bfloat16)
+        for form, qa in forms:
+            phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
+            for _ in range(3):
+                rc = lib.hdrtv_sm90_sft_phases(x.data_ptr(), None if up is None else up.data_ptr(), cond.data_ptr(),
+                                               out.data_ptr(), ptrs, h, w, c, cc,
+                                               None if qa is None else qa.w.data_ptr(),
+                                               1.0 if qa is None else qa.scale, (qa.zero or 0.0) if qa else 0.0,
+                                               int(qa is not None and qa.zero is not None),
+                                               int(x_dt == torch.float32), phases.data_ptr(), stream)
+                if rc:
+                    raise RuntimeError(f"sft_sm90 {name} {form}: CUDA error {rc}")
+            _report(f"{name} ({form})", phases, SFT_PHASES, steps=False)
+
+    q8 = [("int8-output, sym", layers["sym"]), ("int8-output, asym", layers["asym"])]
+    sft_pass("tail SFT pass s2d", hb, wb, torch.bfloat16, q8 + [("bf16 t", None)])
+    conv("resblock L1 conv1 fp32 h1", 270, 480, torch.float32, 1)
+    conv("resblock L1 conv2", 270, 480, torch.bfloat16, 0)
+    sft_pass("resblock L1 SFT2 s2d, fp32 x", 270, 480, torch.float32, q8)
+    sft_pass("resblock L1 SFT1 s2d, bf16 x + up", 270, 480, torch.bfloat16, q8[:1])
 
 
 AGCM_PHASES = ["total", "fetch", "step 0", "hidden 0", "step 1", "hidden 1", "step 2", "out"]

@@ -3,7 +3,9 @@
 // beside sm90_phases.cu; not part of the kernel library: the wgmma s8 conv
 // tile (csrc/conv3x3_s8_sm90.cuh) and the SFT row tile (csrc/chain_sm90.cuh
 // sft_sm90), the latter in its int8-output mode when q_w is set, else its
-// bf16 form. Each fills a (2·blocks, 8) u64 array.
+// bf16 form; the conv with its bf16 or fp32 output, the SFT pass on bf16 x
+// (with the coarse up tensor) or fp32 x (resblock's h1). Each fills a
+// (2·blocks, 8) u64 array.
 #define HDRTV_SM90_PHASES
 #include "../csrc/chain_sm90.cuh"
 #include "../csrc/conv3x3_s8_sm90.cuh"
@@ -24,26 +26,33 @@ hdrtv::QuantParams quant(const void* w, const void* yscale, const void* bias, fl
 
 }  // namespace
 
-// The int8 'same' conv of codes q (H, W, C) → bf16 y (H, W, Co): the layer
-// (w, yscale, bias, x_scale s, x_zero z, pad code), act, the slot table.
+// The int8 'same' conv of codes q (H, W, C) → y (H, W, Co), bf16, or fp32
+// with f32_out (resblock_w8a8's conv1): the layer (w, yscale, bias, x_scale
+// s, x_zero z, pad code), act, the slot table.
 extern "C" int hdrtv_sm90_s8_phases(const void* q, const void* w, const void* yscale, const void* bias, float s,
                                     float z, int pad, void* y, int H, int W, int C, int Co, int act,
-                                    const int* table, int per_list, void* phases, void* stream) {
+                                    const int* table, int per_list, int f32_out, void* phases, void* stream) {
   hdrtv::S8Sm90Args a;
   a.phases = static_cast<unsigned long long*>(phases);
   return static_cast<int>(hdrtv::conv3x3_s8_sm90(q, quant(w, yscale, bias, s, z, pad), nullptr, y, H, W, C, Co,
-                                                 act, table, per_list, static_cast<cudaStream_t>(stream), &a));
+                                                 act, table, per_list, static_cast<cudaStream_t>(stream), &a,
+                                                 f32_out != 0));
 }
 
 // The SFT pass over s2d weights (x bf16, add the coarse up tensor or null;
-// sft the eight pointers), writing bf16 t, or with q_w set the codes of the
-// layer (q_w, s, z: only its scale and zero point are read).
+// or with f32x x fp32 and no add; sft the eight pointers), writing bf16 t,
+// or with q_w set the codes of the layer (q_w, s, z: only its scale and
+// zero point are read).
 extern "C" int hdrtv_sm90_sft_phases(const void* x, const void* add, const void* cond, void* t,
                                      const void* const* sft, int H, int W, int C, int CC, const void* q_w, float s,
-                                     float z, int asym, void* phases, void* stream) {
+                                     float z, int asym, int f32x, void* phases, void* stream) {
   hdrtv::QuantParams p = quant(q_w, nullptr, nullptr, s, z, 0);
   p.asym = asym;
-  return static_cast<int>(hdrtv::sft_sm90<hdrtv::bf16>(x, add, 1, nullptr, cond, t, sft, H, W, C, CC,
-                                                       static_cast<cudaStream_t>(stream), q_w ? &p : nullptr,
-                                                       static_cast<unsigned long long*>(phases)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned long long* const ph = static_cast<unsigned long long*>(phases);
+  if (f32x)
+    return static_cast<int>(hdrtv::sft_sm90<float>(x, nullptr, 0, nullptr, cond, t, sft, H, W, C, CC, st,
+                                                   q_w ? &p : nullptr, ph));
+  return static_cast<int>(hdrtv::sft_sm90<hdrtv::bf16>(x, add, 1, nullptr, cond, t, sft, H, W, C, CC, st,
+                                                       q_w ? &p : nullptr, ph));
 }

@@ -1185,6 +1185,147 @@ def test_s8_tile_reads_the_pad_code_at_the_border(dev, hb, wb, relu, skip):
     assert torch.equal(y_0[~border], y_r[~border])
 
 
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+@pytest.mark.parametrize("hb,wb,second", [
+    (270, 480, None), (270, 480, "up_coarse"), (9, 15, "x_add"), (5, 70, None), (2, 6, "up_coarse"),
+])
+def test_resblock_w8a8_s2d_matches_plain(dev, asym, hb, wb, second):
+    """resblock_w8a8's s2d form in bf16: SFT1 on the row tile in its
+    int8-output mode (the rounded sum with x_add or up_coarse written as the
+    residual), conv1 on the wgmma s8 tile storing h1 in fp32, SFT2 in the
+    int8-output mode on that fp32 h1, conv2 on the s8 tile with the residual;
+    the L1 shape (trunk1, trunk5 with up_coarse), ragged and small images.
+    Against the plain version's s2d form, with
+    test_resblock_w8a8_matches_plain's bounds."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_resblock, fused_resblock_ref
+
+    rng = np.random.RandomState(hb * wb + 53 + asym)
+    x, cond, kw = _resblock_s2d_inputs(rng, hb, wb, second, dev)
+    w1, b1, q1 = _qlayer(rng, dev, 128, 128, (-0.6, 2.0), asym)
+    w2, b2, q2 = _qlayer(rng, dev, 128, 128, (-0.2, 1.0), asym)
+    args = (x, cond, _sft_s2d(rng, dev, 0.05), w1.to(torch.bfloat16), b1, _sft_s2d(rng, dev, 0.05),
+            w2.to(torch.bfloat16), b2)
+    before = native.launch_counts["resblock_w8a8"], native.launch_counts["resblock"]
+    y = fused_resblock(*args, **kw, qargs1=q1, qargs2=q2, s2d=True)
+    assert (native.launch_counts["resblock_w8a8"], native.launch_counts["resblock"]) == (before[0] + 1, before[1])
+    assert y.shape == (hb, wb, 128)
+    _q_close(y, fused_resblock_ref(*args, **kw, qargs1=q1, qargs2=q2, s2d=True), q2, "bf16", share=0.1, flips=8)
+
+
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+@pytest.mark.parametrize("hb,wb,co,skip", [(270, 480, 512, False), (135, 240, 512, False), (9, 70, 128, True),
+                                           (1, 5, 512, False)])
+def test_block_conv3_w8a8_s2d_matches_plain(dev, asym, hb, wb, co, skip):
+    """block_conv3_w8a8 with a_sub = 1 in bf16: the quantize pass, then the
+    wgmma s8 tile over the slot table; up_conv3's L1 shape and up_conv2's L2
+    shape (135 rows: the last tile's second row lies outside the image), PS
+    folded 128 → 512 with ReLU, and a ragged 128 → 128 with the skip. The
+    same codes and exact int32 sums as the plain version, the epilogue's
+    operations rounded apart on both sides: bit for bit."""
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_q_ref
+
+    rng = np.random.RandomState(hb * wb + co + 59 + asym)
+    x = _t(rng.rand(hb, wb, 128) * 1.2 - 0.1, dev, "bf16")
+    w, b, qa = _qlayer(rng, dev, 128, co, (-0.1, 1.0), asym, ps=co == 512)
+    sk = _t(rng.rand(hb, wb, co), dev, "bf16") if skip else None
+    before = native.launch_counts["block_conv3_w8a8"], native.launch_counts["block_conv3"]
+    y = fused_block_conv3(x, w.to(torch.bfloat16), b, relu=not skip, skip=sk, qargs=qa, a_sub=1)
+    assert (native.launch_counts["block_conv3_w8a8"], native.launch_counts["block_conv3"]) == (before[0] + 1, before[1])
+    y_r = fused_block_conv3_q_ref(x, qa, relu=not skip, skip=sk)
+    torch.cuda.synchronize()
+    assert y.shape == (hb, wb, co) and torch.equal(y, y_r), _max_err(y, y_r)
+
+
+def _zero_sft_s2d(dev):
+    """SFT weights and biases all zero: t = x·(0 + 1) + 0 = x exactly."""
+    return [(torch.zeros(ci, co, device=dev, dtype=torch.bfloat16), torch.zeros(co, device=dev))
+            for ci, co in ((64, 64), (64, 128), (64, 64), (64, 128))]
+
+
+@pytest.mark.parametrize("hb,wb", [(6, 10), (9, 70), (4, 64)])
+def test_s8_tile_f32_epilogue_reads_the_pad_code_at_the_border(dev, hb, wb):
+    """resblock_w8a8's s2d form with both SFTs zero, so t1 = x and t2 = h1
+    exactly and both sides quantize the same values, and asymmetric layers
+    (pad codes ≠ 0): conv1's fp32-output epilogue stores h1 unrounded (a
+    rounding to bf16 would move its codes), so the output equals the plain
+    version bit for bit, border pixels included; and it differs on the
+    border from the same block with code 0 in conv1's out-of-image taps
+    (TMA's zero fill alone), not two pixels inside."""
+    import dataclasses
+
+    from hdrtv_tpu_torch.ops.megakernel import fused_resblock, fused_resblock_ref
+
+    rng = np.random.RandomState(hb * wb + 61)
+    x = _t(rng.rand(hb, wb, 128) * 1.2 - 0.3, dev, "bf16")
+    cond = _t(rng.rand(hb, wb, 64), dev, "bf16")
+    w1, b1, q1 = _qlayer(rng, dev, 128, 128, (-0.3, 0.9), True)
+    w2, b2, q2 = _qlayer(rng, dev, 128, 128, (-0.1, 2.5), True)
+    assert q1.pad != 0 and q2.pad != 0
+    args = (x, cond, _zero_sft_s2d(dev), w1.to(torch.bfloat16), b1, _zero_sft_s2d(dev), w2.to(torch.bfloat16), b2)
+    y = fused_resblock(*args, qargs1=q1, qargs2=q2, s2d=True)
+    y_r = fused_resblock_ref(*args, qargs1=q1, qargs2=q2, s2d=True)
+    y_0 = fused_resblock_ref(*args, qargs1=dataclasses.replace(q1, pad=0), qargs2=q2, s2d=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_r), _max_err(y, y_r)
+    border = torch.ones(hb, wb, dtype=torch.bool, device=dev)
+    border[1:-1, 1:-1] = False
+    assert bool((y_0 != y_r).any(dim=-1)[border].float().mean() > 0.5)
+    assert torch.equal(y_0[2:-2, 2:-2], y_r[2:-2, 2:-2])
+
+
+def _resblock_scratch(monkeypatch, call):
+    """Runs ``call`` (one fused_resblock) and returns its output and the
+    scratch the wrapper allocated: t's codes (int8, SFT2's last), h1 (fp32)
+    and xsum (bf16, with a second input) or None."""
+    made = []
+    real = torch.empty
+
+    def empty(*a, **k):
+        made.append(real(*a, **k))
+        return made[-1]
+
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", empty)
+        y = call()
+    torch.cuda.synchronize()
+    mine = [e for e in made if e.dim() == 3]
+    by = {dt: [e for e in mine if e.dtype == dt] for dt in (torch.int8, torch.float32, torch.bfloat16)}
+    (t,), (h1,) = by[torch.int8], by[torch.float32]
+    bf = by[torch.bfloat16]
+    assert bf[-1] is y and len(bf) in (1, 2)
+    return y, t, h1, bf[0] if len(bf) == 2 else None
+
+
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+@pytest.mark.parametrize("hb,wb,second", [(270, 480, "up_coarse"), (9, 15, "x_add"), (12, 20, None)])
+def test_q8_sft_passes_match_the_dense_int8_output_pass(dev, monkeypatch, asym, hb, wb, second):
+    """The row tile's int8-output mode with a second input (SFT1, writing
+    xsum) and with fp32 x (SFT2 on h1), against pointwise.cuh's dense
+    int8-output pass, in one resblock_w8a8 call each (s2d and dense, their
+    scratch read back): SFT1's weights zero, so t1 = xsum exactly and both
+    forms quantize the same values; xsum and h1 (the s8 tile's fp32 epilogue
+    against the mma.sync tile's) equal bit for bit; SFT2's codes, whose
+    scale and shift sums are taken in another order, within one code on at
+    most 1e-3 of them."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_resblock
+
+    rng = np.random.RandomState(hb * wb + 67 + asym)
+    x, cond, kw = _resblock_s2d_inputs(rng, hb, wb, second, dev)
+    w1, b1, q1 = _qlayer(rng, dev, 128, 128, (-0.6, 1.5), asym)
+    w2, b2, q2 = _qlayer(rng, dev, 128, 128, (-0.3, 1.2), asym)
+    args = (x, cond, _zero_sft_s2d(dev), w1.to(torch.bfloat16), b1, _sft_s2d(rng, dev, 0.05),
+            w2.to(torch.bfloat16), b2)
+    got = _resblock_scratch(monkeypatch, lambda: fused_resblock(*args, **kw, qargs1=q1, qargs2=q2, s2d=True))
+    want = _resblock_scratch(monkeypatch, lambda: fused_resblock(*args, **kw, qargs1=q1, qargs2=q2))
+    if second is None:
+        assert got[3] is None and want[3] is None
+    else:
+        assert torch.equal(got[3], want[3])
+    assert torch.equal(got[2], want[2]), _max_err(got[2], want[2])
+    d = (got[1].int() - want[1].int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3, (int(d.max()), float((d > 0).float().mean()))
+
+
 def test_int8_frame_matches_cpu(dev, monkeypatch):
     """The W8A8 checkpoint's default program on the card against the CPU
     (one seeded 64×128 frame): a code that flips on one side moves the
@@ -1209,10 +1350,10 @@ def test_int8_frame_matches_cpu(dev, monkeypatch):
 
 def test_int8_frame_runs_the_s8_hopper_tile(dev, monkeypatch):
     """One frame of the W8A8 checkpoint's default program under
-    torch.profiler: every sft_conv3_w8a8 and tail_w8a8 launch runs its conv
-    on the wgmma s8 tile (csrc/conv3x3_s8_sm90.cuh) and none on the mma.sync
-    tile of csrc/conv3x3_s8.cuh, which only block_conv3_w8a8 and
-    resblock_w8a8's two convs launch."""
+    torch.profiler: every int8 conv of the frame runs on the wgmma s8 tile
+    (csrc/conv3x3_s8_sm90.cuh: one a call of sft_conv3_w8a8, tail_w8a8 and
+    block_conv3_w8a8, two of resblock_w8a8) and none on the mma.sync tile of
+    csrc/conv3x3_s8.cuh, nor any SFT pass on pointwise.cuh's dense one."""
     import os
 
     from torch.profiler import ProfilerActivity, profile
@@ -1235,10 +1376,10 @@ def test_int8_frame_runs_the_s8_hopper_tile(dev, monkeypatch):
         return sum(n for k, n in counts.items() if sub in k)
 
     lc = native.launch_counts
-    s2d_calls = lc["sft_conv3_w8a8"] + lc["tail_w8a8"]
-    assert lc["tail_w8a8"] == 1 and s2d_calls >= 2
+    s2d_calls = lc["sft_conv3_w8a8"] + lc["tail_w8a8"] + lc["block_conv3_w8a8"] + 2 * lc["resblock_w8a8"]
+    assert lc["tail_w8a8"] == 1 and lc["resblock_w8a8"] >= 1 and lc["block_conv3_w8a8"] >= 1
     assert launched("conv3x3_s8_sm90_kernel") == s2d_calls, counts
-    assert launched("conv3x3_s8_kernel") == lc["block_conv3_w8a8"] + 2 * lc["resblock_w8a8"], counts
+    assert launched("conv3x3_s8_kernel") == 0 and launched("sft_kernel") == 0, counts
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -20,9 +20,11 @@ s2d_slots``) and reads an out-of-image tap as the layer's pad code.
   with ``s2d=True`` is zero outside the populated slots, so the skip is
   exact on the checkpoint.
 - ``_sft_hopper`` routes bf16 ``s2d=True`` calls to the Hopper tiles, int8
-  or float, and the wrappers hand their kernels that route: the int8 tail
-  and sft_conv3 the slot table, resblock's int8 body and fp32 the dense
-  kernels; other widths raise.
+  or float, and the wrappers hand their kernels that route: the int8 tail,
+  sft_conv3 and resblock the slot table, block_conv3's int8 body in bf16
+  with ``a_sub=1`` too, fp32 and ``a_sub=0`` the dense kernels; other
+  widths raise (tests/test_torch_s2d_int8_rest.py holds resblock_w8a8 and
+  block_conv3_w8a8 against the Pallas bodies).
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_s2d_int8.py -q
 """
@@ -187,14 +189,18 @@ def test_sft_hopper_routes_bf16_s2d_calls():
         _sft_hopper("sft_conv3", True, bf, 4 * CC, 4 * 64, 4 * 64)
 
 
-@pytest.mark.parametrize("call", ["tail_w8a8", "sft_conv3_w8a8", "resblock_w8a8", "tail_w8a8_fp32"])
+@pytest.mark.parametrize("call", ["tail_w8a8", "sft_conv3_w8a8", "resblock_w8a8", "tail_w8a8_fp32",
+                                  "block_conv3_w8a8", "block_conv3_w8a8_fp32", "block_conv3_w8a8_a_sub0"])
 def test_int8_wrappers_hand_their_kernels_the_route(monkeypatch, call):
     """The card branch of the wrappers, its launch intercepted (device
     checks and the stream stubbed, CPU tensors standing in): the s2d int8
-    tail and sft_conv3 in bf16 hand the kernel s2d = 1 and the slot table
-    and count as *_w8a8; resblock's int8 body and the fp32 tail hand the
-    dense route (0, null)."""
+    tail, sft_conv3 and resblock in bf16 hand the kernel s2d = 1 and the
+    slot table and count as *_w8a8, block_conv3's int8 body in bf16 with
+    a_sub = 1 (PS-folded 128 → 512) the slot table; the fp32 tail, and
+    block_conv3's int8 body in fp32 or with a_sub = 0, hand the dense route
+    (no table)."""
     from hdrtv_tpu_torch.ops import native
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
     from hdrtv_tpu_torch.ops.megakernel import fused_resblock, fused_sft_conv3_v2, fused_tail
 
     launched = []
@@ -211,6 +217,21 @@ def test_int8_wrappers_hand_their_kernels_the_route(monkeypatch, call):
     qa = _int8_layer(rng, True)
     w = torch.from_numpy(qa.w.reshape(qa.co, 3, 3, qa.c).permute(1, 2, 3, 0).numpy().astype(f32)).to(dt)
     b = qa.bias
+    if call.startswith("block_conv3"):
+        from tests.test_torch_int8 import _layer
+
+        (_, wp), (_, bp), (_, qp) = _layer(rng, 4 * C, 16 * C, (-0.1, 1.0), True, ps=True)
+        a_sub = 0 if call.endswith("a_sub0") else 1
+        fused_block_conv3(x, wp.to(dt), bp, relu=True, qargs=qp, a_sub=a_sub)
+        (kernel, counter, args), = launched
+        assert (kernel, counter) == ("block_conv3", "block_conv3_w8a8")
+        got_a_sub, table, per_list = args[-4:-1]
+        assert got_a_sub == a_sub
+        if call == "block_conv3_w8a8":
+            assert per_list == 9 and table is not None
+        else:
+            assert (table, per_list) == (None, 0)
+        return
     if call.startswith("tail"):
         skip = torch.zeros(4, 6, 12, dtype=dt)
         fused_tail(x, cond, skip, sft, w, b, torch.zeros(3, 3, 4 * C, 12, dtype=dt), torch.zeros(12),
@@ -225,7 +246,7 @@ def test_int8_wrappers_hand_their_kernels_the_route(monkeypatch, call):
     (kernel, counter, args), = launched
     assert (kernel, counter) == want
     hopper, table, per_list = args[-4:-1]
-    if call in ("tail_w8a8", "sft_conv3_w8a8"):
+    if call in ("tail_w8a8", "sft_conv3_w8a8", "resblock_w8a8"):
         assert (hopper, per_list) == (1, 9) and table is not None
     else:
         assert (hopper, table, per_list) == (0, None, 0)
