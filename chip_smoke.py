@@ -28,7 +28,9 @@ lines; any failed check raises and the script exits non-zero with no result:
    flips: |err| ≤ 2^-7·max(1, |y|) for block_conv3, down2, sft_conv3,
    mix_chain and cond_chain; two steps for resblock, trunk3 and agcm_head,
    whose rounded intermediates feed further convs (twice the one step
-   measured). The pack is exact in both types. The tail is compared in its
+   measured). mix_chain runs in the s2d form the bf16 programs call
+   (s2d=True, weights w_s2d_1x1: in bf16 the row tile of csrc/chain_sm90.cuh)
+   and in bf16 once more dense (s2d=False), a case no path launches. The pack is exact in both types. The tail is compared in its
    packed coarse form, in u16 codes: fp32 ≤ 1 code (the sum order at the +0.5
    boundary). bf16: equal bit for bit except where a bf16 rounding of t or h
    flipped (another sum order): conv_last's fp32 sum is packed unrounded, so
@@ -91,7 +93,15 @@ lines; any failed check raises and the script exits non-zero with no result:
    body) at the consolidated CondNet down conv (540 × 960 × 256 → 768, three
    branches) and at CondNet3.2/4.2's channel window, symmetric and with zero
    points, in fp32 and bf16 (the same codes and exact sums as its plain
-   version: one ulp of the epilogue or one bf16 step); block_conv3's pool_out
+   version: one ulp of the epilogue or one bf16 step), with the programs'
+   a_sub (in bf16 the one quantize pass into every branch's code plane, then
+   the wgmma s8 tile at stride 2 over the slot table; 135 output rows at the
+   window) and in bf16 once more the dense route (a_sub = 0, the mma.sync
+   tile, which takes one branch) at the window; a "down2_w8a8_split" line
+   gives each bf16 s8-tile case's quantize pass and tile apart, beside the
+   bf16 float form of the same call (one launch of the Hopper conv tile, as
+   the programs run it without HDRTV_INT8_DOWN2; CUDA events); block_conv3's
+   pool_out
    form at L1 up_conv3's shape (270 × 480 × 128 → 512, pooled to 135 × 240),
    float (as block_conv3) and int8 (one ulp or one step), its library time
    F.conv2d + F.relu + F.max_pool2d; cond_chain_w8a8 (steps 0 and 4 int8
@@ -408,6 +418,9 @@ def time_ms(fn, torch) -> float:
     return start.elapsed_time(end) / reps
 
 
+SPLIT_ATTEMPTS = 3  # profiler sessions launch_split takes at most for one split
+
+
 def launch_split(fn, torch, parts, reps: int = 20) -> dict:
     """Device ms per call of each launch kind of one kernel call, from
     torch.profiler over ``reps`` calls of fn() after a warm one: the kernels'
@@ -415,29 +428,34 @@ def launch_split(fn, torch, parts, reps: int = 20) -> dict:
     name), first match wins; the rest goes to other_ms. Every part must
     show device time. "kernels" has each kernel's ms by its name with its
     template arguments (which tell, say, resblock's two SFT passes and two
-    convs apart)."""
+    convs apart). The profiler sometimes reports a session without some or
+    all of its kernels (seen late in phase 2 on an H100): a session where a
+    part shows none is profiled again, at most SPLIT_ATTEMPTS times in all,
+    and "attempts" says how many it took."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    split = {key: 0.0 for key, _ in parts}
-    split["other_ms"] = 0.0
-    kernels = {}
-    for e in prof.key_averages():
-        us = next((float(v) for v in (getattr(e, a, None) for a in ("self_device_time_total", "self_cuda_time_total"))
-                   if v), 0.0)
-        name = e.key.lower()
-        part = next((key for key, sub in parts if sub in name), "other_ms")
-        split[part] += us / 1e3 / reps
-        if us:
-            kernels[e.key.split("(anonymous namespace)::", 1)[-1].split("(")[0]] = round(us / 1e3 / reps, 4)
-    if any(split[key] <= 0 for key, _ in parts):
-        raise AssertionError(f"the profiler saw no device time for one of the launches: {split}")
-    return {**{k: round(v, 4) for k, v in split.items()}, "kernels": kernels}
+    for attempt in range(1, SPLIT_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split = {key: 0.0 for key, _ in parts}
+        split["other_ms"] = 0.0
+        kernels = {}
+        for e in prof.key_averages():
+            us = next((float(v) for v in (getattr(e, a, None) for a in ("self_device_time_total",
+                                                                         "self_cuda_time_total")) if v), 0.0)
+            name = e.key.lower()
+            part = next((key for key, sub in parts if sub in name), "other_ms")
+            split[part] += us / 1e3 / reps
+            if us:
+                kernels[e.key.split("(anonymous namespace)::", 1)[-1].split("(")[0]] = round(us / 1e3 / reps, 4)
+        if all(split[key] > 0 for key, _ in parts):
+            return {**{k: round(v, 4) for k, v in split.items()}, "kernels": kernels, "attempts": attempt}
+    raise AssertionError(f"the profiler saw no device time for one of the launches in {SPLIT_ATTEMPTS} sessions: "
+                         f"{split}")
 
 
 # The launches of the tail (its SFT pass, HR_conv2, conv_last) and of sft_conv3 and
@@ -780,17 +798,25 @@ def phase_kernels(torch, np) -> dict:
                        + sft_flops(hb * wb, sft1) + sft_flops(hb * wb, sft2) + 8 * hb * wb * 128, unit)
             del x, cond, up, y, y_r, args
 
-        # mix_chain: the CondNet2 tail, window [0, 256) of (270,480,768): 256 → 256 lrelu → 64
+        # mix_chain: the CondNet2 tail, window [0, 256) of (270,480,768): 256 → 256 lrelu → 64, the
+        # weights w_s2d_1x1 and biases b_s2d as the programs pass them with s2d=True (bf16: the row
+        # tile of csrc/chain_sm90.cuh; fp32: the dense chain), then in bf16 the dense form once
         x = t(rng.rand(hb, wb, 768) - 0.3)
-        steps = [(p11(64, 64), f32(rng.randn(256) * 0.1), "lrelu"), (p11(64, 16), f32(rng.randn(64) * 0.1), None)]
-        y = fused_mix_chain(x, steps, cin=256, ch0=0)
-        y_r = fused_mix_chain_ref(x[..., :256], steps)
-        ms = time_ms(lambda: fused_mix_chain(x, steps, cin=256, ch0=0), torch)
-        plain = time_ms(lambda: fused_mix_chain_ref(x[..., :256], steps), torch)
-        record("mix_chain", dtype, "L1 CondNet2.2/.4 window ch0=0", (0, 1, 1), y, y_r,
-               ATOL if dtype == "f32" else 1, ms, plain, None,
-               size * hb * wb * 256 + nbytes_of(y, *[p for w, b, _ in steps for p in (w, b)]),
-               2 * hb * wb * nnz(*[w for w, _, _ in steps]), unit)
+        steps = [(p11(64, 64), f32(b_s2d((rng.randn(256) * 0.1)[:64])), "lrelu"),
+                 (p11(64, 16), f32(b_s2d((rng.randn(64) * 0.1)[:16])), None)]
+        for s2d in (True, False) if dtype == "bf16" else (True,):
+            def call(s2d=s2d):
+                return fused_mix_chain(x, steps, cin=256, ch0=0, s2d=s2d)
+
+            def call_plain(s2d=s2d):
+                return fused_mix_chain_ref(x[..., :256], steps, s2d=s2d)
+
+            y, y_r = call(), call_plain()
+            ms, plain = time_ms(call, torch), time_ms(call_plain, torch)
+            record("mix_chain", dtype, f"L1 CondNet2.2/.4 window ch0=0 s2d={s2d}", (0, 1, 1) if s2d else (0, 0, 0),
+                   y, y_r, ATOL if dtype == "f32" else 1, ms, plain, None,
+                   size * hb * wb * 256 + nbytes_of(y, *[p for w, b, _ in steps for p in (w, b)]),
+                   2 * hb * wb * nnz(*[w for w, _, _ in steps]), unit)
         del x, y, y_r
 
         # The three L0 megakernels at (540, 960): only the bf16 megakernel program runs them.
@@ -1225,16 +1251,31 @@ def phase_kernels(torch, np) -> dict:
             else:
                 qa = pack_qargs(tq, tsc, cal[0][0], cal[0][1], bnp, dev)
             w, b = t(tq.astype(np.float32) * tsc), f32(bnp)
-            kw = {"act": "lrelu", "cin": cin, "ch0": ch0, "qargs": qa, "a_sub": 3 if nbr > 1 else 1}
-            y = fused_down2(x, w, b, **kw)
+            a_sub = 3 if nbr > 1 else 1
             y_r = fused_down2_q_ref(x[..., ch0 : ch0 + c], qa, act="lrelu")
-            ms = time_ms(lambda: fused_down2(x, w, b, **kw), torch)
             plain = time_ms(lambda: fused_down2_q_ref(x[..., ch0 : ch0 + c], qa, act="lrelu"), torch)
             tol = float(np.spacing(np.float32(max(1.0, float(y_r.float().abs().max()))))) if dtype == "f32" else 1
             qas = qa if isinstance(qa, tuple) else (qa,)
-            record("down2_w8a8", dtype, name, per_path, y, y_r, tol, ms, plain, None,
-                   size * hb * wb * c + nbytes_of(y) + qbytes(*qas), 2 * conv_macs(w, hb // 2, wb // 2, 2),
-                   "abs" if dtype == "f32" else "steps", rate="int8")
+            # the programs' a_sub (bf16: the one quantize pass, then the wgmma s8 tile at stride 2;
+            # fp32 keeps the dense tile), then in bf16 the dense route (a_sub = 0, one branch) once
+            for a_sub_ in (a_sub, 0) if dtype == "bf16" and not asym and nbr == 1 else (a_sub,):
+                kw = {"act": "lrelu", "cin": cin, "ch0": ch0, "qargs": qa, "a_sub": a_sub_}
+
+                def call(kw=kw):
+                    return fused_down2(x, w, b, **kw)
+
+                y = call()
+                ms = time_ms(call, torch)
+                if dtype == "bf16" and a_sub_:
+                    # beside the two launches, the bf16 float form of the same call (HDRTV_INT8_DOWN2=0)
+                    fkw = {"act": "lrelu", "cin": cin, "ch0": ch0, "a_sub": a_sub}
+                    float_ms = time_ms(lambda: fused_down2(x, w, b, **fkw), torch)
+                    log(json.dumps({"down2_w8a8_split": {
+                        "case": name, "a_sub": a_sub_, "ms": round(ms, 4), **launch_split(call, torch, QCONV_PARTS),
+                        "float_ms": round(float_ms, 4)}}))
+                record("down2_w8a8", dtype, f"{name} a_sub={a_sub_}", per_path if a_sub_ else {}, y, y_r, tol, ms,
+                       plain, None, size * hb * wb * c + nbytes_of(y) + qbytes(*qas),
+                       2 * conv_macs(w, hb // 2, wb // 2, 2), "abs" if dtype == "f32" else "steps", rate="int8")
             del x, xw, y, y_r, w
 
         # block_conv3 pool_out at the L1 up_conv3 shape (270, 480, 128) -> 512 (PS-folded): the

@@ -1,11 +1,14 @@
 // 1×1 chains over the rows of an s2d tensor, written for Hopper (sm_90a):
 // bf16 × bf16 → fp32 on wgmma with A in registers, the block-diagonal s2d
 // weights reduced to their one diagonal block and kept in shared memory.
-// It runs the bf16 float forms of cond_chain (cond_chain_sm90) and the SFT
-// passes (sft_sm90) of the tail, sft_conv3 and resblock, and in its
-// int8-output mode those of tail_w8a8, sft_conv3_w8a8 and resblock_w8a8,
-// when the caller declares the weights s2d (ops/megakernel.py, s2d=True);
-// the dense forms stay on chain.cuh and pointwise.cuh.
+// It runs the bf16 float forms of cond_chain (cond_chain_sm90), of
+// mix_chain, the CondNet2 tail (mix_chain_sm90, on a channel window read in
+// place), and the SFT passes (sft_sm90) of the tail, sft_conv3 and resblock,
+// and in its int8-output mode those of tail_w8a8, sft_conv3_w8a8 and
+// resblock_w8a8, when the caller declares the weights s2d
+// (ops/megakernel.py, s2d=True); agcm_head's AGCM pass (agcm_sm90) and
+// trunk3's SFT passes (sft_sm90_natural) too. The dense forms stay on
+// chain.cuh and pointwise.cuh.
 //
 // Why rows. A 1×1 weight of the s2d program is w_s2d_1x1(w) (models/s2d.py):
 // (4·K, 4·N), block-diagonal with four equal K × N blocks, one per
@@ -26,7 +29,8 @@
 // walks its own tiles of 64 rows (one m64 wgmma tile): tile
 // 2·block + warpgroup, + 2·gridDim, ... It keeps a ring of NS stages of its
 // own in shared memory, filled by 16-byte cp.async of whole rows (a tile of
-// input rows is contiguous bytes; rows past the end are zero-filled), with
+// input rows is contiguous bytes, or for mix_chain's window contiguous by
+// pixel, four rows at a time; rows past the end are zero-filled), with
 // NS − 1 tiles in flight while it computes one; its 128 threads meet on a
 // named barrier of their own, so the two warpgroups never wait for each
 // other.
@@ -52,7 +56,8 @@
 //
 // Bound on this card: bytes. cond_chain at 1080p reads c0 (265 MB) and
 // writes c (265 MB) and cond1 (66 MB): 0.178 ms at 3.35 TB/s, against
-// 72 GFLOP of block products, 0.073 ms at the bf16 rate. The tail's SFT pass
+// 72 GFLOP of block products, 0.073 ms at the bf16 rate; mix_chain reads
+// its window (66 MB) and writes 17 MB: 0.025 ms. The tail's SFT pass
 // reads s, up and cond1 and writes t: 465 MB, 0.139 ms, 13 GFLOP; resblock's
 // SFT2 at L1 reads h1 (fp32) and cond and writes t: 116 MB, 0.035 ms.
 #pragma once
@@ -214,25 +219,33 @@ struct RowTiles {
 };
 
 // ---------------------------------------------------------------------------
-// cond_chain: x (rows, K) → K → K (lrelu; written as mid) → K → K (lrelu
-// each) → NL, written as y. At 1080p K = 64, NL = 16, rows = 4·540·960.
+// Chains of K-wide rows: HID steps K → K (lrelu each), then K → NL (no
+// activation), written as y; with MID the value after step 1 is written as
+// mid too. cond_chain (HID = 4, MID: c) reads c0, (rows, K) contiguous.
+// mix_chain (HID = 1), the CondNet2 tail, reads the window [ch0, ch0 + 4·K)
+// of a wider s2d tensor in place: row r, sub-position r % 4 of pixel r / 4,
+// is K channels at (r / 4)·cf + ch0 + (r % 4)·K (cond_chain: cf = 4·K,
+// ch0 = 0). At 1080p K = 64, NL = 16; rows = 4·540·960 (cond_chain) or
+// 4·270·480 (mix_chain, whose pixels lie cf = 768 channels apart).
 // ---------------------------------------------------------------------------
 
-struct CondChainSm90Args {
-  const bf16* x;   // (rows, K): c0
-  bf16* mid;       // (rows, K): c, after step 1
-  bf16* y;         // (rows, NL): cond1
+struct ChainSm90Args {
+  const bf16* x;   // row r at (r / 4)·cf + ch0 + (r % 4)·K
+  bf16* mid;       // (rows, K): c, after step 1 (MID)
+  bf16* y;         // (rows, NL): cond1, or mix_chain's output
   const bf16* w[5];  // the s2d weights; the K × N block at the top left, row pitch ld
   const float* b[5];
   int ld[5];
   long long rows;
+  long long cf;    // channels from one pixel of x to the next
+  int ch0;         // the window's first channel
 };
 
-template <int K, int NL>
-struct CondChainSm90Cfg {
+template <int K, int NL, int HID>
+struct ChainSm90Cfg {
   static constexpr int NS = 3;                            // ring stages per warpgroup
-  static constexpr int W_BYTES = (4 * K * K + K * NL) * 2;
-  static constexpr int BIAS_BYTES = (4 * K + NL) * 4;
+  static constexpr int W_BYTES = (HID * K * K + K * NL) * 2;
+  static constexpr int BIAS_BYTES = (HID * K + NL) * 4;
   static constexpr int PITCH = (K + 8) * 2;               // a staged row of x or mid: 16 bytes of pad
   static constexpr int YPITCH = (NL + 8) * 2;             // a staged row of y
   static constexpr int STAGE = kRowBM * (PITCH + YPITCH);
@@ -241,9 +254,9 @@ struct CondChainSm90Cfg {
   static_assert(W_BYTES % 16 == 0 && BIAS_BYTES % 16 == 0 && STAGE % 16 == 0, "16-byte alignment");
 };
 
-template <int K, int NL>
-__global__ void __launch_bounds__(kRowThreads, 2) cond_chain_sm90_kernel(const __grid_constant__ CondChainSm90Args a) {
-  using Cfg = CondChainSm90Cfg<K, NL>;
+template <int K, int NL, int HID, bool MID>
+__device__ __forceinline__ void chain_rows_sm90(const ChainSm90Args& a) {
+  using Cfg = ChainSm90Cfg<K, NL, HID>;
   constexpr int NS = Cfg::NS, KC = K / 16;
   extern __shared__ __align__(16) unsigned char row_smem[];
   unsigned char* const smem = row_smem;
@@ -251,8 +264,8 @@ __global__ void __launch_bounds__(kRowThreads, 2) cond_chain_sm90_kernel(const _
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31, q = lane & 3;
   unsigned char* const ring = smem + Cfg::W_BYTES + Cfg::BIAS_BYTES + wg * NS * Cfg::STAGE;
 
-  for (int s = 0; s < 5; ++s) {
-    const int n = s < 4 ? K : NL;
+  for (int s = 0; s <= HID; ++s) {
+    const int n = s < HID ? K : NL;
     stage_b(smem + s * K * K * 2, n, 0, a.w[s], a.ld[s], K, n);
     for (int i = tid; i < n; i += kRowThreads) bias[s * K + i] = a.b[s][i];
   }
@@ -268,8 +281,10 @@ __global__ void __launch_bounds__(kRowThreads, 2) cond_chain_sm90_kernel(const _
 #pragma unroll
     for (int idx = t; idx < kRowBM * PIECES; idx += 128) {
       const int r = idx / PIECES, c = idx % PIECES;
-      const bool ok = r0 + r < a.rows;
-      cp_async16_or_zero(st + r * Cfg::PITCH + c * 16, a.x + (ok ? (r0 + r) * K + c * 8 : 0), ok);
+      const long long row = r0 + r;
+      const bool ok = row < a.rows;
+      cp_async16_or_zero(st + r * Cfg::PITCH + c * 16,
+                         a.x + (ok ? (row >> 2) * a.cf + a.ch0 + (row & 3) * K + c * 8 : 0), ok);
     }
   };
   for (int i = 0; i < NS - 1; ++i) {
@@ -296,7 +311,7 @@ __global__ void __launch_bounds__(kRowThreads, 2) cond_chain_sm90_kernel(const _
 
     float d[K / 2];
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
+    for (int s = 0; s < HID; ++s) {
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KC; ++kk) WgmmaRA<K>::mma(d, af[kk], desc_rows_b(wbase + s * K * K * 2, K, kk), kk);
@@ -313,21 +328,21 @@ __global__ void __launch_bounds__(kRowThreads, 2) cond_chain_sm90_kernel(const _
           const unsigned u = pack_bf16(apply_act(d[4 * j + 2 * h] + bb.x, ACT_LRELU),
                                        apply_act(d[4 * j + 2 * h + 1] + bb.y, ACT_LRELU));
           af[j / 2][2 * (j % 2) + h] = u;
-          if (s == 1) *reinterpret_cast<unsigned*>(st + (rl + 8 * h) * Cfg::PITCH + (8 * j + 2 * q) * 2) = u;
+          if (MID && s == 1) *reinterpret_cast<unsigned*>(st + (rl + 8 * h) * Cfg::PITCH + (8 * j + 2 * q) * 2) = u;
         }
       }
     }
     float e[NL / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KC; ++kk) WgmmaRA<NL>::mma(e, af[kk], desc_rows_b(wbase + 4 * K * K * 2, NL, kk), kk);
+    for (int kk = 0; kk < KC; ++kk) WgmmaRA<NL>::mma(e, af[kk], desc_rows_b(wbase + HID * K * K * 2, NL, kk), kk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(e);
     fence_frags(af);
 #pragma unroll
     for (int j = 0; j < NL / 8; ++j) {
-      const float2 bb = *reinterpret_cast<const float2*>(bias + 4 * K + 8 * j + 2 * q);
+      const float2 bb = *reinterpret_cast<const float2*>(bias + HID * K + 8 * j + 2 * q);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         *reinterpret_cast<unsigned*>(yst + (rl + 8 * h) * Cfg::YPITCH + (8 * j + 2 * q) * 2) =
@@ -335,10 +350,20 @@ __global__ void __launch_bounds__(kRowThreads, 2) cond_chain_sm90_kernel(const _
     }
     warpgroup_sync(wg);
     const long long r0 = tiles.row0(i);
-    store_rows(a.mid, st, Cfg::PITCH, K * 2, r0, a.rows, t);
+    if (MID) store_rows(a.mid, st, Cfg::PITCH, K * 2, r0, a.rows, t);
     store_rows(a.y, yst, Cfg::YPITCH, NL * 2, r0, a.rows, t);
   }
   cp_async_wait<0>();
+}
+
+template <int K, int NL>
+__global__ void __launch_bounds__(kRowThreads, 2) cond_chain_sm90_kernel(const __grid_constant__ ChainSm90Args a) {
+  chain_rows_sm90<K, NL, 4, true>(a);
+}
+
+template <int K, int NL>
+__global__ void __launch_bounds__(kRowThreads, 2) mix_chain_sm90_kernel(const __grid_constant__ ChainSm90Args a) {
+  chain_rows_sm90<K, NL, 1, false>(a);
 }
 
 // Persistent blocks: as many as the card holds (`resident`, from
@@ -349,6 +374,17 @@ inline unsigned row_blocks(long long rows, int resident) {
   return static_cast<unsigned>(std::max(1LL, std::min(static_cast<long long>(resident), (tiles + 1) / 2)));
 }
 
+// One launch of a chain kernel with SMEM bytes (its resident blocks counted once).
+template <typename Kernel>
+cudaError_t launch_chain_sm90(Kernel kernel, int smem, int& resident, const ChainSm90Args& a, cudaStream_t stream) {
+  if (!resident) {
+    const cudaError_t err = resident_blocks(kernel, smem, &resident);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<row_blocks(a.rows, resident), kRowThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // cond_chain's bf16 float form over s2d weights (arguments as cond_chain.cu
 // takes them: s2d widths k, n per step, npix s2d pixels). The chain the
 // frame programs run, natural widths 64 → 64 ×4 → 16, is the one it takes;
@@ -356,10 +392,9 @@ inline unsigned row_blocks(long long rows, int resident) {
 inline cudaError_t cond_chain_sm90(const void* c0, void* c, void* cond1, const void* const* w, const void* const* b,
                                    const int* k, const int* n, int npix, cudaStream_t stream) {
   constexpr int K = 64, NL = 16;
-  using Cfg = CondChainSm90Cfg<K, NL>;
   for (int s = 0; s < 5; ++s)
     if (k[s] != 4 * K || n[s] != 4 * (s < 4 ? K : NL)) return cudaErrorInvalidValue;
-  CondChainSm90Args a;
+  ChainSm90Args a;
   a.x = static_cast<const bf16*>(c0);
   a.mid = static_cast<bf16*>(c);
   a.y = static_cast<bf16*>(cond1);
@@ -369,14 +404,38 @@ inline cudaError_t cond_chain_sm90(const void* c0, void* c, void* cond1, const v
     a.ld[s] = n[s];
   }
   a.rows = 4LL * npix;
-  auto kernel = cond_chain_sm90_kernel<K, NL>;
+  a.cf = 4 * K;
+  a.ch0 = 0;
   static int resident = 0;
-  if (!resident) {
-    const cudaError_t err = resident_blocks(kernel, Cfg::SMEM, &resident);
-    if (err != cudaSuccess) return err;
+  return launch_chain_sm90(cond_chain_sm90_kernel<K, NL>, ChainSm90Cfg<K, NL, 4>::SMEM, resident, a, stream);
+}
+
+// mix_chain's bf16 form over s2d weights (arguments as mix_chain.cu takes
+// them: s2d widths k, n and activations per step; npix s2d pixels of x, cf
+// channels apart, the window from ch0). The chain the frame programs run,
+// the CondNet2 tail, natural widths 64 → 64 (lrelu) → 16, is the one it
+// takes; anything else is refused.
+inline cudaError_t mix_chain_sm90(const void* x, void* y, const void* const* w, const void* const* b, const int* k,
+                                  const int* n, const int* act, int steps, int npix, int cf, int ch0,
+                                  cudaStream_t stream) {
+  constexpr int K = 64, NL = 16;
+  if (steps != 2 || k[0] != 4 * K || n[0] != 4 * K || k[1] != 4 * K || n[1] != 4 * NL || act[0] != ACT_LRELU ||
+      act[1] != ACT_NONE || cf % 8 || ch0 % 8 || ch0 < 0 || ch0 + 4 * K > cf)
+    return cudaErrorInvalidValue;
+  ChainSm90Args a;
+  a.x = static_cast<const bf16*>(x);
+  a.mid = nullptr;
+  a.y = static_cast<bf16*>(y);
+  for (int s = 0; s < 2; ++s) {
+    a.w[s] = static_cast<const bf16*>(w[s]);
+    a.b[s] = static_cast<const float*>(b[s]);
+    a.ld[s] = n[s];
   }
-  kernel<<<row_blocks(a.rows, resident), kRowThreads, Cfg::SMEM, stream>>>(a);
-  return cudaGetLastError();
+  a.rows = 4LL * npix;
+  a.cf = cf;
+  a.ch0 = ch0;
+  static int resident = 0;
+  return launch_chain_sm90(mix_chain_sm90_kernel<K, NL>, ChainSm90Cfg<K, NL, 1>::SMEM, resident, a, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -32,9 +32,11 @@
 // + skip, then the activation, one store in TY.
 //
 // The same tile also runs the stride-2, (1,0)-padded s2d down conv of
-// fused_down2's int8 body (down2.cu; stride as in conv3x3.cuh), with one
-// quantization of the shared input per branch (below), and takes the 2×2
-// max pool of block_conv3's pool_out form (conv3x3.cuh, `pool`).
+// fused_down2's int8 body in fp32 and with a_sub = 0 (down2.cu; stride as in
+// conv3x3.cuh), with one quantization of the shared input per branch
+// (below), and takes the 2×2 max pool of block_conv3's pool_out form
+// (conv3x3.cuh, `pool`). The bf16 int8 down2 with a_sub ≥ 1 quantizes once
+// for every branch (quantize_planes, below) and runs conv3x3_s8_sm90.cuh.
 //
 // Requirements (the wrappers check them): C % 64 == 0, Co % 8 == 0, 16-byte
 // aligned tensors.
@@ -90,6 +92,109 @@ cudaError_t quantize(const void* x, void* q, long long n, const QuantParams& p, 
 // rows, yscale and bias). m is a multiple of the tile's 128 channels, so a
 // block never straddles two branches. One branch is the plain layer.
 constexpr int kMaxBranches = 4;
+
+// The branches' activation quantization, by value (the kernel's argument).
+struct QuantPlanes {
+  float s[kMaxBranches], inv[kMaxBranches], z[kMaxBranches];  // inv: 1/s rounded to nearest (the host's division)
+  int asym[kMaxBranches];
+  int nb;
+  long long plane;  // bytes from one branch's codes to the next
+};
+
+// quantize_code(t, s, z, asym) without its division where that cannot change
+// the code. With a = t − z the code is clamp(rint(d), lo, hi) of d = a / s
+// (IEEE), lo, hi = −128, 127 (symmetric) or 0, 255 (asymmetric, then − 128).
+// y = a · inv, inv = 1/s rounded, lies within 3·2^-24·|y| of d (three
+// roundings of 2^-24 each). Take c = clamp(y, lo, hi): rint(c) is
+// clamp(rint(y)), and where y was clamped, d lies as close to the same bound
+// (its rint clamps there too). Where |c| ≤ 256 lies farther than 2^-13 from
+// every half-integer (h = 0.5 − |c − rint(c)|, exact but for 2^-25), more than
+// 3·2^-24·|y| + 2^-25, no half-integer lies between y and d and the code is
+// rint(c). Elsewhere (a band of 2^-12 around each half-integer, under 0.01%
+// of the values) it divides; a NaN t gives lo either way. The code is
+// quantize_code's bit for bit.
+__device__ __forceinline__ int quantize_code_rcp(float t, float s, float inv, float z, int asym) {
+  const float a = __fsub_rn(t, z);
+  const float lo = asym ? 0.f : -128.f, hi = asym ? 255.f : 127.f;
+  const float c = fminf(fmaxf(__fmul_rn(a, inv), lo), hi);
+  float r = rintf(c);
+  if (!(__fsub_rn(0.5f, fabsf(__fsub_rn(c, r))) > 0x1p-13f)) r = fminf(fmaxf(rintf(__fdiv_rn(a, s)), lo), hi);
+  return static_cast<int>(r) - (asym ? 128 : 0);
+}
+
+// One pass over the bf16 window [ch0, ch0 + cin) of npix pixels of cf
+// channels: each value's code under every branch's scale and zero point
+// into that branch's plane (npix, cin), equal to what quantize_window's pass
+// writes for that branch (quantize_code_rcp). It reads the window once where
+// quantize_window passes read it once a branch. Thread t of a block takes
+// the 16-byte channel group t % G (G = cin / 8 groups a pixel) of pixel
+// t / G of each slab of 256 / G pixels, two slabs a step (two loads in
+// flight), so no index is divided in the loop. An IEEE division for every
+// value and branch (398 M at the 1080p consolidated conv) and a 64-bit
+// index division a group made the first version bound by its arithmetic:
+// 0.53 ms for its 665 MB on an H100 (PERF.md §6).
+__global__ void quantize_planes_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q, long long npix, int cf,
+                                       int ch0, int cin, QuantPlanes p) {
+  const int groups = cin / 8;
+  const int slab = blockDim.x / groups;  // pixels a block takes a step, per load
+  const int g = threadIdx.x % groups;
+  const long long stride = static_cast<long long>(gridDim.x) * slab;
+  for (long long pix0 = blockIdx.x * static_cast<long long>(slab) + threadIdx.x / groups; pix0 < npix;
+       pix0 += 2 * stride) {
+    uint4 raw[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (pix0 + u * stride < npix)
+        raw[u] = *reinterpret_cast<const uint4*>(x + (pix0 + u * stride) * cf + ch0 + 8 * g);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const long long pix = pix0 + u * stride;
+      if (pix >= npix) break;
+      const unsigned words[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[e]));
+        v[2 * e] = f.x;
+        v[2 * e + 1] = f.y;
+      }
+#pragma unroll
+      for (int bi = 0; bi < kMaxBranches; ++bi) {
+        if (bi < p.nb) {
+          unsigned c[2] = {0u, 0u};
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            c[e / 4] |= (static_cast<unsigned>(quantize_code_rcp(v[e], p.s[bi], p.inv[bi], p.z[bi], p.asym[bi])) &
+                         0xffu) << (8 * (e % 4));
+          *reinterpret_cast<uint2*>(q + bi * p.plane + pix * cin + 8 * g) = make_uint2(c[0], c[1]);
+        }
+      }
+    }
+  }
+}
+
+// quantize_planes_kernel for the nb branches p (planes H·W·cin bytes apart
+// in q, plane = npix·cin); the window and pitch whole 16-byte groups, cin/8
+// a divisor of 256 (256 threads a block).
+inline cudaError_t quantize_planes(const void* x, void* q, long long npix, int cf, int ch0, int cin,
+                                   const QuantParams* p, int nb, cudaStream_t stream) {
+  if (cin < 8 || cin % 8 || 256 % (cin / 8) || cf % 8 || ch0 % 8 || ch0 + cin > cf || nb < 1 || nb > kMaxBranches)
+    return cudaErrorInvalidValue;
+  QuantPlanes qp;
+  for (int bi = 0; bi < kMaxBranches; ++bi) {
+    qp.s[bi] = bi < nb ? p[bi].s : 1.f;
+    qp.inv[bi] = 1.f / qp.s[bi];
+    qp.z[bi] = bi < nb ? p[bi].z : 0.f;
+    qp.asym[bi] = bi < nb ? p[bi].asym : 0;
+  }
+  qp.nb = nb;
+  qp.plane = npix * cin;
+  const long long slabs = (npix + 256 / (cin / 8) - 1) / (256 / (cin / 8));
+  const unsigned blocks = static_cast<unsigned>(std::min<long long>((slabs + 1) / 2, 132LL * 16));
+  quantize_planes_kernel<<<blocks, 256, 0, stream>>>(static_cast<const bf16*>(x), static_cast<int8_t*>(q), npix, cf,
+                                                      ch0, cin, qp);
+  return cudaGetLastError();
+}
 
 struct ConvS8Args {
   const int8_t* q;               // (nb, H, W, C) codes: one plane per branch

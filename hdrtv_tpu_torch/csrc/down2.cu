@@ -30,21 +30,36 @@
 //
 // The native-int8 (W8A8) body of the same Pallas kernel (`quant`,
 // megakernel.py:608-705; the wrapper counts it as down2_w8a8), when the call
-// passes the layer's QuantParams, one per branch: the window is quantized
-// per tensor (a quantize pass over the window, in place, into scratch the
-// wrapper allocates: one code plane per branch, since the consolidated
-// CondNet down conv quantizes its shared input once per branch with that
-// branch's scale and zero point), then the int8 tile of conv3x3_s8.cuh with
-// stride 2, whose output channel block bi reads branch bi's codes and
-// parameters and whose out-of-image taps (global row −1, column −1) carry
-// that branch's pad code, as the TPU body quantizes its zeroed halo row and
-// pads its shifted column view with the code of 0. Epilogue: float(acc) ·
+// passes the layer's QuantParams, one per branch (the consolidated CondNet
+// down conv quantizes its shared input once per branch with that branch's
+// scale and zero point; one branch is the plain layer). The window is
+// quantized per tensor into scratch the wrapper allocates, one code plane
+// per branch; output channel block bi reads branch bi's codes and
+// parameters, and out-of-image taps (global row −1, column −1) carry that
+// branch's pad code, as the TPU body quantizes its zeroed halo row and pads
+// its shifted column view with the code of 0. Epilogue: float(acc) ·
 // yscale, + bias (the zero-point term folded in), as two rounded ops, then
-// the activation. Bound on this card: bytes (at 1080p the consolidated conv
-// needs 114 GOP of non-zero int8 products, 0.06 ms at 1979 TOPS, against
-// 0.27 GB in and 0.2 GB out in bf16); the codes' round trip through device
-// memory, 1 byte a value per branch, is this first version's cost.
+// the activation, one rounding.
+//
+// bf16 with a_sub ≥ 1 (conv_s2 passes 3 for the consolidated conv, 1 for
+// CondNet3.2/4.2 on its output's windows; the HDRTV_INT8_DOWN2=1 programs'
+// three calls, C = 256): one quantize pass (conv3x3_s8.cuh quantize_planes)
+// reads the window once and writes every branch's plane, then the wgmma s8
+// tile of conv3x3_s8_sm90.cuh at stride 2 walks the slot table of
+// s2d_slots(2) (18 chunks of each output sub-position's 72), N tiles of 64
+// channels, one sub-position of one branch each, stored by TMA. Another
+// width with a_sub ≥ 1 is refused (the wrapper raises first). Bound on this
+// card: bytes. At 1080p the consolidated conv reads 265 MB of bf16 and
+// writes 199 MB (0.139 ms at 3.35 TB/s; 115 GOP of non-zero int8 products,
+// 0.058 ms at 1979 TOPS); this two-pass design also writes and reads the
+// three code planes, 398 MB each way: 1.26 GB, 0.376 ms, and 0.15 GB for
+// each window call. Quantizing on load inside the tile, which saves the
+// planes' round trip, is later work. a_sub = 0, and the fp32 instance:
+// one quantize_window pass per branch, then the dense mma.sync int8 tile of
+// conv3x3_s8.cuh with stride 2, whose out-of-image taps carry the branch's
+// pad code. Times: PERF.md §6.
 #include "conv3x3_s8.cuh"
+#include "conv3x3_s8_sm90.cuh"
 #include "conv3x3_tf32x3.cuh"
 
 namespace {
@@ -54,8 +69,18 @@ int down2(const void* x, const void* w, const void* b, const hdrtv::QuantParams*
           void* codes, int H, int W, int cf, int ch0, int cin, int Co, int act, int a_sub, const int* table,
           int per_list, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (table && q) {
+    if constexpr (std::is_same<T, hdrtv::bf16>::value) {
+      const long long npix = static_cast<long long>(H) * W;
+      cudaError_t err = hdrtv::quantize_planes(x, codes, npix, cf, ch0, cin, q, nb, s);
+      if (err == cudaSuccess)
+        err = hdrtv::conv3x3_s8_sm90_s2(codes, npix * cin, q, nb, y, H, W, cin, Co, a_sub, act, table, per_list, s);
+      return static_cast<int>(err);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (table) {
-    if (q) return static_cast<int>(cudaErrorInvalidValue);
     if constexpr (std::is_same<T, hdrtv::bf16>::value)
       return static_cast<int>(hdrtv::conv3x3_sm90<2>(x, w, static_cast<const float*>(b), nullptr, y, H, W, cf,
                                                      ch0, cin, Co, act, a_sub, table, per_list, s));
@@ -112,9 +137,10 @@ int down2(const void* x, const void* w, const void* b, const hdrtv::QuantParams*
 // q: null for the float form, else an array of nb QuantParams, branch bi's
 // layer for output channels [bi·Co/nb, (bi+1)·Co/nb) (w and b unused;
 // codes: nb·H·W·cin bytes of scratch, unused without q). table: null, or
-// (the float form only) the chunk lists of conv3x3_sm90.cuh for a_sub,
-// per_list entries each, which send the call to the Hopper tile (bf16) or
-// its 3×TF32 sibling (fp32).
+// the chunk lists of s2d_slots(2) for a_sub, per_list entries each, which
+// send the float form to the Hopper tile (bf16) or its 3×TF32 sibling
+// (fp32), and the int8 form (bf16) to the quantize pass and the wgmma s8
+// tile.
 extern "C" int hdrtv_down2_f32(const void* x, const void* w, const void* b, const void* q, int nb,
                                void* y, void* codes, int H, int W, int cf, int ch0, int cin, int Co,
                                int act, int a_sub, const int* table, int per_list, void* stream) {

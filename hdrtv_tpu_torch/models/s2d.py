@@ -821,12 +821,15 @@ def _le_cond_downs(p: Params, c: torch.Tensor, *, policy: Policy):
     consolidated LE.__cond_down conv, the three branch inputs are channel
     windows of its (…, 3·nch) output, read in place by the down2 kernel."""
     def mix_chain(x, steps, *, cin=None, ch0=0):
-        """Short 1×1 chains: the mix_chain kernel when eligible (bf16)."""
+        """Short 1×1 chains: the mix_chain kernel when eligible (bf16). Every
+        1×1 weight here is a w_s2d_1x1 transform, its bias b_s2d, so the
+        call declares it (s2d=True) and the kernel multiplies the diagonal
+        blocks only."""
         if policy.compute_dtype == torch.bfloat16 and _use_fused_kernel(x, p[f"{steps[0][0]}.weight"]):
             return fused_mix_chain(
                 policy.cast(x[0]),
                 [(policy.cast(p[f"{n}.weight"][0, 0]), p[f"{n}.bias"], act) for n, act in steps],
-                cin=cin, ch0=ch0,
+                cin=cin, ch0=ch0, s2d=True,
             )[None]
         if cin is not None:
             x = x[..., ch0 : ch0 + cin]

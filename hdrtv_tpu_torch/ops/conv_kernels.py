@@ -109,19 +109,29 @@ def sm90_table(name: str, stride: int, a_sub: int, c: int, co: int, cf: int, ch0
     return (ctypes.c_int * len(entries))(*entries), len(chunks[0])
 
 
-S8_SM90_C = 128  # the input channels the wgmma s8 tile takes (csrc/conv3x3_s8_sm90.cuh)
+# What the wgmma s8 tile takes (csrc/conv3x3_s8_sm90.cuh), by stride: (C, the a_sub values,
+# the output channels of its N tile, of which each sub-position's Co/(4·a_sub) is a multiple):
+# natural 32 channels (the trunk, HR and up convs) at stride 1, natural 64 (the CondNet down
+# convs, one block or the consolidated conv's three) at stride 2.
+S8_SM90 = {1: (128, (1,), CHUNK), 2: (256, (1, 3), 2 * CHUNK)}
 
 
-def s8_sm90_table(name: str, a_sub: int, c: int, co: int):
+def s8_sm90_table(name: str, a_sub: int, c: int, co: int, stride: int = 1):
     """What a bf16 int8 call with ``a_sub`` ≥ 1 hands the wgmma s8 tile of
-    csrc/conv3x3_s8_sm90.cuh: the stride-1 slot table (``sm90_table``, a
-    chunk is 32 channels in either type) and its list length. The tile
-    takes ``a_sub`` = 1 with C = 128 and Co a multiple of 128 (N tiles of 32
-    inside each output sub-position); anything else raises."""
-    if a_sub != 1 or c != S8_SM90_C or co % (4 * CHUNK):
-        raise ValueError(f"{name}: the wgmma s8 tile takes a_sub=1 with C = {S8_SM90_C} and Co a multiple of "
-                         f"{4 * CHUNK}, got a_sub={a_sub}, C={c}, Co={co}")
-    return sm90_table(name, 1, 1, c, co, c)
+    csrc/conv3x3_s8_sm90.cuh: the slot table of ``stride`` (``sm90_table``,
+    a chunk is 32 channels in either type) and its list length. The tile
+    takes, at stride 1, ``a_sub`` = 1 with C = 128 and Co a multiple of 128
+    (N tiles of 32 inside each output sub-position); at stride 2 (down2's
+    int8 body), ``a_sub`` 1 or 3 with C = 256 and Co/(4·a_sub) a multiple of
+    64 (N tiles of 64); anything else raises."""
+    if stride not in S8_SM90:
+        raise ValueError(f"{name}: the wgmma s8 tile has stride 1 or 2, got {stride}")
+    want_c, subs, bn = S8_SM90[stride]
+    if a_sub not in subs or c != want_c or co % (4 * a_sub * bn):
+        raise ValueError(f"{name}: the wgmma s8 tile takes a_sub={' or '.join(map(str, subs))} with C = {want_c} "
+                         f"and Co/(4·a_sub) a multiple of {bn} at stride {stride}, got a_sub={a_sub}, C={c}, "
+                         f"Co={co}")
+    return sm90_table(name, stride, a_sub, c, co, c)
 
 
 def _epilogue(y, dtype, relu, skip, pool_out):

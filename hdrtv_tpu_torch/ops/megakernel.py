@@ -26,16 +26,17 @@ consolidated CondNet down conv; the frame programs pass it under
 None in the 1×1 form; no frame program passes them, as in the JAX package).
 
 ``fused_agcm_head``, ``fused_cond_chain``, ``fused_tail``,
-``fused_sft_conv3_v2`` and ``fused_resblock`` take ``s2d``: the caller's
-declaration that the weights are the s2d transforms the frame programs hand
-them, whose zeros the bf16 float forms then skip on the Hopper tiles
-(``csrc/chain_sm90.cuh``, ``csrc/conv3x3_sm90.cuh``, and the head's input
-conv in ``csrc/agcm_head.cu``). The plain versions honour it, so a weight
-without that structure gives another result than the JAX kernel's.
-The int8 bodies of ``fused_tail``, ``fused_sft_conv3_v2`` and
+``fused_sft_conv3_v2``, ``fused_resblock`` and ``fused_mix_chain`` take
+``s2d``: the caller's declaration that the weights are the s2d transforms
+the frame programs hand them, whose zeros the bf16 float forms then skip on
+the Hopper tiles (``csrc/chain_sm90.cuh``, ``csrc/conv3x3_sm90.cuh``, and
+the head's input conv in ``csrc/agcm_head.cu``). The plain versions honour
+it, so a weight without that structure gives another result than the JAX
+kernel's. The int8 bodies of ``fused_tail``, ``fused_sft_conv3_v2`` and
 ``fused_resblock`` take it too: in bf16 their SFT passes run the row tile's
 int8-output mode and their convs the wgmma s8 tile of
-``csrc/conv3x3_s8_sm90.cuh``.
+``csrc/conv3x3_s8_sm90.cuh``, which also runs ``fused_down2``'s int8 body in
+bf16 at stride 2 (its ``a_sub`` ≥ 1 being the same declaration).
 ``fused_trunk3`` runs natural tensors; its bf16 instance runs the Hopper
 tiles on any weights.
 """
@@ -49,7 +50,7 @@ import torch
 
 from hdrtv_tpu_torch.models.layers import conv_nhwc, leaky_relu
 from hdrtv_tpu_torch.ops import native
-from hdrtv_tpu_torch.ops.conv_kernels import check_a_sub, sm90_table
+from hdrtv_tpu_torch.ops.conv_kernels import check_a_sub, s8_sm90_table, sm90_table
 from hdrtv_tpu_torch.ops.w8a8 import QArgs, _dense_q, _taps_conv_q, check_qargs
 
 _ACTS = {None: 0, "relu": 1, "lrelu": 2}
@@ -738,6 +739,12 @@ def fused_down2(
     multiple of 128 on the card), prepared at load from this ``w`` and
     ``b``; on the card the window takes C % 64. ``a_sub``: the consolidated
     sub-blocks (3 for the CondNet down convs), also the int8 branches' count.
+    The int8 body in bf16 with ``a_sub`` ≥ 1 quantizes the window once into
+    one code plane per branch and runs the wgmma s8 tile of
+    ``csrc/conv3x3_s8_sm90.cuh`` at stride 2 over the slot table
+    (``s8_sm90_table``: C = 256, ``a_sub`` 1 or 3; another width raises);
+    fp32 and ``a_sub`` = 0 run the dense int8 tile, the same result on
+    ``w_s2d_s2`` weights.
     """
     hb, wb, cf = x.shape
     c = _window("down2", cf, cin, ch0)
@@ -770,6 +777,11 @@ def fused_down2(
     table, per_group = None, 0
     if branches is None:
         table, per_group = sm90_table("down2", 2, a_sub, c, co, cf, ch0, dtype=dt)
+    elif a_sub and dt == torch.bfloat16:
+        # one quantize pass into every branch's plane (16-byte reads), then the s8 tile at stride 2
+        table, per_group = s8_sm90_table("down2", a_sub, c, co, stride=2)
+        if cf % 8:
+            raise ValueError(f"down2: the int8 s8 tile's quantize pass needs a pixel pitch % 8 == 0, got {cf}")
     native.check_cuda("down2 x", x, dt)
     native.check_cuda("down2 w", w, dt, (3, 3, c, co))
     native.check_cuda("down2 b", b, torch.float32, (co,))
@@ -1153,22 +1165,42 @@ def fused_trunk3(
 # ---------------------------------------------------------------------------
 
 
-def fused_mix_chain_ref(x, steps):
+def fused_mix_chain_ref(x, steps, *, s2d=False):
     """Plain version, the body of the Pallas ``_mix_chain_kernel``: each step
     casts its input to the weight's type, sums in fp32, adds the fp32 bias
-    and applies the activation in fp32; only the last result is rounded."""
+    and applies the activation in fp32; only the last result is rounded.
+    ``s2d``: each step multiplies the weight's first diagonal block only
+    (:func:`_rows_1x1`), as the kernel's s2d form does."""
     v = x
     for w, b, act in steps:
-        v = _apply_act(torch.matmul(v.to(w.dtype).float(), w.float()) + b, act)
+        v = v.to(w.dtype).float()
+        v = _apply_act(_rows_1x1(v, w, b) if s2d else torch.matmul(v, w.float()) + b, act)
     return v.to(x.dtype)
 
 
-def fused_mix_chain(x: torch.Tensor, steps, *, cin: int | None = None, ch0: int = 0) -> torch.Tensor:
+# The chain the Hopper row tile of csrc/chain_sm90.cuh takes for mix_chain: the CondNet2
+# tail, natural widths 64 → 64 (lrelu) → 16.
+MIX_CHAIN_S2D_WIDTHS = (64, 64, 16)
+MIX_CHAIN_S2D_ACTS = ("lrelu", None)
+
+
+def fused_mix_chain(x: torch.Tensor, steps, *, cin: int | None = None, ch0: int = 0,
+                    s2d: bool = False) -> torch.Tensor:
     """Chain of 1×1 convs (+activations) in one pass: (Hb,Wb,C) → (Hb,Wb,C').
 
     ``steps``: list of (w (C, C'), b (C',), act ∈ {None, 'relu', 'lrelu'}).
     ``cin``/``ch0``: read the ``[ch0:ch0+cin]`` channel window of a wider
     ``x`` in place (``ch0`` a multiple of ``cin``); the plain version slices.
+
+    ``s2d`` declares every weight ``w_s2d_1x1(w)`` and every bias
+    ``b_s2d(b)`` (``models/s2d.py``; the frame programs' CondNet tails pass
+    True): a step then multiplies the (4·Hb·Wb, K) rows of natural pixels by
+    the weight's first diagonal block only. bf16 on the card: the Hopper row
+    tile of ``csrc/chain_sm90.cuh`` (the chain MIX_CHAIN_S2D_WIDTHS with
+    MIX_CHAIN_S2D_ACTS; another raises); fp32 keeps the dense kernel, the
+    same function on such weights. The plain version honours it too, so a
+    weight without that structure gives another result than the JAX
+    kernel's. False: the dense product, right for any weight.
     """
     hb, wb, cf = x.shape
     c = _window("mix_chain", cf, cin, ch0)
@@ -1182,13 +1214,21 @@ def fused_mix_chain(x: torch.Tensor, steps, *, cin: int | None = None, ch0: int 
         if w.ndim != 2 or w.shape[0] != k or tuple(b.shape) != (w.shape[1],):
             raise ValueError(f"mix_chain: step weight {tuple(w.shape)} / bias {tuple(b.shape)} after width {k}")
         k = w.shape[1]
+    if s2d:
+        _check_s2d_1x1("mix_chain", zip(ws, bs))
     if native.on_cpu(x, *ws, *bs):
-        return fused_mix_chain_ref(x[..., ch0 : ch0 + c], steps)
+        return fused_mix_chain_ref(x[..., ch0 : ch0 + c], steps, s2d=s2d)
     n_steps = len(steps)
     if not 1 <= n_steps <= native.lib().hdrtv_mix_chain_max_steps():
         raise ValueError(f"mix_chain takes 1 to {native.lib().hdrtv_mix_chain_max_steps()} steps, got {n_steps}")
     if cf % 4 or any(w.shape[0] % 16 or w.shape[1] % 4 for w in ws):
         raise ValueError("mix_chain needs C % 4 == 0 and every step's input % 16, output % 4 == 0")
+    row_tile = s2d and dt == torch.bfloat16  # the Hopper row tile
+    widths = tuple([c // 4] + [w.shape[1] // 4 for w in ws])
+    if row_tile and (widths != MIX_CHAIN_S2D_WIDTHS or tuple(acts) != MIX_CHAIN_S2D_ACTS or cf % 8 or ch0 % 8):
+        raise ValueError(f"mix_chain: the s2d row tile takes natural widths {MIX_CHAIN_S2D_WIDTHS} with acts "
+                         f"{MIX_CHAIN_S2D_ACTS} and a pixel pitch and window start % 8 == 0, got {widths}, "
+                         f"{tuple(acts)}, pitch {cf}, ch0={ch0}")
     native.check_cuda("mix_chain x", x, dt)
     for w, b in zip(ws, bs, strict=True):
         native.check_cuda("mix_chain w", w, dt)
@@ -1199,6 +1239,6 @@ def fused_mix_chain(x: torch.Tensor, steps, *, cin: int | None = None, ch0: int 
         "mix_chain", dt,
         x.data_ptr(), out.data_ptr(), native.pointer_array(ws), native.pointer_array(bs),
         ints(*[w.shape[0] for w in ws]), ints(*[w.shape[1] for w in ws]),
-        ints(*[_ACTS[a] for a in acts]), n_steps, hb * wb, cf, ch0, native.stream_of(x),
+        ints(*[_ACTS[a] for a in acts]), n_steps, hb * wb, cf, ch0, int(row_tile), native.stream_of(x),
     )
     return out

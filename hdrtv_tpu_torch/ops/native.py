@@ -135,7 +135,7 @@ def lib() -> ctypes.CDLL:
         "hdrtv_trunk3": ([p, p, p, p, p, p, i, i, i, i, i, p, i, p], i),
         "hdrtv_sft_conv3": ([p, p, p, p, p, q, p, p, p, i, i, i, i, i, i, i, p, i, p], i),
         "hdrtv_resblock": ([p, p, p, p, p, q, p, p, p, q, p, i, p, p, p, p, i, i, i, i, i, p, i, p], i),
-        "hdrtv_mix_chain": ([p, p, p, p, p, p, p, i, i, i, i, p], i),
+        "hdrtv_mix_chain": ([p, p, p, p, p, p, p, i, i, i, i, i, p], i),
         "hdrtv_agcm_head": ([p, i, f, p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
         "hdrtv_cond_chain": ([p, p, p, p, p, p, p, p, i, i, p], i),
         "hdrtv_tail": ([p, p, p, p, p, p, p, q, p, p, p, p, p, i, i, i, i, i, i, i, p, i, p], i),

@@ -57,7 +57,10 @@ the meeting and the 16-byte stores). Then resblock_w8a8's s2d forms at its
 L1 shape (270 × 480): conv1 on the s8 tile with its fp32-output epilogue
 (h1 unrounded, staged in the 128-byte swizzle and stored by TMA) beside
 conv2's bf16 output, and SFT2 in the int8-output mode on the fp32 h1
-beside the same pass on bf16 x.
+beside the same pass on bf16 x. Then down2_w8a8's stride-2 form of the s8
+tile at the consolidated CondNet down conv (three branches' code planes)
+and at CondNet3.2, symmetric and with zero points (a step is one box of a
+tap's 64 or 128 bytes a pixel).
 
 After its build it prints the build's ptxas notes that name a wgmma
 serialization or an injected wait (the ``C75`` codes, C7517 among them),
@@ -126,6 +129,8 @@ def build() -> ctypes.CDLL:
     f = ctypes.c_float
     lib.hdrtv_sm90_s8_phases.argtypes = [p, p, p, p, f, f, i, p] + [i] * 5 + [p, i, i, p, p]
     lib.hdrtv_sm90_s8_phases.restype = i
+    lib.hdrtv_sm90_s8_s2_phases.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, i, p] + [i] * 6 + [p, i, p, p]
+    lib.hdrtv_sm90_s8_s2_phases.restype = i
     lib.hdrtv_sm90_sft_phases.argtypes = [p, p, p, p, p, i, i, i, i, p, f, f, i, i, p, p]
     lib.hdrtv_sm90_sft_phases.restype = i
     return lib
@@ -215,6 +220,44 @@ def s8_phases(lib, dev, rng) -> None:
     sft_pass("resblock L1 SFT1 s2d, bf16 x + up", 270, 480, torch.bfloat16, q8[:1])
 
 
+def s8_s2_phases(lib, dev, rng) -> None:
+    """down2_w8a8's stride-2 s8 tile at its 1080p shapes (the consolidated
+    CondNet down conv, 540 × 960 × 256 → 768 over three branches' code
+    planes, and CondNet3.2, 270 × 480 × 256 → 256), symmetric and with zero
+    points, seeded codes and w_s2d_s2 weights; phases named as the stride-1
+    tile's (a step is one box: a tap's 64 or 128 bytes a pixel)."""
+    from hdrtv_tpu_torch.models.s2d import b_s2d
+    from hdrtv_tpu_torch.ops.conv_kernels import s8_sm90_table
+    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
+    from hdrtv_tpu_torch.quant.int8 import quantize_weight
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, hb, wb, nb in (("LE.__cond_down", 540, 960, 3), ("CondNet3.2", 270, 480, 1)):
+        c, co = 256, 256 * nb
+        a_sub = 3 if nb > 1 else 1
+        table, per_list = s8_sm90_table(name, a_sub, c, co, stride=2)
+        codes = torch.as_tensor(rng.randint(-128, 128, size=(nb, hb, wb, c)).astype(np.int8), device=dev)
+        y = torch.empty(hb // 2, wb // 2, co, device=dev, dtype=torch.bfloat16)
+        for cal in ("sym", "asym"):
+            qas = []
+            for bi in range(nb):
+                wq, ws = quantize_weight(rng.randn(3, 3, c // 4, 64).astype(np.float32) * 0.05)
+                qas.append(pack_qargs(w_s2d_s2(wq), b_s2d(ws), 0.01, -0.3 - 0.05 * bi if cal == "asym" else None,
+                                      (rng.randn(256) * 0.1).astype(np.float32), dev))
+            ws_, ys_, bs_ = (native.pointer_array([getattr(qa, k) for qa in qas]) for k in ("w", "yscale", "bias"))
+            scales = (ctypes.c_float * nb)(*[qa.scale for qa in qas])
+            zeros = (ctypes.c_float * nb)(*[qa.zero or 0.0 for qa in qas])
+            pads = (ctypes.c_int * nb)(*[qa.pad for qa in qas])
+            phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
+            for _ in range(3):  # warm: the last run's sums are read
+                rc = lib.hdrtv_sm90_s8_s2_phases(codes.data_ptr(), hb * wb * c, ws_, ys_, bs_, scales, zeros, pads, nb,
+                                                 y.data_ptr(), hb, wb, c, co, a_sub, 2, table, per_list,
+                                                 phases.data_ptr(), stream)
+                if rc:
+                    raise RuntimeError(f"conv3x3_s8_sm90_s2 {name} {cal}: CUDA error {rc}")
+            _report(f"{name} int8 stride 2 ({cal}, pads {[qa.pad for qa in qas]})", phases, PHASES["bf16"])
+
+
 AGCM_PHASES = ["total", "fetch", "step 0", "hidden 0", "step 1", "hidden 1", "step 2", "out"]
 
 
@@ -288,6 +331,7 @@ def main() -> None:
             print(f"{name} {dtype}: {len(d)} warpgroups, {mean[7]:.0f} steps each; cycles {shares}", flush=True)
     agcm_phases(lib, dev, rng)
     s8_phases(lib, dev, rng)
+    s8_s2_phases(lib, dev, rng)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
 

@@ -1,7 +1,8 @@
 // The int8 s2d forms' Hopper tiles built with their phase timers
 // (HDRTV_SM90_PHASES), for tools/sm90_phases.py, which links this file
 // beside sm90_phases.cu; not part of the kernel library: the wgmma s8 conv
-// tile (csrc/conv3x3_s8_sm90.cuh) and the SFT row tile (csrc/chain_sm90.cuh
+// tile (csrc/conv3x3_s8_sm90.cuh, at stride 1 and, down2_w8a8's form, at
+// stride 2 over several branches' code planes) and the SFT row tile (csrc/chain_sm90.cuh
 // sft_sm90), the latter in its int8-output mode when q_w is set, else its
 // bf16 form; the conv with its bf16 or fp32 output, the SFT pass on bf16 x
 // (with the coarse up tensor) or fp32 x (resblock's h1). Each fills a
@@ -37,6 +38,22 @@ extern "C" int hdrtv_sm90_s8_phases(const void* q, const void* w, const void* ys
   return static_cast<int>(hdrtv::conv3x3_s8_sm90(q, quant(w, yscale, bias, s, z, pad), nullptr, y, H, W, C, Co,
                                                  act, table, per_list, static_cast<cudaStream_t>(stream), &a,
                                                  f32_out != 0));
+}
+
+// down2_w8a8's stride-2 conv of nb code planes (plane bytes apart) → y
+// (H/2, W/2, Co) bf16: branch bi's layer (w[bi], yscale[bi], bias[bi], x_scale
+// s, x_zero z[bi], pad[bi]), a_sub, act, the stride-2 slot table.
+extern "C" int hdrtv_sm90_s8_s2_phases(const void* q, long long plane, const void* const* w,
+                                       const void* const* yscale, const void* const* bias, const float* s,
+                                       const float* z, const int* pad, int nb, void* y, int H, int W, int C, int Co,
+                                       int a_sub, int act, const int* table, int per_list, void* phases,
+                                       void* stream) {
+  hdrtv::QuantParams p[hdrtv::kMaxBranches];
+  for (int bi = 0; bi < nb && bi < hdrtv::kMaxBranches; ++bi) p[bi] = quant(w[bi], yscale[bi], bias[bi], s[bi], z[bi], pad[bi]);
+  hdrtv::S8Sm90Args a;
+  a.phases = static_cast<unsigned long long*>(phases);
+  return static_cast<int>(hdrtv::conv3x3_s8_sm90_s2(q, plane, p, nb, y, H, W, C, Co, a_sub, act, table, per_list,
+                                                    static_cast<cudaStream_t>(stream), &a));
 }
 
 // The SFT pass over s2d weights (x bf16, add the coarse up tensor or null;

@@ -434,6 +434,25 @@ def test_mix_chain_matches_plain(dev, dtype, hb, wb, cf, cin, ch0, widths):
     _close(y, fused_mix_chain_ref(x[..., ch0 : ch0 + c], steps), dtype)
 
 
+@pytest.mark.parametrize("hb,wb,cf,ch0", [(9, 15, 768, 0), (6, 10, 768, 512), (5, 7, 256, 0)])
+def test_mix_chain_s2d_matches_plain(dev, hb, wb, cf, ch0):
+    """bf16, s2d=True: the CondNet2 tail (natural 64 → 64 lrelu → 16, weights
+    w_s2d_1x1, biases b_s2d) on the row tile of csrc/chain_sm90.cuh, reading
+    the window [ch0, ch0 + 256) in place (pixels cf apart; ragged row
+    tiles), against the plain s2d form: one bf16 step (the middle value is
+    rounded at the same place)."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_mix_chain, fused_mix_chain_ref
+
+    rng = np.random.RandomState(hb * wb + ch0)
+    x = _t(rng.rand(hb, wb, cf) - 0.3, dev, "bf16")
+    steps = [(_t(w_s2d_1x1(rng.randn(1, 1, ci, co) * 0.1)[0, 0], dev, "bf16"), _t(b_s2d(rng.randn(co) * 0.1), dev),
+              act) for ci, co, act in ((64, 64, "lrelu"), (64, 16, None))]
+    before = native.launch_counts["mix_chain"]
+    y = fused_mix_chain(x, steps, cin=256, ch0=ch0, s2d=True)
+    assert native.launch_counts["mix_chain"] == before + 1
+    _close(y, fused_mix_chain_ref(x[..., ch0 : ch0 + 256], steps, s2d=True), "bf16")
+
+
 def _head_args(rng, dev, dtype, c1=256, c2=256, co=384):
     return (_t(rng.randn(6, max(c1, c2)) * 0.1, dev),
             _t(rng.randn(12, c1) * 0.2, dev, dtype), _t(rng.randn(c1) * 0.1, dev),
@@ -1348,6 +1367,33 @@ def test_int8_frame_matches_cpu(dev, monkeypatch):
     assert 10 * np.log10(1.0 / max(mse, 1e-20)) >= 36.9, float(d.mean())
 
 
+def test_int8_down2_frame_runs_the_s8_hopper_tile(dev, monkeypatch):
+    """One frame of the W8A8 checkpoint's default program with
+    HDRTV_INT8_DOWN2=1 under torch.profiler: its three int8 down convs run
+    the one quantize pass and the wgmma s8 tile at stride 2 each, and no int8
+    conv of the frame reaches the mma.sync tile of csrc/conv3x3_s8.cuh."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    monkeypatch.delenv("HDRTV_MEGAKERNEL", raising=False)
+    monkeypatch.setenv("HDRTV_INT8_DOWN2", "1")
+    proc = HDRTVNetTorch(os.path.join(os.path.dirname(__file__), "fixtures", "hr_w8a8.npz"))
+    frame = (np.random.RandomState(66).rand(64, 128, 3) * 255).astype(np.uint8)
+    proc.process_rgb48(frame)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        proc.process_rgb48(frame)
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert native.launch_counts["down2_w8a8"] == 3, native.launch_counts
+    assert sum(n for k, n in counts.items() if "quantize_planes_kernel" in k) == 3, counts
+    assert sum(n for k, n in counts.items() if "conv3x3_s8_kernel" in k) == 0, counts
+
+
 def test_int8_frame_runs_the_s8_hopper_tile(dev, monkeypatch):
     """One frame of the W8A8 checkpoint's default program under
     torch.profiler: every int8 conv of the frame runs on the wgmma s8 tile
@@ -1384,17 +1430,22 @@ def test_int8_frame_runs_the_s8_hopper_tile(dev, monkeypatch):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
-@pytest.mark.parametrize("hb,wb,cf,cin,ch0,branches", [
-    (12, 20, 128, None, 0, 1),
-    (10, 18, 768, 256, 512, 1),
-    (14, 12, 256, None, 0, 3),
+@pytest.mark.parametrize("hb,wb,cf,cin,ch0,branches,a_sub", [
+    (12, 20, 128, None, 0, 1, 0),
+    (10, 18, 768, 256, 512, 1, 1),
+    (14, 12, 256, None, 0, 3, 3),
+    (18, 132, 256, None, 0, 3, 3),
+    (14, 12, 768, 256, 256, 1, 0),
 ])
-def test_down2_w8a8_matches_plain(dev, dtype, asym, hb, wb, cf, cin, ch0, branches):
+def test_down2_w8a8_matches_plain(dev, dtype, asym, hb, wb, cf, cin, ch0, branches, a_sub):
     """down2's int8 body: the window quantized per branch with the same
     arithmetic and the exact int32 stride-2 sum, rescaled and biased by
     separately rounded operations on both sides: bit for bit, ragged pixel
     tiles, the channel window and three branches (each with its own scale,
-    zero and pad code) included."""
+    zero and pad code) included. In bf16 with a_sub ≥ 1 (C = 256) the one
+    quantize pass and the wgmma s8 tile at stride 2 (an odd output height
+    and two column tiles included), with a_sub = 0 the dense mma.sync tile;
+    a_sub = 1 with C = 128 raises in bf16 (the s8 tile takes C = 256)."""
     from hdrtv_tpu_torch.models.s2d import b_s2d
     from hdrtv_tpu_torch.ops.megakernel import fused_down2, fused_down2_q_ref
     from hdrtv_tpu_torch.ops.w8a8 import pack_qargs, pack_qargs_branches
@@ -1415,8 +1466,11 @@ def test_down2_w8a8_matches_plain(dev, dtype, asym, hb, wb, cf, cin, ch0, branch
     else:
         qa = pack_qargs(tq, tsc, scales[0], None if zeros is None else zeros[0], bnp, dev)
     w, b = _t(tq.astype(np.float32) * tsc, dev, dtype), _t(bnp, dev)
+    if dtype == "bf16" and c != 256:
+        with pytest.raises(ValueError, match="wgmma s8 tile takes"):
+            fused_down2(x, w, b, act="lrelu", cin=cin, ch0=ch0, qargs=qa, a_sub=1)
     before = native.launch_counts["down2_w8a8"], native.launch_counts["down2"]
-    y = fused_down2(x, w, b, act="lrelu", cin=cin, ch0=ch0, qargs=qa, a_sub=branches)
+    y = fused_down2(x, w, b, act="lrelu", cin=cin, ch0=ch0, qargs=qa, a_sub=a_sub)
     assert (native.launch_counts["down2_w8a8"], native.launch_counts["down2"]) == (before[0] + 1, before[1])
     y_r = fused_down2_q_ref(x[..., ch0 : ch0 + c], qa, act="lrelu")
     torch.cuda.synchronize()

@@ -191,13 +191,14 @@ def test_s2d_skip_is_visible(what):
 @pytest.mark.parametrize("weights", [WEIGHTS, INT8_WEIGHTS], ids=["float", "int8"])
 def test_mega_program_declares_s2d(weights, monkeypatch):
     """One 64 × 96 frame of the bf16 megakernel program (the float and the
-    pre-dequantized W8A8 checkpoint): both kernels are called once, with
-    s2d=True; the int8 tail keeps its int8 body (qargs_hr)."""
+    pre-dequantized W8A8 checkpoint): cond_chain, the tail and the mix_chain
+    CondNet2 tail are called once each, with s2d=True; the int8 tail keeps
+    its int8 body (qargs_hr)."""
     from hdrtv_tpu_torch.models import s2d as port_s2d
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     calls = {}
-    for name in ("fused_cond_chain", "fused_tail"):
+    for name in ("fused_cond_chain", "fused_tail", "fused_mix_chain"):
         def spy(*a, _fn=getattr(port_s2d, name), _name=name, **k):
             calls.setdefault(_name, []).append(k)
             return _fn(*a, **k)
@@ -209,20 +210,23 @@ def test_mega_program_declares_s2d(weights, monkeypatch):
     assert out.shape == (64, 96, 3) and out.dtype == np.uint16
     assert [k.get("s2d") for k in calls["fused_cond_chain"]] == [True]
     assert [k.get("s2d") for k in calls["fused_tail"]] == [True]
+    assert [k.get("s2d") for k in calls["fused_mix_chain"]] == [True]
     assert (calls["fused_tail"][0].get("qargs_hr") is not None) == (weights == INT8_WEIGHTS)
 
 
 @pytest.mark.parametrize("weights", [WEIGHTS, INT8_WEIGHTS], ids=["float", "int8"])
 def test_checkpoints_have_the_declared_structure(weights):
-    """The weights the program hands both kernels with s2d=True: each 1×1
-    four equal diagonal blocks and zeros elsewhere, each bias four equal
-    quarters, HR_conv2 zero outside the populated slots."""
+    """The weights the program hands cond_chain, the tail and mix_chain
+    with s2d=True: each 1×1 four equal diagonal blocks and zeros elsewhere,
+    each bias four equal quarters, HR_conv2 zero outside the populated
+    slots."""
     from hdrtv_tpu_torch.ops.megakernel import _s2d_slots_only
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     p = HDRTVNetTorch(weights, device="cpu").params
     names = ["LE.cond_first.2", "LE.cond_first.4", "LE.CondNet1.0", "LE.CondNet1.2", "LE.CondNet1.4"]
     names += [f"LE.SFT_layer2.SFT_{kind}_conv{i}" for kind in ("scale", "shift") for i in (0, 1)]
+    names += ["LE.CondNet2.2", "LE.CondNet2.4"]
     for name in names:
         w, b = p[f"{name}.weight"][0, 0], p[f"{name}.bias"]
         k, n = w.shape[0] // 4, w.shape[1] // 4
