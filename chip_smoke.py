@@ -41,11 +41,18 @@ lines; any failed check raises and the script exits non-zero with no result:
    differ at all (twice the share seen). cond_chain and the tail run in the
    s2d form the megakernel program calls (s2d=True, weights from the s2d
    transforms: in bf16 the Hopper row tile of csrc/chain_sm90.cuh for
-   cond_chain and the tail's SFT pass, and the Hopper conv tile over the slot
-   table for the tail's HR_conv2) against the plain version's s2d form, and in
+   cond_chain and the tail's SFT pass, the Hopper conv tile over the slot
+   table for the tail's HR_conv2, and conv_last's tile of csrc/conv_last.cuh
+   over w_last's populated slots) against the plain version's s2d form, and in
    bf16 once more in the dense form (s2d=False), a case no path launches,
    with the same tolerances; a "tail_split" line gives each bf16 form's three
    launches (SFT pass, HR_conv2, conv_last) timed apart under torch.profiler.
+   In bf16 the s2d tail runs once more unpacked, as the HG composite calls
+   it: y in bf16 within that code bound in value plus one bf16 step of y, on
+   at most TAIL_BF16_SHARE of the values, with its own "tail_split" line;
+   a "conv_last" line gives the third launch alone: its device ms (s2d and
+   dense), its bound, the plain version's time on the plain h, and F.conv2d's
+   on its conv part alone (no single PyTorch call packs).
    sft_conv3 and resblock likewise run in the s2d form both bf16 programs
    call (s2d=True: in bf16 the SFT passes on the row tile, resblock's SFT2
    reading the fp32 h1, the convs on the Hopper conv tile over the slot
@@ -83,12 +90,13 @@ lines; any failed check raises and the script exits non-zero with no result:
    int8-output mode, resblock's SFT1 writing the rounded sum and its SFT2
    reading the fp32 h1, the convs on the wgmma s8 tile of
    csrc/conv3x3_s8_sm90.cuh over the slot table, resblock's conv1 storing h1
-   in fp32), and block_conv3_w8a8 with the programs' a_sub = 1 (in bf16 the
-   quantize pass, then the s8 tile; up_conv2's odd 135 rows included),
-   symmetric and asymmetric, and in bf16 once more in the dense form, with
-   the same tolerances; "sft_conv3_w8a8_split", "tail_w8a8_split",
-   "resblock_w8a8_split" and "block_conv3_w8a8_split" lines give each bf16
-   case's launches apart.
+   in fp32), and block_conv3_w8a8 with the programs' a_sub = 1 (the quantize
+   pass, then the s8 tile, in fp32 through its fp32-output epilogue with the
+   trunk conv2s' fp32 skip; up_conv2's odd 135 rows included), symmetric and
+   asymmetric, and in bf16 once more in the dense form, with the same
+   tolerances; "sft_conv3_w8a8_split", "tail_w8a8_split" and
+   "resblock_w8a8_split" lines give each bf16 case's launches apart,
+   "block_conv3_w8a8_split" each case's in both types.
    The forms ported with the rest of the int8 slice: down2_w8a8 (down2's int8
    body) at the consolidated CondNet down conv (540 × 960 × 256 → 768, three
    branches) and at CondNet3.2/4.2's channel window, symmetric and with zero
@@ -529,7 +537,7 @@ def phase_kernels(torch, np) -> dict:
     )
     from hdrtv_tpu_torch.ops.pack import colorimetric_pq_pack, colorimetric_pq_pack_ref, pack_rgb48, pack_rgb48_ref
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3_q_ref
-    from hdrtv_tpu_torch.ops.megakernel import _sft_conv_t, _sft_t
+    from hdrtv_tpu_torch.ops.megakernel import _conv_same, _s2d_slots_only, _sft_conv_t, _sft_t
     from hdrtv_tpu_torch.ops.megakernel import fused_down2_q_ref
     from hdrtv_tpu_torch.ops.w8a8 import pack_qargs, pack_qargs_branches
     from hdrtv_tpu_torch.quant.int8 import quantize_weight
@@ -897,10 +905,13 @@ def phase_kernels(torch, np) -> dict:
             # h as the tail computes it: relu(HR_conv2(sft(round(s + d2s(up)))))
             s_sum = (s_.float() + up.reshape(hb // 2, wb // 2, 2, 2, 128).permute(0, 2, 1, 3, 4)
                      .reshape(hb, wb, 128).float()).to(dt)
-            h_max = float(fused_sft_conv3_v2_ref(s_sum, cond, sft, w_hr, targs[5], relu=True).float().abs().max())
+            h_plain = fused_sft_conv3_v2_ref(s_sum, cond, sft, w_hr, targs[5], relu=True)
+            h_max = float(h_plain.float().abs().max())
             del s_sum
         # the program's s2d form (bf16: the SFT on the row tile, HR_conv2 on the Hopper conv tile
-        # over the slot table), then in bf16 the dense form once (no path launches it)
+        # over the slot table, conv_last on its tile over w_last's populated slots), then in bf16
+        # the dense form once (no path launches it)
+        splits = {}
         for s2d in (True, False) if dtype == "bf16" else (True,):
             y = fused_tail(*targs, pack=True, up_coarse=up, s2d=s2d)
             y_r = fused_tail_ref(*targs, pack=True, up_coarse=up, s2d=s2d)
@@ -919,14 +930,53 @@ def phase_kernels(torch, np) -> dict:
                     f"{float(w_last.float().abs().max()):.4f}: bound {tol} codes; {share:.2e} of the codes differ")
                 if share > TAIL_BF16_SHARE:
                     raise AssertionError(f"tail bf16 s2d={s2d}: {share:.3e} of the codes differ > {TAIL_BF16_SHARE}")
-                log(json.dumps({"tail_split": {"dtype": dtype, "s2d": s2d,
-                                               **launch_split(lambda: fused_tail(*targs, pack=True, up_coarse=up,
-                                                                                 s2d=s2d), torch, TAIL_PARTS)}}))
-            record("tail", dtype, f"L0 fea0 + up_coarse -> packed u16 s2d={s2d}", (0, 0, 1) if s2d else (0, 0, 0),
-                   y.to(torch.int32), codes, tol, ms, plain, None,
+                splits[s2d] = launch_split(lambda: fused_tail(*targs, pack=True, up_coarse=up, s2d=s2d), torch,
+                                           TAIL_PARTS)
+                log(json.dumps({"tail_split": {"dtype": dtype, "s2d": s2d, **splits[s2d]}}))
+            record("tail", dtype, f"L0 fea0 + up_coarse -> packed u16 s2d={s2d}",
+                   {"bf16_mega": 1} if s2d else {}, y.to(torch.int32), codes, tol, ms, plain, None,
                    nbytes_of(s_, up, cond, skip, y, *params),
                    2 * (conv_macs(w_hr, hb, wb, 1) + conv_macs(w_last, hb, wb, 1)) + sft_flops(npix, sft)
                    + 4 * npix * 128 + 5 * npix * 12)
+        if dtype == "bf16":
+            # the HG composite's call: the same s2d form unpacked, y (540, 960, 12) in bf16; each y
+            # within the codes' bound in value (a flipped bf16 step of h under one window, doubled)
+            # plus one bf16 step of its own rounding, on at most TAIL_BF16_SHARE of the values
+            y = fused_tail(*targs, pack=False, up_coarse=up, s2d=True)
+            y_r = fused_tail_ref(*targs, pack=False, up_coarse=up, s2d=True)
+            if tuple(y.shape) != (hb, wb, 12) or y.dtype != dt:
+                raise AssertionError(f"tail unpacked output {tuple(y.shape)} {y.dtype}")
+            ms = time_ms(lambda: fused_tail(*targs, pack=False, up_coarse=up, s2d=True), torch)
+            plain = time_ms(lambda: fused_tail_ref(*targs, pack=False, up_coarse=up, s2d=True), torch)
+            log(json.dumps({"tail_split": {"dtype": dtype, "s2d": True, "pack": False,
+                                           **launch_split(lambda: fused_tail(*targs, pack=False, up_coarse=up,
+                                                                             s2d=True), torch, TAIL_PARTS)}}))
+            record("tail", dtype, "L0 fea0 + up_coarse -> y bf16 (HG) s2d=True", {"hg_bf16": 1}, y, y_r,
+                   2 * float(w_last.float().abs().max()) * step, ms, plain, None,
+                   nbytes_of(s_, up, cond, skip, y, *params),
+                   2 * (conv_macs(w_hr, hb, wb, 1) + conv_macs(w_last, hb, wb, 1)) + sft_flops(npix, sft)
+                   + 4 * npix * 128 + 3 * npix * 12, "flips", share=TAIL_BF16_SHARE)
+            # conv_last alone at this shape (the third launch of the s2d and dense forms above, by
+            # torch.profiler): its bound (h, skip and the packed output once; the populated slots'
+            # products at the bf16 rate), the plain version's time on the plain h, and F.conv2d's
+            # on its conv part alone (no single PyTorch call packs)
+            w_s = _s2d_slots_only(w_last)
+            b_last = targs[7]
+
+            def last_plain():
+                v = (_conv_same(h_plain.float(), w_s, b_last) + skip.float()).clamp(0.0, 1.0)
+                return (v * 65535.0 + 0.5).to(torch.int32).to(torch.uint16)
+
+            h_nchw = h_plain.permute(2, 0, 1)[None].contiguous()
+            w_oihw = w_last.permute(3, 2, 0, 1).contiguous()
+            lb_ms, lb_by = bound(nbytes_of(h_plain, skip, w_last, b_last) + 2 * npix * 12,
+                                 2 * conv_macs(w_last, hb, wb, 1), "bf16")
+            log(json.dumps({"conv_last": {
+                "ms": splits[True]["conv_last_ms"], "dense_ms": splits[False]["conv_last_ms"],
+                "plain_ms": round(time_ms(last_plain, torch), 4),
+                "conv2d_ms": round(time_ms(lambda: F.conv2d(h_nchw, w_oihw, b_last.to(dt), padding=1), torch), 4),
+                "bound_ms": round(lb_ms, 4), "bound_by": lb_by, "library": "none"}}))
+            del h_plain, h_nchw, w_oihw
         del s_, up, cond, skip, y, y_r, codes, targs
 
         # trunk3 at the /8 level: fea3 (135,240,32), cond4 (135,240,16) → 128. In bf16 the
@@ -1081,17 +1131,16 @@ def phase_kernels(torch, np) -> dict:
             plain = time_ms(lambda: fused_block_conv3_q_ref(x, qa, relu=relu, skip=sk), torch)
             # the same codes and exact sums: bit for bit, or one ulp of the epilogue
             tol = float(np.spacing(np.float32(max(1.0, float(y_r.float().abs().max()))))) if dtype == "f32" else 1
-            # the programs' route, a_sub = 1 (bf16: the quantize pass, then the wgmma s8 tile over
-            # the slot table; fp32 keeps the dense tile), then in bf16 the dense form once
+            # the programs' route, a_sub = 1 (the quantize pass, then the wgmma s8 tile over the slot
+            # table; fp32 through its fp32-output epilogue), then in bf16 the dense form once
             for a_sub in (1, 0) if dtype == "bf16" and not asym else (1,):
                 def call(a_sub=a_sub):
                     return fused_block_conv3(x, w, b, relu=relu, skip=sk, qargs=qa, a_sub=a_sub)
 
                 y = call()
                 ms = time_ms(call, torch)
-                if dtype == "bf16":
-                    log(json.dumps({"block_conv3_w8a8_split": {"case": name, "a_sub": a_sub,
-                                                               **launch_split(call, torch, QCONV_PARTS)}}))
+                log(json.dumps({"block_conv3_w8a8_split": {"dtype": dtype, "case": name, "a_sub": a_sub,
+                                                           **launch_split(call, torch, QCONV_PARTS)}}))
                 record("block_conv3_w8a8", dtype, f"{name} a_sub={a_sub}", per_path if a_sub else {}, y, y_r, tol,
                        ms, plain, None, nbytes_of(x, y, sk) + qbytes(qa), 2 * conv_macs(w, hb, wb, 1),
                        "abs" if dtype == "f32" else "steps", rate="int8")

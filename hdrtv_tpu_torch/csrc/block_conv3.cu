@@ -33,14 +33,18 @@
 // non-zero int8 products, 0.02 ms at the 1979 TOPS int8 rate, less than its
 // activations take at 3.35 TB/s). Two launches from one host call: a
 // quantize pass that writes x's codes once (1 byte a value) into scratch the
-// wrapper allocates, then the conv. Dense (a_sub = 0, and fp32): the
-// mma.sync int8 tile of conv3x3_s8.cuh, which fills out-of-image taps with
-// the layer's pad code. bf16 with a_sub = 1 (conv_s1 passes it; the int8
-// programs' up_conv2.0 at L2 and up_conv3.0 at L1, s2d C = 128 → Co = 512,
-// PS-folded): the wgmma s8 tile of conv3x3_s8_sm90.cuh over the slot table
-// the wrapper passes, 4 N tiles of 32 per output sub-position, the pad code
-// written over out-of-image box rows, bias, skip and ReLU in its epilogue,
-// stored by TMA inside the image (up_conv2's odd 135 rows included).
+// wrapper allocates, then the conv. Dense (a_sub = 0): the mma.sync int8
+// tile of conv3x3_s8.cuh, which fills out-of-image taps with the layer's
+// pad code. a_sub = 1 (conv_s1 passes it; s2d C = 128 → Co = 128 or 512):
+// the wgmma s8 tile of conv3x3_s8_sm90.cuh over the slot table the wrapper
+// passes, 4 N tiles of 32 per output sub-position, the pad code written
+// over out-of-image box rows, bias, skip and ReLU in its epilogue, stored
+// by TMA inside the image (up_conv2's odd 135 rows included): in bf16 the
+// int8 programs' up_conv2.0 at L2 and up_conv3.0 at L1 (PS-folded); in
+// fp32 all twelve calls of the int8 fp32 program (HR_conv1/2, the trunk
+// convs, the up convs), through the tile's fp32-output epilogue (y and the
+// trunk conv2s' skip in fp32, 128-byte output rows staged in its 128-byte
+// swizzle).
 // Quantizing on load inside the tile, which saves the codes' round trip, is
 // later work.
 //
@@ -68,13 +72,11 @@ int block_conv3(const void* x, const void* w, const void* b, const hdrtv::QuantP
     if (pool) return static_cast<int>(cudaErrorInvalidValue);
     const int act = relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE;
     if (q) {
-      if constexpr (std::is_same<T, hdrtv::bf16>::value) {
-        cudaError_t err = hdrtv::quantize<T>(x, codes, static_cast<long long>(H) * W * C, *q, s);
-        if (err == cudaSuccess) err = hdrtv::conv3x3_s8_sm90(codes, *q, skip, y, H, W, C, Co, act, table, per_list, s);
-        return static_cast<int>(err);
-      } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
+      cudaError_t err = hdrtv::quantize<T>(x, codes, static_cast<long long>(H) * W * C, *q, s);
+      if (err == cudaSuccess)
+        err = hdrtv::conv3x3_s8_sm90(codes, *q, skip, y, H, W, C, Co, act, table, per_list, s, nullptr,
+                                     std::is_same<T, float>::value);
+      return static_cast<int>(err);
     }
     if constexpr (std::is_same<T, hdrtv::bf16>::value)
       return static_cast<int>(hdrtv::conv3x3_sm90<1>(x, w, static_cast<const float*>(b), skip, y, H, W, C, 0, C,
@@ -98,7 +100,7 @@ int block_conv3(const void* x, const void* w, const void* b, const hdrtv::QuantP
 // pool_out form, y (H/2, W/2, Co). table: null, or (without pool only) the
 // chunk lists of conv3x3_sm90.cuh for a_sub, per_list entries each, which
 // send the call to the Hopper tile (bf16) or its 3×TF32 sibling (fp32), or
-// with q (bf16, a_sub = 1) to the wgmma s8 tile.
+// with q (a_sub = 1, either type) to the wgmma s8 tile.
 extern "C" int hdrtv_block_conv3_f32(const void* x, const void* w, const void* b, const void* q,
                                      const void* skip, void* y, void* codes, int H, int W, int C,
                                      int Co, int relu, int pool, int a_sub, const int* table,

@@ -7,7 +7,8 @@
 //   fused_tail :468-469, fused_resblock :988-1004, all on _taps_conv_q
 //   :1358) when the caller declares the weights s2d (ops/megakernel.py,
 //   s2d=True), and block_conv3_w8a8's when it declares a_sub = 1
-//   (hdrtv_tpu/ops/conv_kernels.py :180-227; ops/conv_kernels.py);
+//   (hdrtv_tpu/ops/conv_kernels.py :180-227; ops/conv_kernels.py), in bf16
+//   and, the int8 fp32 program's twelve calls, in fp32;
 // - stride 2, pad (1,0), C = 256: down2_w8a8's (the Pallas _down2_kernel's
 //   `quant` body, hdrtv_tpu/ops/megakernel.py:608-705) when the caller
 //   declares a_sub ≥ 1 (1, or 3 for the consolidated CondNet down conv,
@@ -21,7 +22,8 @@
 // (__fmul_rn, __fadd_rn: no contraction into an FMA), then the skip added
 // (__fadd_rn), the activation, one rounding to bf16; or, in the fp32-output
 // form (resblock_w8a8's conv1, whose h1 the Pallas body carries into SFT2
-// in fp32), no skip and no rounding: y stored as fp32. Where the codes
+// in fp32, and block_conv3_w8a8 in fp32, whose trunk conv2s add an fp32
+// skip), no rounding: y stored as fp32. Where the codes
 // agree the result equals the plain version bit for bit: an s32 sum has no
 // order.
 //
@@ -92,7 +94,8 @@
 // the loop, else ptxas waits for each step's products before the next.
 //
 // Epilogue, after a tile's last step: all its products done, each thread
-// takes its pairs (acc·yscale, then + bias, + skip read as 4-byte pairs,
+// takes its pairs (acc·yscale, then + bias, + skip, its 4-byte bf16 or
+// 8-byte fp32 pairs read before the wait for the tile's products,
 // the activation, one rounding) and writes them into the stage, in the
 // swizzle of the output's TMA map (s8_stage_out): 64 bytes a pixel (BN = 32
 // bf16) or 128 (BN = 64 bf16, and the fp32 form's 32 channels); thread 0
@@ -111,13 +114,14 @@
 // writes 133 MB of h (0.059 ms at 3.35 TB/s), against 38 GOP of non-zero
 // int8 products (0.019 ms at 1979 TOPS); resblock_w8a8's conv1 at L1 reads
 // 17 MB and writes 66 MB of fp32 h1; block_conv3_w8a8's up_conv3 reads 17
-// MB and writes 133 MB; down2_w8a8's consolidated CondNet down conv reads
+// MB and writes 133 MB (266 MB in fp32: the int8 fp32 program's twelve
+// calls move 2.3 GB a frame, 0.69 ms); down2_w8a8's consolidated CondNet down conv reads
 // three code planes, 398 MB, and writes 199 MB (0.178 ms), against 115 GOP.
 // Where the time goes: tools/sm90_phases.py, PERF.md §5.
 //
 // Requirements (the launchers return cudaErrorInvalidValue otherwise):
 // stride 1: C = 128, natural 32 channels, Co/4 a multiple of 32 (128 → 128
-// and the PS-folded 128 → 512), one branch, no skip with fp32 output;
+// and the PS-folded 128 → 512), one branch;
 // stride 2: C = 256, natural 64 channels, a_sub 1 or 3, Co/(4·a_sub) a
 // multiple of 64, 1 or a_sub branches, even H and W, bf16 output without a
 // skip. Both: the table's four lists of 9·C/128 chunks, 16-byte aligned
@@ -165,7 +169,7 @@ struct S8Sm90Args {
   const float* yscale[kMaxBranches];   // (Co/nb)
   const float* bias[kMaxBranches];     // (Co/nb): the folded bias
   int pad[kMaxBranches];               // branch bi's pad code
-  const bf16* skip;     // (Ho, Wo, Co) or nullptr
+  const void* skip;     // (Ho, Wo, Co) or nullptr: bf16, fp32 in the fp32-output form
   int H, W, Ho, Wo, C, Co, act;
   int co_br;            // output channels of one branch, Co / nb
   int co_blk;           // of one s2d block, Co / a_sub
@@ -250,7 +254,6 @@ __device__ __forceinline__ int s8_stage_out(int wg) { return wg * kSm90TW * 128;
 
 template <int S, bool SKIP, bool F32OUT>
 __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_s8_sm90_kernel(const __grid_constant__ S8Sm90Args a) {
-  static_assert(!(SKIP && F32OUT), "the fp32-output form has no skip");
   using Cfg = S8Sm90Cfg<S>;
   constexpr int BH = kS8Sm90BH, BN = Cfg::BN, NS = Cfg::NS, D = NS - 2, NJ = BN / 8;
   static_assert(!F32OUT || BN == 32, "the fp32 output rows are 128 bytes: 32 channels");
@@ -423,6 +426,22 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_s8_sm90_kernel(const 
     } else {
       // The tile's last step: finish its products, store, start the next
       // tile from zero. The next tile's first loads are in flight meanwhile.
+      // This thread's skip pairs are read before the products' wait, so
+      // that their latency runs under it (read in the epilogue, one pair
+      // at a time, they doubled the fp32 trunk conv2's time).
+      using ST = typename std::conditional<F32OUT, float, bf16>::type;
+      [[maybe_unused]] float2 skv[2][NJ];
+      if constexpr (SKIP) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = warp * 16 + h * 8 + (lane >> 2);
+          const bool ok = h0 + wg < a.Ho && w0 + p < a.Wo;
+          const ST* const sp = static_cast<const ST*>(a.skip) +
+                               (static_cast<long long>(h0 + wg) * a.Wo + w0 + p) * a.Co + n0 + q * 2;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) skv[h][j] = ok ? load2<ST>(sp + j * 8) : make_float2(0.f, 0.f);
+        }
+      }
       wgmma_wait<0>();
       fence_iregs(acc);
       PHASE(4)
@@ -438,19 +457,11 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_s8_sm90_kernel(const 
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int p = warp * 16 + h * 8 + (lane >> 2);
-        const int ho = h0 + wg, wo = w0 + p;
-        const bool ok = ho < a.Ho && wo < a.Wo;
-        const long long at = (static_cast<long long>(ho) * a.Wo + wo) * a.Co + n0 + q * 2;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           float2 v = make_float2(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), ysr[j].x), bsr[j].x),
                                  __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), ysr[j].y), bsr[j].y));
-          if constexpr (SKIP) {
-            if (ok) {
-              const float2 sv = load2<bf16>(a.skip + at + j * 8);
-              v = make_float2(__fadd_rn(v.x, sv.x), __fadd_rn(v.y, sv.y));
-            }
-          }
+          if constexpr (SKIP) v = make_float2(__fadd_rn(v.x, skv[h][j].x), __fadd_rn(v.y, skv[h][j].y));
           if constexpr (F32OUT) {
             *reinterpret_cast<float2*>(st + p * 128 + (((2 * j + (q >> 1)) ^ (p & 7)) << 4) + (q & 1) * 8) =
                 make_float2(apply_act(v.x, a.act), apply_act(v.y, a.act));
@@ -592,7 +603,7 @@ cudaError_t s8_sm90_setup(S8Sm90Args& a, const void* q, long long plane, const Q
                           const int* table, int per_list, bool f32_out) {
   using Cfg = S8Sm90Cfg<S>;
   if (!table || C != Cfg::C || per_list != Cfg::LIST || a_sub < 1 || Co % (4 * a_sub * Cfg::BN) || nb < 1 ||
-      nb > kMaxBranches || (nb != 1 && nb != a_sub) || H < 1 || W < 1 || H % S || W % S || (f32_out && skip) ||
+      nb > kMaxBranches || (nb != 1 && nb != a_sub) || H < 1 || W < 1 || H % S || W % S ||
       (S == 2 && (skip || f32_out || (a_sub != 1 && a_sub != 3))) || (S == 1 && (a_sub != 1 || nb != 1)))
     return cudaErrorInvalidValue;
   for (int bi = 0; bi < nb; ++bi) {
@@ -601,7 +612,7 @@ cudaError_t s8_sm90_setup(S8Sm90Args& a, const void* q, long long plane, const Q
     a.bias[bi] = p[bi].bias;
     a.pad[bi] = p[bi].pad;
   }
-  a.skip = static_cast<const bf16*>(skip);
+  a.skip = skip;
   a.H = H;
   a.W = W;
   a.Ho = H / S;
@@ -641,8 +652,8 @@ cudaError_t launch_s8_sm90(const S8Sm90Args& a, cudaStream_t stream) {
 }
 
 // The int8 'same' conv of codes q (H, W, C) with the layer p, s2d form: y =
-// act(conv + bias (+ skip)) in bf16, or with f32_out act(conv + bias) in
-// fp32 (no skip), walking `table` (four lists, one per output sub-position,
+// act(conv + bias (+ skip)) in bf16, or with f32_out in fp32 (skip fp32
+// too), walking `table` (four lists, one per output sub-position,
 // per_list entries each). `args`: where to build the launch's arguments
 // (tools/sm90_s8_phases.cu passes its own, with the timers' array set); by
 // default on the stack.
@@ -653,7 +664,7 @@ inline cudaError_t conv3x3_s8_sm90(const void* q, const QuantParams& p, const vo
   S8Sm90Args& a = args ? *args : own;
   const cudaError_t err = s8_sm90_setup<1>(a, q, 0, &p, 1, skip, y, H, W, C, Co, 1, act, table, per_list, f32_out);
   if (err != cudaSuccess) return err;
-  if (f32_out) return launch_s8_sm90<1, false, true>(a, stream);
+  if (f32_out) return skip ? launch_s8_sm90<1, true, true>(a, stream) : launch_s8_sm90<1, false, true>(a, stream);
   return skip ? launch_s8_sm90<1, true, false>(a, stream) : launch_s8_sm90<1, false, false>(a, stream);
 }
 

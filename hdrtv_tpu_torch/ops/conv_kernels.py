@@ -23,13 +23,15 @@ non-zero (tap, input sub-position) slots of each output sub-position
 ``csrc/conv3x3_tf32x3.cuh`` (each product split into three TF32 products on
 the tensor cores, fp32-accurate). Exact, since the skipped products are
 exact zeros. 0 is the dense product, right for any weight: bf16 on the same
-Hopper tile, fp32 on the FMA tile of ``csrc/conv3x3.cuh``. The int8 form in
-bf16 with ``a_sub`` = 1 (the int8 programs' up_conv2.0 and up_conv3.0, C =
-128 → Co = 512) quantizes x once and runs the wgmma s8 tile of
+Hopper tile, fp32 on the FMA tile of ``csrc/conv3x3.cuh``. The int8 form
+with ``a_sub`` = 1 (the bf16 int8 programs' up_conv2.0 and up_conv3.0, C =
+128 → Co = 512, and in fp32 all twelve calls of the int8 fp32 program, C =
+128 → 128 or 512) quantizes x once and runs the wgmma s8 tile of
 ``csrc/conv3x3_s8_sm90.cuh`` over the same slot table
-(:func:`s8_sm90_table`; other widths raise); fp32, ``a_sub`` = 0 and the
-``pool_out`` forms stay dense (the same result on such weights), and so do
-the plain versions, which hold the skip to account. :func:`conv_chunks` is
+(:func:`s8_sm90_table`; other widths raise), in fp32 through its
+fp32-output epilogue; ``a_sub`` = 0 and the ``pool_out`` forms stay dense
+(the same result on such weights), and so do the plain versions, which hold
+the skip to account. :func:`conv_chunks` is
 the K walk the tiles take, shared with ``ops/megakernel.py fused_down2``.
 """
 
@@ -117,7 +119,7 @@ S8_SM90 = {1: (128, (1,), CHUNK), 2: (256, (1, 3), 2 * CHUNK)}
 
 
 def s8_sm90_table(name: str, a_sub: int, c: int, co: int, stride: int = 1):
-    """What a bf16 int8 call with ``a_sub`` ≥ 1 hands the wgmma s8 tile of
+    """What an int8 call with ``a_sub`` ≥ 1 hands the wgmma s8 tile of
     csrc/conv3x3_s8_sm90.cuh: the slot table of ``stride`` (``sm90_table``,
     a chunk is 32 channels in either type) and its list length. The tile
     takes, at stride 1, ``a_sub`` = 1 with C = 128 and Co a multiple of 128
@@ -178,8 +180,8 @@ def fused_block_conv3(
     (3, 3, C, Co). The kernel takes C a multiple of 16 and Co of 4 (the s2d
     callers route C, Co multiples of 128 here). ``qargs``: the layer's int8
     parameters, prepared at load from this ``w`` and ``b``; the int8 body
-    reads them in place of ``w`` and ``b`` (C % 64, Co % 8 on the card; in
-    bf16 with ``a_sub`` ≥ 1 the wgmma s8 tile's C = 128, Co % 128).
+    reads them in place of ``w`` and ``b`` (C % 64, Co % 8 on the card; with
+    ``a_sub`` ≥ 1 the wgmma s8 tile's C = 128, Co % 128).
     ``pool_out``: the 2×2 max pool of the result, (Hb/2, Wb/2, Co); Hb and Wb
     must be even, as in the JAX kernel. ``a_sub``: 0 or the number of
     s2d-structured blocks along Co (1; 2 for the consolidated input conv):
@@ -206,7 +208,7 @@ def fused_block_conv3(
     table, per_group = None, 0
     if qargs is None and not pool_out:
         table, per_group = sm90_table("block_conv3", 1, a_sub, c, co, c, dtype=dt)
-    elif not pool_out and a_sub and dt == torch.bfloat16:
+    elif not pool_out and a_sub:
         table, per_group = s8_sm90_table("block_conv3", a_sub, c, co)
     native.check_cuda("block_conv3 x", x, dt)
     native.check_cuda("block_conv3 w", w, dt, (3, 3, c, co))

@@ -510,6 +510,28 @@ def _s2d_slots_only(w: torch.Tensor) -> torch.Tensor:
     return torch.where(full.to(w.device), w, torch.zeros((), dtype=w.dtype, device=w.device))
 
 
+@functools.lru_cache(maxsize=1)
+def conv_last_walk() -> ctypes.Array:
+    """What conv_last's Hopper tile (csrc/conv_last.cuh conv_last_sm90_kernel)
+    multiplies: the 16 (tap, input sub-position) slots that some output
+    sub-position of a ``w_s2d_s1`` weight reads (``models/s2d.py
+    s2d_slots(1)``), in (tap, si) order, each with the output sub-positions
+    it feeds, as a ctypes int array of entries tap | si << 4 | so mask << 8
+    (36 (slot, so) pairs; the launcher refuses any other list)."""
+    from hdrtv_tpu_torch.models.s2d import s2d_slots  # models/s2d.py imports this module
+
+    masks: dict[tuple[int, int], int] = {}
+    for so, slots in enumerate(s2d_slots(1)):
+        for slot in slots:
+            masks[slot] = masks.get(slot, 0) | 1 << so
+    entries = [tap | si << 4 | masks[tap, si] << 8 for tap, si in sorted(masks)]
+    return (ctypes.c_int * len(entries))(*entries)
+
+
+# The widths conv_last's Hopper tile is built for: h 128 channels (natural 32), 12 outputs (natural 3).
+CONV_LAST_S2D_WIDTHS = (128, 12)
+
+
 def fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last, *, pack=True, up_coarse=None,
                    qargs_hr=None, s2d=False):
     """Plain version, the body of the Pallas ``_tail_kernel``: with
@@ -522,16 +544,16 @@ def fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last, *, pac
     ``qargs_hr`` (the int8 body) t stays fp32 and is quantized for HR_conv2;
     h is rounded to the element type as in the float body. ``s2d``: the SFT
     multiplies its weights' first diagonal blocks only
-    (:func:`_sft_t_rows`), and the float HR_conv2 only the populated s2d
-    slots of ``w_hr`` (:func:`_s2d_slots_only`), as the kernel's s2d form
-    does."""
+    (:func:`_sft_t_rows`), the float HR_conv2 only the populated s2d slots
+    of ``w_hr`` and conv_last those of ``w_last`` (:func:`_s2d_slots_only`),
+    as the kernel's s2d form does."""
     dt = s.dtype
     sf = s.float()
     if up_coarse is not None:
         sf = _rounded(sf + _d2s_fine(up_coarse).float(), dt)
     hacc = _sft_conv_t(sf, cond1.to(dt).float(), sft_small, w_hr, b_hr, qargs_hr, dt, s2d)
     h = _rounded(torch.clamp_min(hacc, 0.0), dt)
-    y = _conv_same(h, w_last, b_last) + skip.float()
+    y = _conv_same(h, _s2d_slots_only(w_last) if s2d else w_last, b_last) + skip.float()
     if not pack:
         return y.to(dt)
     u = (y.clamp(0.0, 1.0) * 65535.0 + 0.5).to(torch.int32).to(torch.uint16)
@@ -562,18 +584,21 @@ def fused_tail(
     int8 body, ``tail_w8a8``; they stand in for ``w_hr`` and ``b_hr``).
 
     ``s2d`` declares the SFT weights ``w_s2d_1x1(w)``, their biases
-    ``b_s2d(b)`` and ``w_hr`` ``w_s2d_s1(w)`` (``models/s2d.py``; the frame
-    programs pass True): the SFT then multiplies the rows of natural pixels
-    by each weight's first diagonal block and HR_conv2 only the populated
-    s2d slots. bf16 on the card: the SFT on the Hopper row tile of
-    ``csrc/chain_sm90.cuh`` (natural widths CC 16, C 32; others raise) and
-    HR_conv2 over the slot table (``ops/conv_kernels.py sm90_table``) on
-    ``csrc/conv3x3_sm90.cuh``'s tile, or with ``qargs_hr`` the SFT in its
-    int8-output mode and HR_conv2 on the wgmma s8 tile of
-    ``csrc/conv3x3_s8_sm90.cuh``; fp32 keeps the dense kernels, the same
-    function on such weights. The plain version honours it too (the int8
-    conv's sum over the populated slots alone equals its dense sum on such
-    weights). False: dense, right for any weight."""
+    ``b_s2d(b)``, and ``w_hr`` and ``w_last`` ``w_s2d_s1(w)``
+    (``models/s2d.py``; the frame programs pass True): the SFT then
+    multiplies the rows of natural pixels by each weight's first diagonal
+    block, and HR_conv2 and conv_last only the populated s2d slots. bf16 on
+    the card: the SFT on the Hopper row tile of ``csrc/chain_sm90.cuh``
+    (natural widths CC 16, C 32; others raise), HR_conv2 over the slot table
+    (``ops/conv_kernels.py sm90_table``) on ``csrc/conv3x3_sm90.cuh``'s
+    tile, or with ``qargs_hr`` the SFT in its int8-output mode and HR_conv2
+    on the wgmma s8 tile of ``csrc/conv3x3_s8_sm90.cuh``, and in either body
+    conv_last on its Hopper tile (``csrc/conv_last.cuh``, the 16 slots of
+    :func:`conv_last_walk`; widths other than CONV_LAST_S2D_WIDTHS raise);
+    fp32 keeps the dense kernels, the same function on such weights. The
+    plain version honours it too (the int8 conv's sum over the populated
+    slots alone equals its dense sum on such weights). False: dense, right
+    for any weight."""
     hb, wb, c = s.shape
     cc = cond1.shape[-1]
     cl = w_last.shape[-1]
@@ -591,6 +616,7 @@ def fused_tail(
     if s2d:
         _check_s2d_1x1("tail", sft_small)
         check_a_sub("tail", 1, c, c)
+        check_a_sub("tail conv_last", 1, c, cl)
     if cpu:
         return fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last,
                               pack=pack, up_coarse=up_coarse, qargs_hr=qargs_hr, s2d=s2d)
@@ -606,6 +632,8 @@ def fused_tail(
     if up_coarse is not None:
         native.check_cuda("tail up_coarse", up_coarse, dt)
     hopper, table, per_list = _sft_hopper("tail", s2d, dt, cc, c, c)
+    if hopper and (c, cl) != CONV_LAST_S2D_WIDTHS:
+        raise ValueError(f"tail: conv_last's s2d tile takes (C, Cl) = {CONV_LAST_S2D_WIDTHS}, got {(c, cl)}")
     t = torch.empty((hb, wb, c), dtype=dt if qargs_hr is None else torch.int8, device=s.device)  # t or its codes
     h = torch.empty((hb, wb, c), dtype=dt, device=s.device)
     if pack:
@@ -616,8 +644,9 @@ def fused_tail(
         "tail", dt,
         s.data_ptr(), None if up_coarse is None else up_coarse.data_ptr(), cond1.data_ptr(),
         skip.data_ptr(), native.pointer_array(flat), w_hr.data_ptr(), b_hr.data_ptr(),
-        native.quant_params(qargs_hr), w_last.data_ptr(), b_last.data_ptr(), out.data_ptr(), t.data_ptr(),
-        h.data_ptr(), hb, wb, c, cc, cl, int(pack), hopper, table, per_list, native.stream_of(s),
+        native.quant_params(qargs_hr), w_last.data_ptr(), b_last.data_ptr(), conv_last_walk() if hopper else None,
+        out.data_ptr(), t.data_ptr(), h.data_ptr(), hb, wb, c, cc, cl, int(pack), hopper, table, per_list,
+        native.stream_of(s),
         counter=None if qargs_hr is None else "tail_w8a8",
     )
     return out

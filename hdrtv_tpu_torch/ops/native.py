@@ -138,7 +138,7 @@ def lib() -> ctypes.CDLL:
         "hdrtv_mix_chain": ([p, p, p, p, p, p, p, i, i, i, i, i, p], i),
         "hdrtv_agcm_head": ([p, i, f, p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p], i),
         "hdrtv_cond_chain": ([p, p, p, p, p, p, p, p, i, i, p], i),
-        "hdrtv_tail": ([p, p, p, p, p, p, p, q, p, p, p, p, p, i, i, i, i, i, i, i, p, i, p], i),
+        "hdrtv_tail": ([p, p, p, p, p, p, p, q, p, p, p, p, p, p, i, i, i, i, i, i, i, p, i, p], i),
         "hdrtv_hg_tail": ([p, p, p, p, p, p, p, p, p, i, i, i, i, p], i),
         "hdrtv_colorimetric": ([p, p, ll, *([f] * 16), p], i),
     }

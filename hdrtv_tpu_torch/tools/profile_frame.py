@@ -22,12 +22,12 @@ forms of the tail, sft_conv3 and resblock in bf16 (all its epilogue
 instances) and in fp32 on 3×TF32, SFT passes, 1×1 chains (and their Hopper
 row tiles: mix_chain's, cond_chain's, the SFT one with bf16 or fp32 x), the
 head's two kernels (and its s2d form's two: the AGCM row tile and the input
-conv's wgmma tile), conv_last, pack, the HG tail, the int8 conv tiles
-(mma.sync, and the s2d forms' wgmma s8 tile at both strides) and quantize
-passes (one a layer, and down2_w8a8's one into every branch's plane)). The
-last two lines are the card's
-name and power limit as nvidia-smi gives them, and the same breakdown as
-JSON. Needs a CUDA device.
+conv's wgmma tile), conv_last (dense, and the s2d form's Hopper tile),
+pack, the HG tail, the int8 conv tiles (mma.sync, and the s2d forms' wgmma
+s8 tile at both strides) and quantize passes (one a layer, and
+down2_w8a8's one into every branch's plane)). The last two lines are the
+card's name and power limit as nvidia-smi gives them, and the same
+breakdown as JSON. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ GROUPS = (
     ("port kernels", ("conv3x3_kernel", "conv3x3_mma_kernel", "conv3x3_sm90_kernel", "conv3x3_tf32x3_kernel",
                       "sft_kernel", "chain_kernel", "sft_sm90_kernel", "mix_chain_sm90_kernel", "chain_sm90_kernel",
                       "pack_rgb48_kernel", "agcm_kernel", "in_conv_kernel", "agcm_sm90_kernel",
-                      "in_conv_sm90_kernel", "conv_last_kernel",
+                      "in_conv_sm90_kernel", "conv_last_kernel", "conv_last_sm90_kernel",
                       "hg_tail_mma_kernel", "hg_tail_fma_kernel", "colorimetric_kernel",
                       "conv3x3_s8_kernel", "conv3x3_s8_sm90_kernel", "quantize_kernel", "quantize_planes_kernel")),
     ("cudnn conv", ("cudnn", "conv", "implicit_gemm", "xmma_fprop", "winograd")),

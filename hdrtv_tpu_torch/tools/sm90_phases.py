@@ -1,6 +1,6 @@
 """Where the Hopper conv tiles spend their time: in-kernel phase timers.
 
-    python -m hdrtv_tpu_torch.tools.sm90_phases
+    python -m hdrtv_tpu_torch.tools.sm90_phases [--only conv,agcm,s8,s8_s2,last]
 
 Builds ``tools/sm90_phases.cu`` (the bf16 tile of ``csrc/conv3x3_sm90.cuh``
 and the fp32 3×TF32 tile of ``csrc/conv3x3_tf32x3.cuh``, with their
@@ -57,10 +57,17 @@ the meeting and the 16-byte stores). Then resblock_w8a8's s2d forms at its
 L1 shape (270 × 480): conv1 on the s8 tile with its fp32-output epilogue
 (h1 unrounded, staged in the 128-byte swizzle and stored by TMA) beside
 conv2's bf16 output, and SFT2 in the int8-output mode on the fp32 h1
-beside the same pass on bf16 x. Then down2_w8a8's stride-2 form of the s8
-tile at the consolidated CondNet down conv (three branches' code planes)
-and at CondNet3.2, symmetric and with zero points (a step is one box of a
-tap's 64 or 128 bytes a pixel).
+beside the same pass on bf16 x; and block_conv3_w8a8's fp32 calls on the
+s8 tile's fp32-output epilogue (L1 trunk conv2 with its fp32 skip, conv1,
+up_conv3). Then down2_w8a8's stride-2 form of the s8 tile at the
+consolidated CondNet down conv (three branches' code planes) and at
+CondNet3.2, symmetric and with zero points (a step is one box of a tap's
+64 or 128 bytes a pixel).
+
+Then the tail's conv_last (``tools/sm90_last_phases.cu``) at 1080p, packed
+and unpacked: the dense kernel (``csrc/conv_last.cuh conv_last_kernel``)
+and the s2d form's Hopper tile (``conv_last_sm90_kernel``), per warp (see
+:func:`last_phases`).
 
 After its build it prints the build's ptxas notes that name a wgmma
 serialization or an injected wait (the ``C75`` codes, C7517 among them),
@@ -87,6 +94,7 @@ from hdrtv_tpu_torch.ops.conv_kernels import sm90_table
 SRC = Path(__file__).resolve().parent / "sm90_phases.cu"
 SRC_AGCM = Path(__file__).resolve().parent / "sm90_agcm_phases.cu"
 SRC_S8 = Path(__file__).resolve().parent / "sm90_s8_phases.cu"
+SRC_LAST = Path(__file__).resolve().parent / "sm90_last_phases.cu"
 PHASES = {"bf16": ["total", "wait B", "wait A", "meet", "products", "epilogue", "B stream"],
           "f32": ["total", "split A", "wait A", "meet", "products", "epilogue", "B load"]}
 # (name, stride, Hb, Wb, C, Co, a_sub): up_conv3/2 (PS-folded, block_conv3), the
@@ -112,10 +120,11 @@ def build() -> ctypes.CDLL:
     so = out / "libsm90_phases.so"
     if not so.exists():
         out.mkdir(parents=True, exist_ok=True)
-        res = subprocess.run([native._nvcc(), *native.ARCH_FLAGS, *native.NVCC_FLAGS, "-shared", "-o", str(so), str(SRC),
-                              str(SRC_AGCM), str(SRC_S8)], capture_output=True, text=True)
+        srcs = (SRC, SRC_AGCM, SRC_S8, SRC_LAST)
+        res = subprocess.run([native._nvcc(), *native.ARCH_FLAGS, *native.NVCC_FLAGS, "-shared", "-o", str(so),
+                              *map(str, srcs)], capture_output=True, text=True)
         if res.returncode:
-            raise RuntimeError(f"nvcc failed on {SRC.name}, {SRC_AGCM.name} or {SRC_S8.name}:\n{res.stdout}{res.stderr}")
+            raise RuntimeError(f"nvcc failed on {', '.join(p.name for p in srcs)}:\n{res.stdout}{res.stderr}")
         (out / "build.log").write_text(res.stdout + res.stderr)
     notes = [ln.strip() for ln in (out / "build.log").read_text().splitlines() if "C75" in ln] \
         if (out / "build.log").exists() else ["(no build log: built by an earlier version of this tool)"]
@@ -127,12 +136,14 @@ def build() -> ctypes.CDLL:
     lib.hdrtv_sm90_agcm_phases.argtypes = [p, i, ctypes.c_float, p, i] + [p] * 7 + [i, i, p, p]
     lib.hdrtv_sm90_agcm_phases.restype = i
     f = ctypes.c_float
-    lib.hdrtv_sm90_s8_phases.argtypes = [p, p, p, p, f, f, i, p] + [i] * 5 + [p, i, i, p, p]
+    lib.hdrtv_sm90_s8_phases.argtypes = [p, p, p, p, f, f, i, p, p] + [i] * 5 + [p, i, i, p, p]
     lib.hdrtv_sm90_s8_phases.restype = i
     lib.hdrtv_sm90_s8_s2_phases.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, i, p] + [i] * 6 + [p, i, p, p]
     lib.hdrtv_sm90_s8_s2_phases.restype = i
     lib.hdrtv_sm90_sft_phases.argtypes = [p, p, p, p, p, i, i, i, i, p, f, f, i, i, p, p]
     lib.hdrtv_sm90_sft_phases.restype = i
+    lib.hdrtv_conv_last_phases.argtypes = [p] * 5 + [i] * 5 + [p, p, p]
+    lib.hdrtv_conv_last_phases.restype = i
     return lib
 
 
@@ -156,7 +167,10 @@ def s8_phases(lib, dev, rng) -> None:
     SFT pass on the row tile, int8-output and bf16, seeded s2d weights, one
     layer calibrated symmetric and one with a zero point; then
     resblock_w8a8's L1 shape (270 × 480): its convs (fp32 and bf16 output)
-    and SFT2 (fp32 x, int8-output) beside the bf16-x pass."""
+    and SFT2 (fp32 x, int8-output) beside the bf16-x pass; then
+    block_conv3_w8a8's fp32 calls on the tile's fp32-output epilogue: L1
+    trunk conv2 with its fp32 skip beside conv1 without, and L1 up_conv3
+    (128 → 512)."""
     from hdrtv_tpu_torch.models.s2d import b_s2d, w_s2d_1x1, w_s2d_s1
     from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
     from hdrtv_tpu_torch.quant.int8 import quantize_weight
@@ -169,16 +183,18 @@ def s8_phases(lib, dev, rng) -> None:
     layers = {"sym": pack_qargs(w_s2d_s1(wq), b_s2d(ws), 0.01, None, b, dev),
               "asym": pack_qargs(w_s2d_s1(wq), b_s2d(ws), 0.01, -0.3, b, dev)}
 
-    def conv(name, h, w, out_dt, act):
+    def conv(name, h, w, out_dt, act, skip=False, layers=layers, co=c):
         codes = torch.as_tensor(rng.randint(-128, 128, size=(h, w, c)).astype(np.int8), device=dev)
-        y = torch.empty(h, w, c, device=dev, dtype=out_dt)
+        y = torch.empty(h, w, co, device=dev, dtype=out_dt)
+        sk = torch.rand(h, w, co, device=dev).to(out_dt) if skip else None
+        tab, per = sm90_table(name, 1, 1, c, co, c)
         for cal, qa in layers.items():
             phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
             for _ in range(3):  # warm: the last run's sums are read
                 rc = lib.hdrtv_sm90_s8_phases(codes.data_ptr(), qa.w.data_ptr(), qa.yscale.data_ptr(),
-                                              qa.bias.data_ptr(), qa.scale, qa.zero or 0.0, qa.pad, y.data_ptr(), h, w,
-                                              c, c, act, table, per_list, int(out_dt == torch.float32),
-                                              phases.data_ptr(), stream)
+                                              qa.bias.data_ptr(), qa.scale, qa.zero or 0.0, qa.pad,
+                                              None if sk is None else sk.data_ptr(), y.data_ptr(), h, w, c, co, act,
+                                              tab, per, int(out_dt == torch.float32), phases.data_ptr(), stream)
                 if rc:
                     raise RuntimeError(f"conv3x3_s8_sm90 {name} {cal}: CUDA error {rc}")
             _report(f"{name} int8 s2d ({cal}, pad {qa.pad})", phases, PHASES["bf16"])
@@ -218,6 +234,14 @@ def s8_phases(lib, dev, rng) -> None:
     conv("resblock L1 conv2", 270, 480, torch.bfloat16, 0)
     sft_pass("resblock L1 SFT2 s2d, fp32 x", 270, 480, torch.float32, q8)
     sft_pass("resblock L1 SFT1 s2d, bf16 x + up", 270, 480, torch.bfloat16, q8[:1])
+    conv("block_conv3_w8a8 fp32 L1 trunk conv1", 270, 480, torch.float32, 1, layers={"sym": layers["sym"]})
+    conv("block_conv3_w8a8 fp32 L1 trunk conv2 + fp32 skip", 270, 480, torch.float32, 0, skip=True,
+         layers={"sym": layers["sym"]})
+    from hdrtv_tpu_torch.models.s2d import w_s2d_s1_ps
+
+    wq4, ws4 = quantize_weight(rng.randn(3, 3, c // 4, c).astype(np.float32) * 0.05)
+    up = pack_qargs(w_s2d_s1_ps(wq4), np.tile(ws4, 4), 0.01, None, (rng.randn(4 * c) * 0.1).astype(np.float32), dev)
+    conv("block_conv3_w8a8 fp32 L1 up_conv3", 270, 480, torch.float32, 1, layers={"sym": up}, co=4 * c)
 
 
 def s8_s2_phases(lib, dev, rng) -> None:
@@ -258,6 +282,49 @@ def s8_s2_phases(lib, dev, rng) -> None:
             _report(f"{name} int8 stride 2 ({cal}, pads {[qa.pad for qa in qas]})", phases, PHASES["bf16"])
 
 
+LAST_PHASES = {"dense": ["total", "loads", "products", "epilogue"],
+               "sm90": ["total", "setup", "wait", "products", "meet", "epilogue"]}
+
+
+def last_phases(lib, dev, rng) -> None:
+    """The tail's conv_last at the 1080p shape (540 × 960 s2d pixels, h 128
+    channels → 12, seeded w_s2d_s1 weight), packed and unpacked, per warp.
+    The dense kernel (``csrc/conv_last.cuh conv_last_kernel``): ``loads``
+    (staging the block's halo of h and the whole weight, and the meeting
+    after it), ``products`` (the nine taps' mma.sync products) and
+    ``epilogue`` (bias, skip, pack and the 4-byte stores). The s2d form's
+    Hopper tile (``conv_last_sm90_kernel``): ``setup`` (the slots' weights
+    into registers, the first loads), then per step ``wait`` (the window's
+    three row stages), ``products`` (32 ldmatrix.x4 and 48 mma.sync),
+    ``meet`` (the skip row's arrival, the meeting, thread 0's refills and
+    the next skip row's copies) and ``epilogue`` (the last row's 16-byte
+    stores, bias, skip, pack and staging)."""
+    from hdrtv_tpu_torch.models.s2d import w_s2d_s1
+    from hdrtv_tpu_torch.ops.megakernel import conv_last_walk
+
+    def t(a, dt=torch.bfloat16):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev).to(dt)
+
+    hb, wb, c, cl = 540, 960, 128, 12
+    h = t(np.maximum(rng.rand(hb, wb, c) - 0.3, 0))
+    w = t(w_s2d_s1(rng.randn(3, 3, c // 4, cl // 4).astype(np.float32) * 0.03))
+    b = t(rng.randn(cl) * 0.02, torch.float32)
+    skip = t(rng.rand(hb, wb, cl))
+    stream = torch.cuda.current_stream().cuda_stream
+    for form, pack in (("dense", 1), ("dense", 0), ("sm90", 1), ("sm90", 0)):
+        out = torch.empty((hb, 2, wb, cl // 2), dtype=torch.uint16, device=dev) if pack else \
+            torch.empty((hb, wb, cl), dtype=torch.bfloat16, device=dev)
+        phases = torch.zeros(((hb + 7) // 8) * ((wb + 15) // 16) * 8 * 8, dtype=torch.int64, device=dev)
+        for _ in range(3):  # warm: the last run's sums are read
+            rc = lib.hdrtv_conv_last_phases(h.data_ptr(), w.data_ptr(), b.data_ptr(), skip.data_ptr(),
+                                            out.data_ptr(), hb, wb, c, cl, pack,
+                                            conv_last_walk() if form == "sm90" else None, phases.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"conv_last {form}: CUDA error {rc}")
+        _report(f"conv_last {form} (1080p, {'packed' if pack else 'unpacked'}), per warp", phases,
+                LAST_PHASES[form], steps=form == "sm90")
+
+
 AGCM_PHASES = ["total", "fetch", "step 0", "hidden 0", "step 1", "hidden 1", "step 2", "out"]
 
 
@@ -294,14 +361,26 @@ def agcm_phases(lib, dev, rng) -> None:
     print(f"agcm_sm90 (1080p, u8 pair planes): {len(d)} warpgroups; cycles {shares}", flush=True)
 
 
+PARTS = ("conv", "agcm", "s8", "s8_s2", "last")
+
+
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default=",".join(PARTS),
+                    help=f"comma-separated parts to time, of {', '.join(PARTS)} (default: all)")
+    only = set(ap.parse_args().only.split(","))
+    if not only <= set(PARTS):
+        raise SystemExit(f"--only takes {', '.join(PARTS)}, got {sorted(only - set(PARTS))}")
     if not torch.cuda.is_available():
         raise SystemExit("sm90_phases needs a CUDA device")
     lib = build()
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
 
-    for dtype, shapes in (("bf16", SHAPES_BF16), ("f32", [(*shape, False) for shape in SHAPES_F32])):
+    conv_shapes = (("bf16", SHAPES_BF16), ("f32", [(*shape, False) for shape in SHAPES_F32]))
+    for dtype, shapes in conv_shapes if "conv" in only else ():
         tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
 
         def t(a, _dt=tdt):
@@ -329,9 +408,9 @@ def main() -> None:
             mean = d.mean(axis=0)
             shares = {k: f"{mean[i]:.0f} ({mean[i] / mean[0]:.0%})" for i, k in enumerate(PHASES[dtype])}
             print(f"{name} {dtype}: {len(d)} warpgroups, {mean[7]:.0f} steps each; cycles {shares}", flush=True)
-    agcm_phases(lib, dev, rng)
-    s8_phases(lib, dev, rng)
-    s8_s2_phases(lib, dev, rng)
+    for part, fn in (("agcm", agcm_phases), ("s8", s8_phases), ("s8_s2", s8_s2_phases), ("last", last_phases)):
+        if part in only:
+            fn(lib, dev, rng)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
 

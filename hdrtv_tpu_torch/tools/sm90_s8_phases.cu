@@ -28,14 +28,15 @@ hdrtv::QuantParams quant(const void* w, const void* yscale, const void* bias, fl
 }  // namespace
 
 // The int8 'same' conv of codes q (H, W, C) → y (H, W, Co), bf16, or fp32
-// with f32_out (resblock_w8a8's conv1): the layer (w, yscale, bias, x_scale
-// s, x_zero z, pad code), act, the slot table.
+// with f32_out (resblock_w8a8's conv1, block_conv3_w8a8 in fp32): the layer
+// (w, yscale, bias, x_scale s, x_zero z, pad code), the skip (H, W, Co) in
+// y's type or null, act, the slot table.
 extern "C" int hdrtv_sm90_s8_phases(const void* q, const void* w, const void* yscale, const void* bias, float s,
-                                    float z, int pad, void* y, int H, int W, int C, int Co, int act,
+                                    float z, int pad, const void* skip, void* y, int H, int W, int C, int Co, int act,
                                     const int* table, int per_list, int f32_out, void* phases, void* stream) {
   hdrtv::S8Sm90Args a;
   a.phases = static_cast<unsigned long long*>(phases);
-  return static_cast<int>(hdrtv::conv3x3_s8_sm90(q, quant(w, yscale, bias, s, z, pad), nullptr, y, H, W, C, Co,
+  return static_cast<int>(hdrtv::conv3x3_s8_sm90(q, quant(w, yscale, bias, s, z, pad), skip, y, H, W, C, Co,
                                                  act, table, per_list, static_cast<cudaStream_t>(stream), &a,
                                                  f32_out != 0));
 }

@@ -1581,3 +1581,153 @@ def test_rowmajor_head_matches_plain(dev, h, w, co):
     torch.cuda.synchronize()
     assert raw.shape == (h // 2, w // 2, co) and torch.equal(raw, pre)
     _close(raw, rowmajor_head_raw_ref(x, wm), "bf16", flips=0.05)
+
+
+# ---------------------------------------------------------------------------
+# conv_last on its Hopper tile (csrc/conv_last.cuh conv_last_sm90_kernel, the
+# s2d tail in bf16) and block_conv3_w8a8 in fp32 on the wgmma s8 tile.
+# ---------------------------------------------------------------------------
+
+
+def _tail_s2d_args(rng, dev, hb, wb, coarse):
+    """The tail's s2d inputs in bf16 at the programs' widths (C 128, CC 64,
+    Cl 12), weights from the s2d transforms."""
+    s = _t(rng.rand(hb, wb, 128) - 0.3, dev, "bf16")
+    up = _t(rng.rand(hb // 2, wb // 2, 512) - 0.3, dev, "bf16") if coarse else None
+    cond1 = _t(rng.rand(hb, wb, 64) - 0.3, dev, "bf16")
+    skip = _t(rng.rand(hb, wb, 12), dev, "bf16")
+    args = (_sft_s2d(rng, dev), _t(w_s2d_s1(rng.randn(3, 3, 32, 32).astype(np.float32) * 0.04), dev, "bf16"),
+            _t(b_s2d(rng.randn(32).astype(np.float32) * 0.1), dev),
+            _t(w_s2d_s1(rng.randn(3, 3, 32, 3).astype(np.float32) * 0.02), dev, "bf16"),
+            _t(b_s2d(rng.randn(3).astype(np.float32) * 0.1), dev))
+    return s, up, cond1, skip, args
+
+
+@pytest.mark.parametrize("hb,wb,coarse,pack", [
+    (540, 960, True, True), (200, 130, False, False), (66, 258, True, True), (3, 64, False, True),
+    (1, 70, False, False), (31, 3, False, True),
+])
+def test_conv_last_tile_matches_plain(dev, hb, wb, coarse, pack):
+    """The tail's s2d form in bf16, whose conv_last runs the Hopper tile:
+    at 1080p (bands of 64 columns walked down by persistent blocks, runs
+    crossing from one band into the next), with a ragged last band (130,
+    258 columns: 4-byte stores where a row is not 16-byte aligned), bands
+    narrower than one (3 columns) and a single row. Against the plain
+    version's s2d form with test_tail_s2d_matches_plain's bounds
+    (test_frames_run_the_new_tiles checks the route by kernel name)."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_tail, fused_tail_ref
+
+    rng = np.random.RandomState(hb * wb + 23)
+    s, up, cond1, skip, args = _tail_s2d_args(rng, dev, hb, wb, coarse)
+    before = native.launch_counts["tail"]
+    y = fused_tail(s, cond1, skip, *args, pack=pack, up_coarse=up, s2d=True)
+    assert native.launch_counts["tail"] == before + 1
+    y_r = fused_tail_ref(s, cond1, skip, *args, pack=pack, up_coarse=up, s2d=True)
+    if not pack:
+        assert y.shape == (hb, wb, 12)
+        _close(y, y_r, "bf16", steps=2, flips=0.05)
+        return
+    torch.cuda.synchronize()
+    assert y.shape == (hb, 2, wb, 6) and y.dtype == torch.uint16
+    d = (y.to(torch.int32) - y_r.to(torch.int32)).abs()
+    assert int(d.max()) <= 64 and float(d.float().mean()) < 1.0, (int(d.max()), float(d.float().mean()))
+
+
+def test_conv_last_tile_sums_only_the_populated_slots(dev):
+    """h is fed through HR_conv2 = 0 with bias b_hr, so h = relu(b_hr) on
+    every pixel inside the image and 0 outside: a w_last with weights in
+    slots the s2d declaration leaves out gives the s2d-slots-only result on
+    the card (the tile skips them), not the dense one."""
+    from hdrtv_tpu_torch.ops.megakernel import _s2d_slots_only, fused_tail, fused_tail_ref
+
+    rng = np.random.RandomState(29)
+    hb, wb = 12, 80
+    s, _, cond1, skip, args = _tail_s2d_args(rng, dev, hb, wb, False)
+    sft, _, _, _, b_last = args
+    w_hr = torch.zeros(3, 3, 128, 128, device=dev, dtype=torch.bfloat16)
+    b_hr = _t(rng.rand(128), dev)
+    w_last = _t(rng.randn(3, 3, 128, 12) * 0.02, dev, "bf16")
+    y = fused_tail(s, cond1, skip, sft, w_hr, b_hr, w_last, b_last, pack=False, s2d=True)
+    y_slots = fused_tail_ref(s, cond1, skip, sft, w_hr, b_hr, _s2d_slots_only(w_last), b_last, pack=False)
+    y_dense = fused_tail_ref(s, cond1, skip, sft, w_hr, b_hr, w_last, b_last, pack=False)
+    _close(y, y_slots, "bf16", steps=1, flips=0.05)
+    assert _max_err(y, y_dense) > 0.05
+
+
+def test_conv_last_tile_refuses_other_widths(dev):
+    """bf16 s2d=True with Cl other than 12 raises on the card, naming the
+    widths; nothing falls back to the dense conv_last."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_tail
+
+    rng = np.random.RandomState(31)
+    s, _, cond1, _, args = _tail_s2d_args(rng, dev, 4, 8, False)
+    sft, w_hr, b_hr, _, _ = args
+    w_last = _t(w_s2d_s1(rng.randn(3, 3, 32, 2).astype(np.float32) * 0.02), dev, "bf16")
+    with pytest.raises(ValueError, match="conv_last's s2d tile takes"):
+        fused_tail(s, cond1, _t(rng.rand(4, 8, 8), dev, "bf16"), sft, w_hr, b_hr, w_last,
+                   torch.zeros(8, device=dev), s2d=True)
+
+
+@pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
+@pytest.mark.parametrize("hb,wb,co,relu,skip", [
+    (540, 960, 128, True, False), (270, 480, 128, False, True), (135, 240, 512, True, False),
+    (9, 70, 128, False, True), (1, 5, 512, True, False), (12, 20, 128, True, True),
+])
+def test_block_conv3_w8a8_fp32_s2d_matches_plain(dev, asym, hb, wb, co, relu, skip):
+    """block_conv3_w8a8 in fp32 with a_sub = 1: the quantize pass, then the
+    wgmma s8 tile through its fp32-output epilogue, with an fp32 skip where
+    the trunk conv2s have one; the int8 fp32 program's shapes (HR_conv1/2,
+    trunk conv2 + skip, up_conv2's 135 rows PS-folded to 512) and ragged
+    ones. The same codes, exact int32 sums and separately rounded epilogue
+    operations on both sides: bit for bit."""
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_q_ref
+
+    rng = np.random.RandomState(hb * wb + co + 67 + asym)
+    x = _t(rng.rand(hb, wb, 128) * 1.2 - 0.1, dev)
+    w, b, qa = _qlayer(rng, dev, 128, co, (-0.1, 1.0), asym, ps=co == 512)
+    sk = _t(rng.rand(hb, wb, co) - 0.5, dev) if skip else None
+    before = native.launch_counts["block_conv3_w8a8"], native.launch_counts["block_conv3"]
+    y = fused_block_conv3(x, w, b, relu=relu, skip=sk, qargs=qa, a_sub=1)
+    assert (native.launch_counts["block_conv3_w8a8"], native.launch_counts["block_conv3"]) == (before[0] + 1, before[1])
+    y_r = fused_block_conv3_q_ref(x, qa, relu=relu, skip=sk)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and y.shape == (hb, wb, co) and torch.equal(y, y_r), _max_err(y, y_r)
+
+
+@pytest.mark.parametrize("program", ["bf16", "int8_bf16", "int8_fp32"])
+def test_frames_run_the_new_tiles(dev, monkeypatch, program):
+    """One frame of the bf16 default program, the int8 default and the int8
+    fp32 program under torch.profiler: the two bf16 ones run conv_last on
+    its Hopper tile once and never the dense conv_last_kernel; the int8 fp32
+    program runs all twelve block_conv3_w8a8 convs on the wgmma s8 tile and
+    none on the mma.sync tile."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    monkeypatch.delenv("HDRTV_MEGAKERNEL", raising=False)
+    monkeypatch.delenv("HDRTV_INT8_DOWN2", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    weights = os.path.join(root, "weights", "hr_fp32.npz") if program == "bf16" else \
+        os.path.join(root, "tests", "fixtures", "hr_w8a8.npz")
+    proc = HDRTVNetTorch(weights, precision="fp32" if program == "int8_fp32" else "fp16")
+    frame = (np.random.RandomState(71).rand(64, 128, 3) * 255).astype(np.uint8)
+    proc.process_rgb48(frame)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        proc.process_rgb48(frame)
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()}
+
+    def launched(sub):
+        return sum(n for k, n in counts.items() if sub in k)
+
+    if program == "int8_fp32":
+        assert native.launch_counts["block_conv3_w8a8"] == 12, dict(native.launch_counts)
+        assert launched("conv3x3_s8_sm90_kernel") == 12 and launched("conv3x3_s8_kernel") == 0, counts
+        assert launched("conv_last") == 0, counts
+    else:
+        assert launched("conv_last_sm90_kernel") == 1 and launched("conv_last_kernel") == 0, counts

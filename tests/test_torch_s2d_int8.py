@@ -21,9 +21,9 @@ s2d_slots``) and reads an out-of-image tap as the layer's pad code.
   exact on the checkpoint.
 - ``_sft_hopper`` routes bf16 ``s2d=True`` calls to the Hopper tiles, int8
   or float, and the wrappers hand their kernels that route: the int8 tail,
-  sft_conv3 and resblock the slot table, block_conv3's int8 body in bf16
-  with ``a_sub=1`` too, fp32 and ``a_sub=0`` the dense kernels; other
-  widths raise (tests/test_torch_s2d_int8_rest.py holds resblock_w8a8 and
+  sft_conv3 and resblock the slot table, block_conv3's int8 body with
+  ``a_sub=1`` too (bf16 and fp32), the fp32 tail and ``a_sub=0`` the dense
+  kernels; other widths raise (tests/test_torch_s2d_int8_rest.py holds resblock_w8a8 and
   block_conv3_w8a8 against the Pallas bodies).
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_s2d_int8.py -q
@@ -195,9 +195,9 @@ def test_int8_wrappers_hand_their_kernels_the_route(monkeypatch, call):
     """The card branch of the wrappers, its launch intercepted (device
     checks and the stream stubbed, CPU tensors standing in): the s2d int8
     tail, sft_conv3 and resblock in bf16 hand the kernel s2d = 1 and the
-    slot table and count as *_w8a8, block_conv3's int8 body in bf16 with
-    a_sub = 1 (PS-folded 128 → 512) the slot table; the fp32 tail, and
-    block_conv3's int8 body in fp32 or with a_sub = 0, hand the dense route
+    slot table and count as *_w8a8, block_conv3's int8 body with a_sub = 1
+    (PS-folded 128 → 512) the slot table in bf16 and in fp32; the fp32
+    tail, and block_conv3's int8 body with a_sub = 0, hand the dense route
     (no table)."""
     from hdrtv_tpu_torch.ops import native
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
@@ -227,7 +227,7 @@ def test_int8_wrappers_hand_their_kernels_the_route(monkeypatch, call):
         assert (kernel, counter) == ("block_conv3", "block_conv3_w8a8")
         got_a_sub, table, per_list = args[-4:-1]
         assert got_a_sub == a_sub
-        if call == "block_conv3_w8a8":
+        if a_sub:
             assert per_list == 9 and table is not None
         else:
             assert (table, per_list) == (None, 0)
