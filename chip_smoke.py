@@ -30,7 +30,9 @@ lines; any failed check raises and the script exits non-zero with no result:
    whose rounded intermediates feed further convs (twice the one step
    measured). mix_chain runs in the s2d form the bf16 programs call
    (s2d=True, weights w_s2d_1x1: in bf16 the row tile of csrc/chain_sm90.cuh)
-   and in bf16 once more dense (s2d=False), a case no path launches. The pack is exact in both types. The tail is compared in its
+   and in bf16 once more dense (s2d=False), a case no path launches. The pack is exact in both types,
+   timed on one 1080p input, which the L2 holds (ms), and on a ring of inputs it does not (cold_ms),
+   by CUDA events and on the card (card_ms, card_cold_ms: torch.profiler's device time). The tail is compared in its
    packed coarse form, in u16 codes: fp32 ≤ 1 code (the sum order at the +0.5
    boundary). bf16: equal bit for bit except where a bf16 rounding of t or h
    flipped (another sum order): conv_last's fp32 sum is packed unrounded, so
@@ -62,10 +64,13 @@ lines; any failed check raises and the script exits non-zero with no result:
    agcm_head likewise runs in the s2d form the megakernel program calls
    (s2d=True: in bf16 the AGCM pass on the row tile, the input conv on its
    wgmma tile over the s2d slots) and in bf16 once more dense, an
-   "agcm_head_split" line giving each form's two launches; trunk3's bf16
-   instance runs on the Hopper tiles (its SFT passes on the row tile, its
-   convs on the conv tile with the dense table), a "trunk3_split" line
-   giving its SFT and conv launches.
+   "agcm_head_split" line giving each form's two launches; trunk3 runs on
+   the Hopper tiles with the dense table (bf16: its SFT passes on the row
+   tile, its convs on the conv tile; fp32: its SFT passes on the coalesced
+   fp32 pass of csrc/trunk3.cu, its convs on the 3×TF32 tile, the bound's
+   convs at the "tf32x3" rate and its SFT at the FMA rate, bound_fma_ms
+   beside it), a "trunk3_split" line per type giving its SFT and conv
+   launches.
    hg_tail, at the 1080p shape of the
    HG composite (544 × 960 blocks, 256 + 256 channels), in codes: fp32 ≤ 1;
    bf16 equal except where the rounding of u10 flipped, each such output
@@ -490,10 +495,13 @@ def conv_macs(w, h_out: int, w_out: int, stride: int) -> int:
     return total
 
 
-def bound(nbytes: float, flops: float, rate: str) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, rate: str, fma_flops: float = 0.0) -> tuple[float, str]:
     """Least time in ms for the bytes at HBM_BPS and the operations at the
-    peak rate ``rate`` (a key of PEAK_FLOPS), and which of the two."""
-    t_b, t_o = nbytes / HBM_BPS, flops / PEAK_FLOPS[rate]
+    peak rate ``rate`` (a key of PEAK_FLOPS), of which ``fma_flops`` run on
+    the FMA units whatever ``rate`` says (trunk3's SFT passes beside its
+    3×TF32 convs), and which of the two."""
+    t_b = nbytes / HBM_BPS
+    t_o = (flops - fma_flops) / PEAK_FLOPS[rate] + fma_flops / PEAK_FLOPS["f32"]
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -561,14 +569,17 @@ def phase_kernels(torch, np) -> dict:
         return own or {p: k for p, k in per_path.items() if k and PATH_DTYPE[p] == "bf16"}
 
     def record(kernel, dtype, case, per_path, y, y_ref, tol, ms, plain_ms, lib_ms, nbytes, flops,
-               unit="abs", share=None, rate=None, extra=None):
+               unit="abs", share=None, rate=None, extra=None, fma_flops=0.0, cold_ms=None):
         """``unit``: what ``tol`` bounds. "abs": the absolute error (fp32,
         and u16 codes); "steps": bf16 steps of the result; "flips": the
         absolute error of an int8 body, ``tol`` being what its flipped codes
         can move an output by, plus in bf16 one step of its rounding.
         ``share``: at most this share of the values may differ at all.
         ``rate``: the peak rate of the bound's operations (default: the
-        element type's). ``extra``: more fields for the case's line."""
+        element type's), ``fma_flops`` the part of ``flops`` on the FMA units
+        at any rate. ``extra``: more fields for the case's line. ``cold_ms``:
+        the time on inputs the L2 does not hold (``ms`` being on one that
+        stays in it), reported beside ``ms``."""
         torch.cuda.synchronize()
         e = (y.float() - y_ref.float()).abs()
         err = float(e.max())
@@ -585,15 +596,15 @@ def phase_kernels(torch, np) -> dict:
         if ok and share is not None and differ > share:
             ok, what = False, f"{differ:.3e} of the values differ > {share}"
         rate = rate or dtype
-        b_ms, b_by = bound(nbytes, flops, rate)
+        b_ms, b_by = bound(nbytes, flops, rate, fma_flops)
         # the 3×TF32 tile's fp32 products: the FMA units' bound beside the tensor cores'
         fma_ms = bound(nbytes, flops, "f32")[0] if rate == "tf32x3" else None
         log(json.dumps({
             "kernel": kernel, "dtype": dtype, "case": case, "per_frame": runs(dtype, per_path),
             "max_abs_err": err, "bf16_steps": None if steps is None else round(steps, 3),
             "differ": differ, "tol": tol, "share": share,
-            "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
-            "library_ms": None if lib_ms is None else round(lib_ms, 4),
+            "ms": round(ms, 4), **({} if cold_ms is None else {"cold_ms": round(cold_ms, 4)}),
+            "plain_ms": round(plain_ms, 4), "library_ms": None if lib_ms is None else round(lib_ms, 4),
             "bound_ms": round(b_ms, 4), "bound_by": b_by, "rate": rate, "gflop": round(flops / 1e9, 3),
             **({} if fma_ms is None else {"bound_fma_ms": round(fma_ms, 4)}),
             "tflops": round(flops / ms / 1e9, 1),
@@ -604,15 +615,18 @@ def phase_kernels(torch, np) -> dict:
         for path, n in runs(dtype, per_path).items():
             tot = totals.setdefault((kernel, dtype, path), {
                 "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                "bytes": 0.0, "flops": 0.0, "lib_all": True, "rate": rate})
+                "bytes": 0.0, "flops": 0.0, "fma_flops": 0.0, "lib_all": True, "rate": rate})
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             tot["ms"] += n * ms
             tot["plain_ms"] += n * plain_ms
             tot["bound_ms"] += n * b_ms
             if fma_ms is not None:
                 tot["bound_fma_ms"] = tot.get("bound_fma_ms", 0.0) + n * fma_ms
+            if cold_ms is not None:
+                tot["cold_ms"] = tot.get("cold_ms", 0.0) + n * cold_ms
             tot["bytes"] += n * nbytes
             tot["flops"] += n * flops
+            tot["fma_flops"] += n * fma_flops
             if lib_ms is None:
                 tot["lib_all"] = False
             else:
@@ -1008,15 +1022,17 @@ def phase_kernels(torch, np) -> dict:
         y_r = fused_trunk3_ref(fea3, cond4, blocks, w_up, b_up)
         ms = time_ms(trunk, torch)
         plain = time_ms(lambda: fused_trunk3_ref(fea3, cond4, blocks, w_up, b_up), torch)
-        if dtype == "bf16":
-            log(json.dumps({"trunk3_split": launch_split(trunk, torch, SFT_CONV_PARTS)}))
+        # the 8 SFT passes against the 9 convs (fp32: the 3×TF32 tile and the coalesced fp32 pass)
+        log(json.dumps({"trunk3_split": {"dtype": dtype, **launch_split(trunk, torch, SFT_CONV_PARTS)}}))
         flops = 2 * sum(conv_macs(blk[i], hb, wb, 1) for blk in blocks for i in (1, 4))
         flops += 2 * conv_macs(w_up, hb, wb, 1)
-        flops += 8 * hb * wb * 2 * 2 * (cc * cc + cc * cin)  # the SFT 1×1 pairs
+        t3_sft_flops = 8 * hb * wb * 2 * 2 * (cc * cc + cc * cin)  # the SFT 1×1 pairs
         params = [p for blk in blocks for s in (blk[0], blk[3]) for pr in s for p in pr]
         params += [blk[i] for blk in blocks for i in (1, 2, 4, 5)] + [w_up, b_up]
+        # fp32: the convs at the 3×TF32 rate, the SFT passes at the FMA rate (bound_fma_ms: all at the latter)
         record("trunk3", dtype, "trunk3 + up_conv1 (135x240)", (1, 1, 1), y, y_r, 5e-4 if dtype == "f32" else 2,
-               ms, plain, None, nbytes_of(fea3, cond4, y, *params), flops, unit)
+               ms, plain, None, nbytes_of(fea3, cond4, y, *params), flops + t3_sft_flops, unit,
+               rate="tf32x3" if dtype == "f32" else None, fma_flops=t3_sft_flops if dtype == "f32" else 0.0)
 
         # pack: the (1080,1920,3) frame, values beyond [0,1] included
         v = (torch.rand(1080, 1920, 3, device=dev, generator=torch.Generator(dev).manual_seed(5)) * 1.4 - 0.2).to(dt)
@@ -1024,11 +1040,25 @@ def phase_kernels(torch, np) -> dict:
         host = u.cpu().numpy()
         if host.dtype != np.uint16 or host.shape != (1080, 1920, 3):
             raise AssertionError(f"pack output {host.dtype} {host.shape}")
+        # ms: the same input every call, which stays in the 50 MB L2; cold_ms: a ring of inputs
+        # (200 MB or more) each call takes the next of, so that each is read from device memory,
+        # as the bound counts it. Both by CUDA events, which the wrapper's host time can pace at
+        # this size, and on the card (torch.profiler's device time of the kernel).
         ms = time_ms(lambda: pack_rgb48(v), torch)
+        ring = [torch.rand_like(v, dtype=torch.float32).to(dt) for _ in range(max(4, 1 + int(200e6 // v.nbytes)))]
+        turn = iter(range(1 << 62))
+
+        def pack_cold():
+            return pack_rgb48(ring[next(turn) % len(ring)])
+
+        cold = time_ms(pack_cold, torch)
+        on_card = {key: launch_split(fn, torch, (("ms", "pack_rgb48"),))["ms"]
+                   for key, fn in (("card_ms", lambda: pack_rgb48(v)), ("card_cold_ms", pack_cold))}
+        del ring
         plain = time_ms(lambda: pack_rgb48_ref(v), torch)
         record("pack_rgb48", dtype, f"(1080,1920,3) {dtype} -> u16", {"fp32": 1, "bf16_nomega": 1},
                u.to(torch.int32), pack_rgb48_ref(v).to(torch.int32), 0.0, ms, plain, None,
-               v.numel() * (size + 2), v.numel() * 4)
+               v.numel() * (size + 2), v.numel() * 4, cold_ms=cold, extra=on_card)
 
         # colorimetric: the same frame through gamma, gamut, PQ and the pack; on no frame path
         u = colorimetric_pq_pack(v)
@@ -1924,12 +1954,14 @@ def main() -> int:
 
     def entry(name, dtype, path):
         tot = totals[(name, dtype, path)]
-        _, b_by = bound(tot["bytes"], tot["flops"], tot["rate"])
+        _, b_by = bound(tot["bytes"], tot["flops"], tot["rate"], tot["fma_flops"])
         e = {"max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
              "bound_ms": tot["bound_ms"], "bound_by": b_by,
              "library_ms": tot["library_ms"] if tot["lib_all"] else None}
         if "bound_fma_ms" in tot:  # the 3×TF32 tile: the FMA units' bound beside it
             e["bound_fma_ms"] = tot["bound_fma_ms"]
+        if "cold_ms" in tot:  # pack_rgb48: on inputs the L2 does not hold
+            e["cold_ms"] = tot["cold_ms"]
         if "torch_seq_ms" in tot:  # the probes: the torch-op sequence of the same function
             e["torch_seq_ms"] = tot["torch_seq_ms"]
         return e

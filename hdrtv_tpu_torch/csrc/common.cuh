@@ -112,10 +112,6 @@ template <>
 __device__ __forceinline__ float round_to<bf16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
-template <typename T>
-__device__ __forceinline__ float4 round4(float4 v) {
-  return make_float4(round_to<T>(v.x), round_to<T>(v.y), round_to<T>(v.z), round_to<T>(v.w));
-}
 
 // ---------------------------------------------------------------------------
 // Tensor-core building blocks for the bf16 instances: ldmatrix loads four

@@ -3,9 +3,9 @@
 // (conv3x3_mma_kernel below, bf16 inputs and weights): the core shared by
 // block_conv3.cu (stride 1, 'same'; its dense fp32 and pool_out forms),
 // down2.cu (stride 2, pad (1,0); its dense fp32 form) and the per-conv steps
-// of sft_conv3.cu, resblock.cu and trunk3.cu. The float forms of block_conv3
-// and down2 with a_sub ≥ 1 run conv3x3_sm90.cuh's tile (bf16) and its 3×TF32
-// sibling conv3x3_tf32x3.cuh (fp32).
+// of sft_conv3.cu and resblock.cu. The float forms of block_conv3 and down2
+// with a_sub ≥ 1, and trunk3's convs, run conv3x3_sm90.cuh's tile (bf16) and
+// its 3×TF32 sibling conv3x3_tf32x3.cuh (fp32).
 //
 // Element types: the input is TX, the weight TW, the output and the residuals
 // TY, each float or bf16. In the FMA tile every product is taken on operands
@@ -28,11 +28,9 @@
 // channels and walks K in chunks of 16 (one tap, 16 channels): both tiles are
 // staged in shared memory (16 KB), the next chunk is fetched into registers
 // while the current one is multiplied, and each thread accumulates an 8×8
-// sub-tile in fp32 registers. The epilogue adds bias, up to two residuals and
-// the activation, in that order, and writes TY; the sum with the first
-// residual is rounded to TY before the second is added (the TPU trunk3 kernel
-// stores it in the compute dtype there; a no-op for float). Co is masked, so
-// narrower outputs (trunk3's 32 channels) run on the same tiles.
+// sub-tile in fp32 registers. The epilogue adds bias, a residual and the
+// activation, in that order, and writes TY. Co is masked, so narrower outputs
+// run on the same tiles.
 //
 // With `pool` (stride 1; Ho and Wo even) the tile also takes the 2×2 max
 // pool of fused_block_conv3's pool_out form (conv_kernels.py:259-266) in its
@@ -61,7 +59,6 @@ struct ConvArgs {
   const void* w;      // (3, 3, C, Co) TW
   const float* b;     // (Co) fp32
   const void* skip;   // (Ho, Wo, Co) TY or nullptr; may alias y
-  const void* skip2;  // (Ho, Wo, Co) TY or nullptr
   void* y;            // (Ho, Wo, Co) TY
   int H, W, Ho, Wo;
   int cf, ch0, C, Co;
@@ -210,12 +207,11 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs a) {
     }
   }
 
-  // Epilogue: ((acc + b) + skip) + skip2, then the activation. skip may be
+  // Epilogue: (acc + b) + skip, then the activation. skip may be
   // the output buffer itself: each element is read before it is written, by
   // the same thread. With pool, rows 4j..4j+3 of a thread (one pooled pixel)
   // are reduced in registers and stored once.
   const TY* skip = static_cast<const TY*>(a.skip);
-  const TY* skip2 = static_cast<const TY*>(a.skip2);
   TY* y = static_cast<TY*>(a.y);
   float4 pmax[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
 #pragma unroll
@@ -234,7 +230,6 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs a) {
                              acc[i][h * 4 + 2] + bias.z, acc[i][h * 4 + 3] + bias.w);
       const long long off = pix * a.Co + n;
       if (skip) v = add4(v, load4<TY>(skip + off));
-      if (skip2) v = add4(round4<TY>(v), load4<TY>(skip2 + off));
       v.x = apply_act(v.x, a.act);
       v.y = apply_act(v.y, a.act);
       v.z = apply_act(v.z, a.act);
@@ -264,8 +259,8 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs a) {
 // and stores, and read back with ldmatrix (.trans for B, which the MMA wants
 // column-major); row pitches of 80 and 272 bytes keep ldmatrix free of bank
 // conflicts. The next chunk is fetched into registers during the MMAs.
-// The epilogue is that of the FMA tile: ((acc + b) + skip, rounded) + skip2,
-// activation, one store in TY.
+// The epilogue is that of the FMA tile: (acc + b) + skip, activation, one
+// store in TY.
 //
 // Requirements beyond the FMA tile's: C % 32 == 0, Co % 8 == 0, cf % 8 == 0,
 // ch0 % 8 == 0 (16-byte loads); launch_conv3x3 falls back to the FMA tile
@@ -382,7 +377,6 @@ __global__ void __launch_bounds__(kThreads) conv3x3_mma_kernel(ConvArgs a) {
   // A thread holds, of each 16 × 8 MMA tile, rows lane/4 and lane/4 + 8 and
   // the column pair (lane%4)·2.
   const TY* skip = static_cast<const TY*>(a.skip);
-  const TY* skip2 = static_cast<const TY*>(a.skip2);
   TY* y = static_cast<TY*>(a.y);
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt) {
@@ -404,10 +398,6 @@ __global__ void __launch_bounds__(kThreads) conv3x3_mma_kernel(ConvArgs a) {
           if (skip) {
             const float2 s = load2<TY>(skip + off);
             v = make_float2(v.x + s.x, v.y + s.y);
-          }
-          if (skip2) {
-            const float2 s = load2<TY>(skip2 + off);
-            v = make_float2(round_to<TY>(v.x) + s.x, round_to<TY>(v.y) + s.y);
           }
           v = make_float2(apply_act(v.x, a.act), apply_act(v.y, a.act));
         }
@@ -433,18 +423,15 @@ cudaError_t launch_conv3x3(const ConvArgs& a, cudaStream_t stream) {
 }
 
 // Stride-1 'same' conv over a dense (H, W, C) tensor: the form every fused
-// sequence here (sft_conv3, resblock, trunk3) launches; block_conv3 also
-// with pool.
+// sequence here (sft_conv3, resblock) launches; block_conv3 also with pool.
 template <typename TX, typename TW, typename TY>
-cudaError_t conv_same(const void* x, const void* w, const float* b, const void* skip,
-                      const void* skip2, void* y, int H, int W, int C, int Co, int act,
-                      cudaStream_t stream, int pool = 0) {
+cudaError_t conv_same(const void* x, const void* w, const float* b, const void* skip, void* y, int H, int W,
+                      int C, int Co, int act, cudaStream_t stream, int pool = 0) {
   ConvArgs a;
   a.x = x;
   a.w = w;
   a.b = b;
   a.skip = skip;
-  a.skip2 = skip2;
   a.y = y;
   a.H = H;
   a.W = W;

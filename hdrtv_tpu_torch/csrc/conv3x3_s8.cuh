@@ -394,7 +394,7 @@ cudaError_t conv3x3_or_s8(const void* in, const void* w, const void* b, const Qu
                           const void* skip, void* y, int H, int W, int C, int Co, int act,
                           cudaStream_t stream, int pool = 0) {
   if (q) return conv_s8<TY>(in, *q, skip, y, H, W, C, Co, act, stream, pool);
-  return conv_same<T, T, TY>(in, w, static_cast<const float*>(b), skip, nullptr, y, H, W, C, Co, act,
+  return conv_same<T, T, TY>(in, w, static_cast<const float*>(b), skip, y, H, W, C, Co, act,
                              stream, pool);
 }
 

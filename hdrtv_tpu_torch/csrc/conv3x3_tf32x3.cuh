@@ -1,8 +1,10 @@
 // The fp32 instance of the Hopper conv tile (conv3x3_sm90.cuh), sm_90a: the
 // same chunk-table K walk over the s2d slots, TMA ring and persistent blocks,
 // with its products run as 3×TF32 on wgmma (m64nNk8, fp32 += tf32 × tf32).
-// It runs the fp32 float forms of block_conv3 and down2 with a_sub ≥ 1; the
-// dense product (a_sub = 0) stays on conv3x3.cuh's FMA tile.
+// It runs the fp32 float forms of block_conv3 and down2 with a_sub ≥ 1, and
+// trunk3's nine 32-channel convs dense (a_sub = 0: one list of 9 chunks,
+// which trunk3 asks ops/conv_kernels.py sm90_table for by name); block_conv3's
+// and down2's dense products stay on conv3x3.cuh's FMA tile.
 //
 // Why 3×TF32. One TF32 product keeps 11 significant bits of each operand,
 // about 2^-11 relative error per product: too coarse for the fp32 program,
@@ -40,7 +42,7 @@
 //   the three products with A from registers: A has one copy in shared
 //   memory.
 // - B: split once. A block reads its N tile's resident chunks from the fp32
-//   weight in global memory (a chunk's reads in flight together) and writes
+//   weight in global memory (three chunks' reads in flight together) and writes
 //   B_big and B_small, each BN rows (output channels) of 32 channels, 128
 //   bytes, swizzled as TMA would, into shared memory; every later tile reads
 //   them through descriptors. No host-side weight preparation.
@@ -57,7 +59,13 @@
 // fp32 out; the skip's values are read first, all at once; lanes q and
 // q ^ 1 of a quad swap one 8-byte pair so that each stores a whole 16-byte
 // group of 4 channels (a quad writes 64 contiguous bytes of a pixel);
-// pixels past the image's edge are not stored.
+// pixels past the image's edge are not stored. The SK2 instance (trunk3's
+// last conv2, BN = 32 at stride 1) adds a second skip after the first,
+// (((acc + b) + skip) + skip2), as the TPU kernel adds the stage skip fea3
+// to the running x after its last resblock; its values are read with the
+// first's. A skip may be the output itself (trunk3's running x, updated in
+// place): each value is read before the quad's shuffle and written after
+// it, by a lane of the same quad.
 //
 // Shared memory: 1 KB alignment + 4 × 16 KB ring + 2 · per_list · BN · 128
 // bytes of split weights + barriers, biases, chunk list ≤ 227 KB: per_list
@@ -156,14 +164,14 @@ struct WgmmaTf32<64> {
 };
 
 template <int N>
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][N]) {
+__device__ __forceinline__ void fence_tf32_frags(uint32_t (&a)[4][N]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-template <int BN, int S>
+template <int BN, int S, bool SK2>
 __global__ void __launch_bounds__(kSm90Threads, 1) conv3x3_tf32x3_kernel(const __grid_constant__ Sm90Args<float> a) {
   using Cfg = Tf32Cfg<BN>;
   constexpr int NS = Cfg::NS, BH = Cfg::BH;
@@ -232,27 +240,37 @@ __global__ void __launch_bounds__(kSm90Threads, 1) conv3x3_tf32x3_kernel(const _
 #endif
   // B: the block's chunks, split once and kept (row n = output channel n0 +
   // n, channel c at K position k_of(c), its 16-byte groups swizzled by
-  // n % 8). Reads run along Co, coalesced, a chunk's all in flight at once.
+  // n % 8). Reads run along Co, coalesced, three chunks' all in flight at
+  // once (a short conv, trunk3's, waits for them before its first product).
   if (steps) {
-    constexpr int PER = kSm90BK * BN / kSm90Threads;
-    for (int kt = 0; kt < KT; ++kt) {
-      const int e = chunks[kt];
-      const float* wk = a.w + static_cast<long long>((e & 15) * a.C + (e >> 4)) * a.Co + n0;
-      float v[PER];
+    constexpr int PER = kSm90BK * BN / kSm90Threads, G = 3;
+    for (int kt0 = 0; kt0 < KT; kt0 += G) {
+      float v[G][PER];
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int idx = i * kSm90Threads + tid;
-        v[i] = wk[static_cast<long long>(idx / BN) * a.Co + idx % BN];
+      for (int g = 0; g < G; ++g) {
+        if (kt0 + g >= KT) break;
+        const int e = chunks[kt0 + g];
+        const float* wk = a.w + static_cast<long long>((e & 15) * a.C + (e >> 4)) * a.Co + n0;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const int idx = i * kSm90Threads + tid;
+          v[g][i] = wk[static_cast<long long>(idx / BN) * a.Co + idx % BN];
+        }
       }
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int idx = i * kSm90Threads + tid;
-        const int n = idx % BN, k = k_of(idx / BN);
-        uint32_t big, small;
-        split_tf32(v[i], big, small);
-        const int off = (bsm - base) + kt * 2 * Cfg::B_HALF + n * 128 + (((k >> 2) ^ (n & 7)) << 4) + (k & 3) * 4;
-        *reinterpret_cast<uint32_t*>(smem + off) = big;
-        *reinterpret_cast<uint32_t*>(smem + off + Cfg::B_HALF) = small;
+      for (int g = 0; g < G; ++g) {
+        if (kt0 + g >= KT) break;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const int idx = i * kSm90Threads + tid;
+          const int n = idx % BN, k = k_of(idx / BN);
+          uint32_t big, small;
+          split_tf32(v[g][i], big, small);
+          const int off = (bsm - base) + (kt0 + g) * 2 * Cfg::B_HALF + n * 128 + (((k >> 2) ^ (n & 7)) << 4) +
+                          (k & 3) * 4;
+          *reinterpret_cast<uint32_t*>(smem + off) = big;
+          *reinterpret_cast<uint32_t*>(smem + off + Cfg::B_HALF) = small;
+        }
       }
     }
   }
@@ -324,15 +342,18 @@ __global__ void __launch_bounds__(kSm90Threads, 1) conv3x3_tf32x3_kernel(const _
     const int q = lane & 3;
     const bool odd = q & 1;
     const int ho = h0 + wg;
-    float2 sk[2][BN / 8];
+    float2 sk[2][BN / 8], sk2[2][SK2 ? BN / 8 : 1];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int wo = w0 + warp * 16 + h * 8 + (lane >> 2);
       const long long row = (static_cast<long long>(ho) * a.Wo + wo) * a.Co + n0;
       const bool ok = a.skip && ho < a.Ho && wo < a.Wo;
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
+      for (int j = 0; j < BN / 8; ++j) {
         sk[h][j] = ok ? *reinterpret_cast<const float2*>(a.skip + row + j * 8 + q * 2) : make_float2(0.f, 0.f);
+        if constexpr (SK2)
+          sk2[h][j] = ok ? *reinterpret_cast<const float2*>(a.skip2 + row + j * 8 + q * 2) : make_float2(0.f, 0.f);
+      }
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -348,6 +369,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1) conv3x3_tf32x3_kernel(const _
           const float2 bias = *reinterpret_cast<const float2*>(bias_s + j * 8 + q * 2);
           v[jj] = make_float2(acc[4 * j + 2 * h] + bias.x, acc[4 * j + 2 * h + 1] + bias.y);
           v[jj] = make_float2(v[jj].x + sk[h][j].x, v[jj].y + sk[h][j].y);
+          if constexpr (SK2) v[jj] = make_float2(v[jj].x + sk2[h][j].x, v[jj].y + sk2[h][j].y);
           v[jj] = make_float2(apply_act(v[jj].x, a.act), apply_act(v[jj].y, a.act));
         }
         const float2 send = odd ? v[0] : v[1];
@@ -392,8 +414,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1) conv3x3_tf32x3_kernel(const _
       wgmma_wait<0>();
       fence_regs(acc);
       fence_regs(part);
-      fence_frags(cur);  // the products read them until here
-      fence_frags(cus);
+      fence_tf32_frags(cur);  // the products read them until here
+      fence_tf32_frags(cus);
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
       PHASE(4)
@@ -427,10 +449,10 @@ __global__ void __launch_bounds__(kSm90Threads, 1) conv3x3_tf32x3_kernel(const _
 #undef PHASE
 }
 
-template <int BN, int S>
+template <int BN, int S, bool SK2 = false>
 cudaError_t launch_tf32x3(Sm90Args<float>& a, const void* x, int H, int W, int cf, cudaStream_t stream) {
   using Cfg = Tf32Cfg<BN>;
-  auto kernel = conv3x3_tf32x3_kernel<BN, S>;
+  auto kernel = conv3x3_tf32x3_kernel<BN, S, SK2>;
   static int resident = 0;  // once per instantiation
   if (!resident) {
     const cudaError_t err = resident_blocks(kernel, kTf32Smem, &resident);
@@ -444,18 +466,28 @@ cudaError_t launch_tf32x3(Sm90Args<float>& a, const void* x, int H, int W, int c
   return cudaGetLastError();
 }
 
-// The fp32 float conv of block_conv3 (S = 1) or down2 (S = 2) on the 3×TF32
-// tile; arguments as conv3x3_sm90 (sm90_setup), and the split weights of a
-// list must fit in shared memory (per_list ≤ kTf32MaxList).
+// The fp32 float conv of block_conv3 (S = 1) or down2 (S = 2), or one of
+// trunk3's dense convs, on the 3×TF32 tile; arguments as conv3x3_sm90
+// (sm90_setup), and the split weights of a list must fit in shared memory
+// (per_list ≤ kTf32MaxList). `skip2` (with a skip; stride 1, a 32-channel N
+// tile): the SK2 instance, the second skip added after the first.
 template <int S>
 cudaError_t conv3x3_tf32x3(const void* x, const void* w, const float* b, const void* skip, void* y, int H,
                            int W, int cf, int ch0, int C, int Co, int act, int a_sub, const int* table,
-                           int per_list, cudaStream_t stream, Sm90Args<float>* args = nullptr) {
+                           int per_list, cudaStream_t stream, Sm90Args<float>* args = nullptr,
+                           const void* skip2 = nullptr) {
   Sm90Args<float> own;
   Sm90Args<float>& a = args ? *args : own;
   const cudaError_t err = sm90_setup(a, w, b, skip, y, H, W, S, cf, ch0, C, Co, act, a_sub, table, per_list);
   if (err != cudaSuccess) return err;
   if (per_list > kTf32MaxList) return cudaErrorInvalidValue;
+  if (skip2) {
+    a.skip2 = static_cast<const float*>(skip2);
+    if constexpr (S == 1) {
+      if (skip && a.co_nat % 64) return launch_tf32x3<32, 1, true>(a, x, H, W, cf, stream);
+    }
+    return cudaErrorInvalidValue;
+  }
   if (a.co_nat % 64 == 0 && Tf32Cfg<64>::smem(per_list) <= kTf32Smem)
     return launch_tf32x3<64, S>(a, x, H, W, cf, stream);
   return launch_tf32x3<32, S>(a, x, H, W, cf, stream);

@@ -118,7 +118,6 @@ int down2(const void* x, const void* w, const void* b, const hdrtv::QuantParams*
   a.w = w;
   a.b = static_cast<const float*>(b);
   a.skip = nullptr;
-  a.skip2 = nullptr;
   a.y = y;
   a.H = H;
   a.W = W;

@@ -17,9 +17,24 @@
 // shared memory at 240 columns × 32 channels. The residual add and the stage
 // skip ride in the conv epilogue; the running x is updated in place.
 //
-// fp32: the SFT passes one thread per pixel, the convs on the FMA tile of
-// conv3x3.cuh (a 32-channel conv uses a quarter of a 128-wide tile, Co
-// masked), weights from the fp32 parameter block.
+// fp32: the same 17 stages, weights from the fp32 parameter block:
+//   - the 8 SFT passes on sft_rows_f32_kernel (below): lanes over channels,
+//     so that a warp loads and stores whole 128-byte rows of x and t; rows of
+//     x and cond staged through shared memory by cp.async, two tiles of 64
+//     pixels in flight a block; the 16 → 16 → 32 1×1s on the FMA units in
+//     fp32, each lane's weight columns in registers (staged through shared
+//     memory once a block), cond and the hidden row read from shared memory
+//     as broadcasts;
+//   - the 9 convs on the 3×TF32 tile of conv3x3_tf32x3.cuh, dense (a_sub =
+//     0, the one 9-chunk list of a 32-channel conv that trunk3 asks
+//     sm90_table for), per-chunk sums in fp32: conv1 BN = 32 with ReLU,
+//     conv2 BN = 32 through the skip epilogue, the fourth through the
+//     two-skip one (x + conv2(t), then + fea3), up_conv1 BN = 64 with ReLU;
+//     TMA zero-fills t outside the image and the masked stores hold the
+//     edges (135 rows are not a multiple of the tile's 2, 240 columns not
+//     of 64).
+//   Bound: operations, 7.1 GFLOP of convs at a third of the TF32 rate plus
+//   0.8 of SFT at the FMA rate, ≈ 0.055 ms at 1080p; 17 launches of a few µs.
 //
 // bf16: the same 17 stages on the Hopper tiles, weights from the bf16 pack:
 //   - the 8 SFT passes on chain_sm90.cuh's row tile (sft_sm90_natural): the
@@ -47,6 +62,7 @@
 // bf16 pack (trunk3_pack_bf16) is the same order split in two: the weights
 // in bf16, the biases in fp32.
 #include "chain_sm90.cuh"
+#include "conv3x3_tf32x3.cuh"
 
 namespace hdrtv {
 namespace {
@@ -57,82 +73,162 @@ constexpr int kC = 32;   // trunk channels
 __host__ __device__ constexpr long long sft_floats(int cc, int c) { return 2LL * (cc * cc + cc + cc * c + c); }
 __host__ __device__ constexpr long long conv_floats(int c, int co) { return 9LL * c * co + co; }
 
-template <typename T, int CC, int C>
-__global__ void sft_kernel(const T* __restrict__ x, const T* __restrict__ cond,
-                           const float* __restrict__ prm, T* __restrict__ t, int npix) {
-  constexpr int kN = static_cast<int>(sft_floats(CC, C));
-  __shared__ float sp[kN];
-  for (int i = threadIdx.x; i < kN; i += blockDim.x) sp[i] = prm[i];
-  __syncthreads();
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npix) return;
+// The fp32 SFT pass, one tile of kSftTP pixels at a time, persistent
+// blocks. Lane l holds, of the hidden layer, branch l / 16's unit l % 16
+// (its conv0 column and bias), and of the output, channel l (both branches'
+// conv1 columns and biases): 51 weights in registers. Per pixel the lane
+// sums its hidden unit over the 16 cond values (read as broadcasts from the
+// staged row), lrelu, stores it to the warp's hidden row; after the warp
+// meets, sums scale and shift over the 16 hidden units of each branch (read
+// as broadcasts) and writes t = x·(scale + 1) + shift, x from the staged
+// row: one 128-byte store a pixel and warp. fp32 sums in the order of the
+// other instances' passes.
+constexpr int kSftTP = 64;       // pixels of a tile
+constexpr int kSftThreads = 256;  // 8 warps, kSftTP / 8 pixels each
 
-  constexpr int kBranch = CC * CC + CC + CC * C + C;
-  float cv[CC];
-#pragma unroll
-  for (int i = 0; i < CC; ++i) cv[i] = to_float<T>(cond[static_cast<long long>(p) * CC + i]);
-  float hid[2][CC];
-#pragma unroll
-  for (int br = 0; br < 2; ++br) {
-    const float* w0 = sp + br * kBranch;
-    const float* b0 = w0 + CC * CC;
-#pragma unroll
-    for (int j = 0; j < CC; ++j) {
-      float v = b0[j];
-#pragma unroll
-      for (int i = 0; i < CC; ++i) v = fmaf(cv[i], w0[i * CC + j], v);
-      hid[br][j] = round_to<T>(v >= 0.f ? v : v * 0.1f);
+template <int CC, int C>
+struct SftRowsSmem {
+  float x[2][kSftTP * C];
+  float cond[2][kSftTP * CC];
+  float hid[kSftThreads / 32][kSftTP / (kSftThreads / 32)][2 * CC];
+  float prm[2 * (CC * CC + CC + CC * C + C)];
+};
+
+template <int CC, int C>
+__global__ void __launch_bounds__(kSftThreads) sft_rows_f32_kernel(const float* __restrict__ x,
+                                                                   const float* __restrict__ cond,
+                                                                   const float* __restrict__ prm,
+                                                                   float* __restrict__ t, int npix) {
+  static_assert(C == 32 && 2 * CC == 32, "a lane per channel and per hidden unit");
+  using Smem = SftRowsSmem<CC, C>;
+  constexpr int kN = static_cast<int>(sft_floats(CC, C)), kBranch = CC * CC + CC + CC * C + C;
+  constexpr int PW = kSftTP / (kSftThreads / 32);  // pixels of a warp in a tile
+  extern __shared__ __align__(16) unsigned char sft_smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(sft_smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles = (npix + kSftTP - 1) / kSftTP;
+
+  // A tile's rows into stage st: x (kSftTP·C floats) and cond (kSftTP·CC),
+  // 16 bytes a copy, pixels past the end zero-filled.
+  auto load = [&](int tile, int st) {
+    const long long p0 = static_cast<long long>(tile) * kSftTP;
+    for (int i = tid; i < kSftTP * C / 4; i += kSftThreads) {
+      const long long p = p0 + i / (C / 4);
+      cp_async16_or_zero(&sm.x[st][i * 4], x + (p < npix ? p0 * C + i * 4 : 0), p < npix);
     }
+    for (int i = tid; i < kSftTP * CC / 4; i += kSftThreads) {
+      const long long p = p0 + i / (CC / 4);
+      cp_async16_or_zero(&sm.cond[st][i * 4], cond + (p < npix ? p0 * CC + i * 4 : 0), p < npix);
+    }
+    cp_async_commit();
+  };
+  int tile = blockIdx.x;
+  if (tile < tiles) load(tile, 0);
+  for (int i = tid; i < kN; i += kSftThreads) sm.prm[i] = prm[i];
+  __syncthreads();
+  const int br = lane / CC, j = lane % CC;
+  float w0[CC], w1s[CC], w1h[CC];
+  const float* p0w = sm.prm + br * kBranch;
+#pragma unroll
+  for (int i = 0; i < CC; ++i) w0[i] = p0w[i * CC + j];
+  const float b0 = p0w[CC * CC + j];
+  const float* w1s_ = sm.prm + CC * CC + CC;
+  const float* w1h_ = sm.prm + kBranch + CC * CC + CC;
+#pragma unroll
+  for (int i = 0; i < CC; ++i) {
+    w1s[i] = w1s_[i * C + lane];
+    w1h[i] = w1h_[i * C + lane];
   }
-  const float* w1s = sp + CC * CC + CC;
-  const float* b1s = w1s + CC * C;
-  const float* w1h = sp + kBranch + CC * CC + CC;
-  const float* b1h = w1h + CC * C;
-  for (int n = 0; n < C; ++n) {
-    float scale = b1s[n], shift = b1h[n];
-#pragma unroll
-    for (int j = 0; j < CC; ++j) {
-      scale = fmaf(hid[0][j], w1s[j * C + n], scale);
-      shift = fmaf(hid[1][j], w1h[j * C + n], shift);
+  const float b1s = w1s_[CC * C + lane], b1h = w1h_[CC * C + lane];
+
+  for (int st = 0; tile < tiles; tile += gridDim.x, st ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < tiles) {
+      load(next, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    const long long o = static_cast<long long>(p) * C + n;
-    t[o] = static_cast<T>(to_float<T>(x[o]) * (scale + 1.f) + shift);
+    __syncthreads();
+    const long long p0 = static_cast<long long>(tile) * kSftTP + warp * PW;
+    const float* xs = sm.x[st] + warp * PW * C;
+    const float* cs = sm.cond[st] + warp * PW * CC;
+    float(&hid)[PW][2 * CC] = sm.hid[warp];
+#pragma unroll
+    for (int p = 0; p < PW; ++p) {
+      float v = b0;
+#pragma unroll
+      for (int i4 = 0; i4 < CC / 4; ++i4) {
+        const float4 c4 = *reinterpret_cast<const float4*>(cs + p * CC + 4 * i4);
+        v = fmaf(c4.x, w0[4 * i4], v);
+        v = fmaf(c4.y, w0[4 * i4 + 1], v);
+        v = fmaf(c4.z, w0[4 * i4 + 2], v);
+        v = fmaf(c4.w, w0[4 * i4 + 3], v);
+      }
+      hid[p][lane] = v >= 0.f ? v : v * 0.1f;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < PW; ++p) {
+      float scale = b1s, shift = b1h;
+#pragma unroll
+      for (int i4 = 0; i4 < CC / 4; ++i4) {
+        const float4 s4 = *reinterpret_cast<const float4*>(&hid[p][4 * i4]);
+        const float4 h4 = *reinterpret_cast<const float4*>(&hid[p][CC + 4 * i4]);
+        scale = fmaf(s4.x, w1s[4 * i4], scale);
+        shift = fmaf(h4.x, w1h[4 * i4], shift);
+        scale = fmaf(s4.y, w1s[4 * i4 + 1], scale);
+        shift = fmaf(h4.y, w1h[4 * i4 + 1], shift);
+        scale = fmaf(s4.z, w1s[4 * i4 + 2], scale);
+        shift = fmaf(h4.z, w1h[4 * i4 + 2], shift);
+        scale = fmaf(s4.w, w1s[4 * i4 + 3], scale);
+        shift = fmaf(h4.w, w1h[4 * i4 + 3], shift);
+      }
+      if (p0 + p < npix) t[(p0 + p) * C + lane] = xs[p * C + lane] * (scale + 1.f) + shift;
+    }
+    // everyone is done with this stage (and the warp with its hidden rows)
+    // before the next iteration's load refills it
+    __syncthreads();
   }
 }
 
-template <typename T>
-cudaError_t launch_sft(const T* x, const T* cond, const float* prm, T* t, int npix,
-                       cudaStream_t stream) {
-  const int threads = 128;
-  sft_kernel<T, kCC, kC><<<(npix + threads - 1) / threads, threads, 0, stream>>>(x, cond, prm,
-                                                                                 t, npix);
+cudaError_t launch_sft_rows(const float* x, const float* cond, const float* prm, float* t, int npix,
+                            cudaStream_t stream) {
+  auto kernel = sft_rows_f32_kernel<kCC, kC>;
+  constexpr int smem = static_cast<int>(sizeof(SftRowsSmem<kCC, kC>));
+  static int resident = 0;
+  if (!resident) {
+    const cudaError_t err = resident_blocks(kernel, smem, &resident, kSftThreads);
+    if (err != cudaSuccess) return err;
+  }
+  const int tiles = (npix + kSftTP - 1) / kSftTP;
+  kernel<<<std::max(1, std::min(tiles, resident)), kSftThreads, smem, stream>>>(x, cond, prm, t, npix);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t conv(const T* x, const float* w, const T* skip, const T* skip2, T* y, int H, int W,
-                 int C, int Co, int act, cudaStream_t stream) {
-  return conv_same<T, float, T>(x, w, w + 9LL * C * Co, skip, skip2, y, H, W, C, Co, act, stream);
-}
-
-// scratch: 3 · H · W · C elements of T (t, h and the running x).
-template <typename T>
-int trunk3(const void* fea3, const void* cond, const void* params, void* y, void* scratch, int H,
-           int W, int C, int CC, int Co, void* stream) {
-  static_assert(std::is_same<T, float>::value, "bf16 runs trunk3_sm90");
-  if (C != kC || CC != kCC) return static_cast<int>(cudaErrorInvalidValue);
+// The fp32 form: weights and biases from trunk3_pack's block; table: the
+// dense 9-chunk list (per_list 9) of a 32-channel conv, as sm90_table gives
+// it for trunk3; scratch: 3 · H · W · C floats (t, h and the running x).
+int trunk3_f32(const void* fea3, const void* cond, const void* params, void* y, void* scratch, int H, int W,
+               int C, int CC, int Co, const int* table, int per_list, void* stream) {
+  if (C != kC || CC != kCC || !table) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int npix = H * W;
-  const T* f = static_cast<const T*>(fea3);
-  const T* c = static_cast<const T*>(cond);
+  const float* f = static_cast<const float*>(fea3);
+  const float* c = static_cast<const float*>(cond);
   const float* prm = static_cast<const float*>(params);
-  T* t = static_cast<T*>(scratch);
-  T* h = t + static_cast<long long>(npix) * C;
-  T* xr = h + static_cast<long long>(npix) * C;
+  float* t = static_cast<float*>(scratch);
+  float* h = t + static_cast<long long>(npix) * C;
+  float* xr = h + static_cast<long long>(npix) * C;
   const long long sft_n = sft_floats(CC, C);
   const long long conv_n = conv_floats(C, C);
+  auto conv = [&](const float* x, const float* w, const float* skip, const float* skip2, float* out, int co,
+                  int act) {
+    return conv3x3_tf32x3<1>(x, w, w + 9LL * C * co, skip, out, H, W, C, 0, C, co, act, 0, table, per_list, s,
+                             nullptr, skip2);
+  };
 
-  const T* xin = f;
+  const float* xin = f;
   cudaError_t err = cudaSuccess;
   for (int blk = 0; blk < 4 && err == cudaSuccess; ++blk) {
     const float* sft1 = prm;
@@ -140,16 +236,14 @@ int trunk3(const void* fea3, const void* cond, const void* params, void* y, void
     const float* sft2 = conv1 + conv_n;
     const float* conv2 = sft2 + sft_n;
     prm = conv2 + conv_n;
-    err = launch_sft<T>(xin, c, sft1, t, npix, s);
-    if (err == cudaSuccess) err = conv<T>(t, conv1, nullptr, nullptr, h, H, W, C, C, ACT_RELU, s);
-    if (err == cudaSuccess) err = launch_sft<T>(h, c, sft2, t, npix, s);
+    err = launch_sft_rows(xin, c, sft1, t, npix, s);
+    if (err == cudaSuccess) err = conv(t, conv1, nullptr, nullptr, h, C, ACT_RELU);
+    if (err == cudaSuccess) err = launch_sft_rows(h, c, sft2, t, npix, s);
     // x = x + conv2(t); the last block also adds the stage skip fea3.
-    if (err == cudaSuccess)
-      err = conv<T>(t, conv2, xin, blk == 3 ? f : nullptr, xr, H, W, C, C, ACT_NONE, s);
+    if (err == cudaSuccess) err = conv(t, conv2, xin, blk == 3 ? f : nullptr, xr, C, ACT_NONE);
     xin = xr;
   }
-  if (err == cudaSuccess)
-    err = conv<T>(xr, prm, nullptr, nullptr, static_cast<T*>(y), H, W, C, Co, ACT_RELU, s);
+  if (err == cudaSuccess) err = conv(xr, prm, nullptr, nullptr, static_cast<float*>(y), Co, ACT_RELU);
   return static_cast<int>(err);
 }
 
@@ -215,12 +309,13 @@ extern "C" long long hdrtv_trunk3_param_floats(int C, int CC, int Co) {
          hdrtv::conv_floats(C, Co);
 }
 
-// params: fp32, the parameter block (biases, table and per_list unused);
-// bf16, the pack's weights, with its biases and the conv tile's table.
+// params: fp32, the parameter block (biases unused); bf16, the pack's
+// weights, with its biases. table, per_list: the conv tiles' dense 9-chunk
+// list.
 extern "C" int hdrtv_trunk3_f32(const void* fea3, const void* cond, const void* params, const void* biases,
                                 void* y, void* scratch, int H, int W, int C, int CC, int Co,
                                 const int* table, int per_list, void* stream) {
-  return hdrtv::trunk3<float>(fea3, cond, params, y, scratch, H, W, C, CC, Co, stream);
+  return hdrtv::trunk3_f32(fea3, cond, params, y, scratch, H, W, C, CC, Co, table, per_list, stream);
 }
 
 extern "C" int hdrtv_trunk3_bf16(const void* fea3, const void* cond, const void* params, const void* biases,

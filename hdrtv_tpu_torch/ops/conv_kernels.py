@@ -78,7 +78,7 @@ def conv_chunks(stride: int, a_sub: int, c: int) -> list[list[tuple[int, int]]]:
 
 @functools.lru_cache(maxsize=64)
 def sm90_table(name: str, stride: int, a_sub: int, c: int, co: int, cf: int, ch0: int = 0,
-               dtype: torch.dtype = torch.bfloat16):
+               dtype: torch.dtype = torch.bfloat16, *, dense_tf32x3: bool = False):
     """What a float call in ``dtype`` hands the Hopper tile (bf16) or its
     3×TF32 sibling (fp32): the chunk table (a ctypes int array, entry tap |
     c0 << 4, the lists back to back) and the length of one list. The tiles
@@ -89,10 +89,13 @@ def sm90_table(name: str, stride: int, a_sub: int, c: int, co: int, cf: int, ch0
     (9·C/CHUNK); the fp32 tile at most TF32X3_LIST_MAX of them a list. A
     shape a tile refuses raises for ``a_sub`` ≥ 1. The dense product gets
     (None, 0) where the bf16 tile refuses it, which the mma.sync tile of
-    csrc/conv3x3.cuh then runs, and always in fp32 (the FMA tile there).
-    Cached: a frame asks for the same few tables at every call."""
+    csrc/conv3x3.cuh then runs, and in fp32 (the FMA tile there), unless
+    the call asks for the 3×TF32 tile's dense table with ``dense_tf32x3``
+    (trunk3's convs, C = 32: one list of 9 chunks), which raises where that
+    tile refuses the shape. Cached: a frame asks for the same few tables at
+    every call."""
     f32 = dtype == torch.float32
-    if f32 and not a_sub:
+    if f32 and not a_sub and not dense_tf32x3:
         return None, 0
     kc, n = (c // 4, co // (4 * a_sub)) if a_sub else (c, co)
     group = 4 if f32 else 8
@@ -105,6 +108,11 @@ def sm90_table(name: str, stride: int, a_sub: int, c: int, co: int, cf: int, ch0
             raise ValueError(f"{name}: the {tile} takes a_sub={a_sub} with C/4 a multiple of {CHUNK}, "
                              f"C ≤ {most}, Co/(4·a_sub) a multiple of 32 and the pixel pitch and window "
                              f"start multiples of {group}, got C={c}, Co={co}, pitch {cf}, ch0={ch0}")
+        if f32 and dense_tf32x3:
+            raise ValueError(f"{name}: the 3×TF32 Hopper tile takes the dense product with C a multiple of "
+                             f"{CHUNK}, C ≤ {TF32X3_LIST_MAX * CHUNK // 9}, Co a multiple of 32 and the pixel "
+                             f"pitch and window start multiples of {group}, got C={c}, Co={co}, pitch {cf}, "
+                             f"ch0={ch0}")
         return None, 0
     chunks = conv_chunks(stride, a_sub, c)
     entries = [tap | c0 << 4 for group_ in chunks for tap, c0 in group_]

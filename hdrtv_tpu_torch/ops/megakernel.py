@@ -37,8 +37,8 @@ kernel's. The int8 bodies of ``fused_tail``, ``fused_sft_conv3_v2`` and
 int8-output mode and their convs the wgmma s8 tile of
 ``csrc/conv3x3_s8_sm90.cuh``, which also runs ``fused_down2``'s int8 body in
 bf16 at stride 2 (its ``a_sub`` ≥ 1 being the same declaration).
-``fused_trunk3`` runs natural tensors; its bf16 instance runs the Hopper
-tiles on any weights.
+``fused_trunk3`` runs natural tensors; both its instances run the Hopper
+tiles on any weights (fp32 the 3×TF32 tile, dense).
 """
 
 from __future__ import annotations
@@ -1142,10 +1142,12 @@ def fused_trunk3(
     shift_conv1. ``w1``/``w2`` (3,3,C,C), ``w_up`` (3,3,C,Co) HWIO.
     ``packed``: the pack of the same parameters for the call's element type,
     :func:`trunk3_pack` (fp32) or :func:`trunk3_pack_bf16`, when the caller
-    keeps one (only the CUDA kernel reads it). On the card fp32 runs the FMA
-    tiles; bf16 the Hopper tiles (the SFT passes on ``csrc/chain_sm90.cuh``'s
-    row tile over natural rows, the convs on ``csrc/conv3x3_sm90.cuh``'s tile
-    with the dense 9-chunk table), C = 32 and CC = 16 only.
+    keeps one (only the CUDA kernel reads it). On the card, C = 32, CC = 16
+    and Co % 32 == 0 only, the convs run the Hopper tiles with the dense
+    9-chunk table: fp32 the 3×TF32 tile of ``csrc/conv3x3_tf32x3.cuh`` (the
+    table asked for by ``dense_tf32x3``), its SFT passes the coalesced fp32
+    pass of ``csrc/trunk3.cu``; bf16 the tile of ``csrc/conv3x3_sm90.cuh``,
+    its SFT passes ``csrc/chain_sm90.cuh``'s row tile over natural rows.
     """
     hb, wb, c = fea3.shape
     cc = cond4.shape[-1]
@@ -1163,22 +1165,21 @@ def fused_trunk3(
     native.check_cuda("trunk3 fea3", fea3, dt)
     native.check_cuda("trunk3 cond4", cond4, dt, (hb, wb, cc))
     want = native.lib().hdrtv_trunk3_param_floats(c, cc, co)
-    if want == 0 or co % 4:
-        raise ValueError(f"trunk3 is built for C=32, CC=16, Co % 4 == 0; got C={c} CC={cc} Co={co}")
-    table, per_list, biases = None, 0, None
+    if want == 0 or co % 32:
+        raise ValueError(f"trunk3 is built for C=32, CC=16 and its Hopper conv tiles need Co % 32 == 0; "
+                         f"got C={c} CC={cc} Co={co}")
+    biases = None
     if dt == torch.float32:
         params = packed if packed is not None else trunk3_pack(blocks, w_up, b_up)
         if params.numel() != want:
             raise ValueError(f"trunk3 parameter block has {params.numel()} floats, expected {want}")
         native.check_cuda("trunk3 params", params, torch.float32)
     else:
-        if co % 32:
-            raise ValueError(f"trunk3's Hopper conv tile needs Co % 32 == 0, got {co}")
         params, biases = packed if packed is not None else trunk3_pack_bf16(blocks, w_up, b_up)
         n_w = 4 * (2 * 2 * (cc * cc + cc * c) + 2 * 9 * c * c) + 9 * c * co
         native.check_cuda("trunk3 weights (bf16 pack)", params, dt, (n_w,))
         native.check_cuda("trunk3 biases (bf16 pack)", biases, torch.float32, (want - n_w,))
-        table, per_list = sm90_table("trunk3", 1, 0, c, c, c)
+    table, per_list = sm90_table("trunk3", 1, 0, c, c, c, dtype=dt, dense_tf32x3=True)
     scratch = torch.empty(3 * hb * wb * c, dtype=dt, device=fea3.device)
     out = torch.empty((hb, wb, co), dtype=dt, device=fea3.device)
     native.launch(

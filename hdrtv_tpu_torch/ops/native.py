@@ -245,9 +245,11 @@ def check_params(name: str, dtype: torch.dtype, weights, biases) -> None:
             raise ValueError(f"{name}: biases must be float32, got {b.dtype}")
 
 
-def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple | None = None) -> None:
-    """What every kernel takes: a contiguous, 16-byte aligned CUDA tensor of
-    the kernel's dtype (and shape, when given)."""
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple | None = None,
+               align: int = 16) -> None:
+    """What every kernel takes: a contiguous CUDA tensor of the kernel's
+    dtype (and shape, when given), its data ``align``-byte aligned (16 but
+    for a kernel that takes any element-aligned view)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -256,8 +258,8 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple | No
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

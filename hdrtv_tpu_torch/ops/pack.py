@@ -30,12 +30,20 @@ def pack_rgb48_ref(x: torch.Tensor) -> torch.Tensor:
 
 def pack_rgb48(x: torch.Tensor) -> torch.Tensor:
     """[0,1] RGB (…, W, 3) float32 or bfloat16 → uint16 RGB48 code values,
-    same shape."""
+    same shape. The kernel takes any contiguous input, a view at an offset
+    that is not 16-byte aligned included: the output then lies as many
+    elements past a 16-byte boundary (a view into a slightly longer
+    buffer), so that the kernel's groups of 8 start at the same element of
+    both after a scalar head."""
     dt = native.element_type("pack_rgb48 input", x)
     if native.on_cpu(x):
         return pack_rgb48_ref(x)
-    native.check_cuda("pack_rgb48 input", x, dt)
-    out = torch.empty(x.shape, dtype=torch.uint16, device=x.device)
+    native.check_cuda("pack_rgb48 input", x, dt, align=x.element_size())
+    off = (x.data_ptr() % 16) // x.element_size()
+    if off:
+        out = torch.empty(x.numel() + off, dtype=torch.uint16, device=x.device)[off:].view(x.shape)
+    else:
+        out = torch.empty(x.shape, dtype=torch.uint16, device=x.device)
     native.launch("pack_rgb48", dt, x.data_ptr(), out.data_ptr(), x.numel(), native.stream_of(x))
     return out
 

@@ -99,6 +99,27 @@ def _env_on(*names: str) -> bool:
     return any(env_bool(n) for n in names)
 
 
+# The base model's width the card's routes are built for: the s2d programs'
+# Hopper tiles and trunk3 take the nf = 32 checkpoint's natural widths alone.
+CARD_NF = 32
+
+
+def check_card_widths(cfg: ModelConfig, device: str | torch.device, *, turbo: bool = True) -> None:
+    """Refuse at load what would fail at the first frame: on a CUDA device,
+    the space-to-depth programs (``turbo``) of a checkpoint whose ``nf`` is
+    not CARD_NF. Their kernels are built for its natural widths (trunk 32
+    channels, SFT condition 16, CondNet 64; s2d blocks of 128) and raise on
+    others, with no dense fallback. The CPU, whose plain versions take any
+    width, and the natural-layout program (``turbo`` off: torch ops and the
+    pack) take every nf."""
+    if torch.device(device).type == "cuda" and turbo and cfg.nf != CARD_NF:
+        raise ValueError(
+            f"the card's space-to-depth programs take the nf = {CARD_NF} base model's widths (trunk 32 "
+            f"channels, SFT condition 16, CondNet 64, s2d blocks of 128); this checkpoint has nf = {cfg.nf}. "
+            "Run it with turbo=False (the natural-layout program) or on device='cpu'"
+        )
+
+
 class HDRTVNetTorch:
     """Real-time SDR→HDR10 converter on one CUDA device.
 
@@ -194,6 +215,7 @@ class HDRTVNetTorch:
         # s2d-able pixel-shuffle HG and float (or pre-dequantized) weights;
         # the architecture checks above already hold.
         self.turbo = bool(turbo and (not cfg.use_hg or "hg.conv1.0.weight" in params) and not has_int8)
+        check_card_widths(cfg, self.device, turbo=self.turbo)
         self.cfg = cfg
         # The natural-layout parameters, untransformed: the program of every
         # frame without turbo, and of the frames whose sides are not

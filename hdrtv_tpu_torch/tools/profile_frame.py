@@ -19,8 +19,9 @@ kernels do not overlap), and the number of kernel launches. The port's
 kernels are also split by source kernel (conv tile on the FMA units and on
 the tensor cores, the Hopper conv tile of down2, block_conv3 and the s2d
 forms of the tail, sft_conv3 and resblock in bf16 (all its epilogue
-instances) and in fp32 on 3×TF32, SFT passes, 1×1 chains (and their Hopper
-row tiles: mix_chain's, cond_chain's, the SFT one with bf16 or fp32 x), the
+instances) and in fp32 on 3×TF32, SFT passes (and trunk3's coalesced fp32
+one), 1×1 chains (and their Hopper row tiles: mix_chain's, cond_chain's,
+the SFT one with bf16 or fp32 x), the
 head's two kernels (and its s2d form's two: the AGCM row tile and the input
 conv's wgmma tile), conv_last (dense, and the s2d form's Hopper tile),
 pack, the HG tail, the int8 conv tiles (mma.sync, and the s2d forms' wgmma
@@ -44,7 +45,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 # (group, substrings of the kernel name), first match wins
 GROUPS = (
     ("port kernels", ("conv3x3_kernel", "conv3x3_mma_kernel", "conv3x3_sm90_kernel", "conv3x3_tf32x3_kernel",
-                      "sft_kernel", "chain_kernel", "sft_sm90_kernel", "mix_chain_sm90_kernel", "chain_sm90_kernel",
+                      "sft_kernel", "sft_rows_f32_kernel", "chain_kernel", "sft_sm90_kernel", "mix_chain_sm90_kernel",
+                      "chain_sm90_kernel",
                       "pack_rgb48_kernel", "agcm_kernel", "in_conv_kernel", "agcm_sm90_kernel",
                       "in_conv_sm90_kernel", "conv_last_kernel", "conv_last_sm90_kernel",
                       "hg_tail_mma_kernel", "hg_tail_fma_kernel", "colorimetric_kernel",

@@ -11,7 +11,8 @@ at the 1080p shapes of the frame programs' block_conv3 and down2 calls
 bf16 programs' shapes, fp32 at the fp32 programs'), and in bf16 at
 resblock's L1 shape, its conv2 (bf16 out) and its conv1 (h1 stored by the
 fp32-output epilogue), and at trunk3's 32 → 32 conv (135 × 240, natural,
-dense: a_sub = 0, one 9-chunk list), and prints, per shape,
+dense: a_sub = 0, one 9-chunk list; in fp32 also its up_conv1, 32 → 128,
+on the 3×TF32 tile's 64-wide N tile), and prints, per shape,
 the mean cycles a warpgroup spends in each phase of its step loop and their
 share of its total. The bf16 tile:
 
@@ -100,13 +101,15 @@ PHASES = {"bf16": ["total", "wait B", "wait A", "meet", "products", "epilogue", 
 # (name, stride, Hb, Wb, C, Co, a_sub): up_conv3/2 (PS-folded, block_conv3), the
 # consolidated CondNet down conv, CondNet3.2's window, down_conv1/2 (down2); in fp32
 # also the full-resolution HR_conv1/2 (block_conv3, 128 → 128), which only the fp32
-# programs run through block_conv3
+# programs run through block_conv3, and trunk3's dense natural convs at /8 (32 → 32,
+# and up_conv1 32 → 128)
 SHAPES = [
     ("up_conv3", 1, 270, 480, 128, 512, 1), ("up_conv2", 1, 135, 240, 128, 512, 1),
     ("LE.__cond_down", 2, 540, 960, 256, 768, 3), ("CondNet3.2", 2, 270, 480, 256, 256, 1),
     ("down_conv1", 2, 540, 960, 128, 128, 1), ("down_conv2", 2, 270, 480, 128, 128, 1),
 ]
-SHAPES_F32 = SHAPES + [("HR_conv1", 1, 540, 960, 128, 128, 1)]
+SHAPES_F32 = SHAPES + [("HR_conv1", 1, 540, 960, 128, 128, 1), ("trunk3 conv", 1, 135, 240, 32, 32, 0),
+                       ("trunk3 up_conv1", 1, 135, 240, 32, 128, 0)]
 # resblock at L1 (bf16 only): conv2, and conv1 with h1 stored in fp32 (the last field); trunk3's
 # natural 32 → 32 conv at /8, dense (a_sub 0)
 SHAPES_BF16 = [(*shape, False) for shape in SHAPES] + [
@@ -394,7 +397,7 @@ def main() -> None:
             b = torch.zeros(co, device=dev)
             y = torch.empty(hb // s, wb // s, co, device=dev, dtype=torch.float32 if out_f32 else tdt)
             phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
-            table, per_list = sm90_table(name, s, a_sub, c, co, c, dtype=tdt)
+            table, per_list = sm90_table(name, s, a_sub, c, co, c, dtype=tdt, dense_tf32x3=not a_sub)
             stream = torch.cuda.current_stream().cuda_stream
             for _ in range(3):  # warm: the last run's sums are read
                 rc = lib.hdrtv_sm90_phases(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), hb, wb, c, 0,

@@ -1731,3 +1731,88 @@ def test_frames_run_the_new_tiles(dev, monkeypatch, program):
         assert launched("conv_last") == 0, counts
     else:
         assert launched("conv_last_sm90_kernel") == 1 and launched("conv_last_kernel") == 0, counts
+
+
+def _trunk3_f32_args(rng, hb, wb, dev):
+    """trunk3's inputs at its natural widths (C 32, CC 16, Co 128) in fp32,
+    with test_trunk3_matches_plain's fp32 weights."""
+    cin, cc, co = 32, 16, 128
+    fea3 = _t(rng.rand(hb, wb, cin) - 0.2, dev)
+    cond4 = _t(rng.rand(hb, wb, cc) - 0.3, dev)
+    blocks = [(_sft4(rng, cc, cin, dev, "f32", 0.2), _t(rng.randn(3, 3, cin, cin) * 0.1, dev),
+               _t(rng.randn(cin) * 0.1, dev), _sft4(rng, cc, cin, dev, "f32", 0.2),
+               _t(rng.randn(3, 3, cin, cin) * 0.1, dev), _t(rng.randn(cin) * 0.1, dev)) for _ in range(4)]
+    return fea3, cond4, blocks, _t(rng.randn(3, 3, cin, co) * 0.1, dev), _t(rng.randn(co) * 0.1, dev)
+
+
+# 1080p's /8 level; odd row counts (the tile's 2 rows) and columns off its 64
+@pytest.mark.parametrize("hb,wb", [(135, 240), (27, 100), (9, 20), (5, 7), (1, 3)])
+def test_trunk3_fp32_on_tf32x3_tile_matches_plain(dev, hb, wb):
+    """trunk3's fp32 instance (its convs on the 3×TF32 tile, dense; its SFT
+    passes on the coalesced fp32 pass) within 5e-4 of the plain version,
+    chip_smoke.py's fp32 trunk3 check, in one counted launch."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_trunk3, fused_trunk3_ref, trunk3_pack
+
+    args = _trunk3_f32_args(np.random.RandomState(hb * wb + 17), hb, wb, dev)
+    before = native.launch_counts["trunk3"]
+    y = fused_trunk3(*args)
+    assert native.launch_counts["trunk3"] == before + 1
+    assert y.shape == (hb, wb, 128)
+    _close(y, fused_trunk3_ref(*args), "f32", atol=5e-4)
+    assert torch.equal(fused_trunk3(*args, packed=trunk3_pack(*args[2:])), y)
+
+
+def test_trunk3_fp32_runs_the_tf32x3_tile(dev):
+    """Under torch.profiler one fp32 trunk3 call launches the 3×TF32 tile 9
+    times (the two-skip instance once) and the coalesced SFT pass 8 times,
+    and neither the FMA conv tile nor the one-thread-a-pixel SFT pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hdrtv_tpu_torch.ops.megakernel import fused_trunk3
+
+    args = _trunk3_f32_args(np.random.RandomState(5), 27, 100, dev)
+    fused_trunk3(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_trunk3(*args)
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()}
+
+    def launched(sub):
+        return sum(n for k, n in counts.items() if sub in k)
+
+    assert launched("conv3x3_tf32x3_kernel") == 9 and launched("conv3x3_tf32x3_kernel<32, 1, true>") == 1, counts
+    assert launched("sft_rows_f32_kernel") == 8, counts
+    assert launched("conv3x3_kernel") + launched("conv3x3_mma_kernel") + launched("::sft_kernel") == 0, counts
+
+
+def _pack_values(rng, n):
+    """Values beyond [0, 1], 0 and 1, and every seventh on a +0.5 rounding
+    boundary: k/65535 lands within an ulp of (k + 0.5)/65535's neighbours."""
+    v = rng.uniform(-0.5, 1.5, n).astype(np.float32)
+    k = np.arange(n, dtype=np.float64) % 65536
+    v[::7] = ((k[::7] + 0.5) / 65535.0).astype(np.float32)
+    v[1::97], v[2::97], v[3::97] = 0.0, 1.0, -0.0
+    return v
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,offset", [
+    ((1080, 1920, 3), 0), ((99, 131, 3), 0), ((99, 131, 3), 1), ((36, 50, 3), 3), ((2, 9, 3), 7), ((5,), 2),
+], ids=["1080p", "99x131", "99x131-offset1", "36x50-offset3", "2x9-offset7", "5-offset2"])
+def test_pack_rgb48_streaming_pass_matches_plain_exactly(dev, dtype, shape, offset):
+    """The streaming pack bit for bit against the plain version: at 1080p,
+    at element counts that are not a multiple of 8 (the scalar tail), and
+    on views whose data pointer is not 16-byte aligned (the scalar head; the
+    output lies as far past a 16-byte boundary), in one counted launch."""
+    from hdrtv_tpu_torch.ops.pack import pack_rgb48, pack_rgb48_ref
+
+    n = int(np.prod(shape))
+    base = _t(_pack_values(np.random.RandomState(n + offset), n + 8), dev, dtype)
+    x = base[offset: offset + n].view(shape)
+    assert (x.data_ptr() % 16 != 0) == bool(offset * x.element_size() % 16)
+    before = native.launch_counts["pack_rgb48"]
+    u = pack_rgb48(x)
+    assert native.launch_counts["pack_rgb48"] == before + 1
+    assert u.dtype == torch.uint16 and u.shape == x.shape and u.is_contiguous()
+    np.testing.assert_array_equal(u.cpu().numpy(), pack_rgb48_ref(x.cpu()).numpy())

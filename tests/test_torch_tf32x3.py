@@ -79,12 +79,14 @@ def _walk(table, per_list: int) -> list[list[tuple[int, int]]]:
     return [[(e & 15, e >> 4) for e in entries[i: i + per_list]] for i in range(0, len(entries), per_list)]
 
 
-def _tile_conv(x, w, b, *, stride, a_sub, table, per_list, act=None, skip=None, products=3):
+def _tile_conv(x, w, b, *, stride, a_sub, table, per_list, act=None, skip=None, products=3, skip2=None):
     """The conv as the 3×TF32 tile sums it: for each output sub-position
-    (its channels in each of the a_sub blocks), over the chunks of its list
-    in the table, each chunk's small·big + big·small + big·big (``products``
-    = 1: big·big alone, one TF32 product) summed in fp32 from zero and added
-    to the running fp32 sum; then bias, skip, the activation."""
+    (its channels in each of the a_sub blocks; a_sub = 0, the dense table:
+    all channels, one list), over the chunks of its list in the table, each
+    chunk's small·big + big·small + big·big (``products`` = 1: big·big
+    alone, one TF32 product) summed in fp32 from zero and added to the
+    running fp32 sum; then bias, skip, the second skip (trunk3's two-skip
+    epilogue), the activation."""
     hb, wb, c = x.shape
     co = w.shape[-1]
     ho, wo = hb // stride, wb // stride
@@ -94,11 +96,14 @@ def _tile_conv(x, w, b, *, stride, a_sub, table, per_list, act=None, skip=None, 
             for dI in range(3) for dJ in range(3)]
     w9 = w.reshape(9, c, co)
     lists = _walk(table, per_list)
-    co_blk, co_nat = co // a_sub, co // (4 * a_sub)
+    if a_sub:
+        co_blk, co_nat = co // a_sub, co // (4 * a_sub)
+        col_sets = [torch.cat([torch.arange(blk * co_blk + so * co_nat, blk * co_blk + (so + 1) * co_nat)
+                               for blk in range(a_sub)]) for so in range(len(lists))]
+    else:
+        col_sets = [torch.arange(co)]
     y = torch.zeros(ho * wo, co)
-    for so, chunks in enumerate(lists):
-        cols = torch.cat([torch.arange(blk * co_blk + so * co_nat, blk * co_blk + (so + 1) * co_nat)
-                          for blk in range(a_sub)])
+    for cols, chunks in zip(col_sets, lists, strict=True):
         acc = torch.zeros(ho * wo, len(cols))
         for tap, c0 in chunks:
             ab, asm = split(taps[tap][:, c0: c0 + CHUNK].contiguous())
@@ -109,6 +114,8 @@ def _tile_conv(x, w, b, *, stride, a_sub, table, per_list, act=None, skip=None, 
     y = y.reshape(ho, wo, co) + b
     if skip is not None:
         y = y + skip
+    if skip2 is not None:
+        y = y + skip2
     if act == "relu":
         y = torch.clamp_min(y, 0.0)
     elif act == "lrelu":
