@@ -135,8 +135,10 @@ lines; any failed check raises and the script exits non-zero with no result:
    weights over the H100 SXM's rate for the element type (67 TFLOP/s fp32
    outside the tensor cores, 989 TFLOP/s bf16; the int8 bodies' operations
    at the 1979 TOPS int8 rate), whichever is larger;
-3. end to end: HDRTVNetTorch.process_rgb48 on the card against the same
-   processor on the CPU, one seeded 360×640 frame, for each of the three
+3. end to end: HDRTVNetTorch.process_rgb48's eager program (``_rgb48_eager``,
+   kernel by kernel, as before the CUDA graphs; phase 8 holds the graphs to
+   it) on the card against the same processor on the CPU, one seeded
+   360×640 frame, for each of the three
    frame programs: fp32 ≤ 4 u16 codes; bf16 without the megakernels
    (HDRTV_MEGAKERNEL=0) and bf16 with them, the default (a flipped rounding
    is 256 codes near full scale and spreads through the later layers), max
@@ -179,8 +181,8 @@ lines; any failed check raises and the script exits non-zero with no result:
    launches down2_w8a8 three times and down2 twice, and the int8 composite,
    whose base hands tail_w8a8's unpacked output to the generator and hg_tail):
    one frame through
-   process_rgb48_device (u8 pair planes from put_frame) with the launch
-   counts set to 0 before it and read after, asserted exactly
+   process_rgb48_device's eager program (u8 pair planes from put_frame)
+   with the launch counts set to 0 before it and read after, asserted exactly
    (EXPECTED_LAUNCHES: the megakernel program launches agcm_head, cond_chain
    and tail once each and pack_rgb48 not at all), then device-resident frames
    with one sync (3 in fp32, 3 in bf16 without the megakernels, 10 in the
@@ -198,7 +200,26 @@ lines; any failed check raises and the script exits non-zero with no result:
    the right shape and finite;
 7. the same for the two layout probes' kernels (d2s_add, rowmajor_head raw
    and pre), which no frame program runs either: one call each at its 1080p
-   shape, launch counts asserted, output of the right shape and finite.
+   shape, launch counts asserted, output of the right shape and finite;
+8. the CUDA graphs of the runtime (runtime/engine.py): right after each of
+   the thirteen programs of phase 4, on the same processor and frame,
+   process_rgb48_device's first frame (an eager run, the capture, a
+   replay): the capture counted exactly one frame's launches of phase 4,
+   the first call two; replays count none; every replay equals the eager
+   output's bytes (were two eager runs to differ, within phase 3's
+   card-against-CPU bound, and said so); two calls return two tensors; then
+   eager / replay / replay / eager, the phase 4 frame count each, ms/frame
+   and peak allocated memory of each, the graph's memory pool, the card's
+   name and power limit on the line; the graph and its pool freed before
+   the next program. Then proc_resolution (1920, 1080) on a 1080×1440 frame
+   (the letterbox in the graph; equal to eager, one frame's launches of the
+   default program) and, card against CPU at 360×640 in the default
+   program on six noise frames each, the program as it is,
+   proc_resolution (640, 360) on 480×640 frames, fast_condition_resize and
+   fast_zero_condition, within RUNTIME_BF16_CODES; and the same card
+   frames against planted faults on the CPU (the letterbox one row down;
+   each shortcut ignored), each of which must break that bound. One JSON
+   line of these numbers comes before the card's line.
 
 The line before the last is the per-kernel JSON summary, one entry per
 kernel and element type, with the path whose launches it reports and its
@@ -410,6 +431,14 @@ def psnr(mse: float) -> float:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def eager_rgb48(proc, frame):
+    """process_rgb48 on the eager frame program, kernel by kernel (what
+    phases 3 and 4 run; process_rgb48 itself replays the program's CUDA
+    graph, which phase 8 drives)."""
+    h, w, _ = frame.shape
+    return proc._hw3(proc._rgb48_eager(proc.put_frame(frame.reshape(h, w * 3))).cpu().numpy())
 
 
 def time_ms(fn, torch) -> float:
@@ -1495,7 +1524,7 @@ def phase_end_to_end(torch, np, hg_weights: dict) -> None:
         set_path_env(spec)
         log(f"phase 3: end to end, card against CPU (360x640 {path})")
         t0 = time.perf_counter()
-        gpu = HDRTVNetTorch(weights, precision=spec["precision"]).process_rgb48(frame)
+        gpu = eager_rgb48(HDRTVNetTorch(weights, precision=spec["precision"]), frame)
         t1 = time.perf_counter()
         cpu = HDRTVNetTorch(weights, precision=spec["precision"], device="cpu").process_rgb48(frame)
         t2 = time.perf_counter()
@@ -1534,7 +1563,7 @@ def phase_end_to_end(torch, np, hg_weights: dict) -> None:
         weights = path_weights(spec, hg_weights)
         log(f"phase 3: end to end with HG, card against CPU ({h}x{w} {path}, hg_nf 64)")
         t0 = time.perf_counter()
-        gpu = HDRTVNetTorch(weights, precision=spec["precision"]).process_rgb48(frame)
+        gpu = eager_rgb48(HDRTVNetTorch(weights, precision=spec["precision"]), frame)
         t1 = time.perf_counter()
         cpu = HDRTVNetTorch(weights, precision=spec["precision"], device="cpu").process_rgb48(frame)
         t2 = time.perf_counter()
@@ -1589,7 +1618,7 @@ def phase_natural_end_to_end(torch, np, hg_weights: dict) -> None:
         h, w, _ = frame.shape
         t0 = time.perf_counter()
         gproc = HDRTVNetTorch(weights, precision=precision, **kw)
-        gpu = gproc.process_rgb48(frame)
+        gpu = eager_rgb48(gproc, frame)
         t1 = time.perf_counter()
         cproc = HDRTVNetTorch(weights, precision=precision, device="cpu", **kw)
         cpu = cproc.process_rgb48(frame)
@@ -1648,7 +1677,7 @@ def phase_natural_end_to_end(torch, np, hg_weights: dict) -> None:
                                  f"away max {int(away.max())} mean {float(away.mean()):.3f}")
 
 
-def phase_natural_540p(torch, np, native, path: str) -> dict:
+def phase_natural_540p(torch, np, native, path: str, smi: str, graphs: dict) -> dict:
     """The natural-layout program at the 540p preset on the card: one frame
     with the launch counts set to 0 before and read after (pack_rgb48 once,
     nothing else), then device-resident frames with one sync."""
@@ -1664,11 +1693,11 @@ def phase_natural_540p(torch, np, native, path: str) -> dict:
     x = proc.put_frame(frame.reshape(h, w * 3))
     if not proc.natural(h, w) or x.shape != (h, 3 * w):
         raise AssertionError(f"{path}: natural {proc.natural(h, w)}, frame shipped as {tuple(x.shape)}")
-    proc.process_rgb48_device(x)  # warm
+    proc._rgb48_eager(x)  # warm
     torch.cuda.synchronize()
     expected = {k: int(k == "pack_rgb48") for k in KERNEL_INFO}
     native.reset_launch_counts()
-    out = proc.process_rgb48_device(x)
+    out = proc._rgb48_eager(x)
     torch.cuda.synchronize()
     counts = read_counts(native)
     log(f"launches for one frame: { {k: v for k, v in counts.items() if v} }")
@@ -1682,7 +1711,7 @@ def phase_natural_540p(torch, np, native, path: str) -> dict:
     if spec["weights"] == "int8":
         # the eager int8 frame against the float program on the same (pre-dequantized) weights
         fl = HDRTVNetTorch(weights, precision=spec["precision"])
-        flo = fl.process_rgb48_device(fl.put_frame(frame.reshape(h, w * 3))).to(torch.int32)
+        flo = fl._rgb48_eager(fl.put_frame(frame.reshape(h, w * 3))).to(torch.int32)
         p_float = psnr(float(((o - flo).double() / 65535.0).pow(2).mean()))
         if bool((o == flo).all()):
             raise AssertionError(f"{path}: the int8 frame equals the float one")
@@ -1694,7 +1723,7 @@ def phase_natural_540p(torch, np, native, path: str) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        out = proc.process_rgb48_device(x)
+        out = proc._rgb48_eager(x)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n
     peak = torch.cuda.max_memory_allocated()
@@ -1702,12 +1731,14 @@ def phase_natural_540p(torch, np, native, path: str) -> dict:
         raise AssertionError(f"{path}: launch counts over {n} frames: {native.launch_counts}")
     log(f"540p {path}: {ms:.2f} ms/frame, {1e3 / ms:.2f} fps over {n} device-resident frames (one sync); "
         f"peak allocated {peak / 2**30:.2f} GiB; output range [{lo}, {hi}]{extra}")
+    graphs[path] = phase_graph(torch, native, smi, proc, x, out, expected, f"540p {path}", n,
+                               (4, None) if spec["precision"] == "fp32" else NAT_BF16_CODES)
     del proc, x, out
     torch.cuda.empty_cache()
     return counts
 
 
-def phase_1080p(torch, np, native, path: str, hg_weights: dict) -> dict:
+def phase_1080p(torch, np, native, path: str, hg_weights: dict, smi: str, graphs: dict) -> dict:
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     spec = PATHS[path]
@@ -1727,11 +1758,11 @@ def phase_1080p(torch, np, native, path: str, hg_weights: dict) -> dict:
     if proc.cfg.use_hg != spec["hg"] or (x.ndim == 2) != spec["hg"] or proc.native_int8 != int8:
         raise AssertionError(f"{path}: use_hg {proc.cfg.use_hg}, native_int8 {proc.native_int8}, "
                              f"frame shipped as {tuple(x.shape)}")
-    proc.process_rgb48_device(x)  # warm
+    proc._rgb48_eager(x)  # warm
     torch.cuda.synchronize()
 
     native.reset_launch_counts()
-    out = proc.process_rgb48_device(x)
+    out = proc._rgb48_eager(x)
     torch.cuda.synchronize()
     counts = read_counts(native)
     log(f"launches for one frame: {counts}")
@@ -1749,7 +1780,7 @@ def phase_1080p(torch, np, native, path: str, hg_weights: dict) -> dict:
         # alone moves every value a little) and left most of them inside the code range: a
         # residual that is neither absent nor clipped everywhere.
         base_proc = HDRTVNetTorch(INT8_WEIGHTS if int8 else WEIGHTS, precision=spec["precision"])
-        base = base_proc.process_rgb48_device(base_proc.put_frame(frame.reshape(h, w * 3))).reshape(h, w, 3)
+        base = base_proc._rgb48_eager(base_proc.put_frame(frame.reshape(h, w * 3))).reshape(h, w, 3)
         hg = o.reshape(h, w, 3)
         changed = ((hg - base.to(torch.int32)).abs() > HG_CHANGED_CODES).any(dim=-1)
         share = float(changed.float().mean())
@@ -1769,7 +1800,7 @@ def phase_1080p(torch, np, native, path: str, hg_weights: dict) -> dict:
             del os.environ["HDRTVNET_NATIVE_INT8"]
         if fproc.native_int8:
             raise AssertionError(f"{path}: HDRTVNET_NATIVE_INT8=0 left the int8 forms on")
-        fl = fproc.process_rgb48_device(fproc.put_frame(frame.reshape(h, w * 3))).to(torch.int32)
+        fl = fproc._rgb48_eager(fproc.put_frame(frame.reshape(h, w * 3))).to(torch.int32)
         p_float = psnr(float(((o - fl).double() / 65535.0).pow(2).mean()))
         differ = float((o != fl).float().mean())
         log(f"{path}: int8 against float (pre-dequantized) on the smooth frame: PSNR {p_float:.2f} dB "
@@ -1783,7 +1814,7 @@ def phase_1080p(torch, np, native, path: str, hg_weights: dict) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        out = proc.process_rgb48_device(x)
+        out = proc._rgb48_eager(x)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n
     peak = torch.cuda.max_memory_allocated()
@@ -1792,9 +1823,219 @@ def phase_1080p(torch, np, native, path: str, hg_weights: dict) -> dict:
     log(f"1080p {path}: {ms:.2f} ms/frame, {1e3 / ms:.2f} fps over {n} device-resident frames "
         f"(one sync); peak allocated {peak / 2**30:.2f} GiB; output range [{lo}, {hi}]"
         + ("" if p_float is None else f"; PSNR against float {p_float:.2f} dB"))
+    graphs[path] = phase_graph(torch, native, smi, proc, x, out, expected, f"1080p {path}", n, graph_bound(path))
     del proc, x, out
     torch.cuda.empty_cache()
     return counts
+
+
+def graph_bound(path: str) -> tuple:
+    """Phase 8's bound on a replay against the eager output, used only where
+    two eager runs of the program already differ: phase 3's card-against-CPU
+    bound of the program, (max, mean) u16 codes."""
+    spec = PATHS[path]
+    if spec["dtype"] == "f32":
+        return 4, None
+    if spec.get("int8"):
+        return INT8_DOWN2_E2E_CODES if spec.get("down2") == "1" else INT8_E2E_CODES[
+            "int8_bf16_nomega" if spec["mega"] == "0" else "int8_bf16_mega"]
+    return HG_BF16_CODES if spec["hg"] else (1536, 34.0)
+
+
+def phase_graph(torch, native, smi: str, proc, x, eager_out, expected: dict, label: str, n: int,
+                bound: tuple) -> dict:
+    """Phase 8: the program of phase 4 through process_rgb48_device, which
+    captures it as a CUDA graph at its first frame (after an eager run) and
+    replays it: the capture counted one frame's launches (``expected``),
+    the first call two (the eager run and the capture), n replays none; each
+    replay's output equals the eager program's bytes (where two eager runs
+    already differ, it stays within ``bound``, (max, mean) codes); two calls
+    return two tensors. Then eager / replay / replay / eager, n frames each
+    with one sync, ms/frame and peak allocated memory of each; the graph's
+    memory pool; the graph and its pool freed at the end."""
+    log(f"phase 8: {label} through process_rgb48_device's CUDA graph")
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = proc.process_rgb48_device(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if len(proc.graphs) != 1:
+        raise AssertionError(f"{label}: {len(proc.graphs)} graphs after one signature's first frame")
+    entry = next(iter(proc.graphs.entries.values()))
+    captured = {k: entry.launches.get(COUNTER.get(k, k), 0) for k in KERNEL_INFO}
+    if captured != expected or read_counts(native) != {k: 2 * v for k, v in expected.items()}:
+        raise AssertionError(f"{label}: the capture counted {captured}, the first call {read_counts(native)}; "
+                             f"one frame launches {expected}")
+
+    def block(fn):
+        native.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(n):
+            out = fn(x)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / n, torch.cuda.max_memory_allocated(), read_counts(native), out
+
+    blocks = [block(fn) for fn in (proc._rgb48_eager, proc.process_rgb48_device, proc.process_rgb48_device,
+                                   proc._rgb48_eager)]
+    if any(any(b[2].values()) for b in blocks[1:3]) or blocks[0][2] != {k: n * v for k, v in expected.items()}:
+        raise AssertionError(f"{label}: launches counted over {n} eager frames {blocks[0][2]}, "
+                             f"over {n} replays {blocks[1][2]}, {blocks[2][2]}")
+    replays = [first, blocks[1][3], blocks[2][3]]
+    if len({r.data_ptr() for r in replays}) != len(replays):
+        raise AssertionError(f"{label}: two calls returned the same tensor")
+    eager_same = torch.equal(eager_out, blocks[0][3]) and torch.equal(eager_out, blocks[3][3])
+    d = max(int((r.to(torch.int32) - eager_out.to(torch.int32)).abs().max()) for r in replays)
+    mean = max(float((r.to(torch.int32) - eager_out.to(torch.int32)).abs().double().mean()) for r in replays)
+    if eager_same and d:
+        raise AssertionError(f"{label}: a replay differs from the eager output by up to {d} codes")
+    if not eager_same and (d > bound[0] or (bound[1] is not None and mean > bound[1])):
+        raise AssertionError(f"{label}: two eager runs differ; a replay differs from eager by max {d}, "
+                             f"mean {mean:.3f} > {bound}")
+    ms = [round(b[0], 3) for b in blocks]
+    peak = [round(b[1] / 2**30, 3) for b in blocks]
+    log(f"graph {label}: eager / replay / replay / eager {ms[0]:.3f} / {ms[1]:.3f} / {ms[2]:.3f} / {ms[3]:.3f} "
+        f"ms/frame over {n} frames each (one sync); peak allocated {peak[0]:.3f} / {peak[1]:.3f} / "
+        f"{peak[2]:.3f} / {peak[3]:.3f} GiB; graph pool {entry.pool_bytes / 2**30:.3f} GiB; first call "
+        f"(eager run, capture, replay) {first_s:.2f} s, capture {entry.capture_s:.3f} s; replays equal to "
+        f"eager: {d == 0}" + ("" if eager_same else f" (two eager runs differ; max {d}, mean {mean:.3f})")
+        + f"; {smi}")
+    proc.graphs.clear()
+    del first, replays, blocks
+    torch.cuda.empty_cache()
+    return {"eager_ms": [ms[0], ms[3]], "replay_ms": [ms[1], ms[2]], "eager_peak_gib": [peak[0], peak[3]],
+            "replay_peak_gib": [peak[1], peak[2]], "pool_gib": round(entry.pool_bytes / 2**30, 3),
+            "capture_s": round(entry.capture_s, 3), "equal": d == 0}
+
+
+# Phase 8's runtime options: proc_resolution at 1080p from a 1440 × 1080 source (content at
+# scale 1, two 240-column bars), and card against CPU at 360 × 640, in the bf16 default
+# program, on six noise frames each: the program as it is, proc_resolution (a 480 × 640
+# source, INTER_AREA down to 360 × 480 and bars) and the two fast-condition shortcuts. Codes
+# (max, mean): twice the largest sound max (561) and mean (37.89) of these 24 readings (max
+# 145-561, mean 2.9-37.89 on an NVIDIA H100 80GB HBM3, 700 W). The mean is set by whether a
+# bf16 rounding of the AGCM modulation flips between card and CPU, which moves every pixel:
+# 6.5 codes where none does, 18-38 where one does. The same card frames against the planted
+# faults of runtime_faults read max 1508-5007, mean 92-329 (a shortcut ignored) and max
+# 40787-44822, mean 3648-3666 (the letterbox one row down): each breaks the bound.
+RUNTIME_BF16_CODES = (1122, 76.0)
+
+
+RUNTIME_SEEDS = 6  # frames of seeds h .. h + 5 for each option
+
+
+def codes_apart(np, a, b) -> list:
+    """[max, mean] of |a - b| over two u16 frames, in codes."""
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    return [int(d.max()), float(d.mean())]
+
+
+def rounded(readings: list) -> list:
+    return [[m, round(mean, 3)] for m, mean in readings]
+
+
+def breaks(reading, bound) -> bool:
+    """Whether a [max, mean] reading breaks a (max, mean) bound."""
+    return reading[0] > bound[0] or reading[1] > bound[1]
+
+
+def runtime_faults(np, torch, frame, kw: dict, plain_rgb48) -> dict:
+    """The CPU frames of planted faults of a runtime option, by name: what
+    the output would be were the option broken, from ``plain_rgb48``, a CPU
+    processor's process_rgb48 without options. proc_resolution: the
+    letterboxed frame one row down; a fast-condition shortcut: the shortcut
+    ignored (the default condition image). None without an option."""
+    from hdrtv_tpu_torch.ops.resize import letterbox_u8
+
+    if "proc_resolution" in kw:
+        pw, ph = kw["proc_resolution"]
+        lb = letterbox_u8(torch.from_numpy(frame), ph, pw).numpy()
+        down = np.zeros_like(lb)
+        down[1:] = lb[:-1]
+        return {"letterbox one row down": plain_rgb48(down)}
+    return {"shortcut ignored": plain_rgb48(frame)} if kw else {}
+
+
+def phase_runtime(torch, np, native, smi: str) -> dict:
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    set_path_env({"mega": "1"})
+    log("phase 8: proc_resolution (1920, 1080) from a 1080x1440 frame, bf16, through the CUDA graph")
+    proc = HDRTVNetTorch(WEIGHTS, proc_resolution=(1920, 1080))
+    frame = smooth_frame(np, 1080, 1440, 1440)
+    x = proc.put_frame(frame.reshape(1080, 1440 * 3))
+    if x.shape != (1080, 4320):
+        raise AssertionError(f"the letterboxed frame shipped as {tuple(x.shape)}")
+    eager = proc._rgb48_eager(x)
+    native.reset_launch_counts()
+    first = proc.process_rgb48_device(x)
+    torch.cuda.synchronize()
+    entry = next(iter(proc.graphs.entries.values()))
+    captured = {k: entry.launches.get(COUNTER.get(k, k), 0) for k in KERNEL_INFO}
+    n = 5
+    times = {}
+    for name, fn in (("eager", proc._rgb48_eager), ("replay", proc.process_rgb48_device)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            out = fn(x)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t) * 1e3 / n
+    if first.shape != (1080, 5760) or not torch.equal(first, eager) or not torch.equal(out, eager) or \
+            captured != expected_launches("bf16_mega"):
+        raise AssertionError(f"proc_resolution 1080p: output {tuple(first.shape)}, equal to eager "
+                             f"{torch.equal(first, eager)}, captured {captured}")
+    log(f"proc_resolution 1080p: output {tuple(first.shape)} equal to eager; eager {times['eager']:.3f}, replay "
+        f"{times['replay']:.3f} ms/frame over {n} frames (letterbox included); {smi}")
+    result = {"proc_resolution_1080p": {k: round(v, 3) for k, v in times.items()}}
+    proc.graphs.clear()
+    del proc, x, eager, first, out
+    torch.cuda.empty_cache()
+
+    plain = HDRTVNetTorch(WEIGHTS, device="cpu")
+    plain_outs: dict = {}
+
+    def plain_rgb48(f):
+        key = f.tobytes()
+        if key not in plain_outs:
+            plain_outs[key] = plain.process_rgb48(f)
+        return plain_outs[key]
+
+    for label, kw, (h, w) in (("default", {}, (360, 640)),
+                              ("proc_resolution (640, 360)", {"proc_resolution": (640, 360)}, (480, 640)),
+                              ("fast_condition_resize", {"fast_condition_resize": True}, (360, 640)),
+                              ("fast_zero_condition", {"fast_zero_condition": True}, (360, 640))):
+        log(f"phase 8: {label}, card (CUDA graph) against CPU ({h}x{w} frames of seeds {h}-"
+            f"{h + RUNTIME_SEEDS - 1}, bf16)")
+        gproc = HDRTVNetTorch(WEIGHTS, **kw)
+        cpu_rgb48 = HDRTVNetTorch(WEIGHTS, device="cpu", **kw).process_rgb48 if kw else plain_rgb48
+        sound, faults = [], {}
+        for seed in range(h, h + RUNTIME_SEEDS):
+            frame = (np.random.RandomState(seed).rand(h, w, 3) * 255).astype(np.uint8)
+            gpu = gproc.process_rgb48(frame)
+            if gpu.shape != (360, 640, 3) or (seed == h and not np.array_equal(gpu, eager_rgb48(gproc, frame))):
+                raise AssertionError(f"{label}: output {gpu.shape}, or the replay differs from eager")
+            sound.append(codes_apart(np, gpu, cpu_rgb48(frame)))
+            for fault, bad in runtime_faults(np, torch, frame, kw, plain_rgb48).items():
+                faults.setdefault(fault, []).append(codes_apart(np, gpu, bad))
+        log(f"{label}: card (360, 640, 3), the first equal to eager; |card - cpu| [max, mean] codes by seed: "
+            f"{rounded(sound)} (bound {RUNTIME_BF16_CODES})")
+        if any(breaks(r, RUNTIME_BF16_CODES) for r in sound):
+            raise AssertionError(f"{label}: card against CPU {rounded(sound)} breaks {RUNTIME_BF16_CODES}")
+        for fault, readings in faults.items():
+            seen = [breaks(r, RUNTIME_BF16_CODES) for r in readings]
+            log(f"{label}, planted fault ({fault}): |card - cpu| by seed {rounded(readings)}; breaks the bound: "
+                f"{seen}")
+            if not all(seen):
+                raise AssertionError(f"{label}: the bound {RUNTIME_BF16_CODES} does not see the planted "
+                                     f"fault '{fault}': {rounded(readings)}")
+        result[label] = {"card_vs_cpu": rounded(sound), **{f"fault: {k}": rounded(v) for k, v in faults.items()}}
+        gproc.graphs.clear()
+        del gproc
+        torch.cuda.empty_cache()
+    return result
 
 
 def phase_color(torch, np, native) -> dict:
@@ -1944,8 +2185,10 @@ def main() -> int:
             totals = phase_kernels(torch, np)
             phase_end_to_end(torch, np, hg_weights)
             phase_natural_end_to_end(torch, np, hg_weights)
-            counts = {path: phase_1080p(torch, np, native, path, hg_weights) for path in PATHS}
-            counts.update({path: phase_natural_540p(torch, np, native, path) for path in NAT_PATHS})
+            graphs = {}
+            counts = {path: phase_1080p(torch, np, native, path, hg_weights, smi, graphs) for path in PATHS}
+            counts.update({path: phase_natural_540p(torch, np, native, path, smi, graphs) for path in NAT_PATHS})
+            runtime = phase_runtime(torch, np, native, smi)
             counts.update(phase_color(torch, np, native))
             counts.update(phase_forms(torch, np, native))
             counts[PROBE_PATH] = phase_probes(torch, np, native)
@@ -1991,6 +2234,7 @@ def main() -> int:
             kernels.append(k)
     if len(kernels) != 33:
         raise AssertionError(f"{len(kernels)} kernel entries, expected 33: {[k['name'] for k in kernels]}")
+    log(json.dumps({"graphs": graphs, "runtime": runtime}))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -434,14 +434,15 @@ def attach_native_int8(sp: dict, raw: dict) -> dict:
 _SFT_CONVS = ("SFT_scale_conv0", "SFT_scale_conv1", "SFT_shift_conv0", "SFT_shift_conv1")
 _TRUNK3_PACKED = "LE.__trunk3_packed"
 _TRUNK3_PACKED_BF16 = ("LE.__trunk3_packed_bf16_w", "LE.__trunk3_packed_bf16_b")
-# What the megakernel program needs in the parameters, the 1×1 layers whose
+# What the megakernel program needs in the parameters, the layers whose
 # biases its kernels take, and what params_to_torch prepares for the head
 # kernel: AGCM.conv_first's (12, C) matrix with its rows permuted for a BGR
 # frame, and agcm_head_pack's padded matrices (aw1 for RGB and for BGR;
 # fp32 weights) or _HEAD_PACKED_S2D (bf16 weights).
 _MEGA_KEYS = ("LE.__in_fused.weight", "AGCM.conv_first.weight", "LE.conv_last.weight")
 _MEGA_BIASES = ("AGCM.conv_first", "AGCM.HRconv", "AGCM.conv_last", "LE.__in_fused", "LE.cond_first.2",
-                "LE.cond_first.4", "LE.CondNet1.0", "LE.CondNet1.2", "LE.CondNet1.4", "LE.conv_last")
+                "LE.cond_first.4", "LE.CondNet1.0", "LE.CondNet1.2", "LE.CondNet1.4", "LE.HR_conv2",
+                "LE.conv_last")
 _HEAD_AW1_BGR = "AGCM.__conv_first_bgr"
 _HEAD_PACKED = ("AGCM.__head_aw1", "AGCM.__head_aw1_bgr", "AGCM.__head_aw3", "LE.__head_wcat")
 # agcm_head_pack_s2d's blocks and gathered input conv (aw1's block for RGB and for BGR)
@@ -487,7 +488,10 @@ def _fp32_param_names(params_np: dict) -> set[str]:
     if fits("LE.CondNet2.2"):  # the mix_chain tail
         keep |= {"LE.CondNet2.2.bias", "LE.CondNet2.4.bias"}
     if all(k in params_np for k in _MEGA_KEYS):  # agcm_head, cond_chain, tail
+        # at every width: the JAX megakernel program hands these kernels the
+        # biases as its parameters hold them, fp32
         keep |= {f"{layer}.bias" for layer in _MEGA_BIASES}
+        keep |= {f"LE.SFT_layer2.{cv}.bias" for cv in _SFT_CONVS}
     keep |= {k for k in params_np if k.endswith(".bias")
              and (k.startswith("LE.recon_trunk3.") or k.startswith("LE.up_conv1."))}
     keep |= {k for k in _HG_TAIL_BIASES if k in params_np}

@@ -62,12 +62,39 @@ checkpoint kept int8 by ``predequantize=False``):
 With ``predequantize=False`` the int8 layers stay int8 and run eagerly:
 weights dequantized at each use, activations fake-quantized (W8A8).
 
-Everything else raises with the ROADMAP item that will port it; nothing falls
-back to a different computation, and nothing runs on the CPU unless the
-caller asks for ``device="cpu"``.
+The runtime around the programs follows ``HDRTVNetTPU``: ``proc_resolution``
+(W, H) letterboxes every frame on the device to the processing resolution
+first (``ops/resize.py letterbox_u8``: INTER_AREA down, bicubic up, black
+bars), and the output is at that resolution; ``fast_condition_resize`` and
+``fast_zero_condition`` replace the condition image by the bilinear ¼-res
+one or by zeros (the flat s2d and natural programs; the HG split's base
+stage keeps the default one, as in the JAX runtime), and frames under
+either ship as flat rows, as they do under a ``proc_resolution`` other than
+the frame's. The stage API (``preprocess`` → ``infer`` → ``postprocess``,
+``process`` with BGR u8 out, ``process_timed``), ``process_rgb48_batch``,
+``passthrough_rgb48[_device]``, ``warmup_compile``, ``with_proc_resolution``
+and ``end_profiling`` are those of ``HDRTVNetTPU``.
+
+Where the JAX runtime runs one compiled XLA executable per (resolution,
+precision, output) signature, ``process_rgb48_device`` on a CUDA device runs
+one CUDA graph per frame signature (``runtime/engine.py GraphCache``): the
+first frame of a signature runs the program eagerly, then captures it; every
+frame replays it and returns its own copy of the output. The stage API stays
+eager, and ``_rgb48_eager`` is the same program without the graph. On the
+CPU everything runs eagerly.
+
+What still raises, naming the ROADMAP item that will port it: ``mesh``
+(Queue 1 item 13, also for ``process_rgb48_batch``), ``.pt`` checkpoints
+and ``hg_path`` (Queue 1 item 1), and the model variants: other HG
+generators, classifiers, LE archs and post-correction heads (Queue 1 item
+9). Nothing falls back to a different computation, and nothing runs on the
+CPU unless the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
+
+import copy
+import time
 
 import numpy as np
 import torch
@@ -78,6 +105,7 @@ from hdrtv_tpu_torch.models.import_npz import load_npz, load_npz_meta, npz_arch_
 from hdrtv_tpu_torch.models.layers import Policy, policy_for
 from hdrtv_tpu_torch.models.s2d import (
     attach_native_int8,
+    ensemble_s2d,
     ensemble_s2d_base_flat,
     ensemble_s2d_rgb48_flat,
     ensemble_s2d_rgb48_pairs,
@@ -85,8 +113,9 @@ from hdrtv_tpu_torch.models.s2d import (
     s2d_transform_params,
 )
 from hdrtv_tpu_torch.ops.pack import pack_rgb48
-from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa
+from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa, downsample_quarter_bilinear, letterbox_u8
 from hdrtv_tpu_torch.quant.int8 import predequantize_params
+from hdrtv_tpu_torch.runtime import engine
 from hdrtv_tpu_torch.utils.env import env_bool
 
 
@@ -138,6 +167,13 @@ class HDRTVNetTorch:
     ``HDRTVNET_TPU_TURBO``, default on); off, the natural-layout program
     runs every frame. ``turbo`` after the load says which holds, by the JAX
     runtime's rule.
+    ``proc_resolution``: (W, H) to letterbox every frame to on the device.
+    ``fast_condition_resize`` / ``fast_zero_condition``: the condition-path
+    shortcuts (``None`` reads ``HDRTVNET_FAST_COND_RESIZE`` or
+    ``HDRTVNET_FAST_CONDITION_RESIZE``, and ``HDRTVNET_ZERO_COND`` or
+    ``HDRTVNET_FAST_ZERO_CONDITION``). ``cfg_overrides``: fields of the
+    sidecar's architecture to replace. ``persistent_cache``: record each
+    ``warmup_compile`` in the engine registry (``runtime/engine.py``).
     """
 
     def __init__(
@@ -147,26 +183,32 @@ class HDRTVNetTorch:
         precision: str = "fp16",
         device: str | torch.device | None = None,
         use_hg: bool | None = None,
+        hg_path: str | None = None,
         fast_condition_resize: bool | None = None,
         fast_zero_condition: bool | None = None,
-        proc_resolution: tuple[int, int] | None = None,
-        predequantize: bool | None = None,
+        persistent_cache: bool = True,
         turbo: bool | None = None,
+        predequantize: bool | None = None,
+        proc_resolution: tuple[int, int] | None = None,
+        cfg_overrides: dict | None = None,
         mesh=None,
     ):
         self.model_path = model_path
         self.precision = precision
         self.policy: Policy = policy_for(precision)
+        # (W, H) the frames are letterboxed to on the device before inference
+        self.proc_resolution = tuple(proc_resolution) if proc_resolution else None
         if fast_condition_resize is None:
             fast_condition_resize = _env_on("HDRTVNET_FAST_COND_RESIZE", "HDRTVNET_FAST_CONDITION_RESIZE")
         if fast_zero_condition is None:
             fast_zero_condition = _env_on("HDRTVNET_ZERO_COND", "HDRTVNET_FAST_ZERO_CONDITION")
-        if fast_condition_resize or fast_zero_condition:
-            raise _not_ported("the fast-condition shortcuts", "Slice 8 (host, runtime and tooling modules)")
-        if proc_resolution is not None:
-            raise _not_ported("proc_resolution (device letterbox)", "Slice 8 (host, runtime and tooling modules)")
+        self.fast_condition_resize = bool(fast_condition_resize)
+        self.fast_zero_condition = bool(fast_zero_condition)
         if mesh is not None:
             raise _not_ported("mesh inference", "Slice 8 (parallel: Queue 1 item 13)")
+        if hg_path is not None:
+            raise _not_ported("hg_path (an HG generator's own .pt checkpoint)",
+                              "Slice 8 (host, runtime and tooling modules: Queue 1 item 1)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -179,12 +221,12 @@ class HDRTVNetTorch:
             raise ValueError(f"device must be cuda or cpu, got {self.device}")
 
         if not model_path.endswith(".npz"):
-            raise _not_ported("loading .pt checkpoints", "Slice 8 (host, runtime and tooling modules)")
+            raise _not_ported("loading .pt checkpoints", "Slice 8 (host, runtime and tooling modules: Queue 1 item 1)")
         params = load_npz(model_path)
         arch = npz_arch_dict(load_npz_meta(model_path))
         if use_hg is None:
             use_hg = bool(arch.get("use_hg", False))
-        cfg = ModelConfig.from_arch_dict(arch, use_hg=bool(use_hg))
+        cfg = ModelConfig.from_arch_dict(arch, use_hg=bool(use_hg), **(cfg_overrides or {}))
         if cfg.use_hg and cfg.hg_arch != "pixelshuffle":
             raise _not_ported(f"the {cfg.hg_arch} HG generator", "Slice 8 (model variants: Queue 1 item 9)")
         if cfg.classifier != "color_condition" or cfg.le_arch != "sft" or cfg.post_correction:
@@ -227,14 +269,19 @@ class HDRTVNetTorch:
             # s2d weight transform once on the host, then, for W8A8 layers,
             # the s2d-transformed int8 codes beside the float weights for the
             # kernels' int8 forms, then one cast and one copy to the device.
-            sp = s2d_transform_params(params, cfg)
+            params = s2d_transform_params(params, cfg)
             if self.predequantized and env_bool("HDRTVNET_NATIVE_INT8", True):
-                sp = attach_native_int8(sp, raw_int8)
-                self.native_int8 = any(k.endswith(".qweight") for k in sp)
-            self.params = params_to_torch(sp, self.device, self.policy)
+                params = attach_native_int8(params, raw_int8)
+                self.native_int8 = any(k.endswith(".qweight") for k in params)
+            self.params = params_to_torch(params, self.device, self.policy)
+        # the JAX runtime's fingerprint, of the same numpy parameters
+        self.model_hash = engine.model_fingerprint(params)
+        self.registry = engine.EngineRegistry() if persistent_cache else None
+        self.graphs = engine.GraphCache()
+        self._timings: dict[str, float] = {}
 
     # ------------------------------------------------------------------
-    # Frame programs
+    # Dispatch rules (HDRTVNetTPU's, method by method)
     # ------------------------------------------------------------------
 
     def natural(self, h: int, w: int) -> bool:
@@ -244,36 +291,141 @@ class HDRTVNetTorch:
         level is 135 rows)."""
         return not self.turbo or h % 8 != 0 or w % 8 != 0
 
-    def _run_natural(self, flat: torch.Tensor) -> torch.Tensor:
-        """The natural-layout program on (H, 3W) BGR byte rows → (H, 3W) u16:
-        [0, 1] RGB, its ¼-res condition image, ``model_apply``, the pack."""
-        h, w3 = flat.shape
-        with torch.inference_mode(), self.policy.math():
-            x = flat.reshape(h, w3 // 3, 3).flip(-1)[None].float() * (1.0 / 255.0)
-            out = model_apply(self._nat_params, x, downsample_quarter_aa(x), self.cfg, policy=self.policy)
-            return pack_rgb48(out[0].contiguous()).reshape(h, w3)
+    def _proc_hw(self, h: int, w: int) -> tuple[int, int]:
+        """The size a frame of (h, w) is processed at."""
+        if self.proc_resolution is None:
+            return h, w
+        return self.proc_resolution[1], self.proc_resolution[0]
 
-    def _run(self, fn, x: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode(), self.policy.math():
-            return fn(self.params, x, None, self.cfg, policy=self.policy, bgr=True)
-
-    def _run_hg_flat(self, flat: torch.Tensor) -> torch.Tensor:
-        """The two-stage HG program on (H, 3W) byte rows: the base model to
-        its s2d output, then the HG composite, which packs (its tail kernel
-        chosen by default)."""
-        with torch.inference_mode(), self.policy.math():
-            base = ensemble_s2d_base_flat(self.params, flat, policy=self.policy, bgr=True)
-            return hg_composite_s2d(self.params, base, self.cfg, policy=self.policy, pack=True, tail_on=True)
+    def _pairs_ok(self, h: int, w: int) -> bool:
+        """Whether frames at (h, w) can run the pair-plane program: no HG, an
+        s2d size, no fast-condition shortcut, and no letterbox (it runs on
+        the flat layout)."""
+        return (not self.cfg.use_hg and not self.natural(h, w)
+                and not (self.fast_zero_condition or self.fast_condition_resize)
+                and self._proc_hw(h, w) == (h, w))
 
     def wants_pairs(self, h: int, w: int) -> bool:
         """True when frames at (h, w) ship as (Hb, 2, Wb, 6) u8 pair planes
         (the same bytes as (H, 3W) rows; a free host view). Not with HG: its
         program takes flat rows; nor with ``HDRTV_PAIRS_BOUNDARY=0`` (read at
         each call), as in the JAX runtime: flat rows then, and the flat
-        program; nor for the natural-layout program."""
-        if not env_bool("HDRTV_PAIRS_BOUNDARY", True):
-            return False
-        return not self.cfg.use_hg and not self.natural(h, w)
+        program; nor for the natural-layout program, under a fast-condition
+        shortcut, or where ``proc_resolution`` letterboxes the frame."""
+        return env_bool("HDRTV_PAIRS_BOUNDARY", True) and self._pairs_ok(h, w)
+
+    def _cond_of(self, x: torch.Tensor) -> torch.Tensor:
+        """The ¼-res condition image of an NHWC [0, 1] RGB frame: zeros or
+        the bilinear one under the fast-condition shortcuts, else the
+        antialiased bicubic one."""
+        if self.fast_zero_condition:
+            n, h, w, c = x.shape
+            return torch.zeros((n, h // 4, w // 4, c), dtype=x.dtype, device=x.device)
+        if self.fast_condition_resize:
+            return downsample_quarter_bilinear(x)
+        return downsample_quarter_aa(x)
+
+    def _letterbox(self, frame_u8: torch.Tensor) -> torch.Tensor:
+        """(H, W, 3) u8 → the frame at ``proc_resolution`` (as it is without one)."""
+        if self.proc_resolution is None:
+            return frame_u8
+        pw, ph = self.proc_resolution
+        return letterbox_u8(frame_u8, ph, pw)
+
+    def _pre(self, frame_u8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(H, W, 3) BGR u8 → ([0, 1] RGB NHWC, ¼-res condition)."""
+        frame_u8 = self._letterbox(frame_u8)
+        x = frame_u8[None].flip(-1).float() * (1.0 / 255.0)
+        return x, self._cond_of(x)
+
+    def _net(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """The model on an NHWC [0, 1] frame: the s2d ensemble where its
+        sides allow, the natural-layout model otherwise."""
+        if self.turbo and x.shape[1] % 8 == 0 and x.shape[2] % 8 == 0:
+            return ensemble_s2d(self.params, x, cond, self.cfg, policy=self.policy)
+        return model_apply(self._nat_params, x, cond, self.cfg, policy=self.policy)
+
+    @staticmethod
+    def _post(out: torch.Tensor) -> torch.Tensor:
+        """Model output (1, H, W, 3) RGB → (H, W, 3) BGR u8."""
+        v = out[0].float().clamp(0.0, 1.0) * 255.0 + 0.5
+        return v.to(torch.uint8).flip(-1)
+
+    # ------------------------------------------------------------------
+    # The RGB48 frame programs
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _frame_hw(x: torch.Tensor) -> tuple[int, int]:
+        """The (H, W) of a u8 BGR frame given as (Hb, 2, Wb, 6) pair planes,
+        (H, 3W) flat rows or (H, W, 3), with its layout checked."""
+        if x.dtype != torch.uint8:
+            raise ValueError(f"frames are uint8, got {x.dtype}")
+        if x.ndim == 4:
+            hb, two, wb, six = x.shape
+            if (two, six) != (2, 6):
+                raise ValueError(f"pair planes are (Hb, 2, Wb, 6), got {tuple(x.shape)}")
+            if hb % 4 or wb % 4:
+                raise ValueError(f"pair planes need sides that are multiples of 8, got {2 * hb}x{2 * wb}: "
+                                 "send (H, 3W) rows (wants_pairs is False at this size)")
+            return 2 * hb, 2 * wb
+        if x.ndim == 2:
+            return x.shape[0], x.shape[1] // 3
+        if x.ndim == 3 and x.shape[2] == 3:
+            return x.shape[0], x.shape[1]
+        raise ValueError(f"frames are (Hb, 2, Wb, 6), (H, 3W) or (H, W, 3), got {tuple(x.shape)}")
+
+    def _program(self, x: torch.Tensor) -> str:
+        """Which program ``process_rgb48_device`` runs ``x`` with: ``pairs``
+        (pair planes in and out), or on flat rows at the processing size
+        ``natural``, ``hg`` (the two-stage HG composite) or ``flat``."""
+        h, w = self._frame_hw(x)
+        if x.ndim == 4 and self._pairs_ok(h, w):
+            return "pairs"
+        ph, pw = self._proc_hw(h, w)
+        if self.natural(ph, pw):
+            return "natural"
+        return "hg" if self.cfg.use_hg else "flat"
+
+    def _run_flat(self, flat: torch.Tensor, program: str) -> torch.Tensor:
+        """(H, 3W) rows → (H', 3W') u16 rows at the processing size: the
+        letterbox, then the natural-layout program, the two-stage HG one
+        (its base stage computes the default condition, as the JAX
+        runtime's does), or the flat s2d one (with the shortcuts' condition
+        image when one is on)."""
+        h, w3 = flat.shape
+        flat = self._letterbox(flat.reshape(h, w3 // 3, 3))
+        h, w = flat.shape[:2]
+        if program == "natural":
+            x = flat.flip(-1)[None].float() * (1.0 / 255.0)
+            out = model_apply(self._nat_params, x, self._cond_of(x), self.cfg, policy=self.policy)
+            return pack_rgb48(out[0].contiguous()).reshape(h, 3 * w)
+        flat = flat.reshape(h, 3 * w)
+        if program == "hg":
+            base = ensemble_s2d_base_flat(self.params, flat, policy=self.policy, bgr=True)
+            return hg_composite_s2d(self.params, base, self.cfg, policy=self.policy, pack=True, tail_on=True)
+        cond = None
+        if self.fast_zero_condition or self.fast_condition_resize:
+            cond = self._cond_of(flat.reshape(h, w, 3)[None].flip(-1).float() * (1.0 / 255.0))
+        return ensemble_s2d_rgb48_flat(self.params, flat, cond, self.cfg, policy=self.policy, bgr=True)
+
+    def _rgb48_eager(self, frame_u8_dev: torch.Tensor) -> torch.Tensor:
+        """The frame program of ``process_rgb48_device`` run eagerly, launch
+        by launch, without the CUDA graph."""
+        x = frame_u8_dev
+        h, w = self._frame_hw(x)
+        program = self._program(x)
+        with torch.inference_mode(), self.policy.math():
+            if program == "pairs":
+                return ensemble_s2d_rgb48_pairs(self.params, x.contiguous(), None, self.cfg,
+                                                policy=self.policy, bgr=True)
+            out = self._run_flat(x.contiguous().reshape(h, 3 * w), program)
+        oh, ow = out.shape[0], out.shape[1] // 3
+        if x.ndim == 3:
+            return out.reshape(oh, ow, 3)
+        if x.ndim == 4 and oh % 2 == 0 and ow % 2 == 0:
+            return out.reshape(oh // 2, 2, ow // 2, 6)
+        return out
 
     def put_frame(self, flat_np: np.ndarray) -> torch.Tensor:
         """Host (H, 3W) u8 byte rows → the device tensor the dispatcher
@@ -285,40 +437,149 @@ class HDRTVNetTorch:
         return torch.from_numpy(arr).to(self.device)
 
     def process_rgb48_device(self, frame_u8_dev: torch.Tensor) -> torch.Tensor:
-        """Device-resident variant (no host sync). Accepts (Hb, 2, Wb, 6)
-        pair planes, (H, 3W) flat byte rows or (H, W, 3), BGR u8; returns the
-        matching shape in uint16 RGB48."""
+        """Device-resident frame → device-resident uint16 RGB48 (no host
+        sync). Accepts (Hb, 2, Wb, 6) pair planes, (H, 3W) flat byte rows or
+        (H, W, 3), BGR u8; returns the same layout at the processing size
+        (pair planes as flat rows where a letterbox leaves an odd side). On a
+        CUDA device each signature's program is captured once as a CUDA
+        graph and replayed (``runtime/engine.py``); the tensor returned is
+        the caller's own."""
         x = frame_u8_dev
-        if x.dtype != torch.uint8:
-            raise ValueError(f"frames are uint8, got {x.dtype}")
-        if x.ndim == 4:
-            hb, two, wb, six = x.shape
-            if (two, six) != (2, 6):
-                raise ValueError(f"pair planes are (Hb, 2, Wb, 6), got {tuple(x.shape)}")
-            if hb % 4 or wb % 4:
-                raise ValueError(f"pair planes need sides that are multiples of 8, got {2 * hb}x{2 * wb}: "
-                                 "send (H, 3W) rows (wants_pairs is False at this size)")
-            if self.cfg.use_hg or self.natural(2 * hb, 2 * wb):
-                return self._run_flat(x.contiguous().reshape(2 * hb, 6 * wb)).reshape(hb, 2, wb, 6)
-            return self._run(ensemble_s2d_rgb48_pairs, x.contiguous())
-        if x.ndim == 2:
-            return self._run_flat(x.contiguous())
-        h, w, _ = x.shape
-        return self._run_flat(x.reshape(h, w * 3).contiguous()).reshape(h, w, 3)
+        if self.device.type != "cuda":
+            return self._rgb48_eager(x)
+        key = engine.graph_signature(x.shape, x.dtype, self._program(x), self.precision, self.proc_resolution,
+                                     self.fast_condition_resize, self.fast_zero_condition)
+        return self.graphs.run(key, self._rgb48_eager, x)
 
-    def _run_flat(self, flat: torch.Tensor) -> torch.Tensor:
-        """(H, 3W) rows to the program that takes them: the natural-layout
-        one, the two-stage HG one, or the flat s2d one."""
-        h, w3 = flat.shape
-        if self.natural(h, w3 // 3):
-            return self._run_natural(flat)
-        if self.cfg.use_hg:
-            return self._run_hg_flat(flat)
-        return self._run(ensemble_s2d_rgb48_flat, flat)
+    @staticmethod
+    def _hw3(out: np.ndarray) -> np.ndarray:
+        """A u16 output in any of the three layouts as (H, W, 3), a view."""
+        if out.ndim == 4:
+            hb, _, wb, _ = out.shape
+            return out.reshape(2 * hb, 2 * wb, 3)
+        if out.ndim == 2:
+            return out.reshape(out.shape[0], out.shape[1] // 3, 3)
+        return out
 
     def process_rgb48(self, frame_bgr: np.ndarray) -> np.ndarray:
-        """Full BGR u8 frame (H, W, 3) → uint16 RGB48 PQ code values (H, W, 3)."""
+        """Full BGR u8 frame (H, W, 3) → uint16 RGB48 PQ code values, (H, W,
+        3) or at ``proc_resolution`` when set."""
         h, w, _ = frame_bgr.shape
         flat = np.ascontiguousarray(frame_bgr).reshape(h, w * 3)
         out = self.process_rgb48_device(self.put_frame(flat))
-        return out.cpu().numpy().reshape(h, w, 3)
+        return self._hw3(out.cpu().numpy())
+
+    def process_rgb48_batch(self, frames_bgr: np.ndarray, *, mesh=None) -> np.ndarray:
+        """(N, H, W, 3) BGR u8 → (N, H', W', 3) u16 RGB48, at the processing
+        size: each frame as flat rows through ``process_rgb48_device``, one
+        copy back at the end."""
+        if mesh is not None:
+            raise _not_ported("frame-batch data parallelism (process_rgb48_batch with mesh)",
+                              "Slice 8 (parallel: Queue 1 item 13)")
+        frames = np.ascontiguousarray(frames_bgr)
+        n, h, w, _ = frames.shape
+        outs = [self.process_rgb48_device(torch.from_numpy(frames[i].reshape(h, w * 3)).to(self.device))
+                for i in range(n)]
+        stacked = torch.stack(outs).cpu().numpy()
+        return stacked.reshape(n, stacked.shape[1], stacked.shape[2] // 3, 3)
+
+    @staticmethod
+    def _passthrough(frame_u8: torch.Tensor) -> torch.Tensor:
+        """HDR-input bypass: the source is already the PQ signal, so its u8
+        code values scale to u16 (× 257), the last axis flipped (BGR → RGB),
+        without the model."""
+        return (frame_u8.flip(-1).to(torch.int32) * 257).to(torch.uint16)
+
+    def passthrough_rgb48(self, frame_bgr: np.ndarray) -> np.ndarray:
+        return self._passthrough(self._to_device(frame_bgr)).cpu().numpy()
+
+    def passthrough_rgb48_device(self, frame_u8_dev: torch.Tensor) -> torch.Tensor:
+        return self._passthrough(frame_u8_dev)
+
+    # ------------------------------------------------------------------
+    # The stage API (eager)
+    # ------------------------------------------------------------------
+
+    def _to_device(self, frame_bgr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(frame_bgr)).to(self.device)
+
+    def preprocess(self, frame_bgr: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """BGR u8 (H, W, 3) → ([0, 1] RGB (1, H, W, 3), its ¼-res condition),
+        on the device, letterboxed to ``proc_resolution`` when set."""
+        with torch.inference_mode(), self.policy.math():
+            return self._pre(self._to_device(frame_bgr))
+
+    def infer(self, input_cond) -> torch.Tensor:
+        x, cond = input_cond
+        with torch.inference_mode(), self.policy.math():
+            return self._net(x, cond)
+
+    def postprocess(self, output: torch.Tensor) -> np.ndarray:
+        with torch.inference_mode():
+            return self._post(output).cpu().numpy()
+
+    def process(self, frame_bgr: np.ndarray) -> np.ndarray:
+        """Full frame → BGR uint8 (the SDR-range preview path)."""
+        with torch.inference_mode(), self.policy.math():
+            return self._post(self._net(*self._pre(self._to_device(frame_bgr)))).cpu().numpy()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def process_timed(self, frame_bgr: np.ndarray):
+        """(output, pre_ms, infer_ms, post_ms), the device synchronized
+        between the stages."""
+        t0 = time.perf_counter()
+        x, cond = self.preprocess(frame_bgr)
+        self._sync()
+        t1 = time.perf_counter()
+        out = self.infer((x, cond))
+        self._sync()
+        t2 = time.perf_counter()
+        res = self.postprocess(out)
+        t3 = time.perf_counter()
+        return res, (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3
+
+    # ------------------------------------------------------------------
+    # Warmup / engine management
+    # ------------------------------------------------------------------
+
+    def warmup_compile(self, width: int = 1920, height: int = 1080, *, rgb48: bool = True) -> float:
+        """Make ready the program of one resolution: with ``rgb48`` the one
+        ``process_rgb48_device`` takes for frames from ``put_frame`` at that
+        size, its CUDA graph captured on a CUDA device (the kernels built on
+        the first call of the process); else ``process``, eagerly. Records
+        the signature in the engine registry when ``persistent_cache`` is on;
+        returns the seconds it took."""
+        key = engine.EngineRecord.make_key(
+            self.model_hash, width, height, f"{self.precision}{'-hg' if self.cfg.use_hg else ''}"
+        )
+        t0 = time.perf_counter()
+        if rgb48:
+            self.process_rgb48_device(self.put_frame(np.zeros((height, width * 3), np.uint8)))
+        else:
+            self.process(np.zeros((height, width, 3), np.uint8))
+        self._sync()
+        dt = time.perf_counter() - t0
+        if self.registry is not None:
+            self.registry.record(engine.EngineRecord(
+                key=key, model_hash=self.model_hash, width=width, height=height, precision=self.precision,
+                use_hg=self.cfg.use_hg, torch_version=torch.__version__,
+                device_name=torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu",
+                compile_seconds=dt, created=time.time(),
+            ))
+        self._timings[key] = dt
+        return dt
+
+    def with_proc_resolution(self, proc_resolution: tuple[int, int] | None) -> "HDRTVNetTorch":
+        """Shallow clone with another processing resolution: the parameters
+        are shared, the graph cache is its own."""
+        clone = copy.copy(self)
+        clone.proc_resolution = tuple(proc_resolution) if proc_resolution else None
+        clone.graphs = engine.GraphCache()
+        clone._timings = {}
+        return clone
+
+    def end_profiling(self):  # the reference API's
+        return None

@@ -2,12 +2,15 @@
 package's tools/profile_frame.py).
 
     [HDRTV_MEGAKERNEL=0] python -m hdrtv_tpu_torch.tools.profile_frame
-        [--precision fp16|fp32] [--hg | --int8] [--height 1080 --width 1920 --frames 3]
+        [--precision fp16|fp32] [--hg | --int8] [--height 1080 --width 1920 --frames 3] [--graph]
 
-Runs warm device-resident frames through HDRTVNetTorch.process_rgb48_device
-(bf16 takes the megakernel program unless HDRTV_MEGAKERNEL=0 is set; --hg
-runs the HG composite program on a synthetic hg_nf = 64 generator over the
-real base model, tools/synth_hg.py, written to a temporary directory;
+Runs warm device-resident frames through the eager frame program of
+HDRTVNetTorch.process_rgb48_device (``_rgb48_eager``, kernel by kernel), or
+with --graph through process_rgb48_device itself, which replays the
+program's CUDA graph (runtime/engine.py), captured in the warm-up (bf16
+takes the megakernel program unless HDRTV_MEGAKERNEL=0 is set; --hg runs
+the HG composite program on a synthetic hg_nf = 64 generator over the real
+base model, tools/synth_hg.py, written to a temporary directory;
 --int8 the native-int8 programs on the W8A8 checkpoint
 tests/fixtures/hr_w8a8.npz; a size whose sides are not multiples of 8, such
 as --height 540 --width 960, the natural-layout program) under
@@ -86,6 +89,8 @@ def main() -> int:
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--trace", default="", help="write a chrome trace to this path")
+    ap.add_argument("--graph", action="store_true",
+                    help="profile replays of the frame program's CUDA graph instead of its eager launches")
     args = ap.parse_args()
 
     import shutil
@@ -119,14 +124,15 @@ def main() -> int:
     dtype = str(proc.policy.compute_dtype).replace("torch.", "")
     frame = (np.random.RandomState(h).rand(h, w, 3) * 255).astype(np.uint8)
     x = proc.put_frame(frame.reshape(h, w * 3))
+    run = proc.process_rgb48_device if args.graph else proc._rgb48_eager
     for _ in range(2):
-        proc.process_rgb48_device(x)
+        run(x)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            proc.process_rgb48_device(x)
+            run(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     if args.trace:
@@ -142,7 +148,7 @@ def main() -> int:
     mega = native.launch_counts["tail"] + native.launch_counts["tail_w8a8"] > 0
     print(f"card: {torch.cuda.get_device_name(0)}; {h}x{w} {dtype}, {n} frames under torch.profiler; "
           f"megakernel program: {mega}; HG composite: {proc.cfg.use_hg}; native int8: {proc.native_int8}; "
-          f"natural layout: {proc.natural(h, w)}")
+          f"natural layout: {proc.natural(h, w)}; CUDA graph replays: {args.graph}")
     print(f"wall {wall_ms:.3f} ms/frame; kernel time {busy_ms:.3f} ms/frame; "
           f"device busy {busy_ms / wall_ms:.3f}, idle {1 - busy_ms / wall_ms:.3f}; "
           f"{launches:.1f} kernel launches/frame")
@@ -172,7 +178,7 @@ def main() -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "precision": args.precision, "dtype": dtype,
         "height": h, "width": w, "frames": n, "megakernel": mega, "hg": proc.cfg.use_hg,
-        "int8": proc.native_int8, "natural": proc.natural(h, w), "launches": launches,
+        "int8": proc.native_int8, "natural": proc.natural(h, w), "graph": args.graph, "launches": launches,
         "wall_ms": wall_ms, "kernel_ms": busy_ms, "busy": busy_ms / wall_ms,
         "groups_ms": groups, "port_kernels_ms": {k: v[0] for k, v in port.items()},
         "top": [{"name": e.key[:160], "ms": device_us(e) / 1e3 / n, "launches": e.count / n}

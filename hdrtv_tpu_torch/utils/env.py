@@ -1,6 +1,6 @@
-"""Environment-variable parsing (the port's own copy of the ``env_bool`` of
-``hdrtv_tpu/utils/env.py``: same tokens, so a user carries their environment
-over unchanged)."""
+"""Environment-variable parsing (the port's own copy of the ``env_bool`` and
+``env_str`` of ``hdrtv_tpu/utils/env.py``: same tokens, so a user carries
+their environment over unchanged)."""
 
 from __future__ import annotations
 
@@ -21,3 +21,9 @@ def env_bool(name: str, default: bool = False) -> bool:
     if token in _FALSY:
         return False
     return default
+
+
+def env_str(name: str, default: str = "") -> str:
+    """The variable as it is set; unset gives ``default``."""
+    value = os.environ.get(name)
+    return default if value is None else str(value)

@@ -67,6 +67,15 @@ def _sft4(rng, cc, c, dev, dtype, scale=0.05):
             for ci, co in ((cc, cc), (cc, c), (cc, cc), (cc, c))]
 
 
+def _eager_frame(proc, frame):
+    """One frame through the eager program, kernel by kernel, as (H, W, 3)
+    u16 on the host: the launch counters see each of its launches once
+    (process_rgb48 captures a CUDA graph at a signature's first frame, after
+    an eager run, and replays it, which the counters do not see)."""
+    h, w, _ = frame.shape
+    return proc._hw3(proc._rgb48_eager(proc.put_frame(frame.reshape(h, w * 3))).cpu().numpy())
+
+
 def _max_err(a, b):
     torch.cuda.synchronize()
     return float((a.float() - b.float()).abs().max())
@@ -815,7 +824,7 @@ def test_mega_frame_matches_cpu(dev, monkeypatch):
     weights = os.path.join(os.path.dirname(__file__), "..", "weights", "hr_fp32.npz")
     frame = (np.random.RandomState(64).rand(64, 128, 3) * 255).astype(np.uint8)
     native.reset_launch_counts()
-    gpu = HDRTVNetTorch(weights).process_rgb48(frame).astype(np.int64)
+    gpu = _eager_frame(HDRTVNetTorch(weights), frame).astype(np.int64)
     counts = dict(native.launch_counts)
     assert (counts["agcm_head"], counts["cond_chain"], counts["tail"], counts["pack_rgb48"]) == (1, 1, 1, 0), counts
     cpu = HDRTVNetTorch(weights, device="cpu").process_rgb48(frame).astype(np.int64)
@@ -903,7 +912,7 @@ def test_hg_frame_matches_cpu(dev, monkeypatch, tmp_path, precision, h, w):
     blocks = np.kron(rng.rand(h // 8, w // 8, 1), np.ones((8, 8, 3))) * 420
     frame = np.clip(blocks + rng.randn(h, w, 3) * 10, 0, 255).astype(np.uint8)
     native.reset_launch_counts()
-    gpu = HDRTVNetTorch(path, precision=precision).process_rgb48(frame).astype(np.int64)
+    gpu = _eager_frame(HDRTVNetTorch(path, precision=precision), frame).astype(np.int64)
     counts = dict(native.launch_counts)
     assert (counts["hg_tail"], counts["pack_rgb48"], counts["colorimetric"]) == (1, 0, 0), counts
     cpu = HDRTVNetTorch(path, precision=precision, device="cpu").process_rgb48(frame).astype(np.int64)
@@ -1359,7 +1368,7 @@ def test_int8_frame_matches_cpu(dev, monkeypatch):
     path = os.path.join(os.path.dirname(__file__), "fixtures", "hr_w8a8.npz")
     frame = (np.random.RandomState(64).rand(64, 128, 3) * 255).astype(np.uint8)
     native.reset_launch_counts()
-    gpu = HDRTVNetTorch(path).process_rgb48(frame)
+    gpu = _eager_frame(HDRTVNetTorch(path), frame)
     assert native.launch_counts["tail_w8a8"] == 1 and native.launch_counts["tail"] == 0
     cpu = HDRTVNetTorch(path, device="cpu").process_rgb48(frame)
     d = np.abs(gpu.astype(np.int64) - cpu.astype(np.int64))
@@ -1382,11 +1391,11 @@ def test_int8_down2_frame_runs_the_s8_hopper_tile(dev, monkeypatch):
     monkeypatch.setenv("HDRTV_INT8_DOWN2", "1")
     proc = HDRTVNetTorch(os.path.join(os.path.dirname(__file__), "fixtures", "hr_w8a8.npz"))
     frame = (np.random.RandomState(66).rand(64, 128, 3) * 255).astype(np.uint8)
-    proc.process_rgb48(frame)
+    _eager_frame(proc, frame)
     torch.cuda.synchronize()
     native.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        proc.process_rgb48(frame)
+        _eager_frame(proc, frame)
         torch.cuda.synchronize()
     counts = {e.key: e.count for e in prof.key_averages()}
     assert native.launch_counts["down2_w8a8"] == 3, native.launch_counts
@@ -1410,11 +1419,11 @@ def test_int8_frame_runs_the_s8_hopper_tile(dev, monkeypatch):
     monkeypatch.delenv("HDRTV_INT8_DOWN2", raising=False)
     proc = HDRTVNetTorch(os.path.join(os.path.dirname(__file__), "fixtures", "hr_w8a8.npz"))
     frame = (np.random.RandomState(65).rand(64, 128, 3) * 255).astype(np.uint8)
-    proc.process_rgb48(frame)
+    _eager_frame(proc, frame)
     torch.cuda.synchronize()
     native.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        proc.process_rgb48(frame)
+        _eager_frame(proc, frame)
         torch.cuda.synchronize()
     counts = {e.key: e.count for e in prof.key_averages()}
 
@@ -1714,11 +1723,11 @@ def test_frames_run_the_new_tiles(dev, monkeypatch, program):
         os.path.join(root, "tests", "fixtures", "hr_w8a8.npz")
     proc = HDRTVNetTorch(weights, precision="fp32" if program == "int8_fp32" else "fp16")
     frame = (np.random.RandomState(71).rand(64, 128, 3) * 255).astype(np.uint8)
-    proc.process_rgb48(frame)
+    _eager_frame(proc, frame)
     torch.cuda.synchronize()
     native.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        proc.process_rgb48(frame)
+        _eager_frame(proc, frame)
         torch.cuda.synchronize()
     counts = {e.key: e.count for e in prof.key_averages()}
 
@@ -1816,3 +1825,215 @@ def test_pack_rgb48_streaming_pass_matches_plain_exactly(dev, dtype, shape, offs
     assert native.launch_counts["pack_rgb48"] == before + 1
     assert u.dtype == torch.uint16 and u.shape == x.shape and u.is_contiguous()
     np.testing.assert_array_equal(u.cpu().numpy(), pack_rgb48_ref(x.cpu()).numpy())
+
+
+# ---------------------------------------------------------------------------
+# The runtime's CUDA graphs (runtime/engine.py GraphCache): one per frame
+# signature, replayed by process_rgb48_device.
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    """chip_smoke.py's tables (its module level imports the standard library only)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_tables", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _smooth(h, w, seed):
+    rng = np.random.RandomState(seed)
+    blocks = np.kron(rng.rand(-(-h // 8), -(-w // 8), 1), np.ones((8, 8, 3)))[:h, :w] * 420
+    return np.clip(blocks + rng.randn(h, w, 3) * 10, 0, 255).astype(np.uint8)
+
+
+# program: (checkpoint, precision, HDRTV_MEGAKERNEL, constructor keywords, frame size)
+GRAPH_PROGRAMS = {
+    "bf16": ("float", "fp16", "1", {}, (360, 640)),
+    "bf16_nomega": ("float", "fp16", "0", {}, (360, 640)),
+    "fp32": ("float", "fp32", "1", {}, (360, 640)),
+    "hg_bf16": ("hg", "fp16", "1", {}, (360, 640)),
+    "int8": ("int8", "fp16", "1", {}, (360, 640)),
+    "natural_360x640": ("float", "fp16", "1", {"turbo": False}, (360, 640)),
+    "natural_99x131": ("float", "fp16", "1", {}, (99, 131)),
+}
+
+
+def _graph_proc(program, monkeypatch, tmp_path):
+    import os
+
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+    from hdrtv_tpu_torch.tools.synth_hg import write_synth_hg
+
+    ckpt, precision, mega, kw, size = GRAPH_PROGRAMS[program]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    weights = {"float": os.path.join(root, "weights", "hr_fp32.npz"),
+               "int8": os.path.join(root, "tests", "fixtures", "hr_w8a8.npz")}.get(ckpt)
+    if ckpt == "hg":
+        weights = write_synth_hg(str(tmp_path / "hg16.npz"), nf=16, seed=1)
+    for var in ("HDRTV_HG_TAIL", "HDRTV_INT8_DOWN2", "HDRTV_PAIRS_BOUNDARY"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("HDRTV_MEGAKERNEL", mega)
+    return HDRTVNetTorch(weights, precision=precision, persistent_cache=False, **kw), size
+
+
+@pytest.mark.parametrize("program", list(GRAPH_PROGRAMS))
+def test_graph_replay_matches_eager(dev, monkeypatch, tmp_path, program):
+    """The first frame of a signature runs the program eagerly, captures it
+    (the counters see one frame's launches in the capture, the same as an
+    eager frame's) and replays it; later frames replay only (no launch the
+    counters see). Every replay equals the eager program's output bit for
+    bit: both run the same kernels on the same inputs. Should two eager runs
+    already differ, the replay is held to the card-against-CPU bound of
+    chip_smoke.py phase 3 instead (fp32 4 codes, bf16 1536 max / 34 mean)."""
+    proc, (h, w) = _graph_proc(program, monkeypatch, tmp_path)
+    frame = _smooth(h, w, h + w)
+    x = proc.put_frame(frame.reshape(h, 3 * w))
+    e1 = proc._rgb48_eager(x)
+    native.reset_launch_counts()
+    e2 = proc._rgb48_eager(x)
+    one_frame = {k: v for k, v in native.launch_counts.items() if v}
+    native.reset_launch_counts()
+    g1 = proc.process_rgb48_device(x)
+    torch.cuda.synchronize()
+    assert len(proc.graphs) == 1
+    entry = next(iter(proc.graphs.entries.values()))
+    assert entry.launches == one_frame and one_frame
+    assert {k: v for k, v in native.launch_counts.items() if v} == {k: 2 * v for k, v in one_frame.items()}
+    native.reset_launch_counts()
+    g2 = proc.process_rgb48_device(x)
+    torch.cuda.synchronize()
+    assert not any(native.launch_counts.values()) and len(proc.graphs) == 1
+    assert g1.shape == e1.shape and g1.dtype == torch.uint16
+    if torch.equal(e1, e2):
+        assert torch.equal(g1, e1) and torch.equal(g2, e1)
+    else:
+        d = (torch.stack([g1, g2]).to(torch.int64) - e1.to(torch.int64)).abs()
+        bound = (4, None) if proc.policy.compute_dtype == torch.float32 else (1536, 34.0)
+        print(f"{program}: two eager runs differ; replay against eager max {int(d.max())}, "
+              f"mean {float(d.float().mean()):.3f}")
+        assert int(d.max()) <= bound[0] and (bound[1] is None or float(d.float().mean()) <= bound[1])
+    proc.graphs.clear()
+
+
+def test_graph_returns_the_callers_tensor(dev, monkeypatch, tmp_path):
+    """Two calls return distinct tensors and the first keeps its values; a
+    second input gives its own result, not the captured one."""
+    proc, (h, w) = _graph_proc("bf16", monkeypatch, tmp_path)
+    x = proc.put_frame(_smooth(h, w, 1).reshape(h, 3 * w))
+    x2 = proc.put_frame(_smooth(h, w, 2).reshape(h, 3 * w))
+    a = proc.process_rgb48_device(x)
+    a_values = a.clone()
+    b = proc.process_rgb48_device(x)
+    assert a.data_ptr() != b.data_ptr() and torch.equal(a, a_values) and torch.equal(a, b)
+    c = proc.process_rgb48_device(x2)
+    assert len(proc.graphs) == 1 and torch.equal(a, a_values)
+    assert torch.equal(c, proc._rgb48_eager(x2)) and not torch.equal(c, a)
+
+
+def test_graph_follows_hdrtv_megakernel(dev, monkeypatch, tmp_path):
+    """Flipping HDRTV_MEGAKERNEL between calls runs the other program: a
+    graph of its own, whose capture counted that program's launches of one
+    frame (chip_smoke.py PATHS bf16_mega and bf16_nomega), and back again
+    the first graph replays."""
+    paths = _chip_smoke().PATHS
+    proc, _ = _graph_proc("bf16", monkeypatch, tmp_path)
+    h, w = 1080, 1920  # the size of chip_smoke.py's launch counts
+    x = proc.put_frame(_smooth(h, w, 3).reshape(h, 3 * w))
+    seen = []
+    for mega, path in (("1", "bf16_mega"), ("0", "bf16_nomega"), ("1", "bf16_mega")):
+        monkeypatch.setenv("HDRTV_MEGAKERNEL", mega)
+        out = proc.process_rgb48_device(x)
+        assert torch.equal(out, proc._rgb48_eager(x))
+        seen.append(out)
+        entry = next(e for k, e in proc.graphs.entries.items() if dict(k[-1])["HDRTV_MEGAKERNEL"] == (mega == "1"))
+        assert entry.launches == paths[path]["launches"], (path, entry.launches)
+    assert len(proc.graphs) == 2 and torch.equal(seen[0], seen[2]) and not torch.equal(seen[0], seen[1])
+    proc.graphs.clear()
+
+
+def test_graph_capture_failure_raises(dev):
+    """A program that syncs with the host cannot be captured: the call
+    raises, and nothing runs eagerly in the graph's place."""
+    from hdrtv_tpu_torch.runtime.engine import GraphCache
+
+    ran = []
+
+    def fn(x):
+        ran.append(1)
+        return x * int((x > 0).sum().item() > 0)
+
+    cache = GraphCache()
+    with pytest.raises(RuntimeError, match="capture"):
+        cache.run(("sync",), fn, torch.ones(64, device="cuda"))
+    assert len(ran) == 2 and len(cache) == 0  # the eager run before the capture, the capture's
+    torch.cuda.synchronize()
+    assert float(torch.ones(4, device="cuda").sum()) == 4.0  # the device is usable after
+
+
+@pytest.mark.parametrize("kw,size", [({"proc_resolution": (640, 360)}, (480, 640)),
+                                     ({"fast_condition_resize": True}, (360, 640)),
+                                     ({"fast_zero_condition": True}, (360, 640))],
+                         ids=["proc_resolution", "fast_condition_resize", "fast_zero_condition"])
+def test_graph_runtime_options_match_cpu(dev, monkeypatch, kw, size):
+    """proc_resolution (a 480 × 640 frame letterboxed to 360 × 640) and the
+    fast-condition shortcuts, bf16 default, through the graph on the card
+    against the same processor on the CPU: within chip_smoke.py's
+    RUNTIME_BF16_CODES (twice the largest max and mean of its sound
+    readings); the replay equals the eager program. The same card frame
+    against chip_smoke.py's planted faults on the CPU (the letterbox one
+    row down, the shortcut ignored) breaks that bound: it can fail."""
+    import os
+
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    monkeypatch.delenv("HDRTV_MEGAKERNEL", raising=False)
+    weights = os.path.join(os.path.dirname(__file__), "..", "weights", "hr_fp32.npz")
+    h, w = size
+    frame = (np.random.RandomState(h).rand(h, w, 3) * 255).astype(np.uint8)
+    proc = HDRTVNetTorch(weights, persistent_cache=False, **kw)
+    gpu = proc.process_rgb48(frame)
+    assert gpu.shape == (360, 640, 3) and len(proc.graphs) == 1
+    assert np.array_equal(gpu, _eager_frame(proc, frame))
+    cpu = HDRTVNetTorch(weights, device="cpu", persistent_cache=False, **kw).process_rgb48(frame)
+    smoke = _chip_smoke()
+    bound = smoke.RUNTIME_BF16_CODES
+    assert not smoke.breaks(smoke.codes_apart(np, gpu, cpu), bound), smoke.codes_apart(np, gpu, cpu)
+    plain = HDRTVNetTorch(weights, device="cpu", persistent_cache=False).process_rgb48
+    for fault, bad in smoke.runtime_faults(np, torch, frame, kw, plain).items():
+        assert smoke.breaks(smoke.codes_apart(np, gpu, bad), bound), (fault, smoke.codes_apart(np, gpu, bad))
+
+
+def test_graph_keeps_the_matrices_it_reads(dev, monkeypatch, tmp_path):
+    """A graph replays the addresses of the cached resize matrices its
+    capture read: after more frame sizes than those caches hold (the first
+    size's matrices evicted, and memory of their sizes handed out again
+    and filled with NaN), the first size's graph still gives its eager
+    bytes."""
+    from hdrtv_tpu_torch.ops import resize
+
+    proc, _ = _graph_proc("bf16", monkeypatch, tmp_path)
+    sizes = [(64, 96 + 16 * i) for i in range(resize._flat_matrices.cache_info().maxsize + 1)]
+    frames = [proc.put_frame(_smooth(h, w, w).reshape(h, 3 * w)) for h, w in sizes]
+    assert frames[0].ndim == 4  # pair planes: the condition reads _pairs_matrices, views of _flat_matrices'
+    eager = proc._rgb48_eager(frames[0])
+    first = proc.process_rgb48_device(frames[0])
+    for x in frames[1:]:
+        proc.process_rgb48_device(x)
+    assert len(proc.graphs) == len(sizes)
+    h, w = sizes[0]
+    info = resize._flat_matrices.cache_info()
+    assert info.currsize == info.maxsize < len(sizes)  # the first size's entry evicted
+    resize._flat_matrices.cache_clear()
+    resize._pairs_matrices.cache_clear()
+    torch.cuda.synchronize()
+    junk = [torch.full(shape, float("nan"), device="cuda") for _ in range(4)
+            for shape in ((h // 4, h), (3 * w, 3 * w // 4))]
+    again = proc.process_rgb48_device(frames[0])
+    assert torch.equal(first, eager) and torch.equal(again, eager)
+    del junk
+    proc.graphs.clear()

@@ -407,8 +407,7 @@ def test_default_precision_constructs_on_cpu():
 @pytest.mark.parametrize("kwargs", [
     {"precision": "fp16", "mesh": object()},
     {"precision": "fp32", "use_hg": True},
-    {"precision": "fp32", "proc_resolution": (64, 32)},
-    {"precision": "fp32", "fast_condition_resize": True},
+    {"precision": "fp32", "hg_path": "hg.pt"},
 ])
 def test_uncovered_options_raise(kwargs):
     """What the port does not run raises at construction, naming its ROADMAP
