@@ -2150,6 +2150,329 @@ def phase_probes(torch, np, native) -> dict:
     return counts
 
 
+# Phase 9, the playback and export pipeline (pipeline/runner.py, pipeline/export.py): the paths
+# it drives through the frame programs' CUDA graphs, with the phase-4 path whose launches one
+# frame makes. The export's warm-up runs the program eagerly and captures it (two frames'
+# launches, which the counters see); every frame after it replays the graph (none).
+PIPE_PATHS = {
+    "pipeline_bf16": {"weights": "float", "path": "bf16_mega", "size": (1080, 1920), "proc_resolution": None},
+    "pipeline_int8": {"weights": "int8", "path": "int8_bf16_mega", "size": (1080, 1920), "proc_resolution": None},
+    "pipeline_540p": {"weights": "float", "path": "nat540_bf16", "size": (540, 960), "proc_resolution": (960, 540)},
+}
+PIPE_EXPORT_FRAMES = 120
+PIPE_FLAT_FRAMES = 300
+PIPE_PROFILE_FRAMES = 60
+PIPE_REALTIME = (60.0, 600)  # fps and frames: 10 s at 60 fps
+PIPE_SWAP = ((1920, 1080), (960, 540))  # (W, H): the hot-swap's sizes, the source at the first
+PIPE_MAX_DROP = 0.01
+PIPE_CLI_FRAMES = 30
+
+
+def _pipe_launches(path: str) -> dict:
+    if path in PATHS:
+        return expected_launches(path)
+    return {k: int(k == "pack_rgb48") for k in KERNEL_INFO}
+
+
+def stream_overlap(trace_path: str) -> dict:
+    """From a torch.profiler Chrome trace of a pipelined run: the device's
+    busy share (the union of kernel and copy intervals over the span from the
+    first to the last), the stream that runs most kernel time (the replays'),
+    the streams of the HtoD and DtoH copies, and the share of the copies'
+    time that lies under a kernel running on another stream."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels, copies, other = [], {"HtoD": [], "DtoH": []}, []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        cat, name = e.get("cat", ""), e.get("name", "")
+        stream = (e.get("args") or {}).get("stream", e.get("tid"))
+        iv = (float(e["ts"]), float(e["ts"]) + float(e["dur"]), stream)
+        if cat == "kernel":
+            kernels.append(iv)
+        elif cat in ("gpu_memcpy", "gpu_memset"):
+            kind = next((k for k in copies if k in name), None)
+            (copies[kind] if kind else other).append(iv)
+
+    def union(ivs):
+        out = []
+        for a, b in sorted((a, b) for a, b, _ in ivs):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    def covered(a, b, spans):
+        return sum(max(0.0, min(b, y) - max(a, x)) for x, y in spans)
+
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel on the card")
+    per_stream = {}
+    for a, b, st in kernels:
+        per_stream[st] = per_stream.get(st, 0.0) + (b - a)
+    replay_stream = max(per_stream, key=per_stream.get)
+    everything = kernels + copies["HtoD"] + copies["DtoH"] + other
+    span = max(b for _, b, _ in everything) - min(a for a, _, _ in everything)
+    busy = sum(b - a for a, b in union(everything)) / span
+    out = {"busy": round(busy, 4), "replay_stream": replay_stream, "kernel_ms": round(sum(per_stream.values()) / 1e3, 3)}
+    for kind, ivs in copies.items():
+        total = sum(b - a for a, b, _ in ivs)
+        under = 0.0
+        for a, b, st in ivs:
+            under += covered(a, b, union([k for k in kernels if k[2] != st]))
+        out[kind] = {"n": len(ivs), "ms": round(total / 1e3, 3), "streams": sorted({str(st) for _, _, st in ivs}),
+                     "overlapped": round(under / total, 4) if total else None,
+                     "off_replay_stream": all(st != replay_stream for _, _, st in ivs)}
+    return out
+
+
+def phase_pipeline(torch, np, native, smi: str, tmp: str) -> dict:
+    """Phase 9: the playback and export pipeline on the card. Returns the
+    pipeline paths' launch counts (the export's warm-up: the eager run and
+    the capture) and the phase's figures."""
+    import hashlib
+
+    from hdrtv_tpu_torch.pipeline.export import ExportConfig, _Y4MWriter, export_video
+    from hdrtv_tpu_torch.pipeline.runner import PipelineRunner
+    from hdrtv_tpu_torch.pipeline.sinks import NullSink
+    from hdrtv_tpu_torch.pipeline.source import SyntheticSource
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    set_path_env({"mega": "1"})
+    counts, figures = {}, {"card": smi}
+
+    def make(spec, **kw):
+        weights = INT8_WEIGHTS if spec["weights"] == "int8" else WEIGHTS
+        return HDRTVNetTorch(weights, precision="fp16", proc_resolution=spec["proc_resolution"],
+                             persistent_cache=False, **kw)
+
+    # --- exports, every frame against process_rgb48 of the same frame ---------------------
+    procs = {}
+    for name, spec in PIPE_PATHS.items():
+        h, w = spec["size"]
+        proc = procs[name] = make(spec)
+        for codec in ("raw",) + (("y4m",) if name == "pipeline_540p" else ()):
+            n = PIPE_EXPORT_FRAMES if codec == "raw" else 30
+            log(f"phase 9: export_video {name} {codec}, {n} synthetic {h}x{w} frames")
+            out = os.path.join(tmp, f"{name}.{codec}")
+            torch.cuda.synchronize()
+            native.reset_launch_counts()
+            stats = export_video(None, proc, ExportConfig(output=out, codec=codec),
+                                 source=SyntheticSource(w, h, fps=30, frames=n))
+            torch.cuda.synchronize()
+            if codec == "raw":
+                counts[name] = read_counts(native)
+                want = {k: 2 * v for k, v in _pipe_launches(spec["path"]).items()}
+                if counts[name] != want:
+                    raise AssertionError(f"{name}: the export counted {counts[name]}, its warm-up launches {want}")
+            if stats["frames"] != n or len(proc.graphs) != 1:
+                raise AssertionError(f"{name} {codec}: {stats['frames']} frames, {len(proc.graphs)} graphs")
+            src = SyntheticSource(w, h, fps=30, frames=n)
+            if codec == "raw":
+                data = np.memmap(stats["output"], np.uint16, "r", shape=(n, h, w, 3))
+                bad = [i for i in range(n) if not np.array_equal(data[i], proc.process_rgb48(src.read_with_meta()[0]))]
+                del data
+            else:
+                ref = os.path.join(tmp, f"{name}_ref.y4m")
+                wr = _Y4MWriter(ExportConfig(output=ref, codec="y4m"), w, h, 30.0)
+                for _ in range(n):
+                    wr.write(proc.process_rgb48(src.read_with_meta()[0]))
+                wr.close()
+                with open(stats["output"], "rb") as f1, open(ref, "rb") as f2:
+                    bad = [] if f1.read() == f2.read() else ["file"]
+            for f in os.listdir(tmp):
+                if f.startswith(name):
+                    os.remove(os.path.join(tmp, f))
+            ms = stats["seconds"] * 1e3 / n
+            log(f"export {name} {codec}: {n} frames, {stats['fps']} fps ({ms:.3f} ms/frame, writer included), "
+                f"bit-equal to process_rgb48: {not bad}" + (f"; launches (warm-up) "
+                                                             f"{ {k: v for k, v in counts[name].items() if v} }"
+                                                             if codec == "raw" else "") + f"; {smi}")
+            if bad:
+                raise AssertionError(f"{name} {codec}: frames {bad[:10]} differ from process_rgb48")
+            figures[f"export_{name}_{codec}_ms"] = round(ms, 3)
+
+    # --- flat-out runner: pinned rings and copy streams against the parent's pageable copies --
+    class PageableRunner(PipelineRunner):
+        """The parent's copies: torch.from_numpy(...).to(device) in put_frame and .cpu() in
+        the feeder, both on the default stream, where the replays run too."""
+
+        def _setup_copies(self):
+            self._compute = torch.cuda.default_stream(self.device)
+            self._d2h = self._out = None
+
+        def _copy_out(self, dev_out):
+            return dev_out
+
+        def _fetch(self, handle):
+            return handle.cpu().numpy()
+
+        def _finish(self, handle):
+            pass
+
+    def pageable(proc, on: bool):
+        if on:
+            proc._to_device = lambda arr: torch.from_numpy(np.ascontiguousarray(arr)).to(proc.device)
+        else:
+            del proc._to_device
+
+    def flat_out(proc, kind, w, h, n, profile=None):
+        cls = PageableRunner if kind == "pageable" else PipelineRunner
+        if kind == "pageable":
+            pageable(proc, True)
+        try:
+            sink = NullSink()
+            r = cls(SyntheticSource(w, h, fps=60, frames=n), proc, sink, realtime=False, ring=3, warmup_frames=10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if profile is None:
+                m = r.run()
+            else:
+                from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+                with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    m = r.run()
+                prof.export_chrome_trace(profile)
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            if kind == "pageable":
+                pageable(proc, False)
+        if m.frames != n or sink.frames != n:
+            raise AssertionError(f"{kind}: {m.frames} frames run, {sink.frames} shown of {n}")
+        st = r.timers.as_dict()
+        return {"ms_per_frame": round(1e3 / m.fps, 3), "wall_ms_per_frame": round(wall / n, 3),
+                "model_ms": round(m.model_ms, 3), "ring_ms": round(m.ring_ms, 3),
+                **{f"{k}_ms": round(st[k]["mean_ms"], 3) for k in ("decode", "submit", "render") if k in st}}
+
+    for name in ("pipeline_bf16", "pipeline_int8"):
+        proc = procs[name]
+        h, w = PIPE_PATHS[name]["size"]
+        runs = [(kind, flat_out(proc, kind, w, h, PIPE_FLAT_FRAMES))
+                for kind in ("pinned", "pageable", "pageable", "pinned")]
+        for kind, res in runs:
+            log(f"flat-out {name} {kind}: {json.dumps(res)}; {smi}")
+        trace = os.path.join(tmp, f"{name}_trace.json")
+        flat_out(proc, "pinned", w, h, PIPE_PROFILE_FRAMES, profile=trace)
+        ov = stream_overlap(trace)
+        os.remove(trace)
+        trace = os.path.join(tmp, f"{name}_pageable_trace.json")
+        flat_out(proc, "pageable", w, h, PIPE_PROFILE_FRAMES, profile=trace)
+        ov_pageable = stream_overlap(trace)
+        os.remove(trace)
+        log(f"profile {name} pinned ({PIPE_PROFILE_FRAMES} frames): {json.dumps(ov)}")
+        log(f"profile {name} pageable ({PIPE_PROFILE_FRAMES} frames): {json.dumps(ov_pageable)}")
+        for kind in ("HtoD", "DtoH"):
+            if not ov[kind]["n"] or not ov[kind]["off_replay_stream"]:
+                raise AssertionError(f"{name}: the {kind} copies ran on the replays' stream: {ov}")
+        figures[f"flat_{name}"] = {"runs": runs, "profile_pinned": ov, "profile_pageable": ov_pageable}
+
+    # --- realtime: 10 s at 60 fps, bf16 default, null sink -------------------------------------
+    proc = procs["pipeline_bf16"]
+    fps, n = PIPE_REALTIME
+    h, w = PIPE_PATHS["pipeline_bf16"]["size"]
+    log(f"phase 9: realtime {n} frames at {fps:g} fps, {h}x{w} bf16 default, null sink")
+    sink = NullSink()
+    m = PipelineRunner(SyntheticSource(w, h, fps=fps, frames=n), proc, sink, realtime=True, ring=3).run()
+    rt = {"frames": m.frames, "shown": sink.frames, "dropped": m.dropped, "fps": round(m.fps, 3),
+          "fps_1pct_low": round(m.fps_1pct_low, 3), "model_ms": round(m.model_ms, 3), "ring_ms": round(m.ring_ms, 3)}
+    log(f"realtime: {json.dumps(rt)}; {smi}")
+    if m.dropped > PIPE_MAX_DROP * n:
+        raise AssertionError(f"realtime: {m.dropped} of {n} frames dropped (at most {PIPE_MAX_DROP:.0%})")
+    figures["realtime"] = rt
+
+    # --- a hot-swap under load: 1080p -> 540p -> 1080p with the ring full ---------------------
+    big, small = PIPE_SWAP
+    log(f"phase 9: resolution hot-swap {big} -> {small} -> {big} (W, H) under load")
+    import threading
+
+    made = {}
+
+    def factory(precision=None, proc_resolution=None):
+        made[proc_resolution] = p = proc.with_proc_resolution(proc_resolution)
+        return p
+
+    class HashSink:
+        def __init__(self):
+            self.got = []
+
+        def show(self, rgb48, pts=None):
+            self.got.append((pts, rgb48.shape, hashlib.blake2b(rgb48, digest_size=16).digest()))
+
+        def close(self):
+            pass
+
+    sink = HashSink()
+    r = PipelineRunner(SyntheticSource(*big, fps=30, frames=100000), factory(proc_resolution=big), sink,
+                       realtime=False, ring=3, processor_factory=factory)
+    errors = []
+
+    def run():
+        try:
+            r.run()
+        except BaseException as e:  # re-raised below, on the main thread
+            errors.append(e)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    for res in (small, big):
+        n0, deadline = len(sink.got), time.monotonic() + 120
+        while len(sink.got) < n0 + 30 and time.monotonic() < deadline and t.is_alive():
+            time.sleep(0.01)
+        r.request_resolution_change(res)
+    n0, deadline = len(sink.got), time.monotonic() + 120
+    while len(sink.got) < n0 + 30 and time.monotonic() < deadline and t.is_alive():
+        time.sleep(0.01)
+    r.stop()
+    t.join(timeout=120)
+    if t.is_alive():
+        raise AssertionError("hot-swap: the runner did not stop")
+    if errors:
+        raise errors[0]
+    sizes, bad = {}, []
+    src = SyntheticSource(*big, fps=30, frames=100000)
+    for pts, shape, digest in sink.got:
+        idx = int(round(pts * 30))
+        res = big if shape == (big[1], 3 * big[0]) else small
+        sizes[res] = sizes.get(res, 0) + 1
+        src.seek(idx)
+        want = made[res].process_rgb48(src.read_with_meta()[0])
+        if hashlib.blake2b(np.ascontiguousarray(want.reshape(shape)), digest_size=16).digest() != digest:
+            bad.append((idx, res))
+    swap = {"frames": len(sink.got), "by_size": {f"{k[0]}x{k[1]}": v for k, v in sizes.items()},
+            "flushed": r.flushed, "wrong": len(bad), "graphs": {f"{k[0]}x{k[1]}": len(p.graphs) for k, p in made.items()}}
+    log(f"hot-swap: {json.dumps(swap)}")
+    if bad or sizes.get(small, 0) < 10 or sizes.get(big, 0) < 40:
+        raise AssertionError(f"hot-swap: {swap}; wrong frames {bad[:10]}")
+    figures["hot_swap"] = swap
+    for p in list(made.values()) + list(procs.values()):
+        p.graphs.clear()
+    del made, procs, proc, p
+    torch.cuda.empty_cache()
+
+    # --- the CLI in a subprocess ---------------------------------------------------------------
+    out = os.path.join(tmp, "cli.rgb48")
+    env = {**os.environ, "HDRTVNET_PREFS_PATH": os.path.join(tmp, "prefs.json"),
+           "HDRTVNET_ENGINE_CACHE_DIR": os.path.join(tmp, "engines"), "HDRTVNET_CACHE_DIR": os.path.join(tmp, "cache")}
+    cmd = [sys.executable, "-m", "hdrtv_tpu_torch.cli", "convert", "--display", "file", "--output", out,
+           "--no-realtime", "--frames", str(PIPE_CLI_FRAMES)]
+    log("phase 9: " + " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    for line in res.stdout.strip().splitlines()[-3:]:
+        log("  cli: " + line)
+    size = os.path.getsize(out) if os.path.exists(out) else -1
+    want = PIPE_CLI_FRAMES * 1920 * 1080 * 6
+    log(f"cli: exit {res.returncode}, {size} bytes (want {want}), {cli_s:.1f} s")
+    if res.returncode != 0 or size != want:
+        raise AssertionError(f"cli: exit {res.returncode}, {size} bytes; stderr {res.stderr[-2000:]}")
+    os.remove(out)
+    figures["cli_s"] = round(cli_s, 1)
+    return counts, figures
+
+
 def main() -> int:
     import torch
 
@@ -2192,6 +2515,8 @@ def main() -> int:
             counts.update(phase_color(torch, np, native))
             counts.update(phase_forms(torch, np, native))
             counts[PROBE_PATH] = phase_probes(torch, np, native)
+            pipe_counts, pipeline = phase_pipeline(torch, np, native, smi, tmp)
+            counts.update(pipe_counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2235,6 +2560,7 @@ def main() -> int:
     if len(kernels) != 33:
         raise AssertionError(f"{len(kernels)} kernel entries, expected 33: {[k['name'] for k in kernels]}")
     log(json.dumps({"graphs": graphs, "runtime": runtime}))
+    log(json.dumps({"pipeline": pipeline}))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

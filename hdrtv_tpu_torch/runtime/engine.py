@@ -179,11 +179,20 @@ class GraphCache:
     The first call of a signature runs ``fn`` eagerly once (this builds the
     kernels, fills the parameter-derived caches and lets cuDNN choose its
     algorithms), then captures ``fn`` on a side stream with the input in a
-    static buffer. Every call copies its input into that buffer, replays the
-    graph on the current stream and returns a copy of the static output, so
-    the tensor returned is the caller's: a later call never overwrites it.
-    A capture or replay that fails raises; nothing runs eagerly in its
-    place.
+    static buffer. Every call works on the caller's current stream: it
+    copies its input into that buffer, replays the graph and returns a copy
+    of the static output, all enqueued there, so the tensor returned is the
+    caller's: a later call never overwrites it. An input copied in on
+    another stream must be waited for by the current stream first
+    (``runtime/transfer.py copy_in`` does); a reader of the result on
+    another stream marks it for that stream (``copy_out`` does, with
+    ``record_stream``). A capture or replay that fails raises; nothing runs
+    eagerly in its place.
+
+    A capture prohibits unsafe CUDA calls from its own thread only
+    (``capture_error_mode="thread_local"``): a pipeline's feeder thread may
+    wait on its copies' events meanwhile. The pipelines also let their rings
+    drain before a frame that may capture (``pipeline/runner.py``).
 
     Every graph keeps its private memory pool, about the size of the eager
     program's peak (``PERF.md`` §2), for as long as the cache holds it: a process that sees many frame signatures
@@ -222,7 +231,7 @@ class GraphCache:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with resize.hold_matrices() as held, torch.cuda.graph(graph):
+            with resize.hold_matrices() as held, torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 static_out = fn(static_in)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {key} failed: {e}") from e

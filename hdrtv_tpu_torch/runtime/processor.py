@@ -83,6 +83,16 @@ frame replays it and returns its own copy of the output. The stage API stays
 eager, and ``_rgb48_eager`` is the same program without the graph. On the
 CPU everything runs eagerly.
 
+Frames cross the host boundary through pinned host buffers on a CUDA device
+(``runtime/transfer.py``): ``put_frame`` (and every method that takes a host
+frame) stages the bytes in a pinned buffer and copies them with
+``non_blocking=True`` on the processor's H2D stream, and the caller's current
+stream waits for that copy; ``process_rgb48`` and the other methods that
+return host arrays copy back on the processor's D2H stream into a pinned
+buffer and return a copy of it, the caller's own. The pinned buffers are
+allocated once per frame shape and reused. A processor's copies are made from
+one thread at a time. On the CPU nothing is pinned.
+
 What still raises, naming the ROADMAP item that will port it: ``mesh``
 (Queue 1 item 13, also for ``process_rgb48_batch``), ``.pt`` checkpoints
 and ``hg_path`` (Queue 1 item 1), and the model variants: other HG
@@ -115,7 +125,7 @@ from hdrtv_tpu_torch.models.s2d import (
 from hdrtv_tpu_torch.ops.pack import pack_rgb48
 from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa, downsample_quarter_bilinear, letterbox_u8
 from hdrtv_tpu_torch.quant.int8 import predequantize_params
-from hdrtv_tpu_torch.runtime import engine
+from hdrtv_tpu_torch.runtime import engine, transfer
 from hdrtv_tpu_torch.utils.env import env_bool
 
 
@@ -279,6 +289,49 @@ class HDRTVNetTorch:
         self.registry = engine.EngineRegistry() if persistent_cache else None
         self.graphs = engine.GraphCache()
         self._timings: dict[str, float] = {}
+        self._h2d = self._d2h = None
+        if self.device.type == "cuda":
+            self._h2d = torch.cuda.Stream(self.device)
+            self._d2h = torch.cuda.Stream(self.device)
+        self._new_host_buffers()
+
+    def _new_host_buffers(self) -> None:
+        """The pinned buffers of the host copies, by frame shape: a few
+        staging slots a shape for the copies in (each refilled only after
+        its last copy is done), one slot a shape for the copies back."""
+        self._staging: dict[tuple, list[transfer.HostSlot]] = {}
+        self._readback: dict[tuple, transfer.HostSlot] = {}
+
+    # ------------------------------------------------------------------
+    # Host ↔ device copies
+    # ------------------------------------------------------------------
+
+    # Staging slots a frame shape: frame n + 2 is staged while frame n + 1's
+    # copy may still run; frame n's was done long before.
+    STAGING_SLOTS = 2
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """Host array → a tensor on the processor's device: on a CUDA device
+        through a pinned staging slot on the H2D stream (the current stream
+        waits for the copy; a failed pin or copy raises); on the CPU the
+        array itself, as a tensor."""
+        arr = np.ascontiguousarray(arr)
+        if self.device.type != "cuda":
+            return torch.from_numpy(arr)
+        slots = self._staging.setdefault((arr.shape, arr.dtype.str),
+                                         [transfer.HostSlot(pinned=True) for _ in range(self.STAGING_SLOTS)])
+        slots.append(slots.pop(0))
+        return transfer.copy_in(arr, slots[-1], self.device, self._h2d)
+
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        """Device tensor → a host array of the caller's own: on a CUDA
+        device through the shape's pinned readback slot on the D2H stream,
+        after the current stream's work so far, then copied out of the slot
+        (the next call of that shape reuses the slot)."""
+        if t.device.type != "cuda":
+            return t.cpu().numpy()
+        slot = self._readback.setdefault((tuple(t.shape), t.dtype), transfer.HostSlot(pinned=True))
+        return transfer.copy_out(t, slot, self._d2h).array().copy()
 
     # ------------------------------------------------------------------
     # Dispatch rules (HDRTVNetTPU's, method by method)
@@ -429,12 +482,15 @@ class HDRTVNetTorch:
 
     def put_frame(self, flat_np: np.ndarray) -> torch.Tensor:
         """Host (H, 3W) u8 byte rows → the device tensor the dispatcher
-        wants: (Hb, 2, Wb, 6) pair planes when eligible, flat rows otherwise."""
+        wants: (Hb, 2, Wb, 6) pair planes when eligible, flat rows otherwise.
+        On a CUDA device the bytes go through a pinned staging slot and a
+        non-blocking copy on the H2D stream, which the current stream waits
+        for (``_to_device``)."""
         h, w = flat_np.shape[0], flat_np.shape[1] // 3
         arr = np.ascontiguousarray(flat_np)
         if self.wants_pairs(h, w):
             arr = arr.reshape(h // 2, 2, w // 2, 6)
-        return torch.from_numpy(arr).to(self.device)
+        return self._to_device(arr)
 
     def process_rgb48_device(self, frame_u8_dev: torch.Tensor) -> torch.Tensor:
         """Device-resident frame → device-resident uint16 RGB48 (no host
@@ -467,20 +523,19 @@ class HDRTVNetTorch:
         h, w, _ = frame_bgr.shape
         flat = np.ascontiguousarray(frame_bgr).reshape(h, w * 3)
         out = self.process_rgb48_device(self.put_frame(flat))
-        return self._hw3(out.cpu().numpy())
+        return self._hw3(self._to_host(out))
 
     def process_rgb48_batch(self, frames_bgr: np.ndarray, *, mesh=None) -> np.ndarray:
         """(N, H, W, 3) BGR u8 → (N, H', W', 3) u16 RGB48, at the processing
         size: each frame as flat rows through ``process_rgb48_device``, one
-        copy back at the end."""
+        copy back at the end (pinned on a CUDA device, as every copy)."""
         if mesh is not None:
             raise _not_ported("frame-batch data parallelism (process_rgb48_batch with mesh)",
                               "Slice 8 (parallel: Queue 1 item 13)")
         frames = np.ascontiguousarray(frames_bgr)
         n, h, w, _ = frames.shape
-        outs = [self.process_rgb48_device(torch.from_numpy(frames[i].reshape(h, w * 3)).to(self.device))
-                for i in range(n)]
-        stacked = torch.stack(outs).cpu().numpy()
+        outs = [self.process_rgb48_device(self._to_device(frames[i].reshape(h, w * 3))) for i in range(n)]
+        stacked = self._to_host(torch.stack(outs))
         return stacked.reshape(n, stacked.shape[1], stacked.shape[2] // 3, 3)
 
     @staticmethod
@@ -491,7 +546,7 @@ class HDRTVNetTorch:
         return (frame_u8.flip(-1).to(torch.int32) * 257).to(torch.uint16)
 
     def passthrough_rgb48(self, frame_bgr: np.ndarray) -> np.ndarray:
-        return self._passthrough(self._to_device(frame_bgr)).cpu().numpy()
+        return self._to_host(self._passthrough(self._to_device(frame_bgr)))
 
     def passthrough_rgb48_device(self, frame_u8_dev: torch.Tensor) -> torch.Tensor:
         return self._passthrough(frame_u8_dev)
@@ -499,9 +554,6 @@ class HDRTVNetTorch:
     # ------------------------------------------------------------------
     # The stage API (eager)
     # ------------------------------------------------------------------
-
-    def _to_device(self, frame_bgr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(frame_bgr)).to(self.device)
 
     def preprocess(self, frame_bgr: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
         """BGR u8 (H, W, 3) → ([0, 1] RGB (1, H, W, 3), its ¼-res condition),
@@ -516,12 +568,12 @@ class HDRTVNetTorch:
 
     def postprocess(self, output: torch.Tensor) -> np.ndarray:
         with torch.inference_mode():
-            return self._post(output).cpu().numpy()
+            return self._to_host(self._post(output))
 
     def process(self, frame_bgr: np.ndarray) -> np.ndarray:
         """Full frame → BGR uint8 (the SDR-range preview path)."""
         with torch.inference_mode(), self.policy.math():
-            return self._post(self._net(*self._pre(self._to_device(frame_bgr)))).cpu().numpy()
+            return self._to_host(self._post(self._net(*self._pre(self._to_device(frame_bgr)))))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -574,11 +626,13 @@ class HDRTVNetTorch:
 
     def with_proc_resolution(self, proc_resolution: tuple[int, int] | None) -> "HDRTVNetTorch":
         """Shallow clone with another processing resolution: the parameters
-        are shared, the graph cache is its own."""
+        and the copy streams are shared, the graph cache and the pinned host
+        buffers are its own."""
         clone = copy.copy(self)
         clone.proc_resolution = tuple(proc_resolution) if proc_resolution else None
         clone.graphs = engine.GraphCache()
         clone._timings = {}
+        clone._new_host_buffers()
         return clone
 
     def end_profiling(self):  # the reference API's

@@ -33,3 +33,33 @@ def test_chip_smoke_refuses(tmp_path, case, rc, says):
     assert res.returncode == rc, (res.returncode, res.stderr[-2000:])
     assert says in res.stderr
     assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout
+
+
+def test_stream_overlap_reads_a_trace(tmp_path):
+    """Phase 9's reading of a torch.profiler Chrome trace: the busy share is
+    the union of the card's intervals over their span; the replays' stream
+    is the one with the most kernel time; a copy's overlap is the share of
+    its time under a kernel of another stream."""
+    import importlib.util
+    import json
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_tables", SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def ev(cat, name, ts, dur, stream):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "args": {"stream": stream}}
+
+    trace = {"traceEvents": [
+        ev("kernel", "k0", 0, 40, 7), ev("kernel", "k1", 50, 40, 7), ev("kernel", "side", 95, 1, 20),
+        ev("gpu_memcpy", "Memcpy HtoD (Pinned -> Device)", 30, 20, 13),   # 10 of 20 under k0
+        ev("gpu_memcpy", "Memcpy DtoH (Device -> Pinned)", 85, 10, 14),   # 5 of 10 under k1
+        ev("gpu_memcpy", "Memcpy DtoD (Device -> Device)", 100, 10, 7),
+        ev("cpu_op", "aten::copy_", 0, 500, 1),
+    ]}
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps(trace))
+    got = mod.stream_overlap(str(path))
+    assert got["replay_stream"] == 7 and got["busy"] == round(106 / 110, 4) and got["kernel_ms"] == 0.081
+    assert got["HtoD"] == {"n": 1, "ms": 0.02, "streams": ["13"], "overlapped": 0.5, "off_replay_stream": True}
+    assert got["DtoH"]["overlapped"] == 0.5 and got["DtoH"]["off_replay_stream"]

@@ -2037,3 +2037,163 @@ def test_graph_keeps_the_matrices_it_reads(dev, monkeypatch, tmp_path):
     assert torch.equal(first, eager) and torch.equal(again, eager)
     del junk
     proc.graphs.clear()
+
+
+# ---------------------------------------------------------------------------
+# The pipeline on the card: pinned host rings and copy streams
+# ---------------------------------------------------------------------------
+
+
+def _pipeline_proc(monkeypatch, **kw):
+    import os
+
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    for var in ("HDRTV_MEGAKERNEL", "HDRTV_HG_TAIL", "HDRTV_INT8_DOWN2", "HDRTV_PAIRS_BOUNDARY"):
+        monkeypatch.delenv(var, raising=False)
+    weights = os.path.join(os.path.dirname(__file__), "..", "weights", "hr_fp32.npz")
+    return HDRTVNetTorch(weights, persistent_cache=False, **kw)
+
+
+class _KeepingSink:
+    """Keeps a copy of every frame with its stamp, slowly."""
+
+    def __init__(self, delay=0.0):
+        self.delay = delay
+        self.got = []
+
+    def show(self, rgb48, pts=None):
+        import time
+
+        if self.delay:
+            time.sleep(self.delay)
+        self.got.append((pts, rgb48.copy()))
+
+    def close(self):
+        pass
+
+
+def test_pipeline_slow_sink_full_ring_matches_per_frame(dev, monkeypatch):
+    """A sink slower than the card keeps the ring full: every frame it gets
+    (through the pinned out-slots and the D2H stream) equals the frame
+    program's output for that source frame, bit for bit."""
+    from hdrtv_tpu_torch.pipeline.runner import PipelineRunner
+    from hdrtv_tpu_torch.pipeline.source import SyntheticSource
+
+    proc = _pipeline_proc(monkeypatch)
+    h, w, n = 360, 640, 16
+    sink = _KeepingSink(delay=0.01)
+    m = PipelineRunner(SyntheticSource(w, h, fps=30, frames=n), proc, sink, realtime=False, ring=3).run()
+    assert m.frames == n and len(sink.got) == n and len(proc.graphs) == 1
+    src = SyntheticSource(w, h, fps=30, frames=n)
+    for pts, got in sink.got:
+        frame, idx, _ = src.read_with_meta()
+        assert abs(pts - idx / 30) < 1e-9
+        assert np.array_equal(got.reshape(h, w, 3), proc.process_rgb48(frame)), idx
+
+
+def test_pipeline_process_rgb48_result_is_the_callers(dev, monkeypatch):
+    """process_rgb48 returns the caller's own array: the next call (which
+    reuses the pinned readback slot) leaves it as it was."""
+    proc = _pipeline_proc(monkeypatch)
+    a = proc.process_rgb48(_smooth(360, 640, 1))
+    kept = a.copy()
+    b = proc.process_rgb48(_smooth(360, 640, 2))
+    slot = next(iter(proc._readback.values()))
+    assert slot.pinned and slot.tensor.is_pinned()
+    assert np.array_equal(a, kept) and not np.array_equal(a, b)
+    assert not np.shares_memory(a, b) and not np.shares_memory(a, slot.tensor.numpy())
+    x = proc.put_frame(_smooth(360, 640, 3).reshape(360, -1))
+    assert all(s.tensor is None or s.tensor.is_pinned() for slots in proc._staging.values() for s in slots)
+    assert x.device.type == "cuda"
+
+
+def test_pipeline_cross_stream_lifetimes(dev, monkeypatch):
+    """Blocks one stream reads while another stream allocates: with the
+    reading stream held back (torch.cuda._sleep), the tensors the other
+    stream frees are not handed out again until the read is done. The
+    output read by the D2H stream, and the input read by the compute stream
+    after its H2D copy, survive being freed and memory of their sizes being
+    filled on the other stream at once (no empty_cache here: its cudaFree
+    waits for the device and would hide the race)."""
+    from hdrtv_tpu_torch.runtime import transfer
+
+    proc = _pipeline_proc(monkeypatch)
+    f1, f2 = _smooth(360, 640, 4), _smooth(360, 640, 5)
+    want1, want2 = proc.process_rgb48(f1), proc.process_rgb48(f2)  # the graph captured
+    slot = transfer.HostSlot(pinned=True)
+    # The output: the D2H stream held back, the output freed, its memory reused.
+    out = proc.process_rgb48_device(proc.put_frame(f1.reshape(360, -1)))
+    with torch.cuda.stream(proc._d2h):
+        torch.cuda._sleep(100_000_000)
+    transfer.copy_out(out, slot, proc._d2h)
+    shape, dtype = out.shape, out.dtype
+    del out
+    junk = [torch.full(shape, 65535, dtype=torch.int32, device="cuda").to(dtype) for _ in range(8)]
+    assert np.array_equal(proc._hw3(slot.array()), want1)
+    # The input: the compute stream held back, the input freed, its memory reused on the H2D stream.
+    torch.cuda._sleep(100_000_000)
+    x = proc.put_frame(f2.reshape(360, -1))
+    out2 = proc.process_rgb48_device(x)
+    xshape = x.shape
+    del x
+    with torch.cuda.stream(proc._h2d):
+        junk += [torch.full(xshape, 255, dtype=torch.uint8, device="cuda") for _ in range(8)]
+    assert np.array_equal(proc._hw3(proc._to_host(out2)), want2)
+    del junk
+
+
+def test_pipeline_hot_swap_mid_run(dev, monkeypatch):
+    """Resolution hot-swaps with the ring full (640 × 360 → 320 × 180, the
+    natural program, → 640 × 360): no capture error, three graphs, and
+    every frame after a swap equals its processor's per-frame output."""
+    import time
+
+    from hdrtv_tpu_torch.pipeline.runner import PipelineRunner
+    from hdrtv_tpu_torch.pipeline.source import SyntheticSource
+
+    base = _pipeline_proc(monkeypatch)
+    made = {}
+
+    def factory(precision=None, proc_resolution=None):
+        made[proc_resolution] = p = base.with_proc_resolution(proc_resolution)
+        return p
+
+    h, w = 360, 640
+    sink = _KeepingSink(delay=0.004)
+    r = PipelineRunner(SyntheticSource(w, h, fps=30, frames=100000), factory(proc_resolution=(640, 360)), sink,
+                       realtime=False, ring=3, processor_factory=factory)
+    import threading
+
+    t = threading.Thread(target=r.run, daemon=True)
+    t.start()
+    for res in ((320, 180), (640, 360)):
+        n0 = len(sink.got)
+        deadline = time.monotonic() + 60
+        while len(sink.got) < n0 + 20 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        r.request_resolution_change(res)
+    deadline = time.monotonic() + 60
+    while len(sink.got) < 80 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    r.stop()
+    t.join(timeout=60)
+    assert not t.is_alive() and r.flushed >= 0
+    sizes = {}
+    for pts, got in sink.got:
+        idx = int(round(pts * 30))
+        frame = _synthetic_frame(w, h, idx)
+        res = (640, 360) if got.shape == (360, 3 * 640) else (320, 180)
+        assert got.shape == (res[1], 3 * res[0])
+        want = made[res].process_rgb48(frame)
+        assert np.array_equal(got.reshape(res[1], res[0], 3), want), (idx, res)
+        sizes[res] = sizes.get(res, 0) + 1
+    assert sizes.get((320, 180), 0) >= 5 and sizes.get((640, 360), 0) >= 20
+
+
+def _synthetic_frame(w, h, idx):
+    from hdrtv_tpu_torch.pipeline.source import SyntheticSource
+
+    src = SyntheticSource(w, h, fps=30, frames=idx + 1)
+    src.seek(idx)
+    return src.read_with_meta()[0]
