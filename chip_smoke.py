@@ -219,7 +219,34 @@ lines; any failed check raises and the script exits non-zero with no result:
    fast_zero_condition, within RUNTIME_BF16_CODES; and the same card
    frames against planted faults on the CPU (the letterbox one row down;
    each shortcut ignored), each of which must break that bound. One JSON
-   line of these numbers comes before the card's line.
+   line of these numbers comes before the card's line;
+9. the playback and export pipeline (pipeline/runner.py, pipeline/export.py,
+   the CLI) on pinned host rings and copy streams (phase_pipeline's
+   docstring);
+10. checkpoints, model variants and metrics: the shipped weights written
+   back to the torch layout as a reference .pt, loaded into HDRTVNetTorch
+   in bf16 and fp32, its 1080p process_rgb48_device frames bit-equal to
+   the .npz processor's, with the same fingerprint (load times printed);
+   an HR .pt with a synthetic hg_nf = 64 generator's own .pt as hg_path,
+   its BatchNorms unfolded (folded at load), bit-equal at 1080p HG bf16 to
+   the processor of the .npz folded the same way; an FP8 source container
+   (every 3×3 and 1×1 conv but LE.conv_last named in weight_qparams), its
+   emulated layers counted, card against CPU at VARIANT_SIZE within phase
+   3's bf16 bound and apart from the fp32 weights' frame; the goldens of
+   tests/test_model_variants.py on the card in fp32, TF32 off, within
+   GOLDEN_ATOL; every variant of tools/synth_variants.py (five AGCM modes,
+   ten LE archs, the lowrank AGCM, the direct HG over the release base, six
+   post-correction heads; the fixtures' nf = 16) as a .pt: turbo off, card
+   against CPU at VARIANT_SIZE in fp32 (4 codes) and bf16
+   (NAT_BF16_CODES, or VARIANT_BF16_CODES), the direct HG's threshold
+   pixels counted apart as in phase 3; at 1080p bf16 one eager frame
+   launching pack_rgb48 once and nothing else (counts set to 0 before, read
+   after), VARIANT_FRAMES eager frames and as many replays of
+   process_rgb48_device's graph, ms/frame, replays equal to the eager
+   bytes; then full_reference_metrics on the card on the 1080p bf16-default
+   / fp32 pair against the port on the CPU within METRIC_TOL, ms per pair,
+   and the metrics golden on the card within tests/test_ops.py's
+   tolerances. A JSON line of these figures comes before the card's line.
 
 The line before the last is the per-kernel JSON summary, one entry per
 kernel and element type, with the path whose launches it reports and its
@@ -1937,8 +1964,9 @@ def rounded(readings: list) -> list:
 
 
 def breaks(reading, bound) -> bool:
-    """Whether a [max, mean] reading breaks a (max, mean) bound."""
-    return reading[0] > bound[0] or reading[1] > bound[1]
+    """Whether a [max, mean] reading breaks a (max, mean) bound (a mean of
+    None bounds the max alone)."""
+    return reading[0] > bound[0] or (bound[1] is not None and reading[1] > bound[1])
 
 
 def runtime_faults(np, torch, frame, kw: dict, plain_rgb48) -> dict:
@@ -2473,6 +2501,314 @@ def phase_pipeline(torch, np, native, smi: str, tmp: str) -> dict:
     return counts, figures
 
 
+# Phase 10: checkpoints, model variants and metrics. The model variants run the natural
+# program (turbo off by the JAX runtime's rule) at the fixtures' own width (nf = 16;
+# tools/synth_variants.py), card against CPU at VARIANT_SIZE within phase 3's natural
+# bounds (fp32 4 codes, bf16 NAT_BF16_CODES) unless VARIANT_BF16_CODES names a wider one
+# (twice the largest reading, said there), and at 1080p bf16 through process_rgb48_device:
+# VARIANT_FRAMES eager frames and as many replays, the replays equal to the eager bytes.
+# The goldens of tests/test_model_variants.py hold on the card in fp32 at their tolerances
+# (GOLDEN_ATOL). An FP8 source container's frame, card against CPU at VARIANT_SIZE, within
+# phase 3's bf16 bound. full_reference_metrics on the card against the port on the CPU on
+# the 1080p bf16-default / fp32 pair within METRIC_TOL (PSNR and SSIM absolute, ΔEITP
+# relative), and the metrics golden within tests/test_ops.py's tolerances.
+DEVICE = "cuda"  # where phase 10 puts the tensors it makes itself
+FULL_SIZE = (1080, 1920)
+VARIANT_SIZE = (360, 640)
+VARIANT_FRAMES = 3
+# The direct HG composite in bf16 needs a wider bound than phase 3's natural one: twice
+# the 768 / 87.947 read on the card (max over channels, off the mask's threshold; its
+# seeded low-resolution trunk of eight 3×3 convs moves a flipped bf16 rounding of the
+# base further than the base alone does). NVIDIA H100 80GB HBM3, 700.00 W.
+VARIANT_BF16_CODES = {"hg_direct": (1536, 175.9)}
+FP8_E2E_CODES = (1536, 34.0)
+VARIANT_RAW_ATOL = 1e-4  # fp32, times max(1, max |y|): phase 2's fp32 tolerance
+GOLDEN_ATOL = {"agcm": 2e-5, "le": 1e-4, "lowrank4": 2e-4, "hg_direct": 2e-5}
+METRIC_TOL = {"psnr": 1e-3, "psnr_gn": 1e-3, "ssim": 1e-5, "delta_e_itp": 1e-3, "delta_e_itp_gn": 1e-3}
+
+
+def phase_checkpoints(torch, np, native, smi: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 10 (a)-(c): the shipped weights as a reference .pt against the .npz at 1080p
+    (bf16 default and fp32, process_rgb48_device, bit for bit, equal fingerprints, load
+    times); an HR .pt with a synthetic hg_nf = 64 generator's own .pt as hg_path (its
+    BatchNorms unfolded, folded at load) against the .npz folded the same way (HG bf16,
+    bit for bit); an FP8 source container, card against CPU. Returns the figures and the
+    two 1080p frames of (a) for the metrics."""
+    from hdrtv_tpu_torch.models.import_npz import convert_state, load_npz, load_npz_meta, npz_arch_dict, save_npz
+    from hdrtv_tpu_torch.models.import_torch import HG_BN_BLOCKS, fold_hg_batchnorm, load_checkpoint
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+    from hdrtv_tpu_torch.tools.synth_hg import synth_hg_params
+    from hdrtv_tpu_torch.tools.synth_variants import to_torch_layout, write_pt
+
+    set_path_env({"mega": "1"})
+    figures, frames = {"card": smi}, {}
+    arch = dict(npz_arch_dict(load_npz_meta(WEIGHTS)))
+    state = to_torch_layout(load_npz(WEIGHTS))
+    hr_pt = write_pt(os.path.join(tmp, "HR.pt"), state, arch)
+    h, w = FULL_SIZE
+    flat = smooth_frame(np, h, w, 1080).reshape(h, 3 * w)
+
+    def load(path, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proc = HDRTVNetTorch(path, persistent_cache=False, **kw)
+        torch.cuda.synchronize()
+        return proc, time.perf_counter() - t0
+
+    def same_frame(a, b, label):
+        ya = a.process_rgb48_device(a.put_frame(flat))
+        yb = b.process_rgb48_device(b.put_frame(flat))
+        torch.cuda.synchronize()
+        if a.model_hash != b.model_hash or not torch.equal(ya, yb):
+            raise AssertionError(f"{label}: fingerprints {a.model_hash} / {b.model_hash}, frames equal "
+                                 f"{torch.equal(ya, yb)}")
+        a.graphs.clear()
+        b.graphs.clear()
+        return ya
+
+    for precision in ("fp16", "fp32"):
+        log(f"phase 10: the shipped weights as a .pt, against the .npz (1080p {precision})")
+        pt, pt_s = load(hr_pt, precision=precision)
+        nz, nz_s = load(WEIGHTS, precision=precision)
+        if not pt.turbo or repr(pt.cfg) != repr(nz.cfg):
+            raise AssertionError(f".pt {precision}: turbo {pt.turbo}, config {pt.cfg} against {nz.cfg}")
+        frames[precision] = same_frame(pt, nz, f".pt {precision}").reshape(h, w, 3)
+        figures[f"pt_{precision}"] = {"load_s": round(pt_s, 3), "npz_load_s": round(nz_s, 3), "equal": True}
+        log(f".pt {precision}: load {pt_s:.2f} s (.npz {nz_s:.2f} s), fingerprint {pt.model_hash[:12]}, "
+            f"1080p frame bit-equal to the .npz processor's; {smi}")
+        del pt, nz
+
+    log("phase 10: HR .pt + hg_path (synthetic hg_nf 64, BatchNorms folded at load) against the folded .npz "
+        "(1080p HG bf16)")
+    hg = synth_hg_params(nf=64, seed=0)
+    hg_state = to_torch_layout({k[len("hg."):]: v for k, v in hg.items() if k.startswith("hg.")})
+    n_bn = sum(f"{b}.1.running_mean" in hg_state for b in HG_BN_BLOCKS)
+    hg_pt = write_pt(os.path.join(tmp, "HG.pt"), hg_state)
+    folded = os.path.join(tmp, "hg64_folded.npz")
+    save_npz(folded, {**{k: v for k, v in hg.items() if k.startswith("base.")},
+                      **convert_state(fold_hg_batchnorm({f"hg.{k}": v for k, v in hg_state.items()}))},
+             {"architecture": {**arch, "use_hg": True, "hg_nf": 64}})
+    pt, pt_s = load(hr_pt, hg_path=hg_pt, use_hg=True)
+    nz, _ = load(folded)
+    if not (pt.cfg.use_hg and pt.turbo and n_bn == len(HG_BN_BLOCKS)) or any(".1.running_" in k for k in pt.params):
+        raise AssertionError(f"hg_path: use_hg {pt.cfg.use_hg}, turbo {pt.turbo}, {n_bn} BatchNorms in the file")
+    same_frame(pt, nz, "hg_path")
+    figures["pt_hg_path_bf16"] = {"load_s": round(pt_s, 3), "bn_folded": n_bn, "equal": True}
+    log(f"hg_path: load {pt_s:.2f} s, {n_bn} BatchNorms folded, 1080p HG frame bit-equal to the folded .npz's")
+    del pt, nz
+
+    h, w = VARIANT_SIZE
+    log(f"phase 10: FP8 source container, card against CPU ({h}x{w} bf16 default)")
+    layers = [k[: -len(".weight")] for k, v in state.items()
+              if k.endswith(".weight") and v.ndim == 4 and k != "LE.conv_last.weight"]
+    fp8_pt = write_pt(os.path.join(tmp, "HR_fp8.pt"), state, arch, fp8_source_schema="hdrtv-fp8-source",
+                      fp8_source_note="fp32 sources; FP8 Q/DQ at build",
+                      weight_qparams={n: {"amax": torch.tensor(float(np.abs(state[f"{n}.weight"]).max()))}
+                                      for n in layers})
+    p8, _ = load_checkpoint(fp8_pt)
+    p32, _ = load_checkpoint(fp8_pt, fp8_emulate=False)
+    emulated = sum(not np.array_equal(p8[k], p32[k]) for k in p8)
+    frame = (np.random.RandomState(360).rand(h, w, 3) * 255).astype(np.uint8)
+    gproc, fp8_s = load(fp8_pt)
+    gpu = eager_rgb48(gproc, frame)
+    cpu = HDRTVNetTorch(fp8_pt, device="cpu").process_rgb48(frame)
+    plain = eager_rgb48(HDRTVNetTorch(hr_pt, persistent_cache=False), frame)
+    d = codes_apart(np, gpu, cpu)
+    moved = codes_apart(np, gpu, plain)
+    log(f"FP8: {emulated} layers emulated of {len(layers)} named; load {fp8_s:.2f} s; card against CPU max "
+        f"{d[0]} codes, mean {d[1]:.3f} (bound {FP8_E2E_CODES}); against the fp32 weights' frame max {moved[0]}, "
+        f"mean {moved[1]:.3f}")
+    if emulated != len(layers) or breaks(d, FP8_E2E_CODES) or moved[0] == 0:
+        raise AssertionError(f"FP8: {emulated} of {len(layers)} layers emulated, card against CPU {d}, "
+                             f"against the fp32 weights {moved}")
+    figures["fp8_bf16"] = {"emulated_layers": emulated, "load_s": round(fp8_s, 3), "card_vs_cpu_codes": rounded([d])[0],
+                           "vs_fp32_weights_codes": rounded([moved])[0]}
+    del gproc
+    torch.cuda.empty_cache()
+    return figures, frames
+
+
+def phase_variants(torch, np, native, smi: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 10 (d): every model variant. The goldens on the card (fp32, TF32 off); each
+    variant's .pt card against CPU at VARIANT_SIZE in fp32 and bf16; at 1080p bf16 one
+    eager frame with the launch counts set to 0 before and read after (pack_rgb48 once,
+    nothing else), then VARIANT_FRAMES eager frames and VARIANT_FRAMES replays of
+    process_rgb48_device's graph, each replay equal to the eager bytes. Every reading is
+    printed before any bound is enforced; the phase then fails on all that broke one.
+    Returns the figures and the launch counts of the counted frames."""
+    from hdrtv_tpu_torch.models.agcm import agcm_apply
+    from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig, ensemble_agcm_le
+    from hdrtv_tpu_torch.models.hg import hg_direct_apply
+    from hdrtv_tpu_torch.models.import_npz import convert_state
+    from hdrtv_tpu_torch.models.import_torch import remap_condition_state
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+    from hdrtv_tpu_torch.tools.synth_variants import AGCM_VARIANTS, LE_VARIANTS, write_variants
+
+    set_path_env({"mega": "1"})
+    figures, broke = {"card": smi, "goldens": {}}, []
+    dev = torch.device(DEVICE)
+
+    def fixture(name):
+        with np.load(os.path.join(ROOT, "tests", "fixtures", name)) as z:
+            return {k: z[k] for k in z.files}
+
+    def params(fx, prefix, remap=None):
+        raw = {k[len(prefix):]: v for k, v in fx.items() if k.startswith(prefix)}
+        if remap:
+            raw = remap_condition_state(raw, prefix="AGCM.", classifier=remap)
+        return {k: torch.from_numpy(v).to(dev) for k, v in convert_state(raw).items()}
+
+    def golden(label, out, want, atol):
+        err = float(np.abs(out.float().cpu().numpy() - want).max())
+        figures["goldens"][label] = err
+        if err > atol:
+            broke.append(f"golden {label}: {err:.3e} > {atol}")
+
+    log("phase 10: the variants' goldens on the card (fp32, TF32 off)")
+    fx = fixture("agcm_variants.npz")
+    img, cond = torch.from_numpy(fx["img"]).to(dev), torch.from_numpy(fx["cond"]).to(dev)
+    for tag, classifier in AGCM_VARIANTS.items():
+        golden(f"agcm_{tag}", agcm_apply(params(fx, f"{tag}__sd__"), img, cond, prefix="", classifier=classifier),
+               fx[f"{tag}__out"], GOLDEN_ATOL["agcm"])
+    fx = fixture("ensemble_variants.npz")
+    img, cond = torch.from_numpy(fx["img"]).to(dev), torch.from_numpy(fx["cond"]).to(dev)
+    with torch.inference_mode():
+        for tag, le_arch in LE_VARIANTS.items():
+            golden(f"le_{tag}", ensemble_agcm_le(params(fx, f"{tag}__sd__"), img, cond,
+                                                 ModelConfig(le_arch=le_arch, nf=16)),
+                   fx[f"{tag}__out"], GOLDEN_ATOL["le"])
+        golden("lowrank4", ensemble_agcm_le(params(fx, "lowrank4__sd__", remap="lowrank_4"), img, cond,
+                                            ModelConfig(classifier="agcm_lowrank4", nf=16)),
+               fx["lowrank4__out"], GOLDEN_ATOL["lowrank4"])
+    fx = fixture("hg_direct.npz")
+    golden("hg_direct", hg_direct_apply(params(fx, "sd__"), torch.from_numpy(fx["img"]).to(dev),
+                                        torch.from_numpy(fx["mask"]).to(dev), prefix="", bottleneck_scale=4,
+                                        trunk_depth=2), fx["out"], GOLDEN_ATOL["hg_direct"])
+    log("goldens, max |card - golden|: " + ", ".join(f"{k} {v:.2e}" for k, v in figures["goldens"].items()))
+
+    paths = write_variants(os.path.join(tmp, "variants"))
+    h, w = VARIANT_SIZE
+    small = (np.random.RandomState(640).rand(h, w, 3) * 255).astype(np.uint8)
+    hg_small = smooth_frame(np, h, w, 641)
+    fh, fw = FULL_SIZE
+    big = smooth_frame(np, fh, fw, 1081).reshape(fh, 3 * fw)
+    expected = {k: int(k == "pack_rgb48") for k in KERNEL_INFO}
+    counts = {k: 0 for k in KERNEL_INFO}
+    for name, path in paths.items():
+        fig = figures[name] = {}
+        frame = hg_small if name == "hg_direct" else small
+        for precision in ("fp32", "fp16"):
+            gproc = HDRTVNetTorch(path, precision=precision, persistent_cache=False)
+            cproc = HDRTVNetTorch(path, precision=precision, device="cpu")
+            if gproc.turbo or not gproc.natural(h, w):
+                broke.append(f"{name}: turbo {gproc.turbo}")
+            gpu, cpu = eager_rgb48(gproc, frame), cproc.process_rgb48(frame)
+            diff = np.abs(gpu.astype(np.int64) - cpu.astype(np.int64)).max(axis=-1)
+            if name != "hg_direct":  # the model's output before the clip and pack
+                with torch.inference_mode():
+                    yg = gproc.infer(gproc.preprocess(frame)).float().cpu().numpy()
+                    yc = cproc.infer(cproc.preprocess(frame)).float().numpy()
+                raw = float(np.abs(yg - yc).max())
+                scale = max(1.0, float(np.abs(yc).max()))
+                fig[f"raw_card_vs_cpu_{precision}"] = [raw, round(scale, 3)]
+                if precision == "fp32" and raw > VARIANT_RAW_ATOL * scale:
+                    broke.append(f"{name} fp32: the model's output {raw:.3e} apart > {VARIANT_RAW_ATOL} x {scale:.3f}")
+            else:  # the mask's threshold pixels counted apart, as in phase 3 (the base in the natural program)
+                base = HDRTVNetTorch(path, precision=precision, device="cpu", use_hg=False,
+                                     turbo=False).process_rgb48(frame)
+                m = base.astype(np.float32).max(axis=-1) / 65535.0
+                near = np.abs(m - 0.775) <= (2e-4 if precision == "fp32" else 0.02)
+                changed = float((np.abs(gpu.astype(np.int64) - base) > HG_CHANGED_CODES).any(axis=-1).mean())
+                fig["hg_near_share"], fig["hg_changed_share"] = float(near.mean()), changed
+                if near.mean() > HG_NEAR_SHARE or changed < 0.05:
+                    broke.append(f"{name} {precision}: near {float(near.mean()):.3f}, changed {changed:.3f}")
+                diff = diff[~near]
+            full = np.abs(gpu.astype(np.int64) - cpu.astype(np.int64))
+            reading = [int(diff.max()), float(full.mean() if name != "hg_direct" else diff.mean())]
+            fig[f"card_vs_cpu_{precision}"] = rounded([reading])[0]
+            fig[f"unclipped_{precision}"] = round(float(((gpu > 0) & (gpu < 65535)).mean()), 4)
+            bound = (4, None) if precision == "fp32" else VARIANT_BF16_CODES.get(name, NAT_BF16_CODES)
+            if breaks(reading, bound):
+                broke.append(f"{name} {precision}: card against CPU {rounded([reading])[0]} beyond {bound}")
+            del gproc, cproc
+        proc = HDRTVNetTorch(path, persistent_cache=False)
+        x = proc.put_frame(big)
+        eager = proc._rgb48_eager(x)  # warm
+        torch.cuda.synchronize()
+        native.reset_launch_counts()
+        eager = proc._rgb48_eager(x)
+        torch.cuda.synchronize()
+        got = read_counts(native)
+        counts = {k: counts[k] + got[k] for k in KERNEL_INFO}
+        if got != expected or not proc.natural(fh, fw):
+            broke.append(f"{name}: one 1080p frame launched { {k: v for k, v in got.items() if v} }")
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(VARIANT_FRAMES):
+                out = fn(x)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / VARIANT_FRAMES, out
+
+        eager_ms, _ = timed(proc._rgb48_eager)
+        first = proc.process_rgb48_device(x)
+        replay_ms, replay = timed(proc.process_rgb48_device)
+        equal = torch.equal(first, eager) and torch.equal(replay, eager)
+        if not equal:
+            broke.append(f"{name}: a 1080p replay differs from the eager frame")
+        o = eager.to(torch.int32)
+        fig.update({"eager_ms": round(eager_ms, 3), "replay_ms": round(replay_ms, 3), "replay_equal": equal,
+                    "range": [int(o.min()), int(o.max())]})
+        raw = "" if name == "hg_direct" else (f"; the model's output before the clip max |card - cpu| fp32 "
+                                               f"{fig['raw_card_vs_cpu_fp32'][0]:.2e}, bf16 "
+                                               f"{fig['raw_card_vs_cpu_fp16'][0]:.2e} (max |y| "
+                                               f"{fig['raw_card_vs_cpu_fp32'][1]})")
+        log(f"{name}: card against CPU {h}x{w} fp32 {fig['card_vs_cpu_fp32']}, bf16 {fig['card_vs_cpu_fp16']} "
+            f"(max, mean codes; unclipped {fig['unclipped_fp32']}){raw}; 1080p bf16 eager {eager_ms:.3f} / replay "
+            f"{replay_ms:.3f} ms/frame over {VARIANT_FRAMES} frames each, replays equal to eager: {equal}; "
+            f"launches of one frame { {k: v for k, v in got.items() if v} }")
+        proc.graphs.clear()
+        del proc, x, eager, first, replay, o
+        torch.cuda.empty_cache()
+    if broke:
+        raise AssertionError("phase 10 variants: " + "; ".join(broke))
+    return figures, counts
+
+
+def phase_metrics(torch, np, frames: dict) -> dict:
+    """Phase 10 (e): full_reference_metrics on the card on the 1080p pair of phase 10 (a)
+    (the bf16 default frame against the fp32 frame, u16 codes / 65535) against the port on
+    the CPU within METRIC_TOL, ms per pair by CUDA events; the metrics golden on the card
+    within tests/test_ops.py's tolerances."""
+    from hdrtv_tpu_torch.ops.metrics import delta_e_itp_unit, full_reference_metrics, psnr, ssim
+
+    log("phase 10: full_reference_metrics on the card, 1080p bf16 default against fp32")
+    pred = frames["fp16"].float() / 65535.0
+    ref = frames["fp32"].float() / 65535.0
+    card = {k: float(v) for k, v in full_reference_metrics(pred, ref).items()}
+    cpu = {k: float(v) for k, v in full_reference_metrics(pred.cpu(), ref.cpu()).items()}
+    ms = time_ms(lambda: full_reference_metrics(pred, ref), torch)
+    apart = {k: abs(card[k] - cpu[k]) / (abs(cpu[k]) if k.startswith("delta") else 1.0) for k in card}
+    log(f"metrics card {json.dumps({k: round(v, 6) for k, v in card.items()})}; |card - cpu| (ΔEITP relative) "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in apart.items()})}; {ms:.3f} ms per 1080p pair")
+    bad = [k for k in card if apart[k] > METRIC_TOL[k]]
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "metrics_golden.npz")) as z:
+        fx = {k: z[k] for k in z.files}
+    gp = torch.from_numpy(fx["pred_bgr"][..., ::-1].astype(np.float32) / 65535.0).to(DEVICE)
+    gr = torch.from_numpy(fx["ref_bgr"][..., ::-1].astype(np.float32) / 65535.0).to(DEVICE)
+    g = {"psnr": float(psnr(gp, gr)), "ssim": float(ssim(gp, gr)),
+         "delta_e_itp": float(delta_e_itp_unit(gp, gr, peak_nits=1000.0))}
+    expect = float(fx["delta_e_itp"])
+    gerr = {"psnr": abs(g["psnr"] - float(fx["psnr"])), "ssim": abs(g["ssim"] - float(fx["ssim"])),
+            "delta_e_itp": abs(g["delta_e_itp"] - expect)}
+    log(f"metrics golden on the card: |card - golden| psnr {gerr['psnr']:.2e} (< 1e-3), ssim {gerr['ssim']:.2e} "
+        f"(< 1e-4), delta_e_itp {gerr['delta_e_itp']:.2e} (< {max(5e-3, expect * 1e-3):.2e})")
+    if bad or gerr["psnr"] >= 1e-3 or gerr["ssim"] >= 1e-4 or gerr["delta_e_itp"] >= max(5e-3, expect * 1e-3):
+        raise AssertionError(f"metrics: card against CPU beyond {METRIC_TOL} on {bad}; golden errors {gerr}")
+    return {"card": card, "card_vs_cpu": apart, "ms_per_1080p_pair": round(ms, 3), "golden_err": gerr}
+
+
 def main() -> int:
     import torch
 
@@ -2517,6 +2853,11 @@ def main() -> int:
             counts[PROBE_PATH] = phase_probes(torch, np, native)
             pipe_counts, pipeline = phase_pipeline(torch, np, native, smi, tmp)
             counts.update(pipe_counts)
+            t10 = time.perf_counter()
+            models, frames = phase_checkpoints(torch, np, native, smi, tmp)
+            models["variants"], counts["variants_bf16"] = phase_variants(torch, np, native, smi, tmp)
+            models["metrics"] = phase_metrics(torch, np, frames)
+            models["phase_s"] = round(time.perf_counter() - t10, 1)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2561,6 +2902,7 @@ def main() -> int:
         raise AssertionError(f"{len(kernels)} kernel entries, expected 33: {[k['name'] for k in kernels]}")
     log(json.dumps({"graphs": graphs, "runtime": runtime}))
     log(json.dumps({"pipeline": pipeline}))
+    log(json.dumps({"models": models}))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

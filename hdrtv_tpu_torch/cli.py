@@ -6,8 +6,11 @@
 The parser accepts every command line the JAX package's does. These
 subcommands run: ``convert`` (play/convert a video or a synthetic source to
 a sink, ``pipeline/runner.py``), ``export`` (HDR10 export,
-``pipeline/export.py``), ``presets``, ``assets``, ``engines`` and
-``build-engines``. The others, and the options of ``convert`` whose modules
+``pipeline/export.py``), ``presets``, ``assets``, ``engines``,
+``build-engines``, ``info`` (checkpoint inspection) and ``split-sources``
+(a composite checkpoint split into HR and HG files). ``--model`` takes a
+converted ``.npz`` or a reference ``.pt``, ``--hg-weights`` the HG
+generator's own ``.pt`` beside an HR one. The others, and the options of ``convert`` whose modules
 are not ported yet, raise ``NotImplementedError`` naming the ROADMAP.md Queue
 1 item that owns those modules.
 
@@ -29,7 +32,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # What the subcommands and options that do not run yet wait for: the
 # ROADMAP.md Queue 1 item that owns their modules.
-ITEM_1 = "Slice 8 (host, runtime and tooling modules: Queue 1 item 1)"
 ITEM_11 = "Queue 1 item 11"
 ITEM_12 = "Queue 1 item 12"
 ITEM_13 = "Slice 8 (parallel: Queue 1 item 13)"
@@ -390,6 +392,35 @@ def cmd_export(args) -> int:
     return 0
 
 
+def cmd_split_sources(args) -> int:
+    """Split a composite HR + HG checkpoint into HR and HG source files."""
+    from hdrtv_tpu_torch.models.import_torch import split_source_checkpoint
+
+    hr_keys, hg_keys = split_source_checkpoint(args.model, args.out_hr, args.out_hg)
+    print(f"HR: {len(hr_keys)} tensors → {args.out_hr}")
+    print(f"HG: {len(hg_keys)} tensors → {args.out_hg}")
+    return 0
+
+
+def cmd_info(args) -> int:
+    """A checkpoint's tensor and parameter counts, its layers' quantization
+    mix, and (for a ``.pt``) its configuration, as JSON."""
+    from hdrtv_tpu_torch.models.import_npz import load_npz
+    from hdrtv_tpu_torch.models.import_torch import load_checkpoint
+    from hdrtv_tpu_torch.quant.int8 import quantized_layer_summary
+
+    if args.model.endswith(".npz"):
+        params, cfg = load_npz(args.model), None
+    else:
+        params, cfg = load_checkpoint(args.model, use_hg=args.use_hg)
+    counts: dict[str, int] = {}
+    for v in quantized_layer_summary(params).values():
+        counts[v] = counts.get(v, 0) + 1
+    n_params = sum(int(np.prod(v.shape)) for v in params.values())
+    print(json.dumps({"tensors": len(params), "params": n_params, "layer_mix": counts, "config": str(cfg)}, indent=2))
+    return 0
+
+
 # Subcommands whose modules are not ported yet, with what they need.
 NOT_PORTED = {
     "live": ("live capture (pipeline/live.py, capture.py)", ITEM_11),
@@ -407,8 +438,6 @@ NOT_PORTED = {
     "qat": ("QAT fine-tuning (quant/qat.py, train.py)", ITEM_12),
     "mine-hard-frames": ("QAT frame mining (data/curate.py)", ITEM_12),
     "teacher-pairs": ("QAT teacher pairs (data/curate.py)", ITEM_12),
-    "info": ("checkpoint inspection (models/import_torch.py)", ITEM_1),
-    "split-sources": ("checkpoint splitting (models/import_torch.py)", ITEM_1),
 }
 
 
@@ -522,6 +551,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--model", required=True, help="composite checkpoint (base.*/hg.* keys)")
     sp.add_argument("--out-hr", required=True)
     sp.add_argument("--out-hg", required=True)
+    sp.set_defaults(fn=cmd_split_sources)
 
     aa = sub.add_parser("assets", help="required weight files: presence + validation report")
     aa.add_argument("--require", action="store_true",
@@ -640,6 +670,7 @@ def build_parser() -> argparse.ArgumentParser:
     i = sub.add_parser("info", help="checkpoint inspection")
     i.add_argument("--model", required=True)
     i.add_argument("--use-hg", action="store_true")
+    i.set_defaults(fn=cmd_info)
 
     x = sub.add_parser("export", help="HDR10 video export")
     _add_model_args(x)

@@ -83,9 +83,8 @@ for label, name in [
 # FP8 presets: the reference ships 12 FP8 source checkpoints carrying FP32
 # tensors + the matching INT8 composition; ModelOpt emits FP8 Q/DQ at engine
 # build (gui_config.py:94-160, fp8_source_note). The JAX importer reproduces
-# the FP8 numerics at load (float8_e4m3 weight roundtrip) and computes in bf16;
-# the port reads those .pt checkpoints once the .pt import is ported (ROADMAP.md
-# Queue 1 item 1).
+# the FP8 numerics at load (float8_e4m3 weight roundtrip) and computes in bf16,
+# and so does the port (models/import_torch.py, torch.float8_e4m3fn).
 for label, name in [
     ("FP8 Mixed (PTQ)", "mixed_ptq"),
     ("FP8 Mixed (QAT)", "mixed_qat"),

@@ -1,23 +1,36 @@
 """HDRTVNet++ top level (port of ``hdrtv_tpu/models/hdrtvnet.py``):
-``ModelConfig``, the highlight mask, and the natural-layout forwards
-``ensemble_agcm_le`` (AGCM → LE), ``hg_composite`` (base ensemble → mask →
-/32 reflect pad → HG generator → crop) and ``model_apply``, the program the
-runtime runs on frames the s2d programs do not take. The s2d forwards live in
-``models/s2d.py`` and ``models/hg_s2d.py``. The post-correction heads are
-not ported (ROADMAP.md Queue 1 item 9).
+``ModelConfig``, the post-correction heads, the highlight mask, and the
+natural-layout forwards ``ensemble_agcm_le`` (AGCM → LE → optional
+post-correction), ``hg_composite`` (base ensemble → mask → /32 reflect pad →
+HG generator → crop) and ``model_apply``, the program the runtime runs on
+frames the s2d programs do not take, and on every frame of a model variant.
+The s2d forwards live in ``models/s2d.py`` and ``models/hg_s2d.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 
 import numpy as np
 import torch
 
-from hdrtv_tpu_torch.models.agcm import agcm_apply, normalize_classifier_name
+from hdrtv_tpu_torch.models.agcm import agcm_apply, color_matrix_apply, normalize_classifier_name
 from hdrtv_tpu_torch.models.hg import hg_apply
-from hdrtv_tpu_torch.models.layers import F32, Params, Policy, pad_reflect
+from hdrtv_tpu_torch.models.layers import (
+    F32,
+    Params,
+    Policy,
+    avg_pool,
+    bilinear_resize,
+    conv2d,
+    global_avg_pool,
+    pad_reflect,
+    pixel_shuffle,
+    relu,
+    scalar_of,
+)
 from hdrtv_tpu_torch.models.le_unet import le_apply
 
 
@@ -64,15 +77,129 @@ class ModelConfig:
         return cls(**kwargs)
 
 
+# ---------------------------------------------------------------------------
+# Post-correction heads
+# ---------------------------------------------------------------------------
+
+
+def parse_post_correction(spec: str | None):
+    """A post-correction name → None (off), ("global", 1, width, depth),
+    ("spatial" | "residual" | "affine", scale, width, depth), or
+    ("global_spatial" | "global_residual", global width, global depth,
+    scale, width, depth); an unknown name raises ValueError."""
+    spec = str(spec or "").strip().lower()
+    if not spec or spec in {"none", "off", "0", "false"}:
+        return None
+    canonical = spec.replace("-", "").replace("_", "")
+    m = re.fullmatch(
+        r"(?:post)?global(?:color)?(?:correct|correction|corr)?wide([0-9]+)x([0-9]+)"
+        r"(?:post)?(?:color)?(?:correct|correction|corr)h(4|8|16)wide([0-9]+)x([0-9]+)",
+        canonical,
+    )
+    if m:
+        return ("global_spatial", int(m.group(1)), int(m.group(2)), int(m.group(3)), int(m.group(4)), int(m.group(5)))
+    m = re.fullmatch(
+        r"(?:post)?global(?:color)?(?:correct|correction|corr)?wide([0-9]+)x([0-9]+)"
+        r"(?:post)?res(?:idual)?h(2|4|8|16)wide([0-9]+)x([0-9]+)",
+        canonical,
+    )
+    if m:
+        return ("global_residual", int(m.group(1)), int(m.group(2)), int(m.group(3)), int(m.group(4)), int(m.group(5)))
+    m = re.fullmatch(r"(?:post)?res(?:idual)?h(2|4|8|16)wide([0-9]+)x([0-9]+)", canonical)
+    if m:
+        return ("residual", int(m.group(1)), int(m.group(2)), int(m.group(3)))
+    m = re.fullmatch(r"(?:post)?global(?:color)?(?:correct|correction|corr)?wide([0-9]+)x([0-9]+)", canonical)
+    if m:
+        return ("global", 1, int(m.group(1)), int(m.group(2)))
+    m = re.fullmatch(r"(?:post)?affineh(4|8|16)wide([0-9]+)x([0-9]+)", canonical)
+    if m:
+        return ("affine", int(m.group(1)), int(m.group(2)), int(m.group(3)))
+    m = re.fullmatch(r"(?:post)?(?:color)?(?:correct|correction|corr)h(4|8|16)wide([0-9]+)x([0-9]+)", canonical)
+    if not m:
+        raise ValueError(f"Unsupported post_correction '{spec}'")
+    return ("spatial", int(m.group(1)), int(m.group(2)), int(m.group(3)))
+
+
+def _tanh_limit(v: torch.Tensor, limit: float) -> torch.Tensor:
+    return torch.tanh(v) * scalar_of(limit, v.dtype)
+
+
+def _pc_trunk(p: Params, prefix: str, low: torch.Tensor, depth: int, *, policy: Policy) -> torch.Tensor:
+    x = relu(conv2d(p, f"{prefix}trunk.0", low, policy=policy))
+    for i in range(depth):
+        x = relu(conv2d(p, f"{prefix}trunk.{2 * (i + 1)}", x, padding=1, policy=policy))
+    return x
+
+
+def _has_layer(p: Params, name: str) -> bool:
+    return f"{name}.weight" in p or f"{name}.weight_int8" in p
+
+
+def post_correction_apply(p: Params, spec: str, img: torch.Tensor, hdr: torch.Tensor, *,
+                          prefix: str = "post_correction.", policy: Policy = F32) -> torch.Tensor:
+    """A post-correction head on the ensemble's output ``hdr`` given the
+    input frame ``img`` (both NHWC in the compute dtype): the global mode
+    maps ``hdr`` by one 3×3 matrix and shift from the pooled pair; the
+    spatial, affine and residual modes by per-pixel parameters (or a
+    residual) from an avg-pooled trunk; the global_spatial and
+    global_residual modes apply the global head first, then the other one
+    (under ``spatial.`` or ``residual.``). Every parameter passes through
+    tanh times its limit (0.25; 0.20 for the residual)."""
+    cfg = parse_post_correction(spec)
+    if cfg is None:
+        return hdr
+
+    def global_head():
+        params = relu(conv2d(p, f"{prefix}net.1", global_avg_pool(torch.cat((img, hdr), dim=-1)), policy=policy))
+        # net.1 is the first conv, net.3, net.5, … the hidden ones, the last the 12-out conv
+        idx = 3
+        while _has_layer(p, f"{prefix}net.{idx + 2}"):
+            params = relu(conv2d(p, f"{prefix}net.{idx}", params, policy=policy))
+            idx += 2
+        params = _tanh_limit(conv2d(p, f"{prefix}net.{idx}", params, policy=policy), 0.25)
+        return color_matrix_apply(hdr, params[..., :9], params[..., 9:])
+
+    mode = cfg[0]
+    if mode == "global":
+        return global_head()
+    if mode in ("global_spatial", "global_residual"):
+        inner = mode.split("_")[1]
+        return _post_spatial_like(p, f"{prefix}{inner}.", (inner, *cfg[3:]), img, global_head(), policy=policy)
+    return _post_spatial_like(p, prefix, cfg, img, hdr, policy=policy)
+
+
+def _post_spatial_like(p, prefix, cfg, img, hdr, *, policy):
+    """The spatial, affine and residual heads: the (img, hdr) pair
+    avg-pooled by ``scale``, the trunk, the out conv; per-pixel parameters
+    bilinearly upsampled to the frame (the residual pixel-shuffled first)."""
+    mode, scale, _, depth = cfg[0], cfg[1], cfg[2], cfg[3]
+    h, w = hdr.shape[1], hdr.shape[2]
+    x = _pc_trunk(p, prefix, avg_pool(torch.cat((img, hdr), dim=-1), scale), depth, policy=policy)
+    if mode == "residual":
+        delta = _tanh_limit(pixel_shuffle(conv2d(p, f"{prefix}out", x, policy=policy), scale), 0.20)
+        if (delta.shape[1], delta.shape[2]) != (h, w):
+            delta = bilinear_resize(delta, h, w)
+        return hdr + delta
+    params = conv2d(p, f"{prefix}out", x, policy=policy)
+    if (params.shape[1], params.shape[2]) != (h, w):
+        params = bilinear_resize(params, h, w)
+    params = _tanh_limit(params, 0.25)
+    if mode == "affine":
+        return hdr * (1.0 + params[..., :3]) + params[..., 3:]
+    return color_matrix_apply(hdr, params[..., :9], params[..., 9:])
+
+
+# ---------------------------------------------------------------------------
+# Ensemble + composite forwards
+# ---------------------------------------------------------------------------
+
+
 def mask_of_max(m: torch.Tensor, r: float, thresh: float) -> torch.Tensor:
     """The binarised normalised highlight level of a max-over-RGB tensor. The
     scalars are rounded to the tensor's dtype first, as JAX's weakly typed
-    Python floats are (0.1 in bf16 is 0.10009765625)."""
-    def q(v):
-        return float(torch.tensor(v, dtype=m.dtype))
-
-    level = ((m - q(r)) / q(1.0 - r)).clamp(0.0, 1.0)
-    return (level > q(thresh)).to(m.dtype)
+    Python floats are."""
+    level = ((m - scalar_of(r, m.dtype)) / scalar_of(1.0 - r, m.dtype)).clamp(0.0, 1.0)
+    return (level > scalar_of(thresh, m.dtype)).to(m.dtype)
 
 
 def make_mask(img: torch.Tensor, r: float = 0.75, thresh: float = 0.1) -> torch.Tensor:
@@ -84,16 +211,17 @@ def make_mask(img: torch.Tensor, r: float = 0.75, thresh: float = 0.1) -> torch.
 def ensemble_agcm_le(p: Params, img: torch.Tensor, cond: torch.Tensor, cfg: ModelConfig = ModelConfig(), *,
                      prefix: str = "", policy: Policy = F32) -> torch.Tensor:
     """Ensemble_AGCM_LE.forward: AGCM colour-maps the frame, LE refines it
-    with itself as the condition. (N, H, W, 3) [0, 1] RGB and its ¼-res
-    condition image → (N, H, W, 3) in the compute dtype."""
-    if cfg.post_correction:
-        raise NotImplementedError(
-            "the post-correction heads are not ported to hdrtv_tpu_torch yet: ROADMAP.md "
-            "Slice 8 (model variants: Queue 1 item 9)"
-        )
+    with itself as the condition, and a post-correction head (when
+    ``cfg.post_correction`` names one) corrects LE's output given the input
+    frame. (N, H, W, 3) [0, 1] RGB and its ¼-res condition image →
+    (N, H, W, 3) in the compute dtype."""
     cond_out = agcm_apply(p, img, cond, prefix=f"{prefix}AGCM.", classifier=cfg.classifier, policy=policy)
-    return le_apply(p, cond_out, cond_out, prefix=f"{prefix}LE.", le_arch=cfg.le_arch, act_type=cfg.act_type,
-                    weighting_network=cfg.weighting_network, policy=policy)
+    out = le_apply(p, cond_out, cond_out, prefix=f"{prefix}LE.", le_arch=cfg.le_arch, act_type=cfg.act_type,
+                   weighting_network=cfg.weighting_network, policy=policy)
+    if cfg.post_correction:
+        out = post_correction_apply(p, cfg.post_correction, policy.cast(img), out,
+                                    prefix=f"{prefix}post_correction.", policy=policy)
+    return out
 
 
 def hg_composite(p: Params, img: torch.Tensor, cond: torch.Tensor, cfg: ModelConfig = ModelConfig(use_hg=True), *,

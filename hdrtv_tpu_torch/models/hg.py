@@ -7,7 +7,9 @@ pixel-shuffle or resize-conv upsampling; the output is composited as
 ``mask · out + img``. The frame programs run its s2d form
 (``models/hg_s2d.py``), which reuses the blocks here where a checkpoint keeps
 its BatchNorm or the resize-conv layout; the tests hold the two forms
-against each other. The ``direct`` generator family is not ported.
+against each other. The ``direct`` generator family (one avg-pooled
+masked residual island, :func:`hg_direct_apply`) runs in the natural layout
+alone.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from hdrtv_tpu_torch.models.layers import (
     F32,
     Params,
     Policy,
+    align_to,
+    avg_pool,
     conv2d,
     max_pool2,
     pixel_shuffle,
@@ -64,10 +68,7 @@ def hg_apply(
     """Hallucination_Generator.forward on natural NHWC tensors. ``img`` and
     ``mask`` are already padded to a multiple of 32."""
     if hg_arch.startswith("direct"):
-        raise NotImplementedError(
-            "the direct HG generator is not ported to hdrtv_tpu_torch yet: ROADMAP.md "
-            "Slice 8 (model variants: Queue 1 item 9)"
-        )
+        return hg_direct_apply(p, img, mask, prefix=prefix, policy=policy)
     img = policy.cast(img)
     mask = policy.cast(mask)
 
@@ -93,4 +94,23 @@ def hg_apply(
     u = mix("conv9", torch.cat((up("Up_conv4", u), c2), dim=-1))
     u = mix("conv10", torch.cat((up("Up_conv5", u), c1), dim=-1))
     out = mix("conv_last", torch.cat((u, img), dim=-1))
+    return mask * out + img
+
+
+def hg_direct_apply(
+    p: Params, img: torch.Tensor, mask: torch.Tensor, *, prefix: str = "hg.", bottleneck_scale: int = 8,
+    trunk_depth: int = 8, policy: Policy = F32,
+) -> torch.Tensor:
+    """Hallucination_Generator_Direct: (img, mask) avg-pooled by
+    ``bottleneck_scale``, a 1×1 in, ``trunk_depth`` 3×3 convs, a 1×1 out,
+    pixel shuffle back (re-aligned to the frame), composited as
+    ``mask · out + img``."""
+    img = policy.cast(img)
+    mask = policy.cast(mask)
+    low = avg_pool(torch.cat((img, mask), dim=-1), bottleneck_scale)
+    out = relu(conv2d(p, f"{prefix}low_in", low, policy=policy))
+    for i in range(trunk_depth):
+        out = relu(conv2d(p, f"{prefix}trunk.{2 * i}", out, padding=1, policy=policy))
+    out = pixel_shuffle(conv2d(p, f"{prefix}low_out", out, policy=policy), bottleneck_scale)
+    out = align_to(out, img.shape[1], img.shape[2])
     return mask * out + img

@@ -196,6 +196,15 @@ def linear(p: Params, name: str, x: torch.Tensor, *, policy: Policy = F32) -> to
     return y if b is None else y + policy.cast(b)
 
 
+def scalar_of(v: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX's weak typing applies it to a tensor of
+    ``dtype``: rounded to that dtype first (0.1 in bf16 is 0.10009765625).
+    torch applies a Python scalar to a bf16 tensor at fp32 precision."""
+    if dtype == torch.float32:
+        return v
+    return float(torch.tensor(v, dtype=dtype))
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0)
 
@@ -203,9 +212,7 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
     """The slope is rounded to ``x``'s dtype before the multiply, as
     ``jnp.asarray(slope, x.dtype)`` is (0.1 in bf16 is 0.10009765625)."""
-    if x.dtype != torch.float32:
-        slope = float(torch.tensor(slope, dtype=x.dtype))
-    return F.leaky_relu(x, slope)  # where(x >= 0, x, x·slope) in one pass
+    return F.leaky_relu(x, scalar_of(slope, x.dtype))  # where(x >= 0, x, x·slope) in one pass
 
 
 def avg_pool_3s2p1(x: torch.Tensor) -> torch.Tensor:
@@ -327,8 +334,10 @@ def align_to(x: torch.Tensor, ref_h: int, ref_w: int) -> torch.Tensor:
 def bilinear_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """F.interpolate(mode='bilinear', align_corners=False) of an NHWC
     tensor to (h, w), half-pixel centres, computed in fp32 and cast back.
-    No antialiasing: the program only upsamples, where ``jax.image.resize``
-    does not antialias either."""
+    Upsampling only: there ``jax.image.resize``, which antialiases, takes
+    the same samples (a smaller side raises, as no caller shrinks)."""
+    if h < x.shape[1] or w < x.shape[2]:
+        raise ValueError(f"bilinear_resize upsamples only: {tuple(x.shape[1:3])} -> {(h, w)}")
     y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(h, w), mode="bilinear",
                       align_corners=False, antialias=False)
     return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)

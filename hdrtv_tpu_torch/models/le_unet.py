@@ -3,12 +3,15 @@
 
 The architecture parser (``LEArchSpec``, ``parse_le_arch``) is the JAX
 package's, copied whole: it is pure Python and names every member of the
-family. The forward is ported for the release arch ``sft`` (the
-SFT-conditioned three-level UNet, ``_forward_unet`` with SFT residual
-blocks), with ``act_type`` and ``weighting_network`` honoured. The other
-block kinds and forwards (the clean-trunk, flat, plain-bottleneck and direct
-archs) raise, naming ROADMAP.md Queue 1 item 9. The s2d programs run the
-same network as ``models/s2d.py le_s2d`` and the megakernels.
+family. Every forward is ported: the release arch ``sft`` (the
+SFT-conditioned three-level UNet), the UNet over other trunk specs (SFT,
+plain and wide residual blocks, flat conv chains; the ``plainflat`` archs
+without the condition branch, with or without linear skips), the plain
+bottleneck (one low-resolution island in the down/up scaffold) and the
+direct archs (one avg-pooled residual island returned by pixel shuffle, with
+the condition image and a tanh gate in the ``cond`` and ``condgate`` forms),
+each with ``act_type`` and ``weighting_network`` honoured. The s2d programs
+run the release arch as ``models/s2d.py le_s2d`` and the megakernels.
 """
 
 from __future__ import annotations
@@ -18,15 +21,20 @@ import re
 
 import torch
 
-from hdrtv_tpu_torch.models.layers import F32, Params, Policy, align_to, conv2d, leaky_relu, pixel_shuffle, relu
+from hdrtv_tpu_torch.models.layers import (
+    F32,
+    Params,
+    Policy,
+    align_to,
+    avg_pool,
+    conv2d,
+    leaky_relu,
+    pixel_shuffle,
+    relu,
+    scalar_of,
+)
 
 _DEFAULT_TRUNK_DEPTHS = {"recon_trunk1": 1, "recon_trunk2": 1, "recon_trunk3": 4, "recon_trunk4": 1, "recon_trunk5": 1}
-
-
-def _variant(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to hdrtv_tpu_torch yet: ROADMAP.md Slice 8 (model variants: Queue 1 item 9)"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,16 +185,45 @@ def resblock_sft(p: Params, name: str, fea: torch.Tensor, cond: torch.Tensor, *,
     return fea + out
 
 
-_BLOCKS = {"sft": resblock_sft}
+def resblock_plain(p: Params, name: str, fea: torch.Tensor, cond: torch.Tensor, *, policy: Policy = F32):
+    """ResBlock_noSFT: 3×3 conv → ReLU → 3×3 conv, residual."""
+    out = relu(conv2d(p, f"{name}.conv1", fea, padding=1, policy=policy))
+    out = conv2d(p, f"{name}.conv2", out, padding=1, policy=policy)
+    return fea + out
+
+
+def resblock_wide(p: Params, name: str, fea: torch.Tensor, cond: torch.Tensor, *, policy: Policy = F32):
+    """ResBlock_noSFTWide: 1×1 widen → 3×3 → 1×1 narrow, residual."""
+    out = relu(conv2d(p, f"{name}.conv1", fea, policy=policy))
+    out = relu(conv2d(p, f"{name}.conv2", out, padding=1, policy=policy))
+    out = conv2d(p, f"{name}.conv3", out, policy=policy)
+    return fea + out
+
+
+_BLOCKS = {"sft": resblock_sft, "plain": resblock_plain, "wide": resblock_wide}
+
+
+def _flat_chain(p, name, fea, depth, wide, *, policy):
+    """A plain conv chain (TuplePlainConvTrunk): ``depth`` 3×3 convs with
+    ReLU; with ``wide`` (TupleWidePlainConvTrunk) a 1×1 widen before them and
+    a 1×1 narrow after, without a ReLU on the last."""
+    if wide:
+        fea = relu(conv2d(p, f"{name}.layers.0", fea, policy=policy))
+        for i in range(depth):
+            fea = relu(conv2d(p, f"{name}.layers.{2 * (i + 1)}", fea, padding=1, policy=policy))
+        return conv2d(p, f"{name}.layers.{2 * (depth + 1)}", fea, policy=policy)
+    for i in range(depth):
+        fea = relu(conv2d(p, f"{name}.layers.{2 * i}", fea, padding=1, policy=policy))
+    return fea
 
 
 def _run_trunk(p, prefix, trunk_name, fea, cond, spec: LEArchSpec, *, policy):
-    if spec.flat_trunk(trunk_name) is not None:
-        raise _variant(f"the flat conv trunk of LE {trunk_name}")
+    flat = spec.flat_trunk(trunk_name)
     name = f"{prefix}{trunk_name}"
+    if flat is not None:
+        depth, wide = flat
+        return _flat_chain(p, name, fea, depth, wide, policy=policy)
     for i, kind in enumerate(spec.trunk_blocks(trunk_name)):
-        if kind not in _BLOCKS:
-            raise _variant(f"the LE block kind '{kind}'")
         fea = _BLOCKS[kind](p, f"{name}.{i}", fea, cond, policy=policy)
     return fea
 
@@ -243,7 +280,7 @@ def _up(p, prefix, layer, x, act, *, policy):
 
 
 # ---------------------------------------------------------------------------
-# Forward
+# Forwards
 # ---------------------------------------------------------------------------
 
 
@@ -295,6 +332,61 @@ def _forward_unet(p, img, cond_img, spec, *, prefix, act, weighting_network, pol
     return mask_out + out
 
 
+def _forward_plain_bottleneck(p, img, spec, *, prefix, act, weighting_network, policy):
+    """HDRUNet3T1PlainBottleneck: the down path without SFT or skips, one
+    flat (or wide) conv chain at /8 (at /16 after a fourth down conv, with
+    ``up_conv0`` back), the up path re-aligned to each level, the long
+    skip."""
+    mask_out = _mask_out(p, prefix, img, weighting_network, policy=policy)
+
+    def conv(name, x, **kw):
+        return conv2d(p, f"{prefix}{name}", x, policy=policy, **kw)
+
+    fea0 = act(conv("conv_first", img, padding=1))
+    fea0 = act(conv("HR_conv1", fea0, padding=1))
+    fea1 = act(conv("down_conv1", fea0, stride=2, padding=1))
+    fea2 = act(conv("down_conv2", fea1, stride=2, padding=1))
+    fea3 = act(conv("down_conv3", fea2, stride=2, padding=1))
+
+    b = fea3
+    if spec.bottleneck_scale >= 16:
+        b = act(conv("down_conv4", b, stride=2, padding=1))
+    out = _flat_chain(p, f"{prefix}recon_trunk3", b, spec.trunk3_depth, spec.trunk3_wide, policy=policy)
+    if spec.bottleneck_scale >= 16:
+        out = align_to(_up(p, prefix, "up_conv0", out, act, policy=policy), fea3.shape[1], fea3.shape[2])
+    out = align_to(_up(p, prefix, "up_conv1", out, act, policy=policy), fea2.shape[1], fea2.shape[2])
+    out = align_to(_up(p, prefix, "up_conv2", out, act, policy=policy), fea1.shape[1], fea1.shape[2])
+    out = align_to(_up(p, prefix, "up_conv3", out, act, policy=policy), fea0.shape[1], fea0.shape[2])
+
+    out = act(conv("HR_conv2", out, padding=1))
+    out = conv("conv_last", out, padding=1)
+    out = align_to(out, mask_out.shape[1], mask_out.shape[2])
+    return mask_out + out
+
+
+def _forward_direct(p, img, cond_img, spec, *, prefix, act, weighting_network, policy):
+    """(Plain|Cond|CondGated)Direct: the frame avg-pooled by the arch's
+    scale (with ``direct_cond`` the condition image pooled to the same grid
+    beside it), a 1×1 in, with ``direct_gate`` a tanh self-gate, a 3×3 trunk,
+    a 1×1 out, pixel shuffle back to full resolution, the long skip."""
+    mask_out = _mask_out(p, prefix, img, weighting_network, policy=policy)
+    s = spec.bottleneck_scale
+    low = avg_pool(img, s)
+    if spec.direct_cond:
+        low_cond = avg_pool(policy.cast(cond_img), max(1, s // 4))
+        low = torch.cat((low, align_to(low_cond, low.shape[1], low.shape[2])), dim=-1)
+    out = act(conv2d(p, f"{prefix}low_in", low, policy=policy))
+    if spec.direct_gate:
+        g = relu(conv2d(p, f"{prefix}feature_gate.0", out, policy=policy))
+        g = conv2d(p, f"{prefix}feature_gate.2", g, padding=1, policy=policy)
+        out = out * (1.0 + torch.tanh(g) * scalar_of(spec.gate_limit, g.dtype))
+    for i in range(max(1, spec.trunk3_depth)):
+        out = relu(conv2d(p, f"{prefix}recon_trunk3.{2 * i}", out, padding=1, policy=policy))
+    out = pixel_shuffle(conv2d(p, f"{prefix}low_out", out, policy=policy), s)
+    out = align_to(out, mask_out.shape[1], mask_out.shape[2])
+    return mask_out + out
+
+
 def le_apply(
     p: Params,
     img: torch.Tensor,
@@ -316,9 +408,10 @@ def le_apply(
             for n, b in spec.trunks
         )
         spec = dataclasses.replace(spec, trunks=trunks)
-    if spec.kind != "unet":
-        raise _variant(f"the {spec.kind} LE forward (le_arch '{le_arch}')")
-    return _forward_unet(
-        p, policy.cast(img), policy.cast(cond_img), spec, prefix=prefix, act=_act(act_type),
-        weighting_network=weighting_network, policy=policy,
-    )
+    kw = {"prefix": prefix, "act": _act(act_type), "weighting_network": weighting_network, "policy": policy}
+    img, cond_img = policy.cast(img), policy.cast(cond_img)
+    if spec.kind == "direct":
+        return _forward_direct(p, img, cond_img, spec, **kw)
+    if spec.kind == "plain_bottleneck":
+        return _forward_plain_bottleneck(p, img, spec, **kw)
+    return _forward_unet(p, img, cond_img, spec, **kw)

@@ -93,12 +93,22 @@ buffer and return a copy of it, the caller's own. The pinned buffers are
 allocated once per frame shape and reused. A processor's copies are made from
 one thread at a time. On the CPU nothing is pinned.
 
+A reference ``.pt`` checkpoint loads through ``models/import_torch.py
+load_checkpoint`` (an HR file, a composite, or an HR file with the HG
+generator's own file as ``hg_path``; its HG BatchNorms folded, an FP8
+source's quantized layers rounded through e4m3) to the same numpy
+parameters a converted ``.npz`` holds, and from there runs as one.
+Every architecture variant the checkpoint's ``architecture`` dict names
+runs: the AGCM classifier variants, the LE archs, the post-correction heads
+and the ``direct`` HG generator. The s2d programs are the release
+architecture's (``color_condition`` / ``sft`` / ``pixelshuffle``, no
+post-correction), so by the JAX runtime's rule every other architecture
+turns turbo off and runs the natural-layout program on every frame.
+
 What still raises, naming the ROADMAP item that will port it: ``mesh``
-(Queue 1 item 13, also for ``process_rgb48_batch``), ``.pt`` checkpoints
-and ``hg_path`` (Queue 1 item 1), and the model variants: other HG
-generators, classifiers, LE archs and post-correction heads (Queue 1 item
-9). Nothing falls back to a different computation, and nothing runs on the
-CPU unless the caller asks for ``device="cpu"``.
+(Queue 1 item 13, also for ``process_rgb48_batch``). Nothing falls back to
+a different computation, and nothing runs on the CPU unless the caller asks
+for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -112,6 +122,7 @@ import torch
 from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig, model_apply, natural_params_to_torch
 from hdrtv_tpu_torch.models.hg_s2d import hg_composite_s2d
 from hdrtv_tpu_torch.models.import_npz import load_npz, load_npz_meta, npz_arch_dict
+from hdrtv_tpu_torch.models.import_torch import load_checkpoint
 from hdrtv_tpu_torch.models.layers import Policy, policy_for
 from hdrtv_tpu_torch.models.s2d import (
     attach_native_int8,
@@ -163,7 +174,10 @@ class HDRTVNetTorch:
     """Real-time SDR→HDR10 converter on one CUDA device.
 
     ``model_path``: a converted ``.npz`` checkpoint (with its ``.json``
-    sidecar). ``precision``: the reference token: ``fp32``/``float32`` is
+    sidecar) or a reference ``.pt`` (``hg_path``: the HG generator's own
+    ``.pt`` beside an HR one; a ``.npz`` composite carries its ``hg.*``
+    keys itself). ``use_hg``: ``None`` takes the checkpoint's word (for a
+    ``.pt`` without one, whether ``hg_path`` is given). ``precision``: the reference token: ``fp32``/``float32`` is
     true fp32 (TF32 off for the torch ops), every other token (the default
     ``fp16``, the int8 presets) computes in bf16. The parameters are cast to
     what the policy computes with once, here.
@@ -216,9 +230,6 @@ class HDRTVNetTorch:
         self.fast_zero_condition = bool(fast_zero_condition)
         if mesh is not None:
             raise _not_ported("mesh inference", "Slice 8 (parallel: Queue 1 item 13)")
-        if hg_path is not None:
-            raise _not_ported("hg_path (an HG generator's own .pt checkpoint)",
-                              "Slice 8 (host, runtime and tooling modules: Queue 1 item 1)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -230,20 +241,17 @@ class HDRTVNetTorch:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"device must be cuda or cpu, got {self.device}")
 
-        if not model_path.endswith(".npz"):
-            raise _not_ported("loading .pt checkpoints", "Slice 8 (host, runtime and tooling modules: Queue 1 item 1)")
-        params = load_npz(model_path)
-        arch = npz_arch_dict(load_npz_meta(model_path))
-        if use_hg is None:
-            use_hg = bool(arch.get("use_hg", False))
-        cfg = ModelConfig.from_arch_dict(arch, use_hg=bool(use_hg), **(cfg_overrides or {}))
-        if cfg.use_hg and cfg.hg_arch != "pixelshuffle":
-            raise _not_ported(f"the {cfg.hg_arch} HG generator", "Slice 8 (model variants: Queue 1 item 9)")
-        if cfg.classifier != "color_condition" or cfg.le_arch != "sft" or cfg.post_correction:
-            raise _not_ported(
-                f"architecture {cfg.classifier}/{cfg.le_arch}/{cfg.post_correction or '-'}",
-                "Slice 8 (model variants: Queue 1 item 9)",
-            )
+        if model_path.endswith(".npz"):
+            if hg_path is not None:
+                raise ValueError(f"hg_path goes with a .pt model; the .npz {model_path} carries its own hg.* keys "
+                                 "when it is a composite")
+            params = load_npz(model_path)
+            arch = npz_arch_dict(load_npz_meta(model_path))
+            if use_hg is None:
+                use_hg = bool(arch.get("use_hg", False))
+            cfg = ModelConfig.from_arch_dict(arch, use_hg=bool(use_hg), **(cfg_overrides or {}))
+        else:
+            params, cfg = load_checkpoint(model_path, hg_path=hg_path, use_hg=use_hg, **(cfg_overrides or {}))
         if cfg.use_hg:
             missing = [f"{pre}*" for pre in ("base.", "hg.") if not any(k.startswith(pre) for k in params)]
             if missing:
@@ -263,10 +271,18 @@ class HDRTVNetTorch:
             has_int8 = False
         if turbo is None:
             turbo = env_bool("HDRTVNET_TPU_TURBO", True)
-        # The JAX runtime's rule (its turbo): the s2d programs need the
-        # s2d-able pixel-shuffle HG and float (or pre-dequantized) weights;
-        # the architecture checks above already hold.
-        self.turbo = bool(turbo and (not cfg.use_hg or "hg.conv1.0.weight" in params) and not has_int8)
+        # The JAX runtime's rule (its turbo): the s2d programs are the
+        # release architecture's (the pixel-shuffle HG with its s2d-able
+        # conv1, the color_condition classifier, the sft LE, no
+        # post-correction) on float (or pre-dequantized) weights.
+        self.turbo = bool(
+            turbo
+            and (not cfg.use_hg or (cfg.hg_arch == "pixelshuffle" and "hg.conv1.0.weight" in params))
+            and cfg.classifier == "color_condition"
+            and cfg.le_arch == "sft"
+            and not cfg.post_correction
+            and not has_int8
+        )
         check_card_widths(cfg, self.device, turbo=self.turbo)
         self.cfg = cfg
         # The natural-layout parameters, untransformed: the program of every

@@ -3,8 +3,10 @@ the JAX CLI's command lines (``tests/test_cli.py``), ``convert`` runs a
 synthetic source to the null and file sinks and ``export`` a clip written
 with cv2, against the port's own per-frame program (bit for bit) and the
 JAX package's (CODES u16 codes in fp32: the 5e-5 golden tolerance × 65535,
-rounded up, as ``tests/test_torch_slice.py``); ``presets``, ``assets`` and
-``engines`` run; every subcommand and option that is not ported raises
+rounded up, as ``tests/test_torch_slice.py``); ``convert`` and ``export``
+take a reference ``.pt`` ``--model`` (and ``--hg-weights``); ``presets``,
+``assets`` and ``engines`` run; ``info`` and ``split-sources`` print and
+write what the JAX CLI does; every subcommand and option that is not ported raises
 ``NotImplementedError`` naming its ROADMAP.md item; without a card and
 without the CPU switch nothing runs. The config, prefs and assets copies
 agree with the JAX package's.
@@ -178,7 +180,6 @@ def test_unported_subcommands_raise(name, cpu_cli):
         "preview": ["preview", "--video", "v"], "figures": ["figures", "--input", "i"],
         "mine-hard-frames": ["mine-hard-frames", "--sdr-dir", "a", "--hdr-dir", "b", "--out", "o"],
         "teacher-pairs": ["teacher-pairs", "--video", "v", "--out", "o"],
-        "split-sources": ["split-sources", "--model", "m", "--out-hr", "a", "--out-hg", "b"],
     }.get(name, [name])
     item = cli.NOT_PORTED[name][1]
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
@@ -275,3 +276,90 @@ def test_hdr_bypass_flips_channels_only():
     bp = cli._Bypass(HDRTVNetTorch(WEIGHTS, device="cpu", persistent_cache=False))
     out = bp.process_rgb48_device(bp.put_frame(frame.reshape(H, -1))).numpy()
     assert out.dtype == np.uint16 and np.array_equal(out, frame[..., ::-1].astype(np.uint16) * 257)
+
+
+def _pt_pair(tmp_path):
+    """The shipped weights as a reference ``.pt`` (HR), and a synthetic
+    HG generator's own ``.pt`` (nf = 8, BatchNorms unfolded)."""
+    from hdrtv_tpu_torch.models.import_npz import load_npz, load_npz_meta, npz_arch_dict
+    from hdrtv_tpu_torch.tools.synth_hg import synth_hg_params
+    from hdrtv_tpu_torch.tools.synth_variants import to_torch_layout, write_pt
+
+    arch = npz_arch_dict(load_npz_meta(WEIGHTS))
+    hr = write_pt(str(tmp_path / "HR.pt"), to_torch_layout(load_npz(WEIGHTS)), arch)
+    hg = {k[3:]: v for k, v in synth_hg_params(nf=8, seed=2).items() if k.startswith("hg.")}
+    return hr, write_pt(str(tmp_path / "HG.pt"), to_torch_layout(hg))
+
+
+@pytest.mark.parametrize("which", ["npz", "pt", "pt_use_hg"])
+def test_info_matches_jax(which, tmp_path, capsys):
+    """info prints the JAX CLI's JSON: tensors, parameters, the layer mix
+    (of the int8 fixture too) and, for a ``.pt``, the configuration."""
+    from hdrtv_tpu import cli as jax_cli
+
+    hr, _ = _pt_pair(tmp_path)
+    argvs = {"npz": [["info", "--model", WEIGHTS], ["info", "--model", os.path.join(ROOT, "tests", "fixtures",
+                                                                                       "hr_w8a8.npz")]],
+             "pt": [["info", "--model", hr]], "pt_use_hg": [["info", "--model", hr, "--use-hg"]]}[which]
+    for argv in argvs:
+        texts = []
+        for main in (cli.main, jax_cli.main):
+            assert main(argv) == 0
+            texts.append(capsys.readouterr().out)
+        assert texts[0] == texts[1] and '"tensors"' in texts[0]
+
+
+def test_split_sources_matches_jax(tmp_path, capsys):
+    """split-sources of a composite ``.pt``: the same printed lines and the
+    same two files (arrays and sidecars) as the JAX CLI's."""
+    import json
+
+    from hdrtv_tpu import cli as jax_cli
+    from hdrtv_tpu_torch.models.import_npz import load_npz, load_npz_meta, npz_arch_dict
+    from hdrtv_tpu_torch.tools.synth_hg import synth_hg_params
+    from hdrtv_tpu_torch.tools.synth_variants import to_torch_layout, write_pt
+
+    comp = write_pt(str(tmp_path / "comp.pt"), to_torch_layout(synth_hg_params(nf=8, seed=4)),
+                    {**npz_arch_dict(load_npz_meta(WEIGHTS)), "use_hg": True, "hg_nf": 8},
+                    w8a8_layers=["base.LE.conv_first", "hg.conv2.0"])
+    outs = {}
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        d = tmp_path / name
+        assert main(["split-sources", "--model", comp, "--out-hr", str(d / "hr.npz"), "--out-hg", str(d / "hg.npz")]) == 0
+        outs[name] = (capsys.readouterr().out.replace(str(d), "D"),
+                      {n: load_npz(str(d / f"{n}.npz")) for n in ("hr", "hg")},
+                      {n: json.loads((d / f"{n}.json").read_text()) for n in ("hr", "hg")})
+    (pt, pf, pm), (jt, jf, jm) = outs["port"], outs["jax"]
+    assert pt == jt and "HG: " in pt and pm == jm and pm["hg"]["w8a8_layers"] == ["conv2.0"]
+    for n in ("hr", "hg"):
+        assert sorted(pf[n]) == sorted(jf[n]) and all(np.array_equal(pf[n][k], jf[n][k]) for k in jf[n])
+
+
+def test_convert_and_export_take_a_pt(cpu_cli, capsys, tmp_path):
+    """convert --model HR.pt --hg-weights HG.pt --use-hg writes the frames of
+    the composite the processor loads from the same two files; export
+    --model HR.pt writes those of the ``.npz`` processor (the same weights)."""
+    import json
+
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    hr, hg = _pt_pair(tmp_path)
+    out = str(cpu_cli / "o.rgb48")
+    assert cli.main(["convert", "--model", hr, "--hg-weights", hg, "--use-hg", "--display", "file", "--output", out,
+                     "--frames", "2", "--no-realtime", "--precision", "FP32"]) == 0
+    assert "frames=2 " in capsys.readouterr().out
+    proc = HDRTVNetTorch(hr, hg_path=hg, use_hg=True, precision="fp32", device="cpu", proc_resolution=(W, H))
+    assert proc.cfg.use_hg and proc.turbo
+    want = np.stack([proc.process_rgb48(f) for f in _synthetic(2)])
+    assert np.array_equal(np.fromfile(out, np.uint16).reshape(2, H, W, 3), want)
+    clip = str(cpu_cli / "clip.avi")
+    _clip(clip, n=2)
+    assert cli.main(["export", "--video", clip, "--model", hr, "--codec", "raw", "--precision", "FP32",
+                     "--resolution", "540p", "--output", str(cpu_cli / "x.rgb48")]) == 0
+    text = capsys.readouterr().out
+    stats = json.loads(text[text.index("{"):])
+    got = np.fromfile(stats["output"], np.uint16).reshape(2, H, W, 3)
+    assert cli.main(["export", "--video", clip, "--model", WEIGHTS, "--codec", "raw", "--precision", "FP32",
+                     "--resolution", "540p", "--output", str(cpu_cli / "y.rgb48")]) == 0
+    capsys.readouterr()
+    assert np.array_equal(got, np.fromfile(str(cpu_cli / "y.rgb48"), np.uint16).reshape(2, H, W, 3))

@@ -267,7 +267,9 @@ def test_hg_apply_matches_jax_and_torch_golden(name):
 
 def test_hg_apply_resizeconv_layout_and_direct_arch(hg_params):
     """The resize-conv up block (a checkpoint with ``Up_convN.1.weight``)
-    against JAX, and the ``direct`` family raises with its ROADMAP item."""
+    against JAX, and an ``hg_arch`` of the ``direct`` family dispatching to
+    the direct generator (scale 8, depth 8) as JAX ``hg_apply`` does, on
+    seeded weights, fp32 within 1e-5."""
     from hdrtv_tpu.models.hg import _up_block as jax_up_block
     from hdrtv_tpu_torch.models.hg import _up_block, hg_apply
 
@@ -280,8 +282,17 @@ def test_hg_apply_resizeconv_layout_and_direct_arch(hg_params):
                                    policy=_jax_policy("f32")))
     assert got.shape == (1, 12, 20, 6)
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        hg_apply(hg_params[1], torch.zeros(1, 32, 32, 3), torch.zeros(1, 32, 32, 1), hg_arch="direct_v1")
+    from hdrtv_tpu.models.hg import hg_apply as jax_hg_apply
+    from hdrtv_tpu_torch.models.import_npz import convert_state
+    from hdrtv_tpu_torch.tools.synth_variants import hg_direct_state
+
+    direct = convert_state(hg_direct_state(nf=8, seed=5))
+    img, mask = rng.rand(1, 32, 64, 3).astype(np.float32), (rng.rand(1, 32, 64, 1) > 0.5).astype(np.float32)
+    got = hg_apply({k: _t(v) for k, v in direct.items()}, _t(img), _t(mask), hg_arch="direct_v1").numpy()
+    want = np.asarray(jax_hg_apply({k: jnp.asarray(v) for k, v in direct.items()}, jnp.asarray(img),
+                                   jnp.asarray(mask), hg_arch="direct_v1"))
+    assert np.abs(got - img).max() > 1e-3
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
 def _policy(dtype):
@@ -724,8 +735,10 @@ def test_hg_on_a_checkpoint_without_hg_weights(kwargs, match):
 
 
 def test_hg_uncovered_cases_raise(composite_path, tmp_path):
-    """A ``direct`` generator still raises, with its ROADMAP item; a frame
-    too small to reflect-pad raises the generator's own ``ValueError``. An
+    """A ``direct`` generator named over a pixel-shuffle checkpoint loads
+    with turbo off, as in JAX, and its first frame lacks the direct layers
+    in both packages (KeyError); a frame too small to reflect-pad raises the
+    generator's own ``ValueError``. An
     HG frame whose sides are not multiples of 8 (99×131) now runs the
     natural HG composite, as in JAX: within 4 codes of ``HDRTVNetTPU`` away
     from the mask's threshold, with at most 0.5% of the pixels near it."""
@@ -747,5 +760,9 @@ def test_hg_uncovered_cases_raise(composite_path, tmp_path):
         proc.process_rgb48(np.zeros((16, 64, 3), np.uint8))
     direct = str(tmp_path / "direct.npz")
     save_npz(direct, load_npz(composite_path), {"architecture": {"use_hg": True, "hg_arch": "direct_lowres"}})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        HDRTVNetTorch(direct, precision="fp32", device="cpu")
+    tp = HDRTVNetTorch(direct, precision="fp32", device="cpu")
+    jp = HDRTVNetTPU(direct, precision="fp32", persistent_cache=False)
+    assert not tp.turbo and not jp.turbo and tp.cfg.hg_arch == jp.cfg.hg_arch == "direct_lowres"
+    for p in (tp, jp):
+        with pytest.raises(KeyError, match="low_in"):
+            p.process_rgb48(frame[:32, :32])

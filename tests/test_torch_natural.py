@@ -181,14 +181,45 @@ def test_ensemble_agcm_le_matches_golden_and_jax(nat_params):
 
 
 def test_uncovered_agcm_modes_raise(nat_params):
+    """The AGCM modes that raised until their port (plain, affine, spatial,
+    lowrank) now run: each on seeded parameters (lowrank on the release
+    AGCM's HRconv factored at rank 8 by the checkpoint remap) against JAX at
+    fp32, 1e-5 (``tests/test_torch_variants.py`` holds every mode in both
+    types and against the goldens)."""
+    from hdrtv_tpu.models.agcm import agcm_apply as jax_agcm
+    from hdrtv_tpu.models.import_torch import convert_state as jax_convert
     from hdrtv_tpu_torch.models.agcm import agcm_apply, agcm_mode
+    from hdrtv_tpu_torch.models.import_torch import remap_condition_state
+    from hdrtv_tpu_torch.tools.synth_variants import to_torch_layout
 
     assert agcm_mode("color_condition") == "dynamic" and agcm_mode("lite8") == "lite"
     assert agcm_mode("spatial_mix") == "spatial_mix" and agcm_mode("lowrank") == "lowrank"
-    x = torch.zeros((1, 8, 8, 3))
-    for name in ("plain", "affine", "spatial", "lowrank"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            agcm_apply(nat_params[1], x, x[:, :2, :2], classifier=name)
+    pj, _, _ = nat_params
+    rng = np.random.RandomState(183)
+    x = rng.rand(1, 24, 32, 3).astype(f32)
+    cond = rng.rand(1, 6, 8, 3).astype(f32)
+
+    def conv(shapes):
+        return {f"AGCM.{n}.{leaf}": (rng.randn(k, k, ci, co) / np.sqrt(k * k * ci) if leaf == "weight"
+                                     else rng.randn(co) * 0.05).astype(f32)
+                for n, (k, ci, co) in shapes.items() for leaf in ("weight", "bias")}
+
+    release = {k: np.asarray(v) for k, v in pj.items() if k.startswith("AGCM.")}
+    cases = {
+        "plain": conv({"conv_first": (1, 3, 16), "HRconv": (1, 16, 16), "conv_last": (1, 16, 3)}),
+        "affine": conv({"affine.0": (1, 3, 16), "affine.2": (1, 16, 6)}),
+        "spatial": conv({"spatial_in": (1, 3, 32), **{f"spatial_trunk.{2 * i}": (3, 32, 32) for i in range(4)},
+                         "spatial_out": (1, 32, 6)}),
+        "lowrank8": jax_convert(remap_condition_state(to_torch_layout(release), prefix="AGCM.",
+                                                      classifier="lowrank8")),
+    }
+    for name, p in cases.items():
+        want = np.asarray(jax.jit(lambda q, a, c: jax_agcm(q, a, c, classifier=name))(
+            {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), jnp.asarray(cond)))
+        got = agcm_apply({k: torch.from_numpy(np.asarray(v)) for k, v in p.items()}, torch.from_numpy(x),
+                         torch.from_numpy(cond), classifier=name).numpy()
+        assert np.abs(got - x).max() > 0.01, name
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=name)
 
 
 def test_le_apply_leakyrelu_weighting_network_matches_jax(nat_params):
@@ -219,13 +250,45 @@ def test_le_apply_leakyrelu_weighting_network_matches_jax(nat_params):
 
 
 def test_uncovered_le_archs_raise(nat_params):
+    """The LE archs that raised until their port (the clean trunk, the plain
+    bottleneck, the cond-direct island, a flat trunk) now run at 24 × 40
+    against JAX at fp32, 1e-5: the clean and flat trunks on the release LE
+    (its condition branch and SFT layers; a seeded flat trunk3), the other
+    two on seeded weights (``tests/test_torch_variants.py`` holds every arch
+    of the goldens)."""
+    from hdrtv_tpu.models.le_unet import le_apply as jax_le
     from hdrtv_tpu_torch.models.le_unet import le_apply, parse_le_arch
 
     assert parse_le_arch("sft").kind == "unet" and parse_le_arch("plainbottleneckh8wide64x4").kind == "plain_bottleneck"
-    x = torch.zeros((1, 16, 16, 3))
-    for arch in ("cleantrunk", "plainbottleneckh8wide64x4", "conddirecth8wide64x4", "flat4"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            le_apply(nat_params[1], x, x, le_arch=arch)
+    rng = np.random.RandomState(221)
+    x = rng.rand(1, 24, 40, 3).astype(f32)
+    nf = 8
+    release = {k: np.asarray(v) for k, v in nat_params[0].items() if k.startswith("LE.")}
+
+    def conv(k, ci, co):
+        return (rng.randn(k, k, ci, co) / np.sqrt(k * k * ci)).astype(f32), (rng.randn(co) * 0.05).astype(f32)
+
+    bottleneck = {"conv_first": (3, 3, nf), "HR_conv1": (3, nf, nf), "down_conv1": (3, nf, nf),
+                  "down_conv2": (3, nf, nf), "down_conv3": (3, nf, nf), "up_conv1.0": (3, nf, 4 * nf),
+                  "up_conv2.0": (3, nf, 4 * nf), "up_conv3.0": (3, nf, 4 * nf), "HR_conv2": (3, nf, nf),
+                  "conv_last": (3, nf, 3), "recon_trunk3.layers.0": (1, nf, 16), "recon_trunk3.layers.2": (3, 16, 16),
+                  "recon_trunk3.layers.4": (1, 16, nf)}
+    direct = {"low_in": (1, 6, 16), "recon_trunk3.0": (3, 16, 16), "recon_trunk3.2": (3, 16, 16),
+              "low_out": (1, 16, 3 * 64)}
+    flat = {f"recon_trunk3.layers.{2 * i}": (3, 32, 32) for i in range(4)}
+    cases = {"cleantrunk": ({}, release), "plainbottleneckh8wide16x1": (bottleneck, {}),
+             "conddirecth8wide16x2": (direct, {}), "flat4": (flat, release)}
+    for arch, (shapes, given) in cases.items():
+        p = dict(given)
+        for n, (k, ci, co) in shapes.items():
+            p[f"LE.{n}.weight"], p[f"LE.{n}.bias"] = conv(k, ci, co)
+        want = np.asarray(jax.jit(lambda q, a: jax_le(q, a, a, le_arch=arch))(
+            {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x)))
+        with torch.inference_mode():
+            got = le_apply({k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x),
+                           torch.from_numpy(x), le_arch=arch).numpy()
+        assert got.shape == x.shape and np.abs(got - x).max() > 0.01, arch
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=arch)
 
 
 # ---------------------------------------------------------------------------

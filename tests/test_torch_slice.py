@@ -413,11 +413,17 @@ def test_uncovered_options_raise(kwargs):
     """What the port does not run raises at construction, naming its ROADMAP
     item; ``use_hg`` on a checkpoint without ``base.*`` and ``hg.*`` keys
     raises a ValueError naming them (the JAX package fails at the first
-    frame, with a KeyError)."""
+    frame, with a KeyError). ``hg_path`` runs since its port, with a ``.pt``
+    HR file (``tests/test_torch_import.py``); beside a ``.npz``, which
+    carries its own ``hg.*`` keys, it raises a ValueError."""
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     if kwargs.get("use_hg"):
         with pytest.raises(ValueError, match=r"no base\.\* and no hg\.\* keys"):
+            HDRTVNetTorch(WEIGHTS, device="cpu", **kwargs)
+        return
+    if "hg_path" in kwargs:
+        with pytest.raises(ValueError, match=r"hg_path goes with a \.pt model"):
             HDRTVNetTorch(WEIGHTS, device="cpu", **kwargs)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
