@@ -246,7 +246,32 @@ lines; any failed check raises and the script exits non-zero with no result:
    bytes; then full_reference_metrics on the card on the 1080p bf16-default
    / fp32 pair against the port on the CPU within METRIC_TOL, ms per pair,
    and the metrics golden on the card within tests/test_ops.py's
-   tolerances. A JSON line of these figures comes before the card's line.
+   tolerances. A JSON line of these figures comes before the card's line;
+11. the quality and playback benchmarks (phase_bench; BENCH_SIZE 1080p): eight
+   seeded smooth textures from a list-backed source; a 10-bit 4:4:4 y4m ground
+   truth written from the fp32 program on the card over them, with a planted
+   lead of BENCH_OFFSET frames; run_quality_queue over the FP32, FP16 and INT8
+   Full (PTQ) presets (the fp32, bf16 default and int8 default programs on
+   weights/hr_fp32.npz and tests/fixtures/hr_w8a8.npz) with the frame ids
+   given and post-verify on: every row recovers the offset, each hdr_convert
+   equals process_rgb48 of the same frame bit for bit (and its tiff, where
+   cv2 imports), the card's metrics equal evaluate_pair(device="cpu") on the
+   same pair within METRIC_TOL, the fp32 rows read the 10-bit quantization
+   alone (PSNR ≥ QUALITY_FP32_PSNR, derived beside it) and bf16 and int8
+   read lower; the same fp32 run with post-verify off and the offset not
+   given breaks that bound on every row; compare_frame on the card equals the
+   bf16 quality row of its frame, and, where cv2 imports, render_session over
+   the bf16 session's artifacts (the tone map on the card, within 1e-3 of the
+   CPU's); run_playback_benchmark at 1080p bf16 flat
+   out for PLAYBACK_S seconds of wall clock (its session files) and
+   run_device_resident for RESIDENT_FRAMES chained replays; each of these five
+   runs counted exactly one graph capture's launches (twice one frame's; the
+   paths quality_fp32, quality_bf16, quality_int8, playback_bf16 and
+   device_resident_bf16); the CLI's doctor (exit 0, naming the card), bench
+   --supervised (child rc 0) and, where cv2 imports, quality in subprocesses;
+   the wrapper's budget killing a silent child within WRAPPER_BUDGET_S. It
+   says first whether cv2 and ffmpeg are present; a {"bench": ...} line
+   (bench_line) comes before the card's line.
 
 The line before the last is the per-kernel JSON summary, one entry per
 kernel and element type, with the path whose launches it reports and its
@@ -2809,6 +2834,364 @@ def phase_metrics(torch, np, frames: dict) -> dict:
     return {"card": card, "card_vs_cpu": apart, "ms_per_1080p_pair": round(ms, 3), "golden_err": gerr}
 
 
+# Phase 11: the quality and playback benchmarks (bench/quality.py, pipeline/compare.py,
+# bench/playback.py, bench/wrapper.py, runtime/doctor.py and the CLI commands on them).
+# Eight seeded 1080p frames, each a smooth texture of its own (so that adjacent frames differ
+# and the ±2 offset search cannot tie), from a list-backed source; the ground truth is the
+# port's fp32 program on the card over those frames, written as 10-bit 4:4:4 y4m with a
+# planted lead of BENCH_OFFSET frames. The fp32 preset's rows then read the y4m's 10-bit
+# quantization alone: in limited range a code step is 1/876 of Y' and 1/896 of Cb/Cr, so
+# each decoded RGB channel is within half a step of Y' plus its matrix weight of half a
+# chroma step (BT.2020: R 1.4746·Cr, G 0.1646·Cb + 0.5714·Cr, B 1.8814·Cb), at most
+# 0.5/876 + 1.8814·0.5/896 = 1.621e-3. The crop and the area resize average values and keep
+# that bound, so the fp32 rows' PSNR is at least 20·log10(1/1.621e-3) = 55.8 dB
+# (QUALITY_FP32_PSNR); misaligned by one frame, it falls far below.
+BENCH_SIZE = (1080, 1920)
+BENCH_FRAMES = 8
+BENCH_OFFSET = 1
+QUALITY_FP32_PSNR = 55.8
+# The presets of the quality queue: (preset key, checkpoint, the phase-4 path whose program
+# process_rgb48 runs at 1080p); the counts' path name.
+QUALITY_PRESETS = {
+    "quality_fp32": ("FP32", WEIGHTS, "fp32"),
+    "quality_bf16": ("FP16", WEIGHTS, "bf16_mega"),
+    "quality_int8": ("INT8 Full (PTQ)", INT8_WEIGHTS, "int8_bf16_mega"),
+}
+PLAYBACK_S = 5.0
+RESIDENT_FRAMES = 300
+WRAPPER_BUDGET_S = (2.0, 3.0)  # the silent child's budget, and the most the kill may take
+# The keys of the {"bench": ...} line (bench_line).
+BENCH_KEYS = ("card", "cv2", "ffmpeg", "quality", "planted", "compare", "playback", "device_resident", "cli",
+              "wrapper", "phase_s")
+
+
+def bench_texture(np, h: int, w: int, seed: int):
+    """A smooth u8 BGR texture of its own for each seed: three random sinusoids a channel
+    over a mid-grey, no noise."""
+    rng = np.random.RandomState(seed)
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    img = np.empty((h, w, 3), np.float32)
+    for c in range(3):
+        acc = np.full((h, w), 0.5, np.float32)
+        for _ in range(3):
+            fy, fx = rng.uniform(0.5, 5.0, 2)
+            acc += rng.uniform(0.05, 0.15) * np.sin(2 * np.pi * (fy * yy + fx * xx) + rng.uniform(0, 2 * np.pi))
+        img[..., c] = acc
+    return np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+class ListSource:
+    """A source over a list of BGR u8 frames: the quality benchmark's seek / read_with_meta."""
+
+    def __init__(self, frames, fps: float = 30.0):
+        self.frames, self.fps, self.frame_count, self.pos = frames, fps, len(frames), 0
+
+    def seek(self, idx: int) -> None:
+        self.pos = int(idx)
+
+    def read_with_meta(self, timeout: float = 0.0):
+        if not 0 <= self.pos < len(self.frames):
+            return None
+        idx = self.pos
+        self.pos += 1
+        return self.frames[idx], idx, idx / self.fps
+
+    def close(self) -> None:
+        pass
+
+
+class RecordingProcessor:
+    """An HDRTVNetTorch whose process_rgb48 outputs are kept (the quality rows' hdr_convert)."""
+
+    def __init__(self, proc):
+        self.proc, self.device, self.outs = proc, proc.device, []
+
+    def process_rgb48(self, frame):
+        out = self.proc.process_rgb48(frame)
+        self.outs.append(out)
+        return out
+
+
+def bench_line(figures: dict) -> str:
+    """The {"bench": ...} line of phase 11: every key of BENCH_KEYS, nothing else."""
+    missing = [k for k in BENCH_KEYS if k not in figures]
+    if missing or len(figures) != len(BENCH_KEYS):
+        raise AssertionError(f"bench line: missing {missing}, extra {sorted(set(figures) - set(BENCH_KEYS))}")
+    return json.dumps({"bench": {k: figures[k] for k in BENCH_KEYS}})
+
+
+def phase_bench(torch, np, native, smi: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 11: the quality queue (fp32, bf16, int8 presets) against the fp32 program's y4m
+    ground truth, its planted fault, compare_frame, the playback benchmark and the
+    device-resident chain at 1080p bf16, the CLI's doctor, bench --supervised and (with cv2)
+    quality in subprocesses, and the wrapper's budget on a silent child. Returns the five
+    paths' launch counts and the phase's figures."""
+    import importlib.util
+    import shutil
+
+    from hdrtv_tpu_torch.bench.gt_sync import HDRGroundTruthReader, make_frame_map
+    from hdrtv_tpu_torch.bench.playback import PlaybackRunConfig, run_device_resident, run_playback_benchmark
+    from hdrtv_tpu_torch.bench.quality import QualityRunConfig, evaluate_pair, run_quality_benchmark, run_quality_queue
+    from hdrtv_tpu_torch.bench.wrapper import PlaybackBenchmarkWrapper
+    from hdrtv_tpu_torch.bench.y4m import Y4MWriter
+    from hdrtv_tpu_torch.config import PRECISIONS
+    from hdrtv_tpu_torch.pipeline.compare import compare_frame
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    t_phase = time.perf_counter()
+    set_path_env({"mega": "1"})
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    has_ffmpeg = shutil.which("ffmpeg") is not None
+    log(f"phase 11: cv2 {'present' if has_cv2 else 'absent'}, ffmpeg {'present' if has_ffmpeg else 'absent'}; "
+        f"the image writers (quality artifacts, compare sheet, figures) and the CLI's quality run "
+        f"{'will run' if has_cv2 else 'will not run'}")
+    os.environ["HDRTVNET_CACHE_DIR"] = os.path.join(tmp, "cache")  # the playback lock
+    counts, figures = {}, {"card": smi, "cv2": has_cv2, "ffmpeg": has_ffmpeg}
+    h, w = BENCH_SIZE
+
+    def make(weights, precision):
+        return HDRTVNetTorch(weights, precision=precision, persistent_cache=False)
+
+    # --- inputs: eight textures and the fp32 program's ground truth, +BENCH_OFFSET -------------
+    frames = [bench_texture(np, h, w, 1100 + i) for i in range(BENCH_FRAMES)]
+    lead = [bench_texture(np, h, w, 1000 + i) for i in range(BENCH_OFFSET)]
+    gt_path = os.path.join(tmp, "gt.y4m")
+    fp32 = make(WEIGHTS, "fp32")
+    with Y4MWriter(gt_path, w, h, fps=30.0, ctag="444p10") as gw:
+        for f in lead + frames:
+            gw.write_rgb_unit(fp32.process_rgb48(f).astype(np.float32) / 65535.0)
+    fp32.graphs.clear()
+    del fp32
+    src = ListSource(frames)
+    gt = HDRGroundTruthReader(gt_path)
+    fmap = make_frame_map(src.fps, gt.fps, 0)  # the offset not given: post-verify finds it
+    ids = list(range(BENCH_FRAMES))
+    log(f"phase 11: {BENCH_FRAMES} textures {h}x{w}, ground truth {gt.decode_method} with a +{BENCH_OFFSET} lead")
+
+    # --- the quality queue ---------------------------------------------------------------------
+    key_path = {spec[0]: name for name, spec in QUALITY_PRESETS.items()}
+    procs, state = {}, {"key": None, "t0": 0.0}
+    secs = {}
+
+    def close_run():
+        if state["key"] is not None:
+            torch.cuda.synchronize()
+            counts[key_path[state["key"]]] = read_counts(native)
+            secs[state["key"]] = time.perf_counter() - state["t0"]
+
+    def progress(key):
+        close_run()
+        torch.cuda.synchronize()
+        native.reset_launch_counts()
+        state["key"], state["t0"] = key, time.perf_counter()
+
+    def make_proc(key):
+        _, weights, _ = next(spec for spec in QUALITY_PRESETS.values() if spec[0] == key)
+        procs[key] = RecordingProcessor(make(weights, PRECISIONS[key].precision))
+        return procs[key]
+
+    out_root = os.path.join(tmp, "quality")
+    summaries = run_quality_queue(
+        QualityRunConfig(resolution_key="1080p", frame_count=BENCH_FRAMES), [s[0] for s in QUALITY_PRESETS.values()],
+        make_proc, src, gt, out_root, source_name="phase11", gt_frame_map=fmap, save_artifacts=has_cv2,
+        progress=progress, frame_ids=ids, post_verify=True)
+    close_run()
+    quality, by_key = {}, {s["precision"]: s for s in summaries}
+    half = {"psnr": 5e-5, "psnr_gn": 5e-5, "ssim": 5e-6, "delta_e_itp": 5e-5, "delta_e_itp_gn": 5e-5}
+    for name, (key, _, path) in QUALITY_PRESETS.items():
+        want = {k: 2 * v for k, v in expected_launches(path).items()}
+        if counts[name] != want:
+            raise AssertionError(f"{name}: the queue counted {counts[name]}, one graph capture's launches {want}")
+        s, rec = by_key[key], procs[key]
+        rows = s["frames"]
+        if [r["frame"] for r in rows] != ids or len(rec.outs) != len(ids):
+            raise AssertionError(f"{name}: rows {[r['frame'] for r in rows]}, {len(rec.outs)} outputs")
+        apart, art = [], []
+        for r, out in zip(rows, rec.outs):
+            if r["gt_alignment_offset_frames"] != BENCH_OFFSET or r["gt_frame"] != r["frame"] + BENCH_OFFSET:
+                raise AssertionError(f"{name}: frame {r['frame']} aligned to {r['gt_frame']} (offset "
+                                     f"{r['gt_alignment_offset_frames']}), not +{BENCH_OFFSET}")
+            if not np.array_equal(out, rec.proc.process_rgb48(frames[r["frame"]])):
+                raise AssertionError(f"{name}: frame {r['frame']}'s hdr_convert differs from process_rgb48")
+            if has_cv2:
+                import cv2
+
+                tiff = os.path.join(s["session_dir"], "frames", f"{r['frame']:06d}", "hdr_convert.tiff")
+                art.append(np.array_equal(cv2.imread(tiff, cv2.IMREAD_UNCHANGED)[..., ::-1], out))
+            pair = (out.astype(np.float32) / 65535.0, gt.read_unit_rgb(r["gt_frame"]))
+            card, cpu = evaluate_pair(*pair), evaluate_pair(*pair, device="cpu")
+            d = {k: abs(card[k] - cpu[k]) / (abs(cpu[k]) if k.startswith("delta") else 1.0) for k in METRIC_TOL}
+            if any(d[k] > METRIC_TOL[k] for k in d) or any(abs(r[k] - card[k]) > half[k] for k in half):
+                raise AssertionError(f"{name}: frame {r['frame']}: row {r}, card {card}, CPU {cpu}")
+            apart.append(d)
+        if not all(art):
+            raise AssertionError(f"{name}: hdr_convert.tiff differs from the outputs on frames "
+                                 f"{[i for i, ok in zip(ids, art) if not ok]}")
+        quality[name] = {
+            "preset": key, "mean_psnr": s["mean_psnr"], "mean_ssim": s["mean_ssim"],
+            "mean_delta_e_itp": s["mean_delta_e_itp"], "psnr": [r["psnr"] for r in rows],
+            "ms_per_frame": round(secs[key] * 1e3 / len(ids), 1),
+            "card_vs_cpu_max": {k: float(f"{max(d[k] for d in apart):.3e}") for k in METRIC_TOL},
+            "artifacts_equal": bool(art) and all(art),
+        }
+        log(f"quality {key}: {json.dumps(quality[name])}; {smi}")
+    fp32_rows = by_key["FP32"]["frames"]
+    low = [r["frame"] for r in fp32_rows if r["psnr"] < QUALITY_FP32_PSNR]
+    if low:
+        raise AssertionError(f"quality FP32: frames {low} under the 10-bit bound {QUALITY_FP32_PSNR} dB")
+    for name in ("quality_bf16", "quality_int8"):
+        key = QUALITY_PRESETS[name][0]
+        high = [r["frame"] for r, f in zip(by_key[key]["frames"], fp32_rows) if r["psnr"] >= f["psnr"]]
+        if high:
+            raise AssertionError(f"quality {key}: frames {high} read no lower than FP32")
+
+    # --- the planted fault: post-verify off, the offset not given -------------------------------
+    fault = run_quality_benchmark(
+        QualityRunConfig(precision_key="FP32", resolution_key="1080p", frame_count=BENCH_FRAMES), procs["FP32"],
+        src, gt, out_root, source_name="phase11_planted", gt_frame_map=fmap, post_verify=False,
+        save_artifacts=False, frame_ids=ids)
+    planted = {"bound": QUALITY_FP32_PSNR, "psnr": [r["psnr"] for r in fault["frames"]],
+               "gt_frame": [r["gt_frame"] for r in fault["frames"]]}
+    log(f"planted misalignment (FP32, post-verify off): {json.dumps(planted)}")
+    if len(fault["frames"]) != len(ids) or any(p >= QUALITY_FP32_PSNR for p in planted["psnr"]):
+        raise AssertionError(f"planted: the misaligned rows keep the fp32 bound: {planted}")
+
+    # --- compare_frame on the card against the quality row of the same frame --------------------
+    k = BENCH_FRAMES // 2
+    res = compare_frame(procs["FP16"].proc, frames[k], frame_idx=k, gt_rgb01=gt.read_unit_rgb(k + BENCH_OFFSET))
+    row = by_key["FP16"]["frames"][k]
+    comp = {"frame": k, "metrics": res.metrics, "row_apart": {m: abs(res.metrics[m] - row[m]) for m in half}}
+    if any(comp["row_apart"][m] > half[m] for m in half):
+        raise AssertionError(f"compare_frame: {res.metrics} against the quality row {row}")
+    if has_cv2:
+        from hdrtv_tpu_torch.pipeline.compare import write_compare_sheet
+
+        comp["sheet"] = os.path.basename(write_compare_sheet(res, os.path.join(tmp, "compare")))
+    log(f"compare: {json.dumps(comp)}")
+    if has_cv2:
+        # figures: the bf16 session's artifacts tone-mapped on the card, each frame's PNGs and sheet
+        from hdrtv_tpu_torch.bench.figures import render_session, tone_map_pq
+
+        t0 = time.perf_counter()
+        man = render_session(by_key["FP16"]["session_dir"], os.path.join(tmp, "figures"))
+        fig_s = time.perf_counter() - t0
+        code01 = procs["FP16"].outs[k].astype(np.float32) / 65535.0
+        # the card's tone map against the CPU's, within the CPU tests' bound against JAX
+        tm_apart = float(np.abs(tone_map_pq(code01) - tone_map_pq(code01, device="cpu")).max())
+        comp["figures"] = {"frames": len(man["frames"]), "s": round(fig_s, 2), "tone_map_card_vs_cpu": tm_apart}
+        log(f"figures: {json.dumps(comp['figures'])}")
+        if len(man["frames"]) != BENCH_FRAMES or any(len(e["outputs"]) != 4 for e in man["frames"]) or tm_apart > 1e-3:
+            raise AssertionError(f"figures: {comp['figures']}; {man['frames'][:1]}")
+    gt.close()
+    for p in procs.values():
+        p.proc.graphs.clear()
+    del procs, res
+    torch.cuda.empty_cache()
+
+    # --- playback: the pipelined benchmark and the device-resident chain -----------------------
+    log(f"phase 11: run_playback_benchmark 1080p FP16, realtime off, {PLAYBACK_S:g} s wall clock")
+    proc = make(WEIGHTS, "fp16")
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    sess = os.path.join(tmp, "playback")
+    pb = run_playback_benchmark(PlaybackRunConfig(resolution_key="1080p", realtime=False, duration_s=PLAYBACK_S,
+                                                  wall_clock=True), proc, sess)
+    torch.cuda.synchronize()
+    counts["playback_bf16"] = read_counts(native)
+    files = sorted(f for f in os.listdir(sess))
+    playback = {"frames": pb.frames, "dropped": pb.dropped, "fps": pb.fps, "fps_1pct_low": pb.fps_1pct_low,
+                "model_ms": pb.model_ms, "ring_ms": pb.ring_ms, "wall_s": pb.wall_s, "files": files}
+    log(f"playback: {json.dumps(playback)}; {smi}")
+    if pb.frames <= 0 or files != ["runtime_metrics.csv", "session.json", "summary.txt"]:
+        raise AssertionError(f"playback: {playback}")
+    proc.graphs.clear()
+    proc = make(WEIGHTS, "fp16")
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    resident = run_device_resident(proc, "1080p", frames=RESIDENT_FRAMES)
+    torch.cuda.synchronize()
+    counts["device_resident_bf16"] = read_counts(native)
+    log(f"device resident: {json.dumps(resident)}; {smi}")
+    want = {k: 2 * v for k, v in expected_launches("bf16_mega").items()}
+    for name in ("playback_bf16", "device_resident_bf16"):
+        if counts[name] != want:
+            raise AssertionError(f"{name}: counted {counts[name]}, one graph capture's launches {want}")
+    if resident["frames"] != RESIDENT_FRAMES or not resident["device_model_ms"] > 0:
+        raise AssertionError(f"device resident: {resident}")
+    proc.graphs.clear()
+    del proc
+    torch.cuda.empty_cache()
+
+    # --- the CLI in subprocesses -----------------------------------------------------------------
+    from hdrtv_tpu_torch.models.import_npz import load_npz, load_npz_meta, npz_arch_dict
+    from hdrtv_tpu_torch.tools.synth_variants import to_torch_layout, write_pt
+
+    env = {**os.environ, "HDRTVNET_PREFS_PATH": os.path.join(tmp, "prefs.json"),
+           "HDRTVNET_ENGINE_CACHE_DIR": os.path.join(tmp, "engines")}
+    cli = {}
+
+    def run_cli(label, args, extra_env=None, timeout=600):
+        cmd = [sys.executable, "-m", "hdrtv_tpu_torch.cli", *args]
+        log(f"phase 11: {' '.join(cmd[1:])}")
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, env={**env, **(extra_env or {})}, capture_output=True, text=True,
+                           timeout=timeout)
+        cli[f"{label}_s"] = round(time.perf_counter() - t0, 1)
+        cli[f"{label}_rc"] = r.returncode
+        for line in r.stdout.strip().splitlines()[-4:]:
+            log(f"  {label}: {line}")
+        return r
+
+    # The doctor counts the presets' weight files: the shipped weights as the FP16 / FP32
+    # presets' reference HR.pt in a weights root of the phase's own.
+    wroot = os.path.join(tmp, "weights")
+    write_pt(os.path.join(wroot, "original", "HR.pt"), to_torch_layout(load_npz(WEIGHTS)),
+             dict(npz_arch_dict(load_npz_meta(WEIGHTS))))
+    r = run_cli("doctor", ["doctor"], {"HDRTVNET_WEIGHTS_ROOT": wroot})
+    report = json.loads(r.stdout)
+    name = torch.cuda.get_device_name(0)
+    if r.returncode != 0 or not report["ok"] or report["details"].get("device_name") != name:
+        raise AssertionError(f"doctor: exit {r.returncode}, {report}")
+    cli["doctor"] = {k: report["details"].get(k) for k in ("device_name", "capability", "nvidia_smi", "weights",
+                                                           "kernels_built")}
+    r = run_cli("bench_supervised", ["bench", "--supervised", "--resolution", "1080p", "--duration", "3",
+                                     "--no-realtime", "--out", os.path.join(tmp, "bench_cli")])
+    if r.returncode != 0 or "[wrapper] child rc=0" not in r.stdout:
+        raise AssertionError(f"bench --supervised: exit {r.returncode}; {r.stdout[-2000:]} {r.stderr[-2000:]}")
+    if has_cv2:
+        import cv2
+
+        clip = os.path.join(tmp, "sdr.avi")
+        vw = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MJPG"), 30.0, (w, h))
+        for f in frames:
+            vw.write(f)
+        vw.release()
+        r = run_cli("quality", ["quality", "--video", clip, "--gt", gt_path, "--frames", "2", "--resolution",
+                                "1080p", "--no-validate-gt", "--out", os.path.join(tmp, "quality_cli")])
+        if r.returncode != 0:
+            raise AssertionError(f"quality: exit {r.returncode}; {r.stdout[-2000:]} {r.stderr[-2000:]}")
+        cli["quality"] = "ran"
+    else:
+        cli["quality"] = "not run: no cv2 (the CLI's SDR source is cv2's VideoSource)"
+    log(f"cli quality: {cli['quality']}")
+
+    # --- the wrapper's budget on a child that prints nothing ------------------------------------
+    budget, most = WRAPPER_BUDGET_S
+    wr = PlaybackBenchmarkWrapper(argv=[sys.executable, "-c", "import time; time.sleep(60)"], budget_s=budget)
+    t0 = time.perf_counter()
+    rc = wr.run()
+    killed = time.perf_counter() - t0
+    wrapper = {"budget_s": budget, "killed_after_s": round(killed, 3), "rc": rc, "canceled": wr.canceled}
+    log(f"wrapper: {json.dumps(wrapper)}")
+    if not wr.canceled or rc == 0 or killed > most:
+        raise AssertionError(f"wrapper: the silent child was not killed within {most} s: {wrapper}")
+
+    figures.update(quality=quality, planted=planted, compare=comp, playback=playback, device_resident=resident,
+                   cli=cli, wrapper=wrapper, phase_s=round(time.perf_counter() - t_phase, 1))
+    return counts, figures
+
+
 def main() -> int:
     import torch
 
@@ -2858,6 +3241,8 @@ def main() -> int:
             models["variants"], counts["variants_bf16"] = phase_variants(torch, np, native, smi, tmp)
             models["metrics"] = phase_metrics(torch, np, frames)
             models["phase_s"] = round(time.perf_counter() - t10, 1)
+            bench_counts, bench = phase_bench(torch, np, native, smi, tmp)
+            counts.update(bench_counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2903,6 +3288,7 @@ def main() -> int:
     log(json.dumps({"graphs": graphs, "runtime": runtime}))
     log(json.dumps({"pipeline": pipeline}))
     log(json.dumps({"models": models}))
+    log(bench_line(bench))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -115,6 +115,7 @@ from __future__ import annotations
 
 import copy
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -176,7 +177,8 @@ class HDRTVNetTorch:
     ``model_path``: a converted ``.npz`` checkpoint (with its ``.json``
     sidecar) or a reference ``.pt`` (``hg_path``: the HG generator's own
     ``.pt`` beside an HR one; a ``.npz`` composite carries its ``hg.*``
-    keys itself). ``use_hg``: ``None`` takes the checkpoint's word (for a
+    keys itself, and an ``hg_path`` beside a ``.npz`` is ignored with a
+    warning, as ``HDRTVNetTPU`` ignores it). ``use_hg``: ``None`` takes the checkpoint's word (for a
     ``.pt`` without one, whether ``hg_path`` is given). ``precision``: the reference token: ``fp32``/``float32`` is
     true fp32 (TF32 off for the torch ops), every other token (the default
     ``fp16``, the int8 presets) computes in bf16. The parameters are cast to
@@ -243,8 +245,9 @@ class HDRTVNetTorch:
 
         if model_path.endswith(".npz"):
             if hg_path is not None:
-                raise ValueError(f"hg_path goes with a .pt model; the .npz {model_path} carries its own hg.* keys "
-                                 "when it is a composite")
+                # HDRTVNetTPU ignores it here too: a composite .npz carries its own hg.*
+                warnings.warn(f"hg_path {hg_path} ignored: hg_path goes with a .pt model; the .npz {model_path} "
+                              "carries its own hg.* keys when it is a composite", stacklevel=2)
             params = load_npz(model_path)
             arch = npz_arch_dict(load_npz_meta(model_path))
             if use_hg is None:

@@ -63,3 +63,40 @@ def test_stream_overlap_reads_a_trace(tmp_path):
     assert got["replay_stream"] == 7 and got["busy"] == round(106 / 110, 4) and got["kernel_ms"] == 0.081
     assert got["HtoD"] == {"n": 1, "ms": 0.02, "streams": ["13"], "overlapped": 0.5, "off_replay_stream": True}
     assert got["DtoH"]["overlapped"] == 0.5 and got["DtoH"]["off_replay_stream"]
+
+
+def test_bench_line_shape():
+    """Phase 11's {"bench": ...} line: one JSON object under "bench" with
+    every key of BENCH_KEYS in order (the figures of a card run, in the
+    shape phase_bench builds them); a missing or an extra key fails."""
+    import importlib.util
+    import json
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_bench", SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    row = {"psnr": 1e-5, "psnr_gn": 1e-5, "ssim": 1e-7, "delta_e_itp": 1e-4, "delta_e_itp_gn": 1e-4}
+    quality = {name: {"preset": spec[0], "mean_psnr": 76.8, "mean_ssim": 0.99998, "mean_delta_e_itp": 0.04,
+                      "psnr": [76.7] * mod.BENCH_FRAMES, "ms_per_frame": 2147.5, "card_vs_cpu_max": row,
+                      "artifacts_equal": True} for name, spec in mod.QUALITY_PRESETS.items()}
+    figures = {
+        "card": "NVIDIA H100 80GB HBM3, 700.00 W", "cv2": True, "ffmpeg": False, "quality": quality,
+        "planted": {"bound": mod.QUALITY_FP32_PSNR, "psnr": [22.0] * mod.BENCH_FRAMES,
+                    "gt_frame": list(range(mod.BENCH_FRAMES))},
+        "compare": {"frame": 4, "metrics": row, "row_apart": row},
+        "playback": {"frames": 1136, "dropped": 0, "fps": 234.04, "fps_1pct_low": 79.37, "model_ms": 4.39,
+                     "ring_ms": 14.22, "wall_s": 5.01, "files": ["runtime_metrics.csv", "session.json",
+                                                                 "summary.txt"]},
+        "device_resident": {"device_fps": 238.86, "device_model_ms": 4.187, "frames": mod.RESIDENT_FRAMES},
+        "cli": {"doctor_rc": 0, "bench_supervised_rc": 0, "quality": "ran"},
+        "wrapper": {"budget_s": 2.0, "killed_after_s": 2.01, "rc": -9, "canceled": True},
+        "phase_s": 148.3,
+    }
+    line = mod.bench_line(dict(reversed(list(figures.items()))))
+    body = json.loads(line)
+    assert list(body) == ["bench"] and tuple(body["bench"]) == mod.BENCH_KEYS
+    assert set(body["bench"]["quality"]) == {"quality_fp32", "quality_bf16", "quality_int8"}
+    assert mod.QUALITY_FP32_PSNR == round(20 * __import__("math").log10(1 / (0.5 / 876 + 1.8814 * 0.5 / 896)), 1)
+    for broken in ({k: v for k, v in figures.items() if k != "planted"}, {**figures, "extra": 1}):
+        with pytest.raises(AssertionError, match="bench line"):
+            mod.bench_line(broken)

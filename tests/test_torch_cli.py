@@ -15,6 +15,9 @@ The presets' resolutions are cut to 64 × 96 for the runs (``RESOLUTION_SCALES``
 patched): the CLI processes at the preset's size.
 """
 
+import csv
+import dataclasses
+import json
 import os
 
 import numpy as np
@@ -174,10 +177,8 @@ def test_presets_assets_engines_run(cpu_cli, capsys):
 @pytest.mark.parametrize("name", sorted(cli.NOT_PORTED))
 def test_unported_subcommands_raise(name, cpu_cli):
     argv = next((a for a in ARGVS if a[0] == name), None) or {
-        "quality": ["quality", "--video", "v", "--gt", "g"], "sweep": ["sweep", "--model", "m"],
+        "sweep": ["sweep", "--model", "m"],
         "layout": ["layout", "--model", "m", "--out", "o"], "qat": ["qat", "--model", "m", "--out", "o"],
-        "validate": ["validate", "--model", "m", "--teacher", "t"], "compare": ["compare", "--video", "v"],
-        "preview": ["preview", "--video", "v"], "figures": ["figures", "--input", "i"],
         "mine-hard-frames": ["mine-hard-frames", "--sdr-dir", "a", "--hdr-dir", "b", "--out", "o"],
         "teacher-pairs": ["teacher-pairs", "--video", "v", "--out", "o"],
     }.get(name, [name])
@@ -189,11 +190,10 @@ def test_unported_subcommands_raise(name, cpu_cli):
 @pytest.mark.parametrize("argv,item", [
     (["convert", "--audio", "--frames", "1"], "Queue 1 item 11"),
     (["convert", "--interactive", "--frames", "1"], "Queue 1 item 11"),
-    (["convert", "--log-session", "logs", "--frames", "1"], "Queue 1 item 11"),
     (["convert", "--mesh", "spatial", "--display", "null", "--frames", "1"], "Queue 1 item 13"),
     (["export", "--video", "v.mp4", "--hosts", "4", "--host-id", "2"], "Queue 1 item 13"),
     (["export", "--video", "v.mp4", "--mesh", "--batch", "2", "--resolution", "540p"], "Queue 1 item 13"),
-], ids=["audio", "interactive", "log-session", "mesh-spatial", "hosts", "export-mesh"])
+], ids=["audio", "interactive", "mesh-spatial", "hosts", "export-mesh"])
 def test_unported_options_raise(argv, item, cpu_cli):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv)
@@ -363,3 +363,337 @@ def test_convert_and_export_take_a_pt(cpu_cli, capsys, tmp_path):
                      "--resolution", "540p", "--output", str(cpu_cli / "y.rgb48")]) == 0
     capsys.readouterr()
     assert np.array_equal(got, np.fromfile(str(cpu_cli / "y.rgb48"), np.uint16).reshape(2, H, W, 3))
+
+
+# ---------------------------------------------------------------------------
+# The bench commands: bench, quality, compare, sessions, validate, preview,
+# figures, doctor, and convert --log-session
+# ---------------------------------------------------------------------------
+
+
+class _JaxFake:
+    """A processor for the JAX CLI's runs: the SDR frame as RGB48."""
+
+    model_path = ""
+
+    def warmup_compile(self, w, h, **kw):
+        return 0.0
+
+    def process_rgb48_device(self, frame):
+        import jax.numpy as jnp
+
+        return frame.astype(jnp.uint16) * 257
+
+    def process_rgb48(self, frame_bgr):
+        return frame_bgr[..., ::-1].astype(np.uint16) * 257
+
+
+class _TorchFake(_JaxFake):
+    """The same for the port's CLI, on torch tensors (HDRTVNetTorch's frame
+    contract: (H, 3W) u8 rows in, u16 out)."""
+
+    device = torch.device("cpu")
+
+    def put_frame(self, flat):
+        return torch.from_numpy(np.ascontiguousarray(flat))
+
+    def process_rgb48_device(self, x):
+        return x.to(torch.int32).mul(257).to(torch.uint16)
+
+
+@pytest.fixture
+def both_clis(cpu_cli, monkeypatch):
+    """The port's and the JAX CLI on fake processors at 64 × 96 (both
+    packages' presets cut), the sessions under tmp_path."""
+    from hdrtv_tpu import cli as jax_cli
+
+    for key in ("540p", "1080p"):
+        monkeypatch.setitem(jax_config.RESOLUTION_SCALES, key, (W, H))
+    monkeypatch.setattr(cli, "_make_processor", lambda args: _TorchFake())
+    monkeypatch.setattr(jax_cli, "_make_processor", lambda args: _JaxFake())
+    return {"port": cli.main, "jax": jax_cli.main}
+
+
+def _json_out(text):
+    return json.loads(text[text.index("{"):text.rindex("}") + 1])
+
+
+def test_bench_matches_jax(both_clis, cpu_cli, capsys):
+    """bench (the session's JSON and files), --device-resident-only and the
+    --resolutions / --runs matrix through both CLIs on the same fake."""
+    got = {}
+    for name, main in both_clis.items():
+        out = cpu_cli / name
+        assert main(["bench", "--duration", "0.3", "--no-realtime", "--out", str(out / "s")]) == 0
+        res = _json_out(capsys.readouterr().out)
+        assert main(["bench", "--duration", "0.1", "--device-resident-only"]) == 0
+        dr = _json_out(capsys.readouterr().out)
+        assert main(["bench", "--duration", "0.2", "--no-realtime", "--resolutions", "540p", "--runs", "FP16",
+                     "FP32", "--out", str(out / "b")]) == 0
+        text = capsys.readouterr().out
+        with open(out / "b" / "batch.csv") as f:
+            rows = list(csv.reader(f))
+        got[name] = (res, dr, sorted(os.listdir(out / "s")), text.splitlines()[-1].split(":")[0], rows)
+    (res, dr, files, last, rows), (jres, jdr, jfiles, jlast, jrows) = got["port"], got["jax"]
+    assert set(res) == set(jres) and res["config"] == jres["config"] and res["frames"] == jres["frames"] == 9
+    assert set(dr) == set(jdr) | {"device"} and dr["frames"] == jdr["frames"] == 3 and dr["resolution"] == "96x64"
+    assert files == jfiles == ["runtime_metrics.csv", "session.json", "summary.txt"]
+    assert last == jlast == "batch CSV" and rows[0] == jrows[0] and [r[:3] for r in rows] == [r[:3] for r in jrows]
+
+
+def test_bench_runs_the_port_processor(cpu_cli, capsys):
+    """bench on HDRTVNetTorch (CPU, 64 × 96): the device-resident chain and
+    the pipelined run, under the torch.profiler trace."""
+    trace = cpu_cli / "trace"
+    assert cli.main(["bench", "--duration", "0.2", "--no-realtime", "--resolution", "540p", "--device-resident",
+                     "--out", str(cpu_cli / "s"), "--trace", str(trace)]) == 0
+    text = capsys.readouterr().out
+    dr = json.loads(text[text.index("{"):text.index("}") + 1])
+    assert dr["frames"] == 6 and dr["device"] == "cpu" and dr["resolution"] == f"{W}x{H}"
+    assert "device trace written" in text and os.path.isfile(trace / "trace.json")
+    assert _json_out(text[text.index("}") + 1:])["frames"] == 6
+
+
+def test_bench_supervised_runs_the_jax_child(both_clis, monkeypatch, capsys):
+    """bench --supervised: the child's argv is the JAX CLI's with the port's
+    module, the child's rc is the command's, the batch table printed."""
+    from hdrtv_tpu.bench import wrapper as jw
+    from hdrtv_tpu_torch.bench import wrapper as tw
+
+    seen = {}
+    for name, mod in (("port", tw), ("jax", jw)):
+        class Recorder(mod.PlaybackBenchmarkWrapper):
+            def run(self, _name=name):
+                seen[_name] = self.argv
+                self.on_line("child line")
+                return 7
+
+        monkeypatch.setattr(mod, "PlaybackBenchmarkWrapper", Recorder)
+    argv = ["bench", "--supervised", "--resolution", "1080p", "--duration", "3", "--no-realtime"]
+    for name, main in both_clis.items():
+        assert main(argv) == 7
+        text = capsys.readouterr().out
+        assert "  | child line" in text and "[wrapper] child rc=7" in text
+    assert seen["port"][1:3] == ["-m", "hdrtv_tpu_torch.cli"] and seen["jax"][1:3] == ["-m", "hdrtv_tpu.cli"]
+    assert seen["port"][3:] == seen["jax"][3:] == [a for a in argv if a != "--supervised"]
+
+
+def _gt_pair(tmp, lead=2, n=30):
+    """An MJPG SDR clip of seeded noise frames and a 10-bit y4m ground truth
+    of the same frames ``lead`` frames late, with its PQ sidecar."""
+    import cv2
+
+    from hdrtv_tpu.pipeline.export import _y4m_sidecar
+    from hdrtv_tpu_torch.bench.y4m import Y4MWriter
+
+    frames = np.random.RandomState(7).randint(0, 255, (n, H, W, 3), np.uint8)
+    sdr = str(tmp / "clip.avi")
+    wr = cv2.VideoWriter(sdr, cv2.VideoWriter_fourcc(*"MJPG"), 25.0, (W, H))
+    for f in frames:
+        wr.write(f)
+    wr.release()
+    gt = str(tmp / "gt.y4m")
+    with Y4MWriter(gt, W, H, fps=25.0, ctag="422p10") as gw:
+        for _ in range(lead):
+            gw.write_rgb_unit(np.zeros((H, W, 3), np.float32), matrix="bt2020nc")
+        for f in frames:
+            gw.write_rgb_unit(f[..., ::-1].astype(np.float32) / 255.0, matrix="bt2020nc")
+    with open(gt + ".json", "w") as f:
+        json.dump(_y4m_sidecar(gt), f)
+    return sdr, gt
+
+
+def test_quality_matches_jax(both_clis, cpu_cli, capsys, monkeypatch):
+    """quality with the GT validation gate (the +2 sync offset found and fed
+    into the frame map) and quality --queue FP16,FP32, both CLIs on the same
+    fake: the same JSON (metrics at tests/test_torch_metrics.py's tolerances
+    plus the summary's rounding) and session folders."""
+    sdr, gt = _gt_pair(cpu_cli)
+    monkeypatch.chdir(cpu_cli)  # the GT sync cache goes to logs/ under the working directory
+    got = {}
+    for name, main in both_clis.items():
+        out = str(cpu_cli / name)
+        assert main(["quality", "--video", sdr, "--gt", gt, "--frames", "2", "--out", out]) == 0
+        text = capsys.readouterr().out
+        assert "GT validated" in text and "+2 frames" in text
+        single = _json_out(text)
+        assert main(["quality", "--video", sdr, "--gt", gt, "--frames", "2", "--no-validate-gt", "--out", out,
+                     "--queue", "FP16,FP32"]) == 0
+        queue = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+        got[name] = (single, queue)
+    (single, queue), (jsingle, jqueue) = got["port"], got["jax"]
+    assert set(single) == set(jsingle) and single["gt_decode"] == jsingle["gt_decode"] == "y4m-native-exact-10bit"
+    assert single["post_verify"] == jsingle["post_verify"]
+    tol = {"mean_psnr": 2e-4, "mean_ssim": 1.1e-5, "mean_delta_e_itp": 2e-4}
+    for a, b in [(single, jsingle)] + list(zip(queue, jqueue)):
+        assert all(abs(a[k] - b[k]) <= t * (max(1.0, abs(b[k])) if "delta" in k else 1.0) for k, t in tol.items())
+        assert os.path.basename(a["session_dir"]).split("__", 1)[1] == \
+            os.path.basename(b["session_dir"]).split("__", 1)[1]
+    assert [q["precision"] for q in queue] == [q["precision"] for q in jqueue] == ["FP16", "FP32"]
+
+
+def test_compare_matches_jax(both_clis, cpu_cli, capsys):
+    """compare --frame 3 against the y4m ground truth: the same metrics and
+    the same sheet files."""
+    sdr, gt = _gt_pair(cpu_cli, lead=0, n=6)
+    got = {}
+    for name, main in both_clis.items():
+        out = cpu_cli / name
+        assert main(["compare", "--video", sdr, "--gt", gt, "--frame", "3", "--out", str(out)]) == 0
+        got[name] = (_json_out(capsys.readouterr().out), sorted(os.listdir(out)))
+    (body, files), (jbody, jfiles) = got["port"], got["jax"]
+    assert files == jfiles and os.path.basename(body["sheet"]) == "compare_000003.png"
+    for k, v in jbody["metrics"].items():
+        tol = max(1e-4 * abs(v), 1e-3) if k.startswith("delta") else (1e-6 if k == "ssim" else 1e-4)
+        assert abs(body["metrics"][k] - v) <= tol, k
+
+
+def test_sessions_and_preview_match_jax(cpu_cli, capsys):
+    """sessions (JSON and text) over a quality and a playback session, and
+    preview's contact sheet: the JAX CLI's output, byte for byte."""
+    from hdrtv_tpu import cli as jax_cli
+
+    q = cpu_cli / "logs" / "benchmark_sessions" / "clip" / "x__FP16__540p__n2"
+    q.mkdir(parents=True)
+    (q / "summary.json").write_text(json.dumps({"source": "clip", "precision": "FP16", "resolution": "540p",
+                                                "frames": [1, 2], "mean_psnr": 41.2, "mean_ssim": 0.99,
+                                                "mean_delta_e_itp": 1.5, "gt_decode": "cv2-8bit"}))
+    p = cpu_cli / "logs" / "playback_sessions" / "cli"
+    p.mkdir(parents=True)
+    (p / "session.json").write_text(json.dumps({"config": {"precision_key": "FP16", "resolution_key": "1080p"},
+                                                "fps": 234.0, "fps_1pct_low": 79.4, "model_ms": 4.39,
+                                                "frames": 1136, "dropped": 0}))
+    clip = str(cpu_cli / "clip.avi")
+    _clip(clip, n=10)
+    for argv in (["sessions", "--roots", str(cpu_cli / "logs"), "--json"], ["sessions", "--roots",
+                                                                           str(cpu_cli / "logs")],
+                 ["sessions", "--roots", str(cpu_cli / "none")]):
+        rc = cli.main(argv)
+        text = capsys.readouterr().out
+        assert rc == jax_cli.main(argv) and text == capsys.readouterr().out
+    outs = {}
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        out = str(cpu_cli / f"{name}.png")
+        assert main(["preview", "--video", clip, "--frames", "6", "--columns", "3", "--thumb-width", "64",
+                     "--out", out]) == 0
+        outs[name] = (json.loads(capsys.readouterr().out)["grid"], open(out, "rb").read())
+    assert outs["port"] == outs["jax"] and outs["port"][0] == [2, 3]
+
+
+def test_figures_matches_jax(cpu_cli, capsys):
+    """figures over a session's frame folder: the same manifest and files,
+    the PNGs within one 8-bit code (the tone map's fp32 pow within 1e-3)."""
+    import cv2
+
+    from hdrtv_tpu import cli as jax_cli
+    from hdrtv_tpu.bench import hdr_io
+
+    d = cpu_cli / "sess" / "frames" / "000003"
+    d.mkdir(parents=True)
+    rng = np.random.RandomState(5)
+    cv2.imwrite(str(d / "sdr.png"), rng.randint(0, 255, (36, 64, 3), np.uint8))
+    for k in ("hdr_gt.tiff", "hdr_convert.tiff"):
+        hdr_io.write_tiff16(str(d / k), rng.randint(0, 65535, (36, 64, 3)).astype(np.uint16))
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        assert main(["figures", "--input", str(cpu_cli / "sess"), "--out", str(cpu_cli / name),
+                     "--render-size", "128x72"]) == 0
+        assert json.loads(capsys.readouterr().out.splitlines()[-1])["frames"] == 1
+    assert cli.main(["figures", "--input", str(cpu_cli / "sess"), "--out", str(cpu_cli / "x"),
+                     "--render-size", "x"]) == 2
+    for f in ("sdr.png", "hdr_convert.png", "hdr_gt.png", "contact_sheet.png"):
+        a = cv2.imread(str(cpu_cli / "port" / "frames__000003" / f), cv2.IMREAD_UNCHANGED).astype(np.int64)
+        b = cv2.imread(str(cpu_cli / "jax" / "frames__000003" / f), cv2.IMREAD_UNCHANGED).astype(np.int64)
+        assert a.shape == b.shape and np.abs(a - b).max() <= 1, f
+    with open(cpu_cli / "port" / "manifest.json") as f1, open(cpu_cli / "jax" / "manifest.json") as f2:
+        m1, m2 = json.load(f1), json.load(f2)
+    assert {k: v for k, v in m1.items() if k != "frames"} == {k: v for k, v in m2.items() if k != "frames"}
+
+
+def test_validate_matches_jax(cpu_cli, capsys, monkeypatch):
+    """validate --model (the W8A8 fixture) --teacher (the shipped fp32
+    weights) --expect-w8a8 127 --temporal, the validation frames cut to
+    24 × 32 in both packages: the same report within a flipped code's worth
+    (eager W8A8 in two implementations); a broken contract raises."""
+    from hdrtv_tpu import cli as jax_cli
+    from hdrtv_tpu.bench import validate as jv
+    from hdrtv_tpu_torch.bench import validate as tv
+
+    for mod in (jv, tv):
+        cut = mod._frames_for_validation
+        monkeypatch.setattr(mod, "_frames_for_validation", lambda f, n, size, _c=cut: _c(f, n, (24, 32)))
+    w8a8 = os.path.join(ROOT, "tests", "fixtures", "hr_w8a8.npz")
+    argv = ["validate", "--model", w8a8, "--teacher", WEIGHTS, "--frames", "1", "--expect-w8a8", "127"]
+    got = {}
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        assert main(argv) == 0
+        got[name] = _json_out(capsys.readouterr().out)
+    a, b = got["port"], got["jax"]
+    assert set(a) == set(b) and a["layer_mix"] == b["layer_mix"] == {"w8a8": 127, "fp": 1}
+    assert abs(a["psnr"] - b["psnr"]) <= 0.05 and abs(a["mae"] - b["mae"]) <= 2e-4
+    with pytest.raises(AssertionError, match="layer contract violated"):
+        cli.main(argv[:-1] + ["29"])
+
+
+def test_doctor_without_a_card(cpu_cli, capsys):
+    """doctor: no card, so exit 3 with the issue named; --no-device gives
+    the JAX check's keys of the tool belt and the weights."""
+    from hdrtv_tpu import cli as jax_cli
+
+    assert cli.main(["doctor"]) == 3
+    rep = json.loads(capsys.readouterr().out)
+    assert not rep["ok"] and any("no CUDA device" in i for i in rep["issues"])
+    assert cli.main(["doctor", "--no-device"]) == 3
+    rep = json.loads(capsys.readouterr().out)
+    jax_cli.main(["doctor", "--no-device"])
+    jrep = json.loads(capsys.readouterr().out)
+    assert rep["details"]["device_probe"] == "skipped" and "platform" not in rep["details"]
+    assert {k: rep["details"][k] for k in ("ffmpeg", "ffprobe", "mpv", "octave", "weights")} == \
+        {k: jrep["details"][k] for k in ("ffmpeg", "ffprobe", "mpv", "octave", "weights")}
+
+
+@pytest.mark.parametrize("cmd", ["bench", "quality", "compare", "validate", "figures"])
+def test_bench_commands_need_a_card_without_the_switch(cmd, monkeypatch, tmp_path):
+    """Without a CUDA device and without HDRTV_CLI_PLATFORM=cpu the bench
+    commands raise: the processor, the metrics, the validation models and
+    the figures' tone map do not fall back to the CPU."""
+    import cv2
+
+    from hdrtv_tpu_torch.bench import hdr_io
+
+    monkeypatch.delenv("HDRTV_CLI_PLATFORM", raising=False)
+    monkeypatch.setenv("HDRTVNET_PREFS_PATH", str(tmp_path / "prefs.json"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    clip = str(tmp_path / "clip.avi")
+    _clip(clip)
+    d = tmp_path / "sess" / "f"
+    d.mkdir(parents=True)
+    cv2.imwrite(str(d / "sdr.png"), np.zeros((8, 8, 3), np.uint8))
+    for k in ("hdr_gt.tiff", "hdr_convert.tiff"):
+        hdr_io.write_tiff16(str(d / k), np.zeros((8, 8, 3), np.uint16))
+    argv = {
+        "bench": ["bench", "--duration", "0.1"],
+        "quality": ["quality", "--video", clip, "--gt", clip, "--no-validate-gt"],
+        "compare": ["compare", "--video", clip],
+        "validate": ["validate", "--model", WEIGHTS, "--teacher", WEIGHTS],
+        "figures": ["figures", "--input", str(tmp_path / "sess"), "--out", str(tmp_path / "o")],
+    }[cmd]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
+
+
+def test_convert_log_session_writes_the_jax_layout(cpu_cli, capsys):
+    """convert --log-session: the playback session files of
+    bench/playback.py write_session, with the JAX CLI's config keys."""
+    from hdrtv_tpu.bench.playback import PlaybackResult
+
+    logs = cpu_cli / "logs"
+    assert cli.main(["convert", "--display", "null", "--frames", "2", "--no-realtime", "--log-session",
+                     str(logs)]) == 0
+    assert "session logged to" in capsys.readouterr().out
+    (sess,) = os.listdir(logs)
+    assert sess.endswith("_synthetic") and sorted(os.listdir(logs / sess)) == [
+        "runtime_metrics.csv", "session.json", "summary.txt"]
+    with open(logs / sess / "session.json") as f:
+        body = json.load(f)
+    assert set(body) == {f.name for f in dataclasses.fields(PlaybackResult)}
+    assert body["frames"] == 2 and set(body["config"]) == {"video", "precision", "resolution"}

@@ -269,10 +269,16 @@ def test_composite_hg_path_processor_matches_jax(tmp_path):
 
 
 def test_hg_path_with_npz_raises():
+    """``hg_path`` beside a ``.npz`` (which carries its own ``hg.*`` keys) is
+    ignored with a warning naming the ``.npz``, as ``HDRTVNetTPU`` ignores
+    it: the processor loads the ``.npz`` alone (the same configuration and
+    fingerprint)."""
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
-    with pytest.raises(ValueError, match="hg_path goes with a .pt model"):
-        HDRTVNetTorch(WEIGHTS, device="cpu", hg_path="hg.pt")
+    with pytest.warns(UserWarning, match=r"hg_path goes with a \.pt model; the \.npz .*hr_fp32\.npz carries"):
+        proc = HDRTVNetTorch(WEIGHTS, device="cpu", hg_path="hg.pt")
+    plain = HDRTVNetTorch(WEIGHTS, device="cpu")
+    assert not proc.cfg.use_hg and repr(proc.cfg) == repr(plain.cfg) and proc.model_hash == plain.model_hash
 
 
 def test_new_modules_leave_jax_and_ml_dtypes_out():

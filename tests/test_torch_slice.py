@@ -415,7 +415,10 @@ def test_uncovered_options_raise(kwargs):
     raises a ValueError naming them (the JAX package fails at the first
     frame, with a KeyError). ``hg_path`` runs since its port, with a ``.pt``
     HR file (``tests/test_torch_import.py``); beside a ``.npz``, which
-    carries its own ``hg.*`` keys, it raises a ValueError."""
+    carries its own ``hg.*`` keys, both runtimes ignore it (the port with a
+    warning naming the ``.npz``): each gives the frame it gives without it,
+    bit for bit, and the two within CODES of each other."""
+    from hdrtv_tpu.runtime.processor import HDRTVNetTPU
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
     if kwargs.get("use_hg"):
@@ -423,8 +426,17 @@ def test_uncovered_options_raise(kwargs):
             HDRTVNetTorch(WEIGHTS, device="cpu", **kwargs)
         return
     if "hg_path" in kwargs:
-        with pytest.raises(ValueError, match=r"hg_path goes with a \.pt model"):
-            HDRTVNetTorch(WEIGHTS, device="cpu", **kwargs)
+        frame = (np.random.RandomState(7).rand(64, 96, 3) * 255).astype(np.uint8)
+        with pytest.warns(UserWarning, match=r"hg_path hg\.pt ignored.*hr_fp32\.npz carries its own hg\.\* keys"):
+            proc = HDRTVNetTorch(WEIGHTS, device="cpu", **kwargs)
+        plain = HDRTVNetTorch(WEIGHTS, device="cpu", precision=kwargs["precision"])
+        jax_proc = HDRTVNetTPU(WEIGHTS, persistent_cache=False, **kwargs)
+        jax_plain = HDRTVNetTPU(WEIGHTS, persistent_cache=False, precision=kwargs["precision"])
+        assert not proc.cfg.use_hg and repr(proc.cfg) == repr(plain.cfg) and proc.model_hash == plain.model_hash
+        got, want = proc.process_rgb48(frame), jax_proc.process_rgb48(frame)
+        assert np.array_equal(got, plain.process_rgb48(frame))
+        assert np.array_equal(want, jax_plain.process_rgb48(frame))
+        assert np.abs(got.astype(np.int64) - want.astype(np.int64)).max() <= CODES
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         HDRTVNetTorch(WEIGHTS, device="cpu", **kwargs)
