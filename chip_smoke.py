@@ -271,7 +271,32 @@ lines; any failed check raises and the script exits non-zero with no result:
    --supervised (child rc 0) and, where cv2 imports, quality in subprocesses;
    the wrapper's budget killing a silent child within WRAPPER_BUDGET_S. It
    says first whether cv2 and ffmpeg are present; a {"bench": ...} line
-   (bench_line) comes before the card's line.
+   (bench_line) comes before the card's line;
+12. quantization, QAT and the data tooling (phase_quant; needs cv2): (a) PTQ and
+   max calibration of weights/hr_fp32.npz on the fixture's three frames
+   equal tests/fixtures/hr_w8a8.npz (codes and w_scale bit for bit, x_scale
+   within QUANT_FIXTURE_RTOL); (b) max, percentile and kl calibration at
+   QUANT_CAL_SIZE, half the layers asymmetric, card against CPU (scales
+   within QUANT_CAL_RTOL, kl's bins at most QUANT_KL_BINS apart, counted);
+   (c) the quantize CLI, max and kl, on three seeded 1080p natural frames
+   (lossless PNGs the CLI's video source reads), timed; each checkpoint on
+   the int8 default program at 1080p: one eager frame launching what
+   int8_bf16_mega launches (paths quant_ptq_max, quant_ptq_kl), phase 8's
+   graph drive with replays equal to the eager bytes, and the frame against
+   the natural float program on the same checkpoint at most INT8_PSNR_MARGIN
+   under INT8_PSNR_CPU; (d) one QAT step at QUANT_QAT_CHECK_SIZE card against
+   CPU (its loss, and a seeded VJP's gradients leaf by leaf: the bounds'
+   comment above phase_quant), then the qat CLI, QUANT_QAT_STEPS steps on
+   540p natural frames, asymmetric: ms a step, peak memory, finite losses
+   ending at most QUANT_LOSS_GROWTH times the first, its checkpoint on the
+   int8 default program as in (c) (path quant_qat; its PSNR printed); (e) the
+   layout CLI at its defaults, quantize --layout with it, sweep over that
+   checkpoint and (c)'s max one, the card's outputs' metrics on the CPU within
+   METRIC_TOL of the rows, the CPU's own rows printed beside; (f) a 1080p MJPG
+   clip, teacher-pairs on it (each teacher PNG equal to process_rgb48 of its
+   SDR frame), mine-hard-frames over the pairs. The phase takes at most
+   QUANT_PHASE_S; a {"quant": ...} line (quant_line) comes before the card's
+   line.
 
 The line before the last is the per-kernel JSON summary, one entry per
 kernel and element type, with the path whose launches it reports and its
@@ -3192,6 +3217,520 @@ def phase_bench(torch, np, native, smi: str, tmp: str) -> tuple[dict, dict]:
     return counts, figures
 
 
+# Phase 12: quantization, QAT and the data tooling (quant/calibrate.py, quant/qat.py,
+# quant/mixed.py, train.py, bench/sweep.py, data/curate.py and the CLI commands on them).
+# The checks' tolerances: the fixture's activation scales within QUANT_FIXTURE_RTOL (the
+# fp32 statistics of the same forward, summed in another order; tests/test_torch_quant.py);
+# card against CPU at QUANT_CAL_SIZE, max and percentile scales within QUANT_CAL_RTOL (the
+# card's and the CPU's fp32 convs sum in different orders; TF32 off) and kl's threshold bins
+# at most QUANT_KL_BINS apart; the QAT CLI's last loss at most QUANT_LOSS_GROWTH times its
+# first (tests/test_qat_cli.py's rule); the PTQ frames' int8 megakernel program against the
+# natural float program on the same checkpoint at most INT8_PSNR_MARGIN under INT8_PSNR_CPU
+# (phase 4's int8 bound). The QAT step at QUANT_QAT_CHECK_SIZE, card against CPU: its loss
+# against the frame within QUANT_QAT_LOSS_RTOL, and the gradients of a seeded VJP through
+# the fake-quantized model, every leaf, as a share of the leaf's largest magnitude: median
+# within QUANT_QAT_GRAD_MEDIAN and worst within QUANT_QAT_GRAD_TOL. The size is the least at
+# which the AGCM classifier's last InstanceNorm sees more than two pixels, so that its
+# leaves have gradients (at 64 x 128 it normalizes two pixels to ±1 whatever its input).
+# The bounds are those two CPU programs meet: the port's VJP and jax.grad of the same one,
+# on the CPU at this size, lie 1.4e-6 apart at the median leaf and 6.7e-4 at the worst
+# (LE.recon_trunk5.0.sft2.SFT_scale_conv0.bias: fp32 sums in two orders, and leaky ReLUs
+# whose input lies within them; tests/test_torch_train.py
+# test_seeded_vjp_matches_jax_at_128x256). (The L1 loss's own gradients are not compared leaf by
+# leaf: a residual within the two programs' rounding flips its sign.) The QAT checkpoint:
+# its int8 codes against finalize_qat of the same steps run again, at most QUANT_QAT_FLIPS
+# apart; its activation scales calibrated again from the placeholders within QUANT_CAL_RTOL.
+QUANT_CAL_SIZE = (270, 480)
+QUANT_FIXTURE_RTOL = 1e-5
+QUANT_CAL_RTOL = 1e-4
+QUANT_KL_BINS = 1
+QUANT_FULL_SIZE = (1080, 1920)
+QUANT_FULL_FRAMES = 3  # calibration frames; one more natural frame is the int8 frame
+QUANT_QAT_SIZE = (540, 960)
+QUANT_QAT_STEPS = 5
+QUANT_QAT_CHECK_SIZE = (128, 256)
+QUANT_QAT_LOSS_RTOL = 1e-5
+QUANT_QAT_GRAD_MEDIAN = 1e-5
+QUANT_QAT_GRAD_TOL = 1e-3
+QUANT_LOSS_GROWTH = 1.5
+QUANT_QAT_FLIPS = 6  # int8 codes two runs' latent weights may round apart (tests/test_torch_train.py RUN_QAT_FLIPS)
+QUANT_SWEEP_FRAMES, QUANT_SWEEP_SIZE = 3, (192, 256)  # the sweep CLI's --frames and precision_sweep's size
+QUANT_SWEEP_TOL = (0.3, 4e-4, 0.03)  # PSNR dB, SSIM, ΔEITP relative: the int8 rows' bound of test_torch_curate_sweep.py
+QUANT_TEACHER_FRAMES = 3
+QUANT_PHASE_S = 150.0
+QUANT_KEYS = ("card", "fixture", "card_vs_cpu", "ptq", "qat", "layout", "sweep", "data", "phase_s")
+
+
+def quant_line(figures: dict) -> str:
+    """Phase 12's {"quant": ...} line, its keys in QUANT_KEYS' order; a
+    missing or an extra key fails."""
+    if set(figures) != set(QUANT_KEYS):
+        raise AssertionError(f"quant line: keys {sorted(figures)} != {sorted(QUANT_KEYS)}")
+    return json.dumps({"quant": {k: figures[k] for k in QUANT_KEYS}})
+
+
+def unit_u8(np, frame):
+    """A [0, 1] float frame as u8 BGR and back as the [0, 1] RGB float a
+    video source gives (the CLI's frames)."""
+    u8 = (np.clip(frame, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)[..., ::-1].copy()
+    return u8, u8[..., ::-1].astype(np.float32) / 255.0
+
+
+def png_sequence(np, cv2, frames, folder: str) -> str:
+    """Write [0, 1] frames as lossless u8 PNGs; the printf pattern cv2 (and
+    so the CLI's VideoSource) opens as a video."""
+    os.makedirs(folder, exist_ok=True)
+    for i, f in enumerate(frames):
+        if not cv2.imwrite(os.path.join(folder, f"f_{i:03d}.png"), unit_u8(np, f)[0]):
+            raise AssertionError(f"cv2 could not write a PNG into {folder}")
+    return os.path.join(folder, "f_%03d.png")
+
+
+def quant_sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def cli_in_process(torch, args: list) -> tuple[str, float]:
+    """The port's CLI in this process (on DEVICE, its stdout captured);
+    exit 0 required. Returns the output and the seconds."""
+    import contextlib
+    import io
+
+    from hdrtv_tpu_torch import cli
+
+    buf = io.StringIO()
+    log(f"phase 12: hdrtv_tpu_torch.cli {' '.join(args)}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    quant_sync(torch)
+    sec = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.strip().splitlines()[-3:]:
+        log(f"  {args[0]}: {line}")
+    if rc != 0:
+        raise AssertionError(f"cli {args[0]}: exit {rc}; {out[-2000:]}")
+    return out, sec
+
+
+def quant_int8_frame(torch, np, native, smi: str, path: str, ckpt: str, frame, floor: bool) -> tuple[dict, dict]:
+    """A checkpoint the port made, on the int8 default (megakernel) program at
+    1080p: one eager frame launching what int8_bf16_mega launches (the counts
+    set to 0 before it, read after), its CUDA graph replaying it bit for bit
+    (phase 8's drive), and its PSNR against the natural-layout float program
+    on the same (pre-dequantized) checkpoint, held to phase 4's int8 bound
+    where ``floor``."""
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    set_path_env(PATHS["int8_bf16_mega"])
+    proc = HDRTVNetTorch(ckpt, precision="fp16", device=DEVICE)
+    if not proc.native_int8 or not proc.turbo:
+        raise AssertionError(f"{path}: native_int8 {proc.native_int8}, turbo {proc.turbo}")
+    h, w, _ = frame.shape
+    x = proc.put_frame(frame.reshape(h, w * 3))
+    proc._rgb48_eager(x)
+    quant_sync(torch)
+    native.reset_launch_counts()
+    out = proc._rgb48_eager(x)
+    quant_sync(torch)
+    counts = read_counts(native)
+    expected = expected_launches("int8_bf16_mega")
+    log(f"{path}: launches for one frame: {counts}")
+    if counts != expected:
+        raise AssertionError(f"{path}: launch counts {counts} != {expected}")
+    if out.shape != (h // 2, 2, w // 2, 6) or out.dtype != torch.uint16:
+        raise AssertionError(f"{path}: output {tuple(out.shape)} {out.dtype}")
+    graph = phase_graph(torch, native, smi, proc, x, out, expected, f"1080p {path}", 2, graph_bound("int8_bf16_mega"))
+    if not graph["equal"]:
+        raise AssertionError(f"{path}: the replays differ from the eager frame")
+    o = proc._hw3(out.cpu().numpy()).astype(np.int64)
+    nat = HDRTVNetTorch(ckpt, precision="fp16", device=DEVICE, turbo=False)
+    f = eager_rgb48(nat, frame).astype(np.int64)
+    p = psnr(float((((o - f) / 65535.0) ** 2).mean()))
+    differ = float((o != f).mean())
+    least = INT8_PSNR_CPU["int8_bf16_mega"] - INT8_PSNR_MARGIN
+    log(f"{path}: int8 megakernel frame against the natural float program on the same checkpoint: PSNR {p:.2f} dB"
+        + (f" (floor {least:.2f})" if floor else " (information)") + f", {differ:.3f} of the values differ; {smi}")
+    if differ == 0.0 or (floor and p < least):
+        raise AssertionError(f"{path}: int8 against float PSNR {p:.2f} dB, {differ} of the values differ")
+    del proc, nat, x, out
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return counts, {"psnr_vs_natural_float": round(p, 3), "differ": round(differ, 4), "graph": graph}
+
+
+def kl_bin(kl_scale, max_scale) -> int:
+    """The KL threshold bin behind a symmetric layer's kl scale: the scale
+    is (bin + 0.5) · (range / KL_BINS) / 127 on the range of the layer's
+    abs-max, which is the max method's scale × 127 on the same frames."""
+    from hdrtv_tpu_torch.quant.calibrate import KL_BINS
+
+    f = float(kl_scale) * KL_BINS / float(max_scale) - 0.5
+    if abs(f - round(f)) > 1e-2:
+        raise AssertionError(f"a kl scale {kl_scale} that is no bin of the range {float(max_scale) * 127}")
+    return round(f)
+
+
+def qat_checkpoint_checks(torch, np, ckpt: dict, latent: dict, layers: list, frames) -> dict:
+    """What finalize_qat and the calibration after QAT wrote. (1) The int8
+    weights: finalize_qat of the latent weights that qat_step_ms's run of
+    the same steps left (same frames, lr and device) against the
+    checkpoint's: at most QUANT_QAT_FLIPS codes apart and every w_scale
+    within QUANT_FIXTURE_RTOL. (2) The activation scales and zero points:
+    the checkpoint with its placeholders restored (x_scale 1, x_zero 0, as
+    quantize_params writes them), calibrated again on DEVICE on the QAT
+    frames, within QUANT_CAL_RTOL of its own. (Its int8 frame's PSNR
+    against the float program is printed only: the calibration's forward
+    runs the placeholders' fake-quant, as the JAX package's does, and puts
+    LE.HR_conv2's range at about [-16, 78] where its input lies in about
+    [-0.2, 0.8]; whether the asymmetric code grid then holds 0 decides 33.5
+    or 18.4 dB between two checkpoints 1e-5 apart, on the CPU's plain int8
+    program too.)"""
+    from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig
+    from hdrtv_tpu_torch.quant.calibrate import calibrate
+    from hdrtv_tpu_torch.quant.qat import finalize_qat
+
+    mine = finalize_qat(latent, layers, asymmetric=True)
+    codes = [k for k in ckpt if k.endswith(".weight_int8")]
+    if sorted(codes) != sorted(k for k in mine if k.endswith(".weight_int8")):
+        raise AssertionError("the QAT checkpoint's int8 layers differ from finalize_qat's")
+    flips = sum(int((np.asarray(ckpt[k]) != mine[k]).sum()) for k in codes)
+    n_codes = sum(int(np.asarray(ckpt[k]).size) for k in codes)
+    w_rel = max(float(np.abs(np.asarray(ckpt[k], np.float64) / mine[k] - 1.0).max())
+                for k in ckpt if k.endswith(".w_scale"))
+    held = dict(ckpt)
+    for k in ckpt:
+        if k.endswith(".x_scale"):
+            held[k] = np.float32(1.0)
+        elif k.endswith(".x_zero"):
+            held[k] = np.float32(0.0)
+    again = calibrate(held, frames, ModelConfig(), device=DEVICE)
+    scale_rel = max(abs(float(again[k]) - float(ckpt[k])) / max(abs(float(ckpt[k])), 1e-6)
+                    for k in ckpt if k.endswith((".x_scale", ".x_zero")))
+    out = {"code_flips": flips, "codes": n_codes, "w_scale_worst_rel": float(f"{w_rel:.3e}"),
+           "recalibrated_worst_rel": float(f"{scale_rel:.3e}")}
+    log(f"phase 12 (d): the QAT checkpoint against finalize_qat of the same steps run again: {flips} of {n_codes} "
+        f"codes apart (bound {QUANT_QAT_FLIPS}), w_scale within {w_rel:.2e} (bound {QUANT_FIXTURE_RTOL}); its "
+        f"activation scales calibrated again from the placeholders within {scale_rel:.2e} (bound {QUANT_CAL_RTOL})")
+    if flips > QUANT_QAT_FLIPS or w_rel > QUANT_FIXTURE_RTOL or scale_rel > QUANT_CAL_RTOL:
+        raise AssertionError(f"the QAT checkpoint: {out}")
+    return out
+
+
+def sweep_outputs(torch, fp32: dict, presets: dict, cfg) -> dict:
+    """The sweep's programs again on DEVICE, on its frames at its size (the
+    CLI's defaults): each preset's clipped outputs and, under None, the fp32
+    references, as device tensors (the metrics of precision_sweep's rows
+    are computed from these)."""
+    from hdrtv_tpu_torch.bench.sweep import _frames
+    from hdrtv_tpu_torch.models.hdrtvnet import model_apply, natural_params_to_torch
+    from hdrtv_tpu_torch.models.layers import BF16, F32
+    from hdrtv_tpu_torch.quant.calibrate import frame_inputs
+
+    with torch.inference_mode():
+        inputs = [frame_inputs(f, DEVICE) for f in _frames(QUANT_SWEEP_FRAMES, QUANT_SWEEP_SIZE)]
+        fp = natural_params_to_torch(fp32, DEVICE, F32)
+        out = {None: [model_apply(fp, img, cond, cfg, policy=F32).clamp(0, 1)[0] for img, cond in inputs]}
+        for name, v in presets.items():
+            policy = F32 if v["precision"] == "fp32" else BF16
+            with policy.math():
+                pj = natural_params_to_torch(v["params"], DEVICE, policy)
+                out[name] = [model_apply(pj, img, cond, cfg, policy=policy).clamp(0, 1)[0] for img, cond in inputs]
+    return out
+
+
+def qat_step_ms(torch, np, fp32: dict, frames, layers: list) -> tuple[list, dict]:
+    """run_qat's loop on DEVICE (the teacher's forward, then one STE
+    fake-quant training step on the frame), each step's ms on the host's
+    clock: the step ends with its loss read back, so the device has
+    finished it (the qat CLI's own steps are not timed from outside). Also
+    returns the latent weights the steps leave, as numpy."""
+    from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig, model_apply, natural_params_to_torch
+    from hdrtv_tpu_torch.quant.calibrate import frame_inputs
+    from hdrtv_tpu_torch.quant.qat import make_weight_fake_quant
+    from hdrtv_tpu_torch.train import init_state, make_train_step, params_to_numpy
+
+    cfg = ModelConfig()
+    teacher = natural_params_to_torch(fp32, DEVICE)
+    train = make_train_step(cfg, fake_quant=make_weight_fake_quant(layers))
+    state = init_state(fp32, lr=2e-6, device=DEVICE)
+    out = []
+    for frame in frames:
+        with torch.no_grad():
+            img, cond = frame_inputs(frame, DEVICE)
+            t_out = model_apply(teacher, img, cond, cfg)
+        quant_sync(torch)
+        t0 = time.perf_counter()
+        state, loss = train(state, img, cond, t_out, t_out)
+        float(loss)
+        out.append(round((time.perf_counter() - t0) * 1e3, 3))
+    latent = params_to_numpy(state.params)
+    del state, teacher
+    return out, latent
+
+
+def phase_quant(torch, np, native, smi: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 12 (its checks in the constants' comment above): (a) PTQ and max
+    calibration of weights/hr_fp32.npz on the fixture's three frames
+    reproduce tests/fixtures/hr_w8a8.npz; (b) max, percentile and kl
+    calibration at QUANT_CAL_SIZE, half the layers asymmetric, card against
+    CPU; (c) the quantize CLI on three seeded 1080p natural frames with the
+    max and kl methods, timed, each checkpoint on the int8 default program
+    (quant_int8_frame; paths quant_ptq_max, quant_ptq_kl); (d) one QAT step
+    card against CPU (tools/qat_probe.py vjp_apart), then the qat CLI, QUANT_QAT_STEPS steps on 540p natural
+    frames, asymmetric, its peak memory, run_qat's steps timed again in
+    process (qat_step_ms), its checkpoint on the int8 default program (path
+    quant_qat) and its weights and scales held (qat_checkpoint_checks); (e)
+    layout at its CLI defaults, quantize --layout with it, sweep over that
+    checkpoint and (c)'s max one: its rows against the CPU's sweep of the
+    same checkpoints within QUANT_SWEEP_TOL, and the metrics of the card's
+    outputs (sweep_outputs) on the CPU within METRIC_TOL of the rows; (f) a 1080p MJPG clip, teacher-pairs on it (each
+    teacher PNG equal to process_rgb48 of its SDR PNG), mine-hard-frames
+    over the pairs. Everything under fp32_math (main's)."""
+    import cv2
+
+    from hdrtv_tpu_torch.bench.sweep import natural_frames, precision_sweep
+    from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig
+    from hdrtv_tpu_torch.models.import_npz import load_npz
+    from hdrtv_tpu_torch.ops.metrics import full_reference_metrics
+    from hdrtv_tpu_torch.quant.calibrate import calibrate
+    from hdrtv_tpu_torch.quant.int8 import (DEFAULT_EXCLUDE_SUFFIXES, load_mixed_layout, quantizable_layers,
+                                            quantize_params, quantized_layer_summary)
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+    from hdrtv_tpu_torch.tools.qat_probe import vjp_apart
+
+    t_phase = time.perf_counter()
+    log(f"phase 12: quantization, QAT and data tooling on the card; {smi}")
+    qtmp = os.path.join(tmp, "quant")
+    os.makedirs(qtmp, exist_ok=True)
+    saved_env = {k: os.environ.get(k) for k in ("HDRTVNET_ENGINE_CACHE_DIR", "HDRTV_CLI_PLATFORM")}
+    os.environ["HDRTVNET_ENGINE_CACHE_DIR"] = os.path.join(qtmp, "engines")
+    if DEVICE == "cuda":
+        os.environ.pop("HDRTV_CLI_PLATFORM", None)
+    else:
+        os.environ["HDRTV_CLI_PLATFORM"] = DEVICE
+    cfg = ModelConfig()
+    fp32 = load_npz(WEIGHTS)
+    counts, figures = {}, {"card": smi}
+    try:
+        # (a) the fixture -------------------------------------------------------------------------
+        yy, xx = np.mgrid[0:32, 0:48].astype(np.float32)
+        fx_frames = [np.stack([xx / 48 * s, yy / 32 * s, np.full_like(xx, 0.2 + 0.2 * s)], -1)
+                     for s in (0.6, 0.9, 1.0)]
+        t0 = time.perf_counter()
+        got = calibrate(quantize_params(fp32, mode="w8a8"), fx_frames, cfg, device=DEVICE)
+        a_s = time.perf_counter() - t0
+        with np.load(INT8_WEIGHTS) as z:
+            want = {k: z[k] for k in z.files}
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"fixture: keys differ: {sorted(set(got) ^ set(want))[:8]}")
+        unequal = [k for k in want if not k.endswith(".x_scale") and not np.array_equal(np.asarray(got[k]), want[k])]
+        worst = max(abs(float(got[k]) / float(want[k]) - 1.0) for k in want if k.endswith(".x_scale"))
+        figures["fixture"] = {"codes_and_w_scale_equal": not unequal, "x_scale_worst_rel": float(f"{worst:.3e}"),
+                              "s": round(a_s, 2)}
+        log(f"phase 12 (a): the card's PTQ of {os.path.basename(WEIGHTS)} on the fixture's frames: codes and "
+            f"w_scale equal {not unequal}, x_scale worst relative {worst:.3e} (bound {QUANT_FIXTURE_RTOL})")
+        if unequal or worst > QUANT_FIXTURE_RTOL:
+            raise AssertionError(f"fixture: {len(unequal)} code arrays differ ({unequal[:4]}), x_scale {worst}")
+
+        # (b) card against CPU ---------------------------------------------------------------------
+        cal_frames = [unit_u8(np, f)[1] for f in natural_frames(1, QUANT_CAL_SIZE)]
+        q = quantize_params(fp32, mode="w8a8")
+        layers = sorted(k[: -len(".x_scale")] for k in q if k.endswith(".x_scale"))
+        for l in layers[::2]:
+            q[f"{l}.x_zero"] = np.float32(0.0)  # half the layers asymmetric
+        vs_cpu, max_of = {}, {}
+        for method in ("max", "percentile", "kl"):
+            t0 = time.perf_counter()
+            card = calibrate(q, cal_frames, cfg, method=method, device=DEVICE)
+            c_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = calibrate(q, cal_frames, cfg, method=method, device="cpu")
+            p_s = time.perf_counter() - t0
+            if method == "max":
+                max_of = {"card": card, "cpu": cpu}
+            worst, bins = 0.0, {"equal": 0, "one_apart": 0, "more": 0}
+            for k in cpu:
+                if not k.endswith((".x_scale", ".x_zero")):
+                    continue
+                layer = k.rsplit(".", 1)[0]
+                if method == "kl" and f"{layer}.x_zero" not in q:
+                    d = abs(kl_bin(card[k], max_of["card"][k]) - kl_bin(cpu[k], max_of["cpu"][k]))
+                    bins["equal" if d == 0 else "one_apart" if d == 1 else "more"] += 1
+                    continue
+                c, p = float(card[k]), float(cpu[k])
+                worst = max(worst, abs(c - p) / max(abs(p), 1e-6))
+            vs_cpu[method] = {"worst_rel": float(f"{worst:.3e}"), "card_s": round(c_s, 2), "cpu_s": round(p_s, 2)}
+            if method == "kl":
+                vs_cpu[method]["kl_bins"] = bins
+            log(f"phase 12 (b): {method} at {QUANT_CAL_SIZE[0]}x{QUANT_CAL_SIZE[1]}, card against CPU: "
+                f"{json.dumps(vs_cpu[method])} (bound {QUANT_CAL_RTOL} relative"
+                + (f", kl bins at most {QUANT_KL_BINS} apart)" if method == "kl" else ")"))
+            if worst > QUANT_CAL_RTOL or bins["more"]:
+                raise AssertionError(f"calibrate {method}: card against CPU {vs_cpu[method]}")
+        figures["card_vs_cpu"] = vs_cpu
+
+        # (c) the quantize CLI at 1080p -------------------------------------------------------------
+        nat = natural_frames(QUANT_FULL_FRAMES + 1, QUANT_FULL_SIZE)
+        seq = png_sequence(np, cv2, nat[:QUANT_FULL_FRAMES], os.path.join(qtmp, "calib"))
+        int8_frame = unit_u8(np, nat[QUANT_FULL_FRAMES])[0]
+        ptq, ckpts = {}, {}
+        for method in ("max", "kl"):
+            ckpts[method] = os.path.join(qtmp, f"ptq_{method}.npz")
+            out, sec = cli_in_process(torch, ["quantize", "--model", WEIGHTS, "--out", ckpts[method], "--calib-video",
+                                              seq, "--calib-frames", str(QUANT_FULL_FRAMES), "--calib-method",
+                                              method])
+            mix = {}
+            for v in quantized_layer_summary(load_npz(ckpts[method])).values():
+                mix[v] = mix.get(v, 0) + 1
+            if mix != {"w8a8": len(layers), "fp": 1}:
+                raise AssertionError(f"quantize {method}: layer mix {mix}")
+            path = f"quant_ptq_{method}"
+            counts[path], ptq[method] = quant_int8_frame(torch, np, native, smi, path, ckpts[method], int8_frame, True)
+            ptq[method]["quantize_s"] = round(sec, 2)
+            log(f"phase 12 (c): quantize --calib-method {method} on {QUANT_FULL_FRAMES} 1080p frames: {sec:.2f} s")
+        figures["ptq"] = ptq
+
+        # (d) QAT ----------------------------------------------------------------------------------
+        default_layers = [l for l in quantizable_layers(fp32) if not l.endswith(DEFAULT_EXCLUDE_SUFFIXES)]
+        check = unit_u8(np, natural_frames(1, QUANT_QAT_CHECK_SIZE)[0])[1]
+        loss_rel, rel = vjp_apart(fp32, check, default_layers, DEVICE)
+        grad_worst = max(rel.values())
+        grad_median = sorted(rel.values())[len(rel) // 2]
+        cls = max(v for k, v in rel.items() if ".classifier." in k)
+        qat_check = {"size": list(QUANT_QAT_CHECK_SIZE), "loss_rel": float(f"{loss_rel:.3e}"),
+                     "leaves": len(rel), "worst_rel": float(f"{grad_worst:.3e}"),
+                     "median_rel": float(f"{grad_median:.3e}"), "classifier_worst_rel": float(f"{cls:.3e}")}
+        log(f"phase 12 (d): one QAT step at {QUANT_QAT_CHECK_SIZE[0]}x{QUANT_QAT_CHECK_SIZE[1]}, card against CPU: "
+            f"loss relative {loss_rel:.2e} (bound {QUANT_QAT_LOSS_RTOL}); a seeded VJP through the fake-quantized "
+            f"model: {len(rel)} leaves, median {grad_median:.2e} (bound {QUANT_QAT_GRAD_MEDIAN}) and worst "
+            f"{grad_worst:.2e} (bound {QUANT_QAT_GRAD_TOL}) of their largest magnitude "
+            f"({json.dumps({k: float(f'{v:.2e}') for k, v in sorted(rel.items(), key=lambda kv: -kv[1])[:3]})}); "
+            f"the classifier's leaves within {cls:.2e}")
+        if (loss_rel > QUANT_QAT_LOSS_RTOL or grad_worst > QUANT_QAT_GRAD_TOL or grad_median > QUANT_QAT_GRAD_MEDIAN
+                or sum(".classifier." in k for k in rel) != 20):
+            raise AssertionError(f"QAT step card against CPU: {qat_check}")
+        qat_frames = natural_frames(QUANT_QAT_STEPS, QUANT_QAT_SIZE)
+        qseq = png_sequence(np, cv2, qat_frames, os.path.join(qtmp, "qat"))
+        qat_ckpt = os.path.join(qtmp, "qat.npz")
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        out, sec = cli_in_process(torch, ["qat", "--model", WEIGHTS, "--out", qat_ckpt, "--frames-video", qseq,
+                                          "--num-frames", str(QUANT_QAT_STEPS), "--steps", str(QUANT_QAT_STEPS)])
+        peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+        rep = json.loads(out[out.index("{"):])
+        first, last = rep["loss_first"], rep["loss_last"]
+        step_ms, latent = qat_step_ms(torch, np, fp32, [unit_u8(np, f)[1] for f in qat_frames], default_layers)
+        qat = {"check": qat_check, "loss_first": first, "loss_last": last, "step_ms": step_ms,
+               "ms_per_step": round(sum(step_ms[1:]) / max(len(step_ms) - 1, 1), 3),
+               "peak_gib": round(peak / 2**30, 3), "cli_s": round(sec, 2), "layer_mix": rep["layer_mix"]}
+        log(f"phase 12 (d): qat, {QUANT_QAT_STEPS} steps at {QUANT_QAT_SIZE[0]}x{QUANT_QAT_SIZE[1]}: "
+            f"{json.dumps(qat)}; {smi}")
+        if (not (math.isfinite(first) and math.isfinite(last)) or last > QUANT_LOSS_GROWTH * first
+                or rep["layer_mix"] != {"w8a8-asym": 127, "fp": 1}):
+            raise AssertionError(f"qat: {rep}")
+        counts["quant_qat"], qat["int8"] = quant_int8_frame(torch, np, native, smi, "quant_qat", qat_ckpt, int8_frame,
+                                                            False)
+        qat["checkpoint"] = qat_checkpoint_checks(torch, np, load_npz(qat_ckpt), latent, default_layers,
+                                                  [unit_u8(np, f)[1] for f in qat_frames])
+        figures["qat"] = qat
+
+        # (e) layout, quantize --layout, sweep ------------------------------------------------------
+        lay = os.path.join(qtmp, "layout.txt")
+        _, lay_s = cli_in_process(torch, ["layout", "--model", WEIGHTS, "--out", lay])
+        chosen = load_mixed_layout(lay)
+        mixed = os.path.join(qtmp, "mixed.npz")
+        _, mq_s = cli_in_process(torch, ["quantize", "--model", WEIGHTS, "--out", mixed, "--layout", lay])
+        mmix = {}
+        for v in quantized_layer_summary(load_npz(mixed)).values():
+            mmix[v] = mmix.get(v, 0) + 1
+        if len(chosen) != 29 or mmix.get("w8a8") != 29:
+            raise AssertionError(f"layout: {len(chosen)} layers chosen, mixed checkpoint {mmix}")
+        figures["layout"] = {"layers": chosen, "layout_s": round(lay_s, 2), "quantize_s": round(mq_s, 2),
+                             "layer_mix": mmix}
+        out, sw_s = cli_in_process(torch, ["sweep", "--model", WEIGHTS, "--preset-checkpoints", f"mixed={mixed}",
+                                           f"ptq_max={ckpts['max']}"])
+        rows = json.loads(out[out.index("["):])
+        presets = {"mixed": {"params": load_npz(mixed), "precision": "bf16"},
+                   "ptq_max": {"params": load_npz(ckpts["max"]), "precision": "bf16"}}
+        cpu_rows = precision_sweep(fp32, cfg, presets=presets, device="cpu")
+        outs = sweep_outputs(torch, fp32, presets, cfg)
+        keys = ("psnr", "ssim", "delta_e_itp")
+        rounding = {"psnr": 1e-3, "ssim": 1e-5, "delta_e_itp": 1e-4}  # the rows' own rounding
+        program_apart, metric_apart, bad = {}, {}, []
+        for row, cpu_row in zip(rows, cpu_rows):
+            name = row["preset"]
+            program_apart[name] = {k: abs(row[k] - getattr(cpu_row, k)) / (
+                max(getattr(cpu_row, k), 1e-3) if k.startswith("delta") else 1.0) for k in keys}
+            bad += [(name, k, "program") for k, tol in zip(keys, QUANT_SWEEP_TOL)
+                    if program_apart[name][k] > tol + rounding[k]]
+            on = {dev: [full_reference_metrics(o.to(dev), r.to(dev)) for o, r in zip(outs[name], outs[None])]
+                  for dev in (DEVICE, "cpu")}
+            mean = {dev: {k: float(np.mean([float(v[k]) for v in m])) for k in keys} for dev, m in on.items()}
+            again = [k for k in keys if abs(mean[DEVICE][k] - row[k]) > rounding[k]]
+            if again:
+                raise AssertionError(f"sweep {name}: the outputs again give {mean[DEVICE]}, the CLI's row {row}")
+            metric_apart[name] = {k: abs(row[k] - mean["cpu"][k]) / (abs(mean["cpu"][k]) if k.startswith("delta")
+                                                                     else 1.0) for k in keys}
+            bad += [(name, k, "metrics") for k in keys if metric_apart[name][k] > METRIC_TOL[k] + rounding[k]]
+        log(f"phase 12 (e): sweep rows on the card {json.dumps(rows)}; the CPU's sweep on the same checkpoints, "
+            f"|card - cpu| (ΔEITP relative) {json.dumps(program_apart)} (bound {QUANT_SWEEP_TOL}); the metrics of "
+            f"the card's outputs on the CPU, |row - cpu| {json.dumps(metric_apart)} (bound METRIC_TOL)")
+        if bad or [r["preset"] for r in rows] != ["mixed", "ptq_max"]:
+            raise AssertionError(f"sweep: the card's rows beyond their bounds of the CPU's on {bad}")
+        figures["sweep"] = {"rows": rows, "programs_apart": program_apart, "metrics_apart": metric_apart,
+                            "cli_s": round(sw_s, 2)}
+
+        # (f) data tooling -------------------------------------------------------------------------
+        h, w = QUANT_FULL_SIZE
+        clip = os.path.join(qtmp, "clip.avi")
+        vw = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MJPG"), 24.0, (w, h))
+        for f in nat:
+            vw.write(unit_u8(np, f)[0])
+        vw.release()
+        pairs = os.path.join(qtmp, "pairs")
+        out, tp_s = cli_in_process(torch, ["teacher-pairs", "--video", clip, "--out", pairs, "--num-frames",
+                                           str(QUANT_TEACHER_FRAMES)])
+        with open(os.path.join(pairs, "manifest.json")) as fh:
+            manifest = json.load(fh)
+        proc = HDRTVNetTorch(WEIGHTS, precision="fp16", device=DEVICE, proc_resolution=(w, h))
+        sdr_dir, hdr_dir = os.path.join(qtmp, "mine_sdr"), os.path.join(qtmp, "mine_hdr")
+        os.makedirs(sdr_dir)
+        os.makedirs(hdr_dir)
+        for pair in manifest["pairs"]:
+            sdr = cv2.imread(pair["sdr"], cv2.IMREAD_UNCHANGED)
+            teacher = cv2.imread(pair["teacher"], cv2.IMREAD_UNCHANGED)
+            if teacher is None or teacher.dtype != np.uint16 or not np.array_equal(teacher[..., ::-1],
+                                                                                   proc.process_rgb48(sdr)):
+                raise AssertionError(f"teacher-pairs: {pair['teacher']} is not process_rgb48 of {pair['sdr']}")
+            stem = f"{pair['frame']:06d}.png"
+            cv2.imwrite(os.path.join(sdr_dir, stem), sdr)
+            cv2.imwrite(os.path.join(hdr_dir, stem), teacher)
+        del proc
+        out, mh_s = cli_in_process(torch, ["mine-hard-frames", "--sdr-dir", sdr_dir, "--hdr-dir", hdr_dir, "--out",
+                                           os.path.join(qtmp, "mined"), "--top", "2"])
+        mined = json.loads(out)
+        figures["data"] = {"teacher_pairs": manifest["count"], "teacher_equal": True, "teacher_s": round(tp_s, 2),
+                           "mined": {k: mined[k] for k in ("total_pairs", "hard_count")}, "mine_s": round(mh_s, 2)}
+        log(f"phase 12 (f): teacher-pairs {manifest['count']} pairs at 1080p, each teacher PNG equal to "
+            f"process_rgb48 of its SDR frame ({tp_s:.2f} s); mine-hard-frames {json.dumps(figures['data']['mined'])}")
+        if manifest["count"] != QUANT_TEACHER_FRAMES or mined["total_pairs"] != QUANT_TEACHER_FRAMES:
+            raise AssertionError(f"data tooling: {figures['data']}")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    figures["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log(f"phase 12: {figures['phase_s']} s (bound {QUANT_PHASE_S})")
+    if figures["phase_s"] > QUANT_PHASE_S:
+        raise AssertionError(f"phase 12 took {figures['phase_s']} s, over {QUANT_PHASE_S}")
+    return counts, figures
+
+
 def main() -> int:
     import torch
 
@@ -3243,6 +3782,8 @@ def main() -> int:
             models["phase_s"] = round(time.perf_counter() - t10, 1)
             bench_counts, bench = phase_bench(torch, np, native, smi, tmp)
             counts.update(bench_counts)
+            quant_counts, quant = phase_quant(torch, np, native, smi, tmp)
+            counts.update(quant_counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3289,6 +3830,7 @@ def main() -> int:
     log(json.dumps({"pipeline": pipeline}))
     log(json.dumps({"models": models}))
     log(bench_line(bench))
+    log(quant_line(quant))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -93,13 +93,13 @@ def _eetf_2390(l_nits, target_nits: float, source_peak_nits: float):
 def tone_map_pq(code01: np.ndarray, *, target_nits: float = TARGET_NITS,
                 source_peak_nits: float = SOURCE_PEAK_NITS, device=None) -> np.ndarray:
     """HDR PQ code values (H,W,3 RGB, [0,1]) → display-referred [0,1] BT.709
-    (gamma 2.4), computed on ``device`` (``bench/quality.py bench_device``)."""
+    (gamma 2.4), computed on ``device`` (``utils/device.py compute_device``)."""
     import torch
 
-    from hdrtv_tpu_torch.bench.quality import bench_device
+    from hdrtv_tpu_torch.utils.device import compute_device
     from hdrtv_tpu_torch.ops.color import BT2020_TO_BT709, apply_matrix, pq_eotf
 
-    x = torch.from_numpy(np.ascontiguousarray(code01, np.float32)).to(bench_device(device))
+    x = torch.from_numpy(np.ascontiguousarray(code01, np.float32)).to(compute_device(device))
     nits = pq_eotf(x)
     # maxRGB tone-mapping (mpv --tone-mapping-mode default luminance
     # scaling preserves hue by scaling all channels together)
@@ -136,14 +136,14 @@ def resize_rgb01(rgb01: np.ndarray, out_w: int, out_h: int, *, device=None) -> n
     on ``device``."""
     import torch
 
-    from hdrtv_tpu_torch.bench.quality import bench_device
+    from hdrtv_tpu_torch.utils.device import compute_device
     from hdrtv_tpu_torch.models.layers import fp32_math
     from hdrtv_tpu_torch.ops.resize import resize_bicubic_aa
 
     h, w = rgb01.shape[:2]
     if (w, h) == (out_w, out_h):
         return np.asarray(rgb01, np.float32)
-    x = torch.from_numpy(np.ascontiguousarray(rgb01, np.float32)).to(bench_device(device))
+    x = torch.from_numpy(np.ascontiguousarray(rgb01, np.float32)).to(compute_device(device))
     with fp32_math():
         y = resize_bicubic_aa(x[None], out_h, out_w)[0]
     return np.clip(y.cpu().numpy(), 0.0, 1.0)

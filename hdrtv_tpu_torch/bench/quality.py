@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from hdrtv_tpu_torch.ops.metrics import crop_shared_black_borders, full_reference_metrics
+from hdrtv_tpu_torch.utils.device import compute_device
 
 
 # bounded queued-benchmark alignment cache (the reference bounds its
@@ -175,18 +176,6 @@ class FrameResult:
     verify_reasons: tuple = ()
 
 
-def bench_device(device=None) -> torch.device:
-    """The device the bench modules compute on (metrics, validation models,
-    figures): ``device`` as given, else the CUDA card, which must exist (the
-    CPU runs them only when asked for by name)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("the bench computes on CUDA and no CUDA device is available; "
-                               "pass device='cpu' to compute on the CPU")
-        device = "cuda"
-    return torch.device(device)
-
-
 def evaluate_pair(
     pred_rgb01: np.ndarray, gt_rgb01: np.ndarray, *, peak_nits: float = 1000.0, max_side: int = 512,
     device=None,
@@ -196,13 +185,13 @@ def evaluate_pair(
     Pipeline mirrors _prepare_metric_pair + _crop_shared_black_borders +
     _compute_full_reference_metrics (gui_objective_metrics.py:294-384,
     617-677): shared border crop, ≤512 max-side INTER_AREA downscale, then
-    one fused device computation on ``device`` (``bench_device``), its
+    one fused device computation on ``device`` (``compute_device``), its
     resizes' matmuls in true fp32.
     """
     from hdrtv_tpu_torch.models.layers import fp32_math
     from hdrtv_tpu_torch.ops.resize import resize_area
 
-    dev = bench_device(device)
+    dev = compute_device(device)
 
     def put(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
@@ -322,7 +311,7 @@ def run_quality_benchmark(
     verify_max_items = env_int("HDRTVNET_BENCHMARK_AUTO_POST_VERIFY_MAX_ITEMS", 0, lo=0)
     verified_items = 0
 
-    metrics_device = bench_device(getattr(processor, "device", None))
+    metrics_device = compute_device(getattr(processor, "device", None))
     ts = time.strftime("%Y%m%d_%H%M%S")
     session_dir = os.path.join(
         out_root,

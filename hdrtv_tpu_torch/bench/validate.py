@@ -84,10 +84,10 @@ def validate_checkpoint(
 
     ``expected_mix`` e.g. {"w8a8": 29} asserts the quantized-layer contract
     (Full-INT8: zero fallback layers — README.md:69). The models run in
-    fp32 on ``device`` (``bench/quality.py bench_device``: the card unless
+    fp32 on ``device`` (``utils/device.py compute_device``: the card unless
     the caller names another).
     """
-    from hdrtv_tpu_torch.bench.quality import bench_device
+    from hdrtv_tpu_torch.utils.device import compute_device
     from hdrtv_tpu_torch.models.hdrtvnet import ensemble_agcm_le, natural_params_to_torch
     from hdrtv_tpu_torch.models.layers import fp32_math
     from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa
@@ -105,7 +105,7 @@ def validate_checkpoint(
             if actual != count:
                 raise AssertionError(f"layer contract violated: {kind}={actual}, expected {count}")
 
-    dev = bench_device(device)
+    dev = compute_device(device)
     sp = natural_params_to_torch(student_params, dev)
     tp = natural_params_to_torch(teacher_params, dev)
 
@@ -167,12 +167,12 @@ def temporal_stability_probe(
     highlights (probe_trt_temporal_stability.py role). The model runs in
     fp32 on ``device``, as in ``validate_checkpoint``.
     """
-    from hdrtv_tpu_torch.bench.quality import bench_device
+    from hdrtv_tpu_torch.utils.device import compute_device
     from hdrtv_tpu_torch.models.hdrtvnet import ensemble_agcm_le, natural_params_to_torch
     from hdrtv_tpu_torch.models.layers import fp32_math
     from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa
 
-    dev = bench_device(device)
+    dev = compute_device(device)
     pj = natural_params_to_torch(params, dev)
     h, w = size
     rng = np.random.RandomState(7)

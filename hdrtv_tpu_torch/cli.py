@@ -4,6 +4,8 @@
     python -m hdrtv_tpu_torch.cli export --video clip.mp4 --codec raw
     python -m hdrtv_tpu_torch.cli quality --video sdr.mp4 --gt hdr.y4m --frames 4
     python -m hdrtv_tpu_torch.cli bench --resolution 1080p --duration 10 --no-realtime
+    python -m hdrtv_tpu_torch.cli quantize --model weights/hr_fp32.npz --out q.npz --calib-method kl
+    python -m hdrtv_tpu_torch.cli qat --model weights/hr_fp32.npz --out qat.npz --steps 50
 
 The parser accepts every command line the JAX package's does. These
 subcommands run: ``convert`` (play/convert a video or a synthetic source to
@@ -16,16 +18,21 @@ into HR and HG files), the benchmarks ``bench`` (playback: pipelined,
 ``--supervised``; ``bench/playback.py``, ``bench/wrapper.py``) and
 ``quality`` (PSNR / SSIM / ΔEITP against an HDR ground truth, ``--queue``;
 ``bench/quality.py``), and ``compare``, ``sessions``, ``validate``,
-``preview``, ``figures`` and ``doctor``. ``--model`` takes a converted
-``.npz`` or a reference ``.pt``, ``--hg-weights`` the HG generator's own
-``.pt`` beside an HR one. The others (``live``, ``sweep`` and the
-quantization commands) and the options of ``convert`` whose modules are not
-ported yet raise ``NotImplementedError`` naming the ROADMAP.md Queue 1 item
-that owns those modules.
+``preview``, ``figures`` and ``doctor``; quantization and its data tooling:
+``quantize`` (PTQ, ``quant/calibrate.py``), ``layout`` (the per-layer
+sensitivity probe, ``quant/mixed.py``), ``qat`` (teacher-distilled QAT,
+``quant/qat.py``, ``train.py``), ``sweep`` (``bench/sweep.py``),
+``mine-hard-frames`` and ``teacher-pairs`` (``data/curate.py``).
+``--model`` takes a converted ``.npz`` or a reference ``.pt``,
+``--hg-weights`` the HG generator's own ``.pt`` beside an HR one. ``live``
+and the options of ``convert`` whose modules are not ported yet raise
+``NotImplementedError`` naming the ROADMAP.md Queue 1 item that owns those
+modules.
 
-The processor, the metrics, the validation models and the figures' tone map
-run on the CUDA card; ``HDRTV_CLI_PLATFORM=cpu`` (the JAX CLI's switch) runs
-them on the CPU, the kernels' plain versions. Without a card and without
+The processor, the metrics, the validation models, the figures' tone map,
+calibration, QAT, the probe and the sweep run on the CUDA card;
+``HDRTV_CLI_PLATFORM=cpu`` (the JAX CLI's switch) runs them on the CPU, the
+kernels' plain versions. Without a card and without
 that switch the commands raise: nothing falls back to the CPU."""
 
 from __future__ import annotations
@@ -42,7 +49,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # What the subcommands and options that do not run yet wait for: the
 # ROADMAP.md Queue 1 item that owns their modules.
 ITEM_11 = "Queue 1 item 11"
-ITEM_12 = "Queue 1 item 12"
 ITEM_13 = "Slice 8 (parallel: Queue 1 item 13)"
 
 
@@ -645,16 +651,9 @@ def cmd_validate(args) -> int:
     """Checkpoint parity validation vs an fp32 teacher
     (validate_tensorrt_sources.py role, SURVEY.md §4)."""
     from hdrtv_tpu_torch.bench.validate import temporal_stability_probe, validate_checkpoint
-    from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig
-    from hdrtv_tpu_torch.models.import_torch import load_checkpoint, load_npz
 
-    def load(path):
-        if path.endswith(".npz"):
-            return load_npz(path), ModelConfig(use_hg=args.use_hg)
-        return load_checkpoint(path, use_hg=args.use_hg)
-
-    student, cfg = load(args.model)
-    teacher, _ = load(args.teacher)
+    student, cfg = _load_model(args.model, args.use_hg)
+    teacher, _ = _load_model(args.teacher, args.use_hg)
     expected = None
     if args.expect_w8a8 is not None:
         expected = {"w8a8": args.expect_w8a8} if not args.asymmetric else {"w8a8-asym": args.expect_w8a8}
@@ -854,15 +853,154 @@ def cmd_figures(args) -> int:
     return 0 if manifest["frames"] else 1
 
 
+def _load_model(path: str, use_hg: bool):
+    """A checkpoint's numpy params and its ModelConfig: a converted ``.npz``
+    (the default configuration, ``use_hg`` as asked) or a reference ``.pt``."""
+    from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig
+    from hdrtv_tpu_torch.models.import_torch import load_checkpoint, load_npz
+
+    if path.endswith(".npz"):
+        return load_npz(path), ModelConfig(use_hg=use_hg)
+    return load_checkpoint(path, use_hg=use_hg)
+
+
+def _video_frames(path: str, count: int) -> list:
+    """``count`` frames spread over a video, as [0, 1] RGB float arrays."""
+    from hdrtv_tpu_torch.pipeline.source import VideoSource
+
+    frames = []
+    with VideoSource(path) as src:
+        step = max(1, (src.frame_count or 300) // count)
+        for i in range(count):
+            src.seek(i * step)
+            meta = src.read_with_meta()
+            if meta is None:
+                break
+            frames.append(meta[0][..., ::-1].astype(np.float32) / 255.0)
+    return frames
+
+
+def _mix_counts(params: dict) -> dict:
+    from hdrtv_tpu_torch.quant.int8 import quantized_layer_summary
+
+    counts: dict[str, int] = {}
+    for v in quantized_layer_summary(params).values():
+        counts[v] = counts.get(v, 0) + 1
+    return counts
+
+
+def cmd_layout(args) -> int:
+    """Generate a mixed-quant layout from the stability probe
+    (scripts/quantize/quantize_int8_mixed.py role)."""
+    from hdrtv_tpu_torch.quant.mixed import generate_mixed_layout
+
+    params, cfg = _load_model(args.model, args.use_hg)
+    if args.probe_video:
+        frames = _video_frames(args.probe_video, args.probe_frames)
+    else:
+        frames = [np.random.RandomState(i).rand(144, 192, 3).astype(np.float32) for i in range(args.probe_frames)]
+    chosen = generate_mixed_layout(params, frames, cfg, count=args.count, out_path=args.out, device=_cli_device())
+    print(f"wrote {args.out}: {len(chosen)} W8A8 layers")
+    return 0
+
+
+def cmd_quantize(args) -> int:
+    """PTQ: the selected layers' weights to int8, then (w8a8) the activation
+    scales calibrated on the card (``quant/calibrate.py``)."""
+    from hdrtv_tpu_torch.models.import_npz import save_npz
+    from hdrtv_tpu_torch.quant.calibrate import calibrate
+    from hdrtv_tpu_torch.quant.int8 import load_mixed_layout, quantize_params
+
+    params, cfg = _load_model(args.model, args.use_hg)
+    layers = load_mixed_layout(args.layout) if args.layout else None
+    qp = quantize_params(params, layers, mode=args.mode, asymmetric=args.asymmetric)
+    if args.mode == "w8a8":
+        if args.calib_video:
+            frames = _video_frames(args.calib_video, args.calib_frames)
+        else:  # synthetic calibration source (hdrtvnet_torch.py:7981-8017 role)
+            frames = [np.random.RandomState(i).rand(256, 384, 3).astype(np.float32) for i in range(args.calib_frames)]
+        qp = calibrate(qp, frames, cfg, method=args.calib_method, device=_cli_device())
+    save_npz(args.out, qp)
+    print(f"wrote {args.out}; layer mix: {_mix_counts(qp)}")
+    return 0
+
+
+def cmd_sweep(args) -> int:
+    """Precision sweep with ΔEITP quality bench vs the fp32 reference output."""
+    from hdrtv_tpu_torch.bench.sweep import precision_sweep
+
+    params, cfg = _load_model(args.model, args.use_hg)
+    presets = None
+    if args.preset_checkpoints:
+        presets = {}
+        for spec in args.preset_checkpoints:
+            name, _, path = spec.partition("=")
+            presets[name] = {"params": _load_model(path, args.use_hg)[0], "precision": "bf16"}
+    entries = precision_sweep(params, cfg, presets=presets, frame_count=args.frames, device=_cli_device())
+    print(json.dumps([e.__dict__ for e in entries], indent=2))
+    return 0
+
+
+def cmd_qat(args) -> int:
+    """Teacher-distilled QAT fine-tune → calibrated portable int8 checkpoint
+    (quantize_int8_mixed_qat.py / quantize_int8_full_qat.py roles)."""
+    from hdrtv_tpu_torch.models.import_npz import save_npz
+    from hdrtv_tpu_torch.quant.int8 import DEFAULT_EXCLUDE_SUFFIXES, load_mixed_layout, quantizable_layers
+    from hdrtv_tpu_torch.quant.qat import run_qat
+
+    params, cfg = _load_model(args.model, args.use_hg)
+    if args.layout:
+        layers = load_mixed_layout(args.layout)
+    else:
+        layers = [l for l in quantizable_layers(params) if not l.endswith(DEFAULT_EXCLUDE_SUFFIXES)]
+    if args.frames_video:
+        frames = _video_frames(args.frames_video, args.num_frames)
+    else:
+        frames = [np.random.RandomState(i).rand(args.crop, args.crop * 2, 3).astype(np.float32)
+                  for i in range(args.num_frames)]
+    qp, losses = run_qat(params, cfg, layers, frames, steps=args.steps, lr=args.lr,
+                         asymmetric=not args.symmetric, device=_cli_device())
+    save_npz(args.out, qp)
+    print(json.dumps({
+        "out": args.out,
+        "layers_quantized": len(layers),
+        "layer_mix": _mix_counts(qp),
+        "loss_first": round(losses[0], 6),
+        "loss_last": round(losses[-1], 6),
+    }, indent=2))
+    return 0
+
+
+def cmd_mine_hard_frames(args) -> int:
+    from hdrtv_tpu_torch.data.curate import mine_hard_frames
+
+    manifest = mine_hard_frames(
+        args.sdr_dir, args.hdr_dir, args.out,
+        top=args.top, max_repeat=args.max_repeat, max_long_edge=args.max_long_edge,
+    )
+    print(json.dumps({k: v for k, v in manifest.items() if k != "replay"}, indent=2))
+    return 0
+
+
+def cmd_teacher_pairs(args) -> int:
+    """SDR / teacher PNG pairs from a video's frames, the teacher being the
+    port's processor (its frame program on the card)."""
+    from hdrtv_tpu_torch.data.curate import make_teacher_pairs
+
+    proc = _make_processor(args)
+    manifest = make_teacher_pairs(
+        args.video, proc, args.out,
+        num_frames=args.num_frames, start_frame=args.start_frame,
+        end_frame=args.end_frame, max_long_edge=args.max_long_edge,
+        frames=[int(x) for x in args.frames.split(",")] if args.frames else None,
+    )
+    print(json.dumps({"video": manifest["video"], "count": manifest["count"]}, indent=2))
+    return 0
+
+
 # Subcommands whose modules are not ported yet, with what they need.
 NOT_PORTED = {
     "live": ("live capture (pipeline/live.py, capture.py)", ITEM_11),
-    "sweep": ("the precision sweep (bench/sweep.py, which needs quant/calibrate.py)", ITEM_12),
-    "quantize": ("PTQ quantization (quant/calibrate.py)", ITEM_12),
-    "layout": ("mixed-layout generation (quant/mixed.py)", ITEM_12),
-    "qat": ("QAT fine-tuning (quant/qat.py, train.py)", ITEM_12),
-    "mine-hard-frames": ("QAT frame mining (data/curate.py)", ITEM_12),
-    "teacher-pairs": ("QAT teacher pairs (data/curate.py)", ITEM_12),
 }
 
 
@@ -1008,6 +1146,7 @@ def build_parser() -> argparse.ArgumentParser:
     z.add_argument("--calib-video", default=None)
     z.add_argument("--calib-frames", type=int, default=16)
     z.add_argument("--calib-method", default="max", choices=["max", "percentile", "kl"])
+    z.set_defaults(fn=cmd_quantize)
 
     lo = sub.add_parser("layout", help="generate a mixed W8A8 layout via per-layer sensitivity probe")
     lo.add_argument("--model", required=True)
@@ -1016,6 +1155,7 @@ def build_parser() -> argparse.ArgumentParser:
     lo.add_argument("--use-hg", action="store_true")
     lo.add_argument("--probe-video", default=None)
     lo.add_argument("--probe-frames", type=int, default=4)
+    lo.set_defaults(fn=cmd_layout)
 
     s = sub.add_parser("sweep", help="precision sweep with ΔEITP quality bench")
     s.add_argument("--model", required=True, help="fp32 reference checkpoint")
@@ -1023,6 +1163,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--use-hg", action="store_true")
     s.add_argument("--preset-checkpoints", nargs="*", default=None,
                    help="name=path pairs (e.g. 'int8-mixed-qat=/path.pt'); default: PTQ ladder")
+    s.set_defaults(fn=cmd_sweep)
 
     t = sub.add_parser("qat", help="QAT fine-tune to int8 (teacher-distilled)")
     t.add_argument("--model", required=True)
@@ -1035,6 +1176,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--frames-video", default=None)
     t.add_argument("--num-frames", type=int, default=8)
     t.add_argument("--crop", type=int, default=128)
+    t.set_defaults(fn=cmd_qat)
 
     v = sub.add_parser("validate", help="checkpoint parity vs fp32 teacher")
     v.add_argument("--model", required=True)
@@ -1089,6 +1231,7 @@ def build_parser() -> argparse.ArgumentParser:
     mh.add_argument("--top", type=int, default=256)
     mh.add_argument("--max-repeat", type=int, default=4)
     mh.add_argument("--max-long-edge", type=int, default=384)
+    mh.set_defaults(fn=cmd_mine_hard_frames)
 
     tp = sub.add_parser("teacher-pairs", help="generate SDR/fp32-teacher PNG pairs from movie frames (Film QAT)")
     _add_model_args(tp)
@@ -1099,6 +1242,7 @@ def build_parser() -> argparse.ArgumentParser:
     tp.add_argument("--end-frame", type=int, default=0)
     tp.add_argument("--frames", default=None, help="explicit comma-separated frame indices")
     tp.add_argument("--max-long-edge", type=int, default=0)
+    tp.set_defaults(fn=cmd_teacher_pairs)
 
     i = sub.add_parser("info", help="checkpoint inspection")
     i.add_argument("--model", required=True)

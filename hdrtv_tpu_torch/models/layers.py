@@ -1,8 +1,9 @@
 """Functional NHWC layers over flat parameter dicts (port of
 ``hdrtv_tpu/models/layers.py``: the conv and dense layers with their int8
 (eager W8 / W8A8) branches, the activations, norms and poolings, pixel
-shuffle, nearest and bilinear resizes, and the reflect, replicate and crop
-alignments of the natural-layout program and the HG generator).
+shuffle, nearest and bilinear resizes, the reflect, replicate and crop
+alignments of the natural-layout program and the HG generator, and the
+activation capture that calibration reads).
 
 Parameters are a flat ``dict[str, torch.Tensor]`` keyed by the reference
 checkpoint's state-dict names; activations are NHWC and conv weights HWIO,
@@ -20,6 +21,47 @@ import torch
 import torch.nn.functional as F
 
 Params = dict  # flat: str -> torch.Tensor (and "{layer}.__qargs" -> ops/w8a8.py QArgs)
+
+# ---------------------------------------------------------------------------
+# Activation capture (calibration hook point)
+# ---------------------------------------------------------------------------
+# Under a capture context, conv2d and linear record statistics of their
+# *input* as tensors on its device. Nothing is copied to the host here: the
+# caller copies all of a frame's statistics at once (quant/calibrate.py).
+# With no capture active the layers pay one test of an empty list.
+
+_ACTIVE_CAPTURE: list = []
+
+
+class ActivationCapture:
+    """Collects per-layer input statistics during a forward pass: for each
+    watched layer (``names``; None watches every layer) ``abs_max``,
+    ``min`` and ``max`` of its input in fp32, 0-d tensors on its device."""
+
+    def __init__(self, names=None):
+        self.names = None if names is None else set(names)
+        self.stats: dict[str, dict] = {}
+
+    def watches(self, name: str) -> bool:
+        return self.names is None or name in self.names
+
+    def _record(self, name: str, x: torch.Tensor) -> None:
+        if not self.watches(name):
+            return
+        lo, hi = torch.aminmax(x.detach().float())
+        self.stats[name] = {"abs_max": torch.maximum(hi, -lo), "min": lo, "max": hi}
+
+    def __enter__(self):
+        _ACTIVE_CAPTURE.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _ACTIVE_CAPTURE.remove(self)
+
+
+def _maybe_capture(name: str, x: torch.Tensor) -> None:
+    for cap in _ACTIVE_CAPTURE:
+        cap._record(name, x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,6 +223,8 @@ def conv2d(p: Params, name: str, x: torch.Tensor, *, stride: int = 1, padding=0,
     """2D convolution reading ``{name}.weight`` (HWIO) / ``{name}.bias``, or
     the int8 triplet ``{name}.weight_int8`` / ``w_scale`` (``scale``) /
     ``x_scale`` (+ ``x_zero``) of an eager W8 / W8A8 layer."""
+    if _ACTIVE_CAPTURE:
+        _maybe_capture(name, x)
     w, x = _layer_input(p, name, x, policy)
     b = p.get(f"{name}.bias")
     return conv_nhwc(x, w, None if b is None else policy.cast(b), stride=stride, padding=padding)
@@ -190,6 +234,8 @@ def linear(p: Params, name: str, x: torch.Tensor, *, policy: Policy = F32) -> to
     """Dense layer, weights stored (in, out); the int8 branches as
     :func:`conv2d`. The product sums in fp32 and rounds to the compute dtype,
     then the bias is added in it."""
+    if _ACTIVE_CAPTURE:
+        _maybe_capture(name, x)
     w, x = _layer_input(p, name, x, policy)
     y = torch.matmul(x, w)
     b = p.get(f"{name}.bias")
@@ -222,9 +268,14 @@ def avg_pool_3s2p1(x: torch.Tensor) -> torch.Tensor:
     Below fp32 the nine taps are summed one by one in the element type, in
     window order, and the sum divided by 9 in it: what ``lax.reduce_window``
     with an add over bf16 computes (``F.avg_pool2d`` would sum in fp32 and
-    round once, which differs in most elements)."""
+    round once, which differs in most elements).
+
+    In fp32 the pool reads a contiguous NCHW copy: on a channels-last view
+    the CUDA kernels' forward is the same, but their backward is wrong
+    (0.79–0.96 of the largest input gradient apart from the CPU's and the
+    contiguous tensor's; torch 2.11.0+cu128 on an NVIDIA H100)."""
     if x.dtype == torch.float32:
-        y = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1, count_include_pad=True)
+        y = F.avg_pool2d(x.permute(0, 3, 1, 2).contiguous(), 3, stride=2, padding=1, count_include_pad=True)
         return y.permute(0, 2, 3, 1).contiguous()
     n, h, w, c = x.shape
     ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1

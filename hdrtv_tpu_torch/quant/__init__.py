@@ -1,3 +1,5 @@
-"""Quantization helpers of the port (numpy only): the port's own copy of
-``hdrtv_tpu/quant/int8.py``. Calibration (``quant/calibrate.py``), which runs
-the natural-layout forward, is still to port (ROADMAP.md Queue 1 item 12)."""
+"""Quantization of the port: ``int8.py`` (numpy only, the port's own copy of
+``hdrtv_tpu/quant/int8.py``), ``calibrate.py`` (PTQ activation scales from
+forwards of the natural-layout program), ``qat.py`` (straight-through fake
+quantization and the teacher-distilled fine-tune) and ``mixed.py`` (the
+per-layer sensitivity probe that writes a mixed W8A8 layout)."""

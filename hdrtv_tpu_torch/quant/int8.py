@@ -113,3 +113,15 @@ def quantized_layer_summary(params: dict) -> dict[str, str]:
         else:
             summary[layer] = "fp"
     return summary
+
+
+def load_mixed_layout(path: str) -> list[str]:
+    """Parse a configs/qat_layouts/*.txt layer list (one name per line,
+    '#' comments — original_nohg_mixed_w8a8.txt:1-32)."""
+    layers = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line and not line.startswith("#"):
+                layers.append(line)
+    return layers

@@ -118,13 +118,14 @@ def test_evaluate_pair_matches_jax(case):
 
 
 def test_evaluate_pair_needs_a_card_unless_asked(monkeypatch):
-    from hdrtv_tpu_torch.bench.quality import bench_device, evaluate_pair
+    from hdrtv_tpu_torch.bench.quality import evaluate_pair
+    from hdrtv_tpu_torch.utils.device import compute_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros((8, 8, 3), np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evaluate_pair(x, x)
-    assert bench_device("cpu") == torch.device("cpu")
+    assert compute_device("cpu") == torch.device("cpu")
 
 
 def test_run_quality_benchmark_matches_jax(tmp_path):

@@ -100,3 +100,74 @@ def test_bench_line_shape():
     for broken in ({k: v for k, v in figures.items() if k != "planted"}, {**figures, "extra": 1}):
         with pytest.raises(AssertionError, match="bench line"):
             mod.bench_line(broken)
+
+
+def _load():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_quant", SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_phase_quant_is_wired_into_main():
+    """Phase 12 runs after phase 11 inside main's fp32_math block, its
+    launch counts join the kernels line's, and its line comes before the
+    card's line."""
+    import inspect
+
+    mod = _load()
+    src = inspect.getsource(mod.main)
+    assert callable(mod.phase_quant) and callable(mod.quant_int8_frame)
+    bench, quant = src.index("phase_bench(torch, np, native, smi, tmp)"), src.index("phase_quant(torch, np,")
+    assert src.index("with fp32_math():") < bench < quant < src.index("finally:")
+    assert "counts.update(quant_counts)" in src
+    assert src.index("log(quant_line(quant))") < src.index("log(smi)") < src.index('print(json.dumps({"ok": True')
+    assert "12. quantization" in mod.__doc__
+
+
+def test_quant_line_shape():
+    """Phase 12's {"quant": ...} line: every key of QUANT_KEYS in order; a
+    missing or an extra key fails."""
+    import json
+
+    mod = _load()
+    figures = {k: {"x": 1} for k in mod.QUANT_KEYS}
+    figures["phase_s"] = 99.5
+    body = json.loads(mod.quant_line(dict(reversed(list(figures.items())))))
+    assert list(body) == ["quant"] and tuple(body["quant"]) == mod.QUANT_KEYS
+    for broken in ({k: v for k, v in figures.items() if k != "qat"}, {**figures, "extra": 1}):
+        with pytest.raises(AssertionError, match="quant line"):
+            mod.quant_line(broken)
+
+
+def test_unit_u8_round_trip():
+    """The frames phase 12 writes as PNGs and reads back through the CLI's
+    video source: u8 BGR, and the [0, 1] RGB a source gives."""
+    import numpy as np
+
+    mod = _load()
+    f = np.random.RandomState(0).rand(6, 8, 3).astype(np.float32)
+    u8, back = mod.unit_u8(np, f)
+    assert u8.dtype == np.uint8 and np.array_equal(u8[..., ::-1], np.round(f * 255).astype(np.uint8))
+    assert np.abs(back - f).max() <= 0.5 / 255 + 1e-7
+
+
+def test_kl_bin_reads_calibrate_kl_scale():
+    """Phase 12 (b) reads each symmetric layer's KL threshold bin back from
+    calibrate's kl scale and the max method's scale on the same frames: the
+    bin calibrate chose, for bins across the range; a scale off the bins'
+    grid raises."""
+    import numpy as np
+
+    from hdrtv_tpu_torch.quant.calibrate import KL_BINS
+
+    mod = _load()
+    for abs_max in (3.7e-4, 0.61, 17.3, 240.0):
+        max_scale = np.float32(max(abs_max, 1e-8) / 127.0)
+        for i in (0, 1, 127, 1000, KL_BINS - 1):
+            kl_scale = np.float32(max((i + 0.5) * (max(abs_max, 1e-8) / KL_BINS), 1e-8) / 127.0)
+            assert mod.kl_bin(kl_scale, max_scale) == i
+    with pytest.raises(AssertionError, match="no bin"):
+        mod.kl_bin(np.float32(0.25 * 0.61 / KL_BINS / 127.0), np.float32(0.61 / 127.0))

@@ -6,7 +6,11 @@ JAX package's (CODES u16 codes in fp32: the 5e-5 golden tolerance × 65535,
 rounded up, as ``tests/test_torch_slice.py``); ``convert`` and ``export``
 take a reference ``.pt`` ``--model`` (and ``--hg-weights``); ``presets``,
 ``assets`` and ``engines`` run; ``info`` and ``split-sources`` print and
-write what the JAX CLI does; every subcommand and option that is not ported raises
+write what the JAX CLI does; ``quantize`` and ``mine-hard-frames`` write
+what the JAX CLI writes on the same inputs, ``layout``, ``qat``, ``sweep``
+and ``teacher-pairs`` run on the port at small sizes (their modules are held
+to JAX in tests/test_torch_quant.py, test_torch_train.py and
+test_torch_curate_sweep.py); every subcommand and option that is not ported raises
 ``NotImplementedError`` naming its ROADMAP.md item; without a card and
 without the CPU switch nothing runs. The config, prefs and assets copies
 agree with the JAX package's.
@@ -176,12 +180,7 @@ def test_presets_assets_engines_run(cpu_cli, capsys):
 
 @pytest.mark.parametrize("name", sorted(cli.NOT_PORTED))
 def test_unported_subcommands_raise(name, cpu_cli):
-    argv = next((a for a in ARGVS if a[0] == name), None) or {
-        "sweep": ["sweep", "--model", "m"],
-        "layout": ["layout", "--model", "m", "--out", "o"], "qat": ["qat", "--model", "m", "--out", "o"],
-        "mine-hard-frames": ["mine-hard-frames", "--sdr-dir", "a", "--hdr-dir", "b", "--out", "o"],
-        "teacher-pairs": ["teacher-pairs", "--video", "v", "--out", "o"],
-    }.get(name, [name])
+    argv = next((a for a in ARGVS if a[0] == name), None) or [name]
     item = cli.NOT_PORTED[name][1]
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
         cli.main(argv)
@@ -697,3 +696,173 @@ def test_convert_log_session_writes_the_jax_layout(cpu_cli, capsys):
         body = json.load(f)
     assert set(body) == {f.name for f in dataclasses.fields(PlaybackResult)}
     assert body["frames"] == 2 and set(body["config"]) == {"video", "precision", "resolution"}
+
+
+QUANT_LAYERS = ["LE.conv_first", "LE.HR_conv1", "LE.recon_trunk3.0.conv1", "AGCM.cond_scale_first"]
+
+
+def _layout_file(path):
+    path.write_text("# four layers\n" + "\n".join(QUANT_LAYERS) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("method,layout", [("max", False), ("percentile", True), ("kl", True)])
+def test_quantize_matches_jax(cpu_cli, capsys, method, layout):
+    """quantize on the same clip's frames through both CLIs: the same keys,
+    int8 codes and weight scales equal, activation scales and zero points
+    within a relative 1e-4 (tests/test_torch_quant.py's percentile bound;
+    kl: within one histogram bin, 1/2048 of the range)."""
+    from hdrtv_tpu import cli as jax_cli
+    from hdrtv_tpu_torch.models.import_npz import load_npz
+
+    clip = str(cpu_cli / "clip.avi")
+    _clip(clip)
+    extra = ["--layout", _layout_file(cpu_cli / "layout.txt"), "--asymmetric"] if layout else []
+    if method == "kl":
+        extra = extra[:2]  # kl calibrates symmetric layers
+    outs = {}
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        out = str(cpu_cli / f"{name}.npz")
+        assert main(["quantize", "--model", WEIGHTS, "--out", out, "--calib-video", clip, "--calib-frames", "2",
+                     "--calib-method", method, *extra]) == 0
+        assert f"wrote {out}; layer mix:" in capsys.readouterr().out
+        outs[name] = load_npz(out)
+    got, want = outs["port"], outs["jax"]
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        if k.endswith((".x_scale", ".x_zero")):
+            rtol = 1.0 / 2048 if method == "kl" else 1e-4
+            assert abs(float(got[k]) - float(v)) <= rtol * max(abs(float(v)), 1e-6), k
+        else:
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+    n_int8 = sum(k.endswith(".weight_int8") for k in got)
+    assert n_int8 == (len(QUANT_LAYERS) if layout else 127)
+    assert sum(k.endswith(".x_zero") for k in got) == (n_int8 if "--asymmetric" in extra else 0)
+
+
+def test_layout_writes_the_probe_ranking(cpu_cli, capsys):
+    """layout on one frame of a clip: the file lists --count layers, all
+    quantizable, as generate_mixed_layout ranks them on the same frame."""
+    from hdrtv_tpu_torch.models.hdrtvnet import ModelConfig
+    from hdrtv_tpu_torch.models.import_npz import load_npz
+    from hdrtv_tpu_torch.quant.int8 import load_mixed_layout, quantizable_layers
+    from hdrtv_tpu_torch.quant.mixed import generate_mixed_layout
+
+    clip = str(cpu_cli / "clip.avi")
+    _clip(clip)
+    out = cpu_cli / "layout.txt"
+    assert cli.main(["layout", "--model", WEIGHTS, "--out", str(out), "--count", "6", "--probe-video", clip,
+                     "--probe-frames", "1"]) == 0
+    assert capsys.readouterr().out.strip() == f"wrote {out}: 6 W8A8 layers"
+    layers = load_mixed_layout(str(out))
+    assert len(layers) == 6 and set(layers) <= set(quantizable_layers(load_npz(WEIGHTS)))
+    frames = cli._video_frames(clip, 1)
+    assert generate_mixed_layout(load_npz(WEIGHTS), frames, ModelConfig(), count=6, device="cpu") == layers
+    assert out.read_text().startswith("# Mixed W8A8 layout generated by per-layer sensitivity probe")
+
+
+@pytest.mark.parametrize("symmetric", [False, True], ids=["asymmetric", "symmetric"])
+def test_qat_writes_a_checkpoint_the_processor_runs(cpu_cli, capsys, symmetric):
+    """qat, two steps on 32 × 64 crops: the JSON the JAX CLI prints, every
+    default layer in W8A8 (asymmetric unless --symmetric), finite losses;
+    the checkpoint runs on the port's processor."""
+    from hdrtv_tpu_torch.models.import_npz import load_npz
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    out = str(cpu_cli / "qat.npz")
+    assert cli.main(["qat", "--model", WEIGHTS, "--out", out, "--steps", "2", "--num-frames", "1", "--crop", "32",
+                     *(["--symmetric"] if symmetric else [])]) == 0
+    text = capsys.readouterr().out
+    rep = json.loads(text[text.index("{"):])
+    kind = "w8a8" if symmetric else "w8a8-asym"
+    assert rep["out"] == out and rep["layers_quantized"] == 127 and rep["layer_mix"] == {kind: 127, "fp": 1}
+    assert np.isfinite(rep["loss_first"]) and np.isfinite(rep["loss_last"]) and rep["loss_first"] > 0
+    assert ("qat step 0: loss" in text) and ("qat step 1: loss" in text)
+    assert sum(k.endswith(".x_zero") for k in load_npz(out)) == (0 if symmetric else 127)
+    proc = HDRTVNetTorch(out, precision="fp16", device="cpu", persistent_cache=False)
+    frame = (np.random.RandomState(0).rand(H, W, 3) * 255).astype(np.uint8)
+    y = proc.process_rgb48(frame)
+    assert proc.native_int8 and y.shape == (H, W, 3) and y.dtype == np.uint16 and y.max() > y.min()
+
+
+def test_sweep_rows(cpu_cli, capsys):
+    """sweep --frames 1 with a preset checkpoint, then the default ladder:
+    the rows the JAX CLI prints, at the sweep's own 192 × 256."""
+    fixture = os.path.join(ROOT, "tests", "fixtures", "hr_w8a8.npz")
+    assert cli.main(["sweep", "--model", WEIGHTS, "--frames", "1", "--preset-checkpoints",
+                     f"int8-ptq={fixture}"]) == 0
+    rows = json.loads(capsys.readouterr().out)
+    assert [r["preset"] for r in rows] == ["int8-ptq"] and rows[0]["layer_mix"] == {"w8a8": 127, "fp": 1}
+    assert 20 < rows[0]["psnr"] < 60 and 0 < rows[0]["ssim"] < 1 and rows[0]["delta_e_itp"] > 0
+    assert cli.main(["sweep", "--model", WEIGHTS, "--frames", "1"]) == 0
+    ladder = json.loads(capsys.readouterr().out)
+    assert [r["preset"] for r in ladder] == ["bf16", "int8-full (PTQ)"]
+    assert ladder[1]["layer_mix"] == {"w8a8-asym": 127, "fp": 1} and ladder[0]["psnr"] > ladder[1]["psnr"]
+
+
+def test_mine_hard_frames_matches_jax(cpu_cli, capsys):
+    import cv2
+
+    from hdrtv_tpu import cli as jax_cli
+
+    sdr, hdr = cpu_cli / "sdr", cpu_cli / "hdr"
+    sdr.mkdir()
+    hdr.mkdir()
+    rng = np.random.RandomState(2)
+    for i in range(4):
+        cv2.imwrite(str(sdr / f"{i}.png"), (rng.rand(40, 60, 3) * 200 + 20 * i).astype(np.uint8))
+        cv2.imwrite(str(hdr / f"{i}.png"), (rng.rand(40, 60, 3) * 40000 + 6000 * i).astype(np.uint16))
+    got = {}
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        assert main(["mine-hard-frames", "--sdr-dir", str(sdr), "--hdr-dir", str(hdr), "--out",
+                     str(cpu_cli / name), "--top", "2"]) == 0
+        got[name] = json.loads(capsys.readouterr().out)
+        with open(cpu_cli / name / "manifest.json") as f:
+            got[name]["replay"] = json.load(f)["replay"]
+    assert got["port"].pop("csv") != got["jax"].pop("csv")
+    assert got["port"] == got["jax"] and got["port"]["hard_count"] == 2 and got["port"]["total_pairs"] == 4
+
+
+def test_teacher_pairs_are_the_processors_frames(cpu_cli, capsys):
+    """teacher-pairs --precision FP32 on a clip: each teacher PNG is the
+    port's process_rgb48 of its SDR frame, bit for bit."""
+    import cv2
+
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    clip = str(cpu_cli / "clip.avi")
+    _clip(clip)
+    out = cpu_cli / "pairs"
+    assert cli.main(["teacher-pairs", "--video", clip, "--out", str(out), "--frames", "0,2", "--precision",
+                     "FP32", "--resolution", "540p"]) == 0
+    rep = json.loads(capsys.readouterr().out)
+    assert rep == {"video": clip, "count": 2}
+    proc = HDRTVNetTorch(WEIGHTS, precision="fp32", device="cpu", persistent_cache=False, proc_resolution=(W, H))
+    for idx in (0, 2):
+        sdr = cv2.imread(str(out / f"clip_{idx:06d}_sdr.png"), cv2.IMREAD_UNCHANGED)
+        teacher = cv2.imread(str(out / f"clip_{idx:06d}_teacher.png"), cv2.IMREAD_UNCHANGED)
+        assert sdr.shape == (H, W, 3) and teacher.dtype == np.uint16
+        assert np.array_equal(teacher[..., ::-1], proc.process_rgb48(sdr))
+
+
+@pytest.mark.parametrize("cmd", ["quantize", "layout", "qat", "sweep", "teacher-pairs"])
+def test_quant_commands_need_a_card_without_the_switch(cmd, monkeypatch, tmp_path):
+    """Without a CUDA device and without HDRTV_CLI_PLATFORM=cpu the
+    quantization, training, probe, sweep and teacher commands raise: none
+    of them falls back to the CPU."""
+    monkeypatch.delenv("HDRTV_CLI_PLATFORM", raising=False)
+    monkeypatch.setenv("HDRTVNET_PREFS_PATH", str(tmp_path / "prefs.json"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    clip = str(tmp_path / "clip.avi")
+    _clip(clip)
+    out = str(tmp_path / "o")
+    argv = {
+        "quantize": ["quantize", "--model", WEIGHTS, "--out", out, "--calib-frames", "1"],
+        "layout": ["layout", "--model", WEIGHTS, "--out", out, "--probe-frames", "1"],
+        "qat": ["qat", "--model", WEIGHTS, "--out", out, "--num-frames", "1", "--crop", "16"],
+        "sweep": ["sweep", "--model", WEIGHTS, "--frames", "1"],
+        "teacher-pairs": ["teacher-pairs", "--video", clip, "--out", out],
+    }[cmd]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
+    assert not os.path.exists(out)

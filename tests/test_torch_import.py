@@ -297,3 +297,19 @@ def test_new_modules_leave_jax_and_ml_dtypes_out():
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_quant_train_data_modules_leave_jax_out():
+    """The quantization, training, sweep and data modules, and the CLI that
+    runs them, import neither JAX nor the JAX package."""
+    code = (
+        "import sys\n"
+        "import hdrtv_tpu_torch.quant.calibrate, hdrtv_tpu_torch.quant.qat, hdrtv_tpu_torch.quant.mixed, "
+        "hdrtv_tpu_torch.quant.int8, hdrtv_tpu_torch.train, hdrtv_tpu_torch.bench.sweep, "
+        "hdrtv_tpu_torch.data.curate, hdrtv_tpu_torch.utils.device, hdrtv_tpu_torch.cli\n"
+        "import runpy; runpy.run_path('chip_smoke.py', run_name='chip_smoke_imports')\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'hdrtv_tpu', 'optax'))\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
