@@ -61,6 +61,10 @@ lines; any failed check raises and the script exits non-zero with no result:
    table, resblock's conv1 storing h1 in fp32) and in bf16 once more in the
    dense form, with the same tolerances; "sft_conv3_split" and
    "resblock_split" lines give each bf16 case's SFT and conv launches apart.
+   resblock also runs, in bf16 and the s2d form, at the blocks of the 720p
+   program that phase 13 drives (L1 180 × 320 with and without up_coarse,
+   L2 90 × 160 with and without x_add: trunk2 and trunk4 take the kernel at
+   720p only), with the same tolerance; no counted path launches these.
    agcm_head likewise runs in the s2d form the megakernel program calls
    (s2d=True: in bf16 the AGCM pass on the row tile, the input conv on its
    wgmma tile over the s2d slots) and in bf16 once more dense, an
@@ -296,7 +300,21 @@ lines; any failed check raises and the script exits non-zero with no result:
    clip, teacher-pairs on it (each teacher PNG equal to process_rgb48 of its
    SDR frame), mine-hard-frames over the pairs. The phase takes at most
    QUANT_PHASE_S; a {"quant": ...} line (quant_line) comes before the card's
-   line.
+   line;
+13. live capture, the interactive shell, the audio attach and the tab-audio
+   bridge (phase_live; its checks in the comment above LIVE_FPS): the
+   synthetic grabber through LiveSource into the runner, realtime, at 1080p
+   (path live_bf16) and a 720p capture letterboxed onto 1080p (path
+   live_letterbox), kept frames mapped back to their observations and equal
+   to process_rgb48; the live CLI in a child process; a ShellController's
+   keys over a running runner (path shell_swaps: a precision swap, then
+   540p, 720p and 1080p), every frame against its program, the 720p replay
+   against its eager bytes and a native 720p frame against the CPU's program
+   (phase 3's bf16 natural bound), the pause and the paused seek's redraw, memory
+   across swaps; an AudioPlayer on a fake mpv
+   under an AudioAttachment; the bridge's session with a 410 after the stop.
+   At most LIVE_PHASE_S; a {"live": ...} line (live_line) comes before the
+   card's line.
 
 The line before the last is the per-kernel JSON summary, one entry per
 kernel and element type, with the path whose launches it reports and its
@@ -370,6 +388,10 @@ _BF16_MEGA = {"block_conv3": 2, "down2": 5, "trunk3": 1, "sft_conv3": 5, "resblo
               "agcm_head": 1, "cond_chain": 1, "tail": 1}
 # The native-int8 programs (the W8A8 checkpoint, INT8_WEIGHTS): the same programs with
 # the quantized layers' convs in the kernels' int8 forms and none in their float forms.
+# The bf16 default program at 720p (1280 × 720, letterboxed from 1080p in phase 13): by the
+# JAX routing rule every LE resblock takes the resblock kernel there (at 1080p two of them
+# fall back to two sft_conv3 calls each), so sft_conv3 launches once and resblock four times.
+_BF16_MEGA_720P = {**_BF16_MEGA, "sft_conv3": 1, "resblock": 4}
 _INT8_MEGA = {"block_conv3_w8a8": 2, "sft_conv3_w8a8": 5, "resblock_w8a8": 2, "tail_w8a8": 1, "agcm_head": 1,
               "cond_chain": 1, "mix_chain": 1, "down2": 5, "trunk3": 1}
 PATHS = {
@@ -893,12 +915,28 @@ def phase_kernels(torch, np) -> dict:
                        2 * conv_macs(w, hb, wb, 1) + sft_flops(hb * wb, sft) + 3 * hb * wb * 128, unit)
             del x, cond, y, y_r, sk
 
-        # resblock at L1: x (270,480,128), cond (270,480,64)
-        hb, wb = 270, 480
-        for name, coarse in (("L1 trunk1", False), ("L1 trunk5 + up_coarse", True)):
+        # resblock at L1 of a 1080p frame: x (270,480,128), cond (270,480,64). Then, in bf16, the
+        # blocks of the 720p program (phase 13), launched by no path counted here: at L1
+        # (180,320) and at L2 (90,160), where trunk2 and trunk4 (its x_add form) take the kernel
+        # at 720p only (at 1080p L2 has 135 rows and they fall back to sft_conv3). These draw
+        # their inputs from a copy of the generator's state, so the cases after them keep theirs.
+        state = None
+        for name, hb, wb, second, per_path in (
+            ("L1 trunk1", 270, 480, None, (0, 1, 1)),
+            ("L1 trunk5 + up_coarse", 270, 480, "up_coarse", (0, 1, 1)),
+            ("720p L1 trunk1", 180, 320, None, (0, 0, 0)),
+            ("720p L1 trunk5 + up_coarse", 180, 320, "up_coarse", (0, 0, 0)),
+            ("720p L2 trunk2", 90, 160, None, (0, 0, 0)),
+            ("720p L2 trunk4 + x_add", 90, 160, "x_add", (0, 0, 0)),
+        ):
+            if not any(per_path):
+                if dtype == "f32":
+                    continue
+                state = rng.get_state() if state is None else state
             x = t(rng.rand(hb, wb, 128) - 0.3)
             cond = t(rng.rand(hb, wb, 64) - 0.3)
-            up = t(rng.rand(hb // 2, wb // 2, 512) - 0.3) if coarse else None
+            up = t(rng.rand(hb // 2, wb // 2, 512) - 0.3) if second == "up_coarse" else None
+            add = t(rng.rand(hb, wb, 128) - 0.3) if second == "x_add" else None
             sft1, sft2 = sft4(16, 32), sft4(16, 32)
             w1 = t(w_s2d_s1(rng.randn(3, 3, 32, 32).astype(np.float32) * 0.05))
             w2 = t(w_s2d_s1(rng.randn(3, 3, 32, 32).astype(np.float32) * 0.05))
@@ -907,24 +945,27 @@ def phase_kernels(torch, np) -> dict:
             params = [p for pair in (*sft1, *sft2) for p in pair]
             # the programs' s2d form (bf16: both SFT passes on the row tile, both convs on the
             # Hopper conv tile, conv1 storing h1 in fp32), then in bf16 the dense form once
-            for s2d in (True, False) if dtype == "bf16" else (True,):
+            for s2d in (True, False) if dtype == "bf16" and any(per_path) else (True,):
                 def call(s2d=s2d):
-                    return fused_resblock(*args, up_coarse=up, s2d=s2d)
+                    return fused_resblock(*args, up_coarse=up, x_add=add, s2d=s2d)
 
                 def call_plain(s2d=s2d):
-                    return fused_resblock_ref(*args, up_coarse=up, s2d=s2d)
+                    return fused_resblock_ref(*args, up_coarse=up, x_add=add, s2d=s2d)
 
                 y, y_r = call(), call_plain()
                 ms, plain = time_ms(call, torch), time_ms(call_plain, torch)
-                if dtype == "bf16":
+                if dtype == "bf16" and any(per_path):
                     log(json.dumps({"resblock_split": {"case": name, "s2d": s2d,
                                                        **launch_split(call, torch, SFT_CONV_PARTS)}}))
-                record("resblock", dtype, f"{name} s2d={s2d}", (0, 1, 1) if s2d else (0, 0, 0), y, y_r,
+                record("resblock", dtype, f"{name} s2d={s2d}", per_path if s2d else (0, 0, 0), y, y_r,
                        ATOL if dtype == "f32" else 2, ms, plain, None,
-                       nbytes_of(x, cond, up, w1, b1, w2, b2, y, *params),
+                       nbytes_of(x, cond, up, add, w1, b1, w2, b2, y, *params),
                        2 * (conv_macs(w1, hb, wb, 1) + conv_macs(w2, hb, wb, 1))
                        + sft_flops(hb * wb, sft1) + sft_flops(hb * wb, sft2) + 8 * hb * wb * 128, unit)
-            del x, cond, up, y, y_r, args
+            del x, cond, up, add, y, y_r, args
+        if state is not None:
+            rng.set_state(state)
+        hb, wb = 270, 480  # L1 of a 1080p frame again, for mix_chain below
 
         # mix_chain: the CondNet2 tail, window [0, 256) of (270,480,768): 256 → 256 lrelu → 64, the
         # weights w_s2d_1x1 and biases b_s2d as the programs pass them with s2d=True (bf16: the row
@@ -3731,6 +3772,568 @@ def phase_quant(torch, np, native, smi: str, tmp: str) -> tuple[dict, dict]:
     return counts, figures
 
 
+# Phase 13: live capture, the interactive shell, the audio attach and the tab-audio bridge
+# (pipeline/live.py, capture.py, shell.py, audio.py, bridge.py; host code in front of
+# PipelineRunner). (a) The synthetic grabber at LIVE_CAPTURES' sizes through LiveSource into
+# the runner, realtime at LIVE_FPS for LIVE_FRAMES frames, processed at 1080p on the bf16
+# default (the 720p capture letterboxed): one delivered frame in LIVE_KEEP kept, each mapped
+# back to the observation it was served from and equal bit for bit to process_rgb48 of that
+# capture; the observations served never go back. (b) The live CLI in a child process.
+# (c) A ShellController over a running card runner, SHELL_KEYS pressed: every delivered
+# frame's CRC-32 equal to process_rgb48's on the program in force (the CRC of equal bytes is
+# equal; two different frames share one with odds of 2^-32), the 720p program's replay equal
+# to its eager bytes (letterboxed from 1080p, and on a native 720p frame), the native
+# frame (seeded noise, as phase 3's) against the same program on the CPU within phase 3's
+# bf16 natural bound NAT_BF16_CODES (the CRCs and the replays hold the kernels to
+# themselves; at 720p every LE resblock takes the resblock kernel, phase 2 holds it to its
+# plain version at these blocks' shapes). Phase 3's bound on the s2d programs, (1536, 34.0)
+# from 18.06 seen at 360 × 640, does not carry over: the 720p frame reads 510 / 34.64 codes
+# while each of its kernel calls matches its plain version on its own inputs within one
+# bf16 step (trunk3 2.1, within its two; tools/bf16_spread.py --per-call), and 1080p reads
+# 347 / 6.63, so the spread grows outside the kernels, as the natural program's does
+# (NVIDIA H100 80GB HBM3, 700 W). The frames after
+# the precision swap (fp16 → the int8 token, both bf16 on the float weights) the 1080p
+# program's, at most the out ring's ring + 2 frames (those in flight) after the pause and
+# none in the next SHELL_PAUSE_S, one frame redrawn by the paused seek, memory allocated and
+# reserved at each later swap's
+# first frame at most SHELL_MEM_SLACK over the first swap's (a processor a swap dropped and did
+# not free would keep its graph's pool, 0.3-1.4 GiB). (d) An AudioPlayer on a fake mpv
+# and an AudioAttachment on a card runner: every gain the policy issued reaches the fake's
+# IPC log. (e) AudioSyncBridge on 127.0.0.1: a session's start, keepalive and stop, and 410
+# for a keepalive after the stop. Budget LIVE_PHASE_S.
+LIVE_FPS = 60.0
+LIVE_FRAMES = 300
+LIVE_KEEP = 10
+LIVE_CAPTURES = {"live_bf16": (1080, 1920), "live_letterbox": (720, 1280)}
+LIVE_CLI_FRAMES = 120
+SHELL_KEYS = ("p", "r", "r", "r", " ", ".", " ", "LEFT", "q")
+SHELL_STEP_FRAMES = 15  # frames of the new program awaited after each key
+SHELL_PAUSE_S = 0.3  # seconds for what was in flight to drain, then as long again with nothing new
+SHELL_MEM_SLACK = 256 << 20  # bytes: a new size's resize matrices, cached output copies; a pool is 0.3-1.4 GiB
+AUDIO_FRAMES = 240
+LIVE_PHASE_S = 60.0
+LIVE_KEYS = ("card", "live_bf16", "live_letterbox", "cli", "shell", "audio", "bridge", "phase_s")
+# Phase 13 (d)'s fake mpv (tests/test_audio_player.py's; tests/test_torch_audio_shell.py reads
+# it from here): serves the --input-ipc-server socket and appends every command line it
+# receives to <socket>.log; with no socket it sleeps, as an mpv playing would.
+FAKE_MPV = r"""#!{python}
+import socket, sys, time
+ipc = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--input-ipc-server=")), None)
+if ipc is None:
+    time.sleep(30); sys.exit(0)
+srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+srv.bind(ipc)
+srv.listen(1)
+conn, _ = srv.accept()
+with open(ipc + ".log", "ab", buffering=0) as log:
+    while True:
+        data = conn.recv(4096)
+        if not data:
+            break
+        log.write(data)
+"""
+
+
+def live_line(figures: dict) -> str:
+    """Phase 13's {"live": ...} line, its keys in LIVE_KEYS' order; a
+    missing or an extra key fails."""
+    if set(figures) != set(LIVE_KEYS):
+        raise AssertionError(f"live line: keys {sorted(figures)} != {sorted(LIVE_KEYS)}")
+    return json.dumps({"live": {k: figures[k] for k in LIVE_KEYS}})
+
+
+class ObservedGrabber:
+    """A grabber that numbers what it hands out (1, 2, ... as LiveSource
+    counts observations), keeps the last few frames it made to look one up
+    by identity, and times each grab."""
+
+    def __init__(self, grab, keep: int = 16):
+        import collections
+        import threading
+
+        self.grab, self.n, self.ms = grab, 0, []
+        self._recent = collections.deque(maxlen=keep)
+        self._lock = threading.Lock()
+
+    def __call__(self):
+        t0 = time.perf_counter()
+        frame = self.grab()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        if frame is not None:
+            with self._lock:
+                self.n += 1
+                self._recent.append((self.n, frame))
+        return frame
+
+    def observation(self, frame):
+        """The number of the observation ``frame`` is (None when it is not
+        one of the last few)."""
+        with self._lock:
+            return next((n for n, f in self._recent if f is frame), None)
+
+
+def served_observations(source_cls):
+    """A LiveSource subclass recording, for each frame it serves, the
+    number of the observation it served (its grabber an ObservedGrabber)."""
+
+    class Traced(source_cls):
+        def __init__(self, grabber, **kw):
+            self.served_obs = []
+            super().__init__(grabber, **kw)
+
+        def read_with_meta(self, timeout: float = 2.0):
+            meta = super().read_with_meta(timeout)
+            if meta is not None:
+                self.served_obs.append(self.grabber.observation(meta[0]))
+            return meta
+
+    return Traced
+
+
+def check_served(served_obs: list, kept: list, fps: float) -> list:
+    """The observation each kept frame (pts, frame) was served from, from
+    its pts (served index / fps); fails where one is unknown or where the
+    observations served go back."""
+    if any(o is None for o in served_obs):
+        raise AssertionError(f"served frames of unknown observation: {served_obs.count(None)}")
+    if any(b < a for a, b in zip(served_obs, served_obs[1:])):
+        raise AssertionError("the observations served went back")
+    obs = [served_obs[int(round(pts * fps))] for pts, _ in kept]
+    if any(b < a for a, b in zip(obs, obs[1:])):
+        raise AssertionError(f"kept frames out of order: observations {obs}")
+    return obs
+
+
+def replay_vs_eager(torch, proc, frame, n: int = 30) -> dict:
+    """A frame's eager program against two replays of its graph (equal
+    bytes), and the replays' ms/frame over n device-resident frames."""
+    x = proc.put_frame(frame.reshape(frame.shape[0], -1))
+    eager = proc._rgb48_eager(x)
+    replays = [proc.process_rgb48_device(x) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        proc.process_rgb48_device(x)
+    torch.cuda.synchronize()
+    return {"equal": all(torch.equal(r, eager) for r in replays),
+            "replay_ms": round((time.perf_counter() - t0) * 1e3 / n, 3)}
+
+
+def phase_live(torch, np, native, smi: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 13 (its checks in the constants' comment above). Returns the
+    launch counts of the paths live_bf16 (the warm-up's eager run and capture,
+    then 1080p replays), live_letterbox (the 720p capture's first frame: an
+    eager run and a capture) and shell_swaps (each swap's new processor's
+    first frame) and the phase's figures."""
+    import threading
+    import urllib.error
+    import urllib.request
+    import zlib
+
+    from hdrtv_tpu_torch.config import processing_dims
+    from hdrtv_tpu_torch.pipeline.audio import AudioAttachment, AudioPlayer, AutoMutePolicy
+    from hdrtv_tpu_torch.pipeline.bridge import AudioSyncBridge
+    from hdrtv_tpu_torch.cli import grabber_kind
+    from hdrtv_tpu_torch.pipeline.capture import make_grabber
+    from hdrtv_tpu_torch.pipeline.live import LiveSource, synthetic_grabber
+    from hdrtv_tpu_torch.pipeline.runner import PipelineRunner
+    from hdrtv_tpu_torch.pipeline.shell import ShellController
+    from hdrtv_tpu_torch.pipeline.sinks import NullSink
+    from hdrtv_tpu_torch.pipeline.source import SyntheticSource
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    t_phase = time.perf_counter()
+    set_path_env({"mega": "1"})
+    full = processing_dims("1080p")
+    two = {k: 2 * v for k, v in expected_launches("bf16_mega").items()}
+    counts, figures = {}, {"card": smi}
+    mib = 1 << 20
+
+    # --- (a) live at full width, and a 720p capture letterboxed onto 1080p ----------------
+    class KeepSink:
+        def __init__(self):
+            self.n, self.kept, self.first = 0, [], None
+
+        def show(self, rgb48, pts=None):
+            if self.first is None:
+                self.first = time.perf_counter()
+            if self.n % LIVE_KEEP == 0:
+                self.kept.append((pts, rgb48.copy()))
+            self.n += 1
+
+        def close(self):
+            pass
+
+    proc = HDRTVNetTorch(WEIGHTS, precision="fp16", proc_resolution=full, persistent_cache=False)
+    for path, (h, w) in LIVE_CAPTURES.items():
+        log(f"phase 13: live {path}: synthetic {h}x{w} capture, {LIVE_FRAMES} frames at {LIVE_FPS:g} fps, "
+            f"processed at {full[1]}x{full[0]} bf16 default")
+        grab = ObservedGrabber(make_grabber("synthetic", width=w, height=h))
+        torch.cuda.synchronize()
+        native.reset_launch_counts()
+        graphs0 = len(proc.graphs)
+        if path == "live_bf16":
+            warm_s = proc.warmup_compile(*full)  # the CLI's warm-up: the processing size's graph
+        src = served_observations(LiveSource)(grab, process_fps=LIVE_FPS)
+        sink = KeepSink()
+        runner = PipelineRunner(src, proc, sink, realtime=True, max_frames=LIVE_FRAMES)
+        try:
+            t0 = time.perf_counter()
+            m = runner.run()
+            wall = time.perf_counter() - t0
+        finally:
+            src.close()
+        torch.cuda.synchronize()
+        counts[path] = read_counts(native)
+        if counts[path] != two:
+            raise AssertionError(f"{path}: counted {counts[path]}, one frame's eager run and capture {two}")
+        obs = check_served(src.served_obs, sink.kept, LIVE_FPS)
+        ref = synthetic_grabber(w, h)
+        bad, at = [], 0
+        for o, (pts, got) in zip(obs, sink.kept):
+            while at < o:
+                frame, at = ref(), at + 1
+            want = proc.process_rgb48(frame)
+            if not np.array_equal(got.reshape(want.shape), want):
+                bad.append(o)
+        gm = np.asarray(grab.ms[1:] or grab.ms)
+        res = {"frames": m.frames, "shown": sink.n, "kept": len(sink.kept), "fps": round(m.fps, 3),
+               "fps_1pct_low": round(m.fps_1pct_low, 3), "model_ms": round(m.model_ms, 3),
+               "ring_ms": round(m.ring_ms, 3), "dropped": m.dropped, "flushed": runner.flushed,
+               "observed": src.frames_observed, "served": src.frames_served,
+               "grab_ms": round(float(gm.mean()), 3), "grab_p99_ms": round(float(np.percentile(gm, 99)), 3),
+               "first_frame_s": round(sink.first - t0, 3), "wall_s": round(wall, 2),
+               "captures": len(proc.graphs) - graphs0, "wrong": len(bad)}
+        if path == "live_bf16":
+            res["warmup_s"] = round(warm_s, 3)
+        log(f"live {path}: {json.dumps(res)}; {smi}")
+        if bad or m.frames != LIVE_FRAMES or sink.n != LIVE_FRAMES or res["captures"] != 1:
+            raise AssertionError(f"{path}: {res}; frames of observations {bad[:10]} differ from process_rgb48")
+        figures[path] = res
+        del sink, src, runner
+
+    # --- (b) the live CLI in a child process, and what "auto" resolves to here -----------
+    g = make_grabber(None)
+    kind = grabber_kind(g)
+    auto_shape = list(g().shape)
+    if hasattr(g, "close"):
+        g.close()
+    env = {**os.environ, "HDRTVNET_PREFS_PATH": os.path.join(tmp, "prefs.json"),
+           "HDRTVNET_ENGINE_CACHE_DIR": os.path.join(tmp, "engines"), "HDRTVNET_CACHE_DIR": os.path.join(tmp, "cache")}
+    cmd = [sys.executable, "-m", "hdrtv_tpu_torch.cli", "live", "--capture", "synthetic", "--resolution", "1080p",
+           "--fps", "60", "--frames", str(LIVE_CLI_FRAMES), "--display", "null"]
+    log("phase 13: " + " ".join(cmd[1:]) + f"; auto resolves to {kind} {auto_shape[1]}x{auto_shape[0]}")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    for line in lines[-4:]:
+        log("  cli: " + line)
+    if (res.returncode != 0 or not lines or f"frames={LIVE_CLI_FRAMES} " not in lines[-1]
+            or "capture synthetic: synthetic" not in lines):
+        raise AssertionError(f"live cli: exit {res.returncode}; {res.stdout[-1000:]} {res.stderr[-2000:]}")
+    figures["cli"] = {"rc": res.returncode, "seconds": round(cli_s, 1), "summary": lines[-1],
+                      "auto": {"grabber": kind, "shape": auto_shape}}
+
+    # --- (c) the shell under load ---------------------------------------------------------
+    state = {"precision": "fp16", "res": full}
+
+    def factory(precision=None, proc_resolution=None):
+        if precision is not None:
+            state["precision"] = precision
+        if proc_resolution is not None:
+            state["res"] = tuple(proc_resolution)
+        return HDRTVNetTorch(WEIGHTS, precision=state["precision"], proc_resolution=state["res"],
+                             persistent_cache=False)
+
+    class CrcSink:
+        def __init__(self):
+            self.got = []  # (time, generation, pts, shape, crc, allocated, reserved)
+            self.runner = None
+
+        def show(self, rgb48, pts=None):
+            self.got.append((time.perf_counter(), self.runner._generation, pts, rgb48.shape,
+                             zlib.crc32(np.ascontiguousarray(rgb48)), torch.cuda.memory_allocated(),
+                             torch.cuda.memory_reserved()))
+
+        def close(self):
+            pass
+
+    shell_fps = LIVE_FPS
+    sink = CrcSink()
+    runner = PipelineRunner(SyntheticSource(*full, fps=shell_fps, frames=10 ** 6), proc, sink, realtime=True,
+                            processor_factory=factory)
+    sink.runner = runner
+    ctl = ShellController(runner, runner.source, precision="fp16", resolution="1080p")
+    runner.on_metrics = ctl.on_metrics
+    torch.cuda.synchronize()
+    mem0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    native.reset_launch_counts()
+    errors = []
+
+    def run():
+        try:
+            runner.run()
+        except BaseException as e:  # re-raised below, on the main thread
+            errors.append(e)
+
+    def frames_since(n0: int, pred=lambda f: True, n: int = SHELL_STEP_FRAMES, timeout: float = 60.0):
+        """The first of the frames delivered after the n0-th that satisfy
+        pred, once n of them have arrived (None at the timeout)."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and t.is_alive():
+            new = [f for f in sink.got[n0:] if pred(f)]
+            if len(new) >= n:
+                return new[0]
+            time.sleep(0.005)
+        return None
+
+    shapes = {name: (processing_dims(name)[1], 3 * processing_dims(name)[0]) for name in ("540p", "720p", "1080p")}
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    steps = []
+    try:
+        if frames_since(0) is None:
+            raise AssertionError("shell: no frames before the first key")
+        for key in SHELL_KEYS:
+            g0, n0, t0 = runner._generation, len(sink.got), time.perf_counter()
+            action = ctl.handle_key(key)
+            step = {"key": key, "action": action}
+            if key in ("p", "r"):  # a new processor: the first frame of its program
+                first = frames_since(n0, lambda f, _g0=g0, _s=shapes[ctl.resolution]: f[1] > _g0 and f[3] == _s)
+                if first is None:
+                    raise AssertionError(f"shell: no frames after {action}")
+                step.update(first_frame_s=round(first[0] - t0, 3), allocated_mib=round(first[5] / mib, 1),
+                            reserved_mib=round(first[6] / mib, 1))
+            elif key == " " and ctl.paused:
+                # what was in flight drains (at most the out ring's ring + 2 slots), then nothing
+                time.sleep(SHELL_PAUSE_S)
+                drained = len(sink.got) - n0
+                time.sleep(SHELL_PAUSE_S)
+                step.update(frames_after_pause=drained, frames_while_paused=len(sink.got) - n0 - drained)
+                if drained > runner.ring + 2 or step["frames_while_paused"]:
+                    raise AssertionError(f"shell: the pause did not stop the runner: {step}, ring {runner.ring}")
+            elif key == ".":  # the paused seek's redraw: one frame
+                if frames_since(n0, n=1, timeout=10.0) is None:
+                    raise AssertionError("shell: no paused redraw after '.'")
+                time.sleep(SHELL_PAUSE_S)
+                step["redrawn"] = len(sink.got) - n0
+                if step["redrawn"] != 1:
+                    raise AssertionError(f"shell: the paused seek redrew {step['redrawn']} frames, not 1")
+            elif key in (" ", "LEFT"):  # resumed, or seeking back: frames flow again
+                first = frames_since(n0, lambda f, _g0=g0: f[1] > _g0 or key == " ")
+                if first is None:
+                    raise AssertionError(f"shell: no frames after {action}")
+                step["first_frame_s"] = round(first[0] - t0, 3)
+            steps.append(step)
+            log(f"shell: {json.dumps(step)}")
+    finally:
+        runner.stop()
+        t.join(timeout=60)
+    if t.is_alive():
+        raise AssertionError("shell: the runner did not stop")
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    counts["shell_swaps"] = read_counts(native)
+    want_counts = {k: 2 * v + 2 * _BF16_MEGA_720P.get(k, 0) + 2 * int(k == "pack_rgb48") for k, v in two.items()}
+    if counts["shell_swaps"] != want_counts:
+        raise AssertionError(f"shell: counted {counts['shell_swaps']}, want {want_counts} (an eager run and a "
+                             "capture of the bf16 default at 1080p twice and at 720p, and of the 540p natural "
+                             "program)")
+    # The first swap's processor comes beside the first one (kept here as the 1080p reference);
+    # each later swap drops the processor before it: allocated and reserved memory (the graph
+    # pools) at its first frame at most SHELL_MEM_SLACK over the first swap's.
+    swaps = [st for st in steps if st["key"] in ("p", "r")]
+    grew = [st for st in swaps[1:] if st["allocated_mib"] > swaps[0]["allocated_mib"] + SHELL_MEM_SLACK / mib
+            or st["reserved_mib"] > swaps[0]["reserved_mib"] + SHELL_MEM_SLACK / mib]
+    if grew:
+        raise AssertionError(f"shell: memory grew from swap to swap: {swaps}")
+    # every frame against process_rgb48 on the program its size names (all 1080p programs are
+    # the bf16 default on the float weights: the precision swap's token int8 maps to bf16)
+    by_shape = {}
+    for f in sink.got:
+        by_shape.setdefault(f[3], []).append(f)
+    src = SyntheticSource(*full, fps=shell_fps, frames=10 ** 6)
+    wrong, replay720 = {}, None
+    for name in ("1080p", "540p", "720p"):
+        frames = by_shape.pop(shapes[name], [])
+        ref = proc if name == "1080p" else factory(precision="fp16", proc_resolution=processing_dims(name))
+        bad = 0
+        for _, _, pts, _, crc, _, _ in frames:
+            src.seek(int(round(pts * shell_fps)))
+            out = ref.process_rgb48(src.read_with_meta()[0])
+            bad += zlib.crc32(np.ascontiguousarray(out)) != crc
+        wrong[name] = [len(frames), bad]
+        if name == "720p":
+            # 720p's first run on the card: its replay against its eager bytes, letterboxed from
+            # 1080p as the shell runs it and on a native 1280 x 720 frame (the letterbox's share)
+            src.seek(0)
+            native720 = HDRTVNetTorch(WEIGHTS, precision="fp16", persistent_cache=False)
+            w7, h7 = processing_dims("720p")
+            noise = (np.random.RandomState(720).rand(h7, w7, 3) * 255).astype(np.uint8)
+            replay720 = {"letterboxed": replay_vs_eager(torch, ref, src.read_with_meta()[0]),
+                         "native": replay_vs_eager(torch, native720, noise)}
+            # the native frame against the same program on the CPU (plain versions, no kernel)
+            t_cpu = time.perf_counter()
+            cpu = HDRTVNetTorch(WEIGHTS, precision="fp16", device="cpu", persistent_cache=False).process_rgb48(noise)
+            d = np.abs(eager_rgb48(native720, noise).astype(np.int64) - cpu.astype(np.int64))
+            replay720["card_vs_cpu"] = {"max_codes": int(d.max()), "mean_codes": round(float(d.mean()), 3),
+                                        "differ": round(float((d > 0).mean()), 4),
+                                        "cpu_s": round(time.perf_counter() - t_cpu, 2)}
+            native720.graphs.clear()
+            del native720, cpu
+        if ref is not proc:
+            ref.graphs.clear()
+            del ref
+            torch.cuda.empty_cache()
+    if by_shape:
+        raise AssertionError(f"shell: frames of no program's size: {list(by_shape)}")
+    shell = {"steps": steps, "frames": len(sink.got), "flushed": runner.flushed, "by_size": wrong,
+             "allocated_before_mib": round(mem0 / mib, 1), "reserved_before_mib": round(reserved0 / mib, 1),
+             "replay_720p": replay720}
+    log(f"shell: {json.dumps({k: v for k, v in shell.items() if k != 'steps'})}; {smi}")
+    if any(bad for _, bad in wrong.values()) or not all(n for n, _ in wrong.values()):
+        raise AssertionError(f"shell: frames [delivered, wrong] by size {wrong}")
+    if not replay720 or not all(replay720[k]["equal"] for k in ("letterboxed", "native")):
+        raise AssertionError(f"shell: a 720p replay differs from its eager bytes: {replay720}")
+    vs = replay720["card_vs_cpu"]
+    if vs["max_codes"] > NAT_BF16_CODES[0] or vs["mean_codes"] > NAT_BF16_CODES[1]:
+        raise AssertionError(f"shell: the native 720p frame, card against CPU: {vs}, bound {NAT_BF16_CODES}")
+    figures["shell"] = shell
+    del sink, runner, ctl
+
+    # --- (d) the audio attach on a fake mpv -----------------------------------------------
+    bindir = os.path.join(tmp, "bin")
+    os.makedirs(bindir, exist_ok=True)
+    fake = os.path.join(bindir, "mpv")
+    with open(fake, "w") as f:
+        f.write(FAKE_MPV.replace("{python}", sys.executable))
+    os.chmod(fake, 0o755)
+    media = os.path.join(tmp, "clip.bin")
+    with open(media, "wb") as f:
+        f.write(b"x")
+    old_path = os.environ["PATH"]
+    os.environ["PATH"] = bindir + os.pathsep + old_path
+    try:
+        player = AudioPlayer(media)
+    finally:
+        os.environ["PATH"] = old_path
+    issued = []
+    try:
+        # every sample unstable (the floor over any fps) until muted, then a floor of 1 fps:
+        # the policy mutes, then restores through its fade
+        policy = AutoMutePolicy(target_fps=LIVE_FPS, min_fps=1e6, unstable_need=2, stable_need=3, hold_s=0.3)
+
+        def set_gain(gain):
+            issued.append(gain)
+            return player.set_gain(gain)
+
+        attach = AudioAttachment(policy, set_gain)
+
+        def on_metrics(snap):
+            attach.on_metrics(snap.fps)
+            if policy.muted:
+                policy.min_fps = 1.0
+
+        m = PipelineRunner(SyntheticSource(*full, fps=LIVE_FPS, frames=AUDIO_FRAMES), proc, NullSink(),
+                           realtime=True, on_metrics=on_metrics).run()
+        log_path, cmds = player.ipc_path + ".log", []
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            if os.path.exists(log_path):
+                with open(log_path) as f:
+                    cmds = [json.loads(x) for x in f if x.strip()]
+                if len(cmds) >= len(issued):
+                    break
+            time.sleep(0.02)
+    finally:
+        player.close()
+    volumes = [c["command"][2] / 100.0 for c in cmds if c["command"][:2] == ["set_property", "volume"]]
+    audio = {"frames": m.frames, "fps": round(m.fps, 3), "issued": issued, "ipc_volumes": volumes}
+    if volumes != issued or 0.0 not in issued or issued[-1] != 1.0:
+        raise AssertionError(f"audio: the policy issued {issued}, the fake mpv received {volumes}")
+    import importlib.util
+
+    if importlib.util.find_spec("cv2") is None:
+        audio["cli"] = "not run: no cv2 on this machine (the convert --audio leg needs a video)"
+    else:
+        audio["cli"] = live_audio_cli(np, tmp)
+    log(f"audio: {json.dumps(audio)}")
+    figures["audio"] = audio
+
+    # --- (e) the tab-audio bridge -----------------------------------------------------------
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def req(url, payload):
+        r = urllib.request.Request(url, data=json.dumps(payload).encode(), method="POST",
+                                   headers={"Content-Type": "application/json"})
+        try:
+            with opener.open(r, timeout=5) as resp:
+                return resp.status, json.loads(resp.read().decode())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read().decode())
+
+    with AudioSyncBridge(host="127.0.0.1", port=0) as b:
+        base = b.address()
+        st_start, body = req(f"{base}/session/start", {"title": "chip_smoke", "fps": LIVE_FPS, "has_audio": True})
+        sid = body.get("session_id")
+        codes = [st_start, req(f"{base}/session/{sid}/keepalive", {"has_audio": True})[0],
+                 req(f"{base}/session/{sid}/stop", {})[0], req(f"{base}/session/{sid}/keepalive", {})[0]]
+    bridge = {"codes": codes}
+    log(f"bridge: start, keepalive, stop, late keepalive: {codes}")
+    if codes != [200, 200, 200, 410]:
+        raise AssertionError(f"bridge: {codes}, want [200, 200, 200, 410]")
+    figures["bridge"] = bridge
+
+    proc.graphs.clear()
+    del proc
+    torch.cuda.empty_cache()
+    figures["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log(f"phase 13: {figures['phase_s']} s (budget {LIVE_PHASE_S:g})")
+    if figures["phase_s"] > LIVE_PHASE_S:
+        raise AssertionError(f"phase 13 took {figures['phase_s']} s, over its {LIVE_PHASE_S:g} s")
+    return counts, figures
+
+
+def live_audio_cli(np, tmp: str) -> str:
+    """convert --audio on a short 1080p MJPG clip, in this process, with no
+    mpv on the PATH: it must say "audio attach unavailable" and exit 0."""
+    import contextlib
+    import io
+    import shutil
+
+    import cv2
+
+    from hdrtv_tpu_torch import cli
+
+    clip = os.path.join(tmp, "audio_clip.avi")
+    wr = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MJPG"), 24, (1920, 1080))
+    for i in range(8):
+        wr.write(smooth_frame(np, 1080, 1920, 100 + i))
+    wr.release()
+    if shutil.which("mpv") is not None:
+        return f"not run: an mpv is on this machine's PATH ({shutil.which('mpv')})"
+    buf = io.StringIO()
+    saved = {k: os.environ.get(k) for k in ("HDRTVNET_PREFS_PATH", "HDRTVNET_ENGINE_CACHE_DIR")}
+    os.environ["HDRTVNET_PREFS_PATH"] = os.path.join(tmp, "prefs_audio.json")
+    os.environ["HDRTVNET_ENGINE_CACHE_DIR"] = os.path.join(tmp, "engines")
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["convert", "--video", clip, "--audio", "--display", "null", "--no-realtime",
+                           "--resolution", "1080p", "--prefetch", "0"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = buf.getvalue()
+    if rc != 0 or "audio attach unavailable" not in out or "frames=8 " not in out:
+        raise AssertionError(f"convert --audio: exit {rc}; {out[-2000:]}")
+    return "ran: " + next(ln for ln in out.splitlines() if "audio attach unavailable" in ln)
+
+
 def main() -> int:
     import torch
 
@@ -3784,6 +4387,8 @@ def main() -> int:
             counts.update(bench_counts)
             quant_counts, quant = phase_quant(torch, np, native, smi, tmp)
             counts.update(quant_counts)
+            live_counts, live = phase_live(torch, np, native, smi, tmp)
+            counts.update(live_counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3831,6 +4436,7 @@ def main() -> int:
     log(json.dumps({"models": models}))
     log(bench_line(bench))
     log(quant_line(quant))
+    log(live_line(live))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,12 +6,16 @@
     python -m hdrtv_tpu_torch.cli bench --resolution 1080p --duration 10 --no-realtime
     python -m hdrtv_tpu_torch.cli quantize --model weights/hr_fp32.npz --out q.npz --calib-method kl
     python -m hdrtv_tpu_torch.cli qat --model weights/hr_fp32.npz --out qat.npz --steps 50
+    python -m hdrtv_tpu_torch.cli live --capture synthetic --resolution 1080p --fps 60 --display null
 
 The parser accepts every command line the JAX package's does. These
 subcommands run: ``convert`` (play/convert a video or a synthetic source to
 a sink, ``pipeline/runner.py``; ``--log-session`` writes the playback
-session files), ``export`` (HDR10 export, ``pipeline/export.py``),
-``presets``, ``assets``, ``engines``, ``build-engines``, ``info``
+session files, ``--audio`` plays the video's audio in an mpv auto-muted on
+unstable FPS, ``pipeline/audio.py``, ``--interactive`` the terminal shell,
+``pipeline/shell.py``), ``live`` (window, screen or camera capture,
+``pipeline/live.py``, ``pipeline/capture.py``), ``export`` (HDR10 export,
+``pipeline/export.py``), ``presets``, ``assets``, ``engines``, ``build-engines``, ``info``
 (checkpoint inspection), ``split-sources`` (a composite checkpoint split
 into HR and HG files), the benchmarks ``bench`` (playback: pipelined,
 ``--device-resident``, the ``--resolutions`` / ``--runs`` matrix,
@@ -24,10 +28,10 @@ sensitivity probe, ``quant/mixed.py``), ``qat`` (teacher-distilled QAT,
 ``quant/qat.py``, ``train.py``), ``sweep`` (``bench/sweep.py``),
 ``mine-hard-frames`` and ``teacher-pairs`` (``data/curate.py``).
 ``--model`` takes a converted ``.npz`` or a reference ``.pt``,
-``--hg-weights`` the HG generator's own ``.pt`` beside an HR one. ``live``
-and the options of ``convert`` whose modules are not ported yet raise
-``NotImplementedError`` naming the ROADMAP.md Queue 1 item that owns those
-modules.
+``--hg-weights`` the HG generator's own ``.pt`` beside an HR one. The
+multi-device options (``convert --mesh``, ``export --mesh`` and
+``--hosts``) raise ``NotImplementedError`` naming the ROADMAP.md Queue 1
+item that owns their modules.
 
 The processor, the metrics, the validation models, the figures' tone map,
 calibration, QAT, the probe and the sweep run on the CUDA card;
@@ -46,9 +50,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# What the subcommands and options that do not run yet wait for: the
-# ROADMAP.md Queue 1 item that owns their modules.
-ITEM_11 = "Queue 1 item 11"
+# What the options that do not run yet wait for: the ROADMAP.md Queue 1
+# item that owns their modules.
 ITEM_13 = "Slice 8 (parallel: Queue 1 item 13)"
 
 
@@ -160,9 +163,6 @@ def cmd_convert(args) -> int:
     from hdrtv_tpu_torch.pipeline.source import SyntheticSource, VideoSource
     from hdrtv_tpu_torch.utils.env import env_bool
 
-    for flag, what in (("audio", "--audio (pipeline/audio.py)"), ("interactive", "--interactive (pipeline/shell.py)")):
-        if getattr(args, flag, None):
-            raise _not_ported(what, ITEM_11)
     if not env_bool("HDRTVNET_IGNORE_PLAYBACK_LOCK", False) and is_playback_locked():
         # The reference locks playback interactions while a benchmark runs
         # (gui_playback_runtime.py:274-411).
@@ -208,6 +208,24 @@ def cmd_convert(args) -> int:
     print(f"capturing {w}x{h} ({args.precision})...", flush=True)
     dt = proc.warmup_compile(w, h)
     print(f"engine ready in {dt:.1f}s", flush=True)
+    # Audio attach with the auto-mute fade policy (gui_audio_playback/_mute).
+    audio = on_metrics = None
+    if getattr(args, "audio", False) and args.video:
+        from hdrtv_tpu_torch.pipeline.audio import AudioAttachment, AudioPlayer, AutoMutePolicy
+        from hdrtv_tpu_torch.utils.env import env_float
+
+        try:
+            delay_ms = args.audio_delay_ms
+            if delay_ms is None:
+                delay_ms = env_float("HDRTVNET_AUDIO_DELAY_MS", 0.0)
+            audio = AudioPlayer(args.video, track=args.audio_track, delay_ms=delay_ms)
+            attach = AudioAttachment(AutoMutePolicy(target_fps=getattr(src, "fps", 30.0)), audio.set_gain)
+            on_metrics = lambda snap: attach.on_metrics(snap.fps)  # noqa: E731
+        except RuntimeError as exc:
+            print(f"audio attach unavailable: {exc}")
+    interactive = bool(getattr(args, "interactive", False)) and sys.stdout.isatty()
+    shell_metrics = on_metrics
+    controller = None
 
     def _factory(precision=None, proc_resolution=None):
         import copy
@@ -231,7 +249,9 @@ def cmd_convert(args) -> int:
         # periodic `[timing]` reports every N frames (main.py --timing-interval)
         state = {"next": interval}
 
-        def _timing_cb(snap, _r=runner, _s=state):
+        def _timing_cb(snap, _prev=shell_metrics, _r=runner, _s=state):
+            if _prev is not None:
+                _prev(snap)
             if snap.frames >= _s["next"]:
                 _s["next"] = snap.frames + interval
                 print(_r.timers.timing_line(
@@ -239,18 +259,51 @@ def cmd_convert(args) -> int:
                     target_fps=args.target_fps or 0.0, late_frames=snap.dropped,
                 ), flush=True)
 
-        runner.on_metrics = _timing_cb
+        shell_metrics = _timing_cb
+    if interactive:
+        from hdrtv_tpu_torch.pipeline.shell import ShellController
+
+        controller = ShellController(
+            runner, src, audio=audio,
+            precision=args.precision, resolution=args.resolution,
+        )
+
+        def fan_out(snap, _audio_cb=on_metrics, _ctl=controller):
+            if _audio_cb is not None:
+                _audio_cb(snap)
+            _ctl.on_metrics(snap)
+
+        shell_metrics = fan_out
+    runner.on_metrics = shell_metrics
     try:
-        m = runner.run()
+        if interactive:
+            import threading
+
+            from hdrtv_tpu_torch.pipeline.shell import run_shell
+
+            result: dict = {}
+            t = threading.Thread(target=lambda: result.update(m=runner.run()), daemon=True)
+            t.start()
+            try:
+                run_shell(controller)
+            finally:
+                runner.stop()
+                t.join(timeout=30)
+            m = result.get("m") or runner.metrics
+        else:
+            m = runner.run()
     finally:
         src.close()
         sink.close()
-    # persist last-used settings (.gui_prefs.json role)
+        if audio is not None:
+            audio.close()
+    # persist last-used settings (.gui_prefs.json role); the shell may have
+    # hot-swapped precision/resolution — save what the session ended with
     from hdrtv_tpu_torch.utils.prefs import save_prefs
 
     save_prefs(
-        precision=args.precision,
-        resolution=args.resolution,
+        precision=(controller.precision if controller else args.precision),
+        resolution=(controller.resolution if controller else args.resolution),
         use_hg=bool(args.use_hg),
         display=args.display,
         upscale=getattr(args, "upscale", None),
@@ -668,6 +721,57 @@ def cmd_validate(args) -> int:
     return 0
 
 
+def grabber_kind(grabber) -> str:
+    """What ``make_grabber`` resolved to: "x11", "v4l2" or "synthetic"."""
+    from hdrtv_tpu_torch.pipeline.capture import V4L2Grabber, X11Grabber
+
+    return "x11" if isinstance(grabber, X11Grabber) else "v4l2" if isinstance(grabber, V4L2Grabber) else "synthetic"
+
+
+def cmd_live(args) -> int:
+    """Live capture → SDR→HDR → display (WindowCaptureSource mode analog,
+    reference window_capture_source.py:1132 + live-feeder drop-to-latest).
+    A capture whose size is not the processing size letterboxes on the
+    device; its CUDA graph is captured at the first live frame."""
+    from hdrtv_tpu_torch.config import processing_dims
+    from hdrtv_tpu_torch.pipeline.audio import live_audio_delay_target_ms
+    from hdrtv_tpu_torch.pipeline.capture import make_grabber
+    from hdrtv_tpu_torch.pipeline.live import LiveSource
+    from hdrtv_tpu_torch.pipeline.runner import PipelineRunner
+    from hdrtv_tpu_torch.pipeline.sinks import make_sink
+
+    try:
+        grabber = make_grabber(args.capture)
+    except (RuntimeError, ValueError) as exc:
+        print(f"capture source unavailable: {exc}")
+        return 2
+    print(f"capture {args.capture or 'auto'}: {grabber_kind(grabber)}", flush=True)
+    proc = _make_processor(args)
+    w, h = processing_dims(args.resolution)
+    src = LiveSource(grabber, process_fps=args.fps)
+    try:
+        sink = make_sink(args.display, w, h, src.display_fps, path=args.output, live=True)
+        print(f"capturing {w}x{h} ({args.precision})...", flush=True)
+        dt = proc.warmup_compile(w, h)
+        print(f"engine ready in {dt:.1f}s; capturing (observe {src.observe_fps:.0f} fps, "
+              f"process {src.fps:.0f} fps)", flush=True)
+        try:
+            m = PipelineRunner(src, proc, sink, realtime=True, max_frames=args.frames).run()
+        finally:
+            sink.close()
+    finally:
+        src.close()
+    # Recommend the extension's local audio delay from the measured pipeline
+    # latency (the live-audio delay targeting, gui_state_init.py:123-139)
+    latency_hint = (m.model_ms + 1000.0 / max(src.display_fps, 1.0)) if m.frames else None
+    delay = live_audio_delay_target_ms(latency_hint, tab_audio=True)
+    print(
+        f"frames={m.frames} observed={src.frames_observed} dropped={m.dropped} "
+        f"fps={m.fps:.2f} model={m.model_ms:.2f}ms audio_delay_target={delay:.0f}ms"
+    )
+    return 0
+
+
 def cmd_compare(args) -> int:
     """3-way compare snapshot at a frame: SDR | HDR convert | HDR GT with
     per-pair metrics (the modal compare tool, gui_compare.py role)."""
@@ -998,21 +1102,6 @@ def cmd_teacher_pairs(args) -> int:
     return 0
 
 
-# Subcommands whose modules are not ported yet, with what they need.
-NOT_PORTED = {
-    "live": ("live capture (pipeline/live.py, capture.py)", ITEM_11),
-}
-
-
-def _not_ported_cmd(name: str):
-    what, item = NOT_PORTED[name]
-
-    def fn(args) -> int:
-        raise _not_ported(f"the {name} command: {what}", item)
-
-    return fn
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="hdrtv_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1037,12 +1126,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print a [timing] report every N frames; 0 = off (main.py --timing-interval)")
     c.add_argument("--log-session", default=None, help="write a Log Session dir (summary/json/csv)")
     c.add_argument("--hdr-input", default="reject", choices=["reject", "bypass"])
-    c.add_argument("--audio", action="store_true", help="attach source audio (not ported yet)")
+    c.add_argument("--audio", action="store_true", help="attach source audio (mpv, auto-mute on slow FPS)")
     c.add_argument("--audio-track", type=int, default=None, help="audio stream ordinal (probe_audio_streams)")
     c.add_argument("--audio-delay-ms", type=float, default=None,
                    help="audio delay 0-2000 ms (the reference's slider; env HDRTVNET_AUDIO_DELAY_MS)")
     c.add_argument("--interactive", action="store_true",
-                   help="terminal shell: pause/seek/precision/resolution hot-keys (not ported yet)")
+                   help="terminal shell: pause/seek/precision/resolution hot-keys + live metrics")
     c.add_argument("--stages", action="store_true", help="print the per-stage timing table")
     c.add_argument("--upscale", default=None,
                    choices=["ewa_lanczossharp", "fsr", "ssim_superres"],
@@ -1066,6 +1155,7 @@ def build_parser() -> argparse.ArgumentParser:
     lv.add_argument("--display", default="mpv", choices=["mpv", "side-by-side", "file", "null"])
     lv.add_argument("--output", default=None)
     lv.add_argument("--frames", type=int, default=None)
+    lv.set_defaults(fn=cmd_live)
 
     b = sub.add_parser("bench", help="playback performance benchmark")
     _add_model_args(b)
@@ -1262,8 +1352,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="this host's index in the farm (env HDRTV_EXPORT_HOST_ID; host 0 reassembles)")
     x.set_defaults(fn=cmd_export)
 
-    for name in NOT_PORTED:
-        sub.choices[name].set_defaults(fn=_not_ported_cmd(name))
     return p
 
 

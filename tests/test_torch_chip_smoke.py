@@ -171,3 +171,84 @@ def test_kl_bin_reads_calibrate_kl_scale():
             assert mod.kl_bin(kl_scale, max_scale) == i
     with pytest.raises(AssertionError, match="no bin"):
         mod.kl_bin(np.float32(0.25 * 0.61 / KL_BINS / 127.0), np.float32(0.61 / 127.0))
+
+
+def test_phase_live_is_wired_into_main():
+    """Phase 13 runs after phase 12 inside main's fp32_math block, its
+    launch counts join the kernels line's, and its line comes before the
+    card's line."""
+    import inspect
+
+    mod = _load()
+    src = inspect.getsource(mod.main)
+    quant, live = src.index("phase_quant(torch, np,"), src.index("phase_live(torch, np, native, smi, tmp)")
+    assert src.index("with fp32_math():") < quant < live < src.index("finally:")
+    assert "counts.update(live_counts)" in src
+    assert src.index("log(quant_line(quant))") < src.index("log(live_line(live))") < src.index("log(smi)")
+    assert "13. live capture" in mod.__doc__
+    assert set(mod.LIVE_CAPTURES) == {"live_bf16", "live_letterbox"} and mod.LIVE_PHASE_S <= 60
+
+
+def test_live_line_shape():
+    """Phase 13's {"live": ...} line: every key of LIVE_KEYS in order; a
+    missing or an extra key fails."""
+    import json
+
+    mod = _load()
+    figures = {k: {"x": 1} for k in mod.LIVE_KEYS}
+    figures["phase_s"] = 41.5
+    body = json.loads(mod.live_line(dict(reversed(list(figures.items())))))
+    assert list(body) == ["live"] and tuple(body["live"]) == mod.LIVE_KEYS
+    for broken in ({k: v for k, v in figures.items() if k != "shell"}, {**figures, "extra": 1}):
+        with pytest.raises(AssertionError, match="live line"):
+            mod.live_line(broken)
+
+
+def test_served_frames_map_to_their_observations():
+    """Phase 13's mapping: the port's LiveSource over the synthetic grabber,
+    each frame it serves traced to the observation it was (its bar's place
+    tells the grab apart), the observations never going back; a kept frame
+    is looked up by its pts; an unknown observation or one going back fails."""
+    import time
+
+    import numpy as np
+
+    from hdrtv_tpu_torch.pipeline.live import LiveSource, synthetic_grabber
+
+    mod = _load()
+    grab = mod.ObservedGrabber(synthetic_grabber(96, 64), keep=16)
+    src = mod.served_observations(LiveSource)(grab, process_fps=100.0, observe_fps=200.0)
+    kept = []
+    try:
+        for i in range(40):
+            frame, idx, pts = src.read_with_meta()
+            assert idx == i and pts == i / 100.0
+            if i % 10 == 0:
+                kept.append((pts, frame))
+            time.sleep(0.003)
+    finally:
+        src.close()
+    obs = mod.check_served(src.served_obs, kept, 100.0)
+    assert len(src.served_obs) == 40 and grab.n >= max(src.served_obs) and len(grab.ms) >= grab.n
+    ref = synthetic_grabber(96, 64)
+    frames = [ref() for _ in range(max(obs))]
+    for o, (_, frame) in zip(obs, kept):
+        assert np.array_equal(frame, frames[o - 1])
+    assert grab.observation(np.zeros(1)) is None
+    with pytest.raises(AssertionError, match="unknown observation"):
+        mod.check_served([1, None, 3], [], 100.0)
+    with pytest.raises(AssertionError, match="went back"):
+        mod.check_served([1, 3, 2], [], 100.0)
+
+
+def test_main_refuses_without_a_card(monkeypatch, capsys):
+    """main() in process, torch.cuda.is_available() false: exit 2, nothing
+    on stdout, phase 13 never reached."""
+    import torch
+
+    mod = _load()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(mod, "phase_live", lambda *a: pytest.fail("phase 13 ran without a card"))
+    assert mod.main() == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err

@@ -10,7 +10,10 @@ write what the JAX CLI does; ``quantize`` and ``mine-hard-frames`` write
 what the JAX CLI writes on the same inputs, ``layout``, ``qat``, ``sweep``
 and ``teacher-pairs`` run on the port at small sizes (their modules are held
 to JAX in tests/test_torch_quant.py, test_torch_train.py and
-test_torch_curate_sweep.py); every subcommand and option that is not ported raises
+test_torch_curate_sweep.py); ``live`` runs the synthetic capture and refuses
+a capture device that does not exist (its modules are held to JAX in
+tests/test_torch_live.py, ``convert --audio`` and ``--interactive`` in
+tests/test_torch_audio_shell.py); every option that is not ported raises
 ``NotImplementedError`` naming its ROADMAP.md item; without a card and
 without the CPU switch nothing runs. The config, prefs and assets copies
 agree with the JAX package's.
@@ -178,24 +181,44 @@ def test_presets_assets_engines_run(cpu_cli, capsys):
     assert len(lines) == 2 and all("engine ready" in ln and "ms/frame over 1 runs" in ln for ln in lines)
 
 
-@pytest.mark.parametrize("name", sorted(cli.NOT_PORTED))
-def test_unported_subcommands_raise(name, cpu_cli):
-    argv = next((a for a in ARGVS if a[0] == name), None) or [name]
-    item = cli.NOT_PORTED[name][1]
-    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
-        cli.main(argv)
-
-
 @pytest.mark.parametrize("argv,item", [
-    (["convert", "--audio", "--frames", "1"], "Queue 1 item 11"),
-    (["convert", "--interactive", "--frames", "1"], "Queue 1 item 11"),
     (["convert", "--mesh", "spatial", "--display", "null", "--frames", "1"], "Queue 1 item 13"),
     (["export", "--video", "v.mp4", "--hosts", "4", "--host-id", "2"], "Queue 1 item 13"),
     (["export", "--video", "v.mp4", "--mesh", "--batch", "2", "--resolution", "540p"], "Queue 1 item 13"),
-], ids=["audio", "interactive", "mesh-spatial", "hosts", "export-mesh"])
+], ids=["mesh-spatial", "hosts", "export-mesh"])
 def test_unported_options_raise(argv, item, cpu_cli):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv)
+
+
+def test_live_synthetic_null_sink(cpu_cli, capsys):
+    """tests/test_cli.py test_live_synthetic_null_sink on the port: the
+    synthetic capture to the null sink, the JAX summary line."""
+    assert cli.main(["live", "--model", WEIGHTS, "--capture", "synthetic", "--display", "null",
+                     "--resolution", "540p", "--fps", "60", "--frames", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "frames=2" in out and "observed=" in out and "audio_delay_target=" in out
+
+
+def test_live_bad_capture_spec(cpu_cli, capsys):
+    """tests/test_cli.py test_live_bad_capture_spec on the port: a v4l2
+    device that does not exist returns 2, saying the capture is unavailable."""
+    assert cli.main(["live", "--model", WEIGHTS, "--capture", "v4l2:/dev/video99", "--display", "null",
+                     "--resolution", "540p", "--frames", "1"]) == 2
+    assert "unavailable" in capsys.readouterr().out
+
+
+def test_live_needs_a_card_without_the_switch(monkeypatch, tmp_path):
+    """live, like every command, refuses without a card and without
+    HDRTV_CLI_PLATFORM=cpu, and starts no capture thread."""
+    import threading
+
+    monkeypatch.delenv("HDRTV_CLI_PLATFORM", raising=False)
+    monkeypatch.setenv("HDRTVNET_PREFS_PATH", str(tmp_path / "prefs.json"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["live", "--capture", "synthetic", "--display", "null", "--frames", "1"])
+    assert not any(t.name == "live-observe" for t in threading.enumerate())
 
 
 def test_no_card_no_switch_raises(monkeypatch, tmp_path):

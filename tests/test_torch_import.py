@@ -313,3 +313,20 @@ def test_quant_train_data_modules_leave_jax_out():
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_live_capture_audio_shell_bridge_leave_jax_out():
+    """The live capture, audio, shell and bridge modules and the CLI that
+    runs them import neither JAX nor the JAX package; the synthetic capture
+    runs through the CLI's grabber ladder."""
+    code = (
+        "import sys\n"
+        "import hdrtv_tpu_torch.pipeline.live, hdrtv_tpu_torch.pipeline.capture as cap, "
+        "hdrtv_tpu_torch.pipeline.audio, hdrtv_tpu_torch.pipeline.shell, hdrtv_tpu_torch.pipeline.bridge, "
+        "hdrtv_tpu_torch.cli\n"
+        "assert cap.make_grabber('synthetic', width=8, height=4)().shape == (4, 8, 3)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'hdrtv_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
