@@ -315,6 +315,20 @@ lines; any failed check raises and the script exits non-zero with no result:
    under an AudioAttachment; the bridge's session with a 410 after the stop.
    At most LIVE_PHASE_S; a {"live": ...} line (live_line) comes before the
    card's line.
+14. the mesh (phase_mesh; its checks in the comment above MESH_SIZE): frames
+   W-sharded over 2 and 4 shards on the one card (cuda:0 listed n times,
+   each shard a thread on its own stream; the shard → device map printed):
+   (a) every kernel call of one sharded frame held against its plain version
+   at its window's shape (the shapes printed per kernel), 1080p and 4K; (b)
+   the bf16 default, the int8 default, the HG composite in bf16 and fp32 and
+   the fp32 program at 1080p over 2 and 4 shards against the single-device
+   bytes, launches n times the single-device frame's (paths mesh_*_n2,
+   mesh_*_n4), ms/frame beside the single-device one; (c) 4K over 4 shards
+   (path mesh_bf16_4k_n4); (d) process_rgb48_batch over a data axis of 2
+   (path mesh_dp_bf16) and the export farm as two host processes; (e) a
+   planted fault (trunk3's halo one align short) that must break (b)'s
+   check. At most MESH_PHASE_S; a {"mesh": ...} line (mesh_line) comes
+   before the card's line.
 
 The line before the last is the per-kernel JSON summary, one entry per
 kernel and element type, with the path whose launches it reports and its
@@ -4334,6 +4348,408 @@ def live_audio_cli(np, tmp: str) -> str:
     return "ran: " + next(ln for ln in out.splitlines() if "audio attach unavailable" in ln)
 
 
+# Phase 14: the mesh (hdrtv_tpu_torch/parallel/, the halo branches of models/s2d.py and
+# models/hg_s2d.py). Every shard runs on the one card (cuda:0 listed n times), each a thread
+# on its own stream. (a) One frame of each MESH_CHECKS case with every kernel call held
+# against its plain version on the same inputs (the wrapper's own plain path, on the card),
+# per call: the window shapes each kernel ran at, and the error in MESH_CALL_BOUND's units:
+# bf16 steps of max(1, |plain|) (tools/bf16_spread.py --per-call's measure), fp32 the error
+# over max(1, |plain|), a u16 output (packed tail, hg_tail, pack_rgb48) in codes; a
+# kernel's int8 form apart (_w8a8). The bounds: phase 2's per kernel (one bf16 step, two
+# for resblock and agcm_head; fp32 1e-4, trunk3 5e-4; one code for an fp32 pack) where the
+# real weights keep to them, else twice the largest seen at 1080p and 4K, on one card and on
+# its shards' windows alike (NVIDIA H100 80GB HBM3, 700 W): trunk3 bf16 2.5 steps, the
+# int8 resblock 2.875 and sft_conv3 1.0, the packed tail 44 codes, hg_tail 61 (phase 2's
+# random weights stay within 2 steps and its computed code bounds; these are the real
+# checkpoint's). (b) Each MESH_PROGRAMS program at 1080p over n = 2 and 4 shards against
+# the single-device program's bytes (eager both): the unequal values, the largest and the
+# mean difference in u16 codes, the largest at most MESH_LSB; the launches of one sharded
+# frame n times the single-device frame's (each shard runs the program once). The kernels
+# sum each pixel alike wherever its window starts, and the bf16 and int8 defaults, the fp32
+# program and the fp32 HG composite were bit-equal; where a torch op between the kernels
+# picks its algorithm by the tensor's width, a rounding flips: the HG generator's cuDNN
+# bf16 convs (by a stage-by-stage comparison of each window's result with the whole
+# frame's, every one of its encoder stages parted by one bf16 step on a few hundred values a
+# shard; 67 codes at the output), cuDNN's bf16 2×2 conv down_conv3 at 4K (the only stage
+# apart: one step on 15-23 values a shard; 100 codes), cuBLAS's fp32 1×1 products of the
+# fp32 program at 360 × 640 (1 code, tests/test_torch_cuda.py). MESH_LSB: 0 where
+# bit-equal, JAX's one code for fp32, twice the largest seen for the rest. (c) The bf16
+# default at 4K (2160 × 3840) over 4 shards against the single-device 4K frame, after (a)
+# held every kernel of both at their 4K shapes. (d) process_rgb48_batch over a data axis of 2 (a batch
+# of MESH_DP_FRAMES frames) against the same batch without a mesh (flat rows, frame after
+# frame), bit for bit, and beside it (information) against process_rgb48, whose pair planes
+# contract the condition image in another layout; the export farm as two host
+# processes (export_video_multihost, a torch.distributed gloo group on localhost), each
+# segment and the joined raw master bit-equal to process_rgb48 of the synthetic frames.
+# (e) A planted fault: trunk3's halo radius one align short (8 of its 9), which must break
+# (b)'s check. ms/frame of each sharded frame beside the single-device one (eager, one sync
+# after MESH_FRAMES frames). At most MESH_PHASE_S.
+MESH_SIZE = (1080, 1920)
+MESH_4K = (2160, 3840)
+MESH_NS = (2, 4)
+MESH_PROGRAMS = {"mesh_bf16": "bf16_mega", "mesh_int8": "int8_bf16_mega", "mesh_hg_bf16": "hg_bf16",
+                 "mesh_hg_fp32": "hg_fp32", "mesh_fp32": "fp32"}
+MESH_CHECKS = (("mesh_bf16", MESH_SIZE, 2), ("mesh_bf16", MESH_SIZE, 4), ("mesh_int8", MESH_SIZE, 4),
+               ("mesh_hg_bf16", MESH_SIZE, 4), ("mesh_fp32", MESH_SIZE, 4), ("mesh_bf16", MESH_4K, 1),
+               ("mesh_bf16", MESH_4K, 4))
+MESH_CALL_BOUND = {
+    "bf16": {"fused_resblock": 2.0, "fused_trunk3": 5.0, "fused_agcm_head": 2.0, "fused_resblock_w8a8": 5.75,
+             "fused_sft_conv3_v2_w8a8": 2.0},
+    "f32": {"fused_trunk3": 5e-4},
+    "u16_bf16": {"fused_tail": 88.0, "fused_hg_tail": 122.0, "fused_tail_w8a8": 2.0},
+}
+MESH_CALL_DEFAULT = {"bf16": 1.0, "f32": ATOL, "u16_bf16": 1.0, "u16_f32": 1.0}
+# (b)'s bound by program (and the 4K frame), the largest difference in u16 codes
+MESH_LSB = {"mesh_bf16": 0, "mesh_int8": 0, "mesh_hg_bf16": 134, "mesh_hg_fp32": 1, "mesh_fp32": 1,
+            "mesh_bf16_4k": 200}
+MESH_FRAMES = 3
+MESH_DP_FRAMES = 4
+MESH_FARM_FRAMES = 4
+MESH_PHASE_S = 120.0
+MESH_DEVICE = "cuda:0"  # every shard's device: the one card, listed n times
+MESH_KEYS = ("card", "devices", "calls", "frames", "uhd", "dp", "farm", "fault", "phase_s")
+_MESH_WRAPPERS = {"s2d": ("fused_agcm_head", "fused_cond_chain", "fused_down2", "fused_mix_chain", "fused_resblock",
+                          "fused_sft_conv3_v2", "fused_tail", "fused_trunk3", "fused_block_conv3", "pack_rgb48"),
+                  "hg_s2d": ("fused_hg_tail",)}
+
+
+def mesh_line(figures: dict) -> str:
+    """Phase 14's {"mesh": ...} line, its keys in MESH_KEYS' order."""
+    if set(figures) != set(MESH_KEYS):
+        raise AssertionError(f"mesh line: keys {sorted(figures)} != {sorted(MESH_KEYS)}")
+    return json.dumps({"mesh": {k: figures[k] for k in MESH_KEYS}})
+
+
+def call_error(torch, out, ref, dtype) -> tuple[str, float]:
+    """One kernel call's output against its plain version's: a u16 output in
+    codes (unit u16_<type>, ``dtype`` the call's activations'), else bf16
+    steps of max(1, |plain|) (a bf16 output) or the error over max(1,
+    |plain|) (an fp32 one)."""
+    if out.dtype == torch.uint16:
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        return f"u16_{tag}", float((out.to(torch.int32) - ref.to(torch.int32)).abs().max())
+    tag = "f32" if out.dtype == torch.float32 else "bf16"
+    e = (out.float() - ref.float()).abs()
+    if tag == "f32":
+        return tag, float((e / ref.float().abs().clamp_min(1.0)).max())
+    return tag, float((e / (2.0 ** -7 * ref.float().abs().clamp_min(1.0))).max())
+
+
+class MeshCallChecks:
+    """Every kernel wrapper the frame programs call, replaced by one that
+    launches the kernel, then runs the same wrapper's plain path on the same
+    (card) inputs in the calling thread only (``native.on_cpu`` answers True
+    there while it runs, and the int8 layers' check takes their parameters
+    where they lie), and records the call: kernel, input shape, element
+    type, error. The plain runs launch nothing."""
+
+    def __init__(self, torch, native):
+        import threading
+
+        from hdrtv_tpu_torch.models import hg_s2d, s2d
+        from hdrtv_tpu_torch.ops import conv_kernels, megakernel
+
+        self.torch, self.native, self.records = torch, native, []
+        self._tls, self._lock = threading.local(), threading.Lock()
+        self._mods = {"s2d": s2d, "hg_s2d": hg_s2d, "native": native, "megakernel": megakernel,
+                      "conv_kernels": conv_kernels}
+        self._saved = {}
+
+    def __enter__(self):
+        real = self.native.on_cpu
+        self._saved[("native", "on_cpu")] = real
+        self.native.on_cpu = lambda *ts: True if getattr(self._tls, "plain", False) else real(*ts)
+        for mod_name in ("megakernel", "conv_kernels"):
+            mod = self._mods[mod_name]
+            check = mod.check_qargs
+            self._saved[(mod_name, "check_qargs")] = check
+            mod.check_qargs = lambda name, qa, c, co, cuda, _check=check: _check(
+                name, qa, c, co, qa.w.device.type == "cuda" if getattr(self._tls, "plain", False) else cuda)
+        for mod_name, names in _MESH_WRAPPERS.items():
+            mod = self._mods[mod_name]
+            for name in names:
+                fn = getattr(mod, name)
+                self._saved[(mod_name, name)] = fn
+                setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod_name, name), fn in self._saved.items():
+            setattr(self._mods[mod_name], name, fn)
+        self._saved.clear()
+
+    def _wrap(self, name, fn):
+        torch = self.torch
+
+        def call(*args, **kw):
+            kernel = name + ("_w8a8" if any(kw.get(k) is not None for k in ("qargs", "qargs1", "qargs_hr")) else "")
+            out = fn(*args, **kw)
+            self._tls.plain = True
+            try:
+                ref = fn(*args, **kw)
+            finally:
+                self._tls.plain = False
+            outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+            # the activations' type: the first float argument (agcm_head's frame is u8, its output bf16 or fp32)
+            dtype = next(t.dtype for t in args if isinstance(t, torch.Tensor) and t.is_floating_point())
+            unit, err = "bf16", 0.0
+            for o, r in zip(outs, refs):
+                unit, e = call_error(torch, o, r, dtype)
+                err = max(err, e)
+            with self._lock:
+                self.records.append({"kernel": kernel, "shape": list(args[0].shape), "dtype": str(args[0].dtype),
+                                     "unit": unit, "err": err})
+            return out
+        return call
+
+    def summary(self) -> dict:
+        """Per kernel: its calls, the window shapes it ran at, the largest
+        error in its unit, and its bound."""
+        out: dict = {}
+        for r in self.records:
+            s = out.setdefault(r["kernel"], {"calls": 0, "shapes": [], "unit": r["unit"], "err": 0.0})
+            s["calls"] += 1
+            if r["shape"] not in s["shapes"]:
+                s["shapes"].append(r["shape"])
+            s["err"] = max(s["err"], r["err"])
+        for name, s in out.items():
+            s["bound"] = MESH_CALL_BOUND.get(s["unit"], {}).get(name, MESH_CALL_DEFAULT[s["unit"]])
+        return out
+
+
+def codes_vs(torch, a, b) -> dict:
+    """Two u16 outputs of one frame (any layout of the same bytes): the unequal
+    values and the largest difference in codes."""
+    d = (a.reshape(-1).to(torch.int32) - b.reshape(-1).to(torch.int32)).abs()
+    return {"unequal": int((d > 0).sum()), "max_lsb": int(d.max()), "mean_lsb": round(float(d.double().mean()), 4)}
+
+
+def mesh_frame_ms(torch, proc, x, n: int) -> float:
+    proc._rgb48_eager(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        proc._rgb48_eager(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+MESH_FARM_SCRIPT = r"""
+import json, os, sys
+sys.path.insert(0, {root!r})
+import torch
+from hdrtv_tpu_torch.models.layers import fp32_math
+from hdrtv_tpu_torch.parallel.multihost import initialize_distributed
+from hdrtv_tpu_torch.pipeline.export import ExportConfig, export_video_multihost
+from hdrtv_tpu_torch.pipeline.source import SyntheticSource
+from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+assert initialize_distributed(), "no process group"
+with fp32_math():
+    proc = HDRTVNetTorch({weights!r}, device={device!r})
+    stats = export_video_multihost(None, proc, ExportConfig(output={out!r}, codec="raw"), hosts=2,
+                                   host_id=int(os.environ["RANK"]),
+                                   source=SyntheticSource({w}, {h}, fps=30, frames={frames}))
+torch.distributed.destroy_process_group()
+print("FARM " + json.dumps(stats), flush=True)
+"""
+
+
+def phase_mesh(torch, np, native, smi: str, hg_weights: dict, tmp: str) -> tuple[dict, dict]:
+    """Phase 14 (its checks in the constants' comment above). Returns the
+    launch counts of the paths mesh_<program>_n<n> (one eager sharded 1080p
+    frame each), mesh_4k_bf16_n4 and mesh_dp_bf16 (the batch over the data
+    axis), and the phase's figures."""
+    import socket
+
+    from hdrtv_tpu_torch.parallel import halo
+    from hdrtv_tpu_torch.parallel.mesh import Mesh, spatial_mesh
+    from hdrtv_tpu_torch.parallel.multihost import segment_paths
+    from hdrtv_tpu_torch.pipeline.source import SyntheticSource
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    t_phase = time.perf_counter()
+    dev = torch.device(MESH_DEVICE)
+    figures: dict = {"card": smi, "devices": {}, "calls": {}, "frames": {}}
+    counts: dict = {}
+
+    def weights_of(path):
+        return path_weights(PATHS[path], hg_weights)
+
+    def frame_of(path, h, w):
+        spec = PATHS[path]
+        if spec["hg"] or spec.get("int8"):
+            return smooth_frame(np, h, w, h)
+        return (np.random.RandomState(h).rand(h, w, 3) * 255).astype(np.uint8)
+
+    def processors(path, n):
+        spec = PATHS[path]
+        set_path_env(spec)
+        single = HDRTVNetTorch(weights_of(path), precision=spec["precision"], device=dev)
+        mesh = spatial_mesh(n, devices=[dev] * n) if n > 1 else None
+        sharded = HDRTVNetTorch(weights_of(path), precision=spec["precision"], device=dev, mesh=mesh) if mesh else None
+        return single, sharded
+
+    # (a) every kernel call of one frame against its plain version, at the windows' shapes
+    log("phase 14: the mesh; shards on " + ", ".join(f"shard {k} -> {dev}" for k in range(max(MESH_NS))))
+    for name, (h, w), n in MESH_CHECKS:
+        path = MESH_PROGRAMS[name]
+        single, sharded = processors(path, n)
+        proc = sharded or single
+        frame = frame_of(path, h, w)
+        x = proc.put_frame(frame.reshape(h, w * 3))
+        with MeshCallChecks(torch, native) as checks:
+            proc._rgb48_eager(x)
+            torch.cuda.synchronize()
+        summary = checks.summary()
+        key = f"{name}_{h}p_n{n}"
+        figures["calls"][key] = {k: {"calls": s["calls"], "err": round(s["err"], 4), "bound": s["bound"],
+                                     "shapes": s["shapes"]} for k, s in summary.items()}
+        log(json.dumps({"mesh_calls": key, **figures["calls"][key]}))
+        if n > 1:
+            figures["devices"][key] = {f"shard{k}": str(d) for k, d in enumerate(proc.mesh.row(0))}
+        bad = {k: (s["err"], s["bound"]) for k, s in summary.items() if s["err"] > s["bound"]}
+        if bad or not summary:
+            raise AssertionError(f"{key}: kernel calls beyond their bounds against the plain versions: {bad}")
+        del single, sharded, proc, x
+        torch.cuda.empty_cache()
+
+    # (b) the sharded programs against the single-device bytes at 1080p; (c) 4K
+    def run(name, path, h, w, ns):
+        single, _ = processors(path, 1)
+        frame = frame_of(path, h, w)
+        xs = single.put_frame(frame.reshape(h, w * 3))
+        ref = single._rgb48_eager(xs)
+        native.reset_launch_counts()
+        single._rgb48_eager(xs)
+        torch.cuda.synchronize()
+        one = read_counts(native)
+        ms_single = mesh_frame_ms(torch, single, xs, MESH_FRAMES)
+        row = {"single_ms": round(ms_single, 3), "single_launches": {k: v for k, v in one.items() if v}}
+        for n in ns:
+            _, sharded = processors(path, n)
+            xm = sharded.put_frame(frame.reshape(h, w * 3))
+            out = sharded._rgb48_eager(xm)
+            native.reset_launch_counts()
+            out = sharded._rgb48_eager(xm)
+            torch.cuda.synchronize()
+            got = read_counts(native)
+            key = name if (h, w) == MESH_SIZE else f"{name}_4k"
+            label = f"{key}_n{n}"
+            counts[label] = got
+            want = {k: n * v for k, v in one.items()}
+            apart = codes_vs(torch, out, ref)
+            ms = mesh_frame_ms(torch, sharded, xm, MESH_FRAMES)
+            row[f"n{n}"] = {"ms": round(ms, 3), **apart}
+            log(f"phase 14: {label} {h}x{w}: {ms:.3f} ms/frame sharded against {ms_single:.3f} single-device "
+                f"(eager); {apart['unequal']} unequal values, max {apart['max_lsb']} codes, mean "
+                f"{apart['mean_lsb']}; {smi}")
+            if got != want:
+                raise AssertionError(f"{label}: launches {got} != {n} x the single-device frame's {want}")
+            if not any(got.values()) or apart["max_lsb"] > MESH_LSB[key]:
+                raise AssertionError(f"{label}: {apart} against the single-device frame "
+                                     f"(bound {MESH_LSB[key]} codes)")
+            del sharded, xm, out
+        del single, xs, ref
+        torch.cuda.empty_cache()
+        return row
+
+    for name, path in MESH_PROGRAMS.items():
+        figures["frames"][name] = run(name, path, *MESH_SIZE, MESH_NS)
+    figures["uhd"] = run("mesh_bf16", "bf16_mega", *MESH_4K, (4,))
+
+    # (d) the batch over a data axis of 2, and the export farm as two host processes
+    single, _ = processors("bf16_mega", 1)
+    h, w = MESH_SIZE
+    frames = np.stack([frame_of("bf16_mega", h, w)] + [
+        (np.random.RandomState(s).rand(h, w, 3) * 255).astype(np.uint8) for s in range(MESH_DP_FRAMES - 1)])
+    plain_batch = single.process_rgb48_batch(frames)  # no mesh: every frame as flat rows, one after another
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch = single.process_rgb48_batch(frames, mesh=Mesh([[dev], [dev]]))
+    dp_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    counts["mesh_dp_bf16"] = read_counts(native)
+    expected = {k: len(frames) * v for k, v in expected_launches("bf16_mega").items()}
+    dp_equal = bool(np.array_equal(batch, plain_batch))
+    # information: process_rgb48 ships pair planes, whose condition image contracts another layout
+    vs_rgb48 = [codes_vs(torch, torch.from_numpy(batch[i].astype(np.int32)),
+                         torch.from_numpy(single.process_rgb48(frames[i]).astype(np.int32)))["max_lsb"]
+                for i in range(len(frames))]
+    figures["dp"] = {"frames": len(frames), "data": 2, "ms_per_frame": round(dp_ms, 3), "bit_equal": dp_equal,
+                     "vs_process_rgb48_max_lsb": max(vs_rgb48)}
+    log(f"phase 14: process_rgb48_batch over data = 2: {json.dumps(figures['dp'])}")
+    if not dp_equal or counts["mesh_dp_bf16"] != expected:
+        raise AssertionError(f"data-parallel batch: bit-equal {dp_equal}, launches {counts['mesh_dp_bf16']}")
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(tmp, "farm.mov")
+    script = MESH_FARM_SCRIPT.format(root=ROOT, weights=WEIGHTS, device=str(dev), out=out, w=w, h=h,
+                                     frames=MESH_FARM_FRAMES)
+    procs = []
+    t0 = time.perf_counter()
+    for rank in (1, 0):
+        env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": "2",
+               "RANK": str(rank), "PYTHONPATH": ROOT}
+        procs.append(subprocess.Popen([sys.executable, "-c", script], env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    farm_s = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError("farm hosts failed:\n" + "\n".join(t[-3000:] for t in texts))
+    stats = [json.loads(next(ln for ln in t.splitlines() if ln.startswith("FARM "))[5:]) for t in texts]
+    src = SyntheticSource(w, h, fps=30, frames=MESH_FARM_FRAMES)
+    want = np.stack([single.process_rgb48(src.read_with_meta()[0]) for _ in range(MESH_FARM_FRAMES)])
+    segs = [np.fromfile(p + ".rgb48", np.uint16) for p in segment_paths(out, 2)]
+    master = np.fromfile(out + ".rgb48", np.uint16)
+    cut = stats[1]["frame_range"][1]
+    farm_equal = (np.array_equal(segs[0], want[:cut].reshape(-1)) and np.array_equal(segs[1], want[cut:].reshape(-1))
+                  and np.array_equal(master, want.reshape(-1)))
+    figures["farm"] = {"hosts": 2, "frames": MESH_FARM_FRAMES, "ranges": [st["frame_range"] for st in stats[::-1]],
+                       "bit_equal": farm_equal, "seconds": round(farm_s, 1)}
+    log(f"phase 14: export farm, two host processes: {json.dumps(figures['farm'])}")
+    if not farm_equal or not stats[1].get("concatenated"):
+        raise AssertionError(f"export farm: {figures['farm']}")
+    del single, batch, plain_batch
+
+    # (e) the planted fault: trunk3's radius one align short must break (b)'s check
+    single, sharded = processors("bf16_mega", 4)
+    frame = frame_of("bf16_mega", h, w)
+    ref = single._rgb48_eager(single.put_frame(frame.reshape(h, w * 3)))
+    orig = halo.pick_radius
+
+    def short(w_local, need, **kw):
+        r = orig(w_local, need, **kw)
+        return r - kw.get("align", 2) if need == 9 else r
+
+    halo.pick_radius = short
+    try:
+        bad = sharded._rgb48_eager(sharded.put_frame(frame.reshape(h, w * 3)))
+    finally:
+        halo.pick_radius = orig
+    figures["fault"] = {"planted": "trunk3 radius one align short", **codes_vs(torch, bad, ref)}
+    log(f"phase 14: planted fault: {json.dumps(figures['fault'])}")
+    if figures["fault"]["max_lsb"] <= MESH_LSB["mesh_bf16"]:
+        raise AssertionError(f"the planted fault passed the sharded frame's check: {figures['fault']}")
+    del single, sharded, ref, bad
+    torch.cuda.empty_cache()
+    set_path_env(PATHS["bf16_mega"])
+    figures["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log(f"phase 14: {figures['phase_s']} s (budget {MESH_PHASE_S:g})")
+    if figures["phase_s"] > MESH_PHASE_S:
+        raise AssertionError(f"phase 14 took {figures['phase_s']} s, over its {MESH_PHASE_S:g} s")
+    return counts, figures
+
+
 def main() -> int:
     import torch
 
@@ -4389,6 +4805,8 @@ def main() -> int:
             counts.update(quant_counts)
             live_counts, live = phase_live(torch, np, native, smi, tmp)
             counts.update(live_counts)
+            mesh_counts, mesh = phase_mesh(torch, np, native, smi, hg_weights, tmp)
+            counts.update(mesh_counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4437,6 +4855,7 @@ def main() -> int:
     log(bench_line(bench))
     log(quant_line(quant))
     log(live_line(live))
+    log(mesh_line(mesh))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,9 +29,12 @@ sensitivity probe, ``quant/mixed.py``), ``qat`` (teacher-distilled QAT,
 ``mine-hard-frames`` and ``teacher-pairs`` (``data/curate.py``).
 ``--model`` takes a converted ``.npz`` or a reference ``.pt``,
 ``--hg-weights`` the HG generator's own ``.pt`` beside an HR one. The
-multi-device options (``convert --mesh``, ``export --mesh`` and
-``--hosts``) raise ``NotImplementedError`` naming the ROADMAP.md Queue 1
-item that owns their modules.
+multi-device options run on ``parallel/``: ``convert --mesh spatial``
+W-shards every frame over the visible cards (with one, it says so and runs
+single-chip), ``export --mesh`` splits ``--batch`` batches over their data
+axis, ``export --hosts N --host-id K`` (env ``HDRTV_EXPORT_HOSTS`` /
+``HDRTV_EXPORT_HOST_ID``) renders one host's frame range of the export farm,
+host 0 reassembling.
 
 The processor, the metrics, the validation models, the figures' tone map,
 calibration, QAT, the probe and the sweep run on the CUDA card;
@@ -49,14 +52,6 @@ import sys
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-# What the options that do not run yet wait for: the ROADMAP.md Queue 1
-# item that owns their modules.
-ITEM_13 = "Slice 8 (parallel: Queue 1 item 13)"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to hdrtv_tpu_torch yet: ROADMAP.md {item}")
 
 
 def _cli_device() -> str | None:
@@ -123,15 +118,27 @@ def _make_processor(args):
     # to these dims (gui_scaling.py:228 applied per frame in the reference
     # worker, gui_pipeline_worker_frame_processing.py:168-331).
     proc_res = processing_dims(args.resolution) if getattr(args, "resolution", None) else None
+    device = _cli_device()
+    mesh = None
     if getattr(args, "mesh", None) == "spatial":
-        raise _not_ported("--mesh spatial (W-sharding a frame over devices)", ITEM_13)
+        import torch
+
+        from hdrtv_tpu_torch.parallel.mesh import spatial_mesh
+
+        n = torch.cuda.device_count() if device is None else 1
+        if n > 1:
+            mesh = spatial_mesh()
+            print(f"mesh: spatial W-sharding over {n} devices")
+        else:
+            print("--mesh spatial requested but only one device is visible; running single-chip")
     return HDRTVNetTorch(
         model_path,
         precision=precision_token,
-        device=_cli_device(),
+        device=device,
         use_hg=args.use_hg or None,
         hg_path=args.hg_weights,
         proc_resolution=proc_res,
+        mesh=mesh,
     )
 
 
@@ -441,6 +448,7 @@ def cmd_export(args) -> int:
     from hdrtv_tpu_torch.pipeline.export import ExportConfig, export_video, export_video_multihost
     from hdrtv_tpu_torch.utils.env import env_int
 
+    proc = _make_processor(args)
     cfg = ExportConfig(
         output=args.output or "export.mov",
         resolution_key=args.resolution,
@@ -450,10 +458,15 @@ def cmd_export(args) -> int:
     )
     hosts = args.hosts or env_int("HDRTV_EXPORT_HOSTS", 1)
     if hosts > 1:
+        # The export farm: this process renders its frame range; host 0 also
+        # reassembles.
+        from hdrtv_tpu_torch.parallel.multihost import initialize_distributed
+
         host_id = args.host_id if args.host_id is not None else env_int("HDRTV_EXPORT_HOST_ID", 0)
-        return export_video_multihost(args.video, None, cfg, hosts=hosts, host_id=host_id)  # raises: not ported
-    proc = _make_processor(args)
-    stats = export_video(args.video, proc, cfg)
+        initialize_distributed()  # a no-op on one host; torch.distributed when the environment names a group
+        stats = export_video_multihost(args.video, proc, cfg, hosts=hosts, host_id=host_id)
+    else:
+        stats = export_video(args.video, proc, cfg)
     print(json.dumps(stats, indent=2))
     return 0
 
@@ -1144,7 +1157,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="display output size for the mpv scale policy "
                         "(the reference GUI's output preset / window size)")
     c.add_argument("--mesh", default=None, choices=["spatial"],
-                   help="shard each frame's W over all devices (not ported yet)")
+                   help="shard each frame's W over all visible cards (one card: single-chip)")
     c.set_defaults(fn=cmd_convert)
 
     lv = sub.add_parser("live", help="live capture → HDR display (x11/v4l2/synthetic)")
@@ -1345,9 +1358,9 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--output", default=None)
     x.add_argument("--codec", default="prores", choices=["prores", "hevc", "raw", "png16", "y4m"])
     x.add_argument("--batch", type=int, default=1, help="frames per process_rgb48_batch call when > 1")
-    x.add_argument("--mesh", action="store_true", help="shard batches over a device mesh (not ported yet)")
+    x.add_argument("--mesh", action="store_true", help="split --batch batches over the device mesh's data axis")
     x.add_argument("--hosts", type=int, default=None,
-                   help="export-farm width (not ported yet; env HDRTV_EXPORT_HOSTS)")
+                   help="export-farm width (env HDRTV_EXPORT_HOSTS)")
     x.add_argument("--host-id", type=int, default=None,
                    help="this host's index in the farm (env HDRTV_EXPORT_HOST_ID; host 0 reassembles)")
     x.set_defaults(fn=cmd_export)

@@ -31,6 +31,7 @@ from hdrtv_tpu_torch.models.layers import (
     linear,
     relu,
 )
+from hdrtv_tpu_torch.parallel import halo as _halo
 
 
 def normalize_classifier_name(classifier: str | None) -> str:
@@ -152,7 +153,16 @@ def classifier_apply(
 
     Each block: 1×1 conv → AvgPool(3,2,1,count_include_pad) → LeakyReLU(0.2)
     [→ InstanceNorm]; then Dropout (eval no-op) → 1×1 conv → global avg pool.
+
+    On a sharded frame (``parallel/halo.py``) each shard gathers the ¼-res
+    condition image once and runs the classifier replicated: its
+    InstanceNorm and global pool need global statistics, and the input is a
+    few MB while the trunk is 1×1 convs.
     """
+    if _halo.active():
+        cond = _halo.gather_w(cond, axis=2)
+        with _halo.suspended():
+            return classifier_apply(p, prefix, classifier, cond, policy=policy)
     layout, final_conv = _CLASSIFIER_LAYOUTS[normalize_classifier_name(classifier)]
     x = policy.cast(cond)
     for conv_idx, in_idx in layout:

@@ -19,8 +19,10 @@ base model's s2d output, so nothing leaves the s2d layout at full resolution:
 - composite ``mask·out + img`` and the RGB48 pack: the ``hg_tail`` kernel
   (``ops/megakernel.py fused_hg_tail``) where eligible, torch ops otherwise.
 
-The JAX module's ``_stage`` wrappers (halo exchange under manual sharding)
-are the identity on one device and are left out.
+On a sharded frame (``parallel/halo.py``) the 16 spatial stages run on
+shifted windows (:func:`_stage`, :func:`_stage_pair`), as in the JAX
+package; the 1×1 mixes and the tail are pointwise and exchange nothing. On
+one device both wrappers call the stage and nothing else.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from hdrtv_tpu_torch.models.hdrtvnet import mask_of_max
 from hdrtv_tpu_torch.models.hg import _conv_block, _up_block
 from hdrtv_tpu_torch.models.layers import F32, Params, Policy, conv2d, max_pool2, pixel_shuffle, relu
 from hdrtv_tpu_torch.ops.megakernel import fused_hg_tail
+from hdrtv_tpu_torch.parallel import halo as _halo
 from hdrtv_tpu_torch.utils.env import env_bool
 
 _BN_BLOCKS = (
@@ -105,6 +108,30 @@ def hg_s2d_transform(params: dict) -> dict:
         if k not in handled:
             out[k] = np.asarray(v)
     return out
+
+
+def _stage(fn, x: torch.Tensor, *, pool: bool = False, up: bool = False) -> torch.Tensor:
+    """One spatially overlapping HG stage (a 3×3 conv, radius 1) on a sharded
+    frame; ``fn(x)`` on one device. ``pool``: the stage ends in a 2×2 max
+    pool (an even radius, window starts on the pooling grid). ``up``: it
+    ends in PixelShuffle ×2 (the crop radius doubles in output columns)."""
+    if not _halo.active():
+        return fn(x)
+    return _halo.run_stage(
+        fn, [x], [2], need=1, mod=2 if pool else 1, align=2 if pool else 1,
+        out_axis=2, out_stride=2 if pool else 1, out_upscale=2 if up else 1,
+    )
+
+
+def _stage_pair(fn, x: torch.Tensor, *, pool: bool) -> torch.Tensor:
+    """Two chained 3×3 blocks under ONE shifted window. ``pool``: conv → 2×2
+    pool → conv (an encoder level): 1 (conv) + 1 (pool edge) + 2 (half-res
+    conv) ≤ radius 4, output stride 2. Without: two radius-1 convs, radius 2."""
+    if not _halo.active():
+        return fn(x)
+    if pool:
+        return _halo.run_stage(fn, [x], [2], need=4, mod=2, align=2, out_axis=2, out_stride=2)
+    return _halo.run_stage(fn, [x], [2], need=2, mod=1, align=1, out_axis=2)
 
 
 def subpos_max(x: torch.Tensor) -> torch.Tensor:
@@ -196,23 +223,34 @@ def hg_s2d_apply(
 
     # Level 1 in s2d: conv1 (12 → 4·nf, BatchNorm folded) + relu, then maxpool1
     # as the sub-position max; the rest natural at grid resolution and below.
-    c1 = relu(conv2d(p, "hg.conv1.0", img_s2d, padding=1, policy=policy))
-    c2 = blk("hg.conv2", subpos_max(c1))
-    c3 = blk("hg.conv3_2", blk("hg.conv3_1", c2, pool=True))
-    c4 = blk("hg.conv4_2", blk("hg.conv4_1", c3, pool=True))
-    c5 = blk("hg.conv5_2", blk("hg.conv5_1", c4, pool=True))
-    code = blk("hg.conv_code2", blk("hg.conv_code1", c5, pool=True))
+    # On a sharded frame, conv1 + conv2 and each encoder level's conv → pool
+    # → conv share one window.
+    def level1(x):
+        c = relu(conv2d(p, "hg.conv1.0", x, padding=1, policy=policy))
+        return c, blk("hg.conv2", subpos_max(c))
 
-    u = conv2d(p, "hg.conv6", torch.cat((up("hg.Up_conv1", code), c5), dim=-1), policy=policy)
+    def pair(n1, n2):
+        return lambda x: blk(n2, blk(n1, x, pool=True))
+
+    c1, c2 = _stage_pair(level1, img_s2d, pool=False)
+    c3 = _stage_pair(pair("hg.conv3_1", "hg.conv3_2"), c2, pool=True)
+    c4 = _stage_pair(pair("hg.conv4_1", "hg.conv4_2"), c3, pool=True)
+    c5 = _stage_pair(pair("hg.conv5_1", "hg.conv5_2"), c4, pool=True)
+    code = _stage_pair(pair("hg.conv_code1", "hg.conv_code2"), c5, pool=True)
+
+    def upst(name, x):
+        return _stage(lambda v: up(name, v), x, up=True)
+
+    u = conv2d(p, "hg.conv6", torch.cat((upst("hg.Up_conv1", code), c5), dim=-1), policy=policy)
     del code, c5
-    u = conv2d(p, "hg.conv7", torch.cat((up("hg.Up_conv2", u), c4), dim=-1), policy=policy)
+    u = conv2d(p, "hg.conv7", torch.cat((upst("hg.Up_conv2", u), c4), dim=-1), policy=policy)
     del c4
-    u = conv2d(p, "hg.conv8", torch.cat((up("hg.Up_conv3", u), c3), dim=-1), policy=policy)
+    u = conv2d(p, "hg.conv8", torch.cat((upst("hg.Up_conv3", u), c3), dim=-1), policy=policy)
     del c3
-    u = conv2d(p, "hg.conv9", torch.cat((up("hg.Up_conv4", u), c2), dim=-1), policy=policy)
+    u = conv2d(p, "hg.conv9", torch.cat((upst("hg.Up_conv4", u), c2), dim=-1), policy=policy)
     del c2
     # Up_conv5 with the PixelShuffle fold: its output is the full-res s2d tensor.
-    up5 = relu(conv2d(p, "hg.Up_conv5.0", u, padding=1, policy=policy))
+    up5 = _stage(lambda v: relu(conv2d(p, "hg.Up_conv5.0", v, padding=1, policy=policy)), u)
     del u
 
     tail_ok = (
@@ -252,6 +290,11 @@ def hg_composite_s2d(
     mask4 = mask_s2d(base_s2d, r=cfg.mask_r)
     pgh = (16 - hb % 16) % 16
     pgw = (16 - wb % 16) % 16
+    # On a sharded frame only the last shard holds the true right edge: a
+    # per-shard reflect W-pad would make up interior edges. The runtime takes
+    # the mesh only where Wb % (16·n) == 0, so pgw is 0 here (H is not
+    # sharded: pgh pads every shard alike).
+    assert not (_halo.active() and pgw), f"a sharded HG needs W/2 divisible by 16 per shard (wb={wb})"
     base_pad = pad_reflect_s2d(base_s2d, pgh, pgw)
     mask_pad = pad_reflect_s2d(mask4, pgh, pgw)
     out = hg_s2d_apply(p, base_pad, mask_pad, policy=policy, pack=pack, tail_on=tail_on)

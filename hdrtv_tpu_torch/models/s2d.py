@@ -79,6 +79,7 @@ from hdrtv_tpu_torch.ops.resize import (
     downsample_quarter_aa_pairs,
 )
 from hdrtv_tpu_torch.ops.w8a8 import QArgs, pack_qargs, pack_qargs_branches
+from hdrtv_tpu_torch.parallel import halo as _halo
 from hdrtv_tpu_torch.utils.env import env_bool
 
 # ---------------------------------------------------------------------------
@@ -623,7 +624,12 @@ def conv_s1(p, name, x, *, policy, relu_fused: bool = False, skip: torch.Tensor 
     values) and the kernel skips its structural zeros. LE.__in_fused's 2
     reads two equal blocks, which its blocks (conv_first, cond_first.0) are
     not at nf = 32; its C = 12 never fits the kernels, as in JAX, whose gate
-    turns such an ``a_sub`` off."""
+    turns such an ``a_sub`` off. On a sharded frame: one halo stage, radius 1."""
+    if _halo.active():
+        return _halo.run_stage(
+            lambda xx, sk: conv_s1(p, name, xx, policy=policy, relu_fused=relu_fused, skip=sk),
+            [x, skip], [2, 2], need=1, mod=8, out_axis=2,
+        )
     w = p[f"{name}.weight"]
     if _use_fused_kernel(x, w):
         return fused_block_conv3(
@@ -646,9 +652,18 @@ def conv_s2(p, name, x, *, policy, relu_fused: bool = False, act: str | None = N
     :func:`_down2_qargs` gives the layer's parameters. ``a_sub``: the
     consolidated sub-blocks along Co (3 for LE.__cond_down). ``cin``/``ch0``:
     consume the ``[ch0:ch0+cin]`` channel window of a wider ``x`` (the kernel
-    reads it in place; the torch path slices)."""
+    reads it in place; the torch path slices). On a sharded frame the window
+    is sliced first, then one halo stage (mod 16 keeps the half width of
+    the extended window a multiple of 8, as on one device)."""
     if relu_fused:
         act = "relu"
+    if _halo.active():
+        if cin is not None:
+            x = x[..., ch0 : ch0 + cin]
+        return _halo.run_stage(
+            lambda xx: conv_s2(p, name, xx, policy=policy, act=act, a_sub=a_sub),
+            [x], [2], need=2, mod=16, out_axis=2, out_stride=2,
+        )
     w = p[f"{name}.weight"]
     hb, wb = x.shape[1], x.shape[2]
     if _use_fused_kernel(x, w) and hb % 2 == 0 and wb % 2 == 0:
@@ -668,6 +683,10 @@ def conv_s2(p, name, x, *, policy, relu_fused: bool = False, act: str | None = N
 
 def conv_s2_nat(p, name, x, *, policy):
     """Stride-2 3×3, natural output: 2×2 stride-1, (1,0) pad over plain s2d."""
+    if _halo.active():
+        return _halo.run_stage(
+            lambda xx: conv_s2_nat(p, name, xx, policy=policy), [x], [2], need=1, mod=2, out_axis=2,
+        )
     return _conv(p, name, x, padding=((1, 0), (1, 0)), policy=policy)
 
 
@@ -709,7 +728,14 @@ def _sft_conv(p, sft_name, conv_name, x, cond, *, policy, relu_fused=False, skip
     otherwise. Every caller's weights come from :func:`s2d_transform_params`
     (the SFT 1×1s ``w_s2d_1x1``, their biases ``b_s2d``, the conv
     ``w_s2d_s1``): the kernel is told so (``s2d=True``) and skips their
-    zeros."""
+    zeros. On a sharded frame: one halo stage for the pair (the SFT is
+    pointwise)."""
+    if _halo.active():
+        return _halo.run_stage(
+            lambda xx, cc, sk: _sft_conv(p, sft_name, conv_name, xx, cc, policy=policy, relu_fused=relu_fused,
+                                         skip=sk),
+            [x, cond, skip], [2, 2, 2], need=1, mod=8, out_axis=2,
+        )
     if _sft_conv_ok(p, conv_name, x, cond, policy=policy):
         return fused_sft_conv3_v2(
             policy.cast(x[0]), policy.cast(cond[0]), _sft4_bd(p, sft_name, policy),
@@ -736,7 +762,14 @@ def _resblock(p, name, fea, cond, *, policy, up_coarse=None, x_add=None):
     kernel when eligible (with the d2s un-fold for the coarse form),
     materialised otherwise. The kernel is taken under the JAX predicate,
     its even-row rule included (see the module docstring), and told that
-    the weights are s2d transforms (``s2d=True``, as in :func:`_sft_conv`)."""
+    the weights are s2d transforms (``s2d=True``, as in :func:`_sft_conv`).
+    On a sharded frame: one halo stage, radius 2 (two convs), ``up_coarse``
+    at r/2 in its half-res domain."""
+    if _halo.active():
+        return _halo.run_stage(
+            lambda f, c, uc, xa: _resblock(p, name, f, c, policy=policy, up_coarse=uc, x_add=xa),
+            [fea, cond, up_coarse, x_add], [2, 2, 2, 2], need=2, mod=8, out_axis=2, coarse_idx=(2,),
+        )
     if _sft_conv_ok(p, f"{name}.conv1", fea, cond, policy=policy):
         coarse_ok = up_coarse is None or (
             fea.shape[1] % 2 == 0
@@ -784,7 +817,14 @@ def _trunk3_params(p, policy: Policy | None = None):
 def _trunk3_up_fused(p, fea3, cond4, *, policy):
     """Whole trunk3 stage + up_conv1 through the trunk3 kernel, with the
     parameter block ``params_to_torch`` packed (if it made one for this
-    element type)."""
+    element type). On a sharded frame: one halo stage, radius 9 in the
+    natural /8 domain (8 convs and up_conv1); shards narrower than 2r take
+    the gather path."""
+    if _halo.active():
+        return _halo.run_stage(
+            lambda f, c: _trunk3_up_fused(p, f, c, policy=policy), [fea3, cond4], [2, 2], need=9, mod=8,
+            out_axis=2,
+        )
     blocks, w_up, b_up = _trunk3_params(p, policy)
     dt = p["LE.up_conv1.0.weight"].dtype
     packed = None
@@ -865,14 +905,31 @@ def _le_cond_downs(p: Params, c: torch.Tensor, *, policy: Policy):
 
 
 def _le_mid(p: Params, fea0, cond2, cond3, cond4, *, policy: Policy) -> torch.Tensor:
-    """Down path + bottleneck + up path, fea0 (post HR_conv1) → trunk5 out at L1."""
-    fea1 = conv_s2(p, "LE.down_conv1", fea0, policy=policy, relu_fused=True)
-    fea1 = _resblock(p, "LE.recon_trunk1.0", fea1, cond2, policy=policy)
+    """Down path + bottleneck + up path, fea0 (post HR_conv1) → trunk5 out at
+    L1. On a sharded frame two merged halo stages take the place of four:
+    down_conv1 + trunk1 (radius 6, cond2 at r/2) and up_conv2 + trunk5
+    (radius ≥ 4, ``out`` at r/2 and its extended width kept a multiple of 8
+    for up_conv2's own conv), as in the JAX package."""
+    if _halo.active():
+        fea1 = _halo.run_stage(
+            lambda f, c: _resblock(p, "LE.recon_trunk1.0", conv_s2(p, "LE.down_conv1", f, policy=policy,
+                                                                   relu_fused=True), c, policy=policy),
+            [fea0, cond2], [2, 2], need=6, mod=16, out_axis=2, out_stride=2, coarse_idx=(1,),
+        )
+    else:
+        fea1 = conv_s2(p, "LE.down_conv1", fea0, policy=policy, relu_fused=True)
+        fea1 = _resblock(p, "LE.recon_trunk1.0", fea1, cond2, policy=policy)
     fea2 = conv_s2(p, "LE.down_conv2", fea1, policy=policy, relu_fused=True)
     fea2 = _resblock(p, "LE.recon_trunk2.0", fea2, cond3, policy=policy)
     fea3 = relu(conv_s2_nat(p, "LE.down_conv3", fea2, policy=policy))  # natural /8
     up = _trunk3_up_fused(p, fea3, cond4, policy=policy)
     out = _resblock(p, "LE.recon_trunk4.0", fea2, cond3, policy=policy, x_add=up)
+    if _halo.active():
+        return _halo.run_stage(
+            lambda o, f1, c2: _resblock(p, "LE.recon_trunk5.0", f1, c2, policy=policy,
+                                        up_coarse=conv_s1(p, "LE.up_conv2.0", o, policy=policy, relu_fused=True)),
+            [out, fea1, cond2], [2, 2, 2], need=4, mod=8, out_axis=2, coarse_idx=(0,), coarse_conv=True,
+        )
     upc = conv_s1(p, "LE.up_conv2.0", out, policy=policy, relu_fused=True)
     return _resblock(p, "LE.recon_trunk5.0", fea1, cond2, policy=policy, up_coarse=upc)
 
@@ -967,35 +1024,58 @@ def _ensemble_mega(
     # w_s2d_s1 one (s2d_transform_params; LE.__in_fused two of them side by
     # side): agcm_head, cond_chain, the tail, and sft_conv3 and resblock
     # (through _sft_conv and _resblock) skip their zeros.
-    fea_pre, c0, agcm = fused_agcm_head(
-        xs, mods, aw1, p["AGCM.conv_first.bias"], *w11("AGCM.HRconv"), *w11("AGCM.conv_last"),
-        policy.cast(p["LE.__in_fused.weight"]), p["LE.__in_fused.bias"],
-        n_first=p["LE.conv_first.bias"].shape[-1], scale=scale,
-        packed=None if aw1p is None else (aw1p_bgr if bgr else aw1p, aw3p, wcat),
-        packed_s2d=None if w1 is None else (w1_bgr if bgr else w1, *head_s2d), s2d=True,
-    )
-    c_feat, cond1 = fused_cond_chain(c0, [
-        w11("LE.cond_first.2"), w11("LE.cond_first.4"),
-        w11("LE.CondNet1.0"), w11("LE.CondNet1.2"), w11("LE.CondNet1.4"),
-    ], s2d=True)
-    fea0 = _sft_conv(p, "LE.SFT_layer1", "LE.HR_conv1", fea_pre[None], cond1[None],
-                     policy=policy, relu_fused=True)
-    cond2, cond3, cond4 = _le_cond_downs(p, c_feat[None], policy=policy)
-    out = _le_mid(p, fea0, cond2, cond3, cond4, policy=policy)
+    def head_sft(xs_in):
+        """agcm_head → cond_chain → SFT_layer1 + HR_conv1 (unbatched)."""
+        fea_pre, c0, agcm_i = fused_agcm_head(
+            xs_in, mods, aw1, p["AGCM.conv_first.bias"], *w11("AGCM.HRconv"), *w11("AGCM.conv_last"),
+            policy.cast(p["LE.__in_fused.weight"]), p["LE.__in_fused.bias"],
+            n_first=p["LE.conv_first.bias"].shape[-1], scale=scale,
+            packed=None if aw1p is None else (aw1p_bgr if bgr else aw1p, aw3p, wcat),
+            packed_s2d=None if w1 is None else (w1_bgr if bgr else w1, *head_s2d), s2d=True,
+        )
+        c_feat_i, cond1_i = fused_cond_chain(c0, [
+            w11("LE.cond_first.2"), w11("LE.cond_first.4"),
+            w11("LE.CondNet1.0"), w11("LE.CondNet1.2"), w11("LE.CondNet1.4"),
+        ], s2d=True)
+        fea0_i = _sft_conv(p, "LE.SFT_layer1", "LE.HR_conv1", fea_pre[None], cond1_i[None],
+                           policy=policy, relu_fused=True)
+        return fea0_i[0], c_feat_i, cond1_i, agcm_i
 
-    # up_conv3's output stays coarse where its shape allows: the tail un-folds
-    # the d2s and adds the fea0 skip on read.
-    upc = conv_s1(p, "LE.up_conv3.0", out, policy=policy, relu_fused=True)
-    hb0, wb0, c0f = fea0.shape[1:]
-    if hb0 % 2 == 0 and wb0 % 2 == 0 and tuple(upc.shape[1:]) == (hb0 // 2, wb0 // 2, 4 * c0f):
-        s, up_coarse = fea0[0], upc[0]
-    else:
-        s, up_coarse = (d2s_blocks(upc) + fea0)[0], None
-    return fused_tail(
-        s, cond1, agcm, _sft4_bd(p, "LE.SFT_layer2", policy),
-        policy.cast(p["LE.HR_conv2.weight"]), p["LE.HR_conv2.bias"],
-        policy.cast(p["LE.conv_last.weight"]), p["LE.conv_last.bias"],
-        pack=pack, up_coarse=up_coarse, qargs_hr=_qargs_for(p, "LE.HR_conv2", s[None]), s2d=True,
+    def up_tail(out_in, fea0_in, cond1_in, agcm_in):
+        """up_conv3 and the tail (unbatched). up_conv3's output stays coarse
+        where its shape allows: the tail un-folds the d2s and adds the fea0
+        skip on read."""
+        upc = conv_s1(p, "LE.up_conv3.0", out_in[None], policy=policy, relu_fused=True)
+        hb0, wb0, c0f = fea0_in.shape
+        if hb0 % 2 == 0 and wb0 % 2 == 0 and tuple(upc.shape[1:]) == (hb0 // 2, wb0 // 2, 4 * c0f):
+            s, up_coarse = fea0_in, upc[0]
+        else:
+            s, up_coarse = (d2s_blocks(upc)[0] + fea0_in), None
+        return fused_tail(
+            s, cond1_in, agcm_in, _sft4_bd(p, "LE.SFT_layer2", policy),
+            policy.cast(p["LE.HR_conv2.weight"]), p["LE.HR_conv2.bias"],
+            policy.cast(p["LE.conv_last.weight"]), p["LE.conv_last.bias"],
+            pack=pack, up_coarse=up_coarse, qargs_hr=_qargs_for(p, "LE.HR_conv2", s[None]), s2d=True,
+        )
+
+    if not _halo.active():
+        fea0, c_feat, cond1, agcm = head_sft(xs)
+        cond2, cond3, cond4 = _le_cond_downs(p, c_feat[None], policy=policy)
+        out = _le_mid(p, fea0[None], cond2, cond3, cond4, policy=policy)
+        return up_tail(out[0], fea0, cond1, agcm)
+    # On a sharded frame two merged halo stages cover the L0 section, as in
+    # the JAX package: the head through HR_conv1 (one 3×3, the cond chain
+    # pointwise, one 3×3: radius 2; the frame's W axis is xs.ndim - 2), and
+    # up_conv3 + the tail (radius ≥ 4, picked so that ``out``'s half-res
+    # extended width stays a multiple of 8 for up_conv3's own conv; the tail
+    # reads up_coarse no closer than one L2 column to the window's edge, so
+    # up_conv3's contaminated edge column is never read).
+    fea0, c_feat, cond1, agcm = _halo.run_stage(head_sft, [xs], [xs.ndim - 2], need=2, mod=8, out_axis=1)
+    cond2, cond3, cond4 = _le_cond_downs(p, c_feat[None], policy=policy)
+    out = _le_mid(p, fea0[None], cond2, cond3, cond4, policy=policy)
+    return _halo.run_stage(
+        up_tail, [out[0], fea0, cond1, agcm], [1, 1, 1, 1], need=4, mod=8, out_axis=2 if pack else 1,
+        coarse_idx=(0,), coarse_conv=True,
     )
 
 
@@ -1039,6 +1119,7 @@ def _cond_quarter_flat(frame2d_u8: torch.Tensor, *, bgr: bool) -> torch.Tensor:
     w = w3 // 3
     if h % 4 == 0 and w % 4 == 0:
         return downsample_quarter_aa_flat(frame2d_u8, bgr=bgr)
+    assert not _halo.active(), "a sharded frame needs /4-divisible shards"
     cframe = frame2d_u8.reshape(h, w, 3)
     if bgr:
         cframe = cframe.flip(-1)
@@ -1097,7 +1178,8 @@ def ensemble_s2d_rgb48_pairs(
     it) runs the flat program on the reshape."""
     hb, _, wb, _ = xr_u8.shape
     use_hg = cfg.use_hg and _HG_KEY in p
-    if not use_hg and hb % 2 == 0 and wb % 2 == 0 and _mega_ok(p, (1, hb, wb, 12), policy):
+    if (not use_hg and not _halo.active() and hb % 2 == 0 and wb % 2 == 0
+            and _mega_ok(p, (1, hb, wb, 12), policy)):
         if cond is None:
             cond = downsample_quarter_aa_pairs(xr_u8, bgr=bgr)
         return _ensemble_mega(p, xr_u8, cond, policy=policy, pack=True, scale=1.0 / 255.0, bgr=bgr)

@@ -9,11 +9,15 @@ at import: the CPU tests import every module on a machine without nvcc.
 
 Every wrapper counts its launches in :data:`launch_counts` (one per call
 that launches its kernel, nowhere else), so a run can show that the main
-path went through the kernels.
+path went through the kernels. Launches may come from several threads (the
+shards of a sharded frame, ``parallel/halo.py``): each runs on the device of
+its tensors (the stream handle a wrapper passes carries it), and the counts
+are kept under a lock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -21,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -41,6 +46,8 @@ launch_counts: dict[str, int] = {
     "down2_w8a8": 0, "cond_chain_w8a8": 0, "block_conv3_pool": 0, "block_conv3_pool_w8a8": 0,
     "d2s_add": 0, "rowmajor_head": 0,
 }
+
+_COUNT_LOCK = threading.Lock()
 
 # Element types the kernels are instantiated for, and the suffix of their
 # exported names (hdrtv_<kernel>_<suffix>).
@@ -121,8 +128,18 @@ def build() -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=1)
+_LIB_LOCK = threading.Lock()
+
+
 def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call, once however many
+    threads ask)."""
+    with _LIB_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=1)
+def _load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with every exported
     function's argument and result types declared."""
     so = ctypes.CDLL(str(build()))
@@ -202,22 +219,36 @@ def quant_params_pointers(qas) -> tuple:
     return ptrs, structs
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+class LaunchStream(int):
+    """The handle of the stream a kernel launches on (an int, as the C
+    functions take it) and the device it belongs to."""
+
+    device: torch.device
+
+
+def stream_of(t: torch.Tensor) -> LaunchStream:
+    """The current stream of ``t``'s device, the one its kernel launches on."""
+    s = LaunchStream(torch.cuda.current_stream(t.device).cuda_stream)
+    s.device = t.device
+    return s
 
 
 def launch(kernel: str, dtype: torch.dtype, *args, counter: str | None = None) -> None:
     """Call the exported C function of ``kernel`` for element type ``dtype``
-    (``hdrtv_<kernel>_f32`` or ``_bf16``); raise on a non-zero
+    (``hdrtv_<kernel>_f32`` or ``_bf16``) with the device of its stream
+    argument (:func:`stream_of`) current; raise on a non-zero
     cudaGetLastError() and count the launch under ``counter`` (by default
     ``kernel``; a kernel's int8 form counts under ``<kernel>_w8a8``)."""
     so = lib()
     fn_name = f"hdrtv_{kernel}_{DTYPE_SUFFIX[dtype]}"
-    rc = getattr(so, fn_name)(*args)
+    device = next((a.device for a in args if isinstance(a, LaunchStream)), None)
+    with torch.cuda.device(device) if device is not None else contextlib.nullcontext():
+        rc = getattr(so, fn_name)(*[int(a) if isinstance(a, LaunchStream) else a for a in args])
     if rc != 0:
         msg = so.hdrtv_error_string(rc).decode()
         raise RuntimeError(f"{counter or kernel}: {fn_name} failed with CUDA error {rc} ({msg})")
-    launch_counts[counter or kernel] += 1
+    with _COUNT_LOCK:
+        launch_counts[counter or kernel] += 1
 
 
 def pointer_array(tensors) -> ctypes.Array:

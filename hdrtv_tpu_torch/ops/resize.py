@@ -27,6 +27,8 @@ import functools
 import numpy as np
 import torch
 
+from hdrtv_tpu_torch.parallel import halo as _halo
+
 
 def _bicubic_aa(x: np.ndarray, a: float = -0.5) -> np.ndarray:
     """Bicubic kernel with a=-0.5 (the torch/PIL antialias variant)."""
@@ -237,7 +239,19 @@ def _pairs_matrices(hb: int, wb: int, bgr: bool, device: str) -> tuple[torch.Ten
 def downsample_quarter_aa_flat(frame2d: torch.Tensor, *, bgr: bool = False) -> torch.Tensor:
     """(H, 3W) uint8 byte rows → (1, H/4, W/4, 3) f32 [0,1]: the AGCM
     condition image computed on the flat layout, with the BGR flip folded
-    into the W matrix. Same math as reshape + :func:`downsample_quarter_aa`."""
+    into the W matrix. Same math as reshape + :func:`downsample_quarter_aa`.
+
+    On a sharded frame (``parallel/halo.py``) it runs on each shard's shifted
+    window: the exact-scale-4 resample repeats every 4 pixels, so the
+    window's renormalised edge rows land on the true frame edges and its
+    interior rows are pure shifts. Radius: the bicubic-AA support of 8 px,
+    24 bytes; multiples of 12 bytes keep window starts on whole 4-px cells."""
+    if _halo.active():
+        rb = _halo.pick_radius(frame2d.shape[1], 24, mod=12, align=12)
+        return _halo.run_stage(
+            lambda f: downsample_quarter_aa_flat(f, bgr=bgr), [frame2d], [1], need=rb, mod=12, align=12,
+            out_axis=2, out_stride=12,
+        )
     h, w3 = frame2d.shape
     w = w3 // 3
     wh, k = _held(*_flat_matrices(h, w, bgr, str(frame2d.device)))

@@ -21,8 +21,16 @@ its output is copied on a D2H stream into a pinned slot of a ring of
 writer thread, one being written, one being filled. The writer waits on the
 slot's copy event, writes, and returns the slot; the loop waits for a free
 slot. The writer is sized from the first processed frame. ``batch > 1`` runs
-``process_rgb48_batch`` frame by frame without a mesh; a mesh
-(``use_mesh``) and the multi-host farm are not ported yet and raise.
+``process_rgb48_batch``: with ``use_mesh``, each full batch split over the
+data axis of ``parallel/mesh.py make_mesh()`` (every visible card), the last
+partial one without a mesh, as in the JAX package.
+
+``export_video_multihost`` is the multi-host farm: each host exports its
+contiguous frame range (``parallel/multihost.py plan_frame_ranges``) to a
+segment and marks it ``.done``; host 0 waits for every marker and
+reassembles: raw segments appended byte for byte, y4m segments with every
+header after the first dropped, other codecs by ffmpeg's concat demuxer
+(where ``ffmpeg`` exists).
 """
 
 from __future__ import annotations
@@ -41,11 +49,6 @@ import numpy as np
 import torch
 
 from hdrtv_tpu_torch.runtime import transfer
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to hdrtv_tpu_torch yet: ROADMAP.md Slice 8 (parallel: Queue 1 item 13)")
 
 
 def ffmpeg_hdr10_command(
@@ -107,7 +110,7 @@ class ExportConfig:
     queue_depth: int = 3  # bounded writer queue (gui_export.py:1038-1067)
     audio_source: str | None = None
     batch: int = 1  # frames per process_rgb48_batch call when > 1
-    use_mesh: bool = False  # not ported: raises (Queue 1 item 13)
+    use_mesh: bool = False  # with batch > 1: each full batch over make_mesh()'s data axis
 
 
 class _FfmpegWriter:
@@ -213,6 +216,33 @@ class _Png16Writer:
         pass
 
 
+class _RangeSource:
+    """A source bounded to frame range [start, end): one host's part of the
+    multi-host export farm (frame ranges from ``parallel/multihost.py``)."""
+
+    def __init__(self, source, start: int, end: int):
+        self._src = source
+        self._limit = max(0, end - start)
+        self._n = 0
+        if start:
+            source.seek(start)
+        self.width = getattr(source, "width", None)
+        self.height = getattr(source, "height", None)
+        self.fps = getattr(source, "fps", 30.0)
+
+    def read_with_meta(self, timeout: float = 5.0):
+        if self._n >= self._limit:
+            return None
+        meta = self._src.read_with_meta()
+        if meta is None:
+            return None
+        self._n += 1
+        return meta
+
+    def close(self):
+        self._src.close()
+
+
 def export_video_multihost(
     video_path: str | None,
     processor,
@@ -223,9 +253,99 @@ def export_video_multihost(
     source=None,
     wait_timeout: float = 900.0,
 ) -> dict:
-    """Multi-host export farm (each host its frame range, host 0
-    reassembling): not ported yet; raises."""
-    raise _not_ported("the multi-host export farm (export_video_multihost)")
+    """Multi-host export farm: each host exports its contiguous frame range
+    to a segment; host 0 reassembles once every segment is complete.
+
+    No activations cross hosts (frames are independent): the only shared
+    artifact is the final concatenation, lossless (byte append for the raw
+    master, header-stripped append for y4m, FFmpeg's concat demuxer stream
+    copy for the containers: ``parallel/multihost.py``). ``.done`` markers
+    gate the reassembly, so a partial segment is never read."""
+    from hdrtv_tpu_torch.parallel.multihost import concat_command, plan_frame_ranges, segment_paths
+    from hdrtv_tpu_torch.pipeline.source import SyntheticSource, VideoSource
+
+    if not 0 <= host_id < hosts:
+        raise ValueError(f"host_id {host_id} outside [0, {hosts})")
+    if source is None:
+        from hdrtv_tpu_torch.config import processing_dims
+
+        source = VideoSource(video_path) if video_path else SyntheticSource(*processing_dims(cfg.resolution_key))
+    n_frames = getattr(source, "frame_count", None) or getattr(source, "frames", 0)
+    if int(n_frames) <= 0:
+        # cv2 may report 0 frames for some containers: a farm planned from
+        # that would "succeed" with an empty master.
+        raise ValueError(
+            f"multi-host export needs a source with a known frame count (got {n_frames!r}); "
+            "use single-host export, which reads to EOF"
+        )
+    start, end = plan_frame_ranges(int(n_frames), hosts)[host_id]
+
+    codec = cfg.codec
+    if codec in ("prores", "hevc") and shutil.which("ffmpeg") is None:
+        codec = "raw"
+    if codec == "y4m" and not cfg.output.lower().endswith(".y4m"):
+        cfg = dataclasses.replace(cfg, output=os.path.splitext(cfg.output)[0] + ".y4m")
+    segs = segment_paths(cfg.output, hosts)
+    seg_out = segs[host_id] + (".rgb48" if codec == "raw" else "")
+    stats = export_video(
+        None, processor, dataclasses.replace(cfg, output=segs[host_id], codec=codec),
+        source=_RangeSource(source, start, end),
+    )
+    stats.update(host_id=host_id, hosts=hosts, frame_range=[start, end])
+    with open(seg_out + ".done", "w") as f:
+        json.dump(stats, f)
+
+    if host_id != 0:
+        return stats
+
+    # Host 0: wait for every segment's .done marker, then reassemble.
+    seg_files = [s + (".rgb48" if codec == "raw" else "") for s in segs]
+    deadline = time.monotonic() + wait_timeout
+    for seg in seg_files:
+        while not os.path.exists(seg + ".done"):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"segment never completed: {seg}")
+            time.sleep(0.2)
+    if codec == "raw":
+        final = cfg.output if cfg.output.endswith(".rgb48") else cfg.output + ".rgb48"
+        with open(final, "wb") as out_f:
+            for seg in seg_files:
+                with open(seg, "rb") as f:
+                    shutil.copyfileobj(f, out_f)
+        with open(seg_files[0] + ".json") as f:
+            sidecar = json.load(f)
+        # The segment's containerize command names the seg000 path: rebuild
+        # it for the joined master (dims and fps from the segment's sidecar).
+        sidecar["containerize_with"] = " ".join(
+            ffmpeg_hdr10_command(
+                sidecar["width"], sidecar["height"], sidecar["fps"],
+                cfg.output, codec="prores", peak_nits=cfg.peak_nits,
+            )
+        ).replace("pipe:0", final)
+        with open(final + ".json", "w") as f:
+            json.dump(sidecar, f, indent=2)
+        stats["output"] = final
+    elif codec == "y4m":
+        # y4m segments share one fixed-stride stream header: dropping the
+        # header line of every segment after the first makes the byte
+        # concatenation lossless (frame records are self-delimiting).
+        final = cfg.output
+        with open(final, "wb") as out_f:
+            for i, seg in enumerate(seg_files):
+                with open(seg, "rb") as f:
+                    if i:
+                        f.readline()
+                    shutil.copyfileobj(f, out_f)
+        with open(final + ".json", "w") as f:
+            json.dump(_y4m_sidecar(final), f, indent=2)  # not the segment's
+        stats["output"] = final
+    else:
+        list_path = cfg.output + ".segments.txt"
+        cmd = concat_command(seg_files, cfg.output, list_path)
+        subprocess.run(cmd, check=True, capture_output=True)
+        stats["output"] = cfg.output
+    stats["concatenated"] = True
+    return stats
 
 
 def _hw3(a: np.ndarray) -> np.ndarray:
@@ -248,8 +368,6 @@ def export_video(video_path: str | None, processor, cfg: ExportConfig, *, source
     from hdrtv_tpu_torch.pipeline.runner import processor_device
     from hdrtv_tpu_torch.pipeline.source import SyntheticSource, VideoSource
 
-    if cfg.use_mesh:
-        raise _not_ported("frame-batch data parallelism over a device mesh (ExportConfig.use_mesh)")
     if source is None:
         source = VideoSource(video_path) if video_path else SyntheticSource(*processing_dims(cfg.resolution_key))
     w = getattr(source, "width", None) or processing_dims(cfg.resolution_key)[0]
@@ -310,19 +428,26 @@ def export_video(video_path: str | None, processor, cfg: ExportConfig, *, source
     # rows), so that the first real frame replays the graph.
     processor.warmup_compile(w, h)
     put = getattr(processor, "put_frame", None)
+    mesh = None
+    if cfg.use_mesh and cfg.batch > 1:
+        from hdrtv_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(devices=None if cuda else [device])
     frames = 0
     t0 = time.monotonic()
     with torch.cuda.stream(compute) if cuda else contextlib.nullcontext():
         if cfg.batch > 1 and hasattr(processor, "process_rgb48_batch"):
             # Frames in batches (export throughput): process_rgb48_batch runs
-            # them one by one and copies the batch back once.
+            # them one by one and copies the batch back once; with a mesh a
+            # full batch splits over its data axis.
             pending: list[np.ndarray] = []
             while True:
                 meta = source.read_with_meta()
                 if meta is not None:
                     pending.append(meta[0])
                 if (meta is None and pending) or len(pending) == cfg.batch:
-                    outs = processor.process_rgb48_batch(np.stack(pending))
+                    full = len(pending) == cfg.batch
+                    outs = processor.process_rgb48_batch(np.stack(pending), mesh=mesh if full else None)
                     for o in outs:
                         q.put(o)
                     frames += len(pending)

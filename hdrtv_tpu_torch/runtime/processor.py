@@ -105,10 +105,24 @@ architecture's (``color_condition`` / ``sft`` / ``pixelshuffle``, no
 post-correction), so by the JAX runtime's rule every other architecture
 turns turbo off and runs the natural-layout program on every frame.
 
-What still raises, naming the ROADMAP item that will port it: ``mesh``
-(Queue 1 item 13, also for ``process_rgb48_batch``). Nothing falls back to
-a different computation, and nothing runs on the CPU unless the caller asks
-for ``device="cpu"``.
+A ``mesh`` (``parallel/mesh.py``) with a spatial axis of n > 1 runs every
+frame of ``process_rgb48_device`` (and so of ``process_rgb48``) W-sharded,
+as ``HDRTVNetTPU`` does with its ``shard_map`` programs: the frame's columns
+split into n shards, each shard a thread on its own stream of its device,
+running the single-device s2d program (every kernel on its shard's shifted
+windows, the halo exchanges of ``parallel/halo.py``; with HG the base
+program then the HG composite), the columns joined after. It takes the
+release architecture with ``H % 8 == 0`` and ``W % (16·n) == 0``
+(``W % (32·n)`` with HG or native int8 layers), at the processing size, always with the default
+condition image (the JAX program's). Where the JAX runtime falls back to its
+GSPMD-partitioned lax program (another size, ``HDRTV_MESH_SHARD_MAP=0``),
+the port has no partitioner and raises ``ValueError`` naming the condition.
+The sharded frame runs eagerly (no CUDA graph). ``process_rgb48_batch(...,
+mesh=)`` splits a batch over the mesh's data axis (padded with repeats of
+the last frame, trimmed after), each data row's first device running the
+single-device program on its frames. Nothing falls back to a different
+computation, and nothing runs on the CPU unless the caller asks for
+``device="cpu"`` (or a mesh of CPU devices).
 """
 
 from __future__ import annotations
@@ -135,14 +149,17 @@ from hdrtv_tpu_torch.models.s2d import (
     s2d_transform_params,
 )
 from hdrtv_tpu_torch.ops.pack import pack_rgb48
-from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa, downsample_quarter_bilinear, letterbox_u8
+from hdrtv_tpu_torch.ops.resize import (
+    downsample_quarter_aa,
+    downsample_quarter_aa_flat,
+    downsample_quarter_bilinear,
+    letterbox_u8,
+)
+from hdrtv_tpu_torch.parallel import halo
+from hdrtv_tpu_torch.parallel.mesh import Mesh, params_on
 from hdrtv_tpu_torch.quant.int8 import predequantize_params
 from hdrtv_tpu_torch.runtime import engine, transfer
 from hdrtv_tpu_torch.utils.env import env_bool
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to hdrtv_tpu_torch yet: ROADMAP.md {item}")
 
 
 def _env_on(*names: str) -> bool:
@@ -200,6 +217,9 @@ class HDRTVNetTorch:
     ``HDRTVNET_FAST_ZERO_CONDITION``). ``cfg_overrides``: fields of the
     sidecar's architecture to replace. ``persistent_cache``: record each
     ``warmup_compile`` in the engine registry (``runtime/engine.py``).
+    ``mesh``: a ``parallel/mesh.py`` ``Mesh`` whose spatial axis shards every
+    frame's W (its devices of ``device``'s type; the parameters copied once
+    to each other device).
     """
 
     def __init__(
@@ -230,8 +250,6 @@ class HDRTVNetTorch:
             fast_zero_condition = _env_on("HDRTVNET_ZERO_COND", "HDRTVNET_FAST_ZERO_CONDITION")
         self.fast_condition_resize = bool(fast_condition_resize)
         self.fast_zero_condition = bool(fast_zero_condition)
-        if mesh is not None:
-            raise _not_ported("mesh inference", "Slice 8 (parallel: Queue 1 item 13)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -305,6 +323,15 @@ class HDRTVNetTorch:
             self.params = params_to_torch(params, self.device, self.policy)
         # the JAX runtime's fingerprint, of the same numpy parameters
         self.model_hash = engine.model_fingerprint(params)
+        self.mesh: Mesh | None = mesh
+        self._replicas: dict[torch.device, tuple[dict, dict]] = {}
+        if mesh is not None:
+            kinds = {d.type for d in mesh.distinct_devices()}
+            if kinds != {self.device.type}:
+                raise ValueError(f"the mesh's devices ({sorted(kinds)}) must be of the processor's type "
+                                 f"({self.device.type})")
+            for dev in mesh.distinct_devices():
+                self._params_on(dev)
         self.registry = engine.EngineRegistry() if persistent_cache else None
         self.graphs = engine.GraphCache()
         self._timings: dict[str, float] = {}
@@ -313,6 +340,17 @@ class HDRTVNetTorch:
             self._h2d = torch.cuda.Stream(self.device)
             self._d2h = torch.cuda.Stream(self.device)
         self._new_host_buffers()
+
+    def _params_on(self, dev: torch.device) -> tuple[dict, dict]:
+        """(s2d parameters, natural parameters) on ``dev``: the processor's
+        own on its device, a copy made once on any other."""
+        dev = torch.device(dev)
+        if dev == self.device or (dev.type == self.device.type == "cuda"
+                                  and (dev.index or 0) == (self.device.index or 0)):
+            return self.params, self._nat_params
+        if dev not in self._replicas:
+            self._replicas[dev] = (params_on(self.params, dev), params_on(self._nat_params, dev))
+        return self._replicas[dev]
 
     def _new_host_buffers(self) -> None:
         """The pinned buffers of the host copies, by frame shape: a few
@@ -373,9 +411,13 @@ class HDRTVNetTorch:
         """Whether frames at (h, w) can run the pair-plane program: no HG, an
         s2d size, no fast-condition shortcut, and no letterbox (it runs on
         the flat layout)."""
-        return (not self.cfg.use_hg and not self.natural(h, w)
+        return (not self.cfg.use_hg and not self.natural(h, w) and self._spatial_n() == 1
                 and not (self.fast_zero_condition or self.fast_condition_resize)
                 and self._proc_hw(h, w) == (h, w))
+
+    def _spatial_n(self) -> int:
+        """The shards of a frame: the mesh's spatial axis, 1 without a mesh."""
+        return 1 if self.mesh is None else self.mesh.shape["spatial"]
 
     def wants_pairs(self, h: int, w: int) -> bool:
         """True when frames at (h, w) ship as (Hb, 2, Wb, 6) u8 pair planes
@@ -383,7 +425,8 @@ class HDRTVNetTorch:
         program takes flat rows; nor with ``HDRTV_PAIRS_BOUNDARY=0`` (read at
         each call), as in the JAX runtime: flat rows then, and the flat
         program; nor for the natural-layout program, under a fast-condition
-        shortcut, or where ``proc_resolution`` letterboxes the frame."""
+        shortcut, or where ``proc_resolution`` letterboxes the frame, nor
+        under a spatial mesh (its program shards flat rows)."""
         return env_bool("HDRTV_PAIRS_BOUNDARY", True) and self._pairs_ok(h, w)
 
     def _cond_of(self, x: torch.Tensor) -> torch.Tensor:
@@ -449,37 +492,131 @@ class HDRTVNetTorch:
 
     def _program(self, x: torch.Tensor) -> str:
         """Which program ``process_rgb48_device`` runs ``x`` with: ``pairs``
-        (pair planes in and out), or on flat rows at the processing size
-        ``natural``, ``hg`` (the two-stage HG composite) or ``flat``."""
+        (pair planes in and out), ``mesh`` (the W-sharded frame, under a
+        spatial mesh), or on flat rows at the processing size ``natural``,
+        ``hg`` (the two-stage HG composite) or ``flat``."""
         h, w = self._frame_hw(x)
         if x.ndim == 4 and self._pairs_ok(h, w):
             return "pairs"
+        if self._spatial_n() > 1:
+            return "mesh"
+        return self._flat_program(h, w)
+
+    def _flat_program(self, h: int, w: int) -> str:
+        """The single-device program of flat rows of (h, w)."""
         ph, pw = self._proc_hw(h, w)
         if self.natural(ph, pw):
             return "natural"
         return "hg" if self.cfg.use_hg else "flat"
 
-    def _run_flat(self, flat: torch.Tensor, program: str) -> torch.Tensor:
+    def _run_flat(self, flat: torch.Tensor, program: str, params: tuple[dict, dict] | None = None) -> torch.Tensor:
         """(H, 3W) rows → (H', 3W') u16 rows at the processing size: the
         letterbox, then the natural-layout program, the two-stage HG one
         (its base stage computes the default condition, as the JAX
         runtime's does), or the flat s2d one (with the shortcuts' condition
-        image when one is on)."""
+        image when one is on). ``params``: (s2d, natural) parameters on the
+        frame's device (default: the processor's)."""
+        sp, nat = params or (self.params, self._nat_params)
         h, w3 = flat.shape
         flat = self._letterbox(flat.reshape(h, w3 // 3, 3))
         h, w = flat.shape[:2]
         if program == "natural":
             x = flat.flip(-1)[None].float() * (1.0 / 255.0)
-            out = model_apply(self._nat_params, x, self._cond_of(x), self.cfg, policy=self.policy)
+            out = model_apply(nat, x, self._cond_of(x), self.cfg, policy=self.policy)
             return pack_rgb48(out[0].contiguous()).reshape(h, 3 * w)
         flat = flat.reshape(h, 3 * w)
         if program == "hg":
-            base = ensemble_s2d_base_flat(self.params, flat, policy=self.policy, bgr=True)
-            return hg_composite_s2d(self.params, base, self.cfg, policy=self.policy, pack=True, tail_on=True)
+            base = ensemble_s2d_base_flat(sp, flat, policy=self.policy, bgr=True)
+            return hg_composite_s2d(sp, base, self.cfg, policy=self.policy, pack=True, tail_on=True)
         cond = None
         if self.fast_zero_condition or self.fast_condition_resize:
             cond = self._cond_of(flat.reshape(h, w, 3)[None].flip(-1).float() * (1.0 / 255.0))
-        return ensemble_s2d_rgb48_flat(self.params, flat, cond, self.cfg, policy=self.policy, bgr=True)
+        return ensemble_s2d_rgb48_flat(sp, flat, cond, self.cfg, policy=self.policy, bgr=True)
+
+    # ------------------------------------------------------------------
+    # The W-sharded frame (a spatial mesh)
+    # ------------------------------------------------------------------
+
+    def _mesh_refusal(self, h: int, w3: int) -> str | None:
+        """Why a frame of (h, w3 // 3) at the processing size cannot take the
+        sharded program, or None when it can: the JAX runtime's
+        ``_mesh_manual_ok``, whose failure sends it to a GSPMD-partitioned
+        program the port does not have."""
+        n = self._spatial_n()
+        w = w3 // 3
+        if not self.turbo:
+            return "the space-to-depth programs are off (turbo) for this checkpoint or setting"
+        if not env_bool("HDRTV_MESH_SHARD_MAP", True):
+            return "HDRTV_MESH_SHARD_MAP=0 asks for the GSPMD-partitioned program, which the port does not have"
+        if h % 8:
+            return f"the frame's height {h} is not a multiple of 8"
+        if self.cfg.use_hg:
+            if "hg.conv1.0.weight" not in self.params:
+                return "the HG generator has no space-to-depth conv1"
+            if w % (32 * n):
+                return f"with HG the width {w} must be a multiple of 32 × {n} shards"
+        elif w % (16 * n):
+            return f"the width {w} must be a multiple of 16 × {n} shards"
+        elif self.native_int8 and w % (32 * n):
+            # A W8A8 layer runs int8 only where its input's width is a
+            # multiple of 8 (models/s2d.py _qargs_for, the JAX routing rule):
+            # a shard of W/(8n) columns at /8 that is not a multiple of 4
+            # has no even radius keeping its windows so, and those layers
+            # would run in float (JAX's sharded program does; the
+            # single-device one does not).
+            return f"with native int8 layers the width {w} must be a multiple of 32 × {n} shards"
+        return None
+
+    def _mesh_manual_ok(self, h: int, w3: int) -> bool:
+        """Whether a frame of (h, w3 // 3) takes the sharded program."""
+        return self._mesh_refusal(h, w3) is None
+
+    def _mesh_rgb48_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        """(H, 3W) rows → the sharded frame program's (H', 3W') u16 rows: the
+        letterbox first (on the processor's device, so the sharded program
+        has one shape), then the W-divisibility checks (``ValueError``),
+        then each shard's columns through the program on its device and
+        stream, joined back on the processor's device.
+
+        The ¼-res condition image is computed once, on the whole frame,
+        before the frame is split, and each shard takes its columns of it
+        (the classifier gathers them back): its W contraction is a GEMM over
+        the frame's width, whose sums change with that width, so a shard's
+        halo window (``ops/resize.py``, what a sharded body computes without
+        a condition image, as the JAX program does) would move the
+        classifier's input by an ulp and the modulation with it."""
+        h, w3 = flat.shape
+        if self.proc_resolution is not None and (h, w3 // 3) != self._proc_hw(h, w3 // 3):
+            flat = self._letterbox(flat.reshape(h, w3 // 3, 3))
+            h, w3 = flat.shape[0], flat.shape[1] * 3
+            flat = flat.reshape(h, w3)
+        n = self._spatial_n()
+        if not (self.turbo and (w3 // 3) % (8 * n) == 0 and h % 8 == 0):
+            raise ValueError(f"mesh spatial inference needs the turbo arch and W divisible by 8 × the spatial "
+                             f"axis (got {w3 // 3}px over {n} devices, H {h})")
+        why = self._mesh_refusal(h, w3)
+        if why is not None:
+            raise ValueError(f"the sharded frame program does not take {h}x{w3 // 3} over {n} shards: {why}")
+        devices = self.mesh.row(0)
+        cols = w3 // n
+        cfg, policy = self.cfg, self.policy
+        cond = downsample_quarter_aa_flat(flat, bgr=True)
+        ccols = cond.shape[2] // n
+
+        def shard(k: int, local: torch.Tensor, cond_local: torch.Tensor) -> torch.Tensor:
+            sp = self._params_on(devices[k])[0]
+            local = local.to(devices[k]).contiguous()
+            cond_local = cond_local.to(devices[k]).contiguous()
+            with halo.manual_axis("spatial"):
+                if cfg.use_hg:
+                    base = ensemble_s2d_base_flat(sp, local, cond_local, policy=policy, bgr=True)
+                    return hg_composite_s2d(sp, base, cfg, policy=policy, pack=True, tail_on=True)
+                return ensemble_s2d_rgb48_flat(sp, local, cond_local, cfg, policy=policy, bgr=True)
+
+        outs = halo.run_sharded(
+            shard, [(flat.narrow(1, k * cols, cols), cond.narrow(2, k * ccols, ccols)) for k in range(n)], devices,
+        )
+        return torch.cat([o.to(self.device) for o in outs], dim=1)
 
     def _rgb48_eager(self, frame_u8_dev: torch.Tensor) -> torch.Tensor:
         """The frame program of ``process_rgb48_device`` run eagerly, launch
@@ -491,7 +628,10 @@ class HDRTVNetTorch:
             if program == "pairs":
                 return ensemble_s2d_rgb48_pairs(self.params, x.contiguous(), None, self.cfg,
                                                 policy=self.policy, bgr=True)
-            out = self._run_flat(x.contiguous().reshape(h, 3 * w), program)
+            if program == "mesh":
+                out = self._mesh_rgb48_flat(x.contiguous().reshape(h, 3 * w))
+            else:
+                out = self._run_flat(x.contiguous().reshape(h, 3 * w), program)
         oh, ow = out.shape[0], out.shape[1] // 3
         if x.ndim == 3:
             return out.reshape(oh, ow, 3)
@@ -518,9 +658,9 @@ class HDRTVNetTorch:
         (pair planes as flat rows where a letterbox leaves an odd side). On a
         CUDA device each signature's program is captured once as a CUDA
         graph and replayed (``runtime/engine.py``); the tensor returned is
-        the caller's own."""
+        the caller's own. A sharded frame (a spatial mesh) runs eagerly."""
         x = frame_u8_dev
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self._spatial_n() > 1:
             return self._rgb48_eager(x)
         key = engine.graph_signature(x.shape, x.dtype, self._program(x), self.precision, self.proc_resolution,
                                      self.fast_condition_resize, self.fast_zero_condition)
@@ -544,17 +684,44 @@ class HDRTVNetTorch:
         out = self.process_rgb48_device(self.put_frame(flat))
         return self._hw3(self._to_host(out))
 
-    def process_rgb48_batch(self, frames_bgr: np.ndarray, *, mesh=None) -> np.ndarray:
+    def process_rgb48_batch(self, frames_bgr: np.ndarray, *, mesh: Mesh | None = None) -> np.ndarray:
         """(N, H, W, 3) BGR u8 → (N, H', W', 3) u16 RGB48, at the processing
         size: each frame as flat rows through ``process_rgb48_device``, one
-        copy back at the end (pinned on a CUDA device, as every copy)."""
+        copy back at the end (pinned on a CUDA device, as every copy). With
+        ``mesh``, the frames split over its data axis (frame-batch data
+        parallelism): a batch that the axis does not divide is padded with
+        repeats of the last frame and trimmed after, never run unsplit."""
         if mesh is not None:
-            raise _not_ported("frame-batch data parallelism (process_rgb48_batch with mesh)",
-                              "Slice 8 (parallel: Queue 1 item 13)")
+            return self._batch_on_mesh(np.ascontiguousarray(frames_bgr), mesh)
         frames = np.ascontiguousarray(frames_bgr)
         n, h, w, _ = frames.shape
         outs = [self.process_rgb48_device(self._to_device(frames[i].reshape(h, w * 3))) for i in range(n)]
         stacked = self._to_host(torch.stack(outs))
+        return stacked.reshape(n, stacked.shape[1], stacked.shape[2] // 3, 3)
+
+    def _batch_on_mesh(self, frames: np.ndarray, mesh: Mesh) -> np.ndarray:
+        """The data-parallel batch: data row d's first device runs frames
+        [d·m, (d+1)·m) of the padded batch through the single-device flat
+        program (eagerly, on its own stream), one frame after another; the
+        outputs are joined on the processor's device and copied back once."""
+        n, h, w, _ = frames.shape
+        nd = mesh.shape["data"]
+        pad = (-n) % nd
+        if pad:
+            frames = np.concatenate([frames, np.repeat(frames[-1:], pad, axis=0)], axis=0)
+        per = frames.shape[0] // nd
+        devices = [mesh.devices[d, 0] for d in range(nd)]
+        program = self._flat_program(h, w)
+        x = self._to_device(frames.reshape(frames.shape[0], h, w * 3))
+
+        def shard(k: int, chunk: torch.Tensor) -> torch.Tensor:
+            params = self._params_on(devices[k])
+            chunk = chunk.to(devices[k])
+            return torch.stack([self._run_flat(chunk[i].contiguous(), program, params) for i in range(per)])
+
+        with self.policy.math():
+            outs = halo.run_sharded(shard, [(x[d * per:(d + 1) * per],) for d in range(nd)], devices)
+            stacked = self._to_host(torch.cat([o.to(self.device) for o in outs]))[:n]
         return stacked.reshape(n, stacked.shape[1], stacked.shape[2] // 3, 3)
 
     @staticmethod

@@ -252,3 +252,64 @@ def test_main_refuses_without_a_card(monkeypatch, capsys):
     assert mod.main() == 2
     out = capsys.readouterr()
     assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_phase_mesh_is_wired_into_main():
+    """Phase 14 runs after phase 13 inside main's fp32_math block, its
+    launch counts join the kernels line's (paths mesh_*), and its line comes
+    before the card's line."""
+    import inspect
+
+    mod = _load()
+    src = inspect.getsource(mod.main)
+    live, mesh = src.index("phase_live(torch, np, native, smi, tmp)"), src.index("phase_mesh(torch, np, native,")
+    assert src.index("with fp32_math():") < live < mesh < src.index("finally:")
+    assert "counts.update(mesh_counts)" in src
+    assert src.index("log(live_line(live))") < src.index("log(mesh_line(mesh))") < src.index("log(smi)")
+    assert "14. the mesh" in mod.__doc__
+    assert set(mod.MESH_PROGRAMS) | {"mesh_bf16_4k"} == set(mod.MESH_LSB) and mod.MESH_NS == (2, 4)
+    assert set(mod.MESH_PROGRAMS.values()) <= set(mod.PATHS) and mod.MESH_4K == (2160, 3840)
+
+
+def test_mesh_line_shape():
+    """Phase 14's {"mesh": ...} line: every key of MESH_KEYS in order; a
+    missing or an extra key fails."""
+    import json
+
+    mod = _load()
+    figures = {k: {"x": 1} for k in mod.MESH_KEYS}
+    body = json.loads(mod.mesh_line(dict(reversed(list(figures.items())))))
+    assert list(body) == ["mesh"] and tuple(body["mesh"]) == mod.MESH_KEYS
+    for broken in ({k: v for k, v in figures.items() if k != "farm"}, {**figures, "extra": 1}):
+        with pytest.raises(AssertionError, match="mesh line"):
+            mod.mesh_line(broken)
+
+
+def test_mesh_call_checks_record_and_restore():
+    """MeshCallChecks on a CPU frame of the int8 checkpoint over 2 shards:
+    each kernel call of each shard is recorded with its window's shape (an
+    int8 form apart from the float one) and an error of 0 (on the CPU the
+    kernel is its plain version), and every patched name is restored."""
+    import numpy as np
+    import torch
+
+    from hdrtv_tpu_torch.models import s2d
+    from hdrtv_tpu_torch.ops import megakernel, native
+    from hdrtv_tpu_torch.parallel.mesh import spatial_mesh
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    mod = _load()
+    before = (native.on_cpu, s2d.fused_tail, megakernel.check_qargs)
+    weights = os.path.join(os.path.dirname(SCRIPT), "tests", "fixtures", "hr_w8a8.npz")
+    proc = HDRTVNetTorch(weights, device="cpu", persistent_cache=False,
+                         mesh=spatial_mesh(2, devices=[torch.device("cpu")] * 2))
+    frame = (np.random.RandomState(0).rand(32, 128, 3) * 255).astype(np.uint8)
+    with mod.MeshCallChecks(torch, native) as checks:
+        proc._rgb48_eager(proc.put_frame(frame.reshape(32, 384)))
+    summary = checks.summary()
+    assert (native.on_cpu, s2d.fused_tail, megakernel.check_qargs) == before
+    tail = summary["fused_tail_w8a8"]  # the int8 body, apart from the float form
+    assert tail["calls"] == 2 and tail["unit"] == "u16_bf16" and tail["bound"] == mod.MESH_CALL_BOUND["u16_bf16"][
+        "fused_tail_w8a8"]
+    assert summary["fused_agcm_head"]["shapes"] == [[16, 2, 40, 6]]  # 32 s2d columns + a radius of 4 each side
+    assert all(s["err"] == 0.0 and s["err"] <= s["bound"] for s in summary.values())

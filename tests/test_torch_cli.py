@@ -182,13 +182,49 @@ def test_presets_assets_engines_run(cpu_cli, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["convert", "--mesh", "spatial", "--display", "null", "--frames", "1"], "Queue 1 item 13"),
-    (["export", "--video", "v.mp4", "--hosts", "4", "--host-id", "2"], "Queue 1 item 13"),
-    (["export", "--video", "v.mp4", "--mesh", "--batch", "2", "--resolution", "540p"], "Queue 1 item 13"),
+    (["convert", "--mesh", "spatial", "--display", "null", "--frames", "1", "--no-realtime", "--resolution",
+      "540p"], "running single-chip"),
+    (["export", "--video", "v.mp4", "--hosts", "4", "--host-id", "2", "--codec", "raw", "--precision", "FP32",
+      "--resolution", "540p"], '"host_id": 2'),
+    (["export", "--video", "v.mp4", "--mesh", "--batch", "2", "--codec", "raw", "--precision", "FP32",
+      "--resolution", "540p"], '"frames": 5'),
 ], ids=["mesh-spatial", "hosts", "export-mesh"])
-def test_unported_options_raise(argv, item, cpu_cli):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv)
+def test_unported_options_raise(argv, item, cpu_cli, capsys):
+    """The multi-device options, once refused, run (the JAX CLI's lines):
+    ``convert --mesh spatial`` with one visible device says so and runs
+    single-chip; ``export --hosts 4 --host-id 2`` renders host 2's frame
+    range of a five-frame clip ([3, 4), by ``plan_frame_ranges``) into its
+    segment with a ``.done`` marker; ``export --mesh --batch 2`` splits its
+    full batches over the (one-device) mesh's data axis. Each exported
+    frame is the port's processor's frame of the decoded clip, bit for bit."""
+    import json
+
+    import cv2
+
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+
+    clip = str(cpu_cli / "clip.avi")
+    _clip(clip, n=5)
+    out = str(cpu_cli / "x.mov")
+    if argv[0] == "export":
+        argv = [clip if a == "v.mp4" else a for a in argv] + ["--output", out]
+    assert cli.main(argv) == 0
+    text = capsys.readouterr().out
+    assert item in text
+    if argv[0] == "convert":
+        assert "frames=1 " in text
+        return
+    stats = json.loads(text[text.index("{"):])
+    cap = cv2.VideoCapture(clip)
+    frames = [cap.read()[1] for _ in range(5)]
+    cap.release()
+    start, end = stats.get("frame_range", (0, 5))
+    assert (start, end) == ((3, 4) if "--hosts" in argv else (0, 5)) and stats["frames"] == end - start
+    if "--hosts" in argv:
+        assert os.path.isfile(str(cpu_cli / "x.seg002.mov.rgb48.done"))
+    proc = HDRTVNetTorch(WEIGHTS, precision="fp32", device="cpu", persistent_cache=False, proc_resolution=(W, H))
+    got = np.fromfile(stats["output"], np.uint16).reshape(end - start, H, W, 3)
+    assert np.array_equal(got, np.stack([proc.process_rgb48(f) for f in frames[start:end]]))
 
 
 def test_live_synthetic_null_sink(cpu_cli, capsys):

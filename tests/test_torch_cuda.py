@@ -2197,3 +2197,65 @@ def _synthetic_frame(w, h, idx):
     src = SyntheticSource(w, h, fps=30, frames=idx + 1)
     src.seek(idx)
     return src.read_with_meta()[0]
+
+
+# ---------------------------------------------------------------------------
+# The mesh on one card: n shards, each a thread on its own stream of cuda:0
+# ---------------------------------------------------------------------------
+
+# Sharded against single-device bytes, the largest difference in u16 codes (chip_smoke.py
+# MESH_LSB): bf16 bit-equal; fp32 JAX's one code (cuBLAS picks its fp32 1×1 products by the
+# pixel count: 354 values one code apart over 4 shards at 360 × 640, NVIDIA H100 80GB HBM3).
+MESH_CODES = {"fp16": 0, "fp32": 1}
+
+
+@pytest.mark.parametrize("precision,n", [("fp16", 2), ("fp16", 4), ("fp32", 4)])
+def test_mesh_sharded_frame_matches_single_device(dev, monkeypatch, precision, n):
+    """A 360 × 640 frame W-sharded over n shards on the one card (the
+    default program in bf16; fp32) against the single-device eager frame:
+    within MESH_CODES, and n times its launches."""
+    from hdrtv_tpu_torch.parallel.mesh import spatial_mesh
+    from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
+    from hdrtv_tpu_torch.tools.synth_hg import BASE_WEIGHTS as WEIGHTS
+
+    monkeypatch.setenv("HDRTV_MEGAKERNEL", "1")
+    h, w = 360, 640
+    frame = _smooth(h, w, 7)
+    single = HDRTVNetTorch(WEIGHTS, precision=precision, persistent_cache=False)
+    sharded = HDRTVNetTorch(WEIGHTS, precision=precision, persistent_cache=False,
+                            mesh=spatial_mesh(n, devices=[dev] * n))
+    flat = frame.reshape(h, 3 * w)
+    ref = single._rgb48_eager(single.put_frame(flat))
+    native.reset_launch_counts()
+    single._rgb48_eager(single.put_frame(flat))
+    one = dict(native.launch_counts)
+    native.reset_launch_counts()
+    out = sharded.process_rgb48_device(sharded.put_frame(flat))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in native.launch_counts.items() if v} == {k: n * v for k, v in one.items() if v}
+    assert len(sharded.graphs) == 0  # a sharded frame runs eagerly
+    d = (out.reshape(-1).to(torch.int32) - ref.reshape(-1).to(torch.int32)).abs()
+    assert int(d.max()) <= MESH_CODES[precision], f"{int((d > 0).sum())} values apart, max {int(d.max())}"
+
+
+def test_mesh_exchange_waits_for_the_senders_stream(dev):
+    """A halo exchange reads the sender's columns only after the sender's
+    stream wrote them: shard 0 writes its shard behind a long sleep on its
+    own stream, and its neighbour's window still holds the new columns."""
+    from hdrtv_tpu_torch.parallel import halo
+
+    x = torch.arange(4 * 64, dtype=torch.float32, device=dev).reshape(1, 4, 64, 1)
+
+    def body(k, part):
+        with halo.manual_axis("spatial"):
+            if k == 0:
+                torch.cuda._sleep(50_000_000)
+                part = part * 2.0
+            return halo.ext(part, 4, 2)
+
+    outs = halo.run_sharded(body, [(x.narrow(2, 16 * k, 16),) for k in range(4)], [dev] * 4)
+    torch.cuda.synchronize()
+    want = x.clone()
+    want[:, :, :16] *= 2.0
+    assert torch.equal(outs[1], want[:, :, 12:36])
+    assert torch.equal(outs[0], want[:, :, 0:24])

@@ -216,13 +216,48 @@ def test_export_zero_frames_still_writes_the_container(tmp_path):
     assert stats["frames"] == 0 and os.path.isfile(stats["output"]) and os.path.isfile(stats["output"] + ".json")
 
 
+class MeshFakeProcessor(FakeProcessor):
+    """FakeProcessor recording the mesh each batch is given."""
+
+    def __init__(self):
+        super().__init__()
+        self.meshes = []
+
+    def process_rgb48_batch(self, frames, *, mesh=None):
+        self.meshes.append(None if mesh is None else mesh.shape)
+        return super().process_rgb48_batch(frames, mesh=mesh)
+
+
 def test_export_mesh_and_farm_raise_not_ported(tmp_path):
+    """``use_mesh`` with ``batch > 1`` hands each full batch a mesh of the
+    processor's device (data axis 1 on the CPU) and the last partial one
+    none, as the JAX export does; the farm's hosts (host 1, then host 0,
+    which waits for every ``.done`` marker) write their frame ranges, and
+    host 0's raw master is the single-host export's, byte for byte, its
+    sidecar naming the joined file. The JAX farm's master on the same frames
+    is the same bytes."""
+    n = 5
     cfg = export.ExportConfig(output=str(tmp_path / "m.mov"), codec="raw", batch=2, use_mesh=True)
-    with pytest.raises(NotImplementedError, match=r"Slice 8 \(parallel: Queue 1 item 13\)"):
-        export.export_video(None, FakeProcessor(), cfg, source=SyntheticSource(64, 32, frames=2))
-    with pytest.raises(NotImplementedError, match=r"Slice 8 \(parallel: Queue 1 item 13\)"):
-        export.export_video_multihost(None, FakeProcessor(), cfg, hosts=2, host_id=0)
-    assert not os.listdir(tmp_path)
+    proc = MeshFakeProcessor()
+    stats = export.export_video(None, proc, cfg, source=SyntheticSource(64, 32, fps=24, frames=n))
+    assert stats["frames"] == n and proc.meshes == [{"data": 1, "spatial": 1}] * 2 + [None]
+    single = np.fromfile(stats["output"], np.uint16)
+    np.testing.assert_array_equal(single.reshape(n, 32, 64, 3), _want(n, 32, 64))
+    farm = export.ExportConfig(output=str(tmp_path / "farm.mov"), codec="raw")
+    for host in (1, 0):
+        st = export.export_video_multihost(None, FakeProcessor(), farm, hosts=2, host_id=host,
+                                           source=SyntheticSource(64, 32, fps=24, frames=n))
+        assert st["frame_range"] == [[0, 3], [3, 5]][host]
+    assert st["concatenated"] and st["output"].endswith("farm.mov.rgb48")
+    assert open(st["output"], "rb").read() == single.tobytes()
+    with open(st["output"] + ".json") as f:
+        assert st["output"] in json.load(f)["containerize_with"]
+    # (the JAX export's per-frame path hands the processor jax arrays: its batch path takes numpy)
+    jax_farm = jax_export.ExportConfig(output=str(tmp_path / "jax.mov"), codec="raw", batch=2)
+    for host in (1, 0):
+        jst = jax_export.export_video_multihost(None, FakeProcessor(), jax_farm, hosts=2, host_id=host,
+                                                source=SyntheticSource(64, 32, fps=24, frames=n))
+    assert open(jst["output"], "rb").read() == single.tobytes()
 
 
 # ---------------------------------------------------------------------------

@@ -287,8 +287,23 @@ def test_batch_letterboxes_to_processing_resolution(letterbox_pair):
     out = proc.process_rgb48_batch(frames)
     assert out.shape == (2, 64, 96, 3) and out.dtype == np.uint16
     np.testing.assert_array_equal(out[0], proc.process_rgb48(frames[0]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        proc.process_rgb48_batch(frames, mesh=object())
+    # over a mesh's data axis (two CPU devices, one frame each; three frames
+    # pad to four): each data row letterboxes its frames as process_rgb48
+    # does, bit for bit, and JAX's data-parallel batch gives the same frames
+    # within CODES
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+
+    from hdrtv_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh([[torch.device("cpu")], [torch.device("cpu")]])  # data 2 × spatial 1
+    np.testing.assert_array_equal(proc.process_rgb48_batch(frames, mesh=mesh), out)
+    three = np.concatenate([frames, frames[:1]])
+    got = proc.process_rgb48_batch(three, mesh=mesh)
+    np.testing.assert_array_equal(got, np.concatenate([out, out[:1]]))
+    jax_mesh = JaxMesh(np.asarray(jax.devices("cpu")[:2]).reshape(2, 1), ("data", "spatial"))
+    want = letterbox_pair[0].process_rgb48_batch(three, mesh=jax_mesh)
+    assert want.shape == got.shape and np.abs(got.astype(np.int64) - want.astype(np.int64)).max() <= CODES
 
 
 @pytest.fixture(scope="module", params=["fast_condition_resize", "fast_zero_condition"])

@@ -405,19 +405,23 @@ def test_default_precision_constructs_on_cpu():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"precision": "fp16", "mesh": object()},
+    {"precision": "fp16", "mesh": 4},
     {"precision": "fp32", "use_hg": True},
     {"precision": "fp32", "hg_path": "hg.pt"},
 ])
 def test_uncovered_options_raise(kwargs):
-    """What the port does not run raises at construction, naming its ROADMAP
-    item; ``use_hg`` on a checkpoint without ``base.*`` and ``hg.*`` keys
-    raises a ValueError naming them (the JAX package fails at the first
-    frame, with a KeyError). ``hg_path`` runs since its port, with a ``.pt``
-    HR file (``tests/test_torch_import.py``); beside a ``.npz``, which
-    carries its own ``hg.*`` keys, both runtimes ignore it (the port with a
-    warning naming the ``.npz``): each gives the frame it gives without it,
-    bit for bit, and the two within CODES of each other."""
+    """Options once refused at construction. ``use_hg`` on a checkpoint
+    without ``base.*`` and ``hg.*`` keys raises a ValueError naming them
+    (the JAX package fails at the first frame, with a KeyError). ``hg_path``
+    runs since its port, with a ``.pt`` HR file
+    (``tests/test_torch_import.py``); beside a ``.npz``, which carries its
+    own ``hg.*`` keys, both runtimes ignore it (the port with a warning
+    naming the ``.npz``): each gives the frame it gives without it, bit for
+    bit, and the two within CODES of each other. ``mesh`` runs since its
+    port: a spatial mesh of 4 CPU shards gives the bf16 frame the processor
+    gives without one, bit for bit (oneDNN off and one intra-op thread: the
+    sums of either depend on the tensor's width,
+    ``tests/test_torch_parallel.py``)."""
     from hdrtv_tpu.runtime.processor import HDRTVNetTPU
     from hdrtv_tpu_torch.runtime.processor import HDRTVNetTorch
 
@@ -438,8 +442,21 @@ def test_uncovered_options_raise(kwargs):
         assert np.array_equal(want, jax_plain.process_rgb48(frame))
         assert np.abs(got.astype(np.int64) - want.astype(np.int64)).max() <= CODES
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        HDRTVNetTorch(WEIGHTS, device="cpu", **kwargs)
+    from hdrtv_tpu_torch.parallel.mesh import spatial_mesh
+
+    frame = (np.random.RandomState(7).rand(64, 256, 3) * 255).astype(np.uint8)
+    mesh = spatial_mesh(kwargs["mesh"], devices=[torch.device("cpu")] * kwargs["mesh"])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # one intra-op thread: a parallel sum splits by the tensor's size
+    try:
+        with torch.backends.mkldnn.flags(enabled=False):
+            proc = HDRTVNetTorch(WEIGHTS, device="cpu", **{**kwargs, "mesh": mesh})
+            plain = HDRTVNetTorch(WEIGHTS, device="cpu", precision=kwargs["precision"])
+            got = proc.process_rgb48(frame)
+            assert proc._mesh_manual_ok(64, 3 * 256) and got.shape == (64, 256, 3)
+            assert np.array_equal(got, plain.process_rgb48(frame))
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_frame_not_divisible_by_8_raises(processors):
