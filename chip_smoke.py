@@ -329,6 +329,18 @@ lines; any failed check raises and the script exits non-zero with no result:
    planted fault (trunk3's halo one align short) that must break (b)'s
    check. At most MESH_PHASE_S; a {"mesh": ...} line (mesh_line) comes
    before the card's line.
+15. the double-s2d mode (phase_dd; its checks in the comment above DD_SIZE):
+   models/dd.py ensemble_dd at 1080p in bf16 and fp32: (a) every kernel call
+   (down2 at down_conv2, CondNet3.2 and CondNet4.2 with a_sub = 1; resblock or
+   sft_conv3; block_conv3) against its plain version at its own shape, in
+   phase 2's bounds; (b) the frame against the same program on the plain
+   versions, within phase 3's frame bound, and a planted fault (down_conv1's
+   row taps swapped) that must break it; (c) against ensemble_s2d on the same
+   frame; (d) launches asserted (paths dd_bf16, dd_fp32); (e) ms/frame and
+   the device time split between the port's kernels and the torch ops; (f) a
+   fresh process whose two threads make the first launch of a tile at once,
+   and the device ordinals the launchers cached for. At most DD_PHASE_S; a
+   {"dd": ...} line (dd_line) comes before the card's line.
 
 The line before the last is the per-kernel JSON summary, one entry per
 kernel and element type, with the path whose launches it reports and its
@@ -4492,26 +4504,28 @@ class MeshCallChecks:
             outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
             # the activations' type: the first float argument (agcm_head's frame is u8, its output bf16 or fp32)
             dtype = next(t.dtype for t in args if isinstance(t, torch.Tensor) and t.is_floating_point())
-            unit, err = "bf16", 0.0
+            unit, err, abs_err = "bf16", 0.0, 0.0
             for o, r in zip(outs, refs):
                 unit, e = call_error(torch, o, r, dtype)
                 err = max(err, e)
+                abs_err = max(abs_err, float((o.float() - r.float()).abs().max()))
             with self._lock:
                 self.records.append({"kernel": kernel, "shape": list(args[0].shape), "dtype": str(args[0].dtype),
-                                     "unit": unit, "err": err})
+                                     "unit": unit, "err": err, "abs_err": abs_err})
             return out
         return call
 
     def summary(self) -> dict:
         """Per kernel: its calls, the window shapes it ran at, the largest
-        error in its unit, and its bound."""
+        error in its unit and the largest absolute one, and its bound."""
         out: dict = {}
         for r in self.records:
-            s = out.setdefault(r["kernel"], {"calls": 0, "shapes": [], "unit": r["unit"], "err": 0.0})
+            s = out.setdefault(r["kernel"], {"calls": 0, "shapes": [], "unit": r["unit"], "err": 0.0, "abs_err": 0.0})
             s["calls"] += 1
             if r["shape"] not in s["shapes"]:
                 s["shapes"].append(r["shape"])
             s["err"] = max(s["err"], r["err"])
+            s["abs_err"] = max(s["abs_err"], r["abs_err"])
         for name, s in out.items():
             s["bound"] = MESH_CALL_BOUND.get(s["unit"], {}).get(name, MESH_CALL_DEFAULT[s["unit"]])
         return out
@@ -4750,6 +4764,306 @@ def phase_mesh(torch, np, native, smi: str, hg_weights: dict, tmp: str) -> tuple
     return counts, figures
 
 
+# Phase 15: the double-s2d mode (models/dd.py ensemble_dd; no runtime option or CLI flag
+# drives it, in either package) at 1080p in bf16 and fp32, on the shipped weights and a
+# seeded noise frame. (a) Every kernel call of one dd frame against its plain version on the
+# same inputs at its own shape (MeshCallChecks), within phase 2's bound: bf16 one step (two
+# for resblock), fp32 1e-4 absolute; down2 runs at down_conv2 and at CondNet3.2 and CondNet4.2
+# with a_sub = 1 on their own inputs (the s2d program reads those two as windows of the
+# consolidated CondNet down conv: shapes no other path launches). (b) The frame against the
+# same program with every kernel wrapper on its plain version on the card (native.on_cpu
+# answering True), in u16 codes, within DD_FRAME_CODES: phase 3's card-against-CPU frame bound,
+# which phase 4's frames are held to (fp32 4 codes; bf16 max 1536, mean 34); a planted fault,
+# down_conv1's w_dd_s2 weight with its two row taps swapped (its Δ one row off), run through
+# the kernels, must break it. (c) The frame against the port's ensemble_s2d of the same frame
+# (in bf16 its megakernel program), max abs and u16 codes: fp32 within DD_VS_S2D_FP32 codes
+# (phase 3's fp32 frame bound); bf16 printed (another program, rounding elsewhere). (d) One
+# eager frame's launches, counts set to 0 before and read after, equal to DD_LAUNCHES (paths
+# dd_bf16, dd_fp32 of the kernels line). (e) ms/frame over DD_FRAMES frames (one sync) and,
+# under torch.profiler, the frame's device ms split between the port's kernels and the torch
+# ops (tools/profile_frame.py's groups), and the DD_TOP kernels by device time. (f) The
+# per-device launcher caches: a fresh process whose two threads, each on its own stream, make
+# the first launch of block_conv3's bf16 Hopper tile and then of its fp32 3×TF32 tile at once;
+# every launch must succeed, the two threads' outputs equal bit for bit and within one bf16
+# step / 1e-4 of the plain version, a repeat must add no cache, and the device ordinals the
+# launchers cached for are printed (hdrtv_launcher_caches). At most DD_PHASE_S.
+DD_SIZE = (1080, 1920)
+DD_DEVICE = "cuda"
+DD_POLICY = {"dd_bf16": "bf16", "dd_fp32": "fp32"}
+DD_LAUNCHES = {"dd_bf16": {"down2": 3, "resblock": 2, "sft_conv3": 4, "block_conv3": 2},
+               "dd_fp32": {"down2": 3, "block_conv3": 10}}
+DD_CALL_BOUND = {"fused_resblock": 2.0}  # bf16 steps; 1 for the others; fp32: ATOL absolute
+DD_FRAME_CODES = {"fp32": (4, None), "bf16": (1536, 34.0)}
+DD_VS_S2D_FP32 = 4
+DD_FRAMES = {"dd_bf16": 10, "dd_fp32": 3}
+DD_PROFILE_FRAMES = 3
+DD_TOP = 8  # kernels by device time printed with (e)
+DD_PHASE_S = 90.0
+DD_KEYS = ("card", "calls", "launches", "vs_plain", "fault", "vs_s2d", "time", "launchers", "phase_s")
+DD_LAUNCHER_SCRIPT = r"""
+import json, sys, threading
+sys.path.insert(0, {root!r})
+import torch
+from hdrtv_tpu_torch.models.layers import fp32_math
+from hdrtv_tpu_torch.models.s2d import w_s2d_s1_ps
+from hdrtv_tpu_torch.ops import native
+from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_ref
+
+native.lib()
+report = {{"before": native.launcher_caches(), "rounds": {{}}}}
+g = torch.Generator().manual_seed(15)
+dev = torch.device("cuda:0")
+w_nat = (torch.randn(3, 3, 32, 128, generator=g) * 0.05).numpy()
+w32 = torch.from_numpy(w_s2d_s1_ps(w_nat)).to(dev)  # up_conv2's form: 128 -> 512 s2d channels
+b = (torch.randn(512, generator=g) * 0.1).to(dev)
+x32 = torch.rand(135, 240, 128, generator=g).to(dev)
+with fp32_math():
+    for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        x, w = x32.to(dt), w32.to(dt)
+        outs, errs, barrier = [None, None], [None, None], threading.Barrier(2)
+
+        def shard(k):
+            try:
+                with torch.cuda.stream(torch.cuda.Stream(dev)):
+                    barrier.wait()
+                    outs[k] = fused_block_conv3(x, w, b, a_sub=1)
+                    torch.cuda.current_stream(dev).synchronize()
+            except Exception as e:
+                errs[k] = repr(e)
+
+        threads = [threading.Thread(target=shard, args=(k,)) for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        if any(errs):
+            report["rounds"][tag] = {{"errors": errs}}
+            continue
+        first = native.launcher_caches()
+        fused_block_conv3(x, w, b, a_sub=1)
+        torch.cuda.synchronize()
+        ref = fused_block_conv3_ref(x, w, b).float()
+        e = (outs[0].float() - ref).abs()
+        err = float((e / (2.0 ** -7 * ref.abs().clamp_min(1.0))).max()) if tag == "bf16" else float(e.max())
+        report["rounds"][tag] = {{"errors": errs, "equal": bool(torch.equal(outs[0], outs[1])), "err": err,
+                                 "caches": first, "after_repeat": native.launcher_caches()}}
+report["after"] = native.launcher_caches()
+report["device_count"] = torch.cuda.device_count()
+print("LAUNCHERS " + json.dumps(report), flush=True)
+"""
+
+
+def dd_line(figures: dict) -> str:
+    """Phase 15's {"dd": ...} line, its keys in DD_KEYS' order."""
+    if set(figures) != set(DD_KEYS):
+        raise AssertionError(f"dd line: keys {sorted(figures)} != {sorted(DD_KEYS)}")
+    return json.dumps({"dd": {k: figures[k] for k in DD_KEYS}})
+
+
+def dd_planted_fault(tree: dict) -> dict:
+    """(b)'s planted fault: a dd tree whose down_conv1 weight (w_dd_s2: a
+    2×2 conv, row taps Δ = −1, 0) has its two row taps swapped, so the
+    L1→L2 transition reads one dd row off."""
+    bad = dict(tree)
+    bad["LE.down_conv1.weight"] = tree["LE.down_conv1.weight"][::-1].copy()
+    return bad
+
+
+def frame_apart(torch, y, ref) -> dict:
+    """Two float frames in [0, 1]: the largest absolute difference, and the
+    u16 codes they pack to (clamp, ·65535, +0.5, as pack_rgb48) apart."""
+    def codes(v):
+        return (v.float().clamp(0.0, 1.0) * 65535.0 + 0.5).to(torch.int32)
+
+    d = (codes(y) - codes(ref)).abs()
+    return {"max_abs": float((y.float() - ref.float()).abs().max()), "max_codes": int(d.max()),
+            "mean_codes": round(float(d.double().mean()), 4), "unequal": int((d > 0).sum())}
+
+
+class PlainOnCard:
+    """Every kernel wrapper on its plain version for CUDA tensors while
+    inside (``native.on_cpu`` answering True); the program's torch ops stay
+    as they are. Nothing launches a kernel of the library."""
+
+    def __init__(self, native):
+        self.native = native
+
+    def __enter__(self):
+        self._saved = self.native.on_cpu
+        self.native.on_cpu = lambda *ts: True
+        return self
+
+    def __exit__(self, *exc):
+        self.native.on_cpu = self._saved
+
+
+def phase_dd(torch, np, native, smi: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 15 (its checks in the constants' comment above). Returns the
+    launch counts of the paths dd_bf16 and dd_fp32 (one eager 1080p frame
+    each) and the phase's figures."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hdrtv_tpu_torch.models.dd import dd_params_to_torch, dd_transform_params, ensemble_dd
+    from hdrtv_tpu_torch.models.import_npz import load_npz
+    from hdrtv_tpu_torch.models.layers import BF16, F32
+    from hdrtv_tpu_torch.models.s2d import ensemble_s2d, params_to_torch, s2d_transform_params
+    from hdrtv_tpu_torch.ops.resize import downsample_quarter_aa
+    from hdrtv_tpu_torch.tools.profile_frame import device_us, group_of
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DD_DEVICE)
+    natural = load_npz(WEIGHTS)
+    tree, s2d_tree = dd_transform_params(natural), s2d_transform_params(natural)
+    h, w = DD_SIZE
+    u8 = (np.random.RandomState(h + 15).rand(h, w, 3) * 255).astype(np.uint8)
+    img = torch.from_numpy(u8).to(dev)[None].float() * (1.0 / 255.0)
+    cond = downsample_quarter_aa(img)
+    figures: dict = {"card": smi, "calls": {}, "launches": {}, "vs_plain": {}, "fault": {}, "vs_s2d": {}, "time": {}}
+    counts: dict = {}
+    log(f"phase 15: the double-s2d mode (ensemble_dd) at {h}x{w}, bf16 and fp32; {smi}")
+    for path, pname in DD_POLICY.items():
+        policy = F32 if pname == "fp32" else BF16
+        p = dd_params_to_torch(tree, dev, policy)
+
+        def run(params=p, policy=policy):
+            return ensemble_dd(params, img, cond, policy=policy)
+
+        with torch.inference_mode():
+            # (a) every kernel call against its plain version at its own shape
+            with MeshCallChecks(torch, native) as checks:
+                out = run()
+                torch.cuda.synchronize()
+            summary = checks.summary()
+            calls = {}
+            for name, c in summary.items():
+                if pname == "fp32":
+                    err, bnd, unit = c["abs_err"], ATOL, "abs"
+                else:
+                    err, bnd, unit = c["err"], DD_CALL_BOUND.get(name, 1.0), "bf16 steps"
+                calls[name] = {"calls": c["calls"], "shapes": c["shapes"], "err": err, "bound": bnd, "unit": unit}
+            figures["calls"][path] = calls
+            log(json.dumps({"dd_calls": path, **calls}))
+            bad = {k: (c["err"], c["bound"]) for k, c in calls.items() if c["err"] > c["bound"]}
+            if bad or not calls:
+                raise AssertionError(f"{path}: kernel calls beyond phase 2's bounds against the plain versions: {bad}")
+
+            # (d) one eager frame's launches
+            native.reset_launch_counts()
+            out = run()
+            torch.cuda.synchronize()
+            got = read_counts(native)
+            counts[path] = got
+            want = {k: DD_LAUNCHES[path].get(k, 0) for k in KERNEL_INFO}
+            figures["launches"][path] = {k: v for k, v in got.items() if v}
+            log(f"phase 15: {path} launches for one frame: {figures['launches'][path]}")
+            if got != want:
+                raise AssertionError(f"{path}: launches {got} != {want}")
+            if tuple(out.shape) != (1, h, w, 3) or not bool(torch.isfinite(out.float()).all()):
+                raise AssertionError(f"{path}: output {tuple(out.shape)} {out.dtype}, finite "
+                                     f"{bool(torch.isfinite(out.float()).all())}")
+
+            # (b) against the same program on the plain versions, and the planted fault
+            native.reset_launch_counts()
+            with PlainOnCard(native):
+                plain = run()
+            torch.cuda.synchronize()
+            if any(read_counts(native).values()):
+                raise AssertionError(f"{path}: the plain program launched {read_counts(native)}")
+            max_codes, mean_codes = DD_FRAME_CODES[pname]
+            apart = frame_apart(torch, out, plain)
+            faulty = run(dd_params_to_torch(dd_planted_fault(tree), dev, policy))
+            fault = frame_apart(torch, faulty, plain)
+            figures["vs_plain"][path] = {**apart, "bound": [max_codes, mean_codes]}
+            figures["fault"][path] = {"planted": "down_conv1's w_dd_s2 row taps swapped", **fault}
+            log(f"phase 15: {path} against its plain versions: {json.dumps(apart)} (bound {max_codes} codes, "
+                f"mean {mean_codes}); planted fault {json.dumps(fault)}")
+            if apart["max_codes"] > max_codes or (mean_codes is not None and apart["mean_codes"] > mean_codes):
+                raise AssertionError(f"{path}: the dd frame and its plain program apart by {apart}")
+            if fault["max_codes"] <= max_codes and (mean_codes is None or fault["mean_codes"] <= mean_codes):
+                raise AssertionError(f"{path}: the planted fault passed the frame's check: {fault}")
+            del plain, faulty
+
+            # (c) against the port's s2d program on the same frame
+            s2 = ensemble_s2d(params_to_torch(s2d_tree, dev, policy), img, cond, policy=policy)
+            vs = frame_apart(torch, out, s2)
+            figures["vs_s2d"][path] = {**vs, "bound_codes": DD_VS_S2D_FP32 if pname == "fp32" else None}
+            log(f"phase 15: {path} against ensemble_s2d: {json.dumps(vs)}"
+                + (f" (bound {DD_VS_S2D_FP32} codes)" if pname == "fp32" else " (another program: printed)"))
+            if pname == "fp32" and vs["max_codes"] > DD_VS_S2D_FP32:
+                raise AssertionError(f"{path}: the dd frame and ensemble_s2d apart by {vs}")
+            del s2
+
+            # (e) ms/frame, and the device time split by torch.profiler
+            n = DD_FRAMES[path]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                out = run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / n
+            for attempt in range(1, SPLIT_ATTEMPTS + 1):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(DD_PROFILE_FRAMES):
+                        run()
+                    torch.cuda.synchronize()
+                groups: dict = {}
+                by_name: dict = {}
+                for e in prof.key_averages():
+                    us = device_us(e)
+                    if us:
+                        g = group_of(e.key)
+                        groups[g] = groups.get(g, 0.0) + us / 1e3 / DD_PROFILE_FRAMES
+                        name = e.key.split("(anonymous namespace)::", 1)[-1].split("(")[0][:60]
+                        by_name[name] = by_name.get(name, 0.0) + us / 1e3 / DD_PROFILE_FRAMES
+                if groups.get("port kernels", 0.0) > 0:
+                    break
+            else:
+                raise AssertionError(f"{path}: the profiler saw no device time of the port's kernels: {groups}")
+            kernel_ms = sum(groups.values())
+            port_ms = groups.get("port kernels", 0.0)
+            figures["time"][path] = {"ms_per_frame": round(ms, 3), "frames": n, "device_ms": round(kernel_ms, 4),
+                                     "port_kernels_ms": round(port_ms, 4),
+                                     "torch_ops_ms": round(kernel_ms - port_ms, 4),
+                                     "groups_ms": {k: round(v, 4) for k, v in sorted(groups.items())},
+                                     "top_ms": {k: round(v, 4) for k, v in
+                                                sorted(by_name.items(), key=lambda kv: -kv[1])[:DD_TOP]},
+                                     "attempts": attempt}
+            log(f"phase 15: {path} {ms:.3f} ms/frame eager over {n} frames; device {kernel_ms:.3f} ms a frame = "
+                f"port kernels {port_ms:.3f} + torch ops {kernel_ms - port_ms:.3f} "
+                f"({json.dumps(figures['time'][path]['groups_ms'])}); {smi}")
+        del p, out
+        torch.cuda.empty_cache()
+
+    # (f) the per-device launcher caches, in a fresh process
+    script = DD_LAUNCHER_SCRIPT.format(root=ROOT)
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=180,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    line = next((ln for ln in res.stdout.splitlines() if ln.startswith("LAUNCHERS ")), None)
+    if res.returncode or line is None:
+        raise AssertionError(f"launcher check failed (rc {res.returncode}):\n{res.stdout[-2000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    rep = json.loads(line[len("LAUNCHERS "):])
+    figures["launchers"] = rep
+    log(f"phase 15: first launches from two threads on two streams at once: {json.dumps(rep)}")
+    for tag in ("bf16", "fp32"):
+        r = rep["rounds"].get(tag, {})
+        bnd = 1.0 if tag == "bf16" else ATOL
+        if any(r.get("errors", ["missing"])) or not r.get("equal") or r["err"] > bnd:
+            raise AssertionError(f"launchers, {tag}: {r}")
+        if r["after_repeat"] != r["caches"]:
+            raise AssertionError(f"launchers, {tag}: a repeat launch added a cache: {r}")
+    if rep["before"] or set(rep["after"]) != {"0"} or rep["after"]["0"] < 2:
+        raise AssertionError(f"launchers: cached for ordinals {rep['after']} (before any launch {rep['before']})")
+    log(f"phase 15: the launchers cached for device ordinal(s) {sorted(rep['after'])}: "
+        f"{rep['after']} caches in a process that launched on {rep['device_count']} card(s)")
+    figures["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log(f"phase 15: {figures['phase_s']} s (budget {DD_PHASE_S:g})")
+    if figures["phase_s"] > DD_PHASE_S:
+        raise AssertionError(f"phase 15 took {figures['phase_s']} s, over its {DD_PHASE_S:g} s")
+    return counts, figures
+
+
 def main() -> int:
     import torch
 
@@ -4807,6 +5121,8 @@ def main() -> int:
             counts.update(live_counts)
             mesh_counts, mesh = phase_mesh(torch, np, native, smi, hg_weights, tmp)
             counts.update(mesh_counts)
+            dd_counts, dd = phase_dd(torch, np, native, smi, tmp)
+            counts.update(dd_counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4856,6 +5172,7 @@ def main() -> int:
     log(quant_line(quant))
     log(live_line(live))
     log(mesh_line(mesh))
+    log(dd_line(dd))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -214,7 +214,8 @@ __global__ void __launch_bounds__(kPwThreads) in_conv_kernel(InConvArgs a) {
 
 template <typename T, bool MMA>
 cudaError_t launch_head(const AgcmArgs& g, const InConvArgs& c, cudaStream_t stream) {
-  static const cudaError_t attr = allow_large_smem(agcm_kernel<T, MMA>);
+  static DeviceCache cache;
+  const cudaError_t attr = allow_large_smem(cache, agcm_kernel<T, MMA>);
   if (attr != cudaSuccess) return attr;
   const size_t agcm_bytes =
       kPwStageBytes + static_cast<size_t>(kPwBM) * (kCinP + pw_pad<T>() + 2 * g.lda) * sizeof(T);
@@ -467,8 +468,9 @@ cudaError_t encode_out_map(CUtensorMap* map, void* y, int H, int W, int C) {
 cudaError_t agcm_head_s2d(const AgcmSm90Args& g, InConvSm90Args& c, cudaStream_t stream) {
   using Cfg = InConvSm90Cfg;
   cudaError_t err = agcm_sm90(g, stream);
-  static int resident = 0;
-  if (err == cudaSuccess && !resident) err = resident_blocks(in_conv_sm90_kernel, Cfg::SMEM, &resident, 128);
+  static DeviceCache cache;
+  int resident = 0;
+  if (err == cudaSuccess) err = resident_blocks(cache, in_conv_sm90_kernel, Cfg::SMEM, &resident, 128);
   if (err == cudaSuccess) err = encode_out_map(&c.fea_map, c.fea, c.H, c.W, 4 * Cfg::CF);
   if (err == cudaSuccess) err = encode_out_map(&c.c0_map, c.c0, c.H, c.W, 4 * Cfg::CC);
   if (err != cudaSuccess) return err;

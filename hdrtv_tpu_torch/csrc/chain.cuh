@@ -122,7 +122,8 @@ __global__ void __launch_bounds__(kPwThreads) chain_kernel(ChainArgs a) {
 
 template <typename T, bool MMA>
 cudaError_t launch_chain(const ChainArgs& a, cudaStream_t stream) {
-  static const cudaError_t attr = allow_large_smem(chain_kernel<T, MMA>);
+  static DeviceCache cache;
+  const cudaError_t attr = allow_large_smem(cache, chain_kernel<T, MMA>);
   if (attr != cudaSuccess) return attr;
   const size_t bytes = kPwStageBytes + 2 * static_cast<size_t>(kPwBM) * a.lda * sizeof(T);
   if (bytes > kMaxDynSmem) return cudaErrorInvalidValue;

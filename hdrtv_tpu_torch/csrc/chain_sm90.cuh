@@ -374,13 +374,14 @@ inline unsigned row_blocks(long long rows, int resident) {
   return static_cast<unsigned>(std::max(1LL, std::min(static_cast<long long>(resident), (tiles + 1) / 2)));
 }
 
-// One launch of a chain kernel with SMEM bytes (its resident blocks counted once).
+// One launch of a chain kernel with SMEM bytes (its resident blocks counted
+// once per device, in the caller's cache).
 template <typename Kernel>
-cudaError_t launch_chain_sm90(Kernel kernel, int smem, int& resident, const ChainSm90Args& a, cudaStream_t stream) {
-  if (!resident) {
-    const cudaError_t err = resident_blocks(kernel, smem, &resident);
-    if (err != cudaSuccess) return err;
-  }
+cudaError_t launch_chain_sm90(Kernel kernel, int smem, DeviceCache& cache, const ChainSm90Args& a,
+                              cudaStream_t stream) {
+  int resident = 0;
+  const cudaError_t err = resident_blocks(cache, kernel, smem, &resident);
+  if (err != cudaSuccess) return err;
   kernel<<<row_blocks(a.rows, resident), kRowThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -406,8 +407,8 @@ inline cudaError_t cond_chain_sm90(const void* c0, void* c, void* cond1, const v
   a.rows = 4LL * npix;
   a.cf = 4 * K;
   a.ch0 = 0;
-  static int resident = 0;
-  return launch_chain_sm90(cond_chain_sm90_kernel<K, NL>, ChainSm90Cfg<K, NL, 4>::SMEM, resident, a, stream);
+  static DeviceCache cache;
+  return launch_chain_sm90(cond_chain_sm90_kernel<K, NL>, ChainSm90Cfg<K, NL, 4>::SMEM, cache, a, stream);
 }
 
 // mix_chain's bf16 form over s2d weights (arguments as mix_chain.cu takes
@@ -434,8 +435,8 @@ inline cudaError_t mix_chain_sm90(const void* x, void* y, const void* const* w, 
   a.rows = 4LL * npix;
   a.cf = cf;
   a.ch0 = ch0;
-  static int resident = 0;
-  return launch_chain_sm90(mix_chain_sm90_kernel<K, NL>, ChainSm90Cfg<K, NL, 1>::SMEM, resident, a, stream);
+  static DeviceCache cache;
+  return launch_chain_sm90(mix_chain_sm90_kernel<K, NL>, ChainSm90Cfg<K, NL, 1>::SMEM, cache, a, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -717,11 +718,10 @@ template <typename XT, bool Q8 = false>
 inline cudaError_t launch_sft_sm90(const SftSm90Args& a, cudaStream_t stream) {
   using Cfg = SftSm90Cfg<16, 32, XT>;
   auto kernel = sft_sm90_kernel<16, 32, XT, Q8>;
-  static int resident = 0;  // once per instantiation
-  if (!resident) {
-    const cudaError_t err = resident_blocks(kernel, Cfg::SMEM, &resident);
-    if (err != cudaSuccess) return err;
-  }
+  static DeviceCache cache;  // once per instantiation and device
+  int resident = 0;
+  const cudaError_t err = resident_blocks(cache, kernel, Cfg::SMEM, &resident);
+  if (err != cudaSuccess) return err;
   kernel<<<row_blocks(a.rows, resident), kRowThreads, Cfg::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
@@ -1032,11 +1032,10 @@ __global__ void __launch_bounds__(kRowThreads, 2) agcm_sm90_kernel(const __grid_
 
 // The AGCM pass of agcm_head's s2d form (arguments: AgcmSm90Args).
 inline cudaError_t agcm_sm90(const AgcmSm90Args& a, cudaStream_t stream) {
-  static int resident = 0;
-  if (!resident) {
-    const cudaError_t err = resident_blocks(agcm_sm90_kernel, AgcmSm90Cfg::SMEM, &resident);
-    if (err != cudaSuccess) return err;
-  }
+  static DeviceCache cache;
+  int resident = 0;
+  const cudaError_t err = resident_blocks(cache, agcm_sm90_kernel, AgcmSm90Cfg::SMEM, &resident);
+  if (err != cudaSuccess) return err;
   agcm_sm90_kernel<<<row_blocks(a.rows, resident), kRowThreads, AgcmSm90Cfg::SMEM, stream>>>(a);
   return cudaGetLastError();
 }

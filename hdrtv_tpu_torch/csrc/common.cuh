@@ -13,9 +13,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace hdrtv {
+
+// Launchers keep what their first launch computes (a persistent kernel's
+// resident-block count, and with it the dynamic shared memory allowed to the
+// kernel) once per device: cudaFuncSetAttribute holds for the current device
+// only, and a grid sized by one card's SM count is wrong on another.
+constexpr int kMaxDevices = 64;
+
+// How many launcher caches each device ordinal has filled, over the whole
+// library (an inline variable: one object for every translation unit); read
+// by hdrtv_launcher_caches (pack.cu).
+inline std::atomic<int> g_device_caches[kMaxDevices];
+
 namespace {
 
 enum Act : int { ACT_NONE = 0, ACT_RELU = 1, ACT_LRELU = 2 };
@@ -182,6 +195,44 @@ __device__ __forceinline__ void store2<bf16>(bf16* p, float2 v) {
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// One launcher's cached value on each device, 0 until computed (a
+// function-local static of the launcher: one per template instance).
+struct DeviceCache {
+  std::atomic<int> value[kMaxDevices];
+};
+
+// The value init(dev, &v) computes for the current device: computed on the
+// device's first call, then kept. Threads that race a device's first launch
+// each compute it (setting a kernel attribute and asking its occupancy are
+// idempotent, and every racer has set the attribute before it launches); the
+// first to publish it counts it in g_device_caches. A failed init is not
+// kept: the next call tries again.
+template <typename Init>
+cudaError_t per_device(DeviceCache& cache, int* out, Init init) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int v = cache.value[dev].load(std::memory_order_acquire);
+  if (!v) {
+    err = init(dev, &v);
+    if (err != cudaSuccess) return err;
+    int none = 0;
+    if (cache.value[dev].compare_exchange_strong(none, v, std::memory_order_acq_rel))
+      g_device_caches[dev].fetch_add(1, std::memory_order_relaxed);
+  }
+  *out = v;
+  return cudaSuccess;
+}
+
+// The current device's SM count, asked once per device.
+inline cudaError_t device_sms(int* sms) {
+  static DeviceCache cache;
+  return per_device(cache, sms, [](int dev, int* v) {
+    return cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount, dev);
+  });
 }
 
 }  // namespace

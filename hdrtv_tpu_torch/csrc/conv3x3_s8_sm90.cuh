@@ -637,16 +637,16 @@ cudaError_t s8_sm90_setup(S8Sm90Args& a, const void* q, long long plane, const Q
   return err;
 }
 
-// One launch of instance <S, SKIP, F32OUT> (its resident blocks counted once).
+// One launch of instance <S, SKIP, F32OUT> (its resident blocks counted once
+// per device).
 template <int S, bool SKIP, bool F32OUT>
 cudaError_t launch_s8_sm90(const S8Sm90Args& a, cudaStream_t stream) {
   using Cfg = S8Sm90Cfg<S>;
   auto kernel = conv3x3_s8_sm90_kernel<S, SKIP, F32OUT>;
-  static int resident = 0;
-  if (!resident) {
-    const cudaError_t err = resident_blocks(kernel, kSm90Smem, &resident);
-    if (err != cudaSuccess) return err;
-  }
+  static DeviceCache cache;
+  int resident = 0;
+  const cudaError_t err = resident_blocks(cache, kernel, kSm90Smem, &resident);
+  if (err != cudaSuccess) return err;
   kernel<<<sm90_grid(a.Ho, a.Wo, a.Co, Cfg::BN, kS8Sm90BH, resident), kSm90Threads, Cfg::SMEM, stream>>>(a);
   return cudaGetLastError();
 }

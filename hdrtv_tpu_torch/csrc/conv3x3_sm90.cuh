@@ -625,17 +625,19 @@ cudaError_t encode_a_map(CUtensorMap* map, const void* x, int H, int W, int cf, 
   return cudaSuccess;
 }
 
-// How many blocks of `kernel` the card holds at once (block size `threads`,
-// `smem` bytes of dynamic shared memory, which it also allows the kernel).
+// How many blocks of `kernel` the current device holds at once (block size
+// `threads`, `smem` bytes of dynamic shared memory, which it also allows the
+// kernel on that device), computed once per device and kept in `cache`.
 template <typename K>
-cudaError_t resident_blocks(K kernel, int smem, int* resident, int threads = kSm90Threads) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err == cudaSuccess) *resident = std::max(per_sm, 1) * sms;
-  return err;
+cudaError_t resident_blocks(DeviceCache& cache, K kernel, int smem, int* resident, int threads = kSm90Threads) {
+  return per_device(cache, resident, [&](int dev, int* v) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err == cudaSuccess) *v = std::max(per_sm, 1) * sms;
+    return err;
+  });
 }
 
 // Persistent blocks: as many as the card holds, a whole number per N tile.
@@ -649,14 +651,13 @@ template <int BN, int S, bool RES, int EPI = kEpiBf16>
 cudaError_t launch_sm90(Sm90Args<bf16>& a, const void* x, int H, int W, int cf, cudaStream_t stream) {
   using Cfg = Sm90Cfg<BN, RES>;
   auto kernel = conv3x3_sm90_kernel<BN, S, RES, EPI>;
-  static int resident = 0;  // once per instantiation
-  if (!resident) {
-    const cudaError_t err = resident_blocks(kernel, kSm90Smem, &resident);
-    if (err != cudaSuccess) return err;
-  }
+  static DeviceCache cache;  // once per instantiation and device
+  int resident = 0;
+  cudaError_t err = resident_blocks(cache, kernel, kSm90Smem, &resident);
+  if (err != cudaSuccess) return err;
   const int smem = Cfg::smem(a.per_list);
   if (smem > kSm90Smem) return cudaErrorInvalidValue;
-  const cudaError_t err = encode_a_map<bf16>(&a.tmap, x, H, W, cf, S, Cfg::BH);
+  err = encode_a_map<bf16>(&a.tmap, x, H, W, cf, S, Cfg::BH);
   if (err != cudaSuccess) return err;
   kernel<<<sm90_grid(a.Ho, a.Wo, a.Co, BN, Cfg::BH, resident), kSm90Threads, smem, stream>>>(a);
   return cudaGetLastError();

@@ -453,14 +453,13 @@ template <int BN, int S, bool SK2 = false>
 cudaError_t launch_tf32x3(Sm90Args<float>& a, const void* x, int H, int W, int cf, cudaStream_t stream) {
   using Cfg = Tf32Cfg<BN>;
   auto kernel = conv3x3_tf32x3_kernel<BN, S, SK2>;
-  static int resident = 0;  // once per instantiation
-  if (!resident) {
-    const cudaError_t err = resident_blocks(kernel, kTf32Smem, &resident);
-    if (err != cudaSuccess) return err;
-  }
+  static DeviceCache cache;  // once per instantiation and device
+  int resident = 0;
+  cudaError_t err = resident_blocks(cache, kernel, kTf32Smem, &resident);
+  if (err != cudaSuccess) return err;
   const int smem = Cfg::smem(a.per_list);
   if (smem > kTf32Smem) return cudaErrorInvalidValue;
-  const cudaError_t err = encode_a_map<float>(&a.tmap, x, H, W, cf, S, Cfg::BH);
+  err = encode_a_map<float>(&a.tmap, x, H, W, cf, S, Cfg::BH);
   if (err != cudaSuccess) return err;
   kernel<<<sm90_grid(a.Ho, a.Wo, a.Co, BN, Cfg::BH, resident), kSm90Threads, smem, stream>>>(a);
   return cudaGetLastError();

@@ -183,7 +183,8 @@ __global__ void __launch_bounds__(kLastRows * 32) conv_last_kernel(LastArgs a) {
 
 template <typename T>
 cudaError_t launch_conv_last(const LastArgs& a, cudaStream_t stream) {
-  static const cudaError_t attr = allow_large_smem(conv_last_kernel<T>);
+  static DeviceCache cache;
+  const cudaError_t attr = allow_large_smem(cache, conv_last_kernel<T>);
   if (attr != cudaSuccess) return attr;
   const size_t bytes = conv_last_smem<T>(a.C);
   if (bytes > kMaxDynSmem || a.C % 16 || a.Cl % 4 || a.Cl > kLastN) return cudaErrorInvalidValue;
@@ -634,9 +635,10 @@ inline cudaError_t conv_last_sm90(const void* h, const void* w, const float* b, 
   a.pack = pack;
   a.bands = (W + kLastSm90TW - 1) / kLastSm90TW;
   cudaError_t err = encode_last_h_map(&a.hmap, h, H, W);
-  static int resident = 0;
-  if (err == cudaSuccess && !resident) err = resident_blocks(conv_last_sm90_kernel, kLastSm90Smem, &resident,
-                                                             kLastSm90Threads);
+  static DeviceCache cache;
+  int resident = 0;
+  if (err == cudaSuccess) err = resident_blocks(cache, conv_last_sm90_kernel, kLastSm90Smem, &resident,
+                                                kLastSm90Threads);
   if (err != cudaSuccess) return err;
   const int grid = std::min(a.bands * H, resident);
   conv_last_sm90_kernel<<<grid, kLastSm90Threads, kLastSm90Smem, stream>>>(a);

@@ -309,7 +309,8 @@ int hg_tail(const void* up, const void* c1, const void* img, const void* mask, c
   const unsigned blocks = hg_blocks(a.npix);
   if constexpr (std::is_same<T, bf16>::value) {
     if (Cu % 32 == 0 && Cc % 32 == 0) {
-      static const cudaError_t attr = allow_large_smem(hg_tail_mma_kernel);
+      static DeviceCache cache;
+      const cudaError_t attr = allow_large_smem(cache, hg_tail_mma_kernel);
       if (attr != cudaSuccess) return static_cast<int>(attr);
       const size_t bytes = static_cast<size_t>((Cu + Cc) / 32) * 128 * sizeof(uint2) +
                            (kHgSmall + (kHgThreads / 32) * kHgTile * kHgN) * sizeof(float);
@@ -318,7 +319,8 @@ int hg_tail(const void* up, const void* c1, const void* img, const void* mask, c
       return static_cast<int>(cudaGetLastError());
     }
   }
-  static const cudaError_t attr = allow_large_smem(hg_tail_fma_kernel<T>);
+  static DeviceCache cache;
+  const cudaError_t attr = allow_large_smem(cache, hg_tail_fma_kernel<T>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const size_t bytes = (static_cast<size_t>(Cu + Cc) * kHgN + kHgSmall) * sizeof(float);
   if (bytes > kMaxDynSmem) return static_cast<int>(cudaErrorInvalidValue);

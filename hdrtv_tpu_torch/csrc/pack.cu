@@ -93,13 +93,9 @@ __global__ void __launch_bounds__(kPackThreads) pack_rgb48_kernel(const T* __res
 
 template <typename T>
 int pack_rgb48(const void* x, void* y, long long n, void* stream) {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  int sms = 0;
+  const cudaError_t err = device_sms(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // The first element from which both pointers are 16-byte aligned, if any
   // lies within 8 (x holds whole elements, y whole u16).
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x), ya = reinterpret_cast<uintptr_t>(y);
@@ -131,4 +127,11 @@ extern "C" int hdrtv_pack_rgb48_bf16(const void* x, void* y, long long n, void* 
 
 extern "C" const char* hdrtv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// How many launcher caches (csrc/common.cuh DeviceCache) device ordinal dev
+// has filled in this process: one per launcher instance launched there.
+extern "C" int hdrtv_launcher_caches(int dev) {
+  if (dev < 0 || dev >= hdrtv::kMaxDevices) return -1;
+  return hdrtv::g_device_caches[dev].load();
 }

@@ -394,15 +394,20 @@ __global__ void __launch_bounds__(kPwThreads) sft_kernel(SftArgs a) {
 }
 
 // Kernels here take more than the 48 KB of shared memory a launch gets by
-// default: raise the limit once per kernel.
+// default: raise the limit once per kernel and device (the caller's cache).
 template <typename K>
-cudaError_t allow_large_smem(K kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+cudaError_t allow_large_smem(DeviceCache& cache, K kernel) {
+  int done = 0;
+  return per_device(cache, &done, [&](int, int* v) {
+    *v = 1;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+  });
 }
 
 template <typename T, typename TX, bool MMA>
 cudaError_t launch_sft_as(const SftArgs& a, cudaStream_t stream) {
-  static const cudaError_t attr = allow_large_smem(sft_kernel<T, TX, MMA>);
+  static DeviceCache cache;
+  const cudaError_t attr = allow_large_smem(cache, sft_kernel<T, TX, MMA>);
   if (attr != cudaSuccess) return attr;
   const size_t bytes =
       kPwStageBytes + 3 * static_cast<size_t>(kPwBM) * (a.CC + pw_pad<T>()) * sizeof(T);

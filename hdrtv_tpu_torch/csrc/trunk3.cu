@@ -196,11 +196,10 @@ cudaError_t launch_sft_rows(const float* x, const float* cond, const float* prm,
                             cudaStream_t stream) {
   auto kernel = sft_rows_f32_kernel<kCC, kC>;
   constexpr int smem = static_cast<int>(sizeof(SftRowsSmem<kCC, kC>));
-  static int resident = 0;
-  if (!resident) {
-    const cudaError_t err = resident_blocks(kernel, smem, &resident, kSftThreads);
-    if (err != cudaSuccess) return err;
-  }
+  static DeviceCache cache;
+  int resident = 0;
+  const cudaError_t err = resident_blocks(cache, kernel, smem, &resident, kSftThreads);
+  if (err != cudaSuccess) return err;
   const int tiles = (npix + kSftTP - 1) / kSftTP;
   kernel<<<std::max(1, std::min(tiles, resident)), kSftThreads, smem, stream>>>(x, cond, prm, t, npix);
   return cudaGetLastError();

@@ -504,41 +504,13 @@ _QARGS = ".__qargs"  # the prepared ops/w8a8.py QArgs of a native-int8 layer
 
 
 def params_to_torch(params_np: dict, device, policy: Policy = F32) -> Params:
-    """Carry the (transformed) numpy parameters to ``device``, cast once to
-    what ``policy`` computes with: floating arrays as contiguous tensors of
-    the compute dtype, except the fp32 set of :func:`_fp32_param_names` and
-    the native-int8 scales; anything else (the int8 ``.qweight`` codes among
-    it) with its dtype. Also prepares what depends on the parameters only:
-    the BGR-permuted AGCM.conv_first, the pack of the weights' element type
-    for trunk3 (bf16 :func:`trunk3_pack_bf16`, fp32 :func:`trunk3_pack`)
-    and for the head (bf16 the s2d form's blocks, fp32 the dense kernels'
-    padded matrices), and for each native-int8 3×3 layer its ``QArgs``
-    under ``{layer}.__qargs`` (what ``_qargs_for`` and :func:`_down2_qargs`
-    return; for the consolidated CondNet down conv, with its per-branch
-    ``qx_scales``, a tuple of one per branch). The int8 1×1s, which no frame
-    program quantizes (cond_chain's int8 steps take ``QArgs`` from the
-    caller), stay as their raw keys."""
-    keep = _fp32_param_names(params_np)
-    out = {}
-    for k, v in params_np.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if t.is_floating_point():
-            t = t.to(torch.float32 if k in keep or k.endswith(_QSCALES) else policy.compute_dtype)
-        out[k] = t.to(device).contiguous()
-    conv3 = {layer for layer, role in _le_layer_roles().items() if role in (_S1, _PSL, _S2)} | {"LE.__cond_down"}
-    for k in params_np:
-        layer = k[: -len(".qweight")]
-        if not (k.endswith(".qweight") and layer in conv3):
-            continue
-        args = (params_np[k], params_np[f"{layer}.qw_scale"])
-        if f"{layer}.qx_scales" in params_np:
-            out[layer + _QARGS] = pack_qargs_branches(
-                *args, params_np[f"{layer}.qx_scales"], params_np.get(f"{layer}.qx_zeros"),
-                params_np[f"{layer}.bias"], device)
-        elif f"{layer}.qx_scale" in params_np:
-            out[layer + _QARGS] = pack_qargs(
-                *args, params_np[f"{layer}.qx_scale"], params_np.get(f"{layer}.qx_zero"),
-                params_np[f"{layer}.bias"], device)
+    """Carry the (transformed) numpy parameters to ``device`` as
+    :func:`cast_params` does, and prepare what depends on the parameters
+    only: the BGR-permuted AGCM.conv_first, and the pack of the weights'
+    element type for trunk3 (bf16 :func:`trunk3_pack_bf16`, fp32
+    :func:`trunk3_pack`) and for the head (bf16 the s2d form's blocks, fp32
+    the dense kernels' padded matrices)."""
+    out = cast_params(params_np, device, policy)
     # Each kernel's pack is built for the element type that reads it: trunk3's
     # bf16 instance reads trunk3_pack_bf16, its fp32 one trunk3_pack; the
     # head's bf16 s2d kernels agcm_head_pack_s2d, its fp32 dense kernels
@@ -566,6 +538,42 @@ def params_to_torch(params_np: dict, device, policy: Policy = F32) -> Params:
             aw1p, aw3p, wcat = agcm_head_pack(aw1, aw3, w_in)
             aw1p_bgr = agcm_head_pack(aw1_bgr, aw3, w_in)[0]
             out.update(zip(_HEAD_PACKED, (aw1p, aw1p_bgr, aw3p, wcat), strict=True))
+    return out
+
+
+def cast_params(params_np: dict, device, policy: Policy = F32) -> Params:
+    """The numpy parameters on ``device``, cast once to what ``policy``
+    computes with: floating arrays as contiguous tensors of the compute
+    dtype, except the fp32 set of :func:`_fp32_param_names` and the
+    native-int8 scales; anything else (the int8 ``.qweight`` codes among it)
+    with its dtype. For each native-int8 3×3 layer also its ``QArgs`` under
+    ``{layer}.__qargs`` (what ``_qargs_for`` and :func:`_down2_qargs`
+    return; for the consolidated CondNet down conv, with its per-branch
+    ``qx_scales``, a tuple of one per branch). The int8 1×1s, which no frame
+    program quantizes (cond_chain's int8 steps take ``QArgs`` from the
+    caller), stay as their raw keys. No kernel pack: :func:`params_to_torch`
+    adds those."""
+    keep = _fp32_param_names(params_np)
+    out = {}
+    for k, v in params_np.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if t.is_floating_point():
+            t = t.to(torch.float32 if k in keep or k.endswith(_QSCALES) else policy.compute_dtype)
+        out[k] = t.to(device).contiguous()
+    conv3 = {layer for layer, role in _le_layer_roles().items() if role in (_S1, _PSL, _S2)} | {"LE.__cond_down"}
+    for k in params_np:
+        layer = k[: -len(".qweight")]
+        if not (k.endswith(".qweight") and layer in conv3):
+            continue
+        args = (params_np[k], params_np[f"{layer}.qw_scale"])
+        if f"{layer}.qx_scales" in params_np:
+            out[layer + _QARGS] = pack_qargs_branches(
+                *args, params_np[f"{layer}.qx_scales"], params_np.get(f"{layer}.qx_zeros"),
+                params_np[f"{layer}.bias"], device)
+        elif f"{layer}.qx_scale" in params_np:
+            out[layer + _QARGS] = pack_qargs(
+                *args, params_np[f"{layer}.qx_scale"], params_np.get(f"{layer}.qx_zero"),
+                params_np[f"{layer}.bias"], device)
     return out
 
 

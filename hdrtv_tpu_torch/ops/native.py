@@ -171,6 +171,7 @@ def _load() -> ctypes.CDLL:
         "hdrtv_trunk3_param_floats": ([i, i, i], ll),
         "hdrtv_mix_chain_max_steps": ([], i),
         "hdrtv_error_string": ([i], ctypes.c_char_p),
+        "hdrtv_launcher_caches": ([i], i),
     })
     for name, (args, res) in sigs.items():
         fn = getattr(so, name)
@@ -217,6 +218,16 @@ def quant_params_pointers(qas) -> tuple:
     structs = [None if qa is None else _quant_struct(qa) for qa in qas]
     ptrs = (ctypes.c_void_p * len(qas))(*[None if st is None else ctypes.addressof(st) for st in structs])
     return ptrs, structs
+
+
+def launcher_caches() -> dict[int, int]:
+    """How many launcher caches (``csrc/common.cuh`` ``DeviceCache``: a
+    launcher's resident-block count and shared-memory setting, kept per
+    device) each CUDA device ordinal has filled in this process; ordinals
+    with none are left out."""
+    so = lib()
+    counts = {d: so.hdrtv_launcher_caches(d) for d in range(torch.cuda.device_count())}
+    return {d: n for d, n in counts.items() if n}
 
 
 class LaunchStream(int):
