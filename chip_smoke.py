@@ -121,11 +121,19 @@ lines; any failed check raises and the script exits non-zero with no result:
    pool_out
    form at L1 up_conv3's shape (270 × 480 × 128 → 512, pooled to 135 × 240),
    float (as block_conv3) and int8 (one ulp or one step), its library time
-   F.conv2d + F.relu + F.max_pool2d; cond_chain_w8a8 (steps 0 and 4 int8
-   symmetric, step 2 with a zero point) at 540 × 960 × 256, where a float
-   step's sum order can flip a code of the next int8 step: each output within
-   4 flipped codes' worth of the last int8 step, at most COND_CHAIN_INT8_SHARE
-   of them differing.
+   F.conv2d + F.relu + F.max_pool2d, with a_sub = 1 (the Hopper tiles' pooled
+   epilogues: bf16 kEpiPool, fp32 3×TF32, int8 the wgmma s8 tile) and once
+   more dense (a_sub = 0, the older tiles); cond_chain_w8a8 (steps 0 and 4
+   int8 symmetric, step 2 with a zero point) at 540 × 960 × 256 on s2d
+   weights, in bf16 declared (s2d=True, the row tile's int8 instance) and
+   once more dense, where a float step's sum order can flip a code of the
+   next int8 step: each output within 4 flipped codes' worth of the last
+   int8 step, at most COND_CHAIN_INT8_SHARE of them differing. Each declared
+   route prints a "block_conv3_pool_split" or "cond_chain_w8a8_split" line
+   (its launches by kernel name, which must be its tile's) and holds its
+   output to a planted fault of the plain version (the pool window one conv
+   pixel right; step 2's zero-point correction dropped), which must break
+   the check ("planted" lines).
    The two layout probes (bf16 only, as the Pallas probes): d2s_add at the
    probe's shape (coarse 32 × 64 × 512) and at the 1080p shape where the tail
    un-folds up_coarse (coarse 270 × 480 × 512, fine 540 × 960 × 128), bit for
@@ -200,8 +208,9 @@ lines; any failed check raises and the script exits non-zero with no result:
    frame program reaches it, nor in the JAX package); shape, dtype and range;
 6. the same for cond_chain's int8 steps and block_conv3's pool_out form
    (float and int8), which no frame program runs either: one call each per
-   element type at their 1080p shapes, launch counts asserted, outputs of
-   the right shape and finite;
+   element type at their 1080p shapes on their declared routes (s2d=True in
+   bf16, a_sub = 1), launch counts asserted, outputs of the right shape and
+   finite;
 7. the same for the two layout probes' kernels (d2s_add, rowmajor_head raw
    and pre), which no frame program runs either: one call each at its 1080p
    shape, launch counts asserted, output of the right shape and finite;
@@ -349,6 +358,7 @@ launches on every path; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -722,18 +732,10 @@ def phase_kernels(torch, np) -> dict:
         own = {p: k for p, k in per_path.items() if k and PATH_DTYPE[p] == dtype}
         return own or {p: k for p, k in per_path.items() if k and PATH_DTYPE[p] == "bf16"}
 
-    def record(kernel, dtype, case, per_path, y, y_ref, tol, ms, plain_ms, lib_ms, nbytes, flops,
-               unit="abs", share=None, rate=None, extra=None, fma_flops=0.0, cold_ms=None):
-        """``unit``: what ``tol`` bounds. "abs": the absolute error (fp32,
-        and u16 codes); "steps": bf16 steps of the result; "flips": the
-        absolute error of an int8 body, ``tol`` being what its flipped codes
-        can move an output by, plus in bf16 one step of its rounding.
-        ``share``: at most this share of the values may differ at all.
-        ``rate``: the peak rate of the bound's operations (default: the
-        element type's), ``fma_flops`` the part of ``flops`` on the FMA units
-        at any rate. ``extra``: more fields for the case's line. ``cold_ms``:
-        the time on inputs the L2 does not hold (``ms`` being on one that
-        stays in it), reported beside ``ms``."""
+    def check(y, y_ref, dtype, tol, unit="abs", share=None):
+        """Whether ``y`` is within ``tol`` of ``y_ref`` (``unit`` and
+        ``share`` as ``record`` takes them): (ok, what failed, max abs error,
+        bf16 steps or None, share of the values that differ)."""
         torch.cuda.synchronize()
         e = (y.float() - y_ref.float()).abs()
         err = float(e.max())
@@ -749,6 +751,30 @@ def phase_kernels(torch, np) -> dict:
         differ = float((e > 0).float().mean())
         if ok and share is not None and differ > share:
             ok, what = False, f"{differ:.3e} of the values differ > {share}"
+        return ok, what, err, steps, differ
+
+    def planted(kernel, dtype, fault, y, y_bad, tol, unit="abs", share=None):
+        """A planted fault of the plain version (``y_bad``) must break the
+        check that holds ``y`` to it; the script fails if it does not."""
+        ok, what, err, _, differ = check(y, y_bad, dtype, tol, unit, share)
+        log(json.dumps({"planted": {"kernel": kernel, "dtype": dtype, "fault": fault, "breaks": not ok,
+                                    "max_abs_err": err, "differ": differ, "what": what}}))
+        if ok:
+            raise AssertionError(f"{kernel} {dtype}: the check does not see the planted fault '{fault}'")
+
+    def record(kernel, dtype, case, per_path, y, y_ref, tol, ms, plain_ms, lib_ms, nbytes, flops,
+               unit="abs", share=None, rate=None, extra=None, fma_flops=0.0, cold_ms=None):
+        """``unit``: what ``tol`` bounds. "abs": the absolute error (fp32,
+        and u16 codes); "steps": bf16 steps of the result; "flips": the
+        absolute error of an int8 body, ``tol`` being what its flipped codes
+        can move an output by, plus in bf16 one step of its rounding.
+        ``share``: at most this share of the values may differ at all.
+        ``rate``: the peak rate of the bound's operations (default: the
+        element type's), ``fma_flops`` the part of ``flops`` on the FMA units
+        at any rate. ``extra``: more fields for the case's line. ``cold_ms``:
+        the time on inputs the L2 does not hold (``ms`` being on one that
+        stays in it), reported beside ``ms``."""
+        ok, what, err, steps, differ = check(y, y_ref, dtype, tol, unit, share)
         rate = rate or dtype
         b_ms, b_by = bound(nbytes, flops, rate, fma_flops)
         # the 3×TF32 tile's fp32 products: the FMA units' bound beside the tensor cores'
@@ -1533,47 +1559,83 @@ def phase_kernels(torch, np) -> dict:
         # block_conv3 pool_out at the L1 up_conv3 shape (270, 480, 128) -> 512 (PS-folded): the
         # 2x2 max pool in the epilogue, (135, 240, 512) out; float (as block_conv3) and int8
         # (the same codes and sums as the plain version: one ulp or one step). up_conv2's L2
-        # level has 135 rows at 1080p, which pool_out does not take.
+        # level has 135 rows at 1080p, which pool_out does not take. The declared route first
+        # (a_sub = 1: the Hopper tiles' pooled epilogues, bf16 kEpiPool, fp32 3xTF32, int8 the
+        # wgmma s8 tile after the quantize pass), counted, with a "block_conv3_pool_split" line
+        # (its launches by kernel name, which must be that tile's) and a planted fault (the
+        # plain version's pool window one conv pixel to the right) that must break its check;
+        # then the dense route (a_sub = 0, the older tiles), logged beside it.
         hb, wb = 270, 480
         w_nat = rng.randn(3, 3, 32, 128).astype(np.float32) * 0.05
         w = t(w_s2d_s1_ps(w_nat))
         x = t(rng.rand(hb, wb, 128) * 1.2 - 0.1)
         b = f32(rng.randn(512) * 0.1)
-        y = fused_block_conv3(x, w, b, relu=True, pool_out=True)
-        y_r = fused_block_conv3_ref(x, w, b, relu=True, pool_out=True)
-        if tuple(y.shape) != (hb // 2, wb // 2, 512):
-            raise AssertionError(f"block_conv3 pool_out output {tuple(y.shape)}")
-        ms = time_ms(lambda: fused_block_conv3(x, w, b, relu=True, pool_out=True), torch)
-        plain = time_ms(lambda: fused_block_conv3_ref(x, w, b, relu=True, pool_out=True), torch)
-        x_nchw = x[None].permute(0, 3, 1, 2)
-        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        b_lib = b.to(dt)
-        lib = time_ms(lambda: F.max_pool2d(F.relu(F.conv2d(x_nchw, w_oihw, b_lib, padding=1)), 2), torch)
-        record("block_conv3_pool", dtype, "L1 up_conv3 shape + 2x2 max pool", {f"forms_{dtype}": 1}, y, y_r,
-               ATOL if dtype == "f32" else 1, ms, plain, lib, nbytes_of(x, w, b, y), 2 * conv_macs(w, hb, wb, 1),
-               unit)
         wq, ws = quantize_weight(w_nat)
         tq, tsc = w_s2d_s1_ps(wq), np.tile(w_ps_permute(ws.reshape(1, 1, 1, -1))[0, 0, 0], 4)
         qa = pack_qargs(tq, tsc, 1.1 / 127.0, None, (rng.randn(512) * 0.1).astype(np.float32), dev)
         wq_f = t(tq.astype(np.float32) * tsc)
-        y = fused_block_conv3(x, wq_f, b, relu=True, qargs=qa, pool_out=True)
-        y_r = fused_block_conv3_q_ref(x, qa, relu=True, pool_out=True)
-        ms = time_ms(lambda: fused_block_conv3(x, wq_f, b, relu=True, qargs=qa, pool_out=True), torch)
-        plain = time_ms(lambda: fused_block_conv3_q_ref(x, qa, relu=True, pool_out=True), torch)
-        tol = float(np.spacing(np.float32(max(1.0, float(y_r.float().abs().max()))))) if dtype == "f32" else 1
-        record("block_conv3_pool_w8a8", dtype, "L1 up_conv3 shape + 2x2 max pool, int8", {f"forms_{dtype}": 1},
-               y, y_r, tol, ms, plain, None, nbytes_of(x, y) + qbytes(qa), 2 * conv_macs(wq_f, hb, wb, 1),
-               "abs" if dtype == "f32" else "steps", rate="int8")
-        del x, y, y_r, w, wq_f, x_nchw, w_oihw
+        x_nchw = x[None].permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b_lib = b.to(dt)
+        lib = time_ms(lambda: F.max_pool2d(F.relu(F.conv2d(x_nchw, w_oihw, b_lib, padding=1)), 2), torch)
+        pool_tile = {"f32": "conv3x3_tf32x3_kernel", "bf16": "conv3x3_sm90_kernel"}[dtype]
+        for int8 in (False, True):
+            kernel = "block_conv3_pool_w8a8" if int8 else "block_conv3_pool"
+            kw = {"relu": True, "qargs": qa} if int8 else {"relu": True}
+            wt = wq_f if int8 else w
+            if int8:
+                y_r = fused_block_conv3_q_ref(x, qa, relu=True, pool_out=True)
+                plain = time_ms(lambda: fused_block_conv3_q_ref(x, qa, relu=True, pool_out=True), torch)
+                full = fused_block_conv3_q_ref(x, qa, relu=True)
+            else:
+                y_r = fused_block_conv3_ref(x, w, b, relu=True, pool_out=True)
+                plain = time_ms(lambda: fused_block_conv3_ref(x, w, b, relu=True, pool_out=True), torch)
+                full = fused_block_conv3_ref(x, w, b, relu=True)
+            # the planted fault: each pooled pixel's window one conv pixel to the right
+            y_bad = torch.roll(full, -1, dims=1).reshape(hb // 2, 2, wb // 2, 2, 512).amax(dim=(1, 3))
+            del full
+            if int8:
+                tol = float(np.spacing(np.float32(max(1.0, float(y_r.float().abs().max()))))) if dtype == "f32" else 1
+                unit_ = "abs" if dtype == "f32" else "steps"
+            else:
+                tol, unit_ = ATOL if dtype == "f32" else 1, unit
+            for a_sub in (1, 0):
+                def call(a_sub=a_sub, kw=kw, wt=wt):
+                    return fused_block_conv3(x, wt, b, pool_out=True, a_sub=a_sub, **kw)
+
+                y = call()
+                if tuple(y.shape) != (hb // 2, wb // 2, 512):
+                    raise AssertionError(f"{kernel} output {tuple(y.shape)}")
+                ms = time_ms(call, torch)
+                if a_sub:
+                    split = launch_split(call, torch, QCONV_PARTS if int8 else (("conv_ms", "conv3x3"),))
+                    tile = "conv3x3_s8_sm90_kernel" if int8 else pool_tile
+                    log(json.dumps({"block_conv3_pool_split": {"dtype": dtype, "int8": int8, "a_sub": a_sub,
+                                                               "ms": round(ms, 4), **split}}))
+                    if not any(k.startswith(tile) for k in split["kernels"]):
+                        raise AssertionError(f"{kernel} {dtype} a_sub=1 did not launch {tile}: {split['kernels']}")
+                    planted(kernel, dtype, "pool window one conv pixel right", y, y_bad, tol, unit_)
+                record(kernel, dtype, f"L1 up_conv3 shape + 2x2 max pool{', int8' if int8 else ''} a_sub={a_sub}",
+                       {f"forms_{dtype}": 1} if a_sub else {}, y, y_r, tol, ms, plain, None if int8 else lib,
+                       nbytes_of(x, y) + qbytes(qa) if int8 else nbytes_of(x, w, b, y),
+                       2 * conv_macs(wt, hb, wb, 1), unit_,
+                       rate="int8" if int8 else "tf32x3" if dtype == "f32" and a_sub else None)
+                del y
+            del y_r, y_bad
+        del x, w, wq_f, x_nchw, w_oihw
 
         # cond_chain_w8a8: c0 (540, 960, 256) -> 256 x4 -> 64, steps 0 and 4 int8 symmetric,
-        # step 2 int8 with a zero point, each calibrated on the float chain's value there.
+        # step 2 int8 with a zero point, each calibrated on the float chain's value there; s2d
+        # weights and biases. In bf16 the declared route first (s2d=True: the row tile's int8
+        # instance), counted, with a "cond_chain_w8a8_split" line and a planted fault (step 2's
+        # zero-point correction dropped from its folded bias) that must break its check, then
+        # the dense chain (s2d=False), logged beside it; fp32 runs the dense chain.
         hb, wb = 540, 960
         c0 = t(rng.rand(hb, wb, 256) - 0.3)
         nat = [quantize_weight(rng.randn(1, 1, 64, n).astype(np.float32) * 0.15) for n in (64, 64, 64, 64, 16)]
         tqs = [w_s2d_1x1(q) for q, _ in nat]
         tscs = [b_s2d(sc) for _, sc in nat]
-        bnps = [(rng.randn(q.shape[-1]) * 0.1).astype(np.float32) for q in tqs]
+        bnps = [b_s2d((rng.randn(q.shape[-1] // 4) * 0.1).astype(np.float32)) for q in tqs]
         weights = [(t(q[0, 0].astype(np.float32) * sc), f32(bb)) for q, sc, bb in zip(tqs, tscs, bnps)]
         v, ranges = c0.float(), []
         for i, (w_, b_) in enumerate(weights):
@@ -1586,18 +1648,34 @@ def phase_kernels(torch, np) -> dict:
             lo, hi = ranges[i]
             sc, z = ((hi - lo) / 255.0, lo) if flag == 2 else (max(abs(lo), abs(hi)) / 127.0, None)
             qargs.append(pack_qargs(tqs[i], tscs[i], sc, z, bnps[i], dev) if flag else None)
-        y = fused_cond_chain(c0, weights, qargs=qargs)
-        y_r = fused_cond_chain_ref(c0, weights, qargs)
-        ms = time_ms(lambda: fused_cond_chain(c0, weights, qargs=qargs), torch)
-        plain = time_ms(lambda: fused_cond_chain_ref(c0, weights, qargs), torch)
-        npix = hb * wb
-        flops = 2 * npix * nnz(*[w_ for w_, _ in weights])
-        record("cond_chain_w8a8", dtype, "L0 c0 -> c, cond1, steps 0/2/4 int8", {f"forms_{dtype}": 1},
-               joined(y), joined(y_r), flip_tol(qargs[4], 4), ms, plain, None,
-               nbytes_of(c0, *y) + sum(nbytes_of(w_, b_) for (w_, b_), q in zip(weights, qargs) if q is None)
-               + qbytes(*[q for q in qargs if q is not None]), flops, "flips", share=COND_CHAIN_INT8_SHARE,
-               rate="int8")
-        del c0, y, y_r, weights
+        flops = 2 * hb * wb * nnz(*[w_ for w_, _ in weights])
+        wbytes = (sum(nbytes_of(w_, b_) for (w_, b_), q in zip(weights, qargs) if q is None)
+                  + qbytes(*[q for q in qargs if q is not None]))
+        for s2d in (True, False) if dtype == "bf16" else (False,):
+            def call(s2d=s2d):
+                return fused_cond_chain(c0, weights, qargs=qargs, s2d=s2d)
+
+            y = call()
+            y_r = fused_cond_chain_ref(c0, weights, qargs, s2d=s2d)
+            ms = time_ms(call, torch)
+            plain = time_ms(lambda: fused_cond_chain_ref(c0, weights, qargs, s2d=s2d), torch)
+            if s2d:
+                split = launch_split(call, torch, (("chain_ms", "chain"),))
+                log(json.dumps({"cond_chain_w8a8_split": {"dtype": dtype, "s2d": s2d, "ms": round(ms, 4), **split}}))
+                if not any(k.startswith("cond_chain_sm90_kernel") for k in split["kernels"]):
+                    raise AssertionError(f"cond_chain_w8a8 s2d did not launch the row tile: {split['kernels']}")
+                unfolded = dataclasses.replace(qargs[2], bias=f32(bnps[2]))
+                y_bad = fused_cond_chain_ref(c0, weights, [*qargs[:2], unfolded, *qargs[3:]], s2d=True)
+                planted("cond_chain_w8a8", dtype, "step 2's zero-point correction dropped", joined(y),
+                        joined(y_bad), flip_tol(qargs[4], 4), "flips", COND_CHAIN_INT8_SHARE)
+                del y_bad
+            record("cond_chain_w8a8", dtype, f"L0 c0 -> c, cond1, steps 0/2/4 int8 s2d={s2d}",
+                   {f"forms_{dtype}": 1} if s2d or dtype == "f32" else {}, joined(y), joined(y_r),
+                   flip_tol(qargs[4], 4), ms, plain, None, nbytes_of(c0, *y) + wbytes, flops, "flips",
+                   share=COND_CHAIN_INT8_SHARE,
+                   rate="int8")
+            del y, y_r
+        del c0, weights
 
     # The two layout probes, bf16 only (as the Pallas probes). d2s_add at the probe's own
     # shape (logged, not counted) and at the 1080p shape where the tail un-folds up_coarse
@@ -2211,9 +2289,11 @@ def phase_color(torch, np, native) -> dict:
 def phase_forms(torch, np, native) -> dict:
     """The kernel forms no frame program runs, once per element type at a
     1080p main-path shape with the counts set to 0 before and read after:
-    cond_chain's int8 steps (c0 (540, 960, 256), steps 0/2/4 int8), and
+    cond_chain's int8 steps (c0 (540, 960, 256), steps 0/2/4 int8; s2d
+    weights, declared in bf16: the row tile's int8 instance), and
     block_conv3's pool_out form, float and int8 (L1 up_conv3's (270, 480, 128)
-    -> 512); returns the counts by drive."""
+    -> 512, PS-folded, a_sub = 1: the Hopper tiles' pooled epilogues);
+    returns the counts by drive."""
     from hdrtv_tpu_torch.models.s2d import b_s2d, w_ps_permute, w_s2d_1x1, w_s2d_s1_ps
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
     from hdrtv_tpu_torch.ops.megakernel import fused_cond_chain
@@ -2231,7 +2311,7 @@ def phase_forms(torch, np, native) -> dict:
         for i, n in enumerate((64, 64, 64, 64, 16)):
             wq, ws = quantize_weight(rng.randn(1, 1, 64, n).astype(np.float32) * 0.15)
             tq, tsc = w_s2d_1x1(wq), b_s2d(ws)
-            bnp = (rng.randn(4 * n) * 0.1).astype(np.float32)
+            bnp = b_s2d((rng.randn(n) * 0.1).astype(np.float32))
             steps.append((torch.as_tensor(tq[0, 0].astype(np.float32) * tsc, device=dev).to(dt),
                           torch.as_tensor(bnp, device=dev)))
             qargs.append(pack_qargs(tq, tsc, 2.0 / 127.0, -0.3 if i == 2 else None, bnp, dev) if i % 2 == 0 else None)
@@ -2244,9 +2324,9 @@ def phase_forms(torch, np, native) -> dict:
         qa = pack_qargs(tq, tsc, 1.1 / 127.0, None, bnp, dev)
         torch.cuda.synchronize()
         native.reset_launch_counts()
-        c, cond1 = fused_cond_chain(c0, steps, qargs=qargs)
-        pooled = fused_block_conv3(x, w, b, relu=True, pool_out=True)
-        pooled_q = fused_block_conv3(x, w, b, relu=True, qargs=qa, pool_out=True)
+        c, cond1 = fused_cond_chain(c0, steps, qargs=qargs, s2d=dtype == "bf16")
+        pooled = fused_block_conv3(x, w, b, relu=True, pool_out=True, a_sub=1)
+        pooled_q = fused_block_conv3(x, w, b, relu=True, qargs=qa, pool_out=True, a_sub=1)
         torch.cuda.synchronize()
         counts[path] = read_counts(native)
         shapes = [tuple(o.shape) for o in (c, cond1, pooled, pooled_q)]

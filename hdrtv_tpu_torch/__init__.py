@@ -8,9 +8,10 @@ order. The Pallas kernels of the path this package covers are rewritten by
 hand as CUDA C++ for ``sm_90a`` under ``csrc/``; everything the JAX package
 leaves to XLA stays plain torch.
 
-Covered: ROADMAP.md slices 1 to 7 (``runtime/processor.py`` says which
-programs; the rest raises ``NotImplementedError`` naming its slice).
-Importing this package imports neither ``jax`` nor ``hdrtv_tpu``.
+Covered: every module of ``hdrtv_tpu`` has its counterpart here
+(``runtime/processor.py`` says which program runs a frame), and all 14
+Pallas kernels have theirs under ``csrc/``. Importing this package imports
+neither ``jax`` nor ``hdrtv_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -20,10 +20,8 @@
 // TMA boxes in fp32, products split into big·big + small·big + big·small on
 // the tensor cores. Bound on this card: operations (171 GFLOP of non-zero
 // products a 1080p frame, ×3 at the 494.7 TFLOP/s TF32 rate, 1.04 ms). The
-// dense fp32 product (a_sub = 0) and the pool_out form run the
-// implicit-GEMM tile of conv3x3.cuh (128 pixels × 128 channels per block,
-// fp32 FMA), the bf16 pool_out form the tensor-core tile
-// conv3x3_mma_kernel (ROADMAP "Left").
+// dense fp32 product (a_sub = 0) runs the implicit-GEMM tile of conv3x3.cuh
+// (128 pixels × 128 channels per block, fp32 FMA).
 //
 // The native-int8 (W8A8) body of the same Pallas kernel (`quant`,
 // conv_kernels.py:180-227; the wrapper counts it as block_conv3_w8a8), when
@@ -49,16 +47,74 @@
 // later work.
 //
 // The pool_out form (conv_kernels.py:259-266, :342-346; counted as
-// block_conv3_pool): the 2×2 max pool of the result, after the ReLU, taken
-// in the epilogue of whichever tile runs (fp32 FMA, bf16 mma.sync, int8
-// mma.sync), so the full-resolution output (4× the pooled bytes) never
-// reaches device memory: y is (H/2, W/2, Co). The tiles walk pooled pixels
-// in this mode (conv3x3.cuh): the four conv pixels of a pooled one sit in
-// one thread's registers (FMA) or in four lanes of one warp (MMA), and the
-// max is a register or shuffle reduction. H and W must be even.
+// block_conv3_pool, with q block_conv3_pool_w8a8): the 2×2 max pool of the
+// result, after the ReLU, taken in the epilogue of the tile that runs, so
+// the full-resolution output (4× the pooled bytes) never reaches device
+// memory: y is (H/2, W/2, Co), H and W even. With a_sub ≥ 1 the call walks
+// the unpooled call's table on the same Hopper tile, in a pooled instance
+// of its epilogue (the launchers below): bf16 conv3x3_sm90.cuh's kEpiPool,
+// fp32 the 3×TF32 tile's POOL, int8 (a_sub = 1, C = 128, either type) the
+// wgmma s8 tile's POOL after the quantize pass. A tile row is 64 conv
+// pixels, so a pooled pixel's two columns sit in lanes l and l ^ 4 of one
+// warp (one shuffle), and its two rows in one thread (the bf16 tile's BN =
+// 32 instance), or in the two warpgroups, which exchange half their
+// channels through the stage of the tile's last chunk (bf16, 3×TF32), or
+// in the s8 tile's two staged output rows, which the block maxes before one
+// TMA store of the pooled row. Bound on this card at L1 up_conv3's shape
+// (270 × 480 × 128 → 512, 38 GFLOP of non-zero products): bf16 operations
+// (0.039 ms at the bf16 rate, 68 MB), fp32 operations at the tile's rate
+// (×3 at 494.7 TFLOP/s, 0.23 ms; 0.57 at the FMA rate), int8 bytes (0.020
+// ms bf16, 0.040 fp32). The dense product (a_sub = 0) keeps the old tiles,
+// which walk pooled pixels (conv3x3.cuh): the four conv pixels of a pooled
+// one in one thread's registers (fp32 FMA) or in four lanes of one warp
+// (bf16 and int8 mma.sync). Times: PERF.md §6.
 #include "conv3x3_s8.cuh"
 #include "conv3x3_s8_sm90.cuh"
 #include "conv3x3_tf32x3.cuh"
+
+namespace hdrtv {
+namespace {
+
+// block_conv3's bf16 pool_out form (stride 1; arguments as conv3x3_sm90,
+// the input pitch C): the kEpiPool instance at the N tile and weights'
+// place the unpooled call takes, y (H/2, W/2, Co); H and W even.
+inline cudaError_t conv3x3_sm90_pool(const void* x, const void* w, const float* b, const void* skip, void* y,
+                                     int H, int W, int C, int Co, int act, int a_sub, const int* table,
+                                     int per_list, cudaStream_t stream) {
+  Sm90Args<bf16> a;
+  const cudaError_t err = sm90_setup(a, w, b, skip, y, H, W, 1, C, 0, C, Co, act, a_sub, table, per_list);
+  if (err != cudaSuccess) return err;
+  return launch_sm90_fit<1, kEpiPool>(a, x, H, W, C, stream);
+}
+
+// block_conv3's fp32 pool_out form (stride 1; arguments as conv3x3_tf32x3,
+// the input pitch C): the POOL instance at the N tile the unpooled call
+// takes, y (H/2, W/2, Co); H and W even.
+inline cudaError_t conv3x3_tf32x3_pool(const void* x, const void* w, const float* b, const void* skip, void* y,
+                                       int H, int W, int C, int Co, int act, int a_sub, const int* table,
+                                       int per_list, cudaStream_t stream) {
+  Sm90Args<float> a;
+  const cudaError_t err = sm90_setup(a, w, b, skip, y, H, W, 1, C, 0, C, Co, act, a_sub, table, per_list);
+  if (err != cudaSuccess) return err;
+  if (per_list > kTf32MaxList) return cudaErrorInvalidValue;
+  return launch_tf32x3_fit<1, true>(a, x, H, W, C, stream);
+}
+
+// block_conv3_w8a8's pool_out form: as conv3x3_s8_sm90, then the 2×2 max
+// pool of the result in the epilogue (the POOL instance, its skip read
+// there), y (H/2, W/2, Co); H and W even.
+inline cudaError_t conv3x3_s8_sm90_pool(const void* q, const QuantParams& p, const void* skip, void* y, int H,
+                                        int W, int C, int Co, int act, const int* table, int per_list,
+                                        cudaStream_t stream, bool f32_out) {
+  S8Sm90Args a;
+  const cudaError_t err =
+      s8_sm90_setup<1>(a, q, 0, &p, 1, skip, y, H, W, C, Co, 1, act, table, per_list, f32_out, true);
+  if (err != cudaSuccess) return err;
+  return f32_out ? launch_s8_sm90<1, false, true, true>(a, stream) : launch_s8_sm90<1, false, false, true>(a, stream);
+}
+
+}  // namespace
+}  // namespace hdrtv
 
 namespace {
 
@@ -69,21 +125,24 @@ int block_conv3(const void* x, const void* w, const void* b, const hdrtv::QuantP
   if (pool && (H % 2 || W % 2)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (table) {
-    if (pool) return static_cast<int>(cudaErrorInvalidValue);
     const int act = relu ? hdrtv::ACT_RELU : hdrtv::ACT_NONE;
+    constexpr bool f32 = std::is_same<T, float>::value;
     if (q) {
       cudaError_t err = hdrtv::quantize<T>(x, codes, static_cast<long long>(H) * W * C, *q, s);
       if (err == cudaSuccess)
-        err = hdrtv::conv3x3_s8_sm90(codes, *q, skip, y, H, W, C, Co, act, table, per_list, s, nullptr,
-                                     std::is_same<T, float>::value);
+        err = pool ? hdrtv::conv3x3_s8_sm90_pool(codes, *q, skip, y, H, W, C, Co, act, table, per_list, s, f32)
+                   : hdrtv::conv3x3_s8_sm90(codes, *q, skip, y, H, W, C, Co, act, table, per_list, s, nullptr, f32);
       return static_cast<int>(err);
     }
-    if constexpr (std::is_same<T, hdrtv::bf16>::value)
-      return static_cast<int>(hdrtv::conv3x3_sm90<1>(x, w, static_cast<const float*>(b), skip, y, H, W, C, 0, C,
-                                                     Co, act, a_sub, table, per_list, s));
+    const float* bf = static_cast<const float*>(b);
+    if constexpr (f32)
+      return static_cast<int>(
+          pool ? hdrtv::conv3x3_tf32x3_pool(x, w, bf, skip, y, H, W, C, Co, act, a_sub, table, per_list, s)
+               : hdrtv::conv3x3_tf32x3<1>(x, w, bf, skip, y, H, W, C, 0, C, Co, act, a_sub, table, per_list, s));
     else
-      return static_cast<int>(hdrtv::conv3x3_tf32x3<1>(x, w, static_cast<const float*>(b), skip, y, H, W, C, 0,
-                                                       C, Co, act, a_sub, table, per_list, s));
+      return static_cast<int>(
+          pool ? hdrtv::conv3x3_sm90_pool(x, w, bf, skip, y, H, W, C, Co, act, a_sub, table, per_list, s)
+               : hdrtv::conv3x3_sm90<1>(x, w, bf, skip, y, H, W, C, 0, C, Co, act, a_sub, table, per_list, s));
   }
   cudaError_t err = cudaSuccess;
   if (q) err = hdrtv::quantize<T>(x, codes, static_cast<long long>(H) * W * C, *q, s);
@@ -97,10 +156,10 @@ int block_conv3(const void* x, const void* w, const void* b, const hdrtv::QuantP
 
 // q: null for the float form, else the layer's int8 parameters (w and b
 // unused; codes: H·W·C bytes of scratch, unused without q). pool: 1 for the
-// pool_out form, y (H/2, W/2, Co). table: null, or (without pool only) the
-// chunk lists of conv3x3_sm90.cuh for a_sub, per_list entries each, which
-// send the call to the Hopper tile (bf16) or its 3×TF32 sibling (fp32), or
-// with q (a_sub = 1, either type) to the wgmma s8 tile.
+// pool_out form, y (H/2, W/2, Co). table: null, or the chunk lists of
+// conv3x3_sm90.cuh for a_sub, per_list entries each, which send the call
+// (pooled or not) to the Hopper tile (bf16) or its 3×TF32 sibling (fp32),
+// or with q (a_sub = 1, either type) to the wgmma s8 tile.
 extern "C" int hdrtv_block_conv3_f32(const void* x, const void* w, const void* b, const void* q,
                                      const void* skip, void* y, void* codes, int H, int W, int C,
                                      int Co, int relu, int pool, int a_sub, const int* table,

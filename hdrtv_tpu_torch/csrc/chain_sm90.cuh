@@ -1,7 +1,9 @@
 // 1×1 chains over the rows of an s2d tensor, written for Hopper (sm_90a):
 // bf16 × bf16 → fp32 on wgmma with A in registers, the block-diagonal s2d
 // weights reduced to their one diagonal block and kept in shared memory.
-// It runs the bf16 float forms of cond_chain (cond_chain_sm90), of
+// It runs the bf16 forms of cond_chain (cond_chain_sm90_kernel, launched
+// from cond_chain.cu; its int8 steps, cond_chain_w8a8, in the Q instance:
+// s8 wgmma on codes made in registers), of
 // mix_chain, the CondNet2 tail (mix_chain_sm90, on a channel window read in
 // place), and the SFT passes (sft_sm90) of the tail, sft_conv3 and resblock,
 // and in its int8-output mode those of tail_w8a8, sft_conv3_w8a8 and
@@ -173,11 +175,6 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&r);
-}
-
 // Rows k < K, columns [0, n) of src (row pitch ld elements) into columns
 // [n0, n0 + n) of a K × N operand in wgmma's MN-major layout without
 // swizzle: 16-byte row (k/8)·N + col + k%8 holds columns col .. col + 7 of
@@ -239,35 +236,138 @@ struct ChainSm90Args {
   long long rows;
   long long cf;    // channels from one pixel of x to the next
   int ch0;         // the window's first channel
+  // cond_chain's int8 steps (the Q instance): step s is int8 where qw[s] is
+  // set, its QArgs codes (4·N, 4·K), whose N × K block at the top left is
+  // read at row pitch qld = 4·K, with the first N of its yscale ys and
+  // folded bias qb, and its input's quantization qs, qz, qa (qinv: 1/qs
+  // rounded to nearest, the host's division).
+  const int8_t* qw[5] = {};
+  const float* ys[5] = {};
+  const float* qb[5] = {};
+  float qs[5] = {}, qinv[5] = {}, qz[5] = {};
+  int qa[5] = {};
+  int qld[5] = {};
+#ifdef HDRTV_SM90_PHASES
+  unsigned long long* phases = nullptr;  // tools/sm90_phases.py: 8 clock64() sums per warpgroup
+#endif
 };
 
-template <int K, int NL, int HID>
+// The launch's shared memory. Q (cond_chain's int8 steps): laid out from a
+// 1024-byte boundary (the int8 operands' swizzles), a step's weight slot
+// holding its bf16 block or its int8 one, the int8 steps' yscales beside the
+// biases, each warpgroup's code tile (64 rows of K codes), and two ring
+// stages a warpgroup so that two blocks still fit an SM.
+template <int K, int NL, int HID, bool Q = false>
 struct ChainSm90Cfg {
-  static constexpr int NS = 3;                            // ring stages per warpgroup
+  static constexpr int NS = Q ? 2 : 3;                    // ring stages per warpgroup
   static constexpr int W_BYTES = (HID * K * K + K * NL) * 2;
   static constexpr int BIAS_BYTES = (HID * K + NL) * 4;
   static constexpr int PITCH = (K + 8) * 2;               // a staged row of x or mid: 16 bytes of pad
   static constexpr int YPITCH = (NL + 8) * 2;             // a staged row of y
   static constexpr int STAGE = kRowBM * (PITCH + YPITCH);
-  static constexpr int SMEM = W_BYTES + BIAS_BYTES + 2 * NS * STAGE;
+  static constexpr int CODE = kRowBM * K;                 // Q: a warpgroup's code tile
+  static constexpr int CODE_OFF = Q ? (W_BYTES + 2 * BIAS_BYTES + 1023) / 1024 * 1024 : 0;
+  static constexpr int RING_OFF = Q ? CODE_OFF + 2 * CODE : W_BYTES + BIAS_BYTES;
+  static constexpr int SMEM = RING_OFF + 2 * NS * STAGE + (Q ? 1024 : 0);
   static_assert(K % 16 == 0 && NL % 16 == 0 && K <= 64 && NL <= 64, "widths of the register tile");
   static_assert(W_BYTES % 16 == 0 && BIAS_BYTES % 16 == 0 && STAGE % 16 == 0, "16-byte alignment");
+  static_assert(!Q || K == 64, "int8 steps: code rows of 64 bytes, one 64-byte swizzle span");
+  static_assert(2 * (SMEM + 1024) <= 228 * 1024, "two blocks per SM");
 };
 
-template <int K, int NL, int HID, bool MID>
+// Rows n < N of an int8 weight block (K codes each, row pitch ld bytes) into
+// K/32 chunks of wgmma's K-major operand: chunk kk, row n's 16-byte half hk
+// at kk·N·32 + n·32 + (hk ^ bit 2 of n)·16 (the 32-byte swizzle, as the s8
+// conv tile keeps its weights). Every thread of the block takes part.
+__device__ __forceinline__ void stage_b_s8(unsigned char* dst, int N, const int8_t* src, int ld, int K) {
+  const int pieces = K / 16;
+  for (int idx = threadIdx.x; idx < N * pieces; idx += blockDim.x) {
+    const int n = idx / pieces, pc = idx - n * pieces, kk = pc >> 1, hk = pc & 1;
+    *reinterpret_cast<uint4*>(dst + kk * N * 32 + n * 32 + ((hk ^ (n >> 2)) & 1) * 16) =
+        *reinterpret_cast<const uint4*>(src + static_cast<long long>(n) * ld + pc * 16);
+  }
+}
+
+// The codes of the pair (v0, v1), an int8 step's fp32 input at row r,
+// columns c and c + 1, in a code tile of 64-byte rows in the 64-byte swizzle
+// the wgmma reads (16-byte piece p of row r at p ^ (r/2 % 4)): step s's
+// quantize_code, bit for bit, by quantize_code_rcp (its IEEE division only
+// near a half-integer). Where the row tile's int8 form spends its time
+// (tools/sm90_phases.py --only chain): two variants measured slower on an
+// H100, rounding by adding 1.5·2^23 in place of rintf and the conversion
+// (+5%), and the division moved after a warp vote (+30%).
+__device__ __forceinline__ void put_codes(unsigned char* codes, int r, int c, float v0, float v1,
+                                          const ChainSm90Args& a, int s) {
+  const unsigned pair = (quantize_code_rcp(v0, a.qs[s], a.qinv[s], a.qz[s], a.qa[s]) & 0xff) |
+                        (quantize_code_rcp(v1, a.qs[s], a.qinv[s], a.qz[s], a.qa[s]) & 0xff) << 8;
+  *reinterpret_cast<unsigned short*>(codes + r * 64 + (((c >> 4) ^ ((r >> 1) & 3)) << 4) + (c & 15)) =
+      static_cast<unsigned short>(pair);
+}
+
+// An int8 step of N outputs over the warpgroup's code tile (at shared
+// address `code`; every thread has written its codes) and the step's
+// staged int8 block (at `wb`): the exact int32 sums on wgmma m64nNk32, then
+// float(acc)·yscale and + the folded bias rounded apart, into d in the
+// accumulator layout of a float step.
+template <int N, int K>
+__device__ __forceinline__ void chain_step_s8(float (&d)[N / 2], unsigned code, unsigned wb, const float* ys,
+                                              const float* qb, int wg, int q) {
+  // the codes, written by the generic proxy, are read by wgmma's async proxy: everyone's
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  warpgroup_sync(wg);
+  int acc[N / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < K / 32; ++kk)
+    WgmmaS8<N>::mma(acc, desc_kmajor(code + kk * 32, 1), desc_kmajor(wb + kk * N * 32, 0), kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_iregs(acc);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 y2 = *reinterpret_cast<const float2*>(ys + 8 * j + 2 * q);
+    const float2 b2 = *reinterpret_cast<const float2*>(qb + 8 * j + 2 * q);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      d[4 * j + 2 * h] = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), y2.x), b2.x);
+      d[4 * j + 2 * h + 1] = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), y2.y), b2.y);
+    }
+  }
+}
+
+// Q: any step may be int8 (ChainSm90Args qw). A float step is as above; an
+// int8 step's input, the fp32 value of the step before (or c0's staged rows
+// for the first), is quantized by each thread in registers into the
+// warpgroup's code tile in place of the next A fragments, then chain_step_s8
+// multiplies it by the step's int8 block and rescales; its output is handed
+// on as a float step's. The rows the middle output is staged in and the
+// store are the float form's.
+template <int K, int NL, int HID, bool MID, bool Q = false>
 __device__ __forceinline__ void chain_rows_sm90(const ChainSm90Args& a) {
-  using Cfg = ChainSm90Cfg<K, NL, HID>;
+  using Cfg = ChainSm90Cfg<K, NL, HID, Q>;
   constexpr int NS = Cfg::NS, KC = K / 16;
   extern __shared__ __align__(16) unsigned char row_smem[];
-  unsigned char* const smem = row_smem;
+  unsigned char* const smem =
+      Q ? row_smem + ((1024u - (static_cast<unsigned>(__cvta_generic_to_shared(row_smem)) & 1023u)) & 1023u)
+        : row_smem;
   float* const bias = reinterpret_cast<float*>(smem + Cfg::W_BYTES);
+  float* const ysc = bias + HID * K + NL;  // Q: the int8 steps' yscales
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31, q = lane & 3;
-  unsigned char* const ring = smem + Cfg::W_BYTES + Cfg::BIAS_BYTES + wg * NS * Cfg::STAGE;
+  unsigned char* const ring = smem + Cfg::RING_OFF + wg * NS * Cfg::STAGE;
+  unsigned char* const codes = smem + Cfg::CODE_OFF + wg * Cfg::CODE;  // Q: this warpgroup's code tile
 
   for (int s = 0; s <= HID; ++s) {
     const int n = s < HID ? K : NL;
-    stage_b(smem + s * K * K * 2, n, 0, a.w[s], a.ld[s], K, n);
-    for (int i = tid; i < n; i += kRowThreads) bias[s * K + i] = a.b[s][i];
+    if (Q && a.qw[s]) {
+      stage_b_s8(smem + s * K * K * 2, n, a.qw[s], a.qld[s], K);
+      for (int i = tid; i < n; i += kRowThreads) {
+        bias[s * K + i] = a.qb[s][i];
+        ysc[s * K + i] = a.ys[s][i];
+      }
+    } else {
+      stage_b(smem + s * K * K * 2, n, 0, a.w[s], a.ld[s], K, n);
+      for (int i = tid; i < n; i += kRowThreads) bias[s * K + i] = a.b[s][i];
+    }
   }
   // the weights, written by the generic proxy, are read by wgmma's async proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -293,56 +393,106 @@ __device__ __forceinline__ void chain_rows_sm90(const ChainSm90Args& a) {
   }
 
   const unsigned wbase = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const unsigned cbase = static_cast<unsigned>(__cvta_generic_to_shared(codes));
   const int rl = warp * 16 + (lane >> 2);  // this thread's rows in the tile: rl, rl + 8
+#ifdef HDRTV_SM90_PHASES
+  // Cycles per phase of a tile (the wait for its rows, the float steps'
+  // products, the int8 steps' meeting, products and rescale, the hand-off of
+  // each step's values: activation and rounding or quantizing, the last
+  // step's epilogue and the stores), summed by each warpgroup's first thread.
+  unsigned long long t_start = clock64(), t_phase[8] = {0, 0, 0, 0, 0, 0, 0, 0}, t_mark = 0;
+#define PHASE(i) (t_phase[i] += clock64() - t_mark, t_mark = clock64());
+#else
+#define PHASE(i)
+#endif
   for (int i = 0; i < tiles.n; ++i) {
+#ifdef HDRTV_SM90_PHASES
+    t_mark = clock64();
+#endif
     // tile i's rows arrived (this thread's copies, then everyone's); everyone
     // is done with tile i − 1's stage, which tile i + NS − 1 refills
     cp_async_wait<NS - 2>();
     warpgroup_sync(wg);
     if (i + NS - 1 < tiles.n) load(i + NS - 1);
     cp_async_commit();
+    PHASE(1)
 
     unsigned char* const st = ring + (i % NS) * Cfg::STAGE;
     unsigned char* const yst = st + kRowBM * Cfg::PITCH;
     unsigned af[KC][4];
+    if (Q && a.qw[0]) {
+      // the first step is int8: the codes of this thread's staged c0 values
 #pragma unroll
-    for (int kk = 0; kk < KC; ++kk)
-      ldmatrix_x4(af[kk], st + (warp * 16 + (lane & 15)) * Cfg::PITCH + kk * 32 + (lane >> 4) * 16);
+      for (int j = 0; j < K / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rl + 8 * h;
+          const float2 v = load2<bf16>(reinterpret_cast<const bf16*>(st + r * Cfg::PITCH) + 8 * j + 2 * q);
+          put_codes(codes, r, 8 * j + 2 * q, v.x, v.y, a, 0);
+        }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+        ldmatrix_x4(af[kk], st + (warp * 16 + (lane & 15)) * Cfg::PITCH + kk * 32 + (lane >> 4) * 16);
+    }
+    PHASE(4)
 
     float d[K / 2];
 #pragma unroll
     for (int s = 0; s < HID; ++s) {
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) WgmmaRA<K>::mma(d, af[kk], desc_rows_b(wbase + s * K * K * 2, K, kk), kk);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(d);
-      fence_frags(af);
       const float* const bs = bias + s * K;
+      const bool sq = Q && a.qw[s];
+      if (sq) {
+        chain_step_s8<K, K>(d, cbase, wbase + s * K * K * 2, ysc + s * K, bs, wg, q);
+        PHASE(3)
+      } else {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk)
+          WgmmaRA<K>::mma(d, af[kk], desc_rows_b(wbase + s * K * K * 2, K, kk), kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(d);
+        fence_frags(af);
+        PHASE(2)
+      }
+      const bool next_q = Q && a.qw[s + 1];
 #pragma unroll
       for (int j = 0; j < K / 8; ++j) {
-        const float2 bb = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * q);
+        // an int8 step's d holds its bias already
+        const float2 bb = sq ? make_float2(0.f, 0.f) : *reinterpret_cast<const float2*>(bs + 8 * j + 2 * q);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const unsigned u = pack_bf16(apply_act(d[4 * j + 2 * h] + bb.x, ACT_LRELU),
-                                       apply_act(d[4 * j + 2 * h + 1] + bb.y, ACT_LRELU));
-          af[j / 2][2 * (j % 2) + h] = u;
+          const float v0 = apply_act(d[4 * j + 2 * h] + bb.x, ACT_LRELU);
+          const float v1 = apply_act(d[4 * j + 2 * h + 1] + bb.y, ACT_LRELU);
+          const unsigned u = pack_bf16(v0, v1);
+          if (next_q)
+            put_codes(codes, rl + 8 * h, 8 * j + 2 * q, v0, v1, a, s + 1);
+          else
+            af[j / 2][2 * (j % 2) + h] = u;
           if (MID && s == 1) *reinterpret_cast<unsigned*>(st + (rl + 8 * h) * Cfg::PITCH + (8 * j + 2 * q) * 2) = u;
         }
       }
+      PHASE(4)
     }
     float e[NL / 2];
-    wgmma_fence();
+    const bool lq = Q && a.qw[HID];
+    if (lq) {
+      chain_step_s8<NL, K>(e, cbase, wbase + HID * K * K * 2, ysc + HID * K, bias + HID * K, wg, q);
+      PHASE(3)
+    } else {
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KC; ++kk) WgmmaRA<NL>::mma(e, af[kk], desc_rows_b(wbase + HID * K * K * 2, NL, kk), kk);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(e);
-    fence_frags(af);
+      for (int kk = 0; kk < KC; ++kk) WgmmaRA<NL>::mma(e, af[kk], desc_rows_b(wbase + HID * K * K * 2, NL, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(e);
+      fence_frags(af);
+      PHASE(2)
+    }
 #pragma unroll
     for (int j = 0; j < NL / 8; ++j) {
-      const float2 bb = *reinterpret_cast<const float2*>(bias + HID * K + 8 * j + 2 * q);
+      const float2 bb = lq ? make_float2(0.f, 0.f) : *reinterpret_cast<const float2*>(bias + HID * K + 8 * j + 2 * q);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         *reinterpret_cast<unsigned*>(yst + (rl + 8 * h) * Cfg::YPITCH + (8 * j + 2 * q) * 2) =
@@ -352,13 +502,21 @@ __device__ __forceinline__ void chain_rows_sm90(const ChainSm90Args& a) {
     const long long r0 = tiles.row0(i);
     if (MID) store_rows(a.mid, st, Cfg::PITCH, K * 2, r0, a.rows, t);
     store_rows(a.y, yst, Cfg::YPITCH, NL * 2, r0, a.rows, t);
+    PHASE(5)
   }
   cp_async_wait<0>();
+#ifdef HDRTV_SM90_PHASES
+  t_phase[0] = clock64() - t_start;
+  t_phase[7] = tiles.n;
+  if (a.phases && t == 0)
+    for (int k = 0; k < 8; ++k) a.phases[(blockIdx.x * 2 + wg) * 8 + k] = t_phase[k];
+#endif
+#undef PHASE
 }
 
-template <int K, int NL>
+template <int K, int NL, bool Q>
 __global__ void __launch_bounds__(kRowThreads, 2) cond_chain_sm90_kernel(const __grid_constant__ ChainSm90Args a) {
-  chain_rows_sm90<K, NL, 4, true>(a);
+  chain_rows_sm90<K, NL, 4, true, Q>(a);
 }
 
 template <int K, int NL>
@@ -386,29 +544,45 @@ cudaError_t launch_chain_sm90(Kernel kernel, int smem, DeviceCache& cache, const
   return cudaGetLastError();
 }
 
-// cond_chain's bf16 float form over s2d weights (arguments as cond_chain.cu
-// takes them: s2d widths k, n per step, npix s2d pixels). The chain the
+// The arguments of cond_chain's bf16 form over s2d weights (as cond_chain.cu
+// takes them: s2d widths k, n per step, npix s2d pixels; q null, or five
+// pointers to the steps' QuantParams, null for a float step), the launch
+// in cond_chain.cu (tools/sm90_s8_phases.cu builds its own). The chain the
 // frame programs run, natural widths 64 → 64 ×4 → 16, is the one it takes;
-// anything else is refused.
-inline cudaError_t cond_chain_sm90(const void* c0, void* c, void* cond1, const void* const* w, const void* const* b,
-                                   const int* k, const int* n, int npix, cudaStream_t stream) {
+// anything else is refused. *quant: whether a step is int8 (then the Q
+// instance runs, each int8 block read at the top left of the QArgs codes,
+// row pitch k[s]).
+inline cudaError_t cond_chain_sm90_args(ChainSm90Args& a, const void* c0, void* c, void* cond1,
+                                        const void* const* w, const void* const* b, const int* k, const int* n,
+                                        int npix, const QuantParams* const* q, bool* quant) {
   constexpr int K = 64, NL = 16;
   for (int s = 0; s < 5; ++s)
     if (k[s] != 4 * K || n[s] != 4 * (s < 4 ? K : NL)) return cudaErrorInvalidValue;
-  ChainSm90Args a;
   a.x = static_cast<const bf16*>(c0);
   a.mid = static_cast<bf16*>(c);
   a.y = static_cast<bf16*>(cond1);
+  *quant = false;
   for (int s = 0; s < 5; ++s) {
     a.w[s] = static_cast<const bf16*>(w[s]);
     a.b[s] = static_cast<const float*>(b[s]);
     a.ld[s] = n[s];
+    const QuantParams* qp = q ? q[s] : nullptr;
+    if (qp) {
+      *quant = true;
+      a.qw[s] = qp->w;
+      a.ys[s] = qp->yscale;
+      a.qb[s] = qp->bias;
+      a.qs[s] = qp->s;
+      a.qinv[s] = 1.f / qp->s;
+      a.qz[s] = qp->z;
+      a.qa[s] = qp->asym;
+      a.qld[s] = k[s];
+    }
   }
   a.rows = 4LL * npix;
   a.cf = 4 * K;
   a.ch0 = 0;
-  static DeviceCache cache;
-  return launch_chain_sm90(cond_chain_sm90_kernel<K, NL>, ChainSm90Cfg<K, NL, 4>::SMEM, cache, a, stream);
+  return cudaSuccess;
 }
 
 // mix_chain's bf16 form over s2d weights (arguments as mix_chain.cu takes

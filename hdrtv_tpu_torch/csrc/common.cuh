@@ -48,6 +48,27 @@ __device__ __forceinline__ int quantize_code(float t, float s, float z, int asym
   return static_cast<int>(fminf(fmaxf(r, -128.f), 127.f));
 }
 
+// quantize_code(t, s, z, asym) without its division where that cannot change
+// the code. With a = t − z the code is clamp(rint(d), lo, hi) of d = a / s
+// (IEEE), lo, hi = −128, 127 (symmetric) or 0, 255 (asymmetric, then − 128).
+// y = a · inv, inv = 1/s rounded, lies within 3·2^-24·|y| of d (three
+// roundings of 2^-24 each). Take c = clamp(y, lo, hi): rint(c) is
+// clamp(rint(y)), and where y was clamped, d lies as close to the same bound
+// (its rint clamps there too). Where |c| ≤ 256 lies farther than 2^-13 from
+// every half-integer (h = 0.5 − |c − rint(c)|, exact but for 2^-25), more than
+// 3·2^-24·|y| + 2^-25, no half-integer lies between y and d and the code is
+// rint(c). Elsewhere (a band of 2^-12 around each half-integer, under 0.01%
+// of the values) it divides; a NaN t gives lo either way. The code is
+// quantize_code's bit for bit.
+__device__ __forceinline__ int quantize_code_rcp(float t, float s, float inv, float z, int asym) {
+  const float a = __fsub_rn(t, z);
+  const float lo = asym ? 0.f : -128.f, hi = asym ? 255.f : 127.f;
+  const float c = fminf(fmaxf(__fmul_rn(a, inv), lo), hi);
+  float r = rintf(c);
+  if (!(__fsub_rn(0.5f, fabsf(__fsub_rn(c, r))) > 0x1p-13f)) r = fminf(fmaxf(rintf(__fdiv_rn(a, s)), lo), hi);
+  return static_cast<int>(r) - (asym ? 128 : 0);
+}
+
 // What the wrappers pass for an int8 layer (a ctypes Structure of the same
 // layout in ops/native.py), by host pointer: null runs a kernel's float form.
 struct QuantParams {

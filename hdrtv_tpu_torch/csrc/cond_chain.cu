@@ -15,24 +15,51 @@
 // leaky ReLU (slope 0.1) are fp32.
 //
 // The s2d form (the wrapper's s2d=True: every weight w_s2d_1x1(w), every
-// bias b_s2d(b), as the frame programs' are), in bf16 with no int8 step:
-// chain_sm90.cuh's Hopper row tile, which multiplies the (4·npix, 64) rows
-// of c0 by each weight's one diagonal block on wgmma, the blocks resident in
-// shared memory, the steps chained in registers (PERF.md §6). Its fp32 and
-// int8 instances keep the dense chain below, the same function on such
-// weights.
+// bias b_s2d(b), as the frame programs' are), in bf16: chain_sm90.cuh's
+// Hopper row tile, which multiplies the (4·npix, 64) rows of c0 by each
+// weight's one diagonal block on wgmma, the blocks resident in shared
+// memory, the steps chained in registers (PERF.md §6); with int8 steps its
+// Q instance (below). Its fp32 instance keeps the dense chain below, the
+// same function on such weights.
 //
 // The int8 (W8A8) steps of the same Pallas kernel (`qargs`, `qflags`
 // :294-381; the wrapper counts a launch with any as cond_chain_w8a8): a
 // flagged step quantizes the fp32 running value per tensor (symmetric or
-// with a zero point), multiplies int8 × int8 → int32 on the tensor cores
-// (tile_gemm_s8, mma.sync.m16n8k32), then · yscale, + the folded bias and the
-// leaky ReLU (not on the last step), as chain.cuh describes: the codes are
-// made in the epilogue of the step before and never leave shared memory.
-// No frame program of the JAX package passes qargs here; bound on this card
-// as the float form (bytes: the chain's input and two outputs).
+// with a zero point), multiplies int8 × int8 → int32 on the tensor cores,
+// then · yscale, + the folded bias and the leaky ReLU (not on the last
+// step). Dense (fp32, or s2d=False): tile_gemm_s8, mma.sync.m16n8k32, as
+// chain.cuh describes: the codes are made in the epilogue of the step before
+// and never leave shared memory. s2d in bf16: the row tile's Q instance,
+// whose step before quantizes its fp32 values in registers into the
+// warpgroup's 64-row code tile, multiplied on wgmma m64nNk32 by the step's
+// int8 diagonal block, read at the top left of the QArgs codes (the skipped
+// products are zero codes: the same int32 sums). No frame program of the
+// JAX package passes qargs here; bound on this card as the float form
+// (bytes: the chain's input and two outputs, 0.178 ms at 1080p in bf16).
 #include "chain.cuh"
 #include "chain_sm90.cuh"
+
+namespace hdrtv {
+namespace {
+
+// cond_chain's bf16 form over s2d weights (arguments: cond_chain_sm90_args)
+// on the row tile of chain_sm90.cuh; with an int8 step its Q instance.
+inline cudaError_t cond_chain_sm90(const void* c0, void* c, void* cond1, const void* const* w, const void* const* b,
+                                   const int* k, const int* n, int npix, cudaStream_t stream,
+                                   const QuantParams* const* q) {
+  ChainSm90Args a;
+  bool quant = false;
+  const cudaError_t err = cond_chain_sm90_args(a, c0, c, cond1, w, b, k, n, npix, q, &quant);
+  if (err != cudaSuccess) return err;
+  static DeviceCache cache, qcache;
+  if (quant)
+    return launch_chain_sm90(cond_chain_sm90_kernel<64, 16, true>, ChainSm90Cfg<64, 16, 4, true>::SMEM, qcache, a,
+                             stream);
+  return launch_chain_sm90(cond_chain_sm90_kernel<64, 16, false>, ChainSm90Cfg<64, 16, 4>::SMEM, cache, a, stream);
+}
+
+}  // namespace
+}  // namespace hdrtv
 
 namespace {
 
@@ -40,11 +67,9 @@ template <typename T>
 int cond_chain(const void* c0, void* c, void* cond1, const void* const* w, const void* const* b,
                const int* k, const int* n, const void* const* q, int npix, int s2d, void* stream) {
   if (s2d) {
-    if constexpr (std::is_same<T, hdrtv::bf16>::value) {
-      if (!q)
-        return static_cast<int>(hdrtv::cond_chain_sm90(c0, c, cond1, w, b, k, n, npix,
-                                                       static_cast<cudaStream_t>(stream)));
-    }
+    if constexpr (std::is_same<T, hdrtv::bf16>::value)
+      return static_cast<int>(hdrtv::cond_chain_sm90(c0, c, cond1, w, b, k, n, npix, static_cast<cudaStream_t>(stream),
+                                                     reinterpret_cast<const hdrtv::QuantParams* const*>(q)));
     return static_cast<int>(cudaErrorInvalidValue);
   }
   using hdrtv::ACT_LRELU;
@@ -58,7 +83,7 @@ int cond_chain(const void* c0, void* c, void* cond1, const void* const* w, const
 // w, b: five pointers each; k, n: the five steps' input and output widths;
 // q: null (every step float) or five pointers to QuantParams, null for a
 // float step (the int8 step's w and b then unused). s2d: 1 for the s2d
-// form (bf16, q null; the row tile of chain_sm90.cuh), else 0.
+// form (bf16; the row tile of chain_sm90.cuh), else 0.
 extern "C" int hdrtv_cond_chain_f32(const void* c0, void* c, void* cond1, const void* const* w,
                                     const void* const* b, const int* k, const int* n,
                                     const void* const* q, int npix, int s2d, void* stream) {

@@ -8,7 +8,10 @@
 //   :1358) when the caller declares the weights s2d (ops/megakernel.py,
 //   s2d=True), and block_conv3_w8a8's when it declares a_sub = 1
 //   (hdrtv_tpu/ops/conv_kernels.py :180-227; ops/conv_kernels.py), in bf16
-//   and, the int8 fp32 program's twelve calls, in fp32;
+//   and, the int8 fp32 program's twelve calls, in fp32, and its pool_out
+//   form (the POOL instance: each row's column pairs maxed by a shuffle and
+//   staged, the block's max of the two staged rows, one TMA store of the
+//   pooled row; launched from block_conv3.cu);
 // - stride 2, pad (1,0), C = 256: down2_w8a8's (the Pallas _down2_kernel's
 //   `quant` body, hdrtv_tpu/ops/megakernel.py:608-705) when the caller
 //   declares a_sub ≥ 1 (1, or 3 for the consolidated CondNet down conv,
@@ -193,70 +196,35 @@ __device__ __forceinline__ void tma_load_box(const CUtensorMap* map, unsigned ds
       : "memory");
 }
 
-// A K-major operand whose rows are 32·2^kind bytes in the swizzle of that
-// span (32, 64 or 128 bytes): 8-row groups 8 rows apart (the leading offset
-// unused, 1). A k32 slice starts 32 bytes further along the row. Fields in
-// 16-byte units.
-__device__ __forceinline__ uint64_t desc_kmajor(unsigned addr, int kind) {
-  const int row = 32 << kind;
-  return static_cast<uint64_t>((addr >> 4) & 0x3fff) | (1ull << 16) | (static_cast<uint64_t>(row / 2) << 32) |
-         (static_cast<uint64_t>(3 - kind) << 62);
-}
-
-// wgmma.m64nBNk32, s8 × s8 + s32, both operands K-major from shared memory;
-// accumulate 0 starts the sum from zero.
-template <int BN>
-struct WgmmaS8;
-
-template <>
-struct WgmmaS8<32> {
-  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t da, uint64_t db, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-        : "l"(da), "l"(db), "r"(accumulate));
-  }
-};
-
-template <>
-struct WgmmaS8<64> {
-  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-        : "l"(da), "l"(db), "r"(accumulate));
-  }
-};
-
-template <int R>
-__device__ __forceinline__ void fence_iregs(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
 // Where warpgroup wg stages its output row (64 pixels × 64 or 128 bytes) in
 // the stage of a tile's last step: over its own row of that step's 128-byte
 // box (s8_sm90_plan), which only its wgmmas read.
 __device__ __forceinline__ int s8_stage_out(int wg) { return wg * kSm90TW * 128; }
 
-template <int S, bool SKIP, bool F32OUT>
+// bf16x2 or fp32 pairs: the larger of each, in place (the pooled epilogue's row max; exact).
+template <bool F32>
+__device__ __forceinline__ uint4 max16(uint4 x, uint4 y) {
+  unsigned a[4] = {x.x, x.y, x.z, x.w};
+  const unsigned b[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (F32) {
+      a[i] = __float_as_uint(fmaxf(__uint_as_float(a[i]), __uint_as_float(b[i])));
+    } else {
+      const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[i]));
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b[i]));
+      a[i] = pack_bf16(fmaxf(u.x, v.x), fmaxf(u.y, v.y));
+    }
+  }
+  return make_uint4(a[0], a[1], a[2], a[3]);
+}
+
+template <int S, bool SKIP, bool F32OUT, bool POOL = false>
 __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_s8_sm90_kernel(const __grid_constant__ S8Sm90Args a) {
   using Cfg = S8Sm90Cfg<S>;
   constexpr int BH = kS8Sm90BH, BN = Cfg::BN, NS = Cfg::NS, D = NS - 2, NJ = BN / 8;
   static_assert(!F32OUT || BN == 32, "the fp32 output rows are 128 bytes: 32 channels");
+  static_assert(!POOL || (S == 1 && !SKIP), "the pooled form: stride 1, its skip read in the epilogue");
   extern __shared__ unsigned char smem_raw[];
   const unsigned base = (static_cast<unsigned>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
   unsigned char* const smem = smem_raw + (base - static_cast<unsigned>(__cvta_generic_to_shared(smem_raw)));
@@ -351,16 +319,70 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_s8_sm90_kernel(const 
   // its first pixel; thread 0's stage of a store that may still read it
   int out_stage = -1, out_h0 = 0, out_w0 = 0, stored_stage = -1;
   // Thread 0's TMA stores of the staged tile: one box (BN channels, 64
-  // pixels, 1 row) per tile row, clipped at the image's edges.
+  // pixels, 1 row) per tile row, clipped at the image's edges; POOL: one
+  // box (BN channels, 32 pooled pixels, 1 row).
   auto store_out = [&]() {
     const unsigned st = base + out_stage * kS8Sm90StageBytes;
 #pragma unroll
-    for (int r = 0; r < BH; ++r)
+    for (int r = 0; r < (POOL ? 1 : BH); ++r)
       asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n"
                    ::"l"(reinterpret_cast<uint64_t>(&a.ymap)), "r"(n0), "r"(out_w0), "r"(out_h0 + r),
                    "r"(st + s8_stage_out(r))
                    : "memory");
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  };
+  // The pooled epilogue (POOL, block_conv3_w8a8's pool_out), after a tile's
+  // last step in its stage: each conv pixel's (acc·yscale, + bias, + skip)
+  // and activation in fp32; lanes l and l ^ 4 hold a pooled pixel's two
+  // columns, and one shuffle a pair leaves lane l the larger of its pair h =
+  // bit 2 of l, pooled column 8·warp + 4h + l/8, which it writes (rounded in
+  // bf16: rounding is monotonic) over its warpgroup's own box row as the
+  // unpooled form does, in the swizzle of a box of 32 pixels. The block
+  // meets, and its threads write the larger of the two rows' 16-byte pieces
+  // over row 0's, which thread 0 stores as one box at the pooled row h0/2.
+  // (Warp 0 taking that max after the next step's meeting, without this
+  // meeting, measured 2% slower on an H100 at up_conv3's shape.)
+  auto pool_epilogue = [&](int h0, int w0) {
+    using ST = typename std::conditional<F32OUT, float, bf16>::type;
+    constexpr int PX = F32OUT ? 128 : 64;  // bytes of a staged pooled pixel
+    const int hk = (lane >> 2) & 1, pc = warp * 8 + hk * 4 + (lane >> 3);
+    unsigned char* const st = smem + stage * kS8Sm90StageBytes;
+    unsigned char* const mine = st + s8_stage_out(wg);
+    const int ho = h0 + wg;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float2 v[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int wo = w0 + warp * 16 + h * 8 + (lane >> 2);
+        v[h] = make_float2(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), ysr[j].x), bsr[j].x),
+                           __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), ysr[j].y), bsr[j].y));
+        if (a.skip && ho < a.Ho && wo < a.Wo) {
+          const float2 sk = load2<ST>(static_cast<const ST*>(a.skip) +
+                                      (static_cast<long long>(ho) * a.Wo + wo) * a.Co + n0 + j * 8 + q * 2);
+          v[h] = make_float2(__fadd_rn(v[h].x, sk.x), __fadd_rn(v[h].y, sk.y));
+        }
+        v[h] = make_float2(apply_act(v[h].x, a.act), apply_act(v[h].y, a.act));
+      }
+      const float2 send = hk ? v[0] : v[1], keep = hk ? v[1] : v[0];
+      const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, send.x, 4), __shfl_xor_sync(0xffffffffu, send.y, 4));
+      const float2 m = make_float2(fmaxf(keep.x, got.x), fmaxf(keep.y, got.y));
+      if constexpr (F32OUT)
+        *reinterpret_cast<float2*>(mine + pc * PX + (((2 * j + (q >> 1)) ^ (pc & 7)) << 4) + (q & 1) * 8) = m;
+      else
+        *reinterpret_cast<unsigned*>(mine + pc * PX + q * 4 + ((j ^ ((pc >> 1) & 3)) << 4)) = pack_bf16(m.x, m.y);
+    }
+    __syncthreads();
+    for (int i = tid; i < kSm90TW / 2 * PX / 16; i += kSm90Threads) {
+      uint4* const p0 = reinterpret_cast<uint4*>(st + s8_stage_out(0)) + i;
+      *p0 = max16<F32OUT>(*p0, reinterpret_cast<const uint4*>(st + s8_stage_out(1))[i]);
+    }
+    // the staged row, written by the generic proxy, is read by TMA's async
+    // proxy: thread 0 stores it after the next step's meeting
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    out_stage = stage;
+    out_h0 = h0 >> 1;
+    out_w0 = w0 >> 1;
   };
   for (int g = 0; g < steps; ++g) {
 #ifdef HDRTV_SM90_PHASES
@@ -445,42 +467,47 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_s8_sm90_kernel(const 
       wgmma_wait<0>();
       fence_iregs(acc);
       PHASE(4)
-      // A thread holds columns p = 16·warp + lane/4 (+ 8) of its warpgroup's
-      // row and of each 8-channel group j the pair (lane % 4)·2. It writes
-      // them, rounded, into this stage (s8_stage_out) in the swizzle of the
-      // TMA store: BN = 32, 64 bytes a pixel, 16-byte piece j of pixel p at
-      // j ^ (p/2 % 4); BN = 64, 128 bytes, at j ^ (p % 8); so that the eight
-      // pixels of a store instruction fall in distinct banks; in fp32,
-      // unrounded, 128 bytes: piece 2j + q/2 of pixel p at (2j + q/2) ^ (p %
-      // 8), the pair at byte 8·(q % 2) of it.
-      unsigned char* const st = smem + stage * kS8Sm90StageBytes + s8_stage_out(wg);
+      if constexpr (POOL) {
+        pool_epilogue(h0, w0);
+        PHASE(5)
+      } else {
+        // A thread holds columns p = 16·warp + lane/4 (+ 8) of its warpgroup's
+        // row and of each 8-channel group j the pair (lane % 4)·2. It writes
+        // them, rounded, into this stage (s8_stage_out) in the swizzle of the
+        // TMA store: BN = 32, 64 bytes a pixel, 16-byte piece j of pixel p at
+        // j ^ (p/2 % 4); BN = 64, 128 bytes, at j ^ (p % 8); so that the eight
+        // pixels of a store instruction fall in distinct banks; in fp32,
+        // unrounded, 128 bytes: piece 2j + q/2 of pixel p at (2j + q/2) ^ (p %
+        // 8), the pair at byte 8·(q % 2) of it.
+        unsigned char* const st = smem + stage * kS8Sm90StageBytes + s8_stage_out(wg);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = warp * 16 + h * 8 + (lane >> 2);
+        for (int h = 0; h < 2; ++h) {
+          const int p = warp * 16 + h * 8 + (lane >> 2);
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          float2 v = make_float2(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), ysr[j].x), bsr[j].x),
-                                 __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), ysr[j].y), bsr[j].y));
-          if constexpr (SKIP) v = make_float2(__fadd_rn(v.x, skv[h][j].x), __fadd_rn(v.y, skv[h][j].y));
-          if constexpr (F32OUT) {
-            *reinterpret_cast<float2*>(st + p * 128 + (((2 * j + (q >> 1)) ^ (p & 7)) << 4) + (q & 1) * 8) =
-                make_float2(apply_act(v.x, a.act), apply_act(v.y, a.act));
-          } else if constexpr (BN == 64) {
-            *reinterpret_cast<__nv_bfloat162*>(st + p * 128 + q * 4 + ((j ^ (p & 7)) << 4)) =
-                __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
-          } else {
-            *reinterpret_cast<__nv_bfloat162*>(st + p * 64 + q * 4 + ((j ^ ((p >> 1) & 3)) << 4)) =
-                __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
+          for (int j = 0; j < NJ; ++j) {
+            float2 v = make_float2(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), ysr[j].x), bsr[j].x),
+                                   __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), ysr[j].y), bsr[j].y));
+            if constexpr (SKIP) v = make_float2(__fadd_rn(v.x, skv[h][j].x), __fadd_rn(v.y, skv[h][j].y));
+            if constexpr (F32OUT) {
+              *reinterpret_cast<float2*>(st + p * 128 + (((2 * j + (q >> 1)) ^ (p & 7)) << 4) + (q & 1) * 8) =
+                  make_float2(apply_act(v.x, a.act), apply_act(v.y, a.act));
+            } else if constexpr (BN == 64) {
+              *reinterpret_cast<__nv_bfloat162*>(st + p * 128 + q * 4 + ((j ^ (p & 7)) << 4)) =
+                  __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
+            } else {
+              *reinterpret_cast<__nv_bfloat162*>(st + p * 64 + q * 4 + ((j ^ ((p >> 1) & 3)) << 4)) =
+                  __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
+            }
           }
         }
+        // the staged rows, written by the generic proxy, are read by TMA's
+        // async proxy: thread 0 stores them after the next step's meeting
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        out_stage = stage;
+        out_h0 = h0;
+        out_w0 = w0;
+        PHASE(5)
       }
-      // the staged rows, written by the generic proxy, are read by TMA's
-      // async proxy: thread 0 stores them after the next step's meeting
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      out_stage = stage;
-      out_h0 = h0;
-      out_w0 = w0;
-      PHASE(5)
     }
     if (++ks == KS) ks = 0, ++tile;
     if (++stage == NS) stage = 0, phase ^= 1;
@@ -525,16 +552,17 @@ inline cudaError_t encode_codes_map(CUtensorMap* map, const void* q, int H, int 
 }
 
 // y's TMA map for the stores: (Co, Wo, Ho) bf16 (fp32 with f32), a box of bn
-// channels × 64 pixels × 1 row in the swizzle the tile stages it in (its
-// row's span: 64 bytes for 32 bf16 channels, else 128); boxes are clipped at
-// the image's edges.
-inline cudaError_t encode_s8_out_map(CUtensorMap* map, void* y, int Ho, int Wo, int Co, int bn, bool f32) {
+// channels × `px` pixels (64, or 32 pooled ones) × 1 row in the swizzle the
+// tile stages it in (its row's span: 64 bytes for 32 bf16 channels, else
+// 128); boxes are clipped at the image's edges.
+inline cudaError_t encode_s8_out_map(CUtensorMap* map, void* y, int Ho, int Wo, int Co, int bn, bool f32,
+                                     int px = kSm90TW) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
   const cuuint64_t es = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Co), static_cast<cuuint64_t>(Wo), static_cast<cuuint64_t>(Ho)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Co) * es, static_cast<cuuint64_t>(Wo) * Co * es};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(bn), static_cast<cuuint32_t>(kSm90TW), 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(bn), static_cast<cuuint32_t>(px), 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   if (encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, y, dims, strides, box,
              estr, CU_TENSOR_MAP_INTERLEAVE_NONE, bn * es == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
@@ -596,14 +624,17 @@ inline int s8_sm90_plan(const int* list, int per_list, int* plan) {
 // The arguments of a launch at stride S, checked (cudaErrorInvalidValue for
 // a shape the tile does not take): q the nb code planes (plane bytes
 // apart), p the nb branches' layers, each for Co/nb output channels, a_sub
-// the s2d blocks along Co, table the four lists, per_list entries each.
+// the s2d blocks along Co, table the four lists, per_list entries each;
+// pool: the pooled form's output map, y (H/2, W/2, Co) (stride 1, H and W
+// even).
 template <int S>
 cudaError_t s8_sm90_setup(S8Sm90Args& a, const void* q, long long plane, const QuantParams* p, int nb,
                           const void* skip, void* y, int H, int W, int C, int Co, int a_sub, int act,
-                          const int* table, int per_list, bool f32_out) {
+                          const int* table, int per_list, bool f32_out, bool pool = false) {
   using Cfg = S8Sm90Cfg<S>;
   if (!table || C != Cfg::C || per_list != Cfg::LIST || a_sub < 1 || Co % (4 * a_sub * Cfg::BN) || nb < 1 ||
       nb > kMaxBranches || (nb != 1 && nb != a_sub) || H < 1 || W < 1 || H % S || W % S ||
+      (pool && (S != 1 || H % 2 || W % 2)) ||
       (S == 2 && (skip || f32_out || (a_sub != 1 && a_sub != 3))) || (S == 1 && (a_sub != 1 || nb != 1)))
     return cudaErrorInvalidValue;
   for (int bi = 0; bi < nb; ++bi) {
@@ -633,16 +664,18 @@ cudaError_t s8_sm90_setup(S8Sm90Args& a, const void* q, long long plane, const Q
   for (int bi = 0; bi < nb && err == cudaSuccess; ++bi)
     for (int k = 0; k < 3 && err == cudaSuccess; ++k)
       err = encode_codes_map(&a.amap[3 * bi + k], static_cast<const int8_t*>(q) + bi * plane, H, W, C, k, S);
-  if (err == cudaSuccess) err = encode_s8_out_map(&a.ymap, y, a.Ho, a.Wo, Co, Cfg::BN, f32_out);
+  if (err == cudaSuccess)
+    err = pool ? encode_s8_out_map(&a.ymap, y, a.Ho / 2, a.Wo / 2, Co, Cfg::BN, f32_out, kSm90TW / 2)
+               : encode_s8_out_map(&a.ymap, y, a.Ho, a.Wo, Co, Cfg::BN, f32_out);
   return err;
 }
 
-// One launch of instance <S, SKIP, F32OUT> (its resident blocks counted once
-// per device).
-template <int S, bool SKIP, bool F32OUT>
+// One launch of instance <S, SKIP, F32OUT, POOL> (its resident blocks
+// counted once per device).
+template <int S, bool SKIP, bool F32OUT, bool POOL = false>
 cudaError_t launch_s8_sm90(const S8Sm90Args& a, cudaStream_t stream) {
   using Cfg = S8Sm90Cfg<S>;
-  auto kernel = conv3x3_s8_sm90_kernel<S, SKIP, F32OUT>;
+  auto kernel = conv3x3_s8_sm90_kernel<S, SKIP, F32OUT, POOL>;
   static DeviceCache cache;
   int resident = 0;
   const cudaError_t err = resident_blocks(cache, kernel, kSm90Smem, &resident);

@@ -80,6 +80,10 @@
 // kEpiBf16Skip2 (trunk3's last conv2: x + conv2(t), then the stage skip)
 // rounds that sum, adds a second skip read the same way, activates and
 // rounds again: two roundings, as the TPU kernel stores x before adding fea3.
+// kEpiPool (block_conv3's pool_out with a_sub ≥ 1, launched from
+// block_conv3.cu, every N tile and weights' place) takes the 2×2 max of the
+// activated fp32 sums before its one rounding and stores (Ho/2, Wo/2, Co)
+// (sm90_pool_epilogue).
 //
 // What bounds it (in-kernel clock64() timers, PERF.md §5): at up_conv3's
 // shape the epilogue takes half a block's time, the products and their
@@ -268,6 +272,74 @@ struct Wgmma<128> {
   }
 };
 
+// A K-major operand whose rows are 32·2^kind bytes in the swizzle of that
+// span (32, 64 or 128 bytes): 8-row groups 8 rows apart (the leading offset
+// unused, 1). A k32 slice starts 32 bytes further along the row. Fields in
+// 16-byte units.
+__device__ __forceinline__ uint64_t desc_kmajor(unsigned addr, int kind) {
+  const int row = 32 << kind;
+  return static_cast<uint64_t>((addr >> 4) & 0x3fff) | (1ull << 16) | (static_cast<uint64_t>(row / 2) << 32) |
+         (static_cast<uint64_t>(3 - kind) << 62);
+}
+
+// wgmma.m64nBNk32, s8 × s8 + s32, both operands K-major from shared memory;
+// accumulate 0 starts the sum from zero.
+template <int BN>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<16> {
+  static __device__ __forceinline__ void mma(int (&d)[8], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <int R>
+__device__ __forceinline__ void fence_iregs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // The four lanes of a quad hold u[i] of 8-channel group 4·jg + i each; after
 // the swap (a 4 × 4 transpose in three shuffles) lane q holds, in w[s],
 // lane s's u[q]: the four pairs of group 4·jg + q. The kEpiF32 and
@@ -287,6 +359,11 @@ __device__ __forceinline__ void quad_swap(const unsigned (&u)[4], unsigned (&w)[
   }
 }
 
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&r);
+}
+
 // Keeps the compiler from touching accumulators across an asynchronous wgmma.
 template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
@@ -295,7 +372,93 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 // The epilogue's forms (see the header).
-enum Sm90Epi { kEpiBf16 = 0, kEpiBf16Skip = 1, kEpiF32 = 2, kEpiBf16Skip2 = 3 };
+enum Sm90Epi { kEpiBf16 = 0, kEpiBf16Skip = 1, kEpiF32 = 2, kEpiBf16Skip2 = 3, kEpiPool = 4 };
+
+// The pooled epilogue (kEpiPool, block_conv3's pool_out): each conv pixel's
+// (acc + b) (+ skip) and activation in fp32, the max of a pooled pixel's
+// four, one rounding to bf16; y is (Ho/2, Wo/2, Co). A thread holds columns
+// 16·warp + lane/4 and + 8 of its tile rows, so lanes l and l ^ 4 hold a
+// pooled pixel's two columns: one shuffle a pair leaves lane l the pooled
+// column of its pair h = bit 2 of l. The two rows: at MT = 2 (BN = 32) a
+// warpgroup's two tile rows, in the thread's registers; at MT = 1 the two
+// warpgroups' rows, exchanged through `xchg`, the stage of the tile's last
+// chunk (each warpgroup's half of it, its own tile row of A, is read by no
+// product after its wgmma_wait, and TMA refills the stage two steps
+// later): warpgroup g writes, rounded, the half of the channels that the
+// other stores, 32-bit words thread-major (conflict-free), the block meets,
+// and each takes the max of its half (rounding is monotonic, so the max of
+// the rounded values is the rounded max). Then a quad's lanes swap their
+// pairs (quad_swap) and store whole 16-byte groups, inside the image.
+template <int BN, int MT>
+__device__ __forceinline__ void sm90_pool_epilogue(float (&acc)[MT][BN / 2], const float* bias_s,
+                                                   const Sm90Args<bf16>& a, int h0, int w0, int n0, int tid,
+                                                   unsigned* xchg) {
+  constexpr int NJ = BN / 8;                      // 8-channel groups of the N tile
+  constexpr int NK = MT == 2 ? NJ : NJ / 2;       // groups this thread stores
+  constexpr int HALF = kSm90TW * kSm90BK * 2 / 4;  // words of one tile row of A
+  static_assert(NK % 4 == 0, "a quad stores four groups at a time");
+  const int wg = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31, q = lane & 3;
+  const int hk = (lane >> 2) & 1;  // the column pair h this lane keeps
+  float2 r[MT][NJ];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int ho = h0 + wg * MT + mt;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int n = 8 * j + 2 * q;
+      const float2 bias = *reinterpret_cast<const float2*>(bias_s + n);
+      float2 v[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int wo = w0 + warp * 16 + h * 8 + (lane >> 2);
+        v[h] = make_float2(acc[mt][4 * j + 2 * h] + bias.x, acc[mt][4 * j + 2 * h + 1] + bias.y);
+        if (a.skip && ho < a.Ho && wo < a.Wo) {
+          const float2 sk = load2<bf16>(a.skip + (static_cast<long long>(ho) * a.Wo + wo) * a.Co + n0 + n);
+          v[h] = make_float2(v[h].x + sk.x, v[h].y + sk.y);
+        }
+        v[h] = make_float2(apply_act(v[h].x, a.act), apply_act(v[h].y, a.act));
+      }
+      const float2 send = hk ? v[0] : v[1], keep = hk ? v[1] : v[0];
+      const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, send.x, 4), __shfl_xor_sync(0xffffffffu, send.y, 4));
+      r[mt][j] = make_float2(fmaxf(keep.x, got.x), fmaxf(keep.y, got.y));
+    }
+  }
+  const int j0 = MT == 2 ? 0 : wg * NK;  // this thread's first stored group
+  unsigned u[NK];
+  if constexpr (MT == 2) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) u[j] = pack_bf16(fmaxf(r[0][j].x, r[1][j].x), fmaxf(r[0][j].y, r[1][j].y));
+  } else {
+    unsigned* const mine = xchg + wg * HALF;
+    const unsigned* const other = xchg + (1 - wg) * HALF;
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      const float2 o = wg ? r[0][k] : r[0][NK + k];  // selects: no local memory
+      mine[k * 128 + t] = pack_bf16(o.x, o.y);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      const unsigned ow = other[k * 128 + t];
+      const float2 o = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ow));
+      const float2 m = wg ? r[0][NK + k] : r[0][k];
+      u[k] = pack_bf16(fmaxf(m.x, o.x), fmaxf(m.y, o.y));
+    }
+    // the stage's generic-proxy accesses before TMA's next writes into it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  const int Hp = a.Ho >> 1, Wp = a.Wo >> 1;
+  const int pho = (h0 >> 1) + (MT == 2 ? wg : 0), pwo = (w0 >> 1) + warp * 8 + hk * 4 + (lane >> 3);
+  const long long row = (static_cast<long long>(pho) * Wp + pwo) * a.Co + n0;
+#pragma unroll
+  for (int jb = 0; jb < NK / 4; ++jb) {
+    const unsigned g4[4] = {u[4 * jb], u[4 * jb + 1], u[4 * jb + 2], u[4 * jb + 3]};
+    unsigned w4[4];
+    quad_swap(g4, w4, lane);
+    if (pho < Hp && pwo < Wp)
+      *reinterpret_cast<uint4*>(a.y + row + (j0 + 4 * jb + q) * 8) = make_uint4(w4[0], w4[1], w4[2], w4[3]);
+  }
+}
 
 template <int BN, int S, bool RES, int EPI>
 __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_sm90_kernel(const __grid_constant__ Sm90Args<bf16> a) {
@@ -469,93 +632,98 @@ __global__ void __launch_bounds__(kSm90Threads, 2) conv3x3_sm90_kernel(const __g
       // a group between them: over four groups they swap their pairs
       // (quad_swap) so that each lane stores one group: 16 bytes of
       // rounded bf16, or 32 of fp32 (kEpiF32).
-      const int q = lane & 3;
+      if constexpr (EPI == kEpiPool) {
+        sm90_pool_epilogue<BN, MT>(acc, bias_s, a, h0, w0, n0, tid,
+                                   reinterpret_cast<unsigned*>(smem + stage * Cfg::A_BYTES));
+      } else {
+        const int q = lane & 3;
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
+        for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int ho = h0 + wg * MT + mt, wo = w0 + warp * 16 + h * 8 + (lane >> 2);
-          const bool ok = ho < a.Ho && wo < a.Wo;
-          const long long row = (static_cast<long long>(ho) * a.Wo + wo) * a.Co + n0;
+          for (int h = 0; h < 2; ++h) {
+            const int ho = h0 + wg * MT + mt, wo = w0 + warp * 16 + h * 8 + (lane >> 2);
+            const bool ok = ho < a.Ho && wo < a.Wo;
+            const long long row = (static_cast<long long>(ho) * a.Wo + wo) * a.Co + n0;
 #pragma unroll
-          for (int jg = 0; jg < BN / 32; ++jg) {
-            if constexpr (EPI != kEpiBf16) {
-              unsigned lo[4], hi[4];
+            for (int jg = 0; jg < BN / 32; ++jg) {
+              if constexpr (EPI != kEpiBf16) {
+                unsigned lo[4], hi[4];
 #pragma unroll
-              for (int jj = 0; jj < 4; ++jj) {
-                const int j = 4 * jg + jj;
-                const int n = j * 8 + q * 2;
-                const float2 bias = *reinterpret_cast<const float2*>(bias_s + n);
-                float2 v = make_float2(acc[mt][4 * j + 2 * h] + bias.x, acc[mt][4 * j + 2 * h + 1] + bias.y);
-                if constexpr (EPI == kEpiF32) {
+                for (int jj = 0; jj < 4; ++jj) {
+                  const int j = 4 * jg + jj;
+                  const int n = j * 8 + q * 2;
+                  const float2 bias = *reinterpret_cast<const float2*>(bias_s + n);
+                  float2 v = make_float2(acc[mt][4 * j + 2 * h] + bias.x, acc[mt][4 * j + 2 * h + 1] + bias.y);
+                  if constexpr (EPI == kEpiF32) {
+                    if (a.skip && ok) {
+                      const float2 sk = load2<bf16>(a.skip + row + n);
+                      v = make_float2(v.x + sk.x, v.y + sk.y);
+                    }
+                    v = make_float2(apply_act(v.x, a.act), apply_act(v.y, a.act));
+                  }
+                  lo[jj] = __float_as_uint(v.x);
+                  hi[jj] = __float_as_uint(v.y);
+                }
+                // Lane q ends with group g = 4·jg + q: channels 8·g + 2s (wl[s]) and 8·g + 2s + 1 (wh[s]).
+                unsigned wl[4], wh[4];
+                quad_swap(lo, wl, lane);
+                quad_swap(hi, wh, lane);
+                const long long at = row + (4 * jg + q) * 8;
+                if (ok) {
+                  if constexpr (EPI == kEpiF32) {
+                    uint4* const dst = reinterpret_cast<uint4*>(reinterpret_cast<float*>(a.y) + at);
+                    dst[0] = make_uint4(wl[0], wh[0], wl[1], wh[1]);
+                    dst[1] = make_uint4(wl[2], wh[2], wl[3], wh[3]);
+                  } else {
+                    const uint4 sk = *reinterpret_cast<const uint4*>(a.skip + at);
+                    const unsigned skw[4] = {sk.x, sk.y, sk.z, sk.w};
+                    uint4 sk2 = make_uint4(0u, 0u, 0u, 0u);
+                    if constexpr (EPI == kEpiBf16Skip2) sk2 = *reinterpret_cast<const uint4*>(a.skip2 + at);
+                    const unsigned sk2w[4] = {sk2.x, sk2.y, sk2.z, sk2.w};
+                    unsigned o[4];
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                      const float2 sv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&skw[e]));
+                      float2 v = make_float2(__uint_as_float(wl[e]) + sv.x, __uint_as_float(wh[e]) + sv.y);
+                      if constexpr (EPI == kEpiBf16Skip2) {
+                        const float2 s1 = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+                        const float2 s2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sk2w[e]));
+                        v = make_float2(s1.x + s2.x, s1.y + s2.y);
+                      }
+                      const __nv_bfloat162 r = __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
+                      o[e] = *reinterpret_cast<const unsigned*>(&r);
+                    }
+                    *reinterpret_cast<uint4*>(a.y + at) = make_uint4(o[0], o[1], o[2], o[3]);
+                  }
+                }
+              } else {
+                unsigned u[4];
+#pragma unroll
+                for (int jj = 0; jj < 4; ++jj) {
+                  const int j = 4 * jg + jj;
+                  const int n = j * 8 + q * 2;
+                  const float2 bias = *reinterpret_cast<const float2*>(bias_s + n);
+                  float2 v = make_float2(acc[mt][4 * j + 2 * h] + bias.x, acc[mt][4 * j + 2 * h + 1] + bias.y);
                   if (a.skip && ok) {
                     const float2 sk = load2<bf16>(a.skip + row + n);
                     v = make_float2(v.x + sk.x, v.y + sk.y);
                   }
-                  v = make_float2(apply_act(v.x, a.act), apply_act(v.y, a.act));
+                  const __nv_bfloat162 r = __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
+                  u[jj] = *reinterpret_cast<const unsigned*>(&r);
                 }
-                lo[jj] = __float_as_uint(v.x);
-                hi[jj] = __float_as_uint(v.y);
-              }
-              // Lane q ends with group g = 4·jg + q: channels 8·g + 2s (wl[s]) and 8·g + 2s + 1 (wh[s]).
-              unsigned wl[4], wh[4];
-              quad_swap(lo, wl, lane);
-              quad_swap(hi, wh, lane);
-              const long long at = row + (4 * jg + q) * 8;
-              if (ok) {
-                if constexpr (EPI == kEpiF32) {
-                  uint4* const dst = reinterpret_cast<uint4*>(reinterpret_cast<float*>(a.y) + at);
-                  dst[0] = make_uint4(wl[0], wh[0], wl[1], wh[1]);
-                  dst[1] = make_uint4(wl[2], wh[2], wl[3], wh[3]);
-                } else {
-                  const uint4 sk = *reinterpret_cast<const uint4*>(a.skip + at);
-                  const unsigned skw[4] = {sk.x, sk.y, sk.z, sk.w};
-                  uint4 sk2 = make_uint4(0u, 0u, 0u, 0u);
-                  if constexpr (EPI == kEpiBf16Skip2) sk2 = *reinterpret_cast<const uint4*>(a.skip2 + at);
-                  const unsigned sk2w[4] = {sk2.x, sk2.y, sk2.z, sk2.w};
-                  unsigned o[4];
+                // Lane q ends with group 4·jg + q: w[s] = lane s's u[q].
+                unsigned w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-                  for (int e = 0; e < 4; ++e) {
-                    const float2 sv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&skw[e]));
-                    float2 v = make_float2(__uint_as_float(wl[e]) + sv.x, __uint_as_float(wh[e]) + sv.y);
-                    if constexpr (EPI == kEpiBf16Skip2) {
-                      const float2 s1 = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
-                      const float2 s2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sk2w[e]));
-                      v = make_float2(s1.x + s2.x, s1.y + s2.y);
-                    }
-                    const __nv_bfloat162 r = __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
-                    o[e] = *reinterpret_cast<const unsigned*>(&r);
-                  }
-                  *reinterpret_cast<uint4*>(a.y + at) = make_uint4(o[0], o[1], o[2], o[3]);
+                for (int r = 0; r < 4; ++r) {
+                  const int send = (q - r) & 3, from = (q + r) & 3;
+                  const unsigned val = send == 0 ? u[0] : send == 1 ? u[1] : send == 2 ? u[2] : u[3];
+                  const unsigned got = __shfl_sync(0xffffffffu, val, (lane & ~3) | from);
+#pragma unroll
+                  for (int i = 0; i < 4; ++i)
+                    if (from == i) w[i] = got;
                 }
+                if (ok) *reinterpret_cast<uint4*>(a.y + row + (4 * jg + q) * 8) = make_uint4(w[0], w[1], w[2], w[3]);
               }
-            } else {
-              unsigned u[4];
-#pragma unroll
-              for (int jj = 0; jj < 4; ++jj) {
-                const int j = 4 * jg + jj;
-                const int n = j * 8 + q * 2;
-                const float2 bias = *reinterpret_cast<const float2*>(bias_s + n);
-                float2 v = make_float2(acc[mt][4 * j + 2 * h] + bias.x, acc[mt][4 * j + 2 * h + 1] + bias.y);
-                if (a.skip && ok) {
-                  const float2 sk = load2<bf16>(a.skip + row + n);
-                  v = make_float2(v.x + sk.x, v.y + sk.y);
-                }
-                const __nv_bfloat162 r = __floats2bfloat162_rn(apply_act(v.x, a.act), apply_act(v.y, a.act));
-                u[jj] = *reinterpret_cast<const unsigned*>(&r);
-              }
-              // Lane q ends with group 4·jg + q: w[s] = lane s's u[q].
-              unsigned w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-              for (int r = 0; r < 4; ++r) {
-                const int send = (q - r) & 3, from = (q + r) & 3;
-                const unsigned val = send == 0 ? u[0] : send == 1 ? u[1] : send == 2 ? u[2] : u[3];
-                const unsigned got = __shfl_sync(0xffffffffu, val, (lane & ~3) | from);
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-                  if (from == i) w[i] = got;
-              }
-              if (ok) *reinterpret_cast<uint4*>(a.y + row + (4 * jg + q) * 8) = make_uint4(w[0], w[1], w[2], w[3]);
             }
           }
         }
@@ -696,6 +864,25 @@ cudaError_t sm90_setup(Sm90Args<T>& a, const void* w, const float* b, const void
   return cudaSuccess;
 }
 
+// The N tile (BN, the largest of 128, 64, 32 that divides co_nat) and the
+// weights' place (resident where the block's chunks fit beside the ring) of
+// a launch whose arguments are set, and the launch of instance EPI there.
+template <int S, int EPI>
+cudaError_t launch_sm90_fit(Sm90Args<bf16>& a, const void* x, int H, int W, int cf, cudaStream_t stream) {
+  const int bn = a.co_nat % 128 == 0 ? 128 : a.co_nat % 64 == 0 ? 64 : 32;
+  const bool res = (bn == 128 ? Sm90Cfg<128, true>::smem(a.per_list)
+                    : bn == 64 ? Sm90Cfg<64, true>::smem(a.per_list)
+                               : Sm90Cfg<32, true>::smem(a.per_list)) <= kSm90Smem;
+  if (bn == 128)
+    return res ? launch_sm90<128, S, true, EPI>(a, x, H, W, cf, stream)
+               : launch_sm90<128, S, false, EPI>(a, x, H, W, cf, stream);
+  if (bn == 64)
+    return res ? launch_sm90<64, S, true, EPI>(a, x, H, W, cf, stream)
+               : launch_sm90<64, S, false, EPI>(a, x, H, W, cf, stream);
+  return res ? launch_sm90<32, S, true, EPI>(a, x, H, W, cf, stream)
+             : launch_sm90<32, S, false, EPI>(a, x, H, W, cf, stream);
+}
+
 // The bf16 float conv of block_conv3, sft_conv3, resblock and the tail (S =
 // 1: Ho = H) or down2 (S = 2: Ho = H/2) on the Hopper tile (arguments:
 // sm90_setup). `args`: where to build the launch's arguments
@@ -715,22 +902,14 @@ cudaError_t conv3x3_sm90(const void* x, const void* w, const float* b, const voi
   const cudaError_t err = sm90_setup(a, w, b, skip, y, H, W, S, cf, ch0, C, Co, act, a_sub, table, per_list);
   if (err != cudaSuccess) return err;
   a.skip2 = static_cast<const bf16*>(skip2);
-  const int bn = a.co_nat % 128 == 0 ? 128 : a.co_nat % 64 == 0 ? 64 : 32;
-  // The weight chunks stay resident where they fit beside the ring.
-  const bool res = (bn == 128 ? Sm90Cfg<128, true>::smem(per_list)
-                    : bn == 64 ? Sm90Cfg<64, true>::smem(per_list)
-                               : Sm90Cfg<32, true>::smem(per_list)) <= kSm90Smem;
+  const bool res32 = a.co_nat % 64 && Sm90Cfg<32, true>::smem(per_list) <= kSm90Smem;
   if constexpr (S == 1) {
-    if (bn == 32 && res && f32_out && !skip2) return launch_sm90<32, 1, true, kEpiF32>(a, x, H, W, cf, stream);
-    if (bn == 32 && res && skip && skip2) return launch_sm90<32, 1, true, kEpiBf16Skip2>(a, x, H, W, cf, stream);
-    if (bn == 32 && res && skip && !skip2) return launch_sm90<32, 1, true, kEpiBf16Skip>(a, x, H, W, cf, stream);
+    if (res32 && f32_out && !skip2) return launch_sm90<32, 1, true, kEpiF32>(a, x, H, W, cf, stream);
+    if (res32 && skip && skip2) return launch_sm90<32, 1, true, kEpiBf16Skip2>(a, x, H, W, cf, stream);
+    if (res32 && skip && !skip2) return launch_sm90<32, 1, true, kEpiBf16Skip>(a, x, H, W, cf, stream);
   }
   if (f32_out || skip2) return cudaErrorInvalidValue;
-  if (bn == 128)
-    return res ? launch_sm90<128, S, true>(a, x, H, W, cf, stream) : launch_sm90<128, S, false>(a, x, H, W, cf, stream);
-  if (bn == 64)
-    return res ? launch_sm90<64, S, true>(a, x, H, W, cf, stream) : launch_sm90<64, S, false>(a, x, H, W, cf, stream);
-  return res ? launch_sm90<32, S, true>(a, x, H, W, cf, stream) : launch_sm90<32, S, false>(a, x, H, W, cf, stream);
+  return launch_sm90_fit<S, kEpiBf16>(a, x, H, W, cf, stream);
 }
 
 }  // namespace

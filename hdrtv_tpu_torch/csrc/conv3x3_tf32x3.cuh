@@ -65,7 +65,10 @@
 // to the running x after its last resblock; its values are read with the
 // first's. A skip may be the output itself (trunk3's running x, updated in
 // place): each value is read before the quad's shuffle and written after
-// it, by a lane of the same quad.
+// it, by a lane of the same quad. The POOL instance (block_conv3's fp32
+// pool_out with a_sub ≥ 1, launched from block_conv3.cu) takes the 2×2 max
+// of the activated sums and stores (Ho/2, Wo/2, Co), as the bf16 tile's
+// kEpiPool does.
 //
 // Shared memory: 1 KB alignment + 4 × 16 KB ring + 2 · per_list · BN · 128
 // bytes of split weights + barriers, biases, chunk list ≤ 227 KB: per_list
@@ -171,7 +174,7 @@ __device__ __forceinline__ void fence_tf32_frags(uint32_t (&a)[4][N]) {
     for (int j = 0; j < N; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-template <int BN, int S, bool SK2>
+template <int BN, int S, bool SK2, bool POOL>
 __global__ void __launch_bounds__(kSm90Threads, 1) conv3x3_tf32x3_kernel(const __grid_constant__ Sm90Args<float> a) {
   using Cfg = Tf32Cfg<BN>;
   constexpr int NS = Cfg::NS, BH = Cfg::BH;
@@ -328,11 +331,78 @@ __global__ void __launch_bounds__(kSm90Threads, 1) conv3x3_tf32x3_kernel(const _
     }
     wgmma_commit();
   };
-  // A tile's store, after its last chunk's products; then its sums restart
-  // from zero.
-  auto epilogue = [&](int tile) {
+  // The pooled store (POOL, block_conv3's pool_out), as the bf16 tile's
+  // kEpiPool (conv3x3_sm90.cuh sm90_pool_epilogue) in fp32: each conv
+  // pixel's ((acc + b) + skip) and activation, one shuffle to a pooled
+  // column (lanes l and l ^ 4 hold its two), the two tile rows' warpgroups
+  // exchanging the halves of the channels the other stores through the
+  // stage of the tile's last chunk (its fragments were read a step before,
+  // and it is refilled after this step's meeting), the max, fp32 out: lanes
+  // q and q ^ 1 swap one pair so that each stores 16 bytes, inside the
+  // image; y is (Ho/2, Wo/2, Co).
+  auto pool_epilogue = [&](int h0, int w0, int stg) {
+    constexpr int NK = BN / 16;                   // groups a warpgroup stores
+    constexpr int HALF = kSm90TW * kSm90BK / 2;   // float2 of one tile row of A
+    const int q = lane & 3, t = tid & 127, hk = (lane >> 2) & 1;
+    const int ho = h0 + wg;
+    float2 r[BN / 8];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 bias = *reinterpret_cast<const float2*>(bias_s + j * 8 + q * 2);
+      float2 v[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int wo = w0 + warp * 16 + h * 8 + (lane >> 2);
+        v[h] = make_float2(acc[4 * j + 2 * h] + bias.x, acc[4 * j + 2 * h + 1] + bias.y);
+        if (a.skip && ho < a.Ho && wo < a.Wo) {
+          const float2 sk = *reinterpret_cast<const float2*>(
+              a.skip + (static_cast<long long>(ho) * a.Wo + wo) * a.Co + n0 + j * 8 + q * 2);
+          v[h] = make_float2(v[h].x + sk.x, v[h].y + sk.y);
+        }
+        v[h] = make_float2(apply_act(v[h].x, a.act), apply_act(v[h].y, a.act));
+      }
+      const float2 send = hk ? v[0] : v[1], keep = hk ? v[1] : v[0];
+      const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, send.x, 4), __shfl_xor_sync(0xffffffffu, send.y, 4));
+      r[j] = make_float2(fmaxf(keep.x, got.x), fmaxf(keep.y, got.y));
+    }
+    float2* const xchg = reinterpret_cast<float2*>(smem + stg * Cfg::A_BYTES);
+#pragma unroll
+    for (int k = 0; k < NK; ++k) xchg[wg * HALF + k * 128 + t] = wg ? r[k] : r[NK + k];  // selects: no local memory
+    __syncthreads();
+    float2 p[NK];
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      const float2 o = xchg[(1 - wg) * HALF + k * 128 + t], m = wg ? r[NK + k] : r[k];
+      p[k] = make_float2(fmaxf(m.x, o.x), fmaxf(m.y, o.y));
+    }
+    // the stage's generic-proxy accesses before TMA's next writes into it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const bool odd = q & 1;
+    const int Hp = a.Ho >> 1, Wp = a.Wo >> 1;
+    const int pho = h0 >> 1, pwo = (w0 >> 1) + warp * 8 + hk * 4 + (lane >> 3);
+    const long long row = (static_cast<long long>(pho) * Wp + pwo) * a.Co + n0;
+#pragma unroll
+    for (int jp = 0; jp < NK / 2; ++jp) {
+      const int j = wg * NK + 2 * jp;
+      const float2 send = odd ? p[2 * jp] : p[2 * jp + 1];
+      const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, send.x, 1), __shfl_xor_sync(0xffffffffu, send.y, 1));
+      const float4 out = odd ? make_float4(got.x, got.y, p[2 * jp + 1].x, p[2 * jp + 1].y)
+                             : make_float4(p[2 * jp].x, p[2 * jp].y, got.x, got.y);
+      const int n = odd ? (j + 1) * 8 + 2 * (q - 1) : j * 8 + 2 * q;
+      if (pho < Hp && pwo < Wp) *reinterpret_cast<float4*>(a.y + row + n) = out;
+    }
+  };
+  // A tile's store, after its last chunk's products (the chunk's stage
+  // `stg`); then its sums restart from zero.
+  auto epilogue = [&](int tile, int stg) {
     const int t = t0 + tile * tstride;
     const int h0 = (t / tw) * BH, w0 = (t % tw) * kSm90TW;
+    if constexpr (POOL) {
+      pool_epilogue(h0, w0, stg);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      return;
+    }
     // A thread holds, of its tile row, columns 16·warp + lane/4 (+ 8) and of
     // each 8-channel group the pair (lane % 4)·2. Over a pair of groups
     // lanes q and q ^ 1 swap one pair, so that an even q stores channels
@@ -420,7 +490,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1) conv3x3_tf32x3_kernel(const _
       for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
       PHASE(4)
       if (kt + 1 == KT) {
-        epilogue(tile);
+        epilogue(tile, stage);
         PHASE(5)
       }
       __syncthreads();
@@ -449,10 +519,10 @@ __global__ void __launch_bounds__(kSm90Threads, 1) conv3x3_tf32x3_kernel(const _
 #undef PHASE
 }
 
-template <int BN, int S, bool SK2 = false>
+template <int BN, int S, bool SK2 = false, bool POOL = false>
 cudaError_t launch_tf32x3(Sm90Args<float>& a, const void* x, int H, int W, int cf, cudaStream_t stream) {
   using Cfg = Tf32Cfg<BN>;
-  auto kernel = conv3x3_tf32x3_kernel<BN, S, SK2>;
+  auto kernel = conv3x3_tf32x3_kernel<BN, S, SK2, POOL>;
   static DeviceCache cache;  // once per instantiation and device
   int resident = 0;
   cudaError_t err = resident_blocks(cache, kernel, kTf32Smem, &resident);
@@ -463,6 +533,16 @@ cudaError_t launch_tf32x3(Sm90Args<float>& a, const void* x, int H, int W, int c
   if (err != cudaSuccess) return err;
   kernel<<<sm90_grid(a.Ho, a.Wo, a.Co, BN, Cfg::BH, resident), kSm90Threads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The N tile of a launch whose arguments are set (64 where it divides
+// co_nat and the split weights fit, else 32), and the launch of instance
+// POOL there.
+template <int S, bool POOL>
+cudaError_t launch_tf32x3_fit(Sm90Args<float>& a, const void* x, int H, int W, int cf, cudaStream_t stream) {
+  if (a.co_nat % 64 == 0 && Tf32Cfg<64>::smem(a.per_list) <= kTf32Smem)
+    return launch_tf32x3<64, S, false, POOL>(a, x, H, W, cf, stream);
+  return launch_tf32x3<32, S, false, POOL>(a, x, H, W, cf, stream);
 }
 
 // The fp32 float conv of block_conv3 (S = 1) or down2 (S = 2), or one of
@@ -487,9 +567,7 @@ cudaError_t conv3x3_tf32x3(const void* x, const void* w, const float* b, const v
     }
     return cudaErrorInvalidValue;
   }
-  if (a.co_nat % 64 == 0 && Tf32Cfg<64>::smem(per_list) <= kTf32Smem)
-    return launch_tf32x3<64, S>(a, x, H, W, cf, stream);
-  return launch_tf32x3<32, S>(a, x, H, W, cf, stream);
+  return launch_tf32x3_fit<S, false>(a, x, H, W, cf, stream);
 }
 
 }  // namespace

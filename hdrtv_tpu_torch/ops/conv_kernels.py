@@ -29,9 +29,13 @@ with ``a_sub`` = 1 (the bf16 int8 programs' up_conv2.0 and up_conv3.0, C =
 128 → 128 or 512) quantizes x once and runs the wgmma s8 tile of
 ``csrc/conv3x3_s8_sm90.cuh`` over the same slot table
 (:func:`s8_sm90_table`; other widths raise), in fp32 through its
-fp32-output epilogue; ``a_sub`` = 0 and the ``pool_out`` forms stay dense
-(the same result on such weights), and so do the plain versions, which hold
-the skip to account. :func:`conv_chunks` is
+fp32-output epilogue; ``a_sub`` = 0 stays dense (the same result on such
+weights), and so do the plain versions, which hold the skip to account.
+``pool_out`` with ``a_sub`` ≥ 1 takes the unpooled call's table and tile,
+each with a pooled epilogue (bf16, 3×TF32, and the s8 tile after the
+quantize pass in either type); a shape that tile refuses raises on the CPU
+as on the card. ``pool_out`` with ``a_sub`` = 0 keeps the older tiles of
+``csrc/conv3x3.cuh`` and ``csrc/conv3x3_s8.cuh``. :func:`conv_chunks` is
 the K walk the tiles take, shared with ``ops/megakernel.py fused_down2``.
 """
 
@@ -193,7 +197,8 @@ def fused_block_conv3(
     ``pool_out``: the 2×2 max pool of the result, (Hb/2, Wb/2, Co); Hb and Wb
     must be even, as in the JAX kernel. ``a_sub``: 0 or the number of
     s2d-structured blocks along Co (1; 2 for the consolidated input conv):
-    the float form then skips the weight's structural zeros (see the module
+    the float form, and the int8 and pooled forms where their tiles take the
+    shape, then skip the weight's structural zeros (see the module
     docstring)."""
     hb, wb, c = x.shape
     co = w.shape[-1]
@@ -202,6 +207,11 @@ def fused_block_conv3(
     check_a_sub("block_conv3", a_sub, c, co)
     if pool_out and (hb % 2 or wb % 2):
         raise ValueError(f"pool_out needs even input dims, got {hb}x{wb}")
+    table, per_group = None, 0
+    if pool_out and a_sub:
+        # the unpooled call's table and tile; a shape that tile refuses raises here, on the CPU too
+        table, per_group = (sm90_table("block_conv3", 1, a_sub, c, co, c, dtype=dt) if qargs is None
+                            else s8_sm90_table("block_conv3", a_sub, c, co))
     tensors = (x, w, b) if skip is None else (x, w, b, skip)
     cpu = native.on_cpu(*tensors)
     if qargs is not None:
@@ -213,7 +223,6 @@ def fused_block_conv3(
     if c % 16 or co % 4 or (qargs is not None and (c % 64 or co % 8)):
         raise ValueError(f"block_conv3 needs C % 16 == 0 and Co % 4 == 0 (int8: C % 64 and Co % 8), "
                          f"got C={c} Co={co}")
-    table, per_group = None, 0
     if qargs is None and not pool_out:
         table, per_group = sm90_table("block_conv3", 1, a_sub, c, co, c, dtype=dt)
     elif not pool_out and a_sub:

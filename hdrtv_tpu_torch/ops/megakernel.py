@@ -23,7 +23,8 @@ takes its int8 body too (``qargs``, one ``QArgs`` per branch of the
 consolidated CondNet down conv; the frame programs pass it under
 ``HDRTV_INT8_DOWN2=1`` only, as the JAX package does), and
 ``fused_cond_chain`` its int8 steps (``qargs``, a list of five ``QArgs`` or
-None in the 1×1 form; no frame program passes them, as in the JAX package).
+None in the 1×1 form; no frame program passes them, as in the JAX package;
+with ``s2d`` in bf16 on the row tile of ``csrc/chain_sm90.cuh``).
 
 ``fused_agcm_head``, ``fused_cond_chain``, ``fused_tail``,
 ``fused_sft_conv3_v2``, ``fused_resblock`` and ``fused_mix_chain`` take
@@ -51,7 +52,7 @@ import torch
 from hdrtv_tpu_torch.models.layers import conv_nhwc, leaky_relu
 from hdrtv_tpu_torch.ops import native
 from hdrtv_tpu_torch.ops.conv_kernels import check_a_sub, s8_sm90_table, sm90_table
-from hdrtv_tpu_torch.ops.w8a8 import QArgs, _dense_q, _taps_conv_q, check_qargs
+from hdrtv_tpu_torch.ops.w8a8 import QArgs, _dense_q, _quantize_act, _taps_conv_q, check_qargs
 
 _ACTS = {None: 0, "relu": 1, "lrelu": 2}
 
@@ -351,6 +352,20 @@ def _rows_1x1(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return rows.reshape(*v.shape[:-1], 4 * n)
 
 
+def _rows_q(v: torch.Tensor, qa: QArgs) -> torch.Tensor:
+    """An int8 1×1 step over ``w_s2d_1x1`` codes as the s2d forms take it:
+    fp32 ``v`` (..., 4K) quantized, the codes' (·, K) rows of natural pixels
+    times the weight's first diagonal block (``qa.w[:N, :K]``) as exact
+    int32 sums, times the first N of yscale, + the first N of the folded
+    bias. Equal to the dense step (``ops/w8a8.py _dense_q``) on such codes,
+    whose other blocks are zero and whose yscale and bias repeat per
+    sub-position; another result on any other."""
+    k, n = qa.c // 4, qa.co // 4
+    acc = _quantize_act(v, qa).reshape(-1, k).double() @ qa.w[:n, :k].double().T
+    rows = acc.float() * qa.yscale[:n] + qa.bias[:n]
+    return rows.reshape(*v.shape[:-1], 4 * n)
+
+
 def _check_s2d_1x1(name: str, weights) -> None:
     """What ``s2d=True`` takes, on the CPU as on the card: 1×1 weights and
     biases whose widths are four sub-position blocks."""
@@ -368,13 +383,13 @@ def fused_cond_chain_ref(c0, weights, qargs=None, *, s2d=False):
     ``cond1`` the last, each rounded once on store. An int8 step (``qargs``
     entry not None) quantizes the fp32 running value itself, sums the codes'
     products exactly and rescales: yscale, then the folded bias. ``s2d``:
-    each float step multiplies the weight's first diagonal block only
-    (:func:`_rows_1x1`), as the kernel's s2d form does."""
+    each step multiplies the weight's first diagonal block only (float
+    :func:`_rows_1x1`, int8 :func:`_rows_q`), as the kernel's s2d form does."""
     v = c0.float()
     c = None
     for idx, ((w, b), qa) in enumerate(zip(weights, qargs or [None] * len(weights))):
         if qa is not None:
-            v = _dense_q(v, qa)
+            v = _rows_q(v, qa) if s2d else _dense_q(v, qa)
         elif s2d:
             v = _rows_1x1(_rounded(v, w.dtype), w, b)
         else:
@@ -425,12 +440,15 @@ def fused_cond_chain(
     ``b_s2d(b)`` (``models/s2d.py``; the frame programs pass True, their
     weights come from those transforms): a float step then multiplies the
     (4·Hb·Wb, K) rows of natural pixels by the weight's first diagonal block
-    only, a quarter of the dense product. bf16 on the card without int8
-    steps: the Hopper row tile of ``csrc/chain_sm90.cuh`` (natural widths
-    64 → 64 ×4 → 16; others raise); fp32 and int8 steps keep the dense
-    kernel, the same function on such weights. The plain version honours it
-    too, so a weight without that structure gives another result than the
-    JAX kernel's. False: the dense product, right for any weight."""
+    only, a quarter of the dense product, and an int8 step the first
+    diagonal block of its codes (its other blocks are zero codes: the same
+    int32 sums). bf16 on the card: the Hopper row tile of
+    ``csrc/chain_sm90.cuh`` (natural widths 64 → 64 ×4 → 16; others raise),
+    with int8 steps its int8 instance (codes made in registers, s8 wgmma);
+    fp32 keeps the dense kernel, the same function on such weights. The
+    plain version honours it too, so a weight without that structure gives
+    another result than the JAX kernel's. False: the dense product, right
+    for any weight."""
     hb, wb, k = c0.shape
     dt = native.element_type("cond_chain c0", c0)
     if len(weights) != 5:
@@ -462,7 +480,7 @@ def fused_cond_chain(
         native.check_cuda("cond_chain w", w, dt)
         native.check_cuda("cond_chain b", b, torch.float32)
     quant = any(qa is not None for qa in qargs)
-    row_tile = s2d and dt == torch.bfloat16 and not quant  # the Hopper row tile
+    row_tile = s2d and dt == torch.bfloat16  # the Hopper row tile
     if row_tile and tuple([ws[0].shape[0] // 4] + [w.shape[1] // 4 for w in ws]) != COND_CHAIN_S2D_WIDTHS:
         raise ValueError(f"cond_chain: the s2d row tile takes natural widths {COND_CHAIN_S2D_WIDTHS}, got "
                          f"{[ws[0].shape[0] // 4] + [w.shape[1] // 4 for w in ws]}")

@@ -1,6 +1,6 @@
 """Where the Hopper conv tiles spend their time: in-kernel phase timers.
 
-    python -m hdrtv_tpu_torch.tools.sm90_phases [--only conv,agcm,s8,s8_s2,last]
+    python -m hdrtv_tpu_torch.tools.sm90_phases [--only conv,agcm,s8,s8_s2,last,pool,chain]
 
 Builds ``tools/sm90_phases.cu`` (the bf16 tile of ``csrc/conv3x3_sm90.cuh``
 and the fp32 3×TF32 tile of ``csrc/conv3x3_tf32x3.cuh``, with their
@@ -70,6 +70,23 @@ and unpacked: the dense kernel (``csrc/conv_last.cuh conv_last_kernel``)
 and the s2d form's Hopper tile (``conv_last_sm90_kernel``), per warp (see
 :func:`last_phases`).
 
+Then block_conv3's pool_out form with a_sub = 1 at L1 up_conv3's shape
+(270 × 480 × 128 → 512, PS-folded, pooled to 135 × 240; :func:`pool_phases`):
+the pooled instances of the bf16 tile (kEpiPool), the 3×TF32 tile and the
+wgmma s8 tile (bf16 and fp32 output, its codes given), each beside its
+unpooled call, with the phases named as above (``epilogue`` holds the pool:
+the shuffle, the rows' exchange or, in the s8 tile, the staged rows' max).
+
+Then cond_chain's s2d form at 1080p (540 × 960 s2d pixels, natural 64 → 64
+×4 → 16; :func:`chain_phases`) on the row tile, with steps 0, 2 and 4 int8
+(its int8 instance) and all float: the mean cycles of a warpgroup's tiles
+in ``rows`` (the wait for its rows, the next tile's loads), ``float steps``
+(issuing and waiting for the bf16 products), ``int8 steps`` (the meeting
+over the codes, the s8 products, the rescale), ``hand-off`` (the
+activation, then the rounding into the next A fragments or the quantizing
+into the code tile, and the first step's codes) and ``out`` (the last
+step's epilogue, the meeting and the stores).
+
 After its build it prints the build's ptxas notes that name a wgmma
 serialization or an injected wait (the ``C75`` codes, C7517 among them),
 each with the function it names, or says there are none.
@@ -88,7 +105,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from hdrtv_tpu_torch.models.s2d import w_s2d_s1_ps, w_s2d_s2
+from hdrtv_tpu_torch.models.s2d import w_ps_permute, w_s2d_s1_ps, w_s2d_s2
 from hdrtv_tpu_torch.ops import native
 from hdrtv_tpu_torch.ops.conv_kernels import sm90_table
 
@@ -134,12 +151,12 @@ def build() -> ctypes.CDLL:
     print("ptxas C75 notes: " + ("; ".join(notes) if notes else "none"), flush=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hdrtv_sm90_phases.argtypes = [p, p, p, p] + [i] * 8 + [p, i, i, i, p, p]
+    lib.hdrtv_sm90_phases.argtypes = [p, p, p, p] + [i] * 8 + [p, i, i, i, i, p, p]
     lib.hdrtv_sm90_phases.restype = i
     lib.hdrtv_sm90_agcm_phases.argtypes = [p, i, ctypes.c_float, p, i] + [p] * 7 + [i, i, p, p]
     lib.hdrtv_sm90_agcm_phases.restype = i
     f = ctypes.c_float
-    lib.hdrtv_sm90_s8_phases.argtypes = [p, p, p, p, f, f, i, p, p] + [i] * 5 + [p, i, i, p, p]
+    lib.hdrtv_sm90_s8_phases.argtypes = [p, p, p, p, f, f, i, p, p] + [i] * 5 + [p, i, i, i, p, p]
     lib.hdrtv_sm90_s8_phases.restype = i
     lib.hdrtv_sm90_s8_s2_phases.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, i, p] + [i] * 6 + [p, i, p, p]
     lib.hdrtv_sm90_s8_s2_phases.restype = i
@@ -147,6 +164,8 @@ def build() -> ctypes.CDLL:
     lib.hdrtv_sm90_sft_phases.restype = i
     lib.hdrtv_conv_last_phases.argtypes = [p] * 5 + [i] * 5 + [p, p, p]
     lib.hdrtv_conv_last_phases.restype = i
+    lib.hdrtv_sm90_cond_chain_phases.argtypes = [p] * 8 + [i, p, p]
+    lib.hdrtv_sm90_cond_chain_phases.restype = i
     return lib
 
 
@@ -197,7 +216,8 @@ def s8_phases(lib, dev, rng) -> None:
                 rc = lib.hdrtv_sm90_s8_phases(codes.data_ptr(), qa.w.data_ptr(), qa.yscale.data_ptr(),
                                               qa.bias.data_ptr(), qa.scale, qa.zero or 0.0, qa.pad,
                                               None if sk is None else sk.data_ptr(), y.data_ptr(), h, w, c, co, act,
-                                              tab, per, int(out_dt == torch.float32), phases.data_ptr(), stream)
+                                              tab, per, int(out_dt == torch.float32), 0, phases.data_ptr(),
+                                              stream)
                 if rc:
                     raise RuntimeError(f"conv3x3_s8_sm90 {name} {cal}: CUDA error {rc}")
             _report(f"{name} int8 s2d ({cal}, pad {qa.pad})", phases, PHASES["bf16"])
@@ -364,7 +384,91 @@ def agcm_phases(lib, dev, rng) -> None:
     print(f"agcm_sm90 (1080p, u8 pair planes): {len(d)} warpgroups; cycles {shares}", flush=True)
 
 
-PARTS = ("conv", "agcm", "s8", "s8_s2", "last")
+def pool_phases(lib, dev, rng) -> None:
+    """block_conv3's pool_out with a_sub = 1 at L1 up_conv3's shape (270 ×
+    480 × 128 → 512, PS-folded, ReLU): the bf16 and 3×TF32 tiles pooled and
+    unpooled, then the wgmma s8 tile pooled and unpooled, bf16 and fp32 out,
+    symmetric."""
+    from hdrtv_tpu_torch.ops.conv_kernels import s8_sm90_table
+    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
+    from hdrtv_tpu_torch.quant.int8 import quantize_weight
+
+    hb, wb, c, co = 270, 480, 128, 512
+    stream = torch.cuda.current_stream().cuda_stream
+    w_nat = rng.randn(3, 3, c // 4, co // 4).astype(np.float32) * 0.05
+    for dtype, tdt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        w = torch.as_tensor(w_s2d_s1_ps(w_nat), device=dev).to(tdt)
+        x = torch.rand(hb, wb, c, device=dev).to(tdt)
+        b = torch.zeros(co, device=dev)
+        table, per_list = sm90_table("up_conv3", 1, 1, c, co, c, dtype=tdt)
+        for pool in (1, 0):
+            y = torch.empty(hb // (1 + pool), wb // (1 + pool), co, device=dev, dtype=tdt)
+            phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
+            for _ in range(3):  # warm: the last run's sums are read
+                rc = lib.hdrtv_sm90_phases(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), hb, wb, c, 0, c,
+                                           co, 1, 1, table, per_list, int(dtype == "f32"), 0, pool,
+                                           phases.data_ptr(), stream)
+                if rc:
+                    raise RuntimeError(f"up_conv3 pool={pool} {dtype}: CUDA error {rc}")
+            _report(f"up_conv3 {'pooled' if pool else 'unpooled'} {dtype}", phases, PHASES[dtype])
+    wq, ws = quantize_weight(w_nat)
+    qa = pack_qargs(w_s2d_s1_ps(wq), np.tile(w_ps_permute(ws.reshape(1, 1, 1, -1))[0, 0, 0], 4), 0.01, None,
+                    (rng.randn(co) * 0.1).astype(np.float32), dev)
+    codes = torch.as_tensor(rng.randint(-128, 128, size=(hb, wb, c)).astype(np.int8), device=dev)
+    table, per_list = s8_sm90_table("up_conv3", 1, c, co)
+    for out_dt in (torch.bfloat16, torch.float32):
+        for pool in (1, 0):
+            y = torch.empty(hb // (1 + pool), wb // (1 + pool), co, device=dev, dtype=out_dt)
+            phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
+            for _ in range(3):
+                rc = lib.hdrtv_sm90_s8_phases(codes.data_ptr(), qa.w.data_ptr(), qa.yscale.data_ptr(),
+                                              qa.bias.data_ptr(), qa.scale, 0.0, qa.pad, None, y.data_ptr(), hb, wb,
+                                              c, co, 1, table, per_list, int(out_dt == torch.float32), pool,
+                                              phases.data_ptr(), stream)
+                if rc:
+                    raise RuntimeError(f"up_conv3 int8 pool={pool} {out_dt}: CUDA error {rc}")
+            _report(f"up_conv3 {'pooled' if pool else 'unpooled'} int8 s2d, {str(out_dt).split('.')[-1]} out", phases,
+                    PHASES["bf16"])
+
+
+CHAIN_PHASES = ["total", "rows", "float steps", "int8 steps", "hand-off", "out"]
+
+
+def chain_phases(lib, dev, rng) -> None:
+    """cond_chain's s2d form at 1080p on the row tile: steps 0, 2 and 4 int8
+    (2 with a zero point), then every step float."""
+    from hdrtv_tpu_torch.models.s2d import b_s2d, w_s2d_1x1
+    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
+    from hdrtv_tpu_torch.quant.int8 import quantize_weight
+
+    hb, wb = 540, 960
+    stream = torch.cuda.current_stream().cuda_stream
+    c0 = (torch.rand(hb, wb, 256, device=dev) - 0.3).to(torch.bfloat16)
+    ws, bs, qargs = [], [], []
+    for i, n in enumerate((64, 64, 64, 64, 16)):
+        wq, sc = quantize_weight(rng.randn(1, 1, 64, n).astype(np.float32) * 0.15)
+        tq, tsc = w_s2d_1x1(wq), b_s2d(sc)
+        bnp = b_s2d((rng.randn(n) * 0.1).astype(np.float32))
+        ws.append(torch.as_tensor(tq[0, 0].astype(np.float32) * tsc, device=dev).to(torch.bfloat16))
+        bs.append(torch.as_tensor(bnp, device=dev))
+        qargs.append(pack_qargs(tq, tsc, 2.0 / 127.0, -0.3 if i == 2 else None, bnp, dev) if i % 2 == 0 else None)
+    ints = ctypes.c_int * 5
+    k, n = ints(*[w.shape[0] for w in ws]), ints(*[w.shape[1] for w in ws])
+    c = torch.empty(hb, wb, 256, device=dev, dtype=torch.bfloat16)
+    cond1 = torch.empty(hb, wb, 64, device=dev, dtype=torch.bfloat16)
+    for form, qs in (("steps 0/2/4 int8", qargs), ("float", None)):
+        qptrs, _structs = native.quant_params_pointers(qs) if qs else (None, None)
+        phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
+        for _ in range(3):
+            rc = lib.hdrtv_sm90_cond_chain_phases(c0.data_ptr(), c.data_ptr(), cond1.data_ptr(),
+                                                  native.pointer_array(ws), native.pointer_array(bs), k, n, qptrs,
+                                                  hb * wb, phases.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"cond_chain s2d {form}: CUDA error {rc}")
+        _report(f"cond_chain s2d ({form})", phases, CHAIN_PHASES, steps=False)
+
+
+PARTS = ("conv", "agcm", "s8", "s8_s2", "last", "pool", "chain")
 
 
 def main() -> None:
@@ -402,7 +506,7 @@ def main() -> None:
             for _ in range(3):  # warm: the last run's sums are read
                 rc = lib.hdrtv_sm90_phases(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), hb, wb, c, 0,
                                            c, co, s, a_sub, table, per_list, int(dtype == "f32"), int(out_f32),
-                                           phases.data_ptr(), stream)
+                                           0, phases.data_ptr(), stream)
                 if rc:
                     raise RuntimeError(f"{name} {dtype}: CUDA error {rc}")
             torch.cuda.synchronize()
@@ -411,7 +515,8 @@ def main() -> None:
             mean = d.mean(axis=0)
             shares = {k: f"{mean[i]:.0f} ({mean[i] / mean[0]:.0%})" for i, k in enumerate(PHASES[dtype])}
             print(f"{name} {dtype}: {len(d)} warpgroups, {mean[7]:.0f} steps each; cycles {shares}", flush=True)
-    for part, fn in (("agcm", agcm_phases), ("s8", s8_phases), ("s8_s2", s8_s2_phases), ("last", last_phases)):
+    for part, fn in (("agcm", agcm_phases), ("s8", s8_phases), ("s8_s2", s8_s2_phases), ("last", last_phases),
+                     ("pool", pool_phases), ("chain", chain_phases)):
         if part in only:
             fn(lib, dev, rng)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

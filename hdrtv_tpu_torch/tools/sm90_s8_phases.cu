@@ -5,8 +5,9 @@
 // stride 2 over several branches' code planes) and the SFT row tile (csrc/chain_sm90.cuh
 // sft_sm90), the latter in its int8-output mode when q_w is set, else its
 // bf16 form; the conv with its bf16 or fp32 output, the SFT pass on bf16 x
-// (with the coarse up tensor) or fp32 x (resblock's h1). Each fills a
-// (2·blocks, 8) u64 array.
+// (with the coarse up tensor) or fp32 x (resblock's h1); and cond_chain's
+// s2d form on the row tile (csrc/chain_sm90.cuh), its int8 instance when a
+// step is int8. Each fills a (2·blocks, 8) u64 array.
 #define HDRTV_SM90_PHASES
 #include "../csrc/chain_sm90.cuh"
 #include "../csrc/conv3x3_s8_sm90.cuh"
@@ -30,14 +31,24 @@ hdrtv::QuantParams quant(const void* w, const void* yscale, const void* bias, fl
 // The int8 'same' conv of codes q (H, W, C) → y (H, W, Co), bf16, or fp32
 // with f32_out (resblock_w8a8's conv1, block_conv3_w8a8 in fp32): the layer
 // (w, yscale, bias, x_scale s, x_zero z, pad code), the skip (H, W, Co) in
-// y's type or null, act, the slot table.
+// y's type or null, act, the slot table; pool: block_conv3_w8a8's pool_out
+// instance, y (H/2, W/2, Co), without a skip.
 extern "C" int hdrtv_sm90_s8_phases(const void* q, const void* w, const void* yscale, const void* bias, float s,
                                     float z, int pad, const void* skip, void* y, int H, int W, int C, int Co, int act,
-                                    const int* table, int per_list, int f32_out, void* phases, void* stream) {
+                                    const int* table, int per_list, int f32_out, int pool, void* phases,
+                                    void* stream) {
   hdrtv::S8Sm90Args a;
   a.phases = static_cast<unsigned long long*>(phases);
-  return static_cast<int>(hdrtv::conv3x3_s8_sm90(q, quant(w, yscale, bias, s, z, pad), skip, y, H, W, C, Co,
-                                                 act, table, per_list, static_cast<cudaStream_t>(stream), &a,
+  const hdrtv::QuantParams p = quant(w, yscale, bias, s, z, pad);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pool) {
+    const cudaError_t err =
+        hdrtv::s8_sm90_setup<1>(a, q, 0, &p, 1, skip, y, H, W, C, Co, 1, act, table, per_list, f32_out != 0, true);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(f32_out ? hdrtv::launch_s8_sm90<1, false, true, true>(a, st)
+                                    : hdrtv::launch_s8_sm90<1, false, false, true>(a, st));
+  }
+  return static_cast<int>(hdrtv::conv3x3_s8_sm90(q, p, skip, y, H, W, C, Co, act, table, per_list, st, &a,
                                                  f32_out != 0));
 }
 
@@ -73,4 +84,26 @@ extern "C" int hdrtv_sm90_sft_phases(const void* x, const void* add, const void*
                                                    q_w ? &p : nullptr, ph));
   return static_cast<int>(hdrtv::sft_sm90<hdrtv::bf16>(x, add, 1, nullptr, cond, t, sft, H, W, C, CC, st,
                                                        q_w ? &p : nullptr, ph));
+}
+
+// cond_chain's s2d form (bf16 c0 of npix s2d pixels, natural widths 64 → 64
+// ×4 → 16; w, b the five steps' s2d weights and biases, k, n their widths;
+// q null or five pointers to QuantParams, null for a float step): the row
+// tile's int8 instance with an int8 step, else its float instance.
+extern "C" int hdrtv_sm90_cond_chain_phases(const void* c0, void* c, void* cond1, const void* const* w,
+                                            const void* const* b, const int* k, const int* n, const void* const* q,
+                                            int npix, void* phases, void* stream) {
+  hdrtv::ChainSm90Args a;
+  bool quant = false;
+  const cudaError_t err = hdrtv::cond_chain_sm90_args(a, c0, c, cond1, w, b, k, n, npix,
+                                                      reinterpret_cast<const hdrtv::QuantParams* const*>(q), &quant);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.phases = static_cast<unsigned long long*>(phases);
+  static hdrtv::DeviceCache cache, qcache;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (quant)
+    return static_cast<int>(hdrtv::launch_chain_sm90(hdrtv::cond_chain_sm90_kernel<64, 16, true>,
+                                                     hdrtv::ChainSm90Cfg<64, 16, 4, true>::SMEM, qcache, a, st));
+  return static_cast<int>(hdrtv::launch_chain_sm90(hdrtv::cond_chain_sm90_kernel<64, 16, false>,
+                                                   hdrtv::ChainSm90Cfg<64, 16, 4>::SMEM, cache, a, st));
 }

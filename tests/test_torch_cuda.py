@@ -1526,6 +1526,118 @@ def test_cond_chain_w8a8_matches_plain(dev, dtype, flags):
         assert float(moved.float().mean()) <= 0.05, float(moved.float().mean())
 
 
+@pytest.mark.parametrize("flags", [(1, 0, 2, 0, 1), (0, 2, 2, 1, 0), (2, 1, 1, 1, 2)],
+                         ids=["10201", "02210", "21112"])
+@pytest.mark.parametrize("hb,wb", [(9, 15), (1, 7), (40, 64)])
+def test_cond_chain_w8a8_s2d_matches_plain(dev, flags, hb, wb):
+    """cond_chain's int8 steps declared s2d in bf16: the row tile's int8
+    instance (codes made in registers, s8 wgmma on each step's diagonal
+    block), natural widths 64 → 64 ×4 → 16, w_s2d_1x1 weights and b_s2d
+    biases, ragged, sub-tile and many-tile row counts, int8 first and last
+    steps, consecutive int8 steps. Against the plain version's s2d form with
+    test_cond_chain_w8a8_matches_plain's bounds (a float step's sum order can
+    flip a code of the int8 step after it)."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_cond_chain, fused_cond_chain_ref
+    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
+    from hdrtv_tpu_torch.quant.int8 import quantize_weight
+
+    rng = np.random.RandomState(sum(flags) + 7 * flags[0] + hb)
+    c0 = _t(rng.rand(hb, wb, 256) - 0.3, dev, "bf16")
+    weights, qargs = [], []
+    for i, n in enumerate((64, 64, 64, 64, 16)):
+        wq, ws = quantize_weight(rng.randn(1, 1, 64, n).astype(np.float32) * 0.15)
+        tq, tsc = w_s2d_1x1(wq), b_s2d(ws)
+        bnp = b_s2d((rng.randn(n) * 0.1).astype(np.float32))
+        weights.append((_t(tq[0, 0].astype(np.float32) * tsc, dev, "bf16"), _t(bnp, dev)))
+        qargs.append(pack_qargs(tq, tsc, 2.0 / 127.0 if flags[i] == 1 else 3.0 / 255.0,
+                                -1.0 if flags[i] == 2 else None, bnp, dev) if flags[i] else None)
+    before = native.launch_counts["cond_chain_w8a8"], native.launch_counts["cond_chain"]
+    y = fused_cond_chain(c0, weights, qargs=qargs, s2d=True)
+    assert (native.launch_counts["cond_chain_w8a8"], native.launch_counts["cond_chain"]) == (before[0] + 1, before[1])
+    y_r = fused_cond_chain_ref(c0, weights, qargs, s2d=True)
+    last = max(i for i, q in enumerate(qargs) if q is not None)
+    torch.cuda.synchronize()
+    for a, r in zip(y, y_r):
+        assert a.dtype == r.dtype == torch.bfloat16 and a.shape == r.shape
+        err = (a.float() - r.float()).abs()
+        bound = 4 * 127.0 * float(qargs[last].yscale.max()) + 2.0 ** -7 * r.float().abs().clamp_min(1.0)
+        assert bool((err <= bound).all()), float(err.max())
+        assert float((err > 0).float().mean()) <= 0.05, float((err > 0).float().mean())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("form", ["float", "int8", "int8_zero"])
+@pytest.mark.parametrize("hb,wb,co,skip", [(12, 20, 128, False), (10, 14, 512, True), (8, 32, 128, False),
+                                           (6, 130, 512, False)])
+def test_block_conv3_pool_a_sub_matches_plain(dev, dtype, form, hb, wb, co, skip):
+    """pool_out with a_sub = 1 on the Hopper tiles' pooled epilogues: bf16
+    on conv3x3_sm90's kEpiPool (Co = 128: the BN = 32 instance, both tile
+    rows in one warpgroup; Co = 512: BN = 128, the two warpgroups' rows
+    exchanged), fp32 on the 3×TF32 tile's, int8 on the wgmma s8 tile's after
+    the quantize pass (the pad code at the edges with a zero point). Ragged
+    row and column tiles (130 columns: three of 64) and the residual. Float
+    as block_conv3 (fp32 absolute, bf16 one step); int8 bit for bit."""
+    from hdrtv_tpu_torch.ops.conv_kernels import (
+        fused_block_conv3, fused_block_conv3_q_ref, fused_block_conv3_ref,
+    )
+
+    rng = np.random.RandomState(hb * wb + co + len(form))
+    c = 128
+    x = _t(rng.rand(hb, wb, c) * 1.2 - 0.1, dev, dtype)
+    w, b, qa = _qlayer(rng, dev, c, co, (-0.1, 1.1), form == "int8_zero", ps=co == 512)
+    sk = _t(rng.rand(hb, wb, co) - 0.5, dev, dtype) if skip else None
+    qa = qa if form != "float" else None
+    counter = "block_conv3_pool_w8a8" if qa is not None else "block_conv3_pool"
+    before = native.launch_counts[counter], native.launch_counts["block_conv3"]
+    y = fused_block_conv3(x, w.to(x.dtype), b, relu=True, skip=sk, qargs=qa, pool_out=True, a_sub=1)
+    assert (native.launch_counts[counter], native.launch_counts["block_conv3"]) == (before[0] + 1, before[1])
+    assert y.shape == (hb // 2, wb // 2, co)
+    if qa is not None:
+        y_r = fused_block_conv3_q_ref(x, qa, relu=True, skip=sk, pool_out=True)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y_r), _max_err(y, y_r)
+    else:
+        _close(y, fused_block_conv3_ref(x, w.to(x.dtype), b, relu=True, skip=sk, pool_out=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_block_conv3_pool_a_sub_streams_weights(dev, dtype):
+    """pool_out with a_sub = 1 at C = 256 → Co = 512: in bf16 the chunks do
+    not fit in shared memory beside the ring (18 a list), so the pooled
+    epilogue runs on the tile's streamed-weight instance; in fp32 the 3×TF32
+    tile's 32-wide N tile. Ragged tiles; as block_conv3's float bounds."""
+    from hdrtv_tpu_torch.models.s2d import w_s2d_s1_ps
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_ref
+
+    rng = np.random.RandomState(256)
+    hb, wb, c, co = 10, 70, 256, 512
+    x = _t(rng.rand(hb, wb, c) * 1.2 - 0.1, dev, dtype)
+    w = _t(w_s2d_s1_ps(rng.randn(3, 3, c // 4, co // 4).astype(np.float32) * 0.04), dev, dtype)
+    b = _t(rng.randn(co) * 0.1, dev)
+    before = native.launch_counts["block_conv3_pool"]
+    y = fused_block_conv3(x, w, b, relu=True, pool_out=True, a_sub=1)
+    assert native.launch_counts["block_conv3_pool"] == before + 1
+    assert y.shape == (hb // 2, wb // 2, co)
+    _close(y, fused_block_conv3_ref(x, w, b, relu=True, pool_out=True), dtype)
+
+
+def test_block_conv3_pool_a_sub_refuses(dev):
+    """A pooled a_sub shape its tile does not take raises on the card, as on
+    the CPU, and launches nothing: no fallback to the dense tiles."""
+    from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
+
+    rng = np.random.RandomState(9)
+    w, b, qa = _qlayer(rng, dev, 256, 128, (-0.1, 1.1), False)
+    x = _t(rng.rand(8, 8, 256), dev, "bf16")
+    before = dict(native.launch_counts)
+    with pytest.raises(ValueError, match="wgmma s8 tile takes"):
+        fused_block_conv3(x, w.to(x.dtype), b, relu=True, qargs=qa, pool_out=True, a_sub=1)
+    x = _t(rng.rand(8, 8, 64), dev, "bf16")
+    with pytest.raises(ValueError, match="Hopper tile takes"):
+        fused_block_conv3(x, _t(rng.rand(3, 3, 64, 128), dev, "bf16"), b, relu=True, pool_out=True, a_sub=1)
+    assert dict(native.launch_counts) == before
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("hb,wb,co,skip", [(12, 20, 128, False), (10, 14, 512, True), (8, 32, 128, False)])
@@ -1790,7 +1902,9 @@ def test_trunk3_fp32_runs_the_tf32x3_tile(dev):
     def launched(sub):
         return sum(n for k, n in counts.items() if sub in k)
 
-    assert launched("conv3x3_tf32x3_kernel") == 9 and launched("conv3x3_tf32x3_kernel<32, 1, true>") == 1, counts
+    # the two-skip instance: <BN 32, stride 1, SK2, not pooled>
+    assert launched("conv3x3_tf32x3_kernel") == 9, counts
+    assert launched("conv3x3_tf32x3_kernel<32, 1, true, false>") == 1, counts
     assert launched("sft_rows_f32_kernel") == 8, counts
     assert launched("conv3x3_kernel") + launched("conv3x3_mma_kernel") + launched("::sft_kernel") == 0, counts
 
