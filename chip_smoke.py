@@ -43,10 +43,14 @@ lines; any failed check raises and the script exits non-zero with no result:
    differ at all (twice the share seen). cond_chain and the tail run in the
    s2d form the megakernel program calls (s2d=True, weights from the s2d
    transforms: in bf16 the Hopper row tile of csrc/chain_sm90.cuh for
-   cond_chain and the tail's SFT pass, the Hopper conv tile over the slot
+   cond_chain (in fp32 its 3×TF32 instance, csrc/chain_tf32x3.cuh, with a
+   "cond_chain_split" line per type naming the tile's kernel, its error and
+   the plain version's against a float64 chain (vs_fp64) and a planted fault,
+   one TF32 product in place of three in the plain emulation of the tile,
+   which must break the check) and the tail's SFT pass, the Hopper conv tile over the slot
    table for the tail's HR_conv2, and conv_last's tile of csrc/conv_last.cuh
    over w_last's populated slots) against the plain version's s2d form, and in
-   bf16 once more in the dense form (s2d=False), a case no path launches,
+   bf16 (cond_chain in both types) once more in the dense form (s2d=False), a case no path launches,
    with the same tolerances; a "tail_split" line gives each bf16 form's three
    launches (SFT pass, HR_conv2, conv_last) timed apart under torch.profiler.
    In bf16 the s2d tail runs once more unpacked, as the HG composite calls
@@ -80,8 +84,9 @@ lines; any failed check raises and the script exits non-zero with no result:
    bf16 equal except where the rounding of u10 flipped, each such output
    moving by at most max|wlast| · (bf16 step at max|u10|) · 65535 codes,
    doubled, on at most HG_TAIL_BF16_SHARE of the values. colorimetric at
-   (1080, 1920, 3): ≤ 2 codes (powf against torch.pow under the PQ exponent
-   78.84), equal at 0 and 1.
+   (1080, 1920, 3): ≤ 2 codes (the exact curve's codes against torch.pow's
+   in fp32 under the PQ exponent 78.84), equal at 0 and 1, timed as the
+   pack is (hot, cold, on the card) with its tables' build (tables_ms).
    The native-int8 (W8A8) bodies at the 1080p shapes of the three int8
    programs (block_conv3_w8a8 in fp32 and bf16, the other three in bf16 with
    an fp32 instance off the path), each also once with an asymmetric
@@ -125,10 +130,11 @@ lines; any failed check raises and the script exits non-zero with no result:
    epilogues: bf16 kEpiPool, fp32 3×TF32, int8 the wgmma s8 tile) and once
    more dense (a_sub = 0, the older tiles); cond_chain_w8a8 (steps 0 and 4
    int8 symmetric, step 2 with a zero point) at 540 × 960 × 256 on s2d
-   weights, in bf16 declared (s2d=True, the row tile's int8 instance) and
-   once more dense, where a float step's sum order can flip a code of the
-   next int8 step: each output within 4 flipped codes' worth of the last
-   int8 step, at most COND_CHAIN_INT8_SHARE of them differing. Each declared
+   weights, declared (s2d=True: the row tile's int8 instance; in fp32 that
+   of its 3×TF32 instance) and once more dense, where a float step's sum
+   order can flip a code of the next int8 step: each output within 4 flipped
+   codes' worth of the last int8 step, at most COND_CHAIN_INT8_SHARE of them
+   differing (in fp32 by more than ATOL). Each declared
    route prints a "block_conv3_pool_split" or "cond_chain_w8a8_split" line
    (its launches by kernel name, which must be its tile's) and holds its
    output to a planted fault of the plain version (the pool window one conv
@@ -208,8 +214,8 @@ lines; any failed check raises and the script exits non-zero with no result:
    frame program reaches it, nor in the JAX package); shape, dtype and range;
 6. the same for cond_chain's int8 steps and block_conv3's pool_out form
    (float and int8), which no frame program runs either: one call each per
-   element type at their 1080p shapes on their declared routes (s2d=True in
-   bf16, a_sub = 1), launch counts asserted, outputs of the right shape and
+   element type at their 1080p shapes on their declared routes (s2d=True,
+   a_sub = 1), launch counts asserted, outputs of the right shape and
    finite;
 7. the same for the two layout probes' kernels (d2s_add, rowmajor_head raw
    and pre), which no frame program runs either: one call each at its 1080p
@@ -375,6 +381,7 @@ HBM_BPS = 3.35e12  # H100 SXM device memory rate
 # on the tensor cores (big·big + small·big + big·small), a third of the dense TF32 rate.
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12, "tf32x3": 494.7e12 / 3}
 ATOL = 1e-4
+WITNESS_ROWS = 60  # image rows of fp32 cond_chain held to the float64 witness and the planted fault
 TAIL_BF16_SHARE = 0.016  # see the docstring, phase 2
 HG_TAIL_BF16_SHARE = 0.01
 HG_E2E_SIZE = (184, 336)  # s2d grid 92 × 168: pads 4 rows and 8 columns; takes the megakernel program
@@ -411,7 +418,8 @@ INT8_DOWN2_E2E_PSNR = 36.9
 INT8_HG_E2E_PSNR = 54.5
 # Share of the int8 cond_chain's outputs that may differ from its plain version (a float
 # step's sum order moves the running value by its last bit, which can flip a code of the
-# next int8 step): twice the 6.8e-5 seen in bf16 (0 in fp32) at 540 × 960.
+# next int8 step): twice the 6.8e-5 seen in bf16 (0 in fp32 on the dense chain) at 540 × 960.
+# fp32's s2d route counts the outputs beyond ATOL (its float steps' 3×TF32 sums).
 COND_CHAIN_INT8_SHARE = 1.4e-4
 # The eight frame programs (paths): the processor's precision token, the
 # element type, HDRTV_MEGAKERNEL, whether the checkpoint is the HG composite
@@ -702,12 +710,14 @@ def phase_kernels(torch, np) -> dict:
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3, fused_block_conv3_ref
     from hdrtv_tpu_torch.ops.megakernel import (
         agcm_head_pack, agcm_head_pack_s2d, fused_agcm_head, fused_agcm_head_ref, fused_cond_chain,
-        fused_cond_chain_ref,
+        fused_cond_chain_ref, cond_chain_tf32x3_emulation,
         fused_down2, fused_down2_ref, fused_mix_chain, fused_mix_chain_ref, fused_resblock,
         fused_hg_tail, fused_hg_tail_ref, fused_resblock_ref, fused_sft_conv3_v2, fused_sft_conv3_v2_ref,
         fused_tail, fused_tail_ref, fused_trunk3, fused_trunk3_ref, trunk3_pack, trunk3_pack_bf16,
     )
-    from hdrtv_tpu_torch.ops.pack import colorimetric_pq_pack, colorimetric_pq_pack_ref, pack_rgb48, pack_rgb48_ref
+    from hdrtv_tpu_torch.ops.pack import (
+        colorimetric_pq_pack, colorimetric_pq_pack_ref, colorimetric_tables, pack_rgb48, pack_rgb48_ref,
+    )
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3_q_ref
     from hdrtv_tpu_torch.ops.megakernel import _conv_same, _s2d_slots_only, _sft_conv_t, _sft_t
     from hdrtv_tpu_torch.ops.megakernel import fused_down2_q_ref
@@ -732,10 +742,10 @@ def phase_kernels(torch, np) -> dict:
         own = {p: k for p, k in per_path.items() if k and PATH_DTYPE[p] == dtype}
         return own or {p: k for p, k in per_path.items() if k and PATH_DTYPE[p] == "bf16"}
 
-    def check(y, y_ref, dtype, tol, unit="abs", share=None):
-        """Whether ``y`` is within ``tol`` of ``y_ref`` (``unit`` and
-        ``share`` as ``record`` takes them): (ok, what failed, max abs error,
-        bf16 steps or None, share of the values that differ)."""
+    def check(y, y_ref, dtype, tol, unit="abs", share=None, above=0.0):
+        """Whether ``y`` is within ``tol`` of ``y_ref`` (``unit``, ``share``
+        and ``above`` as ``record`` takes them): (ok, what failed, max abs
+        error, bf16 steps or None, share of the values that differ)."""
         torch.cuda.synchronize()
         e = (y.float() - y_ref.float()).abs()
         err = float(e.max())
@@ -748,33 +758,35 @@ def phase_kernels(torch, np) -> dict:
             ok, what = bool((e <= slack).all()), f"max abs error {err} beyond {tol} (+ a bf16 step)"
         else:
             ok, what = err <= tol, f"max abs error {err} > {tol}"
-        differ = float((e > 0).float().mean())
+        differ = float((e > above).float().mean())
         if ok and share is not None and differ > share:
             ok, what = False, f"{differ:.3e} of the values differ > {share}"
         return ok, what, err, steps, differ
 
-    def planted(kernel, dtype, fault, y, y_bad, tol, unit="abs", share=None):
+    def planted(kernel, dtype, fault, y, y_bad, tol, unit="abs", share=None, above=0.0):
         """A planted fault of the plain version (``y_bad``) must break the
         check that holds ``y`` to it; the script fails if it does not."""
-        ok, what, err, _, differ = check(y, y_bad, dtype, tol, unit, share)
+        ok, what, err, _, differ = check(y, y_bad, dtype, tol, unit, share, above)
         log(json.dumps({"planted": {"kernel": kernel, "dtype": dtype, "fault": fault, "breaks": not ok,
                                     "max_abs_err": err, "differ": differ, "what": what}}))
         if ok:
             raise AssertionError(f"{kernel} {dtype}: the check does not see the planted fault '{fault}'")
 
     def record(kernel, dtype, case, per_path, y, y_ref, tol, ms, plain_ms, lib_ms, nbytes, flops,
-               unit="abs", share=None, rate=None, extra=None, fma_flops=0.0, cold_ms=None):
+               unit="abs", share=None, rate=None, extra=None, fma_flops=0.0, cold_ms=None, above=0.0):
         """``unit``: what ``tol`` bounds. "abs": the absolute error (fp32,
         and u16 codes); "steps": bf16 steps of the result; "flips": the
         absolute error of an int8 body, ``tol`` being what its flipped codes
         can move an output by, plus in bf16 one step of its rounding.
-        ``share``: at most this share of the values may differ at all.
+        ``share``: at most this share of the values may differ at all (by
+        more than ``above``: an fp32 chain whose float steps sum in another
+        order than the plain version's differs in the last bits everywhere).
         ``rate``: the peak rate of the bound's operations (default: the
         element type's), ``fma_flops`` the part of ``flops`` on the FMA units
         at any rate. ``extra``: more fields for the case's line. ``cold_ms``:
         the time on inputs the L2 does not hold (``ms`` being on one that
         stays in it), reported beside ``ms``."""
-        ok, what, err, steps, differ = check(y, y_ref, dtype, tol, unit, share)
+        ok, what, err, steps, differ = check(y, y_ref, dtype, tol, unit, share, above)
         rate = rate or dtype
         b_ms, b_by = bound(nbytes, flops, rate, fma_flops)
         # the 3×TF32 tile's fp32 products: the FMA units' bound beside the tensor cores'
@@ -854,6 +866,16 @@ def phase_kernels(torch, np) -> dict:
 
         def act64(y, act):
             return F.relu(y) if act == "relu" else F.leaky_relu(y, 0.1) if act == "lrelu" else y
+
+        def chain64(x, weights):
+            """cond_chain's s2d form in float64: (c, cond1)."""
+            v, c = x.double(), None
+            for i, (w, b) in enumerate(weights):
+                k, n = w.shape[0] // 4, w.shape[1] // 4
+                v = (v.reshape(-1, k) @ w[:k, :n].double() + b[:n].double()).reshape(*v.shape[:-1], 4 * n)
+                v = act64(v, "lrelu") if i != 4 else v
+                c = v if i == 1 else c
+            return c, v
 
         # block_conv3: (name, hb, wb, natural ci, natural co, PS-folded, relu, skip,
         #               launches per frame on (fp32, bf16_nomega, bf16_mega))
@@ -1085,21 +1107,42 @@ def phase_kernels(torch, np) -> dict:
 
         # cond_chain: c0 (540,960,256) → 256 ×4 (lrelu) → 64; c and cond1 compared as one vector.
         # The program's s2d form (s2d=True: w_s2d_1x1 weights, b_s2d biases, the first quarter
-        # of each drawn bias tiled; bf16: the Hopper row tile of csrc/chain_sm90.cuh), then in
-        # bf16 the dense form once (s2d=False, the drawn biases as they are; no path launches it)
+        # of each drawn bias tiled; bf16: the Hopper row tile of csrc/chain_sm90.cuh; fp32 its
+        # 3×TF32 instance, csrc/chain_tf32x3.cuh, bound at the "tf32x3" rate), with a
+        # "cond_chain_split" line (its launch by kernel name, which must be the tile's), then the
+        # dense form once (s2d=False, the drawn biases as they are; no path launches it). fp32's
+        # s2d form also on the first WITNESS_ROWS image rows: its error and the plain version's
+        # against the chain in float64 (vs_fp64, information), and a planted fault (the plain
+        # emulation of the tile with one TF32 product in place of three), which must break its check.
         c0 = t(rng.rand(hb, wb, 256) - 0.3)
         dense = [(p11(64, n), f32(rng.randn(4 * n) * 0.1)) for n in (64, 64, 64, 64, 16)]
-        for s2d in (True, False) if dtype == "bf16" else (True,):
+        for s2d in (True, False):
             weights = [(w, b[: b.shape[0] // 4].repeat(4)) for w, b in dense] if s2d else dense
             y, y_r = fused_cond_chain(c0, weights, s2d=s2d), fused_cond_chain_ref(c0, weights, s2d=s2d)
             if [tuple(o.shape) for o in y] != [(hb, wb, 256), (hb, wb, 64)]:
                 raise AssertionError(f"cond_chain output shapes {[tuple(o.shape) for o in y]}")
             ms = time_ms(lambda: fused_cond_chain(c0, weights, s2d=s2d), torch)
             plain = time_ms(lambda: fused_cond_chain_ref(c0, weights, s2d=s2d), torch)
+            extra = None
+            if s2d:
+                split = launch_split(lambda: fused_cond_chain(c0, weights, s2d=True), torch, (("chain_ms", "chain"),))
+                log(json.dumps({"cond_chain_split": {"dtype": dtype, "ms": round(ms, 4), **split}}))
+                tile = "cond_chain_sm90_tf32x3_kernel" if dtype == "f32" else "cond_chain_sm90_kernel"
+                if not any(k.startswith(tile) for k in split["kernels"]):
+                    raise AssertionError(f"cond_chain s2d {dtype} did not launch {tile}: {split['kernels']}")
+            if s2d and dtype == "f32":
+                part = c0[:WITNESS_ROWS]
+                y_p = fused_cond_chain(part, weights, s2d=True)
+                y_bad = cond_chain_tf32x3_emulation(part, weights, products=1)
+                planted("cond_chain", dtype, "3xTF32 cut to one TF32 product", joined(y_p), joined(y_bad), ATOL)
+                extra = vs_fp64(joined(y_p), joined(fused_cond_chain_ref(part, weights, s2d=True)),
+                                joined(chain64(part, weights)))
+                del y_p, y_bad
             record("cond_chain", dtype, f"L0 c0 -> c, cond1 s2d={s2d}", (0, 0, 1) if s2d else (0, 0, 0),
                    joined(y), joined(y_r), ATOL if dtype == "f32" else 1, ms, plain, None,
                    nbytes_of(c0, *y, *[p for pair in weights for p in pair]),
-                   2 * npix * nnz(*[w for w, _ in weights]), unit)
+                   2 * npix * nnz(*[w for w, _ in weights]), unit,
+                   rate="tf32x3" if dtype == "f32" and s2d else None, extra=extra)
         del c0, y, y_r
 
         # tail, packed coarse form: s = fea0 (540,960,128) + d2s(up_coarse (270,480,512)),
@@ -1253,13 +1296,17 @@ def phase_kernels(torch, np) -> dict:
         cold = time_ms(pack_cold, torch)
         on_card = {key: launch_split(fn, torch, (("ms", "pack_rgb48"),))["ms"]
                    for key, fn in (("card_ms", lambda: pack_rgb48(v)), ("card_cold_ms", pack_cold))}
-        del ring
         plain = time_ms(lambda: pack_rgb48_ref(v), torch)
         record("pack_rgb48", dtype, f"(1080,1920,3) {dtype} -> u16", {"fp32": 1, "bf16_nomega": 1},
                u.to(torch.int32), pack_rgb48_ref(v).to(torch.int32), 0.0, ms, plain, None,
                v.numel() * (size + 2), v.numel() * 4, cold_ms=cold, extra=on_card)
 
-        # colorimetric: the same frame through gamma, gamut, PQ and the pack; on no frame path
+        # colorimetric: the same frame through gamma, gamut, PQ and the pack; on no frame path.
+        # Timed as the pack: on the input the L2 holds (ms), on the pack's ring (cold_ms), and
+        # on the card (card_ms, card_cold_ms; card_smooth_ms on phase 5's smooth frame, whose
+        # 256 levels a channel keep the tables' reads in few lines). Its tables are built by the
+        # first call for these parameters; tables_ms is the build's device time (the tables of
+        # another peak_nits built in turns with these, so that each call builds).
         u = colorimetric_pq_pack(v)
         u_r = colorimetric_pq_pack_ref(v)
         if tuple(u.shape) != (1080, 1920, 3) or u.dtype != torch.uint16:
@@ -1268,11 +1315,27 @@ def phase_kernels(torch, np) -> dict:
         if not torch.equal(colorimetric_pq_pack(ends), colorimetric_pq_pack_ref(ends)):
             raise AssertionError("colorimetric: kernel and plain version differ at 0 or 1")
         ms = time_ms(lambda: colorimetric_pq_pack(v), torch)
+
+        def color_cold():
+            return colorimetric_pq_pack(ring[next(turn) % len(ring)])
+
+        cold = time_ms(color_cold, torch)
+        smooth = (torch.as_tensor(smooth_frame(np, 1080, 1920, 5), device=dev).float() / 255.0).to(dt)
+        on_card = {key: launch_split(fn, torch, (("ms", "colorimetric_kernel"),))["ms"]
+                   for key, fn in (("card_ms", lambda: colorimetric_pq_pack(v)), ("card_cold_ms", color_cold),
+                                   ("card_smooth_ms", lambda: colorimetric_pq_pack(smooth)))}
+        peaks = iter(range(1 << 62))
+        on_card["tables_ms"] = launch_split(
+            lambda: colorimetric_tables(dev, (1000.0, 999.0)[next(peaks) % 2], 2.4), torch,
+            (("tables_ms", "colorimetric_tables"),))["tables_ms"]
+        colorimetric_tables(dev, 1000.0, 2.4)
+        del ring
         plain = time_ms(lambda: colorimetric_pq_pack_ref(v), torch)
-        # per pixel: 3 gamma powers, a 3×3 matrix, 3 × (2 powers, a divide, ~8 more): ~60 operations
+        # per pixel: 3 gamma powers, a 3×3 matrix, 3 × (2 powers, a divide, ~8 more): ~60 operations;
+        # by bytes either way
         record("colorimetric", dtype, f"(1080,1920,3) {dtype} -> PQ u16", {f"color_{dtype}": 1},
                u.to(torch.int32), u_r.to(torch.int32), 2, ms, plain, None,
-               v.numel() * (size + 2), v.numel() * 20)
+               v.numel() * (size + 2), v.numel() * 20, cold_ms=cold, extra=on_card)
         del v, u, u_r
 
         # hg_tail at the 1080p HG shape: Hb 540 reflect-padded to 544, Wb 960, hg_nf = 64, so up5
@@ -1627,9 +1690,12 @@ def phase_kernels(torch, np) -> dict:
         # cond_chain_w8a8: c0 (540, 960, 256) -> 256 x4 -> 64, steps 0 and 4 int8 symmetric,
         # step 2 int8 with a zero point, each calibrated on the float chain's value there; s2d
         # weights and biases. In bf16 the declared route first (s2d=True: the row tile's int8
-        # instance), counted, with a "cond_chain_w8a8_split" line and a planted fault (step 2's
-        # zero-point correction dropped from its folded bias) that must break its check, then
-        # the dense chain (s2d=False), logged beside it; fp32 runs the dense chain.
+        # instance; fp32: that of the 3×TF32 instance), counted, with a "cond_chain_w8a8_split"
+        # line and a planted fault (step 2's zero-point correction dropped from its folded bias)
+        # that must break its check, then the dense chain (s2d=False), logged beside it. On fp32's
+        # row tile the float steps sum in another order than the plain version's, so every value
+        # may differ in its last bits: its share counts those beyond ATOL, the float chain's bound
+        # (the dense chain's, as before, every value that differs).
         hb, wb = 540, 960
         c0 = t(rng.rand(hb, wb, 256) - 0.3)
         nat = [quantize_weight(rng.randn(1, 1, 64, n).astype(np.float32) * 0.15) for n in (64, 64, 64, 64, 16)]
@@ -1651,7 +1717,9 @@ def phase_kernels(torch, np) -> dict:
         flops = 2 * hb * wb * nnz(*[w_ for w_, _ in weights])
         wbytes = (sum(nbytes_of(w_, b_) for (w_, b_), q in zip(weights, qargs) if q is None)
                   + qbytes(*[q for q in qargs if q is not None]))
-        for s2d in (True, False) if dtype == "bf16" else (False,):
+        for s2d in (True, False):
+            above = ATOL if dtype == "f32" and s2d else 0.0
+
             def call(s2d=s2d):
                 return fused_cond_chain(c0, weights, qargs=qargs, s2d=s2d)
 
@@ -1662,17 +1730,18 @@ def phase_kernels(torch, np) -> dict:
             if s2d:
                 split = launch_split(call, torch, (("chain_ms", "chain"),))
                 log(json.dumps({"cond_chain_w8a8_split": {"dtype": dtype, "s2d": s2d, "ms": round(ms, 4), **split}}))
-                if not any(k.startswith("cond_chain_sm90_kernel") for k in split["kernels"]):
-                    raise AssertionError(f"cond_chain_w8a8 s2d did not launch the row tile: {split['kernels']}")
+                tile = "cond_chain_sm90_tf32x3_kernel" if dtype == "f32" else "cond_chain_sm90_kernel"
+                if not any(k.startswith(tile) for k in split["kernels"]):
+                    raise AssertionError(f"cond_chain_w8a8 s2d did not launch {tile}: {split['kernels']}")
                 unfolded = dataclasses.replace(qargs[2], bias=f32(bnps[2]))
                 y_bad = fused_cond_chain_ref(c0, weights, [*qargs[:2], unfolded, *qargs[3:]], s2d=True)
                 planted("cond_chain_w8a8", dtype, "step 2's zero-point correction dropped", joined(y),
-                        joined(y_bad), flip_tol(qargs[4], 4), "flips", COND_CHAIN_INT8_SHARE)
+                        joined(y_bad), flip_tol(qargs[4], 4), "flips", COND_CHAIN_INT8_SHARE, above)
                 del y_bad
             record("cond_chain_w8a8", dtype, f"L0 c0 -> c, cond1, steps 0/2/4 int8 s2d={s2d}",
-                   {f"forms_{dtype}": 1} if s2d or dtype == "f32" else {}, joined(y), joined(y_r),
+                   {f"forms_{dtype}": 1} if s2d else {}, joined(y), joined(y_r),
                    flip_tol(qargs[4], 4), ms, plain, None, nbytes_of(c0, *y) + wbytes, flops, "flips",
-                   share=COND_CHAIN_INT8_SHARE,
+                   share=COND_CHAIN_INT8_SHARE, above=above,
                    rate="int8")
             del y, y_r
         del c0, weights
@@ -2290,7 +2359,8 @@ def phase_forms(torch, np, native) -> dict:
     """The kernel forms no frame program runs, once per element type at a
     1080p main-path shape with the counts set to 0 before and read after:
     cond_chain's int8 steps (c0 (540, 960, 256), steps 0/2/4 int8; s2d
-    weights, declared in bf16: the row tile's int8 instance), and
+    weights, declared: the row tile's int8 instance, in fp32 that of its
+    3×TF32 instance), and
     block_conv3's pool_out form, float and int8 (L1 up_conv3's (270, 480, 128)
     -> 512, PS-folded, a_sub = 1: the Hopper tiles' pooled epilogues);
     returns the counts by drive."""
@@ -2324,7 +2394,7 @@ def phase_forms(torch, np, native) -> dict:
         qa = pack_qargs(tq, tsc, 1.1 / 127.0, None, bnp, dev)
         torch.cuda.synchronize()
         native.reset_launch_counts()
-        c, cond1 = fused_cond_chain(c0, steps, qargs=qargs, s2d=dtype == "bf16")
+        c, cond1 = fused_cond_chain(c0, steps, qargs=qargs, s2d=True)
         pooled = fused_block_conv3(x, w, b, relu=True, pool_out=True, a_sub=1)
         pooled_q = fused_block_conv3(x, w, b, relu=True, qargs=qa, pool_out=True, a_sub=1)
         torch.cuda.synchronize()

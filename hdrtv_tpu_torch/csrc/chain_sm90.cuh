@@ -9,7 +9,9 @@
 // and in its int8-output mode those of tail_w8a8, sft_conv3_w8a8 and
 // resblock_w8a8, when the caller declares the weights s2d
 // (ops/megakernel.py, s2d=True); agcm_head's AGCM pass (agcm_sm90) and
-// trunk3's SFT passes (sft_sm90_natural) too. The dense forms stay on
+// trunk3's SFT passes (sft_sm90_natural) too. cond_chain's fp32 s2d form,
+// float and int8 steps, runs the tile's fp32 instance (chain_tf32x3.cuh:
+// the same rows and ring, 3×TF32 products). The dense forms stay on
 // chain.cuh and pointwise.cuh.
 //
 // Why rows. A 1×1 weight of the s2d program is w_s2d_1x1(w) (models/s2d.py):
@@ -202,14 +204,15 @@ __device__ __forceinline__ void store_rows(void* dst, const unsigned char* st, i
   }
 }
 
-// The tiles of warpgroup wg of this block: first, first + stride, ... (n of them).
+// The tiles of warpgroup wg of this block (of `groups`): first, first +
+// stride, ... (n of them).
 struct RowTiles {
   long long first, stride;
   int n;
-  __device__ RowTiles(long long rows, int wg) {
+  __device__ RowTiles(long long rows, int wg, int groups = 2) {
     const long long tiles = (rows + kRowBM - 1) / kRowBM;
-    first = blockIdx.x * 2LL + wg;
-    stride = gridDim.x * 2LL;
+    first = static_cast<long long>(blockIdx.x) * groups + wg;
+    stride = static_cast<long long>(gridDim.x) * groups;
     n = first < tiles ? static_cast<int>((tiles - 1 - first) / stride + 1) : 0;
   }
   __device__ long long row0(int i) const { return (first + i * stride) * kRowBM; }
@@ -226,11 +229,14 @@ struct RowTiles {
 // 4·270·480 (mix_chain, whose pixels lie cf = 768 channels apart).
 // ---------------------------------------------------------------------------
 
-struct ChainSm90Args {
-  const bf16* x;   // row r at (r / 4)·cf + ch0 + (r % 4)·K
-  bf16* mid;       // (rows, K): c, after step 1 (MID)
-  bf16* y;         // (rows, NL): cond1, or mix_chain's output
-  const bf16* w[5];  // the s2d weights; the K × N block at the top left, row pitch ld
+// T: the element type of x, mid, y and the weights (bf16; float for the
+// fp32 instance of chain_tf32x3.cuh).
+template <typename T>
+struct ChainRowsArgs {
+  const T* x;   // row r at (r / 4)·cf + ch0 + (r % 4)·K
+  T* mid;       // (rows, K): c, after step 1 (MID)
+  T* y;         // (rows, NL): cond1, or mix_chain's output
+  const T* w[5];  // the s2d weights; the K × N block at the top left, row pitch ld
   const float* b[5];
   int ld[5];
   long long rows;
@@ -251,6 +257,7 @@ struct ChainSm90Args {
   unsigned long long* phases = nullptr;  // tools/sm90_phases.py: 8 clock64() sums per warpgroup
 #endif
 };
+using ChainSm90Args = ChainRowsArgs<bf16>;
 
 // The launch's shared memory. Q (cond_chain's int8 steps): laid out from a
 // 1024-byte boundary (the int8 operands' swizzles), a step's weight slot
@@ -288,20 +295,26 @@ __device__ __forceinline__ void stage_b_s8(unsigned char* dst, int N, const int8
   }
 }
 
+// Where the codes of row r, columns c and c + 1 lie in a code tile of
+// 64-byte rows in the 64-byte swizzle the wgmma reads (16-byte piece p of row
+// r at p ^ (r/2 % 4)).
+__device__ __forceinline__ unsigned short* code_pair(unsigned char* codes, int r, int c) {
+  return reinterpret_cast<unsigned short*>(codes + r * 64 + (((c >> 4) ^ ((r >> 1) & 3)) << 4) + (c & 15));
+}
+
 // The codes of the pair (v0, v1), an int8 step's fp32 input at row r,
-// columns c and c + 1, in a code tile of 64-byte rows in the 64-byte swizzle
-// the wgmma reads (16-byte piece p of row r at p ^ (r/2 % 4)): step s's
-// quantize_code, bit for bit, by quantize_code_rcp (its IEEE division only
-// near a half-integer). Where the row tile's int8 form spends its time
+// columns c and c + 1, at code_pair: step s's quantize_code, bit for bit, by
+// quantize_code_rcp (its IEEE division only near a half-integer). Where the
+// row tile's int8 form spends its time
 // (tools/sm90_phases.py --only chain): two variants measured slower on an
 // H100, rounding by adding 1.5·2^23 in place of rintf and the conversion
 // (+5%), and the division moved after a warp vote (+30%).
+template <typename T>
 __device__ __forceinline__ void put_codes(unsigned char* codes, int r, int c, float v0, float v1,
-                                          const ChainSm90Args& a, int s) {
+                                          const ChainRowsArgs<T>& a, int s) {
   const unsigned pair = (quantize_code_rcp(v0, a.qs[s], a.qinv[s], a.qz[s], a.qa[s]) & 0xff) |
                         (quantize_code_rcp(v1, a.qs[s], a.qinv[s], a.qz[s], a.qa[s]) & 0xff) << 8;
-  *reinterpret_cast<unsigned short*>(codes + r * 64 + (((c >> 4) ^ ((r >> 1) & 3)) << 4) + (c & 15)) =
-      static_cast<unsigned short>(pair);
+  *code_pair(codes, r, c) = static_cast<unsigned short>(pair);
 }
 
 // An int8 step of N outputs over the warpgroup's code tile (at shared
@@ -525,45 +538,46 @@ __global__ void __launch_bounds__(kRowThreads, 2) mix_chain_sm90_kernel(const __
 }
 
 // Persistent blocks: as many as the card holds (`resident`, from
-// conv3x3_sm90.cuh's resident_blocks: both tiles run 256 threads), capped at
-// one per two tiles.
-inline unsigned row_blocks(long long rows, int resident) {
+// conv3x3_sm90.cuh's resident_blocks), capped at one per `groups` tiles
+// (its warpgroups: two but in the fp32 chain).
+inline unsigned row_blocks(long long rows, int resident, int groups = 2) {
   const long long tiles = (rows + kRowBM - 1) / kRowBM;
-  return static_cast<unsigned>(std::max(1LL, std::min(static_cast<long long>(resident), (tiles + 1) / 2)));
+  return static_cast<unsigned>(std::max(1LL, std::min(static_cast<long long>(resident), (tiles + groups - 1) / groups)));
 }
 
-// One launch of a chain kernel with SMEM bytes (its resident blocks counted
-// once per device, in the caller's cache).
-template <typename Kernel>
-cudaError_t launch_chain_sm90(Kernel kernel, int smem, DeviceCache& cache, const ChainSm90Args& a,
-                              cudaStream_t stream) {
+// One launch of a chain kernel of `groups` warpgroups with SMEM bytes (its
+// resident blocks counted once per device, in the caller's cache).
+template <typename Kernel, typename T>
+cudaError_t launch_chain_sm90(Kernel kernel, int smem, DeviceCache& cache, const ChainRowsArgs<T>& a,
+                              cudaStream_t stream, int groups = 2) {
   int resident = 0;
-  const cudaError_t err = resident_blocks(cache, kernel, smem, &resident);
+  const cudaError_t err = resident_blocks(cache, kernel, smem, &resident, 128 * groups);
   if (err != cudaSuccess) return err;
-  kernel<<<row_blocks(a.rows, resident), kRowThreads, smem, stream>>>(a);
+  kernel<<<row_blocks(a.rows, resident, groups), 128 * groups, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The arguments of cond_chain's bf16 form over s2d weights (as cond_chain.cu
-// takes them: s2d widths k, n per step, npix s2d pixels; q null, or five
-// pointers to the steps' QuantParams, null for a float step), the launch
-// in cond_chain.cu (tools/sm90_s8_phases.cu builds its own). The chain the
-// frame programs run, natural widths 64 → 64 ×4 → 16, is the one it takes;
-// anything else is refused. *quant: whether a step is int8 (then the Q
-// instance runs, each int8 block read at the top left of the QArgs codes,
-// row pitch k[s]).
-inline cudaError_t cond_chain_sm90_args(ChainSm90Args& a, const void* c0, void* c, void* cond1,
+// The arguments of cond_chain's s2d form, bf16 or (T = float) fp32, over
+// s2d weights (as cond_chain.cu takes them: s2d widths k, n per step, npix
+// s2d pixels; q null, or five pointers to the steps' QuantParams, null for
+// a float step), the launch in cond_chain.cu (tools/sm90_s8_phases.cu builds
+// its own). The chain the frame programs run, natural widths 64 → 64 ×4 →
+// 16, is the one it takes; anything else is refused. *quant: whether a step
+// is int8 (then the Q instance runs, each int8 block read at the top left of
+// the QArgs codes, row pitch k[s]).
+template <typename T>
+inline cudaError_t cond_chain_sm90_args(ChainRowsArgs<T>& a, const void* c0, void* c, void* cond1,
                                         const void* const* w, const void* const* b, const int* k, const int* n,
                                         int npix, const QuantParams* const* q, bool* quant) {
   constexpr int K = 64, NL = 16;
   for (int s = 0; s < 5; ++s)
     if (k[s] != 4 * K || n[s] != 4 * (s < 4 ? K : NL)) return cudaErrorInvalidValue;
-  a.x = static_cast<const bf16*>(c0);
-  a.mid = static_cast<bf16*>(c);
-  a.y = static_cast<bf16*>(cond1);
+  a.x = static_cast<const T*>(c0);
+  a.mid = static_cast<T*>(c);
+  a.y = static_cast<T*>(cond1);
   *quant = false;
   for (int s = 0; s < 5; ++s) {
-    a.w[s] = static_cast<const bf16*>(w[s]);
+    a.w[s] = static_cast<const T*>(w[s]);
     a.b[s] = static_cast<const float*>(b[s]);
     a.ld[s] = n[s];
     const QuantParams* qp = q ? q[s] : nullptr;

@@ -59,14 +59,23 @@ __device__ __forceinline__ int quantize_code(float t, float s, float z, int asym
 // 3·2^-24·|y| + 2^-25, no half-integer lies between y and d and the code is
 // rint(c). Elsewhere (a band of 2^-12 around each half-integer, under 0.01%
 // of the values) it divides; a NaN t gives lo either way. The code is
-// quantize_code's bit for bit.
-__device__ __forceinline__ int quantize_code_rcp(float t, float s, float inv, float z, int asym) {
+// quantize_code's bit for bit. quantize_code_fast is its code without the
+// division, setting `near` where t lies in that band (and the code may be
+// another).
+__device__ __forceinline__ int quantize_code_fast(float t, float inv, float z, int asym, bool& near) {
   const float a = __fsub_rn(t, z);
-  const float lo = asym ? 0.f : -128.f, hi = asym ? 255.f : 127.f;
-  const float c = fminf(fmaxf(__fmul_rn(a, inv), lo), hi);
-  float r = rintf(c);
-  if (!(__fsub_rn(0.5f, fabsf(__fsub_rn(c, r))) > 0x1p-13f)) r = fminf(fmaxf(rintf(__fdiv_rn(a, s)), lo), hi);
+  const float c = fminf(fmaxf(__fmul_rn(a, inv), asym ? 0.f : -128.f), asym ? 255.f : 127.f);
+  const float r = rintf(c);
+  near |= !(__fsub_rn(0.5f, fabsf(__fsub_rn(c, r))) > 0x1p-13f);
   return static_cast<int>(r) - (asym ? 128 : 0);
+}
+
+__device__ __forceinline__ int quantize_code_rcp(float t, float s, float inv, float z, int asym) {
+  bool near = false;
+  const int code = quantize_code_fast(t, inv, z, asym, near);
+  if (!near) return code;
+  const float r = rintf(__fdiv_rn(__fsub_rn(t, z), s));
+  return static_cast<int>(fminf(fmaxf(r, asym ? 0.f : -128.f), asym ? 255.f : 127.f)) - (asym ? 128 : 0);
 }
 
 // What the wrappers pass for an int8 layer (a ctypes Structure of the same

@@ -134,6 +134,19 @@ template <int N>
 struct WgmmaTf32;
 
 template <>
+struct WgmmaTf32<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
 struct WgmmaTf32<32> {
   static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int scale_d = 1) {
     asm volatile(

@@ -24,7 +24,8 @@ consolidated CondNet down conv; the frame programs pass it under
 ``HDRTV_INT8_DOWN2=1`` only, as the JAX package does), and
 ``fused_cond_chain`` its int8 steps (``qargs``, a list of five ``QArgs`` or
 None in the 1×1 form; no frame program passes them, as in the JAX package;
-with ``s2d`` in bf16 on the row tile of ``csrc/chain_sm90.cuh``).
+with ``s2d`` on the row tile of ``csrc/chain_sm90.cuh``, in fp32 its 3×TF32
+instance ``csrc/chain_tf32x3.cuh``).
 
 ``fused_agcm_head``, ``fused_cond_chain``, ``fused_tail``,
 ``fused_sft_conv3_v2``, ``fused_resblock`` and ``fused_mix_chain`` take
@@ -401,6 +402,50 @@ def fused_cond_chain_ref(c0, weights, qargs=None, *, s2d=False):
     return c, v.to(c0.dtype)
 
 
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """fp32 ``v`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest on
+    the low 13 bits, ties away from zero."""
+    return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _rows_tf32x3(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor, products: int = 3) -> torch.Tensor:
+    """:func:`_rows_1x1` as the row tile's fp32 instance (``csrc/chain_tf32x3.cuh``)
+    computes it: the rows and the weight's first diagonal block split into
+    TF32 big and small halves, small·big + big·small + big·big summed over
+    each 32-channel chunk (exact products, the chunk's sum rounded once to
+    fp32: the tensor cores' order within it is not modelled), the chunk sums
+    added, then the bias, in fp32. ``products`` = 1 keeps big·big alone, one
+    TF32 product: a fault the checks must see."""
+    k, n = w.shape[0] // 4, w.shape[1] // 4
+    rows, blk = v.reshape(-1, k), w[:k, :n].float()
+    rb, wb = _tf32(rows), _tf32(blk)
+    rs, ws = _tf32(rows - rb), _tf32(blk - wb)
+    acc = None
+    for c32 in range(0, k, 32):
+        sl = slice(c32, c32 + 32)
+        part = rb[:, sl].double() @ wb[sl].double()
+        if products == 3:
+            part = part + rs[:, sl].double() @ wb[sl].double() + rb[:, sl].double() @ ws[sl].double()
+        acc = part.float() if acc is None else acc + part.float()
+    return (acc + b[:n]).reshape(*v.shape[:-1], 4 * n)
+
+
+def cond_chain_tf32x3_emulation(c0, weights, qargs=None, *, products: int = 3):
+    """The fp32 row tile's chain in torch ops, on s2d weights as
+    ``fused_cond_chain(..., s2d=True)`` takes them: float steps
+    :func:`_rows_tf32x3`, int8 steps the plain version's :func:`_rows_q`;
+    returns (c, cond1) in fp32."""
+    v = c0.float()
+    c = None
+    for idx, ((w, b), qa) in enumerate(zip(weights, qargs or [None] * len(weights))):
+        v = _rows_q(v, qa) if qa is not None else _rows_tf32x3(v, w, b, products)
+        if idx != 4:
+            v = _apply_act(v, "lrelu")
+        if idx == 1:
+            c = v
+    return c, v
+
+
 # The natural widths the Hopper row tile of csrc/chain_sm90.cuh is built for:
 # cond_chain 64 → 64 ×4 → 16; the SFT passes of the tail, sft_conv3 and
 # resblock cond 16 and features 32.
@@ -442,11 +487,11 @@ def fused_cond_chain(
     (4·Hb·Wb, K) rows of natural pixels by the weight's first diagonal block
     only, a quarter of the dense product, and an int8 step the first
     diagonal block of its codes (its other blocks are zero codes: the same
-    int32 sums). bf16 on the card: the Hopper row tile of
-    ``csrc/chain_sm90.cuh`` (natural widths 64 → 64 ×4 → 16; others raise),
-    with int8 steps its int8 instance (codes made in registers, s8 wgmma);
-    fp32 keeps the dense kernel, the same function on such weights. The
-    plain version honours it too, so a weight without that structure gives
+    int32 sums). On the card: the Hopper row tile of ``csrc/chain_sm90.cuh``
+    (natural widths 64 → 64 ×4 → 16; others raise), with int8 steps its
+    int8 instance (codes made in registers, s8 wgmma); in fp32 its 3×TF32
+    instance (``csrc/chain_tf32x3.cuh``), float and int8 steps. The plain
+    version honours it too, so a weight without that structure gives
     another result than the JAX kernel's. False: the dense product, right
     for any weight."""
     hb, wb, k = c0.shape
@@ -480,7 +525,7 @@ def fused_cond_chain(
         native.check_cuda("cond_chain w", w, dt)
         native.check_cuda("cond_chain b", b, torch.float32)
     quant = any(qa is not None for qa in qargs)
-    row_tile = s2d and dt == torch.bfloat16  # the Hopper row tile
+    row_tile = s2d  # the Hopper row tile (fp32: its 3×TF32 instance)
     if row_tile and tuple([ws[0].shape[0] // 4] + [w.shape[1] // 4 for w in ws]) != COND_CHAIN_S2D_WIDTHS:
         raise ValueError(f"cond_chain: the s2d row tile takes natural widths {COND_CHAIN_S2D_WIDTHS}, got "
                          f"{[ws[0].shape[0] // 4] + [w.shape[1] // 4 for w in ws]}")

@@ -41,7 +41,7 @@ launch_counts: dict[str, int] = {
     "block_conv3": 0, "down2": 0, "trunk3": 0, "pack_rgb48": 0,
     "sft_conv3": 0, "resblock": 0, "mix_chain": 0,
     "agcm_head": 0, "cond_chain": 0, "tail": 0,
-    "hg_tail": 0, "colorimetric": 0,
+    "hg_tail": 0, "colorimetric": 0, "colorimetric_tables": 0,
     "block_conv3_w8a8": 0, "sft_conv3_w8a8": 0, "resblock_w8a8": 0, "tail_w8a8": 0,
     "down2_w8a8": 0, "cond_chain_w8a8": 0, "block_conv3_pool": 0, "block_conv3_pool_w8a8": 0,
     "d2s_add": 0, "rowmajor_head": 0,
@@ -157,7 +157,7 @@ def _load() -> ctypes.CDLL:
         "hdrtv_cond_chain": ([p, p, p, p, p, p, p, p, i, i, p], i),
         "hdrtv_tail": ([p, p, p, p, p, p, p, q, p, p, p, p, p, p, i, i, i, i, i, i, i, p, i, p], i),
         "hdrtv_hg_tail": ([p, p, p, p, p, p, p, p, p, i, i, i, i, p], i),
-        "hdrtv_colorimetric": ([p, p, ll, *([f] * 16), p], i),
+        "hdrtv_colorimetric": ([p, p, ll, *([f] * 16), p, p, p], i),
     }
     sigs = {f"{name}_{sfx}": sig for name, sig in per_dtype.items()
             for sfx in DTYPE_SUFFIX.values()}
@@ -168,6 +168,8 @@ def _load() -> ctypes.CDLL:
         "hdrtv_rowmajor_head_pre_bf16": ([p, p, p, i, i, i, p], i),
         # agcm_head's s2d form exists in bf16 only (the fp32 instance keeps the dense kernels)
         "hdrtv_agcm_head_s2d_bf16": ([p, i, f, p, i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, p], i),
+        # colorimetric's tables are fp32 for either input type
+        "hdrtv_colorimetric_tables_f32": ([p, p, *([f] * 16), p], i),
         "hdrtv_trunk3_param_floats": ([i, i, i], ll),
         "hdrtv_mix_chain_max_steps": ([], i),
         "hdrtv_error_string": ([i], ctypes.c_char_p),

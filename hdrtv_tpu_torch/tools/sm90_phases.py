@@ -78,14 +78,18 @@ unpooled call, with the phases named as above (``epilogue`` holds the pool:
 the shuffle, the rows' exchange or, in the s8 tile, the staged rows' max).
 
 Then cond_chain's s2d form at 1080p (540 × 960 s2d pixels, natural 64 → 64
-×4 → 16; :func:`chain_phases`) on the row tile, with steps 0, 2 and 4 int8
-(its int8 instance) and all float: the mean cycles of a warpgroup's tiles
-in ``rows`` (the wait for its rows, the next tile's loads), ``float steps``
-(issuing and waiting for the bf16 products), ``int8 steps`` (the meeting
-over the codes, the s8 products, the rescale), ``hand-off`` (the
-activation, then the rounding into the next A fragments or the quantizing
-into the code tile, and the first step's codes) and ``out`` (the last
-step's epilogue, the meeting and the stores).
+×4 → 16; :func:`chain_phases`) on the row tile in bf16 and on its fp32
+3×TF32 instance (``csrc/chain_tf32x3.cuh``), each with steps 0, 2 and 4
+int8 (its int8 instance) and all float: the mean cycles of a warpgroup's
+tiles in ``rows`` (the wait for its rows, the next tile's loads), ``float
+steps`` (issuing and waiting for the products: bf16, or 3×TF32 with the
+chunk sums added), ``int8 steps`` (the meeting over the codes, the s8
+products, the rescale), ``hand-off`` (the activation, then the rounding
+into the next A fragments, in fp32 the TF32 split, or the quantizing into
+the code tile; bf16: the first step's codes or fragments too; fp32: c's
+stores), ``out`` (the last step's epilogue and the stores; bf16: the
+meeting) and, fp32 only, ``first A`` (the first step's fragments split, or
+its codes, from the staged rows).
 
 After its build it prints the build's ptxas notes that name a wgmma
 serialization or an injected wait (the ``C75`` codes, C7517 among them),
@@ -166,6 +170,8 @@ def build() -> ctypes.CDLL:
     lib.hdrtv_conv_last_phases.restype = i
     lib.hdrtv_sm90_cond_chain_phases.argtypes = [p] * 8 + [i, p, p]
     lib.hdrtv_sm90_cond_chain_phases.restype = i
+    lib.hdrtv_sm90_cond_chain_f32_phases.argtypes = [p] * 8 + [i, p, p]
+    lib.hdrtv_sm90_cond_chain_f32_phases.restype = i
     return lib
 
 
@@ -431,41 +437,46 @@ def pool_phases(lib, dev, rng) -> None:
                     PHASES["bf16"])
 
 
-CHAIN_PHASES = ["total", "rows", "float steps", "int8 steps", "hand-off", "out"]
+CHAIN_PHASES = ["total", "rows", "float steps", "int8 steps", "hand-off", "out", "first A"]
 
 
 def chain_phases(lib, dev, rng) -> None:
-    """cond_chain's s2d form at 1080p on the row tile: steps 0, 2 and 4 int8
-    (2 with a zero point), then every step float."""
+    """cond_chain's s2d form at 1080p on the row tile, in bf16 and on its fp32
+    3×TF32 instance: steps 0, 2 and 4 int8 (2 with a zero point), then every
+    step float."""
     from hdrtv_tpu_torch.models.s2d import b_s2d, w_s2d_1x1
     from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
     from hdrtv_tpu_torch.quant.int8 import quantize_weight
 
     hb, wb = 540, 960
     stream = torch.cuda.current_stream().cuda_stream
-    c0 = (torch.rand(hb, wb, 256, device=dev) - 0.3).to(torch.bfloat16)
+    c0_f32 = torch.rand(hb, wb, 256, device=dev) - 0.3
     ws, bs, qargs = [], [], []
     for i, n in enumerate((64, 64, 64, 64, 16)):
         wq, sc = quantize_weight(rng.randn(1, 1, 64, n).astype(np.float32) * 0.15)
         tq, tsc = w_s2d_1x1(wq), b_s2d(sc)
         bnp = b_s2d((rng.randn(n) * 0.1).astype(np.float32))
-        ws.append(torch.as_tensor(tq[0, 0].astype(np.float32) * tsc, device=dev).to(torch.bfloat16))
+        ws.append(torch.as_tensor(tq[0, 0].astype(np.float32) * tsc, device=dev))
         bs.append(torch.as_tensor(bnp, device=dev))
         qargs.append(pack_qargs(tq, tsc, 2.0 / 127.0, -0.3 if i == 2 else None, bnp, dev) if i % 2 == 0 else None)
     ints = ctypes.c_int * 5
     k, n = ints(*[w.shape[0] for w in ws]), ints(*[w.shape[1] for w in ws])
-    c = torch.empty(hb, wb, 256, device=dev, dtype=torch.bfloat16)
-    cond1 = torch.empty(hb, wb, 64, device=dev, dtype=torch.bfloat16)
-    for form, qs in (("steps 0/2/4 int8", qargs), ("float", None)):
-        qptrs, _structs = native.quant_params_pointers(qs) if qs else (None, None)
-        phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
-        for _ in range(3):
-            rc = lib.hdrtv_sm90_cond_chain_phases(c0.data_ptr(), c.data_ptr(), cond1.data_ptr(),
-                                                  native.pointer_array(ws), native.pointer_array(bs), k, n, qptrs,
-                                                  hb * wb, phases.data_ptr(), stream)
-            if rc:
-                raise RuntimeError(f"cond_chain s2d {form}: CUDA error {rc}")
-        _report(f"cond_chain s2d ({form})", phases, CHAIN_PHASES, steps=False)
+    for dtype, fn in ((torch.bfloat16, lib.hdrtv_sm90_cond_chain_phases),
+                      (torch.float32, lib.hdrtv_sm90_cond_chain_f32_phases)):
+        c0 = c0_f32.to(dtype)
+        wt = [w.to(dtype) for w in ws]
+        c = torch.empty(hb, wb, 256, device=dev, dtype=dtype)
+        cond1 = torch.empty(hb, wb, 64, device=dev, dtype=dtype)
+        name = str(dtype).split(".")[-1]
+        for form, qs in (("steps 0/2/4 int8", qargs), ("float", None)):
+            qptrs, _structs = native.quant_params_pointers(qs) if qs else (None, None)
+            phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
+            for _ in range(3):
+                rc = fn(c0.data_ptr(), c.data_ptr(), cond1.data_ptr(), native.pointer_array(wt),
+                        native.pointer_array(bs), k, n, qptrs, hb * wb, phases.data_ptr(), stream)
+                if rc:
+                    raise RuntimeError(f"cond_chain s2d {name} {form}: CUDA error {rc}")
+            _report(f"cond_chain s2d {name} ({form})", phases, CHAIN_PHASES, steps=False)
 
 
 PARTS = ("conv", "agcm", "s8", "s8_s2", "last", "pool", "chain")

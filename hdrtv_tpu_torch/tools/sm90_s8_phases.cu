@@ -7,9 +7,11 @@
 // bf16 form; the conv with its bf16 or fp32 output, the SFT pass on bf16 x
 // (with the coarse up tensor) or fp32 x (resblock's h1); and cond_chain's
 // s2d form on the row tile (csrc/chain_sm90.cuh), its int8 instance when a
-// step is int8. Each fills a (2·blocks, 8) u64 array.
+// step is int8, in fp32 its 3×TF32 instance (csrc/chain_tf32x3.cuh). Each
+// fills a (2·blocks, 8) u64 array.
 #define HDRTV_SM90_PHASES
 #include "../csrc/chain_sm90.cuh"
+#include "../csrc/chain_tf32x3.cuh"
 #include "../csrc/conv3x3_s8_sm90.cuh"
 
 namespace {
@@ -106,4 +108,26 @@ extern "C" int hdrtv_sm90_cond_chain_phases(const void* c0, void* c, void* cond1
                                                      hdrtv::ChainSm90Cfg<64, 16, 4, true>::SMEM, qcache, a, st));
   return static_cast<int>(hdrtv::launch_chain_sm90(hdrtv::cond_chain_sm90_kernel<64, 16, false>,
                                                    hdrtv::ChainSm90Cfg<64, 16, 4>::SMEM, cache, a, st));
+}
+
+// The same in fp32 (c0 fp32): the row tile's 3×TF32 instance, its Q
+// instance with an int8 step.
+extern "C" int hdrtv_sm90_cond_chain_f32_phases(const void* c0, void* c, void* cond1, const void* const* w,
+                                                const void* const* b, const int* k, const int* n, const void* const* q,
+                                                int npix, void* phases, void* stream) {
+  hdrtv::ChainF32Args a;
+  bool quant = false;
+  const cudaError_t err = hdrtv::cond_chain_sm90_args(a, c0, c, cond1, w, b, k, n, npix,
+                                                      reinterpret_cast<const hdrtv::QuantParams* const*>(q), &quant);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.phases = static_cast<unsigned long long*>(phases);
+  static hdrtv::DeviceCache cache, qcache;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (quant)
+    return static_cast<int>(hdrtv::launch_chain_sm90(hdrtv::cond_chain_sm90_tf32x3_kernel<true>,
+                                                     hdrtv::ChainTf32Cfg<true>::SMEM, qcache, a, st,
+                                                     hdrtv::ChainTf32Cfg<true>::WGS));
+  return static_cast<int>(hdrtv::launch_chain_sm90(hdrtv::cond_chain_sm90_tf32x3_kernel<false>,
+                                                   hdrtv::ChainTf32Cfg<false>::SMEM, cache, a, st,
+                                                   hdrtv::ChainTf32Cfg<false>::WGS));
 }

@@ -625,32 +625,35 @@ def test_tail_matches_plain(dev, dtype, hb, wb, coarse, pack):
         assert int(d.max()) <= 64 and float(d.float().mean()) < 1.0, (int(d.max()), float(d.float().mean()))
 
 
-def _p11(rng, ci, co, dev, scale=0.1):
-    """A 1×1 conv as the s2d program has it: w_s2d_1x1 weight (bf16), b_s2d bias."""
+def _p11(rng, ci, co, dev, scale=0.1, dtype="bf16"):
+    """A 1×1 conv as the s2d program has it: w_s2d_1x1 weight (bf16, or
+    ``dtype``), b_s2d bias."""
     w = w_s2d_1x1(rng.randn(1, 1, ci, co).astype(np.float32) * scale)[0, 0]
-    return _t(w, dev, "bf16"), _t(b_s2d(rng.randn(co).astype(np.float32) * 0.1), dev)
+    return _t(w, dev, dtype), _t(b_s2d(rng.randn(co).astype(np.float32) * 0.1), dev)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("hb,wb", [(12, 20), (9, 15), (1, 7), (3, 5), (72, 128)])
-def test_cond_chain_s2d_matches_plain(dev, hb, wb):
-    """The Hopper row tile (csrc/chain_sm90.cuh) of cond_chain's s2d form in
-    bf16, natural widths 64 → 64 ×4 → 16: 4·Hb·Wb rows, a whole number of
-    64-row tiles (12 × 20), ragged ones (9 × 15, 3 × 5), less than one tile
-    (1 × 7), and several tiles per warpgroup (72 × 128). Against the plain
-    version's s2d form, two bf16 steps as the dense chain (a flipped rounding
+def test_cond_chain_s2d_matches_plain(dev, dtype, hb, wb):
+    """The Hopper row tile (csrc/chain_sm90.cuh) of cond_chain's s2d form,
+    in fp32 its 3×TF32 instance (csrc/chain_tf32x3.cuh), natural widths 64 →
+    64 ×4 → 16: 4·Hb·Wb rows, a whole number of 64-row tiles (12 × 20),
+    ragged ones (9 × 15, 3 × 5), less than one tile (1 × 7), and several
+    tiles per warpgroup (72 × 128). Against the plain version's s2d form:
+    fp32 within ATOL, bf16 two steps as the dense chain (a flipped rounding
     of one step moves the next)."""
     from hdrtv_tpu_torch.ops.megakernel import fused_cond_chain, fused_cond_chain_ref
 
     rng = np.random.RandomState(hb * wb + 13)
-    c0 = _t(rng.rand(hb, wb, 256) - 0.3, dev, "bf16")
-    weights = [_p11(rng, 64, n, dev) for n in (64, 64, 64, 64, 16)]
+    c0 = _t(rng.rand(hb, wb, 256) - 0.3, dev, dtype)
+    weights = [_p11(rng, 64, n, dev, dtype=dtype) for n in (64, 64, 64, 64, 16)]
     before = native.launch_counts["cond_chain"]
     c, cond1 = fused_cond_chain(c0, weights, s2d=True)
     assert native.launch_counts["cond_chain"] == before + 1
     c_r, cond1_r = fused_cond_chain_ref(c0, weights, s2d=True)
     assert c.shape == (hb, wb, 256) and cond1.shape == (hb, wb, 64)
-    _close(c, c_r, "bf16", steps=2, flips=0.05)
-    _close(cond1, cond1_r, "bf16", steps=2, flips=0.05)
+    _close(c, c_r, dtype, steps=2, flips=0.05)
+    _close(cond1, cond1_r, dtype, steps=2, flips=0.05)
 
 
 @pytest.mark.parametrize("hb,wb,coarse,pack", [
@@ -689,14 +692,16 @@ def test_tail_s2d_matches_plain(dev, hb, wb, coarse, pack):
 
 
 def test_s2d_row_tile_refuses_other_widths(dev):
-    """s2d=True in bf16 with natural widths the row tile is not built for
-    raises on the card; nothing falls back to the dense kernels."""
+    """s2d=True in bf16 (cond_chain in fp32 too) with natural widths the row
+    tile is not built for raises on the card; nothing falls back to the
+    dense kernels."""
     from hdrtv_tpu_torch.ops.megakernel import fused_cond_chain, fused_tail
 
     rng = np.random.RandomState(5)
-    c0 = _t(rng.rand(4, 4, 128), dev, "bf16")
-    with pytest.raises(ValueError, match="row tile"):
-        fused_cond_chain(c0, [_p11(rng, 32, n, dev) for n in (32, 32, 32, 32, 16)], s2d=True)
+    for dtype in DTYPES:
+        c0 = _t(rng.rand(4, 4, 128), dev, dtype)
+        with pytest.raises(ValueError, match="row tile"):
+            fused_cond_chain(c0, [_p11(rng, 32, n, dev, dtype=dtype) for n in (32, 32, 32, 32, 16)], s2d=True)
     sft = [_p11(rng, ci, co, dev) for ci, co in ((16, 16), (16, 64), (16, 16), (16, 64))]
     z = torch.zeros
     with pytest.raises(ValueError, match="row tile"):
@@ -869,20 +874,45 @@ def test_hg_tail_matches_plain(dev, dtype, hb, wb, cu, cc):
         assert int(d.max()) <= tol and float((d > 1).float().mean()) <= 0.02, (int(d.max()), tol)
 
 
+def _bf16_sweep(dev):
+    """Every bf16 value in [0, 1] on each channel (the other two a fixed
+    draw), and gray: (4·0x3F81, 3) bf16, 0 and 1 first."""
+    sweep = (torch.arange(0x3F81, dtype=torch.int32) << 16).view(torch.float32)
+    rest = torch.from_numpy(np.random.RandomState(5).rand(0x3F81, 3).astype(np.float32))
+    rows = [sweep[:, None].expand(-1, 3)]
+    for c in range(3):
+        x = rest.clone()
+        x[:, c] = sweep
+        rows.append(x)
+    x = torch.cat(rows)
+    x[:2] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]])
+    return x.to(device=dev, dtype=torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", [(36, 50, 3), (2, 7, 129, 3)])
+@pytest.mark.parametrize("shape", [(36, 50, 3), (2, 7, 129, 3), "sweep"])
 def test_colorimetric_matches_plain(dev, dtype, shape):
-    """The kernel's powf against torch.pow on the card: ≤ 2 u16 codes, equal
-    at 0 and 1; another peak and gamma are arguments, not constants."""
+    """The kernel (tables of code thresholds and bf16 powers, a guess from the
+    approximate instructions corrected against the thresholds) against
+    torch.pow on the card: ≤ 2 u16 codes, equal at 0 and 1; ragged pixel
+    counts (36 × 50, 2 × 7 × 129: groups of 8 and a tail); "sweep" every bf16
+    value in [0, 1] on each channel. Another peak and gamma are arguments,
+    not constants: a change between calls builds the tables again, the same
+    parameters do not."""
     from hdrtv_tpu_torch.ops.pack import colorimetric_pq_pack, colorimetric_pq_pack_ref
 
-    v = np.random.RandomState(len(shape)).uniform(-0.1, 1.1, shape).astype(np.float32)
-    v.reshape(-1, 3)[:2] = [[0, 0, 0], [1, 1, 1]]
-    x = _t(v, dev, dtype)
-    for kwargs in ({}, {"peak_nits": 600.0, "gamma": 2.2}):
-        before = native.launch_counts["colorimetric"]
+    if shape == "sweep":
+        x = _bf16_sweep(dev).to(DTYPES[dtype])
+    else:
+        v = np.random.RandomState(len(shape)).uniform(-0.1, 1.1, shape).astype(np.float32)
+        v.reshape(-1, 3)[:2] = [[0, 0, 0], [1, 1, 1]]
+        x = _t(v, dev, dtype)
+    for i, kwargs in enumerate(({}, {"peak_nits": 600.0, "gamma": 2.2}, {"peak_nits": 600.0, "gamma": 2.2})):
+        before = native.launch_counts["colorimetric"], native.launch_counts["colorimetric_tables"]
         u = colorimetric_pq_pack(x, **kwargs)
-        assert native.launch_counts["colorimetric"] == before + 1
+        assert native.launch_counts["colorimetric"] == before[0] + 1
+        rebuilt = native.launch_counts["colorimetric_tables"] - before[1]
+        assert rebuilt == (1, 0)[i - 1] if i else rebuilt <= 1, (i, rebuilt)
         u_r = colorimetric_pq_pack_ref(x, **kwargs)
         torch.cuda.synchronize()
         assert u.shape == x.shape and u.dtype == torch.uint16
@@ -1526,29 +1556,30 @@ def test_cond_chain_w8a8_matches_plain(dev, dtype, flags):
         assert float(moved.float().mean()) <= 0.05, float(moved.float().mean())
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("flags", [(1, 0, 2, 0, 1), (0, 2, 2, 1, 0), (2, 1, 1, 1, 2)],
                          ids=["10201", "02210", "21112"])
 @pytest.mark.parametrize("hb,wb", [(9, 15), (1, 7), (40, 64)])
-def test_cond_chain_w8a8_s2d_matches_plain(dev, flags, hb, wb):
-    """cond_chain's int8 steps declared s2d in bf16: the row tile's int8
-    instance (codes made in registers, s8 wgmma on each step's diagonal
-    block), natural widths 64 → 64 ×4 → 16, w_s2d_1x1 weights and b_s2d
-    biases, ragged, sub-tile and many-tile row counts, int8 first and last
-    steps, consecutive int8 steps. Against the plain version's s2d form with
-    test_cond_chain_w8a8_matches_plain's bounds (a float step's sum order can
-    flip a code of the int8 step after it)."""
+def test_cond_chain_w8a8_s2d_matches_plain(dev, dtype, flags, hb, wb):
+    """cond_chain's int8 steps declared s2d: the row tile's int8 instance
+    (codes made in registers, s8 wgmma on each step's diagonal block), in
+    fp32 that of its 3×TF32 instance, natural widths 64 → 64 ×4 → 16,
+    w_s2d_1x1 weights and b_s2d biases, ragged, sub-tile and many-tile row
+    counts, int8 first and last steps, consecutive int8 steps. Against the
+    plain version's s2d form with test_cond_chain_w8a8_matches_plain's bounds
+    (a float step's sum order can flip a code of the int8 step after it)."""
     from hdrtv_tpu_torch.ops.megakernel import fused_cond_chain, fused_cond_chain_ref
     from hdrtv_tpu_torch.ops.w8a8 import pack_qargs
     from hdrtv_tpu_torch.quant.int8 import quantize_weight
 
     rng = np.random.RandomState(sum(flags) + 7 * flags[0] + hb)
-    c0 = _t(rng.rand(hb, wb, 256) - 0.3, dev, "bf16")
+    c0 = _t(rng.rand(hb, wb, 256) - 0.3, dev, dtype)
     weights, qargs = [], []
     for i, n in enumerate((64, 64, 64, 64, 16)):
         wq, ws = quantize_weight(rng.randn(1, 1, 64, n).astype(np.float32) * 0.15)
         tq, tsc = w_s2d_1x1(wq), b_s2d(ws)
         bnp = b_s2d((rng.randn(n) * 0.1).astype(np.float32))
-        weights.append((_t(tq[0, 0].astype(np.float32) * tsc, dev, "bf16"), _t(bnp, dev)))
+        weights.append((_t(tq[0, 0].astype(np.float32) * tsc, dev, dtype), _t(bnp, dev)))
         qargs.append(pack_qargs(tq, tsc, 2.0 / 127.0 if flags[i] == 1 else 3.0 / 255.0,
                                 -1.0 if flags[i] == 2 else None, bnp, dev) if flags[i] else None)
     before = native.launch_counts["cond_chain_w8a8"], native.launch_counts["cond_chain"]
@@ -1558,11 +1589,13 @@ def test_cond_chain_w8a8_s2d_matches_plain(dev, flags, hb, wb):
     last = max(i for i, q in enumerate(qargs) if q is not None)
     torch.cuda.synchronize()
     for a, r in zip(y, y_r):
-        assert a.dtype == r.dtype == torch.bfloat16 and a.shape == r.shape
+        assert a.dtype == r.dtype == DTYPES[dtype] and a.shape == r.shape
         err = (a.float() - r.float()).abs()
-        bound = 4 * 127.0 * float(qargs[last].yscale.max()) + 2.0 ** -7 * r.float().abs().clamp_min(1.0)
+        scale = r.float().abs().clamp_min(1.0)
+        bound = 4 * 127.0 * float(qargs[last].yscale.max()) + (2.0 ** -7 * scale if dtype == "bf16" else 0.0)
         assert bool((err <= bound).all()), float(err.max())
-        assert float((err > 0).float().mean()) <= 0.05, float((err > 0).float().mean())
+        moved = err > (1e-5 * scale if dtype == "f32" else 0.0)
+        assert float(moved.float().mean()) <= 0.05, float(moved.float().mean())
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
