@@ -62,9 +62,21 @@ lines; any failed check raises and the script exits non-zero with no result:
    sft_conv3 and resblock likewise run in the s2d form both bf16 programs
    call (s2d=True: in bf16 the SFT passes on the row tile, resblock's SFT2
    reading the fp32 h1, the convs on the Hopper conv tile over the slot
-   table, resblock's conv1 storing h1 in fp32) and in bf16 once more in the
-   dense form, with the same tolerances; "sft_conv3_split" and
-   "resblock_split" lines give each bf16 case's SFT and conv launches apart.
+   table, resblock's conv1 storing h1 in fp32; in fp32 the SFT passes on the
+   row tile's 3×TF32 instance, csrc/sft_tf32x3.cuh, and the convs on the
+   3×TF32 conv tile, bound at the "tf32x3" rate with bound_fma_ms beside it)
+   and once more in the dense form, with the same tolerances;
+   "sft_conv3_split" and "resblock_split" lines give each case's SFT and
+   conv launches apart, by kernel name (fp32 s2d: sft_tf32x3_kernel and
+   conv3x3_tf32x3_kernel, which they must name). In fp32, sft_conv3's SFT
+   pass alone (its t, from the same launch with a t the script keeps) and
+   its output are held to float64 (vs_fp64, information); on the first
+   WITNESS_ROWS image rows of the L0 case a planted fault of the plain
+   version, its conv cut to one TF32 product, must break the check, and for
+   both kernels the SFT passes cut to one TF32 product are reported with
+   their margin (they stay inside 1e-4: the 16-deep products are small);
+   resblock's planted fault, at trunk5 + up_coarse, takes the residual from
+   x in place of xsum.
    resblock also runs, in bf16 and the s2d form, at the blocks of the 720p
    program that phase 13 drives (L1 180 × 320 with and without up_coarse,
    L2 90 × 160 with and without x_add: trunk2 and trunk4 take the kernel at
@@ -381,7 +393,10 @@ HBM_BPS = 3.35e12  # H100 SXM device memory rate
 # on the tensor cores (big·big + small·big + big·small), a third of the dense TF32 rate.
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12, "tf32x3": 494.7e12 / 3}
 ATOL = 1e-4
-WITNESS_ROWS = 60  # image rows of fp32 cond_chain held to the float64 witness and the planted fault
+WITNESS_ROWS = 60  # image rows of fp32 cond_chain and sft_conv3 L0 held to the float64 witness / the planted faults
+# The kernels the fp32 s2d forms of sft_conv3 and resblock must launch: the SFT pass on the
+# row tile's 3×TF32 instance, the convs on the 3×TF32 conv tile.
+F32_SFT_TILES = ("sft_tf32x3_kernel", "conv3x3_tf32x3_kernel")
 TAIL_BF16_SHARE = 0.016  # see the docstring, phase 2
 HG_TAIL_BF16_SHARE = 0.01
 HG_E2E_SIZE = (184, 336)  # s2d grid 92 × 168: pads 4 rows and 8 columns; takes the megakernel program
@@ -528,6 +543,13 @@ KERNEL_INFO = {
     "d2s_add": ("hdrtv_tpu_torch/csrc/d2s_add.cu", "tools/proto_d2s_kernel.py:34"),
     "rowmajor_head_raw": ("hdrtv_tpu_torch/csrc/rowmajor_head.cu", "tools/proto_rowmajor_head.py:35"),
     "rowmajor_head_pre": ("hdrtv_tpu_torch/csrc/rowmajor_head.cu", "tools/proto_rowmajor_head.py:45"),
+}
+# The tiles of the fp32 instances that ride along off the path ("off_path" in the kernels
+# line), where they are not the entry's own source: the s2d forms' 3×TF32 row and conv tiles.
+OFF_PATH_SOURCE = {
+    "sft_conv3": "hdrtv_tpu_torch/csrc/sft_tf32x3.cuh + hdrtv_tpu_torch/csrc/conv3x3_tf32x3.cuh",
+    "resblock": "hdrtv_tpu_torch/csrc/sft_tf32x3.cuh + hdrtv_tpu_torch/csrc/conv3x3_tf32x3.cuh",
+    "cond_chain": "hdrtv_tpu_torch/csrc/chain_tf32x3.cuh",
 }
 # The launch counter a KERNEL_INFO entry reads, where it is not its own name: the head
 # probe's two forms share one kernel body and one counter.
@@ -719,8 +741,11 @@ def phase_kernels(torch, np) -> dict:
         colorimetric_pq_pack, colorimetric_pq_pack_ref, colorimetric_tables, pack_rgb48, pack_rgb48_ref,
     )
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3_q_ref
+    from hdrtv_tpu_torch.ops import native
     from hdrtv_tpu_torch.ops.megakernel import _conv_same, _s2d_slots_only, _sft_conv_t, _sft_t
-    from hdrtv_tpu_torch.ops.megakernel import fused_down2_q_ref
+    from hdrtv_tpu_torch.ops.megakernel import (
+        _d2s_fine, _sft_hopper, _sft_t_rows, _tf32, fused_down2_q_ref, sft_tf32x3_emulation,
+    )
     from hdrtv_tpu_torch.ops.w8a8 import pack_qargs, pack_qargs_branches
     from hdrtv_tpu_torch.quant.int8 import quantize_weight
 
@@ -763,13 +788,16 @@ def phase_kernels(torch, np) -> dict:
             ok, what = False, f"{differ:.3e} of the values differ > {share}"
         return ok, what, err, steps, differ
 
-    def planted(kernel, dtype, fault, y, y_bad, tol, unit="abs", share=None, above=0.0):
+    def planted(kernel, dtype, fault, y, y_bad, tol, unit="abs", share=None, above=0.0, required=True):
         """A planted fault of the plain version (``y_bad``) must break the
-        check that holds ``y`` to it; the script fails if it does not."""
+        check that holds ``y`` to it; the script fails if it does not.
+        ``required`` False: the fault is only reported, with its margin (its
+        error over the tolerance)."""
         ok, what, err, _, differ = check(y, y_bad, dtype, tol, unit, share, above)
         log(json.dumps({"planted": {"kernel": kernel, "dtype": dtype, "fault": fault, "breaks": not ok,
-                                    "max_abs_err": err, "differ": differ, "what": what}}))
-        if ok:
+                                    "required": required, "max_abs_err": err, "margin": err / tol,
+                                    "differ": differ, "what": what}}))
+        if ok and required:
             raise AssertionError(f"{kernel} {dtype}: the check does not see the planted fault '{fault}'")
 
     def record(kernel, dtype, case, per_path, y, y_ref, tol, ms, plain_ms, lib_ms, nbytes, flops,
@@ -877,6 +905,78 @@ def phase_kernels(torch, np) -> dict:
                 c = v if i == 1 else c
             return c, v
 
+        def tiles_launched(split, kernel, tiles):
+            """The kernels of a launch split (by name) must include each of ``tiles``."""
+            missing = [k for k in tiles if not any(n.startswith(k) for n in split["kernels"])]
+            if missing:
+                raise AssertionError(f"{kernel} {dtype} s2d did not launch {missing}: {split['kernels']}")
+
+        def sft_conv3_t(x, cond, sft, w, b):
+            """t of fp32 sft_conv3's s2d call on the card: the wrapper's launch
+            (its route and table) with a t the script keeps."""
+            hb_, wb_, c = x.shape
+            cc = cond.shape[-1]
+            hopper, table, per_list = _sft_hopper("sft_conv3", True, torch.float32, cc, c, c)
+            t_, y_ = torch.empty_like(x), torch.empty_like(x)
+            native.launch("sft_conv3", torch.float32, x.data_ptr(), cond.data_ptr(),
+                          native.pointer_array([p for pair in sft for p in pair]), w.data_ptr(), b.data_ptr(),
+                          None, None, y_.data_ptr(), t_.data_ptr(), hb_, wb_, c, cc, c, 0, hopper, table, per_list,
+                          native.stream_of(x))
+            return t_
+
+        def sft64(x, cond, sft):
+            """The s2d SFT pass in float64: t."""
+            def rows(v, w, b):
+                k, n = w.shape[0] // 4, w.shape[1] // 4
+                return (v.reshape(-1, k) @ w[:k, :n].double() + b[:n].double()).reshape(*v.shape[:-1], 4 * n)
+
+            cd = cond.double()
+            hs, hh = act64(rows(cd, *sft[0]), "lrelu"), act64(rows(cd, *sft[2]), "lrelu")
+            return x.double() * (rows(hs, *sft[1]) + 1.0) + rows(hh, *sft[3])
+
+        def sft_conv3_f32_witness(x, cond, sft, w, b, relu, sk, y, y_r):
+            """fp32 sft_conv3's SFT pass alone (t, the kernel's and the plain
+            version's) and its output against float64 (information)."""
+            t64 = sft64(x, cond, sft)
+            t_, t_r = sft_conv3_t(x, cond, sft, w, b), _sft_t_rows(x, cond, sft, torch.float32)
+            out = {"sft_pass_vs_fp64": vs_fp64(t_, t_r, t64)["vs_fp64"]}
+            del t_, t_r
+            ws = _s2d_slots_only(w).double().permute(3, 2, 0, 1)
+            y64 = F.conv2d(t64[None].permute(0, 3, 1, 2), ws, b.double(), padding=1)[0].permute(1, 2, 0)
+            del t64
+            out.update(vs_fp64(y, y_r, act64(y64 if sk is None else y64 + sk.double(), "relu" if relu else None)))
+            return out
+
+        def sft_conv3_f32_faults(x, cond, sft, w, b, relu):
+            """fp32 sft_conv3's s2d call on these rows against two faults of
+            its plain version: the SFT pass cut to one TF32 product (reported
+            with its margin) and the conv cut to one TF32 product (its
+            operands rounded to TF32, big·big alone: it must break)."""
+            y = fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, s2d=True)
+            ws = _s2d_slots_only(w)
+
+            def act(v):
+                return torch.clamp_min(v, 0.0) if relu else v
+
+            y_bad = act(_conv_same(sft_tf32x3_emulation(x, cond, sft, products=1), ws, b))
+            planted("sft_conv3", "f32", "SFT pass cut to one TF32 product", y, y_bad, ATOL, required=False)
+            y_bad = act(_conv_same(_tf32(_sft_t_rows(x, cond, sft, torch.float32)), _tf32(ws), b))
+            planted("sft_conv3", "f32", "conv cut to one TF32 product", y, y_bad, ATOL)
+
+        def resblock_f32_faults(args, up, add, y, y_r):
+            """fp32 resblock's s2d call against faults of its plain version: its
+            SFT passes cut to one TF32 product (reported with its margin)
+            and, with a second input, the residual taken from x in place of
+            xsum (it must break)."""
+            x, cond, sft1, w1, b1, sft2, w2, b2 = args
+            xin = x if up is None and add is None else x + (_d2s_fine(up) if up is not None else add)
+            h1 = torch.clamp_min(_conv_same(sft_tf32x3_emulation(xin, cond, sft1, products=1), _s2d_slots_only(w1),
+                                            b1), 0.0)
+            y_bad = _conv_same(sft_tf32x3_emulation(h1, cond, sft2, products=1), _s2d_slots_only(w2), b2) + xin
+            planted("resblock", "f32", "SFT passes cut to one TF32 product", y, y_bad, ATOL, required=False)
+            if xin is not x:
+                planted("resblock", "f32", "residual x in place of xsum", y, y_r - (xin - x), ATOL)
+
         # block_conv3: (name, hb, wb, natural ci, natural co, PS-folded, relu, skip,
         #               launches per frame on (fp32, bf16_nomega, bf16_mega))
         for name, hb, wb, ci, co, ps, relu, skip, per_path in (
@@ -959,7 +1059,8 @@ def phase_kernels(torch, np) -> dict:
         # sft_conv3: x (hb,wb,128), cond (hb,wb,64); on the bf16 frame programs only (the
         # megakernel program has SFT_layer2 + HR_conv2 in its tail). The programs' s2d form
         # (bf16: the SFT on the row tile, the conv on the Hopper conv tile over the slot
-        # table), then in bf16 the dense form once (no path launches it)
+        # table; fp32: the SFT on the row tile's 3×TF32 instance, the conv on the 3×TF32 tile),
+        # then the dense form once (no path launches it)
         for name, hb, wb, relu, skip, per_path in (
             ("L0 SFT_layer1/2 + HR_conv1/2", 540, 960, True, False, (0, 2, 1)),
             ("L2 trunk2/4 sft1 + conv1", 135, 240, True, False, (0, 2, 2)),
@@ -972,7 +1073,7 @@ def phase_kernels(torch, np) -> dict:
             b = f32(rng.randn(128) * 0.1)
             sk = t(rng.rand(hb, wb, 128)) if skip else None
             params = [p for pair in sft for p in pair]
-            for s2d in (True, False) if dtype == "bf16" else (True,):
+            for s2d in (True, False):
                 def call(s2d=s2d):
                     return fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, skip=sk, s2d=s2d)
 
@@ -981,12 +1082,18 @@ def phase_kernels(torch, np) -> dict:
 
                 y, y_r = call(), call_plain()
                 ms, plain = time_ms(call, torch), time_ms(call_plain, torch)
-                if dtype == "bf16":
-                    log(json.dumps({"sft_conv3_split": {"case": name, "s2d": s2d,
-                                                        **launch_split(call, torch, SFT_CONV_PARTS)}}))
+                split = launch_split(call, torch, SFT_CONV_PARTS)
+                log(json.dumps({"sft_conv3_split": {"case": name, "dtype": dtype, "s2d": s2d, **split}}))
+                extra = None
+                if dtype == "f32" and s2d:
+                    tiles_launched(split, "sft_conv3", F32_SFT_TILES)
+                    extra = sft_conv3_f32_witness(x, cond, sft, w, b, relu, sk, y, y_r)
+                    if name.startswith("L0"):
+                        sft_conv3_f32_faults(x[:WITNESS_ROWS], cond[:WITNESS_ROWS], sft, w, b, relu)
                 record("sft_conv3", dtype, f"{name} s2d={s2d}", per_path if s2d else (0, 0, 0), y, y_r,
                        ATOL if dtype == "f32" else 1, ms, plain, None, nbytes_of(x, cond, w, b, y, sk, *params),
-                       2 * conv_macs(w, hb, wb, 1) + sft_flops(hb * wb, sft) + 3 * hb * wb * 128, unit)
+                       2 * conv_macs(w, hb, wb, 1) + sft_flops(hb * wb, sft) + 3 * hb * wb * 128, unit,
+                       rate="tf32x3" if dtype == "f32" and s2d else None, extra=extra)
             del x, cond, y, y_r, sk
 
         # resblock at L1 of a 1080p frame: x (270,480,128), cond (270,480,64). Then, in bf16, the
@@ -1018,8 +1125,9 @@ def phase_kernels(torch, np) -> dict:
             args = (x, cond, sft1, w1, b1, sft2, w2, b2)
             params = [p for pair in (*sft1, *sft2) for p in pair]
             # the programs' s2d form (bf16: both SFT passes on the row tile, both convs on the
-            # Hopper conv tile, conv1 storing h1 in fp32), then in bf16 the dense form once
-            for s2d in (True, False) if dtype == "bf16" and any(per_path) else (True,):
+            # Hopper conv tile, conv1 storing h1 in fp32; fp32: the SFT passes on the row tile's
+            # 3×TF32 instance, the convs on the 3×TF32 tile), then the dense form once
+            for s2d in (True, False) if any(per_path) else (True,):
                 def call(s2d=s2d):
                     return fused_resblock(*args, up_coarse=up, x_add=add, s2d=s2d)
 
@@ -1028,14 +1136,19 @@ def phase_kernels(torch, np) -> dict:
 
                 y, y_r = call(), call_plain()
                 ms, plain = time_ms(call, torch), time_ms(call_plain, torch)
-                if dtype == "bf16" and any(per_path):
-                    log(json.dumps({"resblock_split": {"case": name, "s2d": s2d,
-                                                       **launch_split(call, torch, SFT_CONV_PARTS)}}))
+                if any(per_path):
+                    split = launch_split(call, torch, SFT_CONV_PARTS)
+                    log(json.dumps({"resblock_split": {"case": name, "dtype": dtype, "s2d": s2d, **split}}))
+                    if dtype == "f32" and s2d:
+                        tiles_launched(split, "resblock", F32_SFT_TILES)
+                if dtype == "f32" and s2d:
+                    resblock_f32_faults(args, up, add, y, y_r)
                 record("resblock", dtype, f"{name} s2d={s2d}", per_path if s2d else (0, 0, 0), y, y_r,
                        ATOL if dtype == "f32" else 2, ms, plain, None,
                        nbytes_of(x, cond, up, add, w1, b1, w2, b2, y, *params),
                        2 * (conv_macs(w1, hb, wb, 1) + conv_macs(w2, hb, wb, 1))
-                       + sft_flops(hb * wb, sft1) + sft_flops(hb * wb, sft2) + 8 * hb * wb * 128, unit)
+                       + sft_flops(hb * wb, sft1) + sft_flops(hb * wb, sft2) + 8 * hb * wb * 128, unit,
+                       rate="tf32x3" if dtype == "f32" and s2d else None)
             del x, cond, up, add, y, y_r, args
         if state is not None:
             rng.set_state(state)
@@ -5311,7 +5424,8 @@ def main() -> int:
                  "launches_by_path": {p: counts[p][name] for p in counts}, **entry(name, dtype, path)}
             if (dtype == "bf16" and not any(counts[p][name] for p in prefer["f32"])
                     and (name, "f32", path) in totals):
-                k["off_path"] = {"dtype": "f32", **entry(name, "f32", path)}
+                src = {"source": OFF_PATH_SOURCE[name]} if name in OFF_PATH_SOURCE else {}
+                k["off_path"] = {"dtype": "f32", **src, **entry(name, "f32", path)}
             kernels.append(k)
     if len(kernels) != 33:
         raise AssertionError(f"{len(kernels)} kernel entries, expected 33: {[k['name'] for k in kernels]}")

@@ -11,8 +11,9 @@
 // (ops/megakernel.py, s2d=True); agcm_head's AGCM pass (agcm_sm90) and
 // trunk3's SFT passes (sft_sm90_natural) too. cond_chain's fp32 s2d form,
 // float and int8 steps, runs the tile's fp32 instance (chain_tf32x3.cuh:
-// the same rows and ring, 3×TF32 products). The dense forms stay on
-// chain.cuh and pointwise.cuh.
+// the same rows and ring, 3×TF32 products), and the SFT passes of the fp32
+// s2d forms of sft_conv3 and resblock its fp32 SFT instance
+// (sft_tf32x3.cuh). The dense forms stay on chain.cuh and pointwise.cuh.
 //
 // Why rows. A 1×1 weight of the s2d program is w_s2d_1x1(w) (models/s2d.py):
 // (4·K, 4·N), block-diagonal with four equal K × N blocks, one per

@@ -89,17 +89,22 @@ struct ChainTf32Cfg {
 __device__ __forceinline__ int chain_kpos(int c) { return (c & 24) + 4 * (c & 1) + ((c & 7) >> 1); }
 
 // Rows k < K, columns n < N of an fp32 weight block (row pitch ld), split
-// into big at dst and small at dst + N·K·4: chunk k / 32 at (k / 32)·N·128,
-// row n at n·128, position p = chain_kpos(k % 32) in 16-byte group p / 4,
-// swizzled by n % 8. Every thread of the block takes part; reads run along n.
-__device__ __forceinline__ void stage_b_tf32x3(unsigned char* dst, int N, const float* src, int ld, int K) {
+// into rows r = n0 + n of a staged block of NB rows (NB = N by default):
+// big at dst and small at dst + NB·K'·4 (K' = K rounded up to a whole chunk
+// of 32), chunk k / 32 at (k / 32)·NB·128, row r at r·128, position p =
+// chain_kpos(k % 32) in 16-byte group p / 4, swizzled by r % 8. Every
+// thread of the block takes part; reads run along n.
+__device__ __forceinline__ void stage_b_tf32x3(unsigned char* dst, int N, const float* src, int ld, int K,
+                                               int n0 = 0, int NB = 0) {
+  if (!NB) NB = N;
+  const int small_off = NB * ((K + 31) & ~31) * 4;
   for (int idx = threadIdx.x; idx < K * N; idx += blockDim.x) {
-    const int k = idx / N, n = idx - k * N, p = chain_kpos(k & 31);
+    const int k = idx / N, n = idx - k * N, r = n0 + n, p = chain_kpos(k & 31);
     uint32_t big, small;
     split_tf32(src[static_cast<long long>(k) * ld + n], big, small);
-    const int off = (k >> 5) * N * 128 + n * 128 + (((p >> 2) ^ (n & 7)) << 4) + (p & 3) * 4;
+    const int off = (k >> 5) * NB * 128 + r * 128 + (((p >> 2) ^ (r & 7)) << 4) + (p & 3) * 4;
     *reinterpret_cast<uint32_t*>(dst + off) = big;
-    *reinterpret_cast<uint32_t*>(dst + N * K * 4 + off) = small;
+    *reinterpret_cast<uint32_t*>(dst + small_off + off) = small;
   }
 }
 
@@ -135,7 +140,8 @@ __device__ __forceinline__ void chain_step_tf32x3(float (&d)[N / 2], const uint3
 
 // x's columns 8j + 2q, + 1 of one row, split into k8 step j's register A
 // (h: the row's half of the fragment, rows r or r + 8).
-__device__ __forceinline__ void split_pair(float v0, float v1, uint32_t (&ab)[8][4], uint32_t (&as)[8][4], int j,
+template <int S>
+__device__ __forceinline__ void split_pair(float v0, float v1, uint32_t (&ab)[S][4], uint32_t (&as)[S][4], int j,
                                            int h) {
   split_tf32(v0, ab[j][h], as[j][h]);
   split_tf32(v1, ab[j][2 + h], as[j][2 + h]);

@@ -1,10 +1,12 @@
 // The fp32 instance of the Hopper conv tile (conv3x3_sm90.cuh), sm_90a: the
 // same chunk-table K walk over the s2d slots, TMA ring and persistent blocks,
 // with its products run as 3×TF32 on wgmma (m64nNk8, fp32 += tf32 × tf32).
-// It runs the fp32 float forms of block_conv3 and down2 with a_sub ≥ 1, and
-// trunk3's nine 32-channel convs dense (a_sub = 0: one list of 9 chunks,
-// which trunk3 asks ops/conv_kernels.py sm90_table for by name); block_conv3's
-// and down2's dense products stay on conv3x3.cuh's FMA tile.
+// It runs the fp32 float forms of block_conv3 and down2 with a_sub ≥ 1, the
+// 3×3 convs of the fp32 s2d forms of sft_conv3 and resblock (the stride-1
+// slot table), and trunk3's nine 32-channel convs dense (a_sub = 0: one
+// list of 9 chunks, which trunk3 asks ops/conv_kernels.py sm90_table for by
+// name); block_conv3's and down2's dense products stay on conv3x3.cuh's FMA
+// tile.
 //
 // Why 3×TF32. One TF32 product keeps 11 significant bits of each operand,
 // about 2^-11 relative error per product: too coarse for the fp32 program,

@@ -52,6 +52,23 @@
 // points as in the float body. Bound on this card: bytes (0.10 GB per L1
 // call, 0.030 ms). Times: PERF.md §5-§6.
 //
+// The s2d form in fp32 with float convs (the float body; fp32 calls with
+// QuantParams keep the dense kernels above): the same four launches on the
+// tiles' fp32 instances, every value fp32:
+//   1. SFT1 on sft_tf32x3.cuh's 3×TF32 row tile: x, with x_add's rows or
+//      up_coarse un-folded on read, the sum in fp32 written to xsum from
+//      registers and fed to the SFT → t;
+//   2. conv1 on conv3x3_tf32x3.cuh's 3×TF32 tile over the slot table, bias
+//      and ReLU in its epilogue → h1;
+//   3. SFT2 on the 3×TF32 row tile with h1 as x → t;
+//   4. conv2 on the 3×TF32 tile, bias + the residual (x or xsum) as its
+//      skip → out.
+// TMA's zero fill reads t as zero outside the image in both convs; each
+// 32-channel chunk of a conv, and each 16-deep SFT product, is summed in
+// the tensor cores from zero, the chunk sums added in fp32. Bound on this
+// card: operations at a third of the TF32 rate (the convs). Times: PERF.md
+// §6.
+//
 // The int8 body's s2d form in bf16 (s2d=True with both QuantParams): the
 // same four launches on the Hopper tiles in their int8 forms, as
 // sft_conv3_w8a8's and tail_w8a8's:
@@ -72,6 +89,7 @@
 #include "conv3x3_s8.cuh"
 #include "conv3x3_s8_sm90.cuh"
 #include "pointwise.cuh"
+#include "sft_tf32x3.cuh"
 
 namespace {
 
@@ -111,7 +129,18 @@ int resblock(const void* x, const void* cond, const void* const* sft1, const voi
                                      per_list, s);
       return static_cast<int>(err);
     } else {
-      return static_cast<int>(cudaErrorInvalidValue);
+      // fp32: the float body only (the int8 body keeps its dense kernels)
+      if (q1 || q2 || !table || (add && !xsum)) return static_cast<int>(cudaErrorInvalidValue);
+      const float* const bias1 = static_cast<const float*>(b1);
+      const float* const bias2 = static_cast<const float*>(b2);
+      cudaError_t err = hdrtv::sft_tf32x3(x, add, coarse, add ? xsum : nullptr, cond, t, sft1, H, W, C, CC, s);
+      if (err == cudaSuccess)
+        err = hdrtv::conv3x3_tf32x3<1>(t, w1, bias1, nullptr, h1, H, W, C, 0, C, C, ACT_RELU, 1, table, per_list, s);
+      if (err == cudaSuccess) err = hdrtv::sft_tf32x3(h1, nullptr, 0, nullptr, cond, t, sft2, H, W, C, CC, s);
+      if (err == cudaSuccess)
+        err = hdrtv::conv3x3_tf32x3<1>(t, w2, bias2, add ? xsum : x, y, H, W, C, 0, C, C, ACT_NONE, 1, table,
+                                       per_list, s);
+      return static_cast<int>(err);
     }
   }
   hdrtv::SftArgs a;
@@ -151,8 +180,8 @@ int resblock(const void* x, const void* cond, const void* const* sft1, const voi
 // (w1, b1, w2, b2 unused). add: nullptr, x_add (coarse = 0) or up_coarse
 // (coarse = 1). Scratch: t Hb·Wb·C elements (bytes, codes, with q1 and q2), h1
 // Hb·Wb·C floats, xsum Hb·Wb·C elements when add is set. s2d: 1 for the s2d
-// form (bf16, float or int8), whose convs walk `table` (per_list entries per
-// output sub-position; null otherwise), else 0.
+// form (bf16 float or int8; fp32 float), whose convs walk `table` (per_list
+// entries per output sub-position; null otherwise), else 0.
 extern "C" int hdrtv_resblock_f32(const void* x, const void* cond, const void* const* sft1,
                                   const void* w1, const void* b1, const void* q1,
                                   const void* const* sft2, const void* w2, const void* b2,

@@ -40,6 +40,20 @@
 // Rounding points as in the float body. Bound on this card: bytes (0.33 GB
 // per L0 call, 0.099 ms). Times: PERF.md §5-§6.
 //
+// The s2d form in fp32 with the float conv (the float body; fp32 calls with
+// the conv's QuantParams keep the dense kernels above): the same two
+// launches on the tiles' fp32 instances:
+//   1. the SFT pass on sft_tf32x3.cuh's 3×TF32 row tile: every value fp32,
+//      the three 16-deep products per tile on wgmma m64n32k8 (small·big +
+//      big·small + big·big), the hidden handed from the first product's
+//      accumulators to the second products' A in registers; t written once;
+//   2. the conv on conv3x3_tf32x3.cuh's 3×TF32 tile over the same slot
+//      table (each 32-channel chunk summed in the tensor cores from zero,
+//      the chunk sums added in fp32), bias, skip and ReLU in its epilogue,
+//      TMA's zero fill reading t as zero outside the image.
+// Bound on this card: operations at a third of the TF32 rate for the conv,
+// bytes for the SFT pass (0.66 GB per L0 call, 0.20 ms). Times: PERF.md §6.
+//
 // The int8 body's s2d form in bf16 (s2d=True with the conv's QuantParams):
 // the same two launches on the Hopper tiles in their int8 forms, as the
 // tail's (tail.cu):
@@ -55,6 +69,7 @@
 #include "conv3x3_s8.cuh"
 #include "conv3x3_s8_sm90.cuh"
 #include "pointwise.cuh"
+#include "sft_tf32x3.cuh"
 
 namespace {
 
@@ -76,7 +91,13 @@ int sft_conv3(const void* x, const void* cond, const void* const* sft, const voi
                                      table, per_list, s);
       return static_cast<int>(err);
     } else {
-      return static_cast<int>(cudaErrorInvalidValue);
+      // fp32: the float body only (the int8 body keeps its dense kernels)
+      if (!table || q) return static_cast<int>(cudaErrorInvalidValue);
+      cudaError_t err = hdrtv::sft_tf32x3(x, nullptr, 0, nullptr, cond, t, sft, H, W, C, CC, s);
+      if (err == cudaSuccess)
+        err = hdrtv::conv3x3_tf32x3<1>(t, w, static_cast<const float*>(b), skip, y, H, W, C, 0, C, Co, act, 1, table,
+                                       per_list, s);
+      return static_cast<int>(err);
     }
   }
   hdrtv::SftArgs a;
@@ -102,8 +123,8 @@ int sft_conv3(const void* x, const void* cond, const void* const* sft, const voi
 // sft: eight pointers, (w, b) of scale0, scale1, shift0, shift1. q: null for
 // the float form, else the conv's int8 parameters (w and b unused). t:
 // scratch of Hb·Wb·C elements, or of Hb·Wb·C bytes (codes) with q. s2d: 1
-// for the s2d form (bf16, float or int8), whose conv walks `table`
-// (per_list entries per output sub-position; null otherwise), else 0.
+// for the s2d form (bf16 float or int8; fp32 float), whose conv walks
+// `table` (per_list entries per output sub-position; null otherwise), else 0.
 extern "C" int hdrtv_sft_conv3_f32(const void* x, const void* cond, const void* const* sft,
                                    const void* w, const void* b, const void* q, const void* skip,
                                    void* y, void* t, int H, int W, int C, int CC, int Co, int relu,

@@ -38,7 +38,11 @@ kernel's. The int8 bodies of ``fused_tail``, ``fused_sft_conv3_v2`` and
 ``fused_resblock`` take it too: in bf16 their SFT passes run the row tile's
 int8-output mode and their convs the wgmma s8 tile of
 ``csrc/conv3x3_s8_sm90.cuh``, which also runs ``fused_down2``'s int8 body in
-bf16 at stride 2 (its ``a_sub`` ≥ 1 being the same declaration).
+bf16 at stride 2 (its ``a_sub`` ≥ 1 being the same declaration). In fp32
+the float bodies of ``fused_sft_conv3_v2`` and ``fused_resblock`` run their
+SFT passes on the row tile's 3×TF32 instance (``csrc/sft_tf32x3.cuh``) and
+their convs on the 3×TF32 conv tile (``csrc/conv3x3_tf32x3.cuh``); the fp32
+tail and every fp32 int8 body keep the dense kernels.
 ``fused_trunk3`` runs natural tensors; both its instances run the Hopper
 tiles on any weights (fp32 the 3×TF32 tile, dense).
 """
@@ -446,27 +450,50 @@ def cond_chain_tf32x3_emulation(c0, weights, qargs=None, *, products: int = 3):
     return c, v
 
 
+def sft_tf32x3_emulation(x, cond, sft4, *, products: int = 3):
+    """The fp32 SFT pass of ``csrc/sft_tf32x3.cuh`` in torch ops, on the
+    ``w_s2d_1x1`` weights and ``b_s2d`` biases the s2d forms take: each of
+    its four 16-deep products :func:`_rows_tf32x3` (one chunk from zero),
+    the leaky ReLU between, then t = x·(scale + 1) + shift with the multiply
+    and the add rounded apart, all fp32. ``x`` (…, 4C) is the pass's input
+    (x + add already summed, or h1), ``cond`` (…, 4CC); returns t (…, 4C).
+    ``products`` = 1: one TF32 product each, a fault the checks must see."""
+    cond = cond.float()
+    hid_s = _apply_act(_rows_tf32x3(cond, *sft4[0], products), "lrelu")
+    hid_h = _apply_act(_rows_tf32x3(cond, *sft4[2], products), "lrelu")
+    scale = _rows_tf32x3(hid_s, *sft4[1], products)
+    shift = _rows_tf32x3(hid_h, *sft4[3], products)
+    return x.float() * (scale + 1.0) + shift
+
+
 # The natural widths the Hopper row tile of csrc/chain_sm90.cuh is built for:
 # cond_chain 64 → 64 ×4 → 16; the SFT passes of the tail, sft_conv3 and
 # resblock cond 16 and features 32.
 COND_CHAIN_S2D_WIDTHS = (64, 64, 64, 64, 64, 16)
 SFT_S2D_WIDTHS = (16, 32)
+# The kernels whose fp32 float s2d form runs the 3×TF32 tiles: the SFT pass on
+# csrc/sft_tf32x3.cuh, the 3×3 convs on csrc/conv3x3_tf32x3.cuh. The tail's
+# conv_last has no fp32 tile, so the fp32 tail keeps its dense kernels.
+SFT_TF32X3 = ("sft_conv3", "resblock")
 
 
-def _sft_hopper(name: str, s2d: bool, dt: torch.dtype, cc: int, c: int, co: int) -> tuple:
+def _sft_hopper(name: str, s2d: bool, dt: torch.dtype, cc: int, c: int, co: int, *, quant: bool = False) -> tuple:
     """What a card call of the tail, sft_conv3 or resblock hands its kernel
     for the Hopper tiles: (1, the stride-1 slot table of its 3×3 conv
     (``sm90_table``), its list length) for the s2d form in bf16, float or
     int8 (the int8 conv on the wgmma s8 tile of csrc/conv3x3_s8_sm90.cuh,
-    which walks the same table: a chunk is 32 channels in either type), else
-    (0, None, 0), the dense kernels. The row tile takes the natural widths
+    which walks the same table: a chunk is 32 channels in either type), and
+    in fp32 for the float body (no ``quant``) of the kernels SFT_TF32X3
+    (the SFT pass on csrc/sft_tf32x3.cuh, the convs on the 3×TF32 tile of
+    csrc/conv3x3_tf32x3.cuh); else (0, None, 0), the dense kernels: the fp32
+    tail and every fp32 int8 body. The row tiles take the natural widths
     SFT_S2D_WIDTHS (CC, C) only; others raise."""
-    if not s2d or dt != torch.bfloat16:
+    if not s2d or (dt != torch.bfloat16 and (quant or name not in SFT_TF32X3)):
         return 0, None, 0
     if (cc // 4, c // 4) != SFT_S2D_WIDTHS:
         raise ValueError(f"{name}: the s2d row tile takes natural widths (CC, C) = {SFT_S2D_WIDTHS}, "
                          f"got {(cc // 4, c // 4)}")
-    return (1, *sm90_table(name, 1, 1, c, co, c))
+    return (1, *sm90_table(name, 1, 1, c, co, c, dtype=dt))
 
 
 def fused_cond_chain(
@@ -658,7 +685,8 @@ def fused_tail(
     on the wgmma s8 tile of ``csrc/conv3x3_s8_sm90.cuh``, and in either body
     conv_last on its Hopper tile (``csrc/conv_last.cuh``, the 16 slots of
     :func:`conv_last_walk`; widths other than CONV_LAST_S2D_WIDTHS raise);
-    fp32 keeps the dense kernels, the same function on such weights. The
+    fp32 keeps the dense kernels (conv_last has no fp32 tile), the same
+    function on such weights. The
     plain version honours it too (the int8 conv's sum over the populated
     slots alone equals its dense sum on such weights). False: dense, right
     for any weight."""
@@ -694,7 +722,7 @@ def fused_tail(
     native.check_cuda("tail b_last", b_last, torch.float32, (cl,))
     if up_coarse is not None:
         native.check_cuda("tail up_coarse", up_coarse, dt)
-    hopper, table, per_list = _sft_hopper("tail", s2d, dt, cc, c, c)
+    hopper, table, per_list = _sft_hopper("tail", s2d, dt, cc, c, c, quant=qargs_hr is not None)
     if hopper and (c, cl) != CONV_LAST_S2D_WIDTHS:
         raise ValueError(f"tail: conv_last's s2d tile takes (C, Cl) = {CONV_LAST_S2D_WIDTHS}, got {(c, cl)}")
     t = torch.empty((hb, wb, c), dtype=dt if qargs_hr is None else torch.int8, device=s.device)  # t or its codes
@@ -997,9 +1025,12 @@ def fused_sft_conv3_v2(
     ``csrc/chain_sm90.cuh`` (natural widths CC 16, C 32; others raise) and
     the conv over the slot table on ``csrc/conv3x3_sm90.cuh``'s tile, or
     with ``qargs`` the SFT in its int8-output mode and the conv on the wgmma
-    s8 tile of ``csrc/conv3x3_s8_sm90.cuh``; fp32 keeps the dense kernels,
-    the same function on such weights. The plain version honours it too.
-    False: dense, right for any weight.
+    s8 tile of ``csrc/conv3x3_s8_sm90.cuh``. fp32 on the card, the float
+    body: the SFT on the row tile's 3×TF32 instance (``csrc/sft_tf32x3.cuh``,
+    the same widths) and the conv over the slot table on the 3×TF32 tile of
+    ``csrc/conv3x3_tf32x3.cuh``; fp32 with ``qargs`` keeps the dense
+    kernels, the same function on such weights. The plain version honours
+    it too. False: dense, right for any weight.
     """
     hb, wb, c = x.shape
     cc = cond.shape[-1]
@@ -1025,7 +1056,7 @@ def fused_sft_conv3_v2(
     native.check_cuda("sft_conv3 b", b, torch.float32, (co,))
     if skip is not None:
         native.check_cuda("sft_conv3 skip", skip, dt, (hb, wb, co))
-    hopper, table, per_list = _sft_hopper("sft_conv3", s2d, dt, cc, c, co)
+    hopper, table, per_list = _sft_hopper("sft_conv3", s2d, dt, cc, c, co, quant=qargs is not None)
     out = torch.empty((hb, wb, co), dtype=dt, device=x.device)
     t = torch.empty((hb, wb, c), dtype=dt if qargs is None else torch.int8, device=x.device)  # t or its codes
     native.launch(
@@ -1082,9 +1113,13 @@ def fused_resblock(
     storing h1 in fp32; with float convs on the Hopper conv tile, with
     ``qargs1``/``qargs2`` both SFT passes in the row tile's int8-output mode
     (SFT1 also writing the rounded sum with a second input) and both convs
-    on the wgmma s8 tile of ``csrc/conv3x3_s8_sm90.cuh``. fp32 keeps the
-    dense kernels, the same function on such weights. The plain version
-    honours it too.
+    on the wgmma s8 tile of ``csrc/conv3x3_s8_sm90.cuh``. fp32 on the card,
+    the float body: both SFT passes on the row tile's 3×TF32 instance
+    (``csrc/sft_tf32x3.cuh``; SFT1 writing the fp32 sum with a second
+    input, SFT2 reading h1), both convs over the slot table on the 3×TF32
+    tile of ``csrc/conv3x3_tf32x3.cuh``, conv2 adding the residual; fp32
+    with ``qargs1``/``qargs2`` keeps the dense kernels, the same function on
+    such weights. The plain version honours it too.
     """
     hb, wb, c = x.shape
     cc = cond.shape[-1]
@@ -1122,7 +1157,7 @@ def fused_resblock(
         native.check_cuda("resblock x_add", x_add, dt, (hb, wb, c))
     if up_coarse is not None:
         native.check_cuda("resblock up_coarse", up_coarse, dt)
-    hopper, table, per_list = _sft_hopper("resblock", s2d, dt, cc, c, c)
+    hopper, table, per_list = _sft_hopper("resblock", s2d, dt, cc, c, c, quant=quant)
     t = torch.empty((hb, wb, c), dtype=torch.int8 if quant else dt, device=x.device)  # t or its codes
     h1 = torch.empty((hb, wb, c), dtype=torch.float32, device=x.device)
     xsum = None if second is None else torch.empty((hb, wb, c), dtype=dt, device=x.device)

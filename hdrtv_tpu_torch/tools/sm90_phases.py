@@ -1,6 +1,6 @@
 """Where the Hopper conv tiles spend their time: in-kernel phase timers.
 
-    python -m hdrtv_tpu_torch.tools.sm90_phases [--only conv,agcm,s8,s8_s2,last,pool,chain]
+    python -m hdrtv_tpu_torch.tools.sm90_phases [--only conv,agcm,s8,s8_s2,last,pool,chain,sft_f32]
 
 Builds ``tools/sm90_phases.cu`` (the bf16 tile of ``csrc/conv3x3_sm90.cuh``
 and the fp32 3×TF32 tile of ``csrc/conv3x3_tf32x3.cuh``, with their
@@ -91,6 +91,18 @@ stores), ``out`` (the last step's epilogue and the stores; bf16: the
 meeting) and, fp32 only, ``first A`` (the first step's fragments split, or
 its codes, from the staged rows).
 
+Then the fp32 SFT pass of sft_conv3's and resblock's s2d forms on the row
+tile's 3×TF32 instance (``csrc/sft_tf32x3.cuh``; :func:`sft_f32_phases`) at
+their 1080p shapes: sft_conv3's L0 and L2 calls (x alone), resblock's SFT1
+at L1 with up_coarse un-folded on read and xsum written, and its SFT2 on
+h1: the mean cycles of a warpgroup's tiles in ``rows`` (the wait for its
+rows and the refill), ``first A`` (the first product's fragments split
+from the staged cond, x and add read, xsum's stores), ``products`` (the
+three 16-deep 3×TF32 products and their waits), ``hand-off`` (bias, leaky
+ReLU and the split of the hidden into the second products' A) and ``out``
+(t and its stores). The convs of those forms are the ``conv`` part's fp32
+HR_conv1 (L0), resblock conv (L1) and trunk2/4 conv (L2) shapes.
+
 After its build it prints the build's ptxas notes that name a wgmma
 serialization or an injected wait (the ``C75`` codes, C7517 among them),
 each with the function it names, or says there are none.
@@ -129,7 +141,8 @@ SHAPES = [
     ("LE.__cond_down", 2, 540, 960, 256, 768, 3), ("CondNet3.2", 2, 270, 480, 256, 256, 1),
     ("down_conv1", 2, 540, 960, 128, 128, 1), ("down_conv2", 2, 270, 480, 128, 128, 1),
 ]
-SHAPES_F32 = SHAPES + [("HR_conv1", 1, 540, 960, 128, 128, 1), ("trunk3 conv", 1, 135, 240, 32, 32, 0),
+SHAPES_F32 = SHAPES + [("HR_conv1", 1, 540, 960, 128, 128, 1), ("resblock conv", 1, 270, 480, 128, 128, 1),
+                       ("trunk2/4 conv", 1, 135, 240, 128, 128, 1), ("trunk3 conv", 1, 135, 240, 32, 32, 0),
                        ("trunk3 up_conv1", 1, 135, 240, 32, 128, 0)]
 # resblock at L1 (bf16 only): conv2, and conv1 with h1 stored in fp32 (the last field); trunk3's
 # natural 32 → 32 conv at /8, dense (a_sub 0)
@@ -172,6 +185,8 @@ def build() -> ctypes.CDLL:
     lib.hdrtv_sm90_cond_chain_phases.restype = i
     lib.hdrtv_sm90_cond_chain_f32_phases.argtypes = [p] * 8 + [i, p, p]
     lib.hdrtv_sm90_cond_chain_f32_phases.restype = i
+    lib.hdrtv_sm90_sft_f32_phases.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p, p]
+    lib.hdrtv_sm90_sft_f32_phases.restype = i
     return lib
 
 
@@ -479,7 +494,42 @@ def chain_phases(lib, dev, rng) -> None:
             _report(f"cond_chain s2d {name} ({form})", phases, CHAIN_PHASES, steps=False)
 
 
-PARTS = ("conv", "agcm", "s8", "s8_s2", "last", "pool", "chain")
+SFT_F32_PHASES = ["total", "rows", "first A", "products", "hand-off", "out"]
+
+
+def sft_f32_phases(lib, dev, rng) -> None:
+    """The fp32 SFT pass on the 3×TF32 row tile at the 1080p shapes of the
+    fp32 s2d forms of sft_conv3 (L0 540 × 960, L2 135 × 240: x alone) and
+    resblock (L1 270 × 480: SFT1 with up_coarse and xsum, SFT2 on h1),
+    seeded w_s2d_1x1 weights at natural CC 16, C 32."""
+    from hdrtv_tpu_torch.models.s2d import w_s2d_1x1
+
+    c, cc = 128, 64
+    stream = torch.cuda.current_stream().cuda_stream
+    sft = []
+    for ci, co in ((16, 16), (16, 32), (16, 16), (16, 32)):
+        sft += [torch.as_tensor(w_s2d_1x1(rng.randn(1, 1, ci, co).astype(np.float32) * 0.05)[0, 0], device=dev),
+                torch.as_tensor(np.tile(rng.randn(co) * 0.1, 4).astype(np.float32), device=dev)]
+    ptrs = native.pointer_array(sft)
+    for name, h, w, up in (("sft_conv3 L0", 540, 960, False), ("sft_conv3 L2", 135, 240, False),
+                           ("resblock L1 SFT1 + up_coarse, xsum", 270, 480, True),
+                           ("resblock L1 SFT2 on h1", 270, 480, False)):
+        x = torch.rand(h, w, c, device=dev) - 0.3
+        cond = torch.rand(h, w, cc, device=dev) - 0.3
+        add = torch.rand(h // 2, w // 2, 4 * c, device=dev) - 0.3 if up else None
+        xsum = torch.empty_like(x) if up else None
+        t = torch.empty_like(x)
+        phases = torch.zeros(2 * 132 * 8 * 8, dtype=torch.int64, device=dev)
+        for _ in range(3):  # warm: the last run's sums are read
+            rc = lib.hdrtv_sm90_sft_f32_phases(x.data_ptr(), None if add is None else add.data_ptr(), int(up),
+                                               None if xsum is None else xsum.data_ptr(), cond.data_ptr(),
+                                               t.data_ptr(), ptrs, h, w, c, cc, phases.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"sft_tf32x3 {name}: CUDA error {rc}")
+        _report(f"{name} fp32 SFT pass (3×TF32 row tile)", phases, SFT_F32_PHASES, steps=False)
+
+
+PARTS = ("conv", "agcm", "s8", "s8_s2", "last", "pool", "chain", "sft_f32")
 
 
 def main() -> None:
@@ -527,7 +577,7 @@ def main() -> None:
             shares = {k: f"{mean[i]:.0f} ({mean[i] / mean[0]:.0%})" for i, k in enumerate(PHASES[dtype])}
             print(f"{name} {dtype}: {len(d)} warpgroups, {mean[7]:.0f} steps each; cycles {shares}", flush=True)
     for part, fn in (("agcm", agcm_phases), ("s8", s8_phases), ("s8_s2", s8_s2_phases), ("last", last_phases),
-                     ("pool", pool_phases), ("chain", chain_phases)):
+                     ("pool", pool_phases), ("chain", chain_phases), ("sft_f32", sft_f32_phases)):
         if part in only:
             fn(lib, dev, rng)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -7,12 +7,15 @@
 // bf16 form; the conv with its bf16 or fp32 output, the SFT pass on bf16 x
 // (with the coarse up tensor) or fp32 x (resblock's h1); and cond_chain's
 // s2d form on the row tile (csrc/chain_sm90.cuh), its int8 instance when a
-// step is int8, in fp32 its 3×TF32 instance (csrc/chain_tf32x3.cuh). Each
-// fills a (2·blocks, 8) u64 array.
+// step is int8, in fp32 its 3×TF32 instance (csrc/chain_tf32x3.cuh); and the
+// fp32 SFT pass of sft_conv3's and resblock's s2d forms on the row tile's
+// 3×TF32 instance (csrc/sft_tf32x3.cuh). Each fills a (2·blocks, 8) u64
+// array (the 3×TF32 row tiles: (3·blocks, 8)).
 #define HDRTV_SM90_PHASES
 #include "../csrc/chain_sm90.cuh"
 #include "../csrc/chain_tf32x3.cuh"
 #include "../csrc/conv3x3_s8_sm90.cuh"
+#include "../csrc/sft_tf32x3.cuh"
 
 namespace {
 
@@ -130,4 +133,15 @@ extern "C" int hdrtv_sm90_cond_chain_f32_phases(const void* c0, void* c, void* c
   return static_cast<int>(hdrtv::launch_chain_sm90(hdrtv::cond_chain_sm90_tf32x3_kernel<false>,
                                                    hdrtv::ChainTf32Cfg<false>::SMEM, cache, a, st,
                                                    hdrtv::ChainTf32Cfg<false>::WGS));
+}
+
+// The fp32 SFT pass over s2d weights (arguments as sft_tf32x3 takes them:
+// fp32 x, add nullptr or fine / coarse, xsum with add, cond, t; H × W s2d
+// pixels of C and CC channels).
+extern "C" int hdrtv_sm90_sft_f32_phases(const void* x, const void* add, int coarse, void* xsum, const void* cond,
+                                         void* t, const void* const* sft, int H, int W, int C, int CC, void* phases,
+                                         void* stream) {
+  return static_cast<int>(hdrtv::sft_tf32x3(x, add, coarse, xsum, cond, t, sft, H, W, C, CC,
+                                            static_cast<cudaStream_t>(stream),
+                                            static_cast<unsigned long long*>(phases)));
 }

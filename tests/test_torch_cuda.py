@@ -711,14 +711,14 @@ def test_s2d_row_tile_refuses_other_widths(dev):
                    s2d=True)
 
 
-def _sft_s2d(rng, dev, scale=0.2):
+def _sft_s2d(rng, dev, scale=0.2, dtype="bf16"):
     """The four SFT 1×1s at the programs' natural widths (CC 16, C 32), s2d."""
-    return [_p11(rng, ci, co, dev, scale) for ci, co in ((16, 16), (16, 32), (16, 16), (16, 32))]
+    return [_p11(rng, ci, co, dev, scale, dtype) for ci, co in ((16, 16), (16, 32), (16, 16), (16, 32))]
 
 
-def _conv_s2d(rng, dev, scale=0.05):
-    """A 3×3 trunk conv (32 → 32 natural) as the s2d program has it: w_s2d_s1 (bf16), b_s2d."""
-    return (_t(w_s2d_s1(rng.randn(3, 3, 32, 32).astype(np.float32) * scale), dev, "bf16"),
+def _conv_s2d(rng, dev, scale=0.05, dtype="bf16"):
+    """A 3×3 trunk conv (32 → 32 natural) as the s2d program has it: w_s2d_s1 (bf16, or ``dtype``), b_s2d."""
+    return (_t(w_s2d_s1(rng.randn(3, 3, 32, 32).astype(np.float32) * scale), dev, dtype),
             _t(b_s2d(rng.randn(32).astype(np.float32) * 0.1), dev))
 
 
@@ -814,6 +814,172 @@ def test_s2d_sft_forms_refuse_other_widths(dev):
         fused_sft_conv3_v2(x, cond, sft, w, b, s2d=True)
     with pytest.raises(ValueError, match="row tile"):
         fused_resblock(x, cond, sft, w, b, sft, w, b, s2d=True)
+
+
+def _kernel_launches(fn, attempts: int = 3) -> dict:
+    """The kernels fn() launches, by name (torch.profiler), after a warm call.
+    The profiler sometimes reports a session without some of its kernels: a
+    session that shows fewer kernels than cudaLaunchKernel calls is profiled
+    again, at most ``attempts`` times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()}
+        if sum(n for k, n in counts.items() if k.startswith("void ")) >= counts.get("cudaLaunchKernel", 0):
+            break
+    return counts
+
+
+def _launched(counts: dict, sub: str) -> int:
+    return sum(n for k, n in counts.items() if sub in k)
+
+
+@pytest.mark.parametrize("hb,wb,relu,skip", [
+    (12, 20, True, False), (9, 15, False, True), (1, 7, True, False), (5, 7, False, True), (135, 240, False, True),
+    (540, 960, True, False),
+])
+def test_sft_conv3_f32_s2d_matches_plain(dev, hb, wb, relu, skip):
+    """sft_conv3's fp32 s2d form: the SFT pass on the 3×TF32 row tile
+    (csrc/sft_tf32x3.cuh), the conv on the 3×TF32 conv tile over the slot
+    table, bias, skip and ReLU in its epilogue; whole, ragged and partial
+    64-row tiles, the L2 shape and the L0 1080p shape. Against the plain
+    version's s2d form within ATOL, one launch counted, the two tiles
+    launched once each and no dense kernel."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_sft_conv3_v2, fused_sft_conv3_v2_ref
+
+    rng = np.random.RandomState(hb * wb + 123)
+    x = _t(rng.rand(hb, wb, 128) - 0.3, dev)
+    cond = _t(rng.rand(hb, wb, 64) - 0.3, dev)
+    sk = _t(rng.rand(hb, wb, 128), dev) if skip else None
+    args = (x, cond, _sft_s2d(rng, dev, dtype="f32"), *_conv_s2d(rng, dev, dtype="f32"))
+    before = native.launch_counts["sft_conv3"]
+    y = fused_sft_conv3_v2(*args, relu=relu, skip=sk, s2d=True)
+    assert native.launch_counts["sft_conv3"] == before + 1
+    assert y.shape == (hb, wb, 128) and y.dtype == torch.float32
+    _close(y, fused_sft_conv3_v2_ref(*args, relu=relu, skip=sk, s2d=True), "f32")
+    counts = _kernel_launches(lambda: fused_sft_conv3_v2(*args, relu=relu, skip=sk, s2d=True))
+    assert _launched(counts, "sft_tf32x3_kernel") == 1 and _launched(counts, "conv3x3_tf32x3_kernel") == 1, counts
+    assert _launched(counts, "sft_kernel") == 0 and _launched(counts, "conv3x3_kernel") == 0, counts
+
+
+@pytest.mark.parametrize("hb,wb,second", [
+    (12, 20, None), (9, 15, "x_add"), (10, 14, "up_coarse"), (5, 7, None), (3, 5, "x_add"), (2, 6, "up_coarse"),
+    (135, 240, "x_add"), (270, 480, "up_coarse"),
+])
+def test_resblock_f32_s2d_matches_plain(dev, hb, wb, second):
+    """resblock's fp32 s2d form: SFT1 (x_add or up_coarse summed on read,
+    the fp32 sum written as the residual) and SFT2 (on h1) on the 3×TF32 row
+    tile, both convs on the 3×TF32 conv tile, conv2 adding the residual;
+    ragged and partial tiles, the L2 shape and the L1 1080p shape. Against
+    the plain version's s2d form within ATOL, two launches of each tile."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_resblock, fused_resblock_ref
+
+    rng = np.random.RandomState(hb * wb + 129)
+    x, cond, kw = _resblock_s2d_inputs(rng, hb, wb, second, dev)
+    x, cond = x.float(), cond.float()
+    kw = {k: v.float() for k, v in kw.items()}
+    args = (x, cond, _sft_s2d(rng, dev, dtype="f32"), *_conv_s2d(rng, dev, dtype="f32"),
+            _sft_s2d(rng, dev, dtype="f32"), *_conv_s2d(rng, dev, dtype="f32"))
+    before = native.launch_counts["resblock"]
+    y = fused_resblock(*args, **kw, s2d=True)
+    assert native.launch_counts["resblock"] == before + 1
+    assert y.shape == (hb, wb, 128) and y.dtype == torch.float32
+    _close(y, fused_resblock_ref(*args, **kw, s2d=True), "f32")
+    counts = _kernel_launches(lambda: fused_resblock(*args, **kw, s2d=True))
+    assert _launched(counts, "sft_tf32x3_kernel") == 2 and _launched(counts, "conv3x3_tf32x3_kernel") == 2, counts
+    assert _launched(counts, "sft_kernel") == 0 and _launched(counts, "conv3x3_kernel") == 0, counts
+
+
+@pytest.mark.parametrize("hb,wb,second", [(9, 15, "x_add"), (10, 14, "up_coarse"), (270, 480, "up_coarse")])
+def test_resblock_f32_s2d_residual_is_exact(dev, hb, wb, second):
+    """The fp32 sum SFT1 writes (xsum) is the residual: with conv2's weight
+    and bias zero the output is xsum itself, x + add in fp32 bit for bit,
+    as in the plain version."""
+    from hdrtv_tpu_torch.ops.megakernel import _d2s_fine, fused_resblock, fused_resblock_ref
+
+    rng = np.random.RandomState(hb * wb + 131)
+    x, cond, kw = _resblock_s2d_inputs(rng, hb, wb, second, dev)
+    x, cond = x.float(), cond.float()
+    kw = {k: v.float() for k, v in kw.items()}
+    args = (x, cond, _sft_s2d(rng, dev, dtype="f32"), *_conv_s2d(rng, dev, dtype="f32"),
+            _sft_s2d(rng, dev, dtype="f32"),
+            torch.zeros(3, 3, 128, 128, device=dev), torch.zeros(128, device=dev))
+    y = fused_resblock(*args, **kw, s2d=True)
+    add = kw["x_add"] if second == "x_add" else _d2s_fine(kw["up_coarse"])
+    torch.cuda.synchronize()
+    assert torch.equal(y, x + add)
+    assert torch.equal(y, fused_resblock_ref(*args, **kw, s2d=True))
+
+
+def test_f32_s2d_sft_forms_refuse_other_widths(dev):
+    """sft_conv3 and resblock with s2d=True in fp32 at natural widths the
+    3×TF32 row tile is not built for raise on the card; nothing falls back to
+    the dense kernels."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_resblock, fused_sft_conv3_v2
+
+    rng = np.random.RandomState(71)
+    x = _t(rng.rand(4, 4, 256), dev)
+    cond = _t(rng.rand(4, 4, 64), dev)
+    sft = [_p11(rng, ci, co, dev, dtype="f32") for ci, co in ((16, 16), (16, 64), (16, 16), (16, 64))]
+    w = _t(w_s2d_s1(rng.randn(3, 3, 64, 64).astype(np.float32) * 0.05), dev)
+    b = torch.zeros(256, device=dev)
+    before = dict(native.launch_counts)
+    with pytest.raises(ValueError, match="row tile"):
+        fused_sft_conv3_v2(x, cond, sft, w, b, s2d=True)
+    with pytest.raises(ValueError, match="row tile"):
+        fused_resblock(x, cond, sft, w, b, sft, w, b, s2d=True)
+    assert native.launch_counts == before
+
+
+@pytest.mark.parametrize("kernel", ["sft_conv3_w8a8", "resblock_w8a8", "tail"])
+def test_f32_int8_bodies_and_tail_stay_dense(dev, kernel):
+    """fp32 with s2d: the int8 bodies of sft_conv3 and resblock, and the
+    float tail, keep their dense kernels (pointwise.cuh's SFT pass, the
+    mma.sync convs), within their plain versions' bounds; no 3×TF32 row
+    tile runs."""
+    from hdrtv_tpu_torch.ops.megakernel import (
+        fused_resblock, fused_resblock_ref, fused_sft_conv3_v2, fused_sft_conv3_v2_ref, fused_tail, fused_tail_ref,
+    )
+
+    rng = np.random.RandomState(73)
+    hb, wb = 12, 20
+    x = _t(rng.rand(hb, wb, 128) - 0.2, dev)
+    cond = _t(rng.rand(hb, wb, 64), dev)
+    sft = _sft_s2d(rng, dev, 0.05, "f32")
+    if kernel == "tail":
+        w_hr, b_hr = _conv_s2d(rng, dev, dtype="f32")
+        w_last = _t(w_s2d_s1(rng.randn(3, 3, 32, 3).astype(np.float32) * 0.03), dev)
+        targs = (x, cond, _t(rng.rand(hb, wb, 12), dev), sft, w_hr, b_hr, w_last, _t(rng.randn(12) * 0.02, dev))
+
+        def call():
+            return fused_tail(*targs, pack=False, s2d=True)
+
+        y, y_r = call(), fused_tail_ref(*targs, pack=False, s2d=True)
+        _close(y, y_r, "f32")
+    elif kernel == "sft_conv3_w8a8":
+        w, b, qa = _qlayer(rng, dev, 128, 128, (-0.6, 1.5), False)
+
+        def call():
+            return fused_sft_conv3_v2(x, cond, sft, w, b, relu=True, qargs=qa, s2d=True)
+
+        _q_close(call(), fused_sft_conv3_v2_ref(x, cond, sft, w, b, relu=True, qargs=qa, s2d=True), qa, "f32",
+                 share=0.04)
+    else:
+        w1, b1, q1 = _qlayer(rng, dev, 128, 128, (-0.6, 2.0), False)
+        w2, b2, q2 = _qlayer(rng, dev, 128, 128, (-0.2, 1.0), False)
+        args = (x, cond, sft, w1, b1, _sft_s2d(rng, dev, 0.05, "f32"), w2, b2)
+
+        def call():
+            return fused_resblock(*args, qargs1=q1, qargs2=q2, s2d=True)
+
+        _q_close(call(), fused_resblock_ref(*args, qargs1=q1, qargs2=q2, s2d=True), q2, "f32", share=0.1, flips=8)
+    counts = _kernel_launches(call)
+    assert _launched(counts, "sft_tf32x3_kernel") == 0 and _launched(counts, "sft_kernel") >= 1, counts
 
 
 def test_mega_frame_matches_cpu(dev, monkeypatch):
