@@ -49,16 +49,25 @@ lines; any failed check raises and the script exits non-zero with no result:
    one TF32 product in place of three in the plain emulation of the tile,
    which must break the check) and the tail's SFT pass, the Hopper conv tile over the slot
    table for the tail's HR_conv2, and conv_last's tile of csrc/conv_last.cuh
-   over w_last's populated slots) against the plain version's s2d form, and in
-   bf16 (cond_chain in both types) once more in the dense form (s2d=False), a case no path launches,
-   with the same tolerances; a "tail_split" line gives each bf16 form's three
-   launches (SFT pass, HR_conv2, conv_last) timed apart under torch.profiler.
+   over w_last's populated slots; in fp32 the tail's three launches on the
+   3×TF32 tiles: the SFT pass on csrc/sft_tf32x3.cuh, HR_conv2 on
+   csrc/conv3x3_tf32x3.cuh, conv_last on its fp32 tile, csrc/conv_last.cuh
+   conv_last_tf32x3_kernel, bound at the "tf32x3" rate with bound_fma_ms
+   beside it) against the plain version's s2d form, and once more in the
+   dense form (s2d=False), a case no path launches, with the same
+   tolerances; a "tail_split" line gives each form's three launches (SFT
+   pass, HR_conv2, conv_last) timed apart under torch.profiler, in fp32 s2d
+   naming the three tiles (F32_TAIL_TILES). On the first WITNESS_ROWS image
+   rows the fp32 s2d tail's unpacked y and the plain version's are held to
+   float64 (vs_fp64, information), and planted faults of the plain version
+   are reported: conv_last cut to one TF32 product must break the 1-code
+   check; HR_conv2 cut so is reported with its margin.
    In bf16 the s2d tail runs once more unpacked, as the HG composite calls
    it: y in bf16 within that code bound in value plus one bf16 step of y, on
    at most TAIL_BF16_SHARE of the values, with its own "tail_split" line;
-   a "conv_last" line gives the third launch alone: its device ms (s2d and
-   dense), its bound, the plain version's time on the plain h, and F.conv2d's
-   on its conv part alone (no single PyTorch call packs).
+   a "conv_last" line per type gives the third launch alone: its device ms
+   (s2d and dense), its bound, the plain version's time on the plain h, and
+   F.conv2d's on its conv part alone (no single PyTorch call packs).
    sft_conv3 and resblock likewise run in the s2d form both bf16 programs
    call (s2d=True: in bf16 the SFT passes on the row tile, resblock's SFT2
    reading the fp32 h1, the convs on the Hopper conv tile over the slot
@@ -83,8 +92,14 @@ lines; any failed check raises and the script exits non-zero with no result:
    720p only), with the same tolerance; no counted path launches these.
    agcm_head likewise runs in the s2d form the megakernel program calls
    (s2d=True: in bf16 the AGCM pass on the row tile, the input conv on its
-   wgmma tile over the s2d slots) and in bf16 once more dense, an
-   "agcm_head_split" line giving each form's two launches; trunk3 runs on
+   wgmma tile over the s2d slots; in fp32 their 3×TF32 instances,
+   agcm_tf32x3_kernel and in_conv_tf32x3_kernel, bound at the "tf32x3"
+   rate) and once more dense, an "agcm_head_split" line giving each form's
+   two launches (fp32 s2d: naming both tiles, F32_HEAD_TILES); fp32's s2d
+   form also on the first WITNESS_ROWS rows against float64 (vs_fp64) and
+   against planted faults: the input conv's pad taken before the modulation
+   must break the 1e-4 check, both passes cut to one TF32 product are
+   reported with their margin; trunk3 runs on
    the Hopper tiles with the dense table (bf16: its SFT passes on the row
    tile, its convs on the conv tile; fp32: its SFT passes on the coalesced
    fp32 pass of csrc/trunk3.cu, its convs on the 3×TF32 tile, the bound's
@@ -393,10 +408,14 @@ HBM_BPS = 3.35e12  # H100 SXM device memory rate
 # on the tensor cores (big·big + small·big + big·small), a third of the dense TF32 rate.
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12, "tf32x3": 494.7e12 / 3}
 ATOL = 1e-4
-WITNESS_ROWS = 60  # image rows of fp32 cond_chain and sft_conv3 L0 held to the float64 witness / the planted faults
+WITNESS_ROWS = 60  # image rows of fp32 cond_chain, sft_conv3 L0, agcm_head and the tail held to float64 / planted faults
 # The kernels the fp32 s2d forms of sft_conv3 and resblock must launch: the SFT pass on the
 # row tile's 3×TF32 instance, the convs on the 3×TF32 conv tile.
 F32_SFT_TILES = ("sft_tf32x3_kernel", "conv3x3_tf32x3_kernel")
+# The kernels the fp32 s2d tail must launch (the SFT pass, HR_conv2, conv_last's fp32
+# tile) and the fp32 s2d agcm_head (the AGCM pass, the input conv), all 3×TF32.
+F32_TAIL_TILES = ("sft_tf32x3_kernel", "conv3x3_tf32x3_kernel", "conv_last_tf32x3_kernel")
+F32_HEAD_TILES = ("agcm_tf32x3_kernel", "in_conv_tf32x3_kernel")
 TAIL_BF16_SHARE = 0.016  # see the docstring, phase 2
 HG_TAIL_BF16_SHARE = 0.01
 HG_E2E_SIZE = (184, 336)  # s2d grid 92 × 168: pads 4 rows and 8 columns; takes the megakernel program
@@ -545,11 +564,15 @@ KERNEL_INFO = {
     "rowmajor_head_pre": ("hdrtv_tpu_torch/csrc/rowmajor_head.cu", "tools/proto_rowmajor_head.py:45"),
 }
 # The tiles of the fp32 instances that ride along off the path ("off_path" in the kernels
-# line), where they are not the entry's own source: the s2d forms' 3×TF32 row and conv tiles.
+# line), where they are not the entry's own source: the s2d forms' 3×TF32 row and conv tiles,
+# the tail's fp32 conv_last tile and the head's 3×TF32 AGCM pass.
 OFF_PATH_SOURCE = {
     "sft_conv3": "hdrtv_tpu_torch/csrc/sft_tf32x3.cuh + hdrtv_tpu_torch/csrc/conv3x3_tf32x3.cuh",
     "resblock": "hdrtv_tpu_torch/csrc/sft_tf32x3.cuh + hdrtv_tpu_torch/csrc/conv3x3_tf32x3.cuh",
     "cond_chain": "hdrtv_tpu_torch/csrc/chain_tf32x3.cuh",
+    "tail": "hdrtv_tpu_torch/csrc/sft_tf32x3.cuh + hdrtv_tpu_torch/csrc/conv3x3_tf32x3.cuh + "
+            "hdrtv_tpu_torch/csrc/conv_last.cuh",
+    "agcm_head": "hdrtv_tpu_torch/csrc/agcm_tf32x3.cuh + hdrtv_tpu_torch/csrc/agcm_head.cu",
 }
 # The launch counter a KERNEL_INFO entry reads, where it is not its own name: the head
 # probe's two forms share one kernel body and one counter.
@@ -744,7 +767,8 @@ def phase_kernels(torch, np) -> dict:
     from hdrtv_tpu_torch.ops import native
     from hdrtv_tpu_torch.ops.megakernel import _conv_same, _s2d_slots_only, _sft_conv_t, _sft_t
     from hdrtv_tpu_torch.ops.megakernel import (
-        _d2s_fine, _sft_hopper, _sft_t_rows, _tf32, fused_down2_q_ref, sft_tf32x3_emulation,
+        _d2s_fine, _sft_hopper, _sft_t_rows, _tf32, agcm_head_tf32x3_emulation, conv_last_tf32x3_emulation,
+        fused_down2_q_ref, sft_tf32x3_emulation,
     )
     from hdrtv_tpu_torch.ops.w8a8 import pack_qargs, pack_qargs_branches
     from hdrtv_tpu_torch.quant.int8 import quantize_weight
@@ -977,6 +1001,77 @@ def phase_kernels(torch, np) -> dict:
             if xin is not x:
                 planted("resblock", "f32", "residual x in place of xsum", y, y_r - (xin - x), ATOL)
 
+        def head64(xs, hargs, scale):
+            """agcm_head's s2d form in float64: (fea, c0, agcm) joined."""
+            mods, aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in = [p.double() for p in hargs]
+            x = torch.cat([xs[:, 0], xs[:, 1]], dim=-1) if xs.ndim == 4 else xs
+            hb_, wb_, _ = x.shape
+            v = x.reshape(-1, 12).double() * scale
+
+            def rows(v, w, b):
+                k, n = w.shape[0] // 4, w.shape[1] // 4
+                return (v.reshape(-1, k) @ w[:k, :n] + b[:n]).reshape(*v.shape[:-1], 4 * n)
+
+            def mod(v, row, width):
+                return v * (mods[row, :width] + 1.0) + mods[row + 1, :width]
+
+            a = act64(mod(rows(v, aw1, ab1), 0, aw1.shape[1]), "relu")
+            b = act64(mod(rows(a, aw2, ab2), 2, aw2.shape[1]), "relu")
+            agcm = mod(rows(b, aw3, ab3), 4, 12).reshape(hb_, wb_, 12)
+            nf = 128
+            w = torch.cat([_s2d_slots_only(w_in[..., :nf]), _s2d_slots_only(w_in[..., nf:])], dim=-1)
+            acc = F.conv2d(agcm.permute(2, 0, 1)[None], w.permute(3, 2, 0, 1), b_in, padding=1)[0].permute(1, 2, 0)
+            return joined((act64(acc[..., :nf], "relu"), act64(acc[..., nf:], "lrelu"), agcm))
+
+        def head_f32_faults(xs, hargs, scale, y):
+            """fp32 agcm_head's s2d call on these rows against faults of its
+            plain version: the input conv's 'same' pad taken before the
+            modulation (the AGCM of a zero pixel around the image, not zero:
+            it must break) and both passes cut to one TF32 product (reported
+            with its margin)."""
+            mods, aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in = hargs
+            x = torch.cat([xs[:, 0], xs[:, 1]], dim=-1) if xs.ndim == 4 else xs
+            x_pad = F.pad(x, (0, 0, 1, 1, 1, 1))  # zero pixels around the frame, then AGCM over them
+            agcm_pad = fused_agcm_head_ref(x_pad, *hargs, n_first=128, scale=scale, s2d=True)[2]
+            w = torch.cat([_s2d_slots_only(w_in[..., :128]), _s2d_slots_only(w_in[..., 128:])], dim=-1)
+            acc = F.conv2d(agcm_pad.permute(2, 0, 1)[None], w.permute(3, 2, 0, 1), b_in)[0].permute(1, 2, 0)
+            y_bad = (torch.clamp_min(acc[..., :128], 0.0), F.leaky_relu(acc[..., 128:], 0.1),
+                     agcm_pad[1:-1, 1:-1])
+            planted("agcm_head", "f32", "input conv's pad taken before the modulation", joined(y), joined(y_bad), ATOL)
+            y_bad = agcm_head_tf32x3_emulation(xs, *hargs, n_first=128, scale=scale, products=1)
+            planted("agcm_head", "f32", "both passes cut to one TF32 product", joined(y), joined(y_bad), ATOL,
+                    required=False)
+
+        def tail64(s_, up, cond, skip, targs):
+            """The fp32 s2d tail in float64, unpacked: y."""
+            _, _, _, sft, w_hr, b_hr, w_last, b_last = targs
+            x = s_.double() + _d2s_fine(up).double()
+            t64 = sft64(x, cond, sft)
+
+            def conv64(v, w, b):
+                ws = _s2d_slots_only(w).double().permute(3, 2, 0, 1)
+                return F.conv2d(v.permute(2, 0, 1)[None], ws, b.double(), padding=1)[0].permute(1, 2, 0)
+
+            return conv64(act64(conv64(t64, w_hr, b_hr), "relu"), w_last, b_last) + skip.double()
+
+        def tail_f32_faults(s_, up, cond, skip, targs, y):
+            """fp32 tail's s2d call (packed) on these rows against faults of its
+            plain version: conv_last cut to one TF32 product (it must break the
+            1-code check) and HR_conv2 cut so (reported with its margin)."""
+            _, _, _, sft, w_hr, b_hr, w_last, b_last = targs
+            sf = s_ + _d2s_fine(up)
+            t_ = _sft_t_rows(sf, cond, sft, torch.float32)
+            h = torch.clamp_min(_conv_same(t_, _s2d_slots_only(w_hr), b_hr), 0.0)
+            y_bad = conv_last_tf32x3_emulation(h, w_last, b_last, skip, pack=True, products=1)
+            planted("tail", "f32", "conv_last cut to one TF32 product", y.to(torch.int32), y_bad.to(torch.int32), 1)
+            h = torch.clamp_min(_conv_same(_tf32(t_), _tf32(_s2d_slots_only(w_hr)), b_hr), 0.0)
+            y_bad = conv_last_tf32x3_emulation(h, w_last, b_last, skip, pack=True)
+            planted("tail", "f32", "HR_conv2 cut to one TF32 product", y.to(torch.int32), y_bad.to(torch.int32), 1,
+                    required=False)
+
+        def joined(outs):
+            return torch.cat([o.reshape(-1) for o in outs])
+
         # block_conv3: (name, hb, wb, natural ci, natural co, PS-folded, relu, skip,
         #               launches per frame on (fp32, bf16_nomega, bf16_mega))
         for name, hb, wb, ci, co, ps, relu, skip, per_path in (
@@ -1193,12 +1288,12 @@ def phase_kernels(torch, np) -> dict:
         packed = agcm_head_pack(hargs[1], hargs[5], w_in)
         packed_s2d = agcm_head_pack_s2d(*hargs[1:6:2], w_in, hargs[8], n_first=128)
 
-        def joined(outs):
-            return torch.cat([o.reshape(-1) for o in outs])
-
         # the program's s2d form (bf16: the AGCM pass on the row tile, the input conv on its wgmma
-        # tile over the slots), then in bf16 the dense form once (no path launches it)
-        for s2d in (True, False) if dtype == "bf16" else (True,):
+        # tile over the slots; fp32: their 3×TF32 instances, bound at the "tf32x3" rate, which
+        # the split must name), then the dense form once (no path launches it). fp32's s2d form
+        # also on the first WITNESS_ROWS rows: its error and the plain version's against float64
+        # (vs_fp64, information), and planted faults (head_f32_faults)
+        for s2d in (True, False):
             def head(s2d=s2d):
                 return fused_agcm_head(xs, *hargs, n_first=128, scale=1.0 / 255.0, packed=packed,
                                        packed_s2d=packed_s2d, s2d=s2d)
@@ -1210,12 +1305,22 @@ def phase_kernels(torch, np) -> dict:
             if [tuple(o.shape) for o in y] != [(hb, wb, 128), (hb, wb, 256), (hb, wb, 12)]:
                 raise AssertionError(f"agcm_head output shapes {[tuple(o.shape) for o in y]}")
             ms, plain = time_ms(head, torch), time_ms(head_plain, torch)
-            if dtype == "bf16":
-                log(json.dumps({"agcm_head_split": {"s2d": s2d, **launch_split(head, torch, HEAD_PARTS)}}))
+            split = launch_split(head, torch, HEAD_PARTS)
+            log(json.dumps({"agcm_head_split": {"dtype": dtype, "s2d": s2d, **split}}))
+            extra = None
+            if dtype == "f32" and s2d:
+                tiles_launched(split, "agcm_head", F32_HEAD_TILES)
+                part = xs[:WITNESS_ROWS]
+                y_p = fused_agcm_head(part, *hargs, n_first=128, scale=1.0 / 255.0, s2d=True)
+                y_pr = fused_agcm_head_ref(part, *hargs, n_first=128, scale=1.0 / 255.0, s2d=True)
+                extra = vs_fp64(joined(y_p), joined(y_pr), head64(part, hargs, 1.0 / 255.0))
+                head_f32_faults(part, hargs, 1.0 / 255.0, y_p)
+                del y_p, y_pr
             record("agcm_head", dtype, f"L0 u8 pair planes -> fea, c0, agcm s2d={s2d}", (0, 0, 1) if s2d else (0, 0, 0),
                    joined(y), joined(y_r), ATOL if dtype == "f32" else 2, ms, plain, None, nbytes_of(xs, *hargs, *y),
                    2 * npix * nnz(hargs[1], hargs[3], hargs[5]) + 2 * conv_macs(w_in, hb, wb, 1)
-                   + 3 * npix * (256 + 256 + 12), unit)
+                   + 3 * npix * (256 + 256 + 12), unit, rate="tf32x3" if dtype == "f32" and s2d else None,
+                   extra=extra)
         del xs, y, y_r
 
         # cond_chain: c0 (540,960,256) → 256 ×4 (lrelu) → 64; c and cond1 compared as one vector.
@@ -1278,10 +1383,13 @@ def phase_kernels(torch, np) -> dict:
             h_max = float(h_plain.float().abs().max())
             del s_sum
         # the program's s2d form (bf16: the SFT on the row tile, HR_conv2 on the Hopper conv tile
-        # over the slot table, conv_last on its tile over w_last's populated slots), then in bf16
-        # the dense form once (no path launches it)
+        # over the slot table, conv_last on its tile over w_last's populated slots; fp32: their
+        # 3×TF32 instances, bound at the "tf32x3" rate, which the split must name), then the
+        # dense form once (no path launches it). fp32's s2d form also on the first WITNESS_ROWS
+        # rows: its unpacked y and the plain version's against float64 (vs_fp64, information),
+        # and planted faults (tail_f32_faults)
         splits = {}
-        for s2d in (True, False) if dtype == "bf16" else (True,):
+        for s2d in (True, False):
             y = fused_tail(*targs, pack=True, up_coarse=up, s2d=s2d)
             y_r = fused_tail_ref(*targs, pack=True, up_coarse=up, s2d=s2d)
             codes = y_r.to(torch.int32)
@@ -1299,14 +1407,23 @@ def phase_kernels(torch, np) -> dict:
                     f"{float(w_last.float().abs().max()):.4f}: bound {tol} codes; {share:.2e} of the codes differ")
                 if share > TAIL_BF16_SHARE:
                     raise AssertionError(f"tail bf16 s2d={s2d}: {share:.3e} of the codes differ > {TAIL_BF16_SHARE}")
-                splits[s2d] = launch_split(lambda: fused_tail(*targs, pack=True, up_coarse=up, s2d=s2d), torch,
-                                           TAIL_PARTS)
-                log(json.dumps({"tail_split": {"dtype": dtype, "s2d": s2d, **splits[s2d]}}))
+            splits[s2d] = launch_split(lambda: fused_tail(*targs, pack=True, up_coarse=up, s2d=s2d), torch,
+                                       TAIL_PARTS)
+            log(json.dumps({"tail_split": {"dtype": dtype, "s2d": s2d, **splits[s2d]}}))
+            extra = None
+            if dtype == "f32" and s2d:
+                tiles_launched(splits[s2d], "tail", F32_TAIL_TILES)
+                rows_ = (s_[:WITNESS_ROWS], up[:WITNESS_ROWS // 2], cond[:WITNESS_ROWS], skip[:WITNESS_ROWS])
+                pargs = (rows_[0], rows_[2], rows_[3], *targs[3:])
+                extra = vs_fp64(fused_tail(*pargs, pack=False, up_coarse=rows_[1], s2d=True),
+                                fused_tail_ref(*pargs, pack=False, up_coarse=rows_[1], s2d=True),
+                                tail64(*rows_, targs))
+                tail_f32_faults(*rows_, targs, fused_tail(*pargs, pack=True, up_coarse=rows_[1], s2d=True))
             record("tail", dtype, f"L0 fea0 + up_coarse -> packed u16 s2d={s2d}",
                    {"bf16_mega": 1} if s2d else {}, y.to(torch.int32), codes, tol, ms, plain, None,
                    nbytes_of(s_, up, cond, skip, y, *params),
                    2 * (conv_macs(w_hr, hb, wb, 1) + conv_macs(w_last, hb, wb, 1)) + sft_flops(npix, sft)
-                   + 4 * npix * 128 + 5 * npix * 12)
+                   + 4 * npix * 128 + 5 * npix * 12, rate="tf32x3" if dtype == "f32" and s2d else None, extra=extra)
         if dtype == "bf16":
             # the HG composite's call: the same s2d form unpacked, y (540, 960, 12) in bf16; each y
             # within the codes' bound in value (a flipped bf16 step of h under one window, doubled)
@@ -1325,27 +1442,31 @@ def phase_kernels(torch, np) -> dict:
                    nbytes_of(s_, up, cond, skip, y, *params),
                    2 * (conv_macs(w_hr, hb, wb, 1) + conv_macs(w_last, hb, wb, 1)) + sft_flops(npix, sft)
                    + 4 * npix * 128 + 3 * npix * 12, "flips", share=TAIL_BF16_SHARE)
-            # conv_last alone at this shape (the third launch of the s2d and dense forms above, by
-            # torch.profiler): its bound (h, skip and the packed output once; the populated slots'
-            # products at the bf16 rate), the plain version's time on the plain h, and F.conv2d's
-            # on its conv part alone (no single PyTorch call packs)
-            w_s = _s2d_slots_only(w_last)
-            b_last = targs[7]
+        else:
+            # h as the fp32 s2d tail computes it: relu(HR_conv2(sft(s + d2s(up)))) over the slots
+            h_plain = torch.clamp_min(_conv_same(_sft_t_rows(s_ + _d2s_fine(up), cond, sft, torch.float32),
+                                                 _s2d_slots_only(w_hr), targs[5]), 0.0)
+        # conv_last alone at this shape (the third launch of the s2d and dense forms above, by
+        # torch.profiler): its bound (h, skip and the packed output once; the populated slots'
+        # products at the bf16 rate, in fp32 at the "tf32x3" rate), the plain version's time on
+        # the plain h, and F.conv2d's on its conv part alone (no single PyTorch call packs)
+        w_s = _s2d_slots_only(w_last)
+        b_last = targs[7]
 
-            def last_plain():
-                v = (_conv_same(h_plain.float(), w_s, b_last) + skip.float()).clamp(0.0, 1.0)
-                return (v * 65535.0 + 0.5).to(torch.int32).to(torch.uint16)
+        def last_plain():
+            v = (_conv_same(h_plain.float(), w_s, b_last) + skip.float()).clamp(0.0, 1.0)
+            return (v * 65535.0 + 0.5).to(torch.int32).to(torch.uint16)
 
-            h_nchw = h_plain.permute(2, 0, 1)[None].contiguous()
-            w_oihw = w_last.permute(3, 2, 0, 1).contiguous()
-            lb_ms, lb_by = bound(nbytes_of(h_plain, skip, w_last, b_last) + 2 * npix * 12,
-                                 2 * conv_macs(w_last, hb, wb, 1), "bf16")
-            log(json.dumps({"conv_last": {
-                "ms": splits[True]["conv_last_ms"], "dense_ms": splits[False]["conv_last_ms"],
-                "plain_ms": round(time_ms(last_plain, torch), 4),
-                "conv2d_ms": round(time_ms(lambda: F.conv2d(h_nchw, w_oihw, b_last.to(dt), padding=1), torch), 4),
-                "bound_ms": round(lb_ms, 4), "bound_by": lb_by, "library": "none"}}))
-            del h_plain, h_nchw, w_oihw
+        h_nchw = h_plain.permute(2, 0, 1)[None].contiguous()
+        w_oihw = w_last.permute(3, 2, 0, 1).contiguous()
+        lb_ms, lb_by = bound(nbytes_of(h_plain, skip, w_last, b_last) + 2 * npix * 12,
+                             2 * conv_macs(w_last, hb, wb, 1), "bf16" if dtype == "bf16" else "tf32x3")
+        log(json.dumps({"conv_last": {
+            "dtype": dtype, "ms": splits[True]["conv_last_ms"], "dense_ms": splits[False]["conv_last_ms"],
+            "plain_ms": round(time_ms(last_plain, torch), 4),
+            "conv2d_ms": round(time_ms(lambda: F.conv2d(h_nchw, w_oihw, b_last.to(dt), padding=1), torch), 4),
+            "bound_ms": round(lb_ms, 4), "bound_by": lb_by, "library": "none"}}))
+        del h_plain, h_nchw, w_oihw
         del s_, up, cond, skip, y, y_r, codes, targs
 
         # trunk3 at the /8 level: fea3 (135,240,32), cond4 (135,240,16) → 128. In bf16 the

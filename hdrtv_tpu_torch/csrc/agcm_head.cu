@@ -58,6 +58,14 @@
 //      fea and c0, (C, W, H), which clip a box at the row's end.
 // Bound on this card: bytes, the 398 MB of fea and c0 at 1080p (0.12 ms);
 // 12.7 GFLOP of slot products (0.013 ms).
+//
+// The s2d form in fp32 (s2d=True in fp32; hdrtv_agcm_head_s2d_f32), two
+// launches on the 3×TF32 instances of those tiles (below): the AGCM pass on
+// agcm_tf32x3.cuh's agcm_tf32x3_kernel (every value fp32, nothing
+// narrowed), then in_conv_tf32x3_kernel, one sub-position's output staged
+// and stored by TMA at a time, under the next one's products. The dense
+// form (agcm_kernel, in_conv_kernel) stays for s2d=False in either type.
+#include "agcm_tf32x3.cuh"
 #include "chain_sm90.cuh"
 #include "pointwise.cuh"
 
@@ -446,18 +454,20 @@ __global__ void __launch_bounds__(128, 2) in_conv_sm90_kernel(const __grid_const
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// An output's TMA map: (C, W, H) bf16, box (64 channels, 64 pixels, 1 row),
-// the 128-byte swizzle the stage is written in; out-of-image boxes clipped.
-cudaError_t encode_out_map(CUtensorMap* map, void* y, int H, int W, int C) {
+// An output's TMA map: (C, W, H) bf16 (or fp32 with f32), box (128 bytes
+// of channels: 64 bf16 or 32 fp32; 64 pixels; 1 row), the 128-byte swizzle
+// the stage is written in; out-of-image boxes clipped.
+cudaError_t encode_out_map(CUtensorMap* map, void* y, int H, int W, int C, bool f32 = false) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t size = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(C) * 2, static_cast<cuuint64_t>(W) * C * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(C) * size, static_cast<cuuint64_t>(W) * C * size};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / size), 64, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, y, dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
-      CUDA_SUCCESS)
+  if (encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, y, dims, strides, box,
+             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
@@ -479,8 +489,304 @@ cudaError_t agcm_head_s2d(const AgcmSm90Args& g, InConvSm90Args& c, cudaStream_t
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The s2d form in fp32 (the wrapper's s2d=True in fp32; see the header): the
+// AGCM pass on agcm_tf32x3.cuh's agcm_tf32x3_kernel, then
+// in_conv_tf32x3_kernel, the 3×TF32 instance of in_conv_sm90_kernel.
+//
+// Per tile (64 consecutive s2d pixels of one row) and output sub-position
+// so: one m64 pass over so's 9 slots × 3 channels (K = 27 of 32: four k8
+// steps, small·big + big·small + big·big each, summed in the tensor cores
+// from zero: one 32-position chunk), into so's 32 fea columns (m64n32k8) and
+// 64 c0 columns (m64n64k8). A is gathered from the staged agcm halo (fp32,
+// 3 rows × 66 columns × 12 channels, zero outside the image: the 'same' pad
+// after the modulation; cp.async, the next tile's while this one computes)
+// into registers in chain_kpos order and split there; B, so's (32, 96)
+// weight of agcm_head_pack_s2d in fp32, is split once per block into shared
+// memory (K-major, the 128-byte swizzle, big then small: 24 KB a
+// sub-position, 96 KB in all), resident.
+//
+// Two warpgroups a block, both on the same 64 pixels: warpgroup g takes
+// so's columns [48g, 48g + 48) (m64n48k8), each gathering and splitting the
+// same A. With one warpgroup taking all 96 columns the epilogue, serialized
+// behind the products on one warp a scheduler, took 38% of its cycles
+// (0.383 ms at 1080p; PERF.md §6).
+//
+// The epilogue adds the fp32 bias, applies ReLU (fea) or leaky ReLU 0.1
+// (c0) and stages so's (64, 32 ‖ 64) fp32 output in three boxes of 64
+// pixels × 32 channels in their 128-byte swizzle (24 KB); one thread stores
+// them by TMA through 3-D fp32 maps of fea and c0, (C, W, H), which clip a
+// box at the row's end. The bf16 tile stages a tile's whole output (48 KB;
+// 96 KB in fp32): here two such per-sub-position stages alternate, so the
+// store of one runs under the next sub-position's work, and a stage is
+// written again only once its store has read it
+// (cp.async.bulk.wait_group.read 1). Shared memory 165 KB: one block per
+// SM.
+//
+// Bound on this card: bytes, the 0.80 GB of fea and c0 at 1080p (0.24 ms);
+// 38 GFLOP of padded slot products (K = 32) at a third of the TF32 rate,
+// 0.23 ms (10.7 GFLOP non-zero, 0.065 ms). Times: PERF.md §6.
+// ---------------------------------------------------------------------------
+
+struct InConvF32Args {
+  CUtensorMap fea_map, c0_map;  // fea (128, W, H) and c0 (256, W, H) fp32, box (32, 64, 1), 128-byte swizzle
+  const float* agcm;  // (H, W, 12)
+  const float* w;     // (4, 32, 96): so's rows 3·k + c (slot k of so, channel c; 27 of 32), fea ‖ c0 columns
+  const float* b;     // (4, 96)
+  float* fea;         // (H, W, 4·32)
+  float* c0;          // (H, W, 4·64)
+  int H, W;
+  int slot[36];       // so's 9 slots (s2d_slots(1), its order) at [9·so, 9·so + 9): tap | si << 4
+#ifdef HDRTV_SM90_PHASES
+  unsigned long long* phases = nullptr;  // tools/sm90_phases.py: 8 clock64() sums per block
+#endif
+};
+
+struct InConvF32Cfg {
+  static constexpr int CF = 32, CC = 64, N = CF + CC;  // one sub-position's fea and c0 columns
+  static constexpr int K = 32;                         // 9 slots × 3 channels, padded: one chunk
+  static constexpr int TW = 64;                        // pixels of a tile: one m64 tile
+  static constexpr int HC = TW + 2;                    // halo columns
+  static constexpr int PIX = 12 * 4;                   // bytes of an agcm pixel
+  static constexpr int HALO = 3 * HC * PIX;
+  static constexpr int BOX = TW * 128;                 // a TMA box: 64 pixels × 32 fp32 channels
+  static constexpr int OUT = 3 * BOX;                  // one sub-position's stage: fea, c0 [0, 32), c0 [32, 64)
+  static constexpr int W_HALF = N * K * 4;             // big or small of one sub-position's weight
+  static constexpr int W_BYTES = 4 * 2 * W_HALF;
+  static constexpr int BIAS_BYTES = 4 * N * 4;
+  static constexpr int OFF_BYTES = 4 * K * 2;
+  // shared memory: [1024-byte alignment][2 stages][weights][biases][offsets][2 halos]
+  static constexpr int SMEM = 1024 + 2 * OUT + W_BYTES + BIAS_BYTES + OFF_BYTES + 2 * HALO;
+  static_assert(OUT % 1024 == 0 && W_HALF % 1024 == 0 && (BIAS_BYTES + OFF_BYTES) % 16 == 0, "alignment");
+  static_assert(SMEM <= 227 * 1024, "one block per SM");
+};
+
+__global__ void __launch_bounds__(256, 1) in_conv_tf32x3_kernel(const __grid_constant__ InConvF32Args a) {
+  using Cfg = InConvF32Cfg;
+  constexpr int K = Cfg::K, N = Cfg::N, TW = Cfg::TW, HC = Cfg::HC, CF = Cfg::CF, NH = N / 2;
+  extern __shared__ __align__(16) unsigned char conv_smem[];
+  const unsigned raw = static_cast<unsigned>(__cvta_generic_to_shared(conv_smem));
+  unsigned char* const stage = conv_smem + (((raw + 1023u) & ~1023u) - raw);
+  unsigned char* const wsm = stage + 2 * Cfg::OUT;
+  float* const bias = reinterpret_cast<float*>(wsm + Cfg::W_BYTES);
+  short* const offs = reinterpret_cast<short*>(wsm + Cfg::W_BYTES + Cfg::BIAS_BYTES);
+  unsigned char* const halo = wsm + Cfg::W_BYTES + Cfg::BIAS_BYTES + Cfg::OFF_BYTES;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, q = lane & 3, g = lane >> 2;
+#ifdef HDRTV_SM90_PHASES
+  // Cycles per phase (the halo's wait and meeting; gathering and splitting
+  // A; the products and their wait; the wait for a stage's last store; the
+  // epilogue and the stores' issue), summed by thread 0 over its steps.
+  unsigned long long t_start = clock64(), t_phase[8] = {0, 0, 0, 0, 0, 0, 0, 0}, t_mark = t_start;
+#define PHASE(i) (t_phase[i] += clock64() - t_mark, t_mark = clock64());
+#else
+#define PHASE(i)
+#endif
+
+  for (int so = 0; so < 4; ++so) stage_b_tf32x3(wsm + so * 2 * Cfg::W_HALF, N, a.w + so * K * N, N, K);
+  for (int i = tid; i < 4 * N; i += blockDim.x) bias[i] = a.b[i];
+  // Column k of so's K is the halo element offs[so·K + k] + 12·px (floats)
+  // for pixel px: slot k / 3 at tap (dI, dJ) (halo row dI, column px + dJ),
+  // input sub-position si, channel k % 3; −1 for the padding.
+  for (int i = tid; i < 4 * K; i += blockDim.x) {
+    const int so = i / K, k = i % K;
+    short o = -1;
+    if (k < 27) {
+      const int e = a.slot[so * 9 + k / 3], tap = e & 15, si = e >> 4;
+      o = static_cast<short>((tap / 3) * HC * 12 + (tap % 3) * 12 + si * 3 + k % 3);
+    }
+    offs[i] = o;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int tw = (a.W + TW - 1) / TW;
+  const int tiles = a.H * tw;
+  // tile t: row t / tw, pixels 64·(t % tw) ..; its halo rows i − 1 .. i + 1,
+  // columns j0 − 1 .. j0 + 64, each pixel three 16-byte pieces
+  auto load_halo = [&](int tile, int buf) {
+    const int i = tile / tw, j0 = (tile % tw) * TW;
+    unsigned char* const hs = halo + buf * Cfg::HALO;
+    for (int idx = tid; idx < 3 * HC * 3; idx += blockDim.x) {
+      const int r = idx / (HC * 3), rem = idx - r * (HC * 3), col = rem / 3, piece = rem - col * 3;
+      const int gi = i + r - 1, gj = j0 + col - 1;
+      const bool ok = gi >= 0 && gi < a.H && gj >= 0 && gj < a.W;
+      const float* const src = a.agcm + (ok ? (static_cast<long long>(gi) * a.W + gj) * 12 + piece * 4 : 0);
+      cp_async16_or_zero(hs + (r * HC + col) * Cfg::PIX + piece * 16, src, ok);
+    }
+  };
+  // The byte offset of channel n (< 32) of pixel px in a 128-byte-swizzled box.
+  auto at = [](int px, int n) { return px * 128 + ((((n >> 2) ^ (px & 7))) << 4) + (n & 3) * 4; };
+
+  const unsigned wbase = static_cast<unsigned>(__cvta_generic_to_shared(wsm));
+  const unsigned sbase = static_cast<unsigned>(__cvta_generic_to_shared(stage));
+  if (blockIdx.x < tiles) load_halo(blockIdx.x, 0);
+  cp_async_commit();
+  int k = 0, ob = 0;  // this block's tile count; the stage the next sub-position writes
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k) {
+#ifdef HDRTV_SM90_PHASES
+    t_mark = clock64();
+#endif
+    // this tile's halo arrived (everyone's copies); everyone is done with
+    // the last tile's halo (read before its last sub-position's stores),
+    // which the next tile's copy refills
+    if (tile + gridDim.x < tiles) load_halo(tile + gridDim.x, (k + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    PHASE(1)
+    const int ti = tile / tw, j0 = (tile % tw) * TW;
+    const float* const hs = reinterpret_cast<const float*>(halo + (k & 1) * Cfg::HALO);
+#pragma unroll 1
+    for (int so = 0; so < 4; ++so) {
+      // A (the same in both warpgroups): rows 16·warp + g (+ 8); k8 step j's
+      // k = q and q + 4 are so's columns 8j + 2q and 8j + 2q + 1 (chain_kpos), split
+      uint32_t ab[4][4], as[4][4];
+      const short* const of = offs + so * K;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = warp * 16 + g + 8 * h;
+          const int o0 = of[8 * j + 2 * q], o1 = of[8 * j + 2 * q + 1];
+          split_pair(o0 < 0 ? 0.f : hs[o0 + px * 12], o1 < 0 ? 0.f : hs[o1 + px * 12], ab, as, j, h);
+        }
+      PHASE(2)
+      // this warpgroup's 48 of so's 96 columns (fea ‖ c0): rows 48·wg .. of so's weight
+      float d[NH / 2];
+      const unsigned wb = wbase + so * 2 * Cfg::W_HALF + wg * NH * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        WgmmaTf32<NH>::mma(d, as[j], desc_sw128(wb + j * 32), j > 0);
+        WgmmaTf32<NH>::mma(d, ab[j], desc_sw128(wb + Cfg::W_HALF + j * 32));
+        WgmmaTf32<NH>::mma(d, ab[j], desc_sw128(wb + j * 32));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d);
+      fence_frags(ab);
+      fence_frags(as);
+      PHASE(3)
+      // the store two sub-positions back has read this stage
+      if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+      __syncthreads();
+      PHASE(4)
+      unsigned char* const st = stage + ob * Cfg::OUT;
+      const float* const bs = bias + so * N;
+#pragma unroll
+      for (int jj = 0; jj < NH / 8; ++jj) {
+        const int n = wg * NH + 8 * jj + 2 * q;  // so's column: fea below CF, c0 from CF
+        const float2 bb = *reinterpret_cast<const float2*>(bs + n);
+        const bool f = n < CF;
+        const int act = f ? ACT_RELU : ACT_LRELU;
+        // fea: box 0, channel n; c0: box 1 + (n − 32) / 32, channel (n − 32) % 32
+        const int box = f ? 0 : 1 + ((n - CF) >> 5), nn = f ? n : (n - CF) & 31;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = warp * 16 + g + 8 * h;
+          *reinterpret_cast<float2*>(st + box * Cfg::BOX + at(px, nn)) =
+              make_float2(apply_act(d[4 * jj + 2 * h] + bb.x, act), apply_act(d[4 * jj + 2 * h + 1] + bb.y, act));
+        }
+      }
+      // the stage, written by the generic proxy, is read by TMA's async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (tid == 0) {
+        const unsigned src = sbase + ob * Cfg::OUT;
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          const CUtensorMap* const map = b == 0 ? &a.fea_map : &a.c0_map;
+          const int c = b == 0 ? so * CF : so * Cfg::CC + (b - 1) * 32;
+          asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n"
+                       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(j0), "r"(ti), "r"(src + b * Cfg::BOX)
+                       : "memory");
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+      ob ^= 1;
+      PHASE(5)
+    }
+  }
+  cp_async_wait<0>();
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+#ifdef HDRTV_SM90_PHASES
+  t_phase[0] = clock64() - t_start;
+  t_phase[7] = k;
+  if (a.phases && tid == 0)
+    for (int i = 0; i < 8; ++i) a.phases[blockIdx.x * 8 + i] = t_phase[i];
+#endif
+#undef PHASE
+}
+
+// The fp32 s2d form's input conv (arguments: InConvF32Args, its maps encoded here).
+cudaError_t in_conv_tf32x3(InConvF32Args& c, cudaStream_t stream) {
+  using Cfg = InConvF32Cfg;
+  static DeviceCache cache;
+  int resident = 0;
+  cudaError_t err = resident_blocks(cache, in_conv_tf32x3_kernel, Cfg::SMEM, &resident, 256);
+  if (err == cudaSuccess) err = encode_out_map(&c.fea_map, c.fea, c.H, c.W, 4 * Cfg::CF, true);
+  if (err == cudaSuccess) err = encode_out_map(&c.c0_map, c.c0, c.H, c.W, 4 * Cfg::CC, true);
+  if (err != cudaSuccess) return err;
+  const int tiles = c.H * ((c.W + Cfg::TW - 1) / Cfg::TW);
+  in_conv_tf32x3_kernel<<<std::max(1, std::min(tiles, resident)), 256, Cfg::SMEM, stream>>>(c);
+  return cudaGetLastError();
+}
+
+// agcm_head's s2d form in fp32; the natural widths of the bf16 form, which
+// the wrapper checks.
+cudaError_t agcm_head_s2d_f32(const AgcmF32Args& g, InConvF32Args& c, cudaStream_t stream) {
+  const cudaError_t err = agcm_tf32x3(g, stream);
+  return err == cudaSuccess ? in_conv_tf32x3(c, stream) : err;
+}
+
+// The arguments of the fp32 s2d form's two launches (the exported function's, below).
+void agcm_head_s2d_f32_args(AgcmF32Args& g, InConvF32Args& c, const void* x, int kind, float scale, const void* mods,
+                            int mw, const void* w1, const void* b1, const void* w2, const void* b2, const void* w3,
+                            const void* b3, const void* w_in, const void* b_in, const int* slots, void* fea, void* c0,
+                            void* agcm, int H, int W) {
+  g.x = x;
+  g.kind = kind;
+  g.scale = scale;
+  g.mods = static_cast<const float*>(mods);
+  g.mw = mw;
+  g.w[0] = static_cast<const float*>(w1);
+  g.w[1] = static_cast<const float*>(w2);
+  g.w[2] = static_cast<const float*>(w3);
+  g.b[0] = static_cast<const float*>(b1);
+  g.b[1] = static_cast<const float*>(b2);
+  g.b[2] = static_cast<const float*>(b3);
+  g.y = static_cast<float*>(agcm);
+  g.rows = 4LL * H * W;
+  g.W = W;
+  c.agcm = static_cast<const float*>(agcm);
+  c.w = static_cast<const float*>(w_in);
+  c.b = static_cast<const float*>(b_in);
+  c.fea = static_cast<float*>(fea);
+  c.c0 = static_cast<float*>(c0);
+  c.H = H;
+  c.W = W;
+  for (int i = 0; i < 36; ++i) c.slot[i] = slots[i];
+}
+
 }  // namespace
 }  // namespace hdrtv
+
+// The s2d form in fp32, arguments as hdrtv_agcm_head_s2d_bf16's (kind 0: the
+// frame in fp32; every pack and output fp32).
+extern "C" int hdrtv_agcm_head_s2d_f32(const void* x, int kind, float scale, const void* mods, int mw,
+                                       const void* w1, const void* b1, const void* w2, const void* b2,
+                                       const void* w3, const void* b3, const void* w_in, const void* b_in,
+                                       const int* slots, void* fea, void* c0, void* agcm, int H, int W,
+                                       void* stream) {
+  using namespace hdrtv;
+  if (kind < kAgcmFrameBf16 || kind > kAgcmFramePairs || mw < 256 || !slots || H < 1 || W < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  AgcmF32Args g;
+  InConvF32Args c;
+  agcm_head_s2d_f32_args(g, c, x, kind, scale, mods, mw, w1, b1, w2, b2, w3, b3, w_in, b_in, slots, fea, c0, agcm, H,
+                         W);
+  return static_cast<int>(agcm_head_s2d_f32(g, c, static_cast<cudaStream_t>(stream)));
+}
 
 // The s2d form in bf16. kind as below; w1, w2, w3: the AGCM blocks, padded
 // (16, 64), (64, 64), (64, 16); b1, b2, b3 the s2d biases; w_in (4, 32, 96)

@@ -1049,7 +1049,9 @@ struct AgcmSm90Cfg {
 // j) is x[i, row parity, j, 3·(column parity) ..]. 32-bit arithmetic (the
 // wrapper keeps 12·npix < 2^31); the row i = p / W from the fp32
 // reciprocal of W, corrected by one step either way (p < 2^24).
-__device__ __forceinline__ unsigned agcm_row_start(const AgcmSm90Args& a, unsigned r, int so, float inv_w) {
+// (Args: AgcmSm90Args, or the fp32 instance's AgcmF32Args of agcm_tf32x3.cuh.)
+template <typename Args>
+__device__ __forceinline__ unsigned agcm_row_start(const Args& a, unsigned r, int so, float inv_w) {
   if (a.kind != kAgcmFramePairs) return r * 3;
   const unsigned p = r >> 2, w = static_cast<unsigned>(a.W);
   unsigned i = __float2uint_rz(__uint2float_rn(p) * inv_w);

@@ -108,14 +108,13 @@ __device__ __forceinline__ void stage_b_tf32x3(unsigned char* dst, int N, const 
   }
 }
 
-// A float step of N outputs: the 64-deep product of the split fragments
-// (ab, as: k8 step j's register A) with the block staged at shared address
-// wb, as two chunk sums (k8 steps 0-3 into d, 4-7 into p, each from zero)
-// added in fp32.
+// A float step of N outputs, issued and committed: the 64-deep product of
+// the split fragments (ab, as: k8 step j's register A) with the block
+// staged at shared address wb, as two chunk sums (k8 steps 0-3 into d, 4-7
+// into p, each from zero); the caller waits and adds them.
 template <int N>
-__device__ __forceinline__ void chain_step_tf32x3(float (&d)[N / 2], const uint32_t (&ab)[8][4],
-                                                  const uint32_t (&as)[8][4], unsigned wb) {
-  float p[N / 2];
+__device__ __forceinline__ void chain_issue_tf32x3(float (&d)[N / 2], float (&p)[N / 2], const uint32_t (&ab)[8][4],
+                                                   const uint32_t (&as)[8][4], unsigned wb) {
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -131,6 +130,14 @@ __device__ __forceinline__ void chain_step_tf32x3(float (&d)[N / 2], const uint3
     }
   }
   wgmma_commit();
+}
+
+// chain_issue_tf32x3's step, waited for, its two chunk sums added in fp32 into d.
+template <int N>
+__device__ __forceinline__ void chain_step_tf32x3(float (&d)[N / 2], const uint32_t (&ab)[8][4],
+                                                  const uint32_t (&as)[8][4], unsigned wb) {
+  float p[N / 2];
+  chain_issue_tf32x3<N>(d, p, ab, as, wb);
   wgmma_wait<0>();
   fence_regs(d);
   fence_regs(p);

@@ -64,11 +64,29 @@
 //      folded bias and ReLU rounded apart, h stored in bf16 inside the image;
 //   3. conv_last on its Hopper tile, as in the float body's s2d form.
 // Bound on this card: bytes (0.1065 ms a 1080p call). Times: PERF.md §5-§6.
+//
+// The float body's s2d form in fp32 (s2d=True without q_hr; fp32 calls with
+// q_hr, tail_w8a8, keep the dense kernels above): the same three launches on
+// the tiles' fp32 instances, as fp32 sft_conv3's (sft_conv3.cu):
+//   1. the SFT pass on sft_tf32x3.cuh's 3×TF32 row tile, up_coarse
+//      un-folded on read (s + d2s(up) in fp32, no sum written); t once;
+//   2. HR_conv2 on conv3x3_tf32x3.cuh's 3×TF32 tile over the same slot
+//      table, bias and ReLU in its epilogue, h stored inside the image, TMA's
+//      zero fill reading t as zero outside it;
+//   3. conv_last on its fp32 tile (conv_last.cuh conv_last_tf32x3_kernel):
+//      the bf16 tile's plan, h's fp32 rows by TMA in four 32-channel boxes,
+//      the 16 slots' products as 3×TF32 on mma.sync, eight warps splitting
+//      them, A by ldmatrix split in registers, the split weights' fragments
+//      in shared memory.
+// Every value fp32: the Pallas body in fp32 narrows nothing. Bound on this
+// card: bytes for the SFT pass and conv_last, operations at a third of the
+// TF32 rate for HR_conv2. Times: PERF.md §6.
 #include "chain_sm90.cuh"
 #include "conv3x3_s8.cuh"
 #include "conv3x3_s8_sm90.cuh"
 #include "conv_last.cuh"
 #include "pointwise.cuh"
+#include "sft_tf32x3.cuh"
 
 namespace hdrtv {
 namespace {
@@ -90,7 +108,16 @@ int tail(const void* s, const void* up, const void* cond1, const void* skip,
         err = conv3x3_sm90<1>(t, w_hr, static_cast<const float*>(b_hr), nullptr, h, H, W, C, 0, C, C, ACT_RELU, 1,
                               table, per_list, st);
     } else {
-      return static_cast<int>(cudaErrorInvalidValue);
+      // fp32: the float body only (the int8 body keeps its dense kernels)
+      if (!table || q_hr) return static_cast<int>(cudaErrorInvalidValue);
+      err = sft_tf32x3(s, up, 1, nullptr, cond1, t, sft, H, W, C, CC, st);
+      if (err == cudaSuccess)
+        err = conv3x3_tf32x3<1>(t, w_hr, static_cast<const float*>(b_hr), nullptr, h, H, W, C, 0, C, C, ACT_RELU, 1,
+                                table, per_list, st);
+      if (err == cudaSuccess)
+        err = conv_last_tf32x3(h, w_last, static_cast<const float*>(b_last), skip, out, H, W, C, Cl, pack, last_walk,
+                               st);
+      return static_cast<int>(err);
     }
   } else {
     SftArgs f;
@@ -137,9 +164,10 @@ int tail(const void* s, const void* up, const void* cond1, const void* skip,
 // scale0, scale1, shift0, shift1. q_hr: null for the float form, else
 // HR_conv2's int8 parameters (w_hr and b_hr unused). Scratch: t H·W·C elements
 // (bytes, codes, with q_hr) and h H·W·C elements. s2d: 1 for the s2d form
-// (bf16, float or int8), whose HR_conv2 walks `table` (per_list entries per
-// output sub-position; null otherwise) and whose conv_last walks `last_walk`
-// (ops/megakernel.py conv_last_walk; null otherwise), else 0.
+// (bf16, float or int8; fp32, float), whose HR_conv2 walks `table`
+// (per_list entries per output sub-position; null otherwise) and whose
+// conv_last walks `last_walk` (ops/megakernel.py conv_last_walk; null
+// otherwise), else 0.
 extern "C" int hdrtv_tail_f32(const void* s, const void* up, const void* cond1, const void* skip,
                               const void* const* sft, const void* w_hr, const void* b_hr,
                               const void* q_hr, const void* w_last, const void* b_last,

@@ -41,8 +41,11 @@ int8-output mode and their convs the wgmma s8 tile of
 bf16 at stride 2 (its ``a_sub`` ≥ 1 being the same declaration). In fp32
 the float bodies of ``fused_sft_conv3_v2`` and ``fused_resblock`` run their
 SFT passes on the row tile's 3×TF32 instance (``csrc/sft_tf32x3.cuh``) and
-their convs on the 3×TF32 conv tile (``csrc/conv3x3_tf32x3.cuh``); the fp32
-tail and every fp32 int8 body keep the dense kernels.
+their convs on the 3×TF32 conv tile (``csrc/conv3x3_tf32x3.cuh``), and so
+does the fp32 float tail, whose conv_last runs its fp32 tile
+(``csrc/conv_last.cuh``, 3×TF32 on mma.sync); ``fused_agcm_head`` in fp32
+runs its AGCM pass and input conv on 3×TF32 tiles (``csrc/agcm_tf32x3.cuh``,
+``csrc/agcm_head.cu``); every fp32 int8 body keeps the dense kernels.
 ``fused_trunk3`` runs natural tensors; both its instances run the Hopper
 tiles on any weights (fp32 the 3×TF32 tile, dense).
 """
@@ -204,9 +207,10 @@ def agcm_head_pack_s2d(aw1, aw2, aw3, w_in, b_in, *, n_first: int) -> tuple:
     gathered per output sub-position so, (4, 32, Cf/4 + Cc/4): row 3·k + c is
     channel c of so's k-th slot (tap, si) of ``s2d_slots(1)`` (rows 27 .. 31
     zero), columns so's fea block then its c0 block, and its bias likewise
-    (4, Cf/4 + Cc/4), fp32. Pass the BGR-permuted ``aw1`` for a BGR frame.
-    It depends on the parameters only: build it once at load and pass it as
-    ``packed_s2d``."""
+    (4, Cf/4 + Cc/4), fp32. The weights keep the element type: the bf16
+    pack for the bf16 tiles, the fp32 pack for their 3×TF32 instances. Pass
+    the BGR-permuted ``aw1`` for a BGR frame. It depends on the parameters
+    only: build it once at load and pass it as ``packed_s2d``."""
     cin, co = w_in.shape[2] // 4, w_in.shape[3]
     c1, c2 = aw1.shape[1] // 4, aw2.shape[1] // 4
     w1 = aw1.new_zeros((16, c1))
@@ -256,11 +260,13 @@ def fused_agcm_head(
     each row's own sub-position, and the conv only the populated s2d slots
     of each part. bf16 on the card: the AGCM pass on the Hopper row tile of
     ``csrc/chain_sm90.cuh`` and the input conv on a wgmma tile over the
-    slots (``csrc/agcm_head.cu``), natural widths ``AGCM_S2D_WIDTHS`` only
-    (others raise); fp32 keeps the dense kernels, the same function on such
-    weights. The plain version honours it too, so a weight without that
-    structure gives another result than the JAX kernel's. False: dense,
-    right for any weight."""
+    slots (``csrc/agcm_head.cu``); fp32 on the card: their 3×TF32 instances
+    (the AGCM pass ``csrc/agcm_tf32x3.cuh agcm_tf32x3_kernel``, the input
+    conv ``csrc/agcm_head.cu in_conv_tf32x3_kernel``), reading
+    ``packed_s2d`` in fp32. Either type: natural widths ``AGCM_S2D_WIDTHS``
+    only (others raise). The plain version honours it too, so a weight
+    without that structure gives another result than the JAX kernel's.
+    False: dense, right for any weight."""
     if xs.ndim == 4:
         hb, two, wb, half = xs.shape
         if (two, 2 * half) != (2, _CIN):
@@ -297,7 +303,7 @@ def fused_agcm_head(
     fea = torch.empty((hb, wb, n_first), dtype=dt, device=xs.device)
     c0 = torch.empty((hb, wb, co - n_first), dtype=dt, device=xs.device)
     agcm = torch.empty((hb, wb, _CIN), dtype=dt, device=xs.device)
-    if s2d and dt == torch.bfloat16:
+    if s2d:
         widths = (_CIN // 4, c1 // 4, c2 // 4, n_first // 4, (co - n_first) // 4)
         if widths != AGCM_S2D_WIDTHS:
             raise ValueError(f"agcm_head: the s2d head takes natural widths (C, C1, C2, Cf, Cc) = "
@@ -412,25 +418,31 @@ def _tf32(v: torch.Tensor) -> torch.Tensor:
     return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _rows_tf32x3(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor, products: int = 3) -> torch.Tensor:
-    """:func:`_rows_1x1` as the row tile's fp32 instance (``csrc/chain_tf32x3.cuh``)
-    computes it: the rows and the weight's first diagonal block split into
-    TF32 big and small halves, small·big + big·small + big·big summed over
-    each 32-channel chunk (exact products, the chunk's sum rounded once to
-    fp32: the tensor cores' order within it is not modelled), the chunk sums
-    added, then the bias, in fp32. ``products`` = 1 keeps big·big alone, one
-    TF32 product: a fault the checks must see."""
-    k, n = w.shape[0] // 4, w.shape[1] // 4
-    rows, blk = v.reshape(-1, k), w[:k, :n].float()
+def _mm_tf32x3(rows: torch.Tensor, blk: torch.Tensor, products: int = 3) -> torch.Tensor:
+    """fp32 ``rows`` (M, K) times fp32 ``blk`` (K, N) as the 3×TF32 tiles sum
+    it: both split into TF32 big and small halves, small·big + big·small +
+    big·big summed over each 32-deep chunk of K (exact products, the chunk's
+    sum rounded once to fp32: the tensor cores' order within it is not
+    modelled), the chunk sums added in fp32. ``products`` = 1 keeps big·big
+    alone, one TF32 product: a fault the checks must see."""
     rb, wb = _tf32(rows), _tf32(blk)
     rs, ws = _tf32(rows - rb), _tf32(blk - wb)
     acc = None
-    for c32 in range(0, k, 32):
+    for c32 in range(0, rows.shape[1], 32):
         sl = slice(c32, c32 + 32)
         part = rb[:, sl].double() @ wb[sl].double()
         if products == 3:
             part = part + rs[:, sl].double() @ wb[sl].double() + rb[:, sl].double() @ ws[sl].double()
         acc = part.float() if acc is None else acc + part.float()
+    return acc
+
+
+def _rows_tf32x3(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor, products: int = 3) -> torch.Tensor:
+    """:func:`_rows_1x1` as the row tile's fp32 instance (``csrc/chain_tf32x3.cuh``)
+    computes it: the rows times the weight's first diagonal block by
+    :func:`_mm_tf32x3`, then the bias, in fp32."""
+    k, n = w.shape[0] // 4, w.shape[1] // 4
+    acc = _mm_tf32x3(v.reshape(-1, k), w[:k, :n].float(), products)
     return (acc + b[:n]).reshape(*v.shape[:-1], 4 * n)
 
 
@@ -466,15 +478,72 @@ def sft_tf32x3_emulation(x, cond, sft4, *, products: int = 3):
     return x.float() * (scale + 1.0) + shift
 
 
+def agcm_tf32x3_emulation(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, *, scale=1.0, products: int = 3):
+    """The fp32 AGCM pass of ``csrc/agcm_tf32x3.cuh agcm_tf32x3_kernel`` in
+    torch ops, on the s2d weights ``fused_agcm_head(..., s2d=True)`` takes:
+    the frame's natural rows (× ``scale``, fp32) through the three 1×1s'
+    first diagonal blocks by :func:`_rows_tf32x3` (K = 3 one chunk, K = 64
+    two), each + bias and modulated at its row's own sub-position (multiply
+    and add rounded apart), ReLU after the first two; returns agcm (Hb, Wb,
+    12) fp32. ``products`` = 1: one TF32 product each, a fault."""
+    x = _s2d_of_pairs(xs)
+    hb, wb, cin = x.shape
+    v = x.reshape(-1, cin).float() * scale
+
+    def mod(v, row, width):
+        return v * (mods[row, :width] + 1.0) + mods[row + 1, :width]
+
+    a = torch.clamp_min(mod(_rows_tf32x3(v, aw1, ab1, products), 0, aw1.shape[1]), 0.0)
+    b = torch.clamp_min(mod(_rows_tf32x3(a, aw2, ab2, products), 2, aw2.shape[1]), 0.0)
+    return mod(_rows_tf32x3(b, aw3, ab3, products), 4, cin).reshape(hb, wb, cin)
+
+
+def in_conv_tf32x3_emulation(agcm, *, n_first: int, packed_s2d: tuple, products: int = 3):
+    """The fp32 input conv of ``csrc/agcm_head.cu in_conv_tf32x3_kernel`` in
+    torch ops: per output sub-position so, the 9 slots' 3 channels of each
+    pixel's zero-padded agcm neighbourhood (27 columns, rows 3·k + c of so's
+    gathered weight in ``packed_s2d``, :func:`agcm_head_pack_s2d`) times that
+    weight by :func:`_mm_tf32x3` (one chunk), + so's bias, ReLU (fea) or
+    leaky ReLU 0.1 (c0); returns (fea, c0) fp32."""
+    hb, wb, _ = agcm.shape
+    win, bin_ = packed_s2d[3], packed_s2d[4]
+    nf = n_first // 4
+    pad = torch.nn.functional.pad(agcm.float(), (0, 0, 1, 1, 1, 1))  # zero outside the image
+    slots = _head_slots()
+    outs = []
+    for so in range(4):
+        cols = []
+        for e in slots[9 * so: 9 * so + 9]:
+            tap, si = e & 15, e >> 4
+            cols.append(pad[tap // 3: tap // 3 + hb, tap % 3: tap % 3 + wb, 3 * si: 3 * si + 3])
+        acc = _mm_tf32x3(torch.cat(cols, dim=-1).reshape(-1, 27), win[so, :27].float(), products) + bin_[so]
+        outs.append(acc.reshape(hb, wb, -1))
+    acc = torch.stack(outs, dim=2)
+    fea = torch.clamp_min(acc[..., :nf], 0.0).reshape(hb, wb, -1)
+    c0 = _apply_act(acc[..., nf:], "lrelu").reshape(hb, wb, -1)
+    return fea, c0
+
+
+def agcm_head_tf32x3_emulation(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, w_in, b_in, *, n_first, scale=1.0,
+                               products: int = 3):
+    """``fused_agcm_head(..., s2d=True)`` in fp32 as the card runs it:
+    :func:`agcm_tf32x3_emulation`, then :func:`in_conv_tf32x3_emulation` on
+    its result; returns (fea, c0, agcm) fp32."""
+    agcm = agcm_tf32x3_emulation(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, scale=scale, products=products)
+    pk = agcm_head_pack_s2d(aw1, aw2, aw3, w_in, b_in, n_first=n_first)
+    fea, c0 = in_conv_tf32x3_emulation(agcm, n_first=n_first, packed_s2d=pk, products=products)
+    return fea, c0, agcm
+
+
 # The natural widths the Hopper row tile of csrc/chain_sm90.cuh is built for:
 # cond_chain 64 → 64 ×4 → 16; the SFT passes of the tail, sft_conv3 and
 # resblock cond 16 and features 32.
 COND_CHAIN_S2D_WIDTHS = (64, 64, 64, 64, 64, 16)
 SFT_S2D_WIDTHS = (16, 32)
 # The kernels whose fp32 float s2d form runs the 3×TF32 tiles: the SFT pass on
-# csrc/sft_tf32x3.cuh, the 3×3 convs on csrc/conv3x3_tf32x3.cuh. The tail's
-# conv_last has no fp32 tile, so the fp32 tail keeps its dense kernels.
-SFT_TF32X3 = ("sft_conv3", "resblock")
+# csrc/sft_tf32x3.cuh, the 3×3 convs on csrc/conv3x3_tf32x3.cuh, and the
+# tail's conv_last on its fp32 tile (csrc/conv_last.cuh conv_last_tf32x3_kernel).
+SFT_TF32X3 = ("sft_conv3", "resblock", "tail")
 
 
 def _sft_hopper(name: str, s2d: bool, dt: torch.dtype, cc: int, c: int, co: int, *, quant: bool = False) -> tuple:
@@ -485,9 +554,9 @@ def _sft_hopper(name: str, s2d: bool, dt: torch.dtype, cc: int, c: int, co: int,
     which walks the same table: a chunk is 32 channels in either type), and
     in fp32 for the float body (no ``quant``) of the kernels SFT_TF32X3
     (the SFT pass on csrc/sft_tf32x3.cuh, the convs on the 3×TF32 tile of
-    csrc/conv3x3_tf32x3.cuh); else (0, None, 0), the dense kernels: the fp32
-    tail and every fp32 int8 body. The row tiles take the natural widths
-    SFT_S2D_WIDTHS (CC, C) only; others raise."""
+    csrc/conv3x3_tf32x3.cuh, the tail's conv_last on its fp32 tile); else
+    (0, None, 0), the dense kernels: every fp32 int8 body. The row tiles
+    take the natural widths SFT_S2D_WIDTHS (CC, C) only; others raise."""
     if not s2d or (dt != torch.bfloat16 and (quant or name not in SFT_TF32X3)):
         return 0, None, 0
     if (cc // 4, c // 4) != SFT_S2D_WIDTHS:
@@ -622,6 +691,41 @@ def conv_last_walk() -> ctypes.Array:
 CONV_LAST_S2D_WIDTHS = (128, 12)
 
 
+def _pack_u16(y: torch.Tensor) -> torch.Tensor:
+    """fp32 y (Hb, Wb, 12) packed as the tail packs it: u16(int(clip(y, 0,
+    1)·65535 + 0.5)), multiply and add rounded apart, as (Hb, 2, Wb, 6)."""
+    u = (y.clamp(0.0, 1.0) * 65535.0 + 0.5).to(torch.int32).to(torch.uint16)
+    half = u.shape[-1] // 2
+    return torch.stack([u[..., :half], u[..., half:]], dim=1)
+
+
+def conv_last_tf32x3_emulation(h, w_last, b_last, skip, *, pack=True, products: int = 3):
+    """conv_last of the fp32 s2d tail as ``csrc/conv_last.cuh
+    conv_last_tf32x3_kernel`` sums it, in torch ops: for each slot of
+    :func:`conv_last_walk`, the 32 channels of input sub-position si at the
+    slot's tap of the zero-padded h times the slot's weight rows (the
+    columns of output sub-positions it does not feed zero) by
+    :func:`_mm_tf32x3` (one chunk), the slot sums of each half of the walk
+    (slots 0-7 and 8-15, the kernel's two halves of its warps) added in
+    fp32 in its order, then the halves; then (acc + b) + skip, packed
+    (:func:`_pack_u16`) or fp32. ``products`` = 1: one TF32 product, a
+    fault."""
+    hb, wb, c = h.shape
+    ci, cl = c // 4, w_last.shape[-1]
+    pad = torch.nn.functional.pad(h.float(), (0, 0, 1, 1, 1, 1))
+    halves = [torch.zeros(hb * wb, cl, device=h.device) for _ in range(2)]
+    for s, e in enumerate(conv_last_walk()):
+        tap, si, mask = e & 15, (e >> 4) & 15, e >> 8
+        a = pad[tap // 3: tap // 3 + hb, tap % 3: tap % 3 + wb, si * ci:(si + 1) * ci].reshape(-1, ci)
+        w = w_last[tap // 3, tap % 3, si * ci:(si + 1) * ci].float().clone()
+        for so in range(4):
+            if not (mask >> so) & 1:
+                w[:, so * cl // 4:(so + 1) * cl // 4] = 0.0
+        halves[s // 8] = halves[s // 8] + _mm_tf32x3(a, w, products)
+    y = ((halves[0] + halves[1]).reshape(hb, wb, cl) + b_last) + skip.float()
+    return _pack_u16(y) if pack else y
+
+
 def fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last, *, pack=True, up_coarse=None,
                    qargs_hr=None, s2d=False):
     """Plain version, the body of the Pallas ``_tail_kernel``: with
@@ -644,11 +748,7 @@ def fused_tail_ref(s, cond1, skip, sft_small, w_hr, b_hr, w_last, b_last, *, pac
     hacc = _sft_conv_t(sf, cond1.to(dt).float(), sft_small, w_hr, b_hr, qargs_hr, dt, s2d)
     h = _rounded(torch.clamp_min(hacc, 0.0), dt)
     y = _conv_same(h, _s2d_slots_only(w_last) if s2d else w_last, b_last) + skip.float()
-    if not pack:
-        return y.to(dt)
-    u = (y.clamp(0.0, 1.0) * 65535.0 + 0.5).to(torch.int32).to(torch.uint16)
-    half = u.shape[-1] // 2
-    return torch.stack([u[..., :half], u[..., half:]], dim=1)
+    return _pack_u16(y) if pack else y.to(dt)
 
 
 def fused_tail(
@@ -684,12 +784,15 @@ def fused_tail(
     tile, or with ``qargs_hr`` the SFT in its int8-output mode and HR_conv2
     on the wgmma s8 tile of ``csrc/conv3x3_s8_sm90.cuh``, and in either body
     conv_last on its Hopper tile (``csrc/conv_last.cuh``, the 16 slots of
-    :func:`conv_last_walk`; widths other than CONV_LAST_S2D_WIDTHS raise);
-    fp32 keeps the dense kernels (conv_last has no fp32 tile), the same
-    function on such weights. The
-    plain version honours it too (the int8 conv's sum over the populated
-    slots alone equals its dense sum on such weights). False: dense, right
-    for any weight."""
+    :func:`conv_last_walk`; widths other than CONV_LAST_S2D_WIDTHS raise).
+    fp32 on the card, the float body: the SFT on the row tile's 3×TF32
+    instance (``csrc/sft_tf32x3.cuh``), HR_conv2 over the slot table on the
+    3×TF32 tile of ``csrc/conv3x3_tf32x3.cuh`` and conv_last on its fp32 tile
+    (``csrc/conv_last.cuh conv_last_tf32x3_kernel``, the same slots and
+    widths); fp32 with ``qargs_hr`` keeps the dense kernels, the same
+    function on such weights. The plain version honours it too (the int8
+    conv's sum over the populated slots alone equals its dense sum on such
+    weights). False: dense, right for any weight."""
     hb, wb, c = s.shape
     cc = cond1.shape[-1]
     cl = w_last.shape[-1]

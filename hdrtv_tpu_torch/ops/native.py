@@ -166,8 +166,9 @@ def _load() -> ctypes.CDLL:
         "hdrtv_d2s_add_bf16": ([p, p, p, i, i, i, p], i),
         "hdrtv_rowmajor_head_raw_bf16": ([p, p, p, i, i, i, p], i),
         "hdrtv_rowmajor_head_pre_bf16": ([p, p, p, i, i, i, p], i),
-        # agcm_head's s2d form exists in bf16 only (the fp32 instance keeps the dense kernels)
+        # agcm_head's s2d form: bf16 on the Hopper tiles, fp32 on their 3×TF32 instances
         "hdrtv_agcm_head_s2d_bf16": ([p, i, f, p, i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, p], i),
+        "hdrtv_agcm_head_s2d_f32": ([p, i, f, p, i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, p], i),
         # colorimetric's tables are fp32 for either input type
         "hdrtv_colorimetric_tables_f32": ([p, p, *([f] * 16), p], i),
         "hdrtv_trunk3_param_floats": ([i, i, i], ll),

@@ -1,6 +1,6 @@
 """Where the Hopper conv tiles spend their time: in-kernel phase timers.
 
-    python -m hdrtv_tpu_torch.tools.sm90_phases [--only conv,agcm,s8,s8_s2,last,pool,chain,sft_f32]
+    python -m hdrtv_tpu_torch.tools.sm90_phases [--only conv,agcm,s8,s8_s2,last,pool,chain,sft_f32,last_f32,head_f32]
 
 Builds ``tools/sm90_phases.cu`` (the bf16 tile of ``csrc/conv3x3_sm90.cuh``
 and the fp32 3×TF32 tile of ``csrc/conv3x3_tf32x3.cuh``, with their
@@ -103,6 +103,25 @@ ReLU and the split of the hidden into the second products' A) and ``out``
 (t and its stores). The convs of those forms are the ``conv`` part's fp32
 HR_conv1 (L0), resblock conv (L1) and trunk2/4 conv (L2) shapes.
 
+Then the fp32 s2d tail's conv_last tile (``csrc/conv_last.cuh
+conv_last_tf32x3_kernel``; :func:`last_f32_phases`) at 1080p, packed and
+unpacked, per warp, its phases named as the bf16 tile's (``products``: a
+warp's half of the slots, 32 ldmatrix.x4 with their TF32 split and 144
+mma.sync.m16n8k8, and its trade; ``setup`` includes splitting the B
+fragments into shared memory). And the fp32 s2d
+head's two 3×TF32 tiles (:func:`head_f32_phases`) at the 1080p frame: the
+AGCM pass (``csrc/agcm_tf32x3.cuh agcm_tf32x3_kernel``, u8 pair planes)
+per warpgroup, in the bf16 tile's phases but ``next A`` (the last step's
+issue, and the next tile's A split and the one after it fetched under
+those products) and ``step 2`` (their wait), and the input conv
+(``csrc/agcm_head.cu in_conv_tf32x3_kernel``, two warpgroups on 48
+columns each) per block, in ``halo`` (the wait for a tile's agcm halo and
+the meeting), ``gather A`` (so's 16 values a thread from the halo, split),
+``products`` (12 wgmmas and their wait), ``wait store`` (thread 0 waiting
+for the stage's store two sub-positions back, and the meeting) and
+``epilogue`` (bias, activation, the staged output, the meeting and the
+three TMA stores' issue), summed over its four sub-positions.
+
 After its build it prints the build's ptxas notes that name a wgmma
 serialization or an injected wait (the ``C75`` codes, C7517 among them),
 each with the function it names, or says there are none.
@@ -187,18 +206,26 @@ def build() -> ctypes.CDLL:
     lib.hdrtv_sm90_cond_chain_f32_phases.restype = i
     lib.hdrtv_sm90_sft_f32_phases.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p, p]
     lib.hdrtv_sm90_sft_f32_phases.restype = i
+    lib.hdrtv_conv_last_f32_phases.argtypes = [p] * 5 + [i, i, i, p, p, p]
+    lib.hdrtv_conv_last_f32_phases.restype = i
+    lib.hdrtv_sm90_agcm_f32_phases.argtypes = lib.hdrtv_sm90_agcm_phases.argtypes
+    lib.hdrtv_sm90_agcm_f32_phases.restype = i
+    lib.hdrtv_sm90_in_conv_f32_phases.argtypes = [p, p, p, p, p, p, i, i, p, p]
+    lib.hdrtv_sm90_in_conv_f32_phases.restype = i
     return lib
 
 
-def _report(name: str, phases: torch.Tensor, names: list, steps: bool = True) -> None:
-    """Mean cycles of the warpgroups that ran, per phase, and their shares."""
+def _report(name: str, phases: torch.Tensor, names: list, steps: bool | None = True) -> None:
+    """Mean cycles of the warpgroups that ran, per phase, and their shares;
+    the last field counts steps (``steps``), tiles (False) or is a phase of
+    its own (None: eight names)."""
     torch.cuda.synchronize()
     d = phases.view(-1, 8).cpu().numpy()
     d = d[d[:, 0] > 0]
     mean = d.mean(axis=0)
     shares = {k: f"{mean[i]:.0f} ({mean[i] / mean[0]:.0%})" for i, k in enumerate(names)}
-    what = f"{mean[7]:.0f} steps each" if steps else f"{mean[7]:.0f} tiles each"
-    print(f"{name}: {len(d)} warpgroups, {what}; cycles {shares}", flush=True)
+    what = "" if steps is None else f"{mean[7]:.0f} steps each; " if steps else f"{mean[7]:.0f} tiles each; "
+    print(f"{name}: {len(d)} warpgroups, {what}cycles {shares}", flush=True)
 
 
 SFT_PHASES = ["total", "wait", "products", "t", "quantize", "out"]
@@ -529,7 +556,78 @@ def sft_f32_phases(lib, dev, rng) -> None:
         _report(f"{name} fp32 SFT pass (3×TF32 row tile)", phases, SFT_F32_PHASES, steps=False)
 
 
-PARTS = ("conv", "agcm", "s8", "s8_s2", "last", "pool", "chain", "sft_f32")
+def last_f32_phases(lib, dev, rng) -> None:
+    """The fp32 s2d tail's conv_last tile at the 1080p shape (540 × 960 s2d
+    pixels, h 128 fp32 channels → 12, seeded w_s2d_s1 weight), packed and
+    unpacked, per warp (eight a block), its phases named as the bf16
+    tile's."""
+    from hdrtv_tpu_torch.models.s2d import w_s2d_s1
+    from hdrtv_tpu_torch.ops.megakernel import conv_last_walk
+
+    hb, wb = 540, 960
+    h = torch.clamp_min(torch.rand(hb, wb, 128, device=dev) - 0.3, 0.0)
+    w = torch.as_tensor(w_s2d_s1(rng.randn(3, 3, 32, 3).astype(np.float32) * 0.03), device=dev)
+    b = torch.as_tensor((rng.randn(12) * 0.02).astype(np.float32), device=dev)
+    skip = torch.rand(hb, wb, 12, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for pack in (1, 0):
+        out = torch.empty((hb, 2, wb, 6), dtype=torch.uint16, device=dev) if pack else torch.empty(hb, wb, 12,
+                                                                                                   device=dev)
+        phases = torch.zeros(132 * 8 * 8, dtype=torch.int64, device=dev)
+        for _ in range(3):  # warm: the last run's sums are read
+            rc = lib.hdrtv_conv_last_f32_phases(h.data_ptr(), w.data_ptr(), b.data_ptr(), skip.data_ptr(),
+                                                out.data_ptr(), hb, wb, pack, conv_last_walk(), phases.data_ptr(),
+                                                stream)
+            if rc:
+                raise RuntimeError(f"conv_last fp32: CUDA error {rc}")
+        _report(f"conv_last fp32 tile (1080p, {'packed' if pack else 'unpacked'}), per warp", phases,
+                LAST_PHASES["sm90"])
+
+
+AGCM_F32_PHASES = ["total", "next A", "step 0", "hidden 0", "step 1", "hidden 1", "step 2", "out"]
+IN_CONV_F32_PHASES = ["total", "halo", "gather A", "products", "wait store", "epilogue"]
+
+
+def head_f32_phases(lib, dev, rng) -> None:
+    """The fp32 s2d head's two 3×TF32 tiles at the 1080p frame (540 × 960
+    s2d pixels as u8 pair planes), seeded s2d weights through
+    agcm_head_pack_s2d in fp32: the AGCM pass per warpgroup, then the input
+    conv over its output per block."""
+    from hdrtv_tpu_torch.models.s2d import w_s2d_1x1, w_s2d_s1
+    from hdrtv_tpu_torch.ops.megakernel import _head_slots_table, agcm_head_pack_s2d
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    hb, wb = 540, 960
+    aw = [t(w_s2d_1x1(rng.randn(1, 1, ci, co).astype(np.float32) * 0.1)[0, 0]) for ci, co in ((3, 64), (64, 64), (64, 3))]
+    w_in = t(np.concatenate([w_s2d_s1(rng.randn(3, 3, 3, co).astype(np.float32) * 0.1) for co in (32, 64)], axis=-1))
+    w1, w2, w3, win, bin_ = agcm_head_pack_s2d(*aw, w_in, t(rng.randn(384) * 0.1), n_first=128)
+    b = [t(np.tile(rng.randn(n) * 0.1, 4)) for n in (64, 64, 3)]
+    mods = t(rng.randn(6, 256) * 0.1)
+    xs = torch.as_tensor((rng.rand(hb, 2, wb, 6) * 255).astype(np.uint8), device=dev)
+    y = torch.empty(hb, wb, 12, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    phases = torch.zeros(132 * 4 * 8, dtype=torch.int64, device=dev)
+    for _ in range(3):  # warm: the last run's sums are read
+        rc = lib.hdrtv_sm90_agcm_f32_phases(xs.data_ptr(), 2, 1.0 / 255.0, mods.data_ptr(), 256, w1.data_ptr(),
+                                            b[0].data_ptr(), w2.data_ptr(), b[1].data_ptr(), w3.data_ptr(),
+                                            b[2].data_ptr(), y.data_ptr(), hb, wb, phases.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"agcm_tf32x3: CUDA error {rc}")
+    _report("agcm_tf32x3 (1080p, u8 pair planes), per warpgroup", phases, AGCM_F32_PHASES, steps=None)
+    fea = torch.empty(hb, wb, 128, device=dev)
+    c0 = torch.empty(hb, wb, 256, device=dev)
+    phases = torch.zeros(132 * 8, dtype=torch.int64, device=dev)
+    for _ in range(3):
+        rc = lib.hdrtv_sm90_in_conv_f32_phases(y.data_ptr(), win.data_ptr(), bin_.data_ptr(), _head_slots_table(),
+                                               fea.data_ptr(), c0.data_ptr(), hb, wb, phases.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"in_conv_tf32x3: CUDA error {rc}")
+    _report("in_conv_tf32x3 (1080p), per block", phases, IN_CONV_F32_PHASES, steps=False)
+
+
+PARTS = ("conv", "agcm", "s8", "s8_s2", "last", "pool", "chain", "sft_f32", "last_f32", "head_f32")
 
 
 def main() -> None:
@@ -577,7 +675,8 @@ def main() -> None:
             shares = {k: f"{mean[i]:.0f} ({mean[i] / mean[0]:.0%})" for i, k in enumerate(PHASES[dtype])}
             print(f"{name} {dtype}: {len(d)} warpgroups, {mean[7]:.0f} steps each; cycles {shares}", flush=True)
     for part, fn in (("agcm", agcm_phases), ("s8", s8_phases), ("s8_s2", s8_s2_phases), ("last", last_phases),
-                     ("pool", pool_phases), ("chain", chain_phases), ("sft_f32", sft_f32_phases)):
+                     ("pool", pool_phases), ("chain", chain_phases), ("sft_f32", sft_f32_phases),
+                     ("last_f32", last_f32_phases), ("head_f32", head_f32_phases)):
         if part in only:
             fn(lib, dev, rng)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

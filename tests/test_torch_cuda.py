@@ -936,11 +936,11 @@ def test_f32_s2d_sft_forms_refuse_other_widths(dev):
     assert native.launch_counts == before
 
 
-@pytest.mark.parametrize("kernel", ["sft_conv3_w8a8", "resblock_w8a8", "tail"])
+@pytest.mark.parametrize("kernel", ["sft_conv3_w8a8", "resblock_w8a8", "tail_w8a8"])
 def test_f32_int8_bodies_and_tail_stay_dense(dev, kernel):
-    """fp32 with s2d: the int8 bodies of sft_conv3 and resblock, and the
-    float tail, keep their dense kernels (pointwise.cuh's SFT pass, the
-    mma.sync convs), within their plain versions' bounds; no 3×TF32 row
+    """fp32 with s2d: the int8 bodies of sft_conv3, resblock and the tail
+    keep their dense kernels (pointwise.cuh's SFT pass, the mma.sync convs,
+    conv_last_kernel), within their plain versions' bounds; no 3×TF32 row
     tile runs."""
     from hdrtv_tpu_torch.ops.megakernel import (
         fused_resblock, fused_resblock_ref, fused_sft_conv3_v2, fused_sft_conv3_v2_ref, fused_tail, fused_tail_ref,
@@ -951,16 +951,16 @@ def test_f32_int8_bodies_and_tail_stay_dense(dev, kernel):
     x = _t(rng.rand(hb, wb, 128) - 0.2, dev)
     cond = _t(rng.rand(hb, wb, 64), dev)
     sft = _sft_s2d(rng, dev, 0.05, "f32")
-    if kernel == "tail":
-        w_hr, b_hr = _conv_s2d(rng, dev, dtype="f32")
-        w_last = _t(w_s2d_s1(rng.randn(3, 3, 32, 3).astype(np.float32) * 0.03), dev)
-        targs = (x, cond, _t(rng.rand(hb, wb, 12), dev), sft, w_hr, b_hr, w_last, _t(rng.randn(12) * 0.02, dev))
+    if kernel == "tail_w8a8":
+        w_hr, b_hr, qa = _qlayer(rng, dev, 128, 128, (-0.6, 2.0), False)
+        w_last = _t(w_s2d_s1(rng.randn(3, 3, 32, 3).astype(np.float32) * 0.01), dev)
+        targs = (x, cond, _t(rng.rand(hb, wb, 12), dev), sft, w_hr, b_hr, w_last, _t(rng.randn(12) * 0.1, dev))
 
         def call():
-            return fused_tail(*targs, pack=False, s2d=True)
+            return fused_tail(*targs, pack=True, qargs_hr=qa, s2d=True)
 
-        y, y_r = call(), fused_tail_ref(*targs, pack=False, s2d=True)
-        _close(y, y_r, "f32")
+        d = (call().to(torch.int32) - fused_tail_ref(*targs, pack=True, qargs_hr=qa, s2d=True).to(torch.int32)).abs()
+        assert int(d.max()) <= 16 and float((d > 0).float().mean()) <= 0.1, (int(d.max()), float((d > 0).float().mean()))
     elif kernel == "sft_conv3_w8a8":
         w, b, qa = _qlayer(rng, dev, 128, 128, (-0.6, 1.5), False)
 
@@ -980,6 +980,123 @@ def test_f32_int8_bodies_and_tail_stay_dense(dev, kernel):
         _q_close(call(), fused_resblock_ref(*args, qargs1=q1, qargs2=q2, s2d=True), q2, "f32", share=0.1, flips=8)
     counts = _kernel_launches(call)
     assert _launched(counts, "sft_tf32x3_kernel") == 0 and _launched(counts, "sft_kernel") >= 1, counts
+    if kernel == "tail_w8a8":
+        assert _launched(counts, "conv_last_tf32x3_kernel") == 0 and _launched(counts, "conv_last_kernel") == 1, counts
+
+
+def _tail_f32_s2d_args(rng, dev, hb, wb, coarse):
+    """The fp32 s2d tail's inputs at the programs' widths: s (+ up_coarse),
+    cond1, skip, the SFT, HR_conv2 and conv_last in their s2d forms."""
+    s = _t(rng.rand(hb, wb, 128) - 0.3, dev)
+    up = _t(rng.rand(hb // 2, wb // 2, 512) - 0.3, dev) if coarse else None
+    args = (s, _t(rng.rand(hb, wb, 64) - 0.3, dev), _t(rng.rand(hb, wb, 12) * 1.1 - 0.05, dev),
+            _sft_s2d(rng, dev, 0.05, "f32"), *_conv_s2d(rng, dev, dtype="f32"),
+            _t(w_s2d_s1(rng.randn(3, 3, 32, 3).astype(np.float32) * 0.03), dev),
+            _t(b_s2d(rng.randn(3).astype(np.float32) * 0.02), dev))
+    return args, up
+
+
+@pytest.mark.parametrize("hb,wb,coarse,pack", [
+    (12, 20, True, True), (9, 15, False, True), (10, 14, True, False), (5, 7, False, False), (1, 64, False, True),
+    (2, 70, True, True), (66, 130, True, False), (540, 960, True, True),
+])
+def test_tail_f32_s2d_matches_plain(dev, hb, wb, coarse, pack):
+    """The fp32 s2d tail: the SFT pass on the 3×TF32 row tile, HR_conv2 on
+    the 3×TF32 conv tile over the slot table, conv_last on its fp32 tile
+    (csrc/conv_last.cuh conv_last_tf32x3_kernel); images narrower than a
+    band (64 columns) or a row tile, bands cut at the edge (70, 130), a
+    single row, and the 1080p shape. Against the plain version's s2d form:
+    packed within 1 code, unpacked within ATOL; one launch counted, the three
+    tiles once each and no dense kernel."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_tail, fused_tail_ref
+
+    rng = np.random.RandomState(hb * wb + 291)
+    args, up = _tail_f32_s2d_args(rng, dev, hb, wb, coarse)
+    before = native.launch_counts["tail"], native.launch_counts["tail_w8a8"]
+    y = fused_tail(*args, pack=pack, up_coarse=up, s2d=True)
+    assert (native.launch_counts["tail"], native.launch_counts["tail_w8a8"]) == (before[0] + 1, before[1])
+    y_r = fused_tail_ref(*args, pack=pack, up_coarse=up, s2d=True)
+    if pack:
+        torch.cuda.synchronize()
+        assert y.shape == (hb, 2, wb, 6) and y.dtype == torch.uint16
+        assert int(y_r.to(torch.int32).max()) > int(y_r.to(torch.int32).min())
+        assert int((y.to(torch.int32) - y_r.to(torch.int32)).abs().max()) <= 1
+    else:
+        assert y.shape == (hb, wb, 12)
+        _close(y, y_r, "f32")
+    counts = _kernel_launches(lambda: fused_tail(*args, pack=pack, up_coarse=up, s2d=True))
+    for tile in ("sft_tf32x3_kernel", "conv3x3_tf32x3_kernel", "conv_last_tf32x3_kernel"):
+        assert _launched(counts, tile) == 1, (tile, counts)
+    for dense in ("sft_kernel", "conv3x3_kernel", "conv3x3_mma_kernel", "conv_last_kernel"):
+        assert _launched(counts, dense) == 0, (dense, counts)
+
+
+def _head_f32_s2d_args(rng, dev):
+    """_head_s2d_args's parameters in fp32 (weights and all)."""
+    return tuple(a.float() for a in _head_s2d_args(rng, dev))
+
+
+@pytest.mark.parametrize("frame", ["pairs", "u8", "float", "pairs_bgr"])
+@pytest.mark.parametrize("hb,wb", [(12, 20), (9, 15), (5, 7), (1, 64), (3, 130), (540, 960)])
+def test_agcm_head_f32_s2d_matches_plain(dev, hb, wb, frame):
+    """agcm_head's fp32 s2d form: the AGCM pass on its 3×TF32 row tile
+    (csrc/agcm_tf32x3.cuh agcm_tf32x3_kernel), the input conv on its
+    3×TF32 tile (csrc/agcm_head.cu in_conv_tf32x3_kernel); ragged 64-pixel
+    tiles, a row shorter than one and rows of three (130), u8 pair planes,
+    u8 s2d, the frame in fp32 and BGR (aw1's rows permuted, its own pack),
+    and the 1080p frame. Against the plain version's s2d form within ATOL;
+    the pack passed or built gives the same bytes; both tiles launched once,
+    no dense kernel."""
+    from hdrtv_tpu_torch.ops.megakernel import agcm_head_pack_s2d, fused_agcm_head, fused_agcm_head_ref
+
+    if hb == 540 and frame != "pairs":
+        pytest.skip("the 1080p frame as the programs pass it: u8 pair planes")
+    rng = np.random.RandomState(hb * wb + 293)
+    args = list(_head_f32_s2d_args(rng, dev))
+    if frame == "pairs_bgr":
+        perm = torch.tensor([(k // 3) * 3 + 2 - (k % 3) for k in range(12)], device=dev)
+        args[1] = args[1][perm].contiguous()
+    if frame == "float":
+        xs, scale = _t(rng.rand(hb, wb, 12), dev), 1.0
+    else:
+        shape = (hb, wb, 12) if frame == "u8" else (hb, 2, wb, 6)
+        xs, scale = torch.as_tensor((rng.rand(*shape) * 255).astype(np.uint8), device=dev), 1.0 / 255.0
+    before = native.launch_counts["agcm_head"]
+    got = fused_agcm_head(xs, *args, n_first=128, scale=scale, s2d=True)
+    assert native.launch_counts["agcm_head"] == before + 1
+    want = fused_agcm_head_ref(xs, *args, n_first=128, scale=scale, s2d=True)
+    for y, y_r, shape in zip(got, want, ((hb, wb, 128), (hb, wb, 256), (hb, wb, 12)), strict=True):
+        assert y.shape == shape
+        _close(y, y_r, "f32")
+    packed_s2d = agcm_head_pack_s2d(args[1], args[3], args[5], args[7], args[8], n_first=128)
+    again = fused_agcm_head(xs, *args, n_first=128, scale=scale, s2d=True, packed_s2d=packed_s2d)
+    assert all(torch.equal(a, b) for a, b in zip(again, got, strict=True))
+    counts = _kernel_launches(lambda: fused_agcm_head(xs, *args, n_first=128, scale=scale, s2d=True,
+                                                      packed_s2d=packed_s2d))
+    assert _launched(counts, "agcm_tf32x3_kernel") == 1 and _launched(counts, "in_conv_tf32x3_kernel") == 1, counts
+    assert _launched(counts, "agcm_kernel") == 0 and _launched(counts, "in_conv_kernel") == 0, counts
+
+
+def test_f32_s2d_tail_and_head_refuse_other_widths(dev):
+    """The fp32 s2d tail with a conv_last of another width (Cl 8), and the
+    fp32 s2d head at natural widths it is not built for (AGCM 3 → 32 → 64
+    → 3, or the input conv 3 → 64 ‖ 32), raise on the card; nothing falls
+    back to the dense kernels."""
+    from hdrtv_tpu_torch.ops.megakernel import fused_agcm_head, fused_tail
+
+    rng = np.random.RandomState(295)
+    args, _ = _tail_f32_s2d_args(rng, dev, 4, 6, False)
+    narrow = _t(w_s2d_s1(rng.randn(3, 3, 32, 2).astype(np.float32) * 0.03), dev)
+    before = dict(native.launch_counts)
+    with pytest.raises(ValueError, match="conv_last's s2d tile takes"):
+        fused_tail(args[0], args[1], _t(rng.rand(4, 6, 8), dev), *args[3:6], narrow, torch.zeros(8, device=dev),
+                   s2d=True)
+    xs = torch.as_tensor((rng.rand(4, 2, 6, 6) * 255).astype(np.uint8), device=dev)
+    for c_nat, co_nat in (((3, 32, 64), (32, 64)), ((3, 64, 64), (64, 32))):
+        hargs = tuple(a.float() for a in _head_s2d_args(rng, dev, c_nat, co_nat))
+        with pytest.raises(ValueError, match="natural widths"):
+            fused_agcm_head(xs, *hargs, n_first=4 * co_nat[0], scale=1.0 / 255.0, s2d=True)
+    assert native.launch_counts == before
 
 
 def test_mega_frame_matches_cpu(dev, monkeypatch):

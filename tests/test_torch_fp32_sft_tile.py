@@ -14,8 +14,8 @@ CPU against hdrtv_tpu and their plain versions:
   fp32 (Pallas in interpret mode) and the port's plain versions, within
   ATOL;
 - the routing: ``_sft_hopper`` and the wrappers' card branch give the tile
-  route to fp32 sft_conv3 and resblock with ``s2d``, the dense route to the
-  fp32 tail and to every fp32 call with qargs.
+  route to fp32 sft_conv3, resblock and the tail with ``s2d``, the dense
+  route to every fp32 call with qargs.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_fp32_sft_tile.py -q
 """
@@ -139,13 +139,13 @@ def test_resblock_fp32_s2d_emulation_matches_pallas(second):
 
 
 def test_sft_hopper_routes_fp32_s2d_calls():
-    """fp32 with s2d: sft_conv3 and resblock get the 3×TF32 tiles' route with
-    the fp32 stride-1 slot table (9 chunks a list); the fp32 tail, every fp32
+    """fp32 with s2d: sft_conv3, resblock and the tail get the 3×TF32 tiles'
+    route with the fp32 stride-1 slot table (9 chunks a list); every fp32
     call with qargs and s2d=False get the dense route; natural widths other
     than (16, 32) raise on the tile route."""
     f = torch.float32
     table, per_list = sm90_table("sft_conv3", 1, 1, 4 * C, 4 * C, 4 * C, dtype=f)
-    assert SFT_TF32X3 == ("sft_conv3", "resblock")
+    assert SFT_TF32X3 == ("sft_conv3", "resblock", "tail")
     for name in SFT_TF32X3:
         hopper, got, n = _sft_hopper(name, True, f, 4 * CC, 4 * C, 4 * C)
         assert (hopper, n) == (1, per_list) == (1, 9) and list(got) == list(table)
@@ -153,19 +153,19 @@ def test_sft_hopper_routes_fp32_s2d_calls():
         assert _sft_hopper(name, False, f, 4 * CC, 4 * C, 4 * C) == (0, None, 0)
         with pytest.raises(ValueError, match="row tile"):
             _sft_hopper(name, True, f, 4 * 32, 4 * 64, 4 * 64)
-    assert _sft_hopper("tail", True, f, 4 * CC, 4 * C, 4 * C) == (0, None, 0)
     assert _sft_hopper("tail", True, f, 4 * CC, 4 * C, 4 * C, quant=True) == (0, None, 0)
     assert _sft_hopper("sft_conv3", True, torch.bfloat16, 4 * CC, 4 * C, 4 * C, quant=True)[0] == 1
 
 
 @pytest.mark.parametrize("call", ["sft_conv3", "resblock", "resblock_up", "tail", "sft_conv3_w8a8",
-                                  "resblock_w8a8"])
+                                  "resblock_w8a8", "tail_w8a8"])
 def test_fp32_wrappers_hand_their_kernels_the_route(monkeypatch, call):
     """The card branch of the wrappers in fp32, their launch intercepted
     (device checks and the stream stubbed, CPU tensors standing in): the
     float s2d sft_conv3 and resblock hand the kernel s2d = 1 and the slot
     table and count under their own names (resblock with up_coarse also its
-    xsum scratch, fp32); the tail and the int8 bodies hand the dense route."""
+    xsum scratch, fp32), and so does the float s2d tail; the int8 bodies
+    hand the dense route."""
     from hdrtv_tpu_torch.ops import native
     from hdrtv_tpu_torch.ops.megakernel import fused_tail
     from tests.test_torch_s2d_int8 import _int8_layer
@@ -179,9 +179,10 @@ def test_fp32_wrappers_hand_their_kernels_the_route(monkeypatch, call):
     rng = np.random.RandomState(17)
     _, (x, cond, sft, w, b), _, _ = _sft_conv_args(rng, 4, 6, "f32", False)
     qa = _int8_layer(rng, True) if call.endswith("w8a8") else None
-    if call == "tail":
-        fused_tail(x, cond, torch.zeros(4, 6, 12), sft, w, b, torch.zeros(3, 3, 4 * C, 12), torch.zeros(12), s2d=True)
-        want = ("tail", None)
+    if call.startswith("tail"):
+        fused_tail(x, cond, torch.zeros(4, 6, 12), sft, w, b, torch.zeros(3, 3, 4 * C, 12), torch.zeros(12),
+                   qargs_hr=qa, s2d=True)
+        want = ("tail", "tail_w8a8" if qa else None)
     elif call.startswith("sft_conv3"):
         fused_sft_conv3_v2(x, cond, sft, w, b, relu=True, qargs=qa, s2d=True)
         want = ("sft_conv3", "sft_conv3_w8a8" if qa else None)
@@ -192,7 +193,7 @@ def test_fp32_wrappers_hand_their_kernels_the_route(monkeypatch, call):
     (kernel, dt, counter, args), = launched
     assert (kernel, counter) == want and dt == torch.float32
     hopper, table, per_list = args[-4:-1]
-    if call in ("sft_conv3", "resblock", "resblock_up"):
+    if call in ("sft_conv3", "resblock", "resblock_up", "tail"):
         assert (hopper, per_list) == (1, 9) and list(table) == list(_table()[0])
     else:
         assert (hopper, table, per_list) == (0, None, 0)

@@ -290,8 +290,9 @@ def test_bf16_programs_tail_calls_take_the_conv_last_tile(monkeypatch, tmp_path,
 def test_tail_wrapper_hands_its_kernel_the_walk(monkeypatch, call):
     """The card branch of fused_tail, its launch intercepted (device checks
     and the stream stubbed, CPU tensors standing in): bf16 s2d calls, float
-    or int8, hand the kernel conv_last_walk; bf16 s2d=False and fp32 hand
-    none; a bf16 s2d call with Cl other than 12 raises."""
+    or int8, and fp32 s2d float calls (conv_last's fp32 tile) hand the
+    kernel conv_last_walk; bf16 s2d=False and the fp32 int8 body hand none;
+    a bf16 s2d call with Cl other than 12 raises."""
     from hdrtv_tpu_torch.ops import native
     from hdrtv_tpu_torch.ops.megakernel import conv_last_walk, fused_tail
 
@@ -307,7 +308,7 @@ def test_tail_wrapper_hands_its_kernel_the_walk(monkeypatch, call):
     fused_tail(*ta, qargs_hr=qt if call.endswith("int8") else None, s2d=s2d)
     (args,) = launched
     walk = args[10]
-    if dtype == "bf16" and s2d:
+    if s2d and (dtype == "bf16" or call == "fp32"):
         assert walk is conv_last_walk() and args[-4] == 1
     else:
         assert walk is None and args[-4] == 0

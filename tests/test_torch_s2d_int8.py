@@ -22,8 +22,8 @@ s2d_slots``) and reads an out-of-image tap as the layer's pad code.
 - ``_sft_hopper`` routes bf16 ``s2d=True`` calls to the Hopper tiles, int8
   or float, and the wrappers hand their kernels that route: the int8 tail,
   sft_conv3 and resblock the slot table, block_conv3's int8 body with
-  ``a_sub=1`` too (bf16 and fp32), the fp32 tail and ``a_sub=0`` the dense
-  kernels; other widths raise (tests/test_torch_s2d_int8_rest.py holds resblock_w8a8 and
+  ``a_sub=1`` too (bf16 and fp32), the fp32 int8 tail and ``a_sub=0`` the
+  dense kernels (the fp32 float tail the 3×TF32 tiles' route); other widths raise (tests/test_torch_s2d_int8_rest.py holds resblock_w8a8 and
   block_conv3_w8a8 against the Pallas bodies).
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_s2d_int8.py -q
@@ -174,16 +174,20 @@ def test_fixture_int8_weights_have_the_s2d_structure():
 
 
 def test_sft_hopper_routes_bf16_s2d_calls():
-    """(1, sm90_table's stride-1 slot table, 9 per list) for a bf16 s2d call,
-    (0, None, 0) for fp32 or s2d=False; natural widths other than (16, 32)
-    raise."""
+    """(1, sm90_table's stride-1 slot table, 9 per list) for a bf16 s2d call
+    and for the fp32 float tail (its 3×TF32 tiles, the fp32 table); (0,
+    None, 0) for the fp32 int8 tail or s2d=False; natural widths other than
+    (16, 32) raise."""
     from hdrtv_tpu_torch.ops.conv_kernels import sm90_table
     from hdrtv_tpu_torch.ops.megakernel import _sft_hopper
 
     bf = torch.bfloat16
     hopper, table, per_list = _sft_hopper("tail", True, bf, 4 * CC, 4 * C, 4 * C)
     assert (hopper, per_list) == (1, 9) and list(table) == list(sm90_table("tail", 1, 1, 128, 128, 128)[0])
-    assert _sft_hopper("tail", True, torch.float32, 4 * CC, 4 * C, 4 * C) == (0, None, 0)
+    f32_hopper, f32_table, f32_per_list = _sft_hopper("tail", True, torch.float32, 4 * CC, 4 * C, 4 * C)
+    assert (f32_hopper, f32_per_list) == (1, 9)
+    assert list(f32_table) == list(sm90_table("tail", 1, 1, 128, 128, 128, dtype=torch.float32)[0])
+    assert _sft_hopper("tail", True, torch.float32, 4 * CC, 4 * C, 4 * C, quant=True) == (0, None, 0)
     assert _sft_hopper("sft_conv3", False, bf, 4 * CC, 4 * C, 4 * C) == (0, None, 0)
     with pytest.raises(ValueError, match="row tile"):
         _sft_hopper("sft_conv3", True, bf, 4 * CC, 4 * 64, 4 * 64)
@@ -196,7 +200,7 @@ def test_int8_wrappers_hand_their_kernels_the_route(monkeypatch, call):
     checks and the stream stubbed, CPU tensors standing in): the s2d int8
     tail, sft_conv3 and resblock in bf16 hand the kernel s2d = 1 and the
     slot table and count as *_w8a8, block_conv3's int8 body with a_sub = 1
-    (PS-folded 128 → 512) the slot table in bf16 and in fp32; the fp32
+    (PS-folded 128 → 512) the slot table in bf16 and in fp32; the fp32 int8
     tail, and block_conv3's int8 body with a_sub = 0, hand the dense route
     (no table)."""
     from hdrtv_tpu_torch.ops import native
