@@ -131,13 +131,28 @@ lines; any failed check raises and the script exits non-zero with no result:
    int8-output mode, resblock's SFT1 writing the rounded sum and its SFT2
    reading the fp32 h1, the convs on the wgmma s8 tile of
    csrc/conv3x3_s8_sm90.cuh over the slot table, resblock's conv1 storing h1
-   in fp32), and block_conv3_w8a8 with the programs' a_sub = 1 (the quantize
+   in fp32; in fp32 sft_conv3_w8a8 and tail_w8a8 run the SFT pass in the
+   int8-output mode of csrc/sft_tf32x3.cuh, sft_q8_f32_kernel, and the conv
+   on the s8 tile's fp32-output epilogue, the tail's conv_last on its fp32
+   tile, while fp32 resblock_w8a8 stays dense), and block_conv3_w8a8 with
+   the programs' a_sub = 1 (the quantize
    pass, then the s8 tile, in fp32 through its fp32-output epilogue with the
    trunk conv2s' fp32 skip; up_conv2's odd 135 rows included), symmetric and
-   asymmetric, and in bf16 once more in the dense form, with the same
-   tolerances; "sft_conv3_w8a8_split", "tail_w8a8_split" and
-   "resblock_w8a8_split" lines give each bf16 case's launches apart,
-   "block_conv3_w8a8_split" each case's in both types.
+   asymmetric, and once more in the dense form (resblock_w8a8 in bf16 only),
+   with the same tolerances; "sft_conv3_w8a8_split", "tail_w8a8_split" and
+   "resblock_w8a8_split" lines give each case's launches apart (bf16; and
+   fp32 but resblock's, whose s2d splits must name the new kernels,
+   F32_Q8_SFT_TILES / F32_Q8_TAIL_TILES, the s8 tile's fp32-output instance,
+   and no dense kernel), "block_conv3_w8a8_split" each case's in both
+   types. For each fp32 sft_conv3_w8a8 and tail_w8a8 case, an
+   "int8_f32_shares" line gives, over INT8_F32_DRAWS draws of its inputs,
+   the share of outputs apart from the plain version for the s2d route
+   (which must stay within INT8_SHARE), the dense route and the plain
+   version fed the float mode's 3×TF32 products (sft_q8_tf32x3_emulation,
+   products = 3); on the L0 sft_conv3 case and the symmetric tail, planted
+   faults of the plain version: the SFT products cut to one TF32 product
+   (must break the check) and quantize_code_fast's band left without its
+   IEEE-division fix-up (reported).
    The forms ported with the rest of the int8 slice: down2_w8a8 (down2's int8
    body) at the consolidated CondNet down conv (540 × 960 × 256 → 768, three
    branches) and at CondNet3.2/4.2's channel window, symmetric and with zero
@@ -416,6 +431,13 @@ F32_SFT_TILES = ("sft_tf32x3_kernel", "conv3x3_tf32x3_kernel")
 # tile) and the fp32 s2d agcm_head (the AGCM pass, the input conv), all 3×TF32.
 F32_TAIL_TILES = ("sft_tf32x3_kernel", "conv3x3_tf32x3_kernel", "conv_last_tf32x3_kernel")
 F32_HEAD_TILES = ("agcm_tf32x3_kernel", "in_conv_tf32x3_kernel")
+# The kernels the fp32 int8 s2d bodies of sft_conv3 and the tail must launch (the SFT pass's
+# int8-output mode, the wgmma s8 conv tile through its fp32-output epilogue; the tail's
+# conv_last on its fp32 tile), and the dense kernels of those bodies, which they must not.
+F32_Q8_SFT_TILES = ("sft_q8_f32_kernel", "conv3x3_s8_sm90_kernel")
+F32_Q8_TAIL_TILES = (*F32_Q8_SFT_TILES, "conv_last_tf32x3_kernel")
+DENSE_INT8_KERNELS = ("sft_kernel", "conv3x3_s8_kernel", "conv_last_kernel")
+INT8_F32_DRAWS = 5  # draws of each fp32 int8 s2d case's inputs whose shares of differing outputs phase 2 reports
 TAIL_BF16_SHARE = 0.016  # see the docstring, phase 2
 HG_TAIL_BF16_SHARE = 0.01
 HG_E2E_SIZE = (184, 336)  # s2d grid 92 × 168: pads 4 rows and 8 columns; takes the megakernel program
@@ -565,8 +587,12 @@ KERNEL_INFO = {
 }
 # The tiles of the fp32 instances that ride along off the path ("off_path" in the kernels
 # line), where they are not the entry's own source: the s2d forms' 3×TF32 row and conv tiles,
-# the tail's fp32 conv_last tile and the head's 3×TF32 AGCM pass.
+# the tail's fp32 conv_last tile, the head's 3×TF32 AGCM pass, and the int8 bodies' row tile
+# in its int8-output mode with the wgmma s8 conv tile.
 OFF_PATH_SOURCE = {
+    "sft_conv3_w8a8": "hdrtv_tpu_torch/csrc/sft_tf32x3.cuh + hdrtv_tpu_torch/csrc/conv3x3_s8_sm90.cuh",
+    "tail_w8a8": "hdrtv_tpu_torch/csrc/sft_tf32x3.cuh + hdrtv_tpu_torch/csrc/conv3x3_s8_sm90.cuh + "
+                 "hdrtv_tpu_torch/csrc/conv_last.cuh",
     "sft_conv3": "hdrtv_tpu_torch/csrc/sft_tf32x3.cuh + hdrtv_tpu_torch/csrc/conv3x3_tf32x3.cuh",
     "resblock": "hdrtv_tpu_torch/csrc/sft_tf32x3.cuh + hdrtv_tpu_torch/csrc/conv3x3_tf32x3.cuh",
     "cond_chain": "hdrtv_tpu_torch/csrc/chain_tf32x3.cuh",
@@ -767,10 +793,11 @@ def phase_kernels(torch, np) -> dict:
     from hdrtv_tpu_torch.ops import native
     from hdrtv_tpu_torch.ops.megakernel import _conv_same, _s2d_slots_only, _sft_conv_t, _sft_t
     from hdrtv_tpu_torch.ops.megakernel import (
-        _d2s_fine, _sft_hopper, _sft_t_rows, _tf32, agcm_head_tf32x3_emulation, conv_last_tf32x3_emulation,
-        fused_down2_q_ref, sft_tf32x3_emulation,
+        _d2s_fine, _pack_u16, _sft_hopper, _sft_t_rows, _tf32, agcm_head_tf32x3_emulation,
+        conv_last_tf32x3_emulation, fused_down2_q_ref, quantize_codes_fast, sft_q8_tf32x3_emulation,
+        sft_tf32x3_emulation,
     )
-    from hdrtv_tpu_torch.ops.w8a8 import pack_qargs, pack_qargs_branches
+    from hdrtv_tpu_torch.ops.w8a8 import _rescale, _tap_views_q, pack_qargs, pack_qargs_branches
     from hdrtv_tpu_torch.quant.int8 import quantize_weight
 
     log("phase 2: kernels against their plain versions (1080p main-path shapes, TF32 off)")
@@ -934,6 +961,59 @@ def phase_kernels(torch, np) -> dict:
             missing = [k for k in tiles if not any(n.startswith(k) for n in split["kernels"])]
             if missing:
                 raise AssertionError(f"{kernel} {dtype} s2d did not launch {missing}: {split['kernels']}")
+
+        def q8_f32_route(split, kernel, tiles):
+            """An fp32 int8 s2d split: ``tiles`` launched, the s8 conv tile's instance the
+            fp32-output one (its third template argument), no dense kernel of the int8 bodies."""
+            tiles_launched(split, kernel, tiles)
+            names = split["kernels"]
+            dense = [n for n in names if n.startswith(DENSE_INT8_KERNELS)]
+            s8 = [n for n in names if n.startswith("conv3x3_s8_sm90_kernel")]
+            if dense or any(n.split("<")[1].split(", ")[2] != "true" for n in s8):
+                raise AssertionError(f"{kernel} f32 s2d launched {dense or s8}: {names}")
+
+        def conv_q_codes(codes, qa):
+            """The plain version's int8 3×3 conv (ops/w8a8.py _taps_conv_q) on given codes:
+            the exact int32 sum (pad codes outside the image), ·yscale, + the folded bias."""
+            h_, w_, c_ = codes.shape
+            w9 = qa.w.reshape(qa.co, 9, c_).double()
+            acc = torch.zeros((h_ * w_, qa.co), dtype=torch.float64, device=codes.device)
+            for i, v in enumerate(_tap_views_q(codes, qa.pad)):
+                acc += v.reshape(h_ * w_, c_).double() @ w9[:, i].T
+            return _rescale(acc, qa).reshape(h_, w_, qa.co)
+
+        def q8_faults(kernel, y, x, cond, sft, qa, finish, tol, unit, share):
+            """The fp32 int8 s2d route's output ``y`` against its plain version with other codes
+            for the int8 conv (``finish``: the rest of the plain version after it): the SFT
+            products cut to one TF32 product (it must break the check) and quantize_code_fast's
+            band left without its fix-up (reported with its margin)."""
+            t_r = _sft_t_rows(x, cond, sft, torch.float32)
+            for fault, codes, required in (
+                    ("SFT products cut to one TF32 product", sft_q8_tf32x3_emulation(x, cond, sft, qa, products=1),
+                     True),
+                    ("band fix-up skipped", quantize_codes_fast(t_r, qa.scale, qa.zero, fixup=False), False)):
+                planted(kernel, "f32", fault, y, finish(conv_q_codes(codes, qa)), tol, unit, share=share,
+                        required=required)
+                del codes
+
+        def q8_draws(kernel, case, draw, share):
+            """INT8_F32_DRAWS draws of an fp32 int8 s2d case's inputs (``draw(g)``: its s2d
+            route, dense route, plain version and the plain version on the float mode's
+            3×TF32 products, called on inputs drawn from the generator g): the share of
+            each one's outputs that differ from the plain version's. The s2d route's must
+            stay within ``share``; the others are reported."""
+            g = torch.Generator(device=dev)
+            out = {"s2d": [], "dense": [], "tf32x3_products": []}
+            for d in range(INT8_F32_DRAWS):
+                g.manual_seed(4321 + d)
+                y_s2d, y_dense, y_r, y_3 = draw(g)
+                for key, v in (("s2d", y_s2d), ("dense", y_dense), ("tf32x3_products", y_3)):
+                    out[key].append(float((v.float() != y_r.float()).float().mean()))
+                del y_s2d, y_dense, y_r, y_3
+            log(json.dumps({"int8_f32_shares": {"kernel": kernel, "case": case, "draws": INT8_F32_DRAWS,
+                                                "share": share, **out}}))
+            if max(out["s2d"]) > share:
+                raise AssertionError(f"{kernel} f32 {case}: {max(out['s2d']):.3e} of the outputs differ > {share}")
 
         def sft_conv3_t(x, cond, sft, w, b):
             """t of fp32 sft_conv3's s2d call on the card: the wrapper's launch
@@ -1674,8 +1754,9 @@ def phase_kernels(torch, np) -> dict:
 
         # sft_conv3_w8a8: x (hb,wb,128), cond (hb,wb,64); the bf16 int8 programs only. The
         # programs' s2d form (bf16: the SFT on the row tile in its int8-output mode, the conv
-        # on the wgmma s8 tile over the slot table), then in bf16 the dense form once (no
-        # path launches it)
+        # on the wgmma s8 tile over the slot table; fp32: the SFT in the int8-output mode of
+        # sft_tf32x3.cuh, the conv on the s8 tile's fp32-output epilogue), then the dense form
+        # once at L0 (no path launches it)
         for name, hb, wb, relu, skip, asym, per_path in (
             ("L0 SFT_layer1/2 + HR_conv1/2", 540, 960, True, False, False,
              {"int8_bf16_nomega": 2, "int8_bf16_mega": 1}),
@@ -1691,7 +1772,11 @@ def phase_kernels(torch, np) -> dict:
             w = w.to(dt)
             sk = t(rng.rand(hb, wb, 128)) if skip else None
             params = [p for pair in sft for p in pair]
-            dense_once = dtype == "bf16" and name.startswith("L0")
+            dense_once = name.startswith("L0")
+
+            def act(v, relu=relu):
+                return torch.clamp_min(v, 0.0) if relu else v
+
             for s2d in (True, False) if dense_once else (True,):
                 def call(s2d=s2d):
                     return fused_sft_conv3_v2(x, cond, sft, w, b, relu=relu, skip=sk, qargs=qa, s2d=s2d)
@@ -1701,13 +1786,29 @@ def phase_kernels(torch, np) -> dict:
 
                 y, y_r = call(), call_plain()
                 ms, plain = time_ms(call, torch), time_ms(call_plain, torch)
-                if dtype == "bf16":
-                    log(json.dumps({"sft_conv3_w8a8_split": {"case": name, "s2d": s2d,
-                                                             **launch_split(call, torch, SFT_CONV_PARTS)}}))
+                split = launch_split(call, torch, SFT_CONV_PARTS)
+                if dtype == "f32" and s2d:
+                    q8_f32_route(split, "sft_conv3_w8a8", F32_Q8_SFT_TILES)
+                log(json.dumps({"sft_conv3_w8a8_split": {"dtype": dtype, "case": name, "s2d": s2d, **split}}))
                 record("sft_conv3_w8a8", dtype, f"{name} s2d={s2d}", per_path if s2d else {}, y, y_r,
                        flip_tol(qa, 2), ms, plain, None, nbytes_of(x, cond, y, sk, *params) + qbytes(qa),
                        2 * conv_macs(w, hb, wb, 1) + sft_flops(hb * wb, sft) + 3 * hb * wb * 128,
                        "flips", share=INT8_SHARE["sft_conv3"], rate="int8")
+                if dtype == "f32" and s2d and name.startswith("L0"):
+                    q8_faults("sft_conv3_w8a8", y, x, cond, sft, qa,
+                              lambda acc: act(acc if sk is None else acc + sk), flip_tol(qa, 2), "flips",
+                              INT8_SHARE["sft_conv3"])
+            if dtype == "f32":
+                def draw(g, sk=sk, act=act, relu=relu, sft=sft, w=w, b=b, qa=qa, hb=hb, wb=wb):
+                    xd = torch.rand(hb, wb, 128, generator=g, device=dev) - 0.3
+                    cd = torch.rand(hb, wb, 64, generator=g, device=dev) - 0.3
+                    ys = [fused_sft_conv3_v2(xd, cd, sft, w, b, relu=relu, skip=sk, qargs=qa, s2d=s2d)
+                          for s2d in (True, False)]
+                    y_r = fused_sft_conv3_v2_ref(xd, cd, sft, w, b, relu=relu, skip=sk, qargs=qa, s2d=True)
+                    y_3 = conv_q_codes(sft_q8_tf32x3_emulation(xd, cd, sft, qa, products=3), qa)
+                    return (*ys, y_r, act(y_3 if sk is None else y_3 + sk))
+
+                q8_draws("sft_conv3_w8a8", name, draw, INT8_SHARE["sft_conv3"])
             del x, cond, y, y_r, sk
 
         # resblock_w8a8 at L1: x (270,480,128), cond (270,480,64)
@@ -1751,7 +1852,9 @@ def phase_kernels(torch, np) -> dict:
 
         # tail_w8a8, packed coarse form at (540, 960), compared in u16 codes. The program's s2d
         # form (bf16: the SFT on the row tile in its int8-output mode, HR_conv2 on the wgmma s8
-        # tile over the slot table), then in bf16 the dense form once (no path launches it)
+        # tile over the slot table; fp32: the SFT in the int8-output mode of sft_tf32x3.cuh,
+        # HR_conv2 on the s8 tile's fp32-output epilogue, conv_last on its fp32 tile), then the
+        # dense form once (no path launches it)
         hb, wb = 540, 960
         npix = hb * wb
         for name, asym, per_path in (("L0 fea0 + up_coarse -> packed u16", False, {"int8_bf16_mega": 1}),
@@ -1774,7 +1877,12 @@ def phase_kernels(torch, np) -> dict:
             tol = int(2 * float(w_last.float().abs().max()) * (flip_tol(qa, 1) + step) * 65535) + 1
             del sf
             params = [p for pair in sft for p in pair] + [w_last, targs[7]]
-            for s2d in (True, False) if dtype == "bf16" and not asym else (True,):
+
+            def tail_after(acc, skip=skip, w_last=w_last, b_last=targs[7]):
+                # the plain version after HR_conv2's rescale: ReLU, conv_last over w_last's slots, skip, pack
+                return _pack_u16(_conv_same(torch.clamp_min(acc, 0.0), _s2d_slots_only(w_last), b_last) + skip)
+
+            for s2d in (True, False) if not asym else (True,):
                 def call(s2d=s2d):
                     return fused_tail(*targs, pack=True, up_coarse=up, qargs_hr=qa, s2d=s2d)
 
@@ -1787,13 +1895,29 @@ def phase_kernels(torch, np) -> dict:
                 if tuple(y.shape) != (hb, 2, wb, 6) or y.dtype != torch.uint16 or inside < 0.5:
                     raise AssertionError(f"tail_w8a8 output {tuple(y.shape)} {y.dtype}, {inside:.2f} unclipped")
                 ms, plain = time_ms(call, torch), time_ms(call_plain, torch)
-                if dtype == "bf16":
-                    log(json.dumps({"tail_w8a8_split": {"case": name, "s2d": s2d,
-                                                        **launch_split(call, torch, TAIL_PARTS)}}))
+                split = launch_split(call, torch, TAIL_PARTS)
+                if dtype == "f32" and s2d:
+                    q8_f32_route(split, "tail_w8a8", F32_Q8_TAIL_TILES)
+                log(json.dumps({"tail_w8a8_split": {"dtype": dtype, "case": name, "s2d": s2d, **split}}))
                 record("tail_w8a8", dtype, f"{name} s2d={s2d}", per_path if s2d else {}, y.to(torch.int32), codes,
                        tol, ms, plain, None, nbytes_of(s_, up, cond, skip, y, *params) + qbytes(qa),
                        2 * (conv_macs(targs[4], hb, wb, 1) + conv_macs(w_last, hb, wb, 1)) + sft_flops(npix, sft)
                        + 4 * npix * 128 + 5 * npix * 12, share=INT8_SHARE["tail"], rate="int8")
+                if dtype == "f32" and s2d and not asym:
+                    q8_faults("tail_w8a8", y.to(torch.int32), s_ + _d2s_fine(up), cond, sft, qa,
+                              lambda acc: tail_after(acc).to(torch.int32), tol, "abs", INT8_SHARE["tail"])
+            if dtype == "f32":
+                def draw(g, targs=targs, qa=qa, tail_after=tail_after, sft=sft):
+                    sd = torch.rand(hb, wb, 128, generator=g, device=dev) - 0.3
+                    ud = torch.rand(hb // 2, wb // 2, 512, generator=g, device=dev) - 0.3
+                    cd = torch.rand(hb, wb, 64, generator=g, device=dev) - 0.3
+                    args = (sd, cd, *targs[2:])
+                    ys = [fused_tail(*args, pack=True, up_coarse=ud, qargs_hr=qa, s2d=s2d) for s2d in (True, False)]
+                    y_r = fused_tail_ref(*args, pack=True, up_coarse=ud, qargs_hr=qa, s2d=True)
+                    codes_3 = sft_q8_tf32x3_emulation(sd + _d2s_fine(ud), cd, sft, qa, products=3)
+                    return (*ys, y_r, tail_after(conv_q_codes(codes_3, qa)))
+
+                q8_draws("tail_w8a8", name, draw, INT8_SHARE["tail"])
             del s_, up, cond, skip, y, y_r, codes, targs
 
         # down2_w8a8: the int8 body of down2 at the 1080p shapes of the HDRTV_INT8_DOWN2=1

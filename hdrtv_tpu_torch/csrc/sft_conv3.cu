@@ -40,8 +40,7 @@
 // Rounding points as in the float body. Bound on this card: bytes (0.33 GB
 // per L0 call, 0.099 ms). Times: PERF.md §5-§6.
 //
-// The s2d form in fp32 with the float conv (the float body; fp32 calls with
-// the conv's QuantParams keep the dense kernels above): the same two
+// The s2d form in fp32 with the float conv (the float body): the same two
 // launches on the tiles' fp32 instances:
 //   1. the SFT pass on sft_tf32x3.cuh's 3×TF32 row tile: every value fp32,
 //      the three 16-deep products per tile on wgmma m64n32k8 (small·big +
@@ -65,6 +64,16 @@
 //      yscale, the folded bias, the skip (each rounded apart), the ReLU and
 //      one rounding, stored inside the image.
 // Bound on this card: bytes, as the float form's.
+//
+// The int8 body's s2d form in fp32 (s2d=True with the conv's QuantParams):
+// the same two launches, both fp32 throughout:
+//   1. the SFT pass in the int8-output mode of sft_tf32x3.cuh
+//      (sft_q8_f32_kernel: the products fp32 FMA chains in the plain
+//      version's order, t quantized in registers, 1-byte codes);
+//   2. the conv on the wgmma s8 tile over the slot table through its
+//      fp32-output epilogue: yscale, the folded bias and the fp32 skip
+//      rounded apart, the ReLU, y stored in fp32 inside the image.
+// Bound on this card: bytes (0.46 GB per L0 call at 1080p, 0.14 ms).
 #include "chain_sm90.cuh"
 #include "conv3x3_s8.cuh"
 #include "conv3x3_s8_sm90.cuh"
@@ -91,10 +100,11 @@ int sft_conv3(const void* x, const void* cond, const void* const* sft, const voi
                                      table, per_list, s);
       return static_cast<int>(err);
     } else {
-      // fp32: the float body only (the int8 body keeps its dense kernels)
-      if (!table || q) return static_cast<int>(cudaErrorInvalidValue);
-      cudaError_t err = hdrtv::sft_tf32x3(x, nullptr, 0, nullptr, cond, t, sft, H, W, C, CC, s);
-      if (err == cudaSuccess)
+      if (!table) return static_cast<int>(cudaErrorInvalidValue);
+      cudaError_t err = hdrtv::sft_tf32x3(x, nullptr, 0, nullptr, cond, t, sft, H, W, C, CC, s, q);
+      if (err == cudaSuccess && q)
+        err = hdrtv::conv3x3_s8_sm90(t, *q, skip, y, H, W, C, Co, act, table, per_list, s, nullptr, true);
+      else if (err == cudaSuccess)
         err = hdrtv::conv3x3_tf32x3<1>(t, w, static_cast<const float*>(b), skip, y, H, W, C, 0, C, Co, act, 1, table,
                                        per_list, s);
       return static_cast<int>(err);
@@ -123,7 +133,7 @@ int sft_conv3(const void* x, const void* cond, const void* const* sft, const voi
 // sft: eight pointers, (w, b) of scale0, scale1, shift0, shift1. q: null for
 // the float form, else the conv's int8 parameters (w and b unused). t:
 // scratch of Hb·Wb·C elements, or of Hb·Wb·C bytes (codes) with q. s2d: 1
-// for the s2d form (bf16 float or int8; fp32 float), whose conv walks
+// for the s2d form (float or int8, bf16 or fp32), whose conv walks
 // `table` (per_list entries per output sub-position; null otherwise), else 0.
 extern "C" int hdrtv_sft_conv3_f32(const void* x, const void* cond, const void* const* sft,
                                    const void* w, const void* b, const void* q, const void* skip,

@@ -45,6 +45,11 @@
 // non-zero products take 0.04 ms at a third of the dense TF32 rate (494.7
 // TFLOP/s), 0.10 ms at the FMA units' 67. resblock's SFT1 at L1 with up
 // reads 0.13 GB more and writes xsum. Times: PERF.md §6.
+//
+// The int8-output mode (sft_q8_f32_kernel, below): the same row tile for the
+// SFT pass of the fp32 s2d forms of tail_w8a8 and sft_conv3_w8a8, t
+// quantized in registers and written as 1-byte codes, its products as fp32
+// FMA chains in the plain version's order.
 #pragma once
 
 #include "chain_tf32x3.cuh"
@@ -64,6 +69,11 @@ struct SftF32Args {
   long long rows;
   int W;       // s2d pixels per image row (the un-fold of a coarse add)
   int coarse;  // add is the coarse tensor
+  // the int8-output mode (sft_q8_f32_kernel): (rows, C) codes of t in place of t, for
+  // a layer of scale qs (qinv = 1/qs rounded, the host's division), zero qz
+  int8_t* q = nullptr;
+  float qs = 1.f, qinv = 1.f, qz = 0.f;
+  int qasym = 0;
 #ifdef HDRTV_SM90_PHASES
   unsigned long long* phases = nullptr;  // tools/sm90_phases.py: 8 clock64() sums per warpgroup
 #endif
@@ -84,6 +94,49 @@ struct SftTf32Cfg {
   static_assert(SMEM <= 227 * 1024, "one block per SM");
   static_assert(BLOCK % 1024 == 0 && RING_OFF % 16 == 0 && STAGE % 16 == 0, "alignment of the blocks and stages");
 };
+
+// A tile's rows from r0 into the stage st (cond, x, add, rows of Cfg::CPITCH,
+// XPITCH and XPITCH bytes), by the warpgroup's thread t: 16-byte cp.async,
+// rows past the end zero-filled; a coarse add un-folded on read.
+template <typename Cfg>
+__device__ __forceinline__ void sft_f32_load(const SftF32Args& a, unsigned char* st, long long r0, int t) {
+  constexpr int CC = Cfg::CC, C = Cfg::C, CP = CC / 4, XP = C / 4;  // 16-byte pieces of a row
+  unsigned char* const xs = st + kRowBM * Cfg::CPITCH;
+  unsigned char* const as = xs + kRowBM * Cfg::XPITCH;
+#pragma unroll
+  for (int idx = t; idx < kRowBM * CP; idx += 128) {
+    const int r = idx / CP, c = idx % CP;
+    const bool ok = r0 + r < a.rows;
+    cp_async16_or_zero(st + r * Cfg::CPITCH + c * 16, a.cond + (ok ? (r0 + r) * CC + c * 4 : 0), ok);
+  }
+#pragma unroll
+  for (int idx = t; idx < kRowBM * XP; idx += 128) {
+    const int r = idx / XP, c = idx % XP;
+    const bool ok = r0 + r < a.rows;
+    cp_async16_or_zero(xs + r * Cfg::XPITCH + c * 16, a.x + (ok ? (r0 + r) * C + c * 4 : 0), ok);
+  }
+  if (a.add) {
+    const long long half_w = a.W >> 1;
+#pragma unroll
+    for (int idx = t; idx < kRowBM * XP; idx += 128) {
+      const int r = idx / XP, c = idx % XP;
+      const long long row = r0 + r;
+      const bool ok = row < a.rows;
+      long long src = 0;
+      if (ok && a.coarse) {
+        // fine pixel p = (i, j) of sub-position sub: coarse pixel (i/2, j/2),
+        // channel block (2·(i%2) + j%2)·4C + sub·C
+        const long long p = row >> 2;
+        const int sub = static_cast<int>(row & 3);
+        const long long pi = p / a.W, pj = p - pi * a.W;
+        src = ((pi >> 1) * half_w + (pj >> 1)) * (16LL * C) + ((pi & 1) * 2 + (pj & 1)) * (4 * C) + sub * C + c * 4;
+      } else if (ok) {
+        src = row * C + c * 4;
+      }
+      cp_async16_or_zero(as + r * Cfg::XPITCH + c * 16, a.add + src, ok);
+    }
+  }
+}
 
 // The 16-deep product of the split fragments (ab, as: k8 steps 0 and 1)
 // with the staged block at shared address wb into d (32 columns), from zero:
@@ -129,46 +182,7 @@ __global__ void __launch_bounds__(128 * SftTf32Cfg::WGS, 1) sft_tf32x3_kernel(co
   __syncthreads();
 
   const RowTiles tiles(a.rows, wg, WGS);
-  const long long half_w = a.W >> 1;
-  auto load = [&](int i) {
-    const long long r0 = tiles.row0(i);
-    unsigned char* const st = ring + (i % NS) * Cfg::STAGE;
-    unsigned char* const xs = st + kRowBM * Cfg::CPITCH;
-    unsigned char* const as = xs + kRowBM * Cfg::XPITCH;
-    constexpr int CP = CC / 4, XP = C / 4;  // 16-byte pieces of a row
-#pragma unroll
-    for (int idx = t; idx < kRowBM * CP; idx += 128) {
-      const int r = idx / CP, c = idx % CP;
-      const bool ok = r0 + r < a.rows;
-      cp_async16_or_zero(st + r * Cfg::CPITCH + c * 16, a.cond + (ok ? (r0 + r) * CC + c * 4 : 0), ok);
-    }
-#pragma unroll
-    for (int idx = t; idx < kRowBM * XP; idx += 128) {
-      const int r = idx / XP, c = idx % XP;
-      const bool ok = r0 + r < a.rows;
-      cp_async16_or_zero(xs + r * Cfg::XPITCH + c * 16, a.x + (ok ? (r0 + r) * C + c * 4 : 0), ok);
-    }
-    if (a.add) {
-#pragma unroll
-      for (int idx = t; idx < kRowBM * XP; idx += 128) {
-        const int r = idx / XP, c = idx % XP;
-        const long long row = r0 + r;
-        const bool ok = row < a.rows;
-        long long src = 0;
-        if (ok && a.coarse) {
-          // fine pixel p = (i, j) of sub-position sub: coarse pixel (i/2, j/2),
-          // channel block (2·(i%2) + j%2)·4C + sub·C
-          const long long p = row >> 2;
-          const int sub = static_cast<int>(row & 3);
-          const long long pi = p / a.W, pj = p - pi * a.W;
-          src = ((pi >> 1) * half_w + (pj >> 1)) * (16LL * C) + ((pi & 1) * 2 + (pj & 1)) * (4 * C) + sub * C + c * 4;
-        } else if (ok) {
-          src = row * C + c * 4;
-        }
-        cp_async16_or_zero(as + r * Cfg::XPITCH + c * 16, a.add + src, ok);
-      }
-    }
-  };
+  auto load = [&](int i) { sft_f32_load<Cfg>(a, ring + (i % NS) * Cfg::STAGE, tiles.row0(i), t); };
   for (int i = 0; i < NS; ++i) {
     if (i < tiles.n) load(i);
     cp_async_commit();
@@ -298,26 +312,312 @@ __global__ void __launch_bounds__(128 * SftTf32Cfg::WGS, 1) sft_tf32x3_kernel(co
 #undef PHASE
 }
 
+// ---------------------------------------------------------------------------
+// The int8-output mode (sft_q8_f32_kernel): the SFT pass of the fp32 s2d
+// forms of tail_w8a8 and sft_conv3_w8a8 (tail.cu, sft_conv3.cu), whose int8
+// 3×3 conv then runs the wgmma s8 tile of conv3x3_s8_sm90.cuh through its
+// fp32-output epilogue. Replaces, with that tile, the int8 bodies of the
+// Pallas kernels fused_tail (hdrtv_tpu/ops/megakernel.py:468-469) and
+// fused_sft_conv3_v2 (:852-855) in fp32 on s2d weights.
+//
+// The float mode's row tile: one block an SM of three warpgroups, each with
+// two ring stages of 64 rows of cond, x and add (sft_f32_load: the coarse up
+// tensor un-folded on read, x + add summed in fp32, no sum written). t is
+// formed as the float mode forms it, x·(scale + 1) then + shift rounded
+// apart, but never stored: it is quantized in registers and written as the
+// conv's 1-byte codes, the (rows, C) code rows being byte for byte the
+// (npix, 4·C) s2d codes the s8 tile reads.
+//
+// Products: fp32 FMA chains, each output's 16 products summed from zero in
+// the order of K, then + bias: the order of the plain version's fp32
+// matmul, so that t equals the plain version's t bit for bit and the codes
+// equal its codes. A code flips where t / s lies on a half-integer and t
+// differs in its last bit: the float mode's 3×TF32 products move t's last
+// bit in a share of the values, and the plain version on their emulation
+// (ops/megakernel.py sft_q8_tf32x3_emulation, products = 3) moves 8 to 50
+// times sft_conv3's bound of the conv's outputs on the card (PERF.md §6). The
+// 6.4 GFLOP of the L0 call take 0.10 ms at the FMA units' 67 TFLOP/s, under
+// the pass's 0.14-0.22 ms of bytes.
+//
+// Layout: a warp's lanes share their columns, so that every weight read is
+// one address for the whole warp (a broadcast). Warp w owns columns 8w ..
+// 8w + 7 of the hidden [hs | hh] and of t, lane l rows l and l + 32 of the
+// tile; the rows are staged at pitches (80 and 144 bytes) whose 16-byte
+// reads, a row a lane, are free of bank conflicts. The first product reads
+// its rows' whole cond; the hidden goes through the warpgroup's hidden tile
+// so that the second products read whole hidden rows; the codes, 8 bytes a
+// lane and row, through its code tile, from which each thread stores one
+// 16-byte piece (a warp 16 rows, 512 contiguous bytes). Weights (plain fp32,
+// 6 KB) and biases are resident in shared memory. An earlier version owned
+// a quad's row pair and columns 4q .. and 16 + 4q .. (every weight read four
+// addresses): 0.357 ms against 0.27 at the L0 call (PERF.md §6).
+//
+// Quantizing. quantize_code_fast first, for every value without a branch
+// (the multiply by qinv), noting the groups of four in the band around a
+// half-integer where only the IEEE division decides; where any is (rare),
+// those groups again by quantize_code: quantize_code's codes bit for bit.
+// ---------------------------------------------------------------------------
+
+struct SftQ8Cfg {
+  static constexpr int CC = SftTf32Cfg::CC, C = SftTf32Cfg::C, WGS = SftTf32Cfg::WGS, NS = SftTf32Cfg::NS;
+  static constexpr int CPITCH = (CC + 4) * 4;      // a staged row of cond
+  static constexpr int XPITCH = (C + 4) * 4;       // of x or add
+  static constexpr int STAGE = kRowBM * (CPITCH + 2 * XPITCH);
+  static constexpr int W_BYTES = 3 * CC * 32 * 4;  // [W0s | W0h], W1s, W1h: 16 rows of 32 floats each
+  static constexpr int BIAS_BYTES = 3 * 32 * 4;    // [b0s | b0h], b1s, b1h
+  static constexpr int HPITCH = C + 4;             // floats a row of the hidden tile
+  static constexpr int HID = kRowBM * HPITCH * 4;  // a warpgroup's hidden tile
+  static constexpr int QPITCH = C + 16;            // bytes a row of the code tile
+  static constexpr int CODES = kRowBM * QPITCH;
+  static constexpr int HID_OFF = W_BYTES + BIAS_BYTES;
+  static constexpr int CODE_OFF = HID_OFF + WGS * HID;
+  static constexpr int RING_OFF = CODE_OFF + WGS * CODES;
+  static constexpr int SMEM = RING_OFF + WGS * NS * STAGE;
+  static_assert(2 * CC == 32 && C == 32, "the weight rows: 32 floats, a warp's columns 8 of them");
+  static_assert(SMEM <= 227 * 1024, "one block per SM");
+  static_assert(HID_OFF % 16 == 0 && CODE_OFF % 16 == 0 && RING_OFF % 16 == 0 && STAGE % 16 == 0 &&
+                    CPITCH % 16 == 0 && XPITCH % 16 == 0 && QPITCH % 16 == 0,
+                "16-byte alignment");
+};
+
+__device__ __forceinline__ void unpack4(float* d, float4 v) {
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
+}
+
+__global__ void __launch_bounds__(128 * SftQ8Cfg::WGS, 1) sft_q8_f32_kernel(const __grid_constant__ SftF32Args a) {
+  using Cfg = SftQ8Cfg;
+  constexpr int CC = Cfg::CC, C = Cfg::C, NS = Cfg::NS, WGS = Cfg::WGS;
+  extern __shared__ __align__(16) unsigned char row_smem[];
+  float* const w0 = reinterpret_cast<float*>(row_smem);  // row k: [W0s | W0h]
+  float* const w1s = w0 + CC * 32;
+  float* const w1h = w1s + CC * 32;
+  float* const b0 = w1h + CC * 32;  // [b0s | b0h]
+  float* const b1s = b0 + 32;
+  float* const b1h = b1s + 32;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31;
+  float* const hid = reinterpret_cast<float*>(row_smem + Cfg::HID_OFF + wg * Cfg::HID);
+  unsigned char* const codes = row_smem + Cfg::CODE_OFF + wg * Cfg::CODES;
+  unsigned char* const ring = row_smem + Cfg::RING_OFF + wg * NS * Cfg::STAGE;
+
+  // the blocks at the top left of the s2d weights, and the biases' first quarters
+  for (int i = tid; i < CC * 32; i += 128 * WGS) {
+    const int k = i >> 5, n = i & 31;
+    w0[i] = n < CC ? a.w[0][k * a.ld[0] + n] : a.w[2][k * a.ld[2] + n - CC];
+    w1s[i] = a.w[1][k * a.ld[1] + n];
+    w1h[i] = a.w[3][k * a.ld[3] + n];
+  }
+  for (int i = tid; i < 32; i += 128 * WGS) {
+    b0[i] = i < CC ? a.b[0][i] : a.b[2][i - CC];
+    b1s[i] = a.b[1][i];
+    b1h[i] = a.b[3][i];
+  }
+  __syncthreads();
+
+  const RowTiles tiles(a.rows, wg, WGS);
+  auto load = [&](int i) { sft_f32_load<Cfg>(a, ring + (i % NS) * Cfg::STAGE, tiles.row0(i), t); };
+  for (int i = 0; i < NS; ++i) {
+    if (i < tiles.n) load(i);
+    cp_async_commit();
+  }
+
+  const int col0 = 8 * warp;  // this warp's columns of [hs | hh] and of t; this lane's rows: lane, lane + 32
+#ifdef HDRTV_SM90_PHASES
+  // Cycles per phase of a tile (the wait for its rows and the refill; cond,
+  // x and add read from the stage; the first product with its bias and leaky
+  // ReLU, the hidden tile's stores and the meeting; the second products; t,
+  // its codes and the code tile's stores; the meeting and the stores),
+  // summed by each warpgroup's first thread.
+  unsigned long long t_start = clock64(), t_phase[8] = {0, 0, 0, 0, 0, 0, 0, 0}, t_mark = 0;
+#define PHASE(i) (t_phase[i] += clock64() - t_mark, t_mark = clock64());
+#else
+#define PHASE(i)
+#endif
+  for (int i = 0; i < tiles.n; ++i) {
+#ifdef HDRTV_SM90_PHASES
+    t_mark = clock64();
+#endif
+    // tile i's rows arrived (this thread's copies, then everyone's)
+    cp_async_wait<NS - 1>();
+    warpgroup_sync(wg);
+    PHASE(1)
+    const unsigned char* const st = ring + (i % NS) * Cfg::STAGE;
+    const unsigned char* const xs = st + kRowBM * Cfg::CPITCH;
+    const unsigned char* const as = xs + kRowBM * Cfg::XPITCH;
+    float cv[2][CC], xv[2][8];  // cond rows lane, lane + 32; x (+ add) at the warp's columns
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = lane + 32 * h;
+#pragma unroll
+      for (int c4 = 0; c4 < CC / 4; ++c4)
+        unpack4(cv[h] + 4 * c4, *reinterpret_cast<const float4*>(st + r * Cfg::CPITCH + c4 * 16));
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        const int off = r * Cfg::XPITCH + (col0 + 4 * g) * 4;
+        float4 v = *reinterpret_cast<const float4*>(xs + off);
+        if (a.add) {
+          const float4 u = *reinterpret_cast<const float4*>(as + off);
+          v = make_float4(__fadd_rn(v.x, u.x), __fadd_rn(v.y, u.y), __fadd_rn(v.z, u.z), __fadd_rn(v.w, u.w));
+        }
+        unpack4(xv[h] + 4 * g, v);
+      }
+    }
+    PHASE(2)
+    // everyone has read the stage: it takes tile i + NS
+    warpgroup_sync(wg);
+    if (i + NS < tiles.n) load(i + NS);
+    cp_async_commit();
+    PHASE(1)
+
+    // hidden = lrelu(cond·[W0s | W0h] + [b0s | b0h]) at the warp's columns
+    float hv[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) hv[h][j] = 0.f;
+#pragma unroll
+    for (int k = 0; k < CC; ++k) {
+      float wv[8];
+      unpack4(wv, *reinterpret_cast<const float4*>(w0 + k * 32 + col0));
+      unpack4(wv + 4, *reinterpret_cast<const float4*>(w0 + k * 32 + col0 + 4));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) hv[h][j] = fmaf(cv[h][k], wv[j], hv[h][j]);
+    }
+    {
+      float bv[8];
+      unpack4(bv, *reinterpret_cast<const float4*>(b0 + col0));
+      unpack4(bv + 4, *reinterpret_cast<const float4*>(b0 + col0 + 4));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) hv[h][j] = apply_act(__fadd_rn(hv[h][j], bv[j]), ACT_LRELU);
+        float* const row = hid + (lane + 32 * h) * Cfg::HPITCH + col0;
+        *reinterpret_cast<float4*>(row) = make_float4(hv[h][0], hv[h][1], hv[h][2], hv[h][3]);
+        *reinterpret_cast<float4*>(row + 4) = make_float4(hv[h][4], hv[h][5], hv[h][6], hv[h][7]);
+      }
+    }
+    // every warp's columns of the hidden rows are in the tile (and everyone
+    // has stored the last tile's codes)
+    warpgroup_sync(wg);
+    PHASE(3)
+    // scale and shift at the warp's columns: hs·W1s, hh·W1h
+    float sc[2][8], sh[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sc[h][j] = sh[h][j] = 0.f;
+#pragma unroll
+    for (int k4 = 0; k4 < CC / 4; ++k4) {
+      float hs[2][4], hh[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* const row = hid + (lane + 32 * h) * Cfg::HPITCH;
+        unpack4(hs[h], *reinterpret_cast<const float4*>(row + 4 * k4));
+        unpack4(hh[h], *reinterpret_cast<const float4*>(row + CC + 4 * k4));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = 4 * k4 + kk;
+        float ws[8], wh[8];
+        unpack4(ws, *reinterpret_cast<const float4*>(w1s + k * 32 + col0));
+        unpack4(ws + 4, *reinterpret_cast<const float4*>(w1s + k * 32 + col0 + 4));
+        unpack4(wh, *reinterpret_cast<const float4*>(w1h + k * 32 + col0));
+        unpack4(wh + 4, *reinterpret_cast<const float4*>(w1h + k * 32 + col0 + 4));
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            sc[h][j] = fmaf(hs[h][kk], ws[j], sc[h][j]);
+            sh[h][j] = fmaf(hh[h][kk], wh[j], sh[h][j]);
+          }
+      }
+    }
+    PHASE(4)
+    // t, multiply and add rounded apart as the Pallas body, then its codes
+    unsigned cw[4];     // codes of row lane + 32h, columns col0 + 4g .. + 3, at 2h + g (byte e: column + e)
+    unsigned near = 0;  // bit 2h + g: a value of that group lies in quantize_code_fast's band
+    float tv[2][8];
+    {
+      float bs[8], bh[8];
+      unpack4(bs, *reinterpret_cast<const float4*>(b1s + col0));
+      unpack4(bs + 4, *reinterpret_cast<const float4*>(b1s + col0 + 4));
+      unpack4(bh, *reinterpret_cast<const float4*>(b1h + col0));
+      unpack4(bh + 4, *reinterpret_cast<const float4*>(b1h + col0 + 4));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          bool nr = false;
+          unsigned w = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = 4 * g + e;
+            const float s = __fadd_rn(sc[h][j], bs[j]), hsh = __fadd_rn(sh[h][j], bh[j]);
+            tv[h][j] = __fadd_rn(__fmul_rn(xv[h][j], __fadd_rn(s, 1.f)), hsh);
+            w |= static_cast<unsigned>(quantize_code_fast(tv[h][j], a.qinv, a.qz, a.qasym, nr) & 0xff) << (8 * e);
+          }
+          cw[2 * h + g] = w;
+          near |= static_cast<unsigned>(nr) << (2 * h + g);
+        }
+    }
+    if (near)
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        if (near >> p & 1u) {
+          unsigned w = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            w |= static_cast<unsigned>(quantize_code(tv[p >> 1][4 * (p & 1) + e], a.qs, a.qz, a.qasym) & 0xff)
+                 << (8 * e);
+          cw[p] = w;
+        }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint2*>(codes + (lane + 32 * h) * Cfg::QPITCH + col0) = make_uint2(cw[2 * h], cw[2 * h + 1]);
+    PHASE(5)
+    // every warp's codes are in the tile: thread t stores piece t % 2 of row t / 2
+    warpgroup_sync(wg);
+    const long long row = tiles.row0(i) + (t >> 1);
+    if (row < a.rows)
+      *reinterpret_cast<uint4*>(a.q + row * C + 16 * (t & 1)) =
+          *reinterpret_cast<const uint4*>(codes + (t >> 1) * Cfg::QPITCH + 16 * (t & 1));
+    PHASE(6)
+  }
+  cp_async_wait<0>();
+#ifdef HDRTV_SM90_PHASES
+  t_phase[0] = clock64() - t_start;
+  t_phase[7] = tiles.n;
+  if (a.phases && t == 0)
+    for (int k = 0; k < 8; ++k) a.phases[(blockIdx.x * WGS + wg) * 8 + k] = t_phase[k];
+#endif
+#undef PHASE
+}
+
 // The fp32 SFT pass over s2d weights, as sft_sm90 takes it (H × W s2d
 // pixels of C and CC channels; add nullptr, fine (coarse = 0) or coarse
 // (coarse = 1, H and W even); xsum (with add only) nullptr or the sum's
 // destination; sft: the eight pointers w, b of scale0, scale1, shift0,
 // shift1, whose blocks lie at the top left of weights of row pitch CC, C,
-// CC, C). The natural widths CC = 16 and C = 32 are the ones it takes;
-// anything else is refused. `phases` (tools/sm90_s8_phases.cu): the timers'
-// array, else null.
+// CC, C). q: the int8-output mode (sft_q8_f32_kernel), t written as the
+// codes of the layer q (no xsum). The natural widths CC = 16 and C = 32 are
+// the ones it takes; anything else is refused. `phases`
+// (tools/sm90_s8_phases.cu): the timers' array, else null.
 inline cudaError_t sft_tf32x3(const void* x, const void* add, int coarse, void* xsum, const void* cond, void* t,
                               const void* const* sft, int H, int W, int C, int CC, cudaStream_t stream,
-                              unsigned long long* phases = nullptr) {
+                              const QuantParams* q = nullptr, unsigned long long* phases = nullptr) {
   using Cfg = SftTf32Cfg;
-  if (C != 4 * Cfg::C || CC != 4 * Cfg::CC || (add && coarse && (H % 2 || W % 2)) || (xsum && !add))
+  if (C != 4 * Cfg::C || CC != 4 * Cfg::CC || (add && coarse && (H % 2 || W % 2)) || (xsum && !add) || (xsum && q))
     return cudaErrorInvalidValue;
   SftF32Args a;
   a.cond = static_cast<const float*>(cond);
   a.x = static_cast<const float*>(x);
   a.add = static_cast<const float*>(add);
   a.xsum = static_cast<float*>(xsum);
-  a.t = static_cast<float*>(t);
+  a.t = q ? nullptr : static_cast<float*>(t);
   const int ld[4] = {CC, C, CC, C};
   for (int i = 0; i < 4; ++i) {
     a.w[i] = static_cast<const float*>(sft[2 * i]);
@@ -332,8 +632,20 @@ inline cudaError_t sft_tf32x3(const void* x, const void* add, int coarse, void* 
 #else
   (void)phases;
 #endif
-  static DeviceCache cache;
   int resident = 0;
+  if (q) {
+    a.q = static_cast<int8_t*>(t);
+    a.qs = q->s;
+    a.qinv = 1.f / q->s;
+    a.qz = q->z;
+    a.qasym = q->asym;
+    static DeviceCache qcache;
+    const cudaError_t err = resident_blocks(qcache, sft_q8_f32_kernel, SftQ8Cfg::SMEM, &resident, 128 * SftQ8Cfg::WGS);
+    if (err != cudaSuccess) return err;
+    sft_q8_f32_kernel<<<row_blocks(a.rows, resident, SftQ8Cfg::WGS), 128 * SftQ8Cfg::WGS, SftQ8Cfg::SMEM, stream>>>(a);
+    return cudaGetLastError();
+  }
+  static DeviceCache cache;
   const cudaError_t err = resident_blocks(cache, sft_tf32x3_kernel, Cfg::SMEM, &resident, 128 * Cfg::WGS);
   if (err != cudaSuccess) return err;
   sft_tf32x3_kernel<<<row_blocks(a.rows, resident, Cfg::WGS), 128 * Cfg::WGS, Cfg::SMEM, stream>>>(a);

@@ -65,9 +65,8 @@
 //   3. conv_last on its Hopper tile, as in the float body's s2d form.
 // Bound on this card: bytes (0.1065 ms a 1080p call). Times: PERF.md §5-§6.
 //
-// The float body's s2d form in fp32 (s2d=True without q_hr; fp32 calls with
-// q_hr, tail_w8a8, keep the dense kernels above): the same three launches on
-// the tiles' fp32 instances, as fp32 sft_conv3's (sft_conv3.cu):
+// The float body's s2d form in fp32 (s2d=True without q_hr): the same three
+// launches on the tiles' fp32 instances, as fp32 sft_conv3's (sft_conv3.cu):
 //   1. the SFT pass on sft_tf32x3.cuh's 3×TF32 row tile, up_coarse
 //      un-folded on read (s + d2s(up) in fp32, no sum written); t once;
 //   2. HR_conv2 on conv3x3_tf32x3.cuh's 3×TF32 tile over the same slot
@@ -81,6 +80,20 @@
 // Every value fp32: the Pallas body in fp32 narrows nothing. Bound on this
 // card: bytes for the SFT pass and conv_last, operations at a third of the
 // TF32 rate for HR_conv2. Times: PERF.md §6.
+//
+// The int8 body's s2d form in fp32 (s2d=True with q_hr, tail_w8a8): three
+// launches, t never leaving the SFT pass but as codes, h fp32:
+//   1. the SFT pass in the int8-output mode of sft_tf32x3.cuh
+//      (sft_q8_f32_kernel: up_coarse un-folded on read, s + d2s(up) in
+//      fp32; the products fp32 FMA chains in the plain version's order, t
+//      quantized in registers, 1-byte codes stored in 16-byte pieces);
+//   2. HR_conv2 on conv3x3_s8_sm90.cuh's wgmma s8 tile over the slot table
+//      through its fp32-output epilogue: the exact int32 sum over the 9
+//      populated slots, out-of-image taps reading the pad code, yscale and
+//      the folded bias rounded apart, the ReLU, h stored in fp32 inside the
+//      image;
+//   3. conv_last on its fp32 tile, as in the float body's fp32 form.
+// Bound on this card: bytes (1080p: 0.21 ms). Times: PERF.md §6.
 #include "chain_sm90.cuh"
 #include "conv3x3_s8.cuh"
 #include "conv3x3_s8_sm90.cuh"
@@ -108,10 +121,11 @@ int tail(const void* s, const void* up, const void* cond1, const void* skip,
         err = conv3x3_sm90<1>(t, w_hr, static_cast<const float*>(b_hr), nullptr, h, H, W, C, 0, C, C, ACT_RELU, 1,
                               table, per_list, st);
     } else {
-      // fp32: the float body only (the int8 body keeps its dense kernels)
-      if (!table || q_hr) return static_cast<int>(cudaErrorInvalidValue);
-      err = sft_tf32x3(s, up, 1, nullptr, cond1, t, sft, H, W, C, CC, st);
-      if (err == cudaSuccess)
+      if (!table) return static_cast<int>(cudaErrorInvalidValue);
+      err = sft_tf32x3(s, up, 1, nullptr, cond1, t, sft, H, W, C, CC, st, q_hr);
+      if (err == cudaSuccess && q_hr)
+        err = conv3x3_s8_sm90(t, *q_hr, nullptr, h, H, W, C, C, ACT_RELU, table, per_list, st, nullptr, true);
+      else if (err == cudaSuccess)
         err = conv3x3_tf32x3<1>(t, w_hr, static_cast<const float*>(b_hr), nullptr, h, H, W, C, 0, C, C, ACT_RELU, 1,
                                 table, per_list, st);
       if (err == cudaSuccess)
@@ -164,7 +178,7 @@ int tail(const void* s, const void* up, const void* cond1, const void* skip,
 // scale0, scale1, shift0, shift1. q_hr: null for the float form, else
 // HR_conv2's int8 parameters (w_hr and b_hr unused). Scratch: t H·W·C elements
 // (bytes, codes, with q_hr) and h H·W·C elements. s2d: 1 for the s2d form
-// (bf16, float or int8; fp32, float), whose HR_conv2 walks `table`
+// (float or int8, bf16 or fp32), whose HR_conv2 walks `table`
 // (per_list entries per output sub-position; null otherwise) and whose
 // conv_last walks `last_walk` (ops/megakernel.py conv_last_walk; null
 // otherwise), else 0.

@@ -45,7 +45,12 @@ their convs on the 3×TF32 conv tile (``csrc/conv3x3_tf32x3.cuh``), and so
 does the fp32 float tail, whose conv_last runs its fp32 tile
 (``csrc/conv_last.cuh``, 3×TF32 on mma.sync); ``fused_agcm_head`` in fp32
 runs its AGCM pass and input conv on 3×TF32 tiles (``csrc/agcm_tf32x3.cuh``,
-``csrc/agcm_head.cu``); every fp32 int8 body keeps the dense kernels.
+``csrc/agcm_head.cu``). The fp32 int8 bodies of ``fused_tail`` and
+``fused_sft_conv3_v2`` run their SFT passes in the int8-output mode of
+``csrc/sft_tf32x3.cuh`` (fp32 FMA chains in the plain version's order, the
+codes written from registers) and their convs on the wgmma s8 tile's
+fp32-output epilogue, the tail's conv_last on its fp32 tile;
+``fused_resblock``'s fp32 int8 body keeps the dense kernels.
 ``fused_trunk3`` runs natural tensors; both its instances run the Hopper
 tiles on any weights (fp32 the 3×TF32 tile, dense).
 """
@@ -478,6 +483,65 @@ def sft_tf32x3_emulation(x, cond, sft4, *, products: int = 3):
     return x.float() * (scale + 1.0) + shift
 
 
+def _fma_rows(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The rows ``v`` (M, K) times the weight's first diagonal block (K, N)
+    as fp32 FMA chains, each output's products summed from zero in the order
+    of K (each step ``fma(v_k, w_k, acc)``: the product exact in float64, the
+    sum rounded to fp32 through float64, which a double rounding moves in
+    about one step of 2^28), then + the bias's first quarter in fp32."""
+    k, n = w.shape[0] // 4, w.shape[1] // 4
+    blk = w[:k, :n].double()
+    acc = torch.zeros(v.shape[0], n, dtype=torch.float32, device=v.device)
+    for kk in range(k):
+        acc = (v[:, kk:kk + 1].double() * blk[kk] + acc.double()).float()
+    return acc + b[:n]
+
+
+def quantize_codes_fast(t: torch.Tensor, scale: float, zero: float | None, *, fixup: bool = True) -> torch.Tensor:
+    """The codes ``csrc/common.cuh quantize_code_fast`` gives fp32 ``t`` in
+    float32 torch ops: a = t − z, c = a·inv clamped to the code range (inv =
+    1/s rounded to fp32, the host's division), the code rint(c) (− 128 with a
+    zero point); ``fixup``: where c lies in the band 0.5 − |c − rint(c)| ≤
+    2^-13 around a half-integer, the IEEE division's code (``_quantize_act``),
+    as the int8-output passes write those values again. Returns int8 codes.
+    Without ``fixup`` (a fault) the band keeps the multiply's code."""
+    lo, hi = (-128.0, 127.0) if zero is None else (0.0, 255.0)
+    inv = float(torch.tensor(1.0 / scale, dtype=torch.float64).float())
+    a = t.float() if zero is None else t.float() - torch.tensor(zero, dtype=torch.float32)
+    c = (a * torch.tensor(inv, dtype=torch.float32)).clamp(lo, hi)
+    r = torch.round(c)
+    codes = r if zero is None else r - 128.0
+    if fixup:
+        near = ~((0.5 - (c - r).abs()) > 2.0 ** -13)
+        exact = torch.round(((a.double() / scale).float())).clamp(lo, hi)
+        codes = torch.where(near, exact if zero is None else exact - 128.0, codes)
+    return codes.to(torch.int8)
+
+
+def sft_q8_tf32x3_emulation(x, cond, sft4, qa: QArgs, *, products: int | None = None):
+    """The codes the int8-output mode of ``csrc/sft_tf32x3.cuh``
+    (``sft_q8_f32_kernel``) writes, in torch ops, on the ``w_s2d_1x1``
+    weights and ``b_s2d`` biases the fp32 s2d tail_w8a8 and sft_conv3_w8a8
+    take: the four products as fp32 FMA chains (:func:`_fma_rows`), the leaky
+    ReLU between, t = x·(scale + 1) + shift with the multiply and the add
+    rounded apart, then :func:`quantize_codes_fast` for the layer ``qa``.
+    ``x`` (…, 4C) is the pass's input (the tail's s + d2s(up) summed in
+    fp32), ``cond`` (…, 4CC); returns int8 codes (…, 4C). ``products`` 3:
+    t from the float mode's 3×TF32 products (:func:`sft_tf32x3_emulation`)
+    instead, what the pass would give on them; 1: one TF32 product each, a
+    fault the checks must see."""
+    if products is not None:
+        t = sft_tf32x3_emulation(x, cond, sft4, products=products)
+    else:
+        c, cc = x.shape[-1] // 4, cond.shape[-1] // 4
+        cd = cond.float().reshape(-1, cc)
+        hid_s = _apply_act(_fma_rows(cd, *sft4[0]), "lrelu")
+        hid_h = _apply_act(_fma_rows(cd, *sft4[2]), "lrelu")
+        scale, shift = _fma_rows(hid_s, *sft4[1]), _fma_rows(hid_h, *sft4[3])
+        t = (x.float().reshape(-1, c) * (scale + 1.0) + shift).reshape(x.shape)
+    return quantize_codes_fast(t, qa.scale, qa.zero)
+
+
 def agcm_tf32x3_emulation(xs, mods, aw1, ab1, aw2, ab2, aw3, ab3, *, scale=1.0, products: int = 3):
     """The fp32 AGCM pass of ``csrc/agcm_tf32x3.cuh agcm_tf32x3_kernel`` in
     torch ops, on the s2d weights ``fused_agcm_head(..., s2d=True)`` takes:
@@ -544,6 +608,10 @@ SFT_S2D_WIDTHS = (16, 32)
 # csrc/sft_tf32x3.cuh, the 3×3 convs on csrc/conv3x3_tf32x3.cuh, and the
 # tail's conv_last on its fp32 tile (csrc/conv_last.cuh conv_last_tf32x3_kernel).
 SFT_TF32X3 = ("sft_conv3", "resblock", "tail")
+# The kernels whose fp32 int8 s2d body runs the row tile's int8-output mode
+# (csrc/sft_tf32x3.cuh sft_q8_f32_kernel) and the wgmma s8 tile's fp32-output
+# epilogue (csrc/conv3x3_s8_sm90.cuh), the tail's conv_last its fp32 tile.
+SFT_Q8_F32 = ("sft_conv3", "tail")
 
 
 def _sft_hopper(name: str, s2d: bool, dt: torch.dtype, cc: int, c: int, co: int, *, quant: bool = False) -> tuple:
@@ -551,13 +619,16 @@ def _sft_hopper(name: str, s2d: bool, dt: torch.dtype, cc: int, c: int, co: int,
     for the Hopper tiles: (1, the stride-1 slot table of its 3×3 conv
     (``sm90_table``), its list length) for the s2d form in bf16, float or
     int8 (the int8 conv on the wgmma s8 tile of csrc/conv3x3_s8_sm90.cuh,
-    which walks the same table: a chunk is 32 channels in either type), and
-    in fp32 for the float body (no ``quant``) of the kernels SFT_TF32X3
-    (the SFT pass on csrc/sft_tf32x3.cuh, the convs on the 3×TF32 tile of
-    csrc/conv3x3_tf32x3.cuh, the tail's conv_last on its fp32 tile); else
-    (0, None, 0), the dense kernels: every fp32 int8 body. The row tiles
-    take the natural widths SFT_S2D_WIDTHS (CC, C) only; others raise."""
-    if not s2d or (dt != torch.bfloat16 and (quant or name not in SFT_TF32X3)):
+    which walks the same table: a chunk is 32 channels in either type), in
+    fp32 for the float body (no ``quant``) of the kernels SFT_TF32X3 (the
+    SFT pass on csrc/sft_tf32x3.cuh, the convs on the 3×TF32 tile of
+    csrc/conv3x3_tf32x3.cuh, the tail's conv_last on its fp32 tile), and in
+    fp32 for the int8 body of the kernels SFT_Q8_F32 (the SFT pass in
+    sft_tf32x3.cuh's int8-output mode, the conv on the s8 tile's fp32-output
+    epilogue); else (0, None, 0), the dense kernels: fp32 resblock_w8a8. The
+    row tiles take the natural widths SFT_S2D_WIDTHS (CC, C) only; others
+    raise."""
+    if not s2d or (dt != torch.bfloat16 and (name not in (SFT_Q8_F32 if quant else SFT_TF32X3))):
         return 0, None, 0
     if (cc // 4, c // 4) != SFT_S2D_WIDTHS:
         raise ValueError(f"{name}: the s2d row tile takes natural widths (CC, C) = {SFT_S2D_WIDTHS}, "
@@ -789,10 +860,11 @@ def fused_tail(
     instance (``csrc/sft_tf32x3.cuh``), HR_conv2 over the slot table on the
     3×TF32 tile of ``csrc/conv3x3_tf32x3.cuh`` and conv_last on its fp32 tile
     (``csrc/conv_last.cuh conv_last_tf32x3_kernel``, the same slots and
-    widths); fp32 with ``qargs_hr`` keeps the dense kernels, the same
-    function on such weights. The plain version honours it too (the int8
-    conv's sum over the populated slots alone equals its dense sum on such
-    weights). False: dense, right for any weight."""
+    widths); fp32 with ``qargs_hr``: the SFT in that file's int8-output mode
+    (``sft_q8_f32_kernel``), HR_conv2 on the wgmma s8 tile's fp32-output
+    epilogue and conv_last on its fp32 tile. The plain version honours it
+    too (the int8 conv's sum over the populated slots alone equals its dense
+    sum on such weights). False: dense, right for any weight."""
     hb, wb, c = s.shape
     cc = cond1.shape[-1]
     cl = w_last.shape[-1]
@@ -1131,9 +1203,10 @@ def fused_sft_conv3_v2(
     s8 tile of ``csrc/conv3x3_s8_sm90.cuh``. fp32 on the card, the float
     body: the SFT on the row tile's 3×TF32 instance (``csrc/sft_tf32x3.cuh``,
     the same widths) and the conv over the slot table on the 3×TF32 tile of
-    ``csrc/conv3x3_tf32x3.cuh``; fp32 with ``qargs`` keeps the dense
-    kernels, the same function on such weights. The plain version honours
-    it too. False: dense, right for any weight.
+    ``csrc/conv3x3_tf32x3.cuh``; fp32 with ``qargs``: the SFT in that file's
+    int8-output mode (``sft_q8_f32_kernel``) and the conv on the wgmma s8
+    tile's fp32-output epilogue. The plain version honours it too. False:
+    dense, right for any weight.
     """
     hb, wb, c = x.shape
     cc = cond.shape[-1]

@@ -1,6 +1,6 @@
 """Where the Hopper conv tiles spend their time: in-kernel phase timers.
 
-    python -m hdrtv_tpu_torch.tools.sm90_phases [--only conv,agcm,s8,s8_s2,last,pool,chain,sft_f32,last_f32,head_f32]
+    python -m hdrtv_tpu_torch.tools.sm90_phases [--only conv,agcm,s8,s8_s2,last,pool,chain,sft_f32,sft_q8_f32,last_f32,head_f32]
 
 Builds ``tools/sm90_phases.cu`` (the bf16 tile of ``csrc/conv3x3_sm90.cuh``
 and the fp32 3×TF32 tile of ``csrc/conv3x3_tf32x3.cuh``, with their
@@ -102,6 +102,17 @@ three 16-deep 3×TF32 products and their waits), ``hand-off`` (bias, leaky
 ReLU and the split of the hidden into the second products' A) and ``out``
 (t and its stores). The convs of those forms are the ``conv`` part's fp32
 HR_conv1 (L0), resblock conv (L1) and trunk2/4 conv (L2) shapes.
+
+Then the same pass's int8-output mode (``sft_q8_f32_kernel``, the fp32 s2d
+forms of tail_w8a8 and sft_conv3_w8a8; :func:`sft_q8_f32_phases`) at the
+tail's 1080p shape with up_coarse and sft_conv3's L0 (symmetric and with a
+zero point) and L2 shapes: ``rows`` (the wait for its rows and the
+refill), ``reads`` (cond, x and add from the stage), ``hidden`` (the first
+product's FMA chains, bias, leaky ReLU, the hidden tile's stores and the
+meeting), ``products`` (the second products' FMA chains), ``t + codes`` (t,
+its codes by the multiply, the band's groups by the division, the code
+tile's stores) and ``out`` (the meeting and the 16-byte stores). The s8 tile's fp32-output
+epilogue behind it is the ``s8`` part's.
 
 Then the fp32 s2d tail's conv_last tile (``csrc/conv_last.cuh
 conv_last_tf32x3_kernel``; :func:`last_f32_phases`) at 1080p, packed and
@@ -206,6 +217,8 @@ def build() -> ctypes.CDLL:
     lib.hdrtv_sm90_cond_chain_f32_phases.restype = i
     lib.hdrtv_sm90_sft_f32_phases.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p, p]
     lib.hdrtv_sm90_sft_f32_phases.restype = i
+    lib.hdrtv_sm90_sft_q8_f32_phases.argtypes = [p, p, i, p, p, p, i, i, i, i, f, f, i, p, p]
+    lib.hdrtv_sm90_sft_q8_f32_phases.restype = i
     lib.hdrtv_conv_last_f32_phases.argtypes = [p] * 5 + [i, i, i, p, p, p]
     lib.hdrtv_conv_last_f32_phases.restype = i
     lib.hdrtv_sm90_agcm_f32_phases.argtypes = lib.hdrtv_sm90_agcm_phases.argtypes
@@ -556,6 +569,49 @@ def sft_f32_phases(lib, dev, rng) -> None:
         _report(f"{name} fp32 SFT pass (3×TF32 row tile)", phases, SFT_F32_PHASES, steps=False)
 
 
+SFT_Q8_F32_PHASES = ["total", "rows", "reads", "hidden", "products", "t + codes", "out"]
+
+
+def sft_q8_f32_phases(lib, dev, rng) -> None:
+    """The fp32 SFT pass's int8-output mode (``csrc/sft_tf32x3.cuh
+    sft_q8_f32_kernel``) at the 1080p shapes of the fp32 s2d forms of
+    tail_w8a8 (540 × 960, up_coarse un-folded on read) and sft_conv3_w8a8
+    (L0 540 × 960 and L2 135 × 240, x alone), the layer calibrated on the
+    pass's own t range, symmetric and (L0 sft_conv3) with a zero point;
+    seeded w_s2d_1x1 weights at natural CC 16, C 32."""
+    from hdrtv_tpu_torch.models.s2d import w_s2d_1x1
+    from hdrtv_tpu_torch.ops.megakernel import _sft_t_rows
+
+    c, cc = 128, 64
+    stream = torch.cuda.current_stream().cuda_stream
+    pairs = []
+    for ci, co in ((16, 16), (16, 32), (16, 16), (16, 32)):
+        pairs.append((torch.as_tensor(w_s2d_1x1(rng.randn(1, 1, ci, co).astype(np.float32) * 0.05)[0, 0],
+                                      device=dev),
+                      torch.as_tensor(np.tile(rng.randn(co) * 0.1, 4).astype(np.float32), device=dev)))
+    ptrs = native.pointer_array([p for pair in pairs for p in pair])
+    for name, h, w, up, asym in (("tail_w8a8 L0 + up_coarse", 540, 960, True, False),
+                                 ("sft_conv3_w8a8 L0", 540, 960, False, False),
+                                 ("sft_conv3_w8a8 L0, asymmetric", 540, 960, False, True),
+                                 ("sft_conv3_w8a8 L2", 135, 240, False, False)):
+        x = torch.rand(h, w, c, device=dev) - 0.3
+        cond = torch.rand(h, w, cc, device=dev) - 0.3
+        add = torch.rand(h // 2, w // 2, 4 * c, device=dev) - 0.3 if up else None
+        tt = _sft_t_rows(x, cond, pairs, torch.float32)
+        lo, hi = float(tt.min()), float(tt.max())
+        del tt
+        s, z, pad = ((hi - lo) / 255.0, lo, -128) if asym else (max(abs(lo), abs(hi)) / 127.0, 0.0, 0)
+        codes = torch.empty(h, w, c, dtype=torch.int8, device=dev)
+        phases = torch.zeros(3 * 132 * 8, dtype=torch.int64, device=dev)
+        for _ in range(3):  # warm: the last run's sums are read
+            rc = lib.hdrtv_sm90_sft_q8_f32_phases(x.data_ptr(), None if add is None else add.data_ptr(), int(up),
+                                                  cond.data_ptr(), codes.data_ptr(), ptrs, h, w, c, cc, s, z, pad,
+                                                  phases.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"sft_q8_f32 {name}: CUDA error {rc}")
+        _report(f"{name} fp32 SFT pass, int8-output mode", phases, SFT_Q8_F32_PHASES, steps=False)
+
+
 def last_f32_phases(lib, dev, rng) -> None:
     """The fp32 s2d tail's conv_last tile at the 1080p shape (540 × 960 s2d
     pixels, h 128 fp32 channels → 12, seeded w_s2d_s1 weight), packed and
@@ -627,7 +683,7 @@ def head_f32_phases(lib, dev, rng) -> None:
     _report("in_conv_tf32x3 (1080p), per block", phases, IN_CONV_F32_PHASES, steps=False)
 
 
-PARTS = ("conv", "agcm", "s8", "s8_s2", "last", "pool", "chain", "sft_f32", "last_f32", "head_f32")
+PARTS = ("conv", "agcm", "s8", "s8_s2", "last", "pool", "chain", "sft_f32", "sft_q8_f32", "last_f32", "head_f32")
 
 
 def main() -> None:
@@ -676,7 +732,7 @@ def main() -> None:
             print(f"{name} {dtype}: {len(d)} warpgroups, {mean[7]:.0f} steps each; cycles {shares}", flush=True)
     for part, fn in (("agcm", agcm_phases), ("s8", s8_phases), ("s8_s2", s8_s2_phases), ("last", last_phases),
                      ("pool", pool_phases), ("chain", chain_phases), ("sft_f32", sft_f32_phases),
-                     ("last_f32", last_f32_phases), ("head_f32", head_f32_phases)):
+                     ("sft_q8_f32", sft_q8_f32_phases), ("last_f32", last_f32_phases), ("head_f32", head_f32_phases)):
         if part in only:
             fn(lib, dev, rng)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -9,7 +9,8 @@
 // s2d form on the row tile (csrc/chain_sm90.cuh), its int8 instance when a
 // step is int8, in fp32 its 3×TF32 instance (csrc/chain_tf32x3.cuh); and the
 // fp32 SFT pass of sft_conv3's and resblock's s2d forms on the row tile's
-// 3×TF32 instance (csrc/sft_tf32x3.cuh). Each fills a (2·blocks, 8) u64
+// 3×TF32 instance (csrc/sft_tf32x3.cuh), and its int8-output mode (the fp32
+// s2d forms of tail_w8a8 and sft_conv3_w8a8). Each fills a (2·blocks, 8) u64
 // array (the 3×TF32 row tiles: (3·blocks, 8)).
 #define HDRTV_SM90_PHASES
 #include "../csrc/chain_sm90.cuh"
@@ -142,6 +143,17 @@ extern "C" int hdrtv_sm90_sft_f32_phases(const void* x, const void* add, int coa
                                          void* t, const void* const* sft, int H, int W, int C, int CC, void* phases,
                                          void* stream) {
   return static_cast<int>(hdrtv::sft_tf32x3(x, add, coarse, xsum, cond, t, sft, H, W, C, CC,
-                                            static_cast<cudaStream_t>(stream),
+                                            static_cast<cudaStream_t>(stream), nullptr,
+                                            static_cast<unsigned long long*>(phases)));
+}
+
+// The same pass in its int8-output mode (sft_q8_f32_kernel): t written as the
+// codes of the layer (s, z, pad; the codes only matter here).
+extern "C" int hdrtv_sm90_sft_q8_f32_phases(const void* x, const void* add, int coarse, const void* cond, void* codes,
+                                            const void* const* sft, int H, int W, int C, int CC, float s, float z,
+                                            int pad, void* phases, void* stream) {
+  const hdrtv::QuantParams q = quant(nullptr, nullptr, nullptr, s, z, pad);
+  return static_cast<int>(hdrtv::sft_tf32x3(x, add, coarse, nullptr, cond, codes, sft, H, W, C, CC,
+                                            static_cast<cudaStream_t>(stream), &q,
                                             static_cast<unsigned long long*>(phases)));
 }

@@ -937,11 +937,13 @@ def test_f32_s2d_sft_forms_refuse_other_widths(dev):
 
 
 @pytest.mark.parametrize("kernel", ["sft_conv3_w8a8", "resblock_w8a8", "tail_w8a8"])
-def test_f32_int8_bodies_and_tail_stay_dense(dev, kernel):
-    """fp32 with s2d: the int8 bodies of sft_conv3, resblock and the tail
-    keep their dense kernels (pointwise.cuh's SFT pass, the mma.sync convs,
-    conv_last_kernel), within their plain versions' bounds; no 3×TF32 row
-    tile runs."""
+def test_f32_int8_sft_and_tail_run_the_q8_tiles_resblock_stays_dense(dev, kernel):
+    """fp32 with s2d: the int8 bodies of sft_conv3 and the tail run the SFT
+    pass's int8-output mode (csrc/sft_tf32x3.cuh sft_q8_f32_kernel) and the
+    wgmma s8 tile's fp32-output instance, the tail's conv_last its fp32 tile
+    (conv_last_tf32x3_kernel), and no dense kernel; resblock's int8 body
+    keeps its dense kernels (pointwise.cuh's SFT pass, the mma.sync convs);
+    each within its plain version's bounds."""
     from hdrtv_tpu_torch.ops.megakernel import (
         fused_resblock, fused_resblock_ref, fused_sft_conv3_v2, fused_sft_conv3_v2_ref, fused_tail, fused_tail_ref,
     )
@@ -979,9 +981,54 @@ def test_f32_int8_bodies_and_tail_stay_dense(dev, kernel):
 
         _q_close(call(), fused_resblock_ref(*args, qargs1=q1, qargs2=q2, s2d=True), q2, "f32", share=0.1, flips=8)
     counts = _kernel_launches(call)
-    assert _launched(counts, "sft_tf32x3_kernel") == 0 and _launched(counts, "sft_kernel") >= 1, counts
+    assert _launched(counts, "sft_tf32x3_kernel") == 0, counts
+    if kernel == "resblock_w8a8":
+        assert _launched(counts, "sft_q8_f32_kernel") == 0 and _launched(counts, "sft_kernel") >= 1, counts
+        return
+    assert _launched(counts, "sft_q8_f32_kernel") == 1 and _launched(counts, "sft_kernel") == 0, counts
+    assert _launched(counts, "conv3x3_s8_sm90_kernel<1, false, true, false>") == 1, counts
+    assert _launched(counts, "conv3x3_s8_kernel") == 0 and _launched(counts, "conv_last_kernel") == 0, counts
     if kernel == "tail_w8a8":
-        assert _launched(counts, "conv_last_tf32x3_kernel") == 0 and _launched(counts, "conv_last_kernel") == 1, counts
+        assert _launched(counts, "conv_last_tf32x3_kernel") == 1, counts
+
+
+@pytest.mark.parametrize("hb,wb,coarse,asym", [
+    (12, 20, False, False), (9, 15, False, True), (1, 7, False, False), (2, 70, True, True), (135, 240, False, True),
+    (540, 960, True, False),
+])
+def test_f32_q8_sft_pass_codes_equal_plain(dev, hb, wb, coarse, asym):
+    """The fp32 SFT pass's int8-output mode (sft_q8_f32_kernel), launched by
+    fp32 sft_conv3_w8a8's s2d call with codes the test keeps: on whole,
+    ragged and partial 64-row tiles, the L2 and the 1080p L0 shape, x alone
+    or summed with the d2s of a coarse up tensor (the tail's input),
+    symmetric and with a zero point, its codes equal the plain version's
+    codes of the fp32 t bit for bit (FMA chains in the plain matmul's
+    order, quantize_code_fast with its band fix-up); the s2d call's output
+    equals the plain version's."""
+    from hdrtv_tpu_torch.ops.megakernel import (
+        _d2s_fine, _sft_hopper, _sft_t_rows, fused_sft_conv3_v2, fused_sft_conv3_v2_ref,
+    )
+    from hdrtv_tpu_torch.ops.w8a8 import _quantize_act
+
+    rng = np.random.RandomState(hb * wb + 7 * asym)
+    x = _t(rng.rand(hb, wb, 128) - 0.3, dev)
+    if coarse:
+        x = x + _d2s_fine(_t(rng.rand(hb // 2, wb // 2, 512) - 0.3, dev))
+    cond = _t(rng.rand(hb, wb, 64) - 0.3, dev)
+    sft = _sft_s2d(rng, dev, 0.05, "f32")
+    t_r = _sft_t_rows(x, cond, sft, torch.float32)
+    w, b, qa = _qlayer(rng, dev, 128, 128, (float(t_r.min()), float(t_r.max())), asym)
+    hopper, table, per_list = _sft_hopper("sft_conv3", True, torch.float32, 64, 128, 128, quant=True)
+    codes = torch.empty(hb, wb, 128, dtype=torch.int8, device=dev)
+    y = torch.empty(hb, wb, 128, device=dev)
+    native.launch("sft_conv3", torch.float32, x.data_ptr(), cond.data_ptr(),
+                  native.pointer_array([p for pair in sft for p in pair]), w.data_ptr(), b.data_ptr(),
+                  native.quant_params(qa), None, y.data_ptr(), codes.data_ptr(), hb, wb, 128, 64, 128, 1, hopper,
+                  table, per_list, native.stream_of(x))
+    torch.cuda.synchronize()
+    assert torch.equal(codes, _quantize_act(t_r, qa))
+    assert torch.equal(fused_sft_conv3_v2(x, cond, sft, w, b, relu=True, qargs=qa, s2d=True),
+                       fused_sft_conv3_v2_ref(x, cond, sft, w, b, relu=True, qargs=qa, s2d=True))
 
 
 def _tail_f32_s2d_args(rng, dev, hb, wb, coarse):

@@ -14,8 +14,10 @@ CPU against hdrtv_tpu and their plain versions:
   fp32 (Pallas in interpret mode) and the port's plain versions, within
   ATOL;
 - the routing: ``_sft_hopper`` and the wrappers' card branch give the tile
-  route to fp32 sft_conv3, resblock and the tail with ``s2d``, the dense
-  route to every fp32 call with qargs.
+  route to fp32 sft_conv3, resblock and the tail with ``s2d``, and to the
+  fp32 int8 sft_conv3 and tail (the int8-output mode and the s8 tile:
+  tests/test_torch_fp32_int8_tiles.py), the dense route to fp32 resblock
+  with qargs.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_fp32_sft_tile.py -q
 """
@@ -28,7 +30,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from hdrtv_tpu_torch.ops.conv_kernels import sm90_table
 from hdrtv_tpu_torch.ops.megakernel import (
-    SFT_TF32X3, _d2s_fine, _sft_hopper, _sft_t_rows, fused_resblock, fused_sft_conv3_v2, sft_tf32x3_emulation,
+    SFT_Q8_F32, SFT_TF32X3, _d2s_fine, _sft_hopper, _sft_t_rows, fused_resblock, fused_sft_conv3_v2,
+    sft_tf32x3_emulation,
 )
 from tests.test_torch_s2d_sft import C, CC, _resblock_args, _sft4, _sft_conv_args
 from tests.test_torch_tf32x3 import _tile_conv
@@ -140,20 +143,25 @@ def test_resblock_fp32_s2d_emulation_matches_pallas(second):
 
 def test_sft_hopper_routes_fp32_s2d_calls():
     """fp32 with s2d: sft_conv3, resblock and the tail get the 3×TF32 tiles'
-    route with the fp32 stride-1 slot table (9 chunks a list); every fp32
-    call with qargs and s2d=False get the dense route; natural widths other
-    than (16, 32) raise on the tile route."""
+    route with the fp32 stride-1 slot table (9 chunks a list), and so do
+    sft_conv3 and the tail with qargs (SFT_Q8_F32: the int8-output mode and
+    the s8 tile); resblock with qargs and s2d=False get the dense route;
+    natural widths other than (16, 32) raise on the tile route."""
     f = torch.float32
     table, per_list = sm90_table("sft_conv3", 1, 1, 4 * C, 4 * C, 4 * C, dtype=f)
-    assert SFT_TF32X3 == ("sft_conv3", "resblock", "tail")
+    assert SFT_TF32X3 == ("sft_conv3", "resblock", "tail") and SFT_Q8_F32 == ("sft_conv3", "tail")
     for name in SFT_TF32X3:
-        hopper, got, n = _sft_hopper(name, True, f, 4 * CC, 4 * C, 4 * C)
-        assert (hopper, n) == (1, per_list) == (1, 9) and list(got) == list(table)
-        assert _sft_hopper(name, True, f, 4 * CC, 4 * C, 4 * C, quant=True) == (0, None, 0)
+        for quant in (False, True):
+            hopper, got, n = _sft_hopper(name, True, f, 4 * CC, 4 * C, 4 * C, quant=quant)
+            if quant and name not in SFT_Q8_F32:
+                assert (hopper, got, n) == (0, None, 0)
+                continue
+            assert (hopper, n) == (1, per_list) == (1, 9) and list(got) == list(table)
+            with pytest.raises(ValueError, match="row tile"):
+                _sft_hopper(name, True, f, 4 * 32, 4 * 64, 4 * 64, quant=quant)
         assert _sft_hopper(name, False, f, 4 * CC, 4 * C, 4 * C) == (0, None, 0)
-        with pytest.raises(ValueError, match="row tile"):
-            _sft_hopper(name, True, f, 4 * 32, 4 * 64, 4 * 64)
-    assert _sft_hopper("tail", True, f, 4 * CC, 4 * C, 4 * C, quant=True) == (0, None, 0)
+        assert _sft_hopper(name, False, f, 4 * CC, 4 * C, 4 * C, quant=True) == (0, None, 0)
+    assert _sft_hopper("resblock", True, f, 4 * CC, 4 * C, 4 * C, quant=True) == (0, None, 0)
     assert _sft_hopper("sft_conv3", True, torch.bfloat16, 4 * CC, 4 * C, 4 * C, quant=True)[0] == 1
 
 
@@ -164,8 +172,10 @@ def test_fp32_wrappers_hand_their_kernels_the_route(monkeypatch, call):
     (device checks and the stream stubbed, CPU tensors standing in): the
     float s2d sft_conv3 and resblock hand the kernel s2d = 1 and the slot
     table and count under their own names (resblock with up_coarse also its
-    xsum scratch, fp32), and so does the float s2d tail; the int8 bodies
-    hand the dense route."""
+    xsum scratch, fp32), and so does the float s2d tail; the int8 bodies of
+    sft_conv3 and the tail hand the same route (their SFT's int8-output mode,
+    the s8 tile) and count as *_w8a8, resblock's int8 body hands the dense
+    route."""
     from hdrtv_tpu_torch.ops import native
     from hdrtv_tpu_torch.ops.megakernel import fused_tail
     from tests.test_torch_s2d_int8 import _int8_layer
@@ -193,7 +203,7 @@ def test_fp32_wrappers_hand_their_kernels_the_route(monkeypatch, call):
     (kernel, dt, counter, args), = launched
     assert (kernel, counter) == want and dt == torch.float32
     hopper, table, per_list = args[-4:-1]
-    if call in ("sft_conv3", "resblock", "resblock_up", "tail"):
+    if call in ("sft_conv3", "resblock", "resblock_up", "tail", "sft_conv3_w8a8", "tail_w8a8"):
         assert (hopper, per_list) == (1, 9) and list(table) == list(_table()[0])
     else:
         assert (hopper, table, per_list) == (0, None, 0)

@@ -18,8 +18,9 @@ against hdrtv_tpu, their plain versions and float64:
   up_coarse; the head within ATOL for the three frame kinds;
 - the routing: the card branch of both wrappers in fp32 with ``s2d`` hands
   the tile routes (the tail: s2d = 1, the slot table and conv_last's walk;
-  the head: ``agcm_head_s2d`` with the s2d pack in fp32); the fp32 tail with
-  ``qargs_hr`` and ``s2d=False`` stay dense; other widths raise.
+  the head: ``agcm_head_s2d`` with the s2d pack in fp32), the fp32 tail with
+  ``qargs_hr`` too (tests/test_torch_fp32_int8_tiles.py); ``s2d=False``
+  stays dense; other widths raise.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_fp32_tail_head.py -q
 """
@@ -238,9 +239,9 @@ def _stub_card(monkeypatch) -> list:
 
 @pytest.mark.parametrize("call", ["float", "float_unpacked", "int8", "dense"])
 def test_tail_fp32_wrapper_hands_its_kernel_the_route(monkeypatch, call):
-    """fp32 fused_tail's card branch: the float s2d body, packed or not,
-    hands the kernel s2d = 1, the stride-1 slot table and conv_last's walk;
-    the int8 body (qargs_hr) and s2d=False hand the dense route (no table,
+    """fp32 fused_tail's card branch: the float s2d body, packed or not, and
+    the int8 s2d body (qargs_hr) hand the kernel s2d = 1, the stride-1 slot
+    table and conv_last's walk; s2d=False hands the dense route (no table,
     no walk); a conv_last of another width raises on the tile route."""
     from hdrtv_tpu_torch.ops.megakernel import conv_last_walk, fused_tail
     from tests.test_torch_s2d_conv_last import _int8_tail_args
@@ -252,13 +253,14 @@ def test_tail_fp32_wrapper_hands_its_kernel_the_route(monkeypatch, call):
     ((kernel, dt, counter, args),) = launched
     assert kernel == "tail" and dt == torch.float32 and counter == ("tail_w8a8" if call == "int8" else None)
     walk, (hopper, table, per_list) = args[10], args[-4:-1]
-    if call.startswith("float"):
+    if call != "dense":
         table_want, n = sm90_table("tail", 1, 1, 4 * C, 4 * C, 4 * C, dtype=torch.float32)
         assert walk is conv_last_walk() and (hopper, per_list) == (1, n) == (1, 9)
         assert list(table) == list(table_want)
         narrow = torch.from_numpy(w_s2d_s1(rng.randn(3, 3, C, 2).astype(f32)))
         with pytest.raises(ValueError, match="conv_last's s2d tile takes"):
-            fused_tail(ta[0], ta[1], torch.zeros(4, 6, 8), ta[3], ta[4], ta[5], narrow, torch.zeros(8), s2d=True)
+            fused_tail(ta[0], ta[1], torch.zeros(4, 6, 8), ta[3], ta[4], ta[5], narrow, torch.zeros(8),
+                       qargs_hr=qt if call == "int8" else None, s2d=True)
     else:
         assert walk is None and (hopper, table, per_list) == (0, None, 0)
 

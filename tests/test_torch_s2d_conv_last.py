@@ -23,8 +23,8 @@ zeros); the plain version honours the declaration with
   ``w_last`` with a weight off the slots gives another result than the JAX
   kernel's: the skip is visible.
 - The frame programs hand the tail C = 128, Cl = 12 with ``s2d=True`` on
-  every call, and the wrapper hands its kernel the walk for bf16 s2d calls
-  only; the int8 fp32 program's twelve block_conv3 calls with qargs all
+  every call, and the wrapper hands its kernel the walk for s2d calls (bf16,
+  and fp32 float or int8) only; the int8 fp32 program's twelve block_conv3 calls with qargs all
   declare ``a_sub`` = 1 at widths the wgmma s8 tile takes, and the wrapper
   hands them its slot table.
 
@@ -290,9 +290,9 @@ def test_bf16_programs_tail_calls_take_the_conv_last_tile(monkeypatch, tmp_path,
 def test_tail_wrapper_hands_its_kernel_the_walk(monkeypatch, call):
     """The card branch of fused_tail, its launch intercepted (device checks
     and the stream stubbed, CPU tensors standing in): bf16 s2d calls, float
-    or int8, and fp32 s2d float calls (conv_last's fp32 tile) hand the
-    kernel conv_last_walk; bf16 s2d=False and the fp32 int8 body hand none;
-    a bf16 s2d call with Cl other than 12 raises."""
+    or int8, and fp32 s2d calls, float or int8 (conv_last's fp32 tile), hand
+    the kernel conv_last_walk; bf16 s2d=False hands none; a bf16 s2d call
+    with Cl other than 12 raises."""
     from hdrtv_tpu_torch.ops import native
     from hdrtv_tpu_torch.ops.megakernel import conv_last_walk, fused_tail
 
@@ -308,7 +308,7 @@ def test_tail_wrapper_hands_its_kernel_the_walk(monkeypatch, call):
     fused_tail(*ta, qargs_hr=qt if call.endswith("int8") else None, s2d=s2d)
     (args,) = launched
     walk = args[10]
-    if s2d and (dtype == "bf16" or call == "fp32"):
+    if s2d:
         assert walk is conv_last_walk() and args[-4] == 1
     else:
         assert walk is None and args[-4] == 0

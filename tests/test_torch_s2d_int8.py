@@ -22,9 +22,12 @@ s2d_slots``) and reads an out-of-image tap as the layer's pad code.
 - ``_sft_hopper`` routes bf16 ``s2d=True`` calls to the Hopper tiles, int8
   or float, and the wrappers hand their kernels that route: the int8 tail,
   sft_conv3 and resblock the slot table, block_conv3's int8 body with
-  ``a_sub=1`` too (bf16 and fp32), the fp32 int8 tail and ``a_sub=0`` the
-  dense kernels (the fp32 float tail the 3×TF32 tiles' route); other widths raise (tests/test_torch_s2d_int8_rest.py holds resblock_w8a8 and
-  block_conv3_w8a8 against the Pallas bodies).
+  ``a_sub=1`` too (bf16 and fp32), and the fp32 int8 tail too (the int8-output
+  mode of csrc/sft_tf32x3.cuh and the s8 tile's fp32-output epilogue; the
+  fp32 float tail the 3×TF32 tiles' route), ``a_sub=0`` the dense kernels;
+  other widths raise (tests/test_torch_s2d_int8_rest.py holds resblock_w8a8 and
+  block_conv3_w8a8 against the Pallas bodies, tests/test_torch_fp32_int8_tiles.py
+  the fp32 int8 tail and sft_conv3).
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_s2d_int8.py -q
 """
@@ -175,9 +178,9 @@ def test_fixture_int8_weights_have_the_s2d_structure():
 
 def test_sft_hopper_routes_bf16_s2d_calls():
     """(1, sm90_table's stride-1 slot table, 9 per list) for a bf16 s2d call
-    and for the fp32 float tail (its 3×TF32 tiles, the fp32 table); (0,
-    None, 0) for the fp32 int8 tail or s2d=False; natural widths other than
-    (16, 32) raise."""
+    and for the fp32 tail, float (its 3×TF32 tiles) and int8 (the SFT's
+    int8-output mode, the s8 tile), with the fp32 table; (0, None, 0) for
+    s2d=False; natural widths other than (16, 32) raise."""
     from hdrtv_tpu_torch.ops.conv_kernels import sm90_table
     from hdrtv_tpu_torch.ops.megakernel import _sft_hopper
 
@@ -187,7 +190,8 @@ def test_sft_hopper_routes_bf16_s2d_calls():
     f32_hopper, f32_table, f32_per_list = _sft_hopper("tail", True, torch.float32, 4 * CC, 4 * C, 4 * C)
     assert (f32_hopper, f32_per_list) == (1, 9)
     assert list(f32_table) == list(sm90_table("tail", 1, 1, 128, 128, 128, dtype=torch.float32)[0])
-    assert _sft_hopper("tail", True, torch.float32, 4 * CC, 4 * C, 4 * C, quant=True) == (0, None, 0)
+    q_hopper, q_table, q_per_list = _sft_hopper("tail", True, torch.float32, 4 * CC, 4 * C, 4 * C, quant=True)
+    assert (q_hopper, q_per_list) == (1, 9) and list(q_table) == list(f32_table)
     assert _sft_hopper("sft_conv3", False, bf, 4 * CC, 4 * C, 4 * C) == (0, None, 0)
     with pytest.raises(ValueError, match="row tile"):
         _sft_hopper("sft_conv3", True, bf, 4 * CC, 4 * 64, 4 * 64)
@@ -198,11 +202,11 @@ def test_sft_hopper_routes_bf16_s2d_calls():
 def test_int8_wrappers_hand_their_kernels_the_route(monkeypatch, call):
     """The card branch of the wrappers, its launch intercepted (device
     checks and the stream stubbed, CPU tensors standing in): the s2d int8
-    tail, sft_conv3 and resblock in bf16 hand the kernel s2d = 1 and the
-    slot table and count as *_w8a8, block_conv3's int8 body with a_sub = 1
-    (PS-folded 128 → 512) the slot table in bf16 and in fp32; the fp32 int8
-    tail, and block_conv3's int8 body with a_sub = 0, hand the dense route
-    (no table)."""
+    tail, sft_conv3 and resblock in bf16 and the s2d int8 tail in fp32 hand
+    the kernel s2d = 1 and the slot table and count as *_w8a8,
+    block_conv3's int8 body with a_sub = 1 (PS-folded 128 → 512) the slot
+    table in bf16 and in fp32; block_conv3's int8 body with a_sub = 0 hands
+    the dense route (no table)."""
     from hdrtv_tpu_torch.ops import native
     from hdrtv_tpu_torch.ops.conv_kernels import fused_block_conv3
     from hdrtv_tpu_torch.ops.megakernel import fused_resblock, fused_sft_conv3_v2, fused_tail
@@ -250,7 +254,7 @@ def test_int8_wrappers_hand_their_kernels_the_route(monkeypatch, call):
     (kernel, counter, args), = launched
     assert (kernel, counter) == want
     hopper, table, per_list = args[-4:-1]
-    if call in ("tail_w8a8", "sft_conv3_w8a8", "resblock_w8a8"):
+    if call in ("tail_w8a8", "sft_conv3_w8a8", "resblock_w8a8", "tail_w8a8_fp32"):
         assert (hopper, per_list) == (1, 9) and table is not None
     else:
         assert (hopper, table, per_list) == (0, None, 0)
